@@ -1,0 +1,241 @@
+"""LightGBM-compatible model text serialization; the PyTorch port's copy of
+lightgbm_tpu/models/model_text.py, so model text is byte-compatible both ways.
+
+Mirrors GBDT::SaveModelToString / LoadModelFromString
+(LightGBM src/boosting/gbdt_model_text.cpp:248-446) so models trained here
+load into stock LightGBM and vice versa: same header keys (version=v2, num_class,
+num_tree_per_iteration, label_index, max_feature_idx, objective, feature_names,
+feature_infos, tree_sizes), same per-tree blocks (Tree::ToString), same footers
+(feature importances, parameters).
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..utils import log
+from .tree import Tree, _short_float
+
+MODEL_VERSION = "v2"
+
+
+def model_fingerprint(text: str) -> str:
+    """Stable identity of a model: sha1 of its serialized text.
+
+    Shared by the serving registry (hot-swap version reporting,
+    serve/server.py), the generated-C++ provenance header (model_codegen.py)
+    and the bringup spec-vs-seq equality check (helpers/tpu_bringup.py) — one
+    hash, so "same model" means the same thing everywhere.
+    """
+    return hashlib.sha1(text.encode("utf-8")).hexdigest()
+
+
+def peek_model_header(text: str) -> Dict[str, object]:
+    """Cheap header scan of LightGBM model text — no tree parsing.
+
+    Returns num_class / num_tree_per_iteration / max_feature_idx / objective /
+    feature_names / num_trees (from tree_sizes) / average_output. The serving
+    registry uses this to validate and describe a model file before paying the
+    full ``Booster(model_file=...)`` parse, and /models reports it.
+    """
+    out: Dict[str, object] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Tree="):
+            break
+        if line == "average_output":
+            out["average_output"] = True
+        elif "=" in line:
+            k, v = line.split("=", 1)
+            if k in ("num_class", "num_tree_per_iteration", "max_feature_idx"):
+                out[k] = int(v)
+            elif k == "objective":
+                out[k] = v
+            elif k == "feature_names":
+                out[k] = v.split()
+            elif k == "tree_sizes":
+                out["num_trees"] = len(v.split())
+    out.setdefault("average_output", False)
+    for key in ("num_class", "num_tree_per_iteration", "max_feature_idx"):
+        if key not in out:
+            raise ValueError("Model text doesn't specify %s" % key)
+    return out
+
+
+def _feature_infos(gbdt) -> List[str]:
+    ds = gbdt.train_set
+    infos = ["none"] * (gbdt.max_feature_idx + 1)
+    if ds is not None:
+        for m, j in zip(ds.mappers, ds.used_feature_idx):
+            if m.bin_type == 1:
+                infos[j] = ":".join(str(c) for c in m.bin_2_categorical)
+            else:
+                infos[j] = "[%s:%s]" % (_short_float(m.min_val), _short_float(m.max_val))
+    elif getattr(gbdt, "feature_infos", None):
+        # loaded model: echo the loaded infos so save round-trips bitwise
+        loaded = gbdt.feature_infos
+        infos[: len(loaded)] = loaded
+    return infos
+
+
+def save_model_to_string(gbdt, start_iteration: int = 0, num_iteration: int = -1) -> str:
+    gbdt._materialize()
+    parts: List[str] = []
+    parts.append("tree")  # SubModelName for gbdt/goss/rf ("tree"), dart differs
+    parts.append("version=%s" % MODEL_VERSION)
+    parts.append("num_class=%d" % gbdt.num_class)
+    parts.append("num_tree_per_iteration=%d" % gbdt.num_tree_per_iteration)
+    parts.append("label_index=%d" % gbdt.label_idx)
+    parts.append("max_feature_idx=%d" % gbdt.max_feature_idx)
+    if gbdt.objective is not None:
+        parts.append("objective=%s" % gbdt.objective.to_string())
+    if gbdt.average_output:
+        parts.append("average_output")
+    ds = gbdt.train_set
+    if ds is not None:
+        names = ds.feature_names
+    else:
+        names = getattr(gbdt, "feature_names", ["Column_%d" % i for i in range(gbdt.max_feature_idx + 1)])
+    parts.append("feature_names=%s" % " ".join(names))
+    parts.append("feature_infos=%s" % " ".join(_feature_infos(gbdt)))
+
+    K = gbdt.num_tree_per_iteration
+    models = gbdt.models
+    total_iteration = len(models) // max(K, 1)
+    start_iteration = max(0, min(start_iteration, total_iteration))
+    num_used_model = len(models)
+    if num_iteration is not None and num_iteration > 0:
+        num_used_model = min((start_iteration + num_iteration) * K, num_used_model)
+    start_model = start_iteration * K
+
+    tree_strs = []
+    for i in range(start_model, num_used_model):
+        s = "Tree=%d\n" % (i - start_model) + models[i].to_string() + "\n"
+        tree_strs.append(s)
+    parts.append("tree_sizes=%s" % " ".join(str(len(s)) for s in tree_strs))
+    parts.append("")
+    body = "\n".join(parts) + "\n"
+    body += "".join(tree_strs)
+    body += "end of trees\n"
+
+    imp = gbdt.feature_importance("split", num_iteration)
+    pairs = [(int(imp[i]), names[i]) for i in range(len(imp)) if int(imp[i]) > 0]
+    pairs.sort(key=lambda p: -p[0])
+    body += "\nfeature importances:\n"
+    for cnt, name in pairs:
+        body += "%s=%d\n" % (name, cnt)
+    body += "\nparameters:\n"
+    if gbdt.train_set is None and getattr(gbdt, "loaded_parameter", ""):
+        # loaded model: echo the loaded parameter block
+        # (gbdt_model_text.cpp:328-331)
+        body += gbdt.loaded_parameter + "\n"
+    else:
+        from ..config import NON_MODEL_PARAMS
+
+        cfg = gbdt.config
+        for k, v in cfg.to_dict().items():
+            if k in NON_MODEL_PARAMS:
+                # run provenance (e.g. the hist_tune cache path), not model
+                # semantics: keeping it out pins model bytes to the model,
+                # not to where a tune cache lived (docs/HistogramRouting.md)
+                continue
+            if isinstance(v, list):
+                v = ",".join(str(x) for x in v)
+            body += "[%s: %s]\n" % (k, v)
+    body += "end of parameters\n"
+    return body
+
+
+def load_model_from_string(text: str, gbdt_cls, config) -> "object":
+    """LoadModelFromString (gbdt_model_text.cpp:347-446) -> prediction-ready GBDT."""
+    lines = text.splitlines()
+    header = {}
+    i = 0
+    average_output = False
+    objective_str = None
+    while i < len(lines) and not lines[i].startswith("Tree="):
+        line = lines[i].strip()
+        if line == "average_output":
+            average_output = True
+        elif "=" in line:
+            k, v = line.split("=", 1)
+            header[k] = v
+        i += 1
+
+    for key in ("num_class", "num_tree_per_iteration", "max_feature_idx"):
+        if key not in header:
+            log.fatal("Model file doesn't specify %s" % key)
+    objective_str = header.get("objective", None)
+
+    gbdt = gbdt_cls(config, None, None)
+    gbdt.num_class = int(header["num_class"])
+    gbdt.num_tree_per_iteration = int(header["num_tree_per_iteration"])
+    gbdt.label_idx = int(header.get("label_index", 0))
+    gbdt.max_feature_idx = int(header["max_feature_idx"])
+    gbdt.average_output = average_output
+    gbdt.feature_names = header.get("feature_names", "").split()
+    gbdt.feature_infos = header.get("feature_infos", "").split()
+    gbdt.loaded_objective = objective_str
+
+    # parse trees
+    trees: List[Tree] = []
+    cur: List[str] = []
+    in_tree = False
+    for line in lines[i:]:
+        if line.startswith("Tree="):
+            if cur:
+                trees.append(Tree.from_string("\n".join(cur)))
+            cur = []
+            in_tree = True
+            continue
+        if line.strip() == "end of trees":
+            if cur:
+                trees.append(Tree.from_string("\n".join(cur)))
+            cur = []
+            in_tree = False
+            break
+        if in_tree and line.strip():
+            cur.append(line)
+    gbdt.models = trees
+    gbdt._tree_arrays = [None] * len(trees)
+    gbdt.iter_ = len(trees) // max(gbdt.num_tree_per_iteration, 1)
+
+    # capture the parameters block verbatim (loaded_parameter_,
+    # gbdt_model_text.cpp:496-508) so a loaded model saves it back unchanged
+    try:
+        rest = text[text.index("end of trees"):]
+        p0 = rest.index("parameters:")
+        p1 = rest.index("end of parameters")
+        gbdt.loaded_parameter = rest[p0 + len("parameters:"): p1].strip("\n")
+    except ValueError:
+        gbdt.loaded_parameter = ""
+    return gbdt
+
+
+def dump_model_to_json(gbdt, num_iteration: int = -1) -> dict:
+    """GBDT::DumpModel (gbdt_model_text.cpp:19) as a dict."""
+    gbdt._materialize()
+    K = gbdt.num_tree_per_iteration
+    models = gbdt.models
+    use = len(models)
+    if num_iteration is not None and num_iteration > 0:
+        use = min(use, num_iteration * K)
+    ds = gbdt.train_set
+    names = ds.feature_names if ds is not None else getattr(gbdt, "feature_names", [])
+    return {
+        "name": "tree",
+        "version": MODEL_VERSION,
+        "num_class": gbdt.num_class,
+        "num_tree_per_iteration": K,
+        "label_index": gbdt.label_idx,
+        "max_feature_idx": gbdt.max_feature_idx,
+        "objective": gbdt.objective.to_string() if gbdt.objective else getattr(gbdt, "loaded_objective", ""),
+        "average_output": gbdt.average_output,
+        "feature_names": names,
+        "tree_info": [
+            dict(tree_index=i, **models[i].to_json()) for i in range(use)
+        ],
+    }

@@ -87,6 +87,11 @@ def pytest_configure(config):
         "burn-down), NOT importance — every listed case has a quicker "
         "sibling or a check.sh smoke covering the same seam.",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the PyTorch port's hand-written kernels); "
+        "skips with a reason elsewhere",
+    )
 
 
 # ---------------------------------------------------------------------------
