@@ -403,10 +403,11 @@ class Config:
     # permutation histograms whose cost tracks leaf size) or "masked"
     # (full-N masked passes; the differential oracle, ops/grow.py).
     tpu_hist_mode: str = "bucketed"
-    # TPU-only: MXU operand dtype for the Pallas histogram kernel —
-    # "float32" (exact, 3-pass MXU) or "bfloat16" (single pass, ~3x faster;
-    # grad/hess operands round to bf16, accumulation stays f32 — the
-    # reference GPU path's single-precision trade, GPU-Performance.rst:131).
+    # Operand type of the histogram kernels — "float32" (exact f32 products;
+    # the tensor-core kernels split each value into three bf16 terms, never
+    # TF32) or "bfloat16" (grad/hess/count round to bf16 before the f32
+    # accumulation — the reference GPU path's single-precision trade,
+    # GPU-Performance.rst:131). The plain ``scatter`` route ignores it.
     tpu_hist_dtype: str = "float32"
     # Device-resident boosting: fuse this many boosting iterations into ONE
     # jitted lax.scan dispatch (models/gbdt.py train_chunk). 1 = the
@@ -417,14 +418,16 @@ class Config:
     # and the native CPU learner fall back to 1 automatically
     # (docs/DeviceResidentBoosting.md).
     device_chunk_size: int = 1
-    # Histogram kernel autotune cache: path to a measured shape->impl
-    # routing table (written by `python -m lightgbm_tpu.obs.tune` /
-    # the bringup `tune` stage; docs/HistogramRouting.md). "" consults the
-    # LIGHTGBM_TPU_HIST_TUNE env var; "off" disables both. The table is
-    # FROZEN per training run at setup; run provenance (not model
+    # Histogram routing table: path to a measured shape -> kernel table
+    # (written on the card by `python -m lightgbm_tpu_torch.obs.tune`),
+    # which routes each histogram call of the run to the CUDA kernel that
+    # won its (B, K, hist_dtype, row class) — cuda, cuda_onehot,
+    # cuda_bitplane or cuda_packed4 (ops/hist_kernel.py). "" consults the
+    # LIGHTGBM_TPU_HIST_TUNE env var; "off" disables both. A table of
+    # another backend or device family is ignored with a warning. The table
+    # is FROZEN per training run at setup; run provenance (not model
     # semantics), so it is excluded from the model's parameters footer
-    # (NON_MODEL_PARAMS) and stamped into the flight manifest as a digest
-    # instead.
+    # (NON_MODEL_PARAMS).
     hist_tune: str = ""
 
     # resolved, not user-set

@@ -25,7 +25,12 @@
 // in the last bits; on values that are dyadic rationals with small exponents
 // every order gives the same bits. The count channel is a sum of 1.0s, exact
 // up to 2^24 rows.
+//
+// bf16 operands (hist_dtype=bfloat16): each of a row's three values is
+// rounded to bf16 (round to nearest even) before its f32 atomic add, the
+// counterpart of the TPU kernel's bf16 matrix operands with f32 accumulation.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +40,12 @@ constexpr int kThreads = 256;
 // shared memory a block may use on sm_90 (232,448 bytes), less a margin
 constexpr int kMaxSmem = 227 * 1024;
 
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
             long long stride_n, const float* __restrict__ values,
@@ -51,9 +62,9 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
     const long long r = rows != nullptr ? (long long)rows[i] : i;
-    const float v0 = values[r * 3];
-    const float v1 = values[r * 3 + 1];
-    const float v2 = values[r * 3 + 2];
+    const float v0 = operand<kBf16>(values[r * 3]);
+    const float v1 = operand<kBf16>(values[r * 3 + 1]);
+    const float v2 = operand<kBf16>(values[r * 3 + 2]);
     const uint8_t* bp = bins + r * stride_n + (long long)f0 * stride_f;
     for (int fl = 0; fl < ft; ++fl) {
       const int b = bp[fl * stride_f];
@@ -81,17 +92,19 @@ extern "C" {
 // hist[F, B, 3] (zeroed by the caller) += histogram of n rows.
 // bins[f, r] lives at bins + f * stride_f + r * stride_n; values is [N, 3]
 // f32 row-major; rows (may be null) holds n int32 row indices into both.
+// bf16 != 0 rounds the values to bf16 before they are added.
 int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
                    const void* values, const void* rows, long long n, int F,
-                   int B, void* out, void* stream) {
+                   int B, int bf16, void* out, void* stream) {
   if (n <= 0 || F <= 0) return (int)cudaSuccess;
   const int cell_bytes = B * 3 * (int)sizeof(float);
   int f_tile = kMaxSmem / cell_bytes;
   if (f_tile < 1) return (int)cudaErrorInvalidValue;
   if (f_tile > F) f_tile = F;
   const int smem = f_tile * cell_bytes;
+  decltype(&hist_kernel<false>) kern = bf16 ? &hist_kernel<true> : &hist_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
 
   static int num_sms = 0;
@@ -107,7 +120,7 @@ int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
   long long want = (n + kThreads - 1) / kThreads;
   long long cap = (long long)num_sms * per_sm;
   dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)((F + f_tile - 1) / f_tile));
-  hist_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
       (const int*)rows, n, F, f_tile, B, (float*)out);
   return (int)cudaGetLastError();

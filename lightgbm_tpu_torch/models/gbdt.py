@@ -1,7 +1,10 @@
 """GBDT boosting loop (gbdt.cpp) for the PyTorch port.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for one slice of it: the serial
-learner, binary objective, no bagging, all features. Per iteration: the
+learner, binary objective, no bagging, all features, f32 or bf16 histogram
+operands (``tpu_hist_dtype``), and measured histogram routing: the tune
+table named by ``hist_tune`` or LIGHTGBM_TPU_HIST_TUNE is frozen once at
+set-up into a ``HistRoute`` (``_resolve_hist_route``). Per iteration: the
 boost-from-average init score on the first one (gbdt.cpp:308-331),
 objective gradients at the current scores, one grown tree
 (ops/grow.py), shrinkage, and the score update through the per-row leaf
@@ -23,7 +26,10 @@ from ..config import Config
 from ..dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction
+from ..obs import tune as tune_mod
+from ..ops import hist_kernel
 from ..ops.grow import TreeArrays, grow_tree
+from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw
 from ..ops.split import SplitParams
 from ..utils import log
@@ -57,7 +63,7 @@ def check_supported(config: Config) -> None:
         refused.append("tree_learner=%s" % config.tree_learner)
     if config.tpu_hist_mode != "bucketed":
         refused.append("tpu_hist_mode=%s" % config.tpu_hist_mode)
-    if config.tpu_hist_dtype != "float32":
+    if config.tpu_hist_dtype not in HIST_DTYPES:
         refused.append("tpu_hist_dtype=%s" % config.tpu_hist_dtype)
     if config.device_chunk_size > 1:
         refused.append("device_chunk_size=%d" % config.device_chunk_size)
@@ -127,6 +133,7 @@ class GBDT:
             np.any((meta["missing_type"] != 0) & (meta["num_bin"] > 2))
         )
         self.num_bins = int(train_set.max_num_bin)
+        self.hist_route = self._resolve_hist_route()
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
         self.split_params = SplitParams(
             lambda_l1=cfg.lambda_l1,
@@ -147,6 +154,18 @@ class GBDT:
             self.objective.init(train_set.metadata, self.num_data, dev)
         for m in self.training_metrics:
             m.init(train_set.metadata, self.num_data)
+
+    def _resolve_hist_route(self) -> Optional[hist_kernel.HistRoute]:
+        """Load and freeze the measured histogram routing table of this run:
+        the ``hist_tune`` param (an explicit path; load failures raise), else
+        LIGHTGBM_TPU_HIST_TUNE (failures warn once and fall back to default
+        routing); ``hist_tune="off"`` disables both. The table is filtered to
+        this run's backend and device family, and to impls that serve each
+        shape (ops/hist_kernel.py ``resolve_route``)."""
+        table, src = tune_mod.active_table(self.config.hist_tune)
+        if table is None:
+            return None
+        return hist_kernel.resolve_route(table, self.device, source=src)
 
     # ------------------------------------------------------------------
     def _boost_from_average(self) -> float:
@@ -172,6 +191,7 @@ class GBDT:
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             num_bins=self.num_bins, params=self.split_params,
             two_way=self._two_way, bins_nf=self.bins_nf,
+            route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype,
         )
 
     def _finish_tree(self, tree: TreeArrays, leaf_id: torch.Tensor) -> TreeArrays:

@@ -26,7 +26,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("histogram", "split_pair")
+SOURCES = (
+    "histogram", "split_pair", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1",
+)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

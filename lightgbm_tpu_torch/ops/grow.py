@@ -18,8 +18,11 @@ count and the children's packed split records back (two small syncs), picks
 the best leaf with a host argmax, and wires the tree in host tensors. The
 histogram and the split scan are the hand-written kernels on CUDA tensors
 and their plain versions on CPU tensors (ops/hist_kernel.py,
-ops/split_kernel.py). The output is the JAX package's bin-space
-``TreeArrays`` plus the per-row leaf index.
+ops/split_kernel.py). Each histogram call is routed on its own shape: the
+root by ``rows_bucket(N)``, each smaller child by ``rows_bucket`` of its
+segment, through the run's frozen ``HistRoute`` and ``hist_dtype``
+(ops/hist_kernel.py ``routed_histogram``). The output is the JAX package's
+bin-space ``TreeArrays`` plus the per-row leaf index.
 """
 from __future__ import annotations
 
@@ -81,6 +84,8 @@ def grow_tree(
     params: SplitParams,
     two_way: bool = True,
     bins_nf: Optional[torch.Tensor] = None,  # [N, F] copy of bins for the histograms
+    route: Optional[hist_kernel.HistRoute] = None,
+    hist_dtype: str = "float32",
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device)."""
     dev = bins.device
@@ -102,7 +107,7 @@ def grow_tree(
     # ---- root ------------------------------------------------------------
     vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev))
     hist = torch.empty((M, F, B, 3), dtype=f32, device=dev)
-    hist[0] = hist_kernel.histogram(hist_bins, vals_all, B)
+    hist[0] = hist_kernel.routed_histogram(hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route)
     root = torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()]).cpu()
 
     # [M, 5] leaf aux: sum_grad, sum_hess, num_data, monotone min, max
@@ -185,8 +190,9 @@ def grow_tree(
         left_smaller = bool(rec_f[_LC] <= rec_f[_RC])
         small_idx, large_idx = (best_leaf, new_leaf) if left_smaller else (new_leaf, best_leaf)
         s_begin = leaf_begin[small_idx]
-        small = hist_kernel.histogram(
-            hist_bins, vals_all, B, rows=order[s_begin:s_begin + leaf_phys[small_idx]]
+        small = hist_kernel.routed_histogram(
+            hist_bins, vals_all, B, rows=order[s_begin:s_begin + leaf_phys[small_idx]],
+            hist_dtype=hist_dtype, route=route,
         )
         large = hist[best_leaf] - small
         hist[small_idx] = small

@@ -1,57 +1,199 @@
-"""Wrapper of the hand-written CUDA leaf-histogram kernel (csrc/histogram.cu).
+"""The hand-written CUDA histogram kernels, their capability table, and the
+measured routing that picks one per call.
 
-``histogram`` takes the kernel for CUDA tensors and the plain PyTorch
-version (ops/histogram.py) for CPU tensors; any other device, and anything
-the kernel does not take, raises. There is no fallback from one to the
-other. ``launches`` counts kernel launches.
+Counterpart of lightgbm_tpu/ops/hist_pallas.py (the kernels, ``KERNEL_CAPS``,
+``pack4``, ``bitplane_split``) and of the routing half of
+lightgbm_tpu/ops/histogram.py (``IMPLS``, the env override, ``default_impl``,
+``impl_supported``, ``rows_bucket``, ``HistRoute``, ``resolve_route``,
+``device_family``, the cap fallback and the dispatch in ``leaf_histogram``).
+
+Kernels (csrc/), each with a wrapper here and its own launch count in
+``launches`` (a ``_bf16`` key for bf16 operands):
+
+==============  ========================  ===================================
+impl            wrapper, source           JAX kernel it replaces
+==============  ========================  ===================================
+``cuda``        ``histogram``             ``histogram_pallas`` (radix, fb)
+                csrc/histogram.cu
+``cuda_onehot`` ``hist_onehot``           ``histogram_pallas_onehot``
+                csrc/hist_onehot.cu
+``cuda_bitplane`` ``hist_bitplane``       ``histogram_pallas_bitplane``
+                csrc/hist_bitplane.cu
+``cuda_packed4`` ``hist_packed4``         ``histogram_pallas_packed4``
+                csrc/hist_packed4.cu
+(not routed)    ``hist_v1``               ``histogram_pallas_v1``, the
+                csrc/hist_v1.cu           differential oracle of ``cuda``
+==============  ========================  ===================================
+
+The name map from the JAX vocabulary is :data:`JAX_NAMES` (``pallas`` ->
+``cuda``, ``pallas_onehot`` -> ``cuda_onehot``, ``pallas_bitplane`` ->
+``cuda_bitplane``, ``pallas_packed4`` -> ``cuda_packed4``, ``scatter`` ->
+``scatter``). ``scatter`` is the plain PyTorch version and serves CPU tensors
+only; JAX's ``xla``, ``xla_onehot`` and ``xla_radix`` are XLA programs and
+have no counterpart: on CUDA the port routes only to hand-written kernels.
+
+A wrapper launches its kernel for CUDA tensors and runs its plain version
+(ops/histogram.py) for CPU tensors; any other device, and any input the
+kernel does not take, raises. There is no fallback from one to the other.
+
+:func:`routed_histogram` takes the impl :func:`pick_impl` names for one
+call, in precedence order:
+an explicit ``impl``, then ``LIGHTGBM_TPU_HIST_IMPL`` (frozen at import; a
+value outside :data:`IMPLS` warns and is ignored), then the run's frozen
+:class:`HistRoute` (a tune table from obs/tune.py), then
+:func:`default_impl` for the tensors' device. An impl that the capability
+table refuses for the call's B warns once, counts
+``hist_impl_fallback_total{requested}`` and takes the default for the
+device: on CUDA the ``cuda`` kernel, never the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import hashlib
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..obs.costs import normalize_device_kind
+from ..obs.registry import REGISTRY
+from ..utils import log
+from ..utils.env import env_choice
+from ..utils.log import LightGBMError
 from . import cuda_build
-from .histogram import leaf_histogram
+from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4
 
-MAX_BINS = 256
+# ---------------------------------------------------------------------------
+# vocabulary, capabilities, packing
+# ---------------------------------------------------------------------------
 
-launches = 0
+IMPLS = ("scatter", "cuda", "cuda_onehot", "cuda_bitplane", "cuda_packed4")
 
-_ARGTYPES = [
+JAX_NAMES = {
+    "scatter": "scatter", "pallas": "cuda", "pallas_onehot": "cuda_onehot",
+    "pallas_bitplane": "cuda_bitplane", "pallas_packed4": "cuda_packed4",
+}
+
+# Which bin widths each kernel serves. The bounds are the JAX table's, so a
+# shape is routable to a kernel in one package exactly when it is to its
+# counterpart in the other.
+KERNEL_CAPS = {
+    # shared-memory atomics; the bound is the JAX radix kernel's (B <= 336)
+    "cuda": lambda b: -(-b // 8) * 3 <= 128,
+    # two 4-bit bins per byte
+    "cuda_packed4": lambda b: b <= 16,
+    # one-hot tiles of 128 bins, at most two
+    "cuda_onehot": lambda b: 2 <= b <= 256,
+    # bit-plane factors of at most 16 x 16
+    "cuda_bitplane": lambda b: 2 <= b <= 256,
+}
+
+# Resolved once at import so the routing of a process is fixed.
+_ENV_IMPL = env_choice("LIGHTGBM_TPU_HIST_IMPL", IMPLS)
+
+
+def impl_supported(
+    impl: str, num_bins: int, backend: str, ignore_backend: bool = False
+) -> bool:
+    """Can ``impl`` serve a ``num_bins``-wide histogram on ``backend``? The
+    one vocabulary the router, the tune sweep and :func:`resolve_route`
+    share: ``scatter`` serves the CPU, a kernel the widths its cap allows on
+    CUDA. ``ignore_backend`` checks the width alone: the gate for an impl
+    forced on tensors of the other device (a kernel forced on CPU tensors
+    runs its plain version). Unknown impls are unsupported."""
+    if impl == "scatter":
+        return ignore_backend or backend == "cpu"
+    cap = KERNEL_CAPS.get(impl)
+    if cap is None or not cap(num_bins):
+        return False
+    return ignore_backend or backend == "cuda"
+
+
+def default_impl(backend: str) -> str:
+    """The impl a call falls to with no explicit impl, env override or
+    route entry: the plain version on the CPU, the ``cuda`` kernel on CUDA."""
+    return "cuda" if backend == "cuda" else "scatter"
+
+
+def bitplane_split(num_bins: int) -> Tuple[int, int]:
+    """(lob, hib): power-of-two factor widths with ``bin = hi * lob + lo``,
+    an even split of ``max(ceil(log2(B)), 2)`` bit planes (16 x 16 at
+    B=255, 8 x 8 at B=63). ``lob * hib >= num_bins``."""
+    p = max((num_bins - 1).bit_length(), 2)
+    return 1 << (p // 2), 1 << (p - p // 2)
+
+
+def pack4(bins: torch.Tensor, values: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack ``[F, N]`` u8 bins (all < 16) and ``[N, K]`` values into the
+    nibble layout :func:`hist_packed4` takes: ``[F, N2]`` u8 with row 2j in
+    the low and row 2j+1 in the high nibble, and ``[N2, 2K]`` f32 holding
+    the two rows' values side by side. Odd N pads one row of bin 0 and
+    value 0."""
+    F, N = bins.shape
+    if N % 2:
+        bins = torch.cat([bins, bins.new_zeros((F, 1))], dim=1)
+        values = torch.cat([values, values.new_zeros((1, values.shape[1]))], dim=0)
+    packed = (bins[:, 0::2] | (bins[:, 1::2] << 4)).contiguous()
+    return packed, torch.cat([values[0::2], values[1::2]], dim=1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+launches: Dict[str, int] = {}
+
+KERNELS = ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1")
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+        launches[name + "_bf16"] = 0
+
+
+reset_launches()
+
+_ARGS_ROWS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p, ctypes.c_void_p,
+]
+_ARGS_PACKED = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p,
 ]
 
 
-def _lib():
-    lib = cuda_build.load("histogram")
-    lib.lgbt_histogram.argtypes = _ARGTYPES
-    lib.lgbt_histogram.restype = ctypes.c_int
-    return lib
+def _entry(source: str, symbol: str, argtypes):
+    fn = getattr(cuda_build.load(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
-def histogram(
-    bins: torch.Tensor,
-    values: torch.Tensor,
-    num_bins: int,
-    rows: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """``[F, B, 3]`` f32 histogram of ``values`` ([N, 3]) over ``bins``.
+def _check_dtype(hist_dtype: str) -> None:
+    if hist_dtype not in HIST_DTYPES:
+        raise ValueError("hist_dtype must be one of %s, got %r" % (HIST_DTYPES, hist_dtype))
 
-    ``bins`` is an ``[F, N]`` uint8 view with any strides, so the transposed
-    ``[N, F]`` copy passes as ``bins_nf.t()``. ``rows`` is an optional int32
-    vector of row indices (a leaf segment) into both inputs."""
-    if bins.device.type == "cpu":
-        return leaf_histogram(bins, values, num_bins, rows)
+
+def _check_bins(what: str, bins: torch.Tensor, num_bins: int, max_bins: int) -> None:
     if bins.device.type != "cuda":
-        raise ValueError("histogram: unsupported device %s" % bins.device)
+        raise ValueError("%s: unsupported device %s" % (what, bins.device))
     if bins.dtype != torch.uint8 or bins.dim() != 2:
-        raise ValueError("histogram: bins must be a 2-D uint8 tensor")
-    if not 1 <= num_bins <= MAX_BINS:
-        raise ValueError("histogram: num_bins must be in [1, %d], got %d" % (MAX_BINS, num_bins))
+        raise ValueError("%s: bins must be a 2-D uint8 tensor" % what)
+    if not 1 <= num_bins <= max_bins:
+        raise ValueError("%s: num_bins must be in [1, %d], got %d" % (what, max_bins, num_bins))
+
+
+def _launch_rows(
+    name: str, symbol: str, bins, values, num_bins, rows, hist_dtype, max_bins
+) -> torch.Tensor:
+    """Validate, allocate the zeroed ``[F, B, 3]`` output, launch the
+    kernel ``symbol`` of ``csrc/<name>.cu`` on the current stream and
+    count it."""
+    _check_dtype(hist_dtype)
+    _check_bins(name, bins, num_bins, max_bins)
     N = bins.shape[1]
     if (
         values.device != bins.device
@@ -59,7 +201,7 @@ def histogram(
         or values.shape != (N, 3)
         or not values.is_contiguous()
     ):
-        raise ValueError("histogram: values must be a contiguous [N, 3] f32 tensor on the bins' device")
+        raise ValueError("%s: values must be a contiguous [N, 3] f32 tensor on the bins' device" % name)
     n = N
     if rows is not None:
         if (
@@ -68,19 +210,282 @@ def histogram(
             or rows.dim() != 1
             or not rows.is_contiguous()
         ):
-            raise ValueError("histogram: rows must be a contiguous 1-D int32 tensor on the bins' device")
+            raise ValueError("%s: rows must be a contiguous 1-D int32 tensor on the bins' device" % name)
         n = rows.numel()
     F = bins.shape[0]
     out = torch.zeros((F, num_bins, 3), dtype=torch.float32, device=bins.device)
-    if n == 0:
+    if n == 0 or F == 0:
         return out
-    lib = _lib()
-    code = lib.lgbt_histogram(
+    bf16 = hist_dtype == "bfloat16"
+    code = _entry(name, symbol, _ARGS_ROWS)(
         bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
-        rows.data_ptr() if rows is not None else None, n, F, num_bins,
+        rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
         out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
     )
-    cuda_build.check(code, "histogram kernel")
-    global launches
-    launches += 1
+    cuda_build.check(code, "%s kernel" % name)
+    launches[name + ("_bf16" if bf16 else "")] += 1
     return out
+
+
+def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
+    """``[F, B, 3]`` f32 histogram of ``values`` ([N, 3]) over ``bins``
+    (csrc/histogram.cu: shared-memory sub-histograms with atomics).
+
+    ``bins`` is an ``[F, N]`` uint8 view with any strides, so the transposed
+    ``[N, F]`` copy passes as ``bins_nf.t()``. ``rows`` is an optional int32
+    vector of row indices (a leaf segment) into both inputs. The other
+    ``[F, N]`` wrappers take the same arguments."""
+    if bins.device.type == "cpu":
+        return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
+    return _launch_rows("histogram", "lgbt_histogram", bins, values, num_bins, rows, hist_dtype, 336)
+
+
+def hist_onehot(bins, values, num_bins, rows=None, hist_dtype="float32"):
+    """One-hot tiles as the A operand of bf16 tensor-core products
+    (csrc/hist_onehot.cu); B <= 256."""
+    if bins.device.type == "cpu":
+        return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
+    return _launch_rows("hist_onehot", "lgbt_hist_onehot", bins, values, num_bins, rows, hist_dtype, 256)
+
+
+def hist_bitplane(bins, values, num_bins, rows=None, hist_dtype="float32"):
+    """Bit-plane factored one-hots, ``bin = hi * lob + lo``, on tensor cores
+    (csrc/hist_bitplane.cu); B <= 256."""
+    if bins.device.type == "cpu":
+        return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
+    return _launch_rows("hist_bitplane", "lgbt_hist_bitplane", bins, values, num_bins, rows, hist_dtype, 256)
+
+
+def hist_v1(bins, values, num_bins, rows=None, hist_dtype="float32"):
+    """The per-feature-grid kernel (csrc/hist_v1.cu), the independent oracle
+    of :func:`histogram`; not routed."""
+    if bins.device.type == "cpu":
+        return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
+    return _launch_rows("hist_v1", "lgbt_hist_v1", bins, values, num_bins, rows, hist_dtype, 336)
+
+
+def hist_packed4(bins_packed, values_packed, num_bins, hist_dtype="float32"):
+    """``[F, B, 3]`` histogram of :func:`pack4` output (csrc/hist_packed4.cu);
+    B <= 16. A leaf segment is gathered and packed by the caller."""
+    if bins_packed.device.type == "cpu":
+        return leaf_histogram_packed4(bins_packed, values_packed, num_bins, hist_dtype)
+    _check_dtype(hist_dtype)
+    _check_bins("hist_packed4", bins_packed, num_bins, 16)
+    F, N2 = bins_packed.shape
+    if (
+        values_packed.device != bins_packed.device
+        or values_packed.dtype != torch.float32
+        or values_packed.shape != (N2, 6)
+        or not values_packed.is_contiguous()
+    ):
+        raise ValueError("hist_packed4: values must be a contiguous [N2, 6] f32 tensor on the bins' device")
+    out = torch.zeros((F, num_bins, 3), dtype=torch.float32, device=bins_packed.device)
+    if N2 == 0 or F == 0:
+        return out
+    bf16 = hist_dtype == "bfloat16"
+    code = _entry("hist_packed4", "lgbt_hist_packed4", _ARGS_PACKED)(
+        bins_packed.data_ptr(), bins_packed.stride(0), bins_packed.stride(1),
+        values_packed.data_ptr(), N2, F, num_bins, int(bf16), out.data_ptr(),
+        torch.cuda.current_stream(bins_packed.device).cuda_stream,
+    )
+    cuda_build.check(code, "hist_packed4 kernel")
+    launches["hist_packed4" + ("_bf16" if bf16 else "")] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+MIN_BUCKET_LOG2 = 8  # smallest bucket of the lattice (256 rows)
+
+
+def bucket_sizes(N: int) -> Tuple[int, ...]:
+    """The bucket lattice of an ``N``-row dataset: {2^k} U {3 * 2^(k-1)}
+    from 256 rows up, capped at N (the JAX package's default lattice,
+    lightgbm_tpu/ops/grow.py ``bucket_sizes``). The tune sweep measures the
+    row class of each size. The grower pads no segment, so the JAX
+    package's LIGHTGBM_TPU_LATTICE knob has no counterpart here."""
+    top = max(int(N - 1).bit_length(), 0)
+    sizes = {min(1 << b, N) for b in range(MIN_BUCKET_LOG2, top + 1)}
+    sizes |= {min(3 << b, N) for b in range(MIN_BUCKET_LOG2 - 1, top + 1)}
+    return tuple(sorted(sizes | {N}))
+
+
+def rows_bucket(n: int) -> int:
+    """Row class of a call: ``n`` rounded up to the lattice family
+    {2^k} U {3 * 2^(k-1)} (:func:`bucket_sizes`)."""
+    n = max(int(n), 1)
+    k = (n - 1).bit_length()
+    p = 1 << k
+    t = 3 << (k - 2) if k >= 2 else p
+    return t if t >= n else p
+
+
+class HistRoute:
+    """Frozen shape-class -> impl table for one training run.
+
+    ``entries`` maps ``(B, K, hist_dtype, rows_bucket)`` to an impl name;
+    the object compares and hashes by value. ``digest`` is the content
+    digest of the entries, computed as the JAX package computes it."""
+
+    __slots__ = ("entries", "digest", "source", "_map")
+
+    def __init__(self, entries, source: str = "") -> None:
+        ent = tuple(sorted(
+            ((int(b), int(k), str(d), int(r)), str(impl)) for (b, k, d, r), impl in entries
+        ))
+        self._map = dict(ent)
+        if len(self._map) != len(ent):
+            dupes = sorted({k for k, v in ent if self._map[k] != v})
+            if dupes:
+                raise LightGBMError(
+                    "histogram route has conflicting impls for shape class(es) %s: "
+                    "merge tables by re-sweeping, not by concatenating entries" % (dupes,)
+                )
+            ent = tuple(sorted(self._map.items()))
+        self.entries = ent
+        self.source = str(source)
+        self.digest = hashlib.sha256(repr(ent).encode("utf-8")).hexdigest()[:16]
+
+    def pick(self, rows: int, num_bins: int, k: int, hist_dtype: str) -> Optional[str]:
+        """Impl for this call shape, or None (the default for the device)."""
+        return self._map.get((int(num_bins), int(k), str(hist_dtype), rows_bucket(rows)))
+
+    def __eq__(self, other) -> bool:
+        return type(other) is HistRoute and other.entries == self.entries
+
+    def __hash__(self) -> int:
+        return hash((HistRoute, self.entries))
+
+    def __repr__(self) -> str:
+        return "HistRoute(%d entries, digest=%s%s)" % (
+            len(self.entries), self.digest, ", source=%r" % self.source if self.source else "",
+        )
+
+
+def device_family(device: torch.device) -> Optional[str]:
+    """The family a tune table is keyed by: ``"cpu"``, or the card's name
+    normalised (``"h100"``); None when the card's name is unknown."""
+    if device.type == "cpu":
+        return "cpu"
+    return normalize_device_kind(torch.cuda.get_device_name(device))
+
+
+def resolve_route(table: Optional[dict], device: torch.device, source: str = "") -> Optional[HistRoute]:
+    """Tune table (obs/tune.py schema) -> frozen :class:`HistRoute` for a run
+    on ``device``. Keeps only a table of this backend and device family, and
+    only entries whose impl serves their shape here; None when nothing
+    survives (the run then takes the default)."""
+    if not table or not table.get("entries"):
+        return None
+    backend = device.type
+    where = source or "<dict>"
+    if table.get("backend") != backend:
+        log.warn_once(
+            "hist-tune-backend-mismatch",
+            "histogram tune table %s was measured on backend=%r but this run is on %r; "
+            "ignoring it (default routing applies)" % (where, table.get("backend"), backend),
+        )
+        return None
+    fam = device_family(device)
+    tfam = table.get("device_family")
+    if tfam and fam and tfam != fam:
+        log.warn_once(
+            "hist-tune-device-mismatch",
+            "histogram tune table %s was measured on device family %r but this run is on %r; "
+            "ignoring it" % (where, tfam, fam),
+        )
+        return None
+    if tfam and fam is None and tfam != backend:
+        log.warn_once(
+            "hist-tune-unknown-device",
+            "histogram tune table %s was measured on device family %r but this card's family "
+            "is unknown; ignoring it (sweep on this card to route)" % (where, tfam),
+        )
+        return None
+    ents = []
+    for e in table["entries"]:
+        impl = str(e.get("impl", ""))
+        b = int(e["B"])
+        if impl not in IMPLS or not impl_supported(impl, b, backend):
+            log.warn_once(
+                "hist-tune-unsupported:%s:%d" % (impl, b),
+                "histogram tune entry (B=%d impl=%r) is not supported on this backend/shape; "
+                "dropping it from the route" % (b, impl),
+            )
+            continue
+        ents.append(((b, int(e["K"]), str(e["hist_dtype"]), int(e["rows_bucket"])), impl))
+    if not ents:
+        return None
+    return HistRoute(ents, source=source)
+
+
+def _note_impl_fallback(requested: str, num_bins: int, backend: str) -> None:
+    log.warn_once(
+        "hist-impl-fallback:%s:%d:%s" % (requested, num_bins, backend),
+        "impl=%r requested (explicitly, via LIGHTGBM_TPU_HIST_IMPL, or a tune-table entry) "
+        "but it does not serve num_bins=%d on %s; taking %r"
+        % (requested, num_bins, backend, default_impl(backend)),
+    )
+    REGISTRY.counter(
+        "hist_impl_fallback_total",
+        "histogram impl requests that fell back to the device's default",
+    ).inc(requested=requested)
+
+
+def pick_impl(
+    impl: str,
+    rows: int,
+    num_bins: int,
+    k: int,
+    hist_dtype: str,
+    route: Optional[HistRoute],
+    backend: str,
+) -> str:
+    """The impl a call of ``rows`` rows at (``num_bins``, ``k``,
+    ``hist_dtype``) on ``backend`` takes: explicit ``impl`` > the env
+    override > ``route`` > :func:`default_impl`; one the capability table
+    refuses warns once, counts, and takes the default."""
+    if impl == "auto" and _ENV_IMPL:
+        impl = _ENV_IMPL
+    if impl == "auto" and route is not None:
+        impl = route.pick(rows, num_bins, k, hist_dtype) or "auto"
+    if impl == "auto":
+        impl = default_impl(backend)
+    if impl not in IMPLS:
+        raise ValueError("impl must be 'auto' or one of %s, got %r" % (IMPLS, impl))
+    if not impl_supported(impl, num_bins, backend, ignore_backend=impl != "scatter"):
+        _note_impl_fallback(impl, num_bins, backend)
+        impl = default_impl(backend)
+    return impl
+
+
+def routed_histogram(
+    bins: torch.Tensor,
+    values: torch.Tensor,
+    num_bins: int,
+    rows: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+    hist_dtype: str = "float32",
+    route: Optional[HistRoute] = None,
+) -> torch.Tensor:
+    """``[F, B, 3]`` histogram through the impl this call routes to
+    (:func:`pick_impl`). ``scatter`` ignores ``hist_dtype``, as the JAX
+    package's scatter does; every kernel honours it."""
+    n = bins.shape[1] if rows is None else rows.numel()
+    impl = pick_impl(impl, n, num_bins, values.shape[1], hist_dtype, route, bins.device.type)
+    if impl == "scatter":
+        return leaf_histogram(bins, values, num_bins, rows)
+    if impl == "cuda":
+        return histogram(bins, values, num_bins, rows, hist_dtype)
+    if impl == "cuda_onehot":
+        return hist_onehot(bins, values, num_bins, rows, hist_dtype)
+    if impl == "cuda_bitplane":
+        return hist_bitplane(bins, values, num_bins, rows, hist_dtype)
+    if rows is not None:
+        idx = rows.long()
+        bins = bins.index_select(1, idx)
+        values = values.index_select(0, idx)
+    bins_p, vals_p = pack4(bins, values)
+    return hist_packed4(bins_p, vals_p, num_bins, hist_dtype)

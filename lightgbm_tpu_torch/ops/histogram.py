@@ -1,10 +1,16 @@
-"""Per-leaf gradient/hessian histograms: the plain PyTorch version.
+"""Per-leaf gradient/hessian histograms: the plain PyTorch versions.
 
 Counterpart of lightgbm_tpu/ops/histogram.py's ``leaf_histogram`` in its
 ``scatter`` form (one scatter-add per feature), ``leaf_values`` and the numpy
 oracle ``histogram_reference``. The layout is ``[F, B, 3]`` f32 with channels
-(sum_grad, sum_hess, count). This is the oracle of the hand-written CUDA
-kernel in ops/hist_kernel.py and the path taken for tensors on the CPU.
+(sum_grad, sum_hess, count). These are the oracles of the hand-written CUDA
+kernels in ops/hist_kernel.py and the path taken for tensors on the CPU.
+
+``hist_dtype`` is the kernels' operand type: ``"float32"`` adds the values
+as they are, ``"bfloat16"`` rounds every channel to bf16 (round to nearest
+even) before the f32 accumulation, as the JAX kernels do with bf16 operands
+and f32 ``preferred_element_type``. The count channel holds 0/1, which bf16
+keeps exactly.
 """
 from __future__ import annotations
 
@@ -13,12 +19,25 @@ from typing import Optional
 import numpy as np
 import torch
 
+HIST_DTYPES = ("float32", "bfloat16")
+
+
+def operands(values: torch.Tensor, hist_dtype: str) -> torch.Tensor:
+    """``values`` as f32 after the rounding ``hist_dtype`` asks for."""
+    if hist_dtype not in HIST_DTYPES:
+        raise ValueError("hist_dtype must be one of %s, got %r" % (HIST_DTYPES, hist_dtype))
+    values = values.to(torch.float32)
+    if hist_dtype == "bfloat16":
+        values = values.to(torch.bfloat16).to(torch.float32)
+    return values
+
 
 def leaf_histogram(
     bins: torch.Tensor,
     values: torch.Tensor,
     num_bins: int,
     rows: Optional[torch.Tensor] = None,
+    hist_dtype: str = "float32",
 ) -> torch.Tensor:
     """``[F, B, K]`` f32 histogram of ``values`` ([N, K]) over ``bins`` ([F, N]).
 
@@ -31,10 +50,31 @@ def leaf_histogram(
     F = bins.shape[0]
     K = values.shape[1]
     out = torch.zeros((F, num_bins, K), dtype=torch.float32, device=values.device)
-    values = values.to(torch.float32)
+    values = operands(values, hist_dtype)
     for f in range(F):
         out[f].index_add_(0, bins[f].long(), values)
     return out
+
+
+def leaf_histogram_packed4(
+    bins_packed: torch.Tensor,
+    values_packed: torch.Tensor,
+    num_bins: int,
+    hist_dtype: str = "float32",
+) -> torch.Tensor:
+    """``[F, B, K]`` histogram of nibble-packed input (ops/hist_kernel.py
+    ``pack4``): ``[F, N2]`` u8 holding rows 2j (low nibble) and 2j+1 (high
+    nibble), ``[N2, 2K]`` values of those two rows side by side. Unpacks and
+    takes :func:`leaf_histogram`."""
+    F, N2 = bins_packed.shape
+    K = values_packed.shape[1] // 2
+    bins = torch.empty((F, 2 * N2), dtype=torch.uint8, device=bins_packed.device)
+    bins[:, 0::2] = bins_packed & 15
+    bins[:, 1::2] = bins_packed >> 4
+    values = torch.empty((2 * N2, K), dtype=torch.float32, device=values_packed.device)
+    values[0::2] = values_packed[:, :K]
+    values[1::2] = values_packed[:, K:]
+    return leaf_histogram(bins, values, num_bins, None, hist_dtype)
 
 
 def leaf_values(

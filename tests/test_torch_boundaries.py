@@ -72,7 +72,7 @@ def test_cuda_asked_for_and_absent_raises(monkeypatch):
 
 
 def test_cpu_path_launches_no_kernel():
-    hist_kernel.launches = 0
+    hist_kernel.reset_launches()
     split_kernel.launches = 0
     X, y = _data()
     b = tlgb.train(
@@ -80,7 +80,7 @@ def test_cpu_path_launches_no_kernel():
         tlgb.Dataset(X, label=y), 3, device="cpu",
     )
     assert b.num_trees() == 3
-    assert hist_kernel.launches == 0 and split_kernel.launches == 0
+    assert not any(hist_kernel.launches.values()) and split_kernel.launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -104,7 +104,7 @@ def test_wrappers_refuse_other_devices():
     ({"histogram_pool_size": 1.0}, "histogram_pool_size"),
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
-    ({"tpu_hist_dtype": "bfloat16"}, "tpu_hist_dtype"),
+    ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
     ({"device_chunk_size": 4}, "device_chunk_size"),
     ({"metric": "l2"}, "metric"),
 ])

@@ -3,15 +3,16 @@ on the card. A CUDA kernel has no interpret mode, so these skip without a
 card; run them on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.
 
-Dyadic values (multiples of 1/64) make every summation order exact, so the
-kernels must match the plain versions bit for bit.
+Dyadic values (multiples of 1/64, or of 1/1024 where bf16 operands must
+round) make every summation order exact, so the kernels must match the
+plain versions bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import hist_kernel, split_kernel
-from lightgbm_tpu_torch.ops.histogram import leaf_histogram, leaf_values
+from lightgbm_tpu_torch.ops.histogram import leaf_histogram, leaf_histogram_packed4, leaf_values
 from lightgbm_tpu_torch.ops.split import SplitParams, find_best_split_pair
 
 pytestmark = pytest.mark.cuda
@@ -24,12 +25,12 @@ def dev():
     return torch.device("cuda")
 
 
-def _dyadic(dev, F=28, N=50_001, B=255, seed=0):
+def _dyadic(dev, F=28, N=50_001, B=255, seed=0, q=64):
     rng = np.random.RandomState(seed)
     bins = torch.tensor(rng.randint(0, B, (F, N)), dtype=torch.uint8, device=dev)
     vals = leaf_values(
-        torch.tensor(rng.randint(-64, 65, N) / 64.0, dtype=torch.float32, device=dev),
-        torch.tensor(rng.randint(1, 65, N) / 64.0, dtype=torch.float32, device=dev),
+        torch.tensor(rng.randint(-q, q + 1, N) / q, dtype=torch.float32, device=dev),
+        torch.tensor(rng.randint(1, 65, N) / q, dtype=torch.float32, device=dev),
         torch.tensor(rng.rand(N) > 0.2, device=dev),
     )
     rows = torch.tensor(np.sort(rng.permutation(N)[: N // 7]).astype(np.int32), device=dev)
@@ -44,6 +45,54 @@ def test_histogram_kernel_matches_plain(dev, B):
     assert torch.equal(
         hist_kernel.histogram(nf.t(), vals, B, rows), leaf_histogram(bins, vals, B, rows)
     )
+
+
+FAMILY = {
+    "histogram": (hist_kernel.histogram, (15, 63, 255)),
+    "hist_v1": (hist_kernel.hist_v1, (15, 63, 255)),
+    "hist_onehot": (hist_kernel.hist_onehot, (15, 63, 255)),
+    "hist_bitplane": (hist_kernel.hist_bitplane, (15, 63, 255)),
+    "hist_packed4": (hist_kernel.hist_packed4, (15,)),
+}
+
+
+@pytest.mark.parametrize("kernel,B,dtype", [
+    (k, b, d) for k, (_, bs) in FAMILY.items() for b in bs for d in ("float32", "bfloat16")
+])
+def test_kernel_family_matches_plain(dev, kernel, B, dtype):
+    """Every kernel in both operand types, whole and on a segment, against
+    its plain version (F=29: not a multiple of any feature tile; odd N)."""
+    bins, vals, rows = _dyadic(dev, F=29, B=B, seed=B, q=1024)
+    nf = bins.t().contiguous()
+    before = dict(hist_kernel.launches)
+    if kernel == "hist_packed4":
+        for r in (None, rows):
+            b, v = (bins, vals) if r is None else (bins[:, r.long()], vals[r.long()])
+            bp, vp = hist_kernel.pack4(b, v)
+            got = hist_kernel.hist_packed4(bp, vp, B, dtype)
+            assert torch.equal(got, leaf_histogram_packed4(bp, vp, B, dtype))
+            assert torch.equal(got, leaf_histogram(bins, vals, B, r, dtype))
+    else:
+        fn = FAMILY[kernel][0]
+        assert torch.equal(fn(bins, vals, B, None, dtype), leaf_histogram(bins, vals, B, None, dtype))
+        assert torch.equal(fn(nf.t(), vals, B, rows, dtype), leaf_histogram(bins, vals, B, rows, dtype))
+        # v1 is the oracle of the default kernel
+        assert torch.equal(
+            hist_kernel.hist_v1(nf.t(), vals, B, rows, dtype),
+            hist_kernel.histogram(nf.t(), vals, B, rows, dtype),
+        )
+    key = kernel + ("_bf16" if dtype == "bfloat16" else "")
+    assert hist_kernel.launches[key] > before[key]
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17])
+def test_kernels_on_tiny_segments(dev, n):
+    bins, vals, _ = _dyadic(dev, F=9, N=1001, B=63)
+    rows = torch.arange(3, 3 + n, dtype=torch.int32, device=dev)
+    want = leaf_histogram(bins, vals, 63, rows)
+    for fn in (hist_kernel.histogram, hist_kernel.hist_v1, hist_kernel.hist_onehot,
+               hist_kernel.hist_bitplane):
+        assert torch.equal(fn(bins, vals, 63, rows), want), fn.__name__
 
 
 @pytest.mark.parametrize("two_way", [True, False])
