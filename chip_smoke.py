@@ -5,8 +5,10 @@ Run from the repository root on a machine with a CUDA card:
     python3 chip_smoke.py [--out results.json]
 
 Phases (each prints one line; any failure exits non-zero):
- 1. device and build: the card, its power limit, both kernels built from
-    lightgbm_tpu_torch/csrc with nvcc at once;
+ 1. device and build: the card, its power limit, every kernel source of
+    lightgbm_tpu_torch/csrc built with one nvcc each, all started at once,
+    and each kernel's registers per thread and spill bytes as ptxas reports
+    them;
  2. leaf-histogram kernel vs its plain PyTorch version at the root shape
     (1M rows x 28 features, B=255) and at a leaf segment given by ``rows``:
     exact on dyadic values, within the f32 bound of two summation orders on
@@ -134,10 +136,9 @@ def main() -> int:
     print(card)
     t0 = time.perf_counter()
     build_s = cuda_build.build()
-    ptxas = {}
-    for name in cuda_build.SOURCES:
-        log_text = cuda_build.library_path(name).with_suffix(".log").read_text()
-        ptxas[name] = [ln.strip() for ln in log_text.splitlines() if "registers" in ln]
+    ptxas = {name: cuda_build.ptxas_usage(cuda_build.library_path(name).with_suffix(".log").read_text())
+             for name in cuda_build.SOURCES}
+    assert all(ptxas.values()), ("ptxas reported no kernel", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas)
 

@@ -13,12 +13,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -88,6 +89,48 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     if errors:
         raise RuntimeError("\n".join(errors))
     return secs
+
+
+def kernel_name(symbol: str) -> str:
+    """A short name for a mangled kernel symbol: the innermost identifier
+    and its integer template arguments, as ``bitplane_kernel<4,4,0>``."""
+    s = symbol[2:] if symbol.startswith("_Z") else symbol
+    s = s[1:] if s.startswith("N") else s
+    name = None
+    while s[:1].isdigit():
+        digits = re.match(r"\d+", s).group(0)
+        size = int(digits)
+        name, s = s[len(digits):len(digits) + size], s[len(digits) + size:]
+    if name is None:
+        return symbol
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", s)
+    if args:
+        name += "<%s>" % ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
+    return name
+
+
+def ptxas_usage(log_text: str) -> Dict[str, Dict[str, int]]:
+    """Registers per thread and spill bytes of every kernel in a ``-Xptxas
+    -v`` report (the ``.log`` beside each library), by :func:`kernel_name`."""
+    usage: Dict[str, Dict[str, int]] = {}
+    current: Optional[str] = None
+    for line in log_text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            current = kernel_name(entry.group(1))
+            usage[current] = {}
+            continue
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if spill:
+            usage[current]["spill_stores"] = int(spill.group(1))
+            usage[current]["spill_loads"] = int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            usage[current]["registers"] = int(regs.group(1))
+            current = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -130,3 +130,30 @@ def test_categorical_and_bundled_data_raise():
     cfg = Config.from_params({"objective": "binary", "verbose": -1})
     with pytest.raises(NotImplementedError, match="group_id"):
         GBDT(cfg, ds, create_objective(cfg))
+
+
+def test_ptxas_report_gives_registers_and_spills_per_kernel():
+    """chip_smoke.py prints each kernel's registers and spill bytes from the
+    ``-Xptxas -v`` report the build writes beside each library."""
+    from lightgbm_tpu_torch.ops import cuda_build
+
+    sym = "_ZN12_GLOBAL__N_115bitplane_kernelILi4ELi4ELb0EEEvPKhxxPKfPKixiixPf"
+    log_text = "\n".join([
+        "ptxas info    : 0 bytes gmem",
+        "ptxas info    : Compiling entry function '%s' for 'sm_90a'" % sym,
+        "ptxas info    : Function properties for %s" % sym,
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 5824 bytes smem",
+        "ptxas info    : Compiling entry function '_Z11hist_kernelILb1EEvPKhxxPKfPKixiiPf' for 'sm_90a'",
+        "ptxas info    : Function properties for _Z11hist_kernelILb1EEvPKhxxPKfPKixiiPf",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, 384 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_Z12split_kernelPKf' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, 384 bytes cmem[0]",
+    ])
+    assert cuda_build.ptxas_usage(log_text) == {
+        "bitplane_kernel<4,4,0>": {"spill_stores": 8, "spill_loads": 12, "registers": 96},
+        "hist_kernel<1>": {"spill_stores": 0, "spill_loads": 0, "registers": 32},
+        "split_kernel": {"registers": 40},
+    }
+    assert cuda_build.kernel_name("not_mangled") == "not_mangled"

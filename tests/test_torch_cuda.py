@@ -95,6 +95,37 @@ def test_kernels_on_tiny_segments(dev, n):
         assert torch.equal(fn(bins, vals, 63, rows), want), fn.__name__
 
 
+BITPLANE_WIDTHS = [2, 3, 4, 5, 16, 17, 64, 65, 128, 256]  # every plane split the dispatch picks
+
+
+@pytest.mark.parametrize("B", BITPLANE_WIDTHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bitplane_every_plane_split(dev, B, dtype):
+    """hist_bitplane at each (lo_bits, hi_bits) instance, in both operand
+    types, for 1, 8 and 29 features (one full and one ragged group of 8),
+    whole and on a segment, from the [F, N] and the [N, F] bin layouts."""
+    for F in (1, 8, 29):
+        bins, vals, rows = _dyadic(dev, F=F, N=4099, B=B, seed=B + F, q=1024)
+        nf = bins.t().contiguous()
+        for r in (None, rows):
+            want = leaf_histogram(bins, vals, B, r, dtype)
+            assert torch.equal(hist_kernel.hist_bitplane(bins, vals, B, r, dtype), want), (F, r is None)
+            assert torch.equal(hist_kernel.hist_bitplane(nf.t(), vals, B, r, dtype), want), (F, r is None)
+
+
+@pytest.mark.parametrize("n", [0, 1, 15, 17, 129])
+def test_bitplane_tile_edges(dev, n):
+    """Segments that end inside a 16-row step and a 128-row tile."""
+    for B in (5, 64, 256):
+        bins, vals, _ = _dyadic(dev, F=29, N=1001, B=B, q=1024)
+        rows = torch.arange(7, 7 + n, dtype=torch.int32, device=dev)
+        for dtype in ("float32", "bfloat16"):
+            want = leaf_histogram(bins, vals, B, rows, dtype)
+            assert torch.equal(hist_kernel.hist_bitplane(bins, vals, B, rows, dtype), want), (B, dtype)
+            assert torch.equal(hist_kernel.hist_bitplane(bins[:, 7:7 + n], vals[7:7 + n].contiguous(), B,
+                                                         None, dtype), want), (B, dtype)
+
+
 @pytest.mark.parametrize("two_way", [True, False])
 def test_split_kernel_matches_plain(dev, two_way):
     B = 255

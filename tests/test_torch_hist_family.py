@@ -16,7 +16,11 @@ allow and with f32 and bf16 operands:
 Then the unit mirrors, each equal to the JAX package's: ``pack4`` (odd N),
 ``bitplane_split`` for every B in 2..256, the capability table for B in
 1..300 through the name map, ``rows_bucket``, ``bucket_sizes`` and
-``entries_digest``.
+``entries_digest``; and numpy mirrors of csrc/hist_bitplane.cu's exactness
+claims, which no CPU run of the kernel can check: its mask-and-shift
+factors equal the JAX kernel's AND over bit planes, the three-term bf16
+split sums back exactly, masking a packed row pair zeroes exactly the off
+rows, and its fragments hold every histogram cell once.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -146,6 +150,142 @@ def test_bitplane_split_matches_jax():
         lob, hib = hk.bitplane_split(b)
         assert (lob, hib) == hp.bitplane_split(b), b
         assert lob * hib >= b
+
+
+def _plane_and_factors(b, lob, hib):
+    """The JAX kernel's one-hot factors of bins ``b``, built in numpy with
+    the ops ``_kernel_bitplane`` uses: the AND over bit planes of one
+    compare each; ``[len(b), lob]`` and ``[len(b), hib]``."""
+    lo_bits, hi_bits = lob.bit_length() - 1, hib.bit_length() - 1
+    lo_iota = np.arange(lob)[:, None]  # broadcasted_iota (lob, C), axis 0
+    hi_iota = np.arange(hib)[None, :]  # broadcasted_iota (C, hib), axis 1
+    oh_lo = (lo_iota & 1) == (b & 1)[None, :]
+    for p in range(1, lo_bits):
+        oh_lo = oh_lo & (((lo_iota >> p) & 1) == ((b >> p) & 1)[None, :])
+    oh_hi = (hi_iota & 1) == ((b >> lo_bits) & 1)[:, None]
+    for p in range(1, hi_bits):
+        oh_hi = oh_hi & (((hi_iota >> p) & 1) == ((b >> (lo_bits + p)) & 1)[:, None])
+    return oh_lo.T, oh_hi
+
+
+def _cuda_plane_split(B):
+    """(kLoBits, kHiBits) as lgbt_hist_bitplane (csrc/hist_bitplane.cu)
+    picks its template instance: p = max(ceil(log2 B), 2), kLoBits = p / 2."""
+    p = max(int(np.ceil(np.log2(B))), 2)
+    return p // 2, p - p // 2
+
+
+@pytest.mark.parametrize("planes", range(2, 9))
+def test_bitplane_mask_and_shift_equals_plane_and(planes):
+    """For every B whose factors take ``planes`` bit planes and every bin b
+    in 0..B-1, the CUDA kernel's factors lo = b & (lob - 1), hi = b >> lo_bits
+    equal the JAX kernel's AND over bit planes; a padding row (b = -1)
+    matches no H column."""
+    widths = [B for B in range(2, 257) if max((B - 1).bit_length(), 2) == planes]
+    for B in widths:
+        lo_bits, hi_bits = _cuda_plane_split(B)
+        lob, hib = hp.bitplane_split(B)
+        assert (1 << lo_bits, 1 << hi_bits) == (lob, hib), B
+        b = np.arange(B)
+        lo, hi = b & (lob - 1), b >> lo_bits
+        oh_lo, oh_hi = _plane_and_factors(b, lob, hib)
+        np.testing.assert_array_equal(lo[:, None] == np.arange(lob)[None, :], oh_lo)
+        np.testing.assert_array_equal(hi[:, None] == np.arange(hib)[None, :], oh_hi)
+        assert ((-1 >> lo_bits) == np.arange(hib)).sum() == 0
+        assert hi.max() < hib
+
+
+def _bf16_bits(x):
+    """Round f32 to bf16 (RNE, as __float2bfloat16_rn); (bits, value)."""
+    t = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().view(np.uint16), t.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide_exponents", "dyadic"])
+def test_three_term_bf16_split_is_exact(kind):
+    """t0 = bf16(v), t1 = bf16(v - t0), t2 = bf16(v - t0 - t1): each residual
+    is exact in f32 and t0 + t1 + t2 == v, so the f32 operand mode's three
+    products add up to the f32 product."""
+    rng = np.random.RandomState(7)
+    n = 100_000
+    if kind == "normal":
+        v = rng.randn(n)
+    elif kind == "wide_exponents":
+        v = np.sign(rng.randn(n)) * rng.rand(n) * 2.0 ** rng.randint(-60, 61, n)
+    else:
+        v = rng.randint(-2 ** 20, 2 ** 20, n) / 1024.0
+    v = v.astype(np.float32)
+    x = v.copy()
+    total = np.zeros(n, np.float64)
+    for _ in range(3):
+        _, term = _bf16_bits(x)
+        residual = x - term  # f32, as the kernel subtracts
+        np.testing.assert_array_equal(residual.astype(np.float64), x.astype(np.float64) - term)
+        total += term
+        x = residual
+    np.testing.assert_array_equal(x, 0.0)
+    np.testing.assert_array_equal(total, v.astype(np.float64))
+
+
+def _pair_mask(x0, x1, want):
+    """pair_mask of csrc/hist_bitplane.cu: 0xffff in each half whose row's
+    factor equals ``want``."""
+    return np.where(x0 == want, 0x0000FFFF, 0).astype(np.uint32) | np.where(
+        x1 == want, 0xFFFF0000, 0).astype(np.uint32)
+
+
+@pytest.mark.parametrize("lo_bits", [1, 2, 3, 4])
+def test_masked_pair_word_zeroes_exactly_the_off_rows(lo_bits):
+    """A 32-bit word holds rows 2t (low half) and 2t+1 (high half) of one
+    bf16 channel; ANDed with the mask of lo == lo_m it keeps exactly the
+    rows whose lo matches and zeroes the others (a padding row, b = -1,
+    carries value 0). The H word is bf16 1.0 where hi == hi_n."""
+    lob = 1 << lo_bits
+    rng = np.random.RandomState(lo_bits)
+    n = 4096
+    bits, _ = _bf16_bits(rng.randn(2 * n))
+    b = rng.randint(-1, 2 * lob, 2 * n)  # -1: padding rows
+    bits[b < 0] = 0
+    word = bits[0::2].astype(np.uint32) | (bits[1::2].astype(np.uint32) << 16)
+    lo = b & (lob - 1)
+    hi = b >> lo_bits
+    for lo_m in [-1] + list(range(lob)):  # -1: A rows at or above lob * 3
+        got = word & _pair_mask(lo[0::2], lo[1::2], lo_m)
+        on = lo == lo_m
+        want = np.where(on, bits, 0).astype(np.uint16)
+        np.testing.assert_array_equal((got & 0xFFFF).astype(np.uint16), want[0::2])
+        np.testing.assert_array_equal((got >> 16).astype(np.uint16), want[1::2])
+    for hi_n in range(8):
+        h = _pair_mask(hi[0::2], hi[1::2], hi_n) & 0x3F803F80
+        np.testing.assert_array_equal(h & 0xFFFF, np.where(hi[0::2] == hi_n, 0x3F80, 0))
+        np.testing.assert_array_equal(h >> 16, np.where(hi[1::2] == hi_n, 0x3F80, 0))
+
+
+@pytest.mark.parametrize("planes", range(2, 9))
+def test_bitplane_fragments_hold_each_cell_once(planes):
+    """The kernel's index maps for every B of one template instance: A row
+    m = mt*16 + g + 8s reads channel (g + (mt + 2s) % 3) % 3 == m % 3 (the
+    hoisted channel offsets), and the accumulator fragments of a warp
+    (m16n8k16 C layout) hold every (slot < B, channel) cell exactly once,
+    which lets the kernel store them into its shared histogram unzeroed."""
+    lo_bits, hi_bits = planes // 2, planes - planes // 2
+    lob, hib = 1 << lo_bits, 1 << hi_bits
+    m_tiles, n_tiles = -(-lob * 3 // 16), -(-hib // 8)
+    for g in range(8):
+        for mt in range(m_tiles):
+            for s in range(2):
+                assert (g + (mt + 2 * s) % 3) % 3 == (mt * 16 + g + 8 * s) % 3
+    for B in [B for B in range(2, 257) if max((B - 1).bit_length(), 2) == planes]:
+        cells = []
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for mt in range(m_tiles):
+                for nt in range(n_tiles):
+                    for e in range(4):
+                        m, h = mt * 16 + g + 8 * (e >> 1), nt * 8 + 2 * t + (e & 1)
+                        if m < lob * 3 and h < hib and h * lob + m // 3 < B:
+                            cells.append((h * lob + m // 3, m % 3))
+        assert sorted(cells) == [(slot, k) for slot in range(B) for k in range(3)], B
 
 
 def test_caps_match_jax_through_the_name_map():
