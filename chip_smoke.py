@@ -30,7 +30,8 @@ Phases (each prints one line; any failure exits non-zero):
     hist_v1), at the root and at a 100k-row segment, against its plain
     version (exact on dyadic values, within the two-order bound on real
     ones) and hist_v1 against histogram; times against the bytes bound and
-    one ``index_add_``;
+    one ``index_add_``, and hist_onehot's root times at every width on a
+    line of their own;
  7. the tune sweep: ``python -m lightgbm_tpu_torch.obs.tune`` in process at
     1M rows, at the widths the datasets at max_bin 15/63/255 emit, f32 and
     bf16, into a temporary table; every winner is a hand-written kernel;
@@ -139,6 +140,9 @@ def main() -> int:
     ptxas = {name: cuda_build.ptxas_usage(cuda_build.library_path(name).with_suffix(".log").read_text())
              for name in cuda_build.SOURCES}
     assert all(ptxas.values()), ("ptxas reported no kernel", ptxas)
+    # hist_onehot: one instance per (16-bin tile count, operand type)
+    onehot_instances = sorted(k for k in ptxas["hist_onehot"] if k.startswith("onehot_kernel<"))
+    assert len(onehot_instances) == 10, onehot_instances
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas)
 
@@ -446,6 +450,9 @@ def main() -> int:
         del syn_nf, syn, flat, lib_acc
     say("kernel_family", rows=N, features=F, segment_rows=n_s, dyadic_exact=True,
         checks=checked, numbers={"%s/%s" % k: v for k, v in family.items()})
+    print(json.dumps({"hist_onehot_root_ms": {
+        dt: {Bf: family[("hist_onehot", dt)][Bf]["root_ms"] for Bf in (15, 63, 255)}
+        for dt in ("float32", "bfloat16")}}), flush=True)
 
     # ---- 7. the tune sweep -------------------------------------------------------------
     datasets = {255: train_set}

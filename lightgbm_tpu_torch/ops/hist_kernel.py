@@ -81,7 +81,7 @@ KERNEL_CAPS = {
     "cuda": lambda b: -(-b // 8) * 3 <= 128,
     # two 4-bit bins per byte
     "cuda_packed4": lambda b: b <= 16,
-    # one-hot tiles of 128 bins, at most two
+    # one-hot A operand of at most 16 tiles of 16 bins
     "cuda_onehot": lambda b: 2 <= b <= 256,
     # bit-plane factors of at most 16 x 16
     "cuda_bitplane": lambda b: 2 <= b <= 256,

@@ -95,35 +95,44 @@ def test_kernels_on_tiny_segments(dev, n):
         assert torch.equal(fn(bins, vals, 63, rows), want), fn.__name__
 
 
-BITPLANE_WIDTHS = [2, 3, 4, 5, 16, 17, 64, 65, 128, 256]  # every plane split the dispatch picks
+# every template instance of each tensor-core kernel and its edges: the
+# plane splits hist_bitplane's dispatch picks, and hist_onehot's 16-bin
+# tile counts kMt in {1, 2, 4, 8, 16} on both sides of each boundary
+TENSOR_CORE_WIDTHS = {
+    "hist_bitplane": [2, 3, 4, 5, 16, 17, 64, 65, 128, 256],
+    "hist_onehot": [2, 15, 16, 17, 32, 33, 63, 64, 65, 128, 129, 255, 256],
+}
 
 
-@pytest.mark.parametrize("B", BITPLANE_WIDTHS)
+@pytest.mark.parametrize("kernel,B", [(k, b) for k, bs in TENSOR_CORE_WIDTHS.items() for b in bs])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bitplane_every_plane_split(dev, B, dtype):
-    """hist_bitplane at each (lo_bits, hi_bits) instance, in both operand
+def test_tensor_core_every_instance(dev, kernel, B, dtype):
+    """Each tensor-core kernel at each template instance, in both operand
     types, for 1, 8 and 29 features (one full and one ragged group of 8),
     whole and on a segment, from the [F, N] and the [N, F] bin layouts."""
+    fn = getattr(hist_kernel, kernel)
     for F in (1, 8, 29):
         bins, vals, rows = _dyadic(dev, F=F, N=4099, B=B, seed=B + F, q=1024)
         nf = bins.t().contiguous()
         for r in (None, rows):
             want = leaf_histogram(bins, vals, B, r, dtype)
-            assert torch.equal(hist_kernel.hist_bitplane(bins, vals, B, r, dtype), want), (F, r is None)
-            assert torch.equal(hist_kernel.hist_bitplane(nf.t(), vals, B, r, dtype), want), (F, r is None)
+            assert torch.equal(fn(bins, vals, B, r, dtype), want), (F, r is None)
+            assert torch.equal(fn(nf.t(), vals, B, r, dtype), want), (F, r is None)
 
 
+@pytest.mark.parametrize("kernel", sorted(TENSOR_CORE_WIDTHS))
 @pytest.mark.parametrize("n", [0, 1, 15, 17, 129])
-def test_bitplane_tile_edges(dev, n):
+def test_tensor_core_tile_edges(dev, kernel, n):
     """Segments that end inside a 16-row step and a 128-row tile."""
+    fn = getattr(hist_kernel, kernel)
     for B in (5, 64, 256):
         bins, vals, _ = _dyadic(dev, F=29, N=1001, B=B, q=1024)
         rows = torch.arange(7, 7 + n, dtype=torch.int32, device=dev)
         for dtype in ("float32", "bfloat16"):
             want = leaf_histogram(bins, vals, B, rows, dtype)
-            assert torch.equal(hist_kernel.hist_bitplane(bins, vals, B, rows, dtype), want), (B, dtype)
-            assert torch.equal(hist_kernel.hist_bitplane(bins[:, 7:7 + n], vals[7:7 + n].contiguous(), B,
-                                                         None, dtype), want), (B, dtype)
+            assert torch.equal(fn(bins, vals, B, rows, dtype), want), (B, dtype)
+            assert torch.equal(fn(bins[:, 7:7 + n], vals[7:7 + n].contiguous(), B, None, dtype),
+                               want), (B, dtype)
 
 
 @pytest.mark.parametrize("two_way", [True, False])

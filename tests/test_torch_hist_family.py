@@ -20,7 +20,11 @@ Then the unit mirrors, each equal to the JAX package's: ``pack4`` (odd N),
 claims, which no CPU run of the kernel can check: its mask-and-shift
 factors equal the JAX kernel's AND over bit planes, the three-term bf16
 split sums back exactly, masking a packed row pair zeroes exactly the off
-rows, and its fragments hold every histogram cell once.
+rows, and its fragments hold every histogram cell once; and of
+csrc/hist_onehot.cu's: the tile count it picks covers B, its bitmap-built
+A words equal the compare-built one-hot words, its fragments hold every
+cell once, and one warp's row steps, emulated register by register, give
+the reference histogram.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -286,6 +290,163 @@ def test_bitplane_fragments_hold_each_cell_once(planes):
                         if m < lob * 3 and h < hib and h * lob + m // 3 < B:
                             cells.append((h * lob + m // 3, m % 3))
         assert sorted(cells) == [(slot, k) for slot in range(B) for k in range(3)], B
+
+
+def _onehot_m_tiles(B):
+    """kMt as lgbt_hist_onehot (csrc/hist_onehot.cu) picks its template
+    instance: ceil(B / 16) rounded up to a power of two."""
+    for m_tiles in (1, 2, 4, 8):
+        if B <= 16 * m_tiles:
+            return m_tiles
+    return 16
+
+
+ONEHOT_M_TILES = (1, 2, 4, 8, 16)
+_U32 = 0xFFFFFFFF
+
+
+def _row_bit(b, g, span):
+    """row_bit of csrc/hist_onehot.cu: bit (b - g) >> 3 where e = b - g lies
+    in [0, span) and is a multiple of 8, else 0 (uint32 as int64)."""
+    e = np.asarray(b, np.int64) - g
+    hot = (e & (~(span - 1) | 7)) == 0
+    return np.where(hot, np.left_shift(1, np.where(hot, e >> 3, 0)), 0).astype(np.int64)
+
+
+def _bitmap_words(b0, b1, g, m_tiles):
+    """The kernel's bitmap words of a row pair (first row b0, second b1):
+    bit j / 16 + j for j < 16, and at kMt = 16 a second word for j >= 16."""
+    m0, m1 = _row_bit(b0, g, 16 * m_tiles), _row_bit(b1, g, 16 * m_tiles)
+    if m_tiles <= 8:
+        return [(m0 | (m1 << 16)) & _U32]
+    return [((m0 & 0xFFFF) | (m1 << 16)) & _U32, ((m0 >> 16) | (m1 & 0xFFFF0000)) & _U32]
+
+
+def _hot_word(q, j):
+    """hot_word of csrc/hist_onehot.cu, in its two-instruction form; equal
+    to ((q >> j) & 0x00010001) * 0x3f80 for j < 16."""
+    if j < 8:
+        return ((q & (0x00010001 << j)) * (0x3F80 >> j)) & _U32
+    return (((q >> 8) & (0x00010001 << (j - 8))) * (0x3F80 >> (j - 8))) & _U32
+
+
+def _onehot2(b0, b1, m):
+    """The compare-built A word: bf16 1.0 in the half whose row has bin m."""
+    return np.where(b0 == m, 0x3F80, 0) | np.where(b1 == m, 0x3F800000, 0)
+
+
+def test_onehot_m_tiles_cover_each_width():
+    """The instance lgbt_hist_onehot picks covers B with the fewest 16-bin
+    tiles a power of two allows (1 at B=15, 4 at B=63, 16 at B=255)."""
+    for B in range(1, 257):
+        m_tiles = _onehot_m_tiles(B)
+        assert m_tiles in ONEHOT_M_TILES and 16 * m_tiles >= B, B
+        assert m_tiles == 1 or 8 * m_tiles < B, B
+    assert [_onehot_m_tiles(B) for B in (15, 63, 255)] == [1, 4, 16]
+
+
+@pytest.mark.parametrize("m_tiles", ONEHOT_M_TILES)
+def test_onehot_bitmap_word_equals_compare_word(m_tiles):
+    """For every pair of bins b0, b1 in -1..255 (-1: padding), every lane row
+    g and every A register (mt, s) the kernel indexes, the bitmap-built word
+    hot_word(Q[(2 mt) >> 4], (2 mt) & 15 + s), in its two-instruction form
+    and as ((Q >> j) & 0x00010001) * 0x3f80, equals the compare word of
+    A row m = mt*16 + g + 8s: bins at or above 16 kMt are never hot, and at
+    kMt = 16 the two bitmap words split j at 16."""
+    b = np.arange(-1, 256)
+    b0, b1 = np.repeat(b, b.size), np.tile(b, b.size)
+    for g in range(8):
+        words = _bitmap_words(b0, b1, g, m_tiles)
+        assert len(words) == (2 if m_tiles == 16 else 1)
+        for mt in range(m_tiles):
+            for s in range(2):
+                q, j = words[(2 * mt) >> 4], ((2 * mt) & 15) + s
+                want = _onehot2(b0, b1, mt * 16 + g + 8 * s)
+                np.testing.assert_array_equal(_hot_word(q, j), want, err_msg=str((g, mt, s)))
+                np.testing.assert_array_equal(((q >> j) & 0x00010001) * 0x3F80, want)
+
+
+@pytest.mark.parametrize("m_tiles", ONEHOT_M_TILES)
+def test_onehot_fragments_hold_each_cell_once(m_tiles):
+    """For every B of one instance, the accumulator fragments of a warp
+    (element e of tile mt: bin mt*16 + g + 8(e >> 1), channel 2t + (e & 1))
+    hold every (bin < B, channel < 3) cell exactly once, which lets the
+    warps store into the shared histogram without zeroing it."""
+    for B in [B for B in range(1, 257) if _onehot_m_tiles(B) == m_tiles]:
+        cells = []
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for mt in range(m_tiles):
+                for e in range(4):
+                    bin_, ch = mt * 16 + g + 8 * (e >> 1), 2 * t + (e & 1)
+                    if bin_ < B and ch < 3:
+                        cells.append((bin_, ch))
+        assert sorted(cells) == [(b, k) for b in range(B) for k in range(3)], B
+
+
+def _bf16_of_half(half):
+    return (np.asarray(half, np.uint32) << 16).view(np.float32).astype(np.float64)
+
+
+@pytest.mark.parametrize("B,dtype", [(2, "float32"), (17, "bfloat16"), (63, "float32"),
+                                     (129, "bfloat16"), (255, "float32")])
+def test_onehot_warp_step_emulation_matches_reference(B, dtype):
+    """One warp of csrc/hist_onehot.cu in numpy on 16-row steps of a
+    ragged tile: bins staged as int16 row pairs (-1 past the end), values
+    split into kTerms bf16 terms and staged [term][channel][row pair] with
+    a zero channel 3, each lane's A registers from its bitmap words and its
+    B registers from the staged words at channel min(g, 3), multiplied in
+    the m16n8k16 fragment layouts and stored from the D fragments. The
+    result equals the reference histogram of the (bf16-rounded) values."""
+    rng = np.random.RandomState(B)
+    n, m_tiles = 45, _onehot_m_tiles(B)  # 3 steps, the last one ragged
+    terms = 3 if dtype == "float32" else 1
+    steps = -(-n // 16)
+    bins = np.full(steps * 16, -1, np.int64)
+    bins[:n] = rng.randint(0, B, n)
+    vals = np.zeros((steps * 16, 3), np.float32)
+    vals[:n] = rng.randint(-2 ** 20, 2 ** 20, (n, 3)) / 1024.0  # 21 bits: three bf16 terms
+    if dtype == "bfloat16":
+        vals = _bf16_bits(vals)[1]
+    # staged halves [term][channel][row]; channel 3 stays zero
+    staged = np.zeros((terms, 4, steps * 16), np.uint16)
+    x = vals.copy()
+    for j in range(terms):
+        staged[j, :3] = _bf16_bits(x)[0].T
+        x = x - _bf16_bits(x)[1]
+    d = np.zeros((m_tiles, 32, 4))
+    for st in range(steps):
+        A = np.zeros((m_tiles * 16, 16))
+        Bm = np.zeros((terms, 16, 8))
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for h in range(2):
+                r = st * 16 + 2 * t + 8 * h  # the pair's first row
+                words = _bitmap_words(bins[r], bins[r + 1], g, m_tiles)
+                for mt in range(m_tiles):
+                    for s in range(2):
+                        a = int(_hot_word(words[(2 * mt) >> 4], ((2 * mt) & 15) + s))
+                        A[mt * 16 + g + 8 * s, 2 * t + 8 * h:2 * t + 8 * h + 2] = _bf16_of_half(
+                            [a & 0xFFFF, a >> 16])
+                for j in range(terms):
+                    Bm[j, 2 * t + 8 * h:2 * t + 8 * h + 2, g] = _bf16_of_half(staged[j, min(g, 3), r:r + 2])
+        for mt in range(m_tiles):
+            D = sum(A[mt * 16:mt * 16 + 16] @ Bm[j] for j in range(terms))
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                for e in range(4):
+                    d[mt, lane, e] += D[g + 8 * (e >> 1), 2 * t + (e & 1)]
+        assert not Bm[:, :, 3:].any()  # columns g >= 3 read the zero channel
+    hist = np.zeros((B, 3))
+    for mt in range(m_tiles):
+        for lane in range(32):
+            g, t = lane >> 2, lane & 3
+            for e in range(4):
+                bin_, ch = mt * 16 + g + 8 * (e >> 1), 2 * t + (e & 1)
+                if bin_ < B and ch < 3:
+                    hist[bin_, ch] = d[mt, lane, e]
+    want = histogram_reference(bins[None, :n].astype(np.uint8), vals[:n], B)[0]
+    np.testing.assert_array_equal(hist, want)
 
 
 def test_caps_match_jax_through_the_name_map():
