@@ -12,7 +12,11 @@ Phases (each prints one line; any failure exits non-zero):
  2. leaf-histogram kernel vs its plain PyTorch version at the root shape
     (1M rows x 28 features, B=255) and at a leaf segment given by ``rows``:
     exact on dyadic values, within the f32 bound of two summation orders on
-    real gradients; times against the bound and one ``index_add_``;
+    real gradients; times against the bound and one ``index_add_``; then,
+    on a line of its own, the kernel at the sizes of one tree's calls
+    (sorted random segments of 256, 1024, 4096, 16384 and 100k rows, and
+    the root) in f32 and bf16: exact on dyadic values, hist_v1 equal to it,
+    each time beside its bytes bound and hist_v1's time on the same rows;
  3. two-child split-scan kernel vs its plain version on both children of
     phase 2's histograms, with missing types none/zero/nan and a monotone
     feature: every field exact on dyadic input (NaN where both are NaN);
@@ -22,8 +26,13 @@ Phases (each prints one line; any failure exits non-zero):
     after; iterations per second and the training AUC; then one more
     iteration under torch.profiler for the device busy time by kernel;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
-    and device="cpu" (the plain versions): trees equal up to f32 near-tie
-    flips, raw scores within rtol 1e-4 / atol 1e-4;
+    and device="cpu" (the plain versions), every histogram call of the CUDA
+    run held to its plain version within the two-order bound: trees equal
+    up to an f32 near-tie flip; each side's split gains against the f64
+    gains of its own splits, the kernel's largest error no larger than the
+    plain version's; at a flip, the CUDA run's split no worse in f64 than
+    the plain version's (rtol 1e-5); raw scores of all 3 trees within rtol
+    1e-4 / atol 1e-4; and each side's root histogram against an f64 sum;
  6. the histogram kernel family on synthetic 1M x 28 bins at B = 15, 63 and
     255 with f32 and bf16 operands: every kernel the caps allow (histogram,
     hist_onehot, hist_bitplane, hist_packed4 at B=15, and the oracle
@@ -232,6 +241,37 @@ def main() -> int:
         segment_err_over_bound=seg_ratio, library_max_abs_err=lib_err,
         root=hist_root, segment=hist_seg)
 
+    # ---- 2b. histogram at the sizes of one tree's calls ---------------------------
+    q = 1024  # dyadic grid on which bf16 rounds and every per-bin sum stays exact in f32
+    dyq_vals = leaf_values(
+        torch.tensor(rng.randint(-q, q + 1, N) / q, dtype=torch.float32, device=dev),
+        torch.tensor(rng.randint(1, 65, N) / q, dtype=torch.float32, device=dev),
+        torch.ones(N, device=dev),
+    )
+    size_rng = np.random.RandomState(1)
+    narrow = {Bn: (bins_nf % Bn).t() for Bn in (15, 63)}  # the grower's layout at narrower widths
+    sizes = {}
+    for n in (256, 1024, 4096, 16384, 100_000, N):
+        rows = None if n == N else torch.from_numpy(
+            np.sort(size_rng.permutation(N)[:n]).astype(np.int32)).to(dev)
+        size_bound, _ = bound(n * F + n * 12 + (0 if rows is None else n * 4) + out_bytes, 3 * n * F)
+        rec = dict(grid=hist_kernel.histogram_grid(n, F, hist_kernel._sm_count(dev)),
+                   bound_ms=size_bound)
+        for dt in ("float32", "bfloat16"):
+            got = hist_kernel.histogram(hist_bins, dyq_vals, B, rows, dt)
+            assert torch.equal(got, leaf_histogram(bins, dyq_vals, B, rows, dt)), (n, dt)
+            assert torch.equal(hist_kernel.hist_v1(hist_bins, dyq_vals, B, rows, dt), got), (n, dt)
+            for Bn, bins_n in narrow.items():
+                assert torch.equal(hist_kernel.histogram(bins_n, dyq_vals, Bn, rows, dt),
+                                   leaf_histogram(bins_n, dyq_vals, Bn, rows, dt)), (n, Bn, dt)
+            rec[dt] = dict(
+                ms=time_ms(lambda: hist_kernel.histogram(hist_bins, real_vals, B, rows, dt)),
+                hist_v1_ms=time_ms(lambda: hist_kernel.hist_v1(hist_bins, real_vals, B, rows, dt)),
+            )
+        sizes["root" if rows is None else n] = rec
+    del narrow
+    say("histogram_sizes", num_bins=B, dyadic_exact_at_num_bins=[15, 63, B], sizes=sizes)
+
     # ---- 3. split kernel vs plain -----------------------------------------------
     hist2 = torch.stack([got_s, got - got_s]).contiguous()  # both children
     sums = hist2[:, 0].sum(dim=1).contiguous()
@@ -325,9 +365,50 @@ def main() -> int:
         device_idle_share=(1 - busy_ms / iter_ms) if busy_ms else "not measured",
         top_device_ms_and_calls=top)
 
+    def hold_calls():
+        """Hold every call of each histogram kernel wrapper to its plain
+        version on the same rows within the two-order bound, until the returned
+        ``release()`` (which returns the counts and the worst ratio): every
+        tree, those after a flip included."""
+        orig = {n: getattr(hist_kernel, n) for n in
+                ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4")}
+        held = dict(checked=dict.fromkeys(orig, 0), worst_err_over_bound=0.0)
+
+        def check(name, got, plain, values):
+            ratio, err = err_over_bound(got, plain(values), plain(values.abs()))
+            assert ratio <= 1.0, ("routed call off its plain version", name, held["checked"][name], err, ratio)
+            held["checked"][name] += 1
+            held["worst_err_over_bound"] = max(held["worst_err_over_bound"], ratio)
+
+        def rows_call(name):
+            def call(bins_, values, num_bins, rows=None, hist_dtype="float32"):
+                got = orig[name](bins_, values, num_bins, rows, hist_dtype)
+                check(name, got, lambda v: leaf_histogram(bins_, v, num_bins, rows, hist_dtype), values)
+                return got
+            return call
+
+        def packed_call(bins_p, values_p, num_bins, hist_dtype="float32"):
+            got = orig["hist_packed4"](bins_p, values_p, num_bins, hist_dtype)
+            check("hist_packed4", got,
+                  lambda v: leaf_histogram_packed4(bins_p, v, num_bins, hist_dtype), values_p)
+            return got
+
+        for name in ("histogram", "hist_onehot", "hist_bitplane"):
+            setattr(hist_kernel, name, rows_call(name))
+        hist_kernel.hist_packed4 = packed_call
+
+        def release():
+            for name, fn in orig.items():
+                setattr(hist_kernel, name, fn)
+            return held
+        return release
+
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]
+    release = hold_calls()  # every histogram call of the CUDA run held to its plain version
     on_gpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cuda")
+    held5 = release()
+    assert held5["checked"]["histogram"] > 0, held5
     on_cpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cpu")
 
     def same_trees(base, other, rtol=1e-5):
@@ -353,23 +434,88 @@ def main() -> int:
         assert agree >= 1 or flips == 1, "the trees differ beyond a near-tie"
         return agree, flips, where
 
-    agree, flips, _ = same_trees(on_cpu, on_gpu)
-    worst = 0.0
-    if agree:
-        ra = on_cpu.predict(Xs, num_iteration=agree, raw_score=True)
-        rb = on_gpu.predict(Xs, num_iteration=agree, raw_score=True)
-        np.testing.assert_allclose(rb, ra, rtol=1e-4, atol=1e-4)
-        worst = float(np.abs(ra - rb).max())
+    def exact_gains(bst, t, gh):
+        """f64 gain of every split of tree t of ``bst``,
+        G_L^2 / (H_L + l2) + G_R^2 / (H_R + l2) - G^2 / (H + l2), from the
+        sums of ``gh`` ([n, 2] f64 gradients and hessians) over the rows each
+        node splits."""
+        g0 = bst._gbdt
+        fb = g0.bins_dev.to(dev)
+        meta = {kk: v.cpu().tolist() for kk, v in g0.feature_meta.items()}
+        lam = g0.config.lambda_l2
+        ta = g0._tree_arrays[t]
+        lc, rc = ta.left_child.tolist(), ta.right_child.tolist()
+        reach = {0: torch.ones(fb.shape[1], dtype=torch.bool, device=dev)}
+        gains = []
+        for i in range(int(ta.num_leaves) - 1):
+            f, thr = int(ta.split_feature[i]), int(ta.threshold_bin[i])
+            col = fb[f].long()
+            left = col <= thr
+            if meta["missing_type"][f] == MISSING_ZERO:
+                left[col == meta["default_bin"][f]] = bool(ta.default_left[i])
+            elif meta["missing_type"][f] == MISSING_NAN:
+                left[col == meta["num_bin"][f] - 1] = bool(ta.default_left[i])
+            sides = reach[i] & left, reach[i] & ~left
+            (g_l, h_l), (g_r, h_r) = (gh[s].sum(0).tolist() for s in sides)
+            gains.append(g_l * g_l / (h_l + lam) + g_r * g_r / (h_r + lam)
+                         - (g_l + g_r) ** 2 / (h_l + h_r + lam))
+            for child, s in zip((lc[i], rc[i]), sides):
+                if child > 0:
+                    reach[child] = s
+        return gains
+
+    # Each side's f32 gains against the f64 gains of its own splits, over
+    # the nodes the trees share and the flipped node, from the plain run's
+    # log-loss gradients (the runs' scores differ only in the last bits of
+    # the leaf values). The kernel's sums must be no further from exact than
+    # the plain version's sequential f32 sums. At a flip, the two splits are
+    # a near tie in f32; the CUDA run's split must be no worse in exact
+    # arithmetic than the plain version's, to rtol 1e-5.
+    agree, flips, where = same_trees(on_cpu, on_gpu, rtol=None)
+    labels5 = torch.as_tensor(ys, dtype=torch.float64, device=dev)
+    p5 = float(np.mean(ys))
+    gain_err, at_flip = {}, {}
+    for t in range(where[0] + 1 if where else 3):
+        s = (torch.as_tensor(on_cpu.predict(Xs, num_iteration=t, raw_score=True), device=dev) if t
+             else torch.full((len(ys),), float(np.float32(np.log(p5 / (1 - p5)))),
+                             dtype=torch.float64, device=dev))  # boost from average
+        p = torch.sigmoid(s)
+        gh = torch.stack([p - labels5, p * (1 - p)], 1)
+        for name, b in (("cuda", on_gpu), ("cpu_plain", on_cpu)):
+            exact = exact_gains(b, t, gh)
+            upto = where[1] + 1 if where and t == where[0] else len(exact)
+            assert upto <= len(exact), ("no node at the flip", name, where)
+            got = b._gbdt._tree_arrays[t].split_gain[:upto].tolist()
+            errs = [abs(a - e) for a, e in zip(got, exact[:upto])]
+            gain_err[name] = max([gain_err.get(name, 0.0)] + errs)
+            if upto and where and t == where[0]:
+                at_flip[name] = dict(gain=got[-1], exact_gain=exact[upto - 1])
+    assert gain_err["cuda"] <= gain_err["cpu_plain"], ("gains further from exact", gain_err)
+    if where is not None:
+        ex_cuda, ex_cpu = at_flip["cuda"]["exact_gain"], at_flip["cpu_plain"]["exact_gain"]
+        assert ex_cuda >= ex_cpu - 1e-5 * abs(ex_cpu), ("flip to a worse split", where, at_flip)
+    ra = on_cpu.predict(Xs, raw_score=True)  # all 3 trees, a flip included
+    rb = on_gpu.predict(Xs, raw_score=True)
+    np.testing.assert_allclose(rb, ra, rtol=1e-4, atol=1e-4)
+    worst = float(np.abs(ra - rb).max())
+    # mean |error| of the g and h channels of the 100k-row root histogram
+    # (real gradients) against an f64 sum: the kernel and the plain version
+    fb5, nb5 = on_gpu._gbdt.bins_dev, on_gpu._gbdt.num_bins
+    vals5 = real_vals[: fb5.shape[1]].contiguous()
+    flat5 = (fb5.long() + torch.arange(F, device=dev)[:, None] * nb5).reshape(-1)
+    exact5 = torch.zeros((F * nb5, 3), dtype=torch.float64, device=dev).index_add_(
+        0, flat5, vals5.double().repeat(F, 1)).view(F, nb5, 3)
+
+    def err_f64(h):
+        return [float(v) for v in (h.double().to(dev) - exact5)[..., :2].abs().mean((0, 1))]
+
+    root_err = dict(cuda=err_f64(hist_kernel.histogram(fb5, vals5, nb5)),
+                    cpu_plain=err_f64(leaf_histogram(fb5.cpu(), vals5.cpu(), nb5)))
     say("cross_check", rows=100_000, iterations=3, trees_identical=agree,
-        near_tie_flips=flips, worst_raw_score_diff=worst)
+        near_tie_flips=flips, flip_at=where, flip=at_flip, max_gain_err_vs_f64=gain_err,
+        worst_raw_score_diff=worst, held_calls=held5, root_err_vs_f64=root_err)
 
     # ---- 6. the histogram kernel family --------------------------------------------
-    q = 1024  # dyadic grid on which bf16 rounds and every per-bin sum stays exact in f32
-    dyq_vals = leaf_values(
-        torch.tensor(rng.randint(-q, q + 1, N) / q, dtype=torch.float32, device=dev),
-        torch.tensor(rng.randint(1, 65, N) / q, dtype=torch.float32, device=dev),
-        torch.ones(N, device=dev),
-    )
     n_s = int(seg_rows.numel())
     seg_long = seg_rows.long()
     family = {}  # (kernel, dtype) -> {B: numbers}
@@ -498,44 +644,6 @@ def main() -> int:
     def train_at(mb, dt, tune_path):
         params = dict(TRAIN_PARAMS, max_bin=mb, tpu_hist_dtype=dt, hist_tune=tune_path)
         return lgb.train(params, datasets[mb], 10)
-
-    def hold_calls():
-        """Hold every call of each routed kernel wrapper to its plain version
-        on the same rows within the two-order bound, until the returned
-        ``release()`` (which returns the counts and the worst ratio): every
-        tree, those after a flip included."""
-        orig = {n: getattr(hist_kernel, n) for n in
-                ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4")}
-        held = dict(checked=dict.fromkeys(orig, 0), worst_err_over_bound=0.0)
-
-        def check(name, got, plain, values):
-            ratio, err = err_over_bound(got, plain(values), plain(values.abs()))
-            assert ratio <= 1.0, ("routed call off its plain version", name, held["checked"][name], err, ratio)
-            held["checked"][name] += 1
-            held["worst_err_over_bound"] = max(held["worst_err_over_bound"], ratio)
-
-        def rows_call(name):
-            def call(bins_, values, num_bins, rows=None, hist_dtype="float32"):
-                got = orig[name](bins_, values, num_bins, rows, hist_dtype)
-                check(name, got, lambda v: leaf_histogram(bins_, v, num_bins, rows, hist_dtype), values)
-                return got
-            return call
-
-        def packed_call(bins_p, values_p, num_bins, hist_dtype="float32"):
-            got = orig["hist_packed4"](bins_p, values_p, num_bins, hist_dtype)
-            check("hist_packed4", got,
-                  lambda v: leaf_histogram_packed4(bins_p, v, num_bins, hist_dtype), values_p)
-            return got
-
-        for name in ("histogram", "hist_onehot", "hist_bitplane"):
-            setattr(hist_kernel, name, rows_call(name))
-        hist_kernel.hist_packed4 = packed_call
-
-        def release():
-            for name, fn in orig.items():
-                setattr(hist_kernel, name, fn)
-            return held
-        return release
 
     U = 2.0 ** -24  # f32 unit roundoff
     labels = torch.as_tensor(y, dtype=torch.float64, device=dev)

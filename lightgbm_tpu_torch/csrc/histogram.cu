@@ -5,26 +5,56 @@
 // function, hist[f, bins[f, r], k] += values[r, k] over the rows r of a leaf,
 // but not the same way: the TPU kernel factors each bin into a radix pair and
 // contracts one-hot tiles on the matrix unit because a TPU has no fast
-// scatter. Hopper has fast shared-memory atomics, so this is the reference
-// OpenCL histogram256 design: every block keeps a [features, B, 3] f32
-// sub-histogram in shared memory (28 features at B=256 take 86 KB), its
-// threads stride over rows and add each row's three values into the row's
-// bin of every feature, and the block flushes its non-zero cells into the
-// zeroed output with global atomicAdd.
+// scatter. Hopper has fast shared-memory atomics, so every block scatters
+// its rows into a sub-histogram in shared memory and flushes it once.
 //
 // What bounds it on the card: bytes. A root pass at 1M rows x 28 features
-// reads 28 MB of bins and 12 MB of values, about 12 us at 3.35 TB/s. The
-// design reads each input byte once per feature group (one group for F <= 65
-// at B = 256), keeps every partial sum on chip, and writes the output once
-// per block. A leaf segment is read through the optional row-index vector, so
-// the grower never materialises a gathered copy; with the transposed [N, F]
-// bin layout (stride_n = F, stride_f = 1) a row's bins are one contiguous
-// run, which keeps those gathers to a few sectors per row.
+// reads 28 MB of bins and 12 MB of values, about 12 us at 3.35 TB/s. Most
+// calls of a tree are small leaf segments (a median of about 4.5k rows at
+// 1M x 28, B = 255), where a fixed cost per call and per block outweighs the
+// bytes. The design:
+//
+// - A block owns one feature group of kG = 4 features and one chunk of rows.
+//   Its [kG, B, 3] f32 sub-histogram lives in static shared memory, at most
+//   4 x 336 x 12 = 16,128 bytes: under the 48 KB default, so the kernel needs
+//   no opt-in attribute, and up to 8 blocks of 256 threads share an SM. A
+//   group that holds fewer than kG features (the last one when F % 4 != 0)
+//   masks the rest by a predicate, not by a run-time loop bound.
+// - The grid is 1-D, groups x chunks blocks, the group varying fastest
+//   (group = blockIdx.x % groups): the blocks that read the same rows run
+//   side by side, and their repeated reads of a row's values and bin sector
+//   hit L2. The launcher sizes a chunk (rows_per_block, from
+//   ops/hist_kernel.py histogram_grid) at a multiple of 1024 rows aimed at
+//   about four blocks per SM, so a 4.5k-row segment gets 35 blocks of 4
+//   rows a thread and the 1M root 532 blocks of 13,312 rows.
+// - Loads are hoisted ahead of the atomics. A step covers 1024 rows: thread
+//   t takes rows base + t + 256 j, j < 4, loads all four rows' indices, then
+//   their three values and kG bins, and only then makes its 4 x kG x 3
+//   shared atomics, so the loads of four rows are in flight together. Every
+//   loop over rows and features is unrolled at compile time and no register
+//   array is indexed by a run-time value (which would spill). When the bins
+//   are the [N, F] copy (stride_f = 1, 4-byte aligned rows, F % 4 == 0) a
+//   row's kG bins are one 32-bit load.
+// - The flush depends on the chunk count. With one chunk a block owns its
+//   cells outright and stores every cell of its group, zeros included, with
+//   plain stores. With more it adds its non-zero cells with atomicAdd whose
+//   result is unused (RED); at the root that is about 1.6M global adds into
+//   21,420 addresses (76 a cell).
+//
+// What the SASS shows (cuobjdump -sass of the sm_90a build): Hopper has no
+// native shared-memory f32 add. Each shared atomicAdd is a compare-and-swap
+// loop, LDS, FADD, ATOMS.CAST.SPIN, ISETP and a branch back, in this kernel
+// as in the one it replaced; the flush's global add is a native
+// REDG.E.ADD.F32. ptxas: 40 registers a thread on the one-word bin path, 50
+// and 51 on the byte path, no spills. So a small segment waits on each
+// thread's chain of 48 CAS loops, and the root on the shared atomics' rate;
+// the design cuts the flush, the waits on loads and the idle SMs, not the
+// count of shared adds.
 //
 // Sums are f32 in an order set by the atomics, so they differ between runs
 // in the last bits; on values that are dyadic rationals with small exponents
-// every order gives the same bits. The count channel is a sum of 1.0s, exact
-// up to 2^24 rows.
+// every order gives the same bits. The count channel is a sum of the mask
+// column, exact up to 2^24 rows.
 //
 // bf16 operands (hist_dtype=bfloat16): each of a row's three values is
 // rounded to bf16 (round to nearest even) before its f32 atomic add, the
@@ -37,51 +67,84 @@
 namespace {
 
 constexpr int kThreads = 256;
-// shared memory a block may use on sm_90 (232,448 bytes), less a margin
-constexpr int kMaxSmem = 227 * 1024;
+constexpr int kG = 4;                      // features per block
+constexpr int kRows = 4;                   // rows per thread per step
+constexpr int kStep = kThreads * kRows;    // rows per block per step
+constexpr int kMaxBins = 336;
 
 template <bool kBf16>
 __device__ __forceinline__ float operand(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
-template <bool kBf16>
+// kWord: the kG bins of a row are one aligned 32-bit word (see the header).
+template <bool kBf16, bool kWord>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
             long long stride_n, const float* __restrict__ values,
-            const int* __restrict__ rows, long long n, int F, int f_tile,
-            int B, float* __restrict__ out) {
-  extern __shared__ float cells[];  // [ft, B, 3]
-  const int f0 = blockIdx.y * f_tile;
-  const int ft = min(f_tile, F - f0);
-  const int size = ft * B * 3;
-  for (int i = threadIdx.x; i < size; i += blockDim.x) cells[i] = 0.0f;
+            const int* __restrict__ rows, long long n, int F, int B,
+            long long rows_per_block, int groups, float* __restrict__ out) {
+  __shared__ float cells[kG * kMaxBins * 3];  // [kG, B, 3]
+  const int group = blockIdx.x % groups;
+  const long long chunk = blockIdx.x / groups;
+  const int f0 = group * kG;
+  const int nf = min(kG, F - f0);
+  for (int i = threadIdx.x; i < kG * B * 3; i += kThreads) cells[i] = 0.0f;
   __syncthreads();
 
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const long long r = rows != nullptr ? (long long)rows[i] : i;
-    const float v0 = operand<kBf16>(values[r * 3]);
-    const float v1 = operand<kBf16>(values[r * 3 + 1]);
-    const float v2 = operand<kBf16>(values[r * 3 + 2]);
-    const uint8_t* bp = bins + r * stride_n + (long long)f0 * stride_f;
-    for (int fl = 0; fl < ft; ++fl) {
-      const int b = bp[fl * stride_f];
-      if (b < B) {
-        float* c = cells + (fl * B + b) * 3;
-        atomicAdd(c, v0);
-        atomicAdd(c + 1, v1);
-        atomicAdd(c + 2, v2);
+  const long long begin = chunk * rows_per_block;
+  const long long end = min(begin + rows_per_block, n);
+  const uint8_t* bg = bins + (long long)f0 * stride_f;
+  for (long long base = begin + threadIdx.x; base < end; base += kStep) {
+    bool ok[kRows];
+    long long r[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const long long i = base + j * kThreads;
+      ok[j] = i < end;
+      r[j] = ok[j] ? (rows != nullptr ? (long long)rows[i] : i) : 0;
+    }
+    float v[kRows][3];
+    int b[kRows][kG];  // B (never added) for a row past the chunk or a masked feature
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const float* vp = values + r[j] * 3;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[j][k] = ok[j] ? operand<kBf16>(vp[k]) : 0.0f;
+      const uint8_t* bp = bg + r[j] * stride_n;
+      if (kWord) {
+        const unsigned w = ok[j] ? *reinterpret_cast<const unsigned*>(bp) : 0u;
+#pragma unroll
+        for (int g = 0; g < kG; ++g) b[j][g] = ok[j] ? (int)((w >> (8 * g)) & 0xffu) : B;
+      } else {
+#pragma unroll
+        for (int g = 0; g < kG; ++g) b[j][g] = ok[j] && g < nf ? (int)bp[g * stride_f] : B;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        if (b[j][g] < B) {
+          float* c = cells + (g * B + b[j][g]) * 3;
+          atomicAdd(c, v[j][0]);
+          atomicAdd(c + 1, v[j][1]);
+          atomicAdd(c + 2, v[j][2]);
+        }
       }
     }
   }
   __syncthreads();
 
   float* o = out + (long long)f0 * B * 3;
-  for (int i = threadIdx.x; i < size; i += blockDim.x) {
-    const float v = cells[i];
-    if (v != 0.0f) atomicAdd(o + i, v);
+  const int mine = nf * B * 3;
+  if (gridDim.x == (unsigned)groups) {  // one chunk: the block owns its cells
+    for (int i = threadIdx.x; i < mine; i += kThreads) o[i] = cells[i];
+  } else {
+    for (int i = threadIdx.x; i < mine; i += kThreads) {
+      const float c = cells[i];
+      if (c != 0.0f) atomicAdd(o + i, c);
+    }
   }
 }
 
@@ -89,40 +152,30 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
 
 extern "C" {
 
-// hist[F, B, 3] (zeroed by the caller) += histogram of n rows.
+// hist[F, B, 3], zeroed by the caller, receives the histogram of n rows:
+// with one chunk (n <= rows_per_block) each block stores its cells, so the
+// output is assigned, not added to; with more, the chunks add into it.
 // bins[f, r] lives at bins + f * stride_f + r * stride_n; values is [N, 3]
 // f32 row-major; rows (may be null) holds n int32 row indices into both.
-// bf16 != 0 rounds the values to bf16 before they are added.
+// bf16 != 0 rounds the values to bf16 before they are added. The grid is
+// ceil(F / 4) x ceil(n / rows_per_block) blocks; B <= 336.
 int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
                    const void* values, const void* rows, long long n, int F,
-                   int B, int bf16, void* out, void* stream) {
+                   int B, int bf16, long long rows_per_block, void* out,
+                   void* stream) {
   if (n <= 0 || F <= 0) return (int)cudaSuccess;
-  const int cell_bytes = B * 3 * (int)sizeof(float);
-  int f_tile = kMaxSmem / cell_bytes;
-  if (f_tile < 1) return (int)cudaErrorInvalidValue;
-  if (f_tile > F) f_tile = F;
-  const int smem = f_tile * cell_bytes;
-  decltype(&hist_kernel<false>) kern = bf16 ? &hist_kernel<true> : &hist_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-
-  static int num_sms = 0;
-  if (num_sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&num_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (num_sms <= 0) num_sms = 132;
-  }
-  int per_sm = (228 * 1024) / (smem + 1024);
-  if (per_sm < 1) per_sm = 1;
-  if (per_sm > 8) per_sm = 8;
-  long long want = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)num_sms * per_sm;
-  dim3 grid((unsigned)(want < cap ? want : cap), (unsigned)((F + f_tile - 1) / f_tile));
-  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  if (B < 1 || B > kMaxBins || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  const long long groups = (F + kG - 1) / kG;
+  const long long chunks = (n + rows_per_block - 1) / rows_per_block;
+  if (groups * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool word = stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 &&
+                    ((uintptr_t)bins & 3) == 0;
+  decltype(&hist_kernel<false, false>) kern =
+      bf16 ? (word ? &hist_kernel<true, true> : &hist_kernel<true, false>)
+           : (word ? &hist_kernel<false, true> : &hist_kernel<false, false>);
+  kern<<<(unsigned)(groups * chunks), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
-      (const int*)rows, n, F, f_tile, B, (float*)out);
+      (const int*)rows, n, F, B, rows_per_block, (int)groups, (float*)out);
   return (int)cudaGetLastError();
 }
 

@@ -158,6 +158,8 @@ _ARGS_ROWS = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p, ctypes.c_void_p,
 ]
+# lgbt_histogram: the [F, N] arguments plus the grid's rows_per_block
+_ARGS_HIST = _ARGS_ROWS[:9] + [ctypes.c_longlong] + _ARGS_ROWS[9:]
 _ARGS_PACKED = [
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -186,12 +188,9 @@ def _check_bins(what: str, bins: torch.Tensor, num_bins: int, max_bins: int) -> 
         raise ValueError("%s: num_bins must be in [1, %d], got %d" % (what, max_bins, num_bins))
 
 
-def _launch_rows(
-    name: str, symbol: str, bins, values, num_bins, rows, hist_dtype, max_bins
-) -> torch.Tensor:
-    """Validate, allocate the zeroed ``[F, B, 3]`` output, launch the
-    kernel ``symbol`` of ``csrc/<name>.cu`` on the current stream and
-    count it."""
+def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
+    """Validate the arguments of an ``[F, N]`` wrapper; return the row count
+    and the zeroed ``[F, B, 3]`` output."""
     _check_dtype(hist_dtype)
     _check_bins(name, bins, num_bins, max_bins)
     N = bins.shape[1]
@@ -212,8 +211,17 @@ def _launch_rows(
         ):
             raise ValueError("%s: rows must be a contiguous 1-D int32 tensor on the bins' device" % name)
         n = rows.numel()
+    return n, torch.zeros((bins.shape[0], num_bins, 3), dtype=torch.float32, device=bins.device)
+
+
+def _launch_rows(
+    name: str, symbol: str, bins, values, num_bins, rows, hist_dtype, max_bins
+) -> torch.Tensor:
+    """Validate, allocate the zeroed ``[F, B, 3]`` output, launch the
+    kernel ``symbol`` of ``csrc/<name>.cu`` on the current stream and
+    count it."""
+    n, out = _rows_output(name, bins, values, num_bins, rows, hist_dtype, max_bins)
     F = bins.shape[0]
-    out = torch.zeros((F, num_bins, 3), dtype=torch.float32, device=bins.device)
     if n == 0 or F == 0:
         return out
     bf16 = hist_dtype == "bfloat16"
@@ -227,9 +235,42 @@ def _launch_rows(
     return out
 
 
+# csrc/histogram.cu's block: HIST_GROUP features x a chunk of rows, taken
+# HIST_STEP rows (256 threads x 4 rows) a step, in a static [HIST_GROUP, 336,
+# 3] f32 shared histogram
+HIST_GROUP = 4
+HIST_STEP = 1024
+HIST_MAX_CHUNK = 65536
+HIST_BLOCKS_PER_SM = 4
+
+
+def histogram_grid(n: int, F: int, num_sms: int) -> Tuple[int, int, int]:
+    """``(groups, chunks, rows_per_block)`` of csrc/histogram.cu for ``n``
+    rows of ``F`` features on a card of ``num_sms`` SMs: ``ceil(F / 4)``
+    feature groups, and chunks of a multiple of 1024 rows (1024 to 65536)
+    aimed at about four blocks per SM. At F=28 on 132 SMs a 4488-row
+    segment gets 5 chunks x 7 groups, the 1M root 76 chunks of 13312 rows."""
+    groups = -(-F // HIST_GROUP)
+    want = -(-(n * groups) // (HIST_BLOCKS_PER_SM * num_sms))
+    rows_per_block = min(max(-(-want // HIST_STEP) * HIST_STEP, HIST_STEP), HIST_MAX_CHUNK)
+    return groups, -(-n // rows_per_block), rows_per_block
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    """Multiprocessors of a card, read once per device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
     """``[F, B, 3]`` f32 histogram of ``values`` ([N, 3]) over ``bins``
-    (csrc/histogram.cu: shared-memory sub-histograms with atomics).
+    (csrc/histogram.cu: 4-feature blocks over row chunks of
+    :func:`histogram_grid`, shared-memory atomics).
 
     ``bins`` is an ``[F, N]`` uint8 view with any strides, so the transposed
     ``[N, F]`` copy passes as ``bins_nf.t()``. ``rows`` is an optional int32
@@ -237,7 +278,20 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
     ``[F, N]`` wrappers take the same arguments."""
     if bins.device.type == "cpu":
         return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
-    return _launch_rows("histogram", "lgbt_histogram", bins, values, num_bins, rows, hist_dtype, 336)
+    n, out = _rows_output("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+    F = bins.shape[0]
+    if n == 0 or F == 0:
+        return out
+    bf16 = hist_dtype == "bfloat16"
+    code = _entry("histogram", "lgbt_histogram", _ARGS_HIST)(
+        bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
+        rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
+        histogram_grid(n, F, _sm_count(bins.device))[2],
+        out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
+    )
+    cuda_build.check(code, "histogram kernel")
+    launches["histogram_bf16" if bf16 else "histogram"] += 1
+    return out
 
 
 def hist_onehot(bins, values, num_bins, rows=None, hist_dtype="float32"):

@@ -47,6 +47,39 @@ def test_histogram_kernel_matches_plain(dev, B):
     )
 
 
+def _grid_edges(F, num_sms):
+    """Row counts at csrc/histogram.cu's edges: one row, inside, at and across
+    one 1024-row step, a ragged 4-step chunk, and one row either side of a
+    chunk edge at a rows_per_block above the 1024-row floor."""
+    _, chunks, rpb = hist_kernel.histogram_grid(400_000, F, num_sms)
+    assert rpb > 1024
+    edges = [(chunks - 1) * rpb - 1, (chunks - 1) * rpb + 1]
+    for n in edges:
+        assert hist_kernel.histogram_grid(n, F, num_sms)[2] == rpb, (n, rpb)
+    return [1, 255, 1023, 1024, 1025, 4 * 1024 + 3] + edges
+
+
+@pytest.mark.parametrize("F", [5, 8, 29])
+@pytest.mark.parametrize("B", [15, 63, 255, 336])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_histogram_grid_edges(dev, F, B, dtype):
+    """The default kernel at the grid's edges (:func:`_grid_edges`), whole and
+    on a sorted segment, from the [F, N] and the [N, F] layouts (F = 8 takes
+    the one-word bin load), against its plain version; hist_v1 equals it."""
+    edges = _grid_edges(F, hist_kernel._sm_count(dev))
+    bins, vals, _ = _dyadic(dev, F=F, N=max(edges) + 7, B=B, seed=F * B, q=1024)
+    nf = bins.t().contiguous()
+    gen = np.random.RandomState(B)
+    for n in edges:
+        rows = torch.tensor(np.sort(gen.permutation(bins.shape[1])[:n]).astype(np.int32), device=dev)
+        for b_fn, b_nf, v, r in ((bins[:, :n], nf[:n].t(), vals[:n], None), (bins, nf.t(), vals, rows)):
+            want = leaf_histogram(b_fn, v, B, r, dtype)
+            got = hist_kernel.histogram(b_nf, v, B, r, dtype)
+            assert torch.equal(hist_kernel.histogram(b_fn, v, B, r, dtype), want), (n, r is None)
+            assert torch.equal(got, want), (n, r is None)
+            assert torch.equal(hist_kernel.hist_v1(b_nf, v, B, r, dtype), got), (n, r is None)
+
+
 FAMILY = {
     "histogram": (hist_kernel.histogram, (15, 63, 255)),
     "hist_v1": (hist_kernel.hist_v1, (15, 63, 255)),
