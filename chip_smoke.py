@@ -19,12 +19,15 @@ Phases (each prints one line; any failure exits non-zero):
     each time beside its bytes bound and hist_v1's time on the same rows;
  3. two-child split-scan kernel vs its plain version on both children of
     phase 2's histograms, with missing types none/zero/nan and a monotone
-    feature: every field exact on dyadic input (NaN where both are NaN);
+    feature: every field exact (NaN where both are NaN) on dyadic and on
+    real-valued histograms, also read by leaf index out of a grower-like
+    buffer, and on 300 features of synthetic dyadic histograms;
  4. the main path: ``lightgbm_tpu_torch.train`` on make_higgs_like(1M, 28),
     binary, max_bin=255, num_leaves=255, learning_rate=0.1, 10 iterations,
     with the kernels' launch counters set to 0 just before and read just
     after; iterations per second and the training AUC; then one more
-    iteration under torch.profiler for the device busy time by kernel;
+    iteration under torch.profiler for the device busy time by kernel, the
+    top 8 and every kernel of the split scan or of an indexing copy;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     and device="cpu" (the plain versions), every histogram call of the CUDA
     run held to its plain version within the two-order bound: trees equal
@@ -285,16 +288,44 @@ def main() -> int:
     }
     meta["monotone"][3] = 1
     fmask = torch.ones(F, dtype=torch.bool, device=dev)
-    split_fields = 0
+    # the same children read by leaf index out of a grower-like buffer
+    leaf_buf = torch.zeros((8, F, B, 3), dtype=torch.float32, device=dev)
+    leaf_buf[5], leaf_buf[2] = hist2[0], hist2[1]
+    # real-valued children: the same fold order and rounded ops, so bit for bit too
+    seg_r = leaf_histogram(bins, real_vals, B, seg_rows)
+    hist2_r = torch.stack([seg_r, want_r - seg_r]).contiguous()
+    sums_r = hist2_r[:, 0].sum(dim=1).contiguous()
+    # 300 features of synthetic dyadic histograms: many blocks race for a child's ticket
+    F_wide = 300
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cnt = torch.randint(0, 40, (2, F_wide, B), generator=gen, device=dev).float()
+    grad_w = torch.randint(-64, 65, (2, F_wide, B), generator=gen, device=dev) / 64.0
+    hist_w = torch.stack([grad_w * cnt.clamp(min=1), cnt * 0.25, cnt], -1).contiguous()
+    meta_w = {
+        "num_bin": torch.full((F_wide,), B, dtype=torch.int32, device=dev),
+        "missing_type": torch.arange(F_wide, dtype=torch.int32, device=dev) % 3,
+        "default_bin": torch.arange(F_wide, dtype=torch.int32, device=dev) % 3,
+        "monotone": torch.zeros(F_wide, dtype=torch.int32, device=dev),
+    }
+    cases = {
+        "dyadic": (hist2, sums, cons, meta, fmask, None),
+        "dyadic_by_leaf": (leaf_buf, sums, cons, meta, fmask, (5, 2)),
+        "real": (hist2_r, sums_r, cons, meta, fmask, None),
+        "wide_dyadic": (hist_w, hist_w[:, 0].sum(dim=1).contiguous(), cons, meta_w,
+                        torch.ones(F_wide, dtype=torch.bool, device=dev), None),
+    }
+    split_fields = dict.fromkeys(cases, 0)
     for pr in ((0.0, 0.0, 0.0, 20, 1e-3, 0.0), (0.5, 1.0, 0.3, 5, 0.5, 0.1)):
         params = SplitParams(*pr)
         for two_way in (True, False):
-            kf, ki = split_kernel.find_best_split_pair(hist2, sums, cons, meta, fmask, params, two_way)
-            pf, pi = find_best_split_pair(hist2, sums, cons, meta, fmask, params, two_way)
-            same_f = (kf == pf) | (torch.isnan(kf) & torch.isnan(pf))
-            assert bool(same_f.all()) and torch.equal(ki, pi), (
-                "split kernel != plain", pr, two_way, kf, pf, ki, pi)
-            split_fields += kf.numel() + ki.numel()
+            for case, (h, s, cn, mt, fm, leaves) in cases.items():
+                kf, ki = split_kernel.find_best_split_pair(h, s, cn, mt, fm, params, two_way, leaves)
+                pf, pi = find_best_split_pair(h, s, cn, mt, fm, params, two_way, leaves)
+                same_f = (kf == pf) | (torch.isnan(kf) & torch.isnan(pf))
+                assert bool(same_f.all()) and torch.equal(ki, pi), (
+                    "split kernel != plain", case, pr, two_way, kf, pf, ki, pi)
+                split_fields[case] += kf.numel() + ki.numel()
+    del leaf_buf, hist_w
     params = SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0)
     split_bound, split_by = bound(hist2.numel() * 4 + 2 * 21 * 4 + F * 17, 2 * F * B * 60)
     split_t = dict(
@@ -302,8 +333,7 @@ def main() -> int:
         plain_ms=time_ms(lambda: find_best_split_pair(hist2, sums, cons, meta, fmask, params), reps=3),
         bound_ms=split_bound, bound_by=split_by, library_ms=None,
     )
-    say("split", dyadic_exact=True, fields_compared=split_fields, feature=ki[:, 0].tolist(),
-        **split_t)
+    say("split", exact=True, fields_compared=split_fields, **split_t)
 
     # ---- 4. the main path ----------------------------------------------------------
     main_launches = {}  # summed over the main-path runs: phase 4, sweep, routed training
@@ -356,6 +386,10 @@ def main() -> int:
             by_kernel[ev.key[:60]] = [round(us / 1e3, 3), ev.count]
     busy_ms = sum(v[0] for v in by_kernel.values())
     top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:8])
+    # the split scan's kernels and any indexing copy (a hist[idx] gather),
+    # whatever their rank
+    split_and_copy = {k: v for k, v in by_kernel.items()
+                      if "split" in k.lower() or "index_elementwise" in k or "gpu_index" in k}
     # the profiler's host-side tracing slows the profiled iteration many
     # times over, so the idle share is taken against phase 4's unprofiled
     # iteration time
@@ -363,7 +397,7 @@ def main() -> int:
     say("profile", profiled_iteration_wall_ms=wall_ms, unprofiled_iteration_ms=iter_ms,
         device_busy_ms=busy_ms,
         device_idle_share=(1 - busy_ms / iter_ms) if busy_ms else "not measured",
-        top_device_ms_and_calls=top)
+        top_device_ms_and_calls=top, split_and_copy_ms_and_calls=split_and_copy)
 
     def hold_calls():
         """Hold every call of each histogram kernel wrapper to its plain

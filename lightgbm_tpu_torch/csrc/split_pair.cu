@@ -1,4 +1,4 @@
-// Two-child best-split scan for Hopper (sm_90a).
+// Two-child best-split scan for Hopper (sm_90a), one launch a call.
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/split_pallas.py:
 // find_best_split_pair_pallas (body _kernel): the best numerical split of
@@ -10,17 +10,39 @@
 // (candidate_gains and its helpers) and of the port's plain version,
 // lightgbm_tpu_torch/ops/split.py, op for op.
 //
-// What bounds it on the card: latency. One call reads C*F*B*3 floats (170 KB
-// for two children at 28 x 255) and does a few thousand operations per
-// feature; launch and dependent-step latency dominate. The design keeps the
-// step count small instead: one block per (feature, child) loads its
-// histogram row into shared memory, one thread folds the inclusive bin
-// prefix sequentially for each channel (B <= 256 steps, the left-to-right
-// order of the CPU fold in lightgbm_tpu/ops/split.py _bin_prefix, so sums
-// match it bit for bit), each thread scores its thresholds in both
-// directions, and a block reduction keeps the best per feature. A second,
-// one-block-per-child launch takes the feature argmax and writes the
-// winner's side sums and constrained leaf outputs.
+// What bounds it on the card: latency, not bytes. One call reads C*F*B*3
+// floats (171 KB for two children at 28 x 255, 0.05 us at 3.35 TB/s) and
+// does a few thousand operations per feature; what it costs is launches and
+// chains of dependent steps. The design cuts both:
+//  - Rows by leaf index. Block (f, c) reads feature f of leaf leaf_c
+//    straight from the grower's [M, F, B, 3] histograms, so the caller
+//    makes no contiguous copy of the children (a kernel of its own).
+//  - One round trip to device memory before the fold: the row, the
+//    feature's meta, the child's sums and window are loaded at once, and
+//    the row is staged into shared memory channel-major, its excluded bins
+//    zeroed.
+//  - The bin prefix in order without waiting on memory. It must stay a
+//    left fold in f32 (the CPU fold order of ops/split.py _bin_prefix, so
+//    the sums match the plain version bit for bit), so its floor is a
+//    chain of B dependent adds. Lanes 0-2 of warp 0 fold one channel each
+//    over batches of 8 bins, a batch two 16-byte shared loads issued one
+//    batch ahead of its 8 adds (software pipelined, registers indexed only
+//    at compile time, so none spills), its prefixes stored after them. No
+//    load of the fold reads what a store of the fold wrote, and the padded
+//    rows need no guards.
+//  - Argmax by warp shuffles: 5 xor rounds per direction inside each warp,
+//    then warp 0 reduces the 8 warps' winners in 3 rounds after one
+//    barrier, with the reference tie-breaks (dir -1 keeps the largest
+//    threshold among equal gains, dir +1 the smallest).
+//  - The feature argmax in the same launch. Each block writes its
+//    feature's record, fences, and takes a ticket from count[c]; the block
+//    that draws ticket F - 1 is the last of its child. It reads the F
+//    records (from L2), each thread keeping the whole record of its best,
+//    takes the smallest index among equal gains, and the thread holding the
+//    winner writes the child's split record and sets count[c] back to 0.
+//    Which block comes last does not change the result. count persists
+//    between calls, so calls that share it must run in order: every caller
+//    in the port launches on the device's one current stream.
 //
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
@@ -31,7 +53,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 8;  // bins a fold lane loads ahead of its adds
+constexpr int kMaxBins = 336;
+constexpr int kStage = (kMaxBins * 3 + kThreads - 1) / kThreads;  // row floats a thread
+// floats of one channel's prefix row in shared memory: B bins, two batches
+// of padding the fold may touch, and 4 more so that the three rows start 16
+// bytes apart modulo the 128 bytes of the banks (1424 = 11 * 128 + 16)
+constexpr int kRow = kMaxBins + 2 * kBatch + 4;
 constexpr int kBig = 1 << 30;
+constexpr unsigned kFull = 0xffffffffu;
 // K_EPSILON = 1e-15 (meta.h:42) as the plain version rounds it into f32
 constexpr double kEpsilon = 1e-15;
 
@@ -90,52 +121,114 @@ __device__ __forceinline__ float candidate_gain(float lg, float lh, float rg, fl
   return ok ? g : -INFINITY;
 }
 
-// per (feature, child): best threshold and its left sums
-// feat_f[c, f, :] = (gain, left_g, left_h incl. eps, left_c); feat_i[c, f, :] = (t, default_left)
+// (g, t) beats (best_g, best_t): a larger gain, or an equal gain at the
+// threshold the direction prefers (the largest for dir -1, the smallest for
+// dir +1; the smallest feature index in the pick). Gains are never NaN.
+template <bool kLargest>
+__device__ __forceinline__ bool beats(float g, int t, float best_g, int best_t) {
+  return g > best_g || (g == best_g && (kLargest ? t > best_t : t < best_t));
+}
+
+// Argmax over the lanes of each group of kLanes (lane 0 of the group ends
+// with it), by xor shuffles.
+template <bool kLargest, int kLanes = 32>
+__device__ __forceinline__ void warp_argmax(float& g, int& t) {
+#pragma unroll
+  for (int s = kLanes / 2; s > 0; s >>= 1) {
+    const float og = __shfl_xor_sync(kFull, g, s);
+    const int ot = __shfl_xor_sync(kFull, t, s);
+    if (beats<kLargest>(og, ot, g, t)) { g = og; t = ot; }
+  }
+}
+
+// carry += v.x, v.x = carry, ... for the four lanes of v, in order
+__device__ __forceinline__ void fold4(float4& v, float& carry) {
+  carry = carry + v.x; v.x = carry;
+  carry = carry + v.y; v.y = carry;
+  carry = carry + v.z; v.z = carry;
+  carry = carry + v.w; v.w = carry;
+}
+
+// Inclusive prefix of one channel's row (16-byte aligned) for b < B, in bin
+// order, a batch of 8 bins at a time as two 16-byte words: batch i + 1's
+// loads go out before batch i's adds, and batch i's prefixes are stored
+// after them. The row is padded by two batches, so no load or store needs
+// a guard (what the fold leaves past B is never read).
+__device__ __forceinline__ void fold_channel(float* row, int B) {
+  float4* r = reinterpret_cast<float4*>(row);
+  float4 a = r[0], b = r[1];
+  float carry = 0.0f;
+  for (int q = 0; q < (B + 3) / 4; q += 2) {
+    const float4 na = r[q + 2], nb = r[q + 3];
+    fold4(a, carry);
+    fold4(b, carry);
+    r[q] = a;
+    r[q + 1] = b;
+    a = na;
+    b = nb;
+  }
+}
+
+// One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
+// incl. eps, left_c) and feat_i[c, f, :] = (t, default_left) of the
+// feature's best threshold; the last block of child c writes outf[c] and
+// outi[c] from them.
 __global__ void __launch_bounds__(kThreads)
-split_feature_kernel(const float* __restrict__ hist, const float* __restrict__ sums,
-                     const float* __restrict__ cons, const int* __restrict__ num_bin_a,
-                     const int* __restrict__ missing_a, const int* __restrict__ default_bin_a,
-                     const int* __restrict__ mono_a, const unsigned char* __restrict__ fmask,
-                     float* __restrict__ feat_f, int* __restrict__ feat_i, int F, int B,
-                     Params p, int two_way) {
-  extern __shared__ float pre[];  // [B, 3] inclusive prefix
-  __shared__ float red_g[2][kThreads];
-  __shared__ int red_t[2][kThreads];
+split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
+                  const float* __restrict__ sums, const float* __restrict__ cons,
+                  const int* __restrict__ num_bin_a, const int* __restrict__ missing_a,
+                  const int* __restrict__ default_bin_a, const int* __restrict__ mono_a,
+                  const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
+                  float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
+                  Params p, int two_way) {
+  __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
+  __shared__ float red_g[2][kWarps];
+  __shared__ int red_t[2][kWarps];
+  __shared__ bool last;
   const int f = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
-  const float* h = hist + ((long long)c * F + f) * B * 3;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int leaf = c == 0 ? leaf0 : leaf1;
+  const float* h = hist + ((long long)leaf * F + f) * B * 3;
+
+  // every read of device memory the block needs, issued together: none
+  // waits on another
+  float v[kStage];
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int i = tid + k * kThreads;
+    v[k] = i < B * 3 ? h[i] : 0.0f;
+  }
   const int num_bin = num_bin_a[f], miss = missing_a[f], dbin = default_bin_a[f];
   const int mono = mono_a[f];
+  const bool use_feature = fmask[f];
+  const float sg = sums[c * 3], sh = sums[c * 3 + 1], nd = sums[c * 3 + 2];
+  const float min_c = cons[c * 2], max_c = cons[c * 2 + 1];
   const bool multi_bin = num_bin > 2;
   const bool use_na = miss == 2 && multi_bin;
   const bool skip_def = miss == 1 && multi_bin;
   const bool single_scan = !(use_na || skip_def);
 
-  for (int b = tid; b < B; b += blockDim.x) {
+  // stage the row, the excluded bins zeroed
+#pragma unroll
+  for (int k = 0; k < kStage; ++k) {
+    const int i = tid + k * kThreads;
+    const int b = i / 3;
     const bool excl = b >= num_bin || (skip_def && b == dbin) || (use_na && b == num_bin - 1);
-    for (int k = 0; k < 3; ++k) pre[b * 3 + k] = excl ? 0.0f : h[b * 3 + k];
+    if (i < B * 3) pre[(i - 3 * b) * kRow + b] = excl ? 0.0f : v[k];
   }
   __syncthreads();
-  if (tid < 3) {
-    float carry = 0.0f;
-    for (int b = 0; b < B; ++b) {
-      carry = carry + pre[b * 3 + tid];
-      pre[b * 3 + tid] = carry;
-    }
-  }
+  if (tid < 3) fold_channel(pre + tid * kRow, B);
   __syncthreads();
 
-  const float sg = sums[c * 3], sh = sums[c * 3 + 1], nd = sums[c * 3 + 2];
-  const float min_c = cons[c * 2], max_c = cons[c * 2 + 1];
   const float eps = (float)kEpsilon;
   const float sh_eff = sh + (float)(2.0 * kEpsilon);
   const float mgs = min_gain_shift(sg, sh, p);
-  const float tg = pre[(B - 1) * 3], th = pre[(B - 1) * 3 + 1], tc = pre[(B - 1) * 3 + 2];
+  const float tg = pre[B - 1], th = pre[kRow + B - 1], tc = pre[2 * kRow + B - 1];
 
   float best_gn = -INFINITY, best_gp = -INFINITY;
   int best_tn = -1, best_tp = kBig;
-  for (int t = tid; t < B; t += blockDim.x) {
-    const float pg = pre[t * 3], ph = pre[t * 3 + 1], pc = pre[t * 3 + 2];
+  for (int t = tid; t < B; t += kThreads) {
+    const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
     // dir = -1: right side accumulates from the top, default_left = true
     const float rg_n = tg - pg;
     const float rh_n = (th - ph) + eps;
@@ -144,7 +237,7 @@ split_feature_kernel(const float* __restrict__ hist, const float* __restrict__ s
     const bool v_neg = t <= num_bin - 2 - (use_na ? 1 : 0) && !(skip_def && t == dbin - 1);
     const float gn = candidate_gain(lg_n, lh_n, rg_n, rh_n, lc_n, rc_n, v_neg, mono, min_c,
                                     max_c, mgs, p);
-    if (gn > best_gn || (gn == best_gn && t > best_tn)) { best_gn = gn; best_tn = t; }
+    if (beats<true>(gn, t, best_gn, best_tn)) { best_gn = gn; best_tn = t; }
     if (two_way) {
       // dir = +1: left side accumulates from the bottom, default_left = false
       const float lg_p = pg, lh_p = ph + eps, lc_p = pc;
@@ -152,127 +245,118 @@ split_feature_kernel(const float* __restrict__ hist, const float* __restrict__ s
       const bool v_pos = t <= num_bin - 2 && !(skip_def && t == dbin) && !single_scan;
       const float gp = candidate_gain(lg_p, lh_p, rg_p, rh_p, lc_p, rc_p, v_pos, mono, min_c,
                                       max_c, mgs, p);
-      if (gp > best_gp || (gp == best_gp && t < best_tp)) { best_gp = gp; best_tp = t; }
+      if (beats<false>(gp, t, best_gp, best_tp)) { best_gp = gp; best_tp = t; }
     }
   }
-  red_g[0][tid] = best_gn; red_t[0][tid] = best_tn;
-  red_g[1][tid] = best_gp; red_t[1][tid] = best_tp;
+  warp_argmax<true>(best_gn, best_tn);
+  warp_argmax<false>(best_gp, best_tp);
+  if (lane == 0) {
+    red_g[0][warp] = best_gn; red_t[0][warp] = best_tn;
+    red_g[1][warp] = best_gp; red_t[1][warp] = best_tp;
+  }
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      // dir = -1 keeps the largest threshold among equal gains
-      float g = red_g[0][tid + s]; int t = red_t[0][tid + s];
-      if (g > red_g[0][tid] || (g == red_g[0][tid] && t > red_t[0][tid])) {
-        red_g[0][tid] = g; red_t[0][tid] = t;
+  if (warp == 0) {
+    float gn = lane < kWarps ? red_g[0][lane] : -INFINITY;
+    int tn = lane < kWarps ? red_t[0][lane] : -1;
+    float gp = lane < kWarps ? red_g[1][lane] : -INFINITY;
+    int tp = lane < kWarps ? red_t[1][lane] : kBig;
+    warp_argmax<true, kWarps>(gn, tn);
+    warp_argmax<false, kWarps>(gp, tp);
+    if (lane == 0) {
+      const bool use_pos = gp > gn;  // +1 must beat -1 strictly
+      float g = use_pos ? gp : gn;
+      const int t = use_pos ? tp : tn;
+      bool dl = !use_pos;
+      if (miss == 2 && !multi_bin) dl = false;  // 2-bin NaN features
+      if (!use_feature) g = -INFINITY;
+      const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
+      float lg, lh, lc;
+      if (use_pos) {
+        lg = pg; lh = ph + eps; lc = pc;
+      } else {
+        const float rg_n = tg - pg, rh_n = (th - ph) + eps, rc_n = tc - pc;
+        lg = sg - rg_n; lh = sh_eff - rh_n; lc = nd - rc_n;
       }
-      // dir = +1 keeps the smallest
-      g = red_g[1][tid + s]; t = red_t[1][tid + s];
-      if (g > red_g[1][tid] || (g == red_g[1][tid] && t < red_t[1][tid])) {
-        red_g[1][tid] = g; red_t[1][tid] = t;
-      }
+      reinterpret_cast<float4*>(feat_f)[(long long)c * F + f] = make_float4(g, lg, lh, lc);
+      reinterpret_cast<int2*>(feat_i)[(long long)c * F + f] = make_int2(t, dl ? 1 : 0);
+      __threadfence();  // the record is visible before the ticket
+      last = atomicAdd(&count[c], 1) == F - 1;
+      if (last) __threadfence();  // and every other block's record before the reads
     }
-    __syncthreads();
   }
-  if (tid == 0) {
-    const float g_neg = red_g[0][0], g_pos = red_g[1][0];
-    const bool use_pos = g_pos > g_neg;  // +1 must beat -1 strictly
-    float g = use_pos ? g_pos : g_neg;
-    const int t = use_pos ? red_t[1][0] : red_t[0][0];
-    bool dl = !use_pos;
-    if (miss == 2 && !multi_bin) dl = false;  // 2-bin NaN features
-    if (!fmask[f]) g = -INFINITY;
-    const float pg = pre[t * 3], ph = pre[t * 3 + 1], pc = pre[t * 3 + 2];
-    float lg, lh, lc;
-    if (use_pos) {
-      lg = pg; lh = ph + eps; lc = pc;
-    } else {
-      const float rg_n = tg - pg, rh_n = (th - ph) + eps, rc_n = tc - pc;
-      lg = sg - rg_n; lh = sh_eff - rh_n; lc = nd - rc_n;
-    }
-    float* o = feat_f + ((long long)c * F + f) * 4;
-    o[0] = g; o[1] = lg; o[2] = lh; o[3] = lc;
-    int* oi = feat_i + ((long long)c * F + f) * 2;
-    oi[0] = t; oi[1] = dl ? 1 : 0;
-  }
-}
+  __syncthreads();
+  if (!last) return;
 
-// per child: feature argmax (smallest index on ties) and the winner's record
-__global__ void __launch_bounds__(kThreads)
-split_pick_kernel(const float* __restrict__ feat_f, const int* __restrict__ feat_i,
-                  const float* __restrict__ sums, const float* __restrict__ cons,
-                  float* __restrict__ outf, int* __restrict__ outi, int F, Params p) {
-  __shared__ float red_g[kThreads];
-  __shared__ int red_f[kThreads];
-  const int c = blockIdx.x, tid = threadIdx.x;
+  // ---- the last block of child c: feature argmax and the split record ----
+  // a thread keeps the whole record of its best feature, so the winner's
+  // record needs no second read. Plain loads suffice: the fence above
+  // dropped this SM's L1 lines, so they read the records from L2.
   float best = -INFINITY;
   int best_f = kBig;
-  for (int f = tid; f < F; f += blockDim.x) {
-    const float g = feat_f[((long long)c * F + f) * 4];
-    if (g > best || (g == best && f < best_f)) { best = g; best_f = f; }
+  float4 rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int2 rec_i = make_int2(0, 0);
+  for (int k = tid; k < F; k += kThreads) {
+    const float4 r = reinterpret_cast<const float4*>(feat_f)[(long long)c * F + k];
+    const int2 ri = reinterpret_cast<const int2*>(feat_i)[(long long)c * F + k];
+    if (beats<false>(r.x, k, best, best_f)) { best = r.x; best_f = k; rec = r; rec_i = ri; }
   }
-  red_g[tid] = best; red_f[tid] = best_f;
+  float g = best;
+  int fi = best_f;
+  warp_argmax<false>(g, fi);
+  if (lane == 0) { red_g[0][warp] = g; red_t[0][warp] = fi; }
   __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (tid < s) {
-      const float g = red_g[tid + s]; const int f = red_f[tid + s];
-      if (g > red_g[tid] || (g == red_g[tid] && f < red_f[tid])) { red_g[tid] = g; red_f[tid] = f; }
-    }
-    __syncthreads();
+  if (warp == 0) {
+    g = lane < kWarps ? red_g[0][lane] : -INFINITY;
+    fi = lane < kWarps ? red_t[0][lane] : kBig;
+    warp_argmax<false, kWarps>(g, fi);
+    if (lane == 0) { red_g[1][0] = g; red_t[1][0] = fi; }
   }
-  if (tid == 0) {
-    const float g_best = red_g[0];
-    const bool has_split = g_best > -INFINITY;
-    const int fb = has_split ? red_f[0] : 0;
-    const float* w = feat_f + ((long long)c * F + fb) * 4;
-    const int* wi = feat_i + ((long long)c * F + fb) * 2;
-    const float sg = sums[c * 3], sh = sums[c * 3 + 1], nd = sums[c * 3 + 2];
-    const float min_c = cons[c * 2], max_c = cons[c * 2 + 1];
-    const float eps = (float)kEpsilon;
-    const float lg = w[1], lh = w[2], lc = w[3];
-    const float rg = sg - lg;
-    const float rh = (sh + (float)(2.0 * kEpsilon)) - lh;
-    const float rc = nd - lc;
-    float* o = outf + c * 9;
-    o[0] = has_split ? g_best - min_gain_shift(sg, sh, p) : -INFINITY;
-    o[1] = lg; o[2] = lh - eps; o[3] = lc;
-    o[4] = rg; o[5] = rh - eps; o[6] = rc;
-    o[7] = leaf_output_constrained(lg, lh, p, min_c, max_c);
-    o[8] = leaf_output_constrained(rg, rh, p, min_c, max_c);
-    int* oi = outi + c * 4;
-    oi[0] = has_split ? fb : -1;
-    oi[1] = wi[0];
-    oi[2] = 0;
-    oi[3] = wi[1];
-  }
+  __syncthreads();
+  const float g_best = red_g[1][0];
+  const bool has_split = g_best > -INFINITY;
+  const int fb = has_split ? red_t[1][0] : 0;
+  if (best_f != fb) return;  // the one thread that holds the winner's record
+  const float lg = rec.y, lh = rec.z, lc = rec.w;
+  const float rg = sg - lg;
+  const float rh = sh_eff - lh;
+  const float rc = nd - lc;
+  float* o = outf + c * 9;
+  o[0] = has_split ? g_best - mgs : -INFINITY;
+  o[1] = lg; o[2] = lh - eps; o[3] = lc;
+  o[4] = rg; o[5] = rh - eps; o[6] = rc;
+  o[7] = leaf_output_constrained(lg, lh, p, min_c, max_c);
+  o[8] = leaf_output_constrained(rg, rh, p, min_c, max_c);
+  int* oi = outi + c * 4;
+  oi[0] = has_split ? fb : -1;
+  oi[1] = rec_i.x;
+  oi[2] = 0;
+  oi[3] = rec_i.y;
+  count[c] = 0;  // ready for the next call on this stream
 }
 
 }  // namespace
 
 extern "C" {
 
-// Best split of each of C children. hist [C, F, B, 3], sums [C, 3]
-// (sum_grad, sum_hess, count), cons [C, 2] (monotone min, max), per-feature
-// int32 num_bin/missing_type/default_bin/monotone [F], fmask [F] bytes.
-// Scratch feat_f [C, F, 4] f32 and feat_i [C, F, 2] int32; out outf [C, 9],
-// outi [C, 4].
-int lgbt_split_pair(const void* hist, const void* sums, const void* cons, const void* num_bin,
-                    const void* missing, const void* default_bin, const void* mono,
-                    const void* fmask, void* feat_f, void* feat_i, void* outf, void* outi, int C,
-                    int F, int B, float l1, float l2, float max_delta_step, float min_data,
-                    float min_hess, float min_gain, int two_way, void* stream) {
-  if (C <= 0 || F <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
+// Best split of each of C (1 or 2) children. hist [M, F, B, 3] f32, child c
+// the leaf leaf0 or leaf1 of it; sums [C, 3] (sum_grad, sum_hess, count),
+// cons [C, 2] (monotone min, max), per-feature int32 num_bin/missing_type/
+// default_bin/monotone [F], fmask [F] bytes. Scratch feat_f [C, F, 4] f32
+// and feat_i [C, F, 2] int32; count int32 [2], 0 between calls; out outf
+// [C, 9], outi [C, 4]. B <= 336.
+int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, const void* cons,
+                    const void* num_bin, const void* missing, const void* default_bin,
+                    const void* mono, const void* fmask, void* feat_f, void* feat_i, void* outf,
+                    void* outi, void* count, int C, int F, int B, float l1, float l2,
+                    float max_delta_step, float min_data, float min_hess, float min_gain,
+                    int two_way, void* stream) {
+  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
-  const int smem = B * 3 * (int)sizeof(float);
-  cudaStream_t s = (cudaStream_t)stream;
-  split_feature_kernel<<<dim3(F, C), kThreads, smem, s>>>(
-      (const float*)hist, (const float*)sums, (const float*)cons, (const int*)num_bin,
-      (const int*)missing, (const int*)default_bin, (const int*)mono,
-      (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, F, B, p, two_way);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  split_pick_kernel<<<C, kThreads, 0, s>>>((const float*)feat_f, (const int*)feat_i,
-                                           (const float*)sums, (const float*)cons,
-                                           (float*)outf, (int*)outi, F, p);
+  split_pair_kernel<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
+      (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
+      (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
+      (int*)count, F, B, p, two_way);
   return (int)cudaGetLastError();
 }
 

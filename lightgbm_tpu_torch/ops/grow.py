@@ -9,7 +9,8 @@ Train, serial_tree_learner.cpp:173-237) for numerical, unbundled data:
    child read in place through its segment of ``order``; the larger child's
    histogram is the parent's minus the smaller one's (serial_tree_learner.
    cpp:510);
- * both children's best splits from one two-child scan;
+ * both children's best splits from one two-child scan, which reads their
+   rows of the [M, F, B, 3] histogram buffer by leaf index;
  * monotone-constraint windows per leaf (serial_tree_learner.cpp:841-850)
    and ``max_depth``.
 
@@ -99,8 +100,8 @@ def grow_tree(
     def split2(idx, laux_rows):
         aux = laux_rows.to(dev)
         outf, outi = split_kernel.find_best_split_pair(
-            hist[idx], aux[:, :3].contiguous(), aux[:, 3:].contiguous(),
-            feature_meta, feature_mask, params, two_way,
+            hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(),
+            feature_meta, feature_mask, params, two_way, leaves=idx,
         )
         return outf.cpu(), outi.cpu()
 

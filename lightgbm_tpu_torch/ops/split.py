@@ -19,7 +19,7 @@ whose CPU kernel accumulates floats in double.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -175,16 +175,21 @@ def valid_neg_mask(thresholds, num_bin_b, default_bin_b, skip_def_b, use_na_b):
 
 
 def find_best_split_pair(
-    hist: torch.Tensor,  # [C, F, B, 3]
+    hist: torch.Tensor,  # [C, F, B, 3], or [M, F, B, 3] with leaves
     sums: torch.Tensor,  # [C, 3]: sum_grad, sum_hess, num_data
     cons: torch.Tensor,  # [C, 2]: monotone window min, max
     feature_meta: Dict[str, torch.Tensor],  # num_bin/missing_type/default_bin/monotone [F]
     feature_mask: torch.Tensor,  # [F] bool
     params: SplitParams,
     two_way: bool = True,
+    leaves: Optional[Sequence[int]] = None,  # rows of hist to scan, else all
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Best numerical split of each of C leaves: ([C, 9] f32, [C, 4] int32)."""
+    """Best numerical split of each of C leaves: ([C, 9] f32, [C, 4] int32).
+    With ``leaves``, ``hist`` is the grower's [M, F, B, 3] and the C leaves
+    are its rows ``leaves``."""
     p = params
+    if leaves is not None:
+        hist = hist[list(leaves)]
     C, F, B, _ = hist.shape
     dev = hist.device
     num_bin = feature_meta["num_bin"].to(torch.int32)

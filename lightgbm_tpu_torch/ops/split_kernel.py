@@ -3,12 +3,19 @@
 ``find_best_split_pair`` takes the kernel for CUDA tensors and the plain
 PyTorch version (ops/split.py) for CPU tensors; any other device, and
 anything the kernel does not take, raises. ``launches`` counts calls that
-launched the kernel pair.
+launched the kernel.
+
+The kernel reads the children's rows out of the grower's ``[M, F, B, 3]``
+histograms by leaf index (``leaves``), and picks each child's feature in the
+same launch through a ticket counter per child: an int32 [2] tensor per
+device, allocated zeroed once and kept, which every launch leaves at 0.
+Calls on one device must therefore run in order on one stream, as every
+caller in the port does (the device's current stream).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -17,10 +24,13 @@ from .split import SplitParams
 
 launches = 0
 
+MAX_BINS = 336  # the kernel's shared prefix row, the cap of csrc/histogram.cu
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [
-    ctypes.c_int, ctypes.c_void_p,
-]
+_ARGTYPES = (
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12
+    + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+)
+_tickets: Dict[torch.device, torch.Tensor] = {}
 
 
 def _lib():
@@ -28,6 +38,13 @@ def _lib():
     lib.lgbt_split_pair.argtypes = _ARGTYPES
     lib.lgbt_split_pair.restype = ctypes.c_int
     return lib
+
+
+def _ticket_counter(dev: torch.device) -> torch.Tensor:
+    count = _tickets.get(dev)
+    if count is None:
+        count = _tickets[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return count
 
 
 def find_best_split_pair(
@@ -38,24 +55,36 @@ def find_best_split_pair(
     feature_mask: torch.Tensor,
     params: SplitParams,
     two_way: bool = True,
+    leaves: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best numerical split of each of C leaves; see ops/split.py.
 
-    On CUDA: ``hist`` contiguous [C, F, B, 3] f32, ``sums`` [C, 3] and
+    ``hist`` is [C, F, B, 3], or with ``leaves`` (C leaf indices) the
+    grower's [M, F, B, 3], of which the scan reads rows ``leaves``. On CUDA:
+    ``hist`` contiguous f32 with B <= 336 and C 1 or 2, ``sums`` [C, 3] and
     ``cons`` [C, 2] contiguous f32, the meta arrays contiguous int32 [F] and
     ``feature_mask`` bool [F], all on one device."""
     dev = hist.device
     if dev.type == "cpu":
         return split.find_best_split_pair(
-            hist, sums, cons, feature_meta, feature_mask, params, two_way
+            hist, sums, cons, feature_meta, feature_mask, params, two_way, leaves
         )
     if dev.type != "cuda":
         raise ValueError("find_best_split_pair: unsupported device %s" % dev)
     if hist.dim() != 4 or hist.shape[-1] != 3:
-        raise ValueError("find_best_split_pair: hist must be [C, F, B, 3]")
-    C, F, B, _ = hist.shape
+        raise ValueError("find_best_split_pair: hist must be [C, F, B, 3] or [M, F, B, 3]")
+    M, F, B, _ = hist.shape
+    leaves = list(range(M)) if leaves is None else [int(v) for v in leaves]
+    C = len(leaves)
+    if not 1 <= C <= 2 or not all(0 <= v < M for v in leaves):
+        raise ValueError(
+            "find_best_split_pair: the kernel scans 1 or 2 leaves of the %d given, not %s"
+            % (M, leaves)
+        )
+    if B > MAX_BINS:
+        raise ValueError("find_best_split_pair: the kernel takes B <= %d, not %d" % (MAX_BINS, B))
     for name, t, shape, dtype in (
-        ("hist", hist, (C, F, B, 3), torch.float32),
+        ("hist", hist, (M, F, B, 3), torch.float32),
         ("sums", sums, (C, 3), torch.float32),
         ("cons", cons, (C, 2), torch.float32),
         ("feature_mask", feature_mask, (F,), torch.bool),
@@ -75,10 +104,10 @@ def find_best_split_pair(
     outi = torch.empty((C, 4), dtype=torch.int32, device=dev)
     p = params
     code = _lib().lgbt_split_pair(
-        hist.data_ptr(), sums.data_ptr(), cons.data_ptr(),
+        hist.data_ptr(), leaves[0], leaves[-1], sums.data_ptr(), cons.data_ptr(),
         *(feature_meta[k].data_ptr() for k in _META_KEYS),
         feature_mask.data_ptr(), feat_f.data_ptr(), feat_i.data_ptr(),
-        outf.data_ptr(), outi.data_ptr(), C, F, B,
+        outf.data_ptr(), outi.data_ptr(), _ticket_counter(dev).data_ptr(), C, F, B,
         p.lambda_l1, p.lambda_l2, p.max_delta_step, float(p.min_data_in_leaf),
         p.min_sum_hessian_in_leaf, p.min_gain_to_split, int(bool(two_way)),
         torch.cuda.current_stream(dev).cuda_stream,

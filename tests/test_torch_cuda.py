@@ -191,3 +191,150 @@ def test_split_kernel_matches_plain(dev, two_way):
         pf, pi = find_best_split_pair(hist2, sums, cons, meta, fmask, SplitParams(*pr), two_way)
         assert bool(((kf == pf) | (kf.isnan() & pf.isnan())).all())
         assert torch.equal(ki, pi)
+
+
+def _split_inputs(dev, F=28, B=255, C=2, seed=0, real=False, tied=(), N=4000):
+    """Children's histograms [C, F, B, 3] built from N rows (bins below each
+    feature's num_bin), with their sums, monotone windows, meta and mask.
+    Dyadic grad/hess (multiples of 1/64) keep every sum exact; ``real`` draws
+    them from a normal law. The features in ``tied`` share one bin column
+    and one meta entry that the gradients follow, so they tie for the best
+    gain."""
+    rng = np.random.RandomState(seed)
+    num_bin = rng.randint(2, B + 1, F)
+    num_bin[: min(F, 2)] = B
+    missing = np.arange(F) % 3
+    default_bin = rng.randint(0, 3, F) % num_bin
+    monotone = np.zeros(F, np.int64)
+    monotone[rng.randint(F)] = 1
+    bins = (rng.rand(F, N) * num_bin[:, None]).astype(np.int64)
+    hidden = rng.randint(0, B, N)
+    if real:
+        grad = rng.randn(N).astype(np.float32)
+        hess = rng.rand(N).astype(np.float32) + np.float32(0.1)
+    else:
+        grad = rng.randint(-64, 65, N) / 64.0
+        hess = rng.randint(1, 65, N) / 64.0
+    if tied:
+        grad = grad / 4 + np.where(hidden < B // 3, 0.5, -0.5)
+        for f in tied:
+            bins[f], num_bin[f], missing[f], default_bin[f], monotone[f] = hidden, B, 0, 0, 0
+    child = rng.rand(N) < 0.4
+    hist = np.zeros((C, F, B, 3), np.float64)
+    sums = np.zeros((C, 3), np.float64)
+    for c in range(C):
+        rows = child if c == 0 else ~child
+        vals = np.stack([grad[rows], hess[rows], np.ones(rows.sum())], 1)
+        for f in range(F):
+            np.add.at(hist[c, f], bins[f, rows], vals)
+        sums[c] = vals.sum(0)
+    t = lambda a, dt=torch.float32: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+    meta = {k: t(v, torch.int32) for k, v in (
+        ("num_bin", num_bin), ("missing_type", missing), ("default_bin", default_bin),
+        ("monotone", monotone))}
+    cons = t([[-np.inf, np.inf], [-1.0, 0.5]][:C])
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    return t(hist.astype(np.float32)), t(sums.astype(np.float32)), cons, meta, fmask
+
+
+SPLIT_PARAMS = [SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0), SplitParams(0.5, 1.0, 0.3, 5, 0.5, 0.1)]
+
+
+def _same_split(got, want):
+    (kf, ki), (pf, pi) = got, want
+    assert bool(((kf == pf) | (kf.isnan() & pf.isnan())).all()), (kf, pf)
+    assert torch.equal(ki, pi), (ki, pi)
+
+
+def _both(hist, sums, cons, meta, fmask, params, two_way=True, leaves=None):
+    """(kernel, plain) on the same inputs."""
+    args = (hist, sums, cons, meta, fmask, params, two_way)
+    return (split_kernel.find_best_split_pair(*args, leaves=leaves),
+            find_best_split_pair(*args, leaves=leaves))
+
+
+@pytest.mark.parametrize("B", [2, 3, 17, 64, 255, 256, 336])
+def test_split_kernel_widths(dev, B):
+    hist, sums, cons, meta, fmask = _split_inputs(dev, B=B, seed=B)
+    buf = torch.zeros((5,) + hist.shape[1:], device=dev)
+    buf[3], buf[1] = hist[0], hist[1]
+    for params in SPLIT_PARAMS:
+        for two_way in (True, False):
+            got, want = _both(hist, sums, cons, meta, fmask, params, two_way)
+            _same_split(got, want)
+            _same_split(_both(buf, sums, cons, meta, fmask, params, two_way, (3, 1))[0], want)
+
+
+def test_split_kernel_refuses_more_than_336_bins(dev):
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=3, B=337)
+    with pytest.raises(ValueError, match="336"):
+        split_kernel.find_best_split_pair(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+
+
+def test_split_kernel_refuses_three_leaves(dev):
+    """The ticket counter serves two children a call."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=3, B=17)
+    with pytest.raises(ValueError, match="1 or 2 leaves"):
+        split_kernel.find_best_split_pair(
+            hist, sums[[0, 1, 1]], cons[[0, 1, 1]], meta, fmask, SPLIT_PARAMS[0],
+            leaves=(0, 1, 1))
+
+
+def test_split_kernel_wide_features(dev):
+    """F = 300 blocks a child race for the ticket."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=300, B=64, seed=3)
+    for params in SPLIT_PARAMS:
+        _same_split(*_both(hist, sums, cons, meta, fmask, params))
+
+
+def test_split_kernel_tie_takes_smallest_feature(dev):
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=300, B=64, seed=4, tied=(7, 270))
+    assert torch.equal(hist[:, 7], hist[:, 270])
+    got, want = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+    _same_split(got, want)
+    assert got[1][:, 0].tolist() == [7, 7]
+    fmask[7] = False  # the twin far away wins once the first is masked
+    got, want = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+    _same_split(got, want)
+    assert got[1][:, 0].tolist() == [270, 270]
+
+
+def test_split_kernel_no_valid_candidate(dev):
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=40, B=64, seed=5)
+    params = SplitParams(0.0, 0.0, 0.0, 1_000_000, 1e-3, 0.0)
+    got, want = _both(hist, sums, cons, meta, fmask, params)
+    _same_split(got, want)
+    assert bool(torch.isneginf(got[0][:, 0]).all()) and got[1][:, 0].tolist() == [-1, -1]
+
+
+def test_split_kernel_mask_drops_best_feature(dev):
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=28, B=255, seed=6)
+    (_, ki), _ = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+    best = ki[:, 0].tolist()
+    fmask[best] = False
+    got, want = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+    _same_split(got, want)
+    assert not set(got[1][:, 0].tolist()) & set(best)
+
+
+def test_split_kernel_back_to_back_calls(dev):
+    """500 launches without a sync between them, F and C changing: each
+    equals the plain version, so every launch left the tickets at 0."""
+    sets = []
+    for k, (F, C) in enumerate(((1, 1), (5, 2), (28, 2), (28, 1), (300, 2), (64, 1))):
+        inputs = _split_inputs(dev, F=F, B=64, C=C, seed=10 + k)
+        sets.append((inputs, find_best_split_pair(*inputs, SPLIT_PARAMS[1])))
+    outs = [split_kernel.find_best_split_pair(*sets[i % len(sets)][0], SPLIT_PARAMS[1])
+            for i in range(500)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        _same_split(got, sets[i % len(sets)][1])
+
+
+def test_split_kernel_real_values_bitwise(dev):
+    """Real-valued histograms: the same fold order, the same rounded ops
+    (--fmad=false), so every field equals the plain version bit for bit."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=28, B=255, seed=7, real=True)
+    for params in SPLIT_PARAMS:
+        for two_way in (True, False):
+            _same_split(*_both(hist, sums, cons, meta, fmask, params, two_way))

@@ -9,6 +9,8 @@ The gain alone is held to rtol 1e-6: XLA on the CPU contracts its
 multiply-adds into fused multiply-adds, which the port (like the CUDA
 kernel, built with --fmad=false) does not, and the parent-gain subtraction
 magnifies those one-ulp differences (measured: up to 8 ulps, 6e-7 relative).
+The wrapper's leaf-index form (``leaves``: rows of the grower's [M, F, B, 3]
+buffer, as ops/grow.py calls it) is held to the same results.
 """
 import jax
 import jax.numpy as jnp
@@ -61,14 +63,31 @@ def _case(seed, F=9, B=64):
     return hist, meta, fmask
 
 
-def _torch_split(hist, meta, fmask, mn, mx, p, two_way=True):
-    sums = hist[:, 0].sum(axis=1)  # every row lands in one bin of feature 0
+def _torch_split(hist, meta, fmask, mn, mx, p, two_way=True, leaves=None):
+    """The wrapper on the CPU; with ``leaves``, ``hist`` is [M, F, B, 3] and
+    the leaves are its rows ``leaves``, as the grower calls it."""
+    rows = hist if leaves is None else hist[list(leaves)]
+    sums = rows[:, 0].sum(axis=1)  # every row lands in one bin of feature 0
     outf, outi = split_kernel.find_best_split_pair(
         torch.from_numpy(hist), torch.from_numpy(sums),
         torch.from_numpy(np.stack([mn, mx], axis=1)), convert.meta_tensors(meta),
-        torch.from_numpy(fmask), tsplit.SplitParams(*p), two_way,
+        torch.from_numpy(fmask), tsplit.SplitParams(*p), two_way, leaves,
     )
     return tsplit.unpack(outf, outi)
+
+
+def _in_buffer(hist, leaves, M=6, seed=0):
+    """The children [C, F, B, 3] placed at rows ``leaves`` of a grower-like
+    [M, F, B, 3] buffer whose other rows hold other histograms."""
+    rng = np.random.RandomState(seed)
+    buf = (rng.randint(0, 64, (M,) + hist.shape[1:]) / 4.0).astype(np.float32)
+    buf[list(leaves)] = hist
+    return buf
+
+
+def _rows(res, idx):
+    """Rows ``idx`` of every field of a split result."""
+    return type(res)(*(np.asarray(f)[list(idx)] for f in res))
 
 
 def _assert_same(got, want, leaves=2):
@@ -103,6 +122,13 @@ def test_split_pair_matches_pallas_kernel(seed, pi):
     )
     got = _torch_split(hist, meta, fmask, mn, mx, PARAMS[pi])
     _assert_same(got, want)
+    # the grower's form: both children, then each alone, read by leaf index
+    leaves = (4, seed % 3)
+    buf = _in_buffer(hist, leaves, seed=seed)
+    _assert_same(_torch_split(buf, meta, fmask, mn, mx, PARAMS[pi], leaves=leaves), want)
+    for c, leaf in enumerate(leaves):
+        got1 = _torch_split(buf, meta, fmask, mn[[c]], mx[[c]], PARAMS[pi], leaves=[leaf])
+        _assert_same(got1, _rows(want, [c]), leaves=1)
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -127,6 +153,31 @@ def test_split_pair_matches_xla_scan(seed, pi, two_way):
     )
     got = _torch_split(hist, meta, fmask, mn, mx, PARAMS[pi], two_way)
     _assert_same(got, want)
+
+
+@pytest.mark.parametrize("leaves", [(0,), (3,), (1, 0), (4, 2), (2, 5)])
+def test_split_pair_leaf_index_matches_xla_scan(leaves):
+    """The grower's form, C = 1 or 2 rows of a [6, F, B, 3] buffer in any
+    order, against the JAX scan of those rows."""
+    C = len(leaves)
+    hist, meta, fmask = _case(30 + leaves[0])
+    hist = hist[:C]
+    mn = np.array([-np.inf, -0.25], np.float32)[:C]
+    mx = np.array([np.inf, 0.75], np.float32)[:C]
+    sums = hist[:, 0].sum(axis=1)
+    jmeta = {k: jnp.asarray(v) for k, v in meta.items()}
+    params = JaxSplitParams(*PARAMS[1])
+    want = jax.vmap(
+        lambda h, g, s, n, lo, hi: find_best_split(
+            h, g, s, n, lo, hi, jmeta, jnp.asarray(fmask), params
+        )
+    )(
+        jnp.asarray(hist), jnp.asarray(sums[:, 0]), jnp.asarray(sums[:, 1]),
+        jnp.asarray(sums[:, 2]), jnp.asarray(mn), jnp.asarray(mx),
+    )
+    buf = _in_buffer(hist, leaves, seed=len(leaves))
+    got = _torch_split(buf, meta, fmask, mn, mx, PARAMS[1], leaves=leaves)
+    _assert_same(got, want, leaves=C)
 
 
 @pytest.mark.parametrize("seed", range(3))
