@@ -41,7 +41,9 @@ Phases (each prints one line; any failure exits non-zero):
     hist_onehot, hist_bitplane, hist_packed4 at B=15, and the oracle
     hist_v1), at the root and at a 100k-row segment, against its plain
     version (exact on dyadic values, within the two-order bound on real
-    ones) and hist_v1 against histogram; times against the bytes bound and
+    ones) and hist_v1 against histogram; hist_packed4 reads the nibble-packed
+    copy the grower makes at set-up, by row at the segment, and is also
+    timed at the root on pack4's input; times against the bytes bound and
     one ``index_add_``, and hist_onehot's root times at every width on a
     line of their own;
  7. the tune sweep: ``python -m lightgbm_tpu_torch.obs.tune`` in process at
@@ -117,7 +119,9 @@ def main() -> int:
     from helpers.bench_data import make_higgs_like
     from lightgbm_tpu_torch.obs import tune
     from lightgbm_tpu_torch.ops import cuda_build, hist_kernel, split_kernel
-    from lightgbm_tpu_torch.ops.histogram import leaf_histogram, leaf_histogram_packed4, leaf_values
+    from lightgbm_tpu_torch.ops.histogram import (
+        leaf_histogram, leaf_histogram_packed4_rows, leaf_values,
+    )
     from lightgbm_tpu_torch.ops.split import (
         MISSING_NAN, MISSING_ZERO, SplitParams, find_best_split_pair,
     )
@@ -404,8 +408,9 @@ def main() -> int:
         version on the same rows within the two-order bound, until the returned
         ``release()`` (which returns the counts and the worst ratio): every
         tree, those after a flip included."""
-        orig = {n: getattr(hist_kernel, n) for n in
-                ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4")}
+        plains = dict(histogram=leaf_histogram, hist_onehot=leaf_histogram,
+                      hist_bitplane=leaf_histogram, hist_packed4_rows=leaf_histogram_packed4_rows)
+        orig = {n: getattr(hist_kernel, n) for n in plains}
         held = dict(checked=dict.fromkeys(orig, 0), worst_err_over_bound=0.0)
 
         def check(name, got, plain, values):
@@ -417,19 +422,13 @@ def main() -> int:
         def rows_call(name):
             def call(bins_, values, num_bins, rows=None, hist_dtype="float32"):
                 got = orig[name](bins_, values, num_bins, rows, hist_dtype)
-                check(name, got, lambda v: leaf_histogram(bins_, v, num_bins, rows, hist_dtype), values)
+                check(name, got, lambda v: plains[name](bins_, v, num_bins, rows, hist_dtype), values)
                 return got
             return call
 
-        def packed_call(bins_p, values_p, num_bins, hist_dtype="float32"):
-            got = orig["hist_packed4"](bins_p, values_p, num_bins, hist_dtype)
-            check("hist_packed4", got,
-                  lambda v: leaf_histogram_packed4(bins_p, v, num_bins, hist_dtype), values_p)
-            return got
-
-        for name in ("histogram", "hist_onehot", "hist_bitplane"):
+        # the packed form (pack4's input) goes through hist_packed4_rows too
+        for name in plains:
             setattr(hist_kernel, name, rows_call(name))
-        hist_kernel.hist_packed4 = packed_call
 
         def release():
             for name, fn in orig.items():
@@ -558,11 +557,15 @@ def main() -> int:
         gen = torch.Generator(device=dev).manual_seed(Bf)
         syn_nf = torch.randint(0, Bf, (N, F), generator=gen, device=dev, dtype=torch.uint8)
         syn = syn_nf.t()  # the grower's layout: [F, N] view of the [N, F] copy
+        # the nibble-packed [N2, F] copy the grower makes at set-up when B <= 16
+        syn_p4 = hist_kernel.pack_bins(syn_nf).t() if Bf <= 16 else None
         out_b = F * Bf * 12
         root_b = bound(N * F + N * 12 + out_b, 3 * N * F)
         seg_b = bound(n_s * F + n_s * 12 + n_s * 4 + out_b, 3 * n_s * F)
-        n2 = (N + 1) // 2
-        packed_b = bound(n2 * F + n2 * 24 + out_b, 3 * N * F)
+        # packed: each packed byte once (at the segment, the pairs its rows touch)
+        packed_b = bound((N + 1) // 2 * F + N * 12 + out_b, 3 * N * F)
+        seg_pairs = int(torch.unique(seg_rows >> 1).numel())
+        packed_seg_b = bound(seg_pairs * F + n_s * 12 + n_s * 4 + out_b, 3 * n_s * F)
         flat = (syn.long() + torch.arange(F, device=dev)[:, None] * Bf).reshape(-1)
         lib_acc = torch.zeros((F * Bf, 3), device=dev)
         for dt in ("float32", "bfloat16"):
@@ -586,22 +589,18 @@ def main() -> int:
             for name, fn in (("histogram", hist_kernel.histogram), ("hist_v1", hist_kernel.hist_v1),
                              ("hist_onehot", hist_kernel.hist_onehot),
                              ("hist_bitplane", hist_kernel.hist_bitplane),
-                             ("hist_packed4", None)):
+                             ("hist_packed4", hist_kernel.hist_packed4_rows)):
                 if name in ("hist_onehot", "hist_bitplane") and not 2 <= Bf <= 256:
                     continue
                 if name == "hist_packed4" and Bf > 16:
                     continue
                 rec = {}
+                bins_in = syn_p4 if name == "hist_packed4" else syn
                 for rows in (None, seg_rows):
                     key = "root" if rows is None else "segment"
-                    if fn is None:  # packed4: pack (after gathering a segment), then the kernel
-                        def run(v, r=rows):
-                            b = syn if r is None else syn.index_select(1, r.long())
-                            vv = v if r is None else v.index_select(0, r.long())
-                            return hist_kernel.hist_packed4(*hist_kernel.pack4(b, vv), Bf, dt)
-                    else:
-                        def run(v, r=rows, fn=fn):
-                            return fn(syn, v, Bf, r, dt)
+
+                    def run(v, r=rows, fn=fn, b=bins_in):
+                        return fn(b, v, Bf, r, dt)
                     want = plain[key]
                     got = run(dyq_vals)
                     assert torch.equal(got, want["dyadic"]), (name, Bf, dt, key, "dyadic")
@@ -612,22 +611,31 @@ def main() -> int:
                     rec[key + "_ms"] = time_ms(lambda: run(real_vals))
                     rec[key + "_plain_ms"] = want["ms"]
                     checked += 2
-                if fn is None:  # the kernel alone on packed input, and its own plain version
+                if name == "hist_packed4":
+                    # its own plain version on the set-up copy, and the root on
+                    # pack4's [F, N2] input (the JAX kernel's own contract)
+                    for rows in (None, seg_rows):
+                        key = "root" if rows is None else "segment"
+                        rec[key + "_plain_ms"] = time_ms(
+                            lambda r=rows: leaf_histogram_packed4_rows(syn_p4, real_vals, Bf, r, dt),
+                            reps=3)
+                    bp, vp = hist_kernel.pack4(syn, dyq_vals)
+                    assert torch.equal(hist_kernel.hist_packed4(bp, vp, Bf, dt),
+                                       plain["root"]["dyadic"]), (Bf, dt, "pack4 input")
                     bp, vp = hist_kernel.pack4(syn, real_vals)
-                    rec["root_routed_ms"] = rec["root_ms"]  # pack + kernel
-                    rec["root_ms"] = time_ms(lambda: hist_kernel.hist_packed4(bp, vp, Bf, dt))
-                    rec["root_plain_ms"] = time_ms(lambda: leaf_histogram_packed4(bp, vp, Bf, dt), reps=3)
-                    rec["packed_bound_ms"], _ = packed_b
+                    rec["root_packed_input_ms"] = time_ms(lambda: hist_kernel.hist_packed4(bp, vp, Bf, dt))
+                    checked += 1
                 if name == "hist_v1":  # the oracle of the default kernel
                     for rows in (None, seg_rows):
                         assert torch.equal(
                             hist_kernel.hist_v1(syn, dyq_vals, Bf, rows, dt),
                             hist_kernel.histogram(syn, dyq_vals, Bf, rows, dt),
                         ), ("hist_v1 != histogram", Bf, dt)
-                rec.update(root_bound_ms=root_b[0], segment_bound_ms=seg_b[0], bound_by=root_b[1],
+                rb, sb = (packed_b, packed_seg_b) if name == "hist_packed4" else (root_b, seg_b)
+                rec.update(root_bound_ms=rb[0], segment_bound_ms=sb[0], bound_by=rb[1],
                            library_ms=library_ms)
                 family.setdefault((name, dt), {})[Bf] = rec
-        del syn_nf, syn, flat, lib_acc
+        del syn_nf, syn, syn_p4, flat, lib_acc
     say("kernel_family", rows=N, features=F, segment_rows=n_s, dyadic_exact=True,
         checks=checked, numbers={"%s/%s" % k: v for k, v in family.items()})
     print(json.dumps({"hist_onehot_root_ms": {
@@ -826,6 +834,8 @@ def main() -> int:
             assert abs(auc_r - auc_d) <= 2e-3, (kind, mb, dt, auc_r, auc_d)
             rec.update(trees_identical=agree_r, near_tie_flips=flips_r, flip_at=where,
                        default_auc=auc_d, default_iterations_per_s=default_ips[mb])
+        if got.get("hist_packed4", 0) + got.get("hist_packed4_bf16", 0):
+            assert held["checked"]["hist_packed4_rows"] > 0, (kind, mb, dt, held)
         for k, v in got.items():
             routed_launches[k] = routed_launches.get(k, 0) + v
         routed.append(rec)

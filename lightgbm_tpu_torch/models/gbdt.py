@@ -133,6 +133,9 @@ class GBDT:
             np.any((meta["missing_type"] != 0) & (meta["num_bin"] > 2))
         )
         self.num_bins = int(train_set.max_num_bin)
+        # [ceil(N/2), F] nibble-packed copy that cuda_packed4 reads by row
+        # (N * F / 2 bytes), made once here rather than on every call
+        self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.num_bins <= 16 else None
         self.hist_route = self._resolve_hist_route()
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
         self.split_params = SplitParams(
@@ -191,7 +194,7 @@ class GBDT:
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
             num_bins=self.num_bins, params=self.split_params,
             two_way=self._two_way, bins_nf=self.bins_nf,
-            route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype,
+            route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype, bins_packed=self.bins_p4,
         )
 
     def _finish_tree(self, tree: TreeArrays, leaf_id: torch.Tensor) -> TreeArrays:

@@ -4,7 +4,7 @@ one process on one card.
 On a machine with a CUDA card, from the repository root::
 
     git show <commit>:lightgbm_tpu_torch/csrc/<kernel>.cu > build/old_<kernel>.cu
-    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair} \\
+    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair,packed4} \\
         --old build/old_<kernel>.cu [--out results.json]
 
 The old source is built with the package's nvcc flags into ``build/pair/``,
@@ -15,8 +15,9 @@ SASS of each lands beside the JSON as ``<out>.old.sass`` / ``.new.sass``),
 checks both versions against the plain version, then times them in turns
 (old, new, new, old) with the empty kernel's launch as the floor of one
 call. A time is the mean of the two turns' CUDA-event medians
-(``tune.CudaTimer``: L2 flushed, launch overhead hidden). Inputs come from
-make_higgs_like(1M, 28) binned at max_bin=255.
+(``tune.CudaTimer``: L2 flushed, launch overhead hidden). Inputs of
+``histogram`` and ``split_pair`` come from make_higgs_like(1M, 28) binned at
+max_bin=255.
 
 ``histogram``: the old source takes the launcher arguments of the other
 ``[F, N]`` kernels (no ``rows_per_block``). Both are held to the plain
@@ -38,6 +39,19 @@ contiguous copy made once (``old``) and with the grower's former
 to the plain version field for field (NaNs matched) on dyadic and on real
 histograms; the new one must equal the old one, and where the old one
 differs from the plain version the fields are printed.
+
+``packed4`` (csrc/hist_packed4.cu; ``--kernel`` names the source
+``hist_packed4.cu``): the old source takes pack4's packed input
+(``[F, N2]`` bins, ``[N2, 6]`` values, no rows, no grid argument: the entry
+before the per-thread design). Inputs: synthetic uniform bins at B = 15,
+1M x 28, as chip_smoke.py's phase 6 makes them, with normal gradients and
+uniform hessians. Timed: the root on pack4 input (old kernel against new);
+the root as the grower pays it (old pack4 + kernel against the new kernel
+on the set-up copy of ``pack_bins``); sorted random segments of 100k, 16384,
+4096, 1024 and 256 rows as the grower pays them (old gather + pack4 +
+kernel against the new one by rows). Old and new are held to each other and
+to the plain version bit for bit on dyadic values (multiples of 2^-10) at
+every input, in f32 and bf16.
 """
 from __future__ import annotations
 
@@ -272,25 +286,136 @@ def _split_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
     return calls, checks
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("histogram", "split_pair"))
-    ap.add_argument("--old", required=True, help="an older csrc/<kernel>.cu")
-    ap.add_argument("--out", default="", help="also write the results as JSON here")
-    args = ap.parse_args(argv)
+# lgbt_hist_packed4 before the per-thread design: bins, stride_f, stride_n,
+# values [N2, 6], n2, F, B, bf16, out, stream
+_OLD_PACKED4_ARGS = [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+]
 
+
+def _packed4_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by input, checks) of the nibble-packed kernels, after
+    holding both to each other and to the plain version on dyadic values."""
+    import numpy as np
+    import torch
+
+    from ..ops import hist_kernel
+    from ..ops.histogram import leaf_histogram, leaf_values
+
+    old = ctypes.CDLL(str(old_lib)).lgbt_hist_packed4
+    old.restype = ctypes.c_int
+    old.argtypes = _OLD_PACKED4_ARGS
+    N, F, B = 1_000_000, 28, 15
+    gen = torch.Generator(device=dev).manual_seed(B)  # chip_smoke.py phase 6's bins
+    syn_nf = torch.randint(0, B, (N, F), generator=gen, device=dev, dtype=torch.uint8)
+    syn = syn_nf.t()
+    setup = hist_kernel.pack_bins(syn_nf).t()  # the grower's copy, made once
+    rng = np.random.RandomState(0)
+    q = 1024
+
+    def tensor(a):
+        return torch.tensor(a, dtype=torch.float32, device=dev)
+
+    dyadic = leaf_values(tensor(rng.randint(-q, q + 1, N) / q), tensor(rng.randint(1, 65, N) / q),
+                         torch.ones(N, device=dev))
+    real = leaf_values(tensor(rng.randn(N)), tensor(rng.rand(N)), torch.ones(N, device=dev))
+
+    def run_old(bp, vp, dt):
+        out = torch.zeros((F, B, 3), dtype=torch.float32, device=dev)
+        code = old(bp.data_ptr(), bp.stride(0), bp.stride(1), vp.data_ptr(), bp.shape[1], F, B,
+                   int(dt == "bfloat16"), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check(code, "old hist_packed4")
+        return out
+
+    def old_grower(values, rows, dt):  # gather, pack4, kernel
+        b, v = (syn, values) if rows is None else (syn.index_select(1, rows.long()),
+                                                   values.index_select(0, rows.long()))
+        return run_old(*hist_kernel.pack4(b, v), dt)
+
+    def new_grower(values, rows, dt):
+        return hist_kernel.hist_packed4_rows(setup, values, B, rows, dt)
+
+    segments = {str(n): torch.from_numpy(np.sort(rng.permutation(N)[:n]).astype(np.int32)).to(dev)
+                for n in SIZES}
+    segments["root"] = None
+    packed_in = {k: hist_kernel.pack4(syn, v) for k, v in (("dyadic", dyadic), ("real", real))}
+    for dt in ("float32", "bfloat16"):
+        want = leaf_histogram(syn, dyadic, B, None, dt)
+        got_old = run_old(*packed_in["dyadic"], dt)
+        got_new = hist_kernel.hist_packed4(*packed_in["dyadic"], B, dt)
+        assert torch.equal(got_old, want) and torch.equal(got_new, want), ("pack4 input", dt)
+        for key, rows in segments.items():
+            want = leaf_histogram(syn, dyadic, B, rows, dt)
+            assert torch.equal(old_grower(dyadic, rows, dt), want), ("old", key, dt)
+            assert torch.equal(new_grower(dyadic, rows, dt), want), ("new", key, dt)
+    print("dyadic exact: old and new on pack4 input and as the grower calls them, f32 and bf16",
+          flush=True)
+    calls = {}
+    for dt in ("float32", "bfloat16"):
+        bp, vp = packed_in["real"]
+        calls["%s/root_pack4_input" % dt] = dict(
+            old=lambda dt=dt: run_old(bp, vp, dt),
+            new=lambda dt=dt: hist_kernel.hist_packed4(bp, vp, B, dt))
+        for key, rows in segments.items():
+            calls["%s/%s" % (dt, key)] = dict(
+                old=lambda rows=rows, dt=dt: old_grower(real, rows, dt),
+                new=lambda rows=rows, dt=dt: new_grower(real, rows, dt))
+    grids = {key: hist_kernel.packed4_grid(N if rows is None else rows.numel(), F,
+                                           hist_kernel._sm_count(dev))
+             for key, rows in segments.items()}
+    return calls, {"grids": grids}
+
+
+SOURCES = {"histogram": "histogram", "split_pair": "split_pair", "packed4": "hist_packed4"}
+
+
+def _higgs_data(dev) -> Dict:
+    """The bench data binned at max_bin=255, log-loss gradients at the
+    average score, and the data's feature meta."""
     import numpy as np
     import torch
 
     import lightgbm_tpu_torch as lgb
     from ..config import Config
     from ..ops.histogram import leaf_values
+    from helpers.bench_data import make_higgs_like  # the repository root is on the path
+
+    X, y = make_higgs_like(1_000_000, 28)
+    params = {"objective": "binary", "max_bin": 255, "num_leaves": 255, "verbose": -1}
+    binned = lgb.Dataset(X, label=y).get_binned(Config.from_params(params))
+    N, B = binned.num_data, binned.max_num_bin
+    bins = torch.from_numpy(np.ascontiguousarray(binned.bins)).to(dev)
+    p0 = float(np.mean(y))
+    sign = np.where(y > 0, 1.0, -1.0)
+    resp = -sign / (1.0 + np.exp(sign * np.log(p0 / (1 - p0))))  # log-loss at the average
+    real = leaf_values(torch.tensor(resp, dtype=torch.float32, device=dev),
+                       torch.tensor(np.abs(resp) * (1 - np.abs(resp)), dtype=torch.float32,
+                                    device=dev),
+                       torch.ones(N, device=dev))
+    meta_np = binned.feature_meta_arrays()
+    return dict(
+        bins=bins, hist_bins=bins.t().contiguous().t(), N=N, B=B, real=real,
+        meta={k: torch.as_tensor(np.asarray(meta_np[k]).astype(np.int32), device=dev)
+              for k in ("num_bin", "missing_type", "default_bin", "monotone")},
+        fmask=torch.ones(bins.shape[0], dtype=torch.bool, device=dev),
+    )
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernel", required=True, choices=tuple(SOURCES))
+    ap.add_argument("--old", required=True, help="an older csrc/<source>.cu of the kernel")
+    ap.add_argument("--out", default="", help="also write the results as JSON here")
+    args = ap.parse_args(argv)
+
+    import torch
+
     from .tune import CudaTimer
 
     if not torch.cuda.is_available():
         print("pair: needs a CUDA card", file=sys.stderr)
         return 2
-    from helpers.bench_data import make_higgs_like  # the repository root is on the path
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -298,16 +423,17 @@ def main(argv=None) -> int:
     print(card, flush=True)
     out_dir = cuda_build.BUILD_DIR.parent / "pair"
     out_dir.mkdir(parents=True, exist_ok=True)
-    old_lib, empty_lib = out_dir / ("libold_%s.so" % args.kernel), out_dir / "libempty.so"
+    source = SOURCES[args.kernel]
+    old_lib, empty_lib = out_dir / ("libold_%s.so" % source), out_dir / "libempty.so"
     (out_dir / "empty.cu").write_text(EMPTY_SRC)
     procs = {"old": _nvcc(Path(args.old), old_lib), "empty": _nvcc(out_dir / "empty.cu", empty_lib)}
-    cuda_build.build([args.kernel])
+    cuda_build.build([source])
     logs = {}
     for name, proc in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, logs[name]))
-    new_lib = cuda_build.library_path(args.kernel)
+    new_lib = cuda_build.library_path(source)
     sass = {"old": sass_text(old_lib), "new": sass_text(new_lib)}
     built = dict(
         old=dict(ptxas=cuda_build.ptxas_usage(logs["old"]), sass=sass_counts(sass["old"])),
@@ -323,26 +449,9 @@ def main(argv=None) -> int:
     def launch_empty():
         cuda_build.check(empty(torch.cuda.current_stream(dev).cuda_stream), "empty kernel")
 
-    X, y = make_higgs_like(1_000_000, 28)
-    params = {"objective": "binary", "max_bin": 255, "num_leaves": 255, "verbose": -1}
-    binned = lgb.Dataset(X, label=y).get_binned(Config.from_params(params))
-    N, B = binned.num_data, binned.max_num_bin
-    bins = torch.from_numpy(np.ascontiguousarray(binned.bins)).to(dev)
-    p0 = float(np.mean(y))
-    sign = np.where(y > 0, 1.0, -1.0)
-    resp = -sign / (1.0 + np.exp(sign * np.log(p0 / (1 - p0))))  # log-loss at the average
-    real = leaf_values(torch.tensor(resp, dtype=torch.float32, device=dev),
-                       torch.tensor(np.abs(resp) * (1 - np.abs(resp)), dtype=torch.float32,
-                                    device=dev),
-                       torch.ones(N, device=dev))
-    meta_np = binned.feature_meta_arrays()
-    data = dict(
-        bins=bins, hist_bins=bins.t().contiguous().t(), N=N, B=B, real=real,
-        meta={k: torch.as_tensor(np.asarray(meta_np[k]).astype(np.int32), device=dev)
-              for k in ("num_bin", "missing_type", "default_bin", "monotone")},
-        fmask=torch.ones(bins.shape[0], dtype=torch.bool, device=dev),
-    )
-    case = _histogram_case if args.kernel == "histogram" else _split_case
+    data = None if args.kernel == "packed4" else _higgs_data(dev)
+    case = {"histogram": _histogram_case, "split_pair": _split_case,
+            "packed4": _packed4_case}[args.kernel]
     calls, checks = case(old_lib, dev, data)
 
     timer = CudaTimer(dev)

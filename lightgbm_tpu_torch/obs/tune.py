@@ -24,8 +24,9 @@ The CLI, on a machine with a CUDA card::
 Every contender is a hand-written kernel; a build or launch failure raises
 and the sweep fails. Times are CUDA-event medians of ``repeats`` calls after
 one warm-up, with the 50 MB L2 flushed before each, at the grower's call
-form: the [F, N] view of an [N, F] bin copy, the largest class whole and
-every smaller class as a ``rows`` segment. The per-feature-grid kernel
+form: the [F, N] view of an [N, F] bin copy (and at B <= 16 the nibble-packed
+copy ``cuda_packed4`` reads), the largest class whole and every smaller
+class as a ``rows`` segment. The per-feature-grid kernel
 (``hist_v1``, not routable) is timed beside the contenders at each shape as
 the baseline, under ``baseline_ms``.
 """
@@ -234,6 +235,7 @@ def sweep(shapes: Sequence[Dict], repeats: int = 3, seed: int = 0) -> Dict:
     vals = torch.randn((top, 3), generator=gen).to(dev)
     order = torch.randperm(top, generator=gen).to(torch.int32)
     by_width: Dict[int, torch.Tensor] = {}
+    packed: Dict[int, torch.Tensor] = {}  # the grower's set-up copy at B <= 16
     entries: List[Dict] = []
     for sh in shapes:
         rows, B, K, f = int(sh["rows"]), int(sh["B"]), int(sh["K"]), int(sh["F"])
@@ -242,12 +244,15 @@ def sweep(shapes: Sequence[Dict], repeats: int = 3, seed: int = 0) -> Dict:
             raise ValueError("the kernels take K=3 value channels, got %d" % K)
         if B not in by_width:
             by_width[B] = (raw % B).to(torch.uint8).to(dev)  # [top, F], the [N, F] copy
+            if B <= 16:
+                packed[B] = hist_kernel.pack_bins(by_width[B])
         bins = by_width[B][:, :f].t()
+        bins_p = packed[B][:, :f].t() if B in packed else None
         seg = None if rows == top else torch.sort(order[:rows])[0].to(dev)
 
         def run(impl):
             return lambda: hist_kernel.routed_histogram(
-                bins, vals, B, rows=seg, impl=impl, hist_dtype=dt
+                bins, vals, B, rows=seg, impl=impl, hist_dtype=dt, bins_packed=bins_p
             )
 
         times = {impl: timer(run(impl), repeats) for impl in candidate_impls(B)}

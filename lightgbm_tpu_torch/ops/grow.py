@@ -22,8 +22,9 @@ and their plain versions on CPU tensors (ops/hist_kernel.py,
 ops/split_kernel.py). Each histogram call is routed on its own shape: the
 root by ``rows_bucket(N)``, each smaller child by ``rows_bucket`` of its
 segment, through the run's frozen ``HistRoute`` and ``hist_dtype``
-(ops/hist_kernel.py ``routed_histogram``). The output is the JAX package's
-bin-space ``TreeArrays`` plus the per-row leaf index.
+(ops/hist_kernel.py ``routed_histogram``); at B <= 16 ``cuda_packed4`` reads
+the segment out of the nibble-packed copy made at set-up. The output is the
+JAX package's bin-space ``TreeArrays`` plus the per-row leaf index.
 """
 from __future__ import annotations
 
@@ -87,6 +88,7 @@ def grow_tree(
     bins_nf: Optional[torch.Tensor] = None,  # [N, F] copy of bins for the histograms
     route: Optional[hist_kernel.HistRoute] = None,
     hist_dtype: str = "float32",
+    bins_packed: Optional[torch.Tensor] = None,  # [ceil(N/2), F] nibble-packed copy (B <= 16)
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device)."""
     dev = bins.device
@@ -96,6 +98,7 @@ def grow_tree(
     f32 = torch.float32
     meta_h = {k: feature_meta[k].cpu() for k in ("num_bin", "missing_type", "default_bin", "monotone")}
     hist_bins = bins_nf.t() if bins_nf is not None else bins
+    hist_packed = bins_packed.t() if bins_packed is not None else None
 
     def split2(idx, laux_rows):
         aux = laux_rows.to(dev)
@@ -108,7 +111,9 @@ def grow_tree(
     # ---- root ------------------------------------------------------------
     vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev))
     hist = torch.empty((M, F, B, 3), dtype=f32, device=dev)
-    hist[0] = hist_kernel.routed_histogram(hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route)
+    hist[0] = hist_kernel.routed_histogram(
+        hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
+    )
     root = torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()]).cpu()
 
     # [M, 5] leaf aux: sum_grad, sum_hess, num_data, monotone min, max
@@ -193,7 +198,7 @@ def grow_tree(
         s_begin = leaf_begin[small_idx]
         small = hist_kernel.routed_histogram(
             hist_bins, vals_all, B, rows=order[s_begin:s_begin + leaf_phys[small_idx]],
-            hist_dtype=hist_dtype, route=route,
+            hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
         )
         large = hist[best_leaf] - small
         hist[small_idx] = small

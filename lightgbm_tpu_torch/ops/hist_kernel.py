@@ -19,7 +19,8 @@ impl            wrapper, source           JAX kernel it replaces
                 csrc/hist_onehot.cu
 ``cuda_bitplane`` ``hist_bitplane``       ``histogram_pallas_bitplane``
                 csrc/hist_bitplane.cu
-``cuda_packed4`` ``hist_packed4``         ``histogram_pallas_packed4``
+``cuda_packed4`` ``hist_packed4_rows``    ``histogram_pallas_packed4``
+                (``hist_packed4``)
                 csrc/hist_packed4.cu
 (not routed)    ``hist_v1``               ``histogram_pallas_v1``, the
                 csrc/hist_v1.cu           differential oracle of ``cuda``
@@ -35,6 +36,12 @@ have no counterpart: on CUDA the port routes only to hand-written kernels.
 A wrapper launches its kernel for CUDA tensors and runs its plain version
 (ops/histogram.py) for CPU tensors; any other device, and any input the
 kernel does not take, raises. There is no fallback from one to the other.
+
+``cuda_packed4`` reads bins two rows to a byte. A caller that holds the
+nibble-packed copy of :func:`pack_bins` (the grower, from set-up, and the
+tune sweep) passes it to :func:`routed_histogram`, which then reads a leaf
+segment out of it by row; without one, the segment is gathered and packed
+by :func:`pack4` on every call.
 
 :func:`routed_histogram` takes the impl :func:`pick_impl` names for one
 call, in precedence order:
@@ -60,7 +67,7 @@ from ..utils import log
 from ..utils.env import env_choice
 from ..utils.log import LightGBMError
 from . import cuda_build
-from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4
+from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4_rows
 
 # ---------------------------------------------------------------------------
 # vocabulary, capabilities, packing
@@ -136,6 +143,17 @@ def pack4(bins: torch.Tensor, values: torch.Tensor) -> Tuple[torch.Tensor, torch
     return packed, torch.cat([values[0::2], values[1::2]], dim=1).contiguous()
 
 
+def pack_bins(bins_nf: torch.Tensor) -> torch.Tensor:
+    """Pack ``[N, F]`` u8 bins (all < 16) into the ``[ceil(N/2), F]`` u8
+    copy the grower keeps from set-up: byte ``[j, f]`` is ``bins[2j, f] |
+    bins[2j+1, f] << 4``, and the high nibble of an odd N's last byte is 0.
+    Its ``.t()`` is an ``[F, N2]`` view equal to ``pack4(bins_nf.t(), ...)[0]``
+    that :func:`hist_packed4_rows` reads a 32-bit word a row pair."""
+    if bins_nf.shape[0] % 2:
+        bins_nf = torch.cat([bins_nf, bins_nf.new_zeros((1, bins_nf.shape[1]))])
+    return (bins_nf[0::2] | (bins_nf[1::2] << 4)).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
@@ -160,11 +178,6 @@ _ARGS_ROWS = [
 ]
 # lgbt_histogram: the [F, N] arguments plus the grid's rows_per_block
 _ARGS_HIST = _ARGS_ROWS[:9] + [ctypes.c_longlong] + _ARGS_ROWS[9:]
-_ARGS_PACKED = [
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p,
-]
 
 
 def _entry(source: str, symbol: str, argtypes):
@@ -201,17 +214,15 @@ def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
         or not values.is_contiguous()
     ):
         raise ValueError("%s: values must be a contiguous [N, 3] f32 tensor on the bins' device" % name)
-    n = N
-    if rows is not None:
-        if (
-            rows.device != bins.device
-            or rows.dtype != torch.int32
-            or rows.dim() != 1
-            or not rows.is_contiguous()
-        ):
-            raise ValueError("%s: rows must be a contiguous 1-D int32 tensor on the bins' device" % name)
-        n = rows.numel()
+    n = N if rows is None else _rows_count(name, rows, bins.device)
     return n, torch.zeros((bins.shape[0], num_bins, 3), dtype=torch.float32, device=bins.device)
+
+
+def _rows_count(name: str, rows: torch.Tensor, device: torch.device) -> int:
+    """Validate a ``rows`` vector; return its length."""
+    if rows.device != device or rows.dtype != torch.int32 or rows.dim() != 1 or not rows.is_contiguous():
+        raise ValueError("%s: rows must be a contiguous 1-D int32 tensor on the bins' device" % name)
+    return rows.numel()
 
 
 def _launch_rows(
@@ -318,33 +329,87 @@ def hist_v1(bins, values, num_bins, rows=None, hist_dtype="float32"):
     return _launch_rows("hist_v1", "lgbt_hist_v1", bins, values, num_bins, rows, hist_dtype, 336)
 
 
-def hist_packed4(bins_packed, values_packed, num_bins, hist_dtype="float32"):
-    """``[F, B, 3]`` histogram of :func:`pack4` output (csrc/hist_packed4.cu);
-    B <= 16. A leaf segment is gathered and packed by the caller."""
+# csrc/hist_packed4.cu's block: P4_GROUP features x a chunk of rows, taken
+# P4_STEP rows (128 threads x 4 rows) a step, with per-thread copies in 96 KB
+# of shared memory, so two blocks an SM
+P4_GROUP = 4
+P4_STEP = 512
+P4_MAX_CHUNK = 65536
+P4_BLOCKS_PER_SM = 2
+
+
+def packed4_grid(n: int, F: int, num_sms: int) -> Tuple[int, int, int]:
+    """``(groups, chunks, rows_per_block)`` of csrc/hist_packed4.cu for ``n``
+    rows of ``F`` features on a card of ``num_sms`` SMs: ``ceil(F / 4)``
+    feature groups, and chunks of a multiple of 512 rows (512 to 65536)
+    aimed at one wave of two blocks per SM. At F=28 on 132 SMs the 1M root
+    gets 7 groups x 37 chunks of 27136 rows, a 100k segment 33 of 3072."""
+    groups = -(-F // P4_GROUP)
+    slots = max(P4_BLOCKS_PER_SM * num_sms // groups, 1)
+    want = -(-n // slots)
+    rows_per_block = min(max(-(-want // P4_STEP) * P4_STEP, P4_STEP), P4_MAX_CHUNK)
+    return groups, -(-n // rows_per_block), rows_per_block
+
+
+def hist_packed4_rows(bins_packed, values, num_bins, rows=None, hist_dtype="float32"):
+    """``[F, B, 3]`` histogram read from nibble-packed bins by row
+    (csrc/hist_packed4.cu: per-thread sub-histograms, 4-feature blocks over
+    row chunks of :func:`packed4_grid`); B <= 16.
+
+    ``bins_packed`` is an ``[F, ceil(N/2)]`` uint8 view with any strides,
+    row 2j in the low and row 2j+1 in the high nibble: the set-up copy of
+    :func:`pack_bins` passes as ``bins_p4.t()``. ``values`` is the unpacked
+    ``[N, 3]`` f32 matrix; ``rows`` an optional int32 vector of row indices
+    into both (a leaf segment, read with no gather and no packing)."""
     if bins_packed.device.type == "cpu":
-        return leaf_histogram_packed4(bins_packed, values_packed, num_bins, hist_dtype)
+        return leaf_histogram_packed4_rows(bins_packed, values, num_bins, rows, hist_dtype)
     _check_dtype(hist_dtype)
     _check_bins("hist_packed4", bins_packed, num_bins, 16)
     F, N2 = bins_packed.shape
     if (
-        values_packed.device != bins_packed.device
-        or values_packed.dtype != torch.float32
-        or values_packed.shape != (N2, 6)
-        or not values_packed.is_contiguous()
+        values.device != bins_packed.device
+        or values.dtype != torch.float32
+        or values.dim() != 2
+        or values.shape[1] != 3
+        or (values.shape[0] + 1) // 2 != N2
+        or not values.is_contiguous()
     ):
-        raise ValueError("hist_packed4: values must be a contiguous [N2, 6] f32 tensor on the bins' device")
-    out = torch.zeros((F, num_bins, 3), dtype=torch.float32, device=bins_packed.device)
-    if N2 == 0 or F == 0:
-        return out
+        raise ValueError(
+            "hist_packed4: values must be a contiguous [N, 3] f32 tensor on the bins' device, "
+            "with ceil(N / 2) packed bin columns"
+        )
+    n = values.shape[0] if rows is None else _rows_count("hist_packed4", rows, bins_packed.device)
+    shape = (F, num_bins, 3)
+    if n == 0 or F == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=bins_packed.device)
+    _, chunks, rows_per_block = packed4_grid(n, F, _sm_count(bins_packed.device))
+    # one chunk stores every cell; more add into a zeroed output
+    alloc = torch.empty if chunks == 1 else torch.zeros
+    out = alloc(shape, dtype=torch.float32, device=bins_packed.device)
     bf16 = hist_dtype == "bfloat16"
-    code = _entry("hist_packed4", "lgbt_hist_packed4", _ARGS_PACKED)(
-        bins_packed.data_ptr(), bins_packed.stride(0), bins_packed.stride(1),
-        values_packed.data_ptr(), N2, F, num_bins, int(bf16), out.data_ptr(),
-        torch.cuda.current_stream(bins_packed.device).cuda_stream,
+    code = _entry("hist_packed4", "lgbt_hist_packed4", _ARGS_HIST)(
+        bins_packed.data_ptr(), bins_packed.stride(0), bins_packed.stride(1), values.data_ptr(),
+        rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
+        rows_per_block, out.data_ptr(), torch.cuda.current_stream(bins_packed.device).cuda_stream,
     )
     cuda_build.check(code, "hist_packed4 kernel")
     launches["hist_packed4" + ("_bf16" if bf16 else "")] += 1
     return out
+
+
+def hist_packed4(bins_packed, values_packed, num_bins, hist_dtype="float32"):
+    """``[F, B, 3]`` histogram of :func:`pack4` output, the JAX kernel's own
+    input contract: ``[F, N2]`` u8 and ``[N2, 6]`` f32 values. A contiguous
+    ``[N2, 6]`` tensor is the ``[2 N2, 3]`` one :func:`hist_packed4_rows`
+    reads (an odd N's padding row has value 0 and adds nothing)."""
+    if (
+        values_packed.device != bins_packed.device
+        or values_packed.dtype != torch.float32
+        or values_packed.shape != (bins_packed.shape[1], 6)
+        or not values_packed.is_contiguous()
+    ):
+        raise ValueError("hist_packed4: values must be a contiguous [N2, 6] f32 tensor on the bins' device")
+    return hist_packed4_rows(bins_packed, values_packed.view(-1, 3), num_bins, None, hist_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -523,10 +588,14 @@ def routed_histogram(
     impl: str = "auto",
     hist_dtype: str = "float32",
     route: Optional[HistRoute] = None,
+    bins_packed: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``[F, B, 3]`` histogram through the impl this call routes to
     (:func:`pick_impl`). ``scatter`` ignores ``hist_dtype``, as the JAX
-    package's scatter does; every kernel honours it."""
+    package's scatter does; every kernel honours it. ``bins_packed``, the
+    ``[F, N2]`` view of a :func:`pack_bins` copy of ``bins``, is what
+    ``cuda_packed4`` reads by row; without it that impl gathers the segment
+    and packs it on every call."""
     n = bins.shape[1] if rows is None else rows.numel()
     impl = pick_impl(impl, n, num_bins, values.shape[1], hist_dtype, route, bins.device.type)
     if impl == "scatter":
@@ -537,6 +606,8 @@ def routed_histogram(
         return hist_onehot(bins, values, num_bins, rows, hist_dtype)
     if impl == "cuda_bitplane":
         return hist_bitplane(bins, values, num_bins, rows, hist_dtype)
+    if bins_packed is not None:
+        return hist_packed4_rows(bins_packed, values, num_bins, rows, hist_dtype)
     if rows is not None:
         idx = rows.long()
         bins = bins.index_select(1, idx)

@@ -56,25 +56,27 @@ def leaf_histogram(
     return out
 
 
-def leaf_histogram_packed4(
+def leaf_histogram_packed4_rows(
     bins_packed: torch.Tensor,
-    values_packed: torch.Tensor,
+    values: torch.Tensor,
     num_bins: int,
+    rows: Optional[torch.Tensor] = None,
     hist_dtype: str = "float32",
 ) -> torch.Tensor:
-    """``[F, B, K]`` histogram of nibble-packed input (ops/hist_kernel.py
-    ``pack4``): ``[F, N2]`` u8 holding rows 2j (low nibble) and 2j+1 (high
-    nibble), ``[N2, 2K]`` values of those two rows side by side. Unpacks and
-    takes :func:`leaf_histogram`."""
-    F, N2 = bins_packed.shape
-    K = values_packed.shape[1] // 2
-    bins = torch.empty((F, 2 * N2), dtype=torch.uint8, device=bins_packed.device)
-    bins[:, 0::2] = bins_packed & 15
-    bins[:, 1::2] = bins_packed >> 4
-    values = torch.empty((2 * N2, K), dtype=torch.float32, device=values_packed.device)
-    values[0::2] = values_packed[:, :K]
-    values[1::2] = values_packed[:, K:]
-    return leaf_histogram(bins, values, num_bins, None, hist_dtype)
+    """``[F, B, K]`` histogram read from nibble-packed bins by row
+    (ops/hist_kernel.py ``pack_bins`` / ``pack4``): ``[F, ceil(N/2)]`` u8
+    holding row 2j in the low and row 2j+1 in the high nibble, and the
+    unpacked ``[N, K]`` values. Unpacks the nibble of each row r of ``rows``
+    (all of 0..N-1 when None) into an ``[F, n]`` u8 matrix and takes
+    :func:`leaf_histogram` of it and ``values[r]``: the sums run in row
+    order, as ``leaf_histogram(bins, values, B, rows)`` runs them. A nibble
+    >= B adds nothing, as in the kernels."""
+    r = torch.arange(values.shape[0], device=values.device) if rows is None else rows.long()
+    byte = bins_packed.index_select(1, r >> 1)
+    bins = torch.where((r & 1).bool()[None, :], byte >> 4, byte & 15)
+    if rows is not None:
+        values = values.index_select(0, r)
+    return leaf_histogram(bins, values, 16, None, hist_dtype)[:, :num_bins].contiguous()
 
 
 def leaf_values(

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch.ops import hist_kernel, split_kernel
-from lightgbm_tpu_torch.ops.histogram import leaf_histogram, leaf_histogram_packed4, leaf_values
+from lightgbm_tpu_torch.ops.histogram import (
+    leaf_histogram, leaf_histogram_packed4_rows, leaf_values,
+)
 from lightgbm_tpu_torch.ops.split import SplitParams, find_best_split_pair
 
 pytestmark = pytest.mark.cuda
@@ -99,12 +101,14 @@ def test_kernel_family_matches_plain(dev, kernel, B, dtype):
     nf = bins.t().contiguous()
     before = dict(hist_kernel.launches)
     if kernel == "hist_packed4":
+        setup = hist_kernel.pack_bins(nf).t()  # the grower's copy, read by row
         for r in (None, rows):
             b, v = (bins, vals) if r is None else (bins[:, r.long()], vals[r.long()])
             bp, vp = hist_kernel.pack4(b, v)
             got = hist_kernel.hist_packed4(bp, vp, B, dtype)
-            assert torch.equal(got, leaf_histogram_packed4(bp, vp, B, dtype))
+            assert torch.equal(got, leaf_histogram_packed4_rows(bp, vp.view(-1, 3), B, None, dtype))
             assert torch.equal(got, leaf_histogram(bins, vals, B, r, dtype))
+            assert torch.equal(hist_kernel.hist_packed4_rows(setup, vals, B, r, dtype), got)
     else:
         fn = FAMILY[kernel][0]
         assert torch.equal(fn(bins, vals, B, None, dtype), leaf_histogram(bins, vals, B, None, dtype))
@@ -126,6 +130,89 @@ def test_kernels_on_tiny_segments(dev, n):
     for fn in (hist_kernel.histogram, hist_kernel.hist_v1, hist_kernel.hist_onehot,
                hist_kernel.hist_bitplane):
         assert torch.equal(fn(bins, vals, 63, rows), want), fn.__name__
+
+
+def _packed4_cases(bins, vals, n, gen):
+    """(name, packed bins, values, rows) of one row count: the first n rows
+    whole from the set-up copy (the word path when F % 4 == 0), from pack4's
+    [F, N2] and from a set-up copy cut by one feature (byte path, stride_n
+    != 1, not 4-byte aligned), and a segment of n rows with odd and even
+    indices read by row from the full set-up copy."""
+    nf = bins[:, :n].t().contiguous()
+    full = hist_kernel.pack_bins(bins.t().contiguous())
+    rows = torch.tensor(np.sort(gen.choice(bins.shape[1], n, replace=False)).astype(np.int32),
+                        device=bins.device)
+    return [
+        ("setup", hist_kernel.pack_bins(nf).t(), vals[:n], None),
+        ("pack4", hist_kernel.pack4(bins[:, :n], vals[:n])[0], vals[:n], None),
+        ("setup_cut", hist_kernel.pack_bins(nf)[:, 1:].t(), vals[:n], None),
+        ("rows", full.t(), vals, rows),
+        ("rows_cut", full[:, 1:].t(), vals, rows),
+    ]
+
+
+PACKED4_ROWS = [1, 2, 3, 511, 512, 513, 100_000, 1_000_000]
+
+
+@pytest.mark.parametrize("F", [1, 5, 28, 29])
+@pytest.mark.parametrize("B", [1, 2, 15, 16])
+def test_packed4_rows_matches_plain_and_histogram(dev, F, B):
+    """hist_packed4_rows at every row count of PACKED4_ROWS, whole and by
+    rows, in every layout of :func:`_packed4_cases`, in both operand types,
+    with nibbles >= B among the bins: on dyadic values equal to its plain
+    version and to histogram.cu (which skips bins >= B) bit for bit."""
+    N = max(PACKED4_ROWS) + 1
+    bins, vals, _ = _dyadic(dev, F=F, N=N, B=16, seed=F * 16 + B, q=1024)
+    gen = np.random.RandomState(F + B)
+    for n in PACKED4_ROWS:
+        for name, packed, v, rows in _packed4_cases(bins, vals, n, gen):
+            b = bins[:, :n] if rows is None else bins
+            if name.endswith("_cut"):
+                b = b[1:]
+            for dtype in ("float32", "bfloat16"):
+                got = hist_kernel.hist_packed4_rows(packed, v, B, rows, dtype)
+                want = leaf_histogram_packed4_rows(packed, v, B, rows, dtype)
+                assert torch.equal(got, want), (n, name, dtype)
+                assert torch.equal(hist_kernel.histogram(b, v, B, rows, dtype), got), (n, name, dtype)
+
+
+@pytest.mark.parametrize("F", [5, 28])
+def test_packed4_real_values_within_two_orders(dev, F):
+    """Real-valued rows sum in other orders than the plain version: each
+    cell lies within the f32 bound of two orders, count * 2^-23 * sum |v|."""
+    rng = np.random.RandomState(F)
+    N = 1_000_001
+    bins = torch.tensor(rng.randint(0, 15, (F, N)), dtype=torch.uint8, device=dev)
+    vals = leaf_values(torch.tensor(rng.randn(N), dtype=torch.float32, device=dev),
+                       torch.tensor(rng.rand(N), dtype=torch.float32, device=dev),
+                       torch.ones(N, device=dev))
+    packed = hist_kernel.pack_bins(bins.t().contiguous()).t()
+    rows = torch.tensor(np.sort(rng.permutation(N)[:100_001]).astype(np.int32), device=dev)
+    for r in (None, rows):
+        for dtype in ("float32", "bfloat16"):
+            got = hist_kernel.hist_packed4_rows(packed, vals, 15, r, dtype)
+            want = leaf_histogram(bins, vals, 15, r, dtype)
+            abs_sum = leaf_histogram(bins, vals.abs(), 15, r, dtype)
+            err = (got - want).abs()
+            assert bool((err <= want[..., 2:] * 2.0 ** -23 * abs_sum + 1e-6).all()), (r is None, dtype)
+
+
+def test_packed4_back_to_back_calls(dev):
+    """200 launches of changing shape, layout, width, operand type and grid
+    without a sync between them, each equal to its plain version: the
+    96 KB opt-in of each instantiation and the grid hold across calls."""
+    gen = np.random.RandomState(9)
+    sets = []
+    for k, (F, n) in enumerate(((1, 3), (5, 513), (28, 100_000), (29, 70_001), (28, 1_000_000))):
+        bins, vals, _ = _dyadic(dev, F=F, N=n, B=16, seed=30 + k, q=1024)
+        for name, packed, v, rows in _packed4_cases(bins, vals, max(n // 3, 1), gen):
+            for B, dtype in ((15, "float32"), (16, "bfloat16"), (2, "float32")):
+                sets.append(((packed, v, B, rows, dtype),
+                             leaf_histogram_packed4_rows(packed, v, B, rows, dtype)))
+    outs = [hist_kernel.hist_packed4_rows(*sets[i % len(sets)][0]) for i in range(200)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, sets[i % len(sets)][1]), i
 
 
 # every template instance of each tensor-core kernel and its edges: the

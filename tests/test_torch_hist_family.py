@@ -11,9 +11,12 @@ allow and with f32 and bf16 operands:
  * real-valued f32 inputs agree to rtol 1e-5 / atol 1e-4 (the sums are
    added in other orders); in bf16 both sides are held, within the same
    bound, to the f64 oracle of the bf16-rounded values;
- * the ``rows=`` form equals the JAX kernel on the gathered segment.
+ * the ``rows=`` form equals the JAX kernel on the gathered segment
+   (packed4 reads it by row out of a ``pack_bins`` copy, as the grower
+   does).
 
-Then the unit mirrors, each equal to the JAX package's: ``pack4`` (odd N),
+Then the unit mirrors, each equal to the JAX package's: ``pack4`` and
+``pack_bins`` (odd N),
 ``bitplane_split`` for every B in 2..256, the capability table for B in
 1..300 through the name map, ``rows_bucket``, ``bucket_sizes`` and
 ``entries_digest``; and numpy mirrors of csrc/hist_bitplane.cu's exactness
@@ -85,9 +88,9 @@ def _jax(kernel, bins, vals, B, dtype):
 def _port(kernel, bins, vals, B, dtype, rows=None):
     bins_t, vals_t = torch.from_numpy(bins), torch.from_numpy(vals)
     if kernel == "packed4":
-        if rows is not None:
-            idx = torch.from_numpy(rows).long()
-            bins_t, vals_t = bins_t[:, idx], vals_t[idx]
+        if rows is not None:  # by row from the set-up copy: no gather, no pack4
+            packed = hk.pack_bins(bins_t.t())
+            return hk.hist_packed4_rows(packed.t(), vals_t, B, torch.from_numpy(rows), dtype).numpy()
         return hk.hist_packed4(*hk.pack4(bins_t, vals_t), B, dtype).numpy()
     rows_t = None if rows is None else torch.from_numpy(rows)
     return FAMILY[kernel][1](bins_t, vals_t, B, rows_t, dtype).numpy()
@@ -122,13 +125,19 @@ def test_kernel_family_matches_jax(kernel, B, dtype):
 
 def test_routed_dispatch_reaches_each_wrapper():
     """routed_histogram with each impl forced equals the wrapper it names
-    (packed4 through pack4, the segment gathered first)."""
+    (packed4 through pack4, the segment gathered first, and by row from a
+    packed copy); the packed copy changes nothing for the other impls."""
     bins, vals, rows = _inputs(3, 15, True, "bfloat16")
     bt, vt, rt = torch.from_numpy(bins), torch.from_numpy(vals), torch.from_numpy(rows)
+    packed = hk.pack_bins(bt.t()).t()
     want = hk.hist_v1(bt, vt, 15, rt, "bfloat16")
     for impl in ("cuda", "cuda_onehot", "cuda_bitplane", "cuda_packed4"):
         got = hk.routed_histogram(bt, vt, 15, rows=rt, impl=impl, hist_dtype="bfloat16")
         assert torch.equal(got, want), impl
+        got = hk.routed_histogram(bt, vt, 15, rows=rt, impl=impl, hist_dtype="bfloat16",
+                                  bins_packed=packed)
+        assert torch.equal(got, want), (impl, "packed copy")
+    assert torch.equal(hk.hist_packed4_rows(packed, vt, 15, rt, "bfloat16"), want)
     # scatter ignores hist_dtype, as the JAX scatter does
     got = hk.routed_histogram(bt, vt, 15, rows=rt, impl="scatter", hist_dtype="bfloat16")
     assert torch.equal(got, hk.hist_v1(bt, vt, 15, rt, "float32"))
@@ -147,6 +156,10 @@ def test_pack4_matches_jax(n):
     # the transposed [N, F] layout packs the same
     tb2, _ = hk.pack4(torch.from_numpy(np.ascontiguousarray(bins.T)).t(), torch.from_numpy(vals))
     np.testing.assert_array_equal(tb2.numpy(), np.asarray(jb))
+    # the set-up copy, [ceil(N/2), F] row-pair-major, is the same bytes transposed
+    tp = hk.pack_bins(torch.from_numpy(np.ascontiguousarray(bins.T)))
+    assert tp.dtype == torch.uint8 and tp.is_contiguous() and tp.shape == (-(-n // 2), 3)
+    np.testing.assert_array_equal(tp.t().numpy(), np.asarray(jb))
 
 
 def test_bitplane_split_matches_jax():

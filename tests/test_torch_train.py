@@ -15,7 +15,9 @@ The narrow widths of measured routing (max_bin 15 and 63) are held to the
 JAX package the same way, and on the port alone: every histogram impl
 forced through LIGHTGBM_TPU_HIST_IMPL, and a hand-built route sending
 alternating row classes to the kernels, grow the default route's trees bit
-for bit (on the CPU each kernel's wrapper runs the same plain f32 sums);
+for bit (on the CPU each kernel's wrapper runs the same plain f32 sums), and
+``cuda_packed4`` reads the packed copy made at set-up, never calling
+``pack4``;
 bf16 operands with ``cuda_onehot`` forced train to an AUC within 0.01 of
 f32's.
 
@@ -136,7 +138,7 @@ def test_narrow_bins_agree_with_jax(narrow, max_bin):
 def _spy(monkeypatch):
     """Count the wrapper calls the router makes."""
     calls = {}
-    for name in ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4"):
+    for name in ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_packed4_rows"):
         real = getattr(hk, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -155,6 +157,12 @@ def test_forced_impls_and_routes_grow_the_default_trees(narrow, monkeypatch, tmp
     B = runs[max_bin][1]._gbdt.num_bins
     kernels = ["cuda", "cuda_onehot", "cuda_bitplane"] + (["cuda_packed4"] if B <= 16 else [])
     calls = _spy(monkeypatch)
+
+    def no_pack4(*a, **kw):
+        raise AssertionError("the grower packs on a call; it must read the set-up copy")
+
+    # cuda_packed4 reads the nibble-packed copy made at set-up, by row
+    monkeypatch.setattr(hk, "pack4", no_pack4)
     for impl in kernels:
         monkeypatch.setattr(hk, "_ENV_IMPL", impl)
         got = tlgb.train(dict(params), tlgb.Dataset(X, label=y), ROUNDS, device="cpu")
@@ -173,7 +181,7 @@ def test_forced_impls_and_routes_grow_the_default_trees(narrow, monkeypatch, tmp
         booster.update()
     assert booster.model_to_string() == want
     wrapper = {"cuda": "histogram", "cuda_onehot": "hist_onehot",
-               "cuda_bitplane": "hist_bitplane", "cuda_packed4": "hist_packed4"}
+               "cuda_bitplane": "hist_bitplane", "cuda_packed4": "hist_packed4_rows"}
     assert set(calls) == {wrapper[k] for k in kernels}, calls
 
     # a table file through hist_tune: on the CPU only its scatter entries route
