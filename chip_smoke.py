@@ -8,15 +8,18 @@ Phases (each prints one line; any failure exits non-zero):
  1. device and build: the card, its power limit, every kernel source of
     lightgbm_tpu_torch/csrc built with one nvcc each, all started at once,
     and each kernel's registers per thread and spill bytes as ptxas reports
-    them;
+    them (hist_v1's instances on their own, none spilling);
  2. leaf-histogram kernel vs its plain PyTorch version at the root shape
     (1M rows x 28 features, B=255) and at a leaf segment given by ``rows``:
     exact on dyadic values, within the f32 bound of two summation orders on
     real gradients; times against the bound and one ``index_add_``; then,
     on a line of its own, the kernel at the sizes of one tree's calls
     (sorted random segments of 256, 1024, 4096, 16384 and 100k rows, and
-    the root) in f32 and bf16: exact on dyadic values, hist_v1 equal to it,
-    each time beside its bytes bound and hist_v1's time on the same rows;
+    the root) in f32 and bf16: exact on dyadic values, hist_v1 equal to it;
+    hist_v1 on real values equal bit for bit to its host mirror
+    (``hist_kernel.hist_v1_mirror``) up to 100k rows and to itself over 5
+    calls at the root; each time beside its bytes bound and hist_v1's time
+    on the same rows;
  3. two-child split-scan kernel vs its plain version on both children of
     phase 2's histograms, with missing types none/zero/nan and a monotone
     feature: every field exact (NaN where both are NaN) on dyadic and on
@@ -41,7 +44,8 @@ Phases (each prints one line; any failure exits non-zero):
     hist_onehot, hist_bitplane, hist_packed4 at B=15, and the oracle
     hist_v1), at the root and at a 100k-row segment, against its plain
     version (exact on dyadic values, within the two-order bound on real
-    ones) and hist_v1 against histogram; hist_packed4 reads the nibble-packed
+    ones) and hist_v1 against histogram, and on real values against its
+    mirror at the segment and itself at the root; hist_packed4 reads the nibble-packed
     copy the grower makes at set-up, by row at the segment, and is also
     timed at the root on pack4's input; times against the bytes bound and
     one ``index_add_``, and hist_onehot's root times at every width on a
@@ -159,8 +163,14 @@ def main() -> int:
     # hist_onehot: one instance per (16-bin tile count, operand type)
     onehot_instances = sorted(k for k in ptxas["hist_onehot"] if k.startswith("onehot_kernel<"))
     assert len(onehot_instances) == 10, onehot_instances
+    # hist_v1: one instance per (operand type, bin path), and the chunks' reduction
+    hist_v1_ptxas = ptxas["hist_v1"]
+    assert len([k for k in hist_v1_ptxas if k.startswith("v1_kernel<")]) == 4, hist_v1_ptxas
+    assert all(u.get("spill_stores", 0) == u.get("spill_loads", 0) == 0
+               for u in hist_v1_ptxas.values()), ("hist_v1 spills", hist_v1_ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
-        seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas)
+        seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
+        hist_v1=hist_v1_ptxas)
 
     # ---- data: the main path's dataset ---------------------------------------
     X, y = make_higgs_like(ROOT_ROWS, FEATURES)
@@ -257,17 +267,30 @@ def main() -> int:
     )
     size_rng = np.random.RandomState(1)
     narrow = {Bn: (bins_nf % Bn).t() for Bn in (15, 63)}  # the grower's layout at narrower widths
+    sms = hist_kernel._sm_count(dev)
+    real_host = real_vals.cpu().numpy()
     sizes = {}
     for n in (256, 1024, 4096, 16384, 100_000, N):
         rows = None if n == N else torch.from_numpy(
             np.sort(size_rng.permutation(N)[:n]).astype(np.int32)).to(dev)
         size_bound, _ = bound(n * F + n * 12 + (0 if rows is None else n * 4) + out_bytes, 3 * n * F)
-        rec = dict(grid=hist_kernel.histogram_grid(n, F, hist_kernel._sm_count(dev)),
+        rec = dict(grid=hist_kernel.histogram_grid(n, F, sms), v1_grid=hist_kernel.v1_grid(n, F, sms),
                    bound_ms=size_bound)
         for dt in ("float32", "bfloat16"):
             got = hist_kernel.histogram(hist_bins, dyq_vals, B, rows, dt)
             assert torch.equal(got, leaf_histogram(bins, dyq_vals, B, rows, dt)), (n, dt)
             assert torch.equal(hist_kernel.hist_v1(hist_bins, dyq_vals, B, rows, dt), got), (n, dt)
+            # hist_v1's order is fixed: its mirror's bits on real values, the
+            # same bits on every call at the root
+            v1_real = hist_kernel.hist_v1(hist_bins, real_vals, B, rows, dt)
+            if rows is None:
+                for _ in range(4):
+                    assert torch.equal(hist_kernel.hist_v1(hist_bins, real_vals, B, None, dt),
+                                       v1_real), ("hist_v1 changed between calls", dt)
+            else:
+                assert np.array_equal(v1_real.cpu().numpy(), hist_kernel.hist_v1_mirror(
+                    binned.bins, real_host, B, rows.cpu().numpy(), dt, sms)), (
+                    "hist_v1 != its mirror", n, dt)
             for Bn, bins_n in narrow.items():
                 assert torch.equal(hist_kernel.histogram(bins_n, dyq_vals, Bn, rows, dt),
                                    leaf_histogram(bins_n, dyq_vals, Bn, rows, dt)), (n, Bn, dt)
@@ -277,7 +300,8 @@ def main() -> int:
             )
         sizes["root" if rows is None else n] = rec
     del narrow
-    say("histogram_sizes", num_bins=B, dyadic_exact_at_num_bins=[15, 63, B], sizes=sizes)
+    say("histogram_sizes", num_bins=B, dyadic_exact_at_num_bins=[15, 63, B],
+        hist_v1_real_equals_mirror_up_to=100_000, hist_v1_root_repeats_equal=5, sizes=sizes)
 
     # ---- 3. split kernel vs plain -----------------------------------------------
     hist2 = torch.stack([got_s, got - got_s]).contiguous()  # both children
@@ -551,12 +575,14 @@ def main() -> int:
     # ---- 6. the histogram kernel family --------------------------------------------
     n_s = int(seg_rows.numel())
     seg_long = seg_rows.long()
+    seg_host = seg_rows.cpu().numpy()
     family = {}  # (kernel, dtype) -> {B: numbers}
     checked = 0
     for Bf in (15, 63, 255):
         gen = torch.Generator(device=dev).manual_seed(Bf)
         syn_nf = torch.randint(0, Bf, (N, F), generator=gen, device=dev, dtype=torch.uint8)
         syn = syn_nf.t()  # the grower's layout: [F, N] view of the [N, F] copy
+        syn_host = syn_nf.cpu().numpy().T  # for hist_v1's mirror
         # the nibble-packed [N2, F] copy the grower makes at set-up when B <= 16
         syn_p4 = hist_kernel.pack_bins(syn_nf).t() if Bf <= 16 else None
         out_b = F * Bf * 12
@@ -631,11 +657,22 @@ def main() -> int:
                             hist_kernel.hist_v1(syn, dyq_vals, Bf, rows, dt),
                             hist_kernel.histogram(syn, dyq_vals, Bf, rows, dt),
                         ), ("hist_v1 != histogram", Bf, dt)
+                    # fixed order: the mirror's bits on real values at the
+                    # segment, the same bits on every call at the root
+                    assert np.array_equal(
+                        hist_kernel.hist_v1(syn, real_vals, Bf, seg_rows, dt).cpu().numpy(),
+                        hist_kernel.hist_v1_mirror(syn_host, real_host, Bf, seg_host, dt, sms),
+                    ), ("hist_v1 != its mirror", Bf, dt)
+                    first = hist_kernel.hist_v1(syn, real_vals, Bf, None, dt)
+                    for _ in range(4):
+                        assert torch.equal(hist_kernel.hist_v1(syn, real_vals, Bf, None, dt),
+                                           first), ("hist_v1 changed between calls", Bf, dt)
+                    checked += 2
                 rb, sb = (packed_b, packed_seg_b) if name == "hist_packed4" else (root_b, seg_b)
                 rec.update(root_bound_ms=rb[0], segment_bound_ms=sb[0], bound_by=rb[1],
                            library_ms=library_ms)
                 family.setdefault((name, dt), {})[Bf] = rec
-        del syn_nf, syn, syn_p4, flat, lib_acc
+        del syn_nf, syn, syn_host, syn_p4, flat, lib_acc
     say("kernel_family", rows=N, features=F, segment_rows=n_s, dyadic_exact=True,
         checks=checked, numbers={"%s/%s" % k: v for k, v in family.items()})
     print(json.dumps({"hist_onehot_root_ms": {

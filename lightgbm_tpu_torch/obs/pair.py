@@ -4,7 +4,7 @@ one process on one card.
 On a machine with a CUDA card, from the repository root::
 
     git show <commit>:lightgbm_tpu_torch/csrc/<kernel>.cu > build/old_<kernel>.cu
-    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair,packed4} \\
+    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair,packed4,v1} \\
         --old build/old_<kernel>.cu [--out results.json]
 
 The old source is built with the package's nvcc flags into ``build/pair/``,
@@ -16,15 +16,17 @@ checks both versions against the plain version, then times them in turns
 (old, new, new, old) with the empty kernel's launch as the floor of one
 call. A time is the mean of the two turns' CUDA-event medians
 (``tune.CudaTimer``: L2 flushed, launch overhead hidden). Inputs of
-``histogram`` and ``split_pair`` come from make_higgs_like(1M, 28) binned at
-max_bin=255.
+``histogram``, ``v1`` and ``split_pair`` come from make_higgs_like(1M, 28)
+binned at max_bin=255.
 
-``histogram``: the old source takes the launcher arguments of the other
-``[F, N]`` kernels (no ``rows_per_block``). Both are held to the plain
-version bit for bit on dyadic values (multiples of 2^-10) in f32 and bf16
-at sorted random segments of 256, 1024, 4096, 16384 and 100k rows, in the
-grower's layout (``bins_nf.t()``), and the whole root, and timed there on
-real values, the output's memset included.
+``histogram`` and ``v1`` (csrc/hist_v1.cu): the old source takes the
+launcher arguments of the other ``[F, N]`` kernels (no ``rows_per_block``,
+no scratch: commit 9f5ccd0 or earlier for ``v1``) and a zeroed output.
+Both are held to the plain version bit for bit on dyadic values (multiples
+of 2^-10) in f32 and bf16 at sorted random segments of 256, 1024, 4096,
+16384 and 100k rows, in the grower's layout (``bins_nf.t()``), and the
+whole root, and timed there on real values, the output's memset (old) or
+allocation (new) included.
 
 ``split_pair``: the old source takes a contiguous ``[C, F, B, 3]`` and no
 leaf indices or ticket counter (the launcher before the one-launch
@@ -92,8 +94,8 @@ def sass_text(library: Path) -> str:
 def sass_counts(text: str) -> Dict[str, Dict[str, int]]:
     """Opcode counts (memory, atomics, shuffles, barriers, branches) of
     every kernel function in ``cuobjdump -sass`` output."""
-    keep = ("LDG", "LDS", "STS", "STG", "ATOMS", "REDG", "ATOMG", "SHFL", "BAR", "MEMBAR",
-            "BRA", "F2F", "FADD")
+    keep = ("LDG", "LDS", "STS", "STG", "LDGSTS", "ATOMS", "REDG", "ATOMG", "SHFL", "MATCH",
+            "BAR", "MEMBAR", "BRA", "F2F", "FADD")
     counts: Dict[str, collections.Counter] = {}
     func = None
     for line in text.splitlines():
@@ -127,15 +129,31 @@ def _same(a, b) -> bool:
 
 
 def _histogram_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
-    """(timed calls by input, checks) of the histogram kernels, after
-    holding both to the plain version on dyadic values."""
+    """(timed calls by input, checks) of csrc/histogram.cu."""
+    from ..ops import hist_kernel
+
+    return _rows_case(old_lib, "lgbt_histogram", hist_kernel.histogram, dev, data)
+
+
+def _v1_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by input, checks) of csrc/hist_v1.cu."""
+    from ..ops import hist_kernel
+
+    return _rows_case(old_lib, "lgbt_hist_v1", hist_kernel.hist_v1, dev, data)
+
+
+def _rows_case(old_lib: Path, symbol: str, new_fn, dev, data):
+    """(timed calls by input, checks) of an ``[F, N]`` histogram kernel:
+    the old library's ``symbol`` (the launcher arguments of the other
+    ``[F, N]`` kernels, a zeroed output) against the wrapper ``new_fn``,
+    after holding both to the plain version on dyadic values."""
     import numpy as np
     import torch
 
     from ..ops import hist_kernel
     from ..ops.histogram import leaf_histogram, leaf_values
 
-    old = ctypes.CDLL(str(old_lib)).lgbt_histogram
+    old = getattr(ctypes.CDLL(str(old_lib)), symbol)
     old.restype = ctypes.c_int
     old.argtypes = hist_kernel._ARGS_ROWS
 
@@ -146,10 +164,10 @@ def _histogram_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Calla
         code = old(bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
                    rows.data_ptr() if rows is not None else None, n, F, B, int(dt == "bfloat16"),
                    out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        cuda_build.check(code, "old histogram")
+        cuda_build.check(code, "old " + symbol)
         return out
 
-    versions = {"old": run_old, "new": hist_kernel.histogram}
+    versions = {"old": run_old, "new": new_fn}
     bins, hist_bins, B, N, real = data["bins"], data["hist_bins"], data["B"], data["N"], data["real"]
     rng = np.random.RandomState(0)
     q = 1024
@@ -367,7 +385,8 @@ def _packed4_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callabl
     return calls, {"grids": grids}
 
 
-SOURCES = {"histogram": "histogram", "split_pair": "split_pair", "packed4": "hist_packed4"}
+SOURCES = {"histogram": "histogram", "split_pair": "split_pair", "packed4": "hist_packed4",
+           "v1": "hist_v1"}
 
 
 def _higgs_data(dev) -> Dict:
@@ -451,7 +470,7 @@ def main(argv=None) -> int:
 
     data = None if args.kernel == "packed4" else _higgs_data(dev)
     case = {"histogram": _histogram_case, "split_pair": _split_case,
-            "packed4": _packed4_case}[args.kernel]
+            "packed4": _packed4_case, "v1": _v1_case}[args.kernel]
     calls, checks = case(old_lib, dev, data)
 
     timer = CudaTimer(dev)

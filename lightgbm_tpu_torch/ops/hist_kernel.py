@@ -23,7 +23,8 @@ impl            wrapper, source           JAX kernel it replaces
                 (``hist_packed4``)
                 csrc/hist_packed4.cu
 (not routed)    ``hist_v1``               ``histogram_pallas_v1``, the
-                csrc/hist_v1.cu           differential oracle of ``cuda``
+                csrc/hist_v1.cu           differential oracle of ``cuda``:
+                                          fixed order, no atomics
 ==============  ========================  ===================================
 
 The name map from the JAX vocabulary is :data:`JAX_NAMES` (``pallas`` ->
@@ -59,6 +60,7 @@ import ctypes
 import hashlib
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..obs.costs import normalize_device_kind
@@ -67,7 +69,7 @@ from ..utils import log
 from ..utils.env import env_choice
 from ..utils.log import LightGBMError
 from . import cuda_build
-from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4_rows
+from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4_rows, operands
 
 # ---------------------------------------------------------------------------
 # vocabulary, capabilities, packing
@@ -178,6 +180,8 @@ _ARGS_ROWS = [
 ]
 # lgbt_histogram: the [F, N] arguments plus the grid's rows_per_block
 _ARGS_HIST = _ARGS_ROWS[:9] + [ctypes.c_longlong] + _ARGS_ROWS[9:]
+# lgbt_hist_v1: those of lgbt_histogram plus the chunks' scratch ahead of out
+_ARGS_V1 = _ARGS_HIST[:10] + [ctypes.c_void_p] + _ARGS_HIST[10:]
 
 
 def _entry(source: str, symbol: str, argtypes):
@@ -201,9 +205,8 @@ def _check_bins(what: str, bins: torch.Tensor, num_bins: int, max_bins: int) -> 
         raise ValueError("%s: num_bins must be in [1, %d], got %d" % (what, max_bins, num_bins))
 
 
-def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
-    """Validate the arguments of an ``[F, N]`` wrapper; return the row count
-    and the zeroed ``[F, B, 3]`` output."""
+def _rows_n(name: str, bins, values, num_bins, rows, hist_dtype, max_bins) -> int:
+    """Validate the arguments of an ``[F, N]`` wrapper; return the row count."""
     _check_dtype(hist_dtype)
     _check_bins(name, bins, num_bins, max_bins)
     N = bins.shape[1]
@@ -214,7 +217,12 @@ def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
         or not values.is_contiguous()
     ):
         raise ValueError("%s: values must be a contiguous [N, 3] f32 tensor on the bins' device" % name)
-    n = N if rows is None else _rows_count(name, rows, bins.device)
+    return N if rows is None else _rows_count(name, rows, bins.device)
+
+
+def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
+    """:func:`_rows_n` and the zeroed ``[F, B, 3]`` output."""
+    n = _rows_n(name, bins, values, num_bins, rows, hist_dtype, max_bins)
     return n, torch.zeros((bins.shape[0], num_bins, 3), dtype=torch.float32, device=bins.device)
 
 
@@ -321,12 +329,95 @@ def hist_bitplane(bins, values, num_bins, rows=None, hist_dtype="float32"):
     return _launch_rows("hist_bitplane", "lgbt_hist_bitplane", bins, values, num_bins, rows, hist_dtype, 256)
 
 
+def _one_wave_grid(n, F, num_sms, group, step, blocks_per_sm, max_chunk):
+    """``(groups, chunks, rows_per_block)`` of ``ceil(F / group)`` feature
+    groups and chunks of a multiple of ``step`` rows (``step`` to
+    ``max_chunk``) aimed at one wave of ``blocks_per_sm`` blocks per SM."""
+    groups = -(-F // group)
+    slots = max(blocks_per_sm * num_sms // groups, 1)
+    want = -(-n // slots)
+    rows_per_block = min(max(-(-want // step) * step, step), max_chunk)
+    return groups, -(-n // rows_per_block), rows_per_block
+
+
+# csrc/hist_v1.cu's block: V1_GROUP features x a chunk of rows, staged
+# V1_TILE rows a tile (bins at a row stride of V1_BIN_WORDS words), two
+# blocks an SM
+V1_GROUP = 16
+V1_TILE = 512
+V1_BIN_WORDS = 5
+V1_MAX_CHUNK = 65536
+V1_BLOCKS_PER_SM = 2
+
+
+def v1_grid(n: int, F: int, num_sms: int) -> Tuple[int, int, int]:
+    """``(groups, chunks, rows_per_block)`` of csrc/hist_v1.cu for ``n``
+    rows of ``F`` features on a card of ``num_sms`` SMs: ``ceil(F / 16)``
+    feature groups, and chunks of a multiple of 512 rows (512 to 65536)
+    aimed at one wave of two blocks per SM. At F=28 on 132 SMs the 1M root
+    gets 2 groups x 131 chunks of 7680 rows, a 100k segment 98 of 1024,
+    256 rows one chunk of 512."""
+    return _one_wave_grid(n, F, num_sms, V1_GROUP, V1_TILE, V1_BLOCKS_PER_SM, V1_MAX_CHUNK)
+
+
 def hist_v1(bins, values, num_bins, rows=None, hist_dtype="float32"):
-    """The per-feature-grid kernel (csrc/hist_v1.cu), the independent oracle
-    of :func:`histogram`; not routed."""
+    """``[F, B, 3]`` histogram in a fixed order with no atomics
+    (csrc/hist_v1.cu: 16-feature blocks over row chunks of :func:`v1_grid`,
+    each feature folded in row order by one warp, the chunks' partials
+    summed in order), the independent oracle of :func:`histogram`; not
+    routed. Its bits depend on (n, F, B, rows, SM count) only:
+    :func:`hist_v1_mirror` gives them on the host. Takes the arguments of
+    :func:`histogram`."""
     if bins.device.type == "cpu":
         return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
-    return _launch_rows("hist_v1", "lgbt_hist_v1", bins, values, num_bins, rows, hist_dtype, 336)
+    n = _rows_n("hist_v1", bins, values, num_bins, rows, hist_dtype, 336)
+    F = bins.shape[0]
+    shape = (F, num_bins, 3)
+    if n == 0 or F == 0:
+        return torch.zeros(shape, dtype=torch.float32, device=bins.device)
+    _, chunks, rows_per_block = v1_grid(n, F, _sm_count(bins.device))
+    # every cell of the output, and of each chunk's partial, is stored
+    out = torch.empty(shape, dtype=torch.float32, device=bins.device)
+    scratch = torch.empty((chunks,) + shape, dtype=torch.float32, device=bins.device) \
+        if chunks > 1 else None
+    bf16 = hist_dtype == "bfloat16"
+    code = _entry("hist_v1", "lgbt_hist_v1", _ARGS_V1)(
+        bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
+        rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
+        rows_per_block, scratch.data_ptr() if scratch is not None else None,
+        out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
+    )
+    cuda_build.check(code, "hist_v1 kernel")
+    launches["hist_v1_bf16" if bf16 else "hist_v1"] += 1
+    return out
+
+
+def hist_v1_mirror(bins, values, num_bins, rows=None, hist_dtype="float32", num_sms=132):
+    """The bits :func:`hist_v1` gives on a card of ``num_sms`` SMs, computed
+    in numpy f32 on the host from ``[F, N]`` u8 bins, ``[N, 3]`` f32 values
+    and optional int rows (numpy arrays or CPU tensors).
+
+    The kernel folds each cell of a chunk of :func:`v1_grid` as the plain
+    left fold of its rows in the order of ``rows``, from 0 (a bin >= B
+    adds nothing), and sums the chunks' partials in order, from 0. So does
+    this: ``np.add.at`` adds in index order."""
+    bins = np.asarray(bins)
+    r = np.arange(bins.shape[1]) if rows is None else np.asarray(rows).astype(np.int64)
+    vals = operands(torch.as_tensor(np.asarray(values)), hist_dtype).numpy()[r]
+    F, n = bins.shape[0], len(r)
+    out = np.zeros((F, num_bins, 3), np.float32)
+    if n == 0 or F == 0:
+        return out
+    _, chunks, rows_per_block = v1_grid(n, F, num_sms)
+    b = bins[:, r].T.astype(np.int64)  # [n, F], rows in order
+    keep = b < num_bins
+    chunk = np.arange(n) // rows_per_block
+    cell = (chunk[:, None] * F + np.arange(F)) * num_bins + b
+    parts = np.zeros((chunks * F * num_bins, 3), np.float32)
+    np.add.at(parts, cell[keep], np.broadcast_to(vals[:, None, :], (n, F, 3))[keep])
+    for part in parts.reshape(chunks, F, num_bins, 3):
+        out += part
+    return out
 
 
 # csrc/hist_packed4.cu's block: P4_GROUP features x a chunk of rows, taken
@@ -344,11 +435,7 @@ def packed4_grid(n: int, F: int, num_sms: int) -> Tuple[int, int, int]:
     feature groups, and chunks of a multiple of 512 rows (512 to 65536)
     aimed at one wave of two blocks per SM. At F=28 on 132 SMs the 1M root
     gets 7 groups x 37 chunks of 27136 rows, a 100k segment 33 of 3072."""
-    groups = -(-F // P4_GROUP)
-    slots = max(P4_BLOCKS_PER_SM * num_sms // groups, 1)
-    want = -(-n // slots)
-    rows_per_block = min(max(-(-want // P4_STEP) * P4_STEP, P4_STEP), P4_MAX_CHUNK)
-    return groups, -(-n // rows_per_block), rows_per_block
+    return _one_wave_grid(n, F, num_sms, P4_GROUP, P4_STEP, P4_BLOCKS_PER_SM, P4_MAX_CHUNK)
 
 
 def hist_packed4_rows(bins_packed, values, num_bins, rows=None, hist_dtype="float32"):

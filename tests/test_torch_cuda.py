@@ -215,6 +215,71 @@ def test_packed4_back_to_back_calls(dev):
         assert torch.equal(got, sets[i % len(sets)][1]), i
 
 
+V1_ROWS = [1, 31, 32, 33, 511, 4096, 100_000]
+
+
+def _v1_real(dev, F, N, B, seed):
+    """Bins with some >= B (they add nothing) and real-valued rows, on the
+    host (for the mirror) and on the card."""
+    rng = np.random.RandomState(seed)
+    bins = rng.randint(0, min(B + 1 + B // 8, 256), (F, N)).astype(np.uint8)
+    vals = leaf_values(torch.from_numpy(rng.randn(N).astype(np.float32)),
+                       torch.from_numpy(rng.rand(N).astype(np.float32)),
+                       torch.from_numpy(rng.rand(N) > 0.2)).numpy()
+    return bins, vals, rng, torch.from_numpy(bins).to(dev), torch.from_numpy(vals).to(dev)
+
+
+@pytest.mark.parametrize("F", [1, 5, 16, 17, 28, 29])
+@pytest.mark.parametrize("B", [1, 2, 15, 63, 255, 336])
+def test_hist_v1_equals_mirror_on_real_values(dev, F, B):
+    """hist_v1 sums in a fixed order, so on real values it equals
+    hist_v1_mirror bit for bit: every n of V1_ROWS (one chunk to 98), rows
+    none / sorted / unsorted with repeats, f32 and bf16, from the [F, N]
+    layout (byte path) and the [N, F] one (word path where F % 4 == 0)."""
+    N = max(V1_ROWS) + 7
+    bins_h, vals_h, rng, bins, vals = _v1_real(dev, F, N, B, F * 1000 + B)
+    nf = bins.t().contiguous()
+    sms = hist_kernel._sm_count(dev)
+    for n in V1_ROWS:
+        segments = {"all": None, "sorted": np.sort(rng.permutation(N)[:n]),
+                    "unsorted": rng.randint(0, N, n)}
+        for name, r in segments.items():
+            if r is None:
+                host = (bins_h[:, :n], vals_h[:n], None)
+                card = [(bins[:, :n], vals[:n], None), (nf[:n].t(), vals[:n], None)]
+            else:
+                r = r.astype(np.int32)
+                rt = torch.from_numpy(r).to(dev)
+                host = (bins_h, vals_h, r)
+                card = [(bins, vals, rt), (nf.t(), vals, rt)]
+            for dtype in ("float32", "bfloat16"):
+                bm, vm, rm = host
+                want = torch.from_numpy(hist_kernel.hist_v1_mirror(bm, vm, B, rm, dtype, sms))
+                for b, v, rt in card:
+                    got = hist_kernel.hist_v1(b, v, B, rt, dtype).cpu()
+                    assert torch.equal(got, want), (n, name, dtype, b.stride())
+
+
+def test_hist_v1_back_to_back_calls_are_bit_equal(dev):
+    """50 calls without a sync between them, alternating the 1M x 28 root
+    (131 chunks through the scratch) in f32 and a 100k segment in bf16, on
+    real values: every call gives the bits of the first of its kind, and the
+    segment's are the mirror's."""
+    N, F, B = 1_000_000, 28, 255
+    bins_h, vals_h, rng, bins, vals = _v1_real(dev, F, N, B, 50)
+    nf_t = bins.t().contiguous().t()
+    rows_h = np.sort(rng.permutation(N)[:100_000]).astype(np.int32)
+    rows = torch.from_numpy(rows_h).to(dev)
+    kinds = [(None, "float32"), (rows, "bfloat16")]
+    outs = [hist_kernel.hist_v1(nf_t, vals, B, *kinds[i % 2]) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(outs):
+        assert torch.equal(got, outs[i % 2]), i
+    want = hist_kernel.hist_v1_mirror(bins_h, vals_h, B, rows_h, "bfloat16",
+                                      hist_kernel._sm_count(dev))
+    assert torch.equal(outs[1].cpu(), torch.from_numpy(want))
+
+
 # every template instance of each tensor-core kernel and its edges: the
 # plane splits hist_bitplane's dispatch picks, and hist_onehot's 16-bin
 # tile counts kMt in {1, 2, 4, 8, 16} on both sides of each boundary
