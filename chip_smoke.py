@@ -26,14 +26,31 @@ Phases (each prints one line; any failure exits non-zero):
     real-valued histograms, also read by leaf index out of a grower-like
     buffer, and on 300 features of synthetic dyadic histograms;
  4. the main path: ``lightgbm_tpu_torch.train`` on make_higgs_like(1M, 28),
-    binary, max_bin=255, num_leaves=255, learning_rate=0.1, 10 iterations,
-    with the kernels' launch counters set to 0 just before and read just
-    after; iterations per second and the training AUC; then one more
-    iteration under torch.profiler for the device busy time by kernel, the
-    top 8 and every kernel of the split scan or of an indexing copy;
+    binary, max_bin=255, num_leaves=255, learning_rate=0.1, 10 iterations
+    through the device-resident split loop, with the kernels' launch
+    counters set to 0 just before and read just after; iterations per
+    second and the training AUC; then one more iteration under
+    torch.profiler for the device busy time by kernel, the top 8, every
+    kernel of the split scan, of an indexing copy or of the split loop, and
+    the count of host-to-device and device-to-host copies (at most 4 each);
+ 4b. the two split loops paired in one process: on dyadic gradients
+    (multiples of 2^-10) the host loop and the device loop, in turns host,
+    device, device, host, grow the same tree bit for bit; the device loop
+    runs from the root to the readback under sync debug mode "error"; on
+    the real gradients of phase 4's model, tree times in turns (the device
+    loop's enqueue time a split, the host loop's time a split), and a
+    stopped loop's host cost a step; two boosters, one a loop, train in
+    turns of 10 iterations (device, host, host, device), and the host
+    loop's AUC at 10 iterations is within 2e-3 of phase 4's; at the main
+    path's first step each kernel of the step (grow_step, partition, the
+    histogram's segment entry, hist_subtract, the split scan's device
+    entry) against its plain version on a copy of the state (the whole
+    state equal, the real-valued histogram within the two-order bound),
+    then timed from the same state against its bound;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     and device="cpu" (the plain versions), every histogram call of the CUDA
-    run held to its plain version within the two-order bound: trees equal
+    run (the root's and each segment entry's) held to its plain version
+    within the two-order bound: trees equal
     up to an f32 near-tie flip; each side's split gains against the f64
     gains of its own splits, the kernel's largest error no larger than the
     plain version's; at a flip, the CUDA run's split no worse in f64 than
@@ -57,15 +74,18 @@ Phases (each prints one line; any failure exits non-zero):
     at (max_bin 15, f32), (63, bf16) and (255, bf16), and under a hand-built
     table that sends alternate row classes to cuda_onehot / cuda_bitplane
     (and cuda_packed4) at (63, f32) and (15, f32); every routable kernel
-    launches; each run is timed, then trained again with every call of
+    launches; each run records its split loop (the device loop where the
+    table sends every row class to cuda, the host loop otherwise); each run
+    is timed, then trained again with every call of
     each routed kernel held to its plain version on the same rows within
     the two-order bound; AUC > 0.7 in both, and the
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, the sweep and the routed trainings, each with
-    the counts set to 0 just before it and read just after), the seconds
-    of each phase, then the result line.
+    the counts set to 0 just before it and read just after; the split
+    loop's kernels timed in phase 4b), the seconds of each phase, then the
+    result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -123,12 +143,18 @@ def main() -> int:
     from helpers.bench_data import make_higgs_like
     from lightgbm_tpu_torch.obs import tune
     from lightgbm_tpu_torch.ops import cuda_build, hist_kernel, split_kernel
+    from lightgbm_tpu_torch.ops import grow as grow_mod
+    from lightgbm_tpu_torch.ops import grow_state as gs
+    from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
+    from lightgbm_tpu_torch.ops import grow_step_kernel, partition_kernel
+    from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops.histogram import (
-        leaf_histogram, leaf_histogram_packed4_rows, leaf_values,
+        leaf_histogram, leaf_histogram_packed4_rows, leaf_values, segment_histogram,
     )
     from lightgbm_tpu_torch.ops.split import (
         MISSING_NAN, MISSING_ZERO, SplitParams, find_best_split_pair,
     )
+    from lightgbm_tpu_torch.ops.split import split_pair_step as split_pair_step_plain
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -168,6 +194,11 @@ def main() -> int:
     assert len([k for k in hist_v1_ptxas if k.startswith("v1_kernel<")]) == 4, hist_v1_ptxas
     assert all(u.get("spill_stores", 0) == u.get("spill_loads", 0) == 0
                for u in hist_v1_ptxas.values()), ("hist_v1 spills", hist_v1_ptxas)
+    # the split loop's kernels: partition's three passes, grow_step's two kernels
+    assert set(ptxas["partition"]) == {"count_kernel", "scan_kernel", "scatter_kernel"}, ptxas
+    assert set(ptxas["grow_step"]) == {"pick_kernel", "subtract_kernel"}, ptxas
+    assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step")
+               for u in ptxas[n].values()), ("split-loop kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
         hist_v1=hist_v1_ptxas)
@@ -370,28 +401,36 @@ def main() -> int:
         """Run ``fn`` with every launch count set to 0 just before and read
         just after; add the counts to the main path's."""
         hist_kernel.reset_launches()
-        split_kernel.launches = 0
+        grow_step_kernel.reset_launches()
+        split_kernel.launches = split_kernel.step_launches = partition_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = {k: v for k, v in hist_kernel.launches.items() if v}
-        if split_kernel.launches:
-            got["split_pair"] = split_kernel.launches
+        got.update((k, v) for k, v in grow_step_kernel.launches.items() if v)
+        for k, v in (("split_pair", split_kernel.launches),
+                     ("split_pair_step", split_kernel.step_launches),
+                     ("partition", partition_kernel.launches)):
+            if v:
+                got[k] = v
         for k, v in got.items():
             main_launches[k] = main_launches.get(k, 0) + v
         return out, secs, got
 
     booster, train_s, launches = counted(lambda: lgb.train(dict(TRAIN_PARAMS), train_set, 10))
-    assert launches.get("histogram", 0) > 0 and launches.get("split_pair", 0) > 0, launches
+    assert booster._gbdt.grow_loop == "device", booster._gbdt.grow_loop
+    loop_kernels = ("histogram", "histogram_segment", "split_pair_step", "partition", "grow_step",
+                    "hist_subtract")
+    assert all(launches.get(k, 0) > 0 for k in loop_kernels), launches
     (_, metric, auc, _), = booster.eval_train()
     raw = booster.predict(X[:1000], raw_score=True)
     assert booster.num_trees() == 10 and np.all(np.isfinite(raw)) and raw.shape == (1000,)
     np.testing.assert_allclose(raw, booster._gbdt.train_score()[:1000], rtol=1e-5, atol=1e-5)
     assert auc > 0.7, auc
     leaves = [t.num_leaves for t in booster._gbdt.trees()]
-    say("train", rows=N, iterations=10, seconds=round(train_s, 3),
+    say("train", rows=N, iterations=10, seconds=round(train_s, 3), grow_loop="device",
         iterations_per_s=10 / train_s, auc=auc, launches=launches, leaves=leaves)
 
     # one more iteration under the profiler: device busy time by kernel
@@ -404,7 +443,11 @@ def main() -> int:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
+    copies = {"HtoD": 0, "DtoH": 0}
     for ev in prof.key_averages():
+        for way in copies:
+            if "Memcpy " + way in ev.key:
+                copies[way] += ev.count
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host ops carry their kernels' time too; count kernels once
         us = getattr(ev, "self_device_time_total", None)
@@ -418,6 +461,13 @@ def main() -> int:
     # whatever their rank
     split_and_copy = {k: v for k, v in by_kernel.items()
                       if "split" in k.lower() or "index_elementwise" in k or "gpu_index" in k}
+    # the split loop's own kernels (csrc/partition.cu, grow_step.cu, the
+    # segment entry of histogram.cu)
+    loop_ms = {k: v for k, v in by_kernel.items() if any(
+        n in k for n in ("count_kernel", "scan_kernel", "scatter_kernel", "pick_kernel",
+                         "subtract_kernel", "hist_segment_kernel"))}
+    # no copy per split: the leaf values up, the packed tree down
+    assert copies["HtoD"] <= 4 and copies["DtoH"] <= 4, copies
     # the profiler's host-side tracing slows the profiled iteration many
     # times over, so the idle share is taken against phase 4's unprofiled
     # iteration time
@@ -425,7 +475,193 @@ def main() -> int:
     say("profile", profiled_iteration_wall_ms=wall_ms, unprofiled_iteration_ms=iter_ms,
         device_busy_ms=busy_ms,
         device_idle_share=(1 - busy_ms / iter_ms) if busy_ms else "not measured",
-        top_device_ms_and_calls=top, split_and_copy_ms_and_calls=split_and_copy)
+        memcpy_calls=copies, top_device_ms_and_calls=top,
+        split_and_copy_ms_and_calls=split_and_copy, split_loop_ms_and_calls=loop_ms)
+
+    # ---- 4b. the two split loops, paired ------------------------------------------
+    g0 = booster._gbdt
+    loop_args = (g0.bins_dev, g0.feature_mask, g0.feature_meta, TRAIN_PARAMS["num_leaves"],
+                 g0.config.max_depth, g0.num_bins, g0.split_params, g0._two_way)
+
+    def grow_with(loop, grad_, hess_, state=None):
+        bins_, mask_, meta_, M_, depth_, B_, params_, two_way_ = loop_args
+        args_ = (bins_, grad_, hess_, mask_, meta_, M_, depth_, B_, params_, two_way_)
+        if loop == "host":
+            return grow_mod.grow_tree(*args_, bins_nf=g0.bins_nf) + (state,)
+        return grow_mod.grow_tree_device(*args_, bins_nf=g0.bins_nf, state=state)
+
+    # dyadic gradients (multiples of 2^-10): both loops must grow the same
+    # tree bit for bit, in turns host, device, device, host
+    dy_grad = dyq_vals[:, 0].contiguous()
+    dy_hess = dyq_vals[:, 1].contiguous()
+    state = None
+    trees = []
+    for loop in ("host", "device", "device", "host"):
+        tree, leaf_id, state = grow_with(loop, dy_grad, dy_hess, state)
+        trees.append((tree, leaf_id))
+    for tree, leaf_id in trees[1:]:
+        for name in tree._fields:
+            assert torch.equal(getattr(tree, name), getattr(trees[0][0], name)), ("loops differ", name)
+        assert torch.equal(leaf_id, trees[0][1]), "loops differ: leaf_id"
+    dyadic_leaves = int(trees[0][0].num_leaves)
+
+    # the device loop from the root to the readback makes no synchronizing call
+    real_grad, real_hess = g0.objective.get_gradients(g0.scores[0])
+    grow_args = (g0.bins_dev, real_grad, real_hess, g0.feature_mask, g0.feature_meta,
+                 g0.config.max_depth, g0.split_params, g0._two_way, g0.bins_nf)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grow_mod.launch_tree(state, *grow_args)
+        grow_mod.leaf_ids(state)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(grow_mod.read_tree(state).num_leaves) > 1
+
+    # real gradients: one tree a turn, host, device, device, host, twice
+    tree_ms = {"host": [], "device": []}
+    enqueue_ms = []
+    splits = {}
+    for _ in range(2):
+        for loop in ("host", "device", "device", "host"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if loop == "device":
+                grow_mod.launch_tree(state, *grow_args)
+                enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+                leaf_id = grow_mod.leaf_ids(state)
+                tree = grow_mod.read_tree(state)
+            else:
+                tree, leaf_id, _ = grow_with(loop, real_grad, real_hess)
+            torch.cuda.synchronize()
+            tree_ms[loop].append((time.perf_counter() - t0) * 1e3)
+            splits[loop] = int(tree.num_leaves) - 1
+    # the host's own cost of a step: a loop stopped from the root (no split
+    # has min_data_in_leaf rows a side), whose kernels all return at once
+    stopped = g0.split_params._replace(min_data_in_leaf=N)
+    idle_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grow_mod.launch_tree(state, *grow_args[:6], stopped, *grow_args[7:])
+        torch.cuda.synchronize()
+        idle_ms.append((time.perf_counter() - t0) * 1e3)
+    assert int(state.ctl[gs.NUM_LEAVES]) == 1
+    M = state.M
+
+    # training, paired in turns: device, host, host, device (10 iterations
+    # each); each booster's AUC at 10 iterations, where phase 4 stopped
+    turn_boosters = {}
+    for loop in ("device", "host"):
+        turn_boosters[loop] = lgb.Booster(dict(TRAIN_PARAMS), train_set)
+        turn_boosters[loop]._gbdt.grow_loop = loop
+    turn_ips = {"device": [], "host": []}  # iterations/s of each turn
+    auc10 = {}
+    for loop in ("device", "host", "host", "device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            turn_boosters[loop].update()
+        torch.cuda.synchronize()
+        turn_ips[loop].append(10 / (time.perf_counter() - t0))
+        if loop not in auc10:
+            (_, _, auc10[loop], _), = turn_boosters[loop].eval_train()
+    assert abs(auc - auc10["host"]) <= 2e-3, ("device loop AUC off the host loop's", auc, auc10)
+    del turn_boosters
+
+    # each kernel of a step against its plain version at the main path's
+    # first step (the 1M-row root split), then timed from the same state
+    s = gs.GrowState(dev, N, F, B, M)
+    grow_mod.start_tree(s, *grow_args)
+    step_kernels = (
+        ("grow_step", grow_step_kernel.pick, grow_step_plain.pick),
+        ("partition", partition_kernel.partition, partition_plain.partition),
+        ("histogram_segment", hist_kernel.histogram_segment, segment_histogram),
+        ("hist_subtract", grow_step_kernel.subtract, grow_step_plain.subtract),
+        ("split_pair_step", lambda st: split_kernel.split_pair_step(st, 2),
+         lambda st: split_pair_step_plain(st, 2)),
+    )
+    step_t = {}
+
+    def small_rows(st):
+        """The rows of the step's smaller child."""
+        leaf = int(st.ctl[gs.SMALL])
+        b0 = int(st.leaf_begin[leaf])
+        return st.order[b0:b0 + int(st.leaf_count[leaf])]
+
+    def small_err(st, want):
+        """err_over_bound of the state's smaller-child histogram against ``want``."""
+        abs_sum = leaf_histogram(st.hist_bins, st.values.abs(), B, small_rows(st), st.hist_dtype)
+        return err_over_bound(st.small, want, abs_sum)
+
+    for name, kernel, plain in step_kernels:
+        before = s.clone()
+        other = s.clone()
+        kernel(s)
+        plain(other)
+        err = 0.0
+        for k in gs.GrowState.STATE:
+            a, b = getattr(s, k), getattr(other, k)
+            if name == "histogram_segment" and k == "small":  # real values: two orders
+                ratio, err = small_err(s, b)
+                assert ratio <= 1.0, (name, err, ratio)
+            else:
+                assert torch.equal(a, b), ("kernel != plain", name, k)
+        after = s.clone()
+
+        def restore(dst, src=before):
+            for k in gs.GrowState.STATE:
+                getattr(dst, k).copy_(getattr(src, k))
+        copy = before.clone()
+        step_t[name] = dict(
+            ms=time_ms(lambda: kernel(s), setup=lambda: restore(s)),
+            plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: restore(copy)),
+            max_abs_err=err,
+        )
+        restore(s, after)
+    n_small = int(small_rows(s).numel())
+    cells = F * B * 3
+    step_t["grow_step"].update(zip(("bound_ms", "bound_by"), bound(M * 4 + 320, 0)))
+    step_t["partition"].update(zip(("bound_ms", "bound_by"), bound(N * 9, 0)))
+    step_t["histogram_segment"].update(zip(("bound_ms", "bound_by"), bound(
+        n_small * (F + 16) + cells * 4, 3 * n_small * F)))
+    step_t["hist_subtract"].update(zip(("bound_ms", "bound_by"), bound(4 * cells * 4, cells)))
+    step_t["split_pair_step"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * cells * 4 + 2 * 21 * 4 + F * 17, 2 * F * B * 60)))
+    # one index_add_ over the small child's rows: the segment entry's yardstick
+    child_rows = small_rows(s).long()
+    child_idx = (hist_bins[:, child_rows].long() + torch.arange(F, device=dev)[:, None] * B).reshape(-1)
+    child_vals = s.values[child_rows].repeat(F, 1)
+    child_acc = torch.zeros((F * B, 3), device=dev)
+
+    def child_library():
+        child_acc.zero_()
+        child_acc.index_add_(0, child_idx, child_vals)
+    step_t["histogram_segment"]["library_ms"] = time_ms(child_library)
+    for name in ("grow_step", "partition", "hist_subtract", "split_pair_step"):
+        step_t[name]["library_ms"] = None
+    # the segment entry in bf16 on the same rows
+    s.hist_dtype = "bfloat16"
+    s.args.pop("histogram_segment")
+    s.small.zero_()
+    hist_kernel.histogram_segment(s)
+    ratio, bf16_err = small_err(s, leaf_histogram(s.hist_bins, s.values, B, small_rows(s), "bfloat16"))
+    assert ratio <= 1.0, ("histogram_segment bf16", bf16_err, ratio)
+    step_t["histogram_segment_bf16"] = dict(
+        step_t["histogram_segment"], max_abs_err=bf16_err,
+        ms=time_ms(lambda: hist_kernel.histogram_segment(s), setup=lambda: s.small.zero_()),
+        plain_ms=time_ms(lambda: segment_histogram(s), reps=3))
+    del s, child_rows, child_idx, child_vals, child_acc
+    say("loops", dyadic_trees_equal=True, dyadic_leaves=dyadic_leaves, sync_free=True,
+        tree_ms=tree_ms, splits=splits,
+        device_enqueue_us_per_split=[t * 1e3 / splits["device"] for t in enqueue_ms],
+        host_loop_us_per_split=[t * 1e3 / splits["host"] for t in tree_ms["host"]],
+        stopped_loop_us_per_step=[t * 1e3 / (M - 1) for t in idle_ms],
+        training_iterations_per_s=turn_ips, auc_at_10=auc10, phase4_auc=auc,
+        # the profiled iteration's busy time against a paired device turn's iteration
+        device_idle_share=[1 - busy_ms * ips / 1e3 for ips in turn_ips["device"]]
+        if busy_ms else "not measured",
+        root_step=dict(small_child_rows=n_small, **step_t))
 
     def hold_calls():
         """Hold every call of each histogram kernel wrapper to its plain
@@ -444,8 +680,8 @@ def main() -> int:
             held["worst_err_over_bound"] = max(held["worst_err_over_bound"], ratio)
 
         def rows_call(name):
-            def call(bins_, values, num_bins, rows=None, hist_dtype="float32"):
-                got = orig[name](bins_, values, num_bins, rows, hist_dtype)
+            def call(bins_, values, num_bins, rows=None, hist_dtype="float32", **kw):
+                got = orig[name](bins_, values, num_bins, rows, hist_dtype, **kw)
                 check(name, got, lambda v: plains[name](bins_, v, num_bins, rows, hist_dtype), values)
                 return got
             return call
@@ -453,6 +689,19 @@ def main() -> int:
         # the packed form (pack4's input) goes through hist_packed4_rows too
         for name in plains:
             setattr(hist_kernel, name, rows_call(name))
+        # the device loop's segment entry: its rows read back from the state
+        orig["histogram_segment"] = hist_kernel.histogram_segment
+        held["checked"]["histogram_segment"] = 0
+
+        def segment_call(st):
+            orig["histogram_segment"](st)
+            if int(st.ctl[gs.ACTIVE]):
+                leaf = int(st.ctl[gs.SMALL])
+                b0, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
+                rows = st.order[b0:b0 + cnt]
+                check("histogram_segment", st.small,
+                      lambda v: leaf_histogram(st.hist_bins, v, st.B, rows, st.hist_dtype), st.values)
+        hist_kernel.histogram_segment = segment_call
 
         def release():
             for name, fn in orig.items():
@@ -465,7 +714,7 @@ def main() -> int:
     release = hold_calls()  # every histogram call of the CUDA run held to its plain version
     on_gpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cuda")
     held5 = release()
-    assert held5["checked"]["histogram"] > 0, held5
+    assert held5["checked"]["histogram"] > 0 and held5["checked"]["histogram_segment"] > 0, held5
     on_cpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cpu")
 
     def same_trees(base, other, rtol=1e-5):
@@ -855,7 +1104,8 @@ def main() -> int:
                 kind, mb, dt, auc_b)
             aucs.append(auc_b)
         auc_r = aucs[1]
-        rec = dict(kind=kind, max_bin=mb, num_bins=widths[mb], hist_dtype=dt, seconds=secs,
+        rec = dict(kind=kind, max_bin=mb, num_bins=widths[mb], hist_dtype=dt,
+                   grow_loop=bst._gbdt.grow_loop, seconds=secs,
                    iterations_per_s=10 / secs, auc=aucs[0], held_run_auc=auc_r, launches=got,
                    held_calls=held, route_digest=bst._gbdt.hist_route.digest)
         if dt == "float32" and mb in defaults:
@@ -910,6 +1160,23 @@ def main() -> int:
                 ms=r["root_ms"], plain_ms=r["root_plain_ms"], bound_ms=r["root_bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
             ))
+    # the split loop's kernels and entries, timed at the main path's root step (phase 4b)
+    loop_sources = {
+        "partition": ("partition.cu", "lightgbm_tpu/ops/grow.py:439"),
+        "grow_step": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1277"),
+        "hist_subtract": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1421"),
+        "histogram_segment": ("histogram.cu", sources["histogram"][1]),
+        "histogram_segment_bf16": ("histogram.cu", sources["histogram"][1]),
+        "split_pair_step": ("split_pair.cu", "lightgbm_tpu/ops/split_pallas.py:221"),
+    }
+    for name, (src, rep) in loop_sources.items():
+        t = step_t[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="lightgbm_tpu_torch/csrc/" + src, replaces=rep,
+            launches=main_launches.get(name, 0), max_abs_err=t["max_abs_err"], ms=t["ms"],
+            plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"],
+        ))
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

@@ -1,0 +1,145 @@
+"""Training throughput of the port on the ``bench.py`` shape, both split loops
+paired in one process.
+
+    python -m lightgbm_tpu_torch.bench [--rows 1000000] [--iters 10]
+        [--pairs 2] [--warmup 3] [--device cuda] [--out results.json]
+
+Trains binary GBDT on ``make_higgs_like(rows, 28)`` (helpers/bench_data.py,
+the data of ``bench.py``) with num_leaves=255, max_bin=255,
+learning_rate=0.1: one booster grows its trees with the device-resident
+split loop (ops/grow.py ``grow_tree_device``), another with the host loop
+(``grow_tree``). After ``warmup`` iterations each (which build and load the
+kernels), they take turns of ``iters`` iterations, device, host, host,
+device, ``pairs`` times, each turn timed on the host clock from a
+synchronise to a synchronise: iterations per second spread 30-50% inside
+one process, so only turns of one call compare. Binning is set-up and not
+timed.
+
+Prints ONE JSON line, the line of ``bench.py``: ``metric``, ``value`` (the
+median over the device loop's turns, the loop training takes on this shape),
+``unit``, ``vs_baseline`` (value over LightGBM on the CPU, below), plus the
+host loop's median, every turn, each booster's training AUC, the card's
+name and power limit, and the settings. Exits 2 with the line's value 0.0
+and an ``error`` when the device asked for is not there.
+
+Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
+iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
+training is linear in rows, so 22.0 iterations/s at 1M rows (``bench.py``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from typing import Dict, List
+
+BASELINE_ITERS_PER_SEC_1M = 2.096 * 10.5
+METRIC_NAME = "higgs1m_boost_iters_per_sec"
+UNIT = "iters/s (binary, 1M x 28, 255 leaves, 255 bins)"
+FEATURES = 28
+PARAMS = {
+    "objective": "binary", "metric": "auc", "num_leaves": 255, "max_bin": 255,
+    "learning_rate": 0.1, "verbose": -1,
+}
+LOOPS = ("device", "host")
+
+
+def _line(value: float, **extra) -> str:
+    line = {"metric": METRIC_NAME, "value": value, "unit": UNIT,
+            "vs_baseline": value / BASELINE_ITERS_PER_SEC_1M}
+    line.update(extra)
+    return json.dumps(line)
+
+
+def card_name_and_limit() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card, or why not."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError) as exc:
+        return "nvidia-smi unavailable (%s)" % exc
+    return out[0] if out else "nvidia-smi unavailable"
+
+
+def paired_turns(train_set, iters: int, pairs: int, warmup: int, device: str) -> Dict:
+    """Two boosters on ``train_set``, one a split loop, in turns of
+    ``iters`` timed iterations (device, host, host, device per pair) after
+    ``warmup`` each. Returns every turn's iterations/s by loop, the boosters
+    and the median of each loop."""
+    import torch
+
+    import lightgbm_tpu_torch as lgb
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    boosters = {}
+    for loop in LOOPS:
+        b = lgb.Booster(dict(PARAMS), train_set, device=device)
+        b._gbdt.grow_loop = loop
+        for _ in range(warmup):
+            b.update()
+        boosters[loop] = b
+    turns: Dict[str, List[float]] = {loop: [] for loop in LOOPS}
+    for _ in range(pairs):
+        for loop in ("device", "host", "host", "device"):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                boosters[loop].update()
+            sync()
+            turns[loop].append(iters / (time.perf_counter() - t0))
+    return {"turns": turns, "boosters": boosters,
+            "median": {loop: statistics.median(v) for loop, v in turns.items()}}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--iters", type=int, default=10, help="timed iterations a turn")
+    ap.add_argument("--pairs", type=int, default=2, help="device, host, host, device turns")
+    ap.add_argument("--warmup", type=int, default=3, help="untimed iterations a booster")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default="", help="also write the line and the turns here")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print(_line(0.0, error="torch.cuda.is_available() is False; pass --device cpu"))
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from helpers.bench_data import make_higgs_like
+
+    import lightgbm_tpu_torch as lgb
+
+    X, y = make_higgs_like(args.rows, FEATURES)
+    train_set = lgb.Dataset(X, label=y)
+    run = paired_turns(train_set, args.iters, args.pairs, args.warmup, args.device)
+    aucs = {}
+    for loop, b in run["boosters"].items():
+        (_, _, aucs[loop], _), = b.eval_train()
+    card = card_name_and_limit() if args.device == "cuda" else "cpu"
+    kind = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    med = run["median"]
+    line = _line(
+        med["device"], host_loop_iters_per_sec=med["host"],
+        device_over_host=med["device"] / med["host"], turns=run["turns"], auc=aucs,
+        rows=args.rows, iters_per_turn=args.iters, pairs=args.pairs, device=kind, card=card,
+    )
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

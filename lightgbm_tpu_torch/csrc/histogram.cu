@@ -51,6 +51,17 @@
 // the design cuts the flush, the waits on loads and the idle SMs, not the
 // count of shared adds.
 //
+// Two entries share the block's work (hist_block). lgbt_histogram takes
+// its rows and grid from the host (the root, and every call of the host
+// split loop). lgbt_histogram_segment serves the device-resident split
+// loop (ops/grow.py grow_tree_device): it reads the smaller child's leaf
+// index, begin and count from device memory, takes a grid fixed once a
+// tree (the most chunks any segment can need) and derives the chunking of
+// histogram_grid from the count on the device; blocks past the segment's
+// chunks return at once. Its "one chunk stores outright" test is that
+// device-side chunk count, and with more chunks it adds into the loop's
+// scratch, which hist_subtract (csrc/grow_step.cu) leaves zeroed.
+//
 // Sums are f32 in an order set by the atomics, so they differ between runs
 // in the last bits; on values that are dyadic rationals with small exponents
 // every order gives the same bits. The count channel is a sum of the mask
@@ -71,22 +82,28 @@ constexpr int kG = 4;                      // features per block
 constexpr int kRows = 4;                   // rows per thread per step
 constexpr int kStep = kThreads * kRows;    // rows per block per step
 constexpr int kMaxBins = 336;
+// the chunking of ops/hist_kernel.py histogram_grid: chunks of a multiple
+// of kStep rows, at most kMaxChunk, aimed at kBlocksPerSm blocks an SM
+constexpr long long kMaxChunk = 65536;
+constexpr int kBlocksPerSm = 4;
+constexpr int kActive = 0, kSmall = 5;  // slots of the loop's control vector (ops/grow_state.py)
 
 template <bool kBf16>
 __device__ __forceinline__ float operand(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// The block's work, shared by both entries: feature group ``group`` over
+// rows [chunk * rows_per_block, +rows_per_block) of the n rows (rows[i], or
+// i when rows is null). ``owns``: the block is its group's only chunk, so
+// it stores every cell of the group instead of adding into the output.
 // kWord: the kG bins of a row are one aligned 32-bit word (see the header).
 template <bool kBf16, bool kWord>
-__global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
-            long long stride_n, const float* __restrict__ values,
-            const int* __restrict__ rows, long long n, int F, int B,
-            long long rows_per_block, int groups, float* __restrict__ out) {
+__device__ __forceinline__ void hist_block(
+    const uint8_t* __restrict__ bins, long long stride_f, long long stride_n,
+    const float* __restrict__ values, const int* __restrict__ rows, long long n, int F, int B,
+    long long rows_per_block, int group, long long chunk, bool owns, float* __restrict__ out) {
   __shared__ float cells[kG * kMaxBins * 3];  // [kG, B, 3]
-  const int group = blockIdx.x % groups;
-  const long long chunk = blockIdx.x / groups;
   const int f0 = group * kG;
   const int nf = min(kG, F - f0);
   for (int i = threadIdx.x; i < kG * B * 3; i += kThreads) cells[i] = 0.0f;
@@ -138,7 +155,7 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
 
   float* o = out + (long long)f0 * B * 3;
   const int mine = nf * B * 3;
-  if (gridDim.x == (unsigned)groups) {  // one chunk: the block owns its cells
+  if (owns) {  // one chunk: the block owns its cells
     for (int i = threadIdx.x; i < mine; i += kThreads) o[i] = cells[i];
   } else {
     for (int i = threadIdx.x; i < mine; i += kThreads) {
@@ -147,6 +164,49 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
     }
   }
 }
+
+template <bool kBf16, bool kWord>
+__global__ void __launch_bounds__(kThreads)
+hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
+            long long stride_n, const float* __restrict__ values,
+            const int* __restrict__ rows, long long n, int F, int B,
+            long long rows_per_block, int groups, float* __restrict__ out) {
+  hist_block<kBf16, kWord>(bins, stride_f, stride_n, values, rows, n, F, B, rows_per_block,
+                           blockIdx.x % groups, blockIdx.x / groups,
+                           gridDim.x == (unsigned)groups, out);
+}
+
+// The segment entry of the device-resident split loop: the rows are
+// order[begin, begin + count) of leaf ctl[kSmall], all three read from
+// device memory, and the chunking is ops/hist_kernel.py histogram_grid's,
+// derived here from that count. The grid is fixed by the caller (groups x
+// the most chunks any segment of the run can need); blocks past this
+// segment's chunks return at once, and so does every block once the loop
+// has stopped (ctl[kActive] == 0). One chunk stores its group's cells
+// outright; more add into ``out``, which the caller keeps zeroed.
+template <bool kBf16, bool kWord>
+__global__ void __launch_bounds__(kThreads)
+hist_segment_kernel(const uint8_t* __restrict__ bins, long long stride_f,
+                    long long stride_n, const float* __restrict__ values,
+                    const int* __restrict__ order, const int* __restrict__ ctl,
+                    const int* __restrict__ leaf_begin, const int* __restrict__ leaf_count,
+                    int F, int B, int groups, int num_sms, float* __restrict__ out) {
+  if (!ctl[kActive]) return;
+  const int leaf = ctl[kSmall];
+  const long long n = leaf_count[leaf];
+  const long long slots = (long long)kBlocksPerSm * num_sms;
+  const long long want = (n * groups + slots - 1) / slots;
+  const long long rows_per_block =
+      min(max((want + kStep - 1) / kStep * kStep, (long long)kStep), kMaxChunk);
+  const long long chunks = (n + rows_per_block - 1) / rows_per_block;
+  const long long chunk = blockIdx.x / groups;
+  if (chunk >= chunks) return;
+  hist_block<kBf16, kWord>(bins, stride_f, stride_n, values, order + leaf_begin[leaf], n, F,
+                           B, rows_per_block, blockIdx.x % groups, chunk, chunks == 1, out);
+}
+
+template <bool kBf16, bool kWord>
+using Seg = decltype(&hist_segment_kernel<kBf16, kWord>);
 
 }  // namespace
 
@@ -176,6 +236,32 @@ int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
   kern<<<(unsigned)(groups * chunks), kThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
       (const int*)rows, n, F, B, rows_per_block, (int)groups, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// The segment entry (hist_segment_kernel): out [F, B, 3], zeroed by the
+// caller, receives the histogram of order[leaf_begin[l] : + leaf_count[l]]
+// for the leaf l = ctl[5], all read from device memory; nothing once ctl[0]
+// is 0. The grid is ceil(F / 4) x max_chunks blocks, max_chunks the most
+// chunks a segment of the run can need (ops/hist_kernel.py
+// segment_max_chunks); num_sms sets the chunking as histogram_grid's does.
+int lgbt_histogram_segment(const void* bins, long long stride_f, long long stride_n,
+                           const void* values, const void* order, const void* ctl,
+                           const void* leaf_begin, const void* leaf_count, int F, int B,
+                           int bf16, int num_sms, int max_chunks, void* out, void* stream) {
+  if (F <= 0) return (int)cudaSuccess;
+  if (B < 1 || B > kMaxBins || num_sms < 1 || max_chunks < 1) return (int)cudaErrorInvalidValue;
+  const long long groups = (F + kG - 1) / kG;
+  if (groups * max_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool word = stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 &&
+                    ((uintptr_t)bins & 3) == 0;
+  Seg<false, false> kern =
+      bf16 ? (word ? &hist_segment_kernel<true, true> : &hist_segment_kernel<true, false>)
+           : (word ? &hist_segment_kernel<false, true> : &hist_segment_kernel<false, false>);
+  kern<<<(unsigned)(groups * max_chunks), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, stride_f, stride_n, (const float*)values, (const int*)order,
+      (const int*)ctl, (const int*)leaf_begin, (const int*)leaf_count, F, B, (int)groups,
+      num_sms, (float*)out);
   return (int)cudaGetLastError();
 }
 

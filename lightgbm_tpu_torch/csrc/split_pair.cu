@@ -44,6 +44,14 @@
 //    between calls, so calls that share it must run in order: every caller
 //    in the port launches on the device's one current stream.
 //
+// The device-indexed entry (lgbt_split_pair_dev, split_pair_kernel<true>)
+// serves the device-resident split loop: it reads the two children's leaf
+// indices from the loop's control vector, their sums and monotone windows
+// from laux and their depth from leaf_i, applies the max_depth gate, and
+// writes the records straight into the loop's best_f / best_i rows. Once
+// the loop has stopped, every block returns before it draws a ticket, so
+// the counters stay 0.
+//
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
 
@@ -169,10 +177,25 @@ __device__ __forceinline__ void fold_channel(float* row, int B) {
   }
 }
 
+// Where the device-indexed entry (kDev) reads its leaves and writes its
+// records: the split loop's state (ops/grow_state.py).
+struct LoopState {
+  const int* ctl;        // control vector: [kActive] the loop runs, [kBest] / [kNew] the children
+  const float* laux;     // [M, 5] per leaf: sum_grad, sum_hess, count, monotone min, max
+  const int* leaf_i;     // [M, 2] per leaf: parent, depth
+  int max_depth;         // <= 0: no limit
+};
+constexpr int kActive = 0, kBest = 3, kNew = 4;  // control slots
+
 // One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
 // incl. eps, left_c) and feat_i[c, f, :] = (t, default_left) of the
 // feature's best threshold; the last block of child c writes outf[c] and
-// outi[c] from them.
+// outi[c] from them. kDev: child c is leaf ctl[kBest] (c = 0) or ctl[kNew]
+// (c = 1), its sums and window come from laux, its record goes to row
+// leaf of outf [M, 9] / outi [M, 4] with the gain -inf at a depth >=
+// max_depth (the max_depth gate of ops/grow.py), and once ctl[kActive] is
+// 0 every block returns before it draws a ticket, so count stays 0.
+template <bool kDev>
 __global__ void __launch_bounds__(kThreads)
 split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
                   const float* __restrict__ sums, const float* __restrict__ cons,
@@ -180,14 +203,18 @@ split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
                   const int* __restrict__ default_bin_a, const int* __restrict__ mono_a,
                   const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
                   float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
-                  Params p, int two_way) {
+                  Params p, int two_way, LoopState ls) {
   __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
   __shared__ float red_g[2][kWarps];
   __shared__ int red_t[2][kWarps];
   __shared__ bool last;
+  if (kDev && !ls.ctl[kActive]) return;
   const int f = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int leaf = c == 0 ? leaf0 : leaf1;
+  const int leaf = kDev ? ls.ctl[c == 0 ? kBest : kNew] : (c == 0 ? leaf0 : leaf1);
+  // the child's sums and window: [3] and [2] floats
+  const float* sc = kDev ? ls.laux + leaf * 5 : sums + c * 3;
+  const float* cc = kDev ? ls.laux + leaf * 5 + 3 : cons + c * 2;
   const float* h = hist + ((long long)leaf * F + f) * B * 3;
 
   // every read of device memory the block needs, issued together: none
@@ -201,8 +228,8 @@ split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
   const int num_bin = num_bin_a[f], miss = missing_a[f], dbin = default_bin_a[f];
   const int mono = mono_a[f];
   const bool use_feature = fmask[f];
-  const float sg = sums[c * 3], sh = sums[c * 3 + 1], nd = sums[c * 3 + 2];
-  const float min_c = cons[c * 2], max_c = cons[c * 2 + 1];
+  const float sg = sc[0], sh = sc[1], nd = sc[2];
+  const float min_c = cc[0], max_c = cc[1];
   const bool multi_bin = num_bin > 2;
   const bool use_na = miss == 2 && multi_bin;
   const bool skip_def = miss == 1 && multi_bin;
@@ -320,13 +347,15 @@ split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
   const float rg = sg - lg;
   const float rh = sh_eff - lh;
   const float rc = nd - lc;
-  float* o = outf + c * 9;
-  o[0] = has_split ? g_best - mgs : -INFINITY;
+  const int row = kDev ? leaf : c;
+  const bool gated = kDev && ls.max_depth > 0 && ls.leaf_i[leaf * 2 + 1] >= ls.max_depth;
+  float* o = outf + row * 9;
+  o[0] = has_split && !gated ? g_best - mgs : -INFINITY;
   o[1] = lg; o[2] = lh - eps; o[3] = lc;
   o[4] = rg; o[5] = rh - eps; o[6] = rc;
   o[7] = leaf_output_constrained(lg, lh, p, min_c, max_c);
   o[8] = leaf_output_constrained(rg, rh, p, min_c, max_c);
-  int* oi = outi + c * 4;
+  int* oi = outi + row * 4;
   oi[0] = has_split ? fb : -1;
   oi[1] = rec_i.x;
   oi[2] = 0;
@@ -352,11 +381,35 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
                     int two_way, void* stream) {
   if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
-  split_pair_kernel<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+  split_pair_kernel<false><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
       (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
       (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
-      (int*)count, F, B, p, two_way);
+      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0});
+  return (int)cudaGetLastError();
+}
+
+// The device-indexed entry of the split loop: C = 1 scans leaf ctl[3] (the
+// root), C = 2 the children ctl[3] and ctl[4] of the step's split, all read
+// from device memory with their sums and windows from laux [M, 5] f32 and
+// their depth from leaf_i [M, 2] int32; each record goes to the leaf's row
+// of best_f [M, 9] / best_i [M, 4], its gain -inf at a depth >= max_depth
+// (> 0). Nothing runs once ctl[0] is 0. The other arguments are
+// lgbt_split_pair's.
+int lgbt_split_pair_dev(const void* hist, const void* ctl, const void* laux, const void* leaf_i,
+                        int max_depth, const void* num_bin, const void* missing,
+                        const void* default_bin, const void* mono, const void* fmask,
+                        void* feat_f, void* feat_i, void* best_f, void* best_i, void* count,
+                        int C, int F, int B, float l1, float l2, float max_delta_step,
+                        float min_data, float min_hess, float min_gain, int two_way,
+                        void* stream) {
+  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
+  split_pair_kernel<true><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
+      (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,
+      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way,
+      LoopState{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth});
   return (int)cudaGetLastError();
 }
 

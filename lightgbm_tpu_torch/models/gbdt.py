@@ -4,7 +4,12 @@ Counterpart of lightgbm_tpu/models/gbdt.py for one slice of it: the serial
 learner, binary objective, no bagging, all features, f32 or bf16 histogram
 operands (``tpu_hist_dtype``), and measured histogram routing: the tune
 table named by ``hist_tune`` or LIGHTGBM_TPU_HIST_TUNE is frozen once at
-set-up into a ``HistRoute`` (``_resolve_hist_route``). Per iteration: the
+set-up into a ``HistRoute`` (``_resolve_hist_route``). The split loop is
+chosen once at set-up too (``grow_loop``): the device-resident loop
+(ops/grow.py ``grow_tree_device``) when that route sends every row class
+to ``cuda``, which it always does on CUDA without a table
+(``device_loop_routable``); else the host loop (``grow_tree``), which
+routes each call. Per iteration: the
 boost-from-average init score on the first one (gbdt.cpp:308-331),
 objective gradients at the current scores, one grown tree
 (ops/grow.py), shrinkage, and the score update through the per-row leaf
@@ -28,7 +33,7 @@ from ..metric import Metric
 from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
 from ..ops import hist_kernel
-from ..ops.grow import TreeArrays, grow_tree
+from ..ops.grow import TreeArrays, device_loop_routable, grow_tree, grow_tree_device
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw
 from ..ops.split import SplitParams
@@ -137,6 +142,11 @@ class GBDT:
         # (N * F / 2 bytes), made once here rather than on every call
         self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.num_bins <= 16 else None
         self.hist_route = self._resolve_hist_route()
+        #: "device" (grow_tree_device) or "host" (grow_tree); a dispatch on
+        #: the frozen route, fixed here. Tools that time both loops set it.
+        self.grow_loop = "device" if device_loop_routable(
+            self.num_data, self.num_bins, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
+        self._grow_state = None  # the device loop's buffers, kept between trees
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
         self.split_params = SplitParams(
             lambda_l1=cfg.lambda_l1,
@@ -189,6 +199,15 @@ class GBDT:
 
     def _train_tree(self, grad: torch.Tensor, hess: torch.Tensor):
         cfg = self.config
+        if self.grow_loop == "device":
+            tree, leaf_id, self._grow_state = grow_tree_device(
+                self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
+                num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
+                num_bins=self.num_bins, params=self.split_params,
+                two_way=self._two_way, bins_nf=self.bins_nf,
+                hist_dtype=cfg.tpu_hist_dtype, state=self._grow_state,
+            )
+            return tree, leaf_id
         return grow_tree(
             self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,

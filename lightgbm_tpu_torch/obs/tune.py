@@ -186,20 +186,27 @@ class CudaTimer:
     Before each timed call a 64 MB buffer is zeroed (more than the 50 MB L2,
     so inputs come from device memory as in the grower) and a ~1 ms spin
     kernel keeps the card busy while the host enqueues the call, so launch
-    overhead stays out of the time."""
+    overhead stays out of the time. ``setup``, when given, runs before each
+    call and before the flush, untimed: it restores what a call that
+    changes its own inputs changed."""
 
     def __init__(self, device) -> None:
         import torch
 
         self._flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
 
-    def __call__(self, fn: Callable[[], object], reps: int = 10) -> float:
+    def __call__(self, fn: Callable[[], object], reps: int = 10,
+                 setup: Optional[Callable[[], object]] = None) -> float:
         import torch
 
+        if setup is not None:
+            setup()
         fn()
         torch.cuda.synchronize()
         times = []
         for _ in range(max(int(reps), 1)):
+            if setup is not None:
+                setup()
             self._flush.zero_()
             torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)

@@ -29,9 +29,11 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "histogram", "split_pair", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1",
+    "partition", "grow_step",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[tuple, object] = {}
 _lock = threading.Lock()
 
 
@@ -141,6 +143,18 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def entry(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu``, its ``argtypes`` set
+    and its result an int (a CUDA error code), looked up once."""
+    fn = _entries.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _entries[(name, symbol)] = fn
+    return fn
 
 
 def check(code: int, what: str) -> None:

@@ -14,17 +14,35 @@ Train, serial_tree_learner.cpp:173-237) for numerical, unbundled data:
  * monotone-constraint windows per leaf (serial_tree_learner.cpp:841-850)
    and ``max_depth``.
 
-The split loop runs on the host: per split it reads the partition's left
-count and the children's packed split records back (two small syncs), picks
-the best leaf with a host argmax, and wires the tree in host tensors. The
-histogram and the split scan are the hand-written kernels on CUDA tensors
-and their plain versions on CPU tensors (ops/hist_kernel.py,
-ops/split_kernel.py). Each histogram call is routed on its own shape: the
-root by ``rows_bucket(N)``, each smaller child by ``rows_bucket`` of its
-segment, through the run's frozen ``HistRoute`` and ``hist_dtype``
-(ops/hist_kernel.py ``routed_histogram``); at B <= 16 ``cuda_packed4`` reads
-the segment out of the nibble-packed copy made at set-up. The output is the
-JAX package's bin-space ``TreeArrays`` plus the per-row leaf index.
+Two split loops grow the same tree, bit for bit:
+
+ * ``grow_tree_device``, the device-resident loop, the counterpart of the
+   reference's one ``lax.while_loop`` (lightgbm_tpu/ops/grow.py:1877): the
+   loop's state lives in device memory for the whole tree
+   (ops/grow_state.py ``GrowState``), the host computes the root and then
+   launches the M - 1 steps without reading anything back, each step being
+   the pick and wiring (ops/grow_step_kernel.py ``pick``), the stable
+   partition (ops/partition_kernel.py), the smaller child's histogram
+   (ops/hist_kernel.py ``histogram_segment``), the subtraction
+   (``grow_step_kernel.subtract``) and both children's split scan
+   (ops/split_kernel.py ``split_pair_step``), every one reading its leaf
+   indices and bounds from the state. Once the best gain is not > 0 the
+   kernels of the later steps return at once. One device-to-host copy reads
+   the tree back at the end. Every histogram call is ``csrc/histogram.cu``.
+ * ``grow_tree``, the host loop: per split it reads the partition's left
+   count and the children's packed split records back (two small syncs),
+   picks the best leaf with a host argmax, and wires the tree in host
+   tensors. Each histogram call is routed on its own shape: the root by
+   ``rows_bucket(N)``, each smaller child by ``rows_bucket`` of its
+   segment, through the run's frozen ``HistRoute`` and ``hist_dtype``
+   (ops/hist_kernel.py ``routed_histogram``); at B <= 16 ``cuda_packed4``
+   reads the segment out of the nibble-packed copy made at set-up.
+
+models/gbdt.py takes the device loop when the run's route sends every row
+class to ``cuda`` (``device_loop_routable``), the host loop otherwise. The
+kernels run on CUDA tensors and their plain versions on CPU tensors, so
+both loops run on the CPU too. The output is the JAX package's bin-space
+``TreeArrays`` plus the per-row leaf index.
 """
 from __future__ import annotations
 
@@ -33,9 +51,11 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from . import hist_kernel, split_kernel
+from . import grow_state as gs
+from . import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
 from .histogram import leaf_values
-from .split import MISSING_NAN, MISSING_ZERO, SplitParams, calculate_leaf_output
+from .partition import stable_partition
+from .split import SplitParams, calculate_leaf_output
 
 
 class TreeArrays(NamedTuple):
@@ -62,16 +82,6 @@ class TreeArrays(NamedTuple):
 # packed record columns (ops/split.py BEST_F / BEST_I)
 _GAIN, _LG, _LH, _LC, _RG, _RH, _RC, _LO, _RO = range(9)
 _FEAT, _THR, _NCAT, _DL = range(4)
-
-
-def _go_left(col, threshold, default_left, missing, default_bin, nan_bin):
-    """Bin-space numerical decision (dense_bin.hpp Split)."""
-    go_left = col <= threshold
-    if missing == MISSING_ZERO:
-        go_left[col == default_bin] = default_left
-    elif missing == MISSING_NAN:
-        go_left[col == nan_bin] = default_left
-    return go_left
 
 
 def grow_tree(
@@ -149,15 +159,7 @@ def grow_tree(
 
         # ---- stable partition of the leaf's segment ----------------------
         b0, cnt = leaf_begin[best_leaf], leaf_phys[best_leaf]
-        seg = order[b0:b0 + cnt]
-        col = bins[f].index_select(0, seg)
-        gl = _go_left(
-            col, thr, bool(dl), int(meta_h["missing_type"][f]),
-            int(meta_h["default_bin"][f]), int(meta_h["num_bin"][f]) - 1,
-        )
-        left_rows, right_rows = seg[gl], seg[~gl]
-        left_phys = left_rows.numel()
-        order[b0:b0 + cnt] = torch.cat([left_rows, right_rows])
+        left_phys = stable_partition(order, bins, b0, cnt, f, thr, dl, meta_h)
 
         # ---- wire the tree ------------------------------------------------
         parent = int(leaf_i[best_leaf, 0])
@@ -238,3 +240,144 @@ def grow_tree(
         cat_member=node_b[: M - 1, 1:],
     )
     return tree, leaf_id
+
+
+def device_loop_routable(
+    N: int, num_bins: int, hist_dtype: str, route: Optional[hist_kernel.HistRoute],
+    device: torch.device,
+) -> bool:
+    """Does every histogram call of a run on ``device`` go to ``cuda``
+    (csrc/histogram.cu), the one kernel the device loop launches? True when
+    the router (:func:`~.hist_kernel.resolve_impl`) names ``cuda`` for every
+    row class of the N-row lattice at (``num_bins``, K = 3, ``hist_dtype``)
+    under the run's frozen ``route`` and the env override: always on CUDA
+    without a table, and on the CPU only when ``cuda`` is forced (its plain
+    version then runs)."""
+    return all(
+        hist_kernel.resolve_impl("auto", rows, num_bins, 3, hist_dtype, route, device.type)[0]
+        == "cuda"
+        for rows in hist_kernel.bucket_sizes(N)
+    )
+
+
+def start_tree(
+    s: gs.GrowState,
+    bins: torch.Tensor,
+    grad: torch.Tensor,
+    hess: torch.Tensor,
+    feature_mask: torch.Tensor,
+    feature_meta: Dict[str, torch.Tensor],
+    max_depth: int,
+    params: SplitParams,
+    two_way: bool = True,
+    bins_nf: Optional[torch.Tensor] = None,
+    hist_dtype: str = "float32",
+) -> None:
+    """Bind a tree's inputs to the state ``s``, reset it, and queue the
+    root: its histogram, its sums and leaf output, and (M > 1) its split
+    scan. Reads nothing back."""
+    N = s.N
+    hist_bins = bins_nf.t() if bins_nf is not None else bins
+    vals_all = leaf_values(grad, hess, torch.ones(N, dtype=torch.float32, device=s.device))
+    s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
+           hist_dtype)
+    s.reset()
+    root_hist = s.hist[0]
+    root_hist.zero_()
+    hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist)
+    root = torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()])
+    s.laux[0, :3] = root
+    s.leaf_f[0] = torch.stack([calculate_leaf_output(root[0], root[1], params), root[2], root[1]])
+    if s.M < 2:
+        return
+    split_kernel.split_pair_step(s, 1)
+
+
+def run_step(s: gs.GrowState) -> None:
+    """Queue one step of the loop: pick and wiring, partition, the smaller
+    child's histogram, the subtraction, both children's split scan. Every
+    kernel returns at once when the loop has stopped."""
+    grow_step_kernel.pick(s)
+    partition_kernel.partition(s)
+    hist_kernel.histogram_segment(s)
+    grow_step_kernel.subtract(s)
+    split_kernel.split_pair_step(s, 2)
+
+
+def launch_tree(s: gs.GrowState, *args, **kwargs) -> None:
+    """Queue one tree's split loop on the state ``s``, from the root
+    (:func:`start_tree`, which takes these arguments) to its M - 1 steps
+    (:func:`run_step`), reading nothing back. The state then holds the
+    tree."""
+    start_tree(s, *args, **kwargs)
+    for _ in range(s.M - 1):
+        run_step(s)
+
+
+def leaf_ids(s: gs.GrowState) -> torch.Tensor:
+    """Per-row leaf index [N] int64 from the segment layout, on the state's
+    device with no sync: the leaves in order of their begin, each repeated
+    over its count (``output_size`` N, so nothing sizes it on the host),
+    scattered to the rows of ``order``."""
+    by_begin = torch.argsort(s.leaf_begin)
+    pos_leaf = torch.repeat_interleave(by_begin, s.leaf_count[by_begin], output_size=s.N)
+    leaf_id = torch.empty(s.N, dtype=torch.int64, device=s.device)
+    return leaf_id.scatter_(0, s.order.long(), pos_leaf)
+
+
+def read_tree(s: gs.GrowState) -> TreeArrays:
+    """The grown tree as host TreeArrays, from one device-to-host copy of
+    the state's packed buffer."""
+    M, B = s.M, s.B
+    host = s.packed.to("cpu", copy=True)  # a copy on the CPU too: the state is reused
+    ctl, node_i, leaf_i, node_f, leaf_f = gs.unpack(host, M)
+    nl = int(ctl[gs.NUM_LEAVES])
+    cat_member = torch.zeros((M - 1, B), dtype=torch.bool)
+    splits = torch.arange(nl - 1)
+    cat_member[splits, node_i[: nl - 1, 1].long()] = True  # one-hot of each split's threshold
+    return TreeArrays(
+        num_leaves=torch.tensor(nl, dtype=torch.int32),
+        split_feature=node_i[: M - 1, 0],
+        threshold_bin=node_i[: M - 1, 1],
+        default_left=node_i[: M - 1, 4] != 0,
+        left_child=node_i[: M - 1, 2],
+        right_child=node_i[: M - 1, 3],
+        split_gain=node_f[: M - 1, 0],
+        internal_value=node_f[: M - 1, 1],
+        internal_count=node_f[: M - 1, 2],
+        leaf_value=leaf_f[:, 0],
+        leaf_count=leaf_f[:, 1],
+        leaf_weight=leaf_f[:, 2],
+        leaf_parent=leaf_i[:, 0],
+        leaf_depth=leaf_i[:, 1],
+        cat_member=cat_member,
+    )
+
+
+def grow_tree_device(
+    bins: torch.Tensor,  # [F, N] uint8
+    grad: torch.Tensor,  # [N] f32
+    hess: torch.Tensor,  # [N] f32
+    feature_mask: torch.Tensor,  # [F] bool
+    feature_meta: Dict[str, torch.Tensor],  # int32 [F]: num_bin/missing_type/default_bin/monotone
+    num_leaves: int,
+    max_depth: int,
+    num_bins: int,
+    params: SplitParams,
+    two_way: bool = True,
+    bins_nf: Optional[torch.Tensor] = None,  # [N, F] copy of bins for the histograms
+    hist_dtype: str = "float32",
+    state: Optional[gs.GrowState] = None,
+) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
+    """Grow one tree with the device-resident split loop; returns
+    (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
+    returned state back as ``state`` to reuse its buffers for the next tree
+    (a state of another shape is replaced). Takes the arguments of
+    :func:`grow_tree` but no route: every histogram call is ``cuda``."""
+    F, N = bins.shape
+    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves):
+        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves)
+    launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth, params,
+                two_way, bins_nf, hist_dtype)
+    leaf_id = leaf_ids(state)
+    return read_tree(state), leaf_id, state

@@ -1,0 +1,186 @@
+"""The device-resident state of one tree's split loop (ops/grow.py
+``grow_tree_device``).
+
+Counterpart of ``GrowState`` (lightgbm_tpu/ops/grow.py): every tensor the
+loop reads or writes between the root and the readback, preallocated once
+and reset on the device at the start of each tree, so that a split
+allocates nothing and the host reads nothing back until the tree is done.
+
+``ctl`` is the loop's control vector, int32 [CTL]; the kernels
+(csrc/partition.cu, csrc/grow_step.cu, csrc/histogram.cu's segment entry,
+csrc/split_pair.cu's device-indexed entry) name its slots by the same
+numbers:
+
+=========  =====================================================
+ACTIVE     1 while the loop runs; grow_step clears it to stop
+NUM_LEAVES leaves grown so far
+STEP       the node index of the next split
+BEST       the leaf being split (0 for the root's scan)
+NEW        the new leaf of the split (the right child)
+SMALL      the child whose histogram is built from its rows
+LARGE      the child whose histogram is the parent's minus SMALL's
+PBEGIN     the split segment's begin, count and left count,
+PCOUNT     written by the partition's scan for its scatter
+LEFT
+=========  =====================================================
+
+The tree's arrays and ``ctl`` share one int32 buffer, ``packed`` (the f32
+arrays are float views of it), so the readback is one device-to-host copy.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+
+ACTIVE, NUM_LEAVES, STEP, BEST, NEW, SMALL, LARGE, PBEGIN, PCOUNT, LEFT = range(10)
+CTL = 16
+
+#: rows of the partition's tiles (csrc/partition.cu kTile)
+PARTITION_TILE = 1024
+#: blocks an SM of the partition's grid-stride passes
+PARTITION_BLOCKS_PER_SM = 4
+_META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
+
+
+def unpack(packed: torch.Tensor, M: int):
+    """Views of the packed int32 buffer of an M-leaf state: ``ctl`` [CTL],
+    ``node_i`` [M, 5], ``leaf_i`` [M, 2], ``node_f`` [M, 3] f32 and
+    ``leaf_f`` [M, 3] f32."""
+    ctl, node_i, leaf_i, node_f, leaf_f = torch.split(packed, (CTL, 5 * M, 2 * M, 3 * M, 3 * M))
+    return (ctl, node_i.view(M, 5), leaf_i.view(M, 2), node_f.view(torch.float32).view(M, 3),
+            leaf_f.view(torch.float32).view(M, 3))
+
+
+class GrowState:
+    """Preallocated state of the split loop for trees of ``num_leaves``
+    leaves over ``N`` rows of ``F`` features with ``B`` bins on ``device``.
+
+    Tree arrays (layout of ops/grow.py ``TreeArrays``): ``node_i`` [M, 5]
+    int32 (feature, threshold, left, right, default_left), ``node_f`` [M, 3]
+    f32 (split_gain, internal_value, internal_count), ``leaf_f`` [M, 3] f32
+    (value, count, weight), ``leaf_i`` [M, 2] int32 (parent, depth). Loop
+    state: ``best_f`` [M, 9] f32 and ``best_i`` [M, 4] int32 (each leaf's
+    best split record), ``laux`` [M, 5] f32 (sum_grad, sum_hess, count,
+    monotone min, max), ``leaf_begin`` / ``leaf_count`` [M] int32 (each
+    leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
+    f32 and ``small`` [F, B, 3] f32 (the smaller child's histogram, zero
+    between steps). Scratch of the kernels: ``scratch`` [N] int32 and
+    ``flags`` [N] uint8 (the partition's copy of the segment and its
+    decisions), ``tiles`` (its tiles' left counts), ``feat_f`` / ``feat_i``
+    (the split scan's per-feature records)."""
+
+    #: the tensors that hold the loop's result (not the kernels' scratch)
+    STATE = ("packed", "best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
+             "small")
+
+    def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int) -> None:
+        M = num_leaves
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device, self.N, self.F, self.B, self.M = device, N, F, B, M
+        i32, f32 = torch.int32, torch.float32
+        self.packed = torch.zeros(CTL + 13 * M, dtype=i32, device=device)
+        self.ctl, self.node_i, self.leaf_i, self.node_f, self.leaf_f = unpack(self.packed, M)
+        self.best_f = torch.zeros((M, 9), dtype=f32, device=device)
+        self.best_i = torch.zeros((M, 4), dtype=i32, device=device)
+        self.laux = torch.zeros((M, 5), dtype=f32, device=device)
+        self.leaf_begin = torch.zeros(M, dtype=i32, device=device)
+        self.leaf_count = torch.zeros(M, dtype=i32, device=device)
+        self.order = torch.zeros(N, dtype=i32, device=device)
+        self.hist = torch.zeros((M, F, B, 3), dtype=f32, device=device)
+        self.small = torch.zeros((F, B, 3), dtype=f32, device=device)
+        self.scratch = torch.empty(N, dtype=i32, device=device)
+        self.flags = torch.empty(N, dtype=torch.uint8, device=device)
+        self.tiles = torch.empty(max(-(-N // PARTITION_TILE), 1), dtype=i32, device=device)
+        self.feat_f = torch.empty((2, F, 4), dtype=f32, device=device)
+        self.feat_i = torch.empty((2, F, 2), dtype=i32, device=device)
+        # the inputs of the tree being grown, set by bind()
+        self.bins: Optional[torch.Tensor] = None
+        self.hist_bins: Optional[torch.Tensor] = None
+        self.values: Optional[torch.Tensor] = None
+        self.feature_meta: Dict[str, torch.Tensor] = {}
+        self.feature_mask: Optional[torch.Tensor] = None
+        self.params = None  # ops/split.py SplitParams
+        self.two_way = True
+        self.max_depth = -1
+        self.hist_dtype = "float32"
+        #: launch arguments of each C entry, built once a tree by its wrapper
+        self.args: Dict[str, tuple] = {}
+        self.stream = None
+
+    def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int) -> bool:
+        return (self.device, self.N, self.F, self.B, self.M) == (device, N, F, B, num_leaves)
+
+    def bind(
+        self,
+        bins: torch.Tensor,
+        hist_bins: torch.Tensor,
+        values: torch.Tensor,
+        feature_meta: Dict[str, torch.Tensor],
+        feature_mask: torch.Tensor,
+        params,
+        two_way: bool,
+        max_depth: int,
+        hist_dtype: str,
+    ) -> None:
+        """Take this tree's inputs and check them once: ``bins`` [F, N]
+        uint8 contiguous (the partition's columns), ``hist_bins`` an [F, N]
+        uint8 view with any strides (the histograms' rows), ``values`` [N, 3]
+        f32 contiguous, the meta arrays int32 [F] and ``feature_mask`` bool
+        [F] contiguous, all on the state's device. The kernels' launch
+        arguments are rebuilt from them on first use and the stream is the
+        one current now."""
+        dev, N, F = self.device, self.N, self.F
+        for name, t, shape, dtype in (
+            ("bins", bins, (F, N), torch.uint8),
+            ("values", values, (N, 3), torch.float32),
+            ("feature_mask", feature_mask, (F,), torch.bool),
+            *((k, feature_meta[k], (F,), torch.int32) for k in _META_KEYS),
+        ):
+            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+                raise ValueError(
+                    "grow_tree_device: %s must be a contiguous %s %s tensor on %s"
+                    % (name, dtype, shape, dev)
+                )
+        if hist_bins.device != dev or hist_bins.dtype != torch.uint8 or tuple(hist_bins.shape) != (F, N):
+            raise ValueError("grow_tree_device: hist_bins must be an [F, N] uint8 view on %s" % dev)
+        self.bins, self.hist_bins, self.values = bins, hist_bins, values
+        self.feature_meta = {k: feature_meta[k] for k in _META_KEYS}
+        self.feature_mask = feature_mask
+        self.params, self.two_way, self.max_depth = params, bool(two_way), int(max_depth)
+        self.hist_dtype = hist_dtype
+        self.args = {}
+        self.stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+
+    def reset(self) -> None:
+        """Start a tree: one leaf holding every row, no split, the loop
+        active. Device fills only (no host-to-device copy)."""
+        self.packed.zero_()
+        self.ctl[ACTIVE:NUM_LEAVES + 1].fill_(1)
+        self.leaf_i[:, 0].fill_(-1)
+        self.best_f.zero_()
+        self.best_f[:, 0].fill_(-math.inf)
+        self.best_i.zero_()
+        self.laux.zero_()
+        self.laux[:, 3].fill_(-math.inf)
+        self.laux[:, 4].fill_(math.inf)
+        self.leaf_begin.zero_()
+        self.leaf_count.zero_()
+        self.leaf_count[:1].fill_(self.N)
+        torch.arange(self.N, out=self.order)
+        self.small.zero_()
+
+    def clone(self) -> "GrowState":
+        """A copy of every tensor of the state with the same bound inputs:
+        for running a kernel and its plain version from one state."""
+        other = GrowState.__new__(GrowState)
+        other.__dict__.update(self.__dict__)
+        other.packed = self.packed.clone()
+        other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f = unpack(other.packed, self.M)
+        for name in ("best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
+                     "small", "scratch", "flags", "tiles", "feat_f", "feat_i"):
+            setattr(other, name, getattr(self, name).clone())
+        other.args = {}
+        return other

@@ -1,0 +1,83 @@
+"""One step's pick, tree wiring and histogram subtraction of the split
+loop: the plain PyTorch versions.
+
+Counterpart of lightgbm_tpu/ops/grow.py's while_loop ``cond``/``body`` and
+``apply_split`` (the node and leaf arrays, depth, ``internal_value``, the
+children's sums and monotone windows, the smaller-child choice), then the
+histogram subtraction trick (serial_tree_learner.cpp:510). They act on a
+:class:`~.grow_state.GrowState` and are the oracles of csrc/grow_step.cu
+(ops/grow_step_kernel.py) and the path taken for CPU tensors. The
+operations are those of the host loop (ops/grow.py ``grow_tree``), in f32.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import grow_state as gs
+from .split import calculate_leaf_output
+
+# packed record columns (ops/split.py BEST_F / BEST_I)
+_GAIN, _LG, _LH, _LC, _RG, _RH, _RC, _LO, _RO = range(9)
+
+
+def pick(s: gs.GrowState) -> None:
+    """Pick the leaf with the largest best gain (the first among equal
+    ones) and wire its split into the tree as node ``ctl[STEP]``; clear
+    ``ctl[ACTIVE]`` instead when that gain is not > 0 or M - 1 splits are
+    done. Nothing once ``ctl[ACTIVE]`` is 0."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return
+    best = int(torch.argmax(s.best_f[:, _GAIN]))
+    node = int(ctl[gs.STEP])
+    if not bool(s.best_f[best, _GAIN] > 0.0) or node >= s.M - 1:
+        ctl[gs.ACTIVE] = 0
+        return
+    new = int(ctl[gs.NUM_LEAVES])
+    rec = s.best_f[best].clone()
+    f, thr, _, dl = (int(v) for v in s.best_i[best])
+    parent = int(s.leaf_i[best, 0])
+    if parent >= 0:
+        for c in (2, 3):
+            if int(s.node_i[parent, c]) == -(best + 1):
+                s.node_i[parent, c] = node
+    depth = int(s.leaf_i[best, 1]) + 1
+    paux = s.laux[best].clone()
+    s.node_i[node] = torch.tensor([f, thr, -(best + 1), -(new + 1), dl], dtype=torch.int32)
+    s.node_f[node] = torch.stack(
+        [rec[_GAIN], calculate_leaf_output(paux[0], paux[1], s.params), paux[2]]
+    )
+    s.leaf_f[best] = rec[[_LO, _LC, _LH]]
+    s.leaf_f[new] = rec[[_RO, _RC, _RH]]
+    s.leaf_i[best] = torch.tensor([node, depth], dtype=torch.int32)
+    s.leaf_i[new] = torch.tensor([node, depth], dtype=torch.int32)
+
+    # children's sums and monotone windows (serial_tree_learner.cpp:841-850)
+    mono = int(s.feature_meta["monotone"][f])
+    mid = (rec[_LO] + rec[_RO]) / 2.0
+    pmin, pmax = paux[3], paux[4]
+    l_min = mid if mono < 0 else pmin
+    l_max = mid if mono > 0 else pmax
+    r_min = mid if mono > 0 else pmin
+    r_max = mid if mono < 0 else pmax
+    s.laux[best] = torch.stack([rec[_LG], rec[_LH], rec[_LC], l_min, l_max])
+    s.laux[new] = torch.stack([rec[_RG], rec[_RH], rec[_RC], r_min, r_max])
+
+    left_smaller = bool(rec[_LC] <= rec[_RC])
+    small, large = (best, new) if left_smaller else (new, best)
+    ctl[gs.BEST], ctl[gs.NEW], ctl[gs.SMALL], ctl[gs.LARGE] = best, new, small, large
+    ctl[gs.NUM_LEAVES] = new + 1
+    ctl[gs.STEP] = node + 1
+
+
+def subtract(s: gs.GrowState) -> None:
+    """``hist[LARGE] = hist[BEST] - small; hist[SMALL] = small``, then
+    ``small`` zeroed for the next step. Nothing once ``ctl[ACTIVE]`` is 0."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return
+    best, small, large = int(ctl[gs.BEST]), int(ctl[gs.SMALL]), int(ctl[gs.LARGE])
+    parent = s.hist[best].clone()
+    s.hist[large] = parent - s.small
+    s.hist[small] = s.small
+    s.small.zero_()

@@ -1,0 +1,80 @@
+"""Wrappers of the hand-written CUDA split-loop step (csrc/grow_step.cu).
+
+``pick`` (the ``grow_step`` kernel: the argmax, the stop flag and the tree
+wiring of one split) and ``subtract`` (the ``hist_subtract`` kernel: the
+larger child's histogram as the parent's minus the smaller one's) act on a
+:class:`~.grow_state.GrowState`: the kernels when it lies on a CUDA device,
+the plain PyTorch versions (ops/grow_step.py) when it lies on the CPU; any
+other device raises. ``launches`` counts each wrapper's launches.
+
+The arguments are checked once a tree by ``GrowState.bind``; the launch
+arguments are built on a tree's first call and reused.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+from . import cuda_build, grow_state as gs
+from . import grow_step as plain
+
+launches: Dict[str, int] = {"grow_step": 0, "hist_subtract": 0}
+
+_ARGTYPES = {
+    "lgbt_grow_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 3
+    + [ctypes.c_void_p],
+    "lgbt_hist_subtract": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+}
+SUBTRACT_THREADS = 256
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _fn(symbol: str):
+    return cuda_build.entry("grow_step", symbol, _ARGTYPES[symbol])
+
+
+def _device(s: gs.GrowState, what: str) -> bool:
+    """True for a CUDA state, False for a CPU one; raises otherwise."""
+    if s.device.type == "cuda":
+        return True
+    if s.device.type != "cpu":
+        raise ValueError("%s: unsupported device %s" % (what, s.device))
+    return False
+
+
+def pick(s: gs.GrowState) -> None:
+    """The step's pick and tree wiring; see csrc/grow_step.cu."""
+    if not _device(s, "grow_step"):
+        plain.pick(s)
+        return
+    args = s.args.get("grow_step")
+    if args is None:
+        p = s.params
+        args = s.args["grow_step"] = (
+            s.ctl.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(), s.node_i.data_ptr(),
+            s.node_f.data_ptr(), s.leaf_f.data_ptr(), s.leaf_i.data_ptr(), s.laux.data_ptr(),
+            s.feature_meta["monotone"].data_ptr(), s.M, p.lambda_l1, p.lambda_l2,
+            p.max_delta_step, s.stream,
+        )
+    cuda_build.check(_fn("lgbt_grow_step")(*args), "grow_step kernel")
+    launches["grow_step"] += 1
+
+
+def subtract(s: gs.GrowState) -> None:
+    """The step's histogram subtraction; see csrc/grow_step.cu."""
+    if not _device(s, "hist_subtract"):
+        plain.subtract(s)
+        return
+    args = s.args.get("hist_subtract")
+    if args is None:
+        cells = s.small.numel()
+        args = s.args["hist_subtract"] = (
+            s.ctl.data_ptr(), s.hist.data_ptr(), s.small.data_ptr(), cells,
+            -(-cells // SUBTRACT_THREADS), s.stream,
+        )
+    cuda_build.check(_fn("lgbt_hist_subtract")(*args), "hist_subtract kernel")
+    launches["hist_subtract"] += 1

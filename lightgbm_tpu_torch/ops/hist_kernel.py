@@ -15,6 +15,8 @@ impl            wrapper, source           JAX kernel it replaces
 ==============  ========================  ===================================
 ``cuda``        ``histogram``             ``histogram_pallas`` (radix, fb)
                 csrc/histogram.cu
+(device loop)   ``histogram_segment``     the same, its rows, leaf and
+                csrc/histogram.cu         bounds read from device memory
 ``cuda_onehot`` ``hist_onehot``           ``histogram_pallas_onehot``
                 csrc/hist_onehot.cu
 ``cuda_bitplane`` ``hist_bitplane``       ``histogram_pallas_bitplane``
@@ -69,7 +71,9 @@ from ..utils import log
 from ..utils.env import env_choice
 from ..utils.log import LightGBMError
 from . import cuda_build
-from .histogram import HIST_DTYPES, leaf_histogram, leaf_histogram_packed4_rows, operands
+from .histogram import (
+    HIST_DTYPES, leaf_histogram, leaf_histogram_packed4_rows, operands, segment_histogram,
+)
 
 # ---------------------------------------------------------------------------
 # vocabulary, capabilities, packing
@@ -162,7 +166,8 @@ def pack_bins(bins_nf: torch.Tensor) -> torch.Tensor:
 
 launches: Dict[str, int] = {}
 
-KERNELS = ("histogram", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1")
+KERNELS = ("histogram", "histogram_segment", "hist_onehot", "hist_bitplane", "hist_packed4",
+           "hist_v1")
 
 
 def reset_launches() -> None:
@@ -185,10 +190,7 @@ _ARGS_V1 = _ARGS_HIST[:10] + [ctypes.c_void_p] + _ARGS_HIST[10:]
 
 
 def _entry(source: str, symbol: str, argtypes):
-    fn = getattr(cuda_build.load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
+    return cuda_build.entry(source, symbol, argtypes)
 
 
 def _check_dtype(hist_dtype: str) -> None:
@@ -286,7 +288,7 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[index]
 
 
-def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
+def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None):
     """``[F, B, 3]`` f32 histogram of ``values`` ([N, 3]) over ``bins``
     (csrc/histogram.cu: 4-feature blocks over row chunks of
     :func:`histogram_grid`, shared-memory atomics).
@@ -294,10 +296,19 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
     ``bins`` is an ``[F, N]`` uint8 view with any strides, so the transposed
     ``[N, F]`` copy passes as ``bins_nf.t()``. ``rows`` is an optional int32
     vector of row indices (a leaf segment) into both inputs. The other
-    ``[F, N]`` wrappers take the same arguments."""
+    ``[F, N]`` wrappers take the same arguments. ``out``, a zeroed
+    contiguous ``[F, B, 3]`` f32 tensor on the bins' device, receives the
+    histogram instead of a new tensor (the grower's root row)."""
     if bins.device.type == "cpu":
-        return leaf_histogram(bins, values, num_bins, rows, hist_dtype)
-    n, out = _rows_output("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+        got = leaf_histogram(bins, values, num_bins, rows, hist_dtype)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        n, out = _rows_output("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+    else:
+        n = _rows_n("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+        if (out.device != bins.device or out.dtype != torch.float32 or not out.is_contiguous()
+                or tuple(out.shape) != (bins.shape[0], num_bins, 3)):
+            raise ValueError("histogram: out must be a contiguous [F, B, 3] f32 tensor on the bins' device")
     F = bins.shape[0]
     if n == 0 or F == 0:
         return out
@@ -311,6 +322,53 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32"):
     cuda_build.check(code, "histogram kernel")
     launches["histogram_bf16" if bf16 else "histogram"] += 1
     return out
+
+
+def segment_max_chunks(N: int, F: int, num_sms: int) -> int:
+    """The most chunks :func:`histogram_grid` gives any segment of at most
+    ``N`` rows: chunks of at least ``want`` rows number at most ``ceil(4
+    num_sms / groups)``, and capped chunks of 65536 rows ``ceil(N /
+    65536)``. The segment entry's grid is ``groups`` times this."""
+    groups = -(-F // HIST_GROUP)
+    return max(-(-(HIST_BLOCKS_PER_SM * num_sms) // groups), -(-N // HIST_MAX_CHUNK), 1)
+
+
+_ARGS_SEGMENT = (
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
+)
+
+
+def histogram_segment(s) -> None:
+    """The split loop's histogram of the smaller child (csrc/histogram.cu
+    ``lgbt_histogram_segment``) on a :class:`~.grow_state.GrowState`: rows
+    ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l = ctl[SMALL]``,
+    all read from device memory, into ``s.small`` (kept zeroed between
+    steps), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]`` is
+    0. The grid is fixed once a tree (:func:`segment_max_chunks`). On a CPU
+    state the plain version, ops/histogram.py ``segment_histogram``."""
+    dev = s.device
+    if dev.type == "cpu":
+        segment_histogram(s)
+        return
+    if dev.type != "cuda":
+        raise ValueError("histogram_segment: unsupported device %s" % dev)
+    args = s.args.get("histogram_segment")
+    if args is None:
+        _check_dtype(s.hist_dtype)
+        if not 1 <= s.B <= 336:
+            raise ValueError("histogram_segment: num_bins must be in [1, 336], got %d" % s.B)
+        b = s.hist_bins
+        sms = _sm_count(dev)
+        args = s.args["histogram_segment"] = (
+            b.data_ptr(), b.stride(0), b.stride(1), s.values.data_ptr(), s.order.data_ptr(),
+            s.ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), s.F, s.B,
+            int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, s.F, sms),
+            s.small.data_ptr(), s.stream,
+        )
+    code = _entry("histogram", "lgbt_histogram_segment", _ARGS_SEGMENT)(*args)
+    cuda_build.check(code, "histogram segment kernel")
+    launches["histogram_segment_bf16" if s.hist_dtype == "bfloat16" else "histogram_segment"] += 1
 
 
 def hist_onehot(bins, values, num_bins, rows=None, hist_dtype="float32"):
@@ -653,6 +711,23 @@ def pick_impl(
     ``hist_dtype``) on ``backend`` takes: explicit ``impl`` > the env
     override > ``route`` > :func:`default_impl`; one the capability table
     refuses warns once, counts, and takes the default."""
+    chosen, refused = resolve_impl(impl, rows, num_bins, k, hist_dtype, route, backend)
+    if refused is not None:
+        _note_impl_fallback(refused, num_bins, backend)
+    return chosen
+
+
+def resolve_impl(
+    impl: str,
+    rows: int,
+    num_bins: int,
+    k: int,
+    hist_dtype: str,
+    route: Optional[HistRoute],
+    backend: str,
+) -> Tuple[str, Optional[str]]:
+    """:func:`pick_impl`'s choice with no warning and no count: (the impl
+    taken, the refused impl it replaced or None)."""
     if impl == "auto" and _ENV_IMPL:
         impl = _ENV_IMPL
     if impl == "auto" and route is not None:
@@ -662,9 +737,8 @@ def pick_impl(
     if impl not in IMPLS:
         raise ValueError("impl must be 'auto' or one of %s, got %r" % (IMPLS, impl))
     if not impl_supported(impl, num_bins, backend, ignore_backend=impl != "scatter"):
-        _note_impl_fallback(impl, num_bins, backend)
-        impl = default_impl(backend)
-    return impl
+        return default_impl(backend), impl
+    return impl, None
 
 
 def routed_histogram(

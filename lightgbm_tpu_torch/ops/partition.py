@@ -1,0 +1,60 @@
+"""Stable partition of a leaf's row segment: the plain PyTorch version.
+
+Counterpart of lightgbm_tpu/ops/grow.py's ``partition_segment`` (the
+bucketed grower's stable partition, data_partition.hpp:111): the rows
+``order[begin : begin + count]`` of the split leaf become ``[left | right]``
+in their old relative order, so the segment keeps the reference's ``[pre |
+left | right | post]`` layout. The oracle of csrc/partition.cu
+(ops/partition_kernel.py) and the path taken for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import grow_state as gs
+from .split import MISSING_NAN, MISSING_ZERO
+
+
+def go_left(col, threshold, default_left, missing, default_bin, nan_bin):
+    """Bin-space numerical decision (dense_bin.hpp Split)."""
+    go_left = col <= threshold
+    if missing == MISSING_ZERO:
+        go_left[col == default_bin] = default_left
+    elif missing == MISSING_NAN:
+        go_left[col == nan_bin] = default_left
+    return go_left
+
+
+def stable_partition(order, bins, begin, count, feature, threshold, default_left, meta) -> int:
+    """Partition ``order[begin : begin + count]`` in place by the split
+    (``feature``, ``threshold``, ``default_left``) on ``bins`` [F, N], with
+    the feature's ``meta`` (num_bin / missing_type / default_bin arrays,
+    read on the host: the host split loop passes CPU copies); returns the
+    left count. The segment becomes ``torch.cat([seg[gl], seg[~gl]])``."""
+    seg = order[begin:begin + count]
+    col = bins[feature].index_select(0, seg)
+    gl = go_left(
+        col, threshold, bool(default_left), int(meta["missing_type"][feature]),
+        int(meta["default_bin"][feature]), int(meta["num_bin"][feature]) - 1,
+    )
+    left = seg[gl]
+    order[begin:begin + count] = torch.cat([left, seg[~gl]])
+    return left.numel()
+
+
+def partition(s: gs.GrowState) -> None:
+    """The split loop's partition step on the state ``s``: the segment of
+    leaf ``ctl[BEST]`` by its record ``best_i``; the children's (begin,
+    count) and ``ctl[PBEGIN/PCOUNT/LEFT]`` written as csrc/partition.cu
+    writes them. Nothing once ``ctl[ACTIVE]`` is 0."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return
+    leaf, new = int(ctl[gs.BEST]), int(ctl[gs.NEW])
+    f, thr, _, dl = (int(v) for v in s.best_i[leaf])
+    b0, cnt = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
+    left = stable_partition(s.order, s.bins, b0, cnt, f, thr, dl, s.feature_meta)
+    ctl[gs.PBEGIN], ctl[gs.PCOUNT], ctl[gs.LEFT] = b0, cnt, left
+    s.leaf_count[leaf] = left
+    s.leaf_begin[new] = b0 + left
+    s.leaf_count[new] = cnt - left

@@ -23,6 +23,8 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from . import grow_state as gs
+
 K_EPSILON = 1e-15  # meta.h:42
 K_MIN_SCORE = -math.inf
 
@@ -334,3 +336,26 @@ def find_best_split(
         feature_meta, feature_mask, params, two_way,
     )
     return SplitResult(*(field[0] for field in unpack(outf, outi)))
+
+
+def split_pair_step(s: gs.GrowState, C: int) -> None:
+    """The split loop's scan on a :class:`~.grow_state.GrowState` ``s``:
+    :func:`find_best_split_pair` of leaf ``ctl[BEST]`` (C = 1, the root) or
+    of the children ``ctl[BEST]`` and ``ctl[NEW]`` (C = 2) out of
+    ``s.hist``, their sums and windows from ``s.laux``, each record written
+    to the leaf's row of ``s.best_f`` / ``s.best_i`` with the gain -inf at a
+    depth >= ``s.max_depth`` (> 0). Nothing once ``ctl[ACTIVE]`` is 0. The
+    plain version of ops/split_kernel.py ``split_pair_step``."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return
+    leaves = [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C]
+    aux = s.laux[leaves]
+    outf, outi = find_best_split_pair(
+        s.hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta,
+        s.feature_mask, s.params, s.two_way, leaves,
+    )
+    if s.max_depth > 0:
+        outf[s.leaf_i[leaves, 1] >= s.max_depth, 0] = K_MIN_SCORE
+    s.best_f[leaves] = outf
+    s.best_i[leaves] = outi

@@ -11,11 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu_torch.ops import hist_kernel, split_kernel
+from lightgbm_tpu_torch.ops import grow as grow_mod
+from lightgbm_tpu_torch.ops import grow_state as gs
+from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
+from lightgbm_tpu_torch.ops import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
+from lightgbm_tpu_torch.ops import partition as partition_plain
+from lightgbm_tpu_torch.ops.grow import TreeArrays, grow_tree, grow_tree_device
 from lightgbm_tpu_torch.ops.histogram import (
-    leaf_histogram, leaf_histogram_packed4_rows, leaf_values,
+    leaf_histogram, leaf_histogram_packed4_rows, leaf_values, segment_histogram,
 )
-from lightgbm_tpu_torch.ops.split import SplitParams, find_best_split_pair
+from lightgbm_tpu_torch.ops.split import SplitParams, find_best_split_pair, split_pair_step
 
 pytestmark = pytest.mark.cuda
 
@@ -490,3 +495,239 @@ def test_split_kernel_real_values_bitwise(dev):
     for params in SPLIT_PARAMS:
         for two_way in (True, False):
             _same_split(*_both(hist, sums, cons, meta, fmask, params, two_way))
+
+
+# ---- the device-resident split loop (ops/grow.py grow_tree_device) ----------
+
+LOOP_PARAMS = SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0)
+
+
+def _loop_inputs(dev, N, F=28, B=255, seed=0, q=1024, real=False, mono=False):
+    """[F, N] bins (feature f below its num_bin), the [N, F] copy, gradients
+    and hessians (multiples of 1/q, or real), meta with missing types 0/1/2
+    (and with ``mono`` a +1 and a -1 monotone feature, whose windows can stop
+    a tree early), and the feature mask. Multiples of 2^-10 keep every
+    histogram cell exact at 1M rows, bf16 included."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_bin = torch.full((F,), B, dtype=torch.int32, device=dev)
+    num_bin[3::4] = max(B // 3, 2)
+    bins = (torch.rand((F, N), generator=gen, device=dev) * num_bin[:, None]).to(torch.uint8)
+    if real:
+        grad = torch.randn(N, generator=gen, device=dev)
+        hess = torch.rand(N, generator=gen, device=dev) + 0.1
+    else:
+        grad = torch.randint(-q, q + 1, (N,), generator=gen, device=dev).float() / q
+        hess = torch.randint(1, 65, (N,), generator=gen, device=dev).float() / q
+    meta = {
+        "num_bin": num_bin,
+        "missing_type": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+        "default_bin": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+        "monotone": torch.zeros(F, dtype=torch.int32, device=dev),
+    }
+    if mono:
+        meta["monotone"][1], meta["monotone"][2] = 1, -1
+    return bins, bins.t().contiguous(), grad, hess, meta, torch.ones(F, dtype=torch.bool, device=dev)
+
+
+def _same_state(a, b, what):
+    """Every tensor of the state equal, NaN where both are NaN."""
+    for k in gs.GrowState.STATE:
+        x, y = getattr(a, k), getattr(b, k)
+        same = x == y
+        if x.is_floating_point():
+            same |= x.isnan() & y.isnan()
+        bad = (~same).nonzero()[:8].tolist()
+        assert not bad, (what, k, bad, [(x[tuple(i)].item(), y[tuple(i)].item()) for i in bad])
+
+
+@pytest.mark.parametrize("N", [100_000, 1_000_000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_device_loop_equals_host_loop(dev, N, dtype):
+    """Dyadic gradients: the device loop grows the host loop's tree and leaf
+    index bit for bit: 255 leaves, and at 100k rows also with max_depth 7 and
+    with monotone features."""
+    cases = ((False, -1), (False, 7), (True, -1)) if N < 1_000_000 else ((False, -1),)
+    for mono, max_depth in cases:
+        bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=N % 97, mono=mono)
+        args = (bins, grad, hess, mask, meta, 255, max_depth, 255, LOOP_PARAMS, True)
+        want, want_leaf = grow_tree(*args, bins_nf=nf, hist_dtype=dtype)
+        got, got_leaf, _ = grow_tree_device(*args, bins_nf=nf, hist_dtype=dtype)
+        for name in TreeArrays._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (name, mono, max_depth)
+        assert torch.equal(got_leaf, want_leaf)
+        nl = int(got.num_leaves)
+        if max_depth > 0:
+            assert nl <= 2 ** max_depth, nl
+        elif not mono:
+            assert nl == 255, nl
+
+
+@pytest.mark.parametrize("N", [100_000])
+def test_loop_kernels_match_plain_at_every_step(dev, N):
+    """A 255-leaf tree on dyadic gradients, one step at a time: after each
+    kernel of a step (grow_step, partition, the histogram's segment entry,
+    hist_subtract, the split scan's device entry) the whole state equals
+    that of its plain version run on a copy of the state."""
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=5)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    pairs = (
+        (grow_step_kernel.pick, grow_step_plain.pick),
+        (partition_kernel.partition, partition_plain.partition),
+        (hist_kernel.histogram_segment, segment_histogram),
+        (grow_step_kernel.subtract, grow_step_plain.subtract),
+        (lambda st: split_kernel.split_pair_step(st, 2), lambda st: split_pair_step(st, 2)),
+    )
+    for step in range(254):
+        for k, (kernel, plain) in enumerate(pairs):
+            other = s.clone()
+            kernel(s)
+            plain(other)
+            _same_state(s, other, (step, k))
+    assert int(s.ctl[gs.NUM_LEAVES]) == 255 and int(s.ctl[gs.STEP]) == 254
+
+
+# (N, begin, count, feature, threshold, default_left): feature 0 (bins 1-8)
+# has no missing type, 1 the zero bin (default bin 1), 2 the nan bin (bin 8)
+CARD_PARTITION_CASES = {
+    "whole_1m": (1_000_000, 0, 1_000_000, 0, 4, 0),
+    "whole_1.1m": (1_100_000, 0, 1_100_000, 0, 4, 0),  # two rounds of the one-block scan
+    "mid_tile_1m": (1_000_000, 1000, 600_001, 0, 3, 0),
+    "tile_edges": (100_000, 1024, 1024, 0, 5, 0),
+    "across_edges": (100_000, 1023, 1026, 0, 5, 0),
+    "one_row": (100_000, 77_777, 1, 0, 4, 0),
+    "empty": (100_000, 500, 0, 0, 4, 0),
+    "empty_left": (100_000, 10, 50_000, 0, 0, 0),
+    "empty_right": (100_000, 10, 50_000, 0, 8, 0),
+    "zero_left": (1_000_000, 3, 999_990, 1, 3, 1),
+    "zero_right": (1_000_000, 3, 999_990, 1, 0, 0),
+    "nan_left": (100_000, 999, 70_001, 2, 2, 1),
+    "nan_right": (100_000, 999, 70_001, 2, 6, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CARD_PARTITION_CASES))
+def test_partition_kernel_matches_plain(dev, case):
+    N, begin, count, f, thr, dl = CARD_PARTITION_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    bins = torch.randint(0, 9, (3, N), generator=gen, device=dev, dtype=torch.uint8)
+    bins[0] = torch.randint(1, 9, (N,), generator=gen, device=dev, dtype=torch.uint8)
+    meta = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in (
+        ("num_bin", [9, 9, 9]), ("missing_type", [0, 1, 2]), ("default_bin", [0, 1, 1]),
+        ("monotone", [0, 0, 0]))}
+    s = gs.GrowState(dev, N, 3, 9, 4)
+    s.bind(bins, bins, torch.zeros((N, 3), device=dev), meta,
+           torch.ones(3, dtype=torch.bool, device=dev), LOOP_PARAMS, True, -1, "float32")
+    s.reset()
+    order = torch.randperm(N, generator=gen, device=dev).int()
+    order[begin:begin + count] = order[begin:begin + count].sort().values  # a leaf's rows ascend
+    s.order.copy_(order)
+    s.ctl[gs.BEST], s.ctl[gs.NEW] = 2, 3
+    s.leaf_begin[2], s.leaf_count[2] = begin, count
+    s.best_i[2] = torch.tensor([f, thr, 0, dl], dtype=torch.int32, device=dev)
+    other = s.clone()
+    partition_kernel.partition(s)
+    partition_plain.partition(other)
+    _same_state(s, other, case)
+    left = int(s.leaf_count[2])
+    assert int(s.leaf_begin[3]) == begin + left and int(s.leaf_count[3]) == count - left
+    assert left == {"empty_left": 0, "empty_right": count}.get(case, left)
+    outside = torch.ones(N, dtype=torch.bool, device=dev)
+    outside[begin:begin + count] = False
+    assert torch.equal(s.order[outside], order[outside])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_histogram_segment_matches_histogram(dev, dtype):
+    """The segment entry, its rows and leaf read from device memory, against
+    ``histogram`` given the same rows from the host: exact on dyadic values,
+    within the two-order bound of the plain version on real ones."""
+    N = 1_000_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=3)
+    dy = leaf_values(grad, hess, torch.ones(N, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(9)
+    real = leaf_values(torch.randn(N, generator=gen, device=dev),
+                       torch.rand(N, generator=gen, device=dev), torch.ones(N, device=dev))
+    order = torch.randperm(N, generator=gen, device=dev).int()
+    for vals, exact in ((dy, True), (real, False)):
+        s = gs.GrowState(dev, N, 28, 255, 4)
+        s.bind(bins, nf.t(), vals, meta, mask, LOOP_PARAMS, True, -1, dtype)
+        s.reset()
+        s.order.copy_(order)
+        s.ctl[gs.SMALL] = 1
+        for begin, count in ((0, 0), (5, 1), (100, 1023), (100, 1025), (7, 5000),
+                             (1000, 100_000), (0, N // 2), (0, N)):
+            s.leaf_begin[1], s.leaf_count[1] = begin, count
+            hist_kernel.histogram_segment(s)
+            rows = order[begin:begin + count].contiguous()
+            if exact:
+                want = hist_kernel.histogram(nf.t(), vals, 255, rows, dtype)
+                assert torch.equal(s.small, want), (begin, count)
+            else:
+                want = leaf_histogram(bins, vals, 255, rows, dtype)
+                bound = want[..., 2:] * 2.0 ** -23 * leaf_histogram(bins, vals.abs(), 255, rows, dtype)
+                assert bool(((s.small - want).abs() <= bound + 1e-6).all()), (begin, count)
+            s.small.zero_()
+
+
+def test_split_pair_step_matches_find_best_split_pair(dev):
+    """The device-indexed entry (leaves, sums, windows and depth read from
+    the loop's state) against the entry that takes them from the host:
+    every field exact; the depth gate sets the gain alone to -inf; a stopped
+    loop changes nothing and leaves the tickets at 0."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=28, B=255, seed=8)
+    s = gs.GrowState(dev, 64, 28, 255, 8)
+    dummy = torch.zeros((28, 64), dtype=torch.uint8, device=dev)
+
+    def bind(params, two_way, max_depth):
+        s.bind(dummy, dummy, torch.zeros((64, 3), device=dev), meta, fmask, params, two_way,
+               max_depth, "float32")
+
+    bind(SPLIT_PARAMS[0], True, -1)
+    s.reset()
+    s.hist[5], s.hist[2] = hist[0], hist[1]
+    s.laux[[5, 2]] = torch.cat([sums, cons], 1)
+    s.ctl[gs.BEST], s.ctl[gs.NEW] = 5, 2
+    for params in SPLIT_PARAMS:
+        for two_way in (True, False):
+            bind(params, two_way, -1)
+            for C, leaves in ((2, (5, 2)), (1, (5,))):
+                split_kernel.split_pair_step(s, C)
+                want = split_kernel.find_best_split_pair(
+                    s.hist, sums[:C].contiguous(), cons[:C].contiguous(), meta, fmask, params,
+                    two_way, leaves)
+                _same_split((s.best_f[list(leaves)], s.best_i[list(leaves)]), want)
+    bind(SPLIT_PARAMS[0], True, 3)
+    s.leaf_i[[5, 2], 1] = 3
+    split_kernel.split_pair_step(s, 2)
+    wf, wi = split_kernel.find_best_split_pair(s.hist, sums, cons, meta, fmask, SPLIT_PARAMS[0],
+                                               True, (5, 2))
+    assert bool(torch.isneginf(s.best_f[[5, 2], 0]).all())
+    assert torch.equal(s.best_f[[5, 2], 1:], wf[:, 1:]) and torch.equal(s.best_i[[5, 2]], wi)
+    s.ctl[gs.ACTIVE] = 0
+    s.best_f.zero_()
+    before = s.clone()
+    split_kernel.split_pair_step(s, 2)
+    torch.cuda.synchronize()
+    _same_state(s, before, "stopped")
+    assert not bool(split_kernel._ticket_counter(dev).any())
+
+
+def test_split_loop_makes_no_sync(dev):
+    """From the root to the readback the loop queues its kernels and reads
+    nothing back: no synchronizing call under sync debug mode "error"."""
+    N = 200_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=6, real=True)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    args = (bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    grow_mod.launch_tree(s, *args)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grow_mod.launch_tree(s, *args)
+        leaf_id = grow_mod.leaf_ids(s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    tree = grow_mod.read_tree(s)
+    assert int(tree.num_leaves) == 255
+    assert torch.equal(torch.bincount(leaf_id, minlength=255).cpu().float(), tree.leaf_count)
