@@ -27,13 +27,16 @@ Phases (each prints one line; any failure exits non-zero):
     buffer, and on 300 features of synthetic dyadic histograms;
  4. the main path: ``lightgbm_tpu_torch.train`` on make_higgs_like(1M, 28),
     binary, max_bin=255, num_leaves=255, learning_rate=0.1, 10 iterations
-    through the device-resident split loop, with the kernels' launch
-    counters set to 0 just before and read just after; iterations per
+    through the device-resident split loop (the first eager, each later one
+    a replay of the captured iteration), with the kernels' launch
+    counters set to 0 just before and read just after (a replay adds the
+    launches its capture recorded); iterations per
     second and the training AUC; then one more iteration under
     torch.profiler for the device busy time by kernel, the top 8, every
     kernel of the split scan, of an indexing copy or of the split loop, and
     the count of host-to-device and device-to-host copies (at most 4 each);
- 4b. the two split loops paired in one process: on dyadic gradients
+ 4b. the two split loops paired in one process (the device loop's eager
+    launches, not the captured iteration of 4c): on dyadic gradients
     (multiples of 2^-10) the host loop and the device loop, in turns host,
     device, device, host, grow the same tree bit for bit; the device loop
     runs from the root to the readback under sync debug mode "error"; on
@@ -47,9 +50,28 @@ Phases (each prints one line; any failure exits non-zero):
     entry) against its plain version on a copy of the state (the whole
     state equal, the real-valued histogram within the two-order bound),
     then timed from the same state against its bound;
+ 4c. device-resident boosting: on the dyadic gradients of 4b at 1M rows
+    one replay of the captured tree (ops/cuda_graph.py) grows the eager
+    launch_tree's tree and leaf index bit for bit; the leaf_ids kernel
+    against its plain version and timed; three boosters of the main path,
+    the eager launches, a captured iteration a replay (device_chunk_size 1)
+    and chunks of 10 replays with one readback, warmed up to 10 iterations
+    (the chunked one's AUC within 2e-3 of the eager one's), a whole
+    train_chunk(10) under sync debug mode "error", then turns of 10
+    iterations (eager, graph, chunk, chunk, graph, eager) with the launch
+    counts from 0 each (replays counted; equal across the three and to the
+    captured tree's), the host's time to queue an iteration, one profiled
+    iteration of each (device busy ms, idle share, no host-to-device copy
+    and one device-to-host copy an iteration or a chunk), and after each
+    chunk its train scores equal to the kept trees' raw prediction; then a
+    stop in the middle of a chunk: at 100k rows with gradients rounded to
+    multiples of 2^-7 (training exact whatever the summation order), a
+    min_gain_to_split found by bisection stops chunk 1 inside the chunk, two
+    chunk-1 runs stop alike, and chunk 10 keeps the same model text and
+    train scores bit for bit;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
-    and device="cpu" (the plain versions), every histogram call of the CUDA
-    run (the root's and each segment entry's) held to its plain version
+    (the eager launches) and device="cpu" (the plain versions), every
+    histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
     within the two-order bound: trees equal
     up to an f32 near-tie flip; each side's split gains against the f64
     gains of its own splits, the kernel's largest error no larger than the
@@ -76,13 +98,13 @@ Phases (each prints one line; any failure exits non-zero):
     (and cuda_packed4) at (63, f32) and (15, f32); every routable kernel
     launches; each run records its split loop (the device loop where the
     table sends every row class to cuda, the host loop otherwise); each run
-    is timed, then trained again with every call of
-    each routed kernel held to its plain version on the same rows within
+    is timed, then trained again (the device loop's eager launches) with
+    every call of each routed kernel held to its plain version on the same rows within
     the two-order bound; AUC > 0.7 in both, and the
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
-    main-path runs: phase 4, the sweep and the routed trainings, each with
+    main-path runs: phase 4, 4c's turns, the sweep and the routed trainings, each with
     the counts set to 0 just before it and read just after; the split
     loop's kernels timed in phase 4b), the seconds of each phase, then the
     result line.
@@ -95,6 +117,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -141,8 +164,10 @@ def main() -> int:
     import lightgbm_tpu_torch as lgb
     from lightgbm_tpu_torch.config import Config
     from helpers.bench_data import make_higgs_like
+    from lightgbm_tpu_torch import bench as bench_mod
+    from lightgbm_tpu_torch import objective as objective_mod
     from lightgbm_tpu_torch.obs import tune
-    from lightgbm_tpu_torch.ops import cuda_build, hist_kernel, split_kernel
+    from lightgbm_tpu_torch.ops import cuda_build, cuda_graph, hist_kernel, split_kernel
     from lightgbm_tpu_torch.ops import grow as grow_mod
     from lightgbm_tpu_torch.ops import grow_state as gs
     from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
@@ -194,9 +219,9 @@ def main() -> int:
     assert len([k for k in hist_v1_ptxas if k.startswith("v1_kernel<")]) == 4, hist_v1_ptxas
     assert all(u.get("spill_stores", 0) == u.get("spill_loads", 0) == 0
                for u in hist_v1_ptxas.values()), ("hist_v1 spills", hist_v1_ptxas)
-    # the split loop's kernels: partition's three passes, grow_step's two kernels
+    # the split loop's kernels: partition's three passes, grow_step's three kernels
     assert set(ptxas["partition"]) == {"count_kernel", "scan_kernel", "scatter_kernel"}, ptxas
-    assert set(ptxas["grow_step"]) == {"pick_kernel", "subtract_kernel"}, ptxas
+    assert set(ptxas["grow_step"]) == {"pick_kernel", "subtract_kernel", "leaf_id_kernel"}, ptxas
     assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step")
                for u in ptxas[n].values()), ("split-loop kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
@@ -555,6 +580,7 @@ def main() -> int:
     for loop in ("device", "host"):
         turn_boosters[loop] = lgb.Booster(dict(TRAIN_PARAMS), train_set)
         turn_boosters[loop]._gbdt.grow_loop = loop
+        turn_boosters[loop]._gbdt.iteration_graph = False  # the eager launches (4c has the graph)
     turn_ips = {"device": [], "host": []}  # iterations/s of each turn
     auc10 = {}
     for loop in ("device", "host", "host", "device"):
@@ -663,6 +689,205 @@ def main() -> int:
         if busy_ms else "not measured",
         root_step=dict(small_child_rows=n_small, **step_t))
 
+    # ---- 4c. device-resident boosting: the captured iteration and chunks ----------
+    # dyadic gradients at 1M rows: one replay of the captured tree (root, the
+    # M - 1 steps, leaf ids) grows the eager launch_tree's tree bit for bit
+    cs = gs.GrowState(dev, N, F, B, M)
+    dy_args = (g0.bins_dev, dy_grad, dy_hess, g0.feature_mask, g0.feature_meta,
+               g0.config.max_depth, g0.split_params, g0._two_way, g0.bins_nf)
+
+    def dy_tree():
+        grow_mod.launch_tree(cs, *dy_args)
+        return grow_mod.leaf_ids(cs)
+
+    want_leaf = dy_tree()
+    want_tree = grow_mod.read_tree(cs)
+    tree_graph = cuda_graph.Graph(dy_tree, dev)
+    cs.packed.zero_()
+    tree_graph.out.zero_()
+    tree_graph.replay()
+    got_tree = grow_mod.read_tree(cs)
+    for name in got_tree._fields:
+        assert torch.equal(getattr(got_tree, name), getattr(want_tree, name)), ("graph != eager", name)
+    assert torch.equal(tree_graph.out, want_leaf) and torch.equal(want_leaf, trees[0][1])
+    assert int(got_tree.num_leaves) == dyadic_leaves
+    # the leaf_ids kernel against its plain version on that 255-leaf layout
+    assert torch.equal(grow_step_kernel.leaf_ids(cs), grow_step_plain.leaf_ids(cs))
+    leaf_t = dict(ms=time_ms(lambda: grow_step_kernel.leaf_ids(cs)),
+                  plain_ms=time_ms(lambda: grow_step_plain.leaf_ids(cs), reps=3),
+                  max_abs_err=0.0, library_ms=None)
+    leaf_t.update(zip(("bound_ms", "bound_by"), bound(N * 12 + M * 8, 0)))
+    tree_graph_launches = tree_graph.launches
+    del tree_graph, cs, want_leaf
+
+    # three boosters of the main path: the eager launches, a replay an
+    # iteration (device_chunk_size 1) and chunks of 10 replays
+    chunk = 10
+    boost_kinds = {"eager": (1, False), "graph": (1, True), "chunk": (chunk, True)}
+    boosters = {}
+    for kind, (c, graph_on) in boost_kinds.items():
+        boosters[kind] = lgb.Booster(dict(TRAIN_PARAMS, device_chunk_size=c), train_set)
+        boosters[kind]._gbdt.iteration_graph = graph_on
+    chunk_g = boosters["chunk"]._gbdt
+    assert chunk_g.grow_loop == "device" and chunk_g.device_chunk_fallback_reason() is None
+
+    def scores_hold(bst):
+        """The train scores equal the kept trees' raw prediction."""
+        np.testing.assert_allclose(bst._gbdt.train_score(), bst.predict(X, raw_score=True),
+                                   rtol=1e-5, atol=1e-5)
+
+    # warm-up: 10 iterations each (the first eager; the graph captured at
+    # the second; for the chunked booster one iteration, then a chunk of 9)
+    auc_boost = {}
+    for kind, b in boosters.items():
+        assert bench_mod.train_iterations(b, 10, boost_kinds[kind][0]) == 10
+        (_, _, auc_boost[kind], _), = b.eval_train()
+    assert abs(auc_boost["chunk"] - auc_boost["eager"]) <= 2e-3, auc_boost
+    assert min(auc_boost.values()) > 0.7, auc_boost
+    scores_hold(boosters["chunk"])
+    # a whole chunk, from its first replay to the readback, makes no
+    # synchronizing call
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ran, stopped = boosters["chunk"].update_chunk(chunk)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ran, stopped) == (chunk, False) and boosters["chunk"].num_trees() == 20
+    scores_hold(boosters["chunk"])
+    for kind in ("eager", "graph"):
+        assert bench_mod.train_iterations(boosters[kind], 10, 1) == 10
+
+    # turns of 10 iterations, eager, graph, chunk, chunk, graph, eager, each
+    # with the launch counts from 0 (replays counted by the graph)
+    boost_ips = {kind: [] for kind in boosters}
+    turn_launches = {}
+    for kind in ("eager", "graph", "chunk", "chunk", "graph", "eager"):
+        ran, secs, got = counted(
+            lambda: bench_mod.train_iterations(boosters[kind], 10, boost_kinds[kind][0]))
+        assert ran == 10, (kind, ran)
+        boost_ips[kind].append(10 / secs)
+        turn_launches.setdefault(kind, got)
+        assert got == turn_launches[kind], ("launches differ between turns", kind)
+        if kind == "chunk":
+            scores_hold(boosters["chunk"])
+    assert turn_launches["eager"] == turn_launches["graph"] == turn_launches["chunk"], turn_launches
+    per_iter = {k: v / 10 for k, v in turn_launches["graph"].items()}
+    assert per_iter == {k: float(v) for k, v in tree_graph_launches.items()}, (per_iter, tree_graph_launches)
+
+    # the host's time to queue an iteration: the eager launches, one replay,
+    # and 10 replays (the chunk's), each from a synchronised card
+    enqueue_us = {"eager": [], "graph": [], "chunk": []}
+    for kind, n, eager in (("eager", 1, True), ("graph", 1, False), ("chunk", chunk, False)):
+        g = boosters[kind]._gbdt
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.launch_iterations(n, eager=eager)
+            enqueue_us[kind].append((time.perf_counter() - t0) * 1e6 / n)
+            assert not g._keep_trees(g.collect_iterations(n))
+    scores_hold(boosters["chunk"])
+
+    # one profiled iteration of each (the chunk: 10): device busy time,
+    # copies each way, and the kernels' span on the card with the gaps
+    # between consecutive kernels (in a chunk, those between replays among them)
+    def profiled(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
+            fn()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof_.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and not ev.name.startswith(("Memcpy", "Memset")))
+        gaps_us = sorted((b_[0] - a_[1] for a_, b_ in zip(spans, spans[1:])), reverse=True)
+        timeline = dict(
+            span_ms=(spans[-1][1] - spans[0][0]) / 1e3, kernels=len(spans),
+            gaps_us_sum=sum(g_ for g_ in gaps_us if g_ > 0),
+            gaps_us_median=statistics.median(gaps_us), gaps_us_largest=gaps_us[:12],
+        ) if len(spans) > 1 else "not measured"
+        busy, kernels, copies_ = 0.0, 0, {"HtoD": 0, "DtoH": 0}
+        for ev in prof_.key_averages():
+            for way in copies_:
+                if "Memcpy " + way in ev.key:
+                    copies_[way] += ev.count
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0)
+            busy += us / 1e3
+            kernels += ev.count
+        return busy, kernels, copies_, timeline
+
+    prof_boost = {}
+    for kind, fn, n in (("eager", boosters["eager"].update, 1), ("graph", boosters["graph"].update, 1),
+                        ("chunk", lambda: boosters["chunk"].update_chunk(chunk), chunk)):
+        busy, kernels, copies_, timeline = profiled(fn)
+        ips = statistics.median(boost_ips[kind])
+        prof_boost[kind] = dict(
+            device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
+            timeline=timeline,
+            iterations=n, device_idle_share=[1 - busy / n * v / 1e3 for v in boost_ips[kind]]
+            if busy else "not measured", median_iterations_per_s=ips)
+    # no host-to-device copy; one device-to-host copy an iteration, and one a chunk
+    for kind in boosters:
+        assert prof_boost[kind]["copies"]["HtoD"] == 0, prof_boost
+        assert prof_boost[kind]["copies"]["DtoH"] == 1, prof_boost
+    scores_hold(boosters["chunk"])
+    del boosters
+
+    # a stop in the middle of a chunk, on 100k rows of the main path's data
+    # with gradients and hessians rounded to multiples of 2^-7 (every
+    # histogram sum exact, so training is the same bit for bit whatever the
+    # kernels' summation order): a min_gain_to_split found by bisection stops
+    # chunk 1 between iterations 2 and 10; chunk 1 stops at the same
+    # iteration in two runs, and chunk 10 keeps the same trees and scores
+    ds_stop = lgb.Dataset(X[:100_000], label=y[:100_000])
+    get_gradients = objective_mod.BinaryLogloss.get_gradients
+
+    def dyadic_gradients(self, score):
+        g_, h_ = get_gradients(self, score)
+        return torch.round(g_ * 128.0) / 128.0, torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0
+
+    def train_stop(gain, c):
+        params = dict(TRAIN_PARAMS, min_gain_to_split=gain, device_chunk_size=c)
+        return lgb.train(params, ds_stop, 12)
+
+    objective_mod.BinaryLogloss.get_gradients = dyadic_gradients
+    try:
+        free = train_stop(0.0, 1)
+        assert free.num_trees() == 12
+        lo, hi = 0.0, float(free._gbdt._tree_arrays[0].split_gain[0])
+        probes = []
+        for _ in range(16):
+            gain = (lo + hi) / 2
+            kept = train_stop(gain, 1).num_trees()
+            probes.append((gain, kept))
+            if 2 <= kept <= 8:
+                break
+            lo, hi = (gain, hi) if kept > 8 else (lo, gain)
+        assert 2 <= kept <= 8, ("no gain threshold stops inside the chunk", probes)
+        runs = [train_stop(gain, c) for c in (1, 1, chunk)]
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = get_gradients
+    ref_stop = runs[0]
+    text = ref_stop.model_to_string().split("parameters:")[0]
+    for r in runs[1:]:
+        assert r.num_trees() == kept, ("stop point differs", r.num_trees(), kept)
+        assert r.model_to_string().split("parameters:")[0] == text, "trees differ across the stop"
+        assert r._gbdt.train_score().tobytes() == ref_stop._gbdt.train_score().tobytes()
+    assert runs[2]._gbdt.device_chunk_fallback_reason() is None
+    np.testing.assert_allclose(runs[2]._gbdt.train_score(),
+                               runs[2].predict(X[:100_000], raw_score=True), rtol=1e-5, atol=1e-5)
+    del runs, ref_stop, free
+
+    say("boosting", dyadic_graph_tree_equal=True, graph_launches_per_iteration=tree_graph_launches,
+        leaf_ids=leaf_t, auc_at_10=auc_boost, sync_free_chunk=True,
+        training_iterations_per_s=boost_ips, launches_per_turn=turn_launches,
+        enqueue_us_per_iteration=enqueue_us, profile=prof_boost,
+        stop=dict(rows=100_000, min_gain_to_split=gain, trees_kept=kept, probes=probes,
+                  chunk=chunk, same_trees_and_scores=True))
+
     def hold_calls():
         """Hold every call of each histogram kernel wrapper to its plain
         version on the same rows within the two-order bound, until the returned
@@ -712,7 +937,10 @@ def main() -> int:
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]
     release = hold_calls()  # every histogram call of the CUDA run held to its plain version
-    on_gpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cuda")
+    on_gpu = lgb.Booster(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), device="cuda")
+    on_gpu._gbdt.iteration_graph = False  # a replay calls no wrapper to hold
+    for _ in range(3):
+        on_gpu.update()
     held5 = release()
     assert held5["checked"]["histogram"] > 0 and held5["checked"]["histogram_segment"] > 0, held5
     on_cpu = lgb.train(dict(TRAIN_PARAMS), lgb.Dataset(Xs, label=ys), 3, device="cpu")
@@ -969,9 +1197,15 @@ def main() -> int:
         tune.save_table(tune.build_table(ents, device_kind=torch.cuda.get_device_name(0)), path)
         return path
 
-    def train_at(mb, dt, tune_path):
+    def train_at(mb, dt, tune_path, eager=False):
+        """10 iterations; ``eager``: the device loop's eager launches, whose
+        wrapper calls ``hold_calls`` can hold (a replay calls none)."""
         params = dict(TRAIN_PARAMS, max_bin=mb, tpu_hist_dtype=dt, hist_tune=tune_path)
-        return lgb.train(params, datasets[mb], 10)
+        bst_ = lgb.Booster(params, datasets[mb])
+        bst_._gbdt.iteration_graph = not eager
+        for _ in range(10):
+            bst_.update()
+        return bst_
 
     U = 2.0 ** -24  # f32 unit roundoff
     labels = torch.as_tensor(y, dtype=torch.float64, device=dev)
@@ -1094,7 +1328,7 @@ def main() -> int:
     for kind, mb, dt, path in runs:
         timed, secs, got = counted(lambda: train_at(mb, dt, path))
         release = hold_calls()  # the same training again, every kernel call held
-        bst = train_at(mb, dt, path)
+        bst = train_at(mb, dt, path, eager=True)
         held = release()
         aucs = []
         for b in (timed, bst):
@@ -1168,7 +1402,9 @@ def main() -> int:
         "histogram_segment": ("histogram.cu", sources["histogram"][1]),
         "histogram_segment_bf16": ("histogram.cu", sources["histogram"][1]),
         "split_pair_step": ("split_pair.cu", "lightgbm_tpu/ops/split_pallas.py:221"),
+        "leaf_ids": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1880"),
     }
+    step_t["leaf_ids"] = leaf_t  # timed in phase 4c on a 255-leaf layout at 1M rows
     for name, (src, rep) in loop_sources.items():
         t = step_t[name]
         kernels.append(dict(

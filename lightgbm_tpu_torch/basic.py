@@ -1,7 +1,7 @@
 """Public Dataset / Booster handles of the PyTorch port.
 
 The surface of lightgbm_tpu/basic.py that this slice uses: a lazily binned
-``Dataset`` and a ``Booster`` that trains (``update``), predicts, evaluates
+``Dataset`` and a ``Booster`` that trains (``update``, ``update_chunk``), predicts, evaluates
 its training metrics and writes or loads LightGBM model text. A Booster
 runs on ``device`` ("cuda" unless the caller asks for "cpu"; the
 ``device``/``device_type`` param key sets it too) and raises when CUDA is
@@ -127,6 +127,15 @@ class Booster:
     def update(self) -> bool:
         """One boosting iteration; True when training stopped (no split)."""
         return self._gbdt.train_one_iter()
+
+    def update_chunk(self, n: int):
+        """Up to ``n`` boosting iterations with nothing read back between
+        them (GBDT.train_chunk); returns (iterations run, stopped). A single
+        ``update()`` when ``n <= 1`` or chunking cannot run
+        (``GBDT.device_chunk_fallback_reason``), so callers may loop on it."""
+        if n <= 1 or self._gbdt.device_chunk_fallback_reason() is not None:
+            return 1, self.update()
+        return self._gbdt.train_chunk(n)
 
     @property
     def current_iteration(self) -> int:

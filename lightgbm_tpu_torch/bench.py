@@ -1,26 +1,35 @@
-"""Training throughput of the port on the ``bench.py`` shape, both split loops
-paired in one process.
+"""Training throughput of the port on the ``bench.py`` shape, its boosting
+loops paired in one process.
 
     python -m lightgbm_tpu_torch.bench [--rows 1000000] [--iters 10]
-        [--pairs 2] [--warmup 3] [--device cuda] [--out results.json]
+        [--pairs 2] [--warmup 3] [--chunk 10] [--device cuda] [--out results.json]
 
 Trains binary GBDT on ``make_higgs_like(rows, 28)`` (helpers/bench_data.py,
 the data of ``bench.py``) with num_leaves=255, max_bin=255,
-learning_rate=0.1: one booster grows its trees with the device-resident
-split loop (ops/grow.py ``grow_tree_device``), another with the host loop
-(``grow_tree``). After ``warmup`` iterations each (which build and load the
-kernels), they take turns of ``iters`` iterations, device, host, host,
-device, ``pairs`` times, each turn timed on the host clock from a
-synchronise to a synchronise: iterations per second spread 30-50% inside
-one process, so only turns of one call compare. Binning is set-up and not
-timed.
+learning_rate=0.1, in four boosters:
+
+ * ``graph``: the device-resident split loop with each iteration one replay
+   of the captured CUDA graph (models/gbdt.py), what training takes by
+   default on this shape;
+ * ``chunk``: the same with ``device_chunk_size`` = ``chunk``, ``chunk``
+   replays a call and one readback (``Booster.update_chunk``);
+ * ``device``: the device loop's eager launches (``iteration_graph`` off);
+ * ``host``: the host split loop (ops/grow.py ``grow_tree``).
+
+On the CPU the graph and chunk boosters run their iterations eagerly.
+After ``warmup`` iterations each (which build and load the kernels and
+capture the graph), they take turns of ``iters`` iterations, graph, chunk,
+device, host, host, device, chunk, graph, ``pairs`` times, each turn timed
+on the host clock from a synchronise to a synchronise: iterations per
+second spread 30-50% inside one process, so only turns of one call compare.
+Binning is set-up and not timed.
 
 Prints ONE JSON line, the line of ``bench.py``: ``metric``, ``value`` (the
-median over the device loop's turns, the loop training takes on this shape),
-``unit``, ``vs_baseline`` (value over LightGBM on the CPU, below), plus the
-host loop's median, every turn, each booster's training AUC, the card's
-name and power limit, and the settings. Exits 2 with the line's value 0.0
-and an ``error`` when the device asked for is not there.
+median over the graph booster's turns), ``unit``, ``vs_baseline`` (value
+over LightGBM on the CPU, below), plus the other boosters' medians, every
+turn, each booster's training AUC, the card's name and power limit, and the
+settings. Exits 2 with the line's value 0.0 and an ``error`` when the device
+asked for is not there.
 
 Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
 iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
@@ -45,7 +54,8 @@ PARAMS = {
     "objective": "binary", "metric": "auc", "num_leaves": 255, "max_bin": 255,
     "learning_rate": 0.1, "verbose": -1,
 }
-LOOPS = ("device", "host")
+LOOPS = ("graph", "chunk", "device", "host")
+TURNS = ("graph", "chunk", "device", "host", "host", "device", "chunk", "graph")
 
 
 def _line(value: float, **extra) -> str:
@@ -67,11 +77,25 @@ def card_name_and_limit() -> str:
     return out[0] if out else "nvidia-smi unavailable"
 
 
-def paired_turns(train_set, iters: int, pairs: int, warmup: int, device: str) -> Dict:
-    """Two boosters on ``train_set``, one a split loop, in turns of
-    ``iters`` timed iterations (device, host, host, device per pair) after
-    ``warmup`` each. Returns every turn's iterations/s by loop, the boosters
-    and the median of each loop."""
+def train_iterations(booster, n: int, chunk: int) -> int:
+    """``n`` iterations of ``booster``, by ``update_chunk`` calls of up to
+    ``chunk`` (``update`` at 1); fewer when training stops. Returns how many
+    ran."""
+    done = 0
+    while done < n:
+        ran, stopped = booster.update_chunk(min(chunk, n - done))
+        done += ran
+        if stopped:
+            break
+    return done
+
+
+def paired_turns(train_set, iters: int, pairs: int, warmup: int, device: str,
+                 chunk: int = 10) -> Dict:
+    """The four boosters of ``LOOPS`` on ``train_set`` in turns of ``iters``
+    timed iterations (``TURNS`` per pair) after ``warmup`` each. Returns
+    every turn's iterations/s by booster, the boosters and each one's
+    median."""
     import torch
 
     import lightgbm_tpu_torch as lgb
@@ -80,22 +104,22 @@ def paired_turns(train_set, iters: int, pairs: int, warmup: int, device: str) ->
         if device == "cuda":
             torch.cuda.synchronize()
 
-    boosters = {}
+    boosters, chunks = {}, {}
     for loop in LOOPS:
-        b = lgb.Booster(dict(PARAMS), train_set, device=device)
-        b._gbdt.grow_loop = loop
-        for _ in range(warmup):
-            b.update()
+        chunks[loop] = chunk if loop == "chunk" else 1
+        b = lgb.Booster(dict(PARAMS, device_chunk_size=chunks[loop]), train_set, device=device)
+        b._gbdt.grow_loop = "host" if loop == "host" else "device"
+        b._gbdt.iteration_graph = device == "cuda" and loop in ("graph", "chunk")
+        train_iterations(b, warmup, chunks[loop])
         boosters[loop] = b
     turns: Dict[str, List[float]] = {loop: [] for loop in LOOPS}
     for _ in range(pairs):
-        for loop in ("device", "host", "host", "device"):
+        for loop in TURNS:
             sync()
             t0 = time.perf_counter()
-            for _ in range(iters):
-                boosters[loop].update()
+            ran = train_iterations(boosters[loop], iters, chunks[loop])
             sync()
-            turns[loop].append(iters / (time.perf_counter() - t0))
+            turns[loop].append(ran / (time.perf_counter() - t0))
     return {"turns": turns, "boosters": boosters,
             "median": {loop: statistics.median(v) for loop, v in turns.items()}}
 
@@ -106,6 +130,7 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=10, help="timed iterations a turn")
     ap.add_argument("--pairs", type=int, default=2, help="device, host, host, device turns")
     ap.add_argument("--warmup", type=int, default=3, help="untimed iterations a booster")
+    ap.add_argument("--chunk", type=int, default=10, help="device_chunk_size of the chunk booster")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--out", default="", help="also write the line and the turns here")
     args = ap.parse_args(argv)
@@ -122,7 +147,7 @@ def main(argv=None) -> int:
 
     X, y = make_higgs_like(args.rows, FEATURES)
     train_set = lgb.Dataset(X, label=y)
-    run = paired_turns(train_set, args.iters, args.pairs, args.warmup, args.device)
+    run = paired_turns(train_set, args.iters, args.pairs, args.warmup, args.device, args.chunk)
     aucs = {}
     for loop, b in run["boosters"].items():
         (_, _, aucs[loop], _), = b.eval_train()
@@ -130,9 +155,11 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
     med = run["median"]
     line = _line(
-        med["device"], host_loop_iters_per_sec=med["host"],
+        med["graph"], chunk_iters_per_sec=med["chunk"], eager_device_loop_iters_per_sec=med["device"],
+        host_loop_iters_per_sec=med["host"], graph_over_eager=med["graph"] / med["device"],
         device_over_host=med["device"] / med["host"], turns=run["turns"], auc=aucs,
-        rows=args.rows, iters_per_turn=args.iters, pairs=args.pairs, device=kind, card=card,
+        rows=args.rows, iters_per_turn=args.iters, pairs=args.pairs, chunk=args.chunk,
+        device=kind, card=card,
     )
     print(line, flush=True)
     if args.out:

@@ -4,6 +4,17 @@
 // control vector in device memory, so the host launches a step without
 // reading anything back.
 //
+// A third kernel, leaf_ids, runs once a tree after the loop: each row's
+// leaf from the segment layout, the counterpart of the reconstruction after
+// the reference's loop (lightgbm_tpu/ops/grow.py:1880-1893, an argsort and
+// a searchsorted over the leaves' begins, then a scatter through the row
+// permutation). A block owns a tile of kLeafTile positions of ``order``; its
+// threads list the non-empty leaves whose segment meets the tile (at most
+// kLeafTile of them), then the block writes each listed leaf's index to
+// ``leaf_id[order[i]]`` for its positions i in the tile. Every position
+// belongs to one leaf, so no two writes meet and the list's order does not
+// matter. It moves 12 bytes a row (order in, int64 leaf_id out).
+//
 // Counterpart of lightgbm_tpu/ops/grow.py's while_loop body: cond / body
 // (the stop test and the argmax over the leaves' best gains), apply_split
 // (the node and leaf arrays, depth, internal_value through
@@ -43,6 +54,8 @@ constexpr int kGain = 0, kLG = 1, kLH = 2, kLC = 3, kRG = 4, kRH = 5, kRC = 6, k
               kRO = 8;
 constexpr int kBestF = 9, kBestI = 4, kNodeI = 5, kNodeF = 3, kLeafF = 3, kLeafI = 2,
               kLaux = 5;
+// positions of ``order`` a leaf_ids block owns
+constexpr int kLeafTile = 4096;
 
 struct Params {
   float l1, l2, max_delta_step;
@@ -170,6 +183,33 @@ subtract_kernel(const int* __restrict__ ctl, float* __restrict__ hist,
   }
 }
 
+// leaf_id[order[i]] = l for every position i of leaf l's segment
+// [leaf_begin[l], leaf_begin[l] + leaf_count[l]), l < ctl[kNumLeaves].
+__global__ void __launch_bounds__(kThreads)
+leaf_id_kernel(const int* __restrict__ ctl, const int* __restrict__ order,
+               const int* __restrict__ leaf_begin, const int* __restrict__ leaf_count, int M,
+               long long N, long long* __restrict__ leaf_id) {
+  __shared__ int listed[kLeafTile];
+  __shared__ int n_listed;
+  const long long lo = (long long)blockIdx.x * kLeafTile;
+  const long long hi = min(lo + kLeafTile, N);
+  const int nl = min(ctl[kNumLeaves], M);
+  if (threadIdx.x == 0) n_listed = 0;
+  __syncthreads();
+  for (int l = threadIdx.x; l < nl; l += kThreads) {
+    const long long b = leaf_begin[l], e = b + leaf_count[l];
+    if (e > b && b < hi && e > lo) listed[atomicAdd(&n_listed, 1)] = l;
+  }
+  __syncthreads();
+  const int n = n_listed;
+  for (int j = 0; j < n; ++j) {
+    const int l = listed[j];
+    const long long b = leaf_begin[l];
+    const long long s = max(b, lo), e = min(b + leaf_count[l], hi);
+    for (long long i = s + threadIdx.x; i < e; i += kThreads) leaf_id[order[i]] = l;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -200,6 +240,18 @@ int lgbt_hist_subtract(const void* ctl, void* hist, void* small, long long cells
   if (cells < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   subtract_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int*)ctl, (float*)hist, (float*)small, cells);
+  return (int)cudaGetLastError();
+}
+
+// Each row's leaf, leaf_id [N] int64, from the loop's segment layout:
+// order [N] int32, leaf_begin / leaf_count [M] int32 and ctl[kNumLeaves].
+int lgbt_leaf_ids(const void* ctl, const void* order, const void* leaf_begin,
+                  const void* leaf_count, int M, long long N, void* leaf_id, void* stream) {
+  if (M < 1 || N < 1) return (int)cudaErrorInvalidValue;
+  const long long grid = (N + kLeafTile - 1) / kLeafTile;
+  leaf_id_kernel<<<(unsigned)grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)ctl, (const int*)order, (const int*)leaf_begin, (const int*)leaf_count, M, N,
+      (long long*)leaf_id);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,7 @@ operands (``tpu_hist_dtype``), and measured histogram routing: the tune
 table named by ``hist_tune`` or LIGHTGBM_TPU_HIST_TUNE is frozen once at
 set-up into a ``HistRoute`` (``_resolve_hist_route``). The split loop is
 chosen once at set-up too (``grow_loop``): the device-resident loop
-(ops/grow.py ``grow_tree_device``) when that route sends every row class
+(ops/grow.py ``launch_tree``) when that route sends every row class
 to ``cuda``, which it always does on CUDA without a table
 (``device_loop_routable``); else the host loop (``grow_tree``), which
 routes each call. Per iteration: the
@@ -16,6 +16,15 @@ objective gradients at the current scores, one grown tree
 index (score_updater.hpp:80). Scores live on the training device as
 ``[1, N]`` f32; trees stay as host TreeArrays until they are materialised
 into model Trees for text output or prediction.
+
+On the device loop the whole iteration is queued with nothing read back
+(``_device_iteration``: gradients, tree, shrinkage and score update on the
+device, the packed tree copied into a ring row). On CUDA it is captured
+once as a CUDA graph (ops/cuda_graph.py) and each later iteration is one
+replay; ``train_chunk(n)`` (``device_chunk_size`` = n, the reference's
+device-resident chunked boosting) queues n replays and reads the n trees
+back with one copy, bit for bit the trees and scores of n single
+iterations.
 
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
@@ -32,8 +41,10 @@ from ..dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
-from ..ops import hist_kernel
-from ..ops.grow import TreeArrays, device_loop_routable, grow_tree, grow_tree_device
+from ..ops import cuda_graph, grow_state, hist_kernel
+from ..ops.grow import (
+    TreeArrays, device_loop_routable, grow_tree, launch_tree, leaf_ids, tree_from_packed,
+)
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw
 from ..ops.split import SplitParams
@@ -70,8 +81,6 @@ def check_supported(config: Config) -> None:
         refused.append("tpu_hist_mode=%s" % config.tpu_hist_mode)
     if config.tpu_hist_dtype not in HIST_DTYPES:
         refused.append("tpu_hist_dtype=%s" % config.tpu_hist_dtype)
-    if config.device_chunk_size > 1:
-        refused.append("device_chunk_size=%d" % config.device_chunk_size)
     if refused:
         raise NotImplementedError(
             "not ported to lightgbm_tpu_torch yet: %s" % ", ".join(refused)
@@ -142,11 +151,20 @@ class GBDT:
         # (N * F / 2 bytes), made once here rather than on every call
         self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.num_bins <= 16 else None
         self.hist_route = self._resolve_hist_route()
-        #: "device" (grow_tree_device) or "host" (grow_tree); a dispatch on
+        #: "device" (launch_tree) or "host" (grow_tree); a dispatch on
         #: the frozen route, fixed here. Tools that time both loops set it.
         self.grow_loop = "device" if device_loop_routable(
             self.num_data, self.num_bins, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
+        #: on CUDA the device loop replays its iteration as one captured
+        #: CUDA graph; tools that time the eager launches set it False
+        self.iteration_graph = dev.type == "cuda"
         self._grow_state = None  # the device loop's buffers, kept between trees
+        self._ring = None  # [rows, packed] int32: the trees of a chunk, read back at once
+        self._ring_host = None  # its pinned host copy (CUDA)
+        self._ring_slot = torch.zeros(1, dtype=torch.int64, device=dev)  # the next row
+        # set once an iteration of the chunk grew no tree: later ones add zeros
+        self._chunk_stopped = torch.zeros(1, dtype=torch.bool, device=dev)
+        self._graph = None  # (key, cuda_graph.Graph) of the captured iteration
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
         self.split_params = SplitParams(
             lambda_l1=cfg.lambda_l1,
@@ -198,16 +216,8 @@ class GBDT:
         return self.objective.get_gradients(self.scores[0])
 
     def _train_tree(self, grad: torch.Tensor, hess: torch.Tensor):
+        """One tree of the host split loop and each row's leaf."""
         cfg = self.config
-        if self.grow_loop == "device":
-            tree, leaf_id, self._grow_state = grow_tree_device(
-                self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
-                num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
-                num_bins=self.num_bins, params=self.split_params,
-                two_way=self._two_way, bins_nf=self.bins_nf,
-                hist_dtype=cfg.tpu_hist_dtype, state=self._grow_state,
-            )
-            return tree, leaf_id
         return grow_tree(
             self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
             num_leaves=cfg.num_leaves, max_depth=cfg.max_depth,
@@ -216,22 +226,142 @@ class GBDT:
             route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype, bins_packed=self.bins_p4,
         )
 
-    def _finish_tree(self, tree: TreeArrays, leaf_id: torch.Tensor) -> TreeArrays:
-        """Shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of the
-        shrunk leaf values gathered by each row's leaf."""
+    def _shrink(self, tree: TreeArrays) -> TreeArrays:
+        """The tree's host arrays times the learning rate (``_finish_step``
+        of the reference): leaf values where it split (else zeros) and
+        internal values, the same f32 products the device finish takes."""
         rate = np.float32(self.shrinkage_rate)
         if int(tree.num_leaves) > 1:
             leaf_value = tree.leaf_value * rate
         else:
             leaf_value = torch.zeros_like(tree.leaf_value)
-        self.scores[0] += leaf_value.to(self.device)[leaf_id]
-        return tree._replace(
-            leaf_value=leaf_value, internal_value=tree.internal_value * rate
-        )
+        return tree._replace(leaf_value=leaf_value, internal_value=tree.internal_value * rate)
+
+    # ------------------------------------------------------------------
+    # the device loop's iteration: queued whole, captured once on CUDA
+    # ------------------------------------------------------------------
+    def _device_buffers(self, rows: int) -> None:
+        """The split loop's state and a ring of at least ``rows`` packed trees."""
+        cfg = self.config
+        F, N = self.bins_dev.shape
+        s = self._grow_state
+        if s is None or not s.fits(self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves):
+            s = self._grow_state = grow_state.GrowState(
+                self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves)
+        if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
+            shape = (max(rows, cfg.device_chunk_size, 1), s.packed.numel())
+            self._ring = torch.zeros(shape, dtype=torch.int32, device=self.device)
+            if self.device.type == "cuda":
+                self._ring_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+
+    def _device_iteration(self) -> None:
+        """Queue one boosting iteration on the device loop, reading nothing
+        back: the gradients at the current scores, the tree
+        (ops/grow.py ``launch_tree``), each row's leaf, the shrinkage and
+        score update on the device, the tree copied into the ring's next
+        row. The reference's chunked scan body (``_chunk_fn``,
+        ``_finish_step``): a tree that did not split, and every tree after
+        one in the chunk (``_chunk_stopped``), adds exact zeros; the score
+        update is a gather and a plain f32 add, never a multiply-add."""
+        cfg = self.config
+        s = self._grow_state
+        grad, hess = self._compute_gradients()
+        launch_tree(s, self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
+                    cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
+                    cfg.tpu_hist_dtype)
+        leaf_id = leaf_ids(s)
+        grew = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1] > 1
+        rate = float(np.float32(self.shrinkage_rate))
+        value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * rate, 0.0)
+        self.scores[0].add_(value[leaf_id])
+        self._chunk_stopped |= ~grew
+        self._ring.index_copy_(0, self._ring_slot, s.packed[None])
+        self._ring_slot += 1
+
+    def _iteration_key(self) -> tuple:
+        """What the captured iteration bakes in (the reference's ``_chunk_fn``
+        cache key): a change of any of it captures again."""
+        cfg = self.config
+        return (self.num_data, self.bins_dev.shape[0], self.num_bins, cfg.num_leaves,
+                cfg.max_depth, self.split_params, self._two_way, cfg.tpu_hist_dtype,
+                float(np.float32(self.shrinkage_rate)), id(self._grow_state), id(self._ring),
+                id(self.scores), self.device)
+
+    def _captured_iteration(self) -> cuda_graph.Graph:
+        key = self._iteration_key()
+        if self._graph is None or self._graph[0] != key:
+            self._graph = None  # the old graph's memory goes first
+            graph = cuda_graph.Graph(self._device_iteration, self.device)
+            # the buffers the key names by id stay alive as long as the graph
+            self._graph = (key, graph, (self._grow_state, self._ring, self.scores))
+        return self._graph[1]
+
+    def launch_iterations(self, n: int, eager: bool = False) -> None:
+        """Queue ``n`` iterations of the device loop, reading nothing back:
+        the ring and the stop flag reset on the device, then ``n`` replays
+        of the captured iteration (CUDA with ``iteration_graph``; captured
+        at the first call) or ``n`` eager iterations (``eager``, the CPU,
+        or ``iteration_graph`` False). :meth:`collect_iterations` reads the
+        trees back."""
+        self._device_buffers(n)
+        self._ring_slot.zero_()
+        self._chunk_stopped.zero_()
+        if eager or not self.iteration_graph:
+            for _ in range(n):
+                self._device_iteration()
+            return
+        graph = self._captured_iteration()
+        for _ in range(n):
+            graph.replay()
+
+    def collect_iterations(self, n: int) -> List[TreeArrays]:
+        """The ``n`` trees of the last :meth:`launch_iterations`, shrunk,
+        from one device-to-host copy of the ring (on CUDA into pinned
+        memory, waited for on an event: no synchronizing call)."""
+        if self.device.type == "cuda":
+            host = self._ring_host[:n]
+            host.copy_(self._ring[:n], non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+            host = host.clone()  # the pinned ring is refilled by the next chunk
+        else:
+            host = self._ring[:n].clone()
+        M, B = self.config.num_leaves, self.num_bins
+        return [self._shrink(tree_from_packed(host[i], M, B)) for i in range(n)]
+
+    def _keep_trees(self, trees: List[TreeArrays], init_score: float = 0.0) -> bool:
+        """Append the shrunk trees of iterations run in order; at the first
+        that did not split, drop it and every later one, warn
+        and stop (the reference's ``_consume_pending_stop``): those later
+        iterations added exact zeros to the scores. Returns True on a stop.
+        ``init_score`` (the first iteration's boost from average) folds into
+        the leaf values, and a first iteration that does not split keeps its
+        constant tree and re-adds the init score (gbdt.cpp:375-395)."""
+        for tree in trees:
+            if abs(init_score) > K_EPSILON:
+                tree = tree._replace(leaf_value=tree.leaf_value + np.float32(init_score))
+            if int(tree.num_leaves) <= 1:
+                log.warning("Stopped training because there are no more leaves that meet the split requirements")
+                self._stopped = True
+                if not self.models:
+                    self.models.append(None)
+                    self._tree_arrays.append(tree)
+                    if abs(init_score) > K_EPSILON:
+                        self.scores += np.float32(init_score)
+                return True
+            self.models.append(None)
+            self._tree_arrays.append(tree)
+            self.iter_ += 1
+        return False
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; returns True when training should stop
-        because the tree could not split (TrainOneIter, gbdt.cpp:332-413)."""
+        because the tree could not split (TrainOneIter, gbdt.cpp:332-413).
+        On the device loop the first iteration runs eagerly (it builds and
+        loads the kernels, and folds the boost-from-average score); on CUDA
+        every later one is one replay of the captured iteration, and one
+        device-to-host copy reads its tree back."""
         if self._stopped:
             return True
         init_score = self._boost_from_average()
@@ -249,26 +379,62 @@ class GBDT:
             log.warning("Stopped training because there are no more leaves that meet the split requirements")
             self._stopped = True
             return True
+        if self.grow_loop == "device":
+            self.launch_iterations(1, eager=not self.models)
+            return self._keep_trees(self.collect_iterations(1), init_score)
         grad, hess = self._compute_gradients()
         tree, leaf_id = self._train_tree(grad, hess)
-        tree = self._finish_tree(tree, leaf_id)
-        if abs(init_score) > K_EPSILON:
-            tree = tree._replace(leaf_value=tree.leaf_value + np.float32(init_score))
-        if int(tree.num_leaves) <= 1:
-            log.warning("Stopped training because there are no more leaves that meet the split requirements")
-            self._stopped = True
-            if not self.models:
-                # first iteration: keep the constant tree and re-add its
-                # output to the scores (gbdt.cpp:375-395)
-                self.models.append(None)
-                self._tree_arrays.append(tree)
-                if abs(init_score) > K_EPSILON:
-                    self.scores += np.float32(init_score)
-            return True
-        self.models.append(None)
-        self._tree_arrays.append(tree)
-        self.iter_ += 1
-        return False
+        tree = self._shrink(tree)
+        # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of the
+        # shrunk leaf values gathered by each row's leaf
+        self.scores[0] += tree.leaf_value.to(self.device)[leaf_id]
+        return self._keep_trees([tree], init_score)
+
+    # ------------------------------------------------------------------
+    # device-resident chunked boosting (the reference's train_chunk)
+    # ------------------------------------------------------------------
+    def device_chunk_fallback_reason(self) -> Optional[str]:
+        """Why :meth:`train_chunk` must run iterations one at a time (None:
+        the chunked device loop can run). The reference's reasons that
+        apply to the port, and its own: the host split loop."""
+        if self.config.device_chunk_size <= 1:
+            return "device_chunk_size <= 1"
+        if self.objective is None:
+            return "no objective (host-computed gradients)"
+        if self.train_set is None or self.train_set.num_features == 0:
+            return "no usable features (constant-tree path is host-side)"
+        if not self.objective.class_need_train(0):
+            return "untrained constant class (class_need_train=False)"
+        if self.grow_loop != "device":
+            return ("the host split loop: the histogram route sends a row class to a kernel "
+                    "the device loop does not launch")
+        return None
+
+    def device_chunk(self) -> int:
+        """The chunk the engine steps by (1 when a fallback reason exists)."""
+        if self.device_chunk_fallback_reason() is not None:
+            return 1
+        return self.config.device_chunk_size
+
+    def train_chunk(self, n: int) -> Tuple[int, bool]:
+        """Run up to ``n`` boosting iterations; returns (iterations run,
+        stopped). With no fallback reason and ``n > 1``: the first iteration
+        of a training runs alone (:meth:`train_one_iter`: boost from
+        average, init-score folding); otherwise the ``n`` iterations are
+        queued as ``n`` replays of the captured iteration (eager iterations
+        on the CPU) with nothing read back in between, then one copy reads
+        their trees back. The stop is resolved here: the trees from the first
+        that did not split on are dropped (they added exact zeros to the
+        scores), so trees and scores equal those of ``n`` calls of
+        :meth:`train_one_iter` bit for bit."""
+        if n <= 1 or self.device_chunk_fallback_reason() is not None:
+            return 1, self.train_one_iter()
+        if self._stopped:
+            return 0, True
+        if not self.models:
+            return 1, self.train_one_iter()
+        self.launch_iterations(n)
+        return n, self._keep_trees(self.collect_iterations(n))
 
     # ------------------------------------------------------------------
     def _materialize(self) -> None:

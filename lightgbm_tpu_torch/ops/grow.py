@@ -27,8 +27,12 @@ Two split loops grow the same tree, bit for bit:
    (``grow_step_kernel.subtract``) and both children's split scan
    (ops/split_kernel.py ``split_pair_step``), every one reading its leaf
    indices and bounds from the state. Once the best gain is not > 0 the
-   kernels of the later steps return at once. One device-to-host copy reads
-   the tree back at the end. Every histogram call is ``csrc/histogram.cu``.
+   kernels of the later steps return at once. Each row's leaf comes from
+   the segment layout (``leaf_ids``, csrc/grow_step.cu) and one
+   device-to-host copy reads the tree back at the end. Every histogram call
+   is ``csrc/histogram.cu``. Nothing of it reads back or allocates on the
+   host, so models/gbdt.py captures a whole boosting iteration around
+   ``launch_tree`` as one CUDA graph.
  * ``grow_tree``, the host loop: per split it reads the partition's left
    count and the children's packed split records back (two small syncs),
    picks the best leaf with a host argmax, and wires the tree in host
@@ -315,21 +319,16 @@ def launch_tree(s: gs.GrowState, *args, **kwargs) -> None:
 
 
 def leaf_ids(s: gs.GrowState) -> torch.Tensor:
-    """Per-row leaf index [N] int64 from the segment layout, on the state's
-    device with no sync: the leaves in order of their begin, each repeated
-    over its count (``output_size`` N, so nothing sizes it on the host),
-    scattered to the rows of ``order``."""
-    by_begin = torch.argsort(s.leaf_begin)
-    pos_leaf = torch.repeat_interleave(by_begin, s.leaf_count[by_begin], output_size=s.N)
-    leaf_id = torch.empty(s.N, dtype=torch.int64, device=s.device)
-    return leaf_id.scatter_(0, s.order.long(), pos_leaf)
+    """Per-row leaf index [N] int64 of the tree the state holds, on the
+    state's device with no sync (ops/grow_step_kernel.py ``leaf_ids``: the
+    kernel of csrc/grow_step.cu on CUDA, the plain version on the CPU)."""
+    return grow_step_kernel.leaf_ids(s)
 
 
-def read_tree(s: gs.GrowState) -> TreeArrays:
-    """The grown tree as host TreeArrays, from one device-to-host copy of
-    the state's packed buffer."""
-    M, B = s.M, s.B
-    host = s.packed.to("cpu", copy=True)  # a copy on the CPU too: the state is reused
+def tree_from_packed(host: torch.Tensor, M: int, B: int) -> TreeArrays:
+    """Host TreeArrays of an M-leaf tree from a host copy of a state's packed
+    int32 buffer (ops/grow_state.py ``unpack``); the arrays are views of
+    ``host``."""
     ctl, node_i, leaf_i, node_f, leaf_f = gs.unpack(host, M)
     nl = int(ctl[gs.NUM_LEAVES])
     cat_member = torch.zeros((M - 1, B), dtype=torch.bool)
@@ -352,6 +351,13 @@ def read_tree(s: gs.GrowState) -> TreeArrays:
         leaf_depth=leaf_i[:, 1],
         cat_member=cat_member,
     )
+
+
+def read_tree(s: gs.GrowState) -> TreeArrays:
+    """The grown tree as host TreeArrays, from one device-to-host copy of
+    the state's packed buffer."""
+    # a copy on the CPU too: the state is reused
+    return tree_from_packed(s.packed.to("cpu", copy=True), s.M, s.B)
 
 
 def grow_tree_device(

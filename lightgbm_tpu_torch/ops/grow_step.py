@@ -1,10 +1,12 @@
 """One step's pick, tree wiring and histogram subtraction of the split
-loop: the plain PyTorch versions.
+loop, and each row's leaf after it: the plain PyTorch versions.
 
 Counterpart of lightgbm_tpu/ops/grow.py's while_loop ``cond``/``body`` and
 ``apply_split`` (the node and leaf arrays, depth, ``internal_value``, the
 children's sums and monotone windows, the smaller-child choice), then the
-histogram subtraction trick (serial_tree_learner.cpp:510). They act on a
+histogram subtraction trick (serial_tree_learner.cpp:510), and the per-row
+leaf index rebuilt from the segment layout (lightgbm_tpu/ops/grow.py:
+1880-1893). They act on a
 :class:`~.grow_state.GrowState` and are the oracles of csrc/grow_step.cu
 (ops/grow_step_kernel.py) and the path taken for CPU tensors. The
 operations are those of the host loop (ops/grow.py ``grow_tree``), in f32.
@@ -81,3 +83,14 @@ def subtract(s: gs.GrowState) -> None:
     s.hist[large] = parent - s.small
     s.hist[small] = s.small
     s.small.zero_()
+
+
+def leaf_ids(s: gs.GrowState) -> torch.Tensor:
+    """Per-row leaf index [N] int64 from the segment layout of the state's
+    first ``ctl[NUM_LEAVES]`` leaves, with no sync: the leaves in order of
+    their begin, each repeated over its count (``output_size`` N, so
+    nothing sizes it on the host), scattered to the rows of ``order``."""
+    by_begin = torch.argsort(s.leaf_begin)
+    pos_leaf = torch.repeat_interleave(by_begin, s.leaf_count[by_begin], output_size=s.N)
+    leaf_id = torch.empty(s.N, dtype=torch.int64, device=s.device)
+    return leaf_id.scatter_(0, s.order.long(), pos_leaf)

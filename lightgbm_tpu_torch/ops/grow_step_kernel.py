@@ -1,8 +1,10 @@
 """Wrappers of the hand-written CUDA split-loop step (csrc/grow_step.cu).
 
 ``pick`` (the ``grow_step`` kernel: the argmax, the stop flag and the tree
-wiring of one split) and ``subtract`` (the ``hist_subtract`` kernel: the
-larger child's histogram as the parent's minus the smaller one's) act on a
+wiring of one split), ``subtract`` (the ``hist_subtract`` kernel: the
+larger child's histogram as the parent's minus the smaller one's) and
+``leaf_ids`` (the ``leaf_ids`` kernel: each row's leaf once the tree is
+grown) act on a
 :class:`~.grow_state.GrowState`: the kernels when it lies on a CUDA device,
 the plain PyTorch versions (ops/grow_step.py) when it lies on the CPU; any
 other device raises. ``launches`` counts each wrapper's launches.
@@ -15,15 +17,18 @@ from __future__ import annotations
 import ctypes
 from typing import Dict
 
+import torch
+
 from . import cuda_build, grow_state as gs
 from . import grow_step as plain
 
-launches: Dict[str, int] = {"grow_step": 0, "hist_subtract": 0}
+launches: Dict[str, int] = {"grow_step": 0, "hist_subtract": 0, "leaf_ids": 0}
 
 _ARGTYPES = {
     "lgbt_grow_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 3
     + [ctypes.c_void_p],
     "lgbt_hist_subtract": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    "lgbt_leaf_ids": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
 }
 SUBTRACT_THREADS = 256
 
@@ -78,3 +83,18 @@ def subtract(s: gs.GrowState) -> None:
         )
     cuda_build.check(_fn("lgbt_hist_subtract")(*args), "hist_subtract kernel")
     launches["hist_subtract"] += 1
+
+
+def leaf_ids(s: gs.GrowState) -> torch.Tensor:
+    """Each row's leaf, a new [N] int64 tensor, from the state's segment
+    layout, on the current stream; see csrc/grow_step.cu. Reads nothing
+    back."""
+    if not _device(s, "leaf_ids"):
+        return plain.leaf_ids(s)
+    leaf_id = torch.empty(s.N, dtype=torch.int64, device=s.device)
+    cuda_build.check(_fn("lgbt_leaf_ids")(
+        s.ctl.data_ptr(), s.order.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(),
+        s.M, s.N, leaf_id.data_ptr(), torch.cuda.current_stream(s.device).cuda_stream,
+    ), "leaf_ids kernel")
+    launches["leaf_ids"] += 1
+    return leaf_id

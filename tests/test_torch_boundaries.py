@@ -105,7 +105,7 @@ def test_wrappers_refuse_other_devices():
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
-    ({"device_chunk_size": 4}, "device_chunk_size"),
+    ({"boosting": "goss"}, "boosting"),
     ({"metric": "l2"}, "metric"),
 ])
 def test_unsupported_params_raise(params, name):

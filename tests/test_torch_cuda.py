@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu_torch.ops import cuda_graph
 from lightgbm_tpu_torch.ops import grow as grow_mod
 from lightgbm_tpu_torch.ops import grow_state as gs
 from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
@@ -731,3 +732,156 @@ def test_split_loop_makes_no_sync(dev):
     tree = grow_mod.read_tree(s)
     assert int(tree.num_leaves) == 255
     assert torch.equal(torch.bincount(leaf_id, minlength=255).cpu().float(), tree.leaf_count)
+
+
+# ---- the captured iteration and chunked boosting (ops/cuda_graph.py, models/gbdt.py)
+
+
+def test_leaf_ids_kernel_matches_plain(dev):
+    """csrc/grow_step.cu's leaf_ids against its plain version: a 255-leaf
+    tree at 100k rows, a tree stopped at the root, and a tile-crossing
+    layout of many small leaves."""
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=12)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    args = (bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    grow_mod.launch_tree(s, *args)
+    assert torch.equal(grow_step_kernel.leaf_ids(s), grow_step_plain.leaf_ids(s))
+    stopped = LOOP_PARAMS._replace(min_data_in_leaf=N)
+    grow_mod.launch_tree(s, *args[:6], stopped, *args[7:])
+    assert int(s.ctl[gs.NUM_LEAVES]) == 1
+    assert not grow_step_kernel.leaf_ids(s).any()
+    counts = torch.tensor([4095, 1, 4097, 0, 3, 70_000] + [0] * 249, dtype=torch.int32, device=dev)
+    counts[-1] = N - int(counts.sum())
+    s.leaf_count.copy_(counts)
+    s.leaf_begin.copy_(torch.cumsum(counts.flip(0), 0).flip(0) - counts)  # reversed layout
+    s.order.copy_(torch.randperm(N, device=dev).int())
+    s.ctl[gs.NUM_LEAVES] = 255
+    got = grow_step_kernel.leaf_ids(s)
+    assert torch.equal(got, grow_step_plain.leaf_ids(s))
+    assert torch.equal(torch.bincount(got, minlength=255).int(), counts)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_tree_equals_eager_launch_tree(dev, dtype):
+    """Dyadic gradients: one replay of the captured tree (root, 254 steps,
+    leaf ids) grows the eager launch_tree's tree and leaf index bit for
+    bit, and the wrappers' launch counts move as much as in the eager
+    run."""
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=13)
+    args = (bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf, dtype)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+
+    def tree():
+        grow_mod.launch_tree(s, *args)
+        return grow_mod.leaf_ids(s)
+
+    before = cuda_graph.launch_counts()
+    want_leaf = tree()
+    want = grow_mod.read_tree(s)
+    mid = cuda_graph.launch_counts()
+    graph = cuda_graph.Graph(tree, dev)
+    assert cuda_graph.launch_counts() == mid  # a capture launches nothing
+    s.packed.zero_()
+    graph.out.zero_()
+    graph.replay()
+    got = grow_mod.read_tree(s)
+    after = cuda_graph.launch_counts()
+    for name in TreeArrays._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(graph.out, want_leaf)
+    assert int(got.num_leaves) == 255
+    eager = {k: v - before[k] for k, v in mid.items() if v != before[k]}
+    replay = {k: v - mid[k] for k, v in after.items() if v != mid[k]}
+    assert eager == replay == graph.launches, (eager, replay)
+    segment = "histogram_segment_bf16" if dtype == "bfloat16" else "histogram_segment"
+    assert replay["grow_step"] == replay["partition"] == replay[segment] == 254, replay
+    assert replay["split_pair_step"] == 255 and replay["leaf_ids"] == 1, replay
+
+
+def test_capture_on_a_stream_that_cannot_capture_raises(dev):
+    """The legacy default stream cannot capture: the capture raises, and the
+    launch counts are left as they were."""
+    before = cuda_graph.launch_counts()
+    with pytest.raises(RuntimeError):
+        cuda_graph.Graph(lambda: torch.ones(4, device=dev) * 2, dev, stream=torch.cuda.default_stream(dev))
+    assert cuda_graph.launch_counts() == before
+
+
+def _dyadic_boosters(monkeypatch, dev):
+    """A binary booster factory on make_higgs_like rows whose gradients and
+    hessians are rounded to multiples of 2^-7 (hessians at least 2^-7), so
+    that every histogram sum at 100k rows is exact and training is the same
+    bit for bit whatever the kernels' summation order."""
+    from helpers.bench_data import make_higgs_like
+
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as obj_mod
+
+    get = obj_mod.BinaryLogloss.get_gradients
+    q = 128.0
+
+    def dyadic(self, score):
+        g, h = get(self, score)
+        return torch.round(g * q) / q, torch.clamp(torch.round(h * q), min=1.0) / q
+
+    monkeypatch.setattr(obj_mod.BinaryLogloss, "get_gradients", dyadic)
+    X, y = make_higgs_like(100_000, 28, seed=4)
+    ds = tlgb.Dataset(X, label=y)
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 255, "learning_rate": 0.1,
+              "verbose": -1}
+
+    def booster(chunk=1, graph=True):
+        b = tlgb.Booster(dict(params, device_chunk_size=chunk), ds, device="cuda")
+        b._gbdt.iteration_graph = graph
+        return b
+    return booster, X
+
+
+def _trees_text(b):
+    return b.model_to_string().split("parameters:")[0]
+
+
+def test_chunk_4_equals_chunk_1_and_eager(monkeypatch, dev):
+    """Dyadic-gradient training: chunk 4 (replays), chunk 1 (a replay an
+    iteration) and the eager device loop give the same model text and the
+    same train scores bit for bit, through ``train``'s chunk stepping."""
+    from lightgbm_tpu_torch.engine import train
+
+    booster, X = _dyadic_boosters(monkeypatch, dev)
+    runs = {}
+    for name, chunk, graph in (("eager", 1, False), ("graph", 1, True), ("chunk", 4, True)):
+        b = booster(chunk, graph)
+        steps = 0
+        while steps < 9:  # train()'s loop: 1, then 4 and 4 (chunk), or 1 at a time
+            ran, _ = b.update_chunk(b._gbdt.device_chunk() if steps else 1)
+            steps += ran
+        runs[name] = b
+    assert runs["chunk"]._gbdt.device_chunk_fallback_reason() is None
+    ref = runs["eager"]
+    for name, b in runs.items():
+        assert b.num_trees() == 9, name
+        assert _trees_text(b) == _trees_text(ref), name
+        assert b._gbdt.train_score().tobytes() == ref._gbdt.train_score().tobytes(), name
+    np.testing.assert_allclose(ref.predict(X, raw_score=True), ref._gbdt.train_score(),
+                               rtol=1e-5, atol=1e-5)
+    assert train({"objective": "binary", "verbose": -1, "device_chunk_size": 4},
+                 ref.train_set, 5, device="cuda").num_trees() == 5
+
+
+def test_chunk_makes_no_sync_and_one_readback(monkeypatch, dev):
+    """A whole train_chunk(4), the capture already made, runs under sync
+    debug mode "error": n replays and one copy into pinned memory, waited
+    for on an event."""
+    booster, _ = _dyadic_boosters(monkeypatch, dev)
+    b = booster(4)
+    b.update()
+    b.update_chunk(4)  # captures the iteration
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ran, stopped = b.update_chunk(4)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert (ran, stopped) == (4, False) and b.num_trees() == 9

@@ -283,8 +283,9 @@ def test_cpu_device_loop_launches_no_kernel():
 
 def test_bench_prints_one_line_on_the_cpu(capsys):
     """``python -m lightgbm_tpu_torch.bench`` at a tiny size on the CPU: one
-    JSON line with bench.py's keys, both loops timed, the same model."""
+    JSON line with bench.py's keys, every booster timed, the same model."""
     import json
+    import statistics
 
     from lightgbm_tpu_torch import bench
 
@@ -297,3 +298,6 @@ def test_bench_prints_one_line_on_the_cpu(capsys):
     assert line["value"] > 0 and line["device"] == "cpu"
     assert len(line["turns"]["device"]) == len(line["turns"]["host"]) == 2
     assert line["auc"]["device"] == line["auc"]["host"]
+    assert len(line["turns"]["graph"]) == len(line["turns"]["chunk"]) == 2
+    assert line["auc"]["graph"] == line["auc"]["chunk"] == line["auc"]["host"]
+    assert line["value"] == statistics.median(line["turns"]["graph"])
