@@ -45,11 +45,13 @@ Phases (each prints one line; any failure exits non-zero):
     stopped loop's host cost a step; two boosters, one a loop, train in
     turns of 10 iterations (device, host, host, device), and the host
     loop's AUC at 10 iterations is within 2e-3 of phase 4's; at the main
-    path's first step each kernel of the step (grow_step, partition, the
+    path's first step each kernel of the step (pick_partition, the
     histogram's segment entry, hist_subtract, the split scan's device
     entry) against its plain version on a copy of the state (the whole
     state equal, the real-valued histogram within the two-order bound),
-    then timed from the same state against its bound;
+    then timed from the same state against its bound; pick_partition also
+    at step 128 of the 255-leaf tree and at a pick of a leaf of about 1k
+    rows in that state;
  4c. device-resident boosting: on the dyadic gradients of 4b at 1M rows
     one replay of the captured tree (ops/cuda_graph.py) grows the eager
     launch_tree's tree and leaf index bit for bit; the leaf_ids kernel
@@ -219,9 +221,9 @@ def main() -> int:
     assert len([k for k in hist_v1_ptxas if k.startswith("v1_kernel<")]) == 4, hist_v1_ptxas
     assert all(u.get("spill_stores", 0) == u.get("spill_loads", 0) == 0
                for u in hist_v1_ptxas.values()), ("hist_v1 spills", hist_v1_ptxas)
-    # the split loop's kernels: partition's three passes, grow_step's three kernels
-    assert set(ptxas["partition"]) == {"count_kernel", "scan_kernel", "scatter_kernel"}, ptxas
-    assert set(ptxas["grow_step"]) == {"pick_kernel", "subtract_kernel", "leaf_id_kernel"}, ptxas
+    # the split loop's kernels: the fused pick and partition, grow_step's two kernels
+    assert set(ptxas["partition"]) == {"pick_partition_kernel"}, ptxas
+    assert set(ptxas["grow_step"]) == {"subtract_kernel", "leaf_id_kernel"}, ptxas
     assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step")
                for u in ptxas[n].values()), ("split-loop kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
@@ -437,7 +439,7 @@ def main() -> int:
         got.update((k, v) for k, v in grow_step_kernel.launches.items() if v)
         for k, v in (("split_pair", split_kernel.launches),
                      ("split_pair_step", split_kernel.step_launches),
-                     ("partition", partition_kernel.launches)):
+                     ("pick_partition", partition_kernel.launches)):
             if v:
                 got[k] = v
         for k, v in got.items():
@@ -446,7 +448,7 @@ def main() -> int:
 
     booster, train_s, launches = counted(lambda: lgb.train(dict(TRAIN_PARAMS), train_set, 10))
     assert booster._gbdt.grow_loop == "device", booster._gbdt.grow_loop
-    loop_kernels = ("histogram", "histogram_segment", "split_pair_step", "partition", "grow_step",
+    loop_kernels = ("histogram", "histogram_segment", "split_pair_step", "pick_partition",
                     "hist_subtract")
     assert all(launches.get(k, 0) > 0 for k in loop_kernels), launches
     (_, metric, auc, _), = booster.eval_train()
@@ -489,8 +491,7 @@ def main() -> int:
     # the split loop's own kernels (csrc/partition.cu, grow_step.cu, the
     # segment entry of histogram.cu)
     loop_ms = {k: v for k, v in by_kernel.items() if any(
-        n in k for n in ("count_kernel", "scan_kernel", "scatter_kernel", "pick_kernel",
-                         "subtract_kernel", "hist_segment_kernel"))}
+        n in k for n in ("pick_partition_kernel", "subtract_kernel", "hist_segment_kernel"))}
     # no copy per split: the leaf values up, the packed tree down
     assert copies["HtoD"] <= 4 and copies["DtoH"] <= 4, copies
     # the profiler's host-side tracing slows the profiled iteration many
@@ -599,9 +600,13 @@ def main() -> int:
     # first step (the 1M-row root split), then timed from the same state
     s = gs.GrowState(dev, N, F, B, M)
     grow_mod.start_tree(s, *grow_args)
+
+    def plain_pick_partition(st):
+        grow_step_plain.pick(st)
+        partition_plain.partition(st)
+
     step_kernels = (
-        ("grow_step", grow_step_kernel.pick, grow_step_plain.pick),
-        ("partition", partition_kernel.partition, partition_plain.partition),
+        ("pick_partition", partition_kernel.pick_partition, plain_pick_partition),
         ("histogram_segment", hist_kernel.histogram_segment, segment_histogram),
         ("hist_subtract", grow_step_kernel.subtract, grow_step_plain.subtract),
         ("split_pair_step", lambda st: split_kernel.split_pair_step(st, 2),
@@ -620,35 +625,70 @@ def main() -> int:
         abs_sum = leaf_histogram(st.hist_bins, st.values.abs(), B, small_rows(st), st.hist_dtype)
         return err_over_bound(st.small, want, abs_sum)
 
-    for name, kernel, plain in step_kernels:
-        before = s.clone()
-        other = s.clone()
-        kernel(s)
+    def held_and_timed(st, name, kernel, plain):
+        """``kernel`` on the state ``st`` against ``plain`` on a copy (the
+        whole state equal; the real-valued segment histogram within the
+        two-order bound), then both timed from that state, which is left as
+        the kernel made it."""
+        before = st.clone()
+        other = st.clone()
+        kernel(st)
         plain(other)
         err = 0.0
         for k in gs.GrowState.STATE:
-            a, b = getattr(s, k), getattr(other, k)
+            a, b = getattr(st, k), getattr(other, k)
             if name == "histogram_segment" and k == "small":  # real values: two orders
-                ratio, err = small_err(s, b)
+                ratio, err = small_err(st, b)
                 assert ratio <= 1.0, (name, err, ratio)
             else:
                 assert torch.equal(a, b), ("kernel != plain", name, k)
-        after = s.clone()
+        after = st.clone()
 
         def restore(dst, src=before):
             for k in gs.GrowState.STATE:
                 getattr(dst, k).copy_(getattr(src, k))
         copy = before.clone()
-        step_t[name] = dict(
-            ms=time_ms(lambda: kernel(s), setup=lambda: restore(s)),
+        t = dict(
+            ms=time_ms(lambda: kernel(st), setup=lambda: restore(st)),
             plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: restore(copy)),
             max_abs_err=err,
         )
-        restore(s, after)
+        restore(st, after)
+        return t
+
+    def pick_rows(st):
+        """Rows of the segment the state's next pick partitions."""
+        gains = st.best_f[:, 0]
+        return int(st.leaf_count[int(torch.argmax(gains))])
+
+    root_rows = pick_rows(s)
+    for name, kernel, plain in step_kernels:
+        step_t[name] = held_and_timed(s, name, kernel, plain)
+    # pick_partition at step 128 of the real-gradient tree, and there at the
+    # pick of the leaf nearest 1024 rows (its gain raised above the others)
+    s128 = gs.GrowState(dev, N, F, B, M)
+    grow_mod.start_tree(s128, *grow_args)
+    for _ in range(128):
+        grow_mod.run_step(s128)
+    assert int(s128.ctl[gs.ACTIVE]) == 1 and int(s128.ctl[gs.STEP]) == 128
+    s1k = s128.clone()
+    nl = int(s1k.ctl[gs.NUM_LEAVES])
+    gains = s1k.best_f[:nl, 0]
+    near = ((s1k.leaf_count[:nl] - 1024).abs().float() + torch.where(gains > 0, 0.0, float("inf")))
+    leaf_1k = int(torch.argmin(near))
+    s1k.best_f[leaf_1k, 0] = gains.max() + 1.0
+    pick_sizes = {"root": dict(rows=root_rows, **step_t["pick_partition"])}
+    for key, st in (("step128", s128), ("rows_1k", s1k)):
+        rows = pick_rows(st)
+        pick_sizes[key] = dict(rows=rows, **held_and_timed(
+            st, "pick_partition", partition_kernel.pick_partition, plain_pick_partition))
+    for key, t in pick_sizes.items():
+        t.update(zip(("bound_ms", "bound_by"), bound(M * 4 + 320 + t["rows"] * 9, 0)))
+    del s128, s1k
     n_small = int(small_rows(s).numel())
     cells = F * B * 3
-    step_t["grow_step"].update(zip(("bound_ms", "bound_by"), bound(M * 4 + 320, 0)))
-    step_t["partition"].update(zip(("bound_ms", "bound_by"), bound(N * 9, 0)))
+    step_t["pick_partition"].update(bound_ms=pick_sizes["root"]["bound_ms"],
+                                    bound_by=pick_sizes["root"]["bound_by"], sizes=pick_sizes)
     step_t["histogram_segment"].update(zip(("bound_ms", "bound_by"), bound(
         n_small * (F + 16) + cells * 4, 3 * n_small * F)))
     step_t["hist_subtract"].update(zip(("bound_ms", "bound_by"), bound(4 * cells * 4, cells)))
@@ -664,7 +704,7 @@ def main() -> int:
         child_acc.zero_()
         child_acc.index_add_(0, child_idx, child_vals)
     step_t["histogram_segment"]["library_ms"] = time_ms(child_library)
-    for name in ("grow_step", "partition", "hist_subtract", "split_pair_step"):
+    for name in ("pick_partition", "hist_subtract", "split_pair_step"):
         step_t[name]["library_ms"] = None
     # the segment entry in bf16 on the same rows
     s.hist_dtype = "bfloat16"
@@ -1396,8 +1436,7 @@ def main() -> int:
             ))
     # the split loop's kernels and entries, timed at the main path's root step (phase 4b)
     loop_sources = {
-        "partition": ("partition.cu", "lightgbm_tpu/ops/grow.py:439"),
-        "grow_step": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1277"),
+        "pick_partition": ("partition.cu", "lightgbm_tpu/ops/grow.py:439,1277"),
         "hist_subtract": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1421"),
         "histogram_segment": ("histogram.cu", sources["histogram"][1]),
         "histogram_segment_bf16": ("histogram.cu", sources["histogram"][1]),
@@ -1411,7 +1450,7 @@ def main() -> int:
             name=name, route="cuda", source="lightgbm_tpu_torch/csrc/" + src, replaces=rep,
             launches=main_launches.get(name, 0), max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-            library_ms=t["library_ms"],
+            library_ms=t["library_ms"], **({"sizes": t["sizes"]} if "sizes" in t else {}),
         ))
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)

@@ -1,51 +1,155 @@
-// Stable partition of one leaf's row segment for Hopper (sm_90a), the
-// partition step of the device-resident split loop (ops/grow.py
-// grow_tree_device).
+// One step's pick, tree wiring and stable partition of the device-resident
+// split loop for Hopper (sm_90a), in one cooperative launch
+// (ops/grow.py run_step).
 //
-// Counterpart of lightgbm_tpu/ops/grow.py partition_batch / apply_split's
-// partition_segment: the rows order[begin : begin + count] of the split leaf
-// are reordered stably into [left | right] by the picked split's numerical
-// decision (dense_bin.hpp Split: bin <= threshold, the missing bin going to
+// Counterpart of lightgbm_tpu/ops/grow.py's while_loop cond / body (the
+// stop test and the argmax over the leaves' best gains, :1640-1646),
+// apply_split (:1277: the node and leaf arrays, depth, internal_value
+// through calculate_leaf_output, the children's sums and monotone windows,
+// the smaller-child choice left_count <= right_count) and partition_batch
+// (:439): the rows order[begin : begin + count] of the picked leaf are
+// reordered stably into [left | right] by the split's numerical decision
+// (dense_bin.hpp Split: bin <= threshold, the missing bin going to
 // default_left), so the segment keeps the reference's [pre | left | right |
-// post] layout. Every bound and index is read from device memory: the leaf
-// from ctl[kBest], (feature, threshold, default_left) from its record in
-// best_i, the feature's missing_type / default_bin / num_bin, and the
-// segment's (begin, count) from leaf_begin / leaf_count. It writes the
-// children's (begin, count) back there, so no host round trip sizes
-// anything. Equal, element for element, to the plain version
-// ops/partition.py ``stable_partition`` (torch.cat([seg[gl], seg[~gl]])).
+// post] layout. Every index and bound is read from device memory and the
+// children's (begin, count) are written back there, so no host round trip
+// sizes anything. The plain versions are ops/grow_step.py ``pick`` then
+// ops/partition.py ``partition``; every field is equal bit for bit (the same
+// f32 operations, built with --fmad=false so that no multiply-add is
+// contracted; the same stable order).
 //
-// What bounds it: bytes, and at small segments the three launches. A split
-// of n rows must read n row indices (4 B) and n bins of one feature (1 B,
-// gathered) and write n indices: 9 n bytes, 2.7 us at the 1M-row root on
-// 3.35 TB/s. The design is the simple right one, a grid sized from the SM
-// count that strides over 1024-row tiles of a segment whose length only the
-// device knows:
-//  1. count: each tile's rows are decided once; the decisions go to a byte
-//     array and the rows to a scratch copy of the segment, and the tile's
-//     left count (four __syncthreads_count) to tiles[t];
-//  2. scan: one block turns tiles[] into exclusive left offsets, and writes
-//     the left count and the children's (begin, count);
-//  3. scatter: each tile ranks its rows by warp ballots (striped: element
-//     j * 256 + thread of a tile), the left ones after the lefts of earlier
-//     tiles and rows, the right ones after all lefts, and writes them from
-//     the scratch copy back into order.
-// Once ctl[kActive] is 0 (the loop has stopped) every pass returns at once.
+// What bounds it: latency. A split of n rows must read n row indices (4 B)
+// and n bins of one feature (1 B, gathered) and write n indices, 9 n bytes:
+// 2.7 us at the 1M-row root on 3.35 TB/s, and a fraction of a microsecond at
+// the ~35k rows of a typical step, where a chain of dependent trips to
+// memory and the launches around them cost more than the bytes. The design
+// cuts both: one launch a step where four launched (pick, count, scan,
+// scatter), and a single grid barrier in place of three kernel boundaries.
+//  1. Every block makes the pick itself: thread k reads leaf k's gain, its
+//     split record and its segment bounds, and feature k's meta (kept in
+//     shared memory for the first kMetaCap features; beyond them the picked
+//     feature's meta is one more trip), in one trip; the argmax (a larger
+//     gain, or the same gain at a smaller leaf) leaves every block with the
+//     same leaf, the same stop decision, the same (feature, threshold,
+//     default_left) and (begin, count). On a stop (the gain not > 0, or
+//     M - 1 splits done) block 0 clears ctl[kActive] and every block
+//     returns.
+//  2. Block b owns the contiguous chunk [b * chunk, (b + 1) * chunk) of the
+//     segment, chunk = max(kThreads, ceil(count / grid)), so the first
+//     ceil(count / chunk) blocks hold rows and keep them in order. It reads
+//     its row ids and their bins once, decides each row with go_left, counts
+//     its lefts, and keeps each row with its decision in its top bit, in
+//     shared memory, or in scratch[begin + b * chunk ...] when the chunk
+//     exceeds kCap rows (segments above grid * kCap rows, 1.35M on an H100).
+//  3. One grid barrier, with no atomic: every block publishes its left count
+//     and the launch's epoch (bar[0] + 1) in one 64-bit release store to its
+//     own word of block_left, and each block with rows polls every block's
+//     word (relaxed loads, then one acquire fence) until all carry the
+//     epoch; the same loads give it the block totals, which it scans itself.
+//     It then ranks its rows by warp ballots in tiles of kTile and writes
+//     them straight into order: the left ones after the lefts of earlier
+//     blocks, tiles and rows, the right ones after all lefts. Block 0 then
+//     writes the children's bounds, the control words and the next epoch.
+//     The grid's last block wires the tree (node_i, node_f, leaf_f, leaf_i,
+//     laux: arrays no other block reads), at once when it holds no rows, so
+//     that the wiring's trips to memory overlap the other blocks' rows.
+//
+// The invariant that makes the one launch safe: no block writes a ctl slot,
+// a leaf bound (leaf_begin / leaf_count), a row of order or the epoch that
+// another block of the launch reads before every block has read it. Every
+// block reads the epoch, ctl, the gains, the records, every leaf's bounds
+// and its segment of order before it arrives at the barrier (the release
+// store orders those reads before its arrival), and every block of the grid
+// arrives (those without rows arrive and return), so all of those writes
+// come after the barrier. The one write before the barrier to a word others
+// read is the stop's ctl[kActive] = 0, and a block that reads it returns at
+// once, as it would have after its own pick found the same stop. The launch
+// is cooperative (cudaLaunchAttributeCooperative) and the grid is at most
+// the blocks that fit on the card at once (lgbt_pick_partition_grid), so
+// every block is resident and the barrier cannot wait on a block that never
+// runs; a grid that does not fit is refused at launch and reported.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;                  // rows a thread a tile
-constexpr int kTile = kThreads * kItems;   // rows a tile
+constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
+constexpr int kItems = 8;                 // rows a thread a tile
+constexpr int kTile = kThreads * kItems;  // rows a tile
+constexpr int kCap = 10240;               // rows a block keeps in shared memory
+constexpr int kMetaCap = 1024;            // features whose meta a block keeps in shared memory
+static_assert(kWarps == 32, "a tile's warp counts are scanned by one warp, kItems a lane");
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kLeftBit = 0x80000000u;
+constexpr int kBig = 1 << 30;
+constexpr unsigned long long kBarrierNs = 1000000000ull;  // the longest wait at the barrier
 // slots of the loop's control vector (ops/grow_state.py)
-constexpr int kActive = 0, kBest = 3, kNew = 4, kPBegin = 7, kPCount = 8, kLeft = 9;
+constexpr int kActive = 0, kNumLeaves = 1, kStep = 2, kBest = 3, kNew = 4, kSmall = 5,
+              kLarge = 6, kPBegin = 7, kPCount = 8, kLeft = 9;
 constexpr int kMissingZero = 1, kMissingNan = 2;
+// record columns (ops/split.py BEST_F / BEST_I) and row widths of the state
+constexpr int kGain = 0, kLG = 1, kLH = 2, kLC = 3, kRG = 4, kRH = 5, kRC = 6, kLO = 7,
+              kRO = 8;
+constexpr int kBestF = 9, kBestI = 4, kNodeI = 5, kNodeF = 3, kLeafF = 3, kLeafI = 2,
+              kLaux = 5;
+// the block's broadcast words
+enum { sActive, sStep, sNumLeaves, sBest, sGo, sF, sThr, sDl, sBegin, sCount, sLeftSmaller,
+       sMiss, sDbin, sNanBin, sEpoch, sBefore, sTotal, sTileLeft, sWords };
+
+struct Params {
+  float l1, l2, max_delta_step;
+};
+
+struct Args {
+  const uint8_t* bins;
+  long long stride_f, stride_n;
+  int* order;
+  int* scratch;
+  int* ctl;
+  const float* best_f;
+  const int* best_i;
+  int* node_i;
+  float* node_f;
+  float* leaf_f;
+  int* leaf_i;
+  float* laux;
+  const int* missing;
+  const int* default_bin;
+  const int* num_bin;
+  const int* mono;
+  int* leaf_begin;
+  int* leaf_count;
+  unsigned long long* block_left;
+  unsigned* bar;
+  int M, F;
+  Params p;
+};
+
+// clamp that passes NaN through, like torch.clamp (csrc/split_pair.cu)
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  return isnan(x) ? x : fminf(fmaxf(x, lo), hi);
+}
+
+__device__ __forceinline__ float threshold_l1(float s, float l1) {
+  if (l1 == 0.0f) return s;
+  const float sgn = isnan(s) ? s : (s > 0.0f ? 1.0f : (s < 0.0f ? -1.0f : 0.0f));
+  return sgn * clamp_nan(fabsf(s) - l1, 0.0f, INFINITY);
+}
+
+// calculate_leaf_output (ops/split.py), no monotone clamp
+__device__ __forceinline__ float leaf_output(float sg, float sh, const Params& p) {
+  float ret = -threshold_l1(sg, p.l1) / (sh + p.l2);
+  if (p.max_delta_step > 0.0f) ret = clamp_nan(ret, -p.max_delta_step, p.max_delta_step);
+  return ret;
+}
+
+// (g, i) beats (bg, bi): a larger gain, or the same gain at a smaller leaf
+__device__ __forceinline__ bool beats(float g, int i, float bg, int bi) {
+  return g > bg || (g == bg && i < bi);
+}
 
 __device__ __forceinline__ bool go_left(int col, int thr, bool dl, int miss, int dbin,
                                         int nan_bin) {
@@ -58,134 +162,297 @@ __device__ __forceinline__ bool go_left(int col, int thr, bool dl, int miss, int
   return gl;
 }
 
-__global__ void __launch_bounds__(kThreads)
-count_kernel(const uint8_t* __restrict__ bins, long long stride_f, long long stride_n,
-             const int* __restrict__ order, int* __restrict__ scratch,
-             uint8_t* __restrict__ flags, int* __restrict__ tiles, const int* __restrict__ ctl,
-             const int* __restrict__ best_i, const int* __restrict__ missing,
-             const int* __restrict__ default_bin, const int* __restrict__ num_bin,
-             const int* __restrict__ leaf_begin, const int* __restrict__ leaf_count) {
-  if (!ctl[kActive]) return;
-  const int leaf = ctl[kBest];
-  const long long b0 = leaf_begin[leaf];
-  const int cnt = leaf_count[leaf];
-  const int ntiles = (cnt + kTile - 1) / kTile;
-  if ((int)blockIdx.x >= ntiles) return;
-  const int f = best_i[leaf * 4 + 0], thr = best_i[leaf * 4 + 1];
-  const bool dl = best_i[leaf * 4 + 3] != 0;
-  const int miss = missing[f], dbin = default_bin[f], nan_bin = num_bin[f] - 1;
-  const uint8_t* col = bins + (long long)f * stride_f;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A block's word of block_left: the launch's epoch above its left count.
+__device__ __forceinline__ void publish(unsigned long long* word, unsigned epoch, int left) {
+  const unsigned long long v = ((unsigned long long)epoch << 32) | (unsigned)left;
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(word), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long relaxed(const unsigned long long* word) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(word) : "memory");
+  return v;
+}
+
+// Warp 0 of a block with rows: wait until every block of the grid has
+// published ``epoch``, and return (lanes alike) the lefts of the blocks
+// before block ``b`` and of all blocks. The polls are relaxed loads, all of
+// a lane's in flight at once (acquire loads would wait for one another); one
+// fence after the last poll makes it an acquire. A wait of more than a
+// second cannot happen with every block resident; it traps, so that a fault
+// ends the launch with an error instead of holding the card.
+__device__ __forceinline__ int2 grid_wait(const unsigned long long* words, int grid, int b,
+                                         unsigned epoch, int lane) {
+  const unsigned long long t0 = global_ns();
+  int before, total;
+  for (;;) {
+    bool all = true;
+    before = 0;
+    total = 0;
+    for (int k = lane; k < grid; k += 32) {
+      const unsigned long long v = relaxed(words + k);
+      all &= (unsigned)(v >> 32) == epoch;
+      const int left = (int)(unsigned)v;
+      total += left;
+      if (k < b) before += left;
+    }
+    if (__all_sync(kFull, all)) break;
+    if (global_ns() - t0 > kBarrierNs) __trap();
+  }
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+  return make_int2(__reduce_add_sync(kFull, before), __reduce_add_sync(kFull, total));
+}
+
+// The tree wiring of split ``best`` at node ``node`` (the new leaf ``nl``),
+// as grow_step's pick wrote it, read and written by thread 0 of the grid's
+// last block: when that block holds no rows, right after it arrives at the
+// barrier, while the others still read theirs, else after its scatter. No
+// other block reads these arrays.
+__device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, int f, int thr,
+                                     int dl) {
+  float rec[kBestF], pa[kLaux];
+#pragma unroll
+  for (int c = 0; c < kBestF; ++c) rec[c] = a.best_f[best * kBestF + c];
+#pragma unroll
+  for (int c = 0; c < kLaux; ++c) pa[c] = a.laux[best * kLaux + c];
+  const int parent = a.leaf_i[best * kLeafI], depth = a.leaf_i[best * kLeafI + 1] + 1;
+  const int mono = a.mono[f];
+  // the parent node's child pointer that named the split leaf now names the node
+  if (parent >= 0) {
+    for (int c = 2; c <= 3; ++c) {
+      if (a.node_i[parent * kNodeI + c] == -(best + 1)) a.node_i[parent * kNodeI + c] = node;
+    }
+  }
+  int* ni = a.node_i + node * kNodeI;
+  ni[0] = f; ni[1] = thr; ni[2] = -(best + 1); ni[3] = -(nl + 1); ni[4] = dl;
+  float* nf = a.node_f + node * kNodeF;
+  nf[0] = rec[kGain]; nf[1] = leaf_output(pa[0], pa[1], a.p); nf[2] = pa[2];
+  float* lf = a.leaf_f + best * kLeafF;
+  lf[0] = rec[kLO]; lf[1] = rec[kLC]; lf[2] = rec[kLH];
+  lf = a.leaf_f + nl * kLeafF;
+  lf[0] = rec[kRO]; lf[1] = rec[kRC]; lf[2] = rec[kRH];
+  a.leaf_i[best * kLeafI] = node; a.leaf_i[best * kLeafI + 1] = depth;
+  a.leaf_i[nl * kLeafI] = node; a.leaf_i[nl * kLeafI + 1] = depth;
+
+  // children's sums and monotone windows (serial_tree_learner.cpp:841-850)
+  const float mid = (rec[kLO] + rec[kRO]) / 2.0f;
+  const float pmin = pa[3], pmax = pa[4];
+  float* la = a.laux + best * kLaux;
+  la[0] = rec[kLG]; la[1] = rec[kLH]; la[2] = rec[kLC];
+  la[3] = mono < 0 ? mid : pmin;
+  la[4] = mono > 0 ? mid : pmax;
+  la = a.laux + nl * kLaux;
+  la[0] = rec[kRG]; la[1] = rec[kRH]; la[2] = rec[kRC];
+  la[3] = mono > 0 ? mid : pmin;
+  la[4] = mono < 0 ? mid : pmax;
+}
+
+__global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
+  __shared__ int stage_s[kCap];
+  __shared__ float red_g[kWarps];
+  __shared__ int red_i[kWarps];
+  __shared__ int wsum[kWarps];
+  __shared__ int woff[kItems * kWarps];
+  __shared__ int meta_s[kMetaCap];  // missing_type | default_bin << 2 | nan bin << 17
+  __shared__ int sh[sWords];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int M = a.M;
+
+  // ---- 1. the pick, made by every block ----
+  // thread k: leaf k's gain, record and bounds, and feature k's meta, in one trip
+  float g = -INFINITY;
+  int idx = kBig, f = 0, thr = 0, dl = 0, begin = 0, count = 0, lsmall = 0;
+  for (int k = tid; k < M; k += kThreads) {
+    const float v = a.best_f[k * kBestF + kGain];
+    const float lc = a.best_f[k * kBestF + kLC], rc = a.best_f[k * kBestF + kRC];
+    const int kf = a.best_i[k * kBestI], kt = a.best_i[k * kBestI + 1];
+    const int kd = a.best_i[k * kBestI + 3];
+    const int kb = a.leaf_begin[k], kc = a.leaf_count[k];
+    if (beats(v, k, g, idx)) {
+      g = v; idx = k; f = kf; thr = kt; dl = kd; begin = kb; count = kc; lsmall = lc <= rc;
+    }
+  }
+  for (int k = tid; k < min(a.F, kMetaCap); k += kThreads) {
+    meta_s[k] = a.missing[k] | (a.default_bin[k] << 2) | ((a.num_bin[k] - 1) << 17);
+  }
+  if (tid == 0) {
+    sh[sActive] = a.ctl[kActive];
+    sh[sStep] = a.ctl[kStep];
+    sh[sNumLeaves] = a.ctl[kNumLeaves];
+    sh[sEpoch] = (int)(a.bar[0] + 1u);
+  }
+  float wg = g;
+  int wi = idx;
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+    const float og = __shfl_xor_sync(kFull, wg, s);
+    const int oi = __shfl_xor_sync(kFull, wi, s);
+    if (beats(og, oi, wg, wi)) { wg = og; wi = oi; }
+  }
+  if (lane == 0) { red_g[warp] = wg; red_i[warp] = wi; }
+  __syncthreads();
+  if (warp == 0) {
+    wg = red_g[lane];
+    wi = red_i[lane];
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) {
+      const float og = __shfl_xor_sync(kFull, wg, s);
+      const int oi = __shfl_xor_sync(kFull, wi, s);
+      if (beats(og, oi, wg, wi)) { wg = og; wi = oi; }
+    }
+    if (lane == 0) {
+      sh[sBest] = wi;
+      sh[sGo] = (wg > 0.0f) && sh[sStep] < M - 1;
+    }
+  }
+  __syncthreads();
+  if (!sh[sActive]) return;
+  if (!sh[sGo]) {
+    if (blockIdx.x == 0 && tid == 0) a.ctl[kActive] = 0;
+    return;
+  }
+  const int best = sh[sBest];
+  if (idx == best) {  // the thread that read the picked leaf (its split's feature >= 0)
+    sh[sF] = f; sh[sThr] = thr; sh[sDl] = dl; sh[sBegin] = begin; sh[sCount] = count;
+    sh[sLeftSmaller] = lsmall;
+    const int mv = f < kMetaCap ? meta_s[f]
+        : a.missing[f] | (a.default_bin[f] << 2) | ((a.num_bin[f] - 1) << 17);
+    sh[sMiss] = mv & 3; sh[sDbin] = (mv >> 2) & 0x7FFF; sh[sNanBin] = mv >> 17;
+  }
+  __syncthreads();
+  f = sh[sF]; thr = sh[sThr]; dl = sh[sDl];
+  const long long b0 = sh[sBegin];
+  const int cnt = sh[sCount];
+  const int grid = (int)gridDim.x, b = (int)blockIdx.x;
+  const int chunk = max(kThreads, (int)((cnt + (long long)grid - 1) / grid));
+  const int nb = max((cnt + chunk - 1) / chunk, 1);  // blocks with rows (block 0 always)
+  const unsigned epoch = (unsigned)sh[sEpoch];
+  const int node = sh[sStep], nl = sh[sNumLeaves];
+  const bool wires = b == grid - 1 && tid == 0;
+  if (b >= nb) {
+    if (tid == 0) publish(a.block_left + b, epoch, 0);
+    if (wires) wire(a, best, nl, node, f, thr, dl);
+    return;
+  }
+  const int lo = b * chunk;
+  const int len = max(min(cnt - lo, chunk), 0);
+
+  // ---- 2. the chunk's rows, decided and staged ----
+  const int miss = sh[sMiss], dbin = sh[sDbin], nan_bin = sh[sNanBin];
+  const uint8_t* col = a.bins + (long long)f * a.stride_f;
+  int* stage = len <= kCap ? stage_s : a.scratch + b0 + lo;
+  const int* seg = a.order + b0 + lo;
+  int left = 0;
+  for (int t = 0; t * kTile < len; ++t) {
     int row[kItems];
-    bool ok[kItems];
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const int i = t * kTile + j * kThreads + threadIdx.x;
-      ok[j] = i < cnt;
-      row[j] = ok[j] ? order[b0 + i] : 0;
+      const int i = t * kTile + j * kThreads + tid;
+      row[j] = i < len ? seg[i] : 0;
     }
     int bin[kItems];
 #pragma unroll
-    for (int j = 0; j < kItems; ++j) bin[j] = ok[j] ? (int)col[row[j] * stride_n] : 0;
-    int left = 0;
+    for (int j = 0; j < kItems; ++j) {
+      const int i = t * kTile + j * kThreads + tid;
+      bin[j] = i < len ? (int)col[row[j] * a.stride_n] : 0;
+    }
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const int i = t * kTile + j * kThreads + threadIdx.x;
-      const bool gl = ok[j] && go_left(bin[j], thr, dl, miss, dbin, nan_bin);
-      if (ok[j]) {
-        flags[b0 + i] = gl ? 1 : 0;
-        scratch[b0 + i] = row[j];
+      const int i = t * kTile + j * kThreads + tid;
+      if (i < len) {
+        const bool gl = go_left(bin[j], thr, dl != 0, miss, dbin, nan_bin);
+        stage[i] = (int)((unsigned)row[j] | (gl ? kLeftBit : 0u));
+        left += gl;
       }
-      left += __syncthreads_count(gl);
     }
-    if (threadIdx.x == 0) tiles[t] = left;
   }
-}
-
-// Exclusive scan of the tiles' left counts in one block, then the
-// children's bounds: leaf ctl[kBest] keeps [b0, b0 + left), the new leaf
-// ctl[kNew] takes [b0 + left, b0 + count).
-__global__ void __launch_bounds__(kScanThreads)
-scan_kernel(int* __restrict__ tiles, int* __restrict__ ctl, int* __restrict__ leaf_begin,
-            int* __restrict__ leaf_count) {
-  __shared__ int warp_total[kScanThreads / 32];
-  __shared__ int carry;
-  if (!ctl[kActive]) return;
-  const int leaf = ctl[kBest], nl = ctl[kNew];
-  const int b0 = leaf_begin[leaf], cnt = leaf_count[leaf];
-  const int ntiles = (cnt + kTile - 1) / kTile;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
+  left = __reduce_add_sync(kFull, left);
+  if (lane == 0) wsum[warp] = left;
   __syncthreads();
-  for (int base = 0; base < ntiles; base += kScanThreads) {
-    const int t = base + threadIdx.x;
-    const int v = t < ntiles ? tiles[t] : 0;
-    int incl = v;
-#pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
-      const int o = __shfl_up_sync(kFull, incl, s);
-      if (lane >= s) incl += o;
-    }
-    if (lane == 31) warp_total[warp] = incl;
-    __syncthreads();
-    int before = carry;
-    for (int w = 0; w < warp; ++w) before += warp_total[w];
-    if (t < ntiles) tiles[t] = before + incl - v;
-    __syncthreads();
-    if (threadIdx.x == kScanThreads - 1) carry = before + incl;
-    __syncthreads();
+  if (warp == 0) {
+    // ---- 3. the barrier: every block of the grid has read what it needs ----
+    int block = wsum[lane];
+    block = __reduce_add_sync(kFull, block);
+    if (lane == 0) publish(a.block_left + b, epoch, block);
+    const int2 lefts = grid_wait(a.block_left, grid, b, epoch, lane);
+    if (lane == 0) { sh[sBefore] = lefts.x; sh[sTotal] = lefts.y; }
   }
-  if (threadIdx.x == 0) {
-    const int left = carry;
-    ctl[kPBegin] = b0;
-    ctl[kPCount] = cnt;
-    ctl[kLeft] = left;
-    leaf_count[leaf] = left;
-    leaf_begin[nl] = b0 + left;
-    leaf_count[nl] = cnt - left;
-  }
-}
+  __syncthreads();
+  const int before = sh[sBefore], total = sh[sTotal];
 
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(int* __restrict__ order, const int* __restrict__ scratch,
-               const uint8_t* __restrict__ flags, const int* __restrict__ tiles,
-               const int* __restrict__ ctl) {
-  __shared__ int wcount[kItems][kWarps];
-  if (!ctl[kActive]) return;
-  const long long b0 = ctl[kPBegin];
-  const int cnt = ctl[kPCount], total_left = ctl[kLeft];
-  const int ntiles = (cnt + kTile - 1) / kTile;
-  if ((int)blockIdx.x >= ntiles) return;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  // rank by ballots, tile by tile, and write into order in place
   const unsigned lower = (1u << lane) - 1u;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    int row[kItems], rank[kItems];
-    bool ok[kItems], gl[kItems];
+  int* out = a.order + b0;
+  int tile_base = before;  // lefts before this tile
+  for (int t = 0; t * kTile < len; ++t) {
+    unsigned v[kItems];
+    int rank[kItems];
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      const int i = t * kTile + j * kThreads + threadIdx.x;
-      ok[j] = i < cnt;
-      gl[j] = ok[j] && flags[b0 + i] != 0;
-      row[j] = ok[j] ? scratch[b0 + i] : 0;
-      const unsigned vote = __ballot_sync(kFull, gl[j]);
+      const int i = t * kTile + j * kThreads + tid;
+      v[j] = i < len ? (unsigned)stage[i] : 0u;
+      const unsigned vote = __ballot_sync(kFull, (v[j] & kLeftBit) != 0u);
       rank[j] = __popc(vote & lower);
-      if (lane == 0) wcount[j][warp] = __popc(vote);
+      if (lane == 0) woff[j * kWarps + warp] = __popc(vote);
     }
     __syncthreads();
-    int before_row = tiles[t];  // lefts of the earlier tiles
+    if (warp == 0) {
+      // exclusive scan of the tile's kItems * kWarps warp counts in row
+      // order (item-major); lane l takes the kItems entries from l * kItems
+      int c[kItems], run = 0;
+#pragma unroll
+      for (int e = 0; e < kItems; ++e) { c[e] = woff[lane * kItems + e]; run += c[e]; }
+      int incl = run;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int o = __shfl_up_sync(kFull, incl, s);
+        if (lane >= s) incl += o;
+      }
+      int acc = incl - run;
+#pragma unroll
+      for (int e = 0; e < kItems; ++e) { woff[lane * kItems + e] = acc; acc += c[e]; }
+      if (lane == 31) sh[sTileLeft] = incl;
+    }
+    __syncthreads();
 #pragma unroll
     for (int j = 0; j < kItems; ++j) {
-      int before = before_row;
-      for (int w = 0; w < warp; ++w) before += wcount[j][w];
-      for (int w = 0; w < kWarps; ++w) before_row += wcount[j][w];
-      if (ok[j]) {
-        const int i = t * kTile + j * kThreads + threadIdx.x;
-        const int left_before = before + rank[j];
-        const int pos = gl[j] ? left_before : total_left + (i - left_before);
-        order[b0 + pos] = row[j];
+      const int i = t * kTile + j * kThreads + tid;
+      if (i < len) {
+        const int left_before = tile_base + woff[j * kWarps + warp] + rank[j];
+        const bool gl = (v[j] & kLeftBit) != 0u;
+        const int pos = gl ? left_before : total + (lo + i - left_before);
+        out[pos] = (int)(v[j] & ~kLeftBit);
       }
     }
-    __syncthreads();  // wcount is rewritten by the next tile
+    tile_base += sh[sTileLeft];
+    __syncthreads();  // woff and sTileLeft are rewritten by the next tile
+  }
+
+  if (wires) wire(a, best, nl, node, f, thr, dl);
+  if (b == 0 && tid == 0) {
+    // the children's bounds: leaf best keeps [b0, b0 + left), the new leaf
+    // nl takes [b0 + left, b0 + count)
+    a.leaf_count[best] = total;
+    a.leaf_begin[nl] = (int)b0 + total;
+    a.leaf_count[nl] = cnt - total;
+    const bool left_smaller = sh[sLeftSmaller] != 0;
+    int* ctl = a.ctl;
+    ctl[kBest] = best;
+    ctl[kNew] = nl;
+    ctl[kSmall] = left_smaller ? best : nl;
+    ctl[kLarge] = left_smaller ? nl : best;
+    ctl[kNumLeaves] = nl + 1;
+    ctl[kStep] = node + 1;
+    ctl[kPBegin] = (int)b0;
+    ctl[kPCount] = cnt;
+    ctl[kLeft] = total;
+    a.bar[0] = epoch;
   }
 }
 
@@ -193,34 +460,60 @@ scatter_kernel(int* __restrict__ order, const int* __restrict__ scratch,
 
 extern "C" {
 
-// Stably partition the segment of leaf ctl[3] (the split leaf) of order
-// [N] int32 by the split record best_i[leaf] = (feature, threshold, num_cat,
-// default_left), the feature's bins at bins + f * stride_f + row * stride_n
-// and its missing_type / default_bin / num_bin [F] int32. Writes
-// leaf_count[leaf], leaf_begin / leaf_count[ctl[4]] and ctl[7..9] (the
-// parent's begin and count, the left count). Scratch: scratch [N] int32,
-// flags [N] bytes, tiles [ceil(N / 1024)] int32. grid blocks of 256
-// threads stride over the tiles. Does nothing once ctl[0] is 0.
-int lgbt_partition(const void* bins, long long stride_f, long long stride_n, void* order,
-                   void* scratch, void* flags, void* tiles, void* ctl, const void* best_i,
-                   const void* missing, const void* default_bin, const void* num_bin,
-                   void* leaf_begin, void* leaf_count, int grid, void* stream) {
-  if (grid < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  count_kernel<<<grid, kThreads, 0, s>>>(
-      (const uint8_t*)bins, stride_f, stride_n, (const int*)order, (int*)scratch,
-      (uint8_t*)flags, (int*)tiles, (const int*)ctl, (const int*)best_i, (const int*)missing,
-      (const int*)default_bin, (const int*)num_bin, (const int*)leaf_begin,
-      (const int*)leaf_count);
-  cudaError_t err = cudaGetLastError();
+// The blocks of lgbt_pick_partition's grid: as many as fit on the current
+// device at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
+// SM count), so that a cooperative launch of them is never refused.
+int lgbt_pick_partition_grid(int* grid) {
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_partition_kernel, kThreads, 0);
+  *grid = per_sm * sms;
+  return (int)err;
+}
+
+// One step of the split loop: the pick and tree wiring of the leaf with the
+// largest best gain, and the stable partition of its segment of order [N]
+// int32. State (ops/grow_state.py): ctl int32 [16]; best_f [M, 9] f32 and
+// best_i [M, 4] int32 (each leaf's best split); node_i [M, 5] int32, node_f
+// [M, 3] f32, leaf_f [M, 3] f32, leaf_i [M, 2] int32, laux [M, 5] f32;
+// leaf_begin / leaf_count [M] int32; the F features' missing_type /
+// default_bin / num_bin / monotone [F] int32; the bins of feature f at
+// bins + f * stride_f + row * stride_n. Scratch: scratch [N] int32 (a
+// chunk's staged rows above kCap), block_left [grid] int64 (each block's
+// epoch and left count), bar [1] uint32 (the epoch of the last launch that
+// split, 0 before the first). grid blocks of 1024 threads, at most
+// lgbt_pick_partition_grid's, launched cooperatively; the launch's error is
+// returned. Does nothing once ctl[0] is 0.
+int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n, void* order,
+                        void* scratch, void* ctl, const void* best_f, const void* best_i,
+                        void* node_i, void* node_f, void* leaf_f, void* leaf_i, void* laux,
+                        const void* missing, const void* default_bin, const void* num_bin,
+                        const void* mono, void* leaf_begin, void* leaf_count, void* block_left,
+                        void* bar, int M, int F, float l1, float l2, float max_delta_step,
+                        int grid, void* stream) {
+  if (M < 1 || F < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  Args a{(const uint8_t*)bins, stride_f, stride_n, (int*)order, (int*)scratch, (int*)ctl,
+         (const float*)best_f, (const int*)best_i, (int*)node_i, (float*)node_f,
+         (float*)leaf_f, (int*)leaf_i, (float*)laux, (const int*)missing,
+         (const int*)default_bin, (const int*)num_bin, (const int*)mono, (int*)leaf_begin,
+         (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, M, F,
+         Params{l1, l2, max_delta_step}};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, pick_partition_kernel, a);
   if (err != cudaSuccess) return (int)err;
-  scan_kernel<<<1, kScanThreads, 0, s>>>((int*)tiles, (int*)ctl, (int*)leaf_begin,
-                                         (int*)leaf_count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  scatter_kernel<<<grid, kThreads, 0, s>>>((int*)order, (const int*)scratch,
-                                           (const uint8_t*)flags, (const int*)tiles,
-                                           (const int*)ctl);
   return (int)cudaGetLastError();
 }
 

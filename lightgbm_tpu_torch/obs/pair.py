@@ -6,8 +6,10 @@ On a machine with a CUDA card, from the repository root::
     git show <commit>:lightgbm_tpu_torch/csrc/<kernel>.cu > build/old_<kernel>.cu
     python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair,packed4,v1} \\
         --old build/old_<kernel>.cu [--out results.json]
+    python -m lightgbm_tpu_torch.obs.pair --kernel pick_partition \\
+        --old build/old_partition.cu build/old_grow_step.cu [--out results.json]
 
-The old source is built with the package's nvcc flags into ``build/pair/``,
+The old sources are built with the package's nvcc flags into ``build/pair/``,
 beside an empty kernel that the tool writes there; the new kernel runs
 through its own wrapper. Prints both libraries' ptxas registers and spills
 and their SASS opcode counts (``cuobjdump -sass``; with ``--out`` the whole
@@ -54,6 +56,27 @@ on the set-up copy of ``pack_bins``); sorted random segments of 100k, 16384,
 kernel against the new one by rows). Old and new are held to each other and
 to the plain version bit for bit on dyadic values (multiples of 2^-10) at
 every input, in f32 and bf16.
+
+``pick_partition`` (csrc/partition.cu's fused step; ``--old`` names the
+partition.cu and the grow_step.cu from before the fusion, whose
+``lgbt_grow_step`` picked and wired the split and whose ``lgbt_partition``
+launched three passes: count, scan, scatter, commit cec1c3d or earlier):
+the main path's split loop on the bench data at 1M rows, real log-loss
+gradients at the average score, at three states: the root step, step 128
+of the 255-leaf tree, and that state with the leaf nearest 1024 rows made
+the pick (its gain raised above the others). At each, the old four
+launches, the new one and the plain version (ops/grow_step.py ``pick`` and
+ops/partition.py ``partition``) run on copies of the state and must leave
+every state tensor equal; then old and new are timed from the state,
+restored before each call, beside the nearest library calls: one
+``torch.argmax`` over the leaves' gains (the pick) and one stable
+``torch.sort`` of the segment's decision keys (the partition's order).
+Then, with the L2 warm as in the split loop, each version's device time a
+call under ``torch.profiler`` (30 calls, the state restored before each),
+beside three cut copies of the new kernel that return early (``_CUTS``:
+right after launch, after the pick, after the rows are read and decided),
+so that the differences give the launch's, the pick's, the rows' and the
+barrier and scatter's shares.
 """
 from __future__ import annotations
 
@@ -385,8 +408,187 @@ def _packed4_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callabl
     return calls, {"grids": grids}
 
 
-SOURCES = {"histogram": "histogram", "split_pair": "split_pair", "packed4": "hist_packed4",
-           "v1": "hist_v1"}
+# lgbt_grow_step before the fusion: ctl, best_f, best_i, node_i, node_f,
+# leaf_f, leaf_i, laux, mono; M; l1, l2, max_delta_step; stream
+_OLD_GROW_STEP_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 3 + [
+    ctypes.c_void_p]
+# lgbt_partition before the fusion: bins, stride_f, stride_n, order, scratch,
+# flags, tiles, ctl, best_i, missing, default_bin, num_bin, leaf_begin,
+# leaf_count; grid; stream
+_OLD_PARTITION_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [
+    ctypes.c_void_p] * 11 + [ctypes.c_int, ctypes.c_void_p]
+
+
+# a return inserted into csrc/partition.cu at a marker (after it, or before
+# it): the cut kernel does what the full one does up to there
+_CUTS = {
+    "launch": ("  const int M = a.M;\n", True),
+    "pick": ("  // ---- 2. the chunk's rows, decided and staged ----\n", False),
+    "rows": ("  left = __reduce_add_sync(kFull, left);\n", False),
+}
+
+
+def _cut_libraries(out_dir: Path) -> Dict[str, Path]:
+    """Build the cut copies of csrc/partition.cu, all at once."""
+    src = (cuda_build.CSRC / "partition.cu").read_text()
+    procs, libs = {}, {}
+    for name, (marker, after) in _CUTS.items():
+        assert src.count(marker) == 1, ("cut marker", name)
+        path = out_dir / ("cut_%s.cu" % name)
+        path.write_text(src.replace(marker, marker + "  return;\n" if after
+                                    else "  return;\n" + marker))
+        libs[name] = out_dir / ("libcut_%s.so" % name)
+        procs[name] = _nvcc(path, libs[name])
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for cut %s:\n%s" % (name, log))
+    return libs
+
+
+def _profiled_us(fn, setup, names, reps=30) -> float:
+    """Device µs a call of the kernels whose names contain one of ``names``,
+    under torch.profiler over ``reps`` calls of ``setup`` then ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    setup()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            setup()
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and any(n in ev.key for n in names):
+            us = getattr(ev, "self_device_time_total", None)
+            total += us if us is not None else getattr(ev, "self_cuda_time_total", 0)
+    return total / reps
+
+
+def _pick_partition_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by state, checks) of the split loop's pick and
+    partition: the old four launches against the fused one."""
+    import torch
+
+    from ..ops import grow as grow_mod
+    from ..ops import grow_state as gs
+    from ..ops import grow_step as plain_step
+    from ..ops import hist_kernel, partition_kernel
+    from ..ops import partition as plain_partition
+    from ..ops.split import SplitParams
+
+    old_part = ctypes.CDLL(str(old_libs[0])).lgbt_partition
+    old_part.restype = ctypes.c_int
+    old_part.argtypes = _OLD_PARTITION_ARGS
+    old_pick = ctypes.CDLL(str(old_libs[1])).lgbt_grow_step
+    old_pick.restype = ctypes.c_int
+    old_pick.argtypes = _OLD_GROW_STEP_ARGS
+    bins, N, B, real = data["bins"], data["N"], data["B"], data["real"]
+    F = bins.shape[0]
+    M = 255
+    params = SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0)  # the main path's
+    flags = torch.empty(N, dtype=torch.uint8, device=dev)
+    tiles = torch.empty(-(-N // 1024), dtype=torch.int32, device=dev)
+    old_grid = max(min(4 * hist_kernel._sm_count(dev), tiles.numel()), 1)
+
+    def run_old(st):
+        m, p = st.feature_meta, st.params
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(old_pick(
+            st.ctl.data_ptr(), st.best_f.data_ptr(), st.best_i.data_ptr(), st.node_i.data_ptr(),
+            st.node_f.data_ptr(), st.leaf_f.data_ptr(), st.leaf_i.data_ptr(), st.laux.data_ptr(),
+            m["monotone"].data_ptr(), st.M, p.lambda_l1, p.lambda_l2, p.max_delta_step, stream),
+            "old grow_step")
+        cuda_build.check(old_part(
+            st.bins.data_ptr(), st.bins.stride(0), st.bins.stride(1), st.order.data_ptr(),
+            st.scratch.data_ptr(), flags.data_ptr(), tiles.data_ptr(), st.ctl.data_ptr(),
+            st.best_i.data_ptr(), m["missing_type"].data_ptr(), m["default_bin"].data_ptr(),
+            m["num_bin"].data_ptr(), st.leaf_begin.data_ptr(), st.leaf_count.data_ptr(),
+            old_grid, stream), "old partition")
+
+    def run_plain(st):
+        plain_step.pick(st)
+        plain_partition.partition(st)
+
+    versions = {"old": run_old, "new": partition_kernel.pick_partition, "plain": run_plain}
+    cuts = {}
+    for name, lib in _cut_libraries(cuda_build.BUILD_DIR.parent / "pair").items():
+        fn = ctypes.CDLL(str(lib)).lgbt_pick_partition
+        fn.restype = ctypes.c_int
+        fn.argtypes = partition_kernel.ARGTYPES
+        cuts[name] = fn
+    s = gs.GrowState(dev, N, F, B, M)
+    args = (bins, real[:, 0].contiguous(), real[:, 1].contiguous(), data["fmask"], data["meta"],
+            -1, params, True, data["hist_bins"].t())
+    grow_mod.start_tree(s, *args)
+    states = {"root": s.clone()}
+    for _ in range(128):
+        grow_mod.run_step(s)
+    states["step128"] = s.clone()
+    nl = int(s.ctl[gs.NUM_LEAVES])
+    gains = s.best_f[:nl, 0]
+    near = (s.leaf_count[:nl] - 1024).abs().float() + torch.where(gains > 0, 0.0, float("inf"))
+    s.best_f[int(torch.argmin(near)), 0] = gains.max() + 1.0
+    states["rows_1k"] = s
+
+    calls, checks = {}, {}
+    for key, st in states.items():
+        outs = {}
+        for v, fn in versions.items():
+            outs[v] = st.clone()
+            fn(outs[v])
+        torch.cuda.synchronize()
+        same = {v: all(torch.equal(getattr(outs[v], k), getattr(outs["plain"], k))
+                       for k in gs.GrowState.STATE) for v in ("old", "new")}
+        leaf = int(outs["plain"].ctl[gs.BEST])
+        b0, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
+        checks[key] = dict(rows=cnt, equal_to_plain=same)
+        print(key, json.dumps(checks[key]), flush=True)
+        assert all(same.values()), ("pick_partition != plain", key, same)
+        # the partition's decision keys over the segment: 0 left, 1 right
+        f, thr, _, dl = (int(x) for x in st.best_i[leaf])
+        col = st.bins[f].index_select(0, st.order[b0:b0 + cnt].long())
+        gl = plain_partition.go_left(
+            col, thr, bool(dl), int(st.feature_meta["missing_type"][f]),
+            int(st.feature_meta["default_bin"][f]), int(st.feature_meta["num_bin"][f]) - 1)
+        decision = (~gl).to(torch.uint8)
+        work = {v: st.clone() for v in ("old", "new")}
+
+        def restore(dst, src=st):
+            for k in gs.GrowState.STATE:
+                getattr(dst, k).copy_(getattr(src, k))
+        calls[key] = dict(
+            old=(lambda w=work["old"]: run_old(w), lambda w=work["old"]: restore(w)),
+            new=(lambda w=work["new"]: partition_kernel.pick_partition(w),
+                 lambda w=work["new"]: restore(w)),
+            library_argmax=lambda g=st.best_f[:, 0]: torch.argmax(g),
+            library_stable_sort=lambda d=decision: torch.sort(d, stable=True),
+        )
+        # the warm-L2 device time of each version and of the cut kernels
+        w = work["new"]
+        versions_warm = {
+            "old": (calls[key]["old"], ("pick_kernel", "count_kernel", "scan_kernel",
+                                        "scatter_kernel")),
+            "new": (calls[key]["new"], ("pick_partition_kernel",)),
+        }
+        for name, fn in cuts.items():
+            versions_warm["cut_" + name] = (
+                (lambda fn=fn, w=w: cuda_build.check(fn(*partition_kernel.launch_args(w)),
+                                                     "cut kernel"), lambda w=w: restore(w)),
+                ("pick_partition_kernel",))
+        checks[key]["profiled_us"] = {
+            v: _profiled_us(call, setup, names)
+            for v, ((call, setup), names) in versions_warm.items()}
+        print(key, "profiled_us", json.dumps(checks[key]["profiled_us"]), flush=True)
+    return calls, checks
+
+
+SOURCES = {"histogram": ("histogram",), "split_pair": ("split_pair",),
+           "packed4": ("hist_packed4",), "v1": ("hist_v1",),
+           "pick_partition": ("partition", "grow_step")}
 
 
 def _higgs_data(dev) -> Dict:
@@ -424,7 +626,9 @@ def _higgs_data(dev) -> Dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernel", required=True, choices=tuple(SOURCES))
-    ap.add_argument("--old", required=True, help="an older csrc/<source>.cu of the kernel")
+    ap.add_argument("--old", required=True, nargs="+",
+                    help="older csrc/<source>.cu of the kernel (pick_partition: partition.cu "
+                         "and grow_step.cu)")
     ap.add_argument("--out", default="", help="also write the results as JSON here")
     args = ap.parse_args(argv)
 
@@ -435,6 +639,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("pair: needs a CUDA card", file=sys.stderr)
         return 2
+    sources = SOURCES[args.kernel]
+    if len(args.old) != len(sources):
+        print("pair: --kernel %s takes %d old sources (%s)"
+              % (args.kernel, len(sources), ", ".join(n + ".cu" for n in sources)), file=sys.stderr)
+        return 2
 
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -442,23 +651,29 @@ def main(argv=None) -> int:
     print(card, flush=True)
     out_dir = cuda_build.BUILD_DIR.parent / "pair"
     out_dir.mkdir(parents=True, exist_ok=True)
-    source = SOURCES[args.kernel]
-    old_lib, empty_lib = out_dir / ("libold_%s.so" % source), out_dir / "libempty.so"
+    old_libs = [out_dir / ("libold_%s.so" % name) for name in sources]
+    empty_lib = out_dir / "empty.so"
     (out_dir / "empty.cu").write_text(EMPTY_SRC)
-    procs = {"old": _nvcc(Path(args.old), old_lib), "empty": _nvcc(out_dir / "empty.cu", empty_lib)}
-    cuda_build.build([source])
+    procs = {"old_%s" % name: _nvcc(Path(src), lib)
+             for name, src, lib in zip(sources, args.old, old_libs)}
+    procs["empty"] = _nvcc(out_dir / "empty.cu", empty_lib)
+    cuda_build.build(list(sources))
     logs = {}
     for name, proc in procs.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, logs[name]))
-    new_lib = cuda_build.library_path(source)
-    sass = {"old": sass_text(old_lib), "new": sass_text(new_lib)}
-    built = dict(
-        old=dict(ptxas=cuda_build.ptxas_usage(logs["old"]), sass=sass_counts(sass["old"])),
-        new=dict(ptxas=cuda_build.ptxas_usage(new_lib.with_suffix(".log").read_text()),
-                 sass=sass_counts(sass["new"])),
-    )
+    sass = {}
+    built = {}
+    for name, lib in zip(sources, old_libs):
+        key = "old" if len(sources) == 1 else "old_" + name
+        sass[key] = sass_text(lib)
+        built[key] = dict(ptxas=cuda_build.ptxas_usage(logs["old_" + name]),
+                          sass=sass_counts(sass[key]))
+    new_lib = cuda_build.library_path(sources[0])
+    sass["new"] = sass_text(new_lib)
+    built["new"] = dict(ptxas=cuda_build.ptxas_usage(new_lib.with_suffix(".log").read_text()),
+                        sass=sass_counts(sass["new"]))
     for name, rec in built.items():
         print(name, json.dumps(rec), flush=True)
     empty = ctypes.CDLL(str(empty_lib)).lgbt_empty
@@ -469,9 +684,12 @@ def main(argv=None) -> int:
         cuda_build.check(empty(torch.cuda.current_stream(dev).cuda_stream), "empty kernel")
 
     data = None if args.kernel == "packed4" else _higgs_data(dev)
-    case = {"histogram": _histogram_case, "split_pair": _split_case,
-            "packed4": _packed4_case, "v1": _v1_case}[args.kernel]
-    calls, checks = case(old_lib, dev, data)
+    if args.kernel == "pick_partition":
+        calls, checks = _pick_partition_case(old_libs, dev, data)
+    else:
+        case = {"histogram": _histogram_case, "split_pair": _split_case,
+                "packed4": _packed4_case, "v1": _v1_case}[args.kernel]
+        calls, checks = case(old_libs[0], dev, data)
 
     timer = CudaTimer(dev)
     times = {}
@@ -480,7 +698,8 @@ def main(argv=None) -> int:
         turns = {v: [] for v in order}
         for v in order + order[::-1]:
             fn = launch_empty if v == "empty" else versions[v]
-            turns[v].append(timer(fn, reps=20))
+            fn, setup = fn if isinstance(fn, tuple) else (fn, None)  # (call, untimed restore)
+            turns[v].append(timer(fn, reps=20, setup=setup))
         times[key] = {v: sum(t) / len(t) for v, t in turns.items()}
         print(key, json.dumps(times[key]), flush=True)
     sums = {v: sum(t[v] for t in times.values()) for v in next(iter(times.values()))}

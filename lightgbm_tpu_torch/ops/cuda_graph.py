@@ -28,13 +28,14 @@ from . import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by its name in chip_smoke.py's
-    kernels line (``split_pair``, ``split_pair_step``, ``partition`` and
-    the keys of ``hist_kernel.launches`` and ``grow_step_kernel.launches``)."""
+    kernels line (``split_pair``, ``split_pair_step``, ``pick_partition``
+    and the keys of ``hist_kernel.launches`` and
+    ``grow_step_kernel.launches``)."""
     counts = dict(hist_kernel.launches)
     counts.update(grow_step_kernel.launches)
     counts["split_pair"] = split_kernel.launches
     counts["split_pair_step"] = split_kernel.step_launches
-    counts["partition"] = partition_kernel.launches
+    counts["pick_partition"] = partition_kernel.launches
     return counts
 
 
@@ -45,7 +46,7 @@ def add_launches(delta: Dict[str, int]) -> None:
             split_kernel.launches += n
         elif name == "split_pair_step":
             split_kernel.step_launches += n
-        elif name == "partition":
+        elif name == "pick_partition":
             partition_kernel.launches += n
         elif name in grow_step_kernel.launches:
             grow_step_kernel.launches[name] += n

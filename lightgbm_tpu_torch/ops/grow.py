@@ -21,8 +21,8 @@ Two split loops grow the same tree, bit for bit:
    loop's state lives in device memory for the whole tree
    (ops/grow_state.py ``GrowState``), the host computes the root and then
    launches the M - 1 steps without reading anything back, each step being
-   the pick and wiring (ops/grow_step_kernel.py ``pick``), the stable
-   partition (ops/partition_kernel.py), the smaller child's histogram
+   the pick, the wiring and the stable partition in one launch
+   (ops/partition_kernel.py ``pick_partition``), the smaller child's histogram
    (ops/hist_kernel.py ``histogram_segment``), the subtraction
    (``grow_step_kernel.subtract``) and both children's split scan
    (ops/split_kernel.py ``split_pair_step``), every one reading its leaf
@@ -298,11 +298,10 @@ def start_tree(
 
 
 def run_step(s: gs.GrowState) -> None:
-    """Queue one step of the loop: pick and wiring, partition, the smaller
-    child's histogram, the subtraction, both children's split scan. Every
-    kernel returns at once when the loop has stopped."""
-    grow_step_kernel.pick(s)
-    partition_kernel.partition(s)
+    """Queue one step of the loop: pick, wiring and partition (one launch),
+    the smaller child's histogram, the subtraction, both children's split
+    scan. Every kernel returns at once when the loop has stopped."""
+    partition_kernel.pick_partition(s)
     hist_kernel.histogram_segment(s)
     grow_step_kernel.subtract(s)
     split_kernel.split_pair_step(s, 2)

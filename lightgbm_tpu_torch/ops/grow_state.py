@@ -12,7 +12,7 @@ csrc/split_pair.cu's device-indexed entry) name its slots by the same
 numbers:
 
 =========  =====================================================
-ACTIVE     1 while the loop runs; grow_step clears it to stop
+ACTIVE     1 while the loop runs; the pick clears it to stop
 NUM_LEAVES leaves grown so far
 STEP       the node index of the next split
 BEST       the leaf being split (0 for the root's scan)
@@ -20,7 +20,7 @@ NEW        the new leaf of the split (the right child)
 SMALL      the child whose histogram is built from its rows
 LARGE      the child whose histogram is the parent's minus SMALL's
 PBEGIN     the split segment's begin, count and left count,
-PCOUNT     written by the partition's scan for its scatter
+PCOUNT     written by the step's pick and partition
 LEFT
 =========  =====================================================
 
@@ -37,10 +37,10 @@ import torch
 ACTIVE, NUM_LEAVES, STEP, BEST, NEW, SMALL, LARGE, PBEGIN, PCOUNT, LEFT = range(10)
 CTL = 16
 
-#: rows of the partition's tiles (csrc/partition.cu kTile)
-PARTITION_TILE = 1024
-#: blocks an SM of the partition's grid-stride passes
-PARTITION_BLOCKS_PER_SM = 4
+#: threads of a pick_partition block (csrc/partition.cu kThreads); at most
+#: 2048 threads, so 2 such blocks, fit on an SM of sm_90
+PICK_PARTITION_THREADS = 1024
+PICK_PARTITION_BLOCKS_PER_SM = 2048 // PICK_PARTITION_THREADS
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
 
 
@@ -66,10 +66,13 @@ class GrowState:
     monotone min, max), ``leaf_begin`` / ``leaf_count`` [M] int32 (each
     leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
     f32 and ``small`` [F, B, 3] f32 (the smaller child's histogram, zero
-    between steps). Scratch of the kernels: ``scratch`` [N] int32 and
-    ``flags`` [N] uint8 (the partition's copy of the segment and its
-    decisions), ``tiles`` (its tiles' left counts), ``feat_f`` / ``feat_i``
-    (the split scan's per-feature records)."""
+    between steps). Scratch of the kernels: ``scratch`` [N] int32 (the
+    rows a pick_partition block stages beyond its shared memory),
+    ``block_left`` int64 (each block's word at its grid barrier: the
+    launch's epoch above the block's left count, one a block that fits on
+    the card) and ``bar`` [1] int32 (the epoch of its last launch that
+    split), ``feat_f`` / ``feat_i`` (the split scan's per-feature
+    records)."""
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
@@ -92,8 +95,12 @@ class GrowState:
         self.hist = torch.zeros((M, F, B, 3), dtype=f32, device=device)
         self.small = torch.zeros((F, B, 3), dtype=f32, device=device)
         self.scratch = torch.empty(N, dtype=i32, device=device)
-        self.flags = torch.empty(N, dtype=torch.uint8, device=device)
-        self.tiles = torch.empty(max(-(-N // PARTITION_TILE), 1), dtype=i32, device=device)
+        blocks = 1
+        if device.type == "cuda":
+            sms = torch.cuda.get_device_properties(device).multi_processor_count
+            blocks = sms * PICK_PARTITION_BLOCKS_PER_SM
+        self.block_left = torch.zeros(blocks, dtype=torch.int64, device=device)
+        self.bar = torch.zeros(1, dtype=i32, device=device)
         self.feat_f = torch.empty((2, F, 4), dtype=f32, device=device)
         self.feat_i = torch.empty((2, F, 2), dtype=i32, device=device)
         # the inputs of the tree being grown, set by bind()
@@ -180,7 +187,7 @@ class GrowState:
         other.packed = self.packed.clone()
         other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f = unpack(other.packed, self.M)
         for name in ("best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
-                     "small", "scratch", "flags", "tiles", "feat_f", "feat_i"):
+                     "small", "scratch", "block_left", "bar", "feat_f", "feat_i"):
             setattr(other, name, getattr(self, name).clone())
         other.args = {}
         return other

@@ -7,8 +7,10 @@ children's sums and monotone windows, the smaller-child choice), then the
 histogram subtraction trick (serial_tree_learner.cpp:510), and the per-row
 leaf index rebuilt from the segment layout (lightgbm_tpu/ops/grow.py:
 1880-1893). They act on a
-:class:`~.grow_state.GrowState` and are the oracles of csrc/grow_step.cu
-(ops/grow_step_kernel.py) and the path taken for CPU tensors. The
+:class:`~.grow_state.GrowState` and are the oracles of the kernels (``pick``,
+with ops/partition.py ``partition``, of csrc/partition.cu's pick_partition,
+ops/partition_kernel.py; ``subtract`` and ``leaf_ids`` of csrc/grow_step.cu,
+ops/grow_step_kernel.py) and the path taken for CPU tensors. The
 operations are those of the host loop (ops/grow.py ``grow_tree``), in f32.
 """
 from __future__ import annotations

@@ -1,13 +1,12 @@
-"""Wrappers of the hand-written CUDA split-loop step (csrc/grow_step.cu).
+"""Wrappers of the hand-written CUDA split-loop kernels of csrc/grow_step.cu.
 
-``pick`` (the ``grow_step`` kernel: the argmax, the stop flag and the tree
-wiring of one split), ``subtract`` (the ``hist_subtract`` kernel: the
-larger child's histogram as the parent's minus the smaller one's) and
-``leaf_ids`` (the ``leaf_ids`` kernel: each row's leaf once the tree is
-grown) act on a
+``subtract`` (the ``hist_subtract`` kernel: the larger child's histogram as
+the parent's minus the smaller one's) and ``leaf_ids`` (the ``leaf_ids``
+kernel: each row's leaf once the tree is grown) act on a
 :class:`~.grow_state.GrowState`: the kernels when it lies on a CUDA device,
 the plain PyTorch versions (ops/grow_step.py) when it lies on the CPU; any
-other device raises. ``launches`` counts each wrapper's launches.
+other device raises. ``launches`` counts each wrapper's launches. (The
+step's pick runs fused with the partition, ops/partition_kernel.py.)
 
 The arguments are checked once a tree by ``GrowState.bind``; the launch
 arguments are built on a tree's first call and reused.
@@ -22,11 +21,9 @@ import torch
 from . import cuda_build, grow_state as gs
 from . import grow_step as plain
 
-launches: Dict[str, int] = {"grow_step": 0, "hist_subtract": 0, "leaf_ids": 0}
+launches: Dict[str, int] = {"hist_subtract": 0, "leaf_ids": 0}
 
 _ARGTYPES = {
-    "lgbt_grow_step": [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_float] * 3
-    + [ctypes.c_void_p],
     "lgbt_hist_subtract": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "lgbt_leaf_ids": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
 }
@@ -49,24 +46,6 @@ def _device(s: gs.GrowState, what: str) -> bool:
     if s.device.type != "cpu":
         raise ValueError("%s: unsupported device %s" % (what, s.device))
     return False
-
-
-def pick(s: gs.GrowState) -> None:
-    """The step's pick and tree wiring; see csrc/grow_step.cu."""
-    if not _device(s, "grow_step"):
-        plain.pick(s)
-        return
-    args = s.args.get("grow_step")
-    if args is None:
-        p = s.params
-        args = s.args["grow_step"] = (
-            s.ctl.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(), s.node_i.data_ptr(),
-            s.node_f.data_ptr(), s.leaf_f.data_ptr(), s.leaf_i.data_ptr(), s.laux.data_ptr(),
-            s.feature_meta["monotone"].data_ptr(), s.M, p.lambda_l1, p.lambda_l2,
-            p.max_delta_step, s.stream,
-        )
-    cuda_build.check(_fn("lgbt_grow_step")(*args), "grow_step kernel")
-    launches["grow_step"] += 1
 
 
 def subtract(s: gs.GrowState) -> None:

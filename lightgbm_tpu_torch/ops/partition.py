@@ -4,8 +4,9 @@ Counterpart of lightgbm_tpu/ops/grow.py's ``partition_segment`` (the
 bucketed grower's stable partition, data_partition.hpp:111): the rows
 ``order[begin : begin + count]`` of the split leaf become ``[left | right]``
 in their old relative order, so the segment keeps the reference's ``[pre |
-left | right | post]`` layout. The oracle of csrc/partition.cu
-(ops/partition_kernel.py) and the path taken for CPU tensors.
+left | right | post]`` layout. With ops/grow_step.py ``pick`` before it, the
+oracle of csrc/partition.cu (ops/partition_kernel.py ``pick_partition``) and
+the path taken for CPU tensors.
 """
 from __future__ import annotations
 

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from lightgbm_tpu_torch.ops import cuda_graph
+from lightgbm_tpu_torch.ops import cuda_build, cuda_graph
 from lightgbm_tpu_torch.ops import grow as grow_mod
 from lightgbm_tpu_torch.ops import grow_state as gs
 from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
@@ -566,15 +566,14 @@ def test_device_loop_equals_host_loop(dev, N, dtype):
 @pytest.mark.parametrize("N", [100_000])
 def test_loop_kernels_match_plain_at_every_step(dev, N):
     """A 255-leaf tree on dyadic gradients, one step at a time: after each
-    kernel of a step (grow_step, partition, the histogram's segment entry,
+    kernel of a step (pick_partition, the histogram's segment entry,
     hist_subtract, the split scan's device entry) the whole state equals
     that of its plain version run on a copy of the state."""
     bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=5)
     s = gs.GrowState(dev, N, 28, 255, 255)
     grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
     pairs = (
-        (grow_step_kernel.pick, grow_step_plain.pick),
-        (partition_kernel.partition, partition_plain.partition),
+        (partition_kernel.pick_partition, _plain_pick_partition),
         (hist_kernel.histogram_segment, segment_histogram),
         (grow_step_kernel.subtract, grow_step_plain.subtract),
         (lambda st: split_kernel.split_pair_step(st, 2), lambda st: split_pair_step(st, 2)),
@@ -588,14 +587,22 @@ def test_loop_kernels_match_plain_at_every_step(dev, N):
     assert int(s.ctl[gs.NUM_LEAVES]) == 255 and int(s.ctl[gs.STEP]) == 254
 
 
+def _plain_pick_partition(s):
+    grow_step_plain.pick(s)
+    partition_plain.partition(s)
+
+
 # (N, begin, count, feature, threshold, default_left): feature 0 (bins 1-8)
 # has no missing type, 1 the zero bin (default bin 1), 2 the nan bin (bin 8)
 CARD_PARTITION_CASES = {
     "whole_1m": (1_000_000, 0, 1_000_000, 0, 4, 0),
-    "whole_1.1m": (1_100_000, 0, 1_100_000, 0, 4, 0),  # two rounds of the one-block scan
+    "whole_1.1m": (1_100_000, 0, 1_100_000, 0, 4, 0),
+    "whole_1.5m": (1_500_000, 0, 1_500_000, 0, 4, 0),  # above the shared capacity
     "mid_tile_1m": (1_000_000, 1000, 600_001, 0, 3, 0),
     "tile_edges": (100_000, 1024, 1024, 0, 5, 0),
     "across_edges": (100_000, 1023, 1026, 0, 5, 0),
+    "rows_33": (100_000, 4321, 33, 0, 5, 0),
+    "rows_1025": (100_000, 4321, 1025, 0, 5, 0),
     "one_row": (100_000, 77_777, 1, 0, 4, 0),
     "empty": (100_000, 500, 0, 0, 4, 0),
     "empty_left": (100_000, 10, 50_000, 0, 0, 0),
@@ -607,15 +614,16 @@ CARD_PARTITION_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CARD_PARTITION_CASES))
-def test_partition_kernel_matches_plain(dev, case):
-    N, begin, count, f, thr, dl = CARD_PARTITION_CASES[case]
-    gen = torch.Generator(device=dev).manual_seed(len(case))
+def _picking_leaf_2(dev, N, begin, count, f, thr, dl, seed):
+    """A state of 4 leaves whose pick is leaf 2 (its gain the one > 0): its
+    segment ``count`` ascending rows at ``begin`` of a random order, its
+    split (f, thr, dl) on 3 features of missing types none / zero / nan."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     bins = torch.randint(0, 9, (3, N), generator=gen, device=dev, dtype=torch.uint8)
     bins[0] = torch.randint(1, 9, (N,), generator=gen, device=dev, dtype=torch.uint8)
     meta = {k: torch.tensor(v, dtype=torch.int32, device=dev) for k, v in (
         ("num_bin", [9, 9, 9]), ("missing_type", [0, 1, 2]), ("default_bin", [0, 1, 1]),
-        ("monotone", [0, 0, 0]))}
+        ("monotone", [0, 1, -1]))}
     s = gs.GrowState(dev, N, 3, 9, 4)
     s.bind(bins, bins, torch.zeros((N, 3), device=dev), meta,
            torch.ones(3, dtype=torch.bool, device=dev), LOOP_PARAMS, True, -1, "float32")
@@ -623,19 +631,105 @@ def test_partition_kernel_matches_plain(dev, case):
     order = torch.randperm(N, generator=gen, device=dev).int()
     order[begin:begin + count] = order[begin:begin + count].sort().values  # a leaf's rows ascend
     s.order.copy_(order)
-    s.ctl[gs.BEST], s.ctl[gs.NEW] = 2, 3
+    s.ctl[gs.NUM_LEAVES], s.ctl[gs.STEP] = 3, 1
     s.leaf_begin[2], s.leaf_count[2] = begin, count
     s.best_i[2] = torch.tensor([f, thr, 0, dl], dtype=torch.int32, device=dev)
+    s.best_f[2] = torch.tensor([2.5, -1.0, 3.0, 40.0, 1.0, 5.0, 60.0, 0.25, -0.125], device=dev)
+    s.leaf_i[2] = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    s.laux[2] = torch.tensor([0.0, 8.0, 100.0, -1.0, 1.0], device=dev)
+    s.node_i[0] = torch.tensor([0, 3, -1, -3, 0], dtype=torch.int32, device=dev)
+    return s, order
+
+
+@pytest.mark.parametrize("case", sorted(CARD_PARTITION_CASES))
+def test_partition_kernel_matches_plain(dev, case):
+    """pick_partition picks leaf 2 and partitions its segment: every state
+    tensor equal to the plain pick and partition on a copy of the state,
+    rows outside the segment untouched."""
+    N, begin, count, f, thr, dl = CARD_PARTITION_CASES[case]
+    s, order = _picking_leaf_2(dev, N, begin, count, f, thr, dl, len(case))
     other = s.clone()
-    partition_kernel.partition(s)
-    partition_plain.partition(other)
+    partition_kernel.pick_partition(s)
+    _plain_pick_partition(other)
     _same_state(s, other, case)
+    assert int(s.ctl[gs.BEST]) == 2 and int(s.ctl[gs.NEW]) == 3
     left = int(s.leaf_count[2])
     assert int(s.leaf_begin[3]) == begin + left and int(s.leaf_count[3]) == count - left
     assert left == {"empty_left": 0, "empty_right": count}.get(case, left)
     outside = torch.ones(N, dtype=torch.bool, device=dev)
     outside[begin:begin + count] = False
     assert torch.equal(s.order[outside], order[outside])
+
+
+def _launch_with_grid(s, grid):
+    """pick_partition's kernel on ``grid`` blocks, fewer than the wrapper's."""
+    cuda_build.check(partition_kernel.entry()(*partition_kernel.launch_args(s, grid)),
+                     "pick_partition kernel")
+
+
+@pytest.mark.parametrize("grid", [1, 2, 7, 64])
+@pytest.mark.parametrize("count", [0, 1, 33, 1025, 100_000])
+def test_pick_partition_kernel_matches_plain_at_any_grid(dev, grid, count):
+    """Grids below the card's: one block (no other to wait for), and chunks
+    above the shared capacity (100k rows over 2 or 7 blocks), staged in
+    scratch."""
+    s, _ = _picking_leaf_2(dev, 150_000, 777, count, 2, 5, 1, count + grid)
+    other = s.clone()
+    _launch_with_grid(s, grid)
+    _plain_pick_partition(other)
+    _same_state(s, other, (grid, count))
+    # the launch's epoch 1, published by every block of the grid with its left count
+    assert int(s.bar[0]) == 1
+    words = s.block_left[:grid].cpu()
+    assert bool(((words >> 32) == 1).all()) and int((words & 0xFFFFFFFF).sum()) == int(s.ctl[gs.LEFT])
+
+
+@pytest.mark.parametrize("why", ["gain_zero", "gain_negative", "last_step"])
+def test_pick_partition_kernel_stops(dev, why):
+    """A best gain not > 0, or M - 1 splits done: ACTIVE cleared, nothing
+    else changed; a later step changes nothing."""
+    s, _ = _picking_leaf_2(dev, 100_000, 10, 50_000, 1, 3, 1, 3)
+    if why == "last_step":
+        s.ctl[gs.STEP] = s.M - 1
+    else:
+        s.best_f[2, 0] = 0.0 if why == "gain_zero" else -1.0
+    before = s.clone()
+    partition_kernel.pick_partition(s)
+    before.ctl[gs.ACTIVE] = 0
+    _same_state(s, before, why)
+    partition_kernel.pick_partition(s)
+    _same_state(s, before, why)
+
+
+@pytest.mark.parametrize("feature", [5, 1051, 1052])
+def test_pick_partition_kernel_reads_meta_beyond_the_shared_copy(dev, feature):
+    """1100 features: a block keeps the meta of the first 1024 in shared
+    memory and reads a later feature's from device memory (missing types
+    none, zero, nan by feature % 3)."""
+    N, F = 20_000, 1100
+    gen = torch.Generator(device=dev).manual_seed(feature)
+    bins = torch.randint(0, 9, (F, N), generator=gen, device=dev, dtype=torch.uint8)
+    meta = {"num_bin": torch.full((F,), 9, dtype=torch.int32, device=dev),
+            "missing_type": (torch.arange(F, device=dev) % 3).int(),
+            "default_bin": torch.ones(F, dtype=torch.int32, device=dev),
+            "monotone": torch.zeros(F, dtype=torch.int32, device=dev)}
+    s = gs.GrowState(dev, N, F, 9, 4)
+    s.bind(bins, bins, torch.zeros((N, 3), device=dev), meta,
+           torch.ones(F, dtype=torch.bool, device=dev), LOOP_PARAMS, True, -1, "float32")
+    s.reset()
+    s.best_f[0, 0] = 1.0
+    s.best_i[0] = torch.tensor([feature, 4, 0, 1], dtype=torch.int32, device=dev)
+    other = s.clone()
+    partition_kernel.pick_partition(s)
+    _plain_pick_partition(other)
+    _same_state(s, other, feature)
+    assert 0 < int(s.ctl[gs.LEFT]) < N
+
+
+def test_pick_partition_refuses_a_grid_that_does_not_fit(dev):
+    s, _ = _picking_leaf_2(dev, 1000, 0, 1000, 0, 4, 0, 1)
+    with pytest.raises(ValueError):
+        _launch_with_grid(s, partition_kernel.co_resident_grid(dev) + 1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -796,7 +890,8 @@ def test_captured_tree_equals_eager_launch_tree(dev, dtype):
     replay = {k: v - mid[k] for k, v in after.items() if v != mid[k]}
     assert eager == replay == graph.launches, (eager, replay)
     segment = "histogram_segment_bf16" if dtype == "bfloat16" else "histogram_segment"
-    assert replay["grow_step"] == replay["partition"] == replay[segment] == 254, replay
+    assert replay["pick_partition"] == replay[segment] == replay["hist_subtract"] == 254, replay
+    assert "grow_step" not in replay and "partition" not in replay, replay
     assert replay["split_pair_step"] == 255 and replay["leaf_ids"] == 1, replay
 
 

@@ -164,7 +164,7 @@ def test_stopped_loop_steps_change_nothing():
     launch_tree(s, bins_t, g, h, mask, meta_t, max_depth, params, two_way, nf)
     assert int(s.ctl[gs.ACTIVE]) == 0 and int(s.ctl[gs.NUM_LEAVES]) < M
     before = {k: getattr(s, k).clone() for k in gs.GrowState.STATE}
-    for step in (grow_step_kernel.pick, partition_kernel.partition, hist_kernel.histogram_segment,
+    for step in (partition_kernel.pick_partition, hist_kernel.histogram_segment,
                  grow_step_kernel.subtract, lambda st: split_kernel.split_pair_step(st, 2)):
         step(s)
         for k, v in before.items():
@@ -180,10 +180,10 @@ def test_pick_stops_at_zero_gain_and_takes_the_first_maximum():
     s.reset()
     s.best_f[:, 0] = torch.tensor([1.0, 3.0, 3.0, 2.0, 0.0, 0.0, 0.0])
     s.ctl[gs.NUM_LEAVES] = 4
-    grow_step_kernel.pick(s)
+    partition_kernel.pick_partition(s)
     assert int(s.ctl[gs.BEST]) == 1 and int(s.ctl[gs.NEW]) == 4 and int(s.ctl[gs.STEP]) == 1
     s.best_f[:, 0] = torch.tensor([0.0, -1.0, float("-inf"), 0.0, 0.0, 0.0, 0.0])
-    grow_step_kernel.pick(s)
+    partition_kernel.pick_partition(s)
     assert int(s.ctl[gs.ACTIVE]) == 0 and int(s.ctl[gs.STEP]) == 1
 
 
