@@ -71,6 +71,22 @@ Phases (each prints one line; any failure exits non-zero):
     min_gain_to_split found by bisection stops chunk 1 inside the chunk, two
     chunk-1 runs stop alike, and chunk 10 keeps the same model text and
     train scores bit for bit;
+ 4d. validation, early stopping and sampling: ``train`` on the main path's
+    dataset with a validation set of 500k rows of its distribution from
+    another seed (``higgs_like_rows``), bagging_fraction 0.8 every
+    iteration, feature_fraction 0.8, AUC and log-loss at every boundary and
+    5 rounds of patience, 40 rounds, launch counts from 0 (predict_bins
+    among them); every tree's predict_bins leaves equal to the plain
+    traversal and the validation score equal to the plain per-tree f32 adds
+    bit for bit; the bag equal to its CPU draw and the feature masks to
+    numpy's; validation AUC above 0.7; an eval boundary's host time; on
+    dyadic gradients at 100k rows chunk 4 equal to chunk 1 (trees, train and
+    validation scores); turns of 10 iterations of the plain main path's
+    graph booster and of this configuration's (a replay an iteration,
+    chunks of 5), one profiled iteration and chunk (busy time, idle share,
+    copies each way), a chunk's synchronizing calls under sync debug mode
+    "warn", the bag draw's time, and predict_bins timed against its plain
+    version and its bytes bound;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -106,10 +122,11 @@ Phases (each prints one line; any failure exits non-zero):
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
-    main-path runs: phase 4, 4c's turns, the sweep and the routed trainings, each with
+    main-path runs: phase 4, 4c's and 4d's turns and 4d's training, the sweep and the
+    routed trainings, each with
     the counts set to 0 just before it and read just after; the split
-    loop's kernels timed in phase 4b), the seconds of each phase, then the
-    result line.
+    loop's kernels timed in phase 4b, predict_bins in 4d), the seconds of
+    each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -133,12 +150,40 @@ TRAIN_PARAMS = {
     "objective": "binary", "metric": "auc", "max_bin": 255, "num_leaves": 255,
     "learning_rate": 0.1, "verbose": -1,
 }
+VALID_ROWS = 500_000  # the size of HIGGS's published test split
+VALID_ROUNDS = 40
+VALID_PARAMS = {"metric": ["auc", "binary_logloss"], "bagging_fraction": 0.8, "bagging_freq": 1,
+                "feature_fraction": 0.8}
 
 
 def bound(bytes_moved, flops):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def higgs_like_rows(n, f, seed, model_rows=ROOT_ROWS, model_seed=7):
+    """``n`` rows of the distribution of helpers/bench_data.py's
+    ``make_higgs_like(model_rows, f, model_seed)`` (its derived-feature pairs
+    and label weights, replayed from its generator) drawn from ``seed``: a
+    validation set for the main path's training set."""
+    import numpy as np
+
+    rng = np.random.RandomState(model_seed)
+    low = min(21, f)
+    rng.standard_normal(model_rows * low)
+    pairs = []
+    for _ in range(low, f):
+        pairs.append(rng.randint(0, low, 2))
+        rng.standard_normal(model_rows)
+    w = rng.randn(f) * (rng.rand(f) > 0.3)
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, f), np.float32)
+    X[:, :low] = rng.randn(n, low).astype(np.float32)
+    for j, (a, b) in zip(range(low, f), pairs):
+        X[:, j] = np.abs(X[:, a] * X[:, b] + rng.randn(n).astype(np.float32) * 0.5)
+    logits = X @ w * 0.3 + rng.randn(n) * 2.0
+    return X, (logits > 0).astype(np.float32)
 
 
 def err_over_bound(got, want, abs_sum):
@@ -173,8 +218,10 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import grow as grow_mod
     from lightgbm_tpu_torch.ops import grow_state as gs
     from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
-    from lightgbm_tpu_torch.ops import grow_step_kernel, partition_kernel
+    from lightgbm_tpu_torch.ops import grow_step_kernel, partition_kernel, predict_kernel
     from lightgbm_tpu_torch.ops import partition as partition_plain
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
         leaf_histogram, leaf_histogram_packed4_rows, leaf_values, segment_histogram,
     )
@@ -224,8 +271,9 @@ def main() -> int:
     # the split loop's kernels: the fused pick and partition, grow_step's two kernels
     assert set(ptxas["partition"]) == {"pick_partition_kernel"}, ptxas
     assert set(ptxas["grow_step"]) == {"subtract_kernel", "leaf_id_kernel"}, ptxas
-    assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step")
-               for u in ptxas[n].values()), ("split-loop kernels spill", ptxas)
+    assert set(ptxas["predict_bins"]) == {"predict_bins_kernel"}, ptxas
+    assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step", "predict_bins")
+               for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
         hist_v1=hist_v1_ptxas)
@@ -430,6 +478,7 @@ def main() -> int:
         hist_kernel.reset_launches()
         grow_step_kernel.reset_launches()
         split_kernel.launches = split_kernel.step_launches = partition_kernel.launches = 0
+        predict_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -439,7 +488,8 @@ def main() -> int:
         got.update((k, v) for k, v in grow_step_kernel.launches.items() if v)
         for k, v in (("split_pair", split_kernel.launches),
                      ("split_pair_step", split_kernel.step_launches),
-                     ("pick_partition", partition_kernel.launches)):
+                     ("pick_partition", partition_kernel.launches),
+                     ("predict_bins", predict_kernel.launches)):
             if v:
                 got[k] = v
         for k, v in got.items():
@@ -927,6 +977,213 @@ def main() -> int:
         enqueue_us_per_iteration=enqueue_us, profile=prof_boost,
         stop=dict(rows=100_000, min_gain_to_split=gain, trees_kept=kept, probes=probes,
                   chunk=chunk, same_trees_and_scores=True))
+
+    # ---- 4d. validation, early stopping, bagging and feature_fraction ------------
+    # the main path's training set with a validation set of VALID_ROWS rows
+    # of the same distribution from another seed, bagging_fraction 0.8 a
+    # bag every iteration, feature_fraction 0.8, AUC and log-loss at every
+    # boundary, 5 rounds of patience; depth cut to VALID_ROUNDS iterations
+    Xv, yv = higgs_like_rows(VALID_ROWS, FEATURES, seed=8)
+    valid_set = lgb.Dataset(Xv, label=yv, reference=train_set)
+    vparams = dict(TRAIN_PARAMS, **VALID_PARAMS)
+    t0 = time.perf_counter()
+    valid_set.get_binned(cfg)
+    valid_bin_s = time.perf_counter() - t0
+    evals = {}
+    vbst, valid_train_s, valid_launches = counted(lambda: lgb.train(
+        dict(vparams), train_set, VALID_ROUNDS, valid_sets=[valid_set], early_stopping_rounds=5,
+        evals_result=evals, verbose_eval=False))
+    gv = vbst._gbdt
+    assert gv.grow_loop == "device" and gv.captures == 1, (gv.grow_loop, gv.captures)
+    assert valid_launches.get("predict_bins", 0) >= len(evals["valid_0"]["auc"]), valid_launches
+    assert all(valid_launches.get(k, 0) > 0 for k in loop_kernels), valid_launches
+    valid_auc = evals["valid_0"]["auc"]
+    assert max(valid_auc) > 0.7 and np.all(np.isfinite(evals["valid_0"]["binary_logloss"])), valid_auc
+    assert 1 <= vbst.best_iteration <= vbst.num_trees() <= VALID_ROUNDS
+    # every tree of the run: the kernel's leaves equal the plain traversal's,
+    # and the validation score equals the plain per-tree f32 adds bit for bit
+    vbins = gv._valid_bins[0]
+    plain_score = torch.zeros(VALID_ROWS, device=dev) + np.float32(gv._init_fold)
+    depth_sum = 0.0
+    for ta in gv._tree_arrays:
+        ptree = predict_plain.make_predict_tree(ta, gv.feature_meta)
+        want_leaf = predict_plain.tree_predict_leaf(vbins, ptree)
+        nl = int(ta.num_leaves)
+        nodes = torch.stack([ta.split_feature, ta.threshold_bin, ta.left_child, ta.right_child,
+                             ta.default_left.to(torch.int32)], 1)[:nl - 1].to(dev, torch.int32).contiguous()
+        got_leaf = torch.empty(VALID_ROWS, dtype=torch.int32, device=dev)
+        scratch = torch.zeros(VALID_ROWS, device=dev)
+        predict_kernel.add_tree_value(vbins, nodes, torch.tensor([nl], dtype=torch.int32, device=dev),
+                                      gv.feature_meta, ptree.leaf_value, scratch, got_leaf)
+        assert torch.equal(got_leaf.long(), want_leaf), "predict_bins leaves != plain traversal"
+        plain_score += ptree.leaf_value[want_leaf]
+        depth_sum += float(ta.leaf_depth.to(dev)[want_leaf].double().mean())
+    assert plain_score.double().cpu().numpy().tobytes() == gv._valid_score_np(0).tobytes(), (
+        "validation score != the plain per-tree adds")
+    mean_depth = depth_sum / len(gv._tree_arrays)
+    # the bag of the last iteration equals its CPU draw; the feature masks
+    # equal numpy's draws for every iteration run
+    bag_cnt = int(vparams["bagging_fraction"] * N)
+    assert torch.equal(gv._bag.cpu(), draw_bag(gv.config.bagging_seed, gv._bag_iter, N, bag_cnt, "cpu"))
+    assert int(gv._bag.sum()) == bag_cnt
+    feat_rng = np.random.RandomState(gv.config.feature_fraction_seed & 0x7FFFFFFF)
+    k_feat = max(1, int(vparams["feature_fraction"] * F))
+    for _ in range(vbst.num_trees()):
+        want_mask = np.zeros(F, bool)
+        want_mask[feat_rng.choice(F, size=k_feat, replace=False)] = True
+    assert np.array_equal(gv.feature_mask.cpu().numpy(), want_mask)
+    last = gv._tree_arrays[-1]
+    assert want_mask[last.split_feature[:int(last.num_leaves) - 1].numpy()].all()
+    # the host's time of an eval boundary: the validation score read back and
+    # both metrics on the host
+    eval_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vbst.eval_valid()
+        eval_ms.append((time.perf_counter() - t0) * 1e3)
+
+    # chunk 4 equals chunk 1 bit for bit: 100k rows of the main path's data,
+    # gradients rounded to multiples of 2^-7 (4c's rule), with the bag, the
+    # feature masks and a validation set of 50k rows
+    ds_vc = lgb.Dataset(X[:100_000], label=y[:100_000])
+    objective_mod.BinaryLogloss.get_gradients = dyadic_gradients
+    try:
+        vc_runs = {}
+        for c in (1, 4):
+            b_ = lgb.Booster(dict(vparams, device_chunk_size=c), ds_vc)
+            b_.add_valid(lgb.Dataset(Xv[:50_000], label=yv[:50_000]), "v")
+            ran_ = 0
+            while ran_ < 13:
+                ran_ += b_.update_chunk(c if ran_ else 1)[0]
+            vc_runs[c] = b_
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = get_gradients
+    assert vc_runs[4]._gbdt.device_chunk_fallback_reason() is None
+    assert vc_runs[4].model_to_string().split("parameters:")[0] == \
+        vc_runs[1].model_to_string().split("parameters:")[0], "chunk 4 trees != chunk 1"
+    for read in (lambda b_: b_._gbdt.train_score(), lambda b_: b_._gbdt._valid_score_np(0)):
+        assert read(vc_runs[4]).tobytes() == read(vc_runs[1]).tobytes(), "chunk 4 scores != chunk 1"
+    del vc_runs, ds_vc
+
+    # iterations/s in turns: the main path's graph booster (no validation set,
+    # bag or mask) and this configuration's, a replay an iteration and
+    # chunks of 5, evaluation excluded (its host time is eval_ms)
+    vchunk = 5
+    vkinds = {"plain_graph": (dict(TRAIN_PARAMS), 1, False),
+              "valid_graph": (dict(vparams), 1, True),
+              "valid_chunk": (dict(vparams, device_chunk_size=vchunk), vchunk, True)}
+    vboosters = {}
+    for kind, (params_, c, with_valid) in vkinds.items():
+        vboosters[kind] = lgb.Booster(params_, train_set)
+        if with_valid:
+            vboosters[kind].add_valid(valid_set, "valid_0")
+        assert bench_mod.train_iterations(vboosters[kind], 11, c) == 11
+    valid_ips = {kind: [] for kind in vkinds}
+    valid_turn_launches = {}
+    # each turn also keeps the host's ms of each update_chunk call (a call
+    # ends on its readback, so a call's ms is its iterations' wall time), the
+    # allocator's cudaMalloc calls and Python's garbage collections (their
+    # generation and ms) during the turn
+    import gc
+
+    turn_calls = []
+    gc_log = []
+
+    def on_gc(gc_phase, info):
+        if gc_phase == "start":
+            gc_log.append([info["generation"], time.perf_counter()])
+        elif gc_log:
+            gc_log[-1][1] = round((time.perf_counter() - gc_log[-1][1]) * 1e3, 3)
+
+    def turn(b_, c):
+        calls, done_ = [], 0
+        mallocs = torch.cuda.memory_stats(dev).get("num_device_alloc", 0)
+        gc_log.clear()
+        while done_ < 10:
+            t0_ = time.perf_counter()
+            done_ += b_.update_chunk(min(c, 10 - done_))[0]
+            calls.append(round((time.perf_counter() - t0_) * 1e3, 3))
+        return done_, calls, torch.cuda.memory_stats(dev).get("num_device_alloc", 0) - mallocs
+
+    gc.callbacks.append(on_gc)
+    try:
+        for kind in ("plain_graph", "valid_graph", "valid_chunk", "valid_chunk", "valid_graph",
+                     "plain_graph") * 2:
+            (ran, calls, mallocs), secs, got = counted(lambda: turn(vboosters[kind], vkinds[kind][1]))
+            assert ran == 10, (kind, ran)
+            valid_ips[kind].append(10 / secs)
+            valid_turn_launches.setdefault(kind, got)
+            turn_calls.append(dict(kind=kind, call_ms=calls, cuda_mallocs=mallocs,
+                                   gc_generation_ms=[g_ for g_ in gc_log if g_[0] == 2 or g_[1] > 1]))
+    finally:
+        gc.callbacks.remove(on_gc)
+    assert valid_turn_launches["plain_graph"] == turn_launches["graph"], valid_turn_launches
+    assert valid_turn_launches["valid_graph"]["predict_bins"] == 10, valid_turn_launches
+    # one profiled iteration (and one chunk): busy time, idle share and copies
+    valid_prof = {}
+    for kind, fn, n in (("valid_graph", vboosters["valid_graph"].update, 1),
+                        ("valid_chunk", lambda: vboosters["valid_chunk"].update_chunk(vchunk), vchunk)):
+        busy, kernels, copies_, timeline = profiled(fn)
+        valid_prof[kind] = dict(
+            device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
+            timeline=timeline, iterations=n,
+            device_idle_share=[1 - busy / n * v / 1e3 for v in valid_ips[kind]] if busy else "not measured")
+        # up: the chunk's feature masks; down: the ring
+        assert copies_["HtoD"] <= 1 and copies_["DtoH"] == 1, (kind, copies_)
+    for b_ in vboosters.values():
+        assert b_._gbdt.captures == 1
+    # a whole chunk with the bag draws, the mask upload and the validation
+    # update, under sync debug mode "warn": the synchronizing calls it makes
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            vboosters["valid_chunk"].update_chunk(vchunk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    chunk_syncs = sorted({str(w_.message)[:120] for w_ in caught if "ynchroniz" in str(w_.message)})
+    # the bag draw alone: device time, and the host's time to queue it
+    bag_out = torch.empty(N, device=dev)
+    draw_host_us = []
+    for it_ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        draw_bag(gv.config.bagging_seed, it_, N, bag_cnt, dev, out=bag_out)
+        draw_host_us.append((time.perf_counter() - t0) * 1e6)
+    bag_draw = dict(ms=time_ms(lambda: draw_bag(gv.config.bagging_seed, 7, N, bag_cnt, dev, out=bag_out)),
+                    host_us_to_queue=draw_host_us)
+    # the predict kernel at this run's shapes: the last tree of the state
+    # over the validation set, against its plain version and its bound
+    gs_v = vboosters["valid_graph"]._gbdt._grow_state
+    pv_args = (vbins, gs_v.node_i[:gs_v.M - 1], gs_v.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1],
+               gv.feature_meta, gs_v.leaf_f[:, 0].contiguous())
+    pv_k, pv_p = torch.zeros(VALID_ROWS, device=dev), torch.zeros(VALID_ROWS, device=dev)
+    predict_kernel.add_tree_value(*pv_args, pv_k)
+    predict_plain.add_tree_value(*pv_args, pv_p)
+    assert torch.equal(pv_k, pv_p)
+    pv_bound, pv_by = bound(VALID_ROWS * (8 + mean_depth), 0)
+    predict_t = dict(
+        ms=time_ms(lambda: predict_kernel.add_tree_value(*pv_args, pv_k)),
+        plain_ms=time_ms(lambda: predict_plain.add_tree_value(*pv_args, pv_p), reps=3),
+        bound_ms=pv_bound, bound_by=pv_by, max_abs_err=0.0, library_ms=None,
+        mean_depth=mean_depth, rows=VALID_ROWS,
+    )
+    del vboosters
+    say("valid", rows=N, valid_rows=VALID_ROWS, params=VALID_PARAMS, rounds=VALID_ROUNDS,
+        valid_binning_s=valid_bin_s, train_s=valid_train_s,
+        train_iterations_per_s_with_eval=vbst.num_trees() / valid_train_s,
+        best_iteration=vbst.best_iteration, trees=vbst.num_trees(),
+        valid_auc_first_last_best=[valid_auc[0], valid_auc[-1], max(valid_auc)],
+        launches=valid_launches, kernel_leaves_equal_plain=True, valid_scores_equal_plain_adds=True,
+        bag_equals_cpu=True, feature_masks_equal_numpy=True, chunk4_equals_chunk1=True,
+        eval_boundary_host_ms=eval_ms, iterations_per_s=valid_ips, bag_draw=bag_draw,
+        chunk_sync_warnings=chunk_syncs,
+        launches_per_turn=valid_turn_launches, turn_calls=turn_calls, profile=valid_prof,
+        predict_bins=predict_t)
 
     def hold_calls():
         """Hold every call of each histogram kernel wrapper to its plain
@@ -1442,8 +1699,10 @@ def main() -> int:
         "histogram_segment_bf16": ("histogram.cu", sources["histogram"][1]),
         "split_pair_step": ("split_pair.cu", "lightgbm_tpu/ops/split_pallas.py:221"),
         "leaf_ids": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1880"),
+        "predict_bins": ("predict_bins.cu", "lightgbm_tpu/ops/predict.py:85"),
     }
     step_t["leaf_ids"] = leaf_t  # timed in phase 4c on a 255-leaf layout at 1M rows
+    step_t["predict_bins"] = predict_t  # timed in phase 4d over the validation set
     for name, (src, rep) in loop_sources.items():
         t = step_t[name]
         kernels.append(dict(

@@ -8,8 +8,10 @@ versions on CPU tensors. Entry points run on the card unless the caller asks
 for ``device="cpu"``.
 """
 from .basic import Booster, Dataset
-from .engine import train
+from .callback import early_stopping, print_evaluation, record_evaluation, reset_parameter
+from .engine import cv, train
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Dataset", "train", "__version__"]
+__all__ = ["Booster", "Dataset", "cv", "early_stopping", "print_evaluation", "record_evaluation",
+           "reset_parameter", "train", "__version__"]

@@ -1,8 +1,10 @@
 """Public Dataset / Booster handles of the PyTorch port.
 
 The surface of lightgbm_tpu/basic.py that this slice uses: a lazily binned
-``Dataset`` and a ``Booster`` that trains (``update``, ``update_chunk``), predicts, evaluates
-its training metrics and writes or loads LightGBM model text. A Booster
+``Dataset`` (a validation set bins with its ``reference``'s mappers) and a
+``Booster`` that trains (``update``, ``update_chunk``), rolls back, predicts,
+evaluates its training and validation metrics and writes or loads LightGBM
+model text. A Booster
 runs on ``device`` ("cuda" unless the caller asks for "cpu"; the
 ``device``/``device_type`` param key sets it too) and raises when CUDA is
 asked for and absent.
@@ -41,12 +43,15 @@ def resolve_device(device=None) -> torch.device:
 
 
 class Dataset:
-    """Lazy binned dataset: bins on first use with the booster's config."""
+    """Lazy binned dataset: bins on first use with the booster's config.
+    With ``reference`` (the training Dataset) it bins with the reference's
+    BinMappers, as a validation set must."""
 
     def __init__(
         self,
         data,
         label=None,
+        reference: Optional["Dataset"] = None,
         weight=None,
         init_score=None,
         feature_name="auto",
@@ -55,12 +60,26 @@ class Dataset:
     ) -> None:
         self.data = data
         self.label = label
+        self.reference = reference
         self.weight = weight
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._binned: Optional[BinnedDataset] = None
+
+    def create_valid(self, data, label=None, weight=None, init_score=None,
+                     params: Optional[Dict] = None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers."""
+        return Dataset(data, label=label, reference=self, weight=weight, init_score=init_score,
+                       params=params or self.params)
+
+    def set_reference(self, reference: "Dataset") -> "Dataset":
+        if reference is not self.reference:
+            if self._binned is not None:
+                raise LightGBMError("Cannot set reference after the Dataset was constructed")
+            self.reference = reference
+        return self
 
     def construct(self, config: Optional[Config] = None) -> "Dataset":
         if self._binned is not None:
@@ -69,6 +88,7 @@ class Dataset:
             config = Config.from_params(self.params)
         if self.categorical_feature not in (None, "auto", "", []):
             raise NotImplementedError("categorical_feature is not ported yet")
+        ref = None if self.reference is None else self.reference.get_binned(config)
         self._binned = construct_dataset(
             self.data,
             config,
@@ -77,6 +97,7 @@ class Dataset:
             init_score=self.init_score,
             feature_names=list(self.feature_name)
             if isinstance(self.feature_name, (list, tuple)) else None,
+            reference=ref,
         )
         return self
 
@@ -106,12 +127,14 @@ class Booster:
         self.config = Config.from_params(params)
         self.device = resolve_device(self.config.device_type)
         self.train_set = train_set
+        self.best_iteration = -1
+        self.best_score: Dict = {}
+        self._valid_datasets: List[Dataset] = []
+        self._train_data_name = "training"
         if train_set is not None:
             binned = train_set.get_binned(self.config)
             objective = create_objective(self.config)
-            names = self.config.metric or [self.config.objective]
-            metrics = [create_metric(n, self.config) for n in names if n not in ("", "None", "na", "null")]
-            self._gbdt = GBDT(self.config, binned, objective, metrics, device=self.device)
+            self._gbdt = GBDT(self.config, binned, objective, self._make_metrics(), device=self.device)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as fh:
@@ -123,6 +146,20 @@ class Booster:
             )
         else:
             raise LightGBMError("Booster needs train_set, model_file or model_str")
+
+    def _make_metrics(self) -> List[Metric]:
+        names = self.config.metric or [self.config.objective]
+        return [create_metric(n, self.config) for n in names
+                if n not in ("", "None", "na", "null")]
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        """Attach ``data`` as a validation set named ``name``; a Dataset
+        without a reference takes the training set as its reference."""
+        if data.reference is None and data is not self.train_set:
+            data.set_reference(self.train_set)
+        self._gbdt.add_valid(data.get_binned(self.config), self._make_metrics(), name)
+        self._valid_datasets.append(data)
+        return self
 
     def update(self) -> bool:
         """One boosting iteration; True when training stopped (no split)."""
@@ -137,6 +174,16 @@ class Booster:
             return 1, self.update()
         return self._gbdt.train_chunk(n)
 
+    def rollback_one_iter(self) -> "Booster":
+        """Take the last iteration out of the model and every score."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def reset_parameter(self, params: Dict) -> "Booster":
+        self.params.update(params)
+        self._gbdt.reset_parameter(params)
+        return self
+
     @property
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration
@@ -147,15 +194,44 @@ class Booster:
     def num_feature(self) -> int:
         return self._gbdt.max_feature_idx + 1
 
-    def eval_train(self) -> List:
-        score = self._gbdt.train_score()
-        return [
-            ("training", name, val, bigger)
-            for m in self._gbdt.training_metrics
-            for name, val, bigger in m.eval(score, self._gbdt.objective)
-        ]
+    def eval_train(self, feval=None) -> List:
+        return self._eval_set(self._gbdt.train_score(), self._train_data_name,
+                              self._gbdt.training_metrics, feval, self.train_set)
 
-    def predict(self, data, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
+    def eval_valid(self, feval=None) -> List:
+        return [entry for i, name in enumerate(self._gbdt.valid_names)
+                for entry in self._eval_set(self._gbdt._valid_score_np(i), name,
+                                            self._gbdt.valid_metrics[i], feval,
+                                            self._valid_datasets[i])]
+
+    def eval(self, data: Dataset, name: str, feval=None) -> List:
+        """Evaluate on ``data``: the training set, an attached validation
+        set, or a new one (attached first, as the reference does)."""
+        if data is self.train_set:
+            return self.eval_train(feval)
+        if not any(ds is data for ds in self._valid_datasets):
+            self.add_valid(data, name)
+        i = next(i for i, ds in enumerate(self._valid_datasets) if ds is data)
+        return self._eval_set(self._gbdt._valid_score_np(i), name, self._gbdt.valid_metrics[i],
+                              feval, data)
+
+    def _eval_set(self, score, name, metrics, feval, dataset) -> List:
+        objective = self._gbdt.objective
+        results = [(name, mname, val, bigger) for m in metrics
+                   for mname, val, bigger in m.eval(score, objective)]
+        if feval is not None:
+            preds = score if objective is None else objective.convert_output(score)
+            ret = feval(preds, dataset)
+            if ret is not None:
+                for mname, val, bigger in (ret if isinstance(ret, list) else [ret]):
+                    results.append((name, mname, val, bigger))
+        return results
+
+    def predict(self, data, num_iteration: Optional[int] = None, raw_score: bool = False) -> np.ndarray:
+        """Scores of ``data``. ``num_iteration`` None takes the first
+        ``best_iteration`` iterations (``train`` sets it: the early-stopping
+        best, else every iteration it trained), or all while it is unset; a
+        value <= 0 takes all."""
         X = np.asarray(data, dtype=np.float64)
         if X.ndim != 2:
             raise LightGBMError("Input numpy.ndarray must be 2 dimensional")
@@ -164,6 +240,8 @@ class Booster:
                 "The number of features in data (%d) is not the same as it "
                 "was in training data (%d)" % (X.shape[1], self.num_feature())
             )
+        if num_iteration is None:
+            num_iteration = self.best_iteration
         return self._gbdt.predict(X, num_iteration, raw_score=raw_score)
 
     def model_to_string(self, num_iteration: int = -1, start_iteration: int = 0) -> str:

@@ -1,0 +1,116 @@
+// Each row's leaf of one tree in bin space, fused with the score update it
+// feeds, for Hopper (sm_90a): predict_bins.
+//
+// Counterpart of lightgbm_tpu/ops/predict.py ``tree_predict_leaf`` /
+// ``tree_predict_value`` (all rows advance one level a step of a
+// lax.while_loop over node-index vectors) and of the validation-score update
+// after each tree (lightgbm_tpu/models/gbdt.py ``_update_valid_scores``, an
+// ``.at[class].add``). It replaces no Pallas kernel: the reference leaves the
+// traversal to XLA. Its plain version is ops/predict.py ``add_tree_value``,
+// equal bit for bit: the traversal is integer work, and the update is one f32
+// add a row, ``score[r] += value[leaf(r)]``.
+//
+// Layout: one thread per row (a grid-stride loop over rows). Each block
+// first stages the tree's grown nodes in shared memory, 16 bytes a node:
+// the feature, one word packing the threshold bin, the feature's default
+// bin, its NaN bin (num_bin - 1), its missing type and the node's
+// default_left, and the two children. The nodes come from a split loop's
+// ``node_i`` rows (feature, threshold, left, right, default_left) and the
+// feature meta; their count from ``*num_leaves`` in device memory, so the
+// kernel runs inside a captured CUDA graph with nothing read back. A row
+// then walks from the root to its leaf, one byte of its bins a level, read
+// from the row-major [N, F] bin matrix: a row's F bytes share one or two
+// 32-byte sectors, so after the first level the walk reads from L1.
+//
+// What bounds it: bytes. It must read each row's bins on its path (about
+// the mean depth in bytes) and read and write its f32 score: N x (8 + mean
+// depth) bytes, 9.5 MB at 500k rows and a depth of 11, about 3 us of the
+// card's memory rate. The walk is a chain of dependent shared and L1 loads
+// per row (two a level), so latency is hidden only by the rows in flight:
+// 256 threads a block, several blocks an SM.
+//
+// ``value`` is what a row at each leaf adds (the device iteration passes the
+// shrunk leaf values where the tree grew and exact zeros where it did not);
+// ``leaf_out``, when not null, receives each row's leaf.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMissingZero = 1, kMissingNan = 2;  // ops/split.py MISSING_*
+constexpr int kStaticSharedBytes = 48 * 1024;
+
+__global__ void __launch_bounds__(kThreads)
+predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
+                    const int* __restrict__ node_i, int max_nodes,
+                    const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
+                    const int* __restrict__ default_bin, const int* __restrict__ num_bin,
+                    const float* __restrict__ value, float* __restrict__ score,
+                    int* __restrict__ leaf_out) {
+  extern __shared__ int4 nodes[];  // x feature, y rule, z left, w right
+  const int m = min(max(*num_leaves - 1, 0), max_nodes);
+  for (int i = threadIdx.x; i < m; i += kThreads) {
+    const int* rec = node_i + 5LL * i;
+    const int f = rec[0];
+    const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
+                     (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
+                     ((rec[4] != 0) << 26);
+    nodes[i] = make_int4(f, rule, rec[2], rec[3]);
+  }
+  __syncthreads();
+  for (long long r = blockIdx.x * (long long)kThreads + threadIdx.x; r < N;
+       r += (long long)gridDim.x * kThreads) {
+    const uint8_t* row = bins + r * F;
+    int node = m > 0 ? 0 : -1;  // a tree that did not split: every row at leaf 0
+    while (node >= 0) {
+      const int4 nd = nodes[node];
+      const int col = row[nd.x];
+      const int rule = nd.y;
+      const int miss = (rule >> 24) & 3;
+      bool left = col <= (rule & 0xFF);
+      if ((miss == kMissingZero && col == ((rule >> 8) & 0xFF)) ||
+          (miss == kMissingNan && col == ((rule >> 16) & 0xFF))) {
+        left = (rule >> 26) & 1;
+      }
+      node = left ? nd.z : nd.w;
+    }
+    const int leaf = -(node + 1);
+    score[r] += value[leaf];
+    if (leaf_out != nullptr) leaf_out[r] = leaf;
+  }
+}
+
+int configured_shared_bytes = kStaticSharedBytes;
+
+}  // namespace
+
+extern "C" {
+
+// score[r] += value[leaf(r)] for the N rows of bins [N, F] uint8 through the
+// tree of *num_leaves leaves whose first num_leaves - 1 nodes are rows of
+// node_i [max_nodes, 5] int32; missing_type / default_bin / num_bin [F]
+// int32; leaf_out [N] int32 or null. Shared memory: 16 bytes a node.
+int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, int max_nodes,
+                      const void* num_leaves, const void* missing_type, const void* default_bin,
+                      const void* num_bin, const void* value, void* score, void* leaf_out,
+                      int grid, void* stream) {
+  if (N < 1 || F < 1 || max_nodes < 0 || grid < 1) return (int)cudaErrorInvalidValue;
+  const int shared = (max_nodes > 1 ? max_nodes : 1) * (int)sizeof(int4);
+  if (shared > configured_shared_bytes) {
+    // above 48 KB only as dynamic shared memory with the attribute raised;
+    // raised once, before any captured launch needs it
+    const cudaError_t err = cudaFuncSetAttribute(
+        predict_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    if (err != cudaSuccess) return (int)err;
+    configured_shared_bytes = shared;
+  }
+  predict_bins_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, N, F, (const int*)node_i, max_nodes, (const int*)num_leaves,
+      (const int*)missing_type, (const int*)default_bin, (const int*)num_bin,
+      (const float*)value, (float*)score, (int*)leaf_out);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

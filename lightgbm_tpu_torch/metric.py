@@ -1,9 +1,12 @@
-"""Evaluation metrics: AUC and binary log-loss.
+"""Evaluation metrics: AUC, binary log-loss and binary error.
 
-Copies of lightgbm_tpu/metric.py's ``AUCMetric`` and
-``BinaryLoglossMetric``: host-side numpy in double precision over the raw
-scores, with the objective's link applied inside the metric. Other metrics
-are not ported yet and raise.
+Copies of lightgbm_tpu/metric.py's ``AUCMetric``, ``BinaryLoglossMetric``
+and ``BinaryErrorMetric``: host-side numpy in double precision over the raw
+scores, with the objective's link applied inside the metric, so values, and
+the early-stopping decisions made on them, agree with the JAX package's.
+Each instance is initialised on the metadata of the set it evaluates (the
+training set or one validation set). Other metrics are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -53,6 +56,20 @@ class BinaryLoglossMetric(Metric):
         return [(self.names[0], val, self.bigger_is_better)]
 
 
+class BinaryErrorMetric(Metric):
+    names = ["binary_error"]
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        prob = objective.convert_output(s) if objective is not None else s
+        losses = ((prob > 0.5) != (self.label > 0)).astype(np.float64)
+        if self.weight is not None:
+            val = float(np.sum(losses * self.weight) / self.sum_weights)
+        else:
+            val = float(np.mean(losses))
+        return [(self.names[0], val, self.bigger_is_better)]
+
+
 class AUCMetric(Metric):
     names = ["auc"]
     bigger_is_better = True
@@ -86,6 +103,7 @@ class AUCMetric(Metric):
 _METRICS = {
     "binary_logloss": BinaryLoglossMetric,
     "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
 }
 
@@ -94,6 +112,6 @@ def create_metric(name: str, config: Config) -> Metric:
     cls = _METRICS.get(name)
     if cls is None:
         raise NotImplementedError(
-            "metric=%s is not ported yet; only auc and binary_logloss are" % name
+            "metric=%s is not ported yet; only auc, binary_logloss and binary_error are" % name
         )
     return cls(config)

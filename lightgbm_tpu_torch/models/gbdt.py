@@ -1,7 +1,8 @@
 """GBDT boosting loop (gbdt.cpp) for the PyTorch port.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for one slice of it: the serial
-learner, binary objective, no bagging, all features, f32 or bf16 histogram
+learner, binary objective, row bagging and feature_fraction, validation sets,
+rollback, f32 or bf16 histogram
 operands (``tpu_hist_dtype``), and measured histogram routing: the tune
 table named by ``hist_tune`` or LIGHTGBM_TPU_HIST_TUNE is frozen once at
 set-up into a ``HistRoute`` (``_resolve_hist_route``). The split loop is
@@ -26,6 +27,19 @@ device-resident chunked boosting) queues n replays and reads the n trees
 back with one copy, bit for bit the trees and scores of n single
 iterations.
 
+Validation sets (``add_valid``) keep a ``[1, Nv]`` f32 score on the device
+and an ``[Nv, F]`` copy of their bins; each tree is added to them by the
+bin-space predict kernel (ops/predict_kernel.py, csrc/predict_bins.cu)
+inside the device iteration, reading the tree from the split loop's state,
+so the captured graph and every replay of a chunk carry them. The learning
+rate is a device scalar the iteration reads, so a per-iteration schedule
+(``reset_parameter``) replays the same graph. The bag (``bagging_fraction``
+/ ``bagging_freq``) is a function of (``bagging_seed``, iteration) alone
+(:func:`draw_bag`), drawn on the device between replays into the buffer
+the iteration reads; feature_fraction masks are drawn on the host with the
+JAX package's generator and order, a chunk's at once, uploaded in one copy
+and read by the iteration at its ring slot.
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -41,7 +55,7 @@ from ..dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
-from ..ops import cuda_graph, grow_state, hist_kernel
+from ..ops import cuda_graph, grow_state, hist_kernel, predict_kernel
 from ..ops.grow import (
     TreeArrays, device_loop_routable, grow_tree, launch_tree, leaf_ids, tree_from_packed,
 )
@@ -52,6 +66,46 @@ from ..utils import log
 from .tree import Tree
 
 K_EPSILON = 1e-15
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for x in [0, 2**32) (an int64 tensor or a Python
+    int) and a 32-bit constant, in pieces whose products stay below 2**63:
+    exact and the same on every device."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x):
+    """A bijection of [0, 2**32) that mixes its bits (xorshift-multiply,
+    the ``lowbias32`` constants)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bag of one iteration: an [n] f32 mask with exactly ``bag_cnt``
+    ones, a function of (``seed``, ``iteration``) alone (gbdt.cpp:179-240
+    as a mask; the reference's ``fold_in(seed, iteration)`` property, so a
+    chunk of n draws the bags of n single iterations). Each row's key is a
+    32-bit hash of (seed, iteration, row), computed with int64 ops that are
+    exact on every device; the keys of the rows are distinct (the hash is a
+    bijection of the row), and the bag is the ``bag_cnt`` rows with the
+    smallest. The JAX package draws with threefry's permutation, whose bits
+    this does not reproduce. Written into ``out`` when given."""
+    base = _mix32(_mix32(seed & _M32) ^ (iteration & _M32))
+    base2 = _mix32(base ^ 0x9E3779B9)
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    keys = _mix32(_mix32(rows ^ base) ^ base2)
+    chosen = torch.argsort(keys)[:bag_cnt]
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=device)
+    out.zero_()
+    return out.index_fill_(0, chosen, 1.0)
 
 
 def check_supported(config: Config) -> None:
@@ -61,11 +115,6 @@ def check_supported(config: Config) -> None:
         refused.append("boosting=%s" % config.boosting)
     if config.objective != "binary":
         refused.append("objective=%s" % config.objective)
-    if config.bagging_freq > 0 and config.bagging_fraction < 1.0:
-        refused.append("bagging_fraction=%g with bagging_freq=%d"
-                       % (config.bagging_fraction, config.bagging_freq))
-    if config.feature_fraction < 1.0:
-        refused.append("feature_fraction=%g" % config.feature_fraction)
     if config.categorical_feature:
         refused.append("categorical_feature")
     if config.forcedsplits_filename:
@@ -85,6 +134,17 @@ def check_supported(config: Config) -> None:
         raise NotImplementedError(
             "not ported to lightgbm_tpu_torch yet: %s" % ", ".join(refused)
         )
+
+
+def split_params(cfg: Config) -> SplitParams:
+    return SplitParams(
+        lambda_l1=cfg.lambda_l1,
+        lambda_l2=cfg.lambda_l2,
+        max_delta_step=cfg.max_delta_step,
+        min_data_in_leaf=cfg.min_data_in_leaf,
+        min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
+        min_gain_to_split=cfg.min_gain_to_split,
+    )
 
 
 def check_dataset_supported(train_set: BinnedDataset) -> None:
@@ -122,6 +182,14 @@ class GBDT:
         self.label_idx = 0
         self.average_output = False
         self._stopped = False
+        self.valid_metrics: List[List[Metric]] = []
+        self.valid_names: List[str] = []
+        self.valid_scores: List[torch.Tensor] = []  # [1, Nv] f32 each, on the device
+        self._valid_bins: List[torch.Tensor] = []  # [Nv, F] uint8 each, on the device
+        #: the boost-from-average score: in the scores, folded into the first
+        #: tree's leaf values only when that tree is materialised
+        self._init_fold = 0.0
+        self._init_readded = False  # a first iteration that did not split re-added it
         if train_set is not None:
             self._setup_train(train_set)
 
@@ -165,15 +233,22 @@ class GBDT:
         # set once an iteration of the chunk grew no tree: later ones add zeros
         self._chunk_stopped = torch.zeros(1, dtype=torch.bool, device=dev)
         self._graph = None  # (key, cuda_graph.Graph) of the captured iteration
+        self.captures = 0  # graphs captured (a new key captures again)
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
-        self.split_params = SplitParams(
-            lambda_l1=cfg.lambda_l1,
-            lambda_l2=cfg.lambda_l2,
-            max_delta_step=cfg.max_delta_step,
-            min_data_in_leaf=cfg.min_data_in_leaf,
-            min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
-            min_gain_to_split=cfg.min_gain_to_split,
-        )
+        # the iteration reads the learning rate from the device: a schedule
+        # replays the same graph
+        self._rate_value = float(np.float32(self.shrinkage_rate))
+        self._rate = torch.full((1,), self._rate_value, dtype=torch.float32, device=dev)
+        # [N] f32 bag mask with bagging (None without), read by both loops
+        self._bag = torch.ones(self.num_data, dtype=torch.float32, device=dev) \
+            if self._bagging_on() else None
+        self._bag_iter = -1  # the iteration whose draw the bag holds
+        # feature_fraction: the JAX package's generator and draw order
+        self._feat_rng = np.random.RandomState(cfg.feature_fraction_seed & 0x7FFFFFFF)
+        self._feature_masks = None  # [ring rows, F] bool: a chunk's masks, read by ring slot
+        self._feature_masks_host = None  # their pinned staging copy (CUDA)
+        self._masked = False  # a mask was drawn: feature_mask may hold zeros
+        self.split_params = split_params(cfg)
         init = train_set.metadata.init_score
         self._has_init_score = init is not None
         if init is not None:
@@ -206,10 +281,56 @@ class GBDT:
         if self.config.boost_from_average or self.train_set.num_features == 0:
             init_score = self.objective.boost_from_score(0)
             if abs(init_score) > K_EPSILON:
-                self.scores += np.float32(init_score)
+                self._add_constant(init_score)
                 log.info("Start training from score %f" % init_score)
                 return init_score
         return 0.0
+
+    def _add_constant(self, value: float) -> None:
+        """Add ``value`` (as f32) to the training and every validation score."""
+        self.scores += np.float32(value)
+        for score in self.valid_scores:
+            score += np.float32(value)
+
+    # ------------------------------------------------------------------
+    # row bagging and feature_fraction
+    # ------------------------------------------------------------------
+    def _bagging_on(self) -> bool:
+        cfg = self.config
+        return cfg.bagging_freq > 0 and cfg.bagging_fraction < 1.0
+
+    def _prepare_bag(self, iteration: int) -> None:
+        """Make the bag buffer hold iteration ``iteration``'s bag: the draw
+        of the last iteration that is a multiple of ``bagging_freq``
+        (gbdt.cpp:179-240), queued on the device, and only when the buffer
+        holds another draw."""
+        if not self._bagging_on():
+            return
+        cfg = self.config
+        want = iteration - iteration % cfg.bagging_freq
+        if self._bag is None:
+            self._bag = torch.ones(self.num_data, dtype=torch.float32, device=self.device)
+        if want != self._bag_iter:
+            draw_bag(cfg.bagging_seed, want, self.num_data, int(cfg.bagging_fraction * self.num_data),
+                     self.device, out=self._bag)
+            self._bag_iter = want
+
+    def _sample_feature_masks(self, n: int) -> Optional[np.ndarray]:
+        """The next ``n`` iterations' feature_fraction masks, [n, F] bool,
+        drawn as the JAX package draws them (``_sample_features`` /
+        ``_sample_feature_masks``: ``choice(F, k, replace=False)`` of one
+        ``RandomState(feature_fraction_seed)`` an iteration, in order); None
+        without feature_fraction."""
+        cfg = self.config
+        if cfg.feature_fraction >= 1.0:
+            return None
+        F = self.train_set.num_features
+        k = max(1, int(cfg.feature_fraction * F))
+        masks = np.zeros((n, F), bool)
+        for i in range(n):
+            masks[i, self._feat_rng.choice(F, size=k, replace=False)] = True
+        self._masked = True
+        return masks
 
     def _compute_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """Boosting() (gbdt.cpp:148): objective gradients at the current scores."""
@@ -224,7 +345,16 @@ class GBDT:
             num_bins=self.num_bins, params=self.split_params,
             two_way=self._two_way, bins_nf=self.bins_nf,
             route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype, bins_packed=self.bins_p4,
+            bag=self._bag,
         )
+
+    def _set_rate(self) -> None:
+        """The device rate scalar to the current ``shrinkage_rate`` (a fill
+        only when it changed)."""
+        rate = float(np.float32(self.shrinkage_rate))
+        if rate != self._rate_value:
+            self._rate.fill_(rate)
+            self._rate_value = rate
 
     def _shrink(self, tree: TreeArrays) -> TreeArrays:
         """The tree's host arrays times the learning rate (``_finish_step``
@@ -253,6 +383,13 @@ class GBDT:
             self._ring = torch.zeros(shape, dtype=torch.int32, device=self.device)
             if self.device.type == "cuda":
                 self._ring_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
+        if cfg.feature_fraction < 1.0 and (
+                self._feature_masks is None or self._feature_masks.shape[0] != self._ring.shape[0]):
+            self._feature_masks = torch.ones((self._ring.shape[0], F), dtype=torch.bool,
+                                             device=self.device)
+            if self.device.type == "cuda":  # the staging copy of an upload without a sync
+                self._feature_masks_host = torch.empty(self._feature_masks.shape, dtype=torch.bool,
+                                                       pin_memory=True)
 
     def _device_iteration(self) -> None:
         """Queue one boosting iteration on the device loop, reading nothing
@@ -262,18 +399,27 @@ class GBDT:
         row. The reference's chunked scan body (``_chunk_fn``,
         ``_finish_step``): a tree that did not split, and every tree after
         one in the chunk (``_chunk_stopped``), adds exact zeros; the score
-        update is a gather and a plain f32 add, never a multiply-add."""
+        update is a gather and a plain f32 add, never a multiply-add. With
+        feature_fraction the iteration first copies its mask out of the
+        chunk's masks at its ring slot; with bagging it reads the bag
+        buffer; each validation set's score takes the same values through
+        the predict kernel, which reads the tree from the state."""
         cfg = self.config
         s = self._grow_state
+        if self._feature_masks is not None:
+            self.feature_mask.copy_(self._feature_masks.index_select(0, self._ring_slot)[0])
         grad, hess = self._compute_gradients()
         launch_tree(s, self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
                     cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
-                    cfg.tpu_hist_dtype)
+                    cfg.tpu_hist_dtype, self._bag)
         leaf_id = leaf_ids(s)
-        grew = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1] > 1
-        rate = float(np.float32(self.shrinkage_rate))
-        value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * rate, 0.0)
+        num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
+        grew = num_leaves > 1
+        value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * self._rate, 0.0)
         self.scores[0].add_(value[leaf_id])
+        for bins, score in zip(self._valid_bins, self.valid_scores):
+            predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves, self.feature_meta,
+                                          value, score[0])
         self._chunk_stopped |= ~grew
         self._ring.index_copy_(0, self._ring_slot, s.packed[None])
         self._ring_slot += 1
@@ -284,35 +430,49 @@ class GBDT:
         cfg = self.config
         return (self.num_data, self.bins_dev.shape[0], self.num_bins, cfg.num_leaves,
                 cfg.max_depth, self.split_params, self._two_way, cfg.tpu_hist_dtype,
-                float(np.float32(self.shrinkage_rate)), id(self._grow_state), id(self._ring),
-                id(self.scores), self.device)
+                id(self._grow_state), id(self._ring), id(self.scores), id(self._bag),
+                id(self._feature_masks), tuple(map(id, self.valid_scores)),
+                tuple(map(id, self._valid_bins)), self.device)
 
     def _captured_iteration(self) -> cuda_graph.Graph:
         key = self._iteration_key()
         if self._graph is None or self._graph[0] != key:
             self._graph = None  # the old graph's memory goes first
             graph = cuda_graph.Graph(self._device_iteration, self.device)
+            self.captures += 1
             # the buffers the key names by id stay alive as long as the graph
-            self._graph = (key, graph, (self._grow_state, self._ring, self.scores))
+            self._graph = (key, graph, (self._grow_state, self._ring, self.scores, self._bag,
+                                        self._feature_masks, list(self.valid_scores),
+                                        list(self._valid_bins)))
         return self._graph[1]
 
     def launch_iterations(self, n: int, eager: bool = False) -> None:
         """Queue ``n`` iterations of the device loop, reading nothing back:
-        the ring and the stop flag reset on the device, then ``n`` replays
-        of the captured iteration (CUDA with ``iteration_graph``; captured
-        at the first call) or ``n`` eager iterations (``eager``, the CPU,
-        or ``iteration_graph`` False). :meth:`collect_iterations` reads the
-        trees back."""
+        the ring and the stop flag reset on the device, the chunk's
+        feature_fraction masks uploaded in one copy, then ``n`` replays of
+        the captured iteration (CUDA with ``iteration_graph``; captured at
+        the first call) or ``n`` eager iterations (``eager``, the CPU, or
+        ``iteration_graph`` False), each after its bag is drawn on the
+        device when it changes. :meth:`collect_iterations` reads the trees
+        back."""
         self._device_buffers(n)
         self._ring_slot.zero_()
         self._chunk_stopped.zero_()
-        if eager or not self.iteration_graph:
-            for _ in range(n):
-                self._device_iteration()
-            return
-        graph = self._captured_iteration()
-        for _ in range(n):
-            graph.replay()
+        self._set_rate()
+        masks = self._sample_feature_masks(n)
+        if masks is not None:
+            if self.device.type == "cuda":
+                # the last chunk's upload is done: its readback waited for every replay
+                self._feature_masks_host[:n].numpy()[:] = masks
+                self._feature_masks[:n].copy_(self._feature_masks_host[:n], non_blocking=True)
+            else:
+                self._feature_masks[:n].copy_(torch.from_numpy(masks))
+        step = self._device_iteration
+        if not eager and self.iteration_graph:
+            step = self._captured_iteration().replay
+        for i in range(n):
+            self._prepare_bag(self.iter_ + i)
+            step()
 
     def collect_iterations(self, n: int) -> List[TreeArrays]:
         """The ``n`` trees of the last :meth:`launch_iterations`, shrunk,
@@ -336,11 +496,13 @@ class GBDT:
         and stop (the reference's ``_consume_pending_stop``): those later
         iterations added exact zeros to the scores. Returns True on a stop.
         ``init_score`` (the first iteration's boost from average) folds into
-        the leaf values, and a first iteration that does not split keeps its
-        constant tree and re-adds the init score (gbdt.cpp:375-395)."""
+        the first tree's leaf values when it is materialised (the stored
+        arrays are the values the scores took), and a first iteration that
+        does not split keeps its constant tree and re-adds the init score
+        (gbdt.cpp:375-395)."""
         for tree in trees:
-            if abs(init_score) > K_EPSILON:
-                tree = tree._replace(leaf_value=tree.leaf_value + np.float32(init_score))
+            if not self.models:
+                self._init_fold = init_score
             if int(tree.num_leaves) <= 1:
                 log.warning("Stopped training because there are no more leaves that meet the split requirements")
                 self._stopped = True
@@ -348,7 +510,8 @@ class GBDT:
                     self.models.append(None)
                     self._tree_arrays.append(tree)
                     if abs(init_score) > K_EPSILON:
-                        self.scores += np.float32(init_score)
+                        self._add_constant(init_score)
+                        self._init_readded = True
                 return True
             self.models.append(None)
             self._tree_arrays.append(tree)
@@ -375,19 +538,25 @@ class GBDT:
                 self.models.append(t)
                 self._tree_arrays.append(None)
                 if output != 0.0:
-                    self.scores += np.float32(output)
+                    self._add_constant(output)
             log.warning("Stopped training because there are no more leaves that meet the split requirements")
             self._stopped = True
             return True
         if self.grow_loop == "device":
             self.launch_iterations(1, eager=not self.models)
             return self._keep_trees(self.collect_iterations(1), init_score)
+        self._prepare_bag(self.iter_)
+        masks = self._sample_feature_masks(1)
+        if masks is not None:
+            self.feature_mask.copy_(torch.from_numpy(masks[0]))
         grad, hess = self._compute_gradients()
         tree, leaf_id = self._train_tree(grad, hess)
         tree = self._shrink(tree)
         # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of the
         # shrunk leaf values gathered by each row's leaf
         self.scores[0] += tree.leaf_value.to(self.device)[leaf_id]
+        for bins, score in zip(self._valid_bins, self.valid_scores):
+            self._add_tree(tree, bins, score[0])
         return self._keep_trees([tree], init_score)
 
     # ------------------------------------------------------------------
@@ -437,9 +606,114 @@ class GBDT:
         return n, self._keep_trees(self.collect_iterations(n))
 
     # ------------------------------------------------------------------
+    # ------------------------------------------------------------------
+    # validation sets, rollback
+    # ------------------------------------------------------------------
+    def _add_tree(self, tree: TreeArrays, bins: torch.Tensor, score: torch.Tensor,
+                  sign: float = 1.0) -> None:
+        """``score[r] += sign * leaf_value[leaf(r)]`` for the host TreeArrays
+        ``tree`` over the [N, F] ``bins`` (ops/predict_kernel.py: the kernel
+        on the card, its plain version on the CPU)."""
+        nl = int(tree.num_leaves)
+        nodes = torch.stack([tree.split_feature, tree.threshold_bin, tree.left_child,
+                             tree.right_child, tree.default_left.to(torch.int32)], 1)
+        nodes = nodes[:max(nl - 1, 0)].to(device=self.device, dtype=torch.int32).contiguous()
+        value = (tree.leaf_value * sign).to(self.device)
+        num_leaves = torch.tensor([nl], dtype=torch.int32, device=self.device)
+        predict_kernel.add_tree_value(bins, nodes, num_leaves, self.feature_meta, value, score)
+
+    def add_valid(self, valid_set: BinnedDataset, metrics: List[Metric], name: str) -> None:
+        """Attach an eval set binned with the training set's mappers: its
+        metrics initialised on its metadata, a [1, Nv] f32 score on the
+        device (its init score, else zeros) into which the trees trained so
+        far are added in order, as the live score took them (the reference's
+        ScoreUpdater on AddValidDataset), and an [Nv, F] copy of its bins.
+        The next iteration captures its graph again with the set's buffers."""
+        if self.train_set is None:
+            raise NotImplementedError("add_valid on a model loaded from text is not ported yet")
+        if valid_set.num_features != self.train_set.num_features or valid_set.is_bundled:
+            raise ValueError("a validation set must be binned with the training set's mappers "
+                             "(Dataset(..., reference=train_set))")
+        for m in metrics:
+            m.init(valid_set.metadata, valid_set.num_data)
+        bins = torch.from_numpy(np.ascontiguousarray(valid_set.bins.T, dtype=np.uint8)).to(self.device)
+        init = valid_set.metadata.init_score
+        if init is not None:
+            arr = np.asarray(init, np.float64).reshape(1, valid_set.num_data)
+            score = torch.as_tensor(arr, dtype=torch.float32, device=self.device)
+        else:
+            score = torch.zeros((1, valid_set.num_data), dtype=torch.float32, device=self.device)
+        if abs(self._init_fold) > K_EPSILON:
+            score += np.float32(self._init_fold)
+        for i, ta in enumerate(self._tree_arrays):
+            if ta is not None:
+                self._add_tree(ta, bins, score[0])
+            elif self.models[i] is not None and self.models[i].num_leaves == 1:
+                if self.models[i].leaf_value[0] != 0.0:
+                    score += np.float32(self.models[i].leaf_value[0])
+        if self._init_readded:
+            score += np.float32(self._init_fold)
+        self.valid_metrics.append(metrics)
+        self.valid_names.append(name)
+        self.valid_scores.append(score)
+        self._valid_bins.append(bins)
+
+    def _valid_score_np(self, i: int) -> np.ndarray:
+        return self.valid_scores[i][0].double().cpu().numpy()
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        """(set name, metric name, value, bigger is better) of every
+        validation set's metrics, in the order they were attached."""
+        out = []
+        for i, name in enumerate(self.valid_names):
+            score = self._valid_score_np(i)
+            for m in self.valid_metrics[i]:
+                out.extend((name, mname, val, bigger)
+                           for mname, val, bigger in m.eval(score, self.objective))
+        return out
+
+    def rollback_one_iter(self) -> None:
+        """RollbackOneIter (gbdt.cpp:415-431): the last tree's values taken
+        out of the training and validation scores, through each row's leaf
+        in bin space, and the tree dropped; the first tree takes the
+        boost-from-average score with it."""
+        if self.iter_ <= 0:
+            return
+        tree = self._tree_arrays[-1]
+        if tree is not None:
+            self._add_tree(tree, self.bins_nf, self.scores[0], -1.0)
+            for bins, score in zip(self._valid_bins, self.valid_scores):
+                self._add_tree(tree, bins, score[0], -1.0)
+        if len(self.models) == 1 and abs(self._init_fold) > K_EPSILON:
+            self._add_constant(-self._init_fold)
+            self._init_fold = 0.0
+        self.models.pop()
+        self._tree_arrays.pop()
+        self.iter_ -= 1
+
+    def reset_parameter(self, params) -> None:
+        """The reset_parameter callback's path (ResetConfig): the config
+        updated; the learning rate takes effect at the next iteration through
+        the device rate scalar, with no new capture. A change of the split
+        parameters, or bagging or feature_fraction turned off, captures the
+        iteration again."""
+        self.config = self.config.update(params)
+        check_supported(self.config)
+        self.shrinkage_rate = self.config.learning_rate
+        self.split_params = split_params(self.config)
+        if not self._bagging_on():
+            self._bag, self._bag_iter = None, -1
+        if self.config.feature_fraction >= 1.0 and self._masked:
+            self._feature_masks = self._feature_masks_host = None
+            self.feature_mask.fill_(True)
+            self._masked = False
+
+    # ------------------------------------------------------------------
     def _materialize(self) -> None:
         for i, ta in enumerate(self._tree_arrays):
             if self.models[i] is None:
+                if i == 0 and abs(self._init_fold) > K_EPSILON:
+                    ta = ta._replace(leaf_value=ta.leaf_value + np.float32(self._init_fold))
                 self.models[i] = Tree.from_device(ta, self.train_set)
                 self.models[i].shrinkage = self.shrinkage_rate
 

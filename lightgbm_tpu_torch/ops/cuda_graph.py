@@ -5,7 +5,8 @@ The device-resident boosting iteration (models/gbdt.py) queues some 1800
 kernels from Python a tree. Captured once into a CUDA graph, a replay
 launches all of them with one host call. The kernel wrappers count their
 launches in Python (``hist_kernel.launches``, ``grow_step_kernel.launches``,
-``split_kernel.launches`` / ``step_launches``, ``partition_kernel.launches``)
+``split_kernel.launches`` / ``step_launches``, ``partition_kernel.launches``,
+``predict_kernel.launches``)
 and a replay calls none of them, so :class:`Graph` records how many
 launches of each wrapper the capture recorded, takes them back off (a
 capture runs nothing), and adds them again at each replay: the counts stay
@@ -23,19 +24,20 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from . import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
+from . import grow_step_kernel, hist_kernel, partition_kernel, predict_kernel, split_kernel
 
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by its name in chip_smoke.py's
-    kernels line (``split_pair``, ``split_pair_step``, ``pick_partition``
-    and the keys of ``hist_kernel.launches`` and
+    kernels line (``split_pair``, ``split_pair_step``, ``pick_partition``,
+    ``predict_bins`` and the keys of ``hist_kernel.launches`` and
     ``grow_step_kernel.launches``)."""
     counts = dict(hist_kernel.launches)
     counts.update(grow_step_kernel.launches)
     counts["split_pair"] = split_kernel.launches
     counts["split_pair_step"] = split_kernel.step_launches
     counts["pick_partition"] = partition_kernel.launches
+    counts["predict_bins"] = predict_kernel.launches
     return counts
 
 
@@ -48,6 +50,8 @@ def add_launches(delta: Dict[str, int]) -> None:
             split_kernel.step_launches += n
         elif name == "pick_partition":
             partition_kernel.launches += n
+        elif name == "predict_bins":
+            predict_kernel.launches += n
         elif name in grow_step_kernel.launches:
             grow_step_kernel.launches[name] += n
         else:

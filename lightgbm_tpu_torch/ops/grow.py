@@ -103,8 +103,12 @@ def grow_tree(
     route: Optional[hist_kernel.HistRoute] = None,
     hist_dtype: str = "float32",
     bins_packed: Optional[torch.Tensor] = None,  # [ceil(N/2), F] nibble-packed copy (B <= 16)
+    bag: Optional[torch.Tensor] = None,  # [N] f32, 1.0 = in the bag; None: every row
 ) -> Tuple[TreeArrays, torch.Tensor]:
-    """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device)."""
+    """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device).
+    Rows outside the ``bag`` stay in their segments with zero weight: every
+    histogram, sum and count (so the smaller child and ``min_data_in_leaf``)
+    is the bag's, and ``leaf_id`` still covers every row."""
     dev = bins.device
     F, N = bins.shape
     M = num_leaves
@@ -123,12 +127,12 @@ def grow_tree(
         return outf.cpu(), outi.cpu()
 
     # ---- root ------------------------------------------------------------
-    vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev))
+    vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev) if bag is None else bag)
     hist = torch.empty((M, F, B, 3), dtype=f32, device=dev)
     hist[0] = hist_kernel.routed_histogram(
         hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
     )
-    root = torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()]).cpu()
+    root = root_sums(grad, hess, vals_all, bag).cpu()
 
     # [M, 5] leaf aux: sum_grad, sum_hess, num_data, monotone min, max
     laux = torch.zeros((M, 5), dtype=f32)
@@ -246,6 +250,16 @@ def grow_tree(
     return tree, leaf_id
 
 
+def root_sums(grad: torch.Tensor, hess: torch.Tensor, vals_all: torch.Tensor,
+              bag: Optional[torch.Tensor]) -> torch.Tensor:
+    """The root's (sum_grad, sum_hess, count) [3] f32: of the bag's rows,
+    ``sum(grad * bag)`` as the reference sums them
+    (lightgbm_tpu/ops/grow.py:1123-1125), or of every row without a bag."""
+    if bag is None:
+        return torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()])
+    return torch.stack([(grad * bag).sum(), (hess * bag).sum(), bag.sum()])
+
+
 def device_loop_routable(
     N: int, num_bins: int, hist_dtype: str, route: Optional[hist_kernel.HistRoute],
     device: torch.device,
@@ -276,20 +290,24 @@ def start_tree(
     two_way: bool = True,
     bins_nf: Optional[torch.Tensor] = None,
     hist_dtype: str = "float32",
+    bag: Optional[torch.Tensor] = None,
 ) -> None:
     """Bind a tree's inputs to the state ``s``, reset it, and queue the
     root: its histogram, its sums and leaf output, and (M > 1) its split
-    scan. Reads nothing back."""
+    scan. Reads nothing back. ``bag`` ([N] f32) as in :func:`grow_tree`:
+    the segments (``leaf_count``) stay physical, the records' counts are
+    the bag's."""
     N = s.N
     hist_bins = bins_nf.t() if bins_nf is not None else bins
-    vals_all = leaf_values(grad, hess, torch.ones(N, dtype=torch.float32, device=s.device))
+    ones = torch.ones(N, dtype=torch.float32, device=s.device) if bag is None else bag
+    vals_all = leaf_values(grad, hess, ones)
     s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
            hist_dtype)
     s.reset()
     root_hist = s.hist[0]
     root_hist.zero_()
     hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist)
-    root = torch.stack([grad.sum(), hess.sum(), vals_all[:, 2].sum()])
+    root = root_sums(grad, hess, vals_all, bag)
     s.laux[0, :3] = root
     s.leaf_f[0] = torch.stack([calculate_leaf_output(root[0], root[1], params), root[2], root[1]])
     if s.M < 2:
@@ -373,6 +391,7 @@ def grow_tree_device(
     bins_nf: Optional[torch.Tensor] = None,  # [N, F] copy of bins for the histograms
     hist_dtype: str = "float32",
     state: Optional[gs.GrowState] = None,
+    bag: Optional[torch.Tensor] = None,
 ) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
     """Grow one tree with the device-resident split loop; returns
     (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
@@ -382,7 +401,7 @@ def grow_tree_device(
     F, N = bins.shape
     if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves):
         state = gs.GrowState(bins.device, N, F, num_bins, num_leaves)
-    launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth, params,
-                two_way, bins_nf, hist_dtype)
+    launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
+                params, two_way, bins_nf, hist_dtype, bag)
     leaf_id = leaf_ids(state)
     return read_tree(state), leaf_id, state

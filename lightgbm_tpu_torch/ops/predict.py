@@ -1,15 +1,27 @@
-"""Ensemble raw-score prediction in plain PyTorch.
+"""Tree traversal in plain PyTorch: over raw features and over bins.
 
-Counterpart of the JAX package's raw-feature prediction
+Raw space (``raw_predict_leaf``, ``ensemble_predict_raw``): the
+counterpart of the JAX package's raw-feature prediction
 (lightgbm_tpu/models/gbdt.py ``predict_raw`` over models/tree.py
 ``predict_leaf_fast``): every row advances one tree level per step, with
 NumericalDecision semantics (tree.h:216-255) in double precision, and the
-trees' values are summed in f64 in boosting order. Numerical splits only;
-a categorical node raises.
+trees' values are summed in f64 in boosting order.
+
+Bin space (``make_predict_tree``, ``tree_predict_leaf``,
+``tree_predict_value``, ``add_tree_value``): the counterpart of
+lightgbm_tpu/ops/predict.py over an ``[N, F]`` row-major uint8 bin matrix
+binned with the training set's mappers: a node's decision is an integer
+compare plus the missing-bin rules (dense_bin.hpp Split). The validation
+scores and the rollback use it. ``add_tree_value`` is the plain version of
+the hand-written kernel csrc/predict_bins.cu (ops/predict_kernel.py) and the
+path taken for CPU tensors.
+
+Numerical, unbundled splits only: a categorical node or an EFB-bundled
+layout raises.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, NamedTuple, Sequence
 
 import torch
 
@@ -17,7 +29,7 @@ from ..binning import MISSING_NAN, MISSING_ZERO
 from ..models.tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, K_ZERO_THRESHOLD, Tree
 
 
-def tree_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
+def raw_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
     """Leaf index per row of the f64 ``[N, F]`` raw feature matrix ``X``."""
     n = X.shape[0]
     dev = X.device
@@ -59,5 +71,112 @@ def ensemble_predict_raw(X: torch.Tensor, trees: Sequence[Tree]) -> torch.Tensor
     out = torch.zeros(X.shape[0], dtype=torch.float64, device=X.device)
     for t in trees:
         values = torch.as_tensor(t.leaf_value, dtype=torch.float64, device=X.device)
-        out += values[tree_predict_leaf(X, t)]
+        out += values[raw_predict_leaf(X, t)]
     return out
+
+
+class PredictTree(NamedTuple):
+    """A tree's nodes with their features' missing-bin rules, for a
+    traversal in bin space (lightgbm_tpu/ops/predict.py ``PredictTree``,
+    numerical and unbundled)."""
+
+    split_feature: torch.Tensor  # [M-1] int64
+    threshold_bin: torch.Tensor  # [M-1] int64
+    default_left: torch.Tensor  # [M-1] bool
+    left_child: torch.Tensor  # [M-1] int64 (node, or -(leaf+1))
+    right_child: torch.Tensor  # [M-1] int64
+    leaf_value: torch.Tensor  # [M] f32
+    missing_type: torch.Tensor  # [M-1] int64, of each node's feature
+    default_bin: torch.Tensor  # [M-1] int64
+    nan_bin: torch.Tensor  # [M-1] int64 (the feature's num_bin - 1)
+    num_leaves: int
+
+
+def _check_layout(feature_meta: Dict[str, torch.Tensor]) -> None:
+    if "group_id" in feature_meta:
+        raise NotImplementedError("prediction over EFB-bundled bins is not ported yet")
+    is_cat = feature_meta.get("is_categorical")
+    if is_cat is not None and bool(torch.as_tensor(is_cat).any()):
+        raise NotImplementedError("categorical splits are not ported yet")
+
+
+def predict_tree(split_feature, threshold_bin, default_left, left_child, right_child,
+                 leaf_value, num_leaves: int, feature_meta: Dict[str, torch.Tensor]) -> PredictTree:
+    """A :class:`PredictTree` from a tree's node arrays and the features'
+    meta (``num_bin``, ``missing_type``, ``default_bin``), on the meta's
+    device."""
+    _check_layout(feature_meta)
+    dev = feature_meta["num_bin"].device
+
+    def i64(a):
+        return torch.as_tensor(a).to(device=dev, dtype=torch.int64)
+
+    f = i64(split_feature)
+    return PredictTree(
+        split_feature=f, threshold_bin=i64(threshold_bin),
+        default_left=torch.as_tensor(default_left).to(device=dev, dtype=torch.bool),
+        left_child=i64(left_child), right_child=i64(right_child),
+        leaf_value=leaf_value.to(device=dev, dtype=torch.float32),
+        missing_type=i64(feature_meta["missing_type"])[f],
+        default_bin=i64(feature_meta["default_bin"])[f],
+        nan_bin=i64(feature_meta["num_bin"])[f] - 1,
+        num_leaves=int(num_leaves),
+    )
+
+
+def make_predict_tree(tree, feature_meta: Dict[str, torch.Tensor]) -> PredictTree:
+    """Bundle ops/grow.py TreeArrays with the per-node feature meta
+    (lightgbm_tpu/ops/predict.py ``make_predict_tree``)."""
+    return predict_tree(tree.split_feature, tree.threshold_bin, tree.default_left,
+                        tree.left_child, tree.right_child, tree.leaf_value,
+                        int(tree.num_leaves), feature_meta)
+
+
+def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
+    """Leaf index [N] int64 of every row of the ``[N, F]`` uint8 bin matrix
+    ``bins``: all rows advance one level a step until each is at a leaf."""
+    N = bins.shape[0]
+    node = torch.zeros(N, dtype=torch.int64, device=bins.device)
+    if tree.num_leaves <= 1:
+        return node
+    rows = torch.arange(N, device=bins.device)
+    active = torch.ones(N, dtype=torch.bool, device=bins.device)
+    while bool(active.any()):
+        nd = node[active]
+        col = bins[rows[active], tree.split_feature[nd]].to(torch.int64)
+        go_left = col <= tree.threshold_bin[nd]
+        dl = tree.default_left[nd]
+        miss = tree.missing_type[nd]
+        go_left = torch.where((miss == MISSING_ZERO) & (col == tree.default_bin[nd]), dl, go_left)
+        go_left = torch.where((miss == MISSING_NAN) & (col == tree.nan_bin[nd]), dl, go_left)
+        node[active] = torch.where(go_left, tree.left_child[nd], tree.right_child[nd])
+        active = node >= 0
+    return -(node + 1)
+
+
+def tree_predict_value(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
+    """Each row's leaf value [N] f32."""
+    return tree.leaf_value[tree_predict_leaf(bins, tree)]
+
+
+def add_tree_value(
+    bins: torch.Tensor,  # [N, F] uint8
+    node_i: torch.Tensor,  # [>= M-1, 5] int32: feature, threshold, left, right, default_left
+    num_leaves: torch.Tensor,  # [1] int32: the tree's leaves
+    feature_meta: Dict[str, torch.Tensor],
+    value: torch.Tensor,  # [M] f32: what a row at each leaf adds
+    score: torch.Tensor,  # [N] f32, updated in place
+    leaf_out=None,  # optional [N] int32: each row's leaf
+) -> None:
+    """``score[r] += value[leaf(r)]`` for every row r of ``bins``, one f32
+    add a row; the plain version of csrc/predict_bins.cu, which reads the
+    tree the same way from a split loop's ``node_i`` and ``ctl``."""
+    nl = int(num_leaves.reshape(-1)[0])
+    m = max(nl - 1, 0)
+    nodes = node_i[:m].to(torch.int64)
+    tree = predict_tree(nodes[:, 0], nodes[:, 1], nodes[:, 4] != 0, nodes[:, 2], nodes[:, 3],
+                        value, nl, feature_meta)
+    leaf = tree_predict_leaf(bins, tree)
+    score += value[leaf]
+    if leaf_out is not None:
+        leaf_out.copy_(leaf)

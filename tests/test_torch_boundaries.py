@@ -16,7 +16,7 @@ from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.config import Config
 from lightgbm_tpu_torch.models.gbdt import GBDT
 from lightgbm_tpu_torch.objective import create_objective
-from lightgbm_tpu_torch.ops import hist_kernel, split_kernel
+from lightgbm_tpu_torch.ops import hist_kernel, predict_kernel, split_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
@@ -74,13 +74,17 @@ def test_cuda_asked_for_and_absent_raises(monkeypatch):
 def test_cpu_path_launches_no_kernel():
     hist_kernel.reset_launches()
     split_kernel.launches = 0
+    predict_kernel.launches = 0
     X, y = _data()
+    train_set = tlgb.Dataset(X, label=y)
     b = tlgb.train(
         {"objective": "binary", "num_leaves": 7, "verbose": -1},
-        tlgb.Dataset(X, label=y), 3, device="cpu",
+        train_set, 3, valid_sets=[tlgb.Dataset(X[:100], label=y[:100], reference=train_set)],
+        verbose_eval=False, device="cpu",
     )
     assert b.num_trees() == 3
     assert not any(hist_kernel.launches.values()) and split_kernel.launches == 0
+    assert predict_kernel.launches == 0
 
 
 def test_wrappers_refuse_other_devices():
@@ -95,8 +99,6 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("params,name", [
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "bagging_fraction"),
-    ({"feature_fraction": 0.8}, "feature_fraction"),
     ({"boosting": "dart"}, "boosting"),
     ({"objective": "regression"}, "objective"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),

@@ -904,11 +904,12 @@ def test_capture_on_a_stream_that_cannot_capture_raises(dev):
     assert cuda_graph.launch_counts() == before
 
 
-def _dyadic_boosters(monkeypatch, dev):
+def _dyadic_boosters(monkeypatch, dev, **extra):
     """A binary booster factory on make_higgs_like rows whose gradients and
     hessians are rounded to multiples of 2^-7 (hessians at least 2^-7), so
     that every histogram sum at 100k rows is exact and training is the same
-    bit for bit whatever the kernels' summation order."""
+    bit for bit whatever the kernels' summation order; ``extra`` params
+    join the booster's."""
     from helpers.bench_data import make_higgs_like
 
     import lightgbm_tpu_torch as tlgb
@@ -925,7 +926,7 @@ def _dyadic_boosters(monkeypatch, dev):
     X, y = make_higgs_like(100_000, 28, seed=4)
     ds = tlgb.Dataset(X, label=y)
     params = {"objective": "binary", "num_leaves": 63, "max_bin": 255, "learning_rate": 0.1,
-              "verbose": -1}
+              "verbose": -1, **extra}
 
     def booster(chunk=1, graph=True):
         b = tlgb.Booster(dict(params, device_chunk_size=chunk), ds, device="cuda")
@@ -980,3 +981,121 @@ def test_chunk_makes_no_sync_and_one_readback(monkeypatch, dev):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert (ran, stopped) == (4, False) and b.num_trees() == 9
+
+
+# ---- the bin-space predict kernel, the bag, validation sets (models/gbdt.py)
+
+
+@pytest.mark.parametrize("Nv", [1, 255, 500_001])
+def test_predict_bins_kernel_matches_plain(dev, Nv):
+    """csrc/predict_bins.cu against its plain version on a 255-leaf tree of
+    the split loop (missing types none / zero / nan by feature): the same
+    leaf for every row and the same f32 score bit for bit, on other rows
+    and on the training rows, where the leaf is the loop's own leaf_ids; a
+    stump adds its one value to every row."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=21)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    assert int(nl) == 255
+    value = torch.randn(255, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(Nv)
+    other = (torch.rand((Nv, 28), generator=gen, device=dev) * meta["num_bin"]).to(torch.uint8)
+    for rows in (other, nf):
+        n = rows.shape[0]
+        start = torch.randn(n, generator=gen, device=dev)
+        got, want = start.clone(), start.clone()
+        got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        before = predict_kernel.launches
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf)
+        assert predict_kernel.launches == before + 1
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
+        assert torch.equal(got, start + value[want_leaf.long()])
+    assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
+    stump = torch.zeros(1, dtype=torch.int32, device=dev) + 1
+    score = torch.zeros(Nv, device=dev)
+    predict_kernel.add_tree_value(other, nodes, stump, meta, value, score)
+    assert torch.equal(score, value[0].expand(Nv))
+
+
+def test_predict_bins_refuses_what_it_does_not_take(dev):
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    rows = torch.zeros((10, 28), dtype=torch.uint8, device=dev)
+    meta = {k: torch.zeros(28, dtype=torch.int32, device=dev)
+            for k in ("num_bin", "missing_type", "default_bin")}
+    nl = torch.ones(1, dtype=torch.int32, device=dev)
+    ok = (torch.zeros((3, 5), dtype=torch.int32, device=dev), nl, meta,
+          torch.zeros(4, device=dev), torch.zeros(10, device=dev))
+    predict_kernel.add_tree_value(rows, *ok)
+    with pytest.raises(ValueError, match="bins"):
+        predict_kernel.add_tree_value(rows.t(), *ok)
+    with pytest.raises(ValueError, match="value"):
+        predict_kernel.add_tree_value(rows, ok[0], nl, meta, torch.zeros(3, device=dev), ok[4])
+    with pytest.raises(ValueError, match="score"):
+        predict_kernel.add_tree_value(rows, *ok[:4], torch.zeros(10, device=dev, dtype=torch.float64))
+
+
+def test_bag_on_the_card_equals_the_cpu(dev):
+    from lightgbm_tpu_torch.models.gbdt import draw_bag
+
+    for seed, it, n, frac in ((3, 0, 1_000_000, 0.8), (7, 12345, 100_003, 0.37), (0, 2 ** 31, 17, 0.5)):
+        cnt = int(frac * n)
+        got = draw_bag(seed, it, n, cnt, dev)
+        assert torch.equal(got.cpu(), draw_bag(seed, it, n, cnt, "cpu")), (seed, it, n)
+        assert int(got.sum()) == cnt
+
+
+def test_graph_with_valid_bag_and_feature_mask_equals_eager(monkeypatch, dev):
+    """Dyadic-gradient training with bagging, feature_fraction and a
+    validation set: the eager launches, a replay an iteration and chunks of
+    4 give the same model text, train scores and validation scores bit for
+    bit; the validation score equals the plain per-tree adds."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+
+    booster, X = _dyadic_boosters(monkeypatch, dev, bagging_fraction=0.8, bagging_freq=1,
+                                  feature_fraction=0.8)
+    import lightgbm_tpu_torch as tlgb
+
+    Xv = X[:20_000] * 1.5
+    runs = {}
+    for name, chunk, graph in (("eager", 1, False), ("graph", 1, True), ("chunk", 4, True)):
+        b = booster(chunk, graph)
+        b.add_valid(tlgb.Dataset(Xv), "v")
+        steps = 0
+        while steps < 9:
+            ran, _ = b.update_chunk(b._gbdt.device_chunk() if steps else 1)
+            steps += ran
+        runs[name] = b
+    ref = runs["eager"]
+    g = ref._gbdt
+    for name, b in runs.items():
+        assert _trees_text(b) == _trees_text(ref), name
+        assert b._gbdt.train_score().tobytes() == g.train_score().tobytes(), name
+        assert b._gbdt._valid_score_np(0).tobytes() == g._valid_score_np(0).tobytes(), name
+    assert runs["graph"]._gbdt.captures == runs["chunk"]._gbdt.captures == 1
+    want = torch.zeros(len(Xv), device=dev) + np.float32(g._init_fold)
+    for ta in g._tree_arrays:
+        ptree = predict_plain.make_predict_tree(ta, g.feature_meta)
+        want += ptree.leaf_value.to(dev)[predict_plain.tree_predict_leaf(g._valid_bins[0], ptree)]
+    assert want.double().cpu().numpy().tobytes() == g._valid_score_np(0).tobytes()
+
+
+def test_learning_rate_schedule_replays_one_graph(monkeypatch, dev):
+    booster, _ = _dyadic_boosters(monkeypatch, dev)
+    runs = []
+    for graph in (True, False):
+        b = booster(1, graph)
+        for rate in (0.1, 0.2, 0.05, 0.3):
+            b.reset_parameter({"learning_rate": rate})
+            b.update()
+        runs.append(b)
+    assert runs[0]._gbdt.captures == 1
+    assert _trees_text(runs[0]) == _trees_text(runs[1])
+    assert runs[0]._gbdt.train_score().tobytes() == runs[1]._gbdt.train_score().tobytes()
