@@ -44,27 +44,37 @@ Phases (each prints one line; any failure exits non-zero):
     loop's enqueue time a split, the host loop's time a split), and a
     stopped loop's host cost a step; two boosters, one a loop, train in
     turns of 10 iterations (device, host, host, device), and the host
-    loop's AUC at 10 iterations is within 2e-3 of phase 4's; at the main
-    path's first step each kernel of the step (pick_partition, the
-    histogram's segment entry, hist_subtract, the split scan's device
-    entry) against its plain version on a copy of the state (the whole
-    state equal, the real-valued histogram within the two-order bound),
-    then timed from the same state against its bound; pick_partition also
-    at step 128 of the 255-leaf tree and at a pick of a leaf of about 1k
-    rows in that state;
+    loop's AUC at 10 iterations is within 2e-3 of phase 4's; the launch
+    counts of the dyadic turns (the device loop's tree API, grow_tree_device,
+    whose leaf_ids kernel the boosting iteration no longer runs) count as a
+    main-path run; at the main path's first step the root's split scan and
+    each kernel of the step (pick_partition, the histogram's segment entry,
+    the split scan's folded entry, which does the histogram subtraction)
+    against its plain version on a copy of the state (the whole state
+    equal, the real-valued histogram within the two-order bound), then
+    timed from the same state against its bound, with one torch.sub of the
+    subtraction's rows beside the folded scan; pick_partition and the
+    folded scan also at step 128 of the 255-leaf tree, and pick_partition
+    at a pick of a leaf of about 1k rows in that state;
  4c. device-resident boosting: on the dyadic gradients of 4b at 1M rows
     one replay of the captured tree (ops/cuda_graph.py) grows the eager
-    launch_tree's tree and leaf index bit for bit; the leaf_ids kernel
-    against its plain version and timed; three boosters of the main path,
+    launch_tree's tree and leaf index bit for bit; on that 255-leaf layout
+    the leaf_ids kernel and the fused score update (score_update, which the
+    boosting iteration runs in place of leaf_ids, a gather and an add)
+    against their plain versions (the scores bit for bit on real values)
+    and timed against their bytes bound; three boosters of the main path,
     the eager launches, a captured iteration a replay (device_chunk_size 1)
     and chunks of 10 replays with one readback, warmed up to 10 iterations
     (the chunked one's AUC within 2e-3 of the eager one's), a whole
     train_chunk(10) under sync debug mode "error", then turns of 10
     iterations (eager, graph, chunk, chunk, graph, eager) with the launch
     counts from 0 each (replays counted; equal across the three and to the
-    captured tree's), the host's time to queue an iteration, one profiled
-    iteration of each (device busy ms, idle share, no host-to-device copy
-    and one device-to-host copy an iteration or a chunk), and after each
+    captured tree's but for score_update in place of leaf_ids), the host's
+    time to queue an iteration, one profiled iteration of each (device busy
+    ms, kernels an iteration, at most 817 and none of them a
+    subtract_kernel, the split-loop kernels' ms, idle share, no
+    host-to-device copy and one device-to-host copy an iteration or a
+    chunk), and after each
     chunk its train scores equal to the kept trees' raw prediction; then a
     stop in the middle of a chunk: at 100k rows with gradients rounded to
     multiples of 2^-7 (training exact whatever the summation order), a
@@ -86,7 +96,8 @@ Phases (each prints one line; any failure exits non-zero):
     chunks of 5), one profiled iteration and chunk (busy time, idle share,
     copies each way), a chunk's synchronizing calls under sync debug mode
     "warn", the bag draw's time, and predict_bins timed against its plain
-    version and its bytes bound;
+    version and its bytes bound, and its device ms an iteration in the
+    profile;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -125,8 +136,8 @@ Phases (each prints one line; any failure exits non-zero):
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, the sweep and the
     routed trainings, each with
     the counts set to 0 just before it and read just after; the split
-    loop's kernels timed in phase 4b, predict_bins in 4d), the seconds of
-    each phase, then the result line.
+    loop's kernels timed in phase 4b, leaf_ids and score_update in 4c,
+    predict_bins in 4d), the seconds of each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -268,11 +279,19 @@ def main() -> int:
     assert len([k for k in hist_v1_ptxas if k.startswith("v1_kernel<")]) == 4, hist_v1_ptxas
     assert all(u.get("spill_stores", 0) == u.get("spill_loads", 0) == 0
                for u in hist_v1_ptxas.values()), ("hist_v1 spills", hist_v1_ptxas)
-    # the split loop's kernels: the fused pick and partition, grow_step's two kernels
+    # the split loop's kernels: the fused pick and partition, the split scan's
+    # three instances (host-indexed, device-indexed, folded), grow_step's
+    # leaf lookup (leaf_ids' int64 leaves; score_update's byte or int32
+    # leaves) and score_update's pass in row order
     assert set(ptxas["partition"]) == {"pick_partition_kernel"}, ptxas
-    assert set(ptxas["grow_step"]) == {"subtract_kernel", "leaf_id_kernel"}, ptxas
+    assert set(ptxas["split_pair"]) == {"split_pair_kernel<0,0>", "split_pair_kernel<1,0>",
+                                        "split_pair_kernel<1,1>"}, ptxas
+    assert set(ptxas["grow_step"]) == {
+        "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
+        "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
     assert set(ptxas["predict_bins"]) == {"predict_bins_kernel"}, ptxas
-    assert all(u.get("spill_stores", 0) == 0 for n in ("partition", "grow_step", "predict_bins")
+    assert all(u.get("spill_stores", 0) == 0
+               for n in ("partition", "split_pair", "grow_step", "predict_bins")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
@@ -477,8 +496,8 @@ def main() -> int:
         just after; add the counts to the main path's."""
         hist_kernel.reset_launches()
         grow_step_kernel.reset_launches()
-        split_kernel.launches = split_kernel.step_launches = partition_kernel.launches = 0
-        predict_kernel.launches = 0
+        split_kernel.launches = split_kernel.step_launches = split_kernel.fold_launches = 0
+        partition_kernel.launches = predict_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -488,6 +507,7 @@ def main() -> int:
         got.update((k, v) for k, v in grow_step_kernel.launches.items() if v)
         for k, v in (("split_pair", split_kernel.launches),
                      ("split_pair_step", split_kernel.step_launches),
+                     ("split_pair_fold", split_kernel.fold_launches),
                      ("pick_partition", partition_kernel.launches),
                      ("predict_bins", predict_kernel.launches)):
             if v:
@@ -499,7 +519,7 @@ def main() -> int:
     booster, train_s, launches = counted(lambda: lgb.train(dict(TRAIN_PARAMS), train_set, 10))
     assert booster._gbdt.grow_loop == "device", booster._gbdt.grow_loop
     loop_kernels = ("histogram", "histogram_segment", "split_pair_step", "pick_partition",
-                    "hist_subtract")
+                    "split_pair_fold", "score_update")
     assert all(launches.get(k, 0) > 0 for k in loop_kernels), launches
     (_, metric, auc, _), = booster.eval_train()
     raw = booster.predict(X[:1000], raw_score=True)
@@ -539,9 +559,11 @@ def main() -> int:
     split_and_copy = {k: v for k, v in by_kernel.items()
                       if "split" in k.lower() or "index_elementwise" in k or "gpu_index" in k}
     # the split loop's own kernels (csrc/partition.cu, grow_step.cu, the
-    # segment entry of histogram.cu)
+    # segment entry of histogram.cu, the split scan); no subtraction of its own
     loop_ms = {k: v for k, v in by_kernel.items() if any(
-        n in k for n in ("pick_partition_kernel", "subtract_kernel", "hist_segment_kernel"))}
+        n in k for n in ("pick_partition_kernel", "hist_segment_kernel", "split_pair_kernel",
+                         "leaf_tile_kernel", "add_value_kernel", "subtract_kernel"))}
+    assert not any("subtract_kernel" in k for k in by_kernel), by_kernel
     # no copy per split: the leaf values up, the packed tree down
     assert copies["HtoD"] <= 4 and copies["DtoH"] <= 4, copies
     # the profiler's host-side tracing slows the profiled iteration many
@@ -570,11 +592,20 @@ def main() -> int:
     # tree bit for bit, in turns host, device, device, host
     dy_grad = dyq_vals[:, 0].contiguous()
     dy_hess = dyq_vals[:, 1].contiguous()
-    state = None
     trees = []
-    for loop in ("host", "device", "device", "host"):
-        tree, leaf_id, state = grow_with(loop, dy_grad, dy_hess, state)
-        trees.append((tree, leaf_id))
+
+    def dyadic_turns():
+        st = None
+        for loop in ("host", "device", "device", "host"):
+            tree, leaf_id, st = grow_with(loop, dy_grad, dy_hess, st)
+            trees.append((tree, leaf_id))
+        return st
+
+    # the device loop's tree API (grow_tree_device) is a path of its own,
+    # driven with the counts from 0: leaf_ids runs there, not in boosting
+    state, _, tree_api_launches = counted(dyadic_turns)
+    assert tree_api_launches.get("leaf_ids", 0) == 2, tree_api_launches
+    assert "score_update" not in tree_api_launches, tree_api_launches
     for tree, leaf_id in trees[1:]:
         for name in tree._fields:
             assert torch.equal(getattr(tree, name), getattr(trees[0][0], name)), ("loops differ", name)
@@ -655,12 +686,16 @@ def main() -> int:
         grow_step_plain.pick(st)
         partition_plain.partition(st)
 
+    # the root's scan (start_tree's, C = 1), then step 0: its segment
+    # histogram into small[0] and the folded scan of parity 0
+    fold_kernel = (lambda st: split_kernel.split_pair_fold(st, st.queued_steps % 2),
+                   lambda st: grow_step_plain.split_pair_fold(st, st.queued_steps % 2))
     step_kernels = (
+        ("split_pair_step", lambda st: split_kernel.split_pair_step(st, 1),
+         lambda st: split_pair_step_plain(st, 1)),
         ("pick_partition", partition_kernel.pick_partition, plain_pick_partition),
         ("histogram_segment", hist_kernel.histogram_segment, segment_histogram),
-        ("hist_subtract", grow_step_kernel.subtract, grow_step_plain.subtract),
-        ("split_pair_step", lambda st: split_kernel.split_pair_step(st, 2),
-         lambda st: split_pair_step_plain(st, 2)),
+        ("split_pair_fold",) + fold_kernel,
     )
     step_t = {}
 
@@ -670,10 +705,11 @@ def main() -> int:
         b0 = int(st.leaf_begin[leaf])
         return st.order[b0:b0 + int(st.leaf_count[leaf])]
 
-    def small_err(st, want):
-        """err_over_bound of the state's smaller-child histogram against ``want``."""
+    def small_err(st, want, parity=0):
+        """err_over_bound of the state's smaller-child histogram (in
+        ``small[parity]``) against ``want``."""
         abs_sum = leaf_histogram(st.hist_bins, st.values.abs(), B, small_rows(st), st.hist_dtype)
-        return err_over_bound(st.small, want, abs_sum)
+        return err_over_bound(st.small[parity], want, abs_sum)
 
     def held_and_timed(st, name, kernel, plain):
         """``kernel`` on the state ``st`` against ``plain`` on a copy (the
@@ -688,8 +724,9 @@ def main() -> int:
         for k in gs.GrowState.STATE:
             a, b = getattr(st, k), getattr(other, k)
             if name == "histogram_segment" and k == "small":  # real values: two orders
-                ratio, err = small_err(st, b)
+                ratio, err = small_err(st, b[0])
                 assert ratio <= 1.0, (name, err, ratio)
+                assert torch.equal(a[1], b[1]), (name, "small[1]")
             else:
                 assert torch.equal(a, b), ("kernel != plain", name, k)
         after = st.clone()
@@ -721,6 +758,15 @@ def main() -> int:
     for _ in range(128):
         grow_mod.run_step(s128)
     assert int(s128.ctl[gs.ACTIVE]) == 1 and int(s128.ctl[gs.STEP]) == 128
+    # the folded scan of step 128 (its pick and segment histogram first)
+    sf = s128.clone()
+    partition_kernel.pick_partition(sf)
+    hist_kernel.histogram_segment(sf, sf.queued_steps % 2)
+    fold_sizes = {"root": dict(small_child_rows=int(small_rows(s).numel()),
+                               **step_t["split_pair_fold"]),
+                  "step128": dict(small_child_rows=int(small_rows(sf).numel()),
+                                  **held_and_timed(sf, "split_pair_fold", *fold_kernel))}
+    del sf
     s1k = s128.clone()
     nl = int(s1k.ctl[gs.NUM_LEAVES])
     gains = s1k.best_f[:nl, 0]
@@ -741,9 +787,20 @@ def main() -> int:
                                     bound_by=pick_sizes["root"]["bound_by"], sizes=pick_sizes)
     step_t["histogram_segment"].update(zip(("bound_ms", "bound_by"), bound(
         n_small * (F + 16) + cells * 4, 3 * n_small * F)))
-    step_t["hist_subtract"].update(zip(("bound_ms", "bound_by"), bound(4 * cells * 4, cells)))
+    # the root's scan reads one child's rows; the folded scan reads the
+    # parent's row and the scratch's and writes three rows (csrc/split_pair.cu)
     step_t["split_pair_step"].update(zip(("bound_ms", "bound_by"), bound(
-        2 * cells * 4 + 2 * 21 * 4 + F * 17, 2 * F * B * 60)))
+        cells * 4 + 21 * 4 + F * 17, F * B * 60)))
+    step_t["split_pair_fold"].update(zip(("bound_ms", "bound_by"), bound(
+        5 * cells * 4 + 2 * 21 * 4 + F * 17, cells + 2 * F * B * 60)), sizes=fold_sizes)
+    # the nearest one call to the subtraction the scan took in: one torch.sub
+    # of the parent's and the scratch's [F, B, 3] rows at slots known on the host
+    sub_a = s.hist[int(s.ctl[gs.BEST])].clone()
+    sub_b = s.small[0].clone()
+    sub_out = torch.empty_like(sub_a)
+    step_t["split_pair_fold"]["subtract_library_ms"] = time_ms(
+        lambda: torch.sub(sub_a, sub_b, out=sub_out))
+    del sub_a, sub_b, sub_out
     # one index_add_ over the small child's rows: the segment entry's yardstick
     child_rows = small_rows(s).long()
     child_idx = (hist_bins[:, child_rows].long() + torch.arange(F, device=dev)[:, None] * B).reshape(-1)
@@ -754,18 +811,18 @@ def main() -> int:
         child_acc.zero_()
         child_acc.index_add_(0, child_idx, child_vals)
     step_t["histogram_segment"]["library_ms"] = time_ms(child_library)
-    for name in ("pick_partition", "hist_subtract", "split_pair_step"):
+    for name in ("pick_partition", "split_pair_fold", "split_pair_step"):
         step_t[name]["library_ms"] = None
     # the segment entry in bf16 on the same rows
     s.hist_dtype = "bfloat16"
-    s.args.pop("histogram_segment")
-    s.small.zero_()
+    s.args.pop("histogram_segment0")
+    s.small[0].zero_()
     hist_kernel.histogram_segment(s)
     ratio, bf16_err = small_err(s, leaf_histogram(s.hist_bins, s.values, B, small_rows(s), "bfloat16"))
     assert ratio <= 1.0, ("histogram_segment bf16", bf16_err, ratio)
     step_t["histogram_segment_bf16"] = dict(
         step_t["histogram_segment"], max_abs_err=bf16_err,
-        ms=time_ms(lambda: hist_kernel.histogram_segment(s), setup=lambda: s.small.zero_()),
+        ms=time_ms(lambda: hist_kernel.histogram_segment(s), setup=lambda: s.small[0].zero_()),
         plain_ms=time_ms(lambda: segment_histogram(s), reps=3))
     del s, child_rows, child_idx, child_vals, child_acc
     say("loops", dyadic_trees_equal=True, dyadic_leaves=dyadic_leaves, sync_free=True,
@@ -807,8 +864,35 @@ def main() -> int:
                   plain_ms=time_ms(lambda: grow_step_plain.leaf_ids(cs), reps=3),
                   max_abs_err=0.0, library_ms=None)
     leaf_t.update(zip(("bound_ms", "bound_by"), bound(N * 12 + M * 8, 0)))
+    # the fused score update on that layout, what the boosting iteration runs
+    # in place of leaf_ids, a gather and an add: equal to score.add_(value[
+    # leaf_ids]) bit for bit on real values
+    gen_v = torch.Generator(device=dev).manual_seed(17)
+    leaf_value = torch.randn(M, generator=gen_v, device=dev)
+    score0 = torch.randn(N, generator=gen_v, device=dev)
+    got_score = score0.clone()
+    grow_step_kernel.score_update(cs, leaf_value, got_score)
+    assert torch.equal(got_score, score0.clone().add_(leaf_value[grow_step_plain.leaf_ids(cs)]))
+    score_w = score0.clone()
+    score_t = dict(ms=time_ms(lambda: grow_step_kernel.score_update(cs, leaf_value, score_w)),
+                   plain_ms=time_ms(lambda: grow_step_plain.score_update(cs, leaf_value, score_w),
+                                    reps=3),
+                   max_abs_err=0.0, library_ms=None,
+                   # what it replaces, the kernel and two PyTorch calls
+                   leaf_ids_gather_add_ms=time_ms(lambda: score_w.add_(
+                       leaf_value[grow_step_kernel.leaf_ids(cs)])))
+    # order read, the score read and written, the leaves' begin, count and value
+    score_t.update(zip(("bound_ms", "bound_by"), bound(N * 12 + M * 12, N)))
+    # the nearest one calls, given each position's leaf (not their input):
+    # a scatter of the leaves through order, an index_add_ of their values
+    order_l = cs.order.long()
+    pos_leaf = torch.empty_like(order_l).scatter_(0, order_l, grow_step_plain.leaf_ids(cs))
+    pos_value = leaf_value[pos_leaf]
+    leaf_out = torch.empty_like(order_l)
+    leaf_t["nearest_library_ms"] = time_ms(lambda: leaf_out.scatter_(0, order_l, pos_leaf))
+    score_t["nearest_library_ms"] = time_ms(lambda: score_w.index_add_(0, order_l, pos_value))
     tree_graph_launches = tree_graph.launches
-    del tree_graph, cs, want_leaf
+    del tree_graph, cs, want_leaf, score0, got_score, score_w, order_l, pos_leaf, pos_value, leaf_out
 
     # three boosters of the main path: the eager launches, a replay an
     # iteration (device_chunk_size 1) and chunks of 10 replays
@@ -862,8 +946,12 @@ def main() -> int:
         if kind == "chunk":
             scores_hold(boosters["chunk"])
     assert turn_launches["eager"] == turn_launches["graph"] == turn_launches["chunk"], turn_launches
+    # an iteration launches the captured tree's kernels, score_update in
+    # place of leaf_ids
     per_iter = {k: v / 10 for k, v in turn_launches["graph"].items()}
-    assert per_iter == {k: float(v) for k, v in tree_graph_launches.items()}, (per_iter, tree_graph_launches)
+    tree_per_iter = {k: float(v) for k, v in tree_graph_launches.items() if k != "leaf_ids"}
+    assert tree_graph_launches["leaf_ids"] == 1 and per_iter.pop("score_update") == 1.0, per_iter
+    assert per_iter == tree_per_iter, (per_iter, tree_graph_launches)
 
     # the host's time to queue an iteration: the eager launches, one replay,
     # and 10 replays (the chunk's), each from a synchronised card
@@ -879,8 +967,13 @@ def main() -> int:
     scores_hold(boosters["chunk"])
 
     # one profiled iteration of each (the chunk: 10): device busy time,
-    # copies each way, and the kernels' span on the card with the gaps
-    # between consecutive kernels (in a chunk, those between replays among them)
+    # copies each way, the kernels' span on the card with the gaps between
+    # consecutive kernels (in a chunk, those between replays among them), and
+    # the device ms and calls of the split loop's and predict_bins' kernels
+    named_kernels = ("pick_partition_kernel", "hist_segment_kernel", "hist_kernel",
+                     "split_pair_kernel", "leaf_tile_kernel", "add_value_kernel",
+                     "subtract_kernel", "predict_bins_kernel")
+
     def profiled(fn):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_:
@@ -895,7 +988,7 @@ def main() -> int:
             gaps_us_sum=sum(g_ for g_ in gaps_us if g_ > 0),
             gaps_us_median=statistics.median(gaps_us), gaps_us_largest=gaps_us[:12],
         ) if len(spans) > 1 else "not measured"
-        busy, kernels, copies_ = 0.0, 0, {"HtoD": 0, "DtoH": 0}
+        busy, kernels, copies_, named = 0.0, 0, {"HtoD": 0, "DtoH": 0}, {}
         for ev in prof_.key_averages():
             for way in copies_:
                 if "Memcpy " + way in ev.key:
@@ -907,22 +1000,29 @@ def main() -> int:
                 us = getattr(ev, "self_cuda_time_total", 0)
             busy += us / 1e3
             kernels += ev.count
-        return busy, kernels, copies_, timeline
+            if any(n_ in ev.key for n_ in named_kernels):
+                named[ev.key[:80]] = [us / 1e3, ev.count]
+        return busy, kernels, copies_, timeline, named
 
     prof_boost = {}
     for kind, fn, n in (("eager", boosters["eager"].update, 1), ("graph", boosters["graph"].update, 1),
                         ("chunk", lambda: boosters["chunk"].update_chunk(chunk), chunk)):
-        busy, kernels, copies_, timeline = profiled(fn)
+        busy, kernels, copies_, timeline, named = profiled(fn)
         ips = statistics.median(boost_ips[kind])
         prof_boost[kind] = dict(
             device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
-            timeline=timeline,
+            timeline=timeline, kernels_per_iteration=timeline["kernels"] / n
+            if isinstance(timeline, dict) else "not measured", kernels_ms_and_calls=named,
             iterations=n, device_idle_share=[1 - busy / n * v / 1e3 for v in boost_ips[kind]]
             if busy else "not measured", median_iterations_per_s=ips)
-    # no host-to-device copy; one device-to-host copy an iteration, and one a chunk
+    # no host-to-device copy; one device-to-host copy an iteration, and one a
+    # chunk; a step is three launches (no subtract_kernel): 817 kernels an
+    # iteration or fewer (the timeline's, copies and memsets aside)
     for kind in boosters:
         assert prof_boost[kind]["copies"]["HtoD"] == 0, prof_boost
         assert prof_boost[kind]["copies"]["DtoH"] == 1, prof_boost
+        assert not any("subtract_kernel" in k for k in prof_boost[kind]["kernels_ms_and_calls"])
+        assert prof_boost[kind]["kernels_per_iteration"] <= 817, prof_boost[kind]
     scores_hold(boosters["chunk"])
     del boosters
 
@@ -972,7 +1072,7 @@ def main() -> int:
     del runs, ref_stop, free
 
     say("boosting", dyadic_graph_tree_equal=True, graph_launches_per_iteration=tree_graph_launches,
-        leaf_ids=leaf_t, auc_at_10=auc_boost, sync_free_chunk=True,
+        leaf_ids=leaf_t, score_update=score_t, auc_at_10=auc_boost, sync_free_chunk=True,
         training_iterations_per_s=boost_ips, launches_per_turn=turn_launches,
         enqueue_us_per_iteration=enqueue_us, profile=prof_boost,
         stop=dict(rows=100_000, min_gain_to_split=gain, trees_kept=kept, probes=probes,
@@ -1124,10 +1224,12 @@ def main() -> int:
     valid_prof = {}
     for kind, fn, n in (("valid_graph", vboosters["valid_graph"].update, 1),
                         ("valid_chunk", lambda: vboosters["valid_chunk"].update_chunk(vchunk), vchunk)):
-        busy, kernels, copies_, timeline = profiled(fn)
+        busy, kernels, copies_, timeline, named = profiled(fn)
         valid_prof[kind] = dict(
             device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
-            timeline=timeline, iterations=n,
+            timeline=timeline, iterations=n, kernels_ms_and_calls=named,
+            predict_bins_ms_per_iteration=sum(
+                v[0] for k, v in named.items() if "predict_bins_kernel" in k) / n,
             device_idle_share=[1 - busy / n * v / 1e3 for v in valid_ips[kind]] if busy else "not measured")
         # up: the chunk's feature masks; down: the ring
         assert copies_["HtoD"] <= 1 and copies_["DtoH"] == 1, (kind, copies_)
@@ -1215,13 +1317,13 @@ def main() -> int:
         orig["histogram_segment"] = hist_kernel.histogram_segment
         held["checked"]["histogram_segment"] = 0
 
-        def segment_call(st):
-            orig["histogram_segment"](st)
+        def segment_call(st, parity=0):
+            orig["histogram_segment"](st, parity)
             if int(st.ctl[gs.ACTIVE]):
                 leaf = int(st.ctl[gs.SMALL])
                 b0, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
                 rows = st.order[b0:b0 + cnt]
-                check("histogram_segment", st.small,
+                check("histogram_segment", st.small[parity],
                       lambda v: leaf_histogram(st.hist_bins, v, st.B, rows, st.hist_dtype), st.values)
         hist_kernel.histogram_segment = segment_call
 
@@ -1691,17 +1793,21 @@ def main() -> int:
                 ms=r["root_ms"], plain_ms=r["root_plain_ms"], bound_ms=r["root_bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
             ))
-    # the split loop's kernels and entries, timed at the main path's root step (phase 4b)
+    # the split loop's kernels and entries, timed at the main path's root step
+    # (phase 4b; the folded scan, which took in the histogram subtraction of
+    # lightgbm_tpu/ops/grow.py:1421, also at step 128)
     loop_sources = {
         "pick_partition": ("partition.cu", "lightgbm_tpu/ops/grow.py:439,1277"),
-        "hist_subtract": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1421"),
         "histogram_segment": ("histogram.cu", sources["histogram"][1]),
         "histogram_segment_bf16": ("histogram.cu", sources["histogram"][1]),
         "split_pair_step": ("split_pair.cu", "lightgbm_tpu/ops/split_pallas.py:221"),
+        "split_pair_fold": ("split_pair.cu", "lightgbm_tpu/ops/split_pallas.py:221"),
         "leaf_ids": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1880"),
+        "score_update": ("grow_step.cu", "lightgbm_tpu/ops/grow.py:1880"),
         "predict_bins": ("predict_bins.cu", "lightgbm_tpu/ops/predict.py:85"),
     }
     step_t["leaf_ids"] = leaf_t  # timed in phase 4c on a 255-leaf layout at 1M rows
+    step_t["score_update"] = score_t  # the same layout
     step_t["predict_bins"] = predict_t  # timed in phase 4d over the validation set
     for name, (src, rep) in loop_sources.items():
         t = step_t[name]

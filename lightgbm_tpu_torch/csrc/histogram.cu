@@ -60,7 +60,8 @@
 // histogram_grid from the count on the device; blocks past the segment's
 // chunks return at once. Its "one chunk stores outright" test is that
 // device-side chunk count, and with more chunks it adds into the loop's
-// scratch, which hist_subtract (csrc/grow_step.cu) leaves zeroed.
+// scratch for the step, which the step before's split scan
+// (csrc/split_pair.cu's folded entry) leaves zeroed.
 //
 // Sums are f32 in an order set by the atomics, so they differ between runs
 // in the last bits; on values that are dyadic rationals with small exponents

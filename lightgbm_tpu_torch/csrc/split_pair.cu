@@ -44,13 +44,42 @@
 //    between calls, so calls that share it must run in order: every caller
 //    in the port launches on the device's one current stream.
 //
-// The device-indexed entry (lgbt_split_pair_dev, split_pair_kernel<true>)
+// The device-indexed entry (lgbt_split_pair_dev, split_pair_kernel<true, *>)
 // serves the device-resident split loop: it reads the two children's leaf
 // indices from the loop's control vector, their sums and monotone windows
 // from laux and their depth from leaf_i, applies the max_depth gate, and
 // writes the records straight into the loop's best_f / best_i rows. Once
 // the loop has stopped, every block returns before it draws a ticket, so
 // the counters stay 0.
+//
+// The folded entry (split_pair_kernel<true, true>, a step's scan) also does
+// the histogram subtraction trick (serial_tree_learner.cpp:510; after
+// lightgbm_tpu/ops/grow.py:1421-1426 apply_split's smaller-child choice),
+// which was a launch of its own: hist[large] = hist[best] - small and
+// hist[small] = small, with ``small`` the step's histogram of the smaller
+// child in a scratch buffer. Its output has one reader, this scan, which
+// already reads both children's rows, so the subtraction happens where the
+// rows are read: one launch a step fewer and the rows read once. The
+// parent's slot ctl[kBest] is one of the children's (the left child keeps
+// it, and either child can be the smaller), so a block that wrote a child's
+// row could race with the block that still reads the parent's. The design:
+//  - The block of the larger child for feature f is the only block that
+//    reads hist[best][f] and the only one that writes hist[.][f]: it loads
+//    the parent's row and the scratch row, subtracts (one f32 sub, as the
+//    plain version), writes both children's rows of its feature, and scans
+//    the difference. Each thread reads its cells before it writes them.
+//  - The smaller child's block only reads the scratch row and scans it.
+//    Neither block may clear the scratch, which both read. Two scratch
+//    buffers alternate by step parity (the steps are unrolled on the host):
+//    step k's histogram writes small[k % 2], and step k's scan clears
+//    small[(k + 1) % 2] (the smaller child's block, its feature's row),
+//    which step k + 1's histogram adds into and whose last readers, step
+//    k - 1's scan, finished a launch earlier.
+// A step's scan now moves 5 * F * B * 3 floats where it read 2 (the
+// parent's row and the scratch read, three rows written: 428 KB at 28 x
+// 255, 0.13 us at 3.35 TB/s, mostly in L2), its loads issued with the
+// block's other loads.
+// The root's scan (C = 1) has no subtraction and keeps the plain entry.
 //
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
@@ -184,8 +213,10 @@ struct LoopState {
   const float* laux;     // [M, 5] per leaf: sum_grad, sum_hess, count, monotone min, max
   const int* leaf_i;     // [M, 2] per leaf: parent, depth
   int max_depth;         // <= 0: no limit
+  const float* small;    // kFold: [F, B, 3] the smaller child's histogram (this step's scratch)
+  float* zero;           // kFold: [F, B, 3] the other scratch, cleared for the next step
 };
-constexpr int kActive = 0, kBest = 3, kNew = 4;  // control slots
+constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
 
 // One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
 // incl. eps, left_c) and feat_i[c, f, :] = (t, default_left) of the
@@ -194,10 +225,12 @@ constexpr int kActive = 0, kBest = 3, kNew = 4;  // control slots
 // (c = 1), its sums and window come from laux, its record goes to row
 // leaf of outf [M, 9] / outi [M, 4] with the gain -inf at a depth >=
 // max_depth (the max_depth gate of ops/grow.py), and once ctl[kActive] is
-// 0 every block returns before it draws a ticket, so count stays 0.
-template <bool kDev>
+// 0 every block returns before it draws a ticket, so count stays 0. kFold
+// (with kDev, C = 2): the rows come from hist[ctl[kBest]] and ls.small as
+// the header says, and hist's children's rows and ls.zero are written.
+template <bool kDev, bool kFold>
 __global__ void __launch_bounds__(kThreads)
-split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
+split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const float* __restrict__ sums, const float* __restrict__ cons,
                   const int* __restrict__ num_bin_a, const int* __restrict__ missing_a,
                   const int* __restrict__ default_bin_a, const int* __restrict__ mono_a,
@@ -215,15 +248,54 @@ split_pair_kernel(const float* __restrict__ hist, int leaf0, int leaf1,
   // the child's sums and window: [3] and [2] floats
   const float* sc = kDev ? ls.laux + leaf * 5 : sums + c * 3;
   const float* cc = kDev ? ls.laux + leaf * 5 + 3 : cons + c * 2;
-  const float* h = hist + ((long long)leaf * F + f) * B * 3;
+  const long long frow = (long long)f * B * 3;  // feature f's row in a [F, B, 3] histogram
 
   // every read of device memory the block needs, issued together: none
   // waits on another
   float v[kStage];
+  if (!kFold) {
+    const float* h = hist + (long long)leaf * F * B * 3 + frow;
 #pragma unroll
-  for (int k = 0; k < kStage; ++k) {
-    const int i = tid + k * kThreads;
-    v[k] = i < B * 3 ? h[i] : 0.0f;
+    for (int k = 0; k < kStage; ++k) {
+      const int i = tid + k * kThreads;
+      v[k] = i < B * 3 ? h[i] : 0.0f;
+    }
+  } else {
+    const int small_leaf = ls.ctl[kSmall];
+    const float* sp = ls.small + frow;
+    if (leaf != small_leaf) {
+      // the larger child's block: the one reader of the parent's row and
+      // the one writer of both children's rows of feature f
+      const float* hp = hist + (long long)ls.ctl[kBest] * F * B * 3 + frow;
+      float* hl = hist + (long long)leaf * F * B * 3 + frow;
+      float* hs = hist + (long long)small_leaf * F * B * 3 + frow;
+      float sv[kStage];
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int i = tid + k * kThreads;
+        v[k] = i < B * 3 ? hp[i] : 0.0f;
+        sv[k] = i < B * 3 ? sp[i] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int i = tid + k * kThreads;
+        v[k] = v[k] - sv[k];
+        if (i < B * 3) {
+          hl[i] = v[k];
+          hs[i] = sv[k];
+        }
+      }
+    } else {
+      // the smaller child's block: its row is the scratch's; it clears the
+      // other scratch's row for the next step
+      float* zp = ls.zero + frow;
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int i = tid + k * kThreads;
+        v[k] = i < B * 3 ? sp[i] : 0.0f;
+        if (i < B * 3) zp[i] = 0.0f;
+      }
+    }
   }
   const int num_bin = num_bin_a[f], miss = missing_a[f], dbin = default_bin_a[f];
   const int mono = mono_a[f];
@@ -381,11 +453,11 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
                     int two_way, void* stream) {
   if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
-  split_pair_kernel<false><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
+  split_pair_kernel<false, false><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
       (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
       (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
-      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0});
+      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0, nullptr, nullptr});
   return (int)cudaGetLastError();
 }
 
@@ -394,22 +466,30 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
 // from device memory with their sums and windows from laux [M, 5] f32 and
 // their depth from leaf_i [M, 2] int32; each record goes to the leaf's row
 // of best_f [M, 9] / best_i [M, 4], its gain -inf at a depth >= max_depth
-// (> 0). Nothing runs once ctl[0] is 0. The other arguments are
-// lgbt_split_pair's.
-int lgbt_split_pair_dev(const void* hist, const void* ctl, const void* laux, const void* leaf_i,
-                        int max_depth, const void* num_bin, const void* missing,
-                        const void* default_bin, const void* mono, const void* fmask,
-                        void* feat_f, void* feat_i, void* best_f, void* best_i, void* count,
-                        int C, int F, int B, float l1, float l2, float max_delta_step,
-                        float min_data, float min_hess, float min_gain, int two_way,
-                        void* stream) {
+// (> 0). With small non-null (C = 2 only: a step's scan), the children's
+// rows are folded in first: hist[ctl[6]] = hist[ctl[3]] - small,
+// hist[ctl[5]] = small, and zero [F, B, 3] is cleared; small and zero are
+// the two scratch buffers, never the same. Nothing runs once ctl[0] is 0.
+// The other arguments are lgbt_split_pair's.
+int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const void* leaf_i,
+                        const void* small, void* zero, int max_depth, const void* num_bin,
+                        const void* missing, const void* default_bin, const void* mono,
+                        const void* fmask, void* feat_f, void* feat_i, void* best_f,
+                        void* best_i, void* count, int C, int F, int B, float l1, float l2,
+                        float max_delta_step, float min_data, float min_hess, float min_gain,
+                        int two_way, void* stream) {
   if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  const bool fold = small != nullptr;
+  if (fold && (C != 2 || zero == nullptr || zero == small)) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
-  split_pair_kernel<true><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
+  const LoopState ls{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth,
+                     (const float*)small, (float*)zero};
+  decltype(&split_pair_kernel<true, false>) kern =
+      fold ? &split_pair_kernel<true, true> : &split_pair_kernel<true, false>;
+  kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
       (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,
-      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way,
-      LoopState{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth});
+      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls);
   return (int)cudaGetLastError();
 }
 

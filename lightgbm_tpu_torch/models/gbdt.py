@@ -55,9 +55,9 @@ from ..dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
-from ..ops import cuda_graph, grow_state, hist_kernel, predict_kernel
+from ..ops import cuda_graph, grow_state, grow_step_kernel, hist_kernel, predict_kernel
 from ..ops.grow import (
-    TreeArrays, device_loop_routable, grow_tree, launch_tree, leaf_ids, tree_from_packed,
+    TreeArrays, device_loop_routable, grow_tree, launch_tree, tree_from_packed,
 )
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw
@@ -394,13 +394,14 @@ class GBDT:
     def _device_iteration(self) -> None:
         """Queue one boosting iteration on the device loop, reading nothing
         back: the gradients at the current scores, the tree
-        (ops/grow.py ``launch_tree``), each row's leaf, the shrinkage and
-        score update on the device, the tree copied into the ring's next
-        row. The reference's chunked scan body (``_chunk_fn``,
-        ``_finish_step``): a tree that did not split, and every tree after
-        one in the chunk (``_chunk_stopped``), adds exact zeros; the score
-        update is a gather and a plain f32 add, never a multiply-add. With
-        feature_fraction the iteration first copies its mask out of the
+        (ops/grow.py ``launch_tree``), the shrinkage and the score update on
+        the device (each row's leaf value added from the loop's segment
+        layout, ops/grow_step_kernel.py ``score_update``), the tree copied
+        into the ring's next row. The reference's chunked scan body
+        (``_chunk_fn``, ``_finish_step``): a tree that did not split, and
+        every tree after one in the chunk (``_chunk_stopped``), adds exact
+        zeros; the score update is a plain f32 add, never a multiply-add.
+        With feature_fraction the iteration first copies its mask out of the
         chunk's masks at its ring slot; with bagging it reads the bag
         buffer; each validation set's score takes the same values through
         the predict kernel, which reads the tree from the state."""
@@ -412,11 +413,10 @@ class GBDT:
         launch_tree(s, self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
                     cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
                     cfg.tpu_hist_dtype, self._bag)
-        leaf_id = leaf_ids(s)
         num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
         grew = num_leaves > 1
         value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * self._rate, 0.0)
-        self.scores[0].add_(value[leaf_id])
+        grow_step_kernel.score_update(s, value, self.scores[0])
         for bins, score in zip(self._valid_bins, self.valid_scores):
             predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves, self.feature_meta,
                                           value, score[0])

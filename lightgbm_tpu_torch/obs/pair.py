@@ -8,6 +8,8 @@ On a machine with a CUDA card, from the repository root::
         --old build/old_<kernel>.cu [--out results.json]
     python -m lightgbm_tpu_torch.obs.pair --kernel pick_partition \\
         --old build/old_partition.cu build/old_grow_step.cu [--out results.json]
+    python -m lightgbm_tpu_torch.obs.pair --kernel split_step \\
+        --old build/old_split_pair.cu build/old_grow_step.cu [--out results.json]
 
 The old sources are built with the package's nvcc flags into ``build/pair/``,
 beside an empty kernel that the tool writes there; the new kernel runs
@@ -77,6 +79,24 @@ beside three cut copies of the new kernel that return early (``_CUTS``:
 right after launch, after the pick, after the rows are read and decided),
 so that the differences give the launch's, the pick's, the rows' and the
 barrier and scatter's shares.
+
+``split_step`` (a step's histogram subtraction and split scan; ``--old``
+names the split_pair.cu and the grow_step.cu from before the fold, whose
+``lgbt_hist_subtract`` launched the subtraction and whose
+``lgbt_split_pair_dev`` took no scratch, commit 27b653b or earlier): the
+main path's split loop on the bench data at 1M rows, real log-loss
+gradients at the average score, with each step's pick and segment
+histogram done, at four states: the root's first split, the first step
+whose smaller child is the parent's slot (BEST) and the first whose
+smaller child is the new leaf (NEW), and step 128. At each, the old two
+launches, the folded one and the plain version (ops/grow_step.py
+``split_pair_fold``) run on copies of the state and must leave every state
+tensor equal (the old pair clears the step's scratch, the fold the other
+one, so the old one's ``small`` is not compared); then old and new are
+timed from the state, restored before each call, beside one ``torch.sub``
+of the parent's and the scratch's rows (the subtraction's nearest library
+call), and each version's warm-L2 device time a call under
+``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -585,10 +605,116 @@ def _pick_partition_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Calla
         print(key, "profiled_us", json.dumps(checks[key]["profiled_us"]), flush=True)
     return calls, checks
 
+# lgbt_hist_subtract (grow_step.cu before the fold): ctl, hist, small;
+# cells; grid; stream
+_OLD_SUBTRACT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# lgbt_split_pair_dev before the fold: hist, ctl, laux, leaf_i; max_depth;
+# 4 meta, fmask, feat_f, feat_i, best_f, best_i, count; C, F, B; 6 params;
+# two_way, stream
+_OLD_SPLIT_DEV_ARGS = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _split_step_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by state, checks) of a step's subtraction and split
+    scan: the old two launches (hist_subtract, then the scan's device entry)
+    against the folded scan."""
+    import torch
+
+    from ..ops import grow as grow_mod
+    from ..ops import grow_state as gs
+    from ..ops import grow_step as plain_step
+    from ..ops import hist_kernel, partition_kernel, split_kernel
+    from ..ops.split import SplitParams
+
+    old_scan = ctypes.CDLL(str(old_libs[0])).lgbt_split_pair_dev
+    old_scan.restype = ctypes.c_int
+    old_scan.argtypes = _OLD_SPLIT_DEV_ARGS
+    old_sub = ctypes.CDLL(str(old_libs[1])).lgbt_hist_subtract
+    old_sub.restype = ctypes.c_int
+    old_sub.argtypes = _OLD_SUBTRACT_ARGS
+    bins, N, B, real = data["bins"], data["N"], data["B"], data["real"]
+    F = bins.shape[0]
+    params = SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0)  # the main path's
+    cells = F * B * 3
+
+    def run_old(st, parity):
+        m, p = st.feature_meta, st.params
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(old_sub(st.ctl.data_ptr(), st.hist.data_ptr(),
+                                 st.small[parity].data_ptr(), cells, -(-cells // 256), stream),
+                         "old hist_subtract")
+        cuda_build.check(old_scan(
+            st.hist.data_ptr(), st.ctl.data_ptr(), st.laux.data_ptr(), st.leaf_i.data_ptr(),
+            st.max_depth, *(m[k].data_ptr() for k in ("num_bin", "missing_type", "default_bin",
+                                                        "monotone")),
+            st.feature_mask.data_ptr(), st.feat_f.data_ptr(), st.feat_i.data_ptr(),
+            st.best_f.data_ptr(), st.best_i.data_ptr(),
+            split_kernel._ticket_counter(dev).data_ptr(), 2, st.F, st.B, p.lambda_l1,
+            p.lambda_l2, p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
+            p.min_gain_to_split, int(st.two_way), stream), "old split_pair_dev")
+
+    # the states: each step's pick and segment histogram done, its scan not
+    s = gs.GrowState(dev, N, F, B, 255)
+    grow_mod.start_tree(s, bins, real[:, 0].contiguous(), real[:, 1].contiguous(), data["fmask"],
+                        data["meta"], -1, params, True, data["hist_bins"].t())
+    states = {}
+    for step in range(129):
+        parity = step % 2
+        partition_kernel.pick_partition(s)
+        hist_kernel.histogram_segment(s, parity)
+        alias = ("small_is_best" if int(s.ctl[gs.SMALL]) == int(s.ctl[gs.BEST])
+                 else "small_is_new")
+        for key, take in (("root", step == 0), (alias, alias not in states),
+                          ("step128", step == 128)):
+            if take and key not in states:
+                states[key] = (s.clone(), parity, step)
+        split_kernel.split_pair_fold(s, parity)
+
+    calls, checks = {}, {}
+    for key, (st, parity, step) in states.items():
+        outs = {}
+        for v, fn in (("old", run_old), ("new", split_kernel.split_pair_fold),
+                      ("plain", plain_step.split_pair_fold)):
+            outs[v] = st.clone()
+            fn(outs[v], parity)
+        torch.cuda.synchronize()
+        # the old pair zeroes this step's scratch, the fold the other one
+        same = {v: all(torch.equal(getattr(outs[v], k), getattr(outs["plain"], k))
+                       for k in gs.GrowState.STATE if v == "new" or k != "small")
+                for v in ("old", "new")}
+        leaf = int(st.ctl[gs.SMALL])
+        checks[key] = dict(step=step, parity=parity, small_child=leaf,
+                           small_rows=int(st.leaf_count[leaf]), equal_to_plain=same)
+        print(key, json.dumps(checks[key]), flush=True)
+        assert all(same.values()), ("split step != plain", key, same)
+        work = {v: st.clone() for v in ("old", "new")}
+
+        def restore(dst, src=st):
+            for k in gs.GrowState.STATE:
+                getattr(dst, k).copy_(getattr(src, k))
+        sub_a, sub_b = st.hist[int(st.ctl[gs.BEST])].clone(), st.small[parity].clone()
+        sub_out = torch.empty_like(sub_a)
+        calls[key] = dict(
+            old=(lambda w=work["old"], p=parity: run_old(w, p), lambda w=work["old"]: restore(w)),
+            new=(lambda w=work["new"], p=parity: split_kernel.split_pair_fold(w, p),
+                 lambda w=work["new"]: restore(w)),
+            library_sub=lambda a=sub_a, b=sub_b, o=sub_out: torch.sub(a, b, out=o),
+        )
+        checks[key]["profiled_us"] = {
+            v: _profiled_us(*calls[key][v], names)
+            for v, names in (("old", ("subtract_kernel", "split_pair_kernel")),
+                             ("new", ("split_pair_kernel",)))}
+        print(key, "profiled_us", json.dumps(checks[key]["profiled_us"]), flush=True)
+    return calls, checks
+
 
 SOURCES = {"histogram": ("histogram",), "split_pair": ("split_pair",),
            "packed4": ("hist_packed4",), "v1": ("hist_v1",),
-           "pick_partition": ("partition", "grow_step")}
+           "pick_partition": ("partition", "grow_step"),
+           "split_step": ("split_pair", "grow_step")}
 
 
 def _higgs_data(dev) -> Dict:
@@ -628,7 +754,7 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel", required=True, choices=tuple(SOURCES))
     ap.add_argument("--old", required=True, nargs="+",
                     help="older csrc/<source>.cu of the kernel (pick_partition: partition.cu "
-                         "and grow_step.cu)")
+                         "and grow_step.cu; split_step: split_pair.cu and grow_step.cu)")
     ap.add_argument("--out", default="", help="also write the results as JSON here")
     args = ap.parse_args(argv)
 
@@ -686,6 +812,8 @@ def main(argv=None) -> int:
     data = None if args.kernel == "packed4" else _higgs_data(dev)
     if args.kernel == "pick_partition":
         calls, checks = _pick_partition_case(old_libs, dev, data)
+    elif args.kernel == "split_step":
+        calls, checks = _split_step_case(old_libs, dev, data)
     else:
         case = {"histogram": _histogram_case, "split_pair": _split_case,
                 "packed4": _packed4_case, "v1": _v1_case}[args.kernel]

@@ -93,9 +93,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
     return secs
 
 
+# Itanium codes of the builtin types a kernel template takes
+_TYPE_CODES = {"h": "uint8", "i": "int32", "x": "int64", "f": "float"}
+
+
 def kernel_name(symbol: str) -> str:
     """A short name for a mangled kernel symbol: the innermost identifier
-    and its integer template arguments, as ``bitplane_kernel<4,4,0>``."""
+    and its integer template arguments, as ``bitplane_kernel<4,4,0>``, or
+    its builtin type arguments, as ``leaf_tile_kernel<int64>``."""
     s = symbol[2:] if symbol.startswith("_Z") else symbol
     s = s[1:] if s.startswith("N") else s
     name = None
@@ -108,6 +113,9 @@ def kernel_name(symbol: str) -> str:
     args = re.match(r"I((?:L[a-z]+\d+E)+)E", s)
     if args:
         name += "<%s>" % ",".join(re.findall(r"L[a-z]+(\d+)E", args.group(1)))
+    types = re.match(r"I([%s]+)E" % "".join(_TYPE_CODES), s)
+    if types:
+        name += "<%s>" % ",".join(_TYPE_CODES[c] for c in types.group(1))
     return name
 
 

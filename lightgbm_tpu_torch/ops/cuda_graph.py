@@ -1,13 +1,13 @@
 """One captured CUDA graph of a queued callable, with the kernel wrappers'
 launch counts carried into every replay.
 
-The device-resident boosting iteration (models/gbdt.py) queues some 1800
+The device-resident boosting iteration (models/gbdt.py) queues some 800
 kernels from Python a tree. Captured once into a CUDA graph, a replay
 launches all of them with one host call. The kernel wrappers count their
 launches in Python (``hist_kernel.launches``, ``grow_step_kernel.launches``,
-``split_kernel.launches`` / ``step_launches``, ``partition_kernel.launches``,
-``predict_kernel.launches``)
-and a replay calls none of them, so :class:`Graph` records how many
+``split_kernel.launches`` / ``step_launches`` / ``fold_launches``,
+``partition_kernel.launches``, ``predict_kernel.launches``) and a replay
+calls none of them, so :class:`Graph` records how many
 launches of each wrapper the capture recorded, takes them back off (a
 capture runs nothing), and adds them again at each replay: the counts stay
 those of the kernels that ran.
@@ -29,13 +29,14 @@ from . import grow_step_kernel, hist_kernel, partition_kernel, predict_kernel, s
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by its name in chip_smoke.py's
-    kernels line (``split_pair``, ``split_pair_step``, ``pick_partition``,
-    ``predict_bins`` and the keys of ``hist_kernel.launches`` and
+    kernels line (``split_pair``, ``split_pair_step``, ``split_pair_fold``,
+    ``pick_partition``, ``predict_bins`` and the keys of ``hist_kernel.launches`` and
     ``grow_step_kernel.launches``)."""
     counts = dict(hist_kernel.launches)
     counts.update(grow_step_kernel.launches)
     counts["split_pair"] = split_kernel.launches
     counts["split_pair_step"] = split_kernel.step_launches
+    counts["split_pair_fold"] = split_kernel.fold_launches
     counts["pick_partition"] = partition_kernel.launches
     counts["predict_bins"] = predict_kernel.launches
     return counts
@@ -48,6 +49,8 @@ def add_launches(delta: Dict[str, int]) -> None:
             split_kernel.launches += n
         elif name == "split_pair_step":
             split_kernel.step_launches += n
+        elif name == "split_pair_fold":
+            split_kernel.fold_launches += n
         elif name == "pick_partition":
             partition_kernel.launches += n
         elif name == "predict_bins":

@@ -23,12 +23,14 @@ Two split loops grow the same tree, bit for bit:
    launches the M - 1 steps without reading anything back, each step being
    the pick, the wiring and the stable partition in one launch
    (ops/partition_kernel.py ``pick_partition``), the smaller child's histogram
-   (ops/hist_kernel.py ``histogram_segment``), the subtraction
-   (``grow_step_kernel.subtract``) and both children's split scan
-   (ops/split_kernel.py ``split_pair_step``), every one reading its leaf
-   indices and bounds from the state. Once the best gain is not > 0 the
-   kernels of the later steps return at once. Each row's leaf comes from
-   the segment layout (``leaf_ids``, csrc/grow_step.cu) and one
+   (ops/hist_kernel.py ``histogram_segment``) into one of two scratch
+   buffers by step parity, and the subtraction folded into both children's
+   split scan (ops/split_kernel.py ``split_pair_fold``): three launches,
+   every one reading its leaf indices and bounds from the state. Once the
+   best gain is not > 0 the kernels of the later steps return at once. Each
+   row's leaf comes from the segment layout (``leaf_ids``, csrc/grow_step.cu;
+   the boosting iteration adds its leaves' values to the scores from the
+   same layout instead, ``grow_step_kernel.score_update``) and one
    device-to-host copy reads the tree back at the end. Every histogram call
    is ``csrc/histogram.cu``. Nothing of it reads back or allocates on the
    host, so models/gbdt.py captures a whole boosting iteration around
@@ -316,13 +318,17 @@ def start_tree(
 
 
 def run_step(s: gs.GrowState) -> None:
-    """Queue one step of the loop: pick, wiring and partition (one launch),
-    the smaller child's histogram, the subtraction, both children's split
-    scan. Every kernel returns at once when the loop has stopped."""
+    """Queue the next step of the loop: pick, wiring and partition (one
+    launch), the smaller child's histogram into ``s.small[k % 2]`` for the
+    k-th step since the root (``s.queued_steps``), and the subtraction with
+    both children's split scan (one launch, which clears the other buffer
+    for step k + 1). Every kernel returns at once when the loop has
+    stopped."""
+    parity = s.queued_steps % 2
+    s.queued_steps += 1
     partition_kernel.pick_partition(s)
-    hist_kernel.histogram_segment(s)
-    grow_step_kernel.subtract(s)
-    split_kernel.split_pair_step(s, 2)
+    hist_kernel.histogram_segment(s, parity)
+    split_kernel.split_pair_fold(s, parity)
 
 
 def launch_tree(s: gs.GrowState, *args, **kwargs) -> None:

@@ -65,14 +65,16 @@ class GrowState:
     best split record), ``laux`` [M, 5] f32 (sum_grad, sum_hess, count,
     monotone min, max), ``leaf_begin`` / ``leaf_count`` [M] int32 (each
     leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
-    f32 and ``small`` [F, B, 3] f32 (the smaller child's histogram, zero
-    between steps). Scratch of the kernels: ``scratch`` [N] int32 (the
+    f32 and ``small`` [2, F, B, 3] f32 (the smaller child's histogram of
+    step k in ``small[k % 2]``, which step k - 1's scan leaves zeroed).
+    Scratch of the kernels: ``scratch`` [N] int32 (the
     rows a pick_partition block stages beyond its shared memory),
     ``block_left`` int64 (each block's word at its grid barrier: the
     launch's epoch above the block's left count, one a block that fits on
     the card) and ``bar`` [1] int32 (the epoch of its last launch that
     split), ``feat_f`` / ``feat_i`` (the split scan's per-feature
-    records)."""
+    records), ``leaf_scratch`` [N] (each row's leaf between the two
+    launches of the score update: uint8 up to 256 leaves, else int32)."""
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
@@ -93,7 +95,7 @@ class GrowState:
         self.leaf_count = torch.zeros(M, dtype=i32, device=device)
         self.order = torch.zeros(N, dtype=i32, device=device)
         self.hist = torch.zeros((M, F, B, 3), dtype=f32, device=device)
-        self.small = torch.zeros((F, B, 3), dtype=f32, device=device)
+        self.small = torch.zeros((2, F, B, 3), dtype=f32, device=device)
         self.scratch = torch.empty(N, dtype=i32, device=device)
         blocks = 1
         if device.type == "cuda":
@@ -103,6 +105,7 @@ class GrowState:
         self.bar = torch.zeros(1, dtype=i32, device=device)
         self.feat_f = torch.empty((2, F, 4), dtype=f32, device=device)
         self.feat_i = torch.empty((2, F, 2), dtype=i32, device=device)
+        self.leaf_scratch = torch.empty(N, dtype=torch.uint8 if M <= 256 else i32, device=device)
         # the inputs of the tree being grown, set by bind()
         self.bins: Optional[torch.Tensor] = None
         self.hist_bins: Optional[torch.Tensor] = None
@@ -116,6 +119,9 @@ class GrowState:
         #: launch arguments of each C entry, built once a tree by its wrapper
         self.args: Dict[str, tuple] = {}
         self.stream = None
+        #: steps queued since the tree's root (ops/grow.py ``run_step``): the
+        #: parity of the next one picks its ``small`` buffer
+        self.queued_steps = 0
 
     def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int) -> bool:
         return (self.device, self.N, self.F, self.B, self.M) == (device, N, F, B, num_leaves)
@@ -160,6 +166,7 @@ class GrowState:
         self.hist_dtype = hist_dtype
         self.args = {}
         self.stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+        self.queued_steps = 0
 
     def reset(self) -> None:
         """Start a tree: one leaf holding every row, no split, the loop
@@ -187,7 +194,7 @@ class GrowState:
         other.packed = self.packed.clone()
         other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f = unpack(other.packed, self.M)
         for name in ("best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
-                     "small", "scratch", "block_left", "bar", "feat_f", "feat_i"):
+                     "small", "scratch", "block_left", "bar", "feat_f", "feat_i", "leaf_scratch"):
             setattr(other, name, getattr(self, name).clone())
         other.args = {}
         return other

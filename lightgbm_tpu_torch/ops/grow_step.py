@@ -6,19 +6,22 @@ Counterpart of lightgbm_tpu/ops/grow.py's while_loop ``cond``/``body`` and
 children's sums and monotone windows, the smaller-child choice), then the
 histogram subtraction trick (serial_tree_learner.cpp:510), and the per-row
 leaf index rebuilt from the segment layout (lightgbm_tpu/ops/grow.py:
-1880-1893). They act on a
-:class:`~.grow_state.GrowState` and are the oracles of the kernels (``pick``,
-with ops/partition.py ``partition``, of csrc/partition.cu's pick_partition,
-ops/partition_kernel.py; ``subtract`` and ``leaf_ids`` of csrc/grow_step.cu,
-ops/grow_step_kernel.py) and the path taken for CPU tensors. The
-operations are those of the host loop (ops/grow.py ``grow_tree``), in f32.
+1880-1893) with the score update it feeds. They act on a
+:class:`~.grow_state.GrowState` and are the oracles of the kernels
+(``pick``, with ops/partition.py ``partition``, of csrc/partition.cu's
+pick_partition, ops/partition_kernel.py; ``split_pair_fold``, ``subtract``
+then the split scan, of csrc/split_pair.cu's folded entry,
+ops/split_kernel.py; ``leaf_ids`` and ``score_update`` of
+csrc/grow_step.cu, ops/grow_step_kernel.py) and the path taken for CPU
+tensors. The operations are those of the host loop (ops/grow.py
+``grow_tree``), in f32.
 """
 from __future__ import annotations
 
 import torch
 
 from . import grow_state as gs
-from .split import calculate_leaf_output
+from .split import calculate_leaf_output, split_pair_step
 
 # packed record columns (ops/split.py BEST_F / BEST_I)
 _GAIN, _LG, _LH, _LC, _RG, _RH, _RC, _LO, _RO = range(9)
@@ -74,17 +77,27 @@ def pick(s: gs.GrowState) -> None:
     ctl[gs.STEP] = node + 1
 
 
-def subtract(s: gs.GrowState) -> None:
-    """``hist[LARGE] = hist[BEST] - small; hist[SMALL] = small``, then
-    ``small`` zeroed for the next step. Nothing once ``ctl[ACTIVE]`` is 0."""
+def subtract(s: gs.GrowState, parity: int) -> None:
+    """``hist[LARGE] = hist[BEST] - small[parity]; hist[SMALL] =
+    small[parity]``, then ``small[1 - parity]`` zeroed for the next step
+    (step k's histogram is ``small[k % 2]``). Nothing once ``ctl[ACTIVE]``
+    is 0."""
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return
     best, small, large = int(ctl[gs.BEST]), int(ctl[gs.SMALL]), int(ctl[gs.LARGE])
     parent = s.hist[best].clone()
-    s.hist[large] = parent - s.small
-    s.hist[small] = s.small
-    s.small.zero_()
+    s.hist[large] = parent - s.small[parity]
+    s.hist[small] = s.small[parity]
+    s.small[1 - parity].zero_()
+
+
+def split_pair_fold(s: gs.GrowState, parity: int) -> None:
+    """A step's subtraction (:func:`subtract`) and both children's split
+    scan (ops/split.py ``split_pair_step``, C = 2): the plain version of the
+    folded scan, ops/split_kernel.py ``split_pair_fold``."""
+    subtract(s, parity)
+    split_pair_step(s, 2)
 
 
 def leaf_ids(s: gs.GrowState) -> torch.Tensor:
@@ -96,3 +109,9 @@ def leaf_ids(s: gs.GrowState) -> torch.Tensor:
     pos_leaf = torch.repeat_interleave(by_begin, s.leaf_count[by_begin], output_size=s.N)
     leaf_id = torch.empty(s.N, dtype=torch.int64, device=s.device)
     return leaf_id.scatter_(0, s.order.long(), pos_leaf)
+
+
+def score_update(s: gs.GrowState, value: torch.Tensor, score: torch.Tensor) -> None:
+    """``score += value[leaf_ids(s)]``: each row's score [N] f32 plus the
+    value [M] f32 of its leaf, one f32 add a row, in place."""
+    score.add_(value[leaf_ids(s)])

@@ -1,33 +1,39 @@
-"""Wrappers of the hand-written CUDA split-loop kernels of csrc/grow_step.cu.
+"""Wrappers of the hand-written CUDA kernels of csrc/grow_step.cu, which run
+once a tree after the split loop.
 
-``subtract`` (the ``hist_subtract`` kernel: the larger child's histogram as
-the parent's minus the smaller one's) and ``leaf_ids`` (the ``leaf_ids``
-kernel: each row's leaf once the tree is grown) act on a
+``leaf_ids`` (each row's leaf) and ``score_update`` (each row's score plus
+its leaf's value, what the captured boosting iteration runs) act on a
 :class:`~.grow_state.GrowState`: the kernels when it lies on a CUDA device,
 the plain PyTorch versions (ops/grow_step.py) when it lies on the CPU; any
 other device raises. ``launches`` counts each wrapper's launches. (The
-step's pick runs fused with the partition, ops/partition_kernel.py.)
+step's pick runs fused with the partition, ops/partition_kernel.py, and the
+histogram subtraction inside the split scan, ops/split_kernel.py.)
 
-The arguments are checked once a tree by ``GrowState.bind``; the launch
-arguments are built on a tree's first call and reused.
+``tile_mirror`` replays the kernels' lookup on the host: the tile of
+positions each block owns, the leaves it lists and sorts by begin, and the
+binary search that gives each position its leaf, so that the CPU tests hold
+the decomposition to the plain version.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from . import cuda_build, grow_state as gs
 from . import grow_step as plain
 
-launches: Dict[str, int] = {"hist_subtract": 0, "leaf_ids": 0}
+launches: Dict[str, int] = {"leaf_ids": 0, "score_update": 0}
 
 _ARGTYPES = {
-    "lgbt_hist_subtract": [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     "lgbt_leaf_ids": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
+    "lgbt_score_update": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
+    + [ctypes.c_void_p] * 3,
 }
-SUBTRACT_THREADS = 256
+#: positions of ``order`` a block owns (csrc/grow_step.cu kTile)
+TILE = 1024
 
 
 def reset_launches() -> None:
@@ -48,22 +54,6 @@ def _device(s: gs.GrowState, what: str) -> bool:
     return False
 
 
-def subtract(s: gs.GrowState) -> None:
-    """The step's histogram subtraction; see csrc/grow_step.cu."""
-    if not _device(s, "hist_subtract"):
-        plain.subtract(s)
-        return
-    args = s.args.get("hist_subtract")
-    if args is None:
-        cells = s.small.numel()
-        args = s.args["hist_subtract"] = (
-            s.ctl.data_ptr(), s.hist.data_ptr(), s.small.data_ptr(), cells,
-            -(-cells // SUBTRACT_THREADS), s.stream,
-        )
-    cuda_build.check(_fn("lgbt_hist_subtract")(*args), "hist_subtract kernel")
-    launches["hist_subtract"] += 1
-
-
 def leaf_ids(s: gs.GrowState) -> torch.Tensor:
     """Each row's leaf, a new [N] int64 tensor, from the state's segment
     layout, on the current stream; see csrc/grow_step.cu. Reads nothing
@@ -77,3 +67,60 @@ def leaf_ids(s: gs.GrowState) -> torch.Tensor:
     ), "leaf_ids kernel")
     launches["leaf_ids"] += 1
     return leaf_id
+
+
+def score_update(s: gs.GrowState, value: torch.Tensor, score: torch.Tensor) -> None:
+    """``score[r] += value[leaf of row r]`` for every row of the state's
+    tree, in place, on the current stream: ``value`` a contiguous [M] f32
+    tensor, ``score`` a contiguous [N] f32 one, both on the state's device.
+    The kernels (csrc/grow_step.cu: the lookup writes each row's leaf into
+    the state's ``leaf_scratch``, then a pass in row order adds the values)
+    count as one launch. Reads nothing back."""
+    for name, t, n in (("value", value, s.M), ("score", score, s.N)):
+        if t.device != s.device or t.dtype != torch.float32 or t.shape != (n,) or not t.is_contiguous():
+            raise ValueError("score_update: %s must be a contiguous float32 [%d] tensor on %s"
+                             % (name, n, s.device))
+    if not _device(s, "score_update"):
+        plain.score_update(s, value, score)
+        return
+    cuda_build.check(_fn("lgbt_score_update")(
+        s.ctl.data_ptr(), s.order.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(),
+        value.data_ptr(), s.M, s.N, s.leaf_scratch.data_ptr(), score.data_ptr(),
+        torch.cuda.current_stream(s.device).cuda_stream,
+    ), "score_update kernels")
+    launches["score_update"] += 1
+
+
+def tile_mirror(s: gs.GrowState, tile: int = TILE) -> Dict:
+    """csrc/grow_step.cu's lookup on a CPU state, tile by tile: block t owns
+    positions [t * tile, min((t + 1) * tile, N)); it lists the leaves l <
+    ``ctl[NUM_LEAVES]`` whose non-empty segment meets its tile, ranks each
+    by the listed begins below its own, and gives each position the last
+    listed begin <= it (a binary search). Returns ``leaf_id`` ([N] int64,
+    what leaf_ids writes; -1 where no leaf holds a row) and ``listed`` (each
+    tile's leaves in begin order)."""
+    if s.device.type != "cpu":
+        raise ValueError("tile_mirror: a CPU state")
+    nl = min(int(s.ctl[gs.NUM_LEAVES]), s.M)
+    begin = s.leaf_begin.numpy().astype(np.int64)
+    end = begin + s.leaf_count.numpy()
+    order = s.order.numpy()
+    leaf_id = np.full(s.N, -1, dtype=np.int64)
+    listed: List[List[int]] = []
+    for lo in range(0, s.N, tile):
+        hi = min(lo + tile, s.N)
+        meet = [l for l in range(nl) if end[l] > begin[l] and begin[l] < hi and end[l] > lo]
+        assert len(meet) <= tile, ("a tile lists more leaves than it has positions", lo)
+        sorted_leaves: List[Optional[int]] = [None] * len(meet)
+        for l in meet:
+            sorted_leaves[sum(begin[k] < begin[l] for k in meet)] = l
+        assert None not in sorted_leaves, ("two listed leaves share a begin", lo)
+        listed.append(sorted_leaves)
+        if not meet:
+            continue
+        sorted_begin = begin[sorted_leaves]
+        pos = np.arange(lo, hi)
+        at = np.searchsorted(sorted_begin, pos, side="right") - 1
+        ok = at >= 0
+        leaf_id[order[pos[ok]]] = np.asarray(sorted_leaves)[at[ok]]
+    return {"leaf_id": torch.from_numpy(leaf_id), "listed": listed}

@@ -339,32 +339,34 @@ _ARGS_SEGMENT = (
 )
 
 
-def histogram_segment(s) -> None:
+def histogram_segment(s, parity: int = 0) -> None:
     """The split loop's histogram of the smaller child (csrc/histogram.cu
     ``lgbt_histogram_segment``) on a :class:`~.grow_state.GrowState`: rows
     ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l = ctl[SMALL]``,
-    all read from device memory, into ``s.small`` (kept zeroed between
-    steps), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]`` is
-    0. The grid is fixed once a tree (:func:`segment_max_chunks`). On a CPU
-    state the plain version, ops/histogram.py ``segment_histogram``."""
+    all read from device memory, into ``s.small[parity]`` (which the scan
+    of the step before leaves zeroed: a segment of more than one chunk adds
+    into it), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]``
+    is 0. The grid is fixed once a tree (:func:`segment_max_chunks`). On a
+    CPU state the plain version, ops/histogram.py ``segment_histogram``."""
     dev = s.device
     if dev.type == "cpu":
-        segment_histogram(s)
+        segment_histogram(s, parity)
         return
     if dev.type != "cuda":
         raise ValueError("histogram_segment: unsupported device %s" % dev)
-    args = s.args.get("histogram_segment")
+    key = "histogram_segment%d" % parity
+    args = s.args.get(key)
     if args is None:
         _check_dtype(s.hist_dtype)
         if not 1 <= s.B <= 336:
             raise ValueError("histogram_segment: num_bins must be in [1, 336], got %d" % s.B)
         b = s.hist_bins
         sms = _sm_count(dev)
-        args = s.args["histogram_segment"] = (
+        args = s.args[key] = (
             b.data_ptr(), b.stride(0), b.stride(1), s.values.data_ptr(), s.order.data_ptr(),
             s.ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), s.F, s.B,
             int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, s.F, sms),
-            s.small.data_ptr(), s.stream,
+            s.small[parity].data_ptr(), s.stream,
         )
     code = _entry("histogram", "lgbt_histogram_segment", _ARGS_SEGMENT)(*args)
     cuda_build.check(code, "histogram segment kernel")

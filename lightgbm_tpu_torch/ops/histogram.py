@@ -81,18 +81,18 @@ def leaf_histogram_packed4_rows(
     return leaf_histogram(bins, values, 16, None, hist_dtype)[:, :num_bins].contiguous()
 
 
-def segment_histogram(s) -> None:
+def segment_histogram(s, parity: int = 0) -> None:
     """The split loop's histogram of the smaller child on a
     :class:`~.grow_state.GrowState` ``s``: :func:`leaf_histogram` of the
     rows ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l =
-    ctl[SMALL]`` into ``s.small``, in ``s.hist_dtype``; nothing once
+    ctl[SMALL]`` into ``s.small[parity]``, in ``s.hist_dtype``; nothing once
     ``ctl[ACTIVE]`` is 0. The plain version of ops/hist_kernel.py
     ``histogram_segment``."""
     if not int(s.ctl[gs.ACTIVE]):
         return
     leaf = int(s.ctl[gs.SMALL])
     b, c = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
-    s.small.copy_(leaf_histogram(s.hist_bins, s.values, s.B, s.order[b:b + c], s.hist_dtype))
+    s.small[parity].copy_(leaf_histogram(s.hist_bins, s.values, s.B, s.order[b:b + c], s.hist_dtype))
 
 
 def leaf_values(

@@ -7,7 +7,11 @@ launched the kernel. ``split_pair_step`` is the device-resident split
 loop's entry (``lgbt_split_pair_dev``): it reads the leaves, their sums,
 windows and depth from a :class:`~.grow_state.GrowState` in device memory
 and writes the records into its ``best_f`` / ``best_i``; ``step_launches``
-counts it.
+counts it. ``split_pair_fold`` is that entry as a step of the loop runs
+it: the histogram subtraction folded into the scan, the scratch buffers
+alternating by step parity; ``fold_launches`` counts it. ``fold_mirror``
+replays its block decomposition on the host (which block reads and writes
+which rows), so that the CPU tests hold it to the plain version.
 
 The kernel reads the children's rows out of the grower's ``[M, F, B, 3]``
 histograms by leaf index (``leaves``), and picks each child's feature in the
@@ -24,10 +28,12 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from . import cuda_build, grow_state as gs, split
+from . import grow_step as plain_step
 from .split import SplitParams
 
 launches = 0
 step_launches = 0
+fold_launches = 0
 
 MAX_BINS = 336  # the kernel's shared prefix row, the cap of csrc/histogram.cu
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
@@ -36,8 +42,6 @@ _ARGTYPES = (
     + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
 )
 _tickets: Dict[torch.device, torch.Tensor] = {}
-
-
 
 
 def _ticket_counter(dev: torch.device) -> torch.Tensor:
@@ -119,9 +123,45 @@ def find_best_split_pair(
 
 
 _ARGTYPES_STEP = (
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
 )
+
+
+def _step_args(s: gs.GrowState, C: int, parity: Optional[int]) -> tuple:
+    """``lgbt_split_pair_dev``'s arguments for the CUDA state ``s``: the
+    plain entry (``parity`` None) or the folded one, which reads
+    ``s.small[parity]`` and clears ``s.small[1 - parity]``."""
+    if s.B > MAX_BINS:
+        raise ValueError("split_pair_step: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
+    p, m = s.params, s.feature_meta
+    small, zero = (0, 0) if parity is None else (
+        s.small[parity].data_ptr(), s.small[1 - parity].data_ptr())
+    return (
+        s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(), small, zero,
+        s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
+        s.feat_f.data_ptr(), s.feat_i.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(),
+        _ticket_counter(s.device).data_ptr(), C, s.F, s.B, p.lambda_l1, p.lambda_l2,
+        p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
+        p.min_gain_to_split, int(s.two_way), s.stream,
+    )
+
+
+def _launch_step(s: gs.GrowState, key: str, C: int, parity: Optional[int]) -> None:
+    args = s.args.get(key)
+    if args is None:
+        args = s.args[key] = _step_args(s, C, parity)
+    fn = cuda_build.entry("split_pair", "lgbt_split_pair_dev", _ARGTYPES_STEP)
+    cuda_build.check(fn(*args), key + " kernel")
+
+
+def _cuda_state(s: gs.GrowState, what: str) -> bool:
+    """True for a CUDA state, False for a CPU one; raises otherwise."""
+    if s.device.type == "cuda":
+        return True
+    if s.device.type != "cpu":
+        raise ValueError("%s: unsupported device %s" % (what, s.device))
+    return False
 
 
 def split_pair_step(s: gs.GrowState, C: int) -> None:
@@ -131,29 +171,94 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
     ``s.max_depth`` (> 0); nothing once ``ctl[ACTIVE]`` is 0. The kernel on
     a CUDA state (its inputs checked once a tree by ``GrowState.bind``), the
     plain version (ops/split.py ``split_pair_step``) on a CPU one."""
-    dev = s.device
-    if dev.type == "cpu":
-        split.split_pair_step(s, C)
-        return
-    if dev.type != "cuda":
-        raise ValueError("split_pair_step: unsupported device %s" % dev)
     if C not in (1, 2):
         raise ValueError("split_pair_step: C must be 1 or 2, not %r" % (C,))
-    key = "split_pair_step%d" % C
-    args = s.args.get(key)
-    if args is None:
-        if s.B > MAX_BINS:
-            raise ValueError("split_pair_step: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
-        p, m = s.params, s.feature_meta
-        args = s.args[key] = (
-            s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(),
-            s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
-            s.feat_f.data_ptr(), s.feat_i.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(),
-            _ticket_counter(dev).data_ptr(), C, s.F, s.B, p.lambda_l1, p.lambda_l2,
-            p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
-            p.min_gain_to_split, int(s.two_way), s.stream,
-        )
-    fn = cuda_build.entry("split_pair", "lgbt_split_pair_dev", _ARGTYPES_STEP)
-    cuda_build.check(fn(*args), "split_pair_step kernel")
+    if not _cuda_state(s, "split_pair_step"):
+        split.split_pair_step(s, C)
+        return
+    _launch_step(s, "split_pair_step%d" % C, C, None)
     global step_launches
     step_launches += 1
+
+
+def split_pair_fold(s: gs.GrowState, parity: int) -> None:
+    """A step's histogram subtraction and both children's split scan, one
+    launch: ``hist[LARGE] = hist[BEST] - small[parity]``, ``hist[SMALL] =
+    small[parity]``, ``small[1 - parity]`` cleared for the next step, then
+    :func:`split_pair_step` with C = 2 on those rows; nothing once
+    ``ctl[ACTIVE]`` is 0. The folded kernel on a CUDA state, the plain
+    version (ops/grow_step.py ``split_pair_fold``) on a CPU one; see
+    csrc/split_pair.cu."""
+    if parity not in (0, 1):
+        raise ValueError("split_pair_fold: parity must be 0 or 1, not %r" % (parity,))
+    if not _cuda_state(s, "split_pair_fold"):
+        plain_step.split_pair_fold(s, parity)
+        return
+    _launch_step(s, "split_pair_fold%d" % parity, 2, parity)
+    global fold_launches
+    fold_launches += 1
+
+
+def fold_mirror(s: gs.GrowState, parity: int, order: str = "large_first") -> Dict:
+    """csrc/split_pair.cu's folded entry on a CPU state, block by block.
+    Block (f, c) scans feature f of leaf ``(ctl[BEST], ctl[NEW])[c]``. The
+    larger child's block reads ``hist[BEST][f]`` and ``small[parity][f]``,
+    writes ``hist[LARGE][f]`` (their difference) and ``hist[SMALL][f]``, and
+    scans the difference; the smaller child's block reads
+    ``small[parity][f]``, clears ``small[1 - parity][f]`` and scans what it
+    read. The blocks run one after another in ``order`` (``large_first``,
+    ``small_first``, or ``by_feature``), each reading all its cells before
+    it writes any, as each thread of the kernel does; then each child's
+    rows are scanned as the kernel's blocks and last block do (the plain
+    scan of the rows the blocks read, with the depth gate). Raises when a
+    cell one block writes is read or written by another block (a race the
+    launch's order would decide). Returns the blocks' reads and writes:
+    ``{(f, c): (reads, writes)}``, each a set of (buffer, index, f)."""
+    if s.device.type != "cpu":
+        raise ValueError("fold_mirror: a CPU state")
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return {}
+    best, new = int(ctl[gs.BEST]), int(ctl[gs.NEW])
+    small, large = int(ctl[gs.SMALL]), int(ctl[gs.LARGE])
+    assert {small, large} == {best, new}, (best, new, small, large)
+    leaves = (best, new)
+    blocks = [(f, c) for f in range(s.F) for c in (0, 1)]
+    is_large = {c: leaves[c] == large for c in (0, 1)}
+    if order == "large_first":
+        blocks.sort(key=lambda b: not is_large[b[1]])
+    elif order == "small_first":
+        blocks.sort(key=lambda b: is_large[b[1]])
+    elif order != "by_feature":
+        raise ValueError("fold_mirror: unknown order %r" % (order,))
+    rows = torch.empty((2, s.F, s.B, 3), dtype=torch.float32)
+    access = {}
+    for f, c in blocks:
+        if is_large[c]:
+            reads = {("hist", best, f), ("small", parity, f)}
+            writes = {("hist", large, f), ("hist", small, f)}
+            pv, sv = s.hist[best, f].clone(), s.small[parity, f].clone()
+            v = pv - sv
+            s.hist[large, f] = v
+            s.hist[small, f] = sv
+        else:
+            reads = {("small", parity, f)}
+            writes = {("small", 1 - parity, f)}
+            v = s.small[parity, f].clone()
+            s.small[1 - parity, f] = 0.0
+        rows[c, f] = v
+        access[(f, c)] = (reads, writes)
+    for a, (_, wa) in access.items():
+        for b, (rb, wb) in access.items():
+            if a != b and wa & (rb | wb):
+                raise AssertionError("fold_mirror: block %s writes what block %s touches: %s"
+                                     % (a, b, sorted(wa & (rb | wb))))
+    aux = s.laux[list(leaves)]
+    outf, outi = split.find_best_split_pair(
+        rows, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta, s.feature_mask,
+        s.params, s.two_way)
+    if s.max_depth > 0:
+        outf[s.leaf_i[list(leaves), 1] >= s.max_depth, 0] = split.K_MIN_SCORE
+    s.best_f[list(leaves)] = outf
+    s.best_i[list(leaves)] = outi
+    return access

@@ -566,25 +566,58 @@ def test_device_loop_equals_host_loop(dev, N, dtype):
 @pytest.mark.parametrize("N", [100_000])
 def test_loop_kernels_match_plain_at_every_step(dev, N):
     """A 255-leaf tree on dyadic gradients, one step at a time: after each
-    kernel of a step (pick_partition, the histogram's segment entry,
-    hist_subtract, the split scan's device entry) the whole state equals
-    that of its plain version run on a copy of the state."""
+    kernel of a step (pick_partition, the histogram's segment entry into the
+    step's scratch, the split scan's folded entry) the whole state equals
+    that of its plain version run on a copy of the state, with the smaller
+    child in the parent's slot and in the new one."""
     bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=5)
     s = gs.GrowState(dev, N, 28, 255, 255)
     grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
-    pairs = (
-        (partition_kernel.pick_partition, _plain_pick_partition),
-        (hist_kernel.histogram_segment, segment_histogram),
-        (grow_step_kernel.subtract, grow_step_plain.subtract),
-        (lambda st: split_kernel.split_pair_step(st, 2), lambda st: split_pair_step(st, 2)),
-    )
+    aliases = set()
     for step in range(254):
+        p = step % 2
+        pairs = (
+            (partition_kernel.pick_partition, _plain_pick_partition),
+            (lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p)),
+            (lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p)),
+        )
         for k, (kernel, plain) in enumerate(pairs):
             other = s.clone()
             kernel(s)
             plain(other)
             _same_state(s, other, (step, k))
+        aliases.add(int(s.ctl[gs.SMALL]) == int(s.ctl[gs.BEST]))
     assert int(s.ctl[gs.NUM_LEAVES]) == 255 and int(s.ctl[gs.STEP]) == 254
+    assert aliases == {True, False}
+
+
+def test_split_pair_fold_matches_plain_at_1m(dev):
+    """The folded scan against the plain subtraction and split scan on a copy
+    of the state, at 1M rows on real gradients (the same inputs, so bit for
+    bit), at every step from the root's first split to step 128: every hist
+    row, both scratch buffers, the records; the smaller child is the
+    parent's slot (BEST) at some steps and the new leaf (NEW) at others."""
+    N = 1_000_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=21, real=True)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    aliases = set()
+    for step in range(129):
+        p = step % 2
+        partition_kernel.pick_partition(s)
+        hist_kernel.histogram_segment(s, p)
+        assert int(s.ctl[gs.ACTIVE]) == 1 and int(s.ctl[gs.STEP]) == step + 1
+        other = s.clone()
+        split_kernel.split_pair_fold(s, p)
+        grow_step_plain.split_pair_fold(other, p)
+        _same_state(s, other, step)
+        assert not s.small[1 - p].any()
+        small, large = int(s.ctl[gs.SMALL]), int(s.ctl[gs.LARGE])
+        assert torch.equal(s.hist[small], s.small[p])
+        assert torch.equal(s.hist[large], other.hist[large])
+        aliases.add(small == int(s.ctl[gs.BEST]))
+    assert aliases == {True, False}
 
 
 def _plain_pick_partition(s):
@@ -757,12 +790,12 @@ def test_histogram_segment_matches_histogram(dev, dtype):
             rows = order[begin:begin + count].contiguous()
             if exact:
                 want = hist_kernel.histogram(nf.t(), vals, 255, rows, dtype)
-                assert torch.equal(s.small, want), (begin, count)
+                assert torch.equal(s.small[0], want), (begin, count)
             else:
                 want = leaf_histogram(bins, vals, 255, rows, dtype)
                 bound = want[..., 2:] * 2.0 ** -23 * leaf_histogram(bins, vals.abs(), 255, rows, dtype)
-                assert bool(((s.small - want).abs() <= bound + 1e-6).all()), (begin, count)
-            s.small.zero_()
+                assert bool(((s.small[0] - want).abs() <= bound + 1e-6).all()), (begin, count)
+            s.small[0].zero_()
 
 
 def test_split_pair_step_matches_find_best_split_pair(dev):
@@ -856,6 +889,55 @@ def test_leaf_ids_kernel_matches_plain(dev):
     assert torch.equal(torch.bincount(got, minlength=255).int(), counts)
 
 
+def test_leaf_ids_and_score_update_match_plain_at_1m(dev):
+    """At 1M rows: leaf_ids equals its plain version, and the fused score
+    update equals ``score.add_(value[leaf_ids])`` bit for bit on real
+    values, on a 255-leaf tree grown on real gradients and on a layout of
+    many small and empty leaves, the segments in reverse order."""
+    N = 1_000_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=15, real=True)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    assert int(s.ctl[gs.NUM_LEAVES]) == 255
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for layout in ("grown", "small_leaves"):
+        if layout == "small_leaves":
+            counts = torch.randint(0, 5, (255,), generator=gen, device=dev, dtype=torch.int32)
+            counts[::7] = 0
+            counts[-1] = N - int(counts[:-1].sum())
+            s.leaf_count.copy_(counts)
+            s.leaf_begin.copy_(torch.cumsum(counts.flip(0), 0).flip(0) - counts)
+        want_leaf = grow_step_plain.leaf_ids(s)
+        assert torch.equal(grow_step_kernel.leaf_ids(s), want_leaf), layout
+        value = torch.randn(255, generator=gen, device=dev)
+        score = torch.randn(N, generator=gen, device=dev) * 3
+        want = score.clone().add_(value[want_leaf])
+        grow_step_kernel.score_update(s, value, score)
+        assert torch.equal(score, want), layout
+
+
+def test_score_update_over_256_leaves(dev):
+    """More than 256 leaves: the score update keeps each row's leaf as an
+    int32 between its two launches; the scores equal the plain version's
+    bit for bit on real values."""
+    N, M = 100_003, 300
+    gen = torch.Generator(device=dev).manual_seed(18)
+    s = gs.GrowState(dev, N, 1, 4, M)
+    assert s.leaf_scratch.dtype == torch.int32
+    counts = torch.randint(0, 600, (M,), generator=gen, device=dev, dtype=torch.int32)
+    counts[-1] = N - int(counts[:-1].sum())
+    s.leaf_count.copy_(counts)
+    s.leaf_begin.copy_(torch.cumsum(counts, 0) - counts)
+    s.order.copy_(torch.randperm(N, generator=gen, device=dev).int())
+    s.ctl[gs.NUM_LEAVES] = M
+    value = torch.randn(M, generator=gen, device=dev)
+    score = torch.randn(N, generator=gen, device=dev)
+    want = score.clone().add_(value[grow_step_plain.leaf_ids(s)])
+    grow_step_kernel.score_update(s, value, score)
+    assert torch.equal(score, want)
+    assert torch.equal(grow_step_kernel.leaf_ids(s), grow_step_plain.leaf_ids(s))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_captured_tree_equals_eager_launch_tree(dev, dtype):
     """Dyadic gradients: one replay of the captured tree (root, 254 steps,
@@ -890,9 +972,39 @@ def test_captured_tree_equals_eager_launch_tree(dev, dtype):
     replay = {k: v - mid[k] for k, v in after.items() if v != mid[k]}
     assert eager == replay == graph.launches, (eager, replay)
     segment = "histogram_segment_bf16" if dtype == "bfloat16" else "histogram_segment"
-    assert replay["pick_partition"] == replay[segment] == replay["hist_subtract"] == 254, replay
+    assert replay["pick_partition"] == replay[segment] == replay["split_pair_fold"] == 254, replay
     assert "grow_step" not in replay and "partition" not in replay, replay
-    assert replay["split_pair_step"] == 255 and replay["leaf_ids"] == 1, replay
+    assert replay["split_pair_step"] == 1 and replay["leaf_ids"] == 1, replay
+
+
+def test_captured_tree_at_1m_equals_eager_and_host_loop(dev):
+    """Dyadic gradients at 1M rows: one replay of the captured tree (three
+    launches a step) grows the eager launch_tree's tree and leaf index, and
+    the host loop's, bit for bit."""
+    N = 1_000_000
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=14)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    args = (bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+
+    def tree():
+        grow_mod.launch_tree(s, *args)
+        return grow_mod.leaf_ids(s)
+
+    want_leaf = tree()
+    want = grow_mod.read_tree(s)
+    graph = cuda_graph.Graph(tree, dev)
+    s.packed.zero_()
+    graph.out.zero_()
+    graph.replay()
+    got = grow_mod.read_tree(s)
+    host, host_leaf = grow_tree(bins, grad, hess, mask, meta, 255, -1, 255, LOOP_PARAMS, True,
+                                bins_nf=nf)
+    for name in TreeArrays._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+        assert torch.equal(getattr(host, name), getattr(want, name)), name
+    assert torch.equal(graph.out, want_leaf) and torch.equal(host_leaf, want_leaf)
+    assert int(got.num_leaves) == 255
+    assert graph.launches["split_pair_fold"] == 254 and "hist_subtract" not in graph.launches
 
 
 def test_capture_on_a_stream_that_cannot_capture_raises(dev):

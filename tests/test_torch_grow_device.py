@@ -165,7 +165,10 @@ def test_stopped_loop_steps_change_nothing():
     assert int(s.ctl[gs.ACTIVE]) == 0 and int(s.ctl[gs.NUM_LEAVES]) < M
     before = {k: getattr(s, k).clone() for k in gs.GrowState.STATE}
     for step in (partition_kernel.pick_partition, hist_kernel.histogram_segment,
-                 grow_step_kernel.subtract, lambda st: split_kernel.split_pair_step(st, 2)):
+                 lambda st: hist_kernel.histogram_segment(st, 1),
+                 lambda st: split_kernel.split_pair_fold(st, 0),
+                 lambda st: split_kernel.split_pair_fold(st, 1),
+                 lambda st: split_kernel.split_pair_step(st, 2)):
         step(s)
         for k, v in before.items():
             assert torch.equal(getattr(s, k), v), (step, k)
@@ -272,13 +275,14 @@ def test_cpu_device_loop_launches_no_kernel():
     """On CPU tensors every step runs its plain version: no launch counted."""
     hist_kernel.reset_launches()
     grow_step_kernel.reset_launches()
-    split_kernel.step_launches = partition_kernel.launches = 0
+    split_kernel.step_launches = split_kernel.fold_launches = partition_kernel.launches = 0
     bins, meta, grad, hess = _case(8, N=600)
     args, nf = _torch_args(bins, meta, grad, hess, 7, -1)
     tree, _, _ = grow_tree_device(*args, bins_nf=nf)
     assert int(tree.num_leaves) == 7
     assert not any(hist_kernel.launches.values()) and not any(grow_step_kernel.launches.values())
-    assert split_kernel.step_launches == 0 and partition_kernel.launches == 0
+    assert split_kernel.step_launches == split_kernel.fold_launches == 0
+    assert partition_kernel.launches == 0
 
 
 def test_bench_prints_one_line_on_the_cpu(capsys):

@@ -18,7 +18,7 @@ import torch
 from lightgbm_tpu_torch.ops import grow as grow_mod
 from lightgbm_tpu_torch.ops import grow_state as gs
 from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
-from lightgbm_tpu_torch.ops import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
+from lightgbm_tpu_torch.ops import hist_kernel, partition_kernel, split_kernel
 from lightgbm_tpu_torch.ops import partition as partition_plain
 from lightgbm_tpu_torch.ops.split import SplitParams
 
@@ -152,8 +152,7 @@ def test_block_mirror_grows_the_plain_tree(grid):
         partition_kernel.block_mirror(s, grid)
         partition_kernel.pick_partition(other)
         _same_state(s, other, (grid, step))
-        hist_kernel.histogram_segment(s)
-        grow_step_kernel.subtract(s)
-        split_kernel.split_pair_step(s, 2)
+        hist_kernel.histogram_segment(s, step % 2)
+        split_kernel.split_pair_fold(s, step % 2)
     _same_state(s, want, grid)
     assert int(s.ctl[gs.NUM_LEAVES]) > 10
