@@ -8,7 +8,8 @@ Phases (each prints one line; any failure exits non-zero):
  1. device and build: the card, its power limit, every kernel source of
     lightgbm_tpu_torch/csrc built with one nvcc each, all started at once,
     and each kernel's registers per thread and spill bytes as ptxas reports
-    them (hist_v1's instances on their own, none spilling);
+    them (hist_v1's instances on their own, none spilling; histogram.cu's
+    16, its grouped form among them);
  2. leaf-histogram kernel vs its plain PyTorch version at the root shape
     (1M rows x 28 features, B=255) and at a leaf segment given by ``rows``:
     exact on dyadic values, within the f32 bound of two summation orders on
@@ -69,13 +70,13 @@ Phases (each prints one line; any failure exits non-zero):
     train_chunk(10) under sync debug mode "error", then turns of 10
     iterations (eager, graph, chunk, chunk, graph, eager) with the launch
     counts from 0 each (replays counted; equal across the three and to the
-    captured tree's but for score_update in place of leaf_ids), the host's
-    time to queue an iteration, one profiled iteration of each (device busy
-    ms, kernels an iteration, at most 817 and none of them a
-    subtract_kernel, the split-loop kernels' ms, idle share, no
-    host-to-device copy and one device-to-host copy an iteration or a
-    chunk), and after each
-    chunk its train scores equal to the kept trees' raw prediction; then a
+    captured tree's but for score_update in place of leaf_ids), after each
+    chunk its train scores equal to the kept trees' raw prediction, one
+    profiled iteration of each (device busy ms, kernels an iteration, at
+    most 817 and none of them a subtract_kernel, the split-loop kernels'
+    ms, idle share, no host-to-device copy and one device-to-host copy an
+    iteration or a chunk; ``turns_and_profile``, which 4e and 4f share),
+    the host's time to queue an iteration; then a
     stop in the middle of a chunk: at 100k rows with gradients rounded to
     multiples of 2^-7 (training exact whatever the summation order), a
     min_gain_to_split found by bisection stops chunk 1 inside the chunk, two
@@ -95,9 +96,36 @@ Phases (each prints one line; any failure exits non-zero):
     graph booster and of this configuration's (a replay an iteration,
     chunks of 5), one profiled iteration and chunk (busy time, idle share,
     copies each way), a chunk's synchronizing calls under sync debug mode
-    "warn", the bag draw's time, and predict_bins timed against its plain
-    version and its bytes bound, and its device ms an iteration in the
-    profile;
+    "warn", the bag draw's time (the JAX package's threefry permutation,
+    equal to the same torch code on the CPU for every iteration the run
+    drew), and predict_bins timed against its plain version and its bytes
+    bound, and its device ms an iteration in the profile;
+ 4e. regression on a YearPredictionMSD-shaped table (``year_like_rows``:
+    463,715 x 90 dense f32, synthetic values, label about 1998 +- 10):
+    ``regression``, metric l2, 255 leaves, max_bin 255, 10 iterations with a
+    held-out 51,630-row set; the held-out l2 below half the constant mean's;
+    the captured iteration equal to the eager launches on 20,000 rows with
+    the gradients rounded to 2^-10 (every histogram cell exact, checked);
+    two eager iterations on the whole table with every histogram call held
+    to its plain version within the two-order bound, every score update to
+    ``score.add_(value[leaf_ids])`` bit for bit, and pick_partition and the
+    folded scan at every 16th step of each tree to their plain versions on
+    a copy of the state; iterations/s in 4c's turns (a replay an iteration,
+    chunks of 10, eager), busy ms a replay and a chunk, kernels an
+    iteration, copies;
+ 4f. multiclass on a Covertype-shaped table (``covertype_like_rows``:
+    581,012 x 54, 10 continuous and 44 binary columns, 7 classes with
+    Covertype's shares, synthetic values, EFB off): ``multiclass``, 7 trees
+    an iteration in one captured replay, 255 leaves, max_bin 255, a
+    100k-row validation set with multi_logloss and multi_error, early
+    stopping 5, 10 iterations; multi_error below the majority share and
+    multi_logloss below the prior's entropy; each class's validation score
+    equal to the plain per-tree adds; on 16,000 rows with gradients rounded
+    to 2^-10 the captured K-tree iteration equal to the eager launches and
+    chunk 4 equal to single iterations; 4e's held eager run, one iteration
+    of 7 trees on the whole table, the histograms in their grouped form
+    (the table's 2-bin features) and each class's score update into its
+    own row of the scores; the turns and profile of 4e;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -133,8 +161,8 @@ Phases (each prints one line; any failure exits non-zero):
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
-    main-path runs: phase 4, 4c's and 4d's turns and 4d's training, the sweep and the
-    routed trainings, each with
+    main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's
+    and 4f's trainings and turns, the sweep and the routed trainings, each with
     the counts set to 0 just before it and read just after; the split
     loop's kernels timed in phase 4b, leaf_ids and score_update in 4c,
     predict_bins in 4d), the seconds of each phase, then the result line.
@@ -223,6 +251,10 @@ def main() -> int:
     from lightgbm_tpu_torch.config import Config
     from helpers.bench_data import make_higgs_like
     from lightgbm_tpu_torch import bench as bench_mod
+    from lightgbm_tpu_torch.bench import (
+        COVER_PARAMS, COVER_ROWS, COVER_VALID_ROWS, YEAR_FEATURES, YEAR_PARAMS, YEAR_ROWS,
+        YEAR_VALID_ROWS, covertype_like_rows, year_like_rows,
+    )
     from lightgbm_tpu_torch import objective as objective_mod
     from lightgbm_tpu_torch.obs import tune
     from lightgbm_tpu_torch.ops import cuda_build, cuda_graph, hist_kernel, split_kernel
@@ -290,6 +322,8 @@ def main() -> int:
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
         "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
     assert set(ptxas["predict_bins"]) == {"predict_bins_kernel"}, ptxas
+    # histogram.cu: both entries per (operand type, bin path, grouped form)
+    assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
                for n in ("partition", "split_pair", "grow_step", "predict_bins")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
@@ -578,6 +612,7 @@ def main() -> int:
 
     # ---- 4b. the two split loops, paired ------------------------------------------
     g0 = booster._gbdt
+    assert not g0.grouped_adds  # spread bins: the histograms' plain loop
     loop_args = (g0.bins_dev, g0.feature_mask, g0.feature_meta, TRAIN_PARAMS["num_leaves"],
                  g0.config.max_depth, g0.num_bins, g0.split_params, g0._two_way)
 
@@ -932,41 +967,7 @@ def main() -> int:
     for kind in ("eager", "graph"):
         assert bench_mod.train_iterations(boosters[kind], 10, 1) == 10
 
-    # turns of 10 iterations, eager, graph, chunk, chunk, graph, eager, each
-    # with the launch counts from 0 (replays counted by the graph)
-    boost_ips = {kind: [] for kind in boosters}
-    turn_launches = {}
-    for kind in ("eager", "graph", "chunk", "chunk", "graph", "eager"):
-        ran, secs, got = counted(
-            lambda: bench_mod.train_iterations(boosters[kind], 10, boost_kinds[kind][0]))
-        assert ran == 10, (kind, ran)
-        boost_ips[kind].append(10 / secs)
-        turn_launches.setdefault(kind, got)
-        assert got == turn_launches[kind], ("launches differ between turns", kind)
-        if kind == "chunk":
-            scores_hold(boosters["chunk"])
-    assert turn_launches["eager"] == turn_launches["graph"] == turn_launches["chunk"], turn_launches
-    # an iteration launches the captured tree's kernels, score_update in
-    # place of leaf_ids
-    per_iter = {k: v / 10 for k, v in turn_launches["graph"].items()}
-    tree_per_iter = {k: float(v) for k, v in tree_graph_launches.items() if k != "leaf_ids"}
-    assert tree_graph_launches["leaf_ids"] == 1 and per_iter.pop("score_update") == 1.0, per_iter
-    assert per_iter == tree_per_iter, (per_iter, tree_graph_launches)
-
-    # the host's time to queue an iteration: the eager launches, one replay,
-    # and 10 replays (the chunk's), each from a synchronised card
-    enqueue_us = {"eager": [], "graph": [], "chunk": []}
-    for kind, n, eager in (("eager", 1, True), ("graph", 1, False), ("chunk", chunk, False)):
-        g = boosters[kind]._gbdt
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            g.launch_iterations(n, eager=eager)
-            enqueue_us[kind].append((time.perf_counter() - t0) * 1e6 / n)
-            assert not g._keep_trees(g.collect_iterations(n))
-    scores_hold(boosters["chunk"])
-
-    # one profiled iteration of each (the chunk: 10): device busy time,
+    # a profiled iteration (a chunk: all of it): device busy time,
     # copies each way, the kernels' span on the card with the gaps between
     # consecutive kernels (in a chunk, those between replays among them), and
     # the device ms and calls of the split loop's and predict_bins' kernels
@@ -1004,25 +1005,68 @@ def main() -> int:
                 named[ev.key[:80]] = [us / 1e3, ev.count]
         return busy, kernels, copies_, timeline, named
 
-    prof_boost = {}
-    for kind, fn, n in (("eager", boosters["eager"].update, 1), ("graph", boosters["graph"].update, 1),
-                        ("chunk", lambda: boosters["chunk"].update_chunk(chunk), chunk)):
-        busy, kernels, copies_, timeline, named = profiled(fn)
-        ips = statistics.median(boost_ips[kind])
-        prof_boost[kind] = dict(
-            device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
-            timeline=timeline, kernels_per_iteration=timeline["kernels"] / n
-            if isinstance(timeline, dict) else "not measured", kernels_ms_and_calls=named,
-            iterations=n, device_idle_share=[1 - busy / n * v / 1e3 for v in boost_ips[kind]]
-            if busy else "not measured", median_iterations_per_s=ips)
-    # no host-to-device copy; one device-to-host copy an iteration, and one a
-    # chunk; a step is three launches (no subtract_kernel): 817 kernels an
+    def turns_and_profile(bsts, chunks, order, profile_kinds, on_turn=None):
+        """Turns of 10 iterations of the boosters ``bsts`` (kind -> booster;
+        ``chunks``: kind -> its device_chunk_size) in ``order``, each with
+        the launch counts from 0 (replays counted by the graph), equal
+        between turns and between kinds, ``on_turn(kind)`` after each; then
+        one profiled iteration of each of ``profile_kinds`` (a chunk: all of
+        it), with no host-to-device copy and one device-to-host copy.
+        Returns (iterations/s by kind, a turn's launches by kind, profiles)."""
+        ips, per_turn = {k: [] for k in bsts}, {}
+        for kind in order:
+            ran, secs, got = counted(lambda: bench_mod.train_iterations(bsts[kind], 10, chunks[kind]))
+            assert ran == 10, (kind, ran)
+            ips[kind].append(10 / secs)
+            per_turn.setdefault(kind, got)
+            assert got == per_turn[kind], ("launches differ between turns", kind)
+            if on_turn is not None:
+                on_turn(kind)
+        assert all(v == per_turn[order[0]] for v in per_turn.values()), per_turn
+        prof_ = {}
+        for kind in profile_kinds:
+            n = chunks[kind]
+            fn = bsts[kind].update if n == 1 else (lambda b_=bsts[kind], n_=n: b_.update_chunk(n_))
+            busy, kernels, copies_, timeline, named = profiled(fn)
+            prof_[kind] = dict(
+                device_busy_ms_per_iteration=busy / n, device_events=kernels, copies=copies_,
+                timeline=timeline, kernels_per_iteration=timeline["kernels"] / n
+                if isinstance(timeline, dict) else "not measured", kernels_ms_and_calls=named,
+                iterations=n, device_idle_share=[1 - busy / n * v / 1e3 for v in ips[kind]]
+                if busy else "not measured", median_iterations_per_s=statistics.median(ips[kind]))
+            assert copies_["HtoD"] == 0 and copies_["DtoH"] == 1, (kind, copies_)
+        return ips, per_turn, prof_
+
+    # turns of 10 iterations, eager, graph, chunk, chunk, graph, eager, the
+    # chunked booster's train scores held after each of its turns; then one
+    # profiled iteration of each (the chunk: 10)
+    boost_ips, turn_launches, prof_boost = turns_and_profile(
+        boosters, {k: v[0] for k, v in boost_kinds.items()},
+        ("eager", "graph", "chunk", "chunk", "graph", "eager"), ("eager", "graph", "chunk"),
+        on_turn=lambda kind: kind == "chunk" and scores_hold(boosters["chunk"]))
+    # an iteration launches the captured tree's kernels, score_update in
+    # place of leaf_ids
+    per_iter = {k: v / 10 for k, v in turn_launches["graph"].items()}
+    tree_per_iter = {k: float(v) for k, v in tree_graph_launches.items() if k != "leaf_ids"}
+    assert tree_graph_launches["leaf_ids"] == 1 and per_iter.pop("score_update") == 1.0, per_iter
+    assert per_iter == tree_per_iter, (per_iter, tree_graph_launches)
+    # a step is three launches (no subtract_kernel): 817 kernels an
     # iteration or fewer (the timeline's, copies and memsets aside)
     for kind in boosters:
-        assert prof_boost[kind]["copies"]["HtoD"] == 0, prof_boost
-        assert prof_boost[kind]["copies"]["DtoH"] == 1, prof_boost
         assert not any("subtract_kernel" in k for k in prof_boost[kind]["kernels_ms_and_calls"])
         assert prof_boost[kind]["kernels_per_iteration"] <= 817, prof_boost[kind]
+
+    # the host's time to queue an iteration: the eager launches, one replay,
+    # and 10 replays (the chunk's), each from a synchronised card
+    enqueue_us = {"eager": [], "graph": [], "chunk": []}
+    for kind, n, eager in (("eager", 1, True), ("graph", 1, False), ("chunk", chunk, False)):
+        g = boosters[kind]._gbdt
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.launch_iterations(n, eager=eager)
+            enqueue_us[kind].append((time.perf_counter() - t0) * 1e6 / n)
+            assert not g._keep_trees(g.collect_iterations(n))
     scores_hold(boosters["chunk"])
     del boosters
 
@@ -1103,7 +1147,7 @@ def main() -> int:
     # every tree of the run: the kernel's leaves equal the plain traversal's,
     # and the validation score equals the plain per-tree f32 adds bit for bit
     vbins = gv._valid_bins[0]
-    plain_score = torch.zeros(VALID_ROWS, device=dev) + np.float32(gv._init_fold)
+    plain_score = torch.zeros(VALID_ROWS, device=dev) + np.float32(gv._init_fold[0])
     depth_sum = 0.0
     for ta in gv._tree_arrays:
         ptree = predict_plain.make_predict_tree(ta, gv.feature_meta)
@@ -1126,6 +1170,11 @@ def main() -> int:
     bag_cnt = int(vparams["bagging_fraction"] * N)
     assert torch.equal(gv._bag.cpu(), draw_bag(gv.config.bagging_seed, gv._bag_iter, N, bag_cnt, "cpu"))
     assert int(gv._bag.sum()) == bag_cnt
+    # the card's draw (the JAX package's threefry permutation) equals the
+    # same torch code on the CPU for every iteration the run drew
+    for it_ in range(gv.iter_ + 1):
+        assert torch.equal(draw_bag(gv.config.bagging_seed, it_, N, bag_cnt, dev).cpu(),
+                           draw_bag(gv.config.bagging_seed, it_, N, bag_cnt, "cpu")), it_
     feat_rng = np.random.RandomState(gv.config.feature_fraction_seed & 0x7FFFFFFF)
     k_feat = max(1, int(vparams["feature_fraction"] * F))
     for _ in range(vbst.num_trees()):
@@ -1281,21 +1330,28 @@ def main() -> int:
         best_iteration=vbst.best_iteration, trees=vbst.num_trees(),
         valid_auc_first_last_best=[valid_auc[0], valid_auc[-1], max(valid_auc)],
         launches=valid_launches, kernel_leaves_equal_plain=True, valid_scores_equal_plain_adds=True,
-        bag_equals_cpu=True, feature_masks_equal_numpy=True, chunk4_equals_chunk1=True,
+        bag_equals_cpu=True, bag_iterations_checked=gv.iter_ + 1, feature_masks_equal_numpy=True,
+        chunk4_equals_chunk1=True,
         eval_boundary_host_ms=eval_ms, iterations_per_s=valid_ips, bag_draw=bag_draw,
         chunk_sync_warnings=chunk_syncs,
         launches_per_turn=valid_turn_launches, turn_calls=turn_calls, profile=valid_prof,
         predict_bins=predict_t)
 
-    def hold_calls():
+    def hold_calls(steps_every=0):
         """Hold every call of each histogram kernel wrapper to its plain
-        version on the same rows within the two-order bound, until the returned
-        ``release()`` (which returns the counts and the worst ratio): every
-        tree, those after a flip included."""
+        version on the same rows within the two-order bound, and every
+        score_update to ``score.add_(value[leaf_ids])`` bit for bit, until
+        the returned ``release()`` (which returns the counts, the worst
+        ratio, the calls of the histograms' grouped form and the scores each
+        score_update wrote): every tree, those after a flip included. With
+        ``steps_every``, pick_partition and the folded scan of every such
+        step of a tree (steps 0, steps_every, ...) also run against their
+        plain versions on a copy of the state, the whole state equal."""
         plains = dict(histogram=leaf_histogram, hist_onehot=leaf_histogram,
                       hist_bitplane=leaf_histogram, hist_packed4_rows=leaf_histogram_packed4_rows)
-        orig = {n: getattr(hist_kernel, n) for n in plains}
-        held = dict(checked=dict.fromkeys(orig, 0), worst_err_over_bound=0.0)
+        orig = {n: (hist_kernel, getattr(hist_kernel, n)) for n in plains}
+        held = dict(checked=dict.fromkeys(plains, 0), worst_err_over_bound=0.0, grouped_calls=0,
+                    score_rows=[])
 
         def check(name, got, plain, values):
             ratio, err = err_over_bound(got, plain(values), plain(values.abs()))
@@ -1305,8 +1361,9 @@ def main() -> int:
 
         def rows_call(name):
             def call(bins_, values, num_bins, rows=None, hist_dtype="float32", **kw):
-                got = orig[name](bins_, values, num_bins, rows, hist_dtype, **kw)
+                got = orig[name][1](bins_, values, num_bins, rows, hist_dtype, **kw)
                 check(name, got, lambda v: plains[name](bins_, v, num_bins, rows, hist_dtype), values)
+                held["grouped_calls"] += bool(kw.get("grouped"))
                 return got
             return call
 
@@ -1314,24 +1371,271 @@ def main() -> int:
         for name in plains:
             setattr(hist_kernel, name, rows_call(name))
         # the device loop's segment entry: its rows read back from the state
-        orig["histogram_segment"] = hist_kernel.histogram_segment
+        orig["histogram_segment"] = (hist_kernel, hist_kernel.histogram_segment)
         held["checked"]["histogram_segment"] = 0
 
         def segment_call(st, parity=0):
-            orig["histogram_segment"](st, parity)
+            orig["histogram_segment"][1](st, parity)
             if int(st.ctl[gs.ACTIVE]):
                 leaf = int(st.ctl[gs.SMALL])
                 b0, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
                 rows = st.order[b0:b0 + cnt]
                 check("histogram_segment", st.small[parity],
                       lambda v: leaf_histogram(st.hist_bins, v, st.B, rows, st.hist_dtype), st.values)
+                held["grouped_calls"] += st.grouped
         hist_kernel.histogram_segment = segment_call
 
+        orig["score_update"] = (grow_step_kernel, grow_step_kernel.score_update)
+        held["checked"]["score_update"] = 0
+
+        def score_call(st, value, score):
+            want = score.clone().add_(value[grow_step_plain.leaf_ids(st)])
+            orig["score_update"][1](st, value, score)
+            assert torch.equal(score, want), ("score_update != plain", held["checked"]["score_update"])
+            held["checked"]["score_update"] += 1
+            held["score_rows"].append(score.data_ptr())
+        grow_step_kernel.score_update = score_call
+
+        def step_call(name, plain):
+            kernel = orig[name][1]
+
+            def call(st, *a):
+                if (st.queued_steps - 1) % steps_every:
+                    return kernel(st, *a)
+                other = st.clone()
+                kernel(st, *a)
+                plain(other, *a)
+                for k in gs.GrowState.STATE:  # NaN where both are NaN (an empty side's output)
+                    a_, b_ = getattr(st, k), getattr(other, k)
+                    assert torch.equal(a_, b_) or (a_.is_floating_point() and bool(
+                        ((a_ == b_) | (a_.isnan() & b_.isnan())).all())), (
+                        "kernel != plain", name, k, st.queued_steps - 1)
+                held["checked"][name] += 1
+            return call
+
+        if steps_every:
+            for mod, name, plain in ((partition_kernel, "pick_partition", plain_pick_partition),
+                                     (split_kernel, "split_pair_fold", grow_step_plain.split_pair_fold)):
+                orig[name] = (mod, getattr(mod, name))
+                held["checked"][name] = 0
+                setattr(mod, name, step_call(name, plain))
+
         def release():
-            for name, fn in orig.items():
-                setattr(hist_kernel, name, fn)
+            for name, (mod, fn) in orig.items():
+                setattr(mod, name, fn)
             return held
         return release
+
+    def held_iterations(train_set_, params_, n, steps_every=16):
+        """``n`` eager iterations of a new booster on ``train_set_`` under
+        :func:`hold_calls` (its ``steps_every``): every histogram call and
+        score update held, and pick_partition and the folded scan at every
+        ``steps_every``-th step of each tree. Returns the booster's gbdt and
+        what was held."""
+        release_ = hold_calls(steps_every)
+        try:
+            b_ = lgb.Booster(dict(params_), train_set_)
+            b_._gbdt.iteration_graph = False  # a replay calls no wrapper to hold
+            for _ in range(n):
+                b_.update()
+        finally:
+            held_ = release_()
+        g_ = b_._gbdt
+        K_ = g_.num_tree_per_iteration
+        assert g_.grow_loop == "device" and b_.num_trees() == n * K_, b_.num_trees()
+        ck = held_["checked"]
+        assert ck["histogram"] == n * K_ and ck["histogram_segment"] > 0, ck
+        assert ck["pick_partition"] > 0 and ck["split_pair_fold"] > 0, ck
+        # one score update a class an iteration, each into its own row of the scores
+        assert ck["score_update"] == n * K_, ck
+        assert set(held_["score_rows"]) == {g_.scores[k].data_ptr() for k in range(K_)}, held_
+        held_["grouped_adds"] = g_.grouped_adds
+        held_["score_rows"] = len(set(held_["score_rows"]))
+        return g_, held_
+
+    # ---- 4e. regression: a YearPredictionMSD-shaped table -----------------------------
+    # 463,715 x 90 dense f32 (the UCI train split's shape), synthetic values,
+    # a held-out 51,630-row set of the same generator; 10 iterations through
+    # the captured iteration with the held-out set's l2 at every boundary
+    Xy, yy = year_like_rows(YEAR_ROWS, seed=21)
+    Xyv, yyv = year_like_rows(YEAR_VALID_ROWS, seed=22)
+    t0 = time.perf_counter()
+    year_set = lgb.Dataset(Xy, label=yy)
+    year_valid = lgb.Dataset(Xyv, label=yyv, reference=year_set)
+    year_cfg = Config.from_params(dict(YEAR_PARAMS))
+    year_set.get_binned(year_cfg)
+    year_valid.get_binned(year_cfg)
+    year_bin_s = time.perf_counter() - t0
+    year_evals = {}
+    ybst, year_train_s, year_launches = counted(lambda: lgb.train(
+        dict(YEAR_PARAMS), year_set, 10, valid_sets=[year_valid], evals_result=year_evals,
+        verbose_eval=False))
+    gy = ybst._gbdt
+    assert gy.grow_loop == "device" and gy.captures == 1 and ybst.num_trees() == 10, gy.captures
+    assert all(year_launches.get(k, 0) > 0 for k in loop_kernels + ("predict_bins",)), year_launches
+    # the quality guard: held-out l2 below half the constant training mean's
+    year_l2 = year_evals["valid_0"]["l2"]
+    const_l2 = float(np.mean((yyv - np.mean(yy)) ** 2))
+    assert np.all(np.isfinite(year_l2)) and year_l2[-1] < 0.5 * const_l2, (year_l2, const_l2)
+    yraw = ybst.predict(Xyv[:1000])
+    assert yraw.shape == (1000,) and np.all(np.isfinite(yraw))
+    # the captured iteration equals the eager launches, on 20,000 rows with
+    # the gradients rounded to multiples of 2^-10: every histogram cell is
+    # then exact (a cell's rows times twice the largest |gradient| stay below
+    # 2^14, checked), so any summation order gives the same trees
+    eq_rows = 20_000
+    get_reg = objective_mod.RegressionL2Loss.get_gradients
+
+    def reg_dyadic(self, score):
+        g_, h_ = get_reg(self, score)
+        return torch.round(g_ * 1024.0) / 1024.0, h_
+
+    ds_eq = lgb.Dataset(Xy[:eq_rows], label=yy[:eq_rows])
+    eq_bins = ds_eq.get_binned(year_cfg).bins
+    cell_rows = max(int(np.bincount(b_).max()) for b_ in eq_bins)
+    grad_max = float(np.abs(yy[:eq_rows] - np.mean(yy[:eq_rows])).max())
+    assert cell_rows * 2 * grad_max < 2 ** 14, (cell_rows, grad_max)
+    objective_mod.RegressionL2Loss.get_gradients = reg_dyadic
+    try:
+        year_eq = {}
+        for kind, graph_on in (("eager", False), ("graph", True)):
+            b_ = lgb.Booster(dict(YEAR_PARAMS), ds_eq)
+            b_._gbdt.iteration_graph = graph_on
+            assert bench_mod.train_iterations(b_, 4, 1) == 4
+            year_eq[kind] = b_
+    finally:
+        objective_mod.RegressionL2Loss.get_gradients = get_reg
+    assert year_eq["graph"]._gbdt.captures == 1
+    assert year_eq["graph"].model_to_string().split("parameters:")[0] == \
+        year_eq["eager"].model_to_string().split("parameters:")[0], "captured != eager (regression)"
+    assert year_eq["graph"]._gbdt.train_score().tobytes() == year_eq["eager"]._gbdt.train_score().tobytes()
+    del year_eq, ds_eq
+
+    def objective_turns(train_set_, params_, chunk_):
+        """Three boosters (a replay an iteration, chunks of ``chunk_``, the
+        eager launches) warmed up 10 iterations each, then 4c's turns
+        (graph, chunk, eager, eager, chunk, graph) and a profiled replay
+        and chunk (``turns_and_profile``)."""
+        kinds = {"graph": (1, True), "chunk": (chunk_, True), "eager": (1, False)}
+        bsts = {}
+        for kind, (c, graph_on) in kinds.items():
+            b_ = lgb.Booster(dict(params_, device_chunk_size=c), train_set_)
+            b_._gbdt.iteration_graph = graph_on
+            assert bench_mod.train_iterations(b_, 10, c) == 10, kind
+            bsts[kind] = b_
+        got = turns_and_profile(bsts, {k: v[0] for k, v in kinds.items()},
+                                ("graph", "chunk", "eager", "eager", "chunk", "graph"),
+                                ("graph", "chunk"))
+        for b_ in bsts.values():
+            assert b_._gbdt.captures == (0 if not b_._gbdt.iteration_graph else 1)
+        return got
+
+    # the kernels against their plain versions at this table's shape: two
+    # eager iterations on all 463,715 rows with every histogram call and
+    # score update held, pick_partition and the folded scan every 16th step
+    _, year_held = held_iterations(year_set, YEAR_PARAMS, 2)
+    year_ips, year_turn_launches, year_prof = objective_turns(year_set, YEAR_PARAMS, 10)
+    say("regression", rows=YEAR_ROWS, features=YEAR_FEATURES, valid_rows=YEAR_VALID_ROWS,
+        params=YEAR_PARAMS, binning_s=year_bin_s, train_s=year_train_s,
+        train_iterations_per_s_with_eval=10 / year_train_s, launches=year_launches,
+        valid_l2=year_l2, constant_mean_l2=const_l2, l2_over_constant=year_l2[-1] / const_l2,
+        captured_equals_eager=dict(rows=eq_rows, iterations=4, cell_rows=cell_rows,
+                                   largest_gradient=grad_max), held_calls=year_held,
+        iterations_per_s=year_ips, launches_per_turn=year_turn_launches, profile=year_prof)
+    del ybst, gy, year_set, year_valid, Xy, yy, Xyv, yyv
+
+    # ---- 4f. multiclass: a Covertype-shaped table, K = 7 trees an iteration ------------
+    # 581,012 x 54 (10 continuous, 44 binary columns: features with 2 bins
+    # beside 255-bin ones), 7 classes with Covertype's shares, synthetic
+    # values; EFB off (not ported); a 100k-row validation set, multi_logloss
+    # and multi_error at every boundary, early stopping 5, 10 iterations
+    Xc, yc = covertype_like_rows(COVER_ROWS, seed=31)
+    Xcv, ycv = covertype_like_rows(COVER_VALID_ROWS, seed=32)
+    t0 = time.perf_counter()
+    cover_set = lgb.Dataset(Xc, label=yc)
+    cover_valid = lgb.Dataset(Xcv, label=ycv, reference=cover_set)
+    cover_cfg = Config.from_params(dict(COVER_PARAMS))
+    cover_binned = cover_set.get_binned(cover_cfg)
+    cover_valid.get_binned(cover_cfg)
+    cover_bin_s = time.perf_counter() - t0
+    widths = sorted({int(m.num_bin) for m in cover_binned.mappers})
+    assert 2 in widths and max(widths) == 255 and not cover_binned.is_bundled, widths
+    K = COVER_PARAMS["num_class"]
+    cover_evals = {}
+    cbst, cover_train_s, cover_launches = counted(lambda: lgb.train(
+        dict(COVER_PARAMS), cover_set, 10, valid_sets=[cover_valid], early_stopping_rounds=5,
+        evals_result=cover_evals, verbose_eval=False))
+    gc_ = cbst._gbdt
+    assert gc_.grow_loop == "device" and gc_.captures == 1 and gc_.num_tree_per_iteration == K
+    assert cbst.num_trees() == K * cbst.current_iteration, cbst.num_trees()
+    assert all(cover_launches.get(k, 0) > 0 for k in loop_kernels + ("predict_bins",)), cover_launches
+    # the quality guard: multi_error below the majority class's share and
+    # multi_logloss below the prior's entropy
+    prior = np.bincount(yc.astype(np.int64), minlength=K) / len(yc)
+    entropy = float(-np.sum(prior * np.log(prior)))
+    merr, mll = cover_evals["valid_0"]["multi_error"], cover_evals["valid_0"]["multi_logloss"]
+    assert min(merr) < prior.max() and min(mll) < entropy, (merr, mll, prior, entropy)
+    cprob = cbst.predict(Xcv[:1000])
+    assert cprob.shape == (1000, K) and np.allclose(cprob.sum(1), 1.0)
+    # each class's validation score equals the plain traversal's per-tree f32 adds
+    cbins = gc_._valid_bins[0]
+    plain_valid = torch.zeros((K, COVER_VALID_ROWS), device=dev)
+    for k in range(K):
+        plain_valid[k] += np.float32(gc_._init_fold[k])
+    for i, ta in enumerate(gc_._tree_arrays):
+        ptree = predict_plain.make_predict_tree(ta, gc_.feature_meta)
+        plain_valid[i % K] += ptree.leaf_value[predict_plain.tree_predict_leaf(cbins, ptree)]
+    assert plain_valid.double().cpu().numpy().tobytes() == gc_._valid_score_np(0).tobytes(), (
+        "a class's validation score != the plain per-tree adds")
+    # on 16,000 rows with gradients and hessians rounded to multiples of
+    # 2^-10 (|g| < 1 and h <= 1/2: every histogram cell exact at 16,000
+    # rows), the captured K-tree iteration equals K eager launch_tree calls
+    # a class, and a chunk of 4 equals 4 single iterations
+    get_mc = objective_mod.MulticlassSoftmax.get_gradients
+
+    def mc_dyadic(self, score):
+        g_, h_ = get_mc(self, score)
+        return torch.round(g_ * 1024.0) / 1024.0, torch.clamp(torch.round(h_ * 1024.0), min=1.0) / 1024.0
+
+    ds_mc = lgb.Dataset(Xc[:16_000], label=yc[:16_000])
+    objective_mod.MulticlassSoftmax.get_gradients = mc_dyadic
+    try:
+        mc_eq = {}
+        for kind, c, graph_on in (("eager", 1, False), ("graph", 1, True), ("chunk", 4, True)):
+            b_ = lgb.Booster(dict(COVER_PARAMS, device_chunk_size=c), ds_mc)
+            b_._gbdt.iteration_graph = graph_on
+            assert bench_mod.train_iterations(b_, 9, c) == 9, kind
+            mc_eq[kind] = b_
+    finally:
+        objective_mod.MulticlassSoftmax.get_gradients = get_mc
+    mc_text = mc_eq["eager"].model_to_string().split("parameters:")[0]
+    for kind, b_ in mc_eq.items():
+        assert b_.num_trees() == 9 * K, (kind, b_.num_trees())
+        assert b_.model_to_string().split("parameters:")[0] == mc_text, ("K trees differ", kind)
+        assert b_._gbdt.train_score().tobytes() == mc_eq["eager"]._gbdt.train_score().tobytes(), kind
+    assert mc_eq["graph"]._gbdt.captures == mc_eq["chunk"]._gbdt.captures == 1
+    del mc_eq, ds_mc
+    # the kernels against their plain versions at this table's shape: one
+    # eager iteration (7 trees) on all 581,012 rows with every histogram
+    # call and each class's score update (into scores[k]) held,
+    # pick_partition and the folded scan every 16th step; the table takes
+    # the histograms' grouped form (its 2-bin features), and the held calls
+    # ran it
+    held_g, cover_held = held_iterations(cover_set, COVER_PARAMS, 1)
+    assert held_g.grouped_adds and cover_held["grouped_calls"] > 0, cover_held
+    assert cover_held["score_rows"] == K, cover_held
+    del held_g
+    cover_ips, cover_turn_launches, cover_prof = objective_turns(cover_set, COVER_PARAMS, 10)
+    say("multiclass", rows=COVER_ROWS, features=54, valid_rows=COVER_VALID_ROWS, num_class=K,
+        params=COVER_PARAMS, bin_widths=widths, binning_s=cover_bin_s, train_s=cover_train_s,
+        train_iterations_per_s_with_eval=cbst.current_iteration / cover_train_s,
+        iterations=cbst.current_iteration, best_iteration=cbst.best_iteration,
+        launches=cover_launches, valid_multi_error=merr, valid_multi_logloss=mll,
+        majority_share=float(prior.max()), prior_entropy=entropy,
+        valid_scores_equal_plain_adds=True,
+        captured_equals_eager_and_chunk4=dict(rows=16_000, iterations=9), held_calls=cover_held,
+        iterations_per_s=cover_ips, launches_per_turn=cover_turn_launches, profile=cover_prof)
+    del cbst, gc_, cover_set, cover_valid, Xc, yc, Xcv, ycv
 
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]

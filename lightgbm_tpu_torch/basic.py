@@ -227,11 +227,14 @@ class Booster:
                     results.append((name, mname, val, bigger))
         return results
 
-    def predict(self, data, num_iteration: Optional[int] = None, raw_score: bool = False) -> np.ndarray:
-        """Scores of ``data``. ``num_iteration`` None takes the first
-        ``best_iteration`` iterations (``train`` sets it: the early-stopping
-        best, else every iteration it trained), or all while it is unset; a
-        value <= 0 takes all."""
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
+        """Scores of ``data``: ``[N]``, or ``[N, K]`` for a model of K trees
+        an iteration (multiclass), through the objective's output
+        conversion unless ``raw_score``. ``num_iteration`` <= 0 (the
+        default) takes every tree, as the JAX package does; a positive value
+        takes the first ``num_iteration`` iterations, None the first
+        ``best_iteration`` (``train`` sets it: the early-stopping best, else
+        every iteration it trained)."""
         X = np.asarray(data, dtype=np.float64)
         if X.ndim != 2:
             raise LightGBMError("Input numpy.ndarray must be 2 dimensional")

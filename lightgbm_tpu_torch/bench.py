@@ -31,6 +31,12 @@ turn, each booster's training AUC, the card's name and power limit, and the
 settings. Exits 2 with the line's value 0.0 and an ``error`` when the device
 asked for is not there.
 
+The module also holds the tables of the objective cells (PERF.md section
+4): ``year_like_rows`` (regression, YearPredictionMSD's shape) and
+``covertype_like_rows`` (multiclass, Covertype's shape), with their
+training params, which chip_smoke.py's phases 4e and 4f and
+``obs/pair.py --kernel histogram_grid`` read.
+
 Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
 iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
 training is linear in rows, so 22.0 iterations/s at 1M rows (``bench.py``).
@@ -56,6 +62,62 @@ PARAMS = {
 }
 LOOPS = ("graph", "chunk", "device", "host")
 TURNS = ("graph", "chunk", "device", "host", "host", "device", "chunk", "graph")
+
+
+#: the cells of chip_smoke.py's phases 4e and 4f (PERF.md section 4)
+YEAR_ROWS, YEAR_VALID_ROWS, YEAR_FEATURES = 463_715, 51_630, 90  # UCI YearPredictionMSD splits
+YEAR_PARAMS = {"objective": "regression", "metric": "l2", "max_bin": 255, "num_leaves": 255,
+               "learning_rate": 0.1, "verbose": -1}
+COVER_ROWS, COVER_VALID_ROWS = 581_012, 100_000  # UCI Covertype
+#: Covertype's class shares (211,840 / 283,301 / 35,754 / 2,747 / 9,493 / 17,367 / 20,510)
+COVER_SHARES = (0.3646, 0.4876, 0.0615, 0.0047, 0.0163, 0.0299, 0.0353)
+COVER_PARAMS = {"objective": "multiclass", "num_class": 7, "metric": ["multi_logloss", "multi_error"],
+                "enable_bundle": False, "max_bin": 255, "num_leaves": 255, "learning_rate": 0.1,
+                "verbose": -1}
+
+
+def year_like_rows(n, seed, model_seed=11):
+    """``n`` rows shaped like YearPredictionMSD (gbm-bench's ``year``): 90
+    dense f32 columns, 12 timbre means and 78 timbre covariances (products
+    of pairs of means plus noise), and a label of about 1998 +- 10 years, a
+    smooth function of the means plus noise. The function comes from
+    ``model_seed``, the rows from ``seed``; synthetic values."""
+    import numpy as np
+
+    rng = np.random.RandomState(model_seed)
+    pairs = [rng.choice(12, 2, replace=False) for _ in range(78)]
+    w1, w2 = rng.randn(12) / np.sqrt(12), rng.randn(12) / np.sqrt(12)
+    rng = np.random.RandomState(seed)
+    X = np.empty((n, YEAR_FEATURES), np.float32)
+    X[:, :12] = rng.randn(n, 12).astype(np.float32) * 20.0
+    for j, (a, b) in enumerate(pairs, 12):
+        X[:, j] = X[:, a] * X[:, b] / 20.0 + rng.randn(n).astype(np.float32) * 5.0
+    t = X[:, :12].astype(np.float64) / 20.0
+    y = 1998.0 + 8.0 * np.tanh(t @ w1) + 5.0 * np.sin(t @ w2) + rng.randn(n) * 2.0
+    return X, y
+
+
+def covertype_like_rows(n, seed, model_seed=13):
+    """``n`` rows shaped like Covertype: 10 continuous columns, then 4
+    wilderness-area and 40 soil-type one-hot columns (44 binary columns), and
+    7 classes drawn with Covertype's skewed shares; each class moves the
+    continuous columns' means and the one-hot groups' odds (from
+    ``model_seed``). Synthetic values, rows from ``seed``."""
+    import numpy as np
+
+    rng = np.random.RandomState(model_seed)
+    mu = rng.randn(7, 10) * 0.6
+    wild = rng.dirichlet(np.ones(4) * 0.7, 7)
+    soil = rng.dirichlet(np.ones(40) * 0.3, 7)
+    rng = np.random.RandomState(seed)
+    y = rng.choice(7, n, p=np.asarray(COVER_SHARES) / sum(COVER_SHARES))
+    X = np.zeros((n, 54), np.float32)
+    X[:, :10] = (rng.randn(n, 10) * 1.5 + mu[y]).astype(np.float32)
+    for off, probs in ((10, wild), (14, soil)):
+        u = rng.rand(n, 1)
+        pick = (u > np.cumsum(probs[y], 1)).sum(1)
+        X[np.arange(n), off + np.minimum(pick, probs.shape[1] - 1)] = 1.0
+    return X, y.astype(np.float64)
 
 
 def _line(value: float, **extra) -> str:

@@ -51,6 +51,23 @@
 // the design cuts the flush, the waits on loads and the idle SMs, not the
 // count of shared adds.
 //
+// Features of few bins. A one-hot column sends most rows of a warp
+// to one cell, and the CAS loops of those lanes serialise: at 581k x 54 with
+// 44 two-bin columns the root took 1.9 ms against 0.22 ms at 1M x 28 x 255
+// bins. Such tables take the entries' grouped form (kGroup, the ``_grouped``
+// entries), which the host picks once a run from the binned table
+// (ops/hist_kernel.py grouped_adds: some feature whose two random rows share
+// a bin with a chance of at least 1/4); other tables keep the loop above,
+// which pays nothing for it. In the grouped form each warp checks once, at
+// its first step, whether at least kBusyLanes of its lanes share their bin
+// with the next lane, feature by feature; a feature that does has its adds
+// grouped for the rest of the block's rows: the lanes are grouped by bin
+// with __match_any_sync, each group of at least kGroupLanes lanes is summed
+// by a butterfly of shuffles and added by its first lane, smaller groups
+// add lane by lane. Other features keep one atomicAdd a value. Its loop over
+// rows runs while the warp's first row is in the chunk, so all 32 lanes
+// take part in every shuffle.
+//
 // Two entries share the block's work (hist_block). lgbt_histogram takes
 // its rows and grid from the host (the root, and every call of the host
 // split loop). lgbt_histogram_segment serves the device-resident split
@@ -94,12 +111,63 @@ __device__ __forceinline__ float operand(float v) {
   return kBf16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
+// The grouped form (see the header): a warp groups a feature's adds
+// (add_grouped) when at least kBusyLanes of its lanes share their bin with
+// the next lane at its first step; a group of at least kGroupLanes lanes
+// is summed before its one add. Copies of this file with other values
+// build as older sources of obs/pair.py --kernel histogram_grid: on the
+// Covertype-shaped table (an H100 SXM at 700 W) kBusyLanes 4 took the root
+// in 0.28 ms, 8 in 0.40 and 16 in 0.63, the segments alike at 4 and 8 and
+// twice as long at 16; kGroupLanes 2 and 4 alike, 8 slower (PERF.md).
+constexpr int kBusyLanes = 4;
+constexpr int kGroupLanes = 4;
+constexpr unsigned kAll = 0xffffffffu;
+
+// One warp's adds of a feature: each lane's row into cell ``bin`` of
+// ``cells`` ([B, 3]; bin == B adds nothing). The lanes are grouped by bin
+// (__match_any_sync); the values of each group of at least kGroupLanes
+// lanes are summed by a butterfly of shuffles (the other lanes adding
+// zeros) and its first lane makes the three adds (at most 32 / kGroupLanes
+// butterflies); the lanes of smaller groups add one by one. Every lane of
+// the warp must call it.
+__device__ __forceinline__ void add_grouped(float* __restrict__ cells, int bin, int B,
+                                            const float (&v)[3], int lane) {
+  const unsigned peers = __match_any_sync(kAll, bin);
+  const bool big = __popc(peers) >= kGroupLanes;
+  unsigned leaders = __ballot_sync(kAll, big && lane == __ffs(peers) - 1 && bin < B);
+  while (leaders) {
+    const int first = __ffs(leaders) - 1;
+    leaders &= leaders - 1;
+    const bool in = (__shfl_sync(kAll, peers, first) >> lane) & 1u;
+    float s0 = in ? v[0] : 0.0f, s1 = in ? v[1] : 0.0f, s2 = in ? v[2] : 0.0f;
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1) {
+      s0 += __shfl_xor_sync(kAll, s0, d);
+      s1 += __shfl_xor_sync(kAll, s1, d);
+      s2 += __shfl_xor_sync(kAll, s2, d);
+    }
+    if (lane == first) {
+      float* c = cells + bin * 3;
+      atomicAdd(c, s0);
+      atomicAdd(c + 1, s1);
+      atomicAdd(c + 2, s2);
+    }
+  }
+  if (!big && bin < B) {
+    float* c = cells + bin * 3;
+    atomicAdd(c, v[0]);
+    atomicAdd(c + 1, v[1]);
+    atomicAdd(c + 2, v[2]);
+  }
+}
+
 // The block's work, shared by both entries: feature group ``group`` over
 // rows [chunk * rows_per_block, +rows_per_block) of the n rows (rows[i], or
 // i when rows is null). ``owns``: the block is its group's only chunk, so
 // it stores every cell of the group instead of adding into the output.
 // kWord: the kG bins of a row are one aligned 32-bit word (see the header).
-template <bool kBf16, bool kWord>
+// kGroup: the grouped form for features of few bins (see the header).
+template <bool kBf16, bool kWord, bool kGroup>
 __device__ __forceinline__ void hist_block(
     const uint8_t* __restrict__ bins, long long stride_f, long long stride_n,
     const float* __restrict__ values, const int* __restrict__ rows, long long n, int F, int B,
@@ -113,7 +181,15 @@ __device__ __forceinline__ void hist_block(
   const long long begin = chunk * rows_per_block;
   const long long end = min(begin + rows_per_block, n);
   const uint8_t* bg = bins + (long long)f0 * stride_f;
-  for (long long base = begin + threadIdx.x; base < end; base += kStep) {
+  const int lane = threadIdx.x & 31;
+  bool grouped[kG] = {};  // per feature, set at the warp's first step (see kBusyLanes)
+  bool first_step = kGroup;
+  // grouped, the loop runs while the warp's first row is in the chunk, so
+  // every lane of a warp takes every step (the grouped adds shuffle across
+  // lanes); ok[] masks each lane's rows past the chunk
+  const long long start = begin + (kGroup ? (threadIdx.x & ~31) : threadIdx.x);
+  for (long long wbase = start; wbase < end; wbase += kStep) {
+    const long long base = kGroup ? wbase + lane : wbase;
     bool ok[kRows];
     long long r[kRows];
 #pragma unroll
@@ -139,11 +215,21 @@ __device__ __forceinline__ void hist_block(
         for (int g = 0; g < kG; ++g) b[j][g] = ok[j] && g < nf ? (int)bp[g * stride_f] : B;
       }
     }
+    if (kGroup && first_step) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+        const bool same = b[0][g] == __shfl_down_sync(kAll, b[0][g], 1) && lane < 31;
+        grouped[g] = g < nf && __popc(__ballot_sync(kAll, same)) >= kBusyLanes;
+      }
+      first_step = false;
+    }
 #pragma unroll
     for (int j = 0; j < kRows; ++j) {
 #pragma unroll
       for (int g = 0; g < kG; ++g) {
-        if (b[j][g] < B) {
+        if (kGroup && grouped[g]) {
+          add_grouped(cells + g * B * 3, b[j][g], B, v[j], lane);
+        } else if (b[j][g] < B) {
           float* c = cells + (g * B + b[j][g]) * 3;
           atomicAdd(c, v[j][0]);
           atomicAdd(c + 1, v[j][1]);
@@ -166,15 +252,15 @@ __device__ __forceinline__ void hist_block(
   }
 }
 
-template <bool kBf16, bool kWord>
+template <bool kBf16, bool kWord, bool kGroup>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
             long long stride_n, const float* __restrict__ values,
             const int* __restrict__ rows, long long n, int F, int B,
             long long rows_per_block, int groups, float* __restrict__ out) {
-  hist_block<kBf16, kWord>(bins, stride_f, stride_n, values, rows, n, F, B, rows_per_block,
-                           blockIdx.x % groups, blockIdx.x / groups,
-                           gridDim.x == (unsigned)groups, out);
+  hist_block<kBf16, kWord, kGroup>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                   rows_per_block, blockIdx.x % groups, blockIdx.x / groups,
+                                   gridDim.x == (unsigned)groups, out);
 }
 
 // The segment entry of the device-resident split loop: the rows are
@@ -185,7 +271,7 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
 // segment's chunks return at once, and so does every block once the loop
 // has stopped (ctl[kActive] == 0). One chunk stores its group's cells
 // outright; more add into ``out``, which the caller keeps zeroed.
-template <bool kBf16, bool kWord>
+template <bool kBf16, bool kWord, bool kGroup>
 __global__ void __launch_bounds__(kThreads)
 hist_segment_kernel(const uint8_t* __restrict__ bins, long long stride_f,
                     long long stride_n, const float* __restrict__ values,
@@ -202,12 +288,55 @@ hist_segment_kernel(const uint8_t* __restrict__ bins, long long stride_f,
   const long long chunks = (n + rows_per_block - 1) / rows_per_block;
   const long long chunk = blockIdx.x / groups;
   if (chunk >= chunks) return;
-  hist_block<kBf16, kWord>(bins, stride_f, stride_n, values, order + leaf_begin[leaf], n, F,
-                           B, rows_per_block, blockIdx.x % groups, chunk, chunks == 1, out);
+  hist_block<kBf16, kWord, kGroup>(bins, stride_f, stride_n, values, order + leaf_begin[leaf],
+                                   n, F, B, rows_per_block, blockIdx.x % groups, chunk,
+                                   chunks == 1, out);
 }
 
-template <bool kBf16, bool kWord>
-using Seg = decltype(&hist_segment_kernel<kBf16, kWord>);
+bool word_bins(const void* bins, long long stride_f, long long stride_n, int F) {
+  return stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 && ((uintptr_t)bins & 3) == 0;
+}
+
+template <bool kGroup>
+int launch_histogram(const void* bins, long long stride_f, long long stride_n,
+                     const void* values, const void* rows, long long n, int F, int B, int bf16,
+                     long long rows_per_block, void* out, void* stream) {
+  if (n <= 0 || F <= 0) return (int)cudaSuccess;
+  if (B < 1 || B > kMaxBins || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  const long long groups = (F + kG - 1) / kG;
+  const long long chunks = (n + rows_per_block - 1) / rows_per_block;
+  if (groups * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool word = word_bins(bins, stride_f, stride_n, F);
+  decltype(&hist_kernel<false, false, kGroup>) kern =
+      bf16 ? (word ? &hist_kernel<true, true, kGroup> : &hist_kernel<true, false, kGroup>)
+           : (word ? &hist_kernel<false, true, kGroup> : &hist_kernel<false, false, kGroup>);
+  kern<<<(unsigned)(groups * chunks), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
+      (const int*)rows, n, F, B, rows_per_block, (int)groups, (float*)out);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGroup>
+int launch_segment(const void* bins, long long stride_f, long long stride_n,
+                   const void* values, const void* order, const void* ctl,
+                   const void* leaf_begin, const void* leaf_count, int F, int B, int bf16,
+                   int num_sms, int max_chunks, void* out, void* stream) {
+  if (F <= 0) return (int)cudaSuccess;
+  if (B < 1 || B > kMaxBins || num_sms < 1 || max_chunks < 1) return (int)cudaErrorInvalidValue;
+  const long long groups = (F + kG - 1) / kG;
+  if (groups * max_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool word = word_bins(bins, stride_f, stride_n, F);
+  decltype(&hist_segment_kernel<false, false, kGroup>) kern =
+      bf16 ? (word ? &hist_segment_kernel<true, true, kGroup>
+                   : &hist_segment_kernel<true, false, kGroup>)
+           : (word ? &hist_segment_kernel<false, true, kGroup>
+                   : &hist_segment_kernel<false, false, kGroup>);
+  kern<<<(unsigned)(groups * max_chunks), kThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)bins, stride_f, stride_n, (const float*)values, (const int*)order,
+      (const int*)ctl, (const int*)leaf_begin, (const int*)leaf_count, F, B, (int)groups,
+      num_sms, (float*)out);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -224,20 +353,18 @@ int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
                    const void* values, const void* rows, long long n, int F,
                    int B, int bf16, long long rows_per_block, void* out,
                    void* stream) {
-  if (n <= 0 || F <= 0) return (int)cudaSuccess;
-  if (B < 1 || B > kMaxBins || rows_per_block < 1) return (int)cudaErrorInvalidValue;
-  const long long groups = (F + kG - 1) / kG;
-  const long long chunks = (n + rows_per_block - 1) / rows_per_block;
-  if (groups * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool word = stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 &&
-                    ((uintptr_t)bins & 3) == 0;
-  decltype(&hist_kernel<false, false>) kern =
-      bf16 ? (word ? &hist_kernel<true, true> : &hist_kernel<true, false>)
-           : (word ? &hist_kernel<false, true> : &hist_kernel<false, false>);
-  kern<<<(unsigned)(groups * chunks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
-      (const int*)rows, n, F, B, rows_per_block, (int)groups, (float*)out);
-  return (int)cudaGetLastError();
+  return launch_histogram<false>(bins, stride_f, stride_n, values, rows, n, F, B, bf16,
+                                 rows_per_block, out, stream);
+}
+
+// lgbt_histogram's grouped form, for tables with features of few bins (see
+// the header); the same arguments and output.
+int lgbt_histogram_grouped(const void* bins, long long stride_f, long long stride_n,
+                           const void* values, const void* rows, long long n, int F,
+                           int B, int bf16, long long rows_per_block, void* out,
+                           void* stream) {
+  return launch_histogram<true>(bins, stride_f, stride_n, values, rows, n, F, B, bf16,
+                                rows_per_block, out, stream);
 }
 
 // The segment entry (hist_segment_kernel): out [F, B, 3], zeroed by the
@@ -250,20 +377,18 @@ int lgbt_histogram_segment(const void* bins, long long stride_f, long long strid
                            const void* values, const void* order, const void* ctl,
                            const void* leaf_begin, const void* leaf_count, int F, int B,
                            int bf16, int num_sms, int max_chunks, void* out, void* stream) {
-  if (F <= 0) return (int)cudaSuccess;
-  if (B < 1 || B > kMaxBins || num_sms < 1 || max_chunks < 1) return (int)cudaErrorInvalidValue;
-  const long long groups = (F + kG - 1) / kG;
-  if (groups * max_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool word = stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 &&
-                    ((uintptr_t)bins & 3) == 0;
-  Seg<false, false> kern =
-      bf16 ? (word ? &hist_segment_kernel<true, true> : &hist_segment_kernel<true, false>)
-           : (word ? &hist_segment_kernel<false, true> : &hist_segment_kernel<false, false>);
-  kern<<<(unsigned)(groups * max_chunks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, stride_f, stride_n, (const float*)values, (const int*)order,
-      (const int*)ctl, (const int*)leaf_begin, (const int*)leaf_count, F, B, (int)groups,
-      num_sms, (float*)out);
-  return (int)cudaGetLastError();
+  return launch_segment<false>(bins, stride_f, stride_n, values, order, ctl, leaf_begin,
+                               leaf_count, F, B, bf16, num_sms, max_chunks, out, stream);
+}
+
+// lgbt_histogram_segment's grouped form; the same arguments and output.
+int lgbt_histogram_segment_grouped(const void* bins, long long stride_f, long long stride_n,
+                                   const void* values, const void* order, const void* ctl,
+                                   const void* leaf_begin, const void* leaf_count, int F,
+                                   int B, int bf16, int num_sms, int max_chunks, void* out,
+                                   void* stream) {
+  return launch_segment<true>(bins, stride_f, stride_n, values, order, ctl, leaf_begin,
+                              leaf_count, F, B, bf16, num_sms, max_chunks, out, stream);
 }
 
 }  // extern "C"

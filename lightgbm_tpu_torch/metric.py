@@ -1,12 +1,16 @@
-"""Evaluation metrics: AUC, binary log-loss and binary error.
+"""Evaluation metrics.
 
-Copies of lightgbm_tpu/metric.py's ``AUCMetric``, ``BinaryLoglossMetric``
-and ``BinaryErrorMetric``: host-side numpy in double precision over the raw
-scores, with the objective's link applied inside the metric, so values, and
-the early-stopping decisions made on them, agree with the JAX package's.
-Each instance is initialised on the metadata of the set it evaluates (the
-training set or one validation set). Other metrics are not ported yet and
-raise.
+Copies of lightgbm_tpu/metric.py's pointwise and classification metrics:
+the ``_AverageLossMetric`` family (l2, rmse, l1, quantile, huber, fair,
+poisson, gamma, gamma-deviance, tweedie, mape, binary log-loss and error),
+AUC, ``multi_logloss``, ``multi_error``, ``xentropy``, ``xentlambda`` and
+``kldiv``, under the JAX package's names and aliases. Host-side numpy in
+double precision over the raw scores (``[N]``, or ``[K, N]`` for the multi
+metrics), with the objective's link applied inside the metric, so values,
+and the early-stopping decisions made on them, agree with the JAX
+package's. Each instance is initialised on the metadata of the set it
+evaluates (the training set or one validation set). The ranking metrics
+(ndcg, map) are not ported and raise.
 """
 from __future__ import annotations
 
@@ -39,35 +43,134 @@ class Metric:
     def eval(self, score: np.ndarray, objective: Optional[ObjectiveFunction]):
         raise NotImplementedError
 
+    def _mean(self, losses: np.ndarray) -> float:
+        if self.weight is not None:
+            return float(np.sum(losses * self.weight) / self.sum_weights)
+        return float(np.mean(losses))
 
-class BinaryLoglossMetric(Metric):
+
+class _AverageLossMetric(Metric):
+    """Shared shape of regression_metric.hpp: weighted mean of a pointwise loss."""
+
+    def point_loss(self, score: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        if objective is not None:
+            s = objective.convert_output(s)
+        return [(self.names[0], self.finalize(self._mean(self.point_loss(s))), self.bigger_is_better)]
+
+    def finalize(self, v: float) -> float:
+        return v
+
+
+class L2Metric(_AverageLossMetric):
+    names = ["l2"]
+
+    def point_loss(self, s):
+        return (s - self.label) ** 2
+
+
+class RMSEMetric(L2Metric):
+    names = ["rmse"]
+
+    def finalize(self, v):
+        return float(np.sqrt(v))
+
+
+class L1Metric(_AverageLossMetric):
+    names = ["l1"]
+
+    def point_loss(self, s):
+        return np.abs(s - self.label)
+
+
+class QuantileMetric(_AverageLossMetric):
+    names = ["quantile"]
+
+    def point_loss(self, s):
+        alpha = self.config.alpha
+        d = self.label - s
+        return np.where(d >= 0, alpha * d, (alpha - 1.0) * d)
+
+
+class HuberLossMetric(_AverageLossMetric):
+    names = ["huber"]
+
+    def point_loss(self, s):
+        alpha = self.config.alpha
+        d = np.abs(s - self.label)
+        return np.where(d <= alpha, 0.5 * d * d, alpha * (d - 0.5 * alpha))
+
+
+class FairLossMetric(_AverageLossMetric):
+    names = ["fair"]
+
+    def point_loss(self, s):
+        c = self.config.fair_c
+        x = np.abs(s - self.label)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_AverageLossMetric):
+    names = ["poisson"]
+
+    def point_loss(self, s):
+        s = np.maximum(s, 1e-10)
+        return s - self.label * np.log(s)
+
+
+class GammaMetric(_AverageLossMetric):
+    names = ["gamma"]
+
+    def point_loss(self, s):
+        s = np.maximum(s, 1e-10)
+        # -log(likelihood) with shape k=1: x/theta + log(theta), theta=s, x=label
+        return self.label / s + np.log(s)
+
+
+class GammaDevianceMetric(_AverageLossMetric):
+    names = ["gamma-deviance"]
+
+    def point_loss(self, s):
+        s = np.maximum(s, 1e-10)
+        r = self.label / s
+        return 2.0 * (np.log(np.maximum(1e-300, 1.0 / np.maximum(r, 1e-300))) + r - 1.0)
+
+
+class TweedieMetric(_AverageLossMetric):
+    names = ["tweedie"]
+
+    def point_loss(self, s):
+        rho = self.config.tweedie_variance_power
+        s = np.maximum(s, 1e-10)
+        a = self.label * np.power(s, 1.0 - rho) / (1.0 - rho)
+        b = np.power(s, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
+class MAPEMetric(_AverageLossMetric):
+    names = ["mape"]
+
+    def point_loss(self, s):
+        return np.abs((self.label - s)) / np.maximum(1.0, np.abs(self.label))
+
+
+class BinaryLoglossMetric(_AverageLossMetric):
     names = ["binary_logloss"]
 
-    def eval(self, score, objective):
-        s = np.asarray(score, np.float64)
-        prob = objective.convert_output(s) if objective is not None else s
+    def point_loss(self, prob):
         p = np.clip(prob, 1e-15, 1.0 - 1e-15)
         is_pos = (self.label > 0).astype(np.float64)
-        losses = -is_pos * np.log(p) - (1.0 - is_pos) * np.log(1.0 - p)
-        if self.weight is not None:
-            val = float(np.sum(losses * self.weight) / self.sum_weights)
-        else:
-            val = float(np.mean(losses))
-        return [(self.names[0], val, self.bigger_is_better)]
+        return -is_pos * np.log(p) - (1.0 - is_pos) * np.log(1.0 - p)
 
 
-class BinaryErrorMetric(Metric):
+class BinaryErrorMetric(_AverageLossMetric):
     names = ["binary_error"]
 
-    def eval(self, score, objective):
-        s = np.asarray(score, np.float64)
-        prob = objective.convert_output(s) if objective is not None else s
-        losses = ((prob > 0.5) != (self.label > 0)).astype(np.float64)
-        if self.weight is not None:
-            val = float(np.sum(losses * self.weight) / self.sum_weights)
-        else:
-            val = float(np.mean(losses))
-        return [(self.names[0], val, self.bigger_is_better)]
+    def point_loss(self, prob):
+        return ((prob > 0.5) != (self.label > 0)).astype(np.float64)
 
 
 class AUCMetric(Metric):
@@ -100,11 +203,98 @@ class AUCMetric(Metric):
         return [("auc", 1.0, True)]
 
 
+class MultiLoglossMetric(Metric):
+    names = ["multi_logloss"]
+
+    def eval(self, score, objective):
+        # score [K, N] raw -> converted per row
+        K, N = score.shape
+        probs = objective.convert_output(np.asarray(score, np.float64).T) if objective else score.T
+        p = np.clip(probs[np.arange(N), self.label.astype(np.int64)], 1e-15, None)
+        return [("multi_logloss", self._mean(-np.log(p)), False)]
+
+
+class MultiErrorMetric(Metric):
+    names = ["multi_error"]
+
+    def eval(self, score, objective):
+        pred = np.argmax(np.asarray(score), axis=0)
+        err = (pred != self.label.astype(np.int64)).astype(np.float64)
+        return [("multi_error", self._mean(err), False)]
+
+
+class CrossEntropyMetric(_AverageLossMetric):
+    names = ["xentropy"]
+
+    def point_loss(self, p):
+        p = np.clip(p, 1e-15, 1 - 1e-15)
+        y = self.label
+        return -y * np.log(p) - (1 - y) * np.log(1 - p)
+
+
+class CrossEntropyLambdaMetric(Metric):
+    names = ["xentlambda"]
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        # hhat = log1p(exp(score)); loss per xentropy_metric.hpp (lambda parameterization)
+        hhat = np.log1p(np.exp(s))
+        w = np.ones(self.num_data) if self.weight is None else self.weight
+        z = np.clip(1.0 - np.exp(-w * hhat), 1e-15, 1 - 1e-15)
+        y = self.label
+        losses = -y * np.log(z) - (1 - y) * np.log(1 - z)
+        return [("xentlambda", float(np.mean(losses)), False)]
+
+
+class KLDivMetric(Metric):
+    names = ["kldiv"]
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        p = np.clip(1.0 / (1.0 + np.exp(-s)), 1e-15, 1 - 1e-15)
+        y = np.clip(self.label, 1e-15, 1 - 1e-15)
+        losses = y * np.log(y / p) + (1 - y) * np.log((1 - y) / (1 - p))
+        w = np.ones(self.num_data) if self.weight is None else self.weight
+        return [("kldiv", float(np.sum(losses * w) / self.sum_weights), False)]
+
+
 _METRICS = {
+    "l2": L2Metric,
+    "mean_squared_error": L2Metric,
+    "mse": L2Metric,
+    "regression": L2Metric,
+    "rmse": RMSEMetric,
+    "root_mean_squared_error": RMSEMetric,
+    "l2_root": RMSEMetric,
+    "l1": L1Metric,
+    "mean_absolute_error": L1Metric,
+    "mae": L1Metric,
+    "regression_l1": L1Metric,
+    "quantile": QuantileMetric,
+    "huber": HuberLossMetric,
+    "fair": FairLossMetric,
+    "poisson": PoissonMetric,
+    "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric,
+    "gamma-deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
+    "mape": MAPEMetric,
+    "mean_absolute_percentage_error": MAPEMetric,
     "binary_logloss": BinaryLoglossMetric,
     "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "multi_logloss": MultiLoglossMetric,
+    "multiclass": MultiLoglossMetric,
+    "softmax": MultiLoglossMetric,
+    "multiclassova": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+    "xentropy": CrossEntropyMetric,
+    "cross_entropy": CrossEntropyMetric,
+    "xentlambda": CrossEntropyLambdaMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "kldiv": KLDivMetric,
+    "kullback_leibler": KLDivMetric,
 }
 
 
@@ -112,6 +302,7 @@ def create_metric(name: str, config: Config) -> Metric:
     cls = _METRICS.get(name)
     if cls is None:
         raise NotImplementedError(
-            "metric=%s is not ported yet; only auc, binary_logloss and binary_error are" % name
+            "metric=%s is not ported to lightgbm_tpu_torch yet (the ranking metrics ndcg and map "
+            "wait for lambdarank)" % name
         )
     return cls(config)

@@ -1,7 +1,9 @@
 """GBDT boosting loop (gbdt.cpp) for the PyTorch port.
 
 Counterpart of lightgbm_tpu/models/gbdt.py for one slice of it: the serial
-learner, binary objective, row bagging and feature_fraction, validation sets,
+learner, the objectives of objective.py (K = ``num_model_per_iteration``
+trees an iteration: one, or one a class for multiclass and
+multiclassova), row bagging and feature_fraction, validation sets,
 rollback, f32 or bf16 histogram
 operands (``tpu_hist_dtype``), and measured histogram routing: the tune
 table named by ``hist_tune`` or LIGHTGBM_TPU_HIST_TUNE is frozen once at
@@ -11,34 +13,39 @@ chosen once at set-up too (``grow_loop``): the device-resident loop
 to ``cuda``, which it always does on CUDA without a table
 (``device_loop_routable``); else the host loop (``grow_tree``), which
 routes each call. Per iteration: the
-boost-from-average init score on the first one (gbdt.cpp:308-331),
-objective gradients at the current scores, one grown tree
-(ops/grow.py), shrinkage, and the score update through the per-row leaf
-index (score_updater.hpp:80). Scores live on the training device as
-``[1, N]`` f32; trees stay as host TreeArrays until they are materialised
-into model Trees for text output or prediction.
+boost-from-average init score of each class on the first one
+(gbdt.cpp:308-331), objective gradients of every class at the current
+scores, then for each class that trains (``class_need_train``) one grown
+tree (ops/grow.py), shrinkage, and the score update of its class through
+the per-row leaf index (score_updater.hpp:80). Scores live on the training
+device as ``[K, N]`` f32; trees stay as host TreeArrays until they are
+materialised into model Trees for text output or prediction, K an
+iteration in class order.
 
 On the device loop the whole iteration is queued with nothing read back
-(``_device_iteration``: gradients, tree, shrinkage and score update on the
-device, the packed tree copied into a ring row). On CUDA it is captured
-once as a CUDA graph (ops/cuda_graph.py) and each later iteration is one
-replay; ``train_chunk(n)`` (``device_chunk_size`` = n, the reference's
-device-resident chunked boosting) queues n replays and reads the n trees
-back with one copy, bit for bit the trees and scores of n single
-iterations.
+(``_device_iteration``: the gradients, then each class's tree, shrinkage
+and score update on the device, its packed tree copied into a ring row).
+On CUDA it is captured once as a CUDA graph (ops/cuda_graph.py) and each
+later iteration is one replay; ``train_chunk(n)`` (``device_chunk_size``
+= n, the reference's device-resident chunked boosting) queues n replays
+and reads the n·K trees back with one copy, bit for bit the trees and
+scores of n single iterations. An iteration in which no class split stops
+training.
 
-Validation sets (``add_valid``) keep a ``[1, Nv]`` f32 score on the device
-and an ``[Nv, F]`` copy of their bins; each tree is added to them by the
-bin-space predict kernel (ops/predict_kernel.py, csrc/predict_bins.cu)
-inside the device iteration, reading the tree from the split loop's state,
-so the captured graph and every replay of a chunk carry them. The learning
-rate is a device scalar the iteration reads, so a per-iteration schedule
-(``reset_parameter``) replays the same graph. The bag (``bagging_fraction``
-/ ``bagging_freq``) is a function of (``bagging_seed``, iteration) alone
-(:func:`draw_bag`), drawn on the device between replays into the buffer
-the iteration reads; feature_fraction masks are drawn on the host with the
-JAX package's generator and order, a chunk's at once, uploaded in one copy
-and read by the iteration at its ring slot.
+Validation sets (``add_valid``) keep a ``[K, Nv]`` f32 score on the device
+and an ``[Nv, F]`` copy of their bins; each tree is added to its class's
+row by the bin-space predict kernel (ops/predict_kernel.py,
+csrc/predict_bins.cu) inside the device iteration, reading the tree from
+the split loop's state, so the captured graph and every replay of a chunk
+carry them. The learning rate is a device scalar the iteration reads, so a
+per-iteration schedule (``reset_parameter``) replays the same graph. The
+bag (``bagging_fraction`` / ``bagging_freq``) is the JAX package's draw, a
+function of (``bagging_seed``, iteration) alone (:func:`draw_bag`), drawn
+on the device between replays into the buffer the iteration reads, the
+same for every class; feature_fraction masks are drawn on the host with
+the JAX package's generator and order (iteration-major, class-minor), a
+chunk's at once, uploaded in one copy and read by each tree at its ring
+slot.
 
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
@@ -67,45 +74,54 @@ from .tree import Tree
 
 K_EPSILON = 1e-15
 _M32 = 0xFFFFFFFF
+#: threefry2x32's rotations, alternating by group of four rounds
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _mul32(x, c: int):
-    """``x * c mod 2**32`` for x in [0, 2**32) (an int64 tensor or a Python
-    int) and a 32-bit constant, in pieces whose products stay below 2**63:
-    exact and the same on every device."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x):
-    """A bijection of [0, 2**32) that mixes its bits (xorshift-multiply,
-    the ``lowbias32`` constants)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 hash of 20 rounds (jax/_src/prng.py
+    ``_threefry2x32_lowering``) of the count words (``x0``, ``x1``) under
+    the key (``k0``, ``k1``). Every word is a uint32 value held in an int64
+    tensor or a Python int, masked to 32 bits after each add and shift, so
+    the bits are exact and the same on every device."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
 
 
 def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The bag of one iteration: an [n] f32 mask with exactly ``bag_cnt``
-    ones, a function of (``seed``, ``iteration``) alone (gbdt.cpp:179-240
-    as a mask; the reference's ``fold_in(seed, iteration)`` property, so a
-    chunk of n draws the bags of n single iterations). Each row's key is a
-    32-bit hash of (seed, iteration, row), computed with int64 ops that are
-    exact on every device; the keys of the rows are distinct (the hash is a
-    bijection of the row), and the bag is the ``bag_cnt`` rows with the
-    smallest. The JAX package draws with threefry's permutation, whose bits
-    this does not reproduce. Written into ``out`` when given."""
-    base = _mix32(_mix32(seed & _M32) ^ (iteration & _M32))
-    base2 = _mix32(base ^ 0x9E3779B9)
-    rows = torch.arange(n, dtype=torch.int64, device=device)
-    keys = _mix32(_mix32(rows ^ base) ^ base2)
-    chosen = torch.argsort(keys)[:bag_cnt]
+    ones (gbdt.cpp:179-240 as a mask), bit for bit the JAX package's
+    ``_device_bag_mask(fold_in(PRNGKey(seed & 0x7FFFFFFF), iteration), n,
+    bag_cnt)``: the first ``bag_cnt`` rows of ``jax.random.permutation``
+    under partitionable threefry. The key is (0, seed); ``fold_in`` hashes
+    the count (0, iteration) under it; each of the ``ceil(3 ln n / ln(2^32
+    - 1))`` shuffle rounds splits the key (counts (0, 0) and (0, 1)), draws
+    the 32-bit word ``x0 ^ x1`` of the count (0, i) for each position i, and
+    sorts the order so far by those words, stably. The key's words are
+    Python ints, the rows' words int64 tensors on ``device``. A function of
+    (``seed``, ``iteration``) alone, so a chunk of n draws the bags of n
+    single iterations. Written into ``out`` when given."""
+    key = threefry2x32(0, seed & 0x7FFFFFFF, 0, iteration & _M32)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    count = torch.arange(n, dtype=torch.int64, device=device)
+    perm = count
+    for _ in range(rounds):
+        key, sub = threefry2x32(*key, 0, 0), threefry2x32(*key, 0, 1)
+        b0, b1 = threefry2x32(*sub, 0, count)
+        perm = perm[torch.sort(b0 ^ b1, stable=True).indices]
     if out is None:
         out = torch.empty(n, dtype=torch.float32, device=device)
     out.zero_()
-    return out.index_fill_(0, chosen, 1.0)
+    return out.index_fill_(0, perm[:bag_cnt], 1.0)
 
 
 def check_supported(config: Config) -> None:
@@ -113,8 +129,6 @@ def check_supported(config: Config) -> None:
     refused = []
     if config.boosting != "gbdt":
         refused.append("boosting=%s" % config.boosting)
-    if config.objective != "binary":
-        refused.append("objective=%s" % config.objective)
     if config.categorical_feature:
         refused.append("categorical_feature")
     if config.forcedsplits_filename:
@@ -176,7 +190,8 @@ class GBDT:
         self.models: List[Optional[Tree]] = []  # host trees, materialised lazily
         self._tree_arrays: List[Optional[TreeArrays]] = []
         self.num_class = config.num_class
-        self.num_tree_per_iteration = 1
+        self.num_tree_per_iteration = (
+            objective.num_model_per_iteration if objective is not None else config.num_class)
         self.shrinkage_rate = config.learning_rate
         self.max_feature_idx = 0
         self.label_idx = 0
@@ -184,11 +199,12 @@ class GBDT:
         self._stopped = False
         self.valid_metrics: List[List[Metric]] = []
         self.valid_names: List[str] = []
-        self.valid_scores: List[torch.Tensor] = []  # [1, Nv] f32 each, on the device
+        self.valid_scores: List[torch.Tensor] = []  # [K, Nv] f32 each, on the device
         self._valid_bins: List[torch.Tensor] = []  # [Nv, F] uint8 each, on the device
-        #: the boost-from-average score: in the scores, folded into the first
-        #: tree's leaf values only when that tree is materialised
-        self._init_fold = 0.0
+        #: each class's boost-from-average score: in the scores, folded into
+        #: the class's first tree's leaf values only when that tree is
+        #: materialised
+        self._init_fold = [0.0] * self.num_tree_per_iteration
         self._init_readded = False  # a first iteration that did not split re-added it
         if train_set is not None:
             self._setup_train(train_set)
@@ -199,6 +215,7 @@ class GBDT:
         check_supported(cfg)
         check_dataset_supported(train_set)
         dev = self.device
+        K = self.num_tree_per_iteration
         self.num_data = train_set.num_data
         self.max_feature_idx = train_set.num_total_features - 1
         bins = np.ascontiguousarray(train_set.bins, dtype=np.uint8)
@@ -215,6 +232,9 @@ class GBDT:
             np.any((meta["missing_type"] != 0) & (meta["num_bin"] > 2))
         )
         self.num_bins = int(train_set.max_num_bin)
+        #: the histogram kernel's grouped form, for tables with features
+        #: whose rows crowd into few bins (one-hot columns)
+        self.grouped_adds = hist_kernel.grouped_adds(bins)
         # [ceil(N/2), F] nibble-packed copy that cuda_packed4 reads by row
         # (N * F / 2 bytes), made once here rather than on every call
         self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.num_bins <= 16 else None
@@ -249,17 +269,26 @@ class GBDT:
         self._feature_masks_host = None  # their pinned staging copy (CUDA)
         self._masked = False  # a mask was drawn: feature_mask may hold zeros
         self.split_params = split_params(cfg)
-        init = train_set.metadata.init_score
-        self._has_init_score = init is not None
-        if init is not None:
-            arr = np.asarray(init, np.float64).reshape(1, self.num_data)
-            self.scores = torch.as_tensor(arr, dtype=torch.float32, device=dev)
-        else:
-            self.scores = torch.zeros((1, self.num_data), dtype=torch.float32, device=dev)
+        self._has_init_score = train_set.metadata.init_score is not None
+        self.scores = self._initial_scores(train_set.metadata.init_score, self.num_data)
         if self.objective is not None:
             self.objective.init(train_set.metadata, self.num_data, dev)
+        #: the classes that grow trees (class_need_train); an untrained
+        #: class keeps a constant tree
+        self._train_classes = [k for k in range(K)
+                               if self.objective is None or self.objective.class_need_train(k)]
         for m in self.training_metrics:
             m.init(train_set.metadata, self.num_data)
+
+    def _initial_scores(self, init, n: int) -> torch.Tensor:
+        """[K, n] f32 scores: the init score (n values, the same for each
+        class, or K·n class-major), else zeros."""
+        K = self.num_tree_per_iteration
+        if init is None:
+            return torch.zeros((K, n), dtype=torch.float32, device=self.device)
+        arr = np.asarray(init, np.float64).reshape(-1)
+        arr = np.tile(arr, (K, 1)) if len(arr) == n else arr.reshape(K, n)
+        return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
 
     def _resolve_hist_route(self) -> Optional[hist_kernel.HistRoute]:
         """Load and freeze the measured histogram routing table of this run:
@@ -274,23 +303,23 @@ class GBDT:
         return hist_kernel.resolve_route(table, self.device, source=src)
 
     # ------------------------------------------------------------------
-    def _boost_from_average(self) -> float:
-        """gbdt.cpp:308-331."""
+    def _boost_from_average(self, class_id: int) -> float:
+        """gbdt.cpp:308-331, for one class."""
         if self.models or self._has_init_score or self.objective is None:
             return 0.0
         if self.config.boost_from_average or self.train_set.num_features == 0:
-            init_score = self.objective.boost_from_score(0)
+            init_score = self.objective.boost_from_score(class_id)
             if abs(init_score) > K_EPSILON:
-                self._add_constant(init_score)
+                self._add_constant(init_score, class_id)
                 log.info("Start training from score %f" % init_score)
                 return init_score
         return 0.0
 
-    def _add_constant(self, value: float) -> None:
-        """Add ``value`` (as f32) to the training and every validation score."""
-        self.scores += np.float32(value)
+    def _add_constant(self, value: float, class_id: int) -> None:
+        """Add ``value`` (as f32) to the class's training and validation scores."""
+        self.scores[class_id] += np.float32(value)
         for score in self.valid_scores:
-            score += np.float32(value)
+            score[class_id] += np.float32(value)
 
     # ------------------------------------------------------------------
     # row bagging and feature_fraction
@@ -316,25 +345,30 @@ class GBDT:
             self._bag_iter = want
 
     def _sample_feature_masks(self, n: int) -> Optional[np.ndarray]:
-        """The next ``n`` iterations' feature_fraction masks, [n, F] bool,
-        drawn as the JAX package draws them (``_sample_features`` /
-        ``_sample_feature_masks``: ``choice(F, k, replace=False)`` of one
-        ``RandomState(feature_fraction_seed)`` an iteration, in order); None
-        without feature_fraction."""
+        """The feature_fraction masks of the next ``n`` iterations' trees,
+        ``[n * T, F]`` bool for T trained classes, drawn as the JAX package
+        draws them (``_sample_features`` / ``_sample_feature_masks``:
+        ``choice(F, k, replace=False)`` of one ``RandomState(
+        feature_fraction_seed)`` a tree, iteration-major and class-minor);
+        None without feature_fraction."""
         cfg = self.config
         if cfg.feature_fraction >= 1.0:
             return None
         F = self.train_set.num_features
         k = max(1, int(cfg.feature_fraction * F))
-        masks = np.zeros((n, F), bool)
-        for i in range(n):
+        masks = np.zeros((n * len(self._train_classes), F), bool)
+        for i in range(masks.shape[0]):
             masks[i, self._feat_rng.choice(F, size=k, replace=False)] = True
         self._masked = True
         return masks
 
     def _compute_gradients(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Boosting() (gbdt.cpp:148): objective gradients at the current scores."""
-        return self.objective.get_gradients(self.scores[0])
+        """Boosting() (gbdt.cpp:148): objective gradients and hessians of
+        every class at the current scores, [K, N] each."""
+        if self.num_tree_per_iteration > 1:
+            return self.objective.get_gradients(self.scores)
+        grad, hess = self.objective.get_gradients(self.scores[0])
+        return grad[None], hess[None]
 
     def _train_tree(self, grad: torch.Tensor, hess: torch.Tensor):
         """One tree of the host split loop and each row's leaf."""
@@ -345,7 +379,7 @@ class GBDT:
             num_bins=self.num_bins, params=self.split_params,
             two_way=self._two_way, bins_nf=self.bins_nf,
             route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype, bins_packed=self.bins_p4,
-            bag=self._bag,
+            bag=self._bag, grouped=self.grouped_adds,
         )
 
     def _set_rate(self) -> None:
@@ -379,7 +413,8 @@ class GBDT:
             s = self._grow_state = grow_state.GrowState(
                 self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves)
         if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
-            shape = (max(rows, cfg.device_chunk_size, 1), s.packed.numel())
+            chunk_rows = cfg.device_chunk_size * len(self._train_classes)
+            shape = (max(rows, chunk_rows, 1), s.packed.numel())
             self._ring = torch.zeros(shape, dtype=torch.int32, device=self.device)
             if self.device.type == "cuda":
                 self._ring_host = torch.empty(shape, dtype=torch.int32, pin_memory=True)
@@ -393,36 +428,41 @@ class GBDT:
 
     def _device_iteration(self) -> None:
         """Queue one boosting iteration on the device loop, reading nothing
-        back: the gradients at the current scores, the tree
-        (ops/grow.py ``launch_tree``), the shrinkage and the score update on
-        the device (each row's leaf value added from the loop's segment
-        layout, ops/grow_step_kernel.py ``score_update``), the tree copied
-        into the ring's next row. The reference's chunked scan body
-        (``_chunk_fn``, ``_finish_step``): a tree that did not split, and
-        every tree after one in the chunk (``_chunk_stopped``), adds exact
-        zeros; the score update is a plain f32 add, never a multiply-add.
-        With feature_fraction the iteration first copies its mask out of the
-        chunk's masks at its ring slot; with bagging it reads the bag
-        buffer; each validation set's score takes the same values through
-        the predict kernel, which reads the tree from the state."""
+        back: the gradients of every class at the current scores, then for
+        each trained class its tree (ops/grow.py ``launch_tree``, one state
+        serving the classes in stream order), the shrinkage and the score
+        update of its class on the device (each row's leaf value added from
+        the loop's segment layout, ops/grow_step_kernel.py
+        ``score_update``), the tree copied into the ring's next row. The
+        reference's chunked scan body (``_chunk_fn``, ``_finish_step``): a
+        tree that did not split, and every tree after an iteration of the
+        chunk in which no class split (``_chunk_stopped``), adds exact zeros;
+        the score update is a plain f32 add, never a multiply-add. With
+        feature_fraction each tree first copies its mask out of the chunk's
+        masks at its ring slot; with bagging every tree reads the bag
+        buffer; each validation set's class score takes the same values
+        through the predict kernel, which reads the tree from the state."""
         cfg = self.config
         s = self._grow_state
-        if self._feature_masks is not None:
-            self.feature_mask.copy_(self._feature_masks.index_select(0, self._ring_slot)[0])
         grad, hess = self._compute_gradients()
-        launch_tree(s, self.bins_dev, grad, hess, self.feature_mask, self.feature_meta,
-                    cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
-                    cfg.tpu_hist_dtype, self._bag)
-        num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
-        grew = num_leaves > 1
-        value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * self._rate, 0.0)
-        grow_step_kernel.score_update(s, value, self.scores[0])
-        for bins, score in zip(self._valid_bins, self.valid_scores):
-            predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves, self.feature_meta,
-                                          value, score[0])
-        self._chunk_stopped |= ~grew
-        self._ring.index_copy_(0, self._ring_slot, s.packed[None])
-        self._ring_slot += 1
+        grew_any = None
+        for k in self._train_classes:
+            if self._feature_masks is not None:
+                self.feature_mask.copy_(self._feature_masks.index_select(0, self._ring_slot)[0])
+            launch_tree(s, self.bins_dev, grad[k], hess[k], self.feature_mask, self.feature_meta,
+                        cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
+                        cfg.tpu_hist_dtype, self._bag, self.grouped_adds)
+            num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
+            grew = num_leaves > 1
+            value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * self._rate, 0.0)
+            grow_step_kernel.score_update(s, value, self.scores[k])
+            for bins, score in zip(self._valid_bins, self.valid_scores):
+                predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves,
+                                              self.feature_meta, value, score[k])
+            grew_any = grew if grew_any is None else grew_any | grew
+            self._ring.index_copy_(0, self._ring_slot, s.packed[None])
+            self._ring_slot += 1
+        self._chunk_stopped |= ~grew_any
 
     def _iteration_key(self) -> tuple:
         """What the captured iteration bakes in (the reference's ``_chunk_fn``
@@ -430,6 +470,7 @@ class GBDT:
         cfg = self.config
         return (self.num_data, self.bins_dev.shape[0], self.num_bins, cfg.num_leaves,
                 cfg.max_depth, self.split_params, self._two_way, cfg.tpu_hist_dtype,
+                self.num_tree_per_iteration, tuple(self._train_classes),
                 id(self._grow_state), id(self._ring), id(self.scores), id(self._bag),
                 id(self._feature_masks), tuple(map(id, self.valid_scores)),
                 tuple(map(id, self._valid_bins)), self.device)
@@ -455,7 +496,8 @@ class GBDT:
         ``iteration_graph`` False), each after its bag is drawn on the
         device when it changes. :meth:`collect_iterations` reads the trees
         back."""
-        self._device_buffers(n)
+        rows = n * len(self._train_classes)
+        self._device_buffers(rows)
         self._ring_slot.zero_()
         self._chunk_stopped.zero_()
         self._set_rate()
@@ -463,10 +505,10 @@ class GBDT:
         if masks is not None:
             if self.device.type == "cuda":
                 # the last chunk's upload is done: its readback waited for every replay
-                self._feature_masks_host[:n].numpy()[:] = masks
-                self._feature_masks[:n].copy_(self._feature_masks_host[:n], non_blocking=True)
+                self._feature_masks_host[:rows].numpy()[:] = masks
+                self._feature_masks[:rows].copy_(self._feature_masks_host[:rows], non_blocking=True)
             else:
-                self._feature_masks[:n].copy_(torch.from_numpy(masks))
+                self._feature_masks[:rows].copy_(torch.from_numpy(masks))
         step = self._device_iteration
         if not eager and self.iteration_graph:
             step = self._captured_iteration().replay
@@ -475,89 +517,115 @@ class GBDT:
             step()
 
     def collect_iterations(self, n: int) -> List[TreeArrays]:
-        """The ``n`` trees of the last :meth:`launch_iterations`, shrunk,
-        from one device-to-host copy of the ring (on CUDA into pinned
-        memory, waited for on an event: no synchronizing call)."""
+        """The ``n`` iterations' trees of the last :meth:`launch_iterations`
+        (one a trained class, in iteration and class order), shrunk, from
+        one device-to-host copy of the ring (on CUDA into pinned memory,
+        waited for on an event: no synchronizing call)."""
+        rows = n * len(self._train_classes)
         if self.device.type == "cuda":
-            host = self._ring_host[:n]
-            host.copy_(self._ring[:n], non_blocking=True)
+            host = self._ring_host[:rows]
+            host.copy_(self._ring[:rows], non_blocking=True)
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
             done.synchronize()
             host = host.clone()  # the pinned ring is refilled by the next chunk
         else:
-            host = self._ring[:n].clone()
+            host = self._ring[:rows].clone()
         M, B = self.config.num_leaves, self.num_bins
-        return [self._shrink(tree_from_packed(host[i], M, B)) for i in range(n)]
+        return [self._shrink(tree_from_packed(host[i], M, B)) for i in range(rows)]
 
-    def _keep_trees(self, trees: List[TreeArrays], init_score: float = 0.0) -> bool:
-        """Append the shrunk trees of iterations run in order; at the first
-        that did not split, drop it and every later one, warn
-        and stop (the reference's ``_consume_pending_stop``): those later
-        iterations added exact zeros to the scores. Returns True on a stop.
-        ``init_score`` (the first iteration's boost from average) folds into
-        the first tree's leaf values when it is materialised (the stored
-        arrays are the values the scores took), and a first iteration that
-        does not split keeps its constant tree and re-adds the init score
+    def _append_iteration(self, grown: dict) -> None:
+        """Append one iteration's K trees in class order: each trained
+        class's shrunk tree (``grown``, by class), else a constant tree, on
+        the first iteration the class's ``boost_from_score``, added to its
+        scores (gbdt.cpp:375-400), later a zero one."""
+        first = not self.models
+        for k in range(self.num_tree_per_iteration):
+            if k in grown:
+                self.models.append(None)
+                self._tree_arrays.append(grown[k])
+                continue
+            t = Tree(1)
+            if first:
+                t.leaf_value[0] = self.objective.boost_from_score(k)
+                if t.leaf_value[0] != 0.0:
+                    self._add_constant(t.leaf_value[0], k)
+            self.models.append(t)
+            self._tree_arrays.append(None)
+
+    def _keep_trees(self, trees: List[TreeArrays]) -> bool:
+        """Append the shrunk trees of iterations run in order (one a trained
+        class an iteration); at the first iteration in which no class split,
+        drop it and every later one, warn and stop (the reference's
+        ``_consume_pending_stop``): those later iterations added exact zeros
+        to the scores. Returns True on a stop. A first iteration in which no
+        class splits keeps its trees (constant, each holding its class's init
+        score when materialised) and re-adds the init scores
         (gbdt.cpp:375-395)."""
-        for tree in trees:
-            if not self.models:
-                self._init_fold = init_score
-            if int(tree.num_leaves) <= 1:
+        T = len(self._train_classes)
+        for i in range(0, len(trees), T):
+            grown = dict(zip(self._train_classes, trees[i:i + T]))
+            if not any(int(t.num_leaves) > 1 for t in grown.values()):
                 log.warning("Stopped training because there are no more leaves that meet the split requirements")
                 self._stopped = True
                 if not self.models:
-                    self.models.append(None)
-                    self._tree_arrays.append(tree)
-                    if abs(init_score) > K_EPSILON:
-                        self._add_constant(init_score)
-                        self._init_readded = True
+                    self._append_iteration(grown)
+                    for k in self._train_classes:
+                        if abs(self._init_fold[k]) > K_EPSILON:
+                            self._add_constant(self._init_fold[k], k)
+                    self._init_readded = True
                 return True
-            self.models.append(None)
-            self._tree_arrays.append(tree)
+            self._append_iteration(grown)
             self.iter_ += 1
         return False
 
     def train_one_iter(self) -> bool:
         """One boosting iteration; returns True when training should stop
-        because the tree could not split (TrainOneIter, gbdt.cpp:332-413).
+        because no class's tree could split (TrainOneIter, gbdt.cpp:332-413).
         On the device loop the first iteration runs eagerly (it builds and
-        loads the kernels, and folds the boost-from-average score); on CUDA
+        loads the kernels, and folds the boost-from-average scores); on CUDA
         every later one is one replay of the captured iteration, and one
-        device-to-host copy reads its tree back."""
+        device-to-host copy reads its trees back."""
         if self._stopped:
             return True
-        init_score = self._boost_from_average()
-        need_train = self.objective.class_need_train(0)
-        if not need_train or self.train_set.num_features == 0:
-            # nothing to learn: one constant tree, then stop (gbdt.cpp:375-400)
-            output = init_score if need_train else self.objective.boost_from_score(0)
-            if not self.models:
-                t = Tree(1)
-                t.leaf_value[0] = output
-                self.models.append(t)
-                self._tree_arrays.append(None)
-                if output != 0.0:
-                    self._add_constant(output)
+        K = self.num_tree_per_iteration
+        first = not self.models
+        init_scores = [self._boost_from_average(k) for k in range(K)]
+        if not self._train_classes or self.train_set.num_features == 0:
+            # nothing to learn: one constant tree a class, then stop (gbdt.cpp:375-400)
+            if first:
+                for k in range(K):
+                    need = self.objective.class_need_train(k)
+                    t = Tree(1)
+                    t.leaf_value[0] = init_scores[k] if need else self.objective.boost_from_score(k)
+                    self.models.append(t)
+                    self._tree_arrays.append(None)
+                    if t.leaf_value[0] != 0.0:
+                        self._add_constant(t.leaf_value[0], k)
             log.warning("Stopped training because there are no more leaves that meet the split requirements")
             self._stopped = True
             return True
+        if first:
+            self._init_fold = init_scores
         if self.grow_loop == "device":
-            self.launch_iterations(1, eager=not self.models)
-            return self._keep_trees(self.collect_iterations(1), init_score)
+            self.launch_iterations(1, eager=first)
+            return self._keep_trees(self.collect_iterations(1))
         self._prepare_bag(self.iter_)
         masks = self._sample_feature_masks(1)
-        if masks is not None:
-            self.feature_mask.copy_(torch.from_numpy(masks[0]))
         grad, hess = self._compute_gradients()
-        tree, leaf_id = self._train_tree(grad, hess)
-        tree = self._shrink(tree)
-        # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of the
-        # shrunk leaf values gathered by each row's leaf
-        self.scores[0] += tree.leaf_value.to(self.device)[leaf_id]
-        for bins, score in zip(self._valid_bins, self.valid_scores):
-            self._add_tree(tree, bins, score[0])
-        return self._keep_trees([tree], init_score)
+        trees = []
+        for t, k in enumerate(self._train_classes):
+            if masks is not None:
+                self.feature_mask.copy_(torch.from_numpy(masks[t]))
+            tree, leaf_id = self._train_tree(grad[k], hess[k])
+            tree = self._shrink(tree)
+            # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of
+            # the shrunk leaf values gathered by each row's leaf
+            self.scores[k] += tree.leaf_value.to(self.device)[leaf_id]
+            for bins, score in zip(self._valid_bins, self.valid_scores):
+                self._add_tree(tree, bins, score[k])
+            trees.append(tree)
+        return self._keep_trees(trees)
 
     # ------------------------------------------------------------------
     # device-resident chunked boosting (the reference's train_chunk)
@@ -572,7 +640,7 @@ class GBDT:
             return "no objective (host-computed gradients)"
         if self.train_set is None or self.train_set.num_features == 0:
             return "no usable features (constant-tree path is host-side)"
-        if not self.objective.class_need_train(0):
+        if len(self._train_classes) < self.num_tree_per_iteration:
             return "untrained constant class (class_need_train=False)"
         if self.grow_loop != "device":
             return ("the host split loop: the histogram route sends a row class to a kernel "
@@ -593,9 +661,9 @@ class GBDT:
         queued as ``n`` replays of the captured iteration (eager iterations
         on the CPU) with nothing read back in between, then one copy reads
         their trees back. The stop is resolved here: the trees from the first
-        that did not split on are dropped (they added exact zeros to the
-        scores), so trees and scores equal those of ``n`` calls of
-        :meth:`train_one_iter` bit for bit."""
+        iteration in which no class split on are dropped (they added exact
+        zeros to the scores), so trees and scores equal those of ``n`` calls
+        of :meth:`train_one_iter` bit for bit."""
         if n <= 1 or self.device_chunk_fallback_reason() is not None:
             return 1, self.train_one_iter()
         if self._stopped:
@@ -605,7 +673,6 @@ class GBDT:
         self.launch_iterations(n)
         return n, self._keep_trees(self.collect_iterations(n))
 
-    # ------------------------------------------------------------------
     # ------------------------------------------------------------------
     # validation sets, rollback
     # ------------------------------------------------------------------
@@ -624,11 +691,12 @@ class GBDT:
 
     def add_valid(self, valid_set: BinnedDataset, metrics: List[Metric], name: str) -> None:
         """Attach an eval set binned with the training set's mappers: its
-        metrics initialised on its metadata, a [1, Nv] f32 score on the
+        metrics initialised on its metadata, a [K, Nv] f32 score on the
         device (its init score, else zeros) into which the trees trained so
-        far are added in order, as the live score took them (the reference's
-        ScoreUpdater on AddValidDataset), and an [Nv, F] copy of its bins.
-        The next iteration captures its graph again with the set's buffers."""
+        far are added in order, each into its class's row, as the live score
+        took them (the reference's ScoreUpdater on AddValidDataset), and an
+        [Nv, F] copy of its bins. The next iteration captures its graph
+        again with the set's buffers."""
         if self.train_set is None:
             raise NotImplementedError("add_valid on a model loaded from text is not ported yet")
         if valid_set.num_features != self.train_set.num_features or valid_set.is_bundled:
@@ -636,30 +704,33 @@ class GBDT:
                              "(Dataset(..., reference=train_set))")
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
+        K = self.num_tree_per_iteration
         bins = torch.from_numpy(np.ascontiguousarray(valid_set.bins.T, dtype=np.uint8)).to(self.device)
-        init = valid_set.metadata.init_score
-        if init is not None:
-            arr = np.asarray(init, np.float64).reshape(1, valid_set.num_data)
-            score = torch.as_tensor(arr, dtype=torch.float32, device=self.device)
-        else:
-            score = torch.zeros((1, valid_set.num_data), dtype=torch.float32, device=self.device)
-        if abs(self._init_fold) > K_EPSILON:
-            score += np.float32(self._init_fold)
+        score = self._initial_scores(valid_set.metadata.init_score, valid_set.num_data)
+        for k in range(K):
+            if abs(self._init_fold[k]) > K_EPSILON:
+                score[k] += np.float32(self._init_fold[k])
         for i, ta in enumerate(self._tree_arrays):
             if ta is not None:
-                self._add_tree(ta, bins, score[0])
+                self._add_tree(ta, bins, score[i % K])
             elif self.models[i] is not None and self.models[i].num_leaves == 1:
                 if self.models[i].leaf_value[0] != 0.0:
-                    score += np.float32(self.models[i].leaf_value[0])
+                    score[i % K] += np.float32(self.models[i].leaf_value[0])
         if self._init_readded:
-            score += np.float32(self._init_fold)
+            for k in range(K):
+                score[k] += np.float32(self._init_fold[k])
         self.valid_metrics.append(metrics)
         self.valid_names.append(name)
         self.valid_scores.append(score)
         self._valid_bins.append(bins)
 
+    def _score_np(self, score: torch.Tensor) -> np.ndarray:
+        """A [K, n] score as f64 numpy: [n] when K is 1."""
+        s = score.double().cpu().numpy()
+        return s[0] if self.num_tree_per_iteration == 1 else s
+
     def _valid_score_np(self, i: int) -> np.ndarray:
-        return self.valid_scores[i][0].double().cpu().numpy()
+        return self._score_np(self.valid_scores[i])
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         """(set name, metric name, value, bigger is better) of every
@@ -673,22 +744,25 @@ class GBDT:
         return out
 
     def rollback_one_iter(self) -> None:
-        """RollbackOneIter (gbdt.cpp:415-431): the last tree's values taken
-        out of the training and validation scores, through each row's leaf
-        in bin space, and the tree dropped; the first tree takes the
-        boost-from-average score with it."""
+        """RollbackOneIter (gbdt.cpp:415-431): the last iteration's K trees
+        taken out of their classes' training and validation scores, through
+        each row's leaf in bin space, and dropped; the first iteration takes
+        the boost-from-average scores with it."""
         if self.iter_ <= 0:
             return
-        tree = self._tree_arrays[-1]
-        if tree is not None:
-            self._add_tree(tree, self.bins_nf, self.scores[0], -1.0)
-            for bins, score in zip(self._valid_bins, self.valid_scores):
-                self._add_tree(tree, bins, score[0], -1.0)
-        if len(self.models) == 1 and abs(self._init_fold) > K_EPSILON:
-            self._add_constant(-self._init_fold)
-            self._init_fold = 0.0
-        self.models.pop()
-        self._tree_arrays.pop()
+        K = self.num_tree_per_iteration
+        for k in range(K):
+            tree = self._tree_arrays[len(self._tree_arrays) - K + k]
+            if tree is not None:
+                self._add_tree(tree, self.bins_nf, self.scores[k], -1.0)
+                for bins, score in zip(self._valid_bins, self.valid_scores):
+                    self._add_tree(tree, bins, score[k], -1.0)
+        if len(self.models) == K:
+            for k in range(K):
+                if abs(self._init_fold[k]) > K_EPSILON:
+                    self._add_constant(-self._init_fold[k], k)
+            self._init_fold = [0.0] * K
+        del self.models[-K:], self._tree_arrays[-K:]
         self.iter_ -= 1
 
     def reset_parameter(self, params) -> None:
@@ -710,10 +784,11 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _materialize(self) -> None:
+        K = self.num_tree_per_iteration
         for i, ta in enumerate(self._tree_arrays):
             if self.models[i] is None:
-                if i == 0 and abs(self._init_fold) > K_EPSILON:
-                    ta = ta._replace(leaf_value=ta.leaf_value + np.float32(self._init_fold))
+                if i < K and abs(self._init_fold[i]) > K_EPSILON:
+                    ta = ta._replace(leaf_value=ta.leaf_value + np.float32(self._init_fold[i]))
                 self.models[i] = Tree.from_device(ta, self.train_set)
                 self.models[i].shrinkage = self.shrinkage_rate
 
@@ -722,24 +797,33 @@ class GBDT:
 
     @property
     def current_iteration(self) -> int:
-        return len(self.models)
+        return len(self.models) // max(self.num_tree_per_iteration, 1)
 
     def trees(self) -> List[Tree]:
         self._materialize()
         return self.models
 
     def train_score(self) -> np.ndarray:
-        return self.scores[0].double().cpu().numpy()
+        return self._score_np(self.scores)
 
-    def predict_raw(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
-        """Raw scores [N] (PredictRaw, gbdt_prediction.cpp:13-51), in f64 on
-        the model's device."""
-        self._materialize()
+    def _used_trees(self, num_iteration: Optional[int]) -> int:
+        """The trees of the first ``num_iteration`` iterations (all when it is
+        None or <= 0)."""
         use = len(self.models)
         if num_iteration is not None and num_iteration > 0:
-            use = min(use, num_iteration)
+            use = min(use, num_iteration * self.num_tree_per_iteration)
+        return use
+
+    def predict_raw(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+        """Raw scores, [N] or [N, K] for K trees an iteration (PredictRaw,
+        gbdt_prediction.cpp:13-51), each class's trees summed in f64 in
+        boosting order on the model's device."""
+        self._materialize()
+        use = self._used_trees(num_iteration)
+        K = self.num_tree_per_iteration
         Xt = torch.as_tensor(np.asarray(X, np.float64), device=self.device)
-        return ensemble_predict_raw(Xt, self.models[:use]).cpu().numpy()
+        out = [ensemble_predict_raw(Xt, self.models[k:use:K]).cpu().numpy() for k in range(K)]
+        return out[0] if K == 1 else np.stack(out, axis=1)
 
     def predict(self, X: np.ndarray, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
         raw = self.predict_raw(X, num_iteration)
@@ -751,10 +835,7 @@ class GBDT:
         self._materialize()
         n = self.max_feature_idx + 1
         out = np.zeros(n, np.float64)
-        use = len(self.models)
-        if num_iteration is not None and num_iteration > 0:
-            use = min(use, num_iteration)
-        for t in self.models[:use]:
+        for t in self.models[:self._used_trees(num_iteration)]:
             if t is None or t.num_leaves <= 1:
                 continue
             if importance_type == "gain":

@@ -4,8 +4,10 @@ one process on one card.
 On a machine with a CUDA card, from the repository root::
 
     git show <commit>:lightgbm_tpu_torch/csrc/<kernel>.cu > build/old_<kernel>.cu
-    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,split_pair,packed4,v1} \\
+    python -m lightgbm_tpu_torch.obs.pair --kernel {histogram,histogram_grid,split_pair,packed4,v1} \\
         --old build/old_<kernel>.cu [--out results.json]
+    python -m lightgbm_tpu_torch.obs.pair --kernel histogram_grid \\
+        --old build/a.cu build/b.cu ... [--out results.json]
     python -m lightgbm_tpu_torch.obs.pair --kernel pick_partition \\
         --old build/old_partition.cu build/old_grow_step.cu [--out results.json]
     python -m lightgbm_tpu_torch.obs.pair --kernel split_step \\
@@ -22,6 +24,19 @@ call. A time is the mean of the two turns' CUDA-event medians
 (``tune.CudaTimer``: L2 flushed, launch overhead hidden). Inputs of
 ``histogram``, ``v1`` and ``split_pair`` come from make_higgs_like(1M, 28)
 binned at max_bin=255.
+
+``histogram_grid`` (csrc/histogram.cu): each old source takes today's
+launcher, ``rows_per_block`` included, and all run with
+``histogram_grid``'s chunking. Held and timed as ``histogram`` below, on
+the bench data (keys ``higgs/...``) and again on a Covertype-shaped table
+(``covertype/...``: ``bench.covertype_like_rows``, 581,012 x 54, 44
+features of 2 bins, the first class's softmax gradients at the prior).
+Where a table takes the grouped form (``hist_kernel.grouped_adds``: the
+Covertype-shaped one), the new kernel runs it, and so does an old source
+that has it (``lgbt_histogram_grouped``). It takes one old source or more,
+each a version of its own named ``old_<file stem>`` (``old`` when one):
+copies of today's source with other ``kBusyLanes`` / ``kGroupLanes`` time
+the grouped form's thresholds against each other in one process.
 
 ``histogram`` and ``v1`` (csrc/hist_v1.cu): the old source takes the
 launcher arguments of the other ``[F, N]`` kernels (no ``rows_per_block``,
@@ -102,13 +117,14 @@ from __future__ import annotations
 
 import argparse
 import collections
+import functools
 import ctypes
 import json
 import re
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 from ..ops import cuda_build
 
@@ -210,7 +226,70 @@ def _rows_case(old_lib: Path, symbol: str, new_fn, dev, data):
         cuda_build.check(code, "old " + symbol)
         return out
 
-    versions = {"old": run_old, "new": new_fn}
+    return _rows_calls({"old": run_old, "new": new_fn}, dev, data), {}
+
+
+def _histogram_grid_case(old_libs: List[Path], labels: List[str], dev,
+                         data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by input, checks) of csrc/histogram.cu against one or
+    more older sources (``labels``) that take the same launcher
+    (``rows_per_block`` included), run with
+    :func:`~..ops.hist_kernel.histogram_grid`'s chunking: on the bench data
+    (keys ``higgs/...``) and on a Covertype-shaped table (``covertype/...``:
+    bench.covertype_like_rows at 581,012 rows, 44 of its 54 features of 2
+    bins) with the first class's softmax gradients at the class prior. On a
+    table that :func:`~..ops.hist_kernel.grouped_adds` sends to the grouped
+    form, each version runs it where it has it."""
+    import torch
+
+    from ..ops import hist_kernel
+
+    def old_call(lib: Path):
+        cdll = ctypes.CDLL(str(lib))
+        entries = {}
+        for grouped, symbol in ((False, "lgbt_histogram"), (True, "lgbt_histogram_grouped")):
+            fn = getattr(cdll, symbol, None) or entries[False]
+            fn.restype = ctypes.c_int
+            fn.argtypes = hist_kernel._ARGS_HIST
+            entries[grouped] = fn
+
+        def run(grouped, bins, values, B, rows, dt):
+            F = bins.shape[0]
+            n = bins.shape[1] if rows is None else rows.numel()
+            out = torch.zeros((F, B, 3), dtype=torch.float32, device=dev)
+            code = entries[grouped](
+                bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
+                rows.data_ptr() if rows is not None else None, n, F, B, int(dt == "bfloat16"),
+                hist_kernel.histogram_grid(n, F, hist_kernel._sm_count(dev))[2],
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            cuda_build.check(code, "old lgbt_histogram")
+            return out
+        return run
+
+    def new_call(grouped, bins, values, B, rows, dt):
+        return hist_kernel.histogram(bins, values, B, rows, dt, grouped=grouped)
+
+    runs = dict(zip(labels, map(old_call, old_libs)), new=new_call)
+    calls = {}
+    for name, d in (("higgs", data), ("covertype", _covertype_data(dev))):
+        grouped = hist_kernel.grouped_adds(d["bins"].cpu().numpy())
+        print("%s: grouped form %s" % (name, grouped), flush=True)
+        versions = {v: functools.partial(run, grouped) for v, run in runs.items()}
+        calls.update(_rows_calls(versions, dev, d, name + "/"))
+    return calls, {}
+
+
+def _rows_calls(versions, dev, data, prefix: str = "") -> Dict[str, Dict[str, Callable]]:
+    """Hold each of ``versions`` (name -> a histogram call taking (bins,
+    values, B, rows, hist_dtype)) to the plain version bit for bit on
+    dyadic values (multiples of 2^-10), f32 and bf16, at sorted random
+    segments of :data:`SIZES` rows and the root; return the timed calls
+    on the data's real values by input."""
+    import numpy as np
+    import torch
+
+    from ..ops.histogram import leaf_histogram, leaf_values
+
     bins, hist_bins, B, N, real = data["bins"], data["hist_bins"], data["B"], data["N"], data["real"]
     rng = np.random.RandomState(0)
     q = 1024
@@ -218,7 +297,10 @@ def _rows_case(old_lib: Path, symbol: str, new_fn, dev, data):
     def tensor(a):
         return torch.tensor(a, dtype=torch.float32, device=dev)
 
-    dyadic = leaf_values(tensor(rng.randint(-q, q + 1, N) / q), tensor(rng.randint(1, 65, N) / q),
+    # hessians up to data["hess_max"] / q: their sum over a cell stays below
+    # 2^14, exact in f32 (a 2-bin feature's cell holds most of the rows)
+    dyadic = leaf_values(tensor(rng.randint(-q, q + 1, N) / q),
+                         tensor(rng.randint(1, data.get("hess_max", 64) + 1, N) / q),
                          torch.ones(N, device=dev))
     segments = {str(n): torch.from_numpy(np.sort(rng.permutation(N)[:n]).astype(np.int32)).to(dev)
                 for n in SIZES}
@@ -227,15 +309,15 @@ def _rows_case(old_lib: Path, symbol: str, new_fn, dev, data):
         for dt in ("float32", "bfloat16"):
             want = leaf_histogram(bins, dyadic, B, rows, dt)
             for v, fn in versions.items():
-                assert torch.equal(fn(hist_bins, dyadic, B, rows, dt), want), (v, key, dt)
-    print("dyadic exact: old and new at every size, f32 and bf16", flush=True)
+                assert torch.equal(fn(hist_bins, dyadic, B, rows, dt), want), (prefix, v, key, dt)
+    print("%sdyadic exact: old and new at every size, f32 and bf16" % prefix, flush=True)
     calls = {}
     for dt in ("float32", "bfloat16"):
         for key, rows in segments.items():
-            calls["%s/%s" % (dt, key)] = {
+            calls["%s%s/%s" % (prefix, dt, key)] = {
                 v: (lambda fn=fn, rows=rows, dt=dt: fn(hist_bins, real, B, rows, dt))
                 for v, fn in versions.items()}
-    return calls, {}
+    return calls
 
 
 def _split_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
@@ -711,10 +793,36 @@ def _split_step_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
     return calls, checks
 
 
-SOURCES = {"histogram": ("histogram",), "split_pair": ("split_pair",),
+SOURCES = {"histogram": ("histogram",), "histogram_grid": ("histogram",),
+           "split_pair": ("split_pair",),
            "packed4": ("hist_packed4",), "v1": ("hist_v1",),
            "pick_partition": ("partition", "grow_step"),
            "split_step": ("split_pair", "grow_step")}
+
+
+def _covertype_data(dev) -> Dict:
+    """bench.covertype_like_rows(581_012) binned with its cell's params (max_bin
+    255, EFB off) in the grower's layout, and the first class's softmax
+    gradients and hessians at the class prior."""
+    import numpy as np
+    import torch
+
+    import lightgbm_tpu_torch as lgb
+    from .. import bench
+    from ..config import Config
+    from ..ops.histogram import leaf_values
+
+    X, y = bench.covertype_like_rows(bench.COVER_ROWS, seed=31)
+    binned = lgb.Dataset(X, label=y).get_binned(Config.from_params(dict(bench.COVER_PARAMS)))
+    bins = torch.from_numpy(np.ascontiguousarray(binned.bins)).to(dev)
+    prior = np.bincount(y.astype(np.int64), minlength=7)[0] / len(y)
+    grad = prior - (y == 0)
+    hess = np.full(len(y), 2.0 * prior * (1.0 - prior))
+    real = leaf_values(torch.tensor(grad, dtype=torch.float32, device=dev),
+                       torch.tensor(hess, dtype=torch.float32, device=dev),
+                       torch.ones(len(y), device=dev))
+    return dict(bins=bins, hist_bins=bins.t().contiguous().t(), N=binned.num_data,
+                B=binned.max_num_bin, real=real, hess_max=16)
 
 
 def _higgs_data(dev) -> Dict:
@@ -766,7 +874,14 @@ def main(argv=None) -> int:
         print("pair: needs a CUDA card", file=sys.stderr)
         return 2
     sources = SOURCES[args.kernel]
-    if len(args.old) != len(sources):
+    if args.kernel == "histogram_grid":  # one older histogram.cu or more, each a version
+        labels = ["old"] if len(args.old) == 1 else ["old_" + Path(o).stem for o in args.old]
+    else:
+        labels = ["old"] if len(sources) == 1 else ["old_" + name for name in sources]
+    if len(set(labels)) != len(labels):
+        print("pair: the old sources need distinct file names", file=sys.stderr)
+        return 2
+    if args.kernel != "histogram_grid" and len(args.old) != len(sources):
         print("pair: --kernel %s takes %d old sources (%s)"
               % (args.kernel, len(sources), ", ".join(n + ".cu" for n in sources)), file=sys.stderr)
         return 2
@@ -777,11 +892,10 @@ def main(argv=None) -> int:
     print(card, flush=True)
     out_dir = cuda_build.BUILD_DIR.parent / "pair"
     out_dir.mkdir(parents=True, exist_ok=True)
-    old_libs = [out_dir / ("libold_%s.so" % name) for name in sources]
+    old_libs = [out_dir / ("lib%s.so" % label) for label in labels]
     empty_lib = out_dir / "empty.so"
     (out_dir / "empty.cu").write_text(EMPTY_SRC)
-    procs = {"old_%s" % name: _nvcc(Path(src), lib)
-             for name, src, lib in zip(sources, args.old, old_libs)}
+    procs = {label: _nvcc(Path(src), lib) for label, src, lib in zip(labels, args.old, old_libs)}
     procs["empty"] = _nvcc(out_dir / "empty.cu", empty_lib)
     cuda_build.build(list(sources))
     logs = {}
@@ -791,11 +905,9 @@ def main(argv=None) -> int:
             raise RuntimeError("nvcc failed for %s:\n%s" % (name, logs[name]))
     sass = {}
     built = {}
-    for name, lib in zip(sources, old_libs):
-        key = "old" if len(sources) == 1 else "old_" + name
-        sass[key] = sass_text(lib)
-        built[key] = dict(ptxas=cuda_build.ptxas_usage(logs["old_" + name]),
-                          sass=sass_counts(sass[key]))
+    for label, lib in zip(labels, old_libs):
+        sass[label] = sass_text(lib)
+        built[label] = dict(ptxas=cuda_build.ptxas_usage(logs[label]), sass=sass_counts(sass[label]))
     new_lib = cuda_build.library_path(sources[0])
     sass["new"] = sass_text(new_lib)
     built["new"] = dict(ptxas=cuda_build.ptxas_usage(new_lib.with_suffix(".log").read_text()),
@@ -814,6 +926,8 @@ def main(argv=None) -> int:
         calls, checks = _pick_partition_case(old_libs, dev, data)
     elif args.kernel == "split_step":
         calls, checks = _split_step_case(old_libs, dev, data)
+    elif args.kernel == "histogram_grid":
+        calls, checks = _histogram_grid_case(old_libs, labels, dev, data)
     else:
         case = {"histogram": _histogram_case, "split_pair": _split_case,
                 "packed4": _packed4_case, "v1": _v1_case}[args.kernel]

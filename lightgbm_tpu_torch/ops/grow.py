@@ -106,6 +106,7 @@ def grow_tree(
     hist_dtype: str = "float32",
     bins_packed: Optional[torch.Tensor] = None,  # [ceil(N/2), F] nibble-packed copy (B <= 16)
     bag: Optional[torch.Tensor] = None,  # [N] f32, 1.0 = in the bag; None: every row
+    grouped: bool = False,  # csrc/histogram.cu's grouped form (hist_kernel.grouped_adds)
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device).
     Rows outside the ``bag`` stay in their segments with zero weight: every
@@ -133,6 +134,7 @@ def grow_tree(
     hist = torch.empty((M, F, B, 3), dtype=f32, device=dev)
     hist[0] = hist_kernel.routed_histogram(
         hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
+        grouped=grouped,
     )
     root = root_sums(grad, hess, vals_all, bag).cpu()
 
@@ -210,7 +212,7 @@ def grow_tree(
         s_begin = leaf_begin[small_idx]
         small = hist_kernel.routed_histogram(
             hist_bins, vals_all, B, rows=order[s_begin:s_begin + leaf_phys[small_idx]],
-            hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
+            hist_dtype=hist_dtype, route=route, bins_packed=hist_packed, grouped=grouped,
         )
         large = hist[best_leaf] - small
         hist[small_idx] = small
@@ -293,22 +295,23 @@ def start_tree(
     bins_nf: Optional[torch.Tensor] = None,
     hist_dtype: str = "float32",
     bag: Optional[torch.Tensor] = None,
+    grouped: bool = False,
 ) -> None:
     """Bind a tree's inputs to the state ``s``, reset it, and queue the
     root: its histogram, its sums and leaf output, and (M > 1) its split
-    scan. Reads nothing back. ``bag`` ([N] f32) as in :func:`grow_tree`:
-    the segments (``leaf_count``) stay physical, the records' counts are
-    the bag's."""
+    scan. Reads nothing back. ``bag`` ([N] f32) and ``grouped`` as in
+    :func:`grow_tree`: the segments (``leaf_count``) stay physical, the
+    records' counts are the bag's."""
     N = s.N
     hist_bins = bins_nf.t() if bins_nf is not None else bins
     ones = torch.ones(N, dtype=torch.float32, device=s.device) if bag is None else bag
     vals_all = leaf_values(grad, hess, ones)
     s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
-           hist_dtype)
+           hist_dtype, grouped)
     s.reset()
     root_hist = s.hist[0]
     root_hist.zero_()
-    hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist)
+    hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist, grouped=grouped)
     root = root_sums(grad, hess, vals_all, bag)
     s.laux[0, :3] = root
     s.leaf_f[0] = torch.stack([calculate_leaf_output(root[0], root[1], params), root[2], root[1]])
@@ -398,6 +401,7 @@ def grow_tree_device(
     hist_dtype: str = "float32",
     state: Optional[gs.GrowState] = None,
     bag: Optional[torch.Tensor] = None,
+    grouped: bool = False,
 ) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
     """Grow one tree with the device-resident split loop; returns
     (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
@@ -408,6 +412,6 @@ def grow_tree_device(
     if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves):
         state = gs.GrowState(bins.device, N, F, num_bins, num_leaves)
     launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
-                params, two_way, bins_nf, hist_dtype, bag)
+                params, two_way, bins_nf, hist_dtype, bag, grouped)
     leaf_id = leaf_ids(state)
     return read_tree(state), leaf_id, state

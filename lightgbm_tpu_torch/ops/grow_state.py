@@ -116,6 +116,8 @@ class GrowState:
         self.two_way = True
         self.max_depth = -1
         self.hist_dtype = "float32"
+        #: the histogram entries' grouped form (ops/hist_kernel.py grouped_adds)
+        self.grouped = False
         #: launch arguments of each C entry, built once a tree by its wrapper
         self.args: Dict[str, tuple] = {}
         self.stream = None
@@ -137,6 +139,7 @@ class GrowState:
         two_way: bool,
         max_depth: int,
         hist_dtype: str,
+        grouped: bool = False,
     ) -> None:
         """Take this tree's inputs and check them once: ``bins`` [F, N]
         uint8 contiguous (the partition's columns), ``hist_bins`` an [F, N]
@@ -144,7 +147,8 @@ class GrowState:
         f32 contiguous, the meta arrays int32 [F] and ``feature_mask`` bool
         [F] contiguous, all on the state's device. The kernels' launch
         arguments are rebuilt from them on first use and the stream is the
-        one current now."""
+        one current now. ``grouped``: the histograms take their grouped form
+        (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`)."""
         dev, N, F = self.device, self.N, self.F
         for name, t, shape, dtype in (
             ("bins", bins, (F, N), torch.uint8),
@@ -164,6 +168,7 @@ class GrowState:
         self.feature_mask = feature_mask
         self.params, self.two_way, self.max_depth = params, bool(two_way), int(max_depth)
         self.hist_dtype = hist_dtype
+        self.grouped = bool(grouped)
         self.args = {}
         self.stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
         self.queued_steps = 0

@@ -288,7 +288,23 @@ def _sm_count(device: torch.device) -> int:
     return _sm_counts[index]
 
 
-def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None):
+def grouped_adds(bins: np.ndarray) -> bool:
+    """Does the ``[F, N]`` uint8 bin table take csrc/histogram.cu's grouped
+    form? True when some feature's rows crowd into few bins: two rows drawn
+    at random share that feature's bin with a chance (the sum of its bins'
+    squared shares) of at least 1/4. A feature of at most 4 bins always
+    does, and a one-hot column at a share of 0.3-0.97 (the Covertype-shaped
+    table's, where the grouped form runs 4-7x faster) is at 0.5-0.94; a
+    table of spread bins keeps the plain loop, which pays nothing for the
+    grouping (within it, the kernel's probe decides feature by feature)."""
+    F, N = bins.shape
+    if N == 0:
+        return False
+    return any(float(np.sum(np.square(np.bincount(bins[f], minlength=1) / N))) >= 0.25
+               for f in range(F))
+
+
+def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None, grouped=False):
     """``[F, B, 3]`` f32 histogram of ``values`` ([N, 3]) over ``bins``
     (csrc/histogram.cu: 4-feature blocks over row chunks of
     :func:`histogram_grid`, shared-memory atomics).
@@ -298,7 +314,9 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None)
     vector of row indices (a leaf segment) into both inputs. The other
     ``[F, N]`` wrappers take the same arguments. ``out``, a zeroed
     contiguous ``[F, B, 3]`` f32 tensor on the bins' device, receives the
-    histogram instead of a new tensor (the grower's root row)."""
+    histogram instead of a new tensor (the grower's root row). ``grouped``
+    launches the kernel's grouped form (:func:`grouped_adds`): the same
+    function, faster on features of few bins."""
     if bins.device.type == "cpu":
         got = leaf_histogram(bins, values, num_bins, rows, hist_dtype)
         return got if out is None else out.copy_(got)
@@ -313,7 +331,8 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None)
     if n == 0 or F == 0:
         return out
     bf16 = hist_dtype == "bfloat16"
-    code = _entry("histogram", "lgbt_histogram", _ARGS_HIST)(
+    code = _entry("histogram", "lgbt_histogram_grouped" if grouped else "lgbt_histogram",
+                  _ARGS_HIST)(
         bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
         rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
         histogram_grid(n, F, _sm_count(bins.device))[2],
@@ -346,8 +365,9 @@ def histogram_segment(s, parity: int = 0) -> None:
     all read from device memory, into ``s.small[parity]`` (which the scan
     of the step before leaves zeroed: a segment of more than one chunk adds
     into it), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]``
-    is 0. The grid is fixed once a tree (:func:`segment_max_chunks`). On a
-    CPU state the plain version, ops/histogram.py ``segment_histogram``."""
+    is 0. The grid is fixed once a tree (:func:`segment_max_chunks`); the
+    state's ``grouped`` picks the grouped form. On a CPU state the plain
+    version, ops/histogram.py ``segment_histogram``."""
     dev = s.device
     if dev.type == "cpu":
         segment_histogram(s, parity)
@@ -368,7 +388,8 @@ def histogram_segment(s, parity: int = 0) -> None:
             int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, s.F, sms),
             s.small[parity].data_ptr(), s.stream,
         )
-    code = _entry("histogram", "lgbt_histogram_segment", _ARGS_SEGMENT)(*args)
+    symbol = "lgbt_histogram_segment_grouped" if s.grouped else "lgbt_histogram_segment"
+    code = _entry("histogram", symbol, _ARGS_SEGMENT)(*args)
     cuda_build.check(code, "histogram segment kernel")
     launches["histogram_segment_bf16" if s.hist_dtype == "bfloat16" else "histogram_segment"] += 1
 
@@ -752,19 +773,21 @@ def routed_histogram(
     hist_dtype: str = "float32",
     route: Optional[HistRoute] = None,
     bins_packed: Optional[torch.Tensor] = None,
+    grouped: bool = False,
 ) -> torch.Tensor:
     """``[F, B, 3]`` histogram through the impl this call routes to
     (:func:`pick_impl`). ``scatter`` ignores ``hist_dtype``, as the JAX
     package's scatter does; every kernel honours it. ``bins_packed``, the
     ``[F, N2]`` view of a :func:`pack_bins` copy of ``bins``, is what
     ``cuda_packed4`` reads by row; without it that impl gathers the segment
-    and packs it on every call."""
+    and packs it on every call. ``grouped`` goes to ``cuda``
+    (:func:`histogram`)."""
     n = bins.shape[1] if rows is None else rows.numel()
     impl = pick_impl(impl, n, num_bins, values.shape[1], hist_dtype, route, bins.device.type)
     if impl == "scatter":
         return leaf_histogram(bins, values, num_bins, rows)
     if impl == "cuda":
-        return histogram(bins, values, num_bins, rows, hist_dtype)
+        return histogram(bins, values, num_bins, rows, hist_dtype, grouped=grouped)
     if impl == "cuda_onehot":
         return hist_onehot(bins, values, num_bins, rows, hist_dtype)
     if impl == "cuda_bitplane":

@@ -100,7 +100,7 @@ def test_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("params,name", [
     ({"boosting": "dart"}, "boosting"),
-    ({"objective": "regression"}, "objective"),
+    ({"objective": "regression_l1"}, "objective"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
     ({"cegb_penalty_split": 0.1}, "cegb"),
     ({"histogram_pool_size": 1.0}, "histogram_pool_size"),
@@ -108,7 +108,7 @@ def test_wrappers_refuse_other_devices():
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
     ({"boosting": "goss"}, "boosting"),
-    ({"metric": "l2"}, "metric"),
+    ({"metric": "ndcg"}, "metric"),
 ])
 def test_unsupported_params_raise(params, name):
     X, y = _data()

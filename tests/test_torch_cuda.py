@@ -765,11 +765,13 @@ def test_pick_partition_refuses_a_grid_that_does_not_fit(dev):
         _launch_with_grid(s, partition_kernel.co_resident_grid(dev) + 1)
 
 
+@pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_histogram_segment_matches_histogram(dev, dtype):
+def test_histogram_segment_matches_histogram(dev, dtype, grouped):
     """The segment entry, its rows and leaf read from device memory, against
     ``histogram`` given the same rows from the host: exact on dyadic values,
-    within the two-order bound of the plain version on real ones."""
+    within the two-order bound of the plain version on real ones; in both
+    forms (``grouped``)."""
     N = 1_000_000
     bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=3)
     dy = leaf_values(grad, hess, torch.ones(N, device=dev))
@@ -779,7 +781,7 @@ def test_histogram_segment_matches_histogram(dev, dtype):
     order = torch.randperm(N, generator=gen, device=dev).int()
     for vals, exact in ((dy, True), (real, False)):
         s = gs.GrowState(dev, N, 28, 255, 4)
-        s.bind(bins, nf.t(), vals, meta, mask, LOOP_PARAMS, True, -1, dtype)
+        s.bind(bins, nf.t(), vals, meta, mask, LOOP_PARAMS, True, -1, dtype, grouped)
         s.reset()
         s.order.copy_(order)
         s.ctl[gs.SMALL] = 1
@@ -789,7 +791,7 @@ def test_histogram_segment_matches_histogram(dev, dtype):
             hist_kernel.histogram_segment(s)
             rows = order[begin:begin + count].contiguous()
             if exact:
-                want = hist_kernel.histogram(nf.t(), vals, 255, rows, dtype)
+                want = hist_kernel.histogram(nf.t(), vals, 255, rows, dtype, grouped=grouped)
                 assert torch.equal(s.small[0], want), (begin, count)
             else:
                 want = leaf_histogram(bins, vals, 255, rows, dtype)
@@ -1192,7 +1194,7 @@ def test_graph_with_valid_bag_and_feature_mask_equals_eager(monkeypatch, dev):
         assert b._gbdt.train_score().tobytes() == g.train_score().tobytes(), name
         assert b._gbdt._valid_score_np(0).tobytes() == g._valid_score_np(0).tobytes(), name
     assert runs["graph"]._gbdt.captures == runs["chunk"]._gbdt.captures == 1
-    want = torch.zeros(len(Xv), device=dev) + np.float32(g._init_fold)
+    want = torch.zeros(len(Xv), device=dev) + np.float32(g._init_fold[0])
     for ta in g._tree_arrays:
         ptree = predict_plain.make_predict_tree(ta, g.feature_meta)
         want += ptree.leaf_value.to(dev)[predict_plain.tree_predict_leaf(g._valid_bins[0], ptree)]
@@ -1211,3 +1213,170 @@ def test_learning_rate_schedule_replays_one_graph(monkeypatch, dev):
     assert runs[0]._gbdt.captures == 1
     assert _trees_text(runs[0]) == _trees_text(runs[1])
     assert runs[0]._gbdt.train_score().tobytes() == runs[1]._gbdt.train_score().tobytes()
+
+
+# ---- K trees an iteration (multiclass) ------------------------------------------
+
+
+def test_score_update_into_a_class_row(dev):
+    """score_update into row k of [K, N] scores (the multiclass iteration's
+    ``scores[k]``) equals the plain version bit for bit on real values and
+    leaves the other rows untouched."""
+    N, K = 100_000, 7
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=31, real=True)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    scores = torch.randn((K, N), generator=gen, device=dev)
+    want = scores.clone()
+    for k in range(K):
+        grow_mod.launch_tree(s, bins, grad * (k + 1), hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+        value = torch.randn(255, generator=gen, device=dev)
+        before = scores.clone()
+        grow_step_kernel.score_update(s, value, scores[k])
+        grow_step_plain.score_update(s, value, want[k])
+        assert torch.equal(scores, want), k
+        others = [j for j in range(K) if j != k]
+        assert torch.equal(scores[others], before[others]), k
+
+
+def test_predict_bins_per_class(dev):
+    """predict_bins adds each class's tree into its row of a [K, Nv]
+    validation score: equal to the plain version, the other rows untouched."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    N, Nv, K = 100_000, 50_001, 7
+    bins, nf, grad, hess, meta, mask = _loop_inputs(dev, N, seed=33)
+    s = gs.GrowState(dev, N, 28, 255, 255)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    rows = (torch.rand((Nv, 28), generator=gen, device=dev) * meta["num_bin"]).to(torch.uint8)
+    got = torch.randn((K, Nv), generator=gen, device=dev)
+    want = got.clone()
+    for k in range(K):
+        grow_mod.launch_tree(s, bins, grad * (k + 1), hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+        nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+        value = torch.randn(255, generator=gen, device=dev)
+        before = got.clone()
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got[k])
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want[k])
+        assert torch.equal(got, want), k
+        others = [j for j in range(K) if j != k]
+        assert torch.equal(got[others], before[others]), k
+
+
+def test_multiclass_graph_chunk_and_eager_equal(monkeypatch, dev):
+    """Multiclass (K = 4) training with gradients and hessians rounded to
+    multiples of 2^-10 at 16,000 rows (every |g| < 1 and h <= 1/2, so every
+    histogram sum is exact whatever the kernels' order), with bagging,
+    feature_fraction and a validation set: the eager launches, a replay an
+    iteration (K trees a replay) and chunks of 4 give the same model text,
+    train scores and validation scores bit for bit; each class's
+    validation score equals the plain per-tree adds."""
+    from helpers.bench_data import make_higgs_like
+
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as obj_mod
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+
+    get = obj_mod.MulticlassSoftmax.get_gradients
+    q = 1024.0
+
+    def dyadic(self, score):
+        g, h = get(self, score)
+        return torch.round(g * q) / q, torch.clamp(torch.round(h * q), min=1.0) / q
+
+    monkeypatch.setattr(obj_mod.MulticlassSoftmax, "get_gradients", dyadic)
+    K = 4
+    X, _ = make_higgs_like(20_000, 28, seed=5)
+    y = (np.digitize(X[:, 0] + X[:, 3], [-1.0, 0.0, 1.0])).astype(float)
+    ds = tlgb.Dataset(X[:16_000], label=y[:16_000])
+    params = {"objective": "multiclass", "num_class": K, "num_leaves": 31, "learning_rate": 0.2,
+              "verbose": -1, "bagging_fraction": 0.8, "bagging_freq": 1, "feature_fraction": 0.8}
+    runs = {}
+    for name, chunk, graph in (("eager", 1, False), ("graph", 1, True), ("chunk", 4, True)):
+        b = tlgb.Booster(dict(params, device_chunk_size=chunk), ds, device="cuda")
+        b._gbdt.iteration_graph = graph
+        b.add_valid(tlgb.Dataset(X[16_000:], label=y[16_000:]), "v")
+        steps = 0
+        while steps < 9:
+            ran, _ = b.update_chunk(b._gbdt.device_chunk() if steps else 1)
+            steps += ran
+        runs[name] = b
+    ref = runs["eager"]
+    g = ref._gbdt
+    assert g.grow_loop == "device" and ref.num_trees() == 9 * K
+    for name, b in runs.items():
+        assert _trees_text(b) == _trees_text(ref), name
+        assert b._gbdt.train_score().tobytes() == g.train_score().tobytes(), name
+        assert b._gbdt._valid_score_np(0).tobytes() == g._valid_score_np(0).tobytes(), name
+    assert runs["graph"]._gbdt.captures == runs["chunk"]._gbdt.captures == 1
+    want = torch.zeros((K, 4000), device=dev)
+    for k in range(K):
+        want[k] += np.float32(g._init_fold[k])
+    for i, ta in enumerate(g._tree_arrays):
+        ptree = predict_plain.make_predict_tree(ta, g.feature_meta)
+        want[i % K] += ptree.leaf_value.to(dev)[predict_plain.tree_predict_leaf(g._valid_bins[0], ptree)]
+    assert want.double().cpu().numpy().tobytes() == g._valid_score_np(0).tobytes()
+    assert ref.predict(X[16_000:]).shape == (4000, K)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("F", [8, 6])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_histogram_few_bins_matches_plain(dev, F, dtype, grouped):
+    """Features of 2 and 3 bins, mostly bin 0 (one-hot columns: in the
+    grouped form their adds are grouped by bin within a warp), beside
+    255-bin ones, in the [N, F] copy's word layout (F = 8) and the byte
+    layout (F = 6), in both forms: the root, segments given by rows and the
+    segment entry's segments equal the plain version bit for bit on dyadic
+    values and lie within the two-order bound on real ones. The table is
+    one that ``grouped_adds`` sends to the grouped form."""
+    N, B = 300_001, 255
+    gen = torch.Generator(device=dev).manual_seed(F)
+    u = torch.rand((F, N), generator=gen, device=dev)
+    bins = (u * B).to(torch.uint8)
+    bins[0] = (u[0] > 0.97).to(torch.uint8)  # a sparse one-hot column
+    bins[1] = (u[1] > 0.7).to(torch.uint8)
+    bins[2] = torch.bucketize(u[2], torch.tensor([0.8, 0.95], device=dev)).to(torch.uint8)
+    assert hist_kernel.grouped_adds(bins.cpu().numpy())
+    nf = bins.t().contiguous()
+    q = 1024
+    dyadic = leaf_values(
+        torch.randint(-q, q + 1, (N,), generator=gen, device=dev).float() / q,
+        torch.randint(1, 17, (N,), generator=gen, device=dev).float() / q,
+        torch.ones(N, device=dev))
+    real = leaf_values(torch.randn(N, generator=gen, device=dev),
+                       torch.rand(N, generator=gen, device=dev), torch.ones(N, device=dev))
+    meta = {k: torch.zeros(F, dtype=torch.int32, device=dev)
+            for k in ("missing_type", "default_bin", "monotone")}
+    meta["num_bin"] = torch.full((F,), B, dtype=torch.int32, device=dev)
+    mask = torch.ones(F, dtype=torch.bool, device=dev)
+    order = torch.randperm(N, generator=gen, device=dev).int()
+    segments = ((0, N), (11, 40_000), (3, 999))
+    for vals in (dyadic, real):
+        s = gs.GrowState(dev, N, F, B, 4)
+        s.bind(bins, nf.t(), vals, meta, mask, LOOP_PARAMS, True, -1, dtype, grouped)
+        s.reset()
+        s.order.copy_(order)
+        s.ctl[gs.SMALL] = 1
+        for begin, count in segments:
+            s.leaf_begin[1], s.leaf_count[1] = begin, count
+            s.small[0].zero_()
+            hist_kernel.histogram_segment(s)
+            rows = order[begin:begin + count]
+            for got, rows_ in ((s.small[0], rows), (hist_kernel.histogram(
+                    nf.t(), vals, B, rows.contiguous(), dtype, grouped=grouped), rows)):
+                want = leaf_histogram(bins, vals, B, rows_, dtype)
+                if vals is dyadic:
+                    assert torch.equal(got, want), (begin, count)
+                else:
+                    bound = leaf_histogram(bins, real.abs(), B, rows_, dtype)
+                    assert bool(((got - want).abs() <= bound[..., 2:] * 2.0 ** -23 * bound + 1e-6).all())
+    for rows in (None, torch.sort(torch.randperm(N, generator=gen, device=dev)[:40_000]).values.int(),
+                 torch.arange(0, N, 7, device=dev, dtype=torch.int32)[:999]):
+        got = hist_kernel.histogram(nf.t(), dyadic, B, rows, dtype, grouped=grouped)
+        assert torch.equal(got, leaf_histogram(bins, dyadic, B, rows, dtype))
+        got = hist_kernel.histogram(nf.t(), real, B, rows, dtype, grouped=grouped)
+        want = leaf_histogram(bins, real, B, rows, dtype)
+        bound = leaf_histogram(bins, real.abs(), B, rows, dtype)
+        assert bool(((got - want).abs() <= bound[..., 2:] * 2.0 ** -23 * bound + 1e-6).all())

@@ -65,20 +65,54 @@ def test_grid_shared_memory_under_default(B):
     assert hist_kernel.HIST_STEP == c["kThreads"] * c["kRows"]
 
 
+@pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("n", [1, 700, 1024, 1025, 3000, 9999])
-def test_block_steps_cover_chunk(n):
-    """Inside a chunk, the step loop's (base, thread, j) rows are each row
-    once."""
+def test_block_steps_cover_chunk(n, grouped):
+    """Inside a chunk, each thread's step loop covers each row once: the
+    plain form's thread t steps while its own row base + t is in the chunk;
+    the grouped form's while its warp's first row is (every lane of a warp
+    takes every step), its rows past the chunk masked."""
     _, chunks, rpb = hist_kernel.histogram_grid(n, 28, 132)
     seen = np.zeros(n, np.int64)
-    t = np.arange(256)
     for c in range(chunks):
         begin, end = c * rpb, min((c + 1) * rpb, n)
-        for base in range(begin, end, 1024):
-            for j in range(4):
-                i = base + t + 256 * j
-                np.add.at(seen, i[i < end], 1)
+        for t in range(256):
+            lane = t & 31
+            wbase = begin + (t - lane if grouped else t)
+            while wbase < end:
+                base = wbase + lane if grouped else wbase
+                for j in range(4):
+                    if base + 256 * j < end:
+                        seen[base + 256 * j] += 1
+                wbase += 1024
     assert (seen == 1).all()
+
+
+def _crowded(share, num_bin, n=4096):
+    """An n-row column of ``num_bin`` bins: bin 0 holds ``share`` of the
+    rows, the rest spread evenly."""
+    rest = np.arange(n) % (num_bin - 1) + 1 if num_bin > 1 else np.zeros(n, np.int64)
+    col = np.where(np.arange(n) < int(share * n), 0, rest)
+    return np.random.RandomState(0).permutation(col).astype(np.uint8)
+
+
+@pytest.mark.parametrize("share, num_bin, want", [
+    (1 / 255, 255, False),  # spread bins: chance 1/255
+    (0.5, 2, True),  # a one-hot column at 1/2: chance 1/2
+    (0.97, 2, True),  # a sparse one-hot column
+    (0.25, 4, True),  # 4 even bins: chance exactly 1/4
+    (0.2, 5, False),  # 5 even bins: 1/5
+    (0.55, 255, True),  # one bin of 255 holding 55%: chance about 0.30
+    (0.4, 255, False),  # 40%: chance about 0.16
+])
+def test_grouped_adds_picks_crowded_tables(share, num_bin, want):
+    """``grouped_adds`` sends a table to the grouped form when some
+    feature's two random rows share a bin with a chance of at least 1/4,
+    whatever the other features."""
+    spread = np.stack([_crowded(1 / 255, 255) for _ in range(3)])
+    table = np.concatenate([spread, _crowded(share, num_bin)[None]])
+    assert hist_kernel.grouped_adds(table) is want
+    assert hist_kernel.grouped_adds(spread) is False
 
 
 def mirror(bins, vals, B, rows, num_sms):

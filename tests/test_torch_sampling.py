@@ -5,17 +5,16 @@ split loops), on the CPU, against the JAX package.
  * feature_fraction masks equal the JAX package's, drawn one an iteration
    and a chunk's at once, from the same generator in the same order;
  * the bag has exactly ``int(bagging_fraction * N)`` ones, is redrawn on the
-   ``bagging_freq`` schedule and is a function of (seed, iteration) alone.
-   The JAX package draws with threefry's permutation, which the port does
-   not reproduce, so the comparisons below hand the port's bag to the JAX
-   code;
+   ``bagging_freq`` schedule, is a function of (seed, iteration) alone, and
+   equals the JAX package's draw (threefry's permutation) bit for bit;
  * with the same bag, both split loops grow the JAX ``grow_tree``'s tree bit
    for bit on dyadic gradients (multiples of 1/64: every sum exact), also
    where the physically larger child is the bagged smaller one (both loops
    build the bagged smaller child's histogram);
  * a whole training equals the JAX package's under tests/test_torch_train.py's
-   rule when the JAX bag draw (``lightgbm_tpu.models.gbdt._device_bag_mask``,
-   monkeypatched here only) returns the port's bag;
+   rule, with the JAX bag draw as it is and with it
+   (``lightgbm_tpu.models.gbdt._device_bag_mask``, monkeypatched there only)
+   returning the port's bag;
  * chunks of 4 equal chunk 1 bit for bit with bagging, feature_fraction, a
    validation set and a mid-chunk no-split stop (the port's twin of
    tests/test_device_chunk.py's stop-with-bagging and stop-with-valid cases).
@@ -38,6 +37,17 @@ from lightgbm_tpu_torch.ops import grow_state as gs
 from lightgbm_tpu_torch.ops import hist_kernel
 from lightgbm_tpu_torch.ops.grow import TreeArrays, grow_tree, grow_tree_device, run_step, start_tree
 from lightgbm_tpu_torch.ops.split import SplitParams
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's small tensors: faster alone,
+    and the test workers do not oversubscribe the cores. Restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SAMPLED = {"objective": "binary", "metric": "auc", "num_leaves": 15, "learning_rate": 0.1,
            "max_bin": 255, "verbose": -1, "bagging_fraction": 0.8, "bagging_freq": 2,
@@ -103,6 +113,28 @@ def test_bag_is_a_function_of_seed_and_iteration():
     assert 0.4 * n < float(out_rows.mean()) < 0.6 * n
 
 
+def _jax_bag(seed, iteration, n, cnt):
+    key = jax.random.fold_in(jax.random.PRNGKey(seed), iteration)
+    return np.asarray(jgbdt._device_bag_mask(key, n, cnt))
+
+
+@pytest.mark.parametrize("n", [1, 2, 1000, 1625, 1626, 100_000])
+@pytest.mark.parametrize("iteration", [0, 1, 7, 1000])
+@pytest.mark.parametrize("seed", [0, 1, 12345, 2 ** 31 - 1])
+def test_bag_equals_jax_draw(seed, iteration, n):
+    """Bit for bit the JAX package's ``_device_bag_mask(fold_in(PRNGKey(seed),
+    iteration), n, cnt)``: 0 shuffle rounds at n = 1, 1 up to n = 1625, 2
+    from n = 1626."""
+    cnt = max(1, int(0.8 * n))
+    np.testing.assert_array_equal(draw_bag(seed, iteration, n, cnt, "cpu").numpy(),
+                                  _jax_bag(seed, iteration, n, cnt))
+
+
+def test_bag_equals_jax_draw_at_1m():
+    n, cnt = 1_000_000, 800_000
+    np.testing.assert_array_equal(draw_bag(7, 3, n, cnt, "cpu").numpy(), _jax_bag(7, 3, n, cnt))
+
+
 @pytest.mark.parametrize("freq", [1, 3])
 def test_bag_follows_bagging_freq(higgs, freq):
     X, y = higgs
@@ -160,12 +192,47 @@ def _grow_all(bins, meta, grad, hess, bag, M, fmask=None):
     return want, np.asarray(want_leaf), [host, (dev_tree, dev_leaf)]
 
 
-def _assert_equal(got, got_leaf, want, want_leaf):
+def _exact_gains(want, want_leaf, grad, hess, bag):
+    """Each node's gain in f64 from the bagged dyadic sums (exact) of the
+    rows under its two children: G_l^2 / (H_l + l2) + G_r^2 / (H_r + l2)
+    - G^2 / (H + l2), PARAMS' lambda_l2 and no l1."""
+    lc, rc = want["left_child"], want["right_child"]
+    g, h = grad.astype(np.float64) * bag, hess.astype(np.float64) * bag
+    l2 = PARAMS[1]
+
+    def rows(child):
+        leaves, stack = [], [child]
+        while stack:
+            c = stack.pop()
+            if c < 0:
+                leaves.append(-c - 1)
+            else:
+                stack.extend((lc[c], rc[c]))
+        return np.isin(want_leaf, leaves)
+
+    def leaf_gain(m):
+        return g[m].sum() ** 2 / (h[m].sum() + l2)
+
+    out = []
+    for k in range(int(want["num_leaves"]) - 1):
+        left, right = rows(lc[k]), rows(rc[k])
+        out.append(leaf_gain(left) + leaf_gain(right) - leaf_gain(left | right))
+    return np.asarray(out)
+
+
+def _assert_equal(got, got_leaf, want, want_leaf, exact_gain):
+    """Every field bit for bit but the gain, which f32 rounding moves with
+    the summation and XLA's fused multiply-adds (tests/test_torch_split.py):
+    the port's and the JAX package's each within rtol 1e-6 of the exact f64
+    gain of the same splits."""
     for name in TreeArrays._fields:
         a, b = want[name], getattr(got, name).numpy()
         assert a.shape == b.shape and a.dtype == b.dtype, name
-        if name == "split_gain":  # XLA's fused multiply-adds (tests/test_torch_split.py)
-            np.testing.assert_allclose(b, a, rtol=1e-6, atol=0)
+        if name == "split_gain":
+            n = len(exact_gain)
+            for gain in (b, a):
+                np.testing.assert_allclose(gain[:n], exact_gain, rtol=1e-6, atol=0)
+            np.testing.assert_array_equal(b[n:], a[n:])
         else:
             np.testing.assert_array_equal(b, a, err_msg=name)
     np.testing.assert_array_equal(got_leaf.numpy(), want_leaf)
@@ -178,8 +245,9 @@ def test_bagged_loops_equal_jax_grow_tree(seed):
     fmask = np.ones(bins.shape[0], bool)
     fmask[seed + 1] = False  # and a feature_fraction mask with a zero
     want, want_leaf, runs = _grow_all(bins, meta, grad, hess, bag, 15, fmask)
+    exact = _exact_gains(want, want_leaf, grad, hess, bag)
     for got, got_leaf in runs:
-        _assert_equal(got, got_leaf, want, want_leaf)
+        _assert_equal(got, got_leaf, want, want_leaf, exact)
     assert int(want["num_leaves"]) == 15
     assert not np.any(want["split_feature"][:14] == seed + 1)
     # the counts are the bag's: the root's children hold the bagged rows
@@ -214,8 +282,9 @@ def test_bagged_smaller_child_is_built_from_its_rows(monkeypatch):
 
     monkeypatch.setattr(hist_kernel, "routed_histogram", record)
     want, want_leaf, runs = _grow_all(bins, meta, grad, hess, bag, 4)
+    exact = _exact_gains(want, want_leaf, grad, hess, bag)
     for got, got_leaf in runs:
-        _assert_equal(got, got_leaf, want, want_leaf)
+        _assert_equal(got, got_leaf, want, want_leaf, exact)
     assert want["split_feature"][0] == 0 and want["threshold_bin"][0] == 4
     assert seg_rows[0] == int(left.sum())  # the host loop's first segment: the left child
 
@@ -280,6 +349,33 @@ def test_training_with_bag_and_feature_fraction_agrees_with_jax(against_jax, mon
                                rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("loop", ["host", "device"])
+def test_bagged_training_equals_jax_without_patch(higgs, monkeypatch, loop):
+    """The JAX package's own bag draw, untouched: the same bags, so the same
+    trees under tests/test_torch_train.py's rule."""
+    X, y = higgs
+    params = dict(SAMPLED, feature_fraction=1.0)
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y), ROUNDS)
+    if loop == "device":
+        monkeypatch.setattr(hist_kernel, "_ENV_IMPL", "cuda")
+    tb = tlgb.train(dict(params), tlgb.Dataset(X, label=y), ROUNDS, device="cpu")
+    assert tb._gbdt.grow_loop == loop
+    seed = tb._gbdt.config.bagging_seed
+    assert torch.equal(tb._gbdt._bag, draw_bag(seed, tb._gbdt._bag_iter, len(y),
+                                               int(0.8 * len(y)), "cpu"))
+    np.testing.assert_array_equal(tb._gbdt._bag.numpy(), np.asarray(jb._gbdt._bag_mask))
+    jt, tt = jb._gbdt.trees(), tb._gbdt.trees()
+    assert len(jt) == len(tt) == ROUNDS
+    for i, (a, b) in enumerate(zip(jt, tt)):
+        assert a.num_leaves == b.num_leaves, ("a different tree", i)
+        np.testing.assert_array_equal(b.split_feature, a.split_feature)
+        np.testing.assert_array_equal(b.threshold_bin, a.threshold_bin)
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(b.internal_count, a.internal_count)
+    np.testing.assert_allclose(tb.predict(X, raw_score=True), jb.predict(X, raw_score=True),
+                               rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("params", [
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.5},
@@ -320,10 +416,10 @@ def _chunk_run(params, chunk, rounds, seed):
                       device="cpu")
 
 
-@pytest.mark.parametrize("min_gain,rounds", [(0.0, 9), (15.0, 24)])
+@pytest.mark.parametrize("min_gain,rounds", [(0.0, 9), (18.0, 24)])
 def test_chunk_4_equals_chunk_1_with_sampling_and_valid(monkeypatch, min_gain, rounds):
     """Model text, train scores and validation scores byte-equal; at
-    min_gain_to_split 15 training stops in the middle of a chunk."""
+    min_gain_to_split 18 training stops in the middle of a chunk."""
     monkeypatch.setattr(hist_kernel, "_ENV_IMPL", "cuda")
     params = dict(CHUNKED, min_gain_to_split=min_gain)
     ref = _chunk_run(params, 1, rounds, 10)

@@ -192,11 +192,15 @@ def test_early_stopping_equals_jax(higgs, jax_early_stopped, monkeypatch, loop):
     np.testing.assert_allclose(tres["valid_0"]["binary_logloss"], jres["valid_0"]["binary_logloss"],
                                rtol=1e-5)
     assert dict(tb.best_score["valid_0"]) == pytest.approx(dict(jb.best_score["valid_0"]), rel=1e-5)
-    # predict() takes best_iteration; the scores agree with the JAX model's first ones
-    best = tb.predict(X[2000:], raw_score=True)
-    np.testing.assert_array_equal(best, tb.predict(X[2000:], num_iteration=tb.best_iteration,
-                                                   raw_score=True))
-    assert not np.array_equal(best, tb.predict(X[2000:], num_iteration=-1, raw_score=True))
+    # predict() takes every tree, as the JAX package's does: equal to the JAX
+    # model's prediction after the early stop; num_iteration=best_iteration
+    # takes the first ones, which agree with the JAX model's first ones
+    every = tb.predict(X[2000:], raw_score=True)
+    np.testing.assert_array_equal(every, tb.predict(X[2000:], num_iteration=-1, raw_score=True))
+    np.testing.assert_allclose(tb.predict(X[2000:]), jb.predict(X[2000:]), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(every, jb.predict(X[2000:], raw_score=True), rtol=1e-4, atol=1e-5)
+    best = tb.predict(X[2000:], num_iteration=tb.best_iteration, raw_score=True)
+    assert not np.array_equal(best, every)
     np.testing.assert_allclose(best, jb.predict(X[2000:], num_iteration=jb.best_iteration,
                                                 raw_score=True), rtol=1e-4, atol=1e-5)
     # the validation score is every tree's f32 adds: the raw f64 prediction to rounding
