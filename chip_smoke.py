@@ -126,6 +126,27 @@ Phases (each prints one line; any failure exits non-zero):
     of 7 trees on the whole table, the histograms in their grouped form
     (the table's 2-bin features) and each class's score update into its
     own row of the scores; the turns and profile of 4e;
+ 4g. categorical features on Covertype in its published form
+    (``covertype_compact_rows``: 4f's rows, 581,012 x 12, Wilderness_Area
+    with 4 values and Soil_Type with 40 as two categorical columns): 4f's
+    configuration in chunks of 10; Wilderness takes the one-hot branch and
+    Soil the CTR one (from their num_bin); the first iteration's trees
+    split them, a CTR node with more than one category among them;
+    multi_error below the majority share; each class's validation score
+    (predict_bins' categorical nodes) equal to the plain per-tree adds; the
+    held-out multi_logloss of the same run with the two columns read as
+    numerical, recorded; on 16,000 rows with gradients rounded to 2^-10 the
+    captured iteration equal to the eager launches, chunks of 4 and the
+    host loop (model text and scores); one eager iteration on the whole
+    table with every split scan held (the root's and every folded one,
+    membership words included), pick_partition every 16th step, among them
+    picks of categorical splits; the categorical instantiations of the
+    folded scan (step 16), pick_partition (the first categorical pick) and
+    predict_bins (the held-out set) against their plain versions and
+    timed against their bounds; the scan's entry timed on one pair of
+    this table's histograms with its categorical blocks, with the same
+    features as numerical blocks of the categorical instantiation, and in
+    the numerical instantiation; the turns and profile of 4e;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -161,11 +182,14 @@ Phases (each prints one line; any failure exits non-zero):
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
-    main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's
-    and 4f's trainings and turns, the sweep and the routed trainings, each with
-    the counts set to 0 just before it and read just after; the split
-    loop's kernels timed in phase 4b, leaf_ids and score_update in 4c,
-    predict_bins in 4d), the seconds of each phase, then the result line.
+    main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
+    4f's and 4g's trainings and turns, the sweep and the routed trainings,
+    each with the counts set to 0 just before it and read just after; the
+    split loop's kernels timed in phase 4b, leaf_ids and score_update in
+    4c, predict_bins in 4d; the categorical instantiations of the folded
+    scan, pick_partition and predict_bins in rows of their own, timed in
+    4g, their launches 4g's training's), the seconds of each phase, then
+    the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -252,8 +276,8 @@ def main() -> int:
     from helpers.bench_data import make_higgs_like
     from lightgbm_tpu_torch import bench as bench_mod
     from lightgbm_tpu_torch.bench import (
-        COVER_PARAMS, COVER_ROWS, COVER_VALID_ROWS, YEAR_FEATURES, YEAR_PARAMS, YEAR_ROWS,
-        YEAR_VALID_ROWS, covertype_like_rows, year_like_rows,
+        COVER_CATEGORICAL, COVER_PARAMS, COVER_ROWS, COVER_VALID_ROWS, YEAR_FEATURES, YEAR_PARAMS,
+        YEAR_ROWS, YEAR_VALID_ROWS, covertype_compact_rows, covertype_like_rows, year_like_rows,
     )
     from lightgbm_tpu_torch import objective as objective_mod
     from lightgbm_tpu_torch.obs import tune
@@ -314,14 +338,18 @@ def main() -> int:
     # the split loop's kernels: the fused pick and partition, the split scan's
     # three instances (host-indexed, device-indexed, folded), grow_step's
     # leaf lookup (leaf_ids' int64 leaves; score_update's byte or int32
-    # leaves) and score_update's pass in row order
-    assert set(ptxas["partition"]) == {"pick_partition_kernel"}, ptxas
-    assert set(ptxas["split_pair"]) == {"split_pair_kernel<0,0>", "split_pair_kernel<1,0>",
-                                        "split_pair_kernel<1,1>"}, ptxas
+    # leaves) and score_update's pass in row order; the pick and partition,
+    # the scan and predict_bins each also in a categorical instantiation
+    assert set(ptxas["partition"]) == {
+        "pick_partition_kernel<0>", "pick_partition_kernel<1>"}, ptxas
+    assert set(ptxas["split_pair"]) == {
+        "split_pair_kernel<%d,%d,%d>" % (d, fo, ca)
+        for d, fo in ((0, 0), (1, 0), (1, 1)) for ca in (0, 1)}, ptxas
     assert set(ptxas["grow_step"]) == {
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
         "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
-    assert set(ptxas["predict_bins"]) == {"predict_bins_kernel"}, ptxas
+    assert set(ptxas["predict_bins"]) == {
+        "predict_bins_kernel<0>", "predict_bins_kernel<1>"}, ptxas
     # histogram.cu: both entries per (operand type, bin path, grouped form)
     assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
@@ -506,10 +534,11 @@ def main() -> int:
         params = SplitParams(*pr)
         for two_way in (True, False):
             for case, (h, s, cn, mt, fm, leaves) in cases.items():
-                kf, ki = split_kernel.find_best_split_pair(h, s, cn, mt, fm, params, two_way, leaves)
-                pf, pi = find_best_split_pair(h, s, cn, mt, fm, params, two_way, leaves)
+                kf, ki, kb = split_kernel.find_best_split_pair(h, s, cn, mt, fm, params, two_way,
+                                                               leaves)
+                pf, pi, pb = find_best_split_pair(h, s, cn, mt, fm, params, two_way, leaves)
                 same_f = (kf == pf) | (torch.isnan(kf) & torch.isnan(pf))
-                assert bool(same_f.all()) and torch.equal(ki, pi), (
+                assert bool(same_f.all()) and torch.equal(ki, pi) and torch.equal(kb, pb), (
                     "split kernel != plain", case, pr, two_way, kf, pf, ki, pi)
                 split_fields[case] += kf.numel() + ki.numel()
     del leaf_buf, hist_w
@@ -1337,7 +1366,7 @@ def main() -> int:
         launches_per_turn=valid_turn_launches, turn_calls=turn_calls, profile=valid_prof,
         predict_bins=predict_t)
 
-    def hold_calls(steps_every=0):
+    def hold_calls(steps_every=0, scan_every=None):
         """Hold every call of each histogram kernel wrapper to its plain
         version on the same rows within the two-order bound, and every
         score_update to ``score.add_(value[leaf_ids])`` bit for bit, until
@@ -1346,12 +1375,16 @@ def main() -> int:
         score_update wrote): every tree, those after a flip included. With
         ``steps_every``, pick_partition and the folded scan of every such
         step of a tree (steps 0, steps_every, ...) also run against their
-        plain versions on a copy of the state, the whole state equal."""
+        plain versions on a copy of the state, the whole state equal (the
+        membership words of the records and nodes included); with
+        ``scan_every`` the scans (the root's too) at that stride instead.
+        ``categorical`` counts the held calls on a state with categorical
+        features, and the held picks that split a categorical feature."""
         plains = dict(histogram=leaf_histogram, hist_onehot=leaf_histogram,
                       hist_bitplane=leaf_histogram, hist_packed4_rows=leaf_histogram_packed4_rows)
         orig = {n: (hist_kernel, getattr(hist_kernel, n)) for n in plains}
         held = dict(checked=dict.fromkeys(plains, 0), worst_err_over_bound=0.0, grouped_calls=0,
-                    score_rows=[])
+                    score_rows=[], categorical=dict(calls=0, picks_of_categorical_features=0))
 
         def check(name, got, plain, values):
             ratio, err = err_over_bound(got, plain(values), plain(values.abs()))
@@ -1396,11 +1429,11 @@ def main() -> int:
             held["score_rows"].append(score.data_ptr())
         grow_step_kernel.score_update = score_call
 
-        def step_call(name, plain):
+        def step_call(name, plain, every):
             kernel = orig[name][1]
 
             def call(st, *a):
-                if (st.queued_steps - 1) % steps_every:
+                if (st.queued_steps - 1) % every:
                     return kernel(st, *a)
                 other = st.clone()
                 kernel(st, *a)
@@ -1411,14 +1444,23 @@ def main() -> int:
                         ((a_ == b_) | (a_.isnan() & b_.isnan())).all())), (
                         "kernel != plain", name, k, st.queued_steps - 1)
                 held["checked"][name] += 1
+                if st.is_cat is not None:
+                    held["categorical"]["calls"] += 1
+                    if name == "pick_partition" and int(st.ctl[gs.ACTIVE]):
+                        f_ = int(st.node_i[int(st.ctl[gs.STEP]) - 1, 0])
+                        held["categorical"]["picks_of_categorical_features"] += bool(st.is_cat[f_])
             return call
 
         if steps_every:
-            for mod, name, plain in ((partition_kernel, "pick_partition", plain_pick_partition),
-                                     (split_kernel, "split_pair_fold", grow_step_plain.split_pair_fold)):
+            scans = steps_every if scan_every is None else scan_every
+            held_steps = [(partition_kernel, "pick_partition", plain_pick_partition, steps_every),
+                          (split_kernel, "split_pair_fold", grow_step_plain.split_pair_fold, scans)]
+            if scan_every is not None:
+                held_steps.append((split_kernel, "split_pair_step", split_pair_step_plain, 1))
+            for mod, name, plain, every in held_steps:
                 orig[name] = (mod, getattr(mod, name))
                 held["checked"][name] = 0
-                setattr(mod, name, step_call(name, plain))
+                setattr(mod, name, step_call(name, plain, every))
 
         def release():
             for name, (mod, fn) in orig.items():
@@ -1426,13 +1468,14 @@ def main() -> int:
             return held
         return release
 
-    def held_iterations(train_set_, params_, n, steps_every=16):
+    def held_iterations(train_set_, params_, n, steps_every=16, scan_every=None):
         """``n`` eager iterations of a new booster on ``train_set_`` under
-        :func:`hold_calls` (its ``steps_every``): every histogram call and
-        score update held, and pick_partition and the folded scan at every
-        ``steps_every``-th step of each tree. Returns the booster's gbdt and
-        what was held."""
-        release_ = hold_calls(steps_every)
+        :func:`hold_calls` (its ``steps_every`` and ``scan_every``): every
+        histogram call and score update held, and pick_partition and the
+        folded scan at every ``steps_every``-th step of each tree (the scans
+        at every ``scan_every``-th). Returns the booster's gbdt and what was
+        held."""
+        release_ = hold_calls(steps_every, scan_every)
         try:
             b_ = lgb.Booster(dict(params_), train_set_)
             b_._gbdt.iteration_graph = False  # a replay calls no wrapper to hold
@@ -1636,6 +1679,194 @@ def main() -> int:
         captured_equals_eager_and_chunk4=dict(rows=16_000, iterations=9), held_calls=cover_held,
         iterations_per_s=cover_ips, launches_per_turn=cover_turn_launches, profile=cover_prof)
     del cbst, gc_, cover_set, cover_valid, Xc, yc, Xcv, ycv
+
+    # ---- 4g. categorical: Covertype in its published form --------------------------
+    # 581,012 x 12 (bench.covertype_compact_rows: 4f's rows with the two
+    # one-hot groups as two integer columns), Wilderness_Area (4 values: the
+    # one-hot branch) and Soil_Type (40: the CTR branch) categorical; K = 7,
+    # 255 leaves, 255 bins, a 100k-row held-out set with multi_logloss and
+    # multi_error, early stopping 5, 10 iterations in chunks of 10
+    cat_params = dict(COVER_PARAMS, device_chunk_size=10)
+    Xk, yk = covertype_compact_rows(COVER_ROWS, seed=31)
+    Xkv, ykv = covertype_compact_rows(COVER_VALID_ROWS, seed=32)
+    t0 = time.perf_counter()
+    cat_set = lgb.Dataset(Xk, label=yk, categorical_feature=COVER_CATEGORICAL)
+    cat_valid = lgb.Dataset(Xkv, label=ykv, reference=cat_set)
+    cat_cfg = Config.from_params(dict(cat_params))
+    cat_binned = cat_set.get_binned(cat_cfg)
+    cat_valid.get_binned(cat_cfg)
+    cat_bin_s = time.perf_counter() - t0
+    cat_pos = [list(cat_binned.used_feature_idx).index(j) for j in COVER_CATEGORICAL]
+    cat_bins = [int(cat_binned.mappers[f].num_bin) for f in cat_pos]
+    branches = ["one-hot" if nb <= cat_cfg.max_cat_to_onehot else "ctr" for nb in cat_bins]
+    assert branches == ["one-hot", "ctr"] and all(
+        cat_binned.mappers[f].bin_type == 1 for f in cat_pos), (cat_bins, branches)
+    cat_evals = {}
+    kbst, cat_train_s, cat_launches = counted(lambda: lgb.train(
+        dict(cat_params), cat_set, 10, valid_sets=[cat_valid], early_stopping_rounds=5,
+        evals_result=cat_evals, verbose_eval=False))
+    gk = kbst._gbdt
+    assert gk.grow_loop == "device" and gk.captures == 1 and gk.num_words == 8, gk.captures
+    assert kbst.num_trees() == K * kbst.current_iteration, kbst.num_trees()
+    assert all(cat_launches.get(k, 0) > 0 for k in loop_kernels + ("predict_bins",)), cat_launches
+    kprior = np.bincount(yk.astype(np.int64), minlength=K) / len(yk)
+    kerr, kll = cat_evals["valid_0"]["multi_error"], cat_evals["valid_0"]["multi_logloss"]
+    assert min(kerr) < kprior.max(), (kerr, kprior)
+    # the first iteration's trees split the categorical features, a CTR node
+    # among them with more than one category on its left
+    first_cat = first_ctr = 0
+    for ta in gk._tree_arrays[:K]:
+        m_ = int(ta.num_leaves) - 1
+        f_ = ta.split_feature[:m_].numpy()
+        members = ta.cat_member[:m_].sum(1).numpy()
+        first_cat += int(np.isin(f_, cat_pos).sum())
+        first_ctr += int(((f_ == cat_pos[1]) & (members > 1)).sum())
+    assert first_cat > 0 and first_ctr > 0, (first_cat, first_ctr)
+    kprob = kbst.predict(Xkv[:1000])
+    assert kprob.shape == (1000, K) and np.allclose(kprob.sum(1), 1.0)
+    # each class's validation score (predict_bins' categorical nodes) equals
+    # the plain traversal's per-tree f32 adds
+    kbins = gk._valid_bins[0]
+    plain_valid = torch.zeros((K, COVER_VALID_ROWS), device=dev)
+    for k in range(K):
+        plain_valid[k] += np.float32(gk._init_fold[k])
+    for i, ta in enumerate(gk._tree_arrays):
+        ptree = predict_plain.make_predict_tree(ta, gk.feature_meta)
+        plain_valid[i % K] += ptree.leaf_value[predict_plain.tree_predict_leaf(kbins, ptree)]
+    assert plain_valid.double().cpu().numpy().tobytes() == gk._valid_score_np(0).tobytes(), (
+        "a class's validation score != the plain per-tree adds (categorical)")
+    # the same run with the two columns read as numerical: its held-out
+    # multi_logloss, recorded beside the categorical run's
+    num_evals = {}
+    lgb.train(dict(cat_params), lgb.Dataset(Xk, label=yk), 10,
+              valid_sets=[lgb.Dataset(Xkv, label=ykv)], early_stopping_rounds=5,
+              evals_result=num_evals, verbose_eval=False)
+    # on 16,000 rows with gradients and hessians rounded to multiples of
+    # 2^-10 (every histogram cell exact), the captured iteration equals the
+    # eager launches and chunks of 4, and the host loop the device loop
+    ds_kq = lgb.Dataset(Xk[:16_000], label=yk[:16_000], categorical_feature=COVER_CATEGORICAL)
+    objective_mod.MulticlassSoftmax.get_gradients = mc_dyadic
+    try:
+        kq = {}
+        for kind, c, graph_on in (("eager", 1, False), ("graph", 1, True), ("chunk", 4, True),
+                                  ("host", 1, False)):
+            b_ = lgb.Booster(dict(COVER_PARAMS, device_chunk_size=c), ds_kq)
+            b_._gbdt.iteration_graph = graph_on
+            if kind == "host":
+                b_._gbdt.grow_loop = "host"
+            assert bench_mod.train_iterations(b_, 9, c) == 9, kind
+            kq[kind] = b_
+    finally:
+        objective_mod.MulticlassSoftmax.get_gradients = get_mc
+    kq_text = kq["eager"].model_to_string().split("parameters:")[0]
+    assert "cat_threshold=" in kq_text
+    for kind, b_ in kq.items():
+        assert b_.num_trees() == 9 * K, (kind, b_.num_trees())
+        assert b_.model_to_string().split("parameters:")[0] == kq_text, ("categorical trees differ", kind)
+        assert b_._gbdt.train_score().tobytes() == kq["eager"]._gbdt.train_score().tobytes(), kind
+    assert kq["graph"]._gbdt.captures == kq["chunk"]._gbdt.captures == 1
+    del kq, ds_kq
+    # the kernels against their plain versions at this table's shape: one
+    # eager iteration (7 trees) on all 581,012 rows, every histogram call,
+    # score update and split scan (the root's and every step's folded one,
+    # the membership words included) held, pick_partition every 16th step
+    held_k, cat_held = held_iterations(cat_set, cat_params, 1, steps_every=16, scan_every=1)
+    kck = cat_held["checked"]
+    assert kck["split_pair_step"] == K, kck  # the root's scan of every class's tree
+    assert cat_held["categorical"]["calls"] == sum(
+        kck[n] for n in ("split_pair_step", "split_pair_fold", "pick_partition")), cat_held
+    assert cat_held["categorical"]["picks_of_categorical_features"] > 0, cat_held
+
+    # the categorical instantiations at this table's shapes: a state of
+    # class 0's tree on the run's gradients, grown to step 16, then to the
+    # first pick of a categorical split
+    kgrad, khess = held_k._compute_gradients()
+    kargs = (held_k.bins_dev, kgrad[0].contiguous(), khess[0].contiguous(), held_k.feature_mask,
+             held_k.feature_meta, held_k.config.max_depth, held_k.split_params, held_k._two_way,
+             held_k.bins_nf)
+    ks = gs.GrowState(dev, COVER_ROWS, 12, held_k.num_bins, 255, held_k.num_words)
+    grow_mod.start_tree(ks, *kargs)
+    for _ in range(16):
+        grow_mod.run_step(ks)
+    ksf = ks.clone()
+    partition_kernel.pick_partition(ksf)
+    hist_kernel.histogram_segment(ksf, ksf.queued_steps % 2)
+    kfold_t = held_and_timed(ksf, "split_pair_fold", *fold_kernel)
+    kcells = 12 * held_k.num_bins * 3
+    ctr_bins = sum(int(held_k.feature_meta["num_bin"][f]) for f in cat_pos
+                   if int(held_k.feature_meta["num_bin"][f]) > cat_cfg.max_cat_to_onehot)
+    kfold_t.update(zip(("bound_ms", "bound_by"), bound(
+        5 * kcells * 4 + 2 * 21 * 4 + 12 * 17 + 2 * 12 * 8 * 4,
+        kcells + 2 * 12 * held_k.num_bins * 60 + 2 * ctr_bins ** 2)), library_ms=None,
+        small_child_rows=int(small_rows(ksf).numel()))
+    del ksf
+    while True:  # the next pick that splits a categorical feature
+        gains = ks.best_f[:, 0]
+        if int(ks.best_i[int(torch.argmax(gains)), 0]) in cat_pos and float(gains.max()) > 0:
+            break
+        grow_mod.run_step(ks)
+        assert int(ks.ctl[gs.ACTIVE]), "no categorical split to time"
+    kpick_rows = pick_rows(ks)
+    kpick_t = held_and_timed(ks, "pick_partition", partition_kernel.pick_partition,
+                             plain_pick_partition)
+    kpick_t.update(zip(("bound_ms", "bound_by"), bound(255 * 4 + 320 + 8 * 4 + kpick_rows * 9, 0)),
+                   library_ms=None, rows=kpick_rows, step=int(ks.ctl[gs.STEP]) - 1)
+    del ks
+    # the split scan's entry on one pair of this table's histograms, its
+    # categorical blocks against the same features scanned as numerical
+    gk_s = held_k._grow_state
+    kh = gk_s.hist[:2].contiguous()
+    ksums = kh[:, 0].sum(1).contiguous()
+    kcons = torch.tensor([[-np.inf, np.inf]] * 2, device=dev)
+    meta_num = {k_: v for k_, v in held_k.feature_meta.items() if k_ != "is_categorical"}
+    meta_none = dict(held_k.feature_meta, is_categorical=torch.zeros_like(
+        held_k.feature_meta["is_categorical"]))
+    scan_us = {}
+    for key, mt in (("categorical_blocks", held_k.feature_meta),
+                    ("numerical_blocks_of_the_categorical_instantiation", meta_none),
+                    ("numerical_instantiation", meta_num)):
+        got = split_kernel.find_best_split_pair(kh, ksums, kcons, mt, held_k.feature_mask,
+                                                held_k.split_params)
+        want = find_best_split_pair(kh, ksums, kcons, mt, held_k.feature_mask, held_k.split_params)
+        assert all(torch.equal(a_.nan_to_num(), b_.nan_to_num()) for a_, b_ in zip(got, want)), (
+            "scan != plain", key)
+        scan_us[key] = 1e3 * time_ms(lambda mt=mt: split_kernel.find_best_split_pair(
+            kh, ksums, kcons, mt, held_k.feature_mask, held_k.split_params))
+    # predict_bins over the held-out set through the last tree of the run
+    kpv_args = (kbins, gk_s.node_i[:gk_s.M - 1], gk_s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1],
+                held_k.feature_meta, gk_s.leaf_f[:, 0].contiguous())
+    kpv_k = torch.zeros(COVER_VALID_ROWS, device=dev)
+    kpv_p = torch.zeros(COVER_VALID_ROWS, device=dev)
+    predict_kernel.add_tree_value(*kpv_args, kpv_k, node_b=gk_s.node_b)
+    predict_plain.add_tree_value(*kpv_args, kpv_p, node_b=gk_s.node_b)
+    assert torch.equal(kpv_k, kpv_p)
+    kdepth = float(np.mean([float(ta.leaf_depth[:int(ta.num_leaves)].float().mean())
+                            for ta in gk._tree_arrays]))
+    kpredict_t = dict(
+        ms=time_ms(lambda: predict_kernel.add_tree_value(*kpv_args, kpv_k, node_b=gk_s.node_b)),
+        plain_ms=time_ms(lambda: predict_plain.add_tree_value(*kpv_args, kpv_p,
+                                                              node_b=gk_s.node_b), reps=3),
+        max_abs_err=0.0, library_ms=None, mean_depth=kdepth, rows=COVER_VALID_ROWS)
+    kpredict_t.update(zip(("bound_ms", "bound_by"), bound(
+        COVER_VALID_ROWS * (8 + kdepth) + 254 * (20 + 32), 0)))
+    del held_k, gk_s, kh
+    kips, kturn_launches, kprof = objective_turns(cat_set, cat_params, 10)
+    cat_t = {"split_pair_fold_categorical": kfold_t, "pick_partition_categorical": kpick_t,
+             "predict_bins_categorical": kpredict_t}
+    say("categorical", rows=COVER_ROWS, features=12, categorical_features=COVER_CATEGORICAL,
+        num_bins=cat_bins, branches=branches, valid_rows=COVER_VALID_ROWS, num_class=K,
+        params=cat_params, binning_s=cat_bin_s, train_s=cat_train_s,
+        train_iterations_per_s_with_eval=kbst.current_iteration / cat_train_s,
+        iterations=kbst.current_iteration, best_iteration=kbst.best_iteration,
+        launches=cat_launches, valid_multi_error=kerr, valid_multi_logloss=kll,
+        numerical_read_valid_multi_logloss=num_evals["valid_0"]["multi_logloss"],
+        majority_share=float(kprior.max()), first_iteration_nodes=dict(
+            categorical=first_cat, ctr_more_than_one_category=first_ctr),
+        valid_scores_equal_plain_adds=True,
+        captured_equals_eager_chunk4_and_host=dict(rows=16_000, iterations=9),
+        held_calls=cat_held, split_scan_us_per_call=scan_us, kernels=cat_t,
+        iterations_per_s=kips, launches_per_turn=kturn_launches, profile=kprof)
+    del kbst, gk, cat_set, cat_valid, Xk, yk, Xkv, ykv
 
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]
@@ -2120,6 +2351,21 @@ def main() -> int:
             launches=main_launches.get(name, 0), max_abs_err=t["max_abs_err"], ms=t["ms"],
             plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
             library_ms=t["library_ms"], **({"sizes": t["sizes"]} if "sizes" in t else {}),
+        ))
+    # the categorical instantiations of three of them, timed in phase 4g at
+    # its shapes; their launches are 4g's training run's
+    cat_replaces = {
+        "split_pair_fold": "lightgbm_tpu/ops/split.py:325 (the categorical scan; XLA there)",
+        "pick_partition": "lightgbm_tpu/ops/grow.py:284,1287",
+        "predict_bins": "lightgbm_tpu/ops/predict.py:113",
+    }
+    for name, t in cat_t.items():
+        base = name[:-len("_categorical")]
+        kernels.append(dict(
+            name=name, route="cuda", source="lightgbm_tpu_torch/csrc/" + loop_sources[base][0],
+            replaces=cat_replaces[base], launches=cat_launches.get(base, 0),
+            max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)

@@ -86,8 +86,11 @@ class Dataset:
             return self
         if config is None:
             config = Config.from_params(self.params)
-        if self.categorical_feature not in (None, "auto", "", []):
-            raise NotImplementedError("categorical_feature is not ported yet")
+        cats = None  # indices, names or a comma-joined string, read as lightgbm_tpu/basic.py reads them
+        if isinstance(self.categorical_feature, (list, tuple)):
+            cats = list(self.categorical_feature)
+        elif self.categorical_feature not in (None, "auto"):
+            cats = self.categorical_feature
         ref = None if self.reference is None else self.reference.get_binned(config)
         self._binned = construct_dataset(
             self.data,
@@ -97,6 +100,7 @@ class Dataset:
             init_score=self.init_score,
             feature_names=list(self.feature_name)
             if isinstance(self.feature_name, (list, tuple)) else None,
+            categorical_feature=cats,
             reference=ref,
         )
         return self

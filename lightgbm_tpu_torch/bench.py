@@ -35,7 +35,9 @@ The module also holds the tables of the objective cells (PERF.md section
 4): ``year_like_rows`` (regression, YearPredictionMSD's shape) and
 ``covertype_like_rows`` (multiclass, Covertype's shape), with their
 training params, which chip_smoke.py's phases 4e and 4f and
-``obs/pair.py --kernel histogram_grid`` read.
+``obs/pair.py --kernel histogram_grid`` read, and
+``covertype_compact_rows`` (the same rows with the two one-hot groups as
+two categorical columns), which phase 4g reads.
 
 Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
 iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
@@ -118,6 +120,26 @@ def covertype_like_rows(n, seed, model_seed=13):
         pick = (u > np.cumsum(probs[y], 1)).sum(1)
         X[np.arange(n), off + np.minimum(pick, probs.shape[1] - 1)] = 1.0
     return X, y.astype(np.float64)
+
+
+#: the compact Covertype's categorical columns: Wilderness_Area (4 values)
+#: and Soil_Type (40 values), UCI covtype.info's published form
+COVER_CATEGORICAL = [10, 11]
+
+
+def covertype_compact_rows(n, seed, model_seed=13):
+    """The rows of :func:`covertype_like_rows` in Covertype's published form:
+    the 10 continuous columns, then Wilderness_Area and Soil_Type as two
+    integer-valued columns holding the index that ``covertype_like_rows``
+    one-hot encodes (12 columns; categorical: :data:`COVER_CATEGORICAL`)."""
+    import numpy as np
+
+    X, y = covertype_like_rows(n, seed, model_seed)
+    out = np.empty((n, 12), np.float32)
+    out[:, :10] = X[:, :10]
+    out[:, 10] = np.argmax(X[:, 10:14], axis=1)
+    out[:, 11] = np.argmax(X[:, 14:54], axis=1)
+    return out, y
 
 
 def _line(value: float, **extra) -> str:

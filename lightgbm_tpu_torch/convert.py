@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from .basic import Booster
-from .binning import BIN_NUMERICAL, BinMapper
+from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 from .dataset import BinnedDataset, Metadata
 from .ops.grow import TreeArrays
 
@@ -25,19 +25,27 @@ def binned_from_numpy(
     Each feature gets a numerical BinMapper with the meta's num_bin,
     missing_type and default_bin, whose bin upper bounds are the bin
     indices themselves — a bin-space view, so a tree's real thresholds read
-    as bin numbers. ``feature_meta["monotone"]`` becomes the monotone
+    as bin numbers; a feature that ``feature_meta["is_categorical"]`` marks
+    gets a categorical one whose bins are its categories (bin b holds
+    category b). ``feature_meta["monotone"]`` becomes the monotone
     constraints."""
     bins = np.ascontiguousarray(bins, dtype=np.uint8)
     F, N = bins.shape
+    is_cat = feature_meta.get("is_categorical", np.zeros(F, bool))
     mappers = []
     for f in range(F):
         m = BinMapper()
         m.num_bin = int(feature_meta["num_bin"][f])
         m.missing_type = int(feature_meta["missing_type"][f])
         m.default_bin = int(feature_meta["default_bin"][f])
-        m.bin_type = BIN_NUMERICAL
-        m.bin_upper_bound = [float(b) for b in range(m.num_bin)]
         m.min_val, m.max_val = 0.0, float(m.num_bin - 1)
+        if is_cat[f]:
+            m.bin_type = BIN_CATEGORICAL
+            m.bin_2_categorical = list(range(m.num_bin))
+            m.categorical_2_bin = {b: b for b in range(m.num_bin)}
+        else:
+            m.bin_type = BIN_NUMERICAL
+            m.bin_upper_bound = [float(b) for b in range(m.num_bin)]
         mappers.append(m)
     mono = [int(v) for v in feature_meta.get("monotone", np.zeros(F))]
     return BinnedDataset(
@@ -47,11 +55,16 @@ def binned_from_numpy(
 
 
 def meta_tensors(feature_meta: Mapping[str, np.ndarray], device="cpu") -> Dict[str, torch.Tensor]:
-    """The grower's int32 feature-meta tensors from numpy arrays."""
-    return {
+    """The grower's int32 feature-meta tensors from numpy arrays, and
+    ``is_categorical`` as bool when the meta has it."""
+    out = {
         k: torch.as_tensor(np.asarray(feature_meta[k]).astype(np.int32), device=device)
         for k in ("num_bin", "missing_type", "default_bin", "monotone")
     }
+    if "is_categorical" in feature_meta:
+        out["is_categorical"] = torch.as_tensor(
+            np.asarray(feature_meta["is_categorical"]).astype(bool), device=device)
+    return out
 
 
 def tree_arrays_from_numpy(arrays: Mapping[str, np.ndarray]) -> TreeArrays:

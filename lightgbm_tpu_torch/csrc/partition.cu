@@ -68,6 +68,15 @@
 // the blocks that fit on the card at once (lgbt_pick_partition_grid), so
 // every block is resident and the barrier cannot wait on a block that never
 // runs; a grid that does not fit is refused at launch and reported.
+//
+// Categorical splits (the kCat instantiation, launched when the table has
+// categorical features): the picked leaf's membership words (best_b, W =
+// ceil(B / 32) a leaf) are read once a block, with the pick's meta, into
+// shared memory; a row of a categorical feature then goes left when its
+// bin's bit is set (CategoricalDecisionInner, tree.h:275; no default
+// direction, lightgbm_tpu/ops/grow.py:284-296): one shared load, a shift
+// and a mask a row. The wiring copies the words into the node's row of
+// node_b. A numerical-only table runs the kCat = false code.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -81,6 +90,8 @@ constexpr int kItems = 8;                 // rows a thread a tile
 constexpr int kTile = kThreads * kItems;  // rows a tile
 constexpr int kCap = 10240;               // rows a block keeps in shared memory
 constexpr int kMetaCap = 1024;            // features whose meta a block keeps in shared memory
+constexpr int kMaxWords = 11;             // membership words of a split: ceil(336 / 32)
+constexpr int kCatBit = 30;               // the categorical flag in a feature's meta word
 static_assert(kWarps == 32, "a tile's warp counts are scanned by one warp, kItems a lane");
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kLeftBit = 0x80000000u;
@@ -97,7 +108,7 @@ constexpr int kBestF = 9, kBestI = 4, kNodeI = 5, kNodeF = 3, kLeafF = 3, kLeafI
               kLaux = 5;
 // the block's broadcast words
 enum { sActive, sStep, sNumLeaves, sBest, sGo, sF, sThr, sDl, sBegin, sCount, sLeftSmaller,
-       sMiss, sDbin, sNanBin, sEpoch, sBefore, sTotal, sTileLeft, sWords };
+       sMiss, sDbin, sNanBin, sEpoch, sBefore, sTotal, sTileLeft, sCat, sWords };
 
 struct Params {
   float l1, l2, max_delta_step;
@@ -124,7 +135,10 @@ struct Args {
   int* leaf_count;
   unsigned long long* block_left;
   unsigned* bar;
-  int M, F;
+  const int* best_b;            // [M, W] each leaf's best split's membership words (kCat)
+  int* node_b;                  // [M - 1, W] each node's (kCat)
+  const unsigned char* is_cat;  // [F] (kCat)
+  int M, F, W;
   Params p;
 };
 
@@ -151,8 +165,11 @@ __device__ __forceinline__ bool beats(float g, int i, float bg, int bi) {
   return g > bg || (g == bg && i < bi);
 }
 
+// kCat: the categorical decision, the bin's bit of the split's words
+template <bool kCat>
 __device__ __forceinline__ bool go_left(int col, int thr, bool dl, int miss, int dbin,
-                                        int nan_bin) {
+                                        int nan_bin, bool cat, const int* words) {
+  if (kCat && cat) return (words[col >> 5] >> (col & 31)) & 1;
   bool gl = col <= thr;
   if (miss == kMissingZero) {
     if (col == dbin) gl = dl;
@@ -214,8 +231,9 @@ __device__ __forceinline__ int2 grid_wait(const unsigned long long* words, int g
 // last block: when that block holds no rows, right after it arrives at the
 // barrier, while the others still read theirs, else after its scatter. No
 // other block reads these arrays.
+template <bool kCat>
 __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, int f, int thr,
-                                     int dl) {
+                                     int dl, const int* words) {
   float rec[kBestF], pa[kLaux];
 #pragma unroll
   for (int c = 0; c < kBestF; ++c) rec[c] = a.best_f[best * kBestF + c];
@@ -231,6 +249,9 @@ __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, 
   }
   int* ni = a.node_i + node * kNodeI;
   ni[0] = f; ni[1] = thr; ni[2] = -(best + 1); ni[3] = -(nl + 1); ni[4] = dl;
+  if (kCat) {
+    for (int w = 0; w < a.W; ++w) a.node_b[node * a.W + w] = words[w];
+  }
   float* nf = a.node_f + node * kNodeF;
   nf[0] = rec[kGain]; nf[1] = leaf_output(pa[0], pa[1], a.p); nf[2] = pa[2];
   float* lf = a.leaf_f + best * kLeafF;
@@ -253,14 +274,17 @@ __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, 
   la[4] = mono < 0 ? mid : pmax;
 }
 
+template <bool kCat>
 __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   __shared__ int stage_s[kCap];
   __shared__ float red_g[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ int wsum[kWarps];
   __shared__ int woff[kItems * kWarps];
-  __shared__ int meta_s[kMetaCap];  // missing_type | default_bin << 2 | nan bin << 17
+  // missing_type | default_bin << 2 | nan bin << 17 | categorical << kCatBit
+  __shared__ int meta_s[kMetaCap];
   __shared__ int sh[sWords];
+  __shared__ int words_s[kCat ? kMaxWords : 1];  // the picked split's membership words
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M;
 
@@ -279,7 +303,8 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     }
   }
   for (int k = tid; k < min(a.F, kMetaCap); k += kThreads) {
-    meta_s[k] = a.missing[k] | (a.default_bin[k] << 2) | ((a.num_bin[k] - 1) << 17);
+    meta_s[k] = a.missing[k] | (a.default_bin[k] << 2) | ((a.num_bin[k] - 1) << 17) |
+                (kCat && a.is_cat[k] ? 1 << kCatBit : 0);
   }
   if (tid == 0) {
     sh[sActive] = a.ctl[kActive];
@@ -322,9 +347,13 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     sh[sF] = f; sh[sThr] = thr; sh[sDl] = dl; sh[sBegin] = begin; sh[sCount] = count;
     sh[sLeftSmaller] = lsmall;
     const int mv = f < kMetaCap ? meta_s[f]
-        : a.missing[f] | (a.default_bin[f] << 2) | ((a.num_bin[f] - 1) << 17);
-    sh[sMiss] = mv & 3; sh[sDbin] = (mv >> 2) & 0x7FFF; sh[sNanBin] = mv >> 17;
+        : a.missing[f] | (a.default_bin[f] << 2) | ((a.num_bin[f] - 1) << 17) |
+              (kCat && a.is_cat[f] ? 1 << kCatBit : 0);
+    sh[sMiss] = mv & 3; sh[sDbin] = (mv >> 2) & 0x7FFF;
+    sh[sNanBin] = kCat ? (mv >> 17) & 0x1FFF : mv >> 17;
+    if (kCat) sh[sCat] = (mv >> kCatBit) & 1;
   }
+  if (kCat && tid < a.W) words_s[tid] = a.best_b[best * a.W + tid];
   __syncthreads();
   f = sh[sF]; thr = sh[sThr]; dl = sh[sDl];
   const long long b0 = sh[sBegin];
@@ -337,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   const bool wires = b == grid - 1 && tid == 0;
   if (b >= nb) {
     if (tid == 0) publish(a.block_left + b, epoch, 0);
-    if (wires) wire(a, best, nl, node, f, thr, dl);
+    if (wires) wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
     return;
   }
   const int lo = b * chunk;
@@ -345,6 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
 
   // ---- 2. the chunk's rows, decided and staged ----
   const int miss = sh[sMiss], dbin = sh[sDbin], nan_bin = sh[sNanBin];
+  const bool cat = kCat && sh[sCat];
   const uint8_t* col = a.bins + (long long)f * a.stride_f;
   int* stage = len <= kCap ? stage_s : a.scratch + b0 + lo;
   const int* seg = a.order + b0 + lo;
@@ -366,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     for (int j = 0; j < kItems; ++j) {
       const int i = t * kTile + j * kThreads + tid;
       if (i < len) {
-        const bool gl = go_left(bin[j], thr, dl != 0, miss, dbin, nan_bin);
+        const bool gl = go_left<kCat>(bin[j], thr, dl != 0, miss, dbin, nan_bin, cat, words_s);
         stage[i] = (int)((unsigned)row[j] | (gl ? kLeftBit : 0u));
         left += gl;
       }
@@ -434,7 +464,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     __syncthreads();  // woff and sTileLeft are rewritten by the next tile
   }
 
-  if (wires) wire(a, best, nl, node, f, thr, dl);
+  if (wires) wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
   if (b == 0 && tid == 0) {
     // the children's bounds: leaf best keeps [b0, b0 + left), the new leaf
     // nl takes [b0 + left, b0 + count)
@@ -460,17 +490,19 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
 
 extern "C" {
 
-// The blocks of lgbt_pick_partition's grid: as many as fit on the current
+// The blocks of lgbt_pick_partition's grid for the numerical (cat 0) or
+// the categorical (cat 1) instantiation: as many as fit on the current
 // device at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
 // SM count), so that a cooperative launch of them is never refused.
-int lgbt_pick_partition_grid(int* grid) {
+int lgbt_pick_partition_grid(int* grid, int cat) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, pick_partition_kernel, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, cat ? &pick_partition_kernel<true> : &pick_partition_kernel<false>, kThreads, 0);
   *grid = per_sm * sms;
   return (int)err;
 }
@@ -485,23 +517,29 @@ int lgbt_pick_partition_grid(int* grid) {
 // bins + f * stride_f + row * stride_n. Scratch: scratch [N] int32 (a
 // chunk's staged rows above kCap), block_left [grid] int64 (each block's
 // epoch and left count), bar [1] uint32 (the epoch of the last launch that
-// split, 0 before the first). grid blocks of 1024 threads, at most
-// lgbt_pick_partition_grid's, launched cooperatively; the launch's error is
-// returned. Does nothing once ctl[0] is 0.
+// split, 0 before the first). With categorical features, is_cat [F] bytes,
+// best_b [M, W] and node_b [M - 1, W] int32 (W = ceil(B / 32) membership
+// words; is_cat null without them). grid blocks of 1024 threads, at most
+// lgbt_pick_partition_grid's for the instantiation, launched
+// cooperatively; the launch's error is returned. Does nothing once ctl[0]
+// is 0.
 int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n, void* order,
                         void* scratch, void* ctl, const void* best_f, const void* best_i,
                         void* node_i, void* node_f, void* leaf_f, void* leaf_i, void* laux,
                         const void* missing, const void* default_bin, const void* num_bin,
                         const void* mono, void* leaf_begin, void* leaf_count, void* block_left,
-                        void* bar, int M, int F, float l1, float l2, float max_delta_step,
-                        int grid, void* stream) {
+                        void* bar, const void* best_b, void* node_b, const void* is_cat, int M,
+                        int F, int W, float l1, float l2, float max_delta_step, int grid,
+                        void* stream) {
   if (M < 1 || F < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  if (is_cat != nullptr && (best_b == nullptr || node_b == nullptr || W < 1 || W > kMaxWords))
+    return (int)cudaErrorInvalidValue;
   Args a{(const uint8_t*)bins, stride_f, stride_n, (int*)order, (int*)scratch, (int*)ctl,
          (const float*)best_f, (const int*)best_i, (int*)node_i, (float*)node_f,
          (float*)leaf_f, (int*)leaf_i, (float*)laux, (const int*)missing,
          (const int*)default_bin, (const int*)num_bin, (const int*)mono, (int*)leaf_begin,
-         (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, M, F,
-         Params{l1, l2, max_delta_step}};
+         (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, (const int*)best_b,
+         (int*)node_b, (const unsigned char*)is_cat, M, F, W, Params{l1, l2, max_delta_step}};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(kThreads);
@@ -512,7 +550,8 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&cfg, pick_partition_kernel, a);
+  cudaError_t err = is_cat != nullptr ? cudaLaunchKernelEx(&cfg, pick_partition_kernel<true>, a)
+                                      : cudaLaunchKernelEx(&cfg, pick_partition_kernel<false>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,14 @@
 // per row (two a level), so latency is hidden only by the rows in flight:
 // 256 threads a block, several blocks an SM.
 //
+// Categorical nodes (the kCat instantiation, launched for a table with
+// categorical features): the rule word's bit 27 marks a categorical node,
+// and each block stages the nodes' membership words (W = ceil(B / 32) a
+// node, from the split loop's node_b) in shared memory after the nodes:
+// 255 x 8 words, 8 KB, at 255 leaves and 256 bins. A categorical node's
+// decision is one word's bit at the row's bin, with no default direction
+// (lightgbm_tpu/ops/predict.py:113-114).
+//
 // ``value`` is what a row at each leaf adds (the device iteration passes the
 // shrunk leaf values where the tree grew and exact zeros where it did not);
 // ``leaf_out``, when not null, receives each row's leaf.
@@ -42,13 +50,15 @@ constexpr int kThreads = 256;
 constexpr int kMissingZero = 1, kMissingNan = 2;  // ops/split.py MISSING_*
 constexpr int kStaticSharedBytes = 48 * 1024;
 
+template <bool kCat>
 __global__ void __launch_bounds__(kThreads)
 predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
                     const int* __restrict__ node_i, int max_nodes,
                     const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
                     const int* __restrict__ default_bin, const int* __restrict__ num_bin,
                     const float* __restrict__ value, float* __restrict__ score,
-                    int* __restrict__ leaf_out) {
+                    int* __restrict__ leaf_out, const int* __restrict__ node_b,
+                    const unsigned char* __restrict__ is_cat, int W) {
   extern __shared__ int4 nodes[];  // x feature, y rule, z left, w right
   const int m = min(max(*num_leaves - 1, 0), max_nodes);
   for (int i = threadIdx.x; i < m; i += kThreads) {
@@ -56,8 +66,12 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
     const int f = rec[0];
     const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
                      (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
-                     ((rec[4] != 0) << 26);
+                     ((rec[4] != 0) << 26) | (kCat && is_cat[f] ? 1 << 27 : 0);
     nodes[i] = make_int4(f, rule, rec[2], rec[3]);
+  }
+  int* words = reinterpret_cast<int*>(nodes + max_nodes);  // [max_nodes, W] (kCat)
+  if (kCat) {
+    for (int i = threadIdx.x; i < m * W; i += kThreads) words[i] = node_b[i];
   }
   __syncthreads();
   for (long long r = blockIdx.x * (long long)kThreads + threadIdx.x; r < N;
@@ -74,6 +88,7 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
           (miss == kMissingNan && col == ((rule >> 16) & 0xFF))) {
         left = (rule >> 26) & 1;
       }
+      if (kCat && ((rule >> 27) & 1)) left = (words[node * W + (col >> 5)] >> (col & 31)) & 1;
       node = left ? nd.z : nd.w;
     }
     const int leaf = -(node + 1);
@@ -82,7 +97,8 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
   }
 }
 
-int configured_shared_bytes = kStaticSharedBytes;
+// the dynamic shared memory each instantiation may take (numerical, categorical)
+int configured_shared_bytes[2] = {kStaticSharedBytes, kStaticSharedBytes};
 
 }  // namespace
 
@@ -91,25 +107,34 @@ extern "C" {
 // score[r] += value[leaf(r)] for the N rows of bins [N, F] uint8 through the
 // tree of *num_leaves leaves whose first num_leaves - 1 nodes are rows of
 // node_i [max_nodes, 5] int32; missing_type / default_bin / num_bin [F]
-// int32; leaf_out [N] int32 or null. Shared memory: 16 bytes a node.
+// int32; leaf_out [N] int32 or null. With categorical features, node_b
+// [max_nodes, W] int32 (each node's membership words) and is_cat [F]
+// bytes; is_cat null without them. Shared memory: 16 bytes a node, and 4 W
+// bytes a node with categorical features.
 int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, int max_nodes,
                       const void* num_leaves, const void* missing_type, const void* default_bin,
                       const void* num_bin, const void* value, void* score, void* leaf_out,
-                      int grid, void* stream) {
+                      const void* node_b, const void* is_cat, int W, int grid, void* stream) {
   if (N < 1 || F < 1 || max_nodes < 0 || grid < 1) return (int)cudaErrorInvalidValue;
-  const int shared = (max_nodes > 1 ? max_nodes : 1) * (int)sizeof(int4);
-  if (shared > configured_shared_bytes) {
+  const bool cat = is_cat != nullptr;
+  if (cat && (node_b == nullptr || W < 1)) return (int)cudaErrorInvalidValue;
+  const int slots = max_nodes > 1 ? max_nodes : 1;
+  const int shared = slots * (int)sizeof(int4) + (cat ? slots * W * (int)sizeof(int) : 0);
+  decltype(&predict_bins_kernel<false>) kern =
+      cat ? &predict_bins_kernel<true> : &predict_bins_kernel<false>;
+  if (shared > configured_shared_bytes[cat]) {
     // above 48 KB only as dynamic shared memory with the attribute raised;
     // raised once, before any captured launch needs it
-    const cudaError_t err = cudaFuncSetAttribute(
-        predict_bins_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
-    configured_shared_bytes = shared;
+    configured_shared_bytes[cat] = shared;
   }
-  predict_bins_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
+  kern<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
       (const uint8_t*)bins, N, F, (const int*)node_i, max_nodes, (const int*)num_leaves,
       (const int*)missing_type, (const int*)default_bin, (const int*)num_bin,
-      (const float*)value, (float*)score, (int*)leaf_out);
+      (const float*)value, (float*)score, (int*)leaf_out, (const int*)node_b,
+      (const unsigned char*)is_cat, W);
   return (int)cudaGetLastError();
 }
 

@@ -81,6 +81,35 @@
 // block's other loads.
 // The root's scan (C = 1) has no subtraction and keeps the plain entry.
 //
+// Categorical features (the kCat instantiations, launched when the table
+// has any; a numerical-only table runs the kCat = false code as before).
+// The TPU kernel declines categorical metas (split_pallas.py:289-290), so
+// the reference scans them in XLA (lightgbm_tpu/ops/split.py:325-468); the
+// formulas and their order are its, and the port's plain version's
+// (ops/split.py categorical_candidates). Block (f, c) owns one feature of
+// one child, so the branch is uniform across the block, and a categorical
+// block reads the same row (the subtracted one, in the folded entry) as a
+// numerical one, unfolded:
+//  - one-hot (num_bin <= max_cat_to_onehot): thread t scores the split of
+//    bin t against the rest, and the block's argmax keeps the smallest bin
+//    among equal gains;
+//  - CTR: each valid bin's key sum_grad / (sum_hess + cat_smooth) (an
+//    invalid bin's +inf), its rank counted by one thread a bin over the
+//    feature's bins (key_j < key_b, or equal at j < b: IEEE compares, so
+//    -0.0 and 0.0 tie as in a stable sort), the bins scattered into sorted
+//    order; six lanes of warp 0 fold the three channels in both
+//    directions (the left folds of the plain version, in its order), two
+//    lanes run the min_data_per_group grouping (sequential by nature: the
+//    count resets only where a candidate is emitted), and every thread
+//    scores its candidates of both directions, the first maximum of
+//    [forward, reverse] winning.
+// What bounds a categorical block is its chains: the rank is B compares a
+// thread, the folds and the grouping B dependent steps each, about
+// 3 * num_bin dependent shared-memory steps for a CTR feature.
+// Every block of a kCat launch writes its membership words (a numerical
+// feature's: the one-hot of its threshold) beside its record, and the
+// child's last block copies the winner's words into the record's row.
+//
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
 
@@ -105,6 +134,35 @@ constexpr double kEpsilon = 1e-15;
 
 struct Params {
   float l1, l2, max_delta_step, min_data, min_hess, min_gain;
+};
+
+// The categorical scan's knobs and buffers (kCat).
+struct Cat {
+  const unsigned char* is_cat;  // [F]
+  int* feat_b;                  // [C, F, W] each feature's membership words
+  int* outb;                    // [rows, W] each record's membership words
+  int W;
+  int max_onehot, max_threshold;  // max_cat_to_onehot, max_cat_threshold
+  float smooth, l2, min_group;    // cat_smooth, lambda_l2 + cat_l2, min_data_per_group
+};
+
+// A categorical block's shared memory (kCat only).
+struct CatSmem {
+  float key[kMaxBins];           // the CTR sort key of each bin
+  int rank[kMaxBins];            // each bin's position in sorted order
+  int sorted[kMaxBins];          // the bin at each position
+  unsigned char valid[kMaxBins];
+  float pref[2][3][kMaxBins];    // [direction][channel][position] left folds
+  unsigned char emit[2][kMaxBins];
+};
+
+// The block's record, published by thread 0 (kCat): (gain, left_g, left_h
+// incl. eps, left_c), (threshold, code) with code = default_left | num_cat
+// << 1 | use_ctr << 16, and how its words are made: mode 0 the one-hot of
+// t, 1 / 2 the CTR bins ranked <= t / >= used - 1 - t.
+struct CatRec {
+  float4 f;
+  int t, code, mode, used;
 };
 
 // clamp that passes NaN through, like torch.clamp and jnp.clip (fminf and
@@ -228,7 +286,214 @@ constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
 // 0 every block returns before it draws a ticket, so count stays 0. kFold
 // (with kDev, C = 2): the rows come from hist[ctl[kBest]] and ls.small as
 // the header says, and hist's children's rows and ls.zero are written.
-template <bool kDev, bool kFold>
+// The best categorical split of the block's feature (every thread
+// enters; the row is staged raw in pre): its record in r, published by
+// the caller.
+__device__ __forceinline__ void categorical_scan(const float* pre, CatSmem& cs, CatRec& r,
+                                                 float* red_g, int* red_t, int B, int num_bin,
+                                                 int miss, float sg, float sh, float nd,
+                                                 float min_c, float max_c, float mgs,
+                                                 const Params& p, const Cat& cat) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float eps = (float)kEpsilon;
+  const int used_bin = num_bin - (miss != 0 ? 1 : 0);
+  float bg = -INFINITY;
+  int bt = kBig;
+  if (num_bin <= cat.max_onehot) {
+    // one-hot: the left side is bin t, the right side sum_hess_eff's rest
+    const float sh_eff = sh + (float)(2.0 * kEpsilon);
+    for (int t = tid; t < B; t += kThreads) {
+      const float lg = pre[t], lh_raw = pre[kRow + t], lc = pre[2 * kRow + t];
+      const float lh = lh_raw + eps;
+      const float rg = sg - lg, rh = sh_eff - lh, rc = nd - lc;
+      bool ok = t < used_bin && lc >= p.min_data && rc >= p.min_data &&
+                lh_raw >= p.min_hess && rh >= p.min_hess;
+      const float lo = leaf_output_constrained(lg, lh, p, min_c, max_c);
+      const float ro = leaf_output_constrained(rg, rh, p, min_c, max_c);
+      const float g = gain_given_output(lg, lh, lo, p) + gain_given_output(rg, rh, ro, p);
+      ok = ok && g > mgs;
+      if (beats<false>(ok ? g : -INFINITY, t, bg, bt)) { bg = ok ? g : -INFINITY; bt = t; }
+    }
+  } else {
+    // CTR: keys, the count of valid bins, ranks and the sorted order
+    int used = 0;
+    for (int b0 = 0; b0 < B; b0 += kThreads) {
+      const int b = b0 + tid;
+      bool v = false;
+      if (b < B) {
+        const float cnt = pre[2 * kRow + b];
+        v = b < used_bin && cnt >= cat.smooth;
+        cs.key[b] = v ? pre[b] / (pre[kRow + b] + cat.smooth) : INFINITY;
+        cs.valid[b] = v;
+      }
+      used += __syncthreads_count(v);
+    }
+    for (int b = tid; b < num_bin; b += kThreads) {
+      const float kb = cs.key[b];
+      int rk = 0;
+      for (int j = 0; j < num_bin; ++j) {
+        const float kj = cs.key[j];
+        rk += (kj < kb) || (kj == kb && j < b);
+      }
+      cs.rank[b] = rk;
+      cs.sorted[rk] = b;
+    }
+    __syncthreads();
+    // the left folds of both directions, a lane a (direction, channel);
+    // position 0 is folded even with no valid bin, as the plain version's
+    const int npos = max(used, 1);
+    if (tid < 6) {
+      const int d = tid / 3, ch = tid - 3 * d;
+      float carry = 0.0f;
+      for (int i = 0; i < npos; ++i) {
+        const int pos = d == 0 ? i : max(used - 1 - i, 0);
+        carry = carry + pre[ch * kRow + cs.sorted[pos]];
+        cs.pref[d][ch][i] = carry;
+      }
+    }
+    __syncthreads();
+    // min_data_per_group: the count resets where a candidate is emitted
+    if (tid < 2) {
+      const int d = tid;
+      float gcnt = 0.0f;
+      for (int i = 0; i < used; ++i) {
+        const float lh = cs.pref[d][1][i] + eps, lc = cs.pref[d][2][i];
+        const float rh = sh - lh, rc = nd - lc;
+        const bool ok = lc >= p.min_data && lh >= p.min_hess && rc >= p.min_data &&
+                        rc >= cat.min_group && rh >= p.min_hess;
+        gcnt = gcnt + pre[2 * kRow + cs.sorted[d == 0 ? i : used - 1 - i]];
+        const bool e = ok && gcnt >= cat.min_group;
+        if (e) gcnt = 0.0f;
+        cs.emit[d][i] = e;
+      }
+    }
+    __syncthreads();
+    Params pc = p;
+    pc.l2 = cat.l2;
+    const int max_num_cat = min(cat.max_threshold, (used + 1) / 2);
+    for (int i = tid; i < used; i += kThreads) {
+#pragma unroll
+      for (int d = 0; d < 2; ++d) {
+        const float lg = cs.pref[d][0][i], lh = cs.pref[d][1][i] + eps;
+        const float rg = sg - lg, rh = sh - lh;
+        const float lo = leaf_output_constrained(lg, lh, pc, min_c, max_c);
+        const float ro = leaf_output_constrained(rg, rh, pc, min_c, max_c);
+        const float g = gain_given_output(lg, lh, lo, pc) + gain_given_output(rg, rh, ro, pc);
+        const bool ok = cs.emit[d][i] && i < max_num_cat && g > mgs;
+        const int j = d * kMaxBins + i;  // candidate order: forward, then reverse
+        if (beats<false>(ok ? g : -INFINITY, j, bg, bt)) { bg = ok ? g : -INFINITY; bt = j; }
+      }
+    }
+    if (tid == 0) r.used = used;
+  }
+  warp_argmax<false>(bg, bt);
+  if (lane == 0) { red_g[warp] = bg; red_t[warp] = bt; }
+  __syncthreads();
+  if (tid == 0) {
+    float g = -INFINITY;
+    int t = kBig;
+    for (int w = 0; w < kWarps; ++w) {
+      if (beats<false>(red_g[w], red_t[w], g, t)) { g = red_g[w]; t = red_t[w]; }
+    }
+    if (t == kBig) t = 0;  // no candidate: the first, as an argmax of -inf
+    if (num_bin <= cat.max_onehot) {
+      r.f = make_float4(g, pre[t], pre[kRow + t] + eps, pre[2 * kRow + t]);
+      r.t = t;
+      r.code = 1 << 1;
+      r.mode = 0;
+    } else {
+      const int d = t >= kMaxBins, i = t - d * kMaxBins;
+      r.f = make_float4(g, cs.pref[d][0][i], cs.pref[d][1][i] + eps, cs.pref[d][2][i]);
+      r.t = i;
+      r.code = ((i + 1) << 1) | (1 << 16);
+      r.mode = 1 + d;
+    }
+  }
+}
+
+// A kCat block's publication: its words (written by threads < W) fenced,
+// then thread 0 writes its record, fences and takes the child's ticket.
+__device__ __forceinline__ void publish_cat(const CatRec& r, float* feat_f, int* feat_i,
+                                            int* count, int c, int f, int F, int W, bool& last) {
+  const int tid = threadIdx.x;
+  if (tid < W) __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    reinterpret_cast<float4*>(feat_f)[(long long)c * F + f] = r.f;
+    reinterpret_cast<int2*>(feat_i)[(long long)c * F + f] = make_int2(r.t, r.code);
+    __threadfence();  // the record and the words are visible before the ticket
+    last = atomicAdd(&count[c], 1) == F - 1;
+    if (last) __threadfence();  // and every other block's before the reads
+  }
+}
+
+// The last block of child c: the feature argmax over the F records and the
+// child's split record. A thread keeps the whole record of its best
+// feature, so the winner's record needs no second read. Plain loads
+// suffice: the fence before the ticket dropped this SM's L1 lines, so they
+// read the records from L2.
+template <bool kDev, bool kCat>
+__device__ __forceinline__ void finish_child(const float* feat_f, const int* feat_i,
+                                             float* __restrict__ outf, int* __restrict__ outi,
+                                             int* count, int c, int F, int leaf,
+                                             const LoopState ls, const Params p, const Cat cat,
+                                             float sg, float sh_eff, float nd, float min_c,
+                                             float max_c, float mgs, float (*red_g)[kWarps],
+                                             int (*red_t)[kWarps]) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float eps = (float)kEpsilon;
+  float best = -INFINITY;
+  int best_f = kBig;
+  float4 rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int2 rec_i = make_int2(0, 0);
+  for (int k = tid; k < F; k += kThreads) {
+    const float4 r = reinterpret_cast<const float4*>(feat_f)[(long long)c * F + k];
+    const int2 ri = reinterpret_cast<const int2*>(feat_i)[(long long)c * F + k];
+    if (beats<false>(r.x, k, best, best_f)) { best = r.x; best_f = k; rec = r; rec_i = ri; }
+  }
+  float g = best;
+  int fi = best_f;
+  warp_argmax<false>(g, fi);
+  if (lane == 0) { red_g[0][warp] = g; red_t[0][warp] = fi; }
+  __syncthreads();
+  if (warp == 0) {
+    g = lane < kWarps ? red_g[0][lane] : -INFINITY;
+    fi = lane < kWarps ? red_t[0][lane] : kBig;
+    warp_argmax<false, kWarps>(g, fi);
+    if (lane == 0) { red_g[1][0] = g; red_t[1][0] = fi; }
+  }
+  __syncthreads();
+  const float g_best = red_g[1][0];
+  const bool has_split = g_best > -INFINITY;
+  const int fb = has_split ? red_t[1][0] : 0;
+  if (best_f != fb) return;  // the one thread that holds the winner's record
+  const float lg = rec.y, lh = rec.z, lc = rec.w;
+  const float rg = sg - lg;
+  const float rh = sh_eff - lh;
+  const float rc = nd - lc;
+  const int row = kDev ? leaf : c;
+  const bool gated = kDev && ls.max_depth > 0 && ls.leaf_i[leaf * 2 + 1] >= ls.max_depth;
+  Params po = p;
+  if (kCat && (rec_i.y >> 16)) po.l2 = cat.l2;  // the CTR branch: lambda_l2 + cat_l2
+  float* o = outf + row * 9;
+  o[0] = has_split && !gated ? g_best - mgs : -INFINITY;
+  o[1] = lg; o[2] = lh - eps; o[3] = lc;
+  o[4] = rg; o[5] = rh - eps; o[6] = rc;
+  o[7] = leaf_output_constrained(lg, lh, po, min_c, max_c);
+  o[8] = leaf_output_constrained(rg, rh, po, min_c, max_c);
+  int* oi = outi + row * 4;
+  oi[0] = has_split ? fb : -1;
+  oi[1] = rec_i.x;
+  oi[2] = kCat ? (rec_i.y >> 1) & 0x7FFF : 0;
+  oi[3] = kCat ? rec_i.y & 1 : rec_i.y;
+  if constexpr (kCat) {
+    const int* w = cat.feat_b + ((long long)c * F + fb) * cat.W;
+    for (int k = 0; k < cat.W; ++k) cat.outb[(long long)row * cat.W + k] = __ldcg(w + k);
+  }
+  count[c] = 0;  // ready for the next call on this stream
+}
+
+template <bool kDev, bool kFold, bool kCat>
 __global__ void __launch_bounds__(kThreads)
 split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const float* __restrict__ sums, const float* __restrict__ cons,
@@ -236,7 +501,7 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const int* __restrict__ default_bin_a, const int* __restrict__ mono_a,
                   const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
                   float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
-                  Params p, int two_way, LoopState ls) {
+                  Params p, int two_way, LoopState ls, Cat cat) {
   __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
   __shared__ float red_g[2][kWarps];
   __shared__ int red_t[2][kWarps];
@@ -306,133 +571,150 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   const bool use_na = miss == 2 && multi_bin;
   const bool skip_def = miss == 1 && multi_bin;
   const bool single_scan = !(use_na || skip_def);
+  const bool cat_f = kCat && cat.is_cat[f];  // a categorical block reads its row raw
 
   // stage the row, the excluded bins zeroed
 #pragma unroll
   for (int k = 0; k < kStage; ++k) {
     const int i = tid + k * kThreads;
     const int b = i / 3;
-    const bool excl = b >= num_bin || (skip_def && b == dbin) || (use_na && b == num_bin - 1);
+    const bool excl = !cat_f &&
+        (b >= num_bin || (skip_def && b == dbin) || (use_na && b == num_bin - 1));
     if (i < B * 3) pre[(i - 3 * b) * kRow + b] = excl ? 0.0f : v[k];
   }
   __syncthreads();
-  if (tid < 3) fold_channel(pre + tid * kRow, B);
-  __syncthreads();
 
-  const float eps = (float)kEpsilon;
-  const float sh_eff = sh + (float)(2.0 * kEpsilon);
-  const float mgs = min_gain_shift(sg, sh, p);
-  const float tg = pre[B - 1], th = pre[kRow + B - 1], tc = pre[2 * kRow + B - 1];
-
-  float best_gn = -INFINITY, best_gp = -INFINITY;
-  int best_tn = -1, best_tp = kBig;
-  for (int t = tid; t < B; t += kThreads) {
-    const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
-    // dir = -1: right side accumulates from the top, default_left = true
-    const float rg_n = tg - pg;
-    const float rh_n = (th - ph) + eps;
-    const float rc_n = tc - pc;
-    const float lg_n = sg - rg_n, lh_n = sh_eff - rh_n, lc_n = nd - rc_n;
-    const bool v_neg = t <= num_bin - 2 - (use_na ? 1 : 0) && !(skip_def && t == dbin - 1);
-    const float gn = candidate_gain(lg_n, lh_n, rg_n, rh_n, lc_n, rc_n, v_neg, mono, min_c,
-                                    max_c, mgs, p);
-    if (beats<true>(gn, t, best_gn, best_tn)) { best_gn = gn; best_tn = t; }
-    if (two_way) {
-      // dir = +1: left side accumulates from the bottom, default_left = false
-      const float lg_p = pg, lh_p = ph + eps, lc_p = pc;
-      const float rg_p = sg - lg_p, rh_p = sh_eff - lh_p, rc_p = nd - lc_p;
-      const bool v_pos = t <= num_bin - 2 && !(skip_def && t == dbin) && !single_scan;
-      const float gp = candidate_gain(lg_p, lh_p, rg_p, rh_p, lc_p, rc_p, v_pos, mono, min_c,
-                                      max_c, mgs, p);
-      if (beats<false>(gp, t, best_gp, best_tp)) { best_gp = gp; best_tp = t; }
-    }
-  }
-  warp_argmax<true>(best_gn, best_tn);
-  warp_argmax<false>(best_gp, best_tp);
-  if (lane == 0) {
-    red_g[0][warp] = best_gn; red_t[0][warp] = best_tn;
-    red_g[1][warp] = best_gp; red_t[1][warp] = best_tp;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    float gn = lane < kWarps ? red_g[0][lane] : -INFINITY;
-    int tn = lane < kWarps ? red_t[0][lane] : -1;
-    float gp = lane < kWarps ? red_g[1][lane] : -INFINITY;
-    int tp = lane < kWarps ? red_t[1][lane] : kBig;
-    warp_argmax<true, kWarps>(gn, tn);
-    warp_argmax<false, kWarps>(gp, tp);
-    if (lane == 0) {
-      const bool use_pos = gp > gn;  // +1 must beat -1 strictly
-      float g = use_pos ? gp : gn;
-      const int t = use_pos ? tp : tn;
-      bool dl = !use_pos;
-      if (miss == 2 && !multi_bin) dl = false;  // 2-bin NaN features
-      if (!use_feature) g = -INFINITY;
-      const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
-      float lg, lh, lc;
-      if (use_pos) {
-        lg = pg; lh = ph + eps; lc = pc;
-      } else {
-        const float rg_n = tg - pg, rh_n = (th - ph) + eps, rc_n = tc - pc;
-        lg = sg - rg_n; lh = sh_eff - rh_n; lc = nd - rc_n;
+  // the effective hessian and the gain shift, which the last block reads
+  // too: in the numerical instantiations after the fold, where PR 16's
+  // code computed them (its registers and SASS unchanged)
+  float sh_eff, mgs;
+  [[maybe_unused]] CatRec* rec_s = nullptr;
+  if constexpr (kCat) {
+    __shared__ CatSmem cs;
+    __shared__ CatRec rs;
+    rec_s = &rs;
+    sh_eff = sh + (float)(2.0 * kEpsilon);
+    mgs = min_gain_shift(sg, sh, p);
+    if (cat_f) {
+      categorical_scan(pre, cs, rs, red_g[0], red_t[0], B, num_bin, miss, sg, sh, nd, min_c,
+                       max_c, mgs, p, cat);
+      if (tid == 0 && !use_feature) rs.f.x = -INFINITY;
+      __syncthreads();
+      // the block's words: the winner's bins
+      if (tid < cat.W) {
+        unsigned word = 0u;
+        if (rs.mode == 0) {
+          word = (rs.t >> 5) == tid ? 1u << (rs.t & 31) : 0u;
+        } else {
+          for (int k = 0; k < 32; ++k) {
+            const int b = 32 * tid + k;
+            if (b < num_bin && cs.valid[b] &&
+                (rs.mode == 1 ? cs.rank[b] <= rs.t : cs.rank[b] >= rs.used - 1 - rs.t)) {
+              word |= 1u << k;
+            }
+          }
+        }
+        cat.feat_b[((long long)c * F + f) * cat.W + tid] = (int)word;
       }
-      reinterpret_cast<float4*>(feat_f)[(long long)c * F + f] = make_float4(g, lg, lh, lc);
-      reinterpret_cast<int2*>(feat_i)[(long long)c * F + f] = make_int2(t, dl ? 1 : 0);
-      __threadfence();  // the record is visible before the ticket
-      last = atomicAdd(&count[c], 1) == F - 1;
-      if (last) __threadfence();  // and every other block's record before the reads
+      publish_cat(rs, feat_f, feat_i, count, c, f, F, cat.W, last);
     }
   }
+  if (!cat_f) {  // the numerical path
+    if (tid < 3) fold_channel(pre + tid * kRow, B);
+    __syncthreads();
+
+    const float eps = (float)kEpsilon;
+    if constexpr (!kCat) {
+      sh_eff = sh + (float)(2.0 * kEpsilon);
+      mgs = min_gain_shift(sg, sh, p);
+    }
+    const float tg = pre[B - 1], th = pre[kRow + B - 1], tc = pre[2 * kRow + B - 1];
+
+    float best_gn = -INFINITY, best_gp = -INFINITY;
+    int best_tn = -1, best_tp = kBig;
+    for (int t = tid; t < B; t += kThreads) {
+      const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
+      // dir = -1: right side accumulates from the top, default_left = true
+      const float rg_n = tg - pg;
+      const float rh_n = (th - ph) + eps;
+      const float rc_n = tc - pc;
+      const float lg_n = sg - rg_n, lh_n = sh_eff - rh_n, lc_n = nd - rc_n;
+      const bool v_neg = t <= num_bin - 2 - (use_na ? 1 : 0) && !(skip_def && t == dbin - 1);
+      const float gn = candidate_gain(lg_n, lh_n, rg_n, rh_n, lc_n, rc_n, v_neg, mono, min_c,
+                                      max_c, mgs, p);
+      if (beats<true>(gn, t, best_gn, best_tn)) { best_gn = gn; best_tn = t; }
+      if (two_way) {
+        // dir = +1: left side accumulates from the bottom, default_left = false
+        const float lg_p = pg, lh_p = ph + eps, lc_p = pc;
+        const float rg_p = sg - lg_p, rh_p = sh_eff - lh_p, rc_p = nd - lc_p;
+        const bool v_pos = t <= num_bin - 2 && !(skip_def && t == dbin) && !single_scan;
+        const float gp = candidate_gain(lg_p, lh_p, rg_p, rh_p, lc_p, rc_p, v_pos, mono, min_c,
+                                        max_c, mgs, p);
+        if (beats<false>(gp, t, best_gp, best_tp)) { best_gp = gp; best_tp = t; }
+      }
+    }
+    warp_argmax<true>(best_gn, best_tn);
+    warp_argmax<false>(best_gp, best_tp);
+    if (lane == 0) {
+      red_g[0][warp] = best_gn; red_t[0][warp] = best_tn;
+      red_g[1][warp] = best_gp; red_t[1][warp] = best_tp;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      float gn = lane < kWarps ? red_g[0][lane] : -INFINITY;
+      int tn = lane < kWarps ? red_t[0][lane] : -1;
+      float gp = lane < kWarps ? red_g[1][lane] : -INFINITY;
+      int tp = lane < kWarps ? red_t[1][lane] : kBig;
+      warp_argmax<true, kWarps>(gn, tn);
+      warp_argmax<false, kWarps>(gp, tp);
+      if (lane == 0) {
+        const bool use_pos = gp > gn;  // +1 must beat -1 strictly
+        float g = use_pos ? gp : gn;
+        const int t = use_pos ? tp : tn;
+        bool dl = !use_pos;
+        if (miss == 2 && !multi_bin) dl = false;  // 2-bin NaN features
+        if (!use_feature) g = -INFINITY;
+        const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
+        float lg, lh, lc;
+        if (use_pos) {
+          lg = pg; lh = ph + eps; lc = pc;
+        } else {
+          const float rg_n = tg - pg, rh_n = (th - ph) + eps, rc_n = tc - pc;
+          lg = sg - rg_n; lh = sh_eff - rh_n; lc = nd - rc_n;
+        }
+        if constexpr (kCat) {
+          *rec_s = CatRec{make_float4(g, lg, lh, lc), t, dl ? 1 : 0, 0, 0};
+        } else {
+          reinterpret_cast<float4*>(feat_f)[(long long)c * F + f] = make_float4(g, lg, lh, lc);
+          reinterpret_cast<int2*>(feat_i)[(long long)c * F + f] = make_int2(t, dl ? 1 : 0);
+          __threadfence();  // the record is visible before the ticket
+          last = atomicAdd(&count[c], 1) == F - 1;
+          if (last) __threadfence();  // and every other block's record before the reads
+        }
+      }
+    }
+    if constexpr (kCat) {  // a numerical feature's words: the one-hot of its threshold
+      __syncthreads();
+      if (tid < cat.W) {
+        const int t = rec_s->t;
+        cat.feat_b[((long long)c * F + f) * cat.W + tid] = (t >> 5) == tid ? 1 << (t & 31) : 0;
+      }
+      publish_cat(*rec_s, feat_f, feat_i, count, c, f, F, cat.W, last);
+    }
+  }  // the numerical path
   __syncthreads();
   if (!last) return;
+  finish_child<kDev, kCat>(feat_f, feat_i, outf, outi, count, c, F, leaf, ls, p, cat, sg, sh_eff,
+                           nd, min_c, max_c, mgs, red_g, red_t);
+}
 
-  // ---- the last block of child c: feature argmax and the split record ----
-  // a thread keeps the whole record of its best feature, so the winner's
-  // record needs no second read. Plain loads suffice: the fence above
-  // dropped this SM's L1 lines, so they read the records from L2.
-  float best = -INFINITY;
-  int best_f = kBig;
-  float4 rec = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  int2 rec_i = make_int2(0, 0);
-  for (int k = tid; k < F; k += kThreads) {
-    const float4 r = reinterpret_cast<const float4*>(feat_f)[(long long)c * F + k];
-    const int2 ri = reinterpret_cast<const int2*>(feat_i)[(long long)c * F + k];
-    if (beats<false>(r.x, k, best, best_f)) { best = r.x; best_f = k; rec = r; rec_i = ri; }
-  }
-  float g = best;
-  int fi = best_f;
-  warp_argmax<false>(g, fi);
-  if (lane == 0) { red_g[0][warp] = g; red_t[0][warp] = fi; }
-  __syncthreads();
-  if (warp == 0) {
-    g = lane < kWarps ? red_g[0][lane] : -INFINITY;
-    fi = lane < kWarps ? red_t[0][lane] : kBig;
-    warp_argmax<false, kWarps>(g, fi);
-    if (lane == 0) { red_g[1][0] = g; red_t[1][0] = fi; }
-  }
-  __syncthreads();
-  const float g_best = red_g[1][0];
-  const bool has_split = g_best > -INFINITY;
-  const int fb = has_split ? red_t[1][0] : 0;
-  if (best_f != fb) return;  // the one thread that holds the winner's record
-  const float lg = rec.y, lh = rec.z, lc = rec.w;
-  const float rg = sg - lg;
-  const float rh = sh_eff - lh;
-  const float rc = nd - lc;
-  const int row = kDev ? leaf : c;
-  const bool gated = kDev && ls.max_depth > 0 && ls.leaf_i[leaf * 2 + 1] >= ls.max_depth;
-  float* o = outf + row * 9;
-  o[0] = has_split && !gated ? g_best - mgs : -INFINITY;
-  o[1] = lg; o[2] = lh - eps; o[3] = lc;
-  o[4] = rg; o[5] = rh - eps; o[6] = rc;
-  o[7] = leaf_output_constrained(lg, lh, p, min_c, max_c);
-  o[8] = leaf_output_constrained(rg, rh, p, min_c, max_c);
-  int* oi = outi + row * 4;
-  oi[0] = has_split ? fb : -1;
-  oi[1] = rec_i.x;
-  oi[2] = 0;
-  oi[3] = rec_i.y;
-  count[c] = 0;  // ready for the next call on this stream
+// The categorical arguments both entries take after the others: is_cat
+// [F] bytes (null: no categorical feature, the numerical instantiations),
+// feat_b [C, F, W] int32 scratch, outb [rows, W] int32 (each record's
+// membership words, W = ceil(B / 32)), max_cat_to_onehot, cat_smooth,
+// lambda_l2 + cat_l2, max_cat_threshold and min_data_per_group.
+bool cat_args_ok(const void* is_cat, const void* feat_b, const void* outb, int W, int B) {
+  return is_cat == nullptr || (feat_b != nullptr && outb != nullptr && W == (B + 31) / 32);
 }
 
 }  // namespace
@@ -450,14 +732,22 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
                     const void* mono, const void* fmask, void* feat_f, void* feat_i, void* outf,
                     void* outi, void* count, int C, int F, int B, float l1, float l2,
                     float max_delta_step, float min_data, float min_hess, float min_gain,
-                    int two_way, void* stream) {
+                    int two_way, const void* is_cat, void* feat_b, void* outb, int W,
+                    int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
+                    float min_group, void* stream) {
   if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
-  split_pair_kernel<false, false><<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+  const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
+                max_threshold, cat_smooth, cat_l2, min_group};
+  decltype(&split_pair_kernel<false, false, false>) kern =
+      is_cat ? &split_pair_kernel<false, false, true> : &split_pair_kernel<false, false, false>;
+  kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
       (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
       (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
-      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0, nullptr, nullptr});
+      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0, nullptr, nullptr},
+      cat);
   return (int)cudaGetLastError();
 }
 
@@ -465,31 +755,38 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
 // root), C = 2 the children ctl[3] and ctl[4] of the step's split, all read
 // from device memory with their sums and windows from laux [M, 5] f32 and
 // their depth from leaf_i [M, 2] int32; each record goes to the leaf's row
-// of best_f [M, 9] / best_i [M, 4], its gain -inf at a depth >= max_depth
-// (> 0). With small non-null (C = 2 only: a step's scan), the children's
-// rows are folded in first: hist[ctl[6]] = hist[ctl[3]] - small,
-// hist[ctl[5]] = small, and zero [F, B, 3] is cleared; small and zero are
-// the two scratch buffers, never the same. Nothing runs once ctl[0] is 0.
-// The other arguments are lgbt_split_pair's.
+// of best_f [M, 9] / best_i [M, 4] (and best_b [M, W] as outb), its gain
+// -inf at a depth >= max_depth (> 0). With small non-null (C = 2 only: a
+// step's scan), the children's rows are folded in first: hist[ctl[6]] =
+// hist[ctl[3]] - small, hist[ctl[5]] = small, and zero [F, B, 3] is
+// cleared; small and zero are the two scratch buffers, never the same.
+// Nothing runs once ctl[0] is 0. The other arguments are lgbt_split_pair's.
 int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const void* leaf_i,
                         const void* small, void* zero, int max_depth, const void* num_bin,
                         const void* missing, const void* default_bin, const void* mono,
                         const void* fmask, void* feat_f, void* feat_i, void* best_f,
                         void* best_i, void* count, int C, int F, int B, float l1, float l2,
                         float max_delta_step, float min_data, float min_hess, float min_gain,
-                        int two_way, void* stream) {
+                        int two_way, const void* is_cat, void* feat_b, void* outb, int W,
+                        int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
+                        float min_group, void* stream) {
   if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
   const bool fold = small != nullptr;
   if (fold && (C != 2 || zero == nullptr || zero == small)) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
   const LoopState ls{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth,
                      (const float*)small, (float*)zero};
-  decltype(&split_pair_kernel<true, false>) kern =
-      fold ? &split_pair_kernel<true, true> : &split_pair_kernel<true, false>;
+  const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
+                max_threshold, cat_smooth, cat_l2, min_group};
+  decltype(&split_pair_kernel<true, false, false>) kern =
+      is_cat ? (fold ? &split_pair_kernel<true, true, true> : &split_pair_kernel<true, false, true>)
+             : (fold ? &split_pair_kernel<true, true, false>
+                     : &split_pair_kernel<true, false, false>);
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
       (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,
-      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls);
+      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls, cat);
   return (int)cudaGetLastError();
 }
 

@@ -68,7 +68,7 @@ from ..ops.grow import (
 )
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw
-from ..ops.split import SplitParams
+from ..ops.split import SplitParams, member_words, num_words
 from ..utils import log
 from .tree import Tree
 
@@ -129,8 +129,6 @@ def check_supported(config: Config) -> None:
     refused = []
     if config.boosting != "gbdt":
         refused.append("boosting=%s" % config.boosting)
-    if config.categorical_feature:
-        refused.append("categorical_feature")
     if config.forcedsplits_filename:
         refused.append("forcedsplits_filename")
     if (config.cegb_penalty_split != 0.0 or config.cegb_penalty_feature_lazy
@@ -158,14 +156,17 @@ def split_params(cfg: Config) -> SplitParams:
         min_data_in_leaf=cfg.min_data_in_leaf,
         min_sum_hessian_in_leaf=cfg.min_sum_hessian_in_leaf,
         min_gain_to_split=cfg.min_gain_to_split,
+        max_cat_to_onehot=cfg.max_cat_to_onehot,
+        cat_smooth=cfg.cat_smooth,
+        cat_l2=cfg.cat_l2,
+        max_cat_threshold=cfg.max_cat_threshold,
+        min_data_per_group=cfg.min_data_per_group,
     )
 
 
 def check_dataset_supported(train_set: BinnedDataset) -> None:
     if train_set.is_bundled:
         raise NotImplementedError("EFB-bundled datasets (group_id) are not ported yet")
-    if any(m.bin_type != 0 for m in train_set.mappers):
-        raise NotImplementedError("categorical features are not ported yet")
     if train_set.max_num_bin > 256:
         raise NotImplementedError("more than 256 bins per feature is not ported yet")
 
@@ -227,11 +228,15 @@ class GBDT:
             k: torch.as_tensor(meta[k].astype(np.int32), device=dev)
             for k in ("num_bin", "missing_type", "default_bin", "monotone")
         }
+        if "is_categorical" in meta:  # its presence is the switch, as in the JAX package
+            self.feature_meta["is_categorical"] = torch.as_tensor(meta["is_categorical"], device=dev)
         # the dir=+1 scan exists only for missing-value handling
         self._two_way = bool(
             np.any((meta["missing_type"] != 0) & (meta["num_bin"] > 2))
         )
         self.num_bins = int(train_set.max_num_bin)
+        #: membership words a split record and node carry (0 without categorical features)
+        self.num_words = num_words(self.num_bins, "is_categorical" in meta)
         #: the histogram kernel's grouped form, for tables with features
         #: whose rows crowd into few bins (one-hot columns)
         self.grouped_adds = hist_kernel.grouped_adds(bins)
@@ -409,9 +414,10 @@ class GBDT:
         cfg = self.config
         F, N = self.bins_dev.shape
         s = self._grow_state
-        if s is None or not s.fits(self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves):
+        W = self.num_words
+        if s is None or not s.fits(self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves, W):
             s = self._grow_state = grow_state.GrowState(
-                self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves)
+                self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves, W)
         if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
             chunk_rows = cfg.device_chunk_size * len(self._train_classes)
             shape = (max(rows, chunk_rows, 1), s.packed.numel())
@@ -458,7 +464,7 @@ class GBDT:
             grow_step_kernel.score_update(s, value, self.scores[k])
             for bins, score in zip(self._valid_bins, self.valid_scores):
                 predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves,
-                                              self.feature_meta, value, score[k])
+                                              self.feature_meta, value, score[k], node_b=s.node_b)
             grew_any = grew if grew_any is None else grew_any | grew
             self._ring.index_copy_(0, self._ring_slot, s.packed[None])
             self._ring_slot += 1
@@ -532,7 +538,8 @@ class GBDT:
         else:
             host = self._ring[:rows].clone()
         M, B = self.config.num_leaves, self.num_bins
-        return [self._shrink(tree_from_packed(host[i], M, B)) for i in range(rows)]
+        return [self._shrink(tree_from_packed(host[i], M, B, self.num_words))
+                for i in range(rows)]
 
     def _append_iteration(self, grown: dict) -> None:
         """Append one iteration's K trees in class order: each trained
@@ -685,9 +692,11 @@ class GBDT:
         nodes = torch.stack([tree.split_feature, tree.threshold_bin, tree.left_child,
                              tree.right_child, tree.default_left.to(torch.int32)], 1)
         nodes = nodes[:max(nl - 1, 0)].to(device=self.device, dtype=torch.int32).contiguous()
+        node_b = member_words(tree.cat_member[:max(nl - 1, 0)], self.num_words).to(self.device)
         value = (tree.leaf_value * sign).to(self.device)
         num_leaves = torch.tensor([nl], dtype=torch.int32, device=self.device)
-        predict_kernel.add_tree_value(bins, nodes, num_leaves, self.feature_meta, value, score)
+        predict_kernel.add_tree_value(bins, nodes, num_leaves, self.feature_meta, value, score,
+                                      node_b=node_b)
 
     def add_valid(self, valid_set: BinnedDataset, metrics: List[Metric], name: str) -> None:
         """Attach an eval set binned with the training set's mappers: its

@@ -12,6 +12,8 @@ On a machine with a CUDA card, from the repository root::
         --old build/old_partition.cu build/old_grow_step.cu [--out results.json]
     python -m lightgbm_tpu_torch.obs.pair --kernel split_step \\
         --old build/old_split_pair.cu build/old_grow_step.cu [--out results.json]
+    python -m lightgbm_tpu_torch.obs.pair --kernel split_fold \\
+        --old build/old_split_pair.cu [--out results.json]
 
 The old sources are built with the package's nvcc flags into ``build/pair/``,
 beside an empty kernel that the tool writes there; the new kernel runs
@@ -112,6 +114,13 @@ timed from the state, restored before each call, beside one ``torch.sub``
 of the parent's and the scratch's rows (the subtraction's nearest library
 call), and each version's warm-L2 device time a call under
 ``torch.profiler``.
+
+``split_fold`` (the folded scan against an older split_pair.cu whose
+``lgbt_split_pair_dev`` already folds the subtraction but takes no
+categorical arguments, commit ae86c69): the states of ``split_step``; at
+each the old and the new folded scan and the plain version must leave
+every state tensor equal, then old and new are timed as there, and each
+one's warm-L2 device time a call under ``torch.profiler``.
 """
 from __future__ import annotations
 
@@ -326,7 +335,7 @@ def _split_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
     import torch
 
     from ..ops import split_kernel
-    from ..ops.grow import _go_left
+    from ..ops.partition import go_left as _go_left
     from ..ops.histogram import leaf_histogram, leaf_values
     from ..ops.split import SplitParams, find_best_split_pair
 
@@ -368,7 +377,7 @@ def _split_case(old_lib: Path, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
     def children(rows, hist):
         """Rows and histograms (left, right) of the plain version's best split."""
         sums = hist[0].sum(dim=0, keepdim=True)
-        _, outi = find_best_split_pair(hist[None], sums, cons1, meta, fmask, params)
+        _, outi, _ = find_best_split_pair(hist[None], sums, cons1, meta, fmask, params)
         f, thr, _, dl = (int(v) for v in outi[0])
         assert f >= 0, "no split"
         col = bins[f].long() if rows is None else bins[f].long().index_select(0, rows)
@@ -690,6 +699,13 @@ def _pick_partition_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Calla
 # lgbt_hist_subtract (grow_step.cu before the fold): ctl, hist, small;
 # cells; grid; stream
 _OLD_SUBTRACT_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+# lgbt_split_pair_dev with the fold, before the categorical arguments:
+# hist, ctl, laux, leaf_i, small, zero; max_depth; 4 meta, fmask, feat_f,
+# feat_i, best_f, best_i, count; C, F, B; 6 params; two_way, stream
+_OLD_SPLIT_FOLD_ARGS = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+)
 # lgbt_split_pair_dev before the fold: hist, ctl, laux, leaf_i; max_depth;
 # 4 meta, fmask, feat_f, feat_i, best_f, best_i, count; C, F, B; 6 params;
 # two_way, stream
@@ -699,17 +715,101 @@ _OLD_SPLIT_DEV_ARGS = (
 )
 
 
+def _step_states(dev, data) -> Dict[str, tuple]:
+    """(state, parity, step) of the main path's split loop (real gradients,
+    255 leaves) with each step's pick and segment histogram done and its
+    scan not: the root's first split, the first step whose smaller child is
+    the parent's slot and the first whose smaller child is the new leaf,
+    and step 128."""
+    from ..ops import grow as grow_mod
+    from ..ops import grow_state as gs
+    from ..ops import hist_kernel, partition_kernel, split_kernel
+    from ..ops.split import SplitParams
+
+    bins, N, B, real = data["bins"], data["N"], data["B"], data["real"]
+    s = gs.GrowState(dev, N, bins.shape[0], B, 255)
+    grow_mod.start_tree(s, bins, real[:, 0].contiguous(), real[:, 1].contiguous(), data["fmask"],
+                        data["meta"], -1, SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0), True,
+                        data["hist_bins"].t())
+    states = {}
+    for step in range(129):
+        parity = step % 2
+        partition_kernel.pick_partition(s)
+        hist_kernel.histogram_segment(s, parity)
+        alias = ("small_is_best" if int(s.ctl[gs.SMALL]) == int(s.ctl[gs.BEST])
+                 else "small_is_new")
+        for key, take in (("root", step == 0), (alias, alias not in states),
+                          ("step128", step == 128)):
+            if take and key not in states:
+                states[key] = (s.clone(), parity, step)
+        split_kernel.split_pair_fold(s, parity)
+    return states
+
+
+def _split_fold_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
+    """(timed calls by state, checks) of the folded scan against an older
+    folded scan of the numerical-only signature."""
+    import torch
+
+    from ..ops import grow_state as gs
+    from ..ops import grow_step as plain_step
+    from ..ops import split_kernel
+
+    old = ctypes.CDLL(str(old_libs[0])).lgbt_split_pair_dev
+    old.restype = ctypes.c_int
+    old.argtypes = _OLD_SPLIT_FOLD_ARGS
+
+    def run_old(st, parity):
+        m, p = st.feature_meta, st.params
+        cuda_build.check(old(
+            st.hist.data_ptr(), st.ctl.data_ptr(), st.laux.data_ptr(), st.leaf_i.data_ptr(),
+            st.small[parity].data_ptr(), st.small[1 - parity].data_ptr(), st.max_depth,
+            *(m[k].data_ptr() for k in ("num_bin", "missing_type", "default_bin", "monotone")),
+            st.feature_mask.data_ptr(), st.feat_f.data_ptr(), st.feat_i.data_ptr(),
+            st.best_f.data_ptr(), st.best_i.data_ptr(),
+            split_kernel._ticket_counter(dev).data_ptr(), 2, st.F, st.B, p.lambda_l1,
+            p.lambda_l2, p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
+            p.min_gain_to_split, int(st.two_way), torch.cuda.current_stream(dev).cuda_stream),
+            "old split_pair_fold")
+
+    calls, checks = {}, {}
+    for key, (st, parity, step) in _step_states(dev, data).items():
+        outs = {}
+        for v, fn in (("old", run_old), ("new", split_kernel.split_pair_fold),
+                      ("plain", plain_step.split_pair_fold)):
+            outs[v] = st.clone()
+            fn(outs[v], parity)
+        torch.cuda.synchronize()
+        same = {v: all(torch.equal(getattr(outs[v], k), getattr(outs["plain"], k))
+                       for k in gs.GrowState.STATE) for v in ("old", "new")}
+        checks[key] = dict(step=step, parity=parity, equal_to_plain=same)
+        print(key, json.dumps(checks[key]), flush=True)
+        assert all(same.values()), ("split fold != plain", key, same)
+        work = {v: st.clone() for v in ("old", "new")}
+
+        def restore(dst, src=st):
+            for k in gs.GrowState.STATE:
+                getattr(dst, k).copy_(getattr(src, k))
+        calls[key] = dict(
+            old=(lambda w=work["old"], p=parity: run_old(w, p), lambda w=work["old"]: restore(w)),
+            new=(lambda w=work["new"], p=parity: split_kernel.split_pair_fold(w, p),
+                 lambda w=work["new"]: restore(w)),
+        )
+        checks[key]["profiled_us"] = {
+            v: _profiled_us(*calls[key][v], ("split_pair_kernel",)) for v in ("old", "new")}
+        print(key, "profiled_us", json.dumps(checks[key]["profiled_us"]), flush=True)
+    return calls, checks
+
+
 def _split_step_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]], Dict]:
     """(timed calls by state, checks) of a step's subtraction and split
     scan: the old two launches (hist_subtract, then the scan's device entry)
     against the folded scan."""
     import torch
 
-    from ..ops import grow as grow_mod
     from ..ops import grow_state as gs
     from ..ops import grow_step as plain_step
-    from ..ops import hist_kernel, partition_kernel, split_kernel
-    from ..ops.split import SplitParams
+    from ..ops import split_kernel
 
     old_scan = ctypes.CDLL(str(old_libs[0])).lgbt_split_pair_dev
     old_scan.restype = ctypes.c_int
@@ -717,10 +817,7 @@ def _split_step_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
     old_sub = ctypes.CDLL(str(old_libs[1])).lgbt_hist_subtract
     old_sub.restype = ctypes.c_int
     old_sub.argtypes = _OLD_SUBTRACT_ARGS
-    bins, N, B, real = data["bins"], data["N"], data["B"], data["real"]
-    F = bins.shape[0]
-    params = SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0)  # the main path's
-    cells = F * B * 3
+    cells = data["bins"].shape[0] * data["B"] * 3
 
     def run_old(st, parity):
         m, p = st.feature_meta, st.params
@@ -738,23 +835,7 @@ def _split_step_case(old_libs, dev, data) -> Tuple[Dict[str, Dict[str, Callable]
             p.lambda_l2, p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
             p.min_gain_to_split, int(st.two_way), stream), "old split_pair_dev")
 
-    # the states: each step's pick and segment histogram done, its scan not
-    s = gs.GrowState(dev, N, F, B, 255)
-    grow_mod.start_tree(s, bins, real[:, 0].contiguous(), real[:, 1].contiguous(), data["fmask"],
-                        data["meta"], -1, params, True, data["hist_bins"].t())
-    states = {}
-    for step in range(129):
-        parity = step % 2
-        partition_kernel.pick_partition(s)
-        hist_kernel.histogram_segment(s, parity)
-        alias = ("small_is_best" if int(s.ctl[gs.SMALL]) == int(s.ctl[gs.BEST])
-                 else "small_is_new")
-        for key, take in (("root", step == 0), (alias, alias not in states),
-                          ("step128", step == 128)):
-            if take and key not in states:
-                states[key] = (s.clone(), parity, step)
-        split_kernel.split_pair_fold(s, parity)
-
+    states = _step_states(dev, data)
     calls, checks = {}, {}
     for key, (st, parity, step) in states.items():
         outs = {}
@@ -797,7 +878,7 @@ SOURCES = {"histogram": ("histogram",), "histogram_grid": ("histogram",),
            "split_pair": ("split_pair",),
            "packed4": ("hist_packed4",), "v1": ("hist_v1",),
            "pick_partition": ("partition", "grow_step"),
-           "split_step": ("split_pair", "grow_step")}
+           "split_step": ("split_pair", "grow_step"), "split_fold": ("split_pair",)}
 
 
 def _covertype_data(dev) -> Dict:
@@ -926,6 +1007,8 @@ def main(argv=None) -> int:
         calls, checks = _pick_partition_case(old_libs, dev, data)
     elif args.kernel == "split_step":
         calls, checks = _split_step_case(old_libs, dev, data)
+    elif args.kernel == "split_fold":
+        calls, checks = _split_fold_case(old_libs, dev, data)
     elif args.kernel == "histogram_grid":
         calls, checks = _histogram_grid_case(old_libs, labels, dev, data)
     else:

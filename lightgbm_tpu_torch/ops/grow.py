@@ -1,7 +1,8 @@
 """Leaf-wise (best-first) tree growth, sequential bucketed mode.
 
 Counterpart of lightgbm_tpu/ops/grow.py ``grow_tree`` (SerialTreeLearner::
-Train, serial_tree_learner.cpp:173-237) for numerical, unbundled data:
+Train, serial_tree_learner.cpp:173-237) for unbundled data, numerical and
+categorical features:
 
  * a DataPartition-style row permutation: each split stably partitions the
    leaf's contiguous segment of ``order`` (data_partition.hpp:111);
@@ -12,7 +13,10 @@ Train, serial_tree_learner.cpp:173-237) for numerical, unbundled data:
  * both children's best splits from one two-child scan, which reads their
    rows of the [M, F, B, 3] histogram buffer by leaf index;
  * monotone-constraint windows per leaf (serial_tree_learner.cpp:841-850)
-   and ``max_depth``.
+   and ``max_depth``;
+ * categorical splits: a node's decision is its left-side bin membership,
+   a bitset over bins (``cat_member``), looked up at the row's bin with no
+   default direction (lightgbm_tpu/ops/grow.py:284-296).
 
 Two split loops grow the same tree, bit for bit:
 
@@ -61,7 +65,7 @@ from . import grow_state as gs
 from . import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
 from .histogram import leaf_values
 from .partition import stable_partition
-from .split import SplitParams, calculate_leaf_output
+from .split import SplitParams, calculate_leaf_output, num_words, words_member
 
 
 class TreeArrays(NamedTuple):
@@ -117,17 +121,17 @@ def grow_tree(
     M = num_leaves
     B = num_bins
     f32 = torch.float32
-    meta_h = {k: feature_meta[k].cpu() for k in ("num_bin", "missing_type", "default_bin", "monotone")}
+    meta_h = {k: v.cpu() for k, v in feature_meta.items()}
     hist_bins = bins_nf.t() if bins_nf is not None else bins
     hist_packed = bins_packed.t() if bins_packed is not None else None
 
     def split2(idx, laux_rows):
         aux = laux_rows.to(dev)
-        outf, outi = split_kernel.find_best_split_pair(
+        out = split_kernel.find_best_split_pair(
             hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(),
             feature_meta, feature_mask, params, two_way, leaves=idx,
         )
-        return outf.cpu(), outi.cpu()
+        return tuple(o.cpu() for o in out)
 
     # ---- root ------------------------------------------------------------
     vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev) if bag is None else bag)
@@ -153,8 +157,9 @@ def grow_tree(
     best_f = torch.zeros((M, 9), dtype=f32)
     best_f[:, _GAIN] = -math.inf
     best_i = torch.zeros((M, 4), dtype=torch.int32)
+    best_b = torch.zeros((M, num_words(B, "is_categorical" in feature_meta)), dtype=torch.int32)
     if M > 1:
-        best_f[:1], best_i[:1] = split2([0], laux[:1])
+        best_f[:1], best_i[:1], best_b[:1] = split2([0], laux[:1])
 
     order = torch.arange(N, dtype=torch.int32, device=dev)
     leaf_begin = [0] * M
@@ -171,7 +176,8 @@ def grow_tree(
 
         # ---- stable partition of the leaf's segment ----------------------
         b0, cnt = leaf_begin[best_leaf], leaf_phys[best_leaf]
-        left_phys = stable_partition(order, bins, b0, cnt, f, thr, dl, meta_h)
+        bits = best_b[best_leaf].clone()
+        left_phys = stable_partition(order, bins, b0, cnt, f, thr, dl, meta_h, bits)
 
         # ---- wire the tree ------------------------------------------------
         parent = int(leaf_i[best_leaf, 0])
@@ -186,7 +192,10 @@ def grow_tree(
             [rec_f[_GAIN], calculate_leaf_output(paux[0], paux[1], params), paux[2]]
         )
         node_b[node, 0] = bool(dl)
-        node_b[node, 1 + thr] = True  # one-hot of the threshold (numerical split)
+        if bits.numel():
+            node_b[node, 1:] = words_member(bits, B)
+        else:
+            node_b[node, 1 + thr] = True  # one-hot of the threshold (numerical split)
         leaf_f[best_leaf] = rec_f[[_LO, _LC, _LH]]
         leaf_f[new_leaf] = rec_f[[_RO, _RC, _RH]]
         leaf_i[best_leaf] = torch.tensor([node, depth], dtype=torch.int32)
@@ -221,11 +230,12 @@ def grow_tree(
 
         # ---- both children's best splits ---------------------------------
         ch = [best_leaf, new_leaf]
-        outf, outi = split2(ch, laux[ch])
+        outf, outi, outb = split2(ch, laux[ch])
         if max_depth > 0 and depth >= max_depth:
             outf[:, _GAIN] = -math.inf
         best_f[ch] = outf
         best_i[ch] = outi
+        best_b[ch] = outb
 
     # per-row leaf index from the segment layout
     begins = torch.tensor(leaf_begin[:nl])
@@ -351,15 +361,19 @@ def leaf_ids(s: gs.GrowState) -> torch.Tensor:
     return grow_step_kernel.leaf_ids(s)
 
 
-def tree_from_packed(host: torch.Tensor, M: int, B: int) -> TreeArrays:
+def tree_from_packed(host: torch.Tensor, M: int, B: int, W: int) -> TreeArrays:
     """Host TreeArrays of an M-leaf tree from a host copy of a state's packed
-    int32 buffer (ops/grow_state.py ``unpack``); the arrays are views of
-    ``host``."""
-    ctl, node_i, leaf_i, node_f, leaf_f = gs.unpack(host, M)
+    int32 buffer of W membership words a node (ops/grow_state.py
+    ``unpack``); the arrays are views of ``host``. ``cat_member`` is each
+    node's membership (W > 0), else the one-hot of its threshold."""
+    ctl, node_i, leaf_i, node_f, leaf_f, node_b = gs.unpack(host, M, W)
     nl = int(ctl[gs.NUM_LEAVES])
-    cat_member = torch.zeros((M - 1, B), dtype=torch.bool)
-    splits = torch.arange(nl - 1)
-    cat_member[splits, node_i[: nl - 1, 1].long()] = True  # one-hot of each split's threshold
+    if W:
+        cat_member = words_member(node_b, B)
+    else:
+        cat_member = torch.zeros((M - 1, B), dtype=torch.bool)
+        splits = torch.arange(nl - 1)
+        cat_member[splits, node_i[: nl - 1, 1].long()] = True  # one-hot of each split's threshold
     return TreeArrays(
         num_leaves=torch.tensor(nl, dtype=torch.int32),
         split_feature=node_i[: M - 1, 0],
@@ -383,7 +397,7 @@ def read_tree(s: gs.GrowState) -> TreeArrays:
     """The grown tree as host TreeArrays, from one device-to-host copy of
     the state's packed buffer."""
     # a copy on the CPU too: the state is reused
-    return tree_from_packed(s.packed.to("cpu", copy=True), s.M, s.B)
+    return tree_from_packed(s.packed.to("cpu", copy=True), s.M, s.B, s.W)
 
 
 def grow_tree_device(
@@ -409,8 +423,9 @@ def grow_tree_device(
     (a state of another shape is replaced). Takes the arguments of
     :func:`grow_tree` but no route: every histogram call is ``cuda``."""
     F, N = bins.shape
-    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves):
-        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves)
+    W = num_words(num_bins, "is_categorical" in feature_meta)
+    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W):
+        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W)
     launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
                 params, two_way, bins_nf, hist_dtype, bag, grouped)
     leaf_id = leaf_ids(state)

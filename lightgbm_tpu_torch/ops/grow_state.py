@@ -26,6 +26,8 @@ LEFT
 
 The tree's arrays and ``ctl`` share one int32 buffer, ``packed`` (the f32
 arrays are float views of it), so the readback is one device-to-host copy.
+With categorical features each node's left-side bin membership rides in it
+too, W = ceil(B / 32) words a node (``node_b``); without them W is 0.
 """
 from __future__ import annotations
 
@@ -44,25 +46,29 @@ PICK_PARTITION_BLOCKS_PER_SM = 2048 // PICK_PARTITION_THREADS
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
 
 
-def unpack(packed: torch.Tensor, M: int):
+def unpack(packed: torch.Tensor, M: int, W: int):
     """Views of the packed int32 buffer of an M-leaf state: ``ctl`` [CTL],
-    ``node_i`` [M, 5], ``leaf_i`` [M, 2], ``node_f`` [M, 3] f32 and
-    ``leaf_f`` [M, 3] f32."""
-    ctl, node_i, leaf_i, node_f, leaf_f = torch.split(packed, (CTL, 5 * M, 2 * M, 3 * M, 3 * M))
+    ``node_i`` [M, 5], ``leaf_i`` [M, 2], ``node_f`` [M, 3] f32, ``leaf_f``
+    [M, 3] f32 and ``node_b`` [M - 1, W] (each node's membership words)."""
+    ctl, node_i, leaf_i, node_f, leaf_f, node_b = torch.split(
+        packed, (CTL, 5 * M, 2 * M, 3 * M, 3 * M, W * (M - 1)))
     return (ctl, node_i.view(M, 5), leaf_i.view(M, 2), node_f.view(torch.float32).view(M, 3),
-            leaf_f.view(torch.float32).view(M, 3))
+            leaf_f.view(torch.float32).view(M, 3), node_b.view(M - 1, W))
 
 
 class GrowState:
     """Preallocated state of the split loop for trees of ``num_leaves``
-    leaves over ``N`` rows of ``F`` features with ``B`` bins on ``device``.
+    leaves over ``N`` rows of ``F`` features with ``B`` bins on ``device``,
+    ``W`` membership words a record (ops/split.py ``num_words``: 0 without
+    categorical features).
 
     Tree arrays (layout of ops/grow.py ``TreeArrays``): ``node_i`` [M, 5]
     int32 (feature, threshold, left, right, default_left), ``node_f`` [M, 3]
     f32 (split_gain, internal_value, internal_count), ``leaf_f`` [M, 3] f32
-    (value, count, weight), ``leaf_i`` [M, 2] int32 (parent, depth). Loop
-    state: ``best_f`` [M, 9] f32 and ``best_i`` [M, 4] int32 (each leaf's
-    best split record), ``laux`` [M, 5] f32 (sum_grad, sum_hess, count,
+    (value, count, weight), ``leaf_i`` [M, 2] int32 (parent, depth),
+    ``node_b`` [M - 1, W] int32 (membership words). Loop state: ``best_f``
+    [M, 9] f32, ``best_i`` [M, 4] int32 and ``best_b`` [M, W] int32 (each
+    leaf's best split record), ``laux`` [M, 5] f32 (sum_grad, sum_hess, count,
     monotone min, max), ``leaf_begin`` / ``leaf_count`` [M] int32 (each
     leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
     f32 and ``small`` [2, F, B, 3] f32 (the smaller child's histogram of
@@ -72,24 +78,27 @@ class GrowState:
     ``block_left`` int64 (each block's word at its grid barrier: the
     launch's epoch above the block's left count, one a block that fits on
     the card) and ``bar`` [1] int32 (the epoch of its last launch that
-    split), ``feat_f`` / ``feat_i`` (the split scan's per-feature
-    records), ``leaf_scratch`` [N] (each row's leaf between the two
+    split), ``feat_f`` / ``feat_i`` / ``feat_b`` (the split scan's
+    per-feature records), ``leaf_scratch`` [N] (each row's leaf between the two
     launches of the score update: uint8 up to 256 leaves, else int32)."""
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
-    STATE = ("packed", "best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
-             "small")
+    STATE = ("packed", "best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
+             "hist", "small")
 
-    def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int) -> None:
+    def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int,
+                 W: int = 0) -> None:
         M = num_leaves
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        self.device, self.N, self.F, self.B, self.M = device, N, F, B, M
+        self.device, self.N, self.F, self.B, self.M, self.W = device, N, F, B, M, W
         i32, f32 = torch.int32, torch.float32
-        self.packed = torch.zeros(CTL + 13 * M, dtype=i32, device=device)
-        self.ctl, self.node_i, self.leaf_i, self.node_f, self.leaf_f = unpack(self.packed, M)
+        self.packed = torch.zeros(CTL + 13 * M + W * (M - 1), dtype=i32, device=device)
+        (self.ctl, self.node_i, self.leaf_i, self.node_f, self.leaf_f,
+         self.node_b) = unpack(self.packed, M, W)
         self.best_f = torch.zeros((M, 9), dtype=f32, device=device)
         self.best_i = torch.zeros((M, 4), dtype=i32, device=device)
+        self.best_b = torch.zeros((M, W), dtype=i32, device=device)
         self.laux = torch.zeros((M, 5), dtype=f32, device=device)
         self.leaf_begin = torch.zeros(M, dtype=i32, device=device)
         self.leaf_count = torch.zeros(M, dtype=i32, device=device)
@@ -105,12 +114,15 @@ class GrowState:
         self.bar = torch.zeros(1, dtype=i32, device=device)
         self.feat_f = torch.empty((2, F, 4), dtype=f32, device=device)
         self.feat_i = torch.empty((2, F, 2), dtype=i32, device=device)
+        self.feat_b = torch.empty((2, F, W), dtype=i32, device=device)
         self.leaf_scratch = torch.empty(N, dtype=torch.uint8 if M <= 256 else i32, device=device)
         # the inputs of the tree being grown, set by bind()
         self.bins: Optional[torch.Tensor] = None
         self.hist_bins: Optional[torch.Tensor] = None
         self.values: Optional[torch.Tensor] = None
         self.feature_meta: Dict[str, torch.Tensor] = {}
+        #: bool [F] with categorical features (W > 0), else None
+        self.is_cat: Optional[torch.Tensor] = None
         self.feature_mask: Optional[torch.Tensor] = None
         self.params = None  # ops/split.py SplitParams
         self.two_way = True
@@ -125,8 +137,9 @@ class GrowState:
         #: parity of the next one picks its ``small`` buffer
         self.queued_steps = 0
 
-    def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int) -> bool:
-        return (self.device, self.N, self.F, self.B, self.M) == (device, N, F, B, num_leaves)
+    def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int, W: int) -> bool:
+        return (self.device, self.N, self.F, self.B, self.M, self.W) == (
+            device, N, F, B, num_leaves, W)
 
     def bind(
         self,
@@ -145,7 +158,8 @@ class GrowState:
         uint8 contiguous (the partition's columns), ``hist_bins`` an [F, N]
         uint8 view with any strides (the histograms' rows), ``values`` [N, 3]
         f32 contiguous, the meta arrays int32 [F] and ``feature_mask`` bool
-        [F] contiguous, all on the state's device. The kernels' launch
+        [F] contiguous, all on the state's device; ``is_categorical`` bool
+        [F] in the meta exactly when the state has W > 0. The kernels' launch
         arguments are rebuilt from them on first use and the stream is the
         one current now. ``grouped``: the histograms take their grouped form
         (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`)."""
@@ -161,10 +175,21 @@ class GrowState:
                     "grow_tree_device: %s must be a contiguous %s %s tensor on %s"
                     % (name, dtype, shape, dev)
                 )
+        is_cat = feature_meta.get("is_categorical")
+        if (is_cat is not None) != (self.W > 0):
+            raise ValueError("grow_tree_device: a state of %d membership words and %s "
+                             "is_categorical" % (self.W, "an" if is_cat is not None else "no"))
+        if is_cat is not None and (is_cat.device != dev or is_cat.dtype != torch.bool
+                                   or tuple(is_cat.shape) != (F,) or not is_cat.is_contiguous()):
+            raise ValueError("grow_tree_device: is_categorical must be a contiguous bool [%d] "
+                             "tensor on %s" % (F, dev))
         if hist_bins.device != dev or hist_bins.dtype != torch.uint8 or tuple(hist_bins.shape) != (F, N):
             raise ValueError("grow_tree_device: hist_bins must be an [F, N] uint8 view on %s" % dev)
         self.bins, self.hist_bins, self.values = bins, hist_bins, values
         self.feature_meta = {k: feature_meta[k] for k in _META_KEYS}
+        self.is_cat = is_cat
+        if is_cat is not None:
+            self.feature_meta["is_categorical"] = is_cat
         self.feature_mask = feature_mask
         self.params, self.two_way, self.max_depth = params, bool(two_way), int(max_depth)
         self.hist_dtype = hist_dtype
@@ -182,6 +207,7 @@ class GrowState:
         self.best_f.zero_()
         self.best_f[:, 0].fill_(-math.inf)
         self.best_i.zero_()
+        self.best_b.zero_()
         self.laux.zero_()
         self.laux[:, 3].fill_(-math.inf)
         self.laux[:, 4].fill_(math.inf)
@@ -197,9 +223,11 @@ class GrowState:
         other = GrowState.__new__(GrowState)
         other.__dict__.update(self.__dict__)
         other.packed = self.packed.clone()
-        other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f = unpack(other.packed, self.M)
-        for name in ("best_f", "best_i", "laux", "leaf_begin", "leaf_count", "order", "hist",
-                     "small", "scratch", "block_left", "bar", "feat_f", "feat_i", "leaf_scratch"):
+        (other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f,
+         other.node_b) = unpack(other.packed, self.M, self.W)
+        for name in ("best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
+                     "hist", "small", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
+                     "leaf_scratch"):
             setattr(other, name, getattr(self, name).clone())
         other.args = {}
         return other

@@ -51,6 +51,7 @@ def pick(s: gs.GrowState) -> None:
     depth = int(s.leaf_i[best, 1]) + 1
     paux = s.laux[best].clone()
     s.node_i[node] = torch.tensor([f, thr, -(best + 1), -(new + 1), dl], dtype=torch.int32)
+    s.node_b[node] = s.best_b[best]
     s.node_f[node] = torch.stack(
         [rec[_GAIN], calculate_leaf_output(paux[0], paux[1], s.params), paux[2]]
     )

@@ -3,7 +3,7 @@
 Counterpart of lightgbm_tpu/ops/grow.py's ``partition_segment`` (the
 bucketed grower's stable partition, data_partition.hpp:111): the rows
 ``order[begin : begin + count]`` of the split leaf become ``[left | right]``
-in their old relative order, so the segment keeps the reference's ``[pre |
+(by the numerical or the categorical decision) in their old relative order, so the segment keeps the reference's ``[pre |
 left | right | post]`` layout. With ops/grow_step.py ``pick`` before it, the
 oracle of csrc/partition.cu (ops/partition_kernel.py ``pick_partition``) and
 the path taken for CPU tensors.
@@ -13,11 +13,15 @@ from __future__ import annotations
 import torch
 
 from . import grow_state as gs
-from .split import MISSING_NAN, MISSING_ZERO
+from .split import MISSING_NAN, MISSING_ZERO, words_member
 
 
-def go_left(col, threshold, default_left, missing, default_bin, nan_bin):
-    """Bin-space numerical decision (dense_bin.hpp Split)."""
+def go_left(col, threshold, default_left, missing, default_bin, nan_bin, member=None):
+    """Bin-space decision (dense_bin.hpp Split): numerical, or with
+    ``member`` (bool over bins, a categorical split's left side) the bitset
+    lookup alone (CategoricalDecisionInner, tree.h:275)."""
+    if member is not None:
+        return member[col.long()]
     go_left = col <= threshold
     if missing == MISSING_ZERO:
         go_left[col == default_bin] = default_left
@@ -26,17 +30,24 @@ def go_left(col, threshold, default_left, missing, default_bin, nan_bin):
     return go_left
 
 
-def stable_partition(order, bins, begin, count, feature, threshold, default_left, meta) -> int:
+def stable_partition(order, bins, begin, count, feature, threshold, default_left, meta,
+                     bits=None) -> int:
     """Partition ``order[begin : begin + count]`` in place by the split
-    (``feature``, ``threshold``, ``default_left``) on ``bins`` [F, N], with
-    the feature's ``meta`` (num_bin / missing_type / default_bin arrays,
-    read on the host: the host split loop passes CPU copies); returns the
-    left count. The segment becomes ``torch.cat([seg[gl], seg[~gl]])``."""
+    (``feature``, ``threshold``, ``default_left``, and its membership words
+    ``bits`` [W] int32 when the feature is categorical) on ``bins`` [F, N],
+    with the feature's ``meta`` (num_bin / missing_type / default_bin
+    arrays and is_categorical when there are such features, read on the
+    host: the host split loop passes CPU copies); returns the left count. The
+    segment becomes ``torch.cat([seg[gl], seg[~gl]])``."""
     seg = order[begin:begin + count]
     col = bins[feature].index_select(0, seg)
+    is_cat = meta.get("is_categorical")
+    member = None
+    if is_cat is not None and bool(is_cat[feature]):
+        member = words_member(bits.to(col.device), 32 * bits.shape[-1])
     gl = go_left(
         col, threshold, bool(default_left), int(meta["missing_type"][feature]),
-        int(meta["default_bin"][feature]), int(meta["num_bin"][feature]) - 1,
+        int(meta["default_bin"][feature]), int(meta["num_bin"][feature]) - 1, member,
     )
     left = seg[gl]
     order[begin:begin + count] = torch.cat([left, seg[~gl]])
@@ -54,7 +65,7 @@ def partition(s: gs.GrowState) -> None:
     leaf, new = int(ctl[gs.BEST]), int(ctl[gs.NEW])
     f, thr, _, dl = (int(v) for v in s.best_i[leaf])
     b0, cnt = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
-    left = stable_partition(s.order, s.bins, b0, cnt, f, thr, dl, s.feature_meta)
+    left = stable_partition(s.order, s.bins, b0, cnt, f, thr, dl, s.feature_meta, s.best_b[leaf])
     ctl[gs.PBEGIN], ctl[gs.PCOUNT], ctl[gs.LEFT] = b0, cnt, left
     s.leaf_count[leaf] = left
     s.leaf_begin[new] = b0 + left

@@ -41,24 +41,27 @@ TILE = THREADS * ITEMS
 CAP = 10240
 
 ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 18
-    + [ctypes.c_int] * 2 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 21
+    + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
-_grids: Dict[int, int] = {}
+_grids: Dict[tuple, int] = {}
 
 
-def co_resident_grid(device: torch.device) -> int:
-    """The blocks of pick_partition that fit on the card at once
-    (``lgbt_pick_partition_grid``: the occupancy a multiprocessor times the
-    multiprocessor count), read once per device."""
+def co_resident_grid(device: torch.device, categorical: bool = False) -> int:
+    """The blocks of pick_partition's numerical or categorical
+    instantiation that fit on the card at once (``lgbt_pick_partition_grid``:
+    the occupancy a multiprocessor times the multiprocessor count), read once
+    per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _grids:
-        fn = cuda_build.entry("partition", "lgbt_pick_partition_grid", [ctypes.c_void_p])
+    key = (index, bool(categorical))
+    if key not in _grids:
+        fn = cuda_build.entry("partition", "lgbt_pick_partition_grid",
+                              [ctypes.c_void_p, ctypes.c_int])
         out = ctypes.c_int(0)
         with torch.cuda.device(index):
-            cuda_build.check(fn(ctypes.addressof(out)), "pick_partition occupancy")
-        _grids[index] = out.value
-    return _grids[index]
+            cuda_build.check(fn(ctypes.addressof(out), int(categorical)), "pick_partition occupancy")
+        _grids[key] = out.value
+    return _grids[key]
 
 
 def pick_partition(s: gs.GrowState) -> None:
@@ -92,8 +95,10 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
     """The arguments of ``lgbt_pick_partition`` (types :data:`ARGTYPES`)
     for the CUDA state ``s`` and ``grid`` blocks (default: every block that
     fits; the card tests take fewer); raises for a grid that does not fit."""
-    blocks = co_resident_grid(s.device) if grid is None else int(grid)
-    if not 1 <= blocks <= min(s.block_left.numel(), co_resident_grid(s.device)):
+    cat = s.is_cat is not None
+    fits = co_resident_grid(s.device, cat)
+    blocks = fits if grid is None else int(grid)
+    if not 1 <= blocks <= min(s.block_left.numel(), fits):
         raise ValueError("pick_partition: a grid of %d blocks does not fit on the card" % blocks)
     m, p = s.feature_meta, s.params
     return (
@@ -102,7 +107,9 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
         s.node_i.data_ptr(), s.node_f.data_ptr(), s.leaf_f.data_ptr(), s.leaf_i.data_ptr(),
         s.laux.data_ptr(), m["missing_type"].data_ptr(), m["default_bin"].data_ptr(),
         m["num_bin"].data_ptr(), m["monotone"].data_ptr(), s.leaf_begin.data_ptr(),
-        s.leaf_count.data_ptr(), s.block_left.data_ptr(), s.bar.data_ptr(), s.M, s.F,
+        s.leaf_count.data_ptr(), s.block_left.data_ptr(), s.bar.data_ptr(),
+        s.best_b.data_ptr() if cat else None, s.node_b.data_ptr() if cat else None,
+        s.is_cat.data_ptr() if cat else None, s.M, s.F, s.W,
         p.lambda_l1, p.lambda_l2, p.max_delta_step, blocks, s.stream,
     )
 
@@ -139,6 +146,9 @@ def block_mirror(s: gs.GrowState, grid: int) -> Dict:
         gl = np.where(col == meta["default_bin"], bool(dl), gl)
     elif meta["missing_type"] == MISSING_NAN:
         gl = np.where(col == meta["num_bin"] - 1, bool(dl), gl)
+    if s.is_cat is not None and bool(s.is_cat[f]):  # one word a row: a shift and a mask
+        words = s.best_b[leaf].numpy().astype(np.int64)
+        gl = ((words[col >> 5] >> (col & 31)) & 1) == 1
 
     chunk = max(THREADS, -(-cnt // grid))
     nb = max(-(-cnt // chunk), 1)

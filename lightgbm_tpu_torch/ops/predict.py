@@ -4,29 +4,35 @@ Raw space (``raw_predict_leaf``, ``ensemble_predict_raw``): the
 counterpart of the JAX package's raw-feature prediction
 (lightgbm_tpu/models/gbdt.py ``predict_raw`` over models/tree.py
 ``predict_leaf_fast``): every row advances one tree level per step, with
-NumericalDecision semantics (tree.h:216-255) in double precision, and the
-trees' values are summed in f64 in boosting order.
+NumericalDecision semantics (tree.h:216-255) in double precision or, at a
+categorical node, CategoricalDecision's (tree.h:257-271: the value
+truncated to an int, looked up in the node's bitset over category values;
+a negative value, one outside the bitset, and NaN under missing NaN go
+right), and the trees' values are summed in f64 in boosting order.
 
 Bin space (``make_predict_tree``, ``tree_predict_leaf``,
 ``tree_predict_value``, ``add_tree_value``): the counterpart of
 lightgbm_tpu/ops/predict.py over an ``[N, F]`` row-major uint8 bin matrix
 binned with the training set's mappers: a node's decision is an integer
-compare plus the missing-bin rules (dense_bin.hpp Split). The validation
+compare plus the missing-bin rules (dense_bin.hpp Split), or at a
+categorical node the lookup of the row's bin in the node's left-side
+membership (CategoricalDecisionInner, tree.h:275). The validation
 scores and the rollback use it. ``add_tree_value`` is the plain version of
 the hand-written kernel csrc/predict_bins.cu (ops/predict_kernel.py) and the
 path taken for CPU tensors.
 
-Numerical, unbundled splits only: a categorical node or an EFB-bundled
-layout raises.
+Unbundled layouts only: an EFB-bundled layout raises.
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from ..binning import MISSING_NAN, MISSING_ZERO
 from ..models.tree import K_CATEGORICAL_MASK, K_DEFAULT_LEFT_MASK, K_ZERO_THRESHOLD, Tree
+from .split import words_member
 
 
 def raw_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
@@ -35,17 +41,19 @@ def raw_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
     dev = X.device
     if tree.num_leaves <= 1:
         return torch.zeros(n, dtype=torch.int64, device=dev)
-    if tree.num_cat > 0 or (tree.decision_type & K_CATEGORICAL_MASK).any():
-        raise NotImplementedError("categorical splits are not ported yet")
 
     def arr(a, dtype):
-        return torch.as_tensor(a, device=dev).to(dtype)
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
     feat = arr(tree.split_feature, torch.int64)
     thr = arr(tree.threshold, torch.float64)
     dt = arr(tree.decision_type, torch.int32)
     miss = (dt >> 2) & 3
     dl = (dt & K_DEFAULT_LEFT_MASK) > 0
+    is_cat = (dt & K_CATEGORICAL_MASK) > 0
+    if tree.num_cat > 0:
+        bounds = arr(tree.cat_boundaries, torch.int64)
+        words = arr(tree.cat_threshold, torch.int64)
     left = arr(tree.left_child, torch.int64)
     right = arr(tree.right_child, torch.int64)
     node = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -61,6 +69,22 @@ def raw_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
         is_zero = (fv > -K_ZERO_THRESHOLD) & (fv <= K_ZERO_THRESHOLD)
         use_default = ((m == MISSING_ZERO) & is_zero) | ((m == MISSING_NAN) & torch.isnan(fv))
         go_left = torch.where(use_default, dl[nd], fv <= thr[nd])
+        raw = X.gather(1, feat[nd][:, None])[:, 0]
+        if tree.num_cat > 0:
+            # bitset membership (FindInBitset); NaN: right under missing NaN, else category 0
+            iv = torch.trunc(torch.where(nan, torch.zeros_like(raw), raw)).to(torch.int64)
+            cat_idx = torch.where(is_cat[nd], thr[nd], torch.zeros_like(thr[nd])).to(torch.int64)
+            lo = bounds[cat_idx]
+            w = iv >> 5
+            in_range = (iv >= 0) & (w < bounds[cat_idx + 1] - lo)
+            word = words[torch.clamp(lo + w, 0, max(words.numel() - 1, 0))] if words.numel() \
+                else torch.zeros_like(iv)
+            bit = (word >> (iv & 31)) & 1
+            cat_left = in_range & (bit > 0) & ~(nan & (m == MISSING_NAN))
+        else:  # single-category equality (model files without bitsets)
+            iv = torch.trunc(torch.where(nan, torch.full_like(raw, -1.0), raw)).to(torch.int64)
+            cat_left = ~nan & (iv == thr[nd].to(torch.int64))
+        go_left = torch.where(is_cat[nd], cat_left, go_left)
         nxt = torch.where(go_left, left[nd], right[nd])
         node = torch.where(active, nxt, node)
     return -(node + 1)
@@ -78,7 +102,7 @@ def ensemble_predict_raw(X: torch.Tensor, trees: Sequence[Tree]) -> torch.Tensor
 class PredictTree(NamedTuple):
     """A tree's nodes with their features' missing-bin rules, for a
     traversal in bin space (lightgbm_tpu/ops/predict.py ``PredictTree``,
-    numerical and unbundled)."""
+    unbundled)."""
 
     split_feature: torch.Tensor  # [M-1] int64
     threshold_bin: torch.Tensor  # [M-1] int64
@@ -90,20 +114,22 @@ class PredictTree(NamedTuple):
     default_bin: torch.Tensor  # [M-1] int64
     nan_bin: torch.Tensor  # [M-1] int64 (the feature's num_bin - 1)
     num_leaves: int
+    is_cat: torch.Tensor  # [M-1] bool: the node's feature is categorical
+    cat_member: torch.Tensor  # [M-1, B'] bool: a categorical node's left-side bins
 
 
 def _check_layout(feature_meta: Dict[str, torch.Tensor]) -> None:
     if "group_id" in feature_meta:
         raise NotImplementedError("prediction over EFB-bundled bins is not ported yet")
-    is_cat = feature_meta.get("is_categorical")
-    if is_cat is not None and bool(torch.as_tensor(is_cat).any()):
-        raise NotImplementedError("categorical splits are not ported yet")
 
 
 def predict_tree(split_feature, threshold_bin, default_left, left_child, right_child,
-                 leaf_value, num_leaves: int, feature_meta: Dict[str, torch.Tensor]) -> PredictTree:
+                 leaf_value, num_leaves: int, feature_meta: Dict[str, torch.Tensor],
+                 cat_member=None) -> PredictTree:
     """A :class:`PredictTree` from a tree's node arrays and the features'
-    meta (``num_bin``, ``missing_type``, ``default_bin``), on the meta's
+    meta (``num_bin``, ``missing_type``, ``default_bin``, and
+    ``is_categorical`` with ``cat_member`` [M-1, B'] bool, each node's
+    membership, when there are categorical features), on the meta's
     device."""
     _check_layout(feature_meta)
     dev = feature_meta["num_bin"].device
@@ -112,6 +138,13 @@ def predict_tree(split_feature, threshold_bin, default_left, left_child, right_c
         return torch.as_tensor(a).to(device=dev, dtype=torch.int64)
 
     f = i64(split_feature)
+    is_cat = feature_meta.get("is_categorical")
+    if is_cat is None:
+        is_cat_nodes = torch.zeros(f.shape, dtype=torch.bool, device=dev)
+        cat_member = torch.zeros(f.shape + (1,), dtype=torch.bool, device=dev)
+    else:
+        is_cat_nodes = torch.as_tensor(is_cat).to(device=dev, dtype=torch.bool)[f]
+        cat_member = torch.as_tensor(cat_member).to(device=dev, dtype=torch.bool)
     return PredictTree(
         split_feature=f, threshold_bin=i64(threshold_bin),
         default_left=torch.as_tensor(default_left).to(device=dev, dtype=torch.bool),
@@ -121,6 +154,8 @@ def predict_tree(split_feature, threshold_bin, default_left, left_child, right_c
         default_bin=i64(feature_meta["default_bin"])[f],
         nan_bin=i64(feature_meta["num_bin"])[f] - 1,
         num_leaves=int(num_leaves),
+        is_cat=is_cat_nodes,
+        cat_member=cat_member,
     )
 
 
@@ -129,7 +164,7 @@ def make_predict_tree(tree, feature_meta: Dict[str, torch.Tensor]) -> PredictTre
     (lightgbm_tpu/ops/predict.py ``make_predict_tree``)."""
     return predict_tree(tree.split_feature, tree.threshold_bin, tree.default_left,
                         tree.left_child, tree.right_child, tree.leaf_value,
-                        int(tree.num_leaves), feature_meta)
+                        int(tree.num_leaves), feature_meta, tree.cat_member)
 
 
 def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
@@ -149,6 +184,9 @@ def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
         miss = tree.missing_type[nd]
         go_left = torch.where((miss == MISSING_ZERO) & (col == tree.default_bin[nd]), dl, go_left)
         go_left = torch.where((miss == MISSING_NAN) & (col == tree.nan_bin[nd]), dl, go_left)
+        go_left = torch.where(tree.is_cat[nd],
+                              tree.cat_member[nd, col.clamp(max=tree.cat_member.shape[1] - 1)],
+                              go_left)
         node[active] = torch.where(go_left, tree.left_child[nd], tree.right_child[nd])
         active = node >= 0
     return -(node + 1)
@@ -167,15 +205,20 @@ def add_tree_value(
     value: torch.Tensor,  # [M] f32: what a row at each leaf adds
     score: torch.Tensor,  # [N] f32, updated in place
     leaf_out=None,  # optional [N] int32: each row's leaf
+    node_b=None,  # [>= M-1, W] int32: each node's membership words (categorical features)
 ) -> None:
     """``score[r] += value[leaf(r)]`` for every row r of ``bins``, one f32
     add a row; the plain version of csrc/predict_bins.cu, which reads the
-    tree the same way from a split loop's ``node_i`` and ``ctl``."""
+    tree the same way from a split loop's ``node_i``, ``node_b`` and
+    ``ctl``."""
     nl = int(num_leaves.reshape(-1)[0])
     m = max(nl - 1, 0)
     nodes = node_i[:m].to(torch.int64)
+    member = None
+    if "is_categorical" in feature_meta:
+        member = words_member(node_b[:m], 32 * node_b.shape[1])
     tree = predict_tree(nodes[:, 0], nodes[:, 1], nodes[:, 4] != 0, nodes[:, 2], nodes[:, 3],
-                        value, nl, feature_meta)
+                        value, nl, feature_meta, member)
     leaf = tree_predict_leaf(bins, tree)
     score += value[leaf]
     if leaf_out is not None:

@@ -8,8 +8,9 @@ launch. ``launches`` counts the calls that launched the kernel.
 
 The tree is read as the device-resident split loop keeps it
 (ops/grow_state.py): ``node_i`` rows (feature, threshold, left, right,
-default_left) and the leaf count in device memory, so models/gbdt.py calls
-it inside the captured boosting iteration for every validation set.
+default_left), with categorical features ``node_b`` rows (each node's
+membership words), and the leaf count in device memory, so models/gbdt.py
+calls it inside the captured boosting iteration for every validation set.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ BLOCKS_PER_SM = 8
 _META_KEYS = ("num_bin", "missing_type", "default_bin")
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -56,16 +57,18 @@ def add_tree_value(
     value: torch.Tensor,
     score: torch.Tensor,
     leaf_out: Optional[torch.Tensor] = None,
+    node_b: Optional[torch.Tensor] = None,
 ) -> None:
     """``score[r] += value[leaf(r)]`` for every row of ``bins`` ([N, F]
     uint8), through the tree of ``num_leaves[0]`` leaves whose nodes are the
-    first rows of ``node_i`` ([K, 5] int32); ``value`` [> K] f32, ``score``
-    [N] f32 updated in place, ``leaf_out`` optional [N] int32. Reads nothing
-    back on CUDA."""
+    first rows of ``node_i`` ([K, 5] int32) and, with ``is_categorical`` in
+    the meta, of ``node_b`` ([K, W] int32 membership words); ``value`` [> K]
+    f32, ``score`` [N] f32 updated in place, ``leaf_out`` optional [N]
+    int32. Reads nothing back on CUDA."""
     global launches
     dev = bins.device
     if dev.type == "cpu":
-        plain.add_tree_value(bins, node_i, num_leaves, feature_meta, value, score, leaf_out)
+        plain.add_tree_value(bins, node_i, num_leaves, feature_meta, value, score, leaf_out, node_b)
         return
     if dev.type != "cuda":
         raise ValueError("predict_bins: unsupported device %s" % dev)
@@ -91,12 +94,26 @@ def add_tree_value(
     _check("score", score, torch.float32, dev, (N,))
     if leaf_out is not None:
         _check("leaf_out", leaf_out, torch.int32, dev, (N,))
+    is_cat = feature_meta.get("is_categorical")
+    W = 0
+    if is_cat is not None:
+        _check("is_categorical", is_cat, torch.bool, dev, (F,))
+        if node_b is None or node_b.dim() != 2 or node_b.shape[0] != K or node_b.shape[1] < 1:
+            raise ValueError("predict_bins: node_b must be [%d, W >= 1] with categorical features"
+                             % K)
+        _check("node_b", node_b, torch.int32, dev)
+        W = node_b.shape[1]
+        if K * (16 + 4 * W) > MAX_NODES * 16:
+            raise ValueError("predict_bins: %d nodes of %d words do not fit in shared memory"
+                             % (K, W))
     fn = cuda_build.entry("predict_bins", "lgbt_predict_bins", _ARGTYPES)
     cuda_build.check(fn(
         bins.data_ptr(), N, F, node_i.data_ptr(), K, num_leaves.data_ptr(),
         feature_meta["missing_type"].data_ptr(), feature_meta["default_bin"].data_ptr(),
         feature_meta["num_bin"].data_ptr(), value.data_ptr(), score.data_ptr(),
-        None if leaf_out is None else leaf_out.data_ptr(), grid(N, hist_kernel._sm_count(dev)),
+        None if leaf_out is None else leaf_out.data_ptr(),
+        None if is_cat is None else node_b.data_ptr(),
+        None if is_cat is None else is_cat.data_ptr(), W, grid(N, hist_kernel._sm_count(dev)),
         torch.cuda.current_stream(dev).cuda_stream,
     ), "predict_bins kernel")
     launches += 1

@@ -1,7 +1,7 @@
-"""Best numerical split over leaf histograms: the plain PyTorch version.
+"""Best split over leaf histograms: the plain PyTorch version.
 
-Counterpart of lightgbm_tpu/ops/split.py's numerical ``find_best_split``
-and its helpers (feature_histogram.hpp:91-650 semantics): kEpsilon seeds,
+Counterpart of lightgbm_tpu/ops/split.py's ``find_best_split`` and its
+helpers (feature_histogram.hpp:91-650 semantics): kEpsilon seeds,
 missing-value scan directions, L1/L2/max_delta_step, the monotone clamp and
 the reference tie-breaks (dir=-1 prefers the largest threshold among equal
 gains, dir=+1 the smallest, dir=+1 must strictly beat dir=-1, the feature
@@ -9,8 +9,18 @@ argmax the smallest index). ``find_best_split_pair`` scans C children at
 once and returns the packed record of lightgbm_tpu/ops/grow.py (``_BEST_F``
 order, [C, 9] f32, plus [C, 4] int32 feature/threshold/num_cat/
 default_left) — the output of the Pallas kernel
-lightgbm_tpu/ops/split_pallas.py:find_best_split_pair_pallas. It is the
+lightgbm_tpu/ops/split_pallas.py:find_best_split_pair_pallas — and the
+[C, W] int32 words of each winner's left-side bin membership. It is the
 oracle of the CUDA kernel in ops/split_kernel.py, op for op.
+
+Categorical features (``is_categorical`` in the meta, whose presence is the
+switch, as in the JAX package) take the reference's categorical candidates
+alone (lightgbm_tpu/ops/split.py:325-468, FindBestThresholdCategorical):
+the one-hot branch when num_bin <= max_cat_to_onehot, else the CTR-sorted
+many-vs-many scan from both ends with cat_l2 and min_data_per_group. Their
+membership is a bitset over bins, W = ceil(B / 32) words, bit b of word
+b // 32 for bin b; a numerical winner's is the one-hot of its threshold.
+Without categorical features W is 0.
 
 The inclusive bin prefix is a sequential left fold in f32 (the CPU fold
 order of lightgbm_tpu/ops/split.py ``_bin_prefix``), not ``torch.cumsum``,
@@ -53,6 +63,12 @@ class SplitParams(NamedTuple):
     min_data_in_leaf: int
     min_sum_hessian_in_leaf: float
     min_gain_to_split: float
+    # categorical split knobs (config.h:510-540), the reference's defaults
+    max_cat_to_onehot: int = 4
+    cat_smooth: float = 10.0
+    cat_l2: float = 10.0
+    max_cat_threshold: int = 32
+    min_data_per_group: int = 100
 
 
 class SplitResult(NamedTuple):
@@ -71,16 +87,43 @@ class SplitResult(NamedTuple):
     left_output: torch.Tensor
     right_output: torch.Tensor
     num_cat: torch.Tensor
+    cat_bitset: torch.Tensor  # [W] int32 words of the left-side bin membership
 
 
-def unpack(outf: torch.Tensor, outi: torch.Tensor) -> SplitResult:
-    """Packed ([C, 9] f32, [C, 4] int32) records -> SplitResult."""
+def unpack(outf: torch.Tensor, outi: torch.Tensor, outb: torch.Tensor) -> SplitResult:
+    """Packed ([C, 9] f32, [C, 4] int32, [C, W] int32) records -> SplitResult."""
     kw = {n: outf[:, k] for k, n in enumerate(BEST_F)}
     kw.update(
         feature=outi[:, 0], threshold=outi[:, 1], num_cat=outi[:, 2],
-        default_left=outi[:, 3] > 0,
+        default_left=outi[:, 3] > 0, cat_bitset=outb,
     )
     return SplitResult(**kw)
+
+
+def num_words(num_bins: int, categorical: bool) -> int:
+    """Words of a membership bitset over ``num_bins`` bins: ceil(B / 32)
+    with categorical features, else 0."""
+    return -(-num_bins // 32) if categorical else 0
+
+
+def member_words(member: torch.Tensor, W: int) -> torch.Tensor:
+    """[..., B] bool membership -> [..., W] int32 words (bit b % 32 of word
+    b // 32 is bin b)."""
+    B = member.shape[-1]
+    if W == 0:
+        return torch.zeros(member.shape[:-1] + (0,), dtype=torch.int32, device=member.device)
+    bits = torch.zeros(member.shape[:-1] + (W * 32,), dtype=torch.int64, device=member.device)
+    bits[..., :B] = member.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=member.device)
+    words = (bits.view(member.shape[:-1] + (W, 32)) << shifts).sum(-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def words_member(words: torch.Tensor, B: int) -> torch.Tensor:
+    """[..., W] int32 words -> [..., B] bool membership."""
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    return bits.reshape(words.shape[:-1] + (-1,))[..., :B] > 0
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -176,6 +219,128 @@ def valid_neg_mask(thresholds, num_bin_b, default_bin_b, skip_def_b, use_na_b):
     return v & ~(skip_def_b & (thresholds == default_bin_b - 1))
 
 
+class CatCandidates(NamedTuple):
+    """Each feature's best categorical candidate ([C, F] unless noted)."""
+
+    gain: torch.Tensor  # -inf where none
+    threshold: torch.Tensor  # int32: the one-hot bin, or the CTR candidate index
+    left_g: torch.Tensor
+    left_h: torch.Tensor  # includes +kEpsilon
+    left_c: torch.Tensor
+    member: torch.Tensor  # [C, F, B] bool: the left side's bins
+    num_cat: torch.Tensor  # int32
+    use_ctr: torch.Tensor  # [F] bool: the CTR branch (cat_l2 in the leaf outputs)
+
+
+def categorical_candidates(hist, sum_grad, sum_hess, num_data, min_c, max_c, mgs,
+                           num_bin, missing, p: SplitParams) -> CatCandidates:
+    """FindBestThresholdCategorical (feature_histogram.hpp:118-279) of every
+    feature of C leaves, op for op lightgbm_tpu/ops/split.py:325-468.
+    ``hist`` [C, F, B, 3]; the sums, windows and ``mgs`` (min_gain_shift)
+    [C, 1, 1]. The one-hot branch (num_bin <= max_cat_to_onehot): the left
+    side is one bin, the smallest among equal gains. The CTR branch: the bins
+    below used_bin with a count >= cat_smooth, stably sorted by
+    sum_grad / (sum_hess + cat_smooth), scanned from both ends (the right
+    side's hessian sum_hess, not sum_hess_eff), lambda_l2 + cat_l2 in gains
+    and outputs, candidates grouped by min_data_per_group in order (the
+    count resets when one is emitted), at most min(max_cat_threshold,
+    (used + 1) // 2) categories on the left, the first maximum of [forward,
+    reverse] winning."""
+    C, F, B, _ = hist.shape
+    dev = hist.device
+    i32 = torch.int32
+    bins = torch.arange(B, dtype=i32, device=dev)
+    used_bin = (num_bin - (missing != MISSING_NONE).to(i32)).view(1, F, 1)
+
+    # ---- one-hot branch: left = the single bin t -------------------------
+    oh_lg, oh_lh_raw, oh_lc = hist[..., 0], hist[..., 1], hist[..., 2]
+    oh_lh = oh_lh_raw + K_EPSILON
+    oh_rg = sum_grad - oh_lg
+    oh_rh = (sum_hess + 2 * K_EPSILON) - oh_lh
+    oh_rc = num_data - oh_lc
+    oh_valid = bins < used_bin
+    oh_valid = oh_valid & (oh_lc >= p.min_data_in_leaf) & (oh_rc >= p.min_data_in_leaf)
+    oh_valid = oh_valid & (oh_lh_raw >= p.min_sum_hessian_in_leaf) & (
+        oh_rh >= p.min_sum_hessian_in_leaf)
+    oh_lo = _leaf_output_constrained(oh_lg, oh_lh, p, min_c, max_c)
+    oh_ro = _leaf_output_constrained(oh_rg, oh_rh, p, min_c, max_c)
+    oh_g = _gain_given_output(oh_lg, oh_lh, oh_lo, p) + _gain_given_output(oh_rg, oh_rh, oh_ro, p)
+    oh_valid = oh_valid & (oh_g > mgs)
+    gains_oh = torch.where(oh_valid, oh_g, torch.full_like(oh_g, K_MIN_SCORE))
+    t_oh = torch.argmax(gains_oh, dim=2, keepdim=True)  # the first max: the smallest bin
+    g_oh = gains_oh.gather(2, t_oh)[..., 0]
+
+    # ---- CTR-sorted branch -------------------------------------------------
+    p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
+    bin_valid = (bins < used_bin) & (oh_lc >= p.cat_smooth)  # [C, F, B]
+    ctr = hist[..., 0] / (hist[..., 1] + p.cat_smooth)
+    key = torch.where(bin_valid, ctr, torch.full_like(ctr, math.inf))
+    sort_idx = torch.sort(key, dim=2, stable=True).indices
+    rank = torch.empty_like(sort_idx).scatter_(
+        2, sort_idx, torch.arange(B, device=dev).expand_as(sort_idx))
+    used_ctr = bin_valid.sum(dim=2, keepdim=True).to(i32)  # [C, F, 1]
+    max_num_cat = torch.clamp((used_ctr + 1) // 2, max=p.max_cat_threshold)
+    i_pos = bins.view(1, 1, B)
+    hist_sorted = hist.gather(2, sort_idx[..., None].expand(C, F, B, 3))
+
+    def ctr_dir(h_dir):
+        """Gains and left sums of the candidates of one direction: candidate
+        i takes the first i + 1 bins of ``h_dir`` [C, F, B, 3]."""
+        pref = _bin_prefix(h_dir)
+        lg = pref[..., 0]
+        lh = pref[..., 1] + K_EPSILON
+        lc = pref[..., 2]
+        rg = sum_grad - lg
+        rh = sum_hess - lh
+        rc = num_data - lc
+        left_ok = (lc >= p.min_data_in_leaf) & (lh >= p.min_sum_hessian_in_leaf)
+        right_ok = ((rc >= p.min_data_in_leaf) & (rc >= p.min_data_per_group)
+                    & (rh >= p.min_sum_hessian_in_leaf))
+        ok_i = left_ok & right_ok
+        emit = torch.zeros_like(ok_i)
+        gcnt = torch.zeros((C, F), dtype=hist.dtype, device=dev)
+        for i in range(B):
+            gcnt = gcnt + h_dir[:, :, i, 2]
+            e = ok_i[:, :, i] & (gcnt >= p.min_data_per_group)
+            emit[:, :, i] = e
+            gcnt = torch.where(e, torch.zeros_like(gcnt), gcnt)
+        lo = _leaf_output_constrained(lg, lh, p_cat, min_c, max_c)
+        ro = _leaf_output_constrained(rg, rh, p_cat, min_c, max_c)
+        g = _gain_given_output(lg, lh, lo, p_cat) + _gain_given_output(rg, rh, ro, p_cat)
+        ok = emit & (i_pos < used_ctr) & (i_pos < max_num_cat) & (g > mgs)
+        return torch.where(ok, g, torch.full_like(g, K_MIN_SCORE)), lg, lh, lc
+
+    g_fwd, lg_fwd, lh_fwd, lc_fwd = ctr_dir(hist_sorted)
+    # the reverse traversal starts at sorted position used_ctr - 1 and walks down
+    rev_pos = torch.clamp(used_ctr - 1 - i_pos, 0, B - 1).long()
+    g_rev, lg_rev, lh_rev, lc_rev = ctr_dir(
+        hist_sorted.gather(2, rev_pos[..., None].expand(C, F, B, 3)))
+    g_all = torch.cat([g_fwd, g_rev], dim=2)  # candidate order: forward, then reverse
+    j_best = torch.argmax(g_all, dim=2, keepdim=True)  # the first maximum
+    g_ctr = g_all.gather(2, j_best)[..., 0]
+    fwd_won = j_best < B
+    i_best = torch.where(fwd_won, j_best, j_best - B)
+
+    def pick_dir(a_fwd, a_rev):
+        return torch.where(fwd_won, a_fwd.gather(2, i_best), a_rev.gather(2, i_best))[..., 0]
+
+    member_ctr = torch.where(fwd_won, rank <= i_best, rank >= used_ctr - 1 - i_best) & bin_valid
+
+    # per feature, one-hot or CTR by num_bin, not by gain
+    use_onehot = (num_bin <= p.max_cat_to_onehot).view(1, F)
+    oh = use_onehot[..., None]
+    return CatCandidates(
+        gain=torch.where(use_onehot, g_oh, g_ctr),
+        threshold=torch.where(use_onehot, t_oh[..., 0], i_best[..., 0]).to(i32),
+        left_g=torch.where(use_onehot, oh_lg.gather(2, t_oh)[..., 0], pick_dir(lg_fwd, lg_rev)),
+        left_h=torch.where(use_onehot, oh_lh.gather(2, t_oh)[..., 0], pick_dir(lh_fwd, lh_rev)),
+        left_c=torch.where(use_onehot, oh_lc.gather(2, t_oh)[..., 0], pick_dir(lc_fwd, lc_rev)),
+        member=torch.where(oh, bins == t_oh, member_ctr),
+        num_cat=torch.where(use_onehot, torch.ones_like(i_best[..., 0]), i_best[..., 0] + 1).to(i32),
+        use_ctr=~use_onehot[0],
+    )
+
+
 def find_best_split_pair(
     hist: torch.Tensor,  # [C, F, B, 3], or [M, F, B, 3] with leaves
     sums: torch.Tensor,  # [C, 3]: sum_grad, sum_hess, num_data
@@ -185,10 +350,10 @@ def find_best_split_pair(
     params: SplitParams,
     two_way: bool = True,
     leaves: Optional[Sequence[int]] = None,  # rows of hist to scan, else all
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Best numerical split of each of C leaves: ([C, 9] f32, [C, 4] int32).
-    With ``leaves``, ``hist`` is the grower's [M, F, B, 3] and the C leaves
-    are its rows ``leaves``."""
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Best split of each of C leaves: ([C, 9] f32, [C, 4] int32, [C, W]
+    int32 membership words). With ``leaves``, ``hist`` is the grower's [M,
+    F, B, 3] and the C leaves are its rows ``leaves``."""
     p = params
     if leaves is not None:
         hist = hist[list(leaves)]
@@ -263,6 +428,15 @@ def find_best_split_pair(
     dl_f = ~use_pos
     two_bin_nan = (missing == MISSING_NAN) & ~multi_bin
     dl_f = dl_f & ~two_bin_nan[None, :]
+    is_cat = feature_meta.get("is_categorical")
+    W = num_words(B, is_cat is not None)
+    if is_cat is not None:  # categorical features take their categorical candidate alone
+        is_cat = is_cat.to(device=dev, dtype=torch.bool)[None, :]
+        cat = categorical_candidates(hist, sum_grad, sum_hess, num_data, min_c, max_c, mgs,
+                                     num_bin, missing, p)
+        g_f = torch.where(is_cat, cat.gain, g_f)
+        t_f = torch.where(is_cat, cat.threshold, t_f)
+        dl_f = dl_f & ~is_cat
     g_f = torch.where(feature_mask.to(torch.bool)[None, :], g_f, torch.full_like(g_f, K_MIN_SCORE))
 
     def at_t(a_pos, a_neg):  # [C, F] value at each feature's threshold/direction
@@ -274,6 +448,10 @@ def find_best_split_pair(
     lg_f = at_t(lg_pos, lg_neg)
     lh_f = at_t(lh_pos, lh_neg)  # includes +eps
     lc_f = at_t(lc_pos, lc_neg)
+    if W:
+        lg_f = torch.where(is_cat, cat.left_g, lg_f)
+        lh_f = torch.where(is_cat, cat.left_h, lh_f)
+        lc_f = torch.where(is_cat, cat.left_c, lc_f)
 
     # ---- feature argmax (first max wins ties = smallest index) -----------
     g_best = g_f.max(dim=1).values  # [C]
@@ -294,6 +472,21 @@ def find_best_split_pair(
     right_c = sums[:, 2] - left_c
     left_out = _leaf_output_constrained(left_g, left_h, p, cons[:, 0], cons[:, 1])
     right_out = _leaf_output_constrained(right_g, right_h, p, cons[:, 0], cons[:, 1])
+    t_best = pick(t_f)
+    num_cat = torch.zeros_like(f_best)
+    member = bins == t_best[:, None]  # a numerical winner's: the one-hot of its threshold
+    if W:
+        # the CTR branch's leaf outputs take lambda_l2 + cat_l2 (feature_histogram.hpp:246-255)
+        win_cat = is_cat[0].gather(0, f_best.long())
+        use_ctr = win_cat & cat.use_ctr.gather(0, f_best.long())
+        p_cat = p._replace(lambda_l2=p.lambda_l2 + p.cat_l2)
+        left_out = torch.where(use_ctr, _leaf_output_constrained(
+            left_g, left_h, p_cat, cons[:, 0], cons[:, 1]), left_out)
+        right_out = torch.where(use_ctr, _leaf_output_constrained(
+            right_g, right_h, p_cat, cons[:, 0], cons[:, 1]), right_out)
+        num_cat = torch.where(win_cat, pick(cat.num_cat), num_cat)
+        cat_member = cat.member.gather(1, sel[..., None].expand(C, 1, B))[:, 0]
+        member = torch.where(win_cat[:, None], cat_member, member)
     gain = torch.where(has_split, g_best - mgs.view(C), torch.full_like(g_best, K_MIN_SCORE))
     outf = torch.stack(
         [
@@ -305,13 +498,13 @@ def find_best_split_pair(
     outi = torch.stack(
         [
             torch.where(has_split, f_best, torch.full_like(f_best, -1)),
-            pick(t_f),
-            torch.zeros_like(f_best),
+            t_best,
+            num_cat,
             pick(dl_f.to(torch.int32)),
         ],
         dim=-1,
     ).to(torch.int32)
-    return outf, outi
+    return outf, outi, member_words(member, W)
 
 
 def find_best_split(
@@ -331,11 +524,11 @@ def find_best_split(
     def row(*xs):
         return torch.stack([torch.as_tensor(x, dtype=torch.float32, device=dev) for x in xs])[None]
 
-    outf, outi = find_best_split_pair(
+    outf, outi, outb = find_best_split_pair(
         hist[None], row(sum_grad, sum_hess, num_data), row(min_constraint, max_constraint),
         feature_meta, feature_mask, params, two_way,
     )
-    return SplitResult(*(field[0] for field in unpack(outf, outi)))
+    return SplitResult(*(field[0] for field in unpack(outf, outi, outb)))
 
 
 def split_pair_step(s: gs.GrowState, C: int) -> None:
@@ -351,7 +544,7 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
         return
     leaves = [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C]
     aux = s.laux[leaves]
-    outf, outi = find_best_split_pair(
+    outf, outi, outb = find_best_split_pair(
         s.hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta,
         s.feature_mask, s.params, s.two_way, leaves,
     )
@@ -359,3 +552,4 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
         outf[s.leaf_i[leaves, 1] >= s.max_depth, 0] = K_MIN_SCORE
     s.best_f[leaves] = outf
     s.best_i[leaves] = outi
+    s.best_b[leaves] = outb

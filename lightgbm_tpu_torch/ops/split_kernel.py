@@ -13,6 +13,12 @@ alternating by step parity; ``fold_launches`` counts it. ``fold_mirror``
 replays its block decomposition on the host (which block reads and writes
 which rows), so that the CPU tests hold it to the plain version.
 
+With categorical features (``is_categorical`` in the meta) the kernel's
+categorical instantiations run: each feature of that kind takes the
+reference's categorical candidates, and every record carries its
+membership words ([C, W] int32, ops/split.py); a numerical-only table runs
+the numerical instantiations, with W = 0.
+
 The kernel reads the children's rows out of the grower's ``[M, F, B, 3]``
 histograms by leaf index (``leaves``), and picks each child's feature in the
 same launch through a ticket counter per child: an int32 [2] tensor per
@@ -37,9 +43,17 @@ fold_launches = 0
 
 MAX_BINS = 336  # the kernel's shared prefix row, the cap of csrc/histogram.cu
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
+#: the categorical arguments of both entries: is_cat, feat_b, outb; W,
+#: max_cat_to_onehot; cat_smooth, lambda_l2 + cat_l2; max_cat_threshold;
+#: min_data_per_group
+_CAT_ARGTYPES = (
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float] * 2 + [ctypes.c_int]
+    + [ctypes.c_float]
+)
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 12
-    + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_int] + _CAT_ARGTYPES
+    + [ctypes.c_void_p]
 )
 _tickets: Dict[torch.device, torch.Tensor] = {}
 
@@ -51,6 +65,19 @@ def _ticket_counter(dev: torch.device) -> torch.Tensor:
     return count
 
 
+def _cat_args(is_cat: Optional[torch.Tensor], feat_b: torch.Tensor, outb: torch.Tensor,
+              W: int, p: SplitParams) -> tuple:
+    """The categorical arguments of both C entries (null buffers without
+    categorical features)."""
+    return (
+        None if is_cat is None else is_cat.data_ptr(),
+        None if is_cat is None else feat_b.data_ptr(),
+        None if is_cat is None else outb.data_ptr(),
+        W, int(p.max_cat_to_onehot), float(p.cat_smooth), p.lambda_l2 + p.cat_l2,
+        int(p.max_cat_threshold), float(p.min_data_per_group),
+    )
+
+
 def find_best_split_pair(
     hist: torch.Tensor,
     sums: torch.Tensor,
@@ -60,14 +87,16 @@ def find_best_split_pair(
     params: SplitParams,
     two_way: bool = True,
     leaves: Optional[Sequence[int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Best numerical split of each of C leaves; see ops/split.py.
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Best split of each of C leaves, with its membership words; see
+    ops/split.py.
 
     ``hist`` is [C, F, B, 3], or with ``leaves`` (C leaf indices) the
     grower's [M, F, B, 3], of which the scan reads rows ``leaves``. On CUDA:
     ``hist`` contiguous f32 with B <= 336 and C 1 or 2, ``sums`` [C, 3] and
-    ``cons`` [C, 2] contiguous f32, the meta arrays contiguous int32 [F] and
-    ``feature_mask`` bool [F], all on one device."""
+    ``cons`` [C, 2] contiguous f32, the meta arrays contiguous int32 [F],
+    ``is_categorical`` (when present) and ``feature_mask`` bool [F], all on
+    one device."""
     dev = hist.device
     if dev.type == "cpu":
         return split.find_best_split_pair(
@@ -93,6 +122,8 @@ def find_best_split_pair(
         ("cons", cons, (C, 2), torch.float32),
         ("feature_mask", feature_mask, (F,), torch.bool),
         *((k, feature_meta[k], (F,), torch.int32) for k in _META_KEYS),
+        *((k, feature_meta[k], (F,), torch.bool) for k in ("is_categorical",)
+          if k in feature_meta),
     ):
         if (
             t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
@@ -102,10 +133,14 @@ def find_best_split_pair(
                 "find_best_split_pair: %s must be a contiguous %s %s tensor on %s"
                 % (name, dtype, shape, dev)
             )
+    is_cat = feature_meta.get("is_categorical")
+    W = split.num_words(B, is_cat is not None)
     feat_f = torch.empty((C, F, 4), dtype=torch.float32, device=dev)
     feat_i = torch.empty((C, F, 2), dtype=torch.int32, device=dev)
+    feat_b = torch.empty((C, F, W), dtype=torch.int32, device=dev)
     outf = torch.empty((C, 9), dtype=torch.float32, device=dev)
     outi = torch.empty((C, 4), dtype=torch.int32, device=dev)
+    outb = torch.empty((C, W), dtype=torch.int32, device=dev)
     p = params
     code = cuda_build.entry("split_pair", "lgbt_split_pair", _ARGTYPES)(
         hist.data_ptr(), leaves[0], leaves[-1], sums.data_ptr(), cons.data_ptr(),
@@ -114,17 +149,17 @@ def find_best_split_pair(
         outf.data_ptr(), outi.data_ptr(), _ticket_counter(dev).data_ptr(), C, F, B,
         p.lambda_l1, p.lambda_l2, p.max_delta_step, float(p.min_data_in_leaf),
         p.min_sum_hessian_in_leaf, p.min_gain_to_split, int(bool(two_way)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        *_cat_args(is_cat, feat_b, outb, W, p), torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(code, "split_pair kernel")
     global launches
     launches += 1
-    return outf, outi
+    return outf, outi, outb
 
 
 _ARGTYPES_STEP = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-    + [ctypes.c_float] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float] * 6 + [ctypes.c_int] + _CAT_ARGTYPES + [ctypes.c_void_p]
 )
 
 
@@ -143,7 +178,8 @@ def _step_args(s: gs.GrowState, C: int, parity: Optional[int]) -> tuple:
         s.feat_f.data_ptr(), s.feat_i.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(),
         _ticket_counter(s.device).data_ptr(), C, s.F, s.B, p.lambda_l1, p.lambda_l2,
         p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
-        p.min_gain_to_split, int(s.two_way), s.stream,
+        p.min_gain_to_split, int(s.two_way), *_cat_args(s.is_cat, s.feat_b, s.best_b, s.W, p),
+        s.stream,
     )
 
 
@@ -254,11 +290,12 @@ def fold_mirror(s: gs.GrowState, parity: int, order: str = "large_first") -> Dic
                 raise AssertionError("fold_mirror: block %s writes what block %s touches: %s"
                                      % (a, b, sorted(wa & (rb | wb))))
     aux = s.laux[list(leaves)]
-    outf, outi = split.find_best_split_pair(
+    outf, outi, outb = split.find_best_split_pair(
         rows, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta, s.feature_mask,
         s.params, s.two_way)
     if s.max_depth > 0:
         outf[s.leaf_i[list(leaves), 1] >= s.max_depth, 0] = split.K_MIN_SCORE
     s.best_f[list(leaves)] = outf
     s.best_i[list(leaves)] = outi
+    s.best_b[list(leaves)] = outb
     return access

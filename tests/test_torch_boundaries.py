@@ -117,13 +117,16 @@ def test_unsupported_params_raise(params, name):
         tlgb.train(full, tlgb.Dataset(X, label=y), 1, device="cpu")
 
 
-def test_categorical_and_bundled_data_raise():
+def test_categorical_data_trains_and_bundled_data_raises():
+    """A categorical feature trains (tests/test_torch_categorical.py holds it
+    to the JAX package); an EFB-bundled dataset still raises."""
     X, y = _data()
-    with pytest.raises(NotImplementedError, match="categorical"):
-        tlgb.train(
-            {"objective": "binary", "verbose": -1},
-            tlgb.Dataset(X, label=y, categorical_feature=[0]), 1, device="cpu",
-        )
+    X[:, 0] = np.floor(np.abs(X[:, 0]) * 3)
+    bst = tlgb.train(
+        {"objective": "binary", "verbose": -1},
+        tlgb.Dataset(X, label=y, categorical_feature=[0]), 1, device="cpu",
+    )
+    assert bst._gbdt.num_words > 0 and bst._gbdt.feature_meta["is_categorical"][0]
     meta = {"num_bin": np.full(3, 4, np.int32), "missing_type": np.zeros(3, np.int32),
             "default_bin": np.zeros(3, np.int32), "monotone": np.zeros(3, np.int8)}
     ds = convert.binned_from_numpy(np.zeros((3, 10), np.uint8), meta, label=np.zeros(10))

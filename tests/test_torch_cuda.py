@@ -343,10 +343,10 @@ def test_split_kernel_matches_plain(dev, two_way):
     }
     fmask = torch.arange(F, device=dev) != 5
     for pr in ((0.0, 0.0, 0.0, 20, 1e-3, 0.0), (0.5, 1.0, 0.3, 5, 0.5, 0.1)):
-        kf, ki = split_kernel.find_best_split_pair(
+        kf, ki, _ = split_kernel.find_best_split_pair(
             hist2, sums, cons, meta, fmask, SplitParams(*pr), two_way
         )
-        pf, pi = find_best_split_pair(hist2, sums, cons, meta, fmask, SplitParams(*pr), two_way)
+        pf, pi, _ = find_best_split_pair(hist2, sums, cons, meta, fmask, SplitParams(*pr), two_way)
         assert bool(((kf == pf) | (kf.isnan() & pf.isnan())).all())
         assert torch.equal(ki, pi)
 
@@ -399,9 +399,10 @@ SPLIT_PARAMS = [SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0), SplitParams(0.5, 1.0,
 
 
 def _same_split(got, want):
-    (kf, ki), (pf, pi) = got, want
+    (kf, ki, kb), (pf, pi, pb) = got, want
     assert bool(((kf == pf) | (kf.isnan() & pf.isnan())).all()), (kf, pf)
     assert torch.equal(ki, pi), (ki, pi)
+    assert torch.equal(kb, pb), (kb, pb)
 
 
 def _both(hist, sums, cons, meta, fmask, params, two_way=True, leaves=None):
@@ -467,7 +468,7 @@ def test_split_kernel_no_valid_candidate(dev):
 
 def test_split_kernel_mask_drops_best_feature(dev):
     hist, sums, cons, meta, fmask = _split_inputs(dev, F=28, B=255, seed=6)
-    (_, ki), _ = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
+    (_, ki, _), _ = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
     best = ki[:, 0].tolist()
     fmask[best] = False
     got, want = _both(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
@@ -826,12 +827,13 @@ def test_split_pair_step_matches_find_best_split_pair(dev):
                 want = split_kernel.find_best_split_pair(
                     s.hist, sums[:C].contiguous(), cons[:C].contiguous(), meta, fmask, params,
                     two_way, leaves)
-                _same_split((s.best_f[list(leaves)], s.best_i[list(leaves)]), want)
+                _same_split((s.best_f[list(leaves)], s.best_i[list(leaves)],
+                             s.best_b[list(leaves)]), want)
     bind(SPLIT_PARAMS[0], True, 3)
     s.leaf_i[[5, 2], 1] = 3
     split_kernel.split_pair_step(s, 2)
-    wf, wi = split_kernel.find_best_split_pair(s.hist, sums, cons, meta, fmask, SPLIT_PARAMS[0],
-                                               True, (5, 2))
+    wf, wi, _ = split_kernel.find_best_split_pair(s.hist, sums, cons, meta, fmask,
+                                                  SPLIT_PARAMS[0], True, (5, 2))
     assert bool(torch.isneginf(s.best_f[[5, 2], 0]).all())
     assert torch.equal(s.best_f[[5, 2], 1:], wf[:, 1:]) and torch.equal(s.best_i[[5, 2]], wi)
     s.ctl[gs.ACTIVE] = 0
@@ -1380,3 +1382,136 @@ def test_histogram_few_bins_matches_plain(dev, F, dtype, grouped):
         want = leaf_histogram(bins, real, B, rows, dtype)
         bound = leaf_histogram(bins, real.abs(), B, rows, dtype)
         assert bool(((got - want).abs() <= bound[..., 2:] * 2.0 ** -23 * bound + 1e-6).all())
+
+
+# ---- categorical features: the kernels' categorical instantiations -----------------
+
+CAT_PARAMS = [
+    LOOP_PARAMS,  # the reference's categorical defaults
+    SplitParams(0.0, 1.0, 0.0, 5, 1e-3, 0.0, max_cat_to_onehot=8, cat_smooth=2.0, cat_l2=1.0,
+                max_cat_threshold=6, min_data_per_group=10),
+    SplitParams(0.5, 0.0, 0.3, 10, 0.5, 0.1, max_cat_to_onehot=4, cat_smooth=20.0, cat_l2=0.0,
+                max_cat_threshold=64, min_data_per_group=200),
+]
+
+
+def _cat_loop_inputs(dev, N, seed=0, q=64):
+    """:func:`_loop_inputs` at F = 12, B = 255 with features 8-11
+    categorical: 4 categories (the one-hot branch), 40, 200 (the
+    max_cat_threshold cap) and 255, skewed to the low categories, the
+    gradients following each row's category so that categorical splits
+    win. Multiples of 1/64 keep every histogram cell exact at 200k rows
+    (a cell's sum below 2^18)."""
+    bins, _, grad, hess, meta, mask = _loop_inputs(dev, N, F=12, seed=seed, q=q)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    for f, nb in ((8, 4), (9, 40), (10, 200), (11, 255)):
+        meta["num_bin"][f] = nb
+        bins[f] = (torch.rand(N, generator=gen, device=dev) ** 2 * nb).to(torch.uint8)
+        effect = torch.randint(-4, 5, (nb,), generator=gen, device=dev).float() / 8
+        grad = grad + effect[bins[f].long()]
+    meta["is_categorical"] = torch.arange(12, device=dev) >= 8
+    return bins, bins.t().contiguous(), grad, hess, meta, mask
+
+
+@pytest.mark.parametrize("params", range(len(CAT_PARAMS)))
+def test_split_kernel_categorical_matches_plain(dev, params):
+    """Both children's scan through the host-called entry, categorical
+    features among numerical ones (missing types none / zero / nan), dyadic
+    histograms: every field and the membership words equal the plain
+    version's; each categorical branch wins somewhere."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=16, B=255, seed=40 + params, N=60_000)
+    meta["is_categorical"] = torch.arange(16, device=dev) % 3 == 0
+    for f, nb in ((0, 4), (3, 40)):  # the one-hot branch, a CTR feature: bin b folded into b % nb
+        meta["num_bin"][f] = nb
+        folded = torch.zeros_like(hist[:, f])
+        hist[:, f] = folded.index_add_(1, torch.arange(255, device=dev) % nb, hist[:, f])
+    p = CAT_PARAMS[params]
+    seen = set()
+    feats = torch.arange(16, device=dev)
+    for mask in (fmask, feats % 3 == 0, feats == 0, feats == 3, feats % 3 != 0):
+        for two_way in (True, False):
+            got, want = _both(hist, sums, cons, meta, mask.contiguous(), p, two_way)
+            _same_split(got, want)
+            assert got[2].shape == (2, 8)
+            seen.update(int(v) for v in got[1][:, 2])
+    assert {0, 1} <= seen and max(seen) > 1, seen
+
+
+def test_categorical_loop_kernels_match_plain_at_every_step(dev):
+    """A 255-leaf tree of categorical and numerical features, one step at a
+    time: after each kernel of a step the whole state (the records' and the
+    nodes' membership words included) equals that of its plain version on a
+    copy; the root's scan too. The tree holds one-hot and CTR nodes."""
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _cat_loop_inputs(dev, N, seed=3)
+    s = gs.GrowState(dev, N, 12, 255, 255, W=8)
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    check = s.clone()
+    split_pair_step(check, 1)  # the root's scan again, plain
+    _same_state(s, check, "root")
+    for step in range(254):
+        p = step % 2
+        pairs = (
+            (partition_kernel.pick_partition, _plain_pick_partition),
+            (lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p)),
+            (lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p)),
+        )
+        for k, (kernel, plain) in enumerate(pairs):
+            other = s.clone()
+            kernel(s)
+            plain(other)
+            _same_state(s, other, (step, k))
+    tree = grow_mod.read_tree(s)
+    nl = int(tree.num_leaves)
+    feats = tree.split_feature[:nl - 1]
+    members = tree.cat_member[:nl - 1].sum(1)
+    assert bool((feats == 8).any()) and bool(((feats >= 9) & (members > 1)).any()), (feats, members)
+
+
+def test_categorical_device_loop_equals_host_loop(dev):
+    """Dyadic gradients: with categorical features the device loop grows the
+    host loop's tree (cat_member included) and leaf index bit for bit."""
+    bins, nf, grad, hess, meta, mask = _cat_loop_inputs(dev, 200_000, seed=9)
+    for max_depth in (-1, 6):
+        args = (bins, grad, hess, mask, meta, 255, max_depth, 255, LOOP_PARAMS, True)
+        want, want_leaf = grow_tree(*args, bins_nf=nf)
+        got, got_leaf, _ = grow_tree_device(*args, bins_nf=nf)
+        for name in TreeArrays._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (name, max_depth)
+        assert torch.equal(got_leaf, want_leaf)
+
+
+def test_predict_bins_categorical_matches_plain(dev):
+    """csrc/predict_bins.cu's categorical instantiation against its plain
+    version on a 255-leaf tree with categorical nodes: the same leaf and
+    the same f32 score bit for bit, on other rows and on the training rows
+    (there the loop's own leaf_ids)."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _cat_loop_inputs(dev, N, seed=4)
+    s = gs.GrowState(dev, N, 12, 255, 255, W=8)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    assert int(nl) == 255
+    cat_nodes = meta["is_categorical"][nodes[:, 0].long()]
+    assert bool(cat_nodes.any()) and bool((~cat_nodes).any())
+    value = torch.randn(255, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    other = (torch.rand((77_777, 12), generator=gen, device=dev) * meta["num_bin"]).to(torch.uint8)
+    for rows in (other, nf):
+        n = rows.shape[0]
+        start = torch.randn(n, generator=gen, device=dev)
+        got, want = start.clone(), start.clone()
+        got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        before = predict_kernel.launches
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf, s.node_b)
+        assert predict_kernel.launches == before + 1
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf, s.node_b)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
+    assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
+    with pytest.raises(ValueError, match="node_b"):
+        predict_kernel.add_tree_value(other, nodes, nl, meta, value, torch.zeros(77_777, device=dev))

@@ -68,12 +68,12 @@ def _torch_split(hist, meta, fmask, mn, mx, p, two_way=True, leaves=None):
     the leaves are its rows ``leaves``, as the grower calls it."""
     rows = hist if leaves is None else hist[list(leaves)]
     sums = rows[:, 0].sum(axis=1)  # every row lands in one bin of feature 0
-    outf, outi = split_kernel.find_best_split_pair(
+    outf, outi, outb = split_kernel.find_best_split_pair(
         torch.from_numpy(hist), torch.from_numpy(sums),
         torch.from_numpy(np.stack([mn, mx], axis=1)), convert.meta_tensors(meta),
         torch.from_numpy(fmask), tsplit.SplitParams(*p), two_way, leaves,
     )
-    return tsplit.unpack(outf, outi)
+    return tsplit.unpack(outf, outi, outb)
 
 
 def _in_buffer(hist, leaves, M=6, seed=0):

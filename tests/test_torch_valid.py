@@ -151,9 +151,13 @@ def test_stump_and_unported_layouts():
     with pytest.raises(NotImplementedError, match="EFB"):
         tpredict.predict_tree([0], [1], [False], [-1], [-2], torch.zeros(2), 2,
                               dict(meta, group_id=torch.zeros(3)))
-    with pytest.raises(NotImplementedError, match="categorical"):
-        tpredict.predict_tree([0], [1], [False], [-1], [-2], torch.zeros(2), 2,
-                              dict(meta, is_categorical=torch.ones(3, dtype=torch.bool)))
+    # a categorical node: the row's bin looked up in the node's membership
+    member = torch.tensor([[False, True, False, True]])
+    ptree = tpredict.predict_tree([0], [1], [False], [-1], [-2], torch.tensor([1.0, 2.0]), 2,
+                                  dict(meta, is_categorical=torch.ones(3, dtype=torch.bool)),
+                                  member)
+    rows = torch.tensor([[0, 0, 0], [1, 0, 0], [2, 0, 0], [3, 0, 0]], dtype=torch.uint8)
+    assert tpredict.tree_predict_leaf(rows, ptree).tolist() == [1, 0, 1, 0]
     with pytest.raises(ValueError, match="device"):
         predict_kernel.add_tree_value(nf.to("meta"), None, None, meta, None, None)
 
