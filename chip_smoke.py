@@ -147,6 +147,30 @@ Phases (each prints one line; any failure exits non-zero):
     this table's histograms with its categorical blocks, with the same
     features as numerical blocks of the categorical instantiation, and in
     the numerical instantiation; the turns and profile of 4e;
+ 4h. sparse input, EFB-bundled: 4f's rows as a scipy CSR matrix with 4f's
+    parameters but the default enable_bundle and max_conflict_rate (the 10
+    continuous columns alone, Wilderness in a group of 5 bins, Soil in one
+    of 41: G = 12), a 100k-row held-out CSR set, early stopping 5, 10
+    iterations; multi_error below the majority share and the held-out
+    multi_logloss within 1% of 4f's; each class's validation score (the
+    bundled predict_bins) equal to the plain per-tree adds; on 16,000 rows
+    with gradients rounded to 2^-10 the replays, the eager launches, chunks
+    of 4 and the host loop give one model text, and their trees equal the
+    dense array's (no bundles) node for node; one eager iteration on the
+    whole table with every remap held to its plain version bit for bit (and
+    every root's and 16th step's to the histogram of the decoded rows), every
+    pick_partition (the bundled instantiation) and histogram call held, the
+    folded scan every 16th step; the bundled pick, the remap and the bundled
+    predict_bins at step 16 and over the held-out set against their plain
+    versions and timed against their bounds (the remap beside one
+    index_select of the group rows); the turns and profile of 4e;
+ 4i. a wide one-hot table shaped like the Flight Delay set
+    (``bench.flight_like_rows``: 1,000,000 x 674 CSR, one-hot Month,
+    DayofMonth, DayOfWeek, UniqueCarrier, 300 Origins and 300 Dests, then
+    DepTime and Distance; about 10 groups), binary, 255 leaves, max_bin 255,
+    10 iterations with a 100k-row held-out set; held-out AUC above 0.7,
+    the validation score equal to the plain adds, 4h's held iteration and
+    kernel timings at this shape, the turns and profile of 4e;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -183,13 +207,15 @@ Phases (each prints one line; any failure exits non-zero):
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
-    4f's and 4g's trainings and turns, the sweep and the routed trainings,
-    each with the counts set to 0 just before it and read just after; the
-    split loop's kernels timed in phase 4b, leaf_ids and score_update in
-    4c, predict_bins in 4d; the categorical instantiations of the folded
-    scan, pick_partition and predict_bins in rows of their own, timed in
-    4g, their launches 4g's training's), the seconds of each phase, then
-    the result line.
+    4f's, 4g's, 4h's and 4i's trainings and turns, the sweep and the routed
+    trainings, each with the counts set to 0 just before it and read just
+    after; the split loop's kernels timed in phase 4b, leaf_ids and
+    score_update in 4c, predict_bins in 4d; the categorical instantiations of
+    the folded scan, pick_partition and predict_bins in rows of their own,
+    timed in 4g, their launches 4g's training's; efb_remap and the bundled
+    instantiations of pick_partition and predict_bins timed in 4i, the
+    bundled ones' launches 4h's and 4i's trainings'), the seconds of each
+    phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -278,6 +304,7 @@ def main() -> int:
     from lightgbm_tpu_torch.bench import (
         COVER_CATEGORICAL, COVER_PARAMS, COVER_ROWS, COVER_VALID_ROWS, YEAR_FEATURES, YEAR_PARAMS,
         YEAR_ROWS, YEAR_VALID_ROWS, covertype_compact_rows, covertype_like_rows, year_like_rows,
+        FLIGHT_COLUMNS, FLIGHT_PARAMS, FLIGHT_ROWS, FLIGHT_VALID_ROWS, flight_like_rows,
     )
     from lightgbm_tpu_torch import objective as objective_mod
     from lightgbm_tpu_torch.obs import tune
@@ -288,9 +315,11 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import grow_step_kernel, partition_kernel, predict_kernel
     from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import remap as remap_plain
+    from lightgbm_tpu_torch.ops import remap_kernel
     from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
-        leaf_histogram, leaf_histogram_packed4_rows, leaf_values, segment_histogram,
+        leaf_histogram, leaf_histogram_packed4_rows, leaf_values, operands, segment_histogram,
     )
     from lightgbm_tpu_torch.ops.split import (
         MISSING_NAN, MISSING_ZERO, SplitParams, find_best_split_pair,
@@ -308,6 +337,7 @@ def main() -> int:
         now = time.perf_counter()
         phase_s[phase] = now - clock[0]
         clock[0] = now
+        print("phase %s: %.1f s" % (phase, phase_s[phase]), file=sys.stderr, flush=True)
         results[phase] = kw
         print(json.dumps({"phase": phase, **kw}), flush=True)
 
@@ -339,9 +369,11 @@ def main() -> int:
     # three instances (host-indexed, device-indexed, folded), grow_step's
     # leaf lookup (leaf_ids' int64 leaves; score_update's byte or int32
     # leaves) and score_update's pass in row order; the pick and partition,
-    # the scan and predict_bins each also in a categorical instantiation
+    # the scan and predict_bins each also in a categorical instantiation; the
+    # pick and partition and predict_bins each also for EFB-bundled tables
+    # (the pick's second flag, predict_bins' own kernel), beside the remap
     assert set(ptxas["partition"]) == {
-        "pick_partition_kernel<0>", "pick_partition_kernel<1>"}, ptxas
+        "pick_partition_kernel<%d,%d>" % (ca, efb) for ca in (0, 1) for efb in (0, 1)}, ptxas
     assert set(ptxas["split_pair"]) == {
         "split_pair_kernel<%d,%d,%d>" % (d, fo, ca)
         for d, fo in ((0, 0), (1, 0), (1, 1)) for ca in (0, 1)}, ptxas
@@ -349,11 +381,13 @@ def main() -> int:
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
         "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
     assert set(ptxas["predict_bins"]) == {
-        "predict_bins_kernel<0>", "predict_bins_kernel<1>"}, ptxas
+        "predict_bins_kernel<0>", "predict_bins_kernel<1>", "predict_bins_bundled_kernel<0>",
+        "predict_bins_bundled_kernel<1>"}, ptxas
+    assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
     # histogram.cu: both entries per (operand type, bin path, grouped form)
     assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
-               for n in ("partition", "split_pair", "grow_step", "predict_bins")
+               for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
@@ -560,7 +594,7 @@ def main() -> int:
         hist_kernel.reset_launches()
         grow_step_kernel.reset_launches()
         split_kernel.launches = split_kernel.step_launches = split_kernel.fold_launches = 0
-        partition_kernel.launches = predict_kernel.launches = 0
+        partition_kernel.launches = predict_kernel.launches = remap_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -572,7 +606,8 @@ def main() -> int:
                      ("split_pair_step", split_kernel.step_launches),
                      ("split_pair_fold", split_kernel.fold_launches),
                      ("pick_partition", partition_kernel.launches),
-                     ("predict_bins", predict_kernel.launches)):
+                     ("predict_bins", predict_kernel.launches),
+                     ("efb_remap", remap_kernel.launches)):
             if v:
                 got[k] = v
         for k, v in got.items():
@@ -1002,7 +1037,7 @@ def main() -> int:
     # the device ms and calls of the split loop's and predict_bins' kernels
     named_kernels = ("pick_partition_kernel", "hist_segment_kernel", "hist_kernel",
                      "split_pair_kernel", "leaf_tile_kernel", "add_value_kernel",
-                     "subtract_kernel", "predict_bins_kernel")
+                     "subtract_kernel", "predict_bins_kernel", "efb_remap_kernel")
 
     def profiled(fn):
         torch.cuda.synchronize()
@@ -1366,7 +1401,7 @@ def main() -> int:
         launches_per_turn=valid_turn_launches, turn_calls=turn_calls, profile=valid_prof,
         predict_bins=predict_t)
 
-    def hold_calls(steps_every=0, scan_every=None):
+    def hold_calls(steps_every=0, scan_every=None, each_pick=False):
         """Hold every call of each histogram kernel wrapper to its plain
         version on the same rows within the two-order bound, and every
         score_update to ``score.add_(value[leaf_ids])`` bit for bit, until
@@ -1379,7 +1414,10 @@ def main() -> int:
         membership words of the records and nodes included); with
         ``scan_every`` the scans (the root's too) at that stride instead.
         ``categorical`` counts the held calls on a state with categorical
-        features, and the held picks that split a categorical feature."""
+        features, and the held picks that split a categorical feature. With
+        ``each_pick``, every other pick_partition call is held too, on a
+        copy of what a pick writes (the packed tree and control words, the
+        leaves' sums and bounds, ``order``): those tensors equal."""
         plains = dict(histogram=leaf_histogram, hist_onehot=leaf_histogram,
                       hist_bitplane=leaf_histogram, hist_packed4_rows=leaf_histogram_packed4_rows)
         orig = {n: (hist_kernel, getattr(hist_kernel, n)) for n in plains}
@@ -1413,8 +1451,9 @@ def main() -> int:
                 leaf = int(st.ctl[gs.SMALL])
                 b0, cnt = int(st.leaf_begin[leaf]), int(st.leaf_count[leaf])
                 rows = st.order[b0:b0 + cnt]
-                check("histogram_segment", st.small[parity],
-                      lambda v: leaf_histogram(st.hist_bins, v, st.B, rows, st.hist_dtype), st.values)
+                check("histogram_segment", st.hist_out(parity),  # a bundled state's group rows
+                      lambda v: leaf_histogram(st.hist_bins, v, st.hist_width, rows, st.hist_dtype),
+                      st.values)
                 held["grouped_calls"] += st.grouped
         hist_kernel.histogram_segment = segment_call
 
@@ -1434,7 +1473,23 @@ def main() -> int:
 
             def call(st, *a):
                 if (st.queued_steps - 1) % every:
-                    return kernel(st, *a)
+                    if not (each_pick and name == "pick_partition"):
+                        return kernel(st, *a)
+                    light = gs.GrowState.__new__(gs.GrowState)
+                    light.__dict__.update(st.__dict__)
+                    light.packed = st.packed.clone()
+                    (light.ctl, light.node_i, light.leaf_i, light.node_f, light.leaf_f,
+                     light.node_b) = gs.unpack(light.packed, st.M, st.W)
+                    for k_ in ("laux", "leaf_begin", "leaf_count", "order"):
+                        setattr(light, k_, getattr(st, k_).clone())
+                    kernel(st, *a)
+                    plain(light, *a)
+                    for k_ in ("packed", "laux", "leaf_begin", "leaf_count", "order"):
+                        assert torch.equal(getattr(st, k_), getattr(light, k_)), (
+                            "kernel != plain", name, k_, st.queued_steps - 1)
+                    held["checked"]["pick_partition_each"] = held["checked"].get(
+                        "pick_partition_each", 0) + 1
+                    return None
                 other = st.clone()
                 kernel(st, *a)
                 plain(other, *a)
@@ -1462,20 +1517,80 @@ def main() -> int:
                 held["checked"][name] = 0
                 setattr(mod, name, step_call(name, plain, every))
 
+        # a bundled table's remaps (ops/remap_kernel.py): every call against
+        # the plain remap bit for bit, the next step's group scratch cleared;
+        # every root's and every 16th step's against the feature-space
+        # histogram of the decoded rows: a cell other than the default bin's
+        # within the two-order bound, the default bin's (the totals minus the
+        # others) within the leaf's two-order bound plus the distance of the
+        # totals it was given from the rows' own sum
+        held["checked"]["remap"] = 0
+        held["remap_dense"] = dict(checked=0, worst_err_over_bound=0.0)
+
+        def dense_check(st, out, totals, rows):
+            vals = operands(st.values if rows is None else st.values[rows.long()], st.hist_dtype)
+            m_ = st.feature_meta
+            want = torch.zeros_like(out)
+            abs_ = torch.zeros_like(out)
+            for f_ in range(st.F):
+                col = st.bins[int(m_["group_id"][f_])]
+                sub = remap_plain.decode_col(col if rows is None else col[rows.long()],
+                                             int(m_["bin_offset"][f_]), int(m_["default_bin"][f_]),
+                                             int(m_["num_bin"][f_]))
+                want[f_].index_add_(0, sub, vals)
+                abs_[f_].index_add_(0, sub, vals.abs())
+            is_def = torch.zeros(out.shape[:2], dtype=torch.bool, device=out.device)
+            is_def[torch.arange(st.F, device=out.device), m_["default_bin"].long()] = True
+            err = (out - want).abs()
+            cell = want[..., 2:] * 2.0 ** -23 * abs_ + 1e-6
+            leaf = vals.shape[0] * 2.0 ** -23 * vals.abs().sum(0) + (totals - vals.sum(0)).abs() \
+                + 1e-6
+            ratio = float(torch.where(is_def[..., None], err / leaf, err / cell).max())
+            assert ratio <= 1.0, ("remap off the decoded rows' histogram", ratio)
+            held["remap_dense"]["checked"] += 1
+            held["remap_dense"]["worst_err_over_bound"] = max(
+                held["remap_dense"]["worst_err_over_bound"], ratio)
+
+        def remap_call(name):
+            kernel = getattr(remap_kernel, name)
+            orig[name] = (remap_kernel, kernel)
+
+            def call(st, *a):
+                step = name == "remap_step"
+                parity = a[0] if step else 1
+                active = bool(int(st.ctl[gs.ACTIVE]))
+                if active:
+                    totals = st.laux[int(st.ctl[gs.SMALL]) if step else 0, :3].clone()
+                    src = st.small_g[parity].clone()
+                kernel(st, *a)
+                if not active:
+                    return
+                out = st.small[parity] if step else st.hist[0]
+                want = remap_plain.remap_hist(src, totals, st.feature_meta, st.B)
+                assert torch.equal(out, want), ("efb_remap != plain", name, st.queued_steps)
+                assert not bool(st.small_g[1 - parity].any()), (name, "group scratch not cleared")
+                held["checked"]["remap"] += 1
+                if not step or (st.queued_steps - 1) % 16 == 0:
+                    dense_check(st, out, totals, small_rows(st) if step else None)
+            return call
+
+        for name in ("remap_step", "remap_root"):
+            setattr(remap_kernel, name, remap_call(name))
+
         def release():
             for name, (mod, fn) in orig.items():
                 setattr(mod, name, fn)
             return held
         return release
 
-    def held_iterations(train_set_, params_, n, steps_every=16, scan_every=None):
+    def held_iterations(train_set_, params_, n, steps_every=16, scan_every=None, each_pick=False):
         """``n`` eager iterations of a new booster on ``train_set_`` under
         :func:`hold_calls` (its ``steps_every`` and ``scan_every``): every
         histogram call and score update held, and pick_partition and the
         folded scan at every ``steps_every``-th step of each tree (the scans
         at every ``scan_every``-th). Returns the booster's gbdt and what was
         held."""
-        release_ = hold_calls(steps_every, scan_every)
+        release_ = hold_calls(steps_every, scan_every, each_pick)
         try:
             b_ = lgb.Booster(dict(params_), train_set_)
             b_._gbdt.iteration_graph = False  # a replay calls no wrapper to hold
@@ -1867,6 +1982,254 @@ def main() -> int:
         held_calls=cat_held, split_scan_us_per_call=scan_us, kernels=cat_t,
         iterations_per_s=kips, launches_per_turn=kturn_launches, profile=kprof)
     del kbst, gk, cat_set, cat_valid, Xk, yk, Xkv, ykv
+
+    # ---- 4h. Covertype as a sparse matrix: EFB-bundled -------------------------------
+    # 4f's rows as a scipy CSR matrix, 4f's parameters with the default
+    # enable_bundle and max_conflict_rate: the 10 continuous columns alone,
+    # Wilderness (4 one-hot columns) in a group of 5 bins, Soil (40) in one
+    # of 41: G = 12; K = 7, 255 leaves, max_bin 255, a 100k-row held-out CSR
+    # set, early stopping 5, 10 iterations
+    import scipy.sparse as sparse
+
+    efb_params = {k_: v_ for k_, v_ in COVER_PARAMS.items() if k_ != "enable_bundle"}
+    cover_ll = mll[-1]  # 4f's held-out multi_logloss at its last iteration
+    hXd, hy = covertype_like_rows(COVER_ROWS, seed=31)
+    hXvd, hyv = covertype_like_rows(COVER_VALID_ROWS, seed=32)
+    t0 = time.perf_counter()
+    hX, hXv = sparse.csr_matrix(hXd), sparse.csr_matrix(hXvd)
+    h_set = lgb.Dataset(hX, label=hy)
+    h_valid = lgb.Dataset(hXv, label=hyv, reference=h_set)
+    h_cfg = Config.from_params(dict(efb_params))
+    h_binned = h_set.get_binned(h_cfg)
+    h_valid.get_binned(h_cfg)
+    h_bin_s = time.perf_counter() - t0
+
+    def group_widths(b_):
+        """Each group's width (its last member's offset + contributed bins)."""
+        w_ = {}
+        for f_, m_ in enumerate(b_.mappers):
+            g_ = int(b_.group_id[f_])
+            w_[g_] = max(w_.get(g_, 0), int(b_.bin_offset[f_]) + m_.num_bin - 1)
+        return [w_[g_] for g_ in sorted(w_)]
+
+    h_widths = group_widths(h_binned)
+    assert h_binned.is_bundled and h_binned.num_groups == 12, h_widths
+    assert sorted(h_widths)[:2] == [5, 41] and h_binned.max_group_bins == max(h_widths), h_widths
+    h_evals = {}
+    hbst, h_train_s, h_launches = counted(lambda: lgb.train(
+        dict(efb_params), h_set, 10, valid_sets=[h_valid], early_stopping_rounds=5,
+        evals_result=h_evals, verbose_eval=False))
+    gh_ = hbst._gbdt
+    assert gh_.grow_loop == "device" and gh_.captures == 1 and gh_.num_groups == 12, gh_.captures
+    assert hbst.num_trees() == K * hbst.current_iteration, hbst.num_trees()
+    assert all(h_launches.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins", "efb_remap")), (
+        h_launches)
+    herr, hll = h_evals["valid_0"]["multi_error"], h_evals["valid_0"]["multi_logloss"]
+    hprior = np.bincount(hy.astype(np.int64), minlength=K) / len(hy)
+    assert min(herr) < hprior.max(), (herr, hprior)
+    # the same data bundled exactly: the held-out multi_logloss within 1% of 4f's
+    assert abs(hll[-1] - cover_ll) <= 0.01 * cover_ll, (hll, cover_ll)
+    hprob = hbst.predict(hXv[:1000])
+    assert hprob.shape == (1000, K) and np.allclose(hprob.sum(1), 1.0)
+    assert np.array_equal(hprob, hbst.predict(hXvd[:1000])), "CSR and dense predictions differ"
+
+    def valid_equals_plain_adds(g_, nv):
+        """Each class's validation score (the bundled predict_bins nodes)
+        equals the plain traversal's per-tree f32 adds, bit for bit."""
+        vb = g_._valid_bins[0]
+        K_ = g_.num_tree_per_iteration
+        want_ = torch.zeros((K_, nv), device=dev)
+        for k_ in range(K_):
+            want_[k_] += np.float32(g_._init_fold[k_])
+        for i_, ta in enumerate(g_._tree_arrays):
+            ptree = predict_plain.make_predict_tree(ta, g_.feature_meta)
+            want_[i_ % K_] += ptree.leaf_value[predict_plain.tree_predict_leaf(vb, ptree)]
+        assert want_.double().cpu().numpy().tobytes() == g_._valid_score_np(0).tobytes(), (
+            "a validation score != the plain per-tree adds (bundled)")
+
+    valid_equals_plain_adds(gh_, COVER_VALID_ROWS)
+    # on 16,000 rows with gradients and hessians rounded to multiples of
+    # 2^-10 (every histogram cell exact, the remapped default rows too), the
+    # replays, the eager launches, chunks of 4 and the host loop give one
+    # model text, and their trees equal those of the dense array's run (no
+    # bundles) node for node
+    ds_hq = lgb.Dataset(hX[:16_000], label=hy[:16_000])
+    ds_hd = lgb.Dataset(hXd[:16_000], label=hy[:16_000])
+    objective_mod.MulticlassSoftmax.get_gradients = mc_dyadic
+    try:
+        hq = {}
+        for kind, ds_, c, graph_on in (("eager", ds_hq, 1, False), ("graph", ds_hq, 1, True),
+                                       ("chunk", ds_hq, 4, True), ("host", ds_hq, 1, False),
+                                       ("dense", ds_hd, 1, False)):
+            b_ = lgb.Booster(dict(efb_params, device_chunk_size=c), ds_)
+            b_._gbdt.iteration_graph = graph_on
+            if kind == "host":
+                b_._gbdt.grow_loop = "host"
+            assert bench_mod.train_iterations(b_, 9, c) == 9, kind
+            hq[kind] = b_
+    finally:
+        objective_mod.MulticlassSoftmax.get_gradients = get_mc
+    assert hq["eager"]._gbdt.num_groups and not hq["dense"]._gbdt.num_groups
+    hq_text = hq["eager"].model_to_string().split("parameters:")[0]
+    for kind, b_ in hq.items():
+        assert b_.num_trees() == 9 * K, (kind, b_.num_trees())
+        if kind != "dense":
+            assert b_.model_to_string().split("parameters:")[0] == hq_text, ("bundled trees differ",
+                                                                              kind)
+            assert b_._gbdt.train_score().tobytes() == hq["eager"]._gbdt.train_score().tobytes()
+    for ta, tb_ in zip(hq["eager"]._gbdt._tree_arrays, hq["dense"]._gbdt._tree_arrays):
+        for name in ("num_leaves", "split_feature", "threshold_bin", "default_left", "left_child",
+                     "right_child", "leaf_count", "leaf_value", "internal_count"):
+            assert torch.equal(getattr(ta, name), getattr(tb_, name)), ("bundled != dense", name)
+    assert hq["graph"]._gbdt.captures == hq["chunk"]._gbdt.captures == 1
+    del hq, ds_hq, ds_hd
+
+    def bundled_kernels(g_, held_g, n_valid):
+        """The three bundled kernels at a table's shapes, against their plain
+        versions and timed: pick_partition and efb_remap at step 16 of a
+        tree of ``held_g``'s first class on its gradients (a state of its
+        own), predict_bins over the held-out set of the trained booster
+        ``g_`` through its last tree."""
+        cfg_ = held_g.config
+        grad_, hess_ = held_g._compute_gradients()
+        F_, G_, Bg_, B_ = held_g.train_set.num_features, held_g.num_groups, held_g.hist_width, \
+            held_g.num_bins
+        st = gs.GrowState(dev, held_g.num_data, F_, B_, cfg_.num_leaves, held_g.num_words, G_, Bg_)
+        grow_mod.start_tree(st, held_g.bins_dev, grad_[0].contiguous(), hess_[0].contiguous(),
+                            held_g.feature_mask, held_g.feature_meta, cfg_.max_depth,
+                            held_g.split_params, held_g._two_way, held_g.bins_nf,
+                            cfg_.tpu_hist_dtype, None, held_g.grouped_adds)
+        for _ in range(16):
+            grow_mod.run_step(st)
+        parity = st.queued_steps % 2
+        st.queued_steps += 1
+        rows_ = pick_rows(st)
+        pick_t = held_and_timed(st, "pick_partition", partition_kernel.pick_partition,
+                                plain_pick_partition)
+        pick_t.update(zip(("bound_ms", "bound_by"), bound(
+            cfg_.num_leaves * 4 + 24 * F_ + 8 * 4 + rows_ * 9, 0)), library_ms=None, rows=rows_,
+            step=int(st.ctl[gs.STEP]) - 1)
+        hist_kernel.histogram_segment(st, parity)
+        remap_t = held_and_timed(st, "efb_remap", lambda s_: remap_kernel.remap_step(s_, parity),
+                                 lambda s_: remap_plain.remap_step(s_, parity))
+        cells_g, cells_f = G_ * Bg_ * 3, F_ * B_ * 3
+        remap_t.update(zip(("bound_ms", "bound_by"), bound(
+            2 * cells_g * 4 + cells_f * 4 + 16 * F_ + 20, F_ * remap_plain.SLOTS * 3)))
+        # the nearest single call: one index_select of the group rows by the plan
+        m_ = held_g.feature_meta
+        s_iota = torch.arange(B_, device=dev)[None, :]
+        d_ = m_["default_bin"].long()[:, None]
+        valid_ = (s_iota < m_["num_bin"].long()[:, None]) & (s_iota != d_)
+        flat = torch.where(valid_, m_["group_id"].long()[:, None] * Bg_
+                           + m_["bin_offset"].long()[:, None] + s_iota - (s_iota > d_).long(),
+                           0).reshape(-1)
+        rows_g = st.small_g[parity].view(-1, 3)
+        remap_t["library_ms"] = time_ms(lambda: torch.index_select(rows_g, 0, flat))
+        remap_t["library_call"] = "torch.index_select of the [G*Bg, 3] rows by the [F*B] plan"
+        remap_t.update(small_child_rows=int(small_rows(st).numel()), features=F_, groups=G_,
+                       group_width=Bg_, num_bins=B_)
+        del st
+        # predict_bins' bundled instantiation over the held-out set
+        gs_ = g_._grow_state
+        vb = g_._valid_bins[0]
+        pv_args = (vb, gs_.node_i[:gs_.M - 1], gs_.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1],
+                   g_.feature_meta, gs_.leaf_f[:, 0].contiguous())
+        nb_ = gs_.node_b if g_.num_words else None
+        pk_ = torch.zeros(n_valid, device=dev)
+        pp_ = torch.zeros(n_valid, device=dev)
+        predict_kernel.add_tree_value(*pv_args, pk_, node_b=nb_)
+        predict_plain.add_tree_value(*pv_args, pp_, node_b=nb_)
+        assert torch.equal(pk_, pp_), "predict_bins (bundled) != plain"
+        depth = float(np.mean([float(ta.leaf_depth[:int(ta.num_leaves)].float().mean())
+                               for ta in g_._tree_arrays]))
+        predict_t = dict(
+            ms=time_ms(lambda: predict_kernel.add_tree_value(*pv_args, pk_, node_b=nb_)),
+            plain_ms=time_ms(lambda: predict_plain.add_tree_value(*pv_args, pp_, node_b=nb_),
+                             reps=3),
+            max_abs_err=0.0, library_ms=None, mean_depth=depth, rows=n_valid, columns=G_)
+        predict_t.update(zip(("bound_ms", "bound_by"), bound(
+            n_valid * (8 + depth) + (cfg_.num_leaves - 1) * (20 + 4 * g_.num_words) + 8 * F_, 0)))
+        return {"efb_remap": remap_t, "pick_partition_bundled": pick_t,
+                "predict_bins_bundled": predict_t}
+
+    # the kernels against their plain versions at this table's shapes: one
+    # eager iteration (7 trees) on all 581,012 rows, every histogram call,
+    # score update, remap and pick held (the whole state at every 16th
+    # pick, what a pick writes at the others), the folded scan every 16th
+    # step
+    held_h, h_held = held_iterations(h_set, efb_params, 1, steps_every=16, scan_every=16,
+                                     each_pick=True)
+    hck = h_held["checked"]
+    assert hck["remap"] > K, hck  # every tree's root and steps
+    assert hck["pick_partition"] > 0 and hck["pick_partition_each"] > 0, h_held
+    assert h_held["remap_dense"]["checked"] > 0, h_held
+    h_kernels = bundled_kernels(gh_, held_h, COVER_VALID_ROWS)
+    del held_h
+    hips, hturn_launches, hprof = objective_turns(h_set, efb_params, 10)
+    say("sparse_covertype", rows=COVER_ROWS, columns=54, groups=h_binned.num_groups,
+        max_group_bins=h_binned.max_group_bins, group_widths=h_widths,
+        valid_rows=COVER_VALID_ROWS, num_class=K, params=efb_params, binning_s=h_bin_s,
+        train_s=h_train_s, train_iterations_per_s_with_eval=hbst.current_iteration / h_train_s,
+        iterations=hbst.current_iteration, best_iteration=hbst.best_iteration,
+        launches=h_launches, valid_multi_error=herr, valid_multi_logloss=hll,
+        dense_4f_valid_multi_logloss=cover_ll, majority_share=float(hprior.max()),
+        valid_scores_equal_plain_adds=True,
+        dyadic_equal_across_loops_and_to_dense=dict(rows=16_000, iterations=9),
+        held_calls=h_held, kernels=h_kernels, iterations_per_s=hips,
+        launches_per_turn=hturn_launches, profile=hprof)
+    bundled_launches = dict(h_launches)
+    del hbst, gh_, h_set, h_valid, hX, hXv, hXd, hXvd, hy, hyv
+
+    # ---- 4i. a wide one-hot table, Flight-Delay-shaped: F >> G ------------------------
+    # bench.flight_like_rows: 1,000,000 x 674 CSR (one-hot Month, DayofMonth,
+    # DayOfWeek, UniqueCarrier, Origin 300, Dest 300, then DepTime and
+    # Distance; the paper's 10M training rows cut to 1M), binary, 255
+    # leaves, max_bin 255, 10 iterations, a 100k-row held-out set
+    t0 = time.perf_counter()
+    fX, fy = flight_like_rows(FLIGHT_ROWS, seed=41)
+    fXv, fyv = flight_like_rows(FLIGHT_VALID_ROWS, seed=42)
+    f_gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f_set = lgb.Dataset(fX, label=fy)
+    f_valid = lgb.Dataset(fXv, label=fyv, reference=f_set)
+    f_cfg = Config.from_params(dict(FLIGHT_PARAMS))
+    f_binned = f_set.get_binned(f_cfg)
+    f_valid.get_binned(f_cfg)
+    f_bin_s = time.perf_counter() - t0
+    f_widths = group_widths(f_binned)
+    assert f_binned.is_bundled and f_binned.num_features == FLIGHT_COLUMNS, f_binned.num_features
+    assert 8 <= f_binned.num_groups <= 12, f_widths
+    f_evals = {}
+    fbst, f_train_s, f_launches = counted(lambda: lgb.train(
+        dict(FLIGHT_PARAMS), f_set, 10, valid_sets=[f_valid], evals_result=f_evals,
+        verbose_eval=False))
+    gf = fbst._gbdt
+    assert gf.grow_loop == "device" and gf.captures == 1 and fbst.num_trees() == 10, gf.captures
+    assert all(f_launches.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins", "efb_remap")), (
+        f_launches)
+    f_auc = f_evals["valid_0"]["auc"]
+    assert f_auc[-1] > 0.7, f_auc
+    fraw = fbst.predict(fXv[:1000], raw_score=True)
+    assert fraw.shape == (1000,) and np.all(np.isfinite(fraw))
+    valid_equals_plain_adds(gf, FLIGHT_VALID_ROWS)
+    pool_bytes = gf._grow_state.hist.numel() * 4
+    held_f, f_held = held_iterations(f_set, FLIGHT_PARAMS, 1, steps_every=64, scan_every=64,
+                                     each_pick=True)
+    assert f_held["checked"]["remap"] > 0 and f_held["remap_dense"]["checked"] > 0, f_held
+    f_kernels = bundled_kernels(gf, held_f, FLIGHT_VALID_ROWS)
+    del held_f
+    fips, fturn_launches, fprof = objective_turns(f_set, FLIGHT_PARAMS, 10)
+    say("sparse_flight", rows=FLIGHT_ROWS, columns=FLIGHT_COLUMNS, groups=f_binned.num_groups,
+        max_group_bins=f_binned.max_group_bins, group_widths=f_widths,
+        valid_rows=FLIGHT_VALID_ROWS, params=FLIGHT_PARAMS, generate_s=f_gen_s,
+        binning_s=f_bin_s, train_s=f_train_s, train_iterations_per_s_with_eval=10 / f_train_s,
+        launches=f_launches, valid_auc=f_auc, valid_binary_logloss=f_evals["valid_0"][
+            "binary_logloss"], valid_scores_equal_plain_adds=True, pool_bytes=pool_bytes,
+        held_calls=f_held, kernels=f_kernels, iterations_per_s=fips,
+        launches_per_turn=fturn_launches, profile=fprof)
+    for k_, v_ in f_launches.items():
+        bundled_launches[k_] = bundled_launches.get(k_, 0) + v_
+    del fbst, gf, f_set, f_valid, fX, fy, fXv, fyv
 
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]
@@ -2365,6 +2728,24 @@ def main() -> int:
             name=name, route="cuda", source="lightgbm_tpu_torch/csrc/" + loop_sources[base][0],
             replaces=cat_replaces[base], launches=cat_launches.get(base, 0),
             max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
+        ))
+    # the bundled kernels, timed in phase 4i at its shapes (4h's in its own
+    # line); efb_remap's launches are the main path's, the bundled pick's and
+    # predict's 4h's and 4i's trainings'
+    bundled_replaces = {
+        "efb_remap": ("efb_remap.cu", "lightgbm_tpu/ops/grow.py:806 (remap_hist; XLA there)",
+                      main_launches.get("efb_remap", 0)),
+        "pick_partition_bundled": ("partition.cu", "lightgbm_tpu/ops/grow.py:490,1298 (decode_col)",
+                                   bundled_launches.get("pick_partition", 0)),
+        "predict_bins_bundled": ("predict_bins.cu", "lightgbm_tpu/ops/predict.py:104",
+                                 bundled_launches.get("predict_bins", 0)),
+    }
+    for name, (src, rep_, n_) in bundled_replaces.items():
+        t = f_kernels[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="lightgbm_tpu_torch/csrc/" + src, replaces=rep_,
+            launches=n_, max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]

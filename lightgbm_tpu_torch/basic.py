@@ -238,7 +238,10 @@ class Booster:
         default) takes every tree, as the JAX package does; a positive value
         takes the first ``num_iteration`` iterations, None the first
         ``best_iteration`` (``train`` sets it: the early-stopping best, else
-        every iteration it trained)."""
+        every iteration it trained). A scipy sparse matrix is densified,
+        as the JAX package's ``_to_2d_float`` does."""
+        if hasattr(data, "toarray"):
+            data = data.toarray()
         X = np.asarray(data, dtype=np.float64)
         if X.ndim != 2:
             raise LightGBMError("Input numpy.ndarray must be 2 dimensional")

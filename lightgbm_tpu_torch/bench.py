@@ -37,7 +37,9 @@ The module also holds the tables of the objective cells (PERF.md section
 training params, which chip_smoke.py's phases 4e and 4f and
 ``obs/pair.py --kernel histogram_grid`` read, and
 ``covertype_compact_rows`` (the same rows with the two one-hot groups as
-two categorical columns), which phase 4g reads.
+two categorical columns), which phase 4g reads, and ``flight_like_rows``
+(a Flight-Delay-shaped sparse one-hot table, scipy CSR), which phase 4i
+reads.
 
 Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
 iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
@@ -140,6 +142,56 @@ def covertype_compact_rows(n, seed, model_seed=13):
     out[:, 10] = np.argmax(X[:, 10:14], axis=1)
     out[:, 11] = np.argmax(X[:, 14:54], axis=1)
     return out, y
+
+
+#: the Flight-Delay-shaped table (Ke et al., NIPS 2017, Table 1: about 700
+#: sparse one-hot features, binary): one-hot Month, DayofMonth, DayOfWeek,
+#: UniqueCarrier, Origin and Dest, then DepTime and Distance
+FLIGHT_FIELDS = (("Month", 12), ("DayofMonth", 31), ("DayOfWeek", 7), ("UniqueCarrier", 22),
+                 ("Origin", 300), ("Dest", 300))
+FLIGHT_COLUMNS = sum(k for _, k in FLIGHT_FIELDS) + 2  # 674
+FLIGHT_ROWS, FLIGHT_VALID_ROWS = 1_000_000, 100_000
+FLIGHT_PARAMS = {"objective": "binary", "metric": ["auc", "binary_logloss"], "max_bin": 255,
+                 "num_leaves": 255, "learning_rate": 0.1, "verbose": -1}
+
+
+def flight_like_rows(n, seed, model_seed=17):
+    """``n`` rows shaped like the Flight Delay set, as a scipy CSR matrix of
+    :data:`FLIGHT_COLUMNS` columns (eight non-zeros a row): each field of
+    :data:`FLIGHT_FIELDS` one-hot (value 1.0), Origin, Dest and
+    UniqueCarrier drawn with Zipf-like popularity, then DepTime (hhmm,
+    100-2359) and Distance (miles, 30-4000, longer between less popular
+    airports). The label (delayed or not, about a quarter delayed) is drawn
+    from a logistic model of the fields: an effect a category (from
+    ``model_seed``), later departures and longer flights delayed more.
+    Synthetic values, rows from ``seed``."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(model_seed)
+    effects = [rng.randn(k) * w for (_, k), w in zip(FLIGHT_FIELDS, (0.4, 0.2, 0.3, 0.7, 0.8, 0.8))]
+    popularity = [None, None, None] + [1.0 / np.arange(1, k + 1) ** 0.9 for _, k in FLIGHT_FIELDS[3:]]
+    rng = np.random.RandomState(seed)
+    picks = []
+    for (_, k), pop in zip(FLIGHT_FIELDS, popularity):
+        picks.append(rng.randint(0, k, n) if pop is None else rng.choice(k, n, p=pop / pop.sum()))
+    hour = np.clip(rng.normal(13.5, 4.5, n), 1.0, 23.98)
+    dep = np.floor(hour) * 100 + np.floor((hour % 1) * 60)
+    dist = np.clip(rng.lognormal(6.3, 0.6, n) + 3.0 * (picks[4] + picks[5]), 30, 4000).round()
+    z = -2.0 + sum(e[p] for e, p in zip(effects, picks)) + 0.17 * (hour - 13.5) \
+        + 0.25 * np.log(dist / 500.0)
+    y = (rng.rand(n) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    cols = np.empty((n, 8), np.int32)
+    start = 0
+    for j, ((_, k), p) in enumerate(zip(FLIGHT_FIELDS, picks)):
+        cols[:, j] = start + p
+        start += k
+    cols[:, 6], cols[:, 7] = start, start + 1
+    data = np.ones((n, 8))
+    data[:, 6], data[:, 7] = dep, dist
+    X = sp.csr_matrix((data.ravel(), cols.ravel(), np.arange(0, 8 * n + 1, 8)),
+                      shape=(n, FLIGHT_COLUMNS))
+    return X, y
 
 
 def _line(value: float, **extra) -> str:

@@ -77,6 +77,18 @@
 // direction, lightgbm_tpu/ops/grow.py:284-296): one shared load, a shift
 // and a mask a row. The wiring copies the words into the node's row of
 // node_b. A numerical-only table runs the kCat = false code.
+//
+// EFB-bundled tables (the kEfb instantiations, launched when the table's
+// bins are the [G, N] groups of lightgbm_tpu/efb.py): the picked feature's
+// group row and offset ride in the pick's own loads (thread k reads
+// feature k's group and offset with its meta, into shared memory for the
+// first kMetaCap features, in room taken from the rows a block stages:
+// kEfbCap), the rows are read from the group's row, and
+// each bin is decoded to the feature's sub-bin before the decision
+// (lightgbm_tpu/ops/grow.py:1298-1301, ``decode_col``: r = bin - off; r +
+// (r >= default_bin) where 0 <= r < num_bin - 1, else default_bin), so a
+// categorical decision looks up the decoded bin. An unbundled table runs
+// the kEfb = false code, unchanged.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -90,6 +102,7 @@ constexpr int kItems = 8;                 // rows a thread a tile
 constexpr int kTile = kThreads * kItems;  // rows a tile
 constexpr int kCap = 10240;               // rows a block keeps in shared memory
 constexpr int kMetaCap = 1024;            // features whose meta a block keeps in shared memory
+constexpr int kEfbCap = kCap - kMetaCap;  // kEfb: rows staged, beside the plan (48 KB static)
 constexpr int kMaxWords = 11;             // membership words of a split: ceil(336 / 32)
 constexpr int kCatBit = 30;               // the categorical flag in a feature's meta word
 static_assert(kWarps == 32, "a tile's warp counts are scanned by one warp, kItems a lane");
@@ -140,6 +153,8 @@ struct Args {
   const unsigned char* is_cat;  // [F] (kCat)
   int M, F, W;
   Params p;
+  const int* gid;               // [F] each feature's group (kEfb)
+  const int* off;               // [F] its offset in the group (kEfb)
 };
 
 // clamp that passes NaN through, like torch.clamp (csrc/split_pair.cu)
@@ -177,6 +192,12 @@ __device__ __forceinline__ bool go_left(int col, int thr, bool dl, int miss, int
     if (col == nan_bin) gl = dl;
   }
   return gl;
+}
+
+// kEfb: a group bin as feature sub-bin (lightgbm_tpu/efb.py decode_subbin)
+__device__ __forceinline__ int decode(int bin, int off, int dbin, int nan_bin) {
+  const int r = bin - off;
+  return (r >= 0 && r < nan_bin) ? r + (r >= dbin) : dbin;
 }
 
 __device__ __forceinline__ unsigned long long global_ns() {
@@ -274,9 +295,9 @@ __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, 
   la[4] = mono < 0 ? mid : pmax;
 }
 
-template <bool kCat>
+template <bool kCat, bool kEfb>
 __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
-  __shared__ int stage_s[kCap];
+  __shared__ int stage_s[kEfb ? kEfbCap : kCap];
   __shared__ float red_g[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ int wsum[kWarps];
@@ -285,6 +306,8 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   __shared__ int meta_s[kMetaCap];
   __shared__ int sh[sWords];
   __shared__ int words_s[kCat ? kMaxWords : 1];  // the picked split's membership words
+  __shared__ int plan_s[kEfb ? kMetaCap : 1];    // group << 8 | offset (kEfb)
+  __shared__ int efb_s[kEfb ? 2 : 1];            // the picked feature's group and offset
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M;
 
@@ -305,6 +328,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   for (int k = tid; k < min(a.F, kMetaCap); k += kThreads) {
     meta_s[k] = a.missing[k] | (a.default_bin[k] << 2) | ((a.num_bin[k] - 1) << 17) |
                 (kCat && a.is_cat[k] ? 1 << kCatBit : 0);
+    if (kEfb) plan_s[k] = (a.gid[k] << 8) | a.off[k];
   }
   if (tid == 0) {
     sh[sActive] = a.ctl[kActive];
@@ -352,6 +376,11 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     sh[sMiss] = mv & 3; sh[sDbin] = (mv >> 2) & 0x7FFF;
     sh[sNanBin] = kCat ? (mv >> 17) & 0x1FFF : mv >> 17;
     if (kCat) sh[sCat] = (mv >> kCatBit) & 1;
+    if (kEfb) {
+      const int pv = f < kMetaCap ? plan_s[f] : (a.gid[f] << 8) | a.off[f];
+      efb_s[0] = pv >> 8;
+      efb_s[1] = pv & 0xFF;
+    }
   }
   if (kCat && tid < a.W) words_s[tid] = a.best_b[best * a.W + tid];
   __syncthreads();
@@ -375,8 +404,9 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   // ---- 2. the chunk's rows, decided and staged ----
   const int miss = sh[sMiss], dbin = sh[sDbin], nan_bin = sh[sNanBin];
   const bool cat = kCat && sh[sCat];
-  const uint8_t* col = a.bins + (long long)f * a.stride_f;
-  int* stage = len <= kCap ? stage_s : a.scratch + b0 + lo;
+  const uint8_t* col = a.bins + (long long)(kEfb ? efb_s[0] : f) * a.stride_f;
+  const int eoff = kEfb ? efb_s[1] : 0;
+  int* stage = len <= (kEfb ? kEfbCap : kCap) ? stage_s : a.scratch + b0 + lo;
   const int* seg = a.order + b0 + lo;
   int left = 0;
   for (int t = 0; t * kTile < len; ++t) {
@@ -396,7 +426,8 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     for (int j = 0; j < kItems; ++j) {
       const int i = t * kTile + j * kThreads + tid;
       if (i < len) {
-        const bool gl = go_left<kCat>(bin[j], thr, dl != 0, miss, dbin, nan_bin, cat, words_s);
+        const int sub = kEfb ? decode(bin[j], eoff, dbin, nan_bin) : bin[j];
+        const bool gl = go_left<kCat>(sub, thr, dl != 0, miss, dbin, nan_bin, cat, words_s);
         stage[i] = (int)((unsigned)row[j] | (gl ? kLeftBit : 0u));
         left += gl;
       }
@@ -486,15 +517,26 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   }
 }
 
+// The instantiation of a launch: categorical (bit 0 of ``kind``) and
+// bundled (bit 1).
+decltype(&pick_partition_kernel<false, false>) instantiation(int kind) {
+  switch (kind & 3) {
+    case 1: return &pick_partition_kernel<true, false>;
+    case 2: return &pick_partition_kernel<false, true>;
+    case 3: return &pick_partition_kernel<true, true>;
+    default: return &pick_partition_kernel<false, false>;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// The blocks of lgbt_pick_partition's grid for the numerical (cat 0) or
-// the categorical (cat 1) instantiation: as many as fit on the current
+// The blocks of lgbt_pick_partition's grid for the instantiation ``kind``
+// (bit 0: categorical, bit 1: bundled): as many as fit on the current
 // device at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
 // SM count), so that a cooperative launch of them is never refused.
-int lgbt_pick_partition_grid(int* grid, int cat) {
+int lgbt_pick_partition_grid(int* grid, int kind) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -502,7 +544,7 @@ int lgbt_pick_partition_grid(int* grid, int cat) {
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cat ? &pick_partition_kernel<true> : &pick_partition_kernel<false>, kThreads, 0);
+        &per_sm, instantiation(kind), kThreads, 0);
   *grid = per_sm * sms;
   return (int)err;
 }
@@ -519,27 +561,31 @@ int lgbt_pick_partition_grid(int* grid, int cat) {
 // epoch and left count), bar [1] uint32 (the epoch of the last launch that
 // split, 0 before the first). With categorical features, is_cat [F] bytes,
 // best_b [M, W] and node_b [M - 1, W] int32 (W = ceil(B / 32) membership
-// words; is_cat null without them). grid blocks of 1024 threads, at most
-// lgbt_pick_partition_grid's for the instantiation, launched
-// cooperatively; the launch's error is returned. Does nothing once ctl[0]
-// is 0.
+// words; is_cat null without them). An EFB-bundled table: gid / off [F]
+// int32 (each feature's group and offset; null unbundled), the bins of
+// feature f's group at bins + gid[f] * stride_f. grid blocks of 1024
+// threads, at most lgbt_pick_partition_grid's for the instantiation,
+// launched cooperatively; the launch's error is returned. Does nothing
+// once ctl[0] is 0.
 int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n, void* order,
                         void* scratch, void* ctl, const void* best_f, const void* best_i,
                         void* node_i, void* node_f, void* leaf_f, void* leaf_i, void* laux,
                         const void* missing, const void* default_bin, const void* num_bin,
                         const void* mono, void* leaf_begin, void* leaf_count, void* block_left,
-                        void* bar, const void* best_b, void* node_b, const void* is_cat, int M,
-                        int F, int W, float l1, float l2, float max_delta_step, int grid,
-                        void* stream) {
+                        void* bar, const void* best_b, void* node_b, const void* is_cat,
+                        const void* gid, const void* off, int M, int F, int W, float l1,
+                        float l2, float max_delta_step, int grid, void* stream) {
   if (M < 1 || F < 1 || grid < 1) return (int)cudaErrorInvalidValue;
   if (is_cat != nullptr && (best_b == nullptr || node_b == nullptr || W < 1 || W > kMaxWords))
     return (int)cudaErrorInvalidValue;
+  if ((gid == nullptr) != (off == nullptr)) return (int)cudaErrorInvalidValue;
   Args a{(const uint8_t*)bins, stride_f, stride_n, (int*)order, (int*)scratch, (int*)ctl,
          (const float*)best_f, (const int*)best_i, (int*)node_i, (float*)node_f,
          (float*)leaf_f, (int*)leaf_i, (float*)laux, (const int*)missing,
          (const int*)default_bin, (const int*)num_bin, (const int*)mono, (int*)leaf_begin,
          (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, (const int*)best_b,
-         (int*)node_b, (const unsigned char*)is_cat, M, F, W, Params{l1, l2, max_delta_step}};
+         (int*)node_b, (const unsigned char*)is_cat, M, F, W, Params{l1, l2, max_delta_step},
+         (const int*)gid, (const int*)off};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(kThreads);
@@ -550,8 +596,8 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = is_cat != nullptr ? cudaLaunchKernelEx(&cfg, pick_partition_kernel<true>, a)
-                                      : cudaLaunchKernelEx(&cfg, pick_partition_kernel<false>, a);
+  const int kind = (is_cat != nullptr ? 1 : 0) | (gid != nullptr ? 2 : 0);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, instantiation(kind), a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -37,6 +37,17 @@
 // decision is one word's bit at the row's bin, with no default direction
 // (lightgbm_tpu/ops/predict.py:113-114).
 //
+// EFB-bundled tables (predict_bins_bundled_kernel, launched when the bins are
+// the [N, G] groups of lightgbm_tpu/efb.py): each node carries its column
+// (its feature's group) and its offset in the node's first word, column |
+// offset << 24 (G < 2^24, offsets < 256), staged with its rule; a row reads
+// the node's column and decodes the byte to the feature's sub-bin before
+// the missing and categorical tests (lightgbm_tpu/ops/predict.py:104-109:
+// r = bin - offset; r + (r >= default_bin) where 0 <= r < num_bin - 1,
+// else default_bin). It takes 4 blocks an SM as its launch bound (64
+// registers a thread: at the default bound its decode spilled). An
+// unbundled table runs predict_bins_kernel, unchanged.
+//
 // ``value`` is what a row at each leaf adds (the device iteration passes the
 // shrunk leaf values where the tree grew and exact zeros where it did not);
 // ``leaf_out``, when not null, receives each row's leaf.
@@ -50,16 +61,18 @@ constexpr int kThreads = 256;
 constexpr int kMissingZero = 1, kMissingNan = 2;  // ops/split.py MISSING_*
 constexpr int kStaticSharedBytes = 48 * 1024;
 
-template <bool kCat>
-__global__ void __launch_bounds__(kThreads)
-predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
-                    const int* __restrict__ node_i, int max_nodes,
-                    const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
-                    const int* __restrict__ default_bin, const int* __restrict__ num_bin,
-                    const float* __restrict__ value, float* __restrict__ score,
-                    int* __restrict__ leaf_out, const int* __restrict__ node_b,
-                    const unsigned char* __restrict__ is_cat, int W) {
-  extern __shared__ int4 nodes[];  // x feature, y rule, z left, w right
+constexpr int kBundledMinBlocks = 4;  // bundled: 64 registers a thread (32 spilled its decode)
+
+// The traversal of every row, shared by the kernels below.
+template <bool kCat, bool kEfb>
+__device__ __forceinline__ void predict_rows(
+    const uint8_t* __restrict__ bins, long long N, int F, const int* __restrict__ node_i,
+    int max_nodes, const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
+    const int* __restrict__ default_bin, const int* __restrict__ num_bin,
+    const float* __restrict__ value, float* __restrict__ score, int* __restrict__ leaf_out,
+    const int* __restrict__ node_b, const unsigned char* __restrict__ is_cat, int W,
+    const int* __restrict__ gid, const int* __restrict__ off) {
+  extern __shared__ int4 nodes[];  // x feature (kEfb: column | offset << 24), y rule, z left, w right
   const int m = min(max(*num_leaves - 1, 0), max_nodes);
   for (int i = threadIdx.x; i < m; i += kThreads) {
     const int* rec = node_i + 5LL * i;
@@ -67,7 +80,7 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
     const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
                      (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
                      ((rec[4] != 0) << 26) | (kCat && is_cat[f] ? 1 << 27 : 0);
-    nodes[i] = make_int4(f, rule, rec[2], rec[3]);
+    nodes[i] = make_int4(kEfb ? gid[f] | (off[f] << 24) : f, rule, rec[2], rec[3]);
   }
   int* words = reinterpret_cast<int*>(nodes + max_nodes);  // [max_nodes, W] (kCat)
   if (kCat) {
@@ -80,8 +93,15 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
     int node = m > 0 ? 0 : -1;  // a tree that did not split: every row at leaf 0
     while (node >= 0) {
       const int4 nd = nodes[node];
-      const int col = row[nd.x];
       const int rule = nd.y;
+      int col;
+      if (kEfb) {
+        const int sub = (int)row[nd.x & 0xFFFFFF] - (int)((unsigned)nd.x >> 24);
+        const int dbin = (rule >> 8) & 0xFF;
+        col = (sub >= 0 && sub < ((rule >> 16) & 0xFF)) ? sub + (sub >= dbin) : dbin;
+      } else {
+        col = row[nd.x];
+      }
       const int miss = (rule >> 24) & 3;
       bool left = col <= (rule & 0xFF);
       if ((miss == kMissingZero && col == ((rule >> 8) & 0xFF)) ||
@@ -97,8 +117,40 @@ predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
   }
 }
 
-// the dynamic shared memory each instantiation may take (numerical, categorical)
-int configured_shared_bytes[2] = {kStaticSharedBytes, kStaticSharedBytes};
+// an unbundled table
+template <bool kCat>
+__global__ void __launch_bounds__(kThreads)
+predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
+                    const int* __restrict__ node_i, int max_nodes,
+                    const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
+                    const int* __restrict__ default_bin, const int* __restrict__ num_bin,
+                    const float* __restrict__ value, float* __restrict__ score,
+                    int* __restrict__ leaf_out, const int* __restrict__ node_b,
+                    const unsigned char* __restrict__ is_cat, int W) {
+  predict_rows<kCat, false>(bins, N, F, node_i, max_nodes, num_leaves, missing_type, default_bin,
+                            num_bin, value, score, leaf_out, node_b, is_cat, W, nullptr, nullptr);
+}
+
+// an EFB-bundled table: the decode's registers, at kBundledMinBlocks blocks an SM
+template <bool kCat>
+__global__ void __launch_bounds__(kThreads, kBundledMinBlocks)
+predict_bins_bundled_kernel(const uint8_t* __restrict__ bins, long long N, int F,
+                            const int* __restrict__ node_i, int max_nodes,
+                            const int* __restrict__ num_leaves,
+                            const int* __restrict__ missing_type,
+                            const int* __restrict__ default_bin, const int* __restrict__ num_bin,
+                            const float* __restrict__ value, float* __restrict__ score,
+                            int* __restrict__ leaf_out, const int* __restrict__ node_b,
+                            const unsigned char* __restrict__ is_cat, int W,
+                            const int* __restrict__ gid, const int* __restrict__ off) {
+  predict_rows<kCat, true>(bins, N, F, node_i, max_nodes, num_leaves, missing_type, default_bin,
+                           num_bin, value, score, leaf_out, node_b, is_cat, W, gid, off);
+}
+
+// the dynamic shared memory each kernel may take (bit 0 categorical, bit 1
+// bundled)
+int configured_shared_bytes[4] = {kStaticSharedBytes, kStaticSharedBytes, kStaticSharedBytes,
+                                  kStaticSharedBytes};
 
 }  // namespace
 
@@ -109,32 +161,60 @@ extern "C" {
 // node_i [max_nodes, 5] int32; missing_type / default_bin / num_bin [F]
 // int32; leaf_out [N] int32 or null. With categorical features, node_b
 // [max_nodes, W] int32 (each node's membership words) and is_cat [F]
-// bytes; is_cat null without them. Shared memory: 16 bytes a node, and 4 W
+// bytes; is_cat null without them. An EFB-bundled table: bins [N, F] holds
+// F group columns, and gid / off [features] int32 give each feature's group
+// and offset (both null unbundled). Shared memory: 16 bytes a node, and 4 W
 // bytes a node with categorical features.
 int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, int max_nodes,
                       const void* num_leaves, const void* missing_type, const void* default_bin,
                       const void* num_bin, const void* value, void* score, void* leaf_out,
-                      const void* node_b, const void* is_cat, int W, int grid, void* stream) {
+                      const void* node_b, const void* is_cat, int W, const void* gid,
+                      const void* off, int grid, void* stream) {
   if (N < 1 || F < 1 || max_nodes < 0 || grid < 1) return (int)cudaErrorInvalidValue;
   const bool cat = is_cat != nullptr;
+  const bool efb = gid != nullptr;
   if (cat && (node_b == nullptr || W < 1)) return (int)cudaErrorInvalidValue;
+  if (efb != (off != nullptr) || (efb && F >= (1 << 24))) return (int)cudaErrorInvalidValue;
   const int slots = max_nodes > 1 ? max_nodes : 1;
   const int shared = slots * (int)sizeof(int4) + (cat ? slots * W * (int)sizeof(int) : 0);
-  decltype(&predict_bins_kernel<false>) kern =
-      cat ? &predict_bins_kernel<true> : &predict_bins_kernel<false>;
-  if (shared > configured_shared_bytes[cat]) {
+  const int kind = (cat ? 1 : 0) | (efb ? 2 : 0);
+  const void* kern = efb ? (cat ? (const void*)&predict_bins_bundled_kernel<true>
+                                : (const void*)&predict_bins_bundled_kernel<false>)
+                         : (cat ? (const void*)&predict_bins_kernel<true>
+                                : (const void*)&predict_bins_kernel<false>);
+  if (shared > configured_shared_bytes[kind]) {
     // above 48 KB only as dynamic shared memory with the attribute raised;
     // raised once, before any captured launch needs it
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
     if (err != cudaSuccess) return (int)err;
-    configured_shared_bytes[cat] = shared;
+    configured_shared_bytes[kind] = shared;
   }
-  kern<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, N, F, (const int*)node_i, max_nodes, (const int*)num_leaves,
-      (const int*)missing_type, (const int*)default_bin, (const int*)num_bin,
-      (const float*)value, (float*)score, (int*)leaf_out, (const int*)node_b,
-      (const unsigned char*)is_cat, W);
+  const uint8_t* b = (const uint8_t*)bins;
+  const int *ni = (const int*)node_i, *nl = (const int*)num_leaves;
+  const int *mt = (const int*)missing_type, *db = (const int*)default_bin;
+  const int* nbn = (const int*)num_bin;
+  const float* v = (const float*)value;
+  float* sc = (float*)score;
+  int* lo = (int*)leaf_out;
+  const int* nb = (const int*)node_b;
+  const unsigned char* ic = (const unsigned char*)is_cat;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (efb) {
+    const int *g = (const int*)gid, *o = (const int*)off;
+    if (cat)
+      predict_bins_bundled_kernel<true><<<grid, kThreads, shared, st>>>(
+          b, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W, g, o);
+    else
+      predict_bins_bundled_kernel<false><<<grid, kThreads, shared, st>>>(
+          b, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W, g, o);
+  } else if (cat) {
+    predict_bins_kernel<true><<<grid, kThreads, shared, st>>>(b, N, F, ni, max_nodes, nl, mt, db,
+                                                             nbn, v, sc, lo, nb, ic, W);
+  } else {
+    predict_bins_kernel<false><<<grid, kThreads, shared, st>>>(b, N, F, ni, max_nodes, nl, mt, db,
+                                                              nbn, v, sc, lo, nb, ic, W);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,7 @@
 """Exclusive Feature Bundling (EFB) + sparse ingestion; the PyTorch port's
 copy of lightgbm_tpu/efb.py, so dataset construction makes the same
-bundling decision. The port's grower refuses bundled datasets for now.
+bundling decision. The port trains, validates and predicts the bundled
+layout (ops/remap.py; the kernels' bundled instantiations).
 
 Counterpart of the reference's feature bundling
 (LightGBM src/io/dataset.cpp:68-178 FindGroups/FastFeatureBundling) and

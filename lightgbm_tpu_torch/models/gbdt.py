@@ -47,6 +47,13 @@ the JAX package's generator and order (iteration-major, class-minor), a
 chunk's at once, uploaded in one copy and read by each tree at its ring
 slot.
 
+An EFB-bundled training set (scipy input, dataset.py ``_construct_sparse``)
+keeps its ``[G, N]`` group matrix on the device and its plan (``group_id``,
+``bin_offset``) in the feature meta: the histograms run at the group width
+``max_group_bins`` and are remapped into feature space (ops/remap.py), the
+partition and both predicts decode each group byte; a validation set must
+carry the training set's layout.
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -165,8 +172,6 @@ def split_params(cfg: Config) -> SplitParams:
 
 
 def check_dataset_supported(train_set: BinnedDataset) -> None:
-    if train_set.is_bundled:
-        raise NotImplementedError("EFB-bundled datasets (group_id) are not ported yet")
     if train_set.max_num_bin > 256:
         raise NotImplementedError("more than 256 bins per feature is not ported yet")
 
@@ -230,11 +235,19 @@ class GBDT:
         }
         if "is_categorical" in meta:  # its presence is the switch, as in the JAX package
             self.feature_meta["is_categorical"] = torch.as_tensor(meta["is_categorical"], device=dev)
+        if train_set.is_bundled:  # the EFB plan; its presence is the switch too
+            for k in ("group_id", "bin_offset"):
+                self.feature_meta[k] = torch.as_tensor(meta[k].astype(np.int32), device=dev)
         # the dir=+1 scan exists only for missing-value handling
         self._two_way = bool(
             np.any((meta["missing_type"] != 0) & (meta["num_bin"] > 2))
         )
         self.num_bins = int(train_set.max_num_bin)
+        #: the histograms' width: the group width of a bundled table
+        #: (lightgbm_tpu/models/gbdt.py:155-157), else num_bins
+        self.hist_width = int(train_set.max_group_bins) if train_set.is_bundled else self.num_bins
+        #: groups of a bundled table (0 unbundled)
+        self.num_groups = train_set.num_groups if train_set.is_bundled else 0
         #: membership words a split record and node carry (0 without categorical features)
         self.num_words = num_words(self.num_bins, "is_categorical" in meta)
         #: the histogram kernel's grouped form, for tables with features
@@ -242,12 +255,12 @@ class GBDT:
         self.grouped_adds = hist_kernel.grouped_adds(bins)
         # [ceil(N/2), F] nibble-packed copy that cuda_packed4 reads by row
         # (N * F / 2 bytes), made once here rather than on every call
-        self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.num_bins <= 16 else None
+        self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.hist_width <= 16 else None
         self.hist_route = self._resolve_hist_route()
         #: "device" (launch_tree) or "host" (grow_tree); a dispatch on
         #: the frozen route, fixed here. Tools that time both loops set it.
         self.grow_loop = "device" if device_loop_routable(
-            self.num_data, self.num_bins, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
+            self.num_data, self.hist_width, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
         #: on CUDA the device loop replays its iteration as one captured
         #: CUDA graph; tools that time the eager launches set it False
         self.iteration_graph = dev.type == "cuda"
@@ -384,7 +397,7 @@ class GBDT:
             num_bins=self.num_bins, params=self.split_params,
             two_way=self._two_way, bins_nf=self.bins_nf,
             route=self.hist_route, hist_dtype=cfg.tpu_hist_dtype, bins_packed=self.bins_p4,
-            bag=self._bag, grouped=self.grouped_adds,
+            bag=self._bag, grouped=self.grouped_adds, num_group_bins=self.hist_width,
         )
 
     def _set_rate(self) -> None:
@@ -412,12 +425,12 @@ class GBDT:
     def _device_buffers(self, rows: int) -> None:
         """The split loop's state and a ring of at least ``rows`` packed trees."""
         cfg = self.config
-        F, N = self.bins_dev.shape
+        N, F = self.num_data, self.train_set.num_features
         s = self._grow_state
-        W = self.num_words
-        if s is None or not s.fits(self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves, W):
-            s = self._grow_state = grow_state.GrowState(
-                self.bins_dev.device, N, F, self.num_bins, cfg.num_leaves, W)
+        shape = (N, F, self.num_bins, cfg.num_leaves, self.num_words, self.num_groups,
+                 self.hist_width)
+        if s is None or not s.fits(self.bins_dev.device, *shape):
+            s = self._grow_state = grow_state.GrowState(self.bins_dev.device, *shape)
         if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
             chunk_rows = cfg.device_chunk_size * len(self._train_classes)
             shape = (max(rows, chunk_rows, 1), s.packed.numel())
@@ -704,13 +717,19 @@ class GBDT:
         device (its init score, else zeros) into which the trees trained so
         far are added in order, each into its class's row, as the live score
         took them (the reference's ScoreUpdater on AddValidDataset), and an
-        [Nv, F] copy of its bins. The next iteration captures its graph
-        again with the set's buffers."""
+        [Nv, F] copy of its bins ([Nv, G] in a bundled training set's
+        layout: the set must carry the same groups and offsets). The next
+        iteration captures its graph again with the set's buffers."""
         if self.train_set is None:
             raise NotImplementedError("add_valid on a model loaded from text is not ported yet")
-        if valid_set.num_features != self.train_set.num_features or valid_set.is_bundled:
+        tr = self.train_set
+        same_layout = valid_set.is_bundled == tr.is_bundled and (not tr.is_bundled or (
+            valid_set.num_groups == tr.num_groups
+            and np.array_equal(valid_set.group_id, tr.group_id)
+            and np.array_equal(valid_set.bin_offset, tr.bin_offset)))
+        if valid_set.num_features != tr.num_features or not same_layout:
             raise ValueError("a validation set must be binned with the training set's mappers "
-                             "(Dataset(..., reference=train_set))")
+                             "and bundles (Dataset(..., reference=train_set))")
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         K = self.num_tree_per_iteration

@@ -14,6 +14,16 @@ On a machine with a CUDA card, from the repository root::
         --old build/old_split_pair.cu build/old_grow_step.cu [--out results.json]
     python -m lightgbm_tpu_torch.obs.pair --kernel split_fold \\
         --old build/old_split_pair.cu [--out results.json]
+    python -m lightgbm_tpu_torch.obs.pair --kernel instantiations \\
+        --old build/old_partition.cu build/old_predict_bins.cu [--out results.json]
+
+``instantiations`` times nothing: each ``old_<source>.cu`` is built beside
+today's ``csrc/<source>.cu``, and every kernel of the old library is
+matched to today's kernel of the same name whose template arguments add
+trailing zeros (a template flag that is off: ``pick_partition_kernel<1>``
+to ``pick_partition_kernel<1,0>``). Prints both kernels' ptxas registers
+and spills and SASS opcode counts and whether they are equal; exits 1
+when a pair differs or an old kernel has no match.
 
 The old sources are built with the package's nvcc flags into ``build/pair/``,
 beside an empty kernel that the tool writes there; the new kernel runs
@@ -133,7 +143,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..ops import cuda_build
 
@@ -938,9 +948,63 @@ def _higgs_data(dev) -> Dict:
     )
 
 
+def _flag_off(kernel: str, names) -> Optional[str]:
+    """The kernel of ``names`` that is ``kernel`` with trailing template
+    arguments of 0 added (``f<1>`` -> ``f<1,0>``), or None."""
+    def split(k):
+        base, _, t = k.partition("<")
+        return base, t.rstrip(">").split(",") if t else []
+
+    base, args = split(kernel)
+    for k in names:
+        b, a = split(k)
+        if b == base and a[:len(args)] == args and set(a[len(args):]) <= {"0"}:
+            return k
+    return None
+
+
+def _instantiations(old_sources: List[str], out: str) -> int:
+    """Build each old source beside today's and compare their kernels'
+    ptxas usage and SASS opcode counts (``--kernel instantiations``)."""
+    out_dir = cuda_build.BUILD_DIR.parent / "pair"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    names = [Path(o).stem[len("old_"):] if Path(o).stem.startswith("old_") else Path(o).stem
+             for o in old_sources]
+    libs = [out_dir / ("libold_%s.so" % n) for n in names]
+    procs = [_nvcc(Path(o), lib) for o, lib in zip(old_sources, libs)]
+    cuda_build.build(names)
+    report, same = {}, True
+    for name, proc, lib in zip(names, procs, libs):
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed for old %s:\n%s" % (name, log))
+        new_lib = cuda_build.library_path(name)
+        sides = {}
+        for side, path, text in (("old", lib, log),
+                                 ("new", new_lib, new_lib.with_suffix(".log").read_text())):
+            sass = {cuda_build.kernel_name(k): v for k, v in sass_counts(sass_text(path)).items()}
+            sides[side] = {k: dict(ptxas=v, sass=sass.get(k, {}))
+                           for k, v in cuda_build.ptxas_usage(text).items()}
+        rows = {}
+        for kernel, old in sides["old"].items():
+            match = _flag_off(kernel, sides["new"])
+            new = sides["new"].get(match)
+            ok = new is not None and new == old
+            same &= ok
+            rows[kernel] = dict(new_kernel=match, equal=ok, old=old, new=new)
+        report[name] = rows
+        print(name, json.dumps(rows), flush=True)
+    print(json.dumps({"instantiations_equal": same}), flush=True)
+    if out:
+        Path(out).parent.mkdir(parents=True, exist_ok=True)
+        with open(out, "w") as fh:
+            json.dump({"instantiations": report, "equal": same}, fh, indent=1)
+    return 0 if same else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--kernel", required=True, choices=tuple(SOURCES))
+    ap.add_argument("--kernel", required=True, choices=tuple(SOURCES) + ("instantiations",))
     ap.add_argument("--old", required=True, nargs="+",
                     help="older csrc/<source>.cu of the kernel (pick_partition: partition.cu "
                          "and grow_step.cu; split_step: split_pair.cu and grow_step.cu)")
@@ -954,6 +1018,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("pair: needs a CUDA card", file=sys.stderr)
         return 2
+    if args.kernel == "instantiations":
+        return _instantiations(args.old, args.out)
     sources = SOURCES[args.kernel]
     if args.kernel == "histogram_grid":  # one older histogram.cu or more, each a version
         labels = ["old"] if len(args.old) == 1 else ["old_" + Path(o).stem for o in args.old]

@@ -1,8 +1,8 @@
 """Leaf-wise (best-first) tree growth, sequential bucketed mode.
 
 Counterpart of lightgbm_tpu/ops/grow.py ``grow_tree`` (SerialTreeLearner::
-Train, serial_tree_learner.cpp:173-237) for unbundled data, numerical and
-categorical features:
+Train, serial_tree_learner.cpp:173-237) for numerical and categorical
+features, unbundled or EFB-bundled:
 
  * a DataPartition-style row permutation: each split stably partitions the
    leaf's contiguous segment of ``order`` (data_partition.hpp:111);
@@ -16,7 +16,15 @@ categorical features:
    and ``max_depth``;
  * categorical splits: a node's decision is its left-side bin membership,
    a bitset over bins (``cat_member``), looked up at the row's bin with no
-   default direction (lightgbm_tpu/ops/grow.py:284-296).
+   default direction (lightgbm_tpu/ops/grow.py:284-296);
+ * EFB-bundled tables (the meta's ``group_id`` and ``bin_offset``,
+   ops/remap.py): the histograms run over the ``[G, N]`` groups at the
+   group width ``num_group_bins`` and are remapped into feature space, the
+   root's with the root's sums and each smaller child's with its split
+   record's sums, before the larger child is the parent's minus the smaller
+   one's in feature space (lightgbm_tpu/ops/grow.py:1133-1140, 1439-1449);
+   a split's decision reads its feature's group row and decodes it
+   (``decode_col``, :1298-1301).
 
 Two split loops grow the same tree, bit for bit:
 
@@ -30,7 +38,9 @@ Two split loops grow the same tree, bit for bit:
    (ops/hist_kernel.py ``histogram_segment``) into one of two scratch
    buffers by step parity, and the subtraction folded into both children's
    split scan (ops/split_kernel.py ``split_pair_fold``): three launches,
-   every one reading its leaf indices and bounds from the state. Once the
+   every one reading its leaf indices and bounds from the state; a bundled
+   table's step adds a fourth before the scan, the remap of the group
+   histogram (ops/remap_kernel.py ``remap_step``). Once the
    best gain is not > 0 the kernels of the later steps return at once. Each
    row's leaf comes from the segment layout (``leaf_ids``, csrc/grow_step.cu;
    the boosting iteration adds its leaves' values to the scores from the
@@ -62,7 +72,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from . import grow_state as gs
-from . import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
+from . import grow_step_kernel, hist_kernel, partition_kernel, remap_kernel, split_kernel
 from .histogram import leaf_values
 from .partition import stable_partition
 from .split import SplitParams, calculate_leaf_output, num_words, words_member
@@ -111,15 +121,21 @@ def grow_tree(
     bins_packed: Optional[torch.Tensor] = None,  # [ceil(N/2), F] nibble-packed copy (B <= 16)
     bag: Optional[torch.Tensor] = None,  # [N] f32, 1.0 = in the bag; None: every row
     grouped: bool = False,  # csrc/histogram.cu's grouped form (hist_kernel.grouped_adds)
+    num_group_bins: Optional[int] = None,  # the histograms' width of a bundled table
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree; returns (TreeArrays, leaf_id [N] int64 on the bins' device).
     Rows outside the ``bag`` stay in their segments with zero weight: every
     histogram, sum and count (so the smaller child and ``min_data_in_leaf``)
-    is the bag's, and ``leaf_id`` still covers every row."""
+    is the bag's, and ``leaf_id`` still covers every row. With an EFB plan
+    in the meta, ``bins`` is the ``[G, N]`` bundled matrix and the
+    histograms are built at ``num_group_bins`` (default ``num_bins``)."""
     dev = bins.device
-    F, N = bins.shape
+    N = bins.shape[1]
+    F = feature_meta["num_bin"].numel()
     M = num_leaves
     B = num_bins
+    bundled = "group_id" in feature_meta
+    Bh = num_group_bins if bundled and num_group_bins else B
     f32 = torch.float32
     meta_h = {k: v.cpu() for k, v in feature_meta.items()}
     hist_bins = bins_nf.t() if bins_nf is not None else bins
@@ -136,11 +152,14 @@ def grow_tree(
     # ---- root ------------------------------------------------------------
     vals_all = leaf_values(grad, hess, torch.ones(N, dtype=f32, device=dev) if bag is None else bag)
     hist = torch.empty((M, F, B, 3), dtype=f32, device=dev)
-    hist[0] = hist_kernel.routed_histogram(
-        hist_bins, vals_all, B, hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
+    root = root_sums(grad, hess, vals_all, bag)
+    root_hist = hist_kernel.routed_histogram(
+        hist_bins, vals_all, Bh, hist_dtype=hist_dtype, route=route, bins_packed=hist_packed,
         grouped=grouped,
     )
-    root = root_sums(grad, hess, vals_all, bag).cpu()
+    # a bundled table's group histogram in feature space, with the root's sums
+    hist[0] = remap_kernel.efb_remap(root_hist, root, feature_meta, B) if bundled else root_hist
+    root = root.cpu()
 
     # [M, 5] leaf aux: sum_grad, sum_hess, num_data, monotone min, max
     laux = torch.zeros((M, 5), dtype=f32)
@@ -220,9 +239,11 @@ def grow_tree(
         small_idx, large_idx = (best_leaf, new_leaf) if left_smaller else (new_leaf, best_leaf)
         s_begin = leaf_begin[small_idx]
         small = hist_kernel.routed_histogram(
-            hist_bins, vals_all, B, rows=order[s_begin:s_begin + leaf_phys[small_idx]],
+            hist_bins, vals_all, Bh, rows=order[s_begin:s_begin + leaf_phys[small_idx]],
             hist_dtype=hist_dtype, route=route, bins_packed=hist_packed, grouped=grouped,
         )
+        if bundled:  # remapped with the smaller child's record sums, then subtracted
+            small = remap_kernel.efb_remap(small, laux[small_idx, :3].to(dev), feature_meta, B)
         large = hist[best_leaf] - small
         hist[small_idx] = small
         hist[large_idx] = large
@@ -308,8 +329,9 @@ def start_tree(
     grouped: bool = False,
 ) -> None:
     """Bind a tree's inputs to the state ``s``, reset it, and queue the
-    root: its histogram, its sums and leaf output, and (M > 1) its split
-    scan. Reads nothing back. ``bag`` ([N] f32) and ``grouped`` as in
+    root: its sums and leaf output, its histogram (of a bundled state: over
+    the groups, then remapped with those sums), and (M > 1) its split scan.
+    Reads nothing back. ``bag`` ([N] f32) and ``grouped`` as in
     :func:`grow_tree`: the segments (``leaf_count``) stay physical, the
     records' counts are the bag's."""
     N = s.N
@@ -319,12 +341,18 @@ def start_tree(
     s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
            hist_dtype, grouped)
     s.reset()
-    root_hist = s.hist[0]
-    root_hist.zero_()
-    hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist, grouped=grouped)
     root = root_sums(grad, hess, vals_all, bag)
     s.laux[0, :3] = root
     s.leaf_f[0] = torch.stack([calculate_leaf_output(root[0], root[1], params), root[2], root[1]])
+    if s.G:  # the group histogram (small_g[1], zeroed by reset), remapped with laux[0]
+        hist_kernel.histogram(hist_bins, vals_all, s.Bg, None, hist_dtype, out=s.small_g[1],
+                              grouped=grouped)
+        remap_kernel.remap_root(s)
+    else:
+        root_hist = s.hist[0]
+        root_hist.zero_()
+        hist_kernel.histogram(hist_bins, vals_all, s.B, None, hist_dtype, out=root_hist,
+                              grouped=grouped)
     if s.M < 2:
         return
     split_kernel.split_pair_step(s, 1)
@@ -335,12 +363,16 @@ def run_step(s: gs.GrowState) -> None:
     launch), the smaller child's histogram into ``s.small[k % 2]`` for the
     k-th step since the root (``s.queued_steps``), and the subtraction with
     both children's split scan (one launch, which clears the other buffer
-    for step k + 1). Every kernel returns at once when the loop has
-    stopped."""
+    for step k + 1). A bundled state's histogram goes into
+    ``s.small_g[k % 2]`` and one more launch remaps it into ``s.small[k %
+    2]`` with the smaller child's sums (and clears ``s.small_g`` for step
+    k + 1). Every kernel returns at once when the loop has stopped."""
     parity = s.queued_steps % 2
     s.queued_steps += 1
     partition_kernel.pick_partition(s)
     hist_kernel.histogram_segment(s, parity)
+    if s.G:
+        remap_kernel.remap_step(s, parity)
     split_kernel.split_pair_fold(s, parity)
 
 
@@ -416,16 +448,20 @@ def grow_tree_device(
     state: Optional[gs.GrowState] = None,
     bag: Optional[torch.Tensor] = None,
     grouped: bool = False,
+    num_group_bins: Optional[int] = None,
 ) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
     """Grow one tree with the device-resident split loop; returns
     (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
     returned state back as ``state`` to reuse its buffers for the next tree
     (a state of another shape is replaced). Takes the arguments of
     :func:`grow_tree` but no route: every histogram call is ``cuda``."""
-    F, N = bins.shape
+    R, N = bins.shape
+    F = feature_meta["num_bin"].numel()
+    G = R if "group_id" in feature_meta else 0
+    Bg = (num_group_bins or num_bins) if G else 0
     W = num_words(num_bins, "is_categorical" in feature_meta)
-    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W):
-        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W)
+    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W, G, Bg):
+        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W, G, Bg)
     launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
                 params, two_way, bins_nf, hist_dtype, bag, grouped)
     leaf_id = leaf_ids(state)

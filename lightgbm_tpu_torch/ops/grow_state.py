@@ -28,6 +28,12 @@ The tree's arrays and ``ctl`` share one int32 buffer, ``packed`` (the f32
 arrays are float views of it), so the readback is one device-to-host copy.
 With categorical features each node's left-side bin membership rides in it
 too, W = ceil(B / 32) words a node (``node_b``); without them W is 0.
+
+An EFB-bundled table (G > 0 groups of Bg bins, ops/remap.py) keeps the
+histogram pool in feature space; its histograms are built over the
+``[G, N]`` groups into ``small_g`` and remapped into ``small`` and the
+root's ``hist[0]`` (ops/remap_kernel.py). An unbundled state has G = 0 and
+no group buffer.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ CTL = 16
 PICK_PARTITION_THREADS = 1024
 PICK_PARTITION_BLOCKS_PER_SM = 2048 // PICK_PARTITION_THREADS
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
+_PLAN_KEYS = ("group_id", "bin_offset")
 
 
 def unpack(packed: torch.Tensor, M: int, W: int):
@@ -73,7 +80,10 @@ class GrowState:
     leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
     f32 and ``small`` [2, F, B, 3] f32 (the smaller child's histogram of
     step k in ``small[k % 2]``, which step k - 1's scan leaves zeroed).
-    Scratch of the kernels: ``scratch`` [N] int32 (the
+    Bundled (``G`` groups of ``Bg`` bins, ``G`` > 0): ``small_g`` [2, G,
+    Bg, 3] f32, the group-space histograms: step k's segment histogram adds
+    into ``small_g[k % 2]`` (which step k - 1's remap leaves zeroed), and the
+    root's into ``small_g[1]``. Scratch of the kernels: ``scratch`` [N] int32 (the
     rows a pick_partition block stages beyond its shared memory),
     ``block_left`` int64 (each block's word at its grid barrier: the
     launch's epoch above the block's left count, one a block that fits on
@@ -84,14 +94,15 @@ class GrowState:
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
-             "hist", "small")
+             "hist", "small", "small_g")
 
     def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int,
-                 W: int = 0) -> None:
+                 W: int = 0, G: int = 0, Bg: int = 0) -> None:
         M = num_leaves
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device, self.N, self.F, self.B, self.M, self.W = device, N, F, B, M, W
+        self.G, self.Bg = (G, Bg) if G else (0, 0)
         i32, f32 = torch.int32, torch.float32
         self.packed = torch.zeros(CTL + 13 * M + W * (M - 1), dtype=i32, device=device)
         (self.ctl, self.node_i, self.leaf_i, self.node_f, self.leaf_f,
@@ -105,6 +116,7 @@ class GrowState:
         self.order = torch.zeros(N, dtype=i32, device=device)
         self.hist = torch.zeros((M, F, B, 3), dtype=f32, device=device)
         self.small = torch.zeros((2, F, B, 3), dtype=f32, device=device)
+        self.small_g = torch.zeros((2, self.G, self.Bg, 3), dtype=f32, device=device)
         self.scratch = torch.empty(N, dtype=i32, device=device)
         blocks = 1
         if device.type == "cuda":
@@ -137,9 +149,25 @@ class GrowState:
         #: parity of the next one picks its ``small`` buffer
         self.queued_steps = 0
 
-    def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int, W: int) -> bool:
-        return (self.device, self.N, self.F, self.B, self.M, self.W) == (
-            device, N, F, B, num_leaves, W)
+    def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int, W: int,
+             G: int = 0, Bg: int = 0) -> bool:
+        return (self.device, self.N, self.F, self.B, self.M, self.W, self.G, self.Bg) == (
+            device, N, F, B, num_leaves, W, G, Bg if G else 0)
+
+    @property
+    def hist_rows(self) -> int:
+        """Rows of the bin matrix the histograms read: G bundled, else F."""
+        return self.G or self.F
+
+    @property
+    def hist_width(self) -> int:
+        """Bins of a histogram row as built: Bg bundled, else B."""
+        return self.Bg or self.B
+
+    def hist_out(self, parity: int) -> torch.Tensor:
+        """The buffer step ``parity``'s segment histogram adds into:
+        ``small_g[parity]`` bundled, else ``small[parity]``."""
+        return self.small_g[parity] if self.G else self.small[parity]
 
     def bind(
         self,
@@ -154,21 +182,27 @@ class GrowState:
         hist_dtype: str,
         grouped: bool = False,
     ) -> None:
-        """Take this tree's inputs and check them once: ``bins`` [F, N]
-        uint8 contiguous (the partition's columns), ``hist_bins`` an [F, N]
-        uint8 view with any strides (the histograms' rows), ``values`` [N, 3]
-        f32 contiguous, the meta arrays int32 [F] and ``feature_mask`` bool
-        [F] contiguous, all on the state's device; ``is_categorical`` bool
-        [F] in the meta exactly when the state has W > 0. The kernels' launch
+        """Take this tree's inputs and check them once: ``bins`` [R, N]
+        uint8 contiguous (the partition's columns), ``hist_bins`` an [R, N]
+        uint8 view with any strides (the histograms' rows), R the state's
+        :attr:`hist_rows`, ``values`` [N, 3] f32 contiguous, the meta arrays
+        int32 [F] and ``feature_mask`` bool [F] contiguous, all on the
+        state's device; ``is_categorical`` bool [F] in the meta exactly when
+        the state has W > 0, and the EFB plan (``group_id``, ``bin_offset``
+        int32 [F]) exactly when it has G > 0. The kernels' launch
         arguments are rebuilt from them on first use and the stream is the
         one current now. ``grouped``: the histograms take their grouped form
         (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`)."""
-        dev, N, F = self.device, self.N, self.F
+        dev, N, F, R = self.device, self.N, self.F, self.hist_rows
+        if ("group_id" in feature_meta) != (self.G > 0):
+            raise ValueError("grow_tree_device: a state of %d groups and %s EFB plan"
+                             % (self.G, "an" if "group_id" in feature_meta else "no"))
+        plan = _PLAN_KEYS if self.G else ()
         for name, t, shape, dtype in (
-            ("bins", bins, (F, N), torch.uint8),
+            ("bins", bins, (R, N), torch.uint8),
             ("values", values, (N, 3), torch.float32),
             ("feature_mask", feature_mask, (F,), torch.bool),
-            *((k, feature_meta[k], (F,), torch.int32) for k in _META_KEYS),
+            *((k, feature_meta[k], (F,), torch.int32) for k in _META_KEYS + plan),
         ):
             if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
                 raise ValueError(
@@ -183,10 +217,11 @@ class GrowState:
                                    or tuple(is_cat.shape) != (F,) or not is_cat.is_contiguous()):
             raise ValueError("grow_tree_device: is_categorical must be a contiguous bool [%d] "
                              "tensor on %s" % (F, dev))
-        if hist_bins.device != dev or hist_bins.dtype != torch.uint8 or tuple(hist_bins.shape) != (F, N):
-            raise ValueError("grow_tree_device: hist_bins must be an [F, N] uint8 view on %s" % dev)
+        if hist_bins.device != dev or hist_bins.dtype != torch.uint8 or tuple(hist_bins.shape) != (R, N):
+            raise ValueError("grow_tree_device: hist_bins must be an [%d, N] uint8 view on %s"
+                             % (R, dev))
         self.bins, self.hist_bins, self.values = bins, hist_bins, values
-        self.feature_meta = {k: feature_meta[k] for k in _META_KEYS}
+        self.feature_meta = {k: feature_meta[k] for k in _META_KEYS + plan}
         self.is_cat = is_cat
         if is_cat is not None:
             self.feature_meta["is_categorical"] = is_cat
@@ -216,6 +251,8 @@ class GrowState:
         self.leaf_count[:1].fill_(self.N)
         torch.arange(self.N, out=self.order)
         self.small.zero_()
+        if self.G:
+            self.small_g.zero_()
 
     def clone(self) -> "GrowState":
         """A copy of every tensor of the state with the same bound inputs:
@@ -226,7 +263,7 @@ class GrowState:
         (other.ctl, other.node_i, other.leaf_i, other.node_f, other.leaf_f,
          other.node_b) = unpack(other.packed, self.M, self.W)
         for name in ("best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
-                     "hist", "small", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
+                     "hist", "small", "small_g", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
                      "leaf_scratch"):
             setattr(other, name, getattr(self, name).clone())
         other.args = {}

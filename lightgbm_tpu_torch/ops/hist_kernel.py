@@ -362,9 +362,10 @@ def histogram_segment(s, parity: int = 0) -> None:
     """The split loop's histogram of the smaller child (csrc/histogram.cu
     ``lgbt_histogram_segment``) on a :class:`~.grow_state.GrowState`: rows
     ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l = ctl[SMALL]``,
-    all read from device memory, into ``s.small[parity]`` (which the scan
-    of the step before leaves zeroed: a segment of more than one chunk adds
-    into it), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]``
+    all read from device memory, into ``s.hist_out(parity)`` (which the
+    step before leaves zeroed: a segment of more than one chunk adds into
+    it; a bundled state's group-space ``small_g[parity]`` at its group
+    width), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]``
     is 0. The grid is fixed once a tree (:func:`segment_max_chunks`); the
     state's ``grouped`` picks the grouped form. On a CPU state the plain
     version, ops/histogram.py ``segment_histogram``."""
@@ -378,15 +379,16 @@ def histogram_segment(s, parity: int = 0) -> None:
     args = s.args.get(key)
     if args is None:
         _check_dtype(s.hist_dtype)
-        if not 1 <= s.B <= 336:
-            raise ValueError("histogram_segment: num_bins must be in [1, 336], got %d" % s.B)
+        R, B = s.hist_rows, s.hist_width
+        if not 1 <= B <= 336:
+            raise ValueError("histogram_segment: num_bins must be in [1, 336], got %d" % B)
         b = s.hist_bins
         sms = _sm_count(dev)
         args = s.args[key] = (
             b.data_ptr(), b.stride(0), b.stride(1), s.values.data_ptr(), s.order.data_ptr(),
-            s.ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), s.F, s.B,
-            int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, s.F, sms),
-            s.small[parity].data_ptr(), s.stream,
+            s.ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), R, B,
+            int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, R, sms),
+            s.hist_out(parity).data_ptr(), s.stream,
         )
     symbol = "lgbt_histogram_segment_grouped" if s.grouped else "lgbt_histogram_segment"
     code = _entry("histogram", symbol, _ARGS_SEGMENT)(*args)

@@ -85,14 +85,16 @@ def segment_histogram(s, parity: int = 0) -> None:
     """The split loop's histogram of the smaller child on a
     :class:`~.grow_state.GrowState` ``s``: :func:`leaf_histogram` of the
     rows ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l =
-    ctl[SMALL]`` into ``s.small[parity]``, in ``s.hist_dtype``; nothing once
-    ``ctl[ACTIVE]`` is 0. The plain version of ops/hist_kernel.py
-    ``histogram_segment``."""
+    ctl[SMALL]`` into ``s.hist_out(parity)`` (``small[parity]``, or a
+    bundled state's group-space ``small_g[parity]``), in ``s.hist_dtype``;
+    nothing once ``ctl[ACTIVE]`` is 0. The plain version of
+    ops/hist_kernel.py ``histogram_segment``."""
     if not int(s.ctl[gs.ACTIVE]):
         return
     leaf = int(s.ctl[gs.SMALL])
     b, c = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
-    s.small[parity].copy_(leaf_histogram(s.hist_bins, s.values, s.B, s.order[b:b + c], s.hist_dtype))
+    s.hist_out(parity).copy_(
+        leaf_histogram(s.hist_bins, s.values, s.hist_width, s.order[b:b + c], s.hist_dtype))
 
 
 def leaf_values(

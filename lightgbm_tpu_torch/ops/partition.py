@@ -4,7 +4,9 @@ Counterpart of lightgbm_tpu/ops/grow.py's ``partition_segment`` (the
 bucketed grower's stable partition, data_partition.hpp:111): the rows
 ``order[begin : begin + count]`` of the split leaf become ``[left | right]``
 (by the numerical or the categorical decision) in their old relative order, so the segment keeps the reference's ``[pre |
-left | right | post]`` layout. With ops/grow_step.py ``pick`` before it, the
+left | right | post]`` layout. On an EFB-bundled table the decision reads the
+feature's group row and decodes it first (ops/remap.py ``decode_col``,
+lightgbm_tpu/ops/grow.py:1298-1301). With ops/grow_step.py ``pick`` before it, the
 oracle of csrc/partition.cu (ops/partition_kernel.py ``pick_partition``) and
 the path taken for CPU tensors.
 """
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import grow_state as gs
+from .remap import decode_col
 from .split import MISSING_NAN, MISSING_ZERO, words_member
 
 
@@ -34,13 +37,19 @@ def stable_partition(order, bins, begin, count, feature, threshold, default_left
                      bits=None) -> int:
     """Partition ``order[begin : begin + count]`` in place by the split
     (``feature``, ``threshold``, ``default_left``, and its membership words
-    ``bits`` [W] int32 when the feature is categorical) on ``bins`` [F, N],
-    with the feature's ``meta`` (num_bin / missing_type / default_bin
-    arrays and is_categorical when there are such features, read on the
-    host: the host split loop passes CPU copies); returns the left count. The
-    segment becomes ``torch.cat([seg[gl], seg[~gl]])``."""
+    ``bits`` [W] int32 when the feature is categorical) on ``bins`` [F, N]
+    (an EFB-bundled table's [G, N], with the plan in the meta), with the
+    feature's ``meta`` (num_bin / missing_type / default_bin arrays and
+    is_categorical when there are such features, read on the host: the host
+    split loop passes CPU copies); returns the left count. The segment
+    becomes ``torch.cat([seg[gl], seg[~gl]])``."""
     seg = order[begin:begin + count]
-    col = bins[feature].index_select(0, seg)
+    if "group_id" in meta:
+        col = decode_col(bins[int(meta["group_id"][feature])].index_select(0, seg),
+                         int(meta["bin_offset"][feature]), int(meta["default_bin"][feature]),
+                         int(meta["num_bin"][feature]))
+    else:
+        col = bins[feature].index_select(0, seg)
     is_cat = meta.get("is_categorical")
     member = None
     if is_cat is not None and bool(is_cat[feature]):

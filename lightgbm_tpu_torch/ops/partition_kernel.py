@@ -39,27 +39,31 @@ THREADS = gs.PICK_PARTITION_THREADS
 ITEMS = 8
 TILE = THREADS * ITEMS
 CAP = 10240
+#: the bundled instantiation's: its plan takes 1024 words of that room
+EFB_CAP = CAP - 1024
 
 ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 21
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 23
     + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
 _grids: Dict[tuple, int] = {}
 
 
-def co_resident_grid(device: torch.device, categorical: bool = False) -> int:
-    """The blocks of pick_partition's numerical or categorical
-    instantiation that fit on the card at once (``lgbt_pick_partition_grid``:
-    the occupancy a multiprocessor times the multiprocessor count), read once
-    per device."""
+def co_resident_grid(device: torch.device, categorical: bool = False,
+                     bundled: bool = False) -> int:
+    """The blocks of pick_partition's instantiation (numerical or
+    categorical, unbundled or bundled) that fit on the card at once
+    (``lgbt_pick_partition_grid``: the occupancy a multiprocessor times the
+    multiprocessor count), read once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, bool(categorical))
+    key = (index, bool(categorical), bool(bundled))
     if key not in _grids:
         fn = cuda_build.entry("partition", "lgbt_pick_partition_grid",
                               [ctypes.c_void_p, ctypes.c_int])
         out = ctypes.c_int(0)
+        kind = int(bool(categorical)) | (int(bool(bundled)) << 1)
         with torch.cuda.device(index):
-            cuda_build.check(fn(ctypes.addressof(out), int(categorical)), "pick_partition occupancy")
+            cuda_build.check(fn(ctypes.addressof(out), kind), "pick_partition occupancy")
         _grids[key] = out.value
     return _grids[key]
 
@@ -96,7 +100,8 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
     for the CUDA state ``s`` and ``grid`` blocks (default: every block that
     fits; the card tests take fewer); raises for a grid that does not fit."""
     cat = s.is_cat is not None
-    fits = co_resident_grid(s.device, cat)
+    efb = s.G > 0
+    fits = co_resident_grid(s.device, cat, efb)
     blocks = fits if grid is None else int(grid)
     if not 1 <= blocks <= min(s.block_left.numel(), fits):
         raise ValueError("pick_partition: a grid of %d blocks does not fit on the card" % blocks)
@@ -109,7 +114,9 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
         m["num_bin"].data_ptr(), m["monotone"].data_ptr(), s.leaf_begin.data_ptr(),
         s.leaf_count.data_ptr(), s.block_left.data_ptr(), s.bar.data_ptr(),
         s.best_b.data_ptr() if cat else None, s.node_b.data_ptr() if cat else None,
-        s.is_cat.data_ptr() if cat else None, s.M, s.F, s.W,
+        s.is_cat.data_ptr() if cat else None,
+        m["group_id"].data_ptr() if efb else None, m["bin_offset"].data_ptr() if efb else None,
+        s.M, s.F, s.W,
         p.lambda_l1, p.lambda_l2, p.max_delta_step, blocks, s.stream,
     )
 
@@ -119,7 +126,8 @@ def block_mirror(s: gs.GrowState, grid: int) -> Dict:
     (the plain version's; every block makes the same), then the partition as
     ``grid`` blocks do it. Block b owns rows [b * chunk, (b + 1) * chunk) of
     the segment, chunk = max(THREADS, ceil(count / grid)); it counts its
-    lefts and stages its rows (in shared memory up to CAP rows, else in
+    lefts and stages its rows (in shared memory up to CAP rows, EFB_CAP on a
+    bundled state, else in
     scratch); after the barrier it sums the totals of the blocks before it
     and of all blocks, and ranks its rows tile by tile: row i of a tile is
     lane i % 32 of warp (i // 32) % 32 at item i // THREADS, its rank the
@@ -140,7 +148,13 @@ def block_mirror(s: gs.GrowState, grid: int) -> Dict:
     b0, cnt = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
     meta = {k: int(s.feature_meta[k][f]) for k in ("missing_type", "default_bin", "num_bin")}
     seg = s.order[b0:b0 + cnt].numpy().astype(np.int64)
-    col = s.bins[f].numpy()[seg].astype(np.int64)
+    if s.G:  # the group row, decoded as the kernel's kEfb instantiation does
+        r = s.bins[int(s.feature_meta["group_id"][f])].numpy()[seg].astype(np.int64) \
+            - int(s.feature_meta["bin_offset"][f])
+        col = np.where((r >= 0) & (r < meta["num_bin"] - 1), r + (r >= meta["default_bin"]),
+                       meta["default_bin"])
+    else:
+        col = s.bins[f].numpy()[seg].astype(np.int64)
     gl = col <= thr
     if meta["missing_type"] == MISSING_ZERO:
         gl = np.where(col == meta["default_bin"], bool(dl), gl)
@@ -156,7 +170,8 @@ def block_mirror(s: gs.GrowState, grid: int) -> Dict:
     # before the barrier: each block's rows, decisions in the top bit, and left count
     staged = [seg[lo:lo + n] | (gl[lo:lo + n].astype(np.int64) << 31) for lo, n in bounds]
     block_left = [int((v >> 31).sum()) for v in staged]
-    where = ["shared" if n <= CAP else "scratch" for _, n in bounds]
+    cap = EFB_CAP if s.G else CAP
+    where = ["shared" if n <= cap else "scratch" for _, n in bounds]
     # after it: each block's own scan of the totals, then its ranks and writes
     out = np.full(cnt, -1, dtype=np.int64)
     befores = []

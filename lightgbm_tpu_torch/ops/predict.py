@@ -16,12 +16,13 @@ lightgbm_tpu/ops/predict.py over an ``[N, F]`` row-major uint8 bin matrix
 binned with the training set's mappers: a node's decision is an integer
 compare plus the missing-bin rules (dense_bin.hpp Split), or at a
 categorical node the lookup of the row's bin in the node's left-side
-membership (CategoricalDecisionInner, tree.h:275). The validation
-scores and the rollback use it. ``add_tree_value`` is the plain version of
-the hand-written kernel csrc/predict_bins.cu (ops/predict_kernel.py) and the
+membership (CategoricalDecisionInner, tree.h:275). Over an EFB-bundled
+``[N, G]`` matrix (the meta's ``group_id`` and ``bin_offset``) a node reads
+its feature's group column and decodes the byte to the feature's sub-bin
+first (lightgbm_tpu/ops/predict.py:104-109). The validation scores and the
+rollback use it. ``add_tree_value`` is the plain version of the
+hand-written kernel csrc/predict_bins.cu (ops/predict_kernel.py) and the
 path taken for CPU tensors.
-
-Unbundled layouts only: an EFB-bundled layout raises.
 """
 from __future__ import annotations
 
@@ -101,8 +102,7 @@ def ensemble_predict_raw(X: torch.Tensor, trees: Sequence[Tree]) -> torch.Tensor
 
 class PredictTree(NamedTuple):
     """A tree's nodes with their features' missing-bin rules, for a
-    traversal in bin space (lightgbm_tpu/ops/predict.py ``PredictTree``,
-    unbundled)."""
+    traversal in bin space (lightgbm_tpu/ops/predict.py ``PredictTree``)."""
 
     split_feature: torch.Tensor  # [M-1] int64
     threshold_bin: torch.Tensor  # [M-1] int64
@@ -116,11 +116,9 @@ class PredictTree(NamedTuple):
     num_leaves: int
     is_cat: torch.Tensor  # [M-1] bool: the node's feature is categorical
     cat_member: torch.Tensor  # [M-1, B'] bool: a categorical node's left-side bins
-
-
-def _check_layout(feature_meta: Dict[str, torch.Tensor]) -> None:
-    if "group_id" in feature_meta:
-        raise NotImplementedError("prediction over EFB-bundled bins is not ported yet")
+    column: torch.Tensor  # [M-1] int64: the bin column read (the group, bundled)
+    bin_offset: torch.Tensor  # [M-1] int64: the feature's offset in its group (bundled)
+    efb: bool  # the bins are EFB-bundled: decode each read
 
 
 def predict_tree(split_feature, threshold_bin, default_left, left_child, right_child,
@@ -129,9 +127,8 @@ def predict_tree(split_feature, threshold_bin, default_left, left_child, right_c
     """A :class:`PredictTree` from a tree's node arrays and the features'
     meta (``num_bin``, ``missing_type``, ``default_bin``, and
     ``is_categorical`` with ``cat_member`` [M-1, B'] bool, each node's
-    membership, when there are categorical features), on the meta's
-    device."""
-    _check_layout(feature_meta)
+    membership, when there are categorical features; ``group_id`` and
+    ``bin_offset`` when the bins are EFB-bundled), on the meta's device."""
     dev = feature_meta["num_bin"].device
 
     def i64(a):
@@ -145,6 +142,9 @@ def predict_tree(split_feature, threshold_bin, default_left, left_child, right_c
     else:
         is_cat_nodes = torch.as_tensor(is_cat).to(device=dev, dtype=torch.bool)[f]
         cat_member = torch.as_tensor(cat_member).to(device=dev, dtype=torch.bool)
+    efb = "group_id" in feature_meta
+    column, bin_offset = (i64(feature_meta["group_id"])[f], i64(feature_meta["bin_offset"])[f]) \
+        if efb else (f, torch.zeros_like(f))
     return PredictTree(
         split_feature=f, threshold_bin=i64(threshold_bin),
         default_left=torch.as_tensor(default_left).to(device=dev, dtype=torch.bool),
@@ -156,6 +156,9 @@ def predict_tree(split_feature, threshold_bin, default_left, left_child, right_c
         num_leaves=int(num_leaves),
         is_cat=is_cat_nodes,
         cat_member=cat_member,
+        column=column,
+        bin_offset=bin_offset,
+        efb=efb,
     )
 
 
@@ -169,7 +172,8 @@ def make_predict_tree(tree, feature_meta: Dict[str, torch.Tensor]) -> PredictTre
 
 def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
     """Leaf index [N] int64 of every row of the ``[N, F]`` uint8 bin matrix
-    ``bins``: all rows advance one level a step until each is at a leaf."""
+    ``bins`` (``[N, G]`` bundled): all rows advance one level a step until
+    each is at a leaf."""
     N = bins.shape[0]
     node = torch.zeros(N, dtype=torch.int64, device=bins.device)
     if tree.num_leaves <= 1:
@@ -178,7 +182,11 @@ def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
     active = torch.ones(N, dtype=torch.bool, device=bins.device)
     while bool(active.any()):
         nd = node[active]
-        col = bins[rows[active], tree.split_feature[nd]].to(torch.int64)
+        col = bins[rows[active], tree.column[nd]].to(torch.int64)
+        if tree.efb:  # the group byte as the node feature's sub-bin (efb.py decode_subbin)
+            r = col - tree.bin_offset[nd]
+            col = torch.where((r >= 0) & (r < tree.nan_bin[nd]),
+                              r + (r >= tree.default_bin[nd]).long(), tree.default_bin[nd])
         go_left = col <= tree.threshold_bin[nd]
         dl = tree.default_left[nd]
         miss = tree.missing_type[nd]

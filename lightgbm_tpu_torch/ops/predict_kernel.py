@@ -11,6 +11,8 @@ The tree is read as the device-resident split loop keeps it
 default_left), with categorical features ``node_b`` rows (each node's
 membership words), and the leaf count in device memory, so models/gbdt.py
 calls it inside the captured boosting iteration for every validation set.
+Over EFB-bundled bins (``group_id`` and ``bin_offset`` in the meta) the
+kernel's bundled instantiations decode each read.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ BLOCKS_PER_SM = 8
 _META_KEYS = ("num_bin", "missing_type", "default_bin")
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
-    + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [ctypes.c_int, ctypes.c_void_p]
 )
 
 
@@ -60,7 +63,7 @@ def add_tree_value(
     node_b: Optional[torch.Tensor] = None,
 ) -> None:
     """``score[r] += value[leaf(r)]`` for every row of ``bins`` ([N, F]
-    uint8), through the tree of ``num_leaves[0]`` leaves whose nodes are the
+    uint8, or ``[N, G]`` with the meta's EFB plan), through the tree of ``num_leaves[0]`` leaves whose nodes are the
     first rows of ``node_i`` ([K, 5] int32) and, with ``is_categorical`` in
     the meta, of ``node_b`` ([K, W] int32 membership words); ``value`` [> K]
     f32, ``score`` [N] f32 updated in place, ``leaf_out`` optional [N]
@@ -74,7 +77,11 @@ def add_tree_value(
         raise ValueError("predict_bins: unsupported device %s" % dev)
     if bins.dim() != 2:
         raise ValueError("predict_bins: bins must be [N, F], got %s" % (tuple(bins.shape),))
-    N, F = bins.shape
+    N, C = bins.shape
+    F = feature_meta["num_bin"].numel()
+    efb = "group_id" in feature_meta
+    if not efb and C != F:
+        raise ValueError("predict_bins: bins has %d columns for %d features" % (C, F))
     _check("bins", bins, torch.uint8, dev)
     if node_i.dim() != 2 or node_i.shape[1] != 5:
         raise ValueError("predict_bins: node_i must be [K, 5], got %s" % (tuple(node_i.shape),))
@@ -86,7 +93,7 @@ def add_tree_value(
     if num_leaves.numel() < 1:
         raise ValueError("predict_bins: num_leaves must hold the leaf count")
     _check("num_leaves", num_leaves, torch.int32, dev)
-    for k in _META_KEYS:
+    for k in _META_KEYS + (("group_id", "bin_offset") if efb else ()):
         _check(k, feature_meta[k], torch.int32, dev, (F,))
     if value.dim() != 1 or value.numel() < K + 1:
         raise ValueError("predict_bins: value must be [> %d], got %s" % (K, tuple(value.shape)))
@@ -108,12 +115,14 @@ def add_tree_value(
                              % (K, W))
     fn = cuda_build.entry("predict_bins", "lgbt_predict_bins", _ARGTYPES)
     cuda_build.check(fn(
-        bins.data_ptr(), N, F, node_i.data_ptr(), K, num_leaves.data_ptr(),
+        bins.data_ptr(), N, C, node_i.data_ptr(), K, num_leaves.data_ptr(),
         feature_meta["missing_type"].data_ptr(), feature_meta["default_bin"].data_ptr(),
         feature_meta["num_bin"].data_ptr(), value.data_ptr(), score.data_ptr(),
         None if leaf_out is None else leaf_out.data_ptr(),
         None if is_cat is None else node_b.data_ptr(),
-        None if is_cat is None else is_cat.data_ptr(), W, grid(N, hist_kernel._sm_count(dev)),
+        None if is_cat is None else is_cat.data_ptr(), W,
+        feature_meta["group_id"].data_ptr() if efb else None,
+        feature_meta["bin_offset"].data_ptr() if efb else None, grid(N, hist_kernel._sm_count(dev)),
         torch.cuda.current_stream(dev).cuda_stream,
     ), "predict_bins kernel")
     launches += 1

@@ -12,10 +12,6 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
-from lightgbm_tpu_torch import convert
-from lightgbm_tpu_torch.config import Config
-from lightgbm_tpu_torch.models.gbdt import GBDT
-from lightgbm_tpu_torch.objective import create_objective
 from lightgbm_tpu_torch.ops import hist_kernel, predict_kernel, split_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -119,7 +115,9 @@ def test_unsupported_params_raise(params, name):
 
 def test_categorical_data_trains_and_bundled_data_raises():
     """A categorical feature trains (tests/test_torch_categorical.py holds it
-    to the JAX package); an EFB-bundled dataset still raises."""
+    to the JAX package), and so does an EFB-bundled dataset
+    (tests/test_torch_efb.py holds it to the JAX package); more than 256
+    bins a feature still raises."""
     X, y = _data()
     X[:, 0] = np.floor(np.abs(X[:, 0]) * 3)
     bst = tlgb.train(
@@ -127,14 +125,29 @@ def test_categorical_data_trains_and_bundled_data_raises():
         tlgb.Dataset(X, label=y, categorical_feature=[0]), 1, device="cpu",
     )
     assert bst._gbdt.num_words > 0 and bst._gbdt.feature_meta["is_categorical"][0]
-    meta = {"num_bin": np.full(3, 4, np.int32), "missing_type": np.zeros(3, np.int32),
-            "default_bin": np.zeros(3, np.int32), "monotone": np.zeros(3, np.int8)}
-    ds = convert.binned_from_numpy(np.zeros((3, 10), np.uint8), meta, label=np.zeros(10))
-    ds.group_id = np.zeros(3, np.int32)
-    ds.bin_offset = np.zeros(3, np.int32)
-    cfg = Config.from_params({"objective": "binary", "verbose": -1})
-    with pytest.raises(NotImplementedError, match="group_id"):
-        GBDT(cfg, ds, create_objective(cfg))
+    # one-hot columns as a scipy matrix: bundled, trained with default parameters
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(1)
+    hot = rng.randint(0, 8, len(y))
+    onehot = np.zeros((len(y), 8))
+    onehot[np.arange(len(y)), hot] = 1.0
+    y_hot = ((hot % 3 == 0) ^ (rng.rand(len(y)) < 0.1)).astype(np.float64)
+    for loop, impl in (("host", None), ("device", "cuda")):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(hist_kernel, "_ENV_IMPL", impl)
+            bst = tlgb.train({"objective": "binary", "verbose": -1, "min_data_in_leaf": 5},
+                             tlgb.Dataset(sp.csr_matrix(onehot), label=y_hot), 2, device="cpu")
+        g = bst._gbdt
+        assert g.grow_loop == loop and g.num_groups == 1 and g.hist_width == 9
+        assert "group_id" in g.feature_meta and bst.num_trees() == 2
+        assert set(g._tree_arrays[0].split_feature[:int(g._tree_arrays[0].num_leaves) - 1]
+                   .tolist()) <= set(range(8))
+        np.testing.assert_array_equal(bst.predict(sp.csr_matrix(onehot)), bst.predict(onehot))
+    wide = np.c_[np.arange(len(y)) % 300, X[:, 1:]]
+    with pytest.raises(NotImplementedError, match="256 bins"):
+        tlgb.train({"objective": "binary", "verbose": -1, "max_bin": 300, "min_data_in_bin": 1},
+                   tlgb.Dataset(wide, label=y), 1, device="cpu")
 
 
 def test_ptxas_report_gives_registers_and_spills_per_kernel():

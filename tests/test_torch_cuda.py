@@ -1515,3 +1515,237 @@ def test_predict_bins_categorical_matches_plain(dev):
     assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
     with pytest.raises(ValueError, match="node_b"):
         predict_kernel.add_tree_value(other, nodes, nl, meta, value, torch.zeros(77_777, device=dev))
+
+
+# ---- EFB-bundled tables: the remap, and the bundled pick and predict ----------------
+
+#: group layouts (each group a list of its members' num_bin): one group of
+#: every feature (G = 1), and a mix of a 255-bin feature alone in its group,
+#: a group at the 256-bin cap (255 one-hot features), a one-hot block with a
+#: 20-bin feature, a 64-bin feature alone and a group of 5
+EFB_LAYOUTS = {
+    "one_group": [[2] * 60 + [40, 60, 90]],
+    "mixed": [[255], [2] * 255, [2] * 30 + [20], [64], [2, 2, 2, 2, 5]],
+}
+
+
+def _efb_plan(layout):
+    """(gid, off, num_bin) [F] int32 numpy and the group widths of a layout."""
+    gid, off, nbin, widths = [], [], [], []
+    for g, members in enumerate(layout):
+        o = 1
+        for nb in members:
+            gid.append(g), off.append(o), nbin.append(nb)
+            o += nb - 1
+        widths.append(o)
+    return (np.asarray(gid, np.int32), np.asarray(off, np.int32), np.asarray(nbin, np.int32),
+            widths)
+
+
+def _efb_inputs(dev, N, layout, seed=0, categorical=False, q=1024):
+    """A bundled table of ``layout``: the [G, N] group bins (each row holds
+    one member of a group at a non-default sub-bin, or the all-default 0),
+    their [N, G] copy, the decoded [F, N] unbundled bins, dyadic gradients
+    (multiples of 1/q) that follow the one-hot members' parity and the
+    20-bin feature's categories, hessians,
+    the meta with its plan (missing types none, zero and nan; with
+    ``categorical`` the 20-bin feature of ``mixed`` categorical) and the
+    feature mask."""
+    from lightgbm_tpu_torch.ops import remap
+
+    gid, off, nbin, widths = _efb_plan(layout)
+    F, G = len(gid), len(layout)
+    plan_rng = np.random.RandomState(F)  # the plan's default bins: the same for every seed
+    dbin = np.array([plan_rng.randint(0, nb) for nb in nbin], np.int32)
+    rng = np.random.RandomState(seed)
+    missing = np.zeros(F, np.int32)
+    missing[nbin == 64] = 2
+    dbin[nbin == 64] = 0
+    missing[np.nonzero(nbin == 5)[0][:1]] = 1
+    group_bins = np.zeros((G, N), np.uint8)
+    signal = np.zeros(N)
+    first = 0
+    for g, members in enumerate(layout):
+        k = len(members)
+        pick = rng.randint(0, k + 1, N)  # k: every member at its default
+        for j in range(k):
+            f = first + j
+            rows = np.nonzero(pick == j)[0]
+            sub = rng.randint(0, nbin[f], len(rows))
+            keep = sub != dbin[f]
+            group_bins[g, rows[keep]] = off[f] + sub[keep] - (sub[keep] > dbin[f])
+            if nbin[f] == 2:
+                signal[rows[keep]] += 1.0 if j % 2 else -1.0
+            if nbin[f] == 20:  # the categorical candidate: every third category
+                signal[rows] += np.where(sub % 3 == 0, 2.0, -1.0)
+        first += k
+    bins = torch.from_numpy(group_bins).to(dev)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    meta = {"num_bin": t(nbin), "missing_type": t(missing), "default_bin": t(dbin),
+            "monotone": t(np.zeros(F, np.int32)), "group_id": t(gid), "bin_offset": t(off)}
+    if categorical:
+        is_cat = np.zeros(F, bool)
+        is_cat[np.nonzero(nbin == 20)[0]] = True
+        meta["is_categorical"] = t(is_cat)
+    dense = torch.stack([remap.decode_col(bins[int(gid[f])], int(off[f]), int(dbin[f]),
+                                          int(nbin[f])) for f in range(F)]).to(torch.uint8)
+    grad = torch.from_numpy((np.round((rng.randn(N) * 0.5 + 0.25 * np.tanh(signal)) * q) / q)
+                            .astype(np.float32)).to(dev)
+    hess = torch.from_numpy((rng.randint(1, 65, N) / q).astype(np.float32)).to(dev)
+    mask = torch.ones(F, dtype=torch.bool, device=dev)
+    return bins, bins.t().contiguous(), dense, grad, hess, meta, mask, max(widths)
+
+
+@pytest.mark.parametrize("values", ["dyadic", "real"])
+@pytest.mark.parametrize("layout", list(EFB_LAYOUTS))
+def test_efb_remap_matches_plain(dev, layout, values):
+    """csrc/efb_remap.cu against ops/remap.py ``remap_hist``: equal bit for
+    bit on dyadic and real values (the default row sums in one order in
+    both), with G = 1, a feature alone in its group and a group at 256
+    bins; its loop entries, and a stopped loop writes nothing."""
+    from lightgbm_tpu_torch.ops import remap, remap_kernel
+
+    gid, off, nbin, widths = _efb_plan(EFB_LAYOUTS[layout])
+    F, G, Bg, B = len(gid), len(widths), max(widths), int(nbin.max())
+    if layout == "mixed":
+        assert Bg == 256 and widths[0] == 255
+    rng = np.random.RandomState(F)
+    meta = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("group_id", gid), ("bin_offset", off), ("num_bin", nbin),
+        ("default_bin", np.array([rng.randint(0, nb) for nb in nbin], np.int32)))}
+    gh = rng.randn(G, Bg, 3)
+    totals = rng.randn(3) * 50
+    if values == "dyadic":
+        gh, totals = np.round(gh * 64) / 64, np.round(totals * 64) / 64
+    gh = torch.tensor(gh, dtype=torch.float32, device=dev)
+    totals = torch.tensor(totals, dtype=torch.float32, device=dev)
+    before = remap_kernel.launches
+    got = remap_kernel.efb_remap(gh, totals, meta, B)
+    assert remap_kernel.launches == before + 1
+    want = remap.remap_hist(gh.cpu(), totals.cpu(), {k: v.cpu() for k, v in meta.items()}, B)
+    assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
+    # the loop entries on a state: the step's totals from laux[ctl[SMALL]]
+    s = gs.GrowState(dev, 1000, F, B, 7, 0, G, Bg)
+    s.feature_meta = dict(meta)
+    s.stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
+    s.small_g[1].copy_(gh)
+    s.laux[3, :3] = totals
+    s.ctl[gs.ACTIVE], s.ctl[gs.SMALL] = 1, 3
+    s.small_g[0].fill_(7.0)
+    remap_kernel.remap_step(s, 1)
+    assert torch.equal(s.small[1], got) and not bool(s.small_g[0].any())
+    s.laux[0, :3] = totals
+    s.small_g[0].fill_(7.0)
+    remap_kernel.remap_root(s)
+    assert torch.equal(s.hist[0], got) and not bool(s.small_g[0].any())
+    s.ctl[gs.ACTIVE] = 0  # a stopped loop: nothing written
+    s.small_g[0].fill_(7.0)
+    s.small[1].zero_()
+    remap_kernel.remap_step(s, 1)
+    assert not bool(s.small[1].any()) and bool((s.small_g[0] == 7.0).all())
+
+
+@pytest.mark.parametrize("categorical", [False, True])
+def test_bundled_loop_kernels_match_plain_at_every_step(dev, categorical):
+    """A 255-leaf tree of a bundled table (layout ``mixed``), one step at a
+    time: after each kernel of a step (the bundled pick_partition, the
+    segment histogram over the groups, the remap, the folded scan) the whole
+    state equals that of its plain version on a copy; the root too. With
+    ``categorical`` a bundled feature is categorical (the categorical and
+    bundled instantiation)."""
+    from lightgbm_tpu_torch.ops import remap, remap_kernel
+    from lightgbm_tpu_torch.ops.split import num_words
+
+    N = 100_000
+    bins, nf, _, grad, hess, meta, mask, Bg = _efb_inputs(dev, N, EFB_LAYOUTS["mixed"], 3,
+                                                          categorical)
+    F, G = meta["num_bin"].numel(), bins.shape[0]
+    W = num_words(255, categorical)
+    s = gs.GrowState(dev, N, F, 255, 255, W, G, Bg)
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    check = s.clone()
+    remap.remap_root(check)
+    split_pair_step(check, 1)
+    _same_state(s, check, "root")
+    picked = set()
+    for step in range(254):
+        p = step % 2
+        pairs = (
+            (partition_kernel.pick_partition, _plain_pick_partition),
+            (lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p)),
+            (lambda st: remap_kernel.remap_step(st, p), lambda st: remap.remap_step(st, p)),
+            (lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p)),
+        )
+        for k, (kernel, plain) in enumerate(pairs):
+            other = s.clone()
+            kernel(s)
+            plain(other)
+            _same_state(s, other, (step, k))
+        if int(s.ctl[gs.ACTIVE]):
+            picked.add(int(s.node_i[step, 0]))
+    gid = meta["group_id"].cpu().numpy()
+    shared = {f for f in picked if (gid == gid[f]).sum() > 1}
+    assert shared, picked  # splits of features that share a group
+    if categorical:
+        assert picked & set(np.nonzero(meta["is_categorical"].cpu().numpy())[0].tolist()), picked
+
+
+def test_bundled_device_loop_equals_host_loop(dev):
+    """Dyadic gradients: on a bundled table the device loop grows the host
+    loop's tree and leaf index bit for bit, and both grow the tree of the
+    same table unbundled (every remapped cell exact)."""
+    bins, nf, dense, grad, hess, meta, mask, Bg = _efb_inputs(dev, 200_000,
+                                                              EFB_LAYOUTS["mixed"], 9)
+    plain_meta = {k: v for k, v in meta.items() if k not in ("group_id", "bin_offset")}
+    for max_depth in (-1, 6):
+        args = (grad, hess, mask, meta, 255, max_depth, 255, LOOP_PARAMS, True)
+        want, want_leaf = grow_tree(bins, *args, bins_nf=nf, num_group_bins=Bg)
+        got, got_leaf, _ = grow_tree_device(bins, *args, bins_nf=nf, num_group_bins=Bg)
+        flat, flat_leaf = grow_tree(dense, grad, hess, mask, plain_meta, 255, max_depth, 255,
+                                    LOOP_PARAMS, True, bins_nf=dense.t().contiguous())
+        for name in TreeArrays._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (name, max_depth)
+            assert torch.equal(getattr(flat, name), getattr(want, name)), (name, max_depth)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(flat_leaf, want_leaf)
+
+
+@pytest.mark.parametrize("categorical", [False, True])
+def test_predict_bins_bundled_matches_plain(dev, categorical):
+    """csrc/predict_bins.cu's bundled instantiations against the plain
+    traversal on a 255-leaf bundled tree: the same leaf and f32 score bit
+    for bit on other rows ([N, G]) and on the training rows (there the
+    loop's own leaf_ids), and the unbundled instantiation on the decoded
+    [N, F] rows takes the same leaves."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+    from lightgbm_tpu_torch.ops.split import num_words
+
+    N = 100_000
+    layout = EFB_LAYOUTS["mixed"]
+    bins, nf, dense, grad, hess, meta, mask, Bg = _efb_inputs(dev, N, layout, 4, categorical)
+    F, G = meta["num_bin"].numel(), bins.shape[0]
+    s = gs.GrowState(dev, N, F, 255, 255, num_words(255, categorical), G, Bg)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    assert int(nl) == 255
+    node_b = s.node_b if categorical else None
+    value = torch.randn(255, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    o_bins, o_nf, o_dense = _efb_inputs(dev, 77_777, layout, 6, categorical)[:3]
+    plain_meta = {k: v for k, v in meta.items() if k not in ("group_id", "bin_offset")}
+    for rows, flat in ((o_nf, o_dense.t().contiguous()), (nf, dense.t().contiguous())):
+        n = rows.shape[0]
+        start = torch.randn(n, generator=gen, device=dev)
+        got, want, flat_score = start.clone(), start.clone(), start.clone()
+        got_leaf, want_leaf, flat_leaf = (torch.empty(n, dtype=torch.int32, device=dev)
+                                          for _ in range(3))
+        before = predict_kernel.launches
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf, node_b)
+        assert predict_kernel.launches == before + 1
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf, node_b)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
+        predict_kernel.add_tree_value(flat, nodes, nl, plain_meta, value, flat_score, flat_leaf,
+                                      node_b)
+        assert torch.equal(flat_leaf, got_leaf) and torch.equal(flat_score, got)
+    assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))

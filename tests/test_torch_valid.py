@@ -34,6 +34,7 @@ import lightgbm_tpu_torch as tlgb
 from helpers.bench_data import make_higgs_like
 from lightgbm_tpu import callback as jcallback
 from lightgbm_tpu import metric as jmetric
+from lightgbm_tpu.ops.grow import TreeArrays as JaxTreeArrays
 from lightgbm_tpu.ops.grow import grow_tree as jax_grow_tree
 from lightgbm_tpu.ops.predict import make_predict_tree as jax_make_predict_tree
 from lightgbm_tpu.ops.predict import tree_predict_leaf as jax_tree_predict_leaf
@@ -148,9 +149,41 @@ def test_stump_and_unported_layouts():
                                   torch.tensor([1], dtype=torch.int32), meta,
                                   torch.tensor([0.5]), score)
     assert torch.equal(score, torch.full((5,), 0.5))
-    with pytest.raises(NotImplementedError, match="EFB"):
-        tpredict.predict_tree([0], [1], [False], [-1], [-2], torch.zeros(2), 2,
-                              dict(meta, group_id=torch.zeros(3)))
+    # a bundled layout: two features in group 0 (offsets 1 and 3), one alone
+    # in group 1; each node reads its feature's group column and decodes it,
+    # as the JAX package's predict_tree does
+    efb = dict(meta, group_id=torch.tensor([0, 0, 1], dtype=torch.int32),
+               bin_offset=torch.tensor([1, 4, 1], dtype=torch.int32),
+               default_bin=torch.tensor([0, 2, 1], dtype=torch.int32),
+               missing_type=torch.tensor([0, 1, 0], dtype=torch.int32))
+    nodes = dict(split_feature=[1, 0, 2], threshold_bin=[1, 2, 0], default_left=[True, False, False],
+                 left_child=[1, -1, -3], right_child=[2, -2, -4])
+    value = torch.tensor([1.0, 2.0, 3.0, 4.0])
+    group_rows = torch.from_numpy(np.stack(np.meshgrid(np.arange(8), np.arange(4)), -1)
+                                  .reshape(-1, 2).astype(np.uint8))
+    got = tpredict.tree_predict_leaf(group_rows, tpredict.predict_tree(
+        *nodes.values(), value, 4, efb))
+    m, M = 3, 4
+    jtree = JaxTreeArrays(
+        num_leaves=jnp.int32(M), default_left=jnp.asarray(nodes["default_left"]),
+        **{k: jnp.asarray(nodes[k], jnp.int32)
+           for k in ("split_feature", "threshold_bin", "left_child", "right_child")},
+        split_gain=jnp.zeros(m), internal_value=jnp.zeros(m), internal_count=jnp.zeros(m),
+        leaf_value=jnp.asarray(value.numpy()), leaf_count=jnp.zeros(M), leaf_weight=jnp.zeros(M),
+        leaf_parent=jnp.zeros(M, jnp.int32), leaf_depth=jnp.zeros(M, jnp.int32),
+        cat_member=jnp.zeros((m, 4), bool))
+    want = jax_tree_predict_leaf(jnp.asarray(group_rows.numpy()), jax_make_predict_tree(
+        jtree, {k: jnp.asarray(v.numpy()) for k, v in efb.items()}))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert len(set(got.tolist())) == 4
+    # the kernel's plain version on the split loop's node layout takes the same leaves
+    node_i = torch.tensor([[f, t, l, r, int(d)] for f, t, d, l, r in zip(*nodes.values())],
+                          dtype=torch.int32)
+    leaf_out = torch.empty(group_rows.shape[0], dtype=torch.int32)
+    score = torch.zeros(group_rows.shape[0])
+    predict_kernel.add_tree_value(group_rows, node_i, torch.tensor([4], dtype=torch.int32), efb,
+                                  value, score, leaf_out)
+    np.testing.assert_array_equal(leaf_out.numpy(), np.asarray(want))
     # a categorical node: the row's bin looked up in the node's membership
     member = torch.tensor([[False, True, False, True]])
     ptree = tpredict.predict_tree([0], [1], [False], [-1], [-2], torch.tensor([1.0, 2.0]), 2,
