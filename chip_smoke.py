@@ -171,6 +171,28 @@ Phases (each prints one line; any failure exits non-zero):
     10 iterations with a 100k-row held-out set; held-out AUC above 0.7,
     the validation score equal to the plain adds, 4h's held iteration and
     kernel timings at this shape, the turns and profile of 4e;
+ 4j. the boosting modes on the main path's table with 4d's held-out set and
+    AUC at every boundary, one replay an iteration: GOSS (top_rate 0.2,
+    other_rate 0.1, 20 iterations, the last 10 past its warm-up), DART (its
+    defaults, 20 iterations) and random forest (bagging 0.8 every
+    iteration, feature_fraction 0.8, 10 iterations); each trains through
+    the split loop's kernels and predict_bins, its held-out AUC above 0.7
+    and its train scores equal to its trees' raw prediction (DART's
+    rescaled, random forest's averaged); GOSS's bag, amplification and
+    permutation after one more sampled replay (run under sync debug mode
+    "warn", its synchronizing calls recorded) equal to the same selection
+    on the CPU from the same gradients, exactly top_k + other_k rows in the
+    bag, the selection and the permutation draw timed; every tree a DART
+    drop took out predicted by predict_bins over the 1M training rows equal
+    to the plain version, predict_bins' calls an iteration (one validation
+    add and three a dropped tree) and its time over the training rows;
+    random forest's text with ``average_output`` and its prediction the
+    average of its trees; on 100k rows with 4c's gradients rounded to 2^-7
+    the replays equal to the eager launches (model text, train and
+    validation scores); turns of 10 iterations (graph, eager, eager,
+    graph) with launch counts equal between the two, and one profiled
+    replay and eager iteration of each mode (busy ms, kernels an
+    iteration, copies, idle share);
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -207,7 +229,7 @@ Phases (each prints one line; any failure exits non-zero):
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
-    4f's, 4g's, 4h's and 4i's trainings and turns, the sweep and the routed
+    4f's, 4g's, 4h's, 4i's and 4j's trainings and turns, the sweep and the routed
     trainings, each with the counts set to 0 just before it and read just
     after; the split loop's kernels timed in phase 4b, leaf_ids and
     score_update in 4c, predict_bins in 4d; the categorical instantiations of
@@ -2230,6 +2252,186 @@ def main() -> int:
     for k_, v_ in f_launches.items():
         bundled_launches[k_] = bundled_launches.get(k_, 0) + v_
     del fbst, gf, f_set, f_valid, fX, fy, fXv, fyv
+
+    # ---- 4j. boosting modes: GOSS, DART and random forest -------------------------------
+    # the main path's table (1M x 28, binary, 255 leaves, max_bin 255) with
+    # 4d's 500k-row held-out set and AUC at every boundary: GOSS (top_rate
+    # 0.2, other_rate 0.1 at learning_rate 0.1: 10 iterations of warm-up,
+    # then 10 sampled), DART (its defaults) and random forest (bagging 0.8
+    # every iteration, feature_fraction 0.8); a mode runs one replay an
+    # iteration (no chunks, as in the JAX package), its host work between
+    from lightgbm_tpu_torch.models.gbdt import draw_permutation
+    from lightgbm_tpu_torch.models.goss import goss_mask_amp
+
+    mode_params = {
+        "goss": (dict(TRAIN_PARAMS, boosting="goss", top_rate=0.2, other_rate=0.1), 20),
+        "dart": (dict(TRAIN_PARAMS, boosting="dart"), 20),
+        "rf": (dict(TRAIN_PARAMS, boosting="rf", bagging_fraction=0.8, bagging_freq=1,
+                    feature_fraction=0.8), 10),
+    }
+    mode_class = {"goss": "GOSS", "dart": "DART", "rf": "RandomForest"}
+
+    def tree_args(ta):
+        """A host tree's nodes, leaf count and leaf values on the card, as
+        GBDT._add_tree hands them to predict_bins."""
+        nl = int(ta.num_leaves)
+        nodes = torch.stack([ta.split_feature, ta.threshold_bin, ta.left_child, ta.right_child,
+                             ta.default_left.to(torch.int32)], 1)[:max(nl - 1, 0)]
+        return (nodes.to(dev, torch.int32).contiguous(),
+                torch.tensor([nl], dtype=torch.int32, device=dev), ta.leaf_value.to(dev))
+
+    modes = {}
+    for mode, (params_, rounds_) in mode_params.items():
+        evals_m, drops_m = {}, []
+
+        def on_iteration(env, drops_m=drops_m):
+            drops_m.append(list(getattr(env.model._gbdt, "drop_index", ())))
+
+        bst_m, secs_m, launches_m = counted(lambda: lgb.train(
+            dict(params_), train_set, rounds_, valid_sets=[valid_set], evals_result=evals_m,
+            verbose_eval=False, callbacks=[on_iteration]))
+        g_m = bst_m._gbdt
+        assert type(g_m).__name__ == mode_class[mode] and g_m.grow_loop == "device"
+        assert bst_m.num_trees() == rounds_ and g_m.captures == (2 if mode == "goss" else 1), (
+            mode, bst_m.num_trees(), g_m.captures)
+        assert all(launches_m.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",)), launches_m
+        auc_m = evals_m["valid_0"]["auc"]
+        assert auc_m[-1] > 0.7, (mode, auc_m)
+        vraw = bst_m.predict(Xv[:1000], raw_score=True)
+        assert vraw.shape == (1000,) and np.all(np.isfinite(vraw))
+        # the train scores equal the kept trees' raw prediction (DART's
+        # rescaled, random forest's averaged)
+        np.testing.assert_allclose(g_m.train_score(), bst_m.predict(X, raw_score=True),
+                                   rtol=1e-5, atol=1e-5)
+        rec = dict(rounds=rounds_, train_s=secs_m, launches=launches_m, valid_auc=auc_m,
+                   train_iterations_per_s_with_eval=rounds_ / secs_m)
+        if mode == "goss":
+            top_k, other_k = g_m._goss_k
+            assert (top_k, other_k) == (N // 5, N // 10), g_m._goss_k
+            # one more sampled iteration under sync debug mode "warn": the
+            # gradients at the scores before it, then its replay; the bag and
+            # amplification it wrote against the same selection on the CPU
+            it_ = g_m.iter_
+            grad_d, hess_d = g_m._compute_gradients()
+            grad_c, hess_c = grad_d.cpu(), hess_d.cpu()
+            perm_c = draw_permutation(g_m.config.bagging_seed, it_, N - top_k, "cpu")
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    assert not bst_m.update()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            mask_c, amp_c = goss_mask_amp(grad_c, hess_c, perm_c, top_k, other_k)
+            assert torch.equal(g_m._goss_perm.cpu(), perm_c), "GOSS permutation != the CPU's"
+            assert torch.equal(g_m._goss_mask.cpu(), mask_c), "GOSS bag != the CPU's"
+            assert torch.equal(g_m._goss_amp.cpu(), amp_c), "GOSS amplification != the CPU's"
+            assert int(g_m._goss_mask.sum()) == top_k + other_k
+            sel_mask, sel_amp = torch.empty_like(g_m._goss_mask), torch.empty_like(g_m._goss_amp)
+            rec.update(
+                top_k=top_k, other_k=other_k, bag_equals_cpu=True,
+                replay_sync_warnings=sorted({str(w_.message)[:120] for w_ in caught
+                                             if "ynchroniz" in str(w_.message)
+                                             and "prototype" not in str(w_.message)}),
+                selection_ms=time_ms(lambda: goss_mask_amp(grad_d, hess_d, g_m._goss_perm, top_k,
+                                                           other_k, sel_mask, sel_amp)),
+                permutation_draw_ms=time_ms(lambda: draw_permutation(
+                    g_m.config.bagging_seed, it_, N - top_k, dev)))
+            del grad_d, hess_d, sel_mask, sel_amp
+        if mode == "dart":
+            # every tree a drop took out: predict_bins over the 1M training
+            # rows against its plain version; the calls an iteration are one
+            # validation add and three a dropped tree (out of the training
+            # scores, out of the validation scores, back into the training)
+            dropped = sorted({i_ for d_ in drops_m for i_ in d_})
+            assert dropped, "DART dropped no tree"
+            got_p, want_p = torch.zeros(N, device=dev), torch.zeros(N, device=dev)
+            for i_ in dropped:
+                args_ = tree_args(g_m._tree_arrays[i_])
+                got_p.zero_()
+                want_p.zero_()
+                predict_kernel.add_tree_value(g_m.bins_nf, args_[0], args_[1], g_m.feature_meta,
+                                              args_[2], got_p)
+                predict_plain.add_tree_value(g_m.bins_nf, args_[0], args_[1], g_m.feature_meta,
+                                             args_[2], want_p)
+                assert torch.equal(got_p, want_p), ("predict_bins != plain on a dropped tree", i_)
+            n_drops = sum(len(d_) for d_ in drops_m)
+            assert launches_m["predict_bins"] == rounds_ + 3 * n_drops, (launches_m, drops_m)
+            args_ = tree_args(g_m._tree_arrays[dropped[0]])
+            rec.update(
+                drops_per_iteration=[len(d_) for d_ in drops_m], dropped_trees=dropped,
+                dropped_predict_equals_plain=True,
+                predict_bins_calls_per_iteration=launches_m["predict_bins"] / rounds_,
+                predict_bins_train_rows_calls_per_iteration=2 * n_drops / rounds_,
+                predict_bins_train_rows_us=1e3 * time_ms(lambda: predict_kernel.add_tree_value(
+                    g_m.bins_nf, args_[0], args_[1], g_m.feature_meta, args_[2], got_p)),
+                tree_weight=g_m.tree_weight)
+            del got_p, want_p
+        if mode == "rf":
+            assert "\naverage_output\n" in bst_m.model_to_string()
+            trees_m = g_m.trees()
+            assert all(t.shrinkage == 1.0 for t in trees_m)
+            want_avg = sum(t.predict_fast(X[:1000]) for t in trees_m) / len(trees_m)
+            np.testing.assert_allclose(bst_m.predict(X[:1000], raw_score=True), want_avg,
+                                       rtol=1e-12, atol=1e-12)
+            rec.update(prediction_is_average=True, average_output_in_text=True)
+        modes[mode] = rec
+        del bst_m, g_m
+
+    # the replays equal the eager launches: 100k rows of the main path's data
+    # with 4c's gradients rounded to multiples of 2^-7 (every histogram sum
+    # exact: |g| < 1, times GOSS's 8 on 10k rows, over 100k rows stays below
+    # 2^17), a 50k-row validation set, 14 iterations (4 of them sampled by GOSS)
+    ds_m = lgb.Dataset(X[:100_000], label=y[:100_000])
+    objective_mod.BinaryLogloss.get_gradients = dyadic_gradients
+    try:
+        for mode, (params_, _) in mode_params.items():
+            same = {}
+            for kind, graph_on in (("eager", False), ("graph", True)):
+                b_ = lgb.Booster(dict(params_), ds_m)
+                b_.add_valid(lgb.Dataset(Xv[:50_000], label=yv[:50_000]), "v")
+                b_._gbdt.iteration_graph = graph_on
+                assert bench_mod.train_iterations(b_, 14, 1) == 14
+                same[kind] = (b_.model_to_string().split("parameters:")[0],
+                              b_._gbdt.train_score().tobytes(), b_._gbdt._valid_score_np(0).tobytes())
+            assert same["graph"] == same["eager"], ("replays != eager launches", mode)
+            modes[mode]["replays_equal_eager"] = dict(rows=100_000, iterations=14)
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = get_gradients
+    del ds_m
+
+    # turns of 10 iterations (graph, eager, eager, graph) after 10 each (GOSS:
+    # its sampled iterations), the launch counts equal between the two kinds
+    # turn by turn; one profiled replay and eager iteration each
+    for mode, (params_, _) in mode_params.items():
+        bsts = {}
+        for kind, graph_on in (("graph", True), ("eager", False)):
+            b_ = lgb.Booster(dict(params_), train_set)
+            b_._gbdt.iteration_graph = graph_on
+            assert bench_mod.train_iterations(b_, 10, 1) == 10
+            bsts[kind] = b_
+        ips_m, turns_m = {k_: [] for k_ in bsts}, {k_: [] for k_ in bsts}
+        for kind in ("graph", "eager", "eager", "graph"):
+            ran, secs, got = counted(lambda: bench_mod.train_iterations(bsts[kind], 10, 1))
+            assert ran == 10, (mode, kind, ran)
+            ips_m[kind].append(10 / secs)
+            turns_m[kind].append(got)
+        assert turns_m["graph"] == turns_m["eager"], (mode, turns_m)
+        prof_m = {}
+        for kind, b_ in bsts.items():
+            busy, kernels, copies_, timeline, named = profiled(b_.update)
+            prof_m[kind] = dict(
+                device_busy_ms_per_iteration=busy, device_events=kernels, copies=copies_,
+                timeline=timeline, kernels_per_iteration=timeline["kernels"]
+                if isinstance(timeline, dict) else "not measured", kernels_ms_and_calls=named,
+                device_idle_share=[1 - busy * v / 1e3 for v in ips_m[kind]] if busy else "not measured",
+                median_iterations_per_s=statistics.median(ips_m[kind]))
+        assert bsts["graph"]._gbdt.captures == (2 if mode == "goss" else 1)
+        modes[mode].update(iterations_per_s=ips_m, launches_per_turn=turns_m, profile=prof_m)
+        del bsts
+    say("boosting_modes", rows=N, valid_rows=VALID_ROWS, params={m_: p_ for m_, (p_, _) in
+                                                                 mode_params.items()}, **modes)
 
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]

@@ -22,6 +22,7 @@ from .metric import Metric, create_metric
 from .models.gbdt import GBDT
 from .models.model_text import load_model_from_string, save_model_to_string
 from .objective import create_objective, objective_from_model_string
+from .utils import log
 from .utils.log import LightGBMError
 
 
@@ -138,7 +139,8 @@ class Booster:
         if train_set is not None:
             binned = train_set.get_binned(self.config)
             objective = create_objective(self.config)
-            self._gbdt = GBDT(self.config, binned, objective, self._make_metrics(), device=self.device)
+            cls = _boosting_class(self.config.boosting)
+            self._gbdt = cls(self.config, binned, objective, self._make_metrics(), device=self.device)
         elif model_file is not None or model_str is not None:
             if model_file is not None:
                 with open(model_file) as fh:
@@ -264,6 +266,26 @@ class Booster:
 
     def feature_importance(self, importance_type: str = "split", iteration: int = -1) -> np.ndarray:
         return self._gbdt.feature_importance(importance_type, iteration)
+
+
+def _boosting_class(name: str):
+    """The trainer of ``boosting`` (its aliases canonicalised by Config), as
+    lightgbm_tpu/basic.py ``_boosting_class`` picks it."""
+    if name == "gbdt":
+        return GBDT
+    if name == "dart":
+        from .models.dart import DART
+
+        return DART
+    if name == "goss":
+        from .models.goss import GOSS
+
+        return GOSS
+    if name == "rf":
+        from .models.rf import RandomForest
+
+        return RandomForest
+    log.fatal("Unknown boosting type %s" % name)
 
 
 def _strip_pandas_tail(text: str) -> str:

@@ -13,6 +13,7 @@ of the chunk and ``env.chunk`` its length.
 from __future__ import annotations
 
 import collections
+import warnings
 from typing import Callable, Dict, List
 
 _CallbackEnvBase = collections.namedtuple(
@@ -127,6 +128,7 @@ class _EarlyStopper:
         self.first_metric_only = first_metric_only
         self.verbose = verbose
         self.initialized = False
+        self.active = True
         self.best_value: List[float] = []
         self.best_iter: List[int] = []
         self.best_entries: List = []
@@ -134,6 +136,12 @@ class _EarlyStopper:
 
     def _setup(self, env: CallbackEnv) -> None:
         self.initialized = True
+        if any(env.params.get(a) == "dart" for a in ("boosting", "boosting_type", "boost")):
+            # as in the JAX package: DART rescales past trees, so no
+            # iteration's score stays the best one's
+            self.active = False
+            warnings.warn("Early stopping is not available in dart mode")
+            return
         if not env.evaluation_result_list:
             raise ValueError(
                 "For early stopping, at least one dataset and eval metric is required for evaluation"
@@ -157,6 +165,8 @@ class _EarlyStopper:
     def __call__(self, env: CallbackEnv) -> None:
         if not self.initialized:
             self._setup(env)
+        if not self.active:
+            return
         for i, entry in enumerate(env.evaluation_result_list):
             value = entry[2]
             if self.best_entries[i] is None or self.improves[i](value, self.best_value[i]):

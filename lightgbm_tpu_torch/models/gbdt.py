@@ -54,6 +54,16 @@ keeps its ``[G, N]`` group matrix on the device and its plan (``group_id``,
 partition and both predicts decode each group byte; a validation set must
 carry the training set's layout.
 
+The boosting modes (models/goss.py, dart.py, rf.py; basic.py picks the
+class from ``boosting``) override the hooks both split loops call:
+``_before_train_iter`` and ``_after_train_iter`` around an iteration
+(DART's drops and Normalize), ``_prepare_bag`` between replays and
+``_bagging`` on the gradients inside the iteration (GOSS's sample),
+``_compute_gradients`` and ``_leaf_output`` (random forest's constant
+scores and leaves). A mode runs one iteration at a time
+(``device_chunk_fallback_reason``), as in the JAX package; an
+``average_output`` model (random forest) predicts the average of its trees.
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -103,20 +113,17 @@ def threefry2x32(k0, k1, x0, x1):
     return x0, x1
 
 
-def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
-             out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The bag of one iteration: an [n] f32 mask with exactly ``bag_cnt``
-    ones (gbdt.cpp:179-240 as a mask), bit for bit the JAX package's
-    ``_device_bag_mask(fold_in(PRNGKey(seed & 0x7FFFFFFF), iteration), n,
-    bag_cnt)``: the first ``bag_cnt`` rows of ``jax.random.permutation``
-    under partitionable threefry. The key is (0, seed); ``fold_in`` hashes
-    the count (0, iteration) under it; each of the ``ceil(3 ln n / ln(2^32
-    - 1))`` shuffle rounds splits the key (counts (0, 0) and (0, 1)), draws
-    the 32-bit word ``x0 ^ x1`` of the count (0, i) for each position i, and
-    sorts the order so far by those words, stably. The key's words are
-    Python ints, the rows' words int64 tensors on ``device``. A function of
-    (``seed``, ``iteration``) alone, so a chunk of n draws the bags of n
-    single iterations. Written into ``out`` when given."""
+def draw_permutation(seed: int, iteration: int, n: int, device) -> torch.Tensor:
+    """An [n] int64 permutation of ``range(n)``, bit for bit the JAX
+    package's ``jax.random.permutation(fold_in(PRNGKey(seed & 0x7FFFFFFF),
+    iteration), n)`` under partitionable threefry. The key is (0, seed);
+    ``fold_in`` hashes the count (0, iteration) under it; each of the
+    ``ceil(3 ln n / ln(2^32 - 1))`` shuffle rounds splits the key (counts
+    (0, 0) and (0, 1)), draws the 32-bit word ``x0 ^ x1`` of the count
+    (0, i) for each position i, and sorts the order so far by those words,
+    stably. The key's words are Python ints, the rows' words int64 tensors
+    on ``device``. A function of (``seed``, ``iteration``, ``n``) alone:
+    the bag (:func:`draw_bag`) and GOSS's sample (models/goss.py) draw it."""
     key = threefry2x32(0, seed & 0x7FFFFFFF, 0, iteration & _M32)
     rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
     count = torch.arange(n, dtype=torch.int64, device=device)
@@ -125,6 +132,18 @@ def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
         key, sub = threefry2x32(*key, 0, 0), threefry2x32(*key, 0, 1)
         b0, b1 = threefry2x32(*sub, 0, count)
         perm = perm[torch.sort(b0 ^ b1, stable=True).indices]
+    return perm
+
+
+def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The bag of one iteration: an [n] f32 mask with exactly ``bag_cnt``
+    ones (gbdt.cpp:179-240 as a mask), bit for bit the JAX package's
+    ``_device_bag_mask(fold_in(PRNGKey(seed & 0x7FFFFFFF), iteration), n,
+    bag_cnt)``: the first ``bag_cnt`` rows of :func:`draw_permutation`. A
+    chunk of n draws the bags of n single iterations. Written into ``out``
+    when given."""
+    perm = draw_permutation(seed, iteration, n, device)
     if out is None:
         out = torch.empty(n, dtype=torch.float32, device=device)
     out.zero_()
@@ -134,8 +153,6 @@ def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
 def check_supported(config: Config) -> None:
     """Raise NotImplementedError for every parameter this slice does not run."""
     refused = []
-    if config.boosting != "gbdt":
-        refused.append("boosting=%s" % config.boosting)
     if config.forcedsplits_filename:
         refused.append("forcedsplits_filename")
     if (config.cegb_penalty_split != 0.0 or config.cegb_penalty_feature_lazy
@@ -408,13 +425,35 @@ class GBDT:
             self._rate.fill_(rate)
             self._rate_value = rate
 
-    def _shrink(self, tree: TreeArrays) -> TreeArrays:
-        """The tree's host arrays times the learning rate (``_finish_step``
-        of the reference): leaf values where it split (else zeros) and
-        internal values, the same f32 products the device finish takes."""
+    # ------------------------------------------------------------------
+    # the boosting modes' hooks (models/dart.py, goss.py, rf.py override
+    # them); both split loops call each, so a mode is written once
+    # ------------------------------------------------------------------
+    def _before_train_iter(self) -> None:
+        """Before an iteration's gradients (DART drops trees here)."""
+
+    def _after_train_iter(self) -> None:
+        """After an iteration that did not stop (DART's Normalize)."""
+
+    def _bagging(self, grad: torch.Tensor, hess: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The gradients the trees take, after :meth:`_prepare_bag` (GOSS
+        samples and amplifies them here; the bag is drawn before)."""
+        return grad, hess
+
+    def _leaf_output(self, leaf: torch.Tensor, k: int, rate) -> torch.Tensor:
+        """The finish step's leaf values (the reference's ``_finish_step``)
+        of class ``k``'s tree where it split: its leaf values times
+        ``rate``, the device rate scalar inside the iteration or the same
+        f32 on the host (:meth:`_shrink`)."""
+        return leaf * rate
+
+    def _shrink(self, tree: TreeArrays, k: int) -> TreeArrays:
+        """Class ``k``'s tree's host arrays after the finish step: leaf values
+        where it split (:meth:`_leaf_output`, else zeros) and internal values
+        times the learning rate, the same f32 ops the device finish takes."""
         rate = np.float32(self.shrinkage_rate)
         if int(tree.num_leaves) > 1:
-            leaf_value = tree.leaf_value * rate
+            leaf_value = self._leaf_output(tree.leaf_value, k, rate)
         else:
             leaf_value = torch.zeros_like(tree.leaf_value)
         return tree._replace(leaf_value=leaf_value, internal_value=tree.internal_value * rate)
@@ -463,7 +502,7 @@ class GBDT:
         through the predict kernel, which reads the tree from the state."""
         cfg = self.config
         s = self._grow_state
-        grad, hess = self._compute_gradients()
+        grad, hess = self._bagging(*self._compute_gradients())
         grew_any = None
         for k in self._train_classes:
             if self._feature_masks is not None:
@@ -473,7 +512,8 @@ class GBDT:
                         cfg.tpu_hist_dtype, self._bag, self.grouped_adds)
             num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
             grew = num_leaves > 1
-            value = torch.where(grew & ~self._chunk_stopped, s.leaf_f[:, 0] * self._rate, 0.0)
+            value = torch.where(grew & ~self._chunk_stopped,
+                                self._leaf_output(s.leaf_f[:, 0], k, self._rate), 0.0)
             grow_step_kernel.score_update(s, value, self.scores[k])
             for bins, score in zip(self._valid_bins, self.valid_scores):
                 predict_kernel.add_tree_value(bins, s.node_i[:s.M - 1], num_leaves,
@@ -528,12 +568,12 @@ class GBDT:
                 self._feature_masks[:rows].copy_(self._feature_masks_host[:rows], non_blocking=True)
             else:
                 self._feature_masks[:rows].copy_(torch.from_numpy(masks))
-        step = self._device_iteration
-        if not eager and self.iteration_graph:
-            step = self._captured_iteration().replay
         for i in range(n):
             self._prepare_bag(self.iter_ + i)
-            step()
+            if not eager and self.iteration_graph:
+                self._captured_iteration().replay()
+            else:
+                self._device_iteration()
 
     def collect_iterations(self, n: int) -> List[TreeArrays]:
         """The ``n`` iterations' trees of the last :meth:`launch_iterations`
@@ -550,8 +590,8 @@ class GBDT:
             host = host.clone()  # the pinned ring is refilled by the next chunk
         else:
             host = self._ring[:rows].clone()
-        M, B = self.config.num_leaves, self.num_bins
-        return [self._shrink(tree_from_packed(host[i], M, B, self.num_words))
+        M, B, T = self.config.num_leaves, self.num_bins, len(self._train_classes)
+        return [self._shrink(tree_from_packed(host[i], M, B, self.num_words), self._train_classes[i % T])
                 for i in range(rows)]
 
     def _append_iteration(self, grown: dict) -> None:
@@ -611,6 +651,7 @@ class GBDT:
         K = self.num_tree_per_iteration
         first = not self.models
         init_scores = [self._boost_from_average(k) for k in range(K)]
+        self._before_train_iter()
         if not self._train_classes or self.train_set.num_features == 0:
             # nothing to learn: one constant tree a class, then stop (gbdt.cpp:375-400)
             if first:
@@ -629,23 +670,27 @@ class GBDT:
             self._init_fold = init_scores
         if self.grow_loop == "device":
             self.launch_iterations(1, eager=first)
-            return self._keep_trees(self.collect_iterations(1))
-        self._prepare_bag(self.iter_)
-        masks = self._sample_feature_masks(1)
-        grad, hess = self._compute_gradients()
-        trees = []
-        for t, k in enumerate(self._train_classes):
-            if masks is not None:
-                self.feature_mask.copy_(torch.from_numpy(masks[t]))
-            tree, leaf_id = self._train_tree(grad[k], hess[k])
-            tree = self._shrink(tree)
-            # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of
-            # the shrunk leaf values gathered by each row's leaf
-            self.scores[k] += tree.leaf_value.to(self.device)[leaf_id]
-            for bins, score in zip(self._valid_bins, self.valid_scores):
-                self._add_tree(tree, bins, score[k])
-            trees.append(tree)
-        return self._keep_trees(trees)
+            trees = self.collect_iterations(1)
+        else:
+            self._prepare_bag(self.iter_)
+            masks = self._sample_feature_masks(1)
+            grad, hess = self._bagging(*self._compute_gradients())
+            trees = []
+            for t, k in enumerate(self._train_classes):
+                if masks is not None:
+                    self.feature_mask.copy_(torch.from_numpy(masks[t]))
+                tree, leaf_id = self._train_tree(grad[k], hess[k])
+                tree = self._shrink(tree, k)
+                # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of
+                # the shrunk leaf values gathered by each row's leaf
+                self.scores[k] += tree.leaf_value.to(self.device)[leaf_id]
+                for bins, score in zip(self._valid_bins, self.valid_scores):
+                    self._add_tree(tree, bins, score[k])
+                trees.append(tree)
+        if self._keep_trees(trees):
+            return True  # a stop skips the hook, as the reference returns before it
+        self._after_train_iter()
+        return False
 
     # ------------------------------------------------------------------
     # device-resident chunked boosting (the reference's train_chunk)
@@ -656,6 +701,8 @@ class GBDT:
         apply to the port, and its own: the host split loop."""
         if self.config.device_chunk_size <= 1:
             return "device_chunk_size <= 1"
+        if type(self) is not GBDT:
+            return "%s overrides per-iteration hooks" % type(self).__name__
         if self.objective is None:
             return "no objective (host-computed gradients)"
         if self.train_set is None or self.train_set.num_features == 0:
@@ -845,12 +892,16 @@ class GBDT:
     def predict_raw(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
         """Raw scores, [N] or [N, K] for K trees an iteration (PredictRaw,
         gbdt_prediction.cpp:13-51), each class's trees summed in f64 in
-        boosting order on the model's device."""
+        boosting order on the model's device; an ``average_output`` model
+        (random forest) divides the sums by the iterations used, as the JAX
+        package does (lightgbm_tpu/models/gbdt.py ``predict_raw``)."""
         self._materialize()
         use = self._used_trees(num_iteration)
         K = self.num_tree_per_iteration
         Xt = torch.as_tensor(np.asarray(X, np.float64), device=self.device)
         out = [ensemble_predict_raw(Xt, self.models[k:use:K]).cpu().numpy() for k in range(K)]
+        if self.average_output and use > 0:
+            out = [o / max(use // K, 1) for o in out]
         return out[0] if K == 1 else np.stack(out, axis=1)
 
     def predict(self, X: np.ndarray, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:

@@ -95,7 +95,7 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("params,name", [
-    ({"boosting": "dart"}, "boosting"),
+    ({"objective": "quantile"}, "objective"),
     ({"objective": "regression_l1"}, "objective"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
     ({"cegb_penalty_split": 0.1}, "cegb"),
@@ -103,7 +103,7 @@ def test_wrappers_refuse_other_devices():
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
-    ({"boosting": "goss"}, "boosting"),
+    ({"metric": "map"}, "metric"),
     ({"metric": "ndcg"}, "metric"),
 ])
 def test_unsupported_params_raise(params, name):

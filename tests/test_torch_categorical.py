@@ -302,28 +302,43 @@ def _gains_apart(text):
     return "\n".join(keep), np.asarray(gains)
 
 
-def _exact_gains(tb, params):
-    """Each node's gain in f64 from the exact (dyadic) sums of the rows it
-    splits, G_L^2 / (H_L + l2') + G_R^2 / (H_R + l2') - G^2 / (H + l2), with
-    l2' = lambda_l2 + cat_l2 at a CTR node (a categorical feature above
-    max_cat_to_onehot bins), and the f32 error bound of a gain computed from
-    those sums: 8 ulps of the three terms' sum. The gradients are replayed
-    tree by tree from the scores, as training computed them."""
-    g = tb._gbdt
+def _replayed_gradients(g):
+    """The [K, N] gradients and hessians (f64 numpy) each iteration's trees
+    took in a GBDT training, replayed from the scores tree by tree."""
     K = g.num_tree_per_iteration
-    l2, cat_l2 = params.get("lambda_l2", 0.0), params.get("cat_l2", 10.0)
-    nbin = g.feature_meta["num_bin"].numpy()
-    is_cat = g.feature_meta["is_categorical"].numpy()
     scores = g._initial_scores(None, g.num_data)
     for k in range(K):
         scores[k] += np.float32(g._init_fold[k])
     out = []
+    for i in range(0, len(g._tree_arrays), K):
+        grad, hess = g.objective.get_gradients(scores if K > 1 else scores[0])
+        grad, hess = (grad, hess) if K > 1 else (grad[None], hess[None])
+        out.append((grad.double().numpy(), hess.double().numpy()))
+        for kk in range(K):
+            t = g._tree_arrays[i + kk]
+            scores[kk] += predict_plain.tree_predict_value(g.bins_nf, predict_plain.make_predict_tree(
+                t, g.feature_meta))
+    return out
+
+
+def _exact_gains(tb, params, grads=None):
+    """Each node's gain in f64 from the exact (dyadic) sums of the rows it
+    splits, G_L^2 / (H_L + l2') + G_R^2 / (H_R + l2') - G^2 / (H + l2), with
+    l2' = lambda_l2 + cat_l2 at a CTR node (a categorical feature above
+    max_cat_to_onehot bins), and the f32 error bound of a gain computed from
+    those sums: 8 ulps of the three terms' sum. ``grads`` holds the [K, N]
+    pair of histogram values each iteration's trees took; by default they
+    are replayed from the scores, as a GBDT training computed them."""
+    g = tb._gbdt
+    K = g.num_tree_per_iteration
+    if grads is None:
+        grads = _replayed_gradients(g)
+    l2, cat_l2 = params.get("lambda_l2", 0.0), params.get("cat_l2", 10.0)
+    nbin = g.feature_meta["num_bin"].numpy()
+    is_cat = g.feature_meta.get("is_categorical", torch.zeros(len(nbin), dtype=torch.bool)).numpy()
+    out = []
     for i, ta in enumerate(g._tree_arrays):
-        k = i % K
-        if k == 0:
-            grad, hess = g.objective.get_gradients(scores if K > 1 else scores[0])
-            grad, hess = (grad, hess) if K > 1 else (grad[None], hess[None])
-        gk, hk = grad[k].double().numpy(), hess[k].double().numpy()
+        gk, hk = grads[i // K][0][i % K], grads[i // K][1][i % K]
         leaf = predict_plain.tree_predict_leaf(g.bins_nf, predict_plain.make_predict_tree(
             ta, g.feature_meta)).numpy()
         lc, rc = ta.left_child.numpy(), ta.right_child.numpy()
@@ -348,12 +363,6 @@ def _exact_gains(tb, params):
             exact.append(terms[0] + terms[1] - terms[2])
             bound.append(8 * 2.0 ** -24 * sum(terms))
         out.append((np.asarray(exact), np.asarray(bound)))
-        if k == K - 1:
-            for kk in range(K):
-                t = g._tree_arrays[i - K + 1 + kk]
-                lv = predict_plain.tree_predict_value(g.bins_nf, predict_plain.make_predict_tree(
-                    t, g.feature_meta))
-                scores[kk] += lv
     return out
 
 

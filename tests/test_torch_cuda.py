@@ -1099,6 +1099,34 @@ def test_chunk_makes_no_sync_and_one_readback(monkeypatch, dev):
     assert (ran, stopped) == (4, False) and b.num_trees() == 9
 
 
+BOOSTING_MODES = {
+    "goss": {"boosting": "goss", "learning_rate": 0.25},  # sampled from iteration 4 on
+    "dart": {"boosting": "dart", "skip_drop": 0.0, "drop_rate": 0.3},
+    "rf": {"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(BOOSTING_MODES))
+def test_boosting_mode_replay_equals_eager(monkeypatch, dev, mode):
+    """GOSS (its sample inside the captured iteration: amplification 8 at
+    100k rows keeps every sum exact), DART (drops and rescales between
+    replays) and random forest (constant gradients, leaves plus the init
+    score): a replay an iteration gives the eager launches' model text and
+    train scores bit for bit on dyadic gradients."""
+    booster, X = _dyadic_boosters(monkeypatch, dev, **BOOSTING_MODES[mode])
+    runs = {}
+    for graph in (False, True):
+        b = booster(1, graph)
+        for _ in range(8):
+            assert not b.update()
+        runs[graph] = b
+    assert runs[True]._gbdt.captures == (2 if mode == "goss" else 1)
+    assert _trees_text(runs[True]) == _trees_text(runs[False])
+    assert runs[True]._gbdt.train_score().tobytes() == runs[False]._gbdt.train_score().tobytes()
+    np.testing.assert_allclose(runs[True].predict(X, raw_score=True), runs[True]._gbdt.train_score(),
+                               rtol=1e-5, atol=1e-5)
+
+
 # ---- the bin-space predict kernel, the bag, validation sets (models/gbdt.py)
 
 
