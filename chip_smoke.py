@@ -47,7 +47,7 @@ Phases (each prints one line; any failure exits non-zero):
     turns of 10 iterations (device, host, host, device), and the host
     loop's AUC at 10 iterations is within 2e-3 of phase 4's; the launch
     counts of the dyadic turns (the device loop's tree API, grow_tree_device,
-    whose leaf_ids kernel the boosting iteration no longer runs) count as a
+    whose leaf_ids kernel only a renewing objective's iteration runs) count as a
     main-path run; at the main path's first step the root's split scan and
     each kernel of the step (pick_partition, the histogram's segment entry,
     the split scan's folded entry, which does the histogram subtraction)
@@ -193,6 +193,32 @@ Phases (each prints one line; any failure exits non-zero):
     graph) with launch counts equal between the two, and one profiled
     replay and eager iteration of each mode (busy ms, kernels an
     iteration, copies, idle share);
+ 4k. ranking on a LETOR-shaped table (``bench.letor_like_rows``: 2,000,000
+    x 136 dense f32, about 16,300 queries of 1 to 1,251 rows, mean near 120,
+    MSLR-WEB30K's label shares): ``lambdarank``, 255 leaves, max_bin 255,
+    10 iterations with a 200,000-row held-out set from another seed and
+    ndcg@1, 3, 5 and 10 at every boundary; held-out ndcg@10 above a
+    constant score's; csrc/lambdarank.cu against its plain version
+    (ops/rank.py) within rtol 2e-4 / atol 2e-6 at iteration 1's scores
+    (all equal) and iteration 10's, a relaunch bit for bit, timed against
+    its bound (bytes, or 23 operations for each unordered pair of unequal
+    labels: the pair's formula and the four sums it enters); the replays equal to the eager launches on the first queries
+    up to 100k rows with the lambdas rounded to 2^-7; the turns and profile
+    of 4e with the kernel's device ms and share of busy time; an eval
+    boundary's host ms;
+ 4l. leaf renewal on 4e's table and held-out set: ``regression_l1``,
+    ``quantile`` at alpha 0.9 with bagging 0.8 every iteration, and
+    ``mape``, 10 iterations each through ``train``'s chunks of 10; the
+    held-out l1 below the constant median's, the quantile's held-out
+    coverage within 0.05 of 0.9; one more eager iteration with the
+    renewal's inputs recorded: the card's renewed leaf values equal to the
+    plain renewal on the CPU from the rows' leaves (``leaf_ids``) bit for
+    bit for L1 and quantile, and for MAPE (a weighted renewal, its
+    cumulative weights an f32 cumsum in another order) each value an order
+    statistic within 2^-10 of the leaf's weight of the CPU's pick
+    (``renewal_bracket``); the renewal's ms a tree (an eager call, and a
+    replay of the call captured alone); turns of 10 iterations
+    (graph, chunk, chunk, graph) and a profiled replay and chunk;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -229,15 +255,16 @@ Phases (each prints one line; any failure exits non-zero):
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
-    4f's, 4g's, 4h's, 4i's and 4j's trainings and turns, the sweep and the routed
+    4f's, 4g's, 4h's, 4i's, 4j's, 4k's and 4l's trainings and turns, the
+    sweep and the routed
     trainings, each with the counts set to 0 just before it and read just
     after; the split loop's kernels timed in phase 4b, leaf_ids and
     score_update in 4c, predict_bins in 4d; the categorical instantiations of
     the folded scan, pick_partition and predict_bins in rows of their own,
     timed in 4g, their launches 4g's training's; efb_remap and the bundled
     instantiations of pick_partition and predict_bins timed in 4i, the
-    bundled ones' launches 4h's and 4i's trainings'), the seconds of each
-    phase, then the result line.
+    bundled ones' launches 4h's and 4i's trainings'; lambdarank timed in 4k),
+    the seconds of each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -305,6 +332,33 @@ def err_over_bound(got, want, abs_sum):
     return float((err / (want[..., 2:] * 2.0 ** -23 * abs_sum + 1e-6)).max()), float(err.max())
 
 
+def renewal_bracket(got, residual, leaf_id, weights, num_leaves, alpha, slack):
+    """Hold a weighted renewal (WeightedPercentileFun of each leaf's
+    residuals) whose cumulative weights were summed in another order: each
+    leaf's value in ``got`` must be the residual at an index i of the leaf's
+    (value, row) order with c[i - 1] <= t + d and c[i] > t - d, where c is
+    the f64 cumulative weight, t = ``alpha`` times the leaf's total and d =
+    ``slack`` times it (the pick of the reference is the first c[i] > t).
+    Returns how many leaves took another index than that first one."""
+    import numpy as np
+
+    apart = 0
+    for leaf in range(num_leaves):
+        rows = np.nonzero(leaf_id == leaf)[0]
+        if len(rows) <= 1:
+            continue
+        order = np.argsort(residual[rows], kind="stable")
+        r = residual[rows][order]
+        c = np.cumsum(weights[rows][order].astype(np.float64))
+        t, d = alpha * c[-1], slack * c[-1]
+        lo = min(int(np.searchsorted(c, t - d, side="right")), len(r) - 1)
+        hi = min(int(np.searchsorted(c, t + d, side="right")), len(r) - 1)
+        assert got[leaf] in r[lo:hi + 1], ("weighted renewal out of its bracket", leaf, got[leaf],
+                                           r[lo], r[hi])
+        apart += got[leaf] != r[min(int(np.searchsorted(c, t, side="right")), len(r) - 1)]
+    return int(apart)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="also write the results as JSON here")
@@ -338,7 +392,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops import predict as predict_plain
     from lightgbm_tpu_torch.ops import remap as remap_plain
-    from lightgbm_tpu_torch.ops import remap_kernel
+    from lightgbm_tpu_torch.ops import rank_kernel, remap_kernel
     from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
         leaf_histogram, leaf_histogram_packed4_rows, leaf_values, operands, segment_histogram,
@@ -406,10 +460,12 @@ def main() -> int:
         "predict_bins_kernel<0>", "predict_bins_kernel<1>", "predict_bins_bundled_kernel<0>",
         "predict_bins_bundled_kernel<1>"}, ptxas
     assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
+    assert set(ptxas["lambdarank"]) == {"lambdarank_kernel"}, ptxas
     # histogram.cu: both entries per (operand type, bin path, grouped form)
     assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
-               for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap")
+               for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap",
+                         "lambdarank")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
@@ -617,6 +673,7 @@ def main() -> int:
         grow_step_kernel.reset_launches()
         split_kernel.launches = split_kernel.step_launches = split_kernel.fold_launches = 0
         partition_kernel.launches = predict_kernel.launches = remap_kernel.launches = 0
+        rank_kernel.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -629,7 +686,8 @@ def main() -> int:
                      ("split_pair_fold", split_kernel.fold_launches),
                      ("pick_partition", partition_kernel.launches),
                      ("predict_bins", predict_kernel.launches),
-                     ("efb_remap", remap_kernel.launches)):
+                     ("efb_remap", remap_kernel.launches),
+                     ("lambdarank", rank_kernel.launches)):
             if v:
                 got[k] = v
         for k, v in got.items():
@@ -1059,7 +1117,8 @@ def main() -> int:
     # the device ms and calls of the split loop's and predict_bins' kernels
     named_kernels = ("pick_partition_kernel", "hist_segment_kernel", "hist_kernel",
                      "split_pair_kernel", "leaf_tile_kernel", "add_value_kernel",
-                     "subtract_kernel", "predict_bins_kernel", "efb_remap_kernel")
+                     "subtract_kernel", "predict_bins_kernel", "efb_remap_kernel",
+                     "lambdarank_kernel")
 
     def profiled(fn):
         torch.cuda.synchronize()
@@ -1722,7 +1781,7 @@ def main() -> int:
         captured_equals_eager=dict(rows=eq_rows, iterations=4, cell_rows=cell_rows,
                                    largest_gradient=grad_max), held_calls=year_held,
         iterations_per_s=year_ips, launches_per_turn=year_turn_launches, profile=year_prof)
-    del ybst, gy, year_set, year_valid, Xy, yy, Xyv, yyv
+    del ybst, gy, Xy  # the binned table and the held-out set serve 4l too
 
     # ---- 4f. multiclass: a Covertype-shaped table, K = 7 trees an iteration ------------
     # 581,012 x 54 (10 continuous, 44 binary columns: features with 2 bins
@@ -2433,6 +2492,217 @@ def main() -> int:
     say("boosting_modes", rows=N, valid_rows=VALID_ROWS, params={m_: p_ for m_, (p_, _) in
                                                                  mode_params.items()}, **modes)
 
+    # ---- 4k. ranking: LambdaRank on a LETOR-shaped table ---------------------------------
+    # 2,000,000 x 136 dense f32 in about 16,300 queries of 1 to 1,251 rows
+    # (MSLR-WEB30K's width and sizes at the LightGBM paper's LETOR row count),
+    # labels 0-4 with MSLR's shares; a 200,000-row held-out set from another
+    # seed with ndcg@1, 3, 5 and 10 at every boundary; 10 iterations through
+    # the captured iteration, the lambdas from csrc/lambdarank.cu inside it
+    from lightgbm_tpu_torch.bench import (
+        LETOR_PARAMS, LETOR_ROWS, LETOR_VALID_ROWS, RENEW_PARAMS, letor_like_rows,
+    )
+    from lightgbm_tpu_torch.ops import rank as rank_plain
+
+    t0 = time.perf_counter()
+    Xr, yr, qr = letor_like_rows(LETOR_ROWS, seed=31)
+    Xrv, yrv, qrv = letor_like_rows(LETOR_VALID_ROWS, seed=32)
+    rank_set = lgb.Dataset(Xr, label=yr, group=qr)
+    rank_valid = rank_set.create_valid(Xrv, label=yrv, group=qrv)
+    rank_cfg = Config.from_params(dict(LETOR_PARAMS))
+    rank_set.get_binned(rank_cfg)
+    rank_valid.get_binned(rank_cfg)
+    rank_data_s = time.perf_counter() - t0
+    rank_evals, before_last = {}, []
+
+    def keep_scores(env):  # the scores the 10th iteration reads
+        if env.iteration == 8:
+            before_last.append(env.model._gbdt.scores[0].clone())
+
+    rbst, rank_train_s, rank_launches = counted(lambda: lgb.train(
+        dict(LETOR_PARAMS), rank_set, 10, valid_sets=[rank_valid], evals_result=rank_evals,
+        verbose_eval=False, callbacks=[keep_scores]))
+    gr = rbst._gbdt
+    assert gr.grow_loop == "device" and gr.captures == 1 and rbst.num_trees() == 10, gr.captures
+    assert rank_launches.get("lambdarank", 0) == 10, rank_launches
+    assert all(rank_launches.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",)), rank_launches
+    ndcg_at = {m_: v_ for m_, v_ in rank_evals["valid_0"].items()}
+    # the quality guard: held-out ndcg@10 above a constant score's on the same
+    # rows (equal scores keep each query's row order)
+    const_ndcg = {m_: v_ for m_, v_, _ in gr.valid_metrics[0][0].eval(
+        np.zeros(LETOR_VALID_ROWS), None)}
+    assert ndcg_at["ndcg@10"][-1] > const_ndcg["ndcg@10"], (ndcg_at, const_ndcg)
+    # the host's time of an eval boundary: the score read back, four ndcg@k
+    t0 = time.perf_counter()
+    gr.eval_valid()
+    rank_eval_ms = (time.perf_counter() - t0) * 1e3
+    # the kernel against its plain version at iteration 1's scores (all 0:
+    # the equal-scores branch) and iteration 10's, within the JAX package's
+    # twin tolerance; a relaunch gives the same bits
+    ro = gr.objective
+    plan = ro.plan
+    held_rank = {}
+    for when, sc in (("iteration_1", torch.zeros(plan.num_data, device=dev)),
+                     ("iteration_10", before_last[0])):
+        g1, h1 = rank_kernel.lambdarank(sc, plan, ro.sigmoid, ro._scratch)
+        g2, h2 = rank_kernel.lambdarank(sc, plan, ro.sigmoid, ro._scratch)
+        assert torch.equal(g1, g2) and torch.equal(h1, h2), ("lambdarank relaunch", when)
+        pg, ph = rank_plain.lambdas(sc, plan, ro.sigmoid)
+        torch.testing.assert_close(g1, pg, rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(h1, ph, rtol=2e-4, atol=2e-6)
+        held_rank[when] = max(float((g1 - pg).abs().max()), float((h1 - ph).abs().max()))
+    sc10 = before_last[0]
+    rank_pairs = plan.pairs()
+    rank_bytes = plan.num_data * (4 + 4 + 4 + 8) + (2 * plan.num_queries + 1) * 4
+    # 19 f32 operations of a pair's formula (its exp and two divisions each
+    # priced as one) and the four sums it enters, once for each unordered
+    # pair with unequal labels
+    rank_bound = bound(rank_bytes, 23 * rank_pairs)
+    rank_t = dict(
+        ms=time_ms(lambda: rank_kernel.lambdarank(sc10, plan, ro.sigmoid, ro._scratch)),
+        plain_ms=time_ms(lambda: rank_plain.lambdas(sc10, plan, ro.sigmoid), reps=3),
+        bound_ms=rank_bound[0], bound_by=rank_bound[1], library_ms=None,
+        max_abs_err=max(held_rank.values()), pairs_unequal_labels=rank_pairs,
+        queries=plan.num_queries, largest_query=plan.max_size)
+    # the replays equal the eager launches: the first queries up to 100k rows,
+    # the lambdas rounded to multiples of 2^-7 after the kernel (hessians at
+    # least 2^-7): every histogram sum exact, so any summation order agrees
+    q_eq = int(np.searchsorted(np.cumsum(qr), 100_000, side="right"))
+    eq_rows = int(np.sum(qr[:q_eq]))
+    get_rank = objective_mod.LambdarankNDCG.get_gradients
+
+    def rank_dyadic(self, score):
+        g_, h_ = get_rank(self, score)
+        return torch.round(g_ * 128.0) / 128.0, torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0
+
+    ds_eq = lgb.Dataset(Xr[:eq_rows], label=yr[:eq_rows], group=qr[:q_eq], reference=rank_set)
+    objective_mod.LambdarankNDCG.get_gradients = rank_dyadic
+    try:
+        rank_eq = {}
+        for kind, graph_on in (("eager", False), ("graph", True)):
+            b_ = lgb.Booster(dict(LETOR_PARAMS), ds_eq)
+            b_._gbdt.iteration_graph = graph_on
+            assert bench_mod.train_iterations(b_, 6, 1) == 6
+            rank_eq[kind] = (b_.model_to_string().split("parameters:")[0],
+                             b_._gbdt.train_score().tobytes())
+    finally:
+        objective_mod.LambdarankNDCG.get_gradients = get_rank
+    assert rank_eq["graph"] == rank_eq["eager"], "captured != eager (lambdarank)"
+    del rank_eq, ds_eq
+    turn_params = {k_: v_ for k_, v_ in LETOR_PARAMS.items() if k_ not in ("metric", "eval_at")}
+    rank_ips, rank_turn_launches, rank_prof = objective_turns(rank_set, turn_params, 10)
+    assert all(v_.get("lambdarank") == 10 for v_ in rank_turn_launches.values()), rank_turn_launches
+    for kind in rank_prof:
+        us = [v_ for k_, v_ in rank_prof[kind]["kernels_ms_and_calls"].items()
+              if "lambdarank_kernel" in k_]
+        rank_prof[kind]["lambdarank_ms_and_calls"] = us[0] if us else "not measured"
+        busy_ = rank_prof[kind]["device_busy_ms_per_iteration"]
+        rank_prof[kind]["lambdarank_share_of_busy"] = (
+            us[0][0] / rank_prof[kind]["iterations"] / busy_) if us and busy_ else "not measured"
+    say("ranking", rows=LETOR_ROWS, features=Xr.shape[1], queries=len(qr), largest_query=int(qr.max()),
+        mean_query=float(np.mean(qr)), valid_rows=LETOR_VALID_ROWS, params=LETOR_PARAMS,
+        data_and_binning_s=rank_data_s, train_s=rank_train_s,
+        train_iterations_per_s_with_eval=10 / rank_train_s, launches=rank_launches,
+        valid_ndcg=ndcg_at, constant_score_ndcg=const_ndcg, eval_ms=rank_eval_ms,
+        lambdarank=rank_t, lambdarank_held=held_rank,
+        captured_equals_eager=dict(rows=eq_rows, queries=q_eq, iterations=6),
+        iterations_per_s=rank_ips, launches_per_turn=rank_turn_launches, profile=rank_prof)
+    del rbst, gr, ro, plan, sc10, before_last, rank_set, rank_valid, Xr, yr, Xrv, yrv
+
+    # ---- 4l. leaf renewal: regression_l1, quantile and mape on 4e's table -------------
+    # 463,715 x 90 (4e's binned table and held-out set), 10 iterations each
+    # through ``train``'s chunks of 10 (the first alone), the renewal
+    # (objective.py ``segment_percentile`` over the loop's segments) inside
+    # the captured iteration; quantile at alpha 0.9 with bagging 0.8 every
+    # iteration
+    med = float(np.median(yy))
+    renew_rec = {"constant_median_valid_l1": float(np.mean(np.abs(yyv - med)))}
+    for name_, params_ in RENEW_PARAMS.items():
+        evals_ = {}
+        b_, secs_, launches_ = counted(lambda: lgb.train(
+            dict(params_, device_chunk_size=10), year_set, 10, valid_sets=[year_valid],
+            evals_result=evals_, verbose_eval=False))
+        g_ = b_._gbdt
+        assert g_.grow_loop == "device" and g_.captures == 1 and b_.num_trees() == 10, name_
+        assert all(launches_.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",)), launches_
+        pred = b_.predict(Xyv)
+        assert np.all(np.isfinite(pred))
+        rec = dict(params=params_, train_s=secs_, train_iterations_per_s_with_eval=10 / secs_,
+                   launches=launches_, valid_metric=evals_["valid_0"],
+                   valid_l1=float(np.mean(np.abs(yyv - pred))))
+        if name_ == "regression_l1":
+            assert rec["valid_l1"] < renew_rec["constant_median_valid_l1"], rec["valid_l1"]
+        if name_ == "quantile":
+            rec["valid_coverage"] = float(np.mean(yyv <= pred))
+            assert abs(rec["valid_coverage"] - 0.9) <= 0.05, rec["valid_coverage"]
+        # one more eager iteration: the renewal's inputs (the rows' leaves
+        # from the leaf_ids kernel over the loop's state) and output
+        # recorded, then held to the plain renewal on the CPU
+        ob_ = g_.objective
+        seen = {}
+        renew_on_card = ob_.renew_leaf_outputs
+
+        def record(*a_, fn=renew_on_card, seen=seen):
+            out_ = fn(*a_)
+            seen["args"] = tuple(t_.clone() if torch.is_tensor(t_) else t_ for t_ in a_)
+            seen["out"] = out_.clone()
+            return out_
+
+        ob_.renew_leaf_outputs = record
+        g_.iteration_graph = False
+        try:
+            assert not b_.update()
+        finally:
+            del ob_.renew_leaf_outputs
+        score_, leaf_card, bag_, num_leaves_, old_ = seen["args"]
+        st_ = g_._grow_state
+        assert torch.equal(leaf_card, grow_step_plain.leaf_ids(st_)), name_
+        leaf_id = leaf_card.cpu()
+        cpu_obj = objective_mod.create_objective(Config.from_params(dict(params_)))
+        cpu_obj.init(year_set.get_binned(year_cfg).metadata, YEAR_ROWS, torch.device("cpu"))
+        want = cpu_obj.renew_leaf_outputs(score_.cpu(), leaf_id, None if bag_ is None else bag_.cpu(),
+                                          num_leaves_, old_.cpu())
+        got = seen["out"].cpu()
+        rec["renewal_max_abs_err"] = float((got - want).abs().max())
+        if name_ == "mape":
+            # weighted: the card's f32 scan of the cumulative weights and the
+            # CPU's (a double accumulator) differ in the last bits, which may
+            # move a leaf's pick to a neighbouring order statistic; each card
+            # value must be a kept residual of its leaf whose f64 cumulative
+            # weight lies within 2^-10 of the leaf's weight from the half
+            rec["renewal_leaves_apart"] = renewal_bracket(
+                got.numpy(), (cpu_obj._label_dev - score_.cpu()).numpy(), leaf_id.numpy(),
+                cpu_obj.label_weight, g_.config.num_leaves, 0.5, 2.0 ** -10)
+        else:
+            assert torch.equal(got, want), (name_, rec["renewal_max_abs_err"])
+
+        # the renewal's time, as the iteration runs it (the leaf_ids kernel,
+        # then the percentiles): an eager call (its some 60 launches queued
+        # by the host may outlast the timer's spin) and a replay of the call
+        # captured alone (the card's time, as inside the iteration's graph)
+        def renew_call():
+            return ob_.renew_leaf_outputs(score_, grow_step_kernel.leaf_ids(st_), bag_,
+                                          num_leaves_, old_)
+
+        rec["renewal_ms"] = time_ms(renew_call)
+        renew_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(renew_graph):
+            renew_call()
+        rec["renewal_graph_ms"] = time_ms(renew_graph.replay)
+        del renew_graph
+        kinds = {"graph": (1, True), "chunk": (10, True)}
+        bsts = {}
+        for kind, (c, graph_on) in kinds.items():
+            bb_ = lgb.Booster(dict(params_, device_chunk_size=c), year_set)
+            assert bench_mod.train_iterations(bb_, 10, c) == 10, kind
+            bsts[kind] = bb_
+        rec["iterations_per_s"], rec["launches_per_turn"], rec["profile"] = turns_and_profile(
+            bsts, {k_: v_[0] for k_, v_ in kinds.items()}, ("graph", "chunk", "chunk", "graph"),
+            ("graph", "chunk"))
+        renew_rec[name_] = rec
+        del b_, g_, bsts, seen, ob_
+    say("renewal", rows=YEAR_ROWS, valid_rows=YEAR_VALID_ROWS, **renew_rec)
+    del year_set, year_valid, yy, Xyv, yyv
+
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------
     Xs, ys = X[:100_000], y[:100_000]
     release = hold_calls()  # every histogram call of the CUDA run held to its plain version
@@ -2950,6 +3220,15 @@ def main() -> int:
             launches=n_, max_abs_err=t["max_abs_err"], ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=t["library_ms"],
         ))
+    # the lambda kernel, timed in phase 4k at iteration 10's scores; its
+    # launches are the main path's (4k's training and turns)
+    kernels.append(dict(
+        name="lambdarank", route="cuda", source="lightgbm_tpu_torch/csrc/lambdarank.cu",
+        replaces="lightgbm_tpu/objective.py:842 (_lambdarank_bucket; XLA there)",
+        launches=main_launches.get("lambdarank", 0), max_abs_err=rank_t["max_abs_err"],
+        ms=rank_t["ms"], plain_ms=rank_t["plain_ms"], bound_ms=rank_t["bound_ms"],
+        bound_by=rank_t["bound_by"], library_ms=None,
+    ))
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

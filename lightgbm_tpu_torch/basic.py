@@ -1,7 +1,8 @@
 """Public Dataset / Booster handles of the PyTorch port.
 
 The surface of lightgbm_tpu/basic.py that this slice uses: a lazily binned
-``Dataset`` (a validation set bins with its ``reference``'s mappers) and a
+``Dataset`` (a validation set bins with its ``reference``'s mappers; query
+groups for ranking through ``group=``, ``set_group`` or ``set_field``) and a
 ``Booster`` that trains (``update``, ``update_chunk``), rolls back, predicts,
 evaluates its training and validation metrics and writes or loads LightGBM
 model text. A Booster
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from .config import Config
-from .dataset import BinnedDataset, construct_dataset
+from .dataset import BinnedDataset, Metadata, construct_dataset
 from .metric import Metric, create_metric
 from .models.gbdt import GBDT
 from .models.model_text import load_model_from_string, save_model_to_string
@@ -46,7 +47,8 @@ def resolve_device(device=None) -> torch.device:
 class Dataset:
     """Lazy binned dataset: bins on first use with the booster's config.
     With ``reference`` (the training Dataset) it bins with the reference's
-    BinMappers, as a validation set must."""
+    BinMappers, as a validation set must. ``group``: the query sizes in row
+    order (they sum to the rows), or one query id a row."""
 
     def __init__(
         self,
@@ -54,6 +56,7 @@ class Dataset:
         label=None,
         reference: Optional["Dataset"] = None,
         weight=None,
+        group=None,
         init_score=None,
         feature_name="auto",
         categorical_feature="auto",
@@ -63,17 +66,18 @@ class Dataset:
         self.label = label
         self.reference = reference
         self.weight = weight
+        self.group = group
         self.init_score = init_score
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._binned: Optional[BinnedDataset] = None
 
-    def create_valid(self, data, label=None, weight=None, init_score=None,
+    def create_valid(self, data, label=None, weight=None, group=None, init_score=None,
                      params: Optional[Dict] = None) -> "Dataset":
         """A validation Dataset binned with this one's mappers."""
-        return Dataset(data, label=label, reference=self, weight=weight, init_score=init_score,
-                       params=params or self.params)
+        return Dataset(data, label=label, reference=self, weight=weight, group=group,
+                       init_score=init_score, params=params or self.params)
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         if reference is not self.reference:
@@ -98,6 +102,7 @@ class Dataset:
             config,
             label=None if self.label is None else np.asarray(self.label, np.float64),
             weight=None if self.weight is None else np.asarray(self.weight, np.float64),
+            group=None if self.group is None else np.asarray(self.group),
             init_score=self.init_score,
             feature_names=list(self.feature_name)
             if isinstance(self.feature_name, (list, tuple)) else None,
@@ -111,6 +116,40 @@ class Dataset:
 
     def num_data(self) -> int:
         return self._binned.num_data if self._binned is not None else len(self.data)
+
+    # -- query groups (lightgbm_tpu/basic.py:339-387) ----------------------
+    def set_group(self, group) -> "Dataset":
+        """The query sizes (or one query id a row); on a constructed Dataset
+        its query boundaries are replaced too."""
+        self.group = group
+        if self._binned is not None and group is not None:
+            md = self._binned.metadata
+            md.query_boundaries = Metadata(md.num_data, group=np.asarray(group)).query_boundaries
+        return self
+
+    def get_group(self):
+        return self.group
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        """Set the field ``group`` (alias ``query``) by name."""
+        _check_group_field(field_name)
+        return self.set_group(data)
+
+    def get_field(self, field_name: str):
+        """The field ``group`` (alias ``query``)."""
+        _check_group_field(field_name)
+        return self.get_group()
+
+
+def _check_group_field(field_name: str) -> None:
+    """Pass ``group`` and ``query``; raise for the JAX package's other
+    fields (not ported) and for unknown names."""
+    if field_name in ("group", "query"):
+        return
+    if field_name in ("label", "weight", "init_score"):
+        raise NotImplementedError("Dataset.set_field/get_field(%r) is not ported to "
+                                  "lightgbm_tpu_torch yet" % field_name)
+    raise LightGBMError("Unknown field name: %s" % field_name)
 
 
 class Booster:

@@ -39,7 +39,9 @@ training params, which chip_smoke.py's phases 4e and 4f and
 ``covertype_compact_rows`` (the same rows with the two one-hot groups as
 two categorical columns), which phase 4g reads, and ``flight_like_rows``
 (a Flight-Delay-shaped sparse one-hot table, scipy CSR), which phase 4i
-reads.
+reads, and ``letor_like_rows`` (a ranking table of MSLR-WEB30K's shape,
+with its query sizes), which phase 4k reads; phase 4l trains the
+leaf-renewing objectives on ``year_like_rows``.
 
 Baseline: LightGBM on the CPU trains the 10.5M-row Higgs set at 2.096
 iterations/s on 16 Xeon threads (the reference's docs/Experiments.rst);
@@ -99,6 +101,45 @@ def year_like_rows(n, seed, model_seed=11):
     t = X[:, :12].astype(np.float64) / 20.0
     y = 1998.0 + 8.0 * np.tanh(t @ w1) + 5.0 * np.sin(t @ w2) + rng.randn(n) * 2.0
     return X, y
+
+
+#: the ranking cell of chip_smoke.py's phase 4k: MSLR-WEB30K's width and
+#: query sizes (1 to 1,251 rows, mean near 120) at the LightGBM paper's
+#: LETOR row count (Ke et al., NIPS 2017, Table 1: 2M x 136)
+LETOR_ROWS, LETOR_VALID_ROWS, LETOR_FEATURES, LETOR_MAX_QUERY = 2_000_000, 200_000, 136, 1251
+LETOR_SHARES = (0.514, 0.325, 0.134, 0.019, 0.008)  # MSLR-WEB30K's label shares, 0 to 4
+LETOR_PARAMS = {"objective": "lambdarank", "metric": "ndcg", "eval_at": [1, 3, 5, 10],
+                "max_bin": 255, "num_leaves": 255, "learning_rate": 0.1, "verbose": -1}
+#: the leaf-renewing cells of phase 4l, on YearPredictionMSD's shape
+RENEW_PARAMS = {
+    "regression_l1": dict(YEAR_PARAMS, objective="regression_l1", metric="l1"),
+    "quantile": dict(YEAR_PARAMS, objective="quantile", metric="quantile", alpha=0.9,
+                     bagging_fraction=0.8, bagging_freq=1),
+    "mape": dict(YEAR_PARAMS, objective="mape", metric="mape"),
+}
+
+
+def letor_like_rows(n, seed, model_seed=17):
+    """``n`` rows shaped like MSLR-WEB30K: 136 dense f32 columns, query sizes
+    drawn log-normally (mean near 120) and cut to 1..1,251, the last query
+    trimmed to end at ``n``; labels 0-4 with MSLR-WEB30K's shares, cut from
+    a relevance that is a function of 20 of the columns (from
+    ``model_seed``) plus a query effect and noise. Synthetic values, rows
+    from ``seed``. Returns (X, label, query sizes)."""
+    import numpy as np
+
+    w = np.random.RandomState(model_seed).randn(LETOR_FEATURES) * (
+        np.arange(LETOR_FEATURES) < 20)
+    rng = np.random.default_rng(seed)
+    sizes = np.clip(np.round(rng.lognormal(np.log(90.0), 0.8, n // 40 + 1000)), 1,
+                    LETOR_MAX_QUERY).astype(np.int64)
+    sizes = sizes[:int(np.searchsorted(np.cumsum(sizes), n)) + 1]
+    sizes[-1] -= int(sizes.sum()) - n
+    X = rng.standard_normal((n, LETOR_FEATURES), dtype=np.float32)
+    rel = X @ w.astype(np.float32) + np.repeat(rng.standard_normal(len(sizes)), sizes) \
+        + rng.standard_normal(n, dtype=np.float32)
+    cuts = np.quantile(rel, np.cumsum(LETOR_SHARES)[:-1])
+    return X, np.searchsorted(cuts, rel).astype(np.float64), sizes
 
 
 def covertype_like_rows(n, seed, model_seed=13):

@@ -3,14 +3,15 @@
 Copies of lightgbm_tpu/metric.py's pointwise and classification metrics:
 the ``_AverageLossMetric`` family (l2, rmse, l1, quantile, huber, fair,
 poisson, gamma, gamma-deviance, tweedie, mape, binary log-loss and error),
-AUC, ``multi_logloss``, ``multi_error``, ``xentropy``, ``xentlambda`` and
-``kldiv``, under the JAX package's names and aliases. Host-side numpy in
+AUC, ``multi_logloss``, ``multi_error``, ``xentropy``, ``xentlambda``,
+``kldiv``, and the ranking metrics ``ndcg@k`` and ``map@k`` over
+``eval_at`` (with query weights), under the JAX package's names and
+aliases. Host-side numpy in
 double precision over the raw scores (``[N]``, or ``[K, N]`` for the multi
 metrics), with the objective's link applied inside the metric, so values,
 and the early-stopping decisions made on them, agree with the JAX
 package's. Each instance is initialised on the metadata of the set it
-evaluates (the training set or one validation set). The ranking metrics
-(ndcg, map) are not ported and raise.
+evaluates (the training set or one validation set).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import numpy as np
 
 from .config import Config
 from .dataset import Metadata
-from .objective import ObjectiveFunction
+from .objective import ObjectiveFunction, dcg_discount, default_label_gain
+from .utils import log
 
 
 class Metric:
@@ -258,6 +260,90 @@ class KLDivMetric(Metric):
         return [("kldiv", float(np.sum(losses * w) / self.sum_weights), False)]
 
 
+class _QueryMetric(Metric):
+    """The ranking metrics' shared set-up: query boundaries and weights."""
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.eval_at = list(config.eval_at) or [1, 2, 3, 4, 5]
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log.fatal("The %s metric requires query information" % self.names[0].upper())
+        self.qb = metadata.query_boundaries
+        self.num_queries = metadata.num_queries
+        self.query_weights = metadata.query_weights()
+        self.sum_query_weights = (
+            float(self.num_queries) if self.query_weights is None
+            else float(np.sum(self.query_weights)))
+
+
+class NDCGMetric(_QueryMetric):
+    """NDCG@k of each query (a stable descending sort of its scores), a
+    query whose labels are all 0 counting as 1, averaged with the query
+    weights."""
+
+    names = ["ndcg"]
+    bigger_is_better = True
+
+    def __init__(self, config):
+        super().__init__(config)
+        lg = list(config.label_gain) if config.label_gain else list(default_label_gain())
+        self.label_gain = np.asarray(lg, np.float64)
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        li = self.label.astype(np.int64)
+        ks = self.eval_at
+        totals = np.zeros(len(ks))
+        for q in range(self.num_queries):
+            lo, hi = int(self.qb[q]), int(self.qb[q + 1])
+            lab = li[lo:hi]
+            qw = 1.0 if self.query_weights is None else float(self.query_weights[q])
+            ideal = np.sort(lab)[::-1]
+            ranked = lab[np.argsort(-s[lo:hi], kind="stable")]
+            for j, k in enumerate(ks):
+                kk = min(k, hi - lo)
+                disc = dcg_discount(np.arange(kk))
+                maxdcg = float(np.sum(self.label_gain[ideal[:kk]] * disc))
+                if maxdcg <= 0:
+                    totals[j] += qw
+                else:
+                    totals[j] += qw * float(np.sum(self.label_gain[ranked[:kk]] * disc)) / maxdcg
+        return [("ndcg@%d" % k, float(totals[j] / self.sum_query_weights), True)
+                for j, k in enumerate(ks)]
+
+
+class MapMetric(_QueryMetric):
+    """Mean average precision @k (a label above 0 is relevant), averaged
+    with the query weights."""
+
+    names = ["map"]
+    bigger_is_better = True
+
+    def eval(self, score, objective):
+        s = np.asarray(score, np.float64)
+        li = (self.label > 0).astype(np.int64)
+        ks = self.eval_at
+        totals = np.zeros(len(ks))
+        for q in range(self.num_queries):
+            lo, hi = int(self.qb[q]), int(self.qb[q + 1])
+            qw = 1.0 if self.query_weights is None else float(self.query_weights[q])
+            rel = li[lo:hi][np.argsort(-s[lo:hi], kind="stable")]
+            hits = np.cumsum(rel)
+            prec_at = hits / (np.arange(len(rel)) + 1.0)
+            for j, k in enumerate(ks):
+                kk = min(k, hi - lo)
+                nrel = int(hits[kk - 1]) if kk > 0 else 0
+                ap = 0.0
+                if nrel > 0:
+                    ap = float(np.sum(prec_at[:kk] * rel[:kk]) / np.minimum(kk, max(int(hits[-1]), 1)))
+                totals[j] += qw * ap
+        return [("map@%d" % k, float(totals[j] / self.sum_query_weights), True)
+                for j, k in enumerate(ks)]
+
+
 _METRICS = {
     "l2": L2Metric,
     "mean_squared_error": L2Metric,
@@ -295,6 +381,10 @@ _METRICS = {
     "cross_entropy_lambda": CrossEntropyLambdaMetric,
     "kldiv": KLDivMetric,
     "kullback_leibler": KLDivMetric,
+    "ndcg": NDCGMetric,
+    "lambdarank": NDCGMetric,
+    "map": MapMetric,
+    "mean_average_precision": MapMetric,
 }
 
 
@@ -302,7 +392,5 @@ def create_metric(name: str, config: Config) -> Metric:
     cls = _METRICS.get(name)
     if cls is None:
         raise NotImplementedError(
-            "metric=%s is not ported to lightgbm_tpu_torch yet (the ranking metrics ndcg and map "
-            "wait for lambdarank)" % name
-        )
+            "metric=%s is not a metric of lightgbm_tpu_torch (nor of the JAX package)" % name)
     return cls(config)

@@ -308,6 +308,13 @@ class GBDT:
         self.scores = self._initial_scores(train_set.metadata.init_score, self.num_data)
         if self.objective is not None:
             self.objective.init(train_set.metadata, self.num_data, dev)
+        #: the objective renews each tree's leaf outputs (regression_l1, quantile, mape)
+        self._renew = self.objective is not None and self.objective.is_renew_tree_output
+        if type(self) is not GBDT and self.objective is not None and (
+                not self.objective.supports_boosting_modes):
+            raise NotImplementedError(
+                "boosting=%s with objective=%s is not ported to lightgbm_tpu_torch yet"
+                % (cfg.boosting, self.objective.name))
         #: the classes that grow trees (class_need_train); an untrained
         #: class keeps a constant tree
         self._train_classes = [k for k in range(K)
@@ -512,6 +519,9 @@ class GBDT:
                         cfg.tpu_hist_dtype, self._bag, self.grouped_adds)
             num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
             grew = num_leaves > 1
+            if self._renew:  # RenewTreeOutput, before the ring copy reads the leaf values
+                s.leaf_f[:, 0].copy_(self.objective.renew_leaf_outputs(
+                    self.scores[k], grow_step_kernel.leaf_ids(s), self._bag, s.M, s.leaf_f[:, 0]))
             value = torch.where(grew & ~self._chunk_stopped,
                                 self._leaf_output(s.leaf_f[:, 0], k, self._rate), 0.0)
             grow_step_kernel.score_update(s, value, self.scores[k])
@@ -680,6 +690,10 @@ class GBDT:
                 if masks is not None:
                     self.feature_mask.copy_(torch.from_numpy(masks[t]))
                 tree, leaf_id = self._train_tree(grad[k], hess[k])
+                if self._renew:  # RenewTreeOutput at the scores before the tree
+                    tree = tree._replace(leaf_value=self.objective.renew_leaf_outputs(
+                        self.scores[k], leaf_id, self._bag, self.config.num_leaves,
+                        tree.leaf_value.to(self.device)).cpu())
                 tree = self._shrink(tree, k)
                 # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of
                 # the shrunk leaf values gathered by each row's leaf

@@ -1,18 +1,28 @@
 """Objective functions (gradient/hessian providers).
 
-Counterpart of lightgbm_tpu/objective.py: the ``ObjectiveFunction`` base
-and the pointwise objectives that keep their tree's leaf outputs
-(regression_objective.hpp, binary_objective.hpp, multiclass_objective.hpp,
-xentropy_objective.hpp): ``regression`` (with ``reg_sqrt``), ``huber``,
-``fair``, ``poisson``, ``gamma``, ``tweedie``, ``binary``, ``multiclass``,
-``multiclassova``, ``xentropy`` and ``xentlambda``. Gradients and hessians
-are f32 torch tensors on the scores' device, the JAX package's formulas op
-for op (a scalar divided by a tensor is a tensor division, never torch's
-reciprocal-and-multiply); ``boost_from_score`` is the JAX package's f64
-host arithmetic on the f32 labels. Multiclass scores are class-major ``[K,
-N]``. The objectives that renew leaf outputs (``regression_l1``,
-``quantile``, ``mape``), ``lambdarank`` and a custom objective raise
-NotImplementedError naming themselves.
+Counterpart of lightgbm_tpu/objective.py: the ``ObjectiveFunction`` base,
+the pointwise objectives (regression_objective.hpp, binary_objective.hpp,
+multiclass_objective.hpp, xentropy_objective.hpp): ``regression`` (with
+``reg_sqrt``), ``regression_l1``, ``huber``, ``fair``, ``poisson``,
+``quantile``, ``mape``, ``gamma``, ``tweedie``, ``binary``, ``multiclass``,
+``multiclassova``, ``xentropy`` and ``xentlambda``, and ``lambdarank``
+(rank_objective.hpp). Gradients and hessians are f32 torch tensors on the
+scores' device, the JAX package's formulas op for op (a scalar divided by a
+tensor is a tensor division, never torch's reciprocal-and-multiply);
+``boost_from_score`` is the JAX package's f64 host arithmetic on the f32
+labels. Multiclass scores are class-major ``[K, N]``.
+
+``regression_l1``, ``quantile`` and ``mape`` renew each tree's leaf outputs
+(``is_renew_tree_output``, RenewTreeOutput): a leaf's value becomes the
+(weighted) alpha-percentile of its bagged rows' residuals ``label - score``
+at the scores before the tree, :func:`segment_percentile` on the training
+device inside the boosting iteration, from each row's leaf
+(:meth:`RegressionL1Loss.renew_leaf_outputs`, in both split loops: the
+device loop's leaves come from its ``leaf_ids`` kernel). ``lambdarank``
+reads its queries' plan (ops/rank.py ``RankPlan``, built at set-up) and
+takes its gradients from csrc/lambdarank.cu on the card (ops/rank_kernel.py;
+the plain bucketed version on the CPU). A custom objective raises
+NotImplementedError naming itself.
 """
 from __future__ import annotations
 
@@ -24,6 +34,8 @@ import torch
 
 from .config import Config
 from .dataset import Metadata
+from .ops import rank as rank_plain
+from .ops import rank_kernel
 from .utils import log
 
 K_EPSILON = 1e-15
@@ -34,6 +46,129 @@ def _stable_expish(fn):
     (the values saturate as the reference's C++ converters do)."""
     with np.errstate(over="ignore"):
         return fn()
+
+
+# ---------------------------------------------------------------------------
+# percentile helpers (regression_objective.hpp:18-75; the JAX package's
+# lightgbm_tpu/objective.py:44-165)
+# ---------------------------------------------------------------------------
+
+def percentile(data: np.ndarray, alpha: float) -> float:
+    """PercentileFun: the alpha-quantile from the descending order statistics."""
+    cnt = len(data)
+    if cnt == 0:
+        return 0.0
+    if cnt <= 1:
+        return float(data[0])
+    desc = np.sort(data)[::-1]
+    float_pos = (1.0 - alpha) * cnt
+    pos = int(float_pos)
+    if pos < 1:
+        return float(desc[0])
+    if pos >= cnt:
+        return float(desc[-1])
+    bias = float_pos - pos
+    v1 = float(desc[pos - 1])
+    v2 = float(desc[pos])
+    return v1 - (v1 - v2) * bias
+
+
+def weighted_percentile(data: np.ndarray, weights: np.ndarray, alpha: float) -> float:
+    """WeightedPercentileFun (regression_objective.hpp:46-75)."""
+    cnt = len(data)
+    if cnt == 0:
+        return 0.0
+    if cnt <= 1:
+        return float(data[0])
+    order = np.argsort(data, kind="stable")
+    cdf = np.cumsum(weights[order]).astype(np.float64)
+    threshold = cdf[-1] * alpha
+    pos = int(np.searchsorted(cdf, threshold, side="right"))
+    pos = min(pos, cnt - 1)
+    if pos == 0 or pos == cnt - 1:
+        return float(data[order[pos]])
+    v1 = float(data[order[pos - 1]])
+    v2 = float(data[order[pos]])
+    if cdf[pos + 1] - cdf[pos] >= 1.0:
+        return float((threshold - cdf[pos]) / (cdf[pos + 1] - cdf[pos]) * (v2 - v1) + v1)
+    return v2
+
+
+def _percentile_maybe_weighted(data, weights, alpha):
+    if weights is None:
+        return percentile(data, alpha)
+    return weighted_percentile(data, weights, alpha)
+
+
+def _value_key(values: torch.Tensor) -> torch.Tensor:
+    """int64 keys in [0, 2^32) that order as the f32 ``values`` do, with
+    -0 equal to +0 and every NaN after +inf (the JAX sort's comparator)."""
+    v = torch.where(values == 0, 0.0, values)
+    v = torch.where(torch.isnan(v), float("nan"), v).contiguous()
+    b = v.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(b >= 0x80000000, 0xFFFFFFFF - b, b + 0x80000000)
+
+
+def segment_percentile(values: torch.Tensor, leaf: torch.Tensor, sel: Optional[torch.Tensor],
+                       weights: Optional[torch.Tensor], old: torch.Tensor, num_leaves: int,
+                       alpha: float) -> torch.Tensor:
+    """Each leaf's alpha-percentile of ``values`` [P] f32 over its selected
+    positions, PercentileFun's semantics (WeightedPercentileFun's with
+    ``weights``), ``old`` [num_leaves] where a leaf has none: the JAX
+    package's ``segment_percentile`` (lightgbm_tpu/objective.py:93-165) op
+    for op. ``leaf`` [P] gives each position's leaf and ``sel`` [P] bool
+    (None: all) whether it counts; the positions of one leaf must come in
+    row order (rows, or a leaf's segment of the device loop's ``order``).
+    One stable sort by the int64 key (leaf, value), the unselected positions
+    after every leaf, orders each leaf's values with ties in row order, as
+    the JAX package's two stable sorts do; the weighted branch's cumulative
+    weights are one f32 cumsum across the leaves, in that order."""
+    P, M, dev = values.shape[0], num_leaves, values.device
+    lid = leaf.to(torch.int64)
+    if sel is not None:
+        lid = torch.where(sel, lid, M)
+    order = torch.sort((lid << 32) | _value_key(values), stable=True).indices
+    l_sorted = lid[order]
+    v_sorted = values[order]
+    leaves = torch.arange(M, dtype=torch.int64, device=dev)
+    begin = torch.searchsorted(l_sorted, leaves)
+    end = torch.searchsorted(l_sorted, leaves, right=True)
+    cnt = end - begin
+
+    def asc(pos):  # the pos-th ascending value of each leaf
+        return v_sorted[torch.clamp(begin + pos, 0, P - 1)]
+
+    if weights is None:
+        # PercentileFun reads DESCENDING statistics: desc[i] = asc[cnt - 1 - i]
+        float_pos = float(np.float32(1.0 - alpha)) * cnt.to(torch.float32)
+        pos = float_pos.to(torch.int64)
+        bias = float_pos - pos.to(torch.float32)
+        v1 = asc(cnt - pos)
+        v2 = asc(cnt - 1 - pos)
+        out = v1 - (v1 - v2) * bias
+        out = torch.where(pos < 1, asc(cnt - 1), out)
+        out = torch.where(pos >= cnt, asc(torch.zeros_like(cnt)), out)
+    else:
+        w_sorted = weights[order] * (l_sorted < M)
+        cumw = torch.cumsum(w_sorted, 0)
+        base = torch.where(begin > 0, cumw[torch.clamp(begin - 1, min=0)], 0.0)
+        total = torch.where(end > 0, cumw[torch.clamp(end - 1, min=0)], 0.0) - base
+        threshold = total * float(np.float32(alpha))
+        pos = torch.searchsorted(cumw, base + threshold, right=True) - begin
+        pos = torch.minimum(pos, cnt - 1)
+
+        def cdf(p):  # a leaf's cumulative weight at its local index p
+            return cumw[torch.clamp(begin + p, 0, P - 1)] - base
+
+        v1 = asc(pos - 1)
+        v2 = asc(pos)
+        c0, c1 = cdf(pos), cdf(pos + 1)
+        interp = (threshold - c0) / (c1 - c0) * (v2 - v1) + v1
+        out = torch.where(c1 - c0 >= 1.0, interp, v2)
+        edge = (pos <= 0) | (pos >= cnt - 1)
+        out = torch.where(edge, asc(torch.minimum(torch.clamp(pos, min=0), cnt - 1)), out)
+    out = torch.where(cnt <= 1, asc(torch.zeros_like(cnt)), out)
+    return torch.where(cnt == 0, old, out.to(old.dtype))
 
 
 class ObjectiveFunction:
@@ -73,6 +208,18 @@ class ObjectiveFunction:
 
     def class_need_train(self, class_id: int) -> bool:
         return True
+
+    @property
+    def is_renew_tree_output(self) -> bool:
+        """True when a tree's leaf outputs are renewed from the residuals
+        (``regression_l1``, ``quantile``, ``mape``)."""
+        return False
+
+    @property
+    def supports_boosting_modes(self) -> bool:
+        """False where boosting=goss, dart or rf is not ported with this
+        objective (the renewing objectives and ``lambdarank``)."""
+        return not self.is_renew_tree_output
 
     def to_string(self) -> str:
         return self.name
@@ -119,6 +266,40 @@ class RegressionL2Loss(ObjectiveFunction):
 
     def to_string(self):
         return self.name + (" sqrt" if self.sqrt else "")
+
+
+class RegressionL1Loss(RegressionL2Loss):
+    name = "regression_l1"
+
+    def get_gradients(self, score):
+        grad = torch.sign(score - self._label_dev)
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess)
+
+    def boost_from_score(self, class_id=0):
+        return _percentile_maybe_weighted(self._label_np, self.weight, 0.5)
+
+    @property
+    def is_renew_tree_output(self):
+        return True
+
+    def _renew_alpha(self) -> float:
+        return 0.5
+
+    def _renew_weights(self) -> Optional[torch.Tensor]:
+        """The renewal's f32 weights on the device (None: unweighted)."""
+        return self._weight_dev
+
+    def renew_leaf_outputs(self, score: torch.Tensor, leaf_id: torch.Tensor,
+                           bag: Optional[torch.Tensor], num_leaves: int,
+                           leaf_value: torch.Tensor) -> torch.Tensor:
+        """RenewTreeOutput from each row's leaf ``leaf_id`` [N] (the host
+        split loop): the renewed [num_leaves] f32 leaf values, the
+        residuals taken at ``score`` [N], the scores before the tree, over
+        the rows of ``bag`` ([N] f32 mask, None: all); a leaf without a
+        bagged row keeps its ``leaf_value``."""
+        return segment_percentile(self._label_dev - score, leaf_id, None if bag is None else bag > 0,
+                                  self._renew_weights(), leaf_value, num_leaves, self._renew_alpha())
 
 
 class RegressionHuberLoss(RegressionL2Loss):
@@ -179,6 +360,57 @@ class RegressionPoissonLoss(RegressionL2Loss):
     def boost_from_score(self, class_id=0):
         mean = RegressionL2Loss.boost_from_score(self, class_id)
         return math.log(mean) if mean > 0 else -np.inf
+
+
+class RegressionQuantileLoss(RegressionL1Loss):
+    name = "quantile"
+
+    def __init__(self, config):
+        super().__init__(config)
+        self.alpha = float(config.alpha)
+        if not 0.0 < self.alpha < 1.0:
+            log.fatal("quantile: alpha must be in (0, 1), got %g" % self.alpha)
+
+    def get_gradients(self, score):
+        # where(delta >= 0, 1 - alpha, -alpha), each side rounded to f32
+        grad = torch.full_like(score, -self.alpha).masked_fill_(score - self._label_dev >= 0,
+                                                                1.0 - self.alpha)
+        hess = torch.ones_like(score)
+        return self._apply_weight(grad, hess)
+
+    def boost_from_score(self, class_id=0):
+        return _percentile_maybe_weighted(self._label_np, self.weight, self.alpha)
+
+    def _renew_alpha(self):
+        return self.alpha
+
+
+class RegressionMAPELoss(RegressionL1Loss):
+    name = "mape"
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        if np.any(np.abs(self.label) < 1):
+            log.warning("Met 'abs(label) < 1', will convert them to '1' in MAPE objective and metric")
+        lw = 1.0 / np.maximum(1.0, np.abs(self.label))
+        if self.weight is not None:
+            lw = lw * self.weight
+        #: f32 1 / max(1, |label|), times the weight
+        self.label_weight = lw.astype(np.float32)
+        self._label_weight_dev = torch.as_tensor(self.label_weight, device=device)
+
+    def get_gradients(self, score):
+        grad = torch.sign(score - self._label_dev) * self._label_weight_dev
+        hess = torch.ones_like(score)
+        if self._weight_dev is not None:
+            hess = self._weight_dev * hess
+        return grad, hess
+
+    def boost_from_score(self, class_id=0):
+        return weighted_percentile(self._label_np, self.label_weight, 0.5)
+
+    def _renew_weights(self):
+        return self._label_weight_dev
 
 
 class RegressionGammaLoss(RegressionPoissonLoss):
@@ -451,14 +683,83 @@ class CrossEntropyLambda(ObjectiveFunction):
 
 
 # ---------------------------------------------------------------------------
+# LambdaRank (rank_objective.hpp)
+# ---------------------------------------------------------------------------
+
+def default_label_gain(size: int = 31) -> np.ndarray:
+    """DCGCalculator::DefaultLabelGain: 2^i - 1."""
+    return (np.power(2.0, np.arange(size)) - 1.0).astype(np.float64)
+
+
+def dcg_discount(positions: np.ndarray) -> np.ndarray:
+    """DCGCalculator::GetDiscount: 1 / log2(2 + i)."""
+    return 1.0 / np.log2(2.0 + positions)
+
+
+class LambdarankNDCG(ObjectiveFunction):
+    """LambdaRank's NDCG-weighted pairwise lambdas over query groups. The
+    query plan (ops/rank.py ``RankPlan``: boundaries, labels, f32 label
+    gains, f32 inverse max DCGs at ``max_position``, weights) is built at
+    set-up on the training device; the gradients come from
+    csrc/lambdarank.cu on the card and from its plain version on the CPU
+    (ops/rank_kernel.py)."""
+
+    name = "lambdarank"
+
+    def __init__(self, config: Config) -> None:
+        super().__init__(config)
+        self.sigmoid = float(config.sigmoid)
+        if self.sigmoid <= 0:
+            log.fatal("Sigmoid param %g should be greater than zero" % self.sigmoid)
+        lg = list(config.label_gain) if config.label_gain else list(default_label_gain())
+        self.label_gain = np.asarray(lg, np.float64)
+        self.optimize_pos_at = config.max_position
+
+    @property
+    def supports_boosting_modes(self):
+        return False
+
+    def init(self, metadata, num_data, device):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log.fatal("Lambdarank tasks require query information")
+        self.query_boundaries = metadata.query_boundaries
+        self.num_queries = metadata.num_queries
+        li = self.label.astype(np.int64)
+        if li.min() < 0 or li.max() >= len(self.label_gain):
+            log.fatal("Label exceeds label_gain size in lambdarank")
+        # inverse max DCG of each query at k = optimize_pos_at, in f64
+        inv = np.zeros(self.num_queries, np.float64)
+        for q in range(self.num_queries):
+            lo, hi = self.query_boundaries[q], self.query_boundaries[q + 1]
+            k = min(self.optimize_pos_at, hi - lo)
+            top = np.sort(li[lo:hi])[::-1][:k]
+            maxdcg = float(np.sum(self.label_gain[top] * dcg_discount(np.arange(k))))
+            inv[q] = 1.0 / maxdcg if maxdcg > 0 else 0.0
+        self.inverse_max_dcgs = inv
+        self.plan = rank_plain.RankPlan(self.query_boundaries, li, self.label_gain, inv, self.weight,
+                                        device)
+        # the long queries' discounts on the card, allocated once for the captured iteration
+        self._scratch = None
+        if device.type == "cuda" and self.plan.max_size > rank_kernel.SMEM_ROWS:
+            self._scratch = torch.empty(num_data, dtype=torch.float32, device=device)
+
+    def get_gradients(self, score):
+        return rank_kernel.lambdarank(score.contiguous(), self.plan, self.sigmoid, self._scratch)
+
+
+# ---------------------------------------------------------------------------
 # factory (objective_function.cpp:15-52)
 # ---------------------------------------------------------------------------
 
 _OBJECTIVES = {
     "regression": RegressionL2Loss,
+    "regression_l1": RegressionL1Loss,
     "huber": RegressionHuberLoss,
     "fair": RegressionFairLoss,
     "poisson": RegressionPoissonLoss,
+    "quantile": RegressionQuantileLoss,
+    "mape": RegressionMAPELoss,
     "gamma": RegressionGammaLoss,
     "tweedie": RegressionTweedieLoss,
     "binary": BinaryLogloss,
@@ -466,14 +767,11 @@ _OBJECTIVES = {
     "multiclassova": MulticlassOVA,
     "xentropy": CrossEntropy,
     "xentlambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
 }
 
 #: the JAX package's objectives the port refuses, and why
 _REFUSED = {
-    "regression_l1": "it renews leaf outputs (is_renew_tree_output)",
-    "quantile": "it renews leaf outputs (is_renew_tree_output)",
-    "mape": "it renews leaf outputs (is_renew_tree_output)",
-    "lambdarank": "ranking objectives are not ported",
     "none": "a custom objective (fobj) is not ported",
 }
 

@@ -7,7 +7,7 @@ launches all of them with one host call. The kernel wrappers count their
 launches in Python (``hist_kernel.launches``, ``grow_step_kernel.launches``,
 ``split_kernel.launches`` / ``step_launches`` / ``fold_launches``,
 ``partition_kernel.launches``, ``predict_kernel.launches``,
-``remap_kernel.launches``) and a replay
+``remap_kernel.launches``, ``rank_kernel.launches``) and a replay
 calls none of them, so :class:`Graph` records how many
 launches of each wrapper the capture recorded, takes them back off (a
 capture runs nothing), and adds them again at each replay: the counts stay
@@ -26,14 +26,15 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import (
-    grow_step_kernel, hist_kernel, partition_kernel, predict_kernel, remap_kernel, split_kernel,
+    grow_step_kernel, hist_kernel, partition_kernel, predict_kernel, rank_kernel, remap_kernel,
+    split_kernel,
 )
 
 
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch count, by its name in chip_smoke.py's
     kernels line (``split_pair``, ``split_pair_step``, ``split_pair_fold``,
-    ``pick_partition``, ``predict_bins``, ``efb_remap`` and the keys of
+    ``pick_partition``, ``predict_bins``, ``efb_remap``, ``lambdarank`` and the keys of
     ``hist_kernel.launches`` and ``grow_step_kernel.launches``)."""
     counts = dict(hist_kernel.launches)
     counts.update(grow_step_kernel.launches)
@@ -43,6 +44,7 @@ def launch_counts() -> Dict[str, int]:
     counts["pick_partition"] = partition_kernel.launches
     counts["predict_bins"] = predict_kernel.launches
     counts["efb_remap"] = remap_kernel.launches
+    counts["lambdarank"] = rank_kernel.launches
     return counts
 
 
@@ -61,6 +63,8 @@ def add_launches(delta: Dict[str, int]) -> None:
             predict_kernel.launches += n
         elif name == "efb_remap":
             remap_kernel.launches += n
+        elif name == "lambdarank":
+            rank_kernel.launches += n
         elif name in grow_step_kernel.launches:
             grow_step_kernel.launches[name] += n
         else:

@@ -95,16 +95,16 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("params,name", [
-    ({"objective": "quantile"}, "objective"),
-    ({"objective": "regression_l1"}, "objective"),
+    ({"objective": "none"}, "objective"),
+    ({"objective": "quantile", "boosting": "dart"}, "objective"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
     ({"cegb_penalty_split": 0.1}, "cegb"),
     ({"histogram_pool_size": 1.0}, "histogram_pool_size"),
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
-    ({"metric": "map"}, "metric"),
-    ({"metric": "ndcg"}, "metric"),
+    ({"metric": "auc_mu"}, "metric"),
+    ({"metric": "average_precision"}, "metric"),
 ])
 def test_unsupported_params_raise(params, name):
     X, y = _data()

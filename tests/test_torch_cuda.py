@@ -1777,3 +1777,230 @@ def test_predict_bins_bundled_matches_plain(dev, categorical):
                                       node_b)
         assert torch.equal(flat_leaf, got_leaf) and torch.equal(flat_score, got)
     assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
+
+
+# ---- LambdaRank's lambda kernel and leaf renewal (objective.py, ops/rank_kernel.py)
+
+
+def _rank_case(dev, sizes, seed=0, weighted=False):
+    """A RankPlan over queries of ``sizes`` on ``dev`` (labels 0-4, about
+    half 0; query 3 of one label; query 2's scores all equal) and f32
+    scores."""
+    from lightgbm_tpu_torch.objective import default_label_gain
+    from lightgbm_tpu_torch.ops import rank as rank_plain
+
+    rng = np.random.RandomState(seed)
+    qb = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    n = int(qb[-1])
+    label = rng.randint(0, 5, n) * (rng.rand(n) < 0.5)
+    label[qb[3]:qb[4]] = 2
+    inv = rng.uniform(0.01, 0.2, len(sizes))
+    w = rng.uniform(0.5, 2.0, n).astype(np.float32) if weighted else None
+    score = rng.randn(n).astype(np.float32)
+    score[qb[2]:qb[3]] = 0.75
+    plan = rank_plain.RankPlan(qb, label, default_label_gain(), inv, w, dev)
+    return plan, torch.tensor(score, device=dev)
+
+
+def _lambdas_blocked(score, plan, sigmoid, q):
+    """Query ``q``'s lambdas and hessians by the plain version's f32 formula
+    (ops/rank.py ``bucket_lambdas``: the same ranks, discounts and pair
+    terms) in row blocks of 512 against the whole query, its sums in f64: a
+    query too long for the plain version's [S, S] pair tensors."""
+    lo, hi = int(plan.qb[q]), int(plan.qb[q + 1])
+    s = score[lo:hi]
+    lab, gain = plan.label[lo:hi], plan.gain[lo:hi]
+    order = torch.argsort(-s, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(hi - lo, device=s.device)
+    disc = torch.reciprocal(torch.log2(2.0 + rank.to(torch.float32)))
+    spread = bool(s.max() != s.min())
+    f64 = torch.float64
+    g, h = torch.zeros(hi - lo, dtype=f64, device=s.device), torch.zeros(hi - lo, dtype=f64,
+                                                                         device=s.device)
+    for a in range(0, hi - lo, 512):
+        b = min(a + 512, hi - lo)
+        for side in ("ij", "ji"):  # pairs (i, j) with i high, then (j, i) with j high
+            rows = slice(a, b)
+            if side == "ij":
+                dl = lab[rows, None] > lab[None, :]
+                ds = s[rows, None] - s[None, :]
+                gap = gain[rows, None] - gain[None, :]
+                pd = torch.abs(disc[rows, None] - disc[None, :])
+            else:
+                dl = lab[None, :] > lab[rows, None]
+                ds = s[None, :] - s[rows, None]
+                gap = gain[None, :] - gain[rows, None]
+                pd = torch.abs(disc[None, :] - disc[rows, None])
+            delta = gap * pd * plan.invq[q]
+            if spread:
+                delta = delta / (0.01 + torch.abs(ds))
+            p = 2.0 * torch.reciprocal(1.0 + torch.exp(2.0 * ds * sigmoid))
+            lam = torch.where(dl, -p * delta, 0.0).sum(1, dtype=f64)
+            hes = torch.where(dl, p * (2.0 - p) * 2.0 * delta, 0.0).sum(1, dtype=f64)
+            g[a:b] += lam if side == "ij" else -lam
+            h[a:b] += hes
+    g, h = g.to(torch.float32), h.to(torch.float32)
+    if plan.weight is not None:
+        g, h = g * plan.weight[lo:hi], h * plan.weight[lo:hi]
+    return g, h
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_lambdarank_kernel_matches_plain(dev, weighted):
+    """csrc/lambdarank.cu on queries of 1 to 2,561 rows (both sides of the
+    shared-memory limit) against its plain version within rtol 2e-4 / atol
+    2e-6, equal bits on a relaunch, one launch counted a call; a 20,000-row
+    query (global memory and the scratch) against the plain version's
+    formula taken in row blocks; at equal scores (iteration 0) too."""
+    from lightgbm_tpu_torch.ops import rank as rank_plain
+    from lightgbm_tpu_torch.ops import rank_kernel
+
+    sizes = [1, 2, 7, 8, 9, 20, 33, 64, 130, 1251, 2560, 2561, 5, 1]
+    plan, score = _rank_case(dev, sizes, weighted=weighted)
+    for s in (score, torch.zeros_like(score)):
+        before = rank_kernel.launches
+        g, h = rank_kernel.lambdarank(s, plan, 1.3)
+        g2, h2 = rank_kernel.lambdarank(s, plan, 1.3)
+        assert rank_kernel.launches == before + 2
+        assert torch.equal(g, g2) and torch.equal(h, h2)
+        pg, ph = rank_plain.lambdas(s, plan, 1.3)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(g, pg, rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(h, ph, rtol=2e-4, atol=2e-6)
+        assert g[0] == 0 and h[-1] == 0 and (g[plan._qb_np[3]:plan._qb_np[4]] == 0).all()
+    big, score = _rank_case(dev, [3, 20_000, 17, 1, 5], seed=1, weighted=weighted)
+    g, h = rank_kernel.lambdarank(score, big, 0.7)
+    g2, h2 = rank_kernel.lambdarank(score, big, 0.7)
+    assert torch.equal(g, g2) and torch.equal(h, h2)
+    for q in range(big.num_queries):
+        lo, hi = big._qb_np[q], big._qb_np[q + 1]
+        wg, wh = _lambdas_blocked(score, big, 0.7, q)
+        torch.testing.assert_close(g[lo:hi], wg, rtol=2e-4, atol=2e-6)
+        torch.testing.assert_close(h[lo:hi], wh, rtol=2e-4, atol=2e-6)
+
+
+def test_lambdarank_kernel_refuses_what_it_does_not_take(dev):
+    from lightgbm_tpu_torch.ops import rank_kernel
+
+    plan, score = _rank_case(dev, [3, 4, 5, 6])
+    with pytest.raises(ValueError, match="contiguous float32"):
+        rank_kernel.lambdarank(score.double(), plan, 1.0)
+    with pytest.raises(ValueError, match="lies on"):
+        rank_kernel.lambdarank(score.cpu(), plan, 1.0)
+
+
+def _grown_regression_state(dev, n=50_000, M=63, seed=0):
+    """A device-loop state after one tree on ``dev`` (L1's sign gradients
+    on a regression table), its rows' leaves and labels."""
+    import lightgbm_tpu_torch as tlgb
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8)
+    y = 3.0 * X[:, 0] + X[:, 1] ** 2 + rng.randn(n) + 5.0
+    ds = tlgb.Dataset(X, label=y).construct()._binned
+    bins = torch.tensor(np.ascontiguousarray(ds.bins, dtype=np.uint8), device=dev)
+    meta = ds.feature_meta_arrays()
+    fm = {k: torch.as_tensor(meta[k].astype(np.int32), device=dev)
+          for k in ("num_bin", "missing_type", "default_bin", "monotone")}
+    g = torch.tensor(np.sign(5.0 - y), dtype=torch.float32, device=dev)
+    _, leaf_id, s = grow_tree_device(
+        bins, g, torch.ones(n, device=dev), torch.ones(ds.num_features, dtype=torch.bool, device=dev),
+        fm, num_leaves=M, max_depth=-1, num_bins=int(ds.max_num_bin),
+        params=SplitParams(0.0, 0.0, 0.0, 20, 1e-3, 0.0), two_way=False,
+        bins_nf=bins.t().contiguous())
+    return s, leaf_id, y
+
+
+@pytest.mark.parametrize("name", ["regression_l1", "quantile", "mape"])
+def test_renewal_on_the_card_equals_the_cpu(dev, name):
+    """The renewal as the device loop calls it on the card (the rows'
+    leaves from the leaf_ids kernel over the loop's state) equals the
+    renewal from the rows' leaves on the CPU: bit for bit unweighted (L1, quantile),
+    within 1e-5 where MAPE's weights go through an f32 cumsum (the card's
+    scan and the CPU's double accumulator differ), with a bag."""
+    from lightgbm_tpu_torch import objective as tobj
+    from lightgbm_tpu_torch.config import Config as TConfig
+    from lightgbm_tpu_torch.dataset import Metadata as TMetadata
+
+    s, leaf_id, y = _grown_regression_state(dev)
+    n = len(y)
+    rng = np.random.RandomState(1)
+    score = torch.tensor(rng.randn(n) + 5.0, dtype=torch.float32)
+    bag = torch.tensor(rng.rand(n) < 0.8, dtype=torch.float32)
+    params = {"objective": name, "alpha": 0.9, "verbose": -1}
+    objs = {}
+    for d in (dev, torch.device("cpu")):
+        objs[d.type] = tobj.create_objective(TConfig.from_params(dict(params)))
+        objs[d.type].init(TMetadata(n, label=y), n, d)
+    old = s.leaf_f[:, 0].clone()
+    card_leaf = grow_step_kernel.leaf_ids(s)
+    assert torch.equal(card_leaf, leaf_id)
+    got = objs["cuda"].renew_leaf_outputs(score.to(dev), card_leaf, bag.to(dev), s.M, old).cpu()
+    want = objs["cpu"].renew_leaf_outputs(score, leaf_id.cpu(), bag, s.M, old.cpu())
+    if name == "mape":
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+def _rank_boosters(monkeypatch, dev, params):
+    """A booster factory on 100k rows of 8 features in queries of 1 to 250
+    rows (LambdaRank; else the objective of ``params`` on a regression
+    label), the lambdas rounded to multiples of 2^-7 after the kernel
+    (hessians at least 2^-7): every histogram sum is exact, so training is
+    the same bit for bit whatever the kernels' summation order."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as obj_mod
+
+    get = obj_mod.LambdarankNDCG.get_gradients
+    q = 128.0
+
+    def dyadic(self, score):
+        g, h = get(self, score)
+        return torch.round(g * q) / q, torch.clamp(torch.round(h * q), min=1.0) / q
+
+    monkeypatch.setattr(obj_mod.LambdarankNDCG, "get_gradients", dyadic)
+    rng = np.random.RandomState(3)
+    sizes = rng.randint(1, 251, 900)
+    n = int(sizes.sum())
+    X = rng.randn(n, 8)
+    y = 3.0 * X[:, 0] + X[:, 1] ** 2 + rng.randn(n)
+    rank = params["objective"] == "lambdarank"
+    label = np.clip(np.round(y - 1.0), 0, 4) if rank else y + 5.0
+    ds = tlgb.Dataset(X, label=label, group=sizes if rank else None)
+    base = {"num_leaves": 63, "max_bin": 255, "learning_rate": 0.1, "verbose": -1, **params}
+
+    def booster(chunk=1, graph=True):
+        b = tlgb.Booster(dict(base, device_chunk_size=chunk), ds, device="cuda")
+        b._gbdt.iteration_graph = graph
+        return b
+    return booster
+
+
+@pytest.mark.parametrize("params", [
+    {"objective": "lambdarank"},
+    {"objective": "regression_l1", "bagging_fraction": 0.8, "bagging_freq": 1},
+])
+def test_captured_rank_and_renewal_iterations_equal_eager(monkeypatch, dev, params):
+    """A captured LambdaRank iteration (the lambda kernel inside the graph)
+    and a captured L1 iteration (the renewal inside the graph, with a bag):
+    replays, chunks of 4 and the eager launches give the same model text and
+    train scores bit for bit; the replays count the lambda kernel."""
+    from lightgbm_tpu_torch.ops import rank_kernel
+
+    booster = _rank_boosters(monkeypatch, dev, params)
+    runs = {}
+    for kind, (chunk, graph) in {"eager": (1, False), "graph": (1, True), "chunk": (4, True)}.items():
+        b = booster(chunk, graph)
+        before = rank_kernel.launches
+        assert not b.update()
+        while b.current_iteration < 9:
+            assert not b.update_chunk(chunk)[1]
+        if params["objective"] == "lambdarank":
+            assert rank_kernel.launches - before == 9, kind
+        runs[kind] = b
+    assert runs["graph"]._gbdt.captures == 1 and runs["chunk"]._gbdt.captures == 1
+    for kind in ("graph", "chunk"):
+        assert _trees_text(runs[kind]) == _trees_text(runs["eager"]), kind
+        assert runs[kind]._gbdt.train_score().tobytes() == runs["eager"]._gbdt.train_score().tobytes()

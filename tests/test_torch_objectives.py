@@ -15,7 +15,10 @@ labels, weights and scores.
  * the model string (``to_string``) and its round trip through both
    packages' ``objective_from_model_string``;
  * every ported metric's value;
- * the objectives and metrics still refused raise, naming themselves.
+ * a custom objective and an unknown metric raise, naming themselves; the
+   objectives and metrics refused before (``regression_l1``, ``quantile``,
+   ``mape``, ``lambdarank``, ``ndcg``, ``map``) train or evaluate as the
+   JAX package's.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -219,13 +222,60 @@ def test_metric_matches_jax(name, case, weighted):
     np.testing.assert_allclose([v for _, v, _ in got], [v for _, v, _ in want], rtol=1e-12)
 
 
-@pytest.mark.parametrize("name", ["regression_l1", "quantile", "mape", "lambdarank", "none"])
+@pytest.mark.parametrize("name", ["none"])
 def test_refused_objectives_name_themselves(name):
     with pytest.raises(NotImplementedError, match="objective=%s" % name):
         tobj.create_objective(TConfig.from_params({"objective": name, "verbose": -1}))
 
 
-@pytest.mark.parametrize("name", ["ndcg", "map"])
+@pytest.mark.parametrize("name", ["ndcg_at_k"])
 def test_refused_metrics_name_themselves(name):
+    """Only a name that neither package knows is refused."""
     with pytest.raises(NotImplementedError, match="metric=%s" % name):
         tmetric.create_metric(name, TConfig.from_params({"verbose": -1}))
+
+
+def _queries(n):
+    sizes = np.full(n // 10, 10)
+    sizes[-1] += n - sizes.sum()
+    return sizes
+
+
+@pytest.mark.parametrize("name", ["regression_l1", "quantile", "mape", "lambdarank"])
+def test_formerly_refused_objectives_train(name):
+    """The objectives once refused here train 3 iterations on the CPU and
+    predict what the JAX package's same training predicts (raw scores
+    within rtol 1e-4; tests/test_torch_renew.py and test_torch_rank.py hold
+    them closer)."""
+    import lightgbm_tpu as jlgb
+    import lightgbm_tpu_torch as tlgb
+
+    rng = np.random.RandomState(3)
+    X = rng.randn(N, 4)
+    y = X[:, 0] * 2.0 + X[:, 1] ** 2 + rng.randn(N) + 5.0
+    if name == "lambdarank":
+        y = np.clip(np.round(y - 4.0), 0, 4)
+    group = _queries(N) if name == "lambdarank" else None
+    params = {"objective": name, "num_leaves": 7, "verbose": -1}
+    tb = tlgb.train(dict(params), tlgb.Dataset(X, label=y, group=group), 3, device="cpu")
+    jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y, group=group), 3)
+    assert tb.num_trees() == 3 and tb._gbdt.objective.name == name
+    np.testing.assert_allclose(tb.predict(X, raw_score=True), jb.predict(X, raw_score=True),
+                               rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["ndcg", "map"])
+def test_formerly_refused_metrics_evaluate(name):
+    """ndcg@k and map@k, once refused here, evaluate as the JAX package's
+    do (tests/test_torch_rank.py holds them with query weights)."""
+    rng = np.random.RandomState(4)
+    label = rng.randint(0, 4, N).astype(np.float64)
+    params = {"verbose": -1, "eval_at": [2, 4]}
+    jm = jmetric.create_metric(name, JConfig.from_params(dict(params)))
+    tm = tmetric.create_metric(name, TConfig.from_params(dict(params)))
+    jm.init(JMetadata(N, label=label, group=_queries(N)), N)
+    tm.init(TMetadata(N, label=label, group=_queries(N)), N)
+    score = rng.randn(N)
+    got, want = tm.eval(score, None), jm.eval(score, None)
+    assert [m for m, _, _ in got] == ["%s@2" % name, "%s@4" % name] == [m for m, _, _ in want]
+    np.testing.assert_allclose([v for _, v, _ in got], [v for _, v, _ in want], rtol=1e-12)
