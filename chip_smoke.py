@@ -219,6 +219,25 @@ Phases (each prints one line; any failure exits non-zero):
     (``renewal_bracket``); the renewal's ms a tree (an eager call, and a
     replay of the call captured alone); turns of 10 iterations
     (graph, chunk, chunk, graph) and a profiled replay and chunk;
+ 4m. the training API on the main path's table with 4d's held-out set: a
+    numpy binary log-loss objective (``fobj``) through ``train``, 10
+    iterations, its held-out AUC within 2e-3 of the built-in objective's at
+    the same start (no boost from average), it/s in turns with the built-in
+    one (fobj, built-in, built-in, fobj), the host's ms an iteration (score
+    readback, objective, upload), kernels and copies of a profiled replay,
+    one capture; the objective rounded to 2^-7 at 100k rows: the replays,
+    the eager launches and the CPU's plain loop equal in trees and scores;
+    ``init_model``: 5 + 5 iterations (bagging 0.8, feature_fraction 0.8)
+    through a saved file, the warm start's init scores equal to the
+    parent's live score carry bit for bit, its held-out AUC within 2e-3 of
+    the 10-iteration run's, and at 100k rows with the rounded objective the
+    model text equal to the one-shot run's; ``cv`` with 5 folds, 10
+    iterations, AUC (auc-mean above 0.7, one capture a fold, its seconds);
+    the mode x objective pairs GOSS x quantile, DART x regression_l1 (from
+    the training median as init score) and random forest x mape on 4e's
+    table and GOSS x lambdarank on 500,000 LETOR-shaped rows, 10 iterations
+    each with 4l's or 4k's quality guard, it/s, busy ms, and the replays
+    equal to the eager launches on 100k rows with the gradients rounded;
  5. the same configuration at 100k rows for 3 iterations on device="cuda"
     (the eager launches) and device="cpu" (the plain versions), every
     histogram call of the CUDA run (the root's and each segment entry's) held to its plain version
@@ -255,7 +274,7 @@ Phases (each prints one line; any failure exits non-zero):
     lies within the f32 error bound of the sums behind the flipped node;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
-    4f's, 4g's, 4h's, 4i's, 4j's, 4k's and 4l's trainings and turns, the
+    4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
     sweep and the routed
     trainings, each with the counts set to 0 just before it and read just
     after; the split loop's kernels timed in phase 4b, leaf_ids and
@@ -2701,6 +2720,321 @@ def main() -> int:
         renew_rec[name_] = rec
         del b_, g_, bsts, seen, ob_
     say("renewal", rows=YEAR_ROWS, valid_rows=YEAR_VALID_ROWS, **renew_rec)
+
+    # ---- 4m. the training API: a custom objective, continued training, cv and the
+    # boosting modes with ranking and leaf renewal ------------------------------------------
+    # the main path's table (1M x 28, 255 leaves) and 4d's held-out set; the
+    # mode pairs on 4e's table and on a LETOR-shaped one; each run's launches
+    # count as the main path's (``counted``)
+    api, api_s = {}, {}
+    t_part = [time.perf_counter()]
+
+    def part_done(name_):
+        now_ = time.perf_counter()
+        api_s[name_] = now_ - t_part[0]
+        t_part[0] = now_
+
+    def logloss_fobj(labels, q=None):
+        """A user's numpy binary log-loss objective; with ``q`` its
+        gradients and hessians rounded to multiples of 1/q (every
+        histogram sum exact)."""
+        def fobj(preds, _dataset):
+            p_ = 1.0 / (1.0 + np.exp(-preds))
+            g_, h_ = p_ - labels, p_ * (1.0 - p_)
+            if q is not None:
+                g_, h_ = np.round(g_ * q) / q, np.maximum(np.round(h_ * q), 1.0) / q
+            return g_, h_
+        return fobj
+
+    def valid_auc(evals_):
+        return evals_["valid_0"]["auc"][-1]
+
+    # a custom objective against the built-in one at the same start (no boost
+    # from average: a custom objective has none), 10 iterations each through
+    # train with the held-out AUC at every boundary
+    fobj_main = logloss_fobj(y)
+    plain_params = dict(TRAIN_PARAMS, boost_from_average=False)
+    evals_f, evals_b = {}, {}
+    fbst, fobj_train_s, fobj_launches = counted(lambda: lgb.train(
+        dict(TRAIN_PARAMS), train_set, 10, fobj=fobj_main, valid_sets=[valid_set],
+        evals_result=evals_f, verbose_eval=False))
+    bbst, builtin_train_s, builtin_launches = counted(lambda: lgb.train(
+        dict(plain_params), train_set, 10, valid_sets=[valid_set], evals_result=evals_b,
+        verbose_eval=False))
+    gfo = fbst._gbdt
+    assert gfo.objective is None and gfo._custom_grads and gfo.grow_loop == "device"
+    assert all(fobj_launches.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",)), fobj_launches
+    auc_f, auc_b = valid_auc(evals_f), valid_auc(evals_b)
+    assert abs(auc_f - auc_b) <= 2e-3 and auc_f > 0.7, (auc_f, auc_b)
+    # the host's share of a custom iteration: the scores read back, the
+    # objective, the gradients' upload (queued)
+    host_ms = {"score_readback": [], "fobj": [], "upload": []}
+
+    def host_timed(name_, fn):
+        def run(*a_):
+            t0_ = time.perf_counter()
+            out_ = fn(*a_)
+            host_ms[name_].append((time.perf_counter() - t0_) * 1e3)
+            return out_
+        return run
+
+    gfo.train_score = host_timed("score_readback", gfo.train_score)
+    gfo._upload_gradients = host_timed("upload", gfo._upload_gradients)
+    fobj_timed = host_timed("fobj", fobj_main)
+    fobj_ips, builtin_ips, turn_launches = [], [], {}
+    for kind in ("fobj", "builtin", "builtin", "fobj"):
+        if kind == "fobj":
+            def turn():
+                for _ in range(10):
+                    fbst.update(fobj=fobj_timed)
+        else:
+            def turn():
+                for _ in range(10):
+                    bbst.update()
+        _, secs_, got_ = counted(turn)
+        (fobj_ips if kind == "fobj" else builtin_ips).append(10 / secs_)
+        turn_launches.setdefault(kind, got_)
+    assert gfo.captures == 1, gfo.captures
+    # two iterations a profiled window (the profiler may lose a window's
+    # first events, the upload among them), reported per iteration
+    busy_f, kernels_f, copies_f, timeline_f, _ = profiled(
+        lambda: [fbst.update(fobj=fobj_main) for _ in range(2)])
+    busy_b, kernels_b, copies_b, timeline_b, _ = profiled(lambda: [bbst.update() for _ in range(2)])
+    assert gfo.captures == 1, gfo.captures
+    del gfo.train_score, gfo._upload_gradients
+    api["fobj"] = dict(
+        valid_auc=auc_f, builtin_valid_auc=auc_b, train_s=fobj_train_s,
+        builtin_train_s=builtin_train_s, iterations_per_s=fobj_ips,
+        builtin_iterations_per_s=builtin_ips,
+        host_ms_per_iteration={k_: statistics.median(v_) for k_, v_ in host_ms.items()},
+        launches_per_turn=turn_launches, captures=gfo.captures,
+        profile=dict(device_busy_ms_per_iteration=busy_f / 2, builtin_device_busy_ms=busy_b / 2,
+                     kernels_per_iteration=timeline_f["kernels"] / 2
+                     if isinstance(timeline_f, dict) else "not measured",
+                     builtin_kernels_per_iteration=timeline_b["kernels"] / 2
+                     if isinstance(timeline_b, dict) else "not measured",
+                     copies_in_two_replays=copies_f, builtin_copies_in_two=copies_b))
+    del fbst, bbst, gfo
+    part_done("fobj")
+
+    # the same objective rounded to 2^-7 at 100k rows: the replays, the eager
+    # launches and the CPU's plain loop grow the same trees and scores
+    Xs_api, ys_api = X[:100_000], y[:100_000]
+    fobj_r = logloss_fobj(ys_api, q=128.0)
+    eq_api = {}
+    for kind, device_, graph_on in (("graph", "cuda", True), ("eager", "cuda", False),
+                                    ("cpu", "cpu", False)):
+        b_ = lgb.Booster(dict(TRAIN_PARAMS, objective="none"), lgb.Dataset(Xs_api, label=ys_api),
+                         device=device_)
+        b_._gbdt.iteration_graph = graph_on
+        for _ in range(3):
+            assert not b_.update(fobj=fobj_r)
+        eq_api[kind] = (b_.model_to_string().split("parameters:")[0],
+                        b_._gbdt.train_score().tobytes())
+        if kind == "graph":
+            assert b_._gbdt.captures == 1
+    assert eq_api["graph"] == eq_api["eager"] == eq_api["cpu"], "fobj: replay != eager != cpu"
+    api["fobj"]["replay_equals_eager_and_cpu"] = dict(rows=100_000, iterations=3)
+    del eq_api
+    part_done("fobj_bitwise")
+
+    # continued training: 5 + 5 iterations with bagging 0.8 and
+    # feature_fraction 0.8 through a saved file, against 10 in one run
+    tmp_api = tempfile.TemporaryDirectory(prefix="lgbt-api-")
+    warm_params = dict(TRAIN_PARAMS, bagging_fraction=0.8, bagging_freq=1, feature_fraction=0.8)
+    evals_one, evals_warm = {}, {}
+    one_bst, one_s, _ = counted(lambda: lgb.train(
+        dict(warm_params), train_set, 10, valid_sets=[valid_set], evals_result=evals_one,
+        verbose_eval=False))
+    first_bst, first_s, _ = counted(lambda: lgb.train(dict(warm_params), train_set, 5,
+                                                      verbose_eval=False))
+    parent_carry = first_bst._gbdt.scores.cpu().numpy()
+    model_path = os.path.join(tmp_api.name, "first.txt")
+    first_bst.save_model(model_path)
+    warm_set = train_set.subset(np.arange(N))
+    warm_bst, warm_s, warm_launches = counted(lambda: lgb.train(
+        dict(warm_params), warm_set, 5, init_model=model_path, valid_sets=[valid_set],
+        evals_result=evals_warm, verbose_eval=False))
+    init_f32 = warm_set.construct()._binned.metadata.init_score.astype(np.float32)
+    assert init_f32.tobytes() == parent_carry[0].tobytes(), "warm-start init != parent carry"
+    assert warm_bst.num_trees() == one_bst.num_trees() == 10 and warm_bst._gbdt.captures == 1
+    assert all(warm_launches.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",))
+    auc_one, auc_warm = valid_auc(evals_one), valid_auc(evals_warm)
+    assert abs(auc_one - auc_warm) <= 2e-3, (auc_one, auc_warm)
+    # byte for byte at 100k rows with the rounded objective
+    ds_w = lgb.Dataset(Xs_api, label=ys_api)
+    one_r = lgb.train(dict(warm_params), ds_w, 10, fobj=fobj_r, verbose_eval=False)
+    first_r = lgb.train(dict(warm_params), ds_w, 5, fobj=fobj_r, verbose_eval=False)
+    path_r = os.path.join(tmp_api.name, "first_r.txt")
+    first_r.save_model(path_r)
+    warm_r = lgb.train(dict(warm_params), lgb.Dataset(Xs_api, label=ys_api), 5, fobj=fobj_r,
+                       init_model=path_r, verbose_eval=False)
+    assert warm_r.model_to_string() == one_r.model_to_string(), "warm-start text != one-shot"
+    api["init_model"] = dict(
+        valid_auc=auc_warm, one_shot_valid_auc=auc_one, init_equals_parent_carry=True,
+        first_train_s=first_s, warm_train_s=warm_s, one_shot_train_s=one_s,
+        text_equals_one_shot=dict(rows=100_000, iterations="5 + 5"))
+    del one_bst, first_bst, warm_bst, warm_set, one_r, first_r, warm_r, ds_w
+    tmp_api.cleanup()
+    part_done("init_model")
+
+    # cv: 5 folds of the main path's table, 10 iterations, AUC
+    t0 = time.perf_counter()
+    cv_res = lgb.cv(dict(TRAIN_PARAMS, metric="auc"), train_set, 10, nfold=5,
+                    return_cvbooster=True)
+    cv_s = time.perf_counter() - t0
+    cvb = cv_res.pop("cvbooster")
+    fold_captures = [b_._gbdt.captures for b_ in cvb.boosters]
+    assert fold_captures == [1] * 5 and all(b_._gbdt.grow_loop == "device" for b_ in cvb.boosters)
+    assert cv_res["auc-mean"][-1] > 0.7, cv_res
+    api["cv"] = dict(nfold=5, rounds=10, seconds=cv_s, auc_mean=cv_res["auc-mean"],
+                     auc_stdv=cv_res["auc-stdv"], fold_captures=fold_captures,
+                     fold_rows=[b_._gbdt.num_data for b_ in cvb.boosters])
+    del cvb, cv_res
+    part_done("cv")
+
+    # the mode x objective pairs: GOSS x quantile, DART x regression_l1 and
+    # random forest x mape on 4e's table, GOSS x lambdarank on 500,000
+    # LETOR-shaped rows; 10 iterations each with the held-out metric at every
+    # boundary, then a turn of 10 without evaluation and a profiled replay
+    goss_ = dict(boosting="goss", top_rate=0.2, other_rate=0.1, learning_rate=0.25)
+    quantile_goss = {k_: v_ for k_, v_ in RENEW_PARAMS["quantile"].items()
+                     if not k_.startswith("bagging")}
+    t0 = time.perf_counter()
+    Xq, yq, qq = letor_like_rows(500_000, seed=33)
+    Xqv, yqv, qqv = letor_like_rows(100_000, seed=34)
+    letor_set = lgb.Dataset(Xq, label=yq, group=qq)
+    letor_valid = letor_set.create_valid(Xqv, label=yqv, group=qqv)
+    letor_cfg = Config.from_params(dict(LETOR_PARAMS))
+    letor_set.get_binned(letor_cfg)
+    letor_valid.get_binned(letor_cfg)
+    letor_data_s = time.perf_counter() - t0
+    # DART x L1 starts from the training median as every row's init score:
+    # from the boost-from-average score its first tree would hold the label's
+    # offset (years near 2000), and a drop of that tree leaves every residual
+    # of one sign, where no L1 split has a gain (the JAX package stops there too)
+    med_set, med_valid = year_set.subset(np.arange(YEAR_ROWS)), year_valid.subset(
+        np.arange(YEAR_VALID_ROWS))
+    med_set.construct(year_cfg).set_init_score(np.full(YEAR_ROWS, med))
+    med_valid.construct(year_cfg).set_init_score(np.full(YEAR_VALID_ROWS, med))
+    pairs = {  # params, training set, held-out set, the offset of its predictions
+        "goss_quantile": (dict(quantile_goss, **goss_), year_set, year_valid, 0.0),
+        "dart_regression_l1": (dict(RENEW_PARAMS["regression_l1"], boosting="dart"), med_set,
+                               med_valid, med),
+        "rf_mape": (dict(RENEW_PARAMS["mape"], boosting="rf", bagging_fraction=0.8,
+                         bagging_freq=1), year_set, year_valid, 0.0),
+        "goss_lambdarank": (dict(LETOR_PARAMS, **goss_), letor_set, letor_valid, 0.0),
+    }
+    rounded_classes = (objective_mod.RegressionQuantileLoss, objective_mod.RegressionL1Loss,
+                       objective_mod.RegressionMAPELoss, objective_mod.LambdarankNDCG)
+
+    def round_gradients():
+        """Every pair's gradients rounded to multiples of 2^-7 (MAPE's, whose
+        weights 1 / |label| are near 2^-11 here, to multiples of 2^-18; 100k
+        of them sum below 2^6, still exact) and hessians to multiples of 2^-7
+        (at least 2^-7), after the objective; returns the undo."""
+        saved = {c_: c_.__dict__.get("get_gradients") for c_ in rounded_classes}
+        for c_ in rounded_classes:
+            q_ = 2.0 ** 18 if c_ is objective_mod.RegressionMAPELoss else 128.0
+
+            def rounded(self, score, get_=c_.get_gradients, q_=q_):
+                g_, h_ = get_(self, score)
+                return (torch.round(g_ * q_) / q_,
+                        torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0)
+            c_.get_gradients = rounded
+
+        def undo():
+            for c_, fn_ in saved.items():
+                if fn_ is None:
+                    del c_.get_gradients
+                else:
+                    c_.get_gradients = fn_
+        return undo
+
+    # 100,000 rows exactly (the last query cut short): GOSS's amplification
+    # (100,000 - 20,000) / 10,000 = 8 keeps the amplified gradients dyadic
+    n_eq = min(100_000, len(yq))
+    q_eq = int(np.searchsorted(np.cumsum(qq), n_eq))
+    q_sizes = np.append(qq[:q_eq], n_eq - int(np.sum(qq[:q_eq])))
+    n_year = min(100_000, len(yy))
+    eq_median = year_set.subset(np.arange(n_year))
+    eq_median.construct(year_cfg).set_init_score(np.full(n_year, med))
+    eq_sets = {"year": year_set.subset(np.arange(n_year)), "year_median": eq_median,
+               "letor": lgb.Dataset(Xq[:n_eq], label=yq[:n_eq], group=q_sizes,
+                                    reference=letor_set)}
+    pair_rec = {"letor_data_s": letor_data_s}
+    for pair, (params_, set_, valid_, offset_) in pairs.items():
+        evals_ = {}
+        b_, secs_, launches_ = counted(lambda: lgb.train(
+            dict(params_), set_, 10, valid_sets=[valid_], evals_result=evals_, verbose_eval=False))
+        g_ = b_._gbdt
+        rank_ = params_["objective"] == "lambdarank"
+        assert g_.grow_loop == "device" and b_.num_trees() == 10, (pair, g_.grow_loop, b_.num_trees())
+        assert g_.captures == (2 if pair.startswith("goss") else 1), (pair, g_.captures)
+        assert g_._renew == (not rank_), pair
+        assert all(launches_.get(k_, 0) > 0 for k_ in loop_kernels + ("predict_bins",)), launches_
+        if rank_:
+            assert launches_.get("lambdarank", 0) == 10, launches_
+            const_ = {m_: v_ for m_, v_, _ in g_.valid_metrics[0][0].eval(
+                np.zeros(len(yqv)), None)}
+            guard = dict(valid_ndcg10=evals_["valid_0"]["ndcg@10"][-1],
+                         constant_ndcg10=const_["ndcg@10"])
+            assert guard["valid_ndcg10"] > guard["constant_ndcg10"], guard
+        else:
+            pred_ = b_.predict(Xyv) + offset_
+            assert np.all(np.isfinite(pred_))
+            guard = dict(valid_l1=float(np.mean(np.abs(yyv - pred_))),
+                         constant_median_valid_l1=renew_rec["constant_median_valid_l1"])
+            if params_["objective"] == "quantile":
+                # GOSS's bag keeps every row of the top gradients, the rows
+                # under-predicted at alpha 0.9, so the renewal's percentile
+                # over the bag sits high: the coverage is recorded and the
+                # guard is the held-out quantile loss below the constant
+                # 0.9-quantile's
+                guard["valid_coverage"] = float(np.mean(yyv <= pred_))
+                c_ = float(np.quantile(yy, 0.9))
+                guard["constant_valid_quantile"] = float(np.mean(np.maximum(
+                    0.9 * (yyv - c_), -0.1 * (yyv - c_))))
+                guard["valid_quantile"] = evals_["valid_0"]["quantile"][-1]
+                assert guard["valid_quantile"] < guard["constant_valid_quantile"], guard
+            else:
+                assert guard["valid_l1"] < guard["constant_median_valid_l1"], guard
+        if pair.startswith("goss"):
+            assert g_._bag is g_._goss_mask and int(g_._bag.sum()) == sum(g_._goss_k), pair
+        _, turn_s, _ = counted(lambda: bench_mod.train_iterations(b_, 10, 1))
+        busy_, kernels_, copies_, timeline_, _ = profiled(b_.update)
+        rec = dict(params=params_, train_s=secs_, train_iterations_per_s_with_eval=10 / secs_,
+                   iterations_per_s=10 / turn_s, launches=launches_, valid_metric=evals_["valid_0"],
+                   guard=guard, captures=g_.captures,
+                   profile=dict(device_busy_ms_per_iteration=busy_, copies=copies_,
+                                kernels_per_iteration=timeline_["kernels"]
+                                if isinstance(timeline_, dict) else "not measured",
+                                device_idle_share=1 - busy_ * (10 / turn_s) / 1e3
+                                if busy_ else "not measured"))
+        del b_, g_
+        # the replays equal the eager launches on 100k rows, gradients rounded
+        eq_set = eq_sets["letor" if rank_ else "year_median" if offset_ else "year"]
+        undo = round_gradients()
+        try:
+            same = {}
+            for kind, graph_on in (("eager", False), ("graph", True)):
+                bb_ = lgb.Booster(dict(params_), eq_set)
+                bb_._gbdt.iteration_graph = graph_on
+                ran_ = bench_mod.train_iterations(bb_, 6, 1)
+                assert ran_ == 6, (pair, kind, ran_)
+                same[kind] = (bb_.model_to_string().split("parameters:")[0],
+                              bb_._gbdt.train_score().tobytes())
+        finally:
+            undo()
+        assert same["graph"] == same["eager"], ("replays != eager launches", pair)
+        rec["replays_equal_eager"] = dict(rows=eq_set.num_data(), iterations=6)
+        pair_rec[pair] = rec
+        del same
+    api["mode_objectives"] = pair_rec
+    del letor_set, letor_valid, eq_sets, eq_set, eq_median, med_set, med_valid, Xq, yq, qq, Xqv, yqv
+    del qqv
+    part_done("mode_objectives")
+    say("api", rows=N, valid_rows=VALID_ROWS, part_seconds=api_s, **api)
     del year_set, year_valid, yy, Xyv, yyv
 
     # ---- 5. cross-check: CUDA vs the plain versions on the CPU ------------------

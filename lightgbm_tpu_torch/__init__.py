@@ -9,9 +9,9 @@ for ``device="cpu"``.
 """
 from .basic import Booster, Dataset
 from .callback import early_stopping, print_evaluation, record_evaluation, reset_parameter
-from .engine import cv, train
+from .engine import CVBooster, cv, train
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Dataset", "cv", "early_stopping", "print_evaluation", "record_evaluation",
+__all__ = ["Booster", "CVBooster", "Dataset", "cv", "early_stopping", "print_evaluation", "record_evaluation",
            "reset_parameter", "train", "__version__"]

@@ -1,14 +1,16 @@
 """Public Dataset / Booster handles of the PyTorch port.
 
-The surface of lightgbm_tpu/basic.py that this slice uses: a lazily binned
-``Dataset`` (a validation set bins with its ``reference``'s mappers; query
-groups for ranking through ``group=``, ``set_group`` or ``set_field``) and a
-``Booster`` that trains (``update``, ``update_chunk``), rolls back, predicts,
-evaluates its training and validation metrics and writes or loads LightGBM
-model text. A Booster
-runs on ``device`` ("cuda" unless the caller asks for "cpu"; the
-``device``/``device_type`` param key sets it too) and raises when CUDA is
-asked for and absent.
+The surface of lightgbm_tpu/basic.py: a lazily binned ``Dataset`` (a
+validation set bins with its ``reference``'s mappers; a ``subset`` gathers
+its rows out of the reference's bins; query groups through ``group=``,
+``set_group`` or ``set_field``; label, weight and init score by field; an
+init-score predictor for continued training, ``set_predictor``) and a
+``Booster`` that trains (``update``, with a custom objective's gradients
+through ``fobj``; ``update_chunk``), rolls back, predicts, evaluates its
+training and validation metrics, and writes, dumps or loads LightGBM
+model text. A Booster runs on ``device`` ("cuda" unless the caller asks
+for "cpu"; the ``device``/``device_type`` param key sets it too) and
+raises when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
@@ -19,9 +21,9 @@ import torch
 
 from .config import Config
 from .dataset import BinnedDataset, Metadata, construct_dataset
-from .metric import Metric, create_metric
+from .metric import Metric, create_metric, default_metric_for_objective
 from .models.gbdt import GBDT
-from .models.model_text import load_model_from_string, save_model_to_string
+from .models.model_text import dump_model_to_json, load_model_from_string, save_model_to_string
 from .objective import create_objective, objective_from_model_string
 from .utils import log
 from .utils.log import LightGBMError
@@ -42,6 +44,16 @@ def resolve_device(device=None) -> torch.device:
             "pass device='cpu' to run the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def _dense(data) -> np.ndarray:
+    """Raw rows as a 2-D f64 matrix (a scipy matrix densified)."""
+    if hasattr(data, "toarray"):
+        data = data.toarray()
+    arr = np.asarray(data)
+    if arr.ndim == 1:
+        arr = arr.reshape(-1, 1)
+    return arr.astype(np.float64, copy=False)
 
 
 class Dataset:
@@ -72,12 +84,23 @@ class Dataset:
         self.categorical_feature = categorical_feature
         self.params = dict(params) if params else {}
         self._binned: Optional[BinnedDataset] = None
+        #: the reference's rows this Dataset holds (:meth:`subset`), else None
+        self.used_indices: Optional[np.ndarray] = None
+        self._predictor: Optional[GBDT] = None  # continued training's init scores
 
     def create_valid(self, data, label=None, weight=None, group=None, init_score=None,
                      params: Optional[Dict] = None) -> "Dataset":
         """A validation Dataset binned with this one's mappers."""
         return Dataset(data, label=label, reference=self, weight=weight, group=group,
                        init_score=init_score, params=params or self.params)
+
+    def subset(self, used_indices, params: Optional[Dict] = None) -> "Dataset":
+        """The rows ``used_indices`` of this Dataset, binned with its mappers
+        and bundles (:meth:`construct_subset` on first use), as ``cv``'s
+        folds take them."""
+        sub = Dataset(None, reference=self, params=params or self.params)
+        sub.used_indices = np.asarray(used_indices)
+        return sub
 
     def set_reference(self, reference: "Dataset") -> "Dataset":
         if reference is not self.reference:
@@ -91,19 +114,27 @@ class Dataset:
             return self
         if config is None:
             config = Config.from_params(self.params)
+        if self.used_indices is not None:
+            self._binned = self.construct_subset(config)
+            if self._predictor is not None:
+                self._binned.metadata.init_score = self._predictor_raw_scores(self.get_data())
+            return self
         cats = None  # indices, names or a comma-joined string, read as lightgbm_tpu/basic.py reads them
         if isinstance(self.categorical_feature, (list, tuple)):
             cats = list(self.categorical_feature)
         elif self.categorical_feature not in (None, "auto"):
             cats = self.categorical_feature
         ref = None if self.reference is None else self.reference.get_binned(config)
+        init_score = self.init_score
+        if self._predictor is not None:
+            init_score = self._predictor_raw_scores(self.data)
         self._binned = construct_dataset(
             self.data,
             config,
             label=None if self.label is None else np.asarray(self.label, np.float64),
             weight=None if self.weight is None else np.asarray(self.weight, np.float64),
             group=None if self.group is None else np.asarray(self.group),
-            init_score=self.init_score,
+            init_score=init_score,
             feature_names=list(self.feature_name)
             if isinstance(self.feature_name, (list, tuple)) else None,
             categorical_feature=cats,
@@ -111,13 +142,114 @@ class Dataset:
         )
         return self
 
+    def construct_subset(self, config: Config) -> BinnedDataset:
+        """The subset's BinnedDataset (Dataset::CopySubset): the reference's
+        bins gathered at ``used_indices`` on its mappers, groups and offsets;
+        label, weight and init score (``[N]`` or class-major ``[K·N]``)
+        taken at the same rows; query boundaries rebuilt from the rows' runs
+        of query ids (the rows of a query must be contiguous)."""
+        parent = self.reference.get_binned(config)
+        pm, idx = parent.metadata, self.used_indices
+        init_sub = None
+        if pm.init_score is not None:
+            isc = np.asarray(pm.init_score).reshape(-1)
+            if len(isc) == parent.num_data:
+                init_sub = isc[idx]
+            else:
+                init_sub = isc.reshape(-1, parent.num_data)[:, idx].reshape(-1)
+        md = Metadata(len(idx),
+                      label=None if pm.label is None else pm.label[idx],
+                      weight=None if pm.weight is None else pm.weight[idx],
+                      init_score=init_sub)
+        if pm.query_boundaries is not None:
+            qid = np.searchsorted(pm.query_boundaries, idx, side="right") - 1
+            sizes = np.diff(np.concatenate([[0], np.nonzero(np.diff(qid))[0] + 1, [len(qid)]]))
+            md.query_boundaries = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        return BinnedDataset(
+            parent.bins[:, idx], parent.mappers, parent.used_feature_idx,
+            parent.num_total_features, md, feature_names=parent.feature_names,
+            monotone_constraints=parent.monotone_constraints, group_id=parent.group_id,
+            bin_offset=parent.bin_offset, max_group_bins=parent._max_group_bins,
+        )
+
     def get_binned(self, config: Config) -> BinnedDataset:
         return self.construct(config)._binned
 
     def num_data(self) -> int:
-        return self._binned.num_data if self._binned is not None else len(self.data)
+        if self._binned is not None:
+            return self._binned.num_data
+        if self.used_indices is not None:
+            return len(self.used_indices)
+        return self.data.shape[0] if hasattr(self.data, "shape") else len(self.data)
 
-    # -- query groups (lightgbm_tpu/basic.py:339-387) ----------------------
+    def num_feature(self) -> int:
+        if self._binned is not None:
+            return self._binned.num_total_features
+        if self.used_indices is not None:
+            return self.reference.num_feature()
+        return _dense(self.data[:1]).shape[1]
+
+    def get_data(self):
+        """The raw rows as passed in; a subset's are its reference's rows at
+        ``used_indices`` (None when the reference has none)."""
+        if self.reference is not None and self.used_indices is not None:
+            ref_data = self.reference.get_data()
+            return None if ref_data is None else ref_data[self.used_indices]
+        return self.data
+
+    def get_ref_chain(self, ref_limit: int = 100) -> set:
+        """The Datasets reachable through ``reference`` links, this one included."""
+        head, chain = self, set()
+        while isinstance(head, Dataset) and len(chain) < ref_limit:
+            chain.add(head)
+            head = head.reference
+        return chain
+
+    # -- continued training (lightgbm_tpu/basic.py set_predictor) ----------
+    def _predictor_raw_scores(self, data) -> np.ndarray:
+        """The predictor's raw scores of ``data`` as init scores (``[N]`` or
+        class-major ``[K·N]`` f64): its per-tree f32 replay
+        (``GBDT.warmstart_scores``, the parent run's score carry bit for
+        bit), else (random forest, DART) its f64 ``predict_raw``."""
+        X = _dense(data)
+        ws = self._predictor.warmstart_scores(X)
+        if ws is not None:
+            return (ws.reshape(-1) if ws.shape[0] > 1 else ws[0]).astype(np.float64)
+        raw = self._predictor.predict_raw(X)
+        return raw.T.reshape(-1) if raw.ndim == 2 else raw
+
+    def set_predictor(self, booster: Optional["Booster"]) -> "Dataset":
+        """Take the init scores from ``booster``'s predictions of these rows
+        (at construction, or now when the Dataset is constructed)."""
+        self._predictor = booster._gbdt if booster is not None else None
+        if self._predictor is not None and self._binned is not None:
+            data = self.get_data()
+            if data is None:
+                log.fatal("Cannot set an init-score predictor on a Dataset without raw data")
+            self._binned.metadata.init_score = self._predictor_raw_scores(data)
+        return self
+
+    # -- fields (lightgbm_tpu/basic.py:327-390) -----------------------------
+    def set_label(self, label) -> "Dataset":
+        self.label = label
+        if self._binned is not None:
+            self._binned.metadata.label = np.asarray(label, np.float32).reshape(-1)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        self.weight = weight
+        if self._binned is not None and weight is not None:
+            self._binned.metadata.weight = np.asarray(weight, np.float32).reshape(-1)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        self.init_score = init_score
+        if self._binned is not None and init_score is not None:
+            md = self._binned.metadata
+            md.init_score = np.asarray(init_score, np.float64)
+            md._validate()
+        return self
+
     def set_group(self, group) -> "Dataset":
         """The query sizes (or one query id a row); on a constructed Dataset
         its query boundaries are replaced too."""
@@ -127,29 +259,61 @@ class Dataset:
             md.query_boundaries = Metadata(md.num_data, group=np.asarray(group)).query_boundaries
         return self
 
+    def get_label(self):
+        """The binned f32 labels once constructed, else the labels given."""
+        if self._binned is not None:
+            return self._binned.metadata.label
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
+    def get_init_score(self):
+        return self.init_score
+
     def get_group(self):
         return self.group
 
     def set_field(self, field_name: str, data) -> "Dataset":
-        """Set the field ``group`` (alias ``query``) by name."""
-        _check_group_field(field_name)
-        return self.set_group(data)
+        """Set ``label``, ``weight``, ``init_score`` or ``group`` (alias
+        ``query``) by name."""
+        setter = {"label": self.set_label, "weight": self.set_weight,
+                  "init_score": self.set_init_score, "group": self.set_group,
+                  "query": self.set_group}.get(field_name)
+        if setter is None:
+            raise LightGBMError("Unknown field name: %s" % field_name)
+        return setter(data)
 
     def get_field(self, field_name: str):
-        """The field ``group`` (alias ``query``)."""
-        _check_group_field(field_name)
-        return self.get_group()
+        """``label``, ``weight``, ``init_score`` or ``group`` (alias ``query``)."""
+        getter = {"label": self.get_label, "weight": self.get_weight,
+                  "init_score": self.get_init_score, "group": self.get_group,
+                  "query": self.get_group}.get(field_name)
+        if getter is None:
+            raise LightGBMError("Unknown field name: %s" % field_name)
+        return getter()
 
+    def set_feature_name(self, feature_name) -> "Dataset":
+        """Name the columns; a constructed Dataset checks the count first."""
+        if self._binned is not None and isinstance(feature_name, (list, tuple)):
+            if len(feature_name) != self._binned.num_total_features:
+                raise LightGBMError("Length of feature_name(%d) and num_feature(%d) don't match"
+                                    % (len(feature_name), self._binned.num_total_features))
+            self._binned.feature_names = list(feature_name)
+        self.feature_name = feature_name
+        return self
 
-def _check_group_field(field_name: str) -> None:
-    """Pass ``group`` and ``query``; raise for the JAX package's other
-    fields (not ported) and for unknown names."""
-    if field_name in ("group", "query"):
-        return
-    if field_name in ("label", "weight", "init_score"):
-        raise NotImplementedError("Dataset.set_field/get_field(%r) is not ported to "
-                                  "lightgbm_tpu_torch yet" % field_name)
-    raise LightGBMError("Unknown field name: %s" % field_name)
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Declare the categorical columns; a constructed Dataset bins again
+        from its raw rows on next use."""
+        if self.categorical_feature == categorical_feature:
+            return self
+        if self._binned is not None:
+            if self.data is None:
+                raise LightGBMError("Cannot set categorical feature after freed raw data")
+            self._binned = None
+        self.categorical_feature = categorical_feature
+        return self
 
 
 class Booster:
@@ -174,6 +338,8 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict = {}
         self._valid_datasets: List[Dataset] = []
+        self._valid_slots: List[int] = []  # each tracked Dataset's index in the GBDT's valid lists
+        self._attrs: Dict[str, str] = {}
         self._train_data_name = "training"
         if train_set is not None:
             binned = train_set.get_binned(self.config)
@@ -184,31 +350,59 @@ class Booster:
             if model_file is not None:
                 with open(model_file) as fh:
                     model_str = fh.read()
-            self._gbdt = load_model_from_string(_strip_pandas_tail(model_str), GBDT, self.config)
-            self._gbdt.device = self.device
-            self._gbdt.objective = objective_from_model_string(
-                getattr(self._gbdt, "loaded_objective", None), self.config
-            )
+            self._load(model_str)
         else:
             raise LightGBMError("Booster needs train_set, model_file or model_str")
 
+    def _load(self, text: str) -> None:
+        self._gbdt = load_model_from_string(_strip_pandas_tail(text), GBDT, self.config)
+        self._gbdt.device = self.device
+        self._gbdt.objective = objective_from_model_string(
+            getattr(self._gbdt, "loaded_objective", None), self.config
+        )
+
     def _make_metrics(self) -> List[Metric]:
-        names = self.config.metric or [self.config.objective]
-        return [create_metric(n, self.config) for n in names
-                if n not in ("", "None", "na", "null")]
+        """The metrics of ``metric`` (default: the objective's), without
+        ``custom`` (``feval`` only) and without names no metric has (they
+        warn), as lightgbm_tpu/basic.py ``_make_metrics``."""
+        names = self.config.metric or [default_metric_for_objective(self.config.objective)]
+        metrics = [create_metric(n, self.config) for n in names
+                   if n not in ("", "None", "na", "null", "custom")]
+        return [m for m in metrics if m is not None]
 
     def add_valid(self, data: Dataset, name: str) -> "Booster":
         """Attach ``data`` as a validation set named ``name``; a Dataset
-        without a reference takes the training set as its reference."""
+        without a reference takes the training set as its reference. Its raw
+        rows are read only when the model holds trees with no bin-space copy
+        (loaded from text, or an ``init_model``'s)."""
         if data.reference is None and data is not self.train_set:
             data.set_reference(self.train_set)
-        self._gbdt.add_valid(data.get_binned(self.config), self._make_metrics(), name)
+
+        def raw_rows():
+            raw = data.get_data()
+            return None if raw is None else _dense(raw)
+
+        self._gbdt.add_valid(data.get_binned(self.config), self._make_metrics(), name,
+                             raw_data=raw_rows)
         self._valid_datasets.append(data)
+        self._valid_slots.append(len(self._gbdt.valid_names) - 1)
         return self
 
-    def update(self) -> bool:
-        """One boosting iteration; True when training stopped (no split)."""
-        return self._gbdt.train_one_iter()
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; True when training stopped (no split).
+        With ``fobj``, the custom objective ``fobj(scores, train_set) ->
+        (grad, hess)`` gives the gradients: it is handed the training scores
+        (``[N]``, or class-major ``[K·N]`` for K trees an iteration, f64
+        values of the f32 scores, read back after the last iteration) and
+        the training Dataset, as lightgbm_tpu/basic.py ``update`` does."""
+        if train_set is not None and train_set is not self.train_set:
+            raise NotImplementedError("Booster.update(train_set=) with another training set is "
+                                      "not ported to lightgbm_tpu_torch yet")
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        score = self._gbdt.train_score()
+        grad, hess = fobj(score.reshape(-1), self.train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
 
     def update_chunk(self, n: int):
         """Up to ``n`` boosting iterations with nothing read back between
@@ -236,18 +430,26 @@ class Booster:
     def num_trees(self) -> int:
         return self._gbdt.num_trees()
 
+    def num_model_per_iteration(self) -> int:
+        return self._gbdt.num_tree_per_iteration
+
     def num_feature(self) -> int:
         return self._gbdt.max_feature_idx + 1
+
+    def feature_name(self) -> List[str]:
+        if self._gbdt.train_set is not None:
+            return self._gbdt.train_set.feature_names
+        return getattr(self._gbdt, "feature_names", [])
 
     def eval_train(self, feval=None) -> List:
         return self._eval_set(self._gbdt.train_score(), self._train_data_name,
                               self._gbdt.training_metrics, feval, self.train_set)
 
     def eval_valid(self, feval=None) -> List:
+        slot_ds = dict(zip(self._valid_slots, self._valid_datasets))
         return [entry for i, name in enumerate(self._gbdt.valid_names)
                 for entry in self._eval_set(self._gbdt._valid_score_np(i), name,
-                                            self._gbdt.valid_metrics[i], feval,
-                                            self._valid_datasets[i])]
+                                            self._gbdt.valid_metrics[i], feval, slot_ds.get(i))]
 
     def eval(self, data: Dataset, name: str, feval=None) -> List:
         """Evaluate on ``data``: the training set, an attached validation
@@ -256,7 +458,7 @@ class Booster:
             return self.eval_train(feval)
         if not any(ds is data for ds in self._valid_datasets):
             self.add_valid(data, name)
-        i = next(i for i, ds in enumerate(self._valid_datasets) if ds is data)
+        i = next(self._valid_slots[p] for p, ds in enumerate(self._valid_datasets) if ds is data)
         return self._eval_set(self._gbdt._valid_score_np(i), name, self._gbdt.valid_metrics[i],
                               feval, data)
 
@@ -271,6 +473,63 @@ class Booster:
                 for mname, val, bigger in (ret if isinstance(ret, list) else [ret]):
                     results.append((name, mname, val, bigger))
         return results
+
+    # -- attributes and bookkeeping (lightgbm_tpu/basic.py:450-519) ----------
+    def attr(self, key: str):
+        """A string attribute, or None when unset."""
+        return self._attrs.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set (a string) or delete (None) attributes."""
+        for key, value in kwargs.items():
+            if value is None:
+                self._attrs.pop(key, None)
+            elif isinstance(value, str):
+                self._attrs[key] = value
+            else:
+                raise LightGBMError("Only string values are accepted")
+        return self
+
+    def set_train_data_name(self, name: str) -> "Booster":
+        self._train_data_name = name
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """Drop the Booster's references to its Datasets; the model still
+        predicts, saves and trains from the binned copies it holds."""
+        self.train_set = None
+        self._valid_datasets, self._valid_slots = [], []
+        return self
+
+    def model_from_string(self, model_str: str, verbose: bool = True) -> "Booster":
+        """Replace the model by one parsed from ``model_str``."""
+        self._load(model_str)
+        self.free_dataset()
+        if verbose:
+            log.info("Finished loading model, total used %d iterations" % self._gbdt.current_iteration)
+        return self
+
+    def shuffle_models(self, start_iteration: int = 0, end_iteration: int = -1) -> "Booster":
+        """Shuffle the order of the iterations in [start, end) (GBDT::ShuffleModels)."""
+        self._gbdt.shuffle_models(start_iteration, end_iteration)
+        return self
+
+    def get_split_value_histogram(self, feature, bins=None):
+        """numpy.histogram of the thresholds of ``feature`` (index or name)
+        over the model's numerical splits: (counts, bin_edges)."""
+        if isinstance(feature, str):
+            names = self.feature_name()
+            if feature not in names:
+                raise LightGBMError("Unknown feature name: %s" % feature)
+            feature = names.index(feature)
+        values = [float(t.threshold[node]) for t in self._gbdt.trees()
+                  for node in range(max(t.num_leaves - 1, 0))
+                  if int(t.split_feature[node]) == feature and not t._is_categorical(node)]
+        return np.histogram(np.asarray(values, np.float64), bins="auto" if bins is None else bins)
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """The value of leaf ``leaf_id`` of tree ``tree_id``."""
+        return float(self._gbdt.trees()[tree_id].leaf_value[leaf_id])
 
     def predict(self, data, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
         """Scores of ``data``: ``[N]``, or ``[N, K]`` for a model of K trees
@@ -302,6 +561,10 @@ class Booster:
         with open(filename, "w") as fh:
             fh.write(self.model_to_string(num_iteration))
         return self
+
+    def dump_model(self, num_iteration: int = -1) -> dict:
+        """The model as the JSON dict of GBDT::DumpModel."""
+        return dump_model_to_json(self._gbdt, num_iteration)
 
     def feature_importance(self, importance_type: str = "split", iteration: int = -1) -> np.ndarray:
         return self._gbdt.feature_importance(importance_type, iteration)

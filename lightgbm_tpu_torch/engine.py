@@ -1,20 +1,27 @@
-"""``train``: the boosting loop entry point (lightgbm_tpu/engine.py's
-``train`` and ``_boost_loop`` for the arguments this slice runs).
+"""``train`` and ``cv``: the boosting loop entry points (lightgbm_tpu/engine.py's
+``train``, ``_boost_loop``, ``cv`` and ``_make_n_folds``).
 
 Validation sets, ``feval``, early stopping (``early_stopping_rounds`` or
 the ``early_stopping_round`` param), ``evals_result``, ``verbose_eval``,
 ``learning_rates`` and ``callbacks`` run as in the JAX package: after every
 boundary the training metrics (when a validation set is the training set,
 or ``is_provide_training_metric``) and each validation set's metrics are
-evaluated on the host, then the callbacks run in their ``order``. What is
-not ported raises NotImplementedError naming the argument: ``fobj``,
-``init_model``, ``keep_training_booster=True``, the checkpoint, preempt and
-flex arguments (and their params), and ``cv``.
+evaluated on the host, then the callbacks run in their ``order``. A custom
+objective (``fobj``) sets ``objective="none"`` and steps one iteration at a
+time; ``init_model`` (a model file or a Booster) continues its training:
+its predictions seed the init scores (``Dataset.set_predictor``) and its
+trees go in front (``GBDT._merge_from``). ``keep_training_booster`` is
+accepted: the returned Booster always trains on. ``cv`` trains one Booster
+a fold over ``Dataset.subset``. What is not ported raises
+NotImplementedError naming the argument: the checkpoint, preempt and flex
+arguments (and their params).
 """
 from __future__ import annotations
 
 import collections
 from typing import Callable, Dict, List, Optional, Union
+
+import numpy as np
 
 from . import callback as callback_mod
 from .basic import Booster, Dataset
@@ -80,17 +87,23 @@ def train(
         if given[name] or params.get(name):
             _refuse(name)
     if fobj is not None:
-        _refuse("fobj")
-    if init_model is not None:
-        _refuse("init_model")
-    if keep_training_booster:
-        _refuse("keep_training_booster")
+        params["objective"] = "none"
+    predictor = None
+    if isinstance(init_model, str):
+        predictor = Booster(model_file=init_model, device=device)
+    elif isinstance(init_model, Booster):
+        predictor = init_model
+    init_iteration = predictor.current_iteration if predictor is not None else 0
     if feature_name != "auto":
         train_set.feature_name = feature_name
     if categorical_feature != "auto":
         train_set.categorical_feature = categorical_feature
+    if predictor is not None:
+        train_set.set_predictor(predictor)
 
     booster = Booster(params, train_set, device=device)
+    if predictor is not None:
+        booster._gbdt._merge_from(predictor._gbdt)
     is_valid_contain_train = False
     if valid_sets is not None:
         if valid_names is None:
@@ -121,15 +134,15 @@ def train(
                        key=lambda c: getattr(c, "order", 0))
 
     chunk = 1
-    if not cbs_before:
+    if fobj is None and not cbs_before:
         chunk = booster._gbdt.device_chunk()
         for cb in cbs_after:
             window = getattr(cb, "stopping_rounds", 0)
             if chunk > 1 and isinstance(window, int) and window > 0:
                 chunk = min(chunk, window)
     needs_eval = valid_sets is not None or booster.config.is_provide_training_metric
-    results = _boost_loop(booster, params, feval, needs_eval, is_valid_contain_train,
-                          num_boost_round, cbs_before, cbs_after, chunk)
+    results = _boost_loop(booster, params, fobj, feval, needs_eval, is_valid_contain_train,
+                          init_iteration, num_boost_round, cbs_before, cbs_after, chunk)
     booster.best_score = collections.defaultdict(collections.OrderedDict)
     for dname, ename, value, _ in results:
         booster.best_score[dname][ename] = value
@@ -138,22 +151,23 @@ def train(
     return booster
 
 
-def _boost_loop(booster: Booster, params: Dict, feval, needs_eval: bool,
-                is_valid_contain_train: bool, num_boost_round: int, cbs_before, cbs_after,
-                chunk: int) -> List:
-    """The boosting loop; returns the last boundary's evaluation results
-    (the best ones after an early stop)."""
+def _boost_loop(booster: Booster, params: Dict, fobj, feval, needs_eval: bool,
+                is_valid_contain_train: bool, init_iteration: int, num_boost_round: int,
+                cbs_before, cbs_after, chunk: int) -> List:
+    """The boosting loop over iterations ``init_iteration`` (an init_model's
+    iterations) to ``init_iteration + num_boost_round``; returns the last
+    boundary's evaluation results (the best ones after an early stop)."""
     results: List = []
-    i, end = 0, num_boost_round
+    i, end = init_iteration, init_iteration + num_boost_round
     while i < end:
         for cb in cbs_before:
-            cb(callback_mod.CallbackEnv(booster, params, i, 0, end, None))
+            cb(callback_mod.CallbackEnv(booster, params, i, init_iteration, end, None))
         if chunk > 1 and end - i >= chunk:
             done, finished = booster.update_chunk(chunk)
             if done == 0:
                 break
         else:
-            done, finished = 1, booster.update()
+            done, finished = 1, booster.update(fobj=fobj)
         i += done
         results = []
         if needs_eval:
@@ -162,7 +176,8 @@ def _boost_loop(booster: Booster, params: Dict, feval, needs_eval: bool,
             results.extend(booster.eval_valid(feval))
         try:
             for cb in cbs_after:
-                cb(callback_mod.CallbackEnv(booster, params, i - 1, 0, end, results, chunk=done))
+                cb(callback_mod.CallbackEnv(booster, params, i - 1, init_iteration, end, results,
+                                            chunk=done))
         except callback_mod.EarlyStopException as stop:
             booster.best_iteration = stop.best_iteration + 1
             return stop.best_score
@@ -171,6 +186,154 @@ def _boost_loop(booster: Booster, params: Dict, feval, needs_eval: bool,
     return results
 
 
-def cv(*args, **kwargs):
-    """Cross-validation is not ported yet."""
-    raise NotImplementedError("cv is not ported to lightgbm_tpu_torch yet")
+class CVBooster:
+    """The folds' Boosters of a ``cv`` run; a method called on it is called
+    on each of them and gives the list of their results."""
+
+    def __init__(self) -> None:
+        self.boosters: List[Booster] = []
+        self.best_iteration = -1
+
+    def _append(self, booster: Booster) -> None:
+        self.boosters.append(booster)
+
+    def __getattr__(self, name):
+        def handler_function(*args, **kwargs):
+            return [getattr(b, name)(*args, **kwargs) for b in self.boosters]
+
+        return handler_function
+
+
+def _make_n_folds(full_data: Dataset, folds, nfold: int, params: Dict, seed: int,
+                  stratified: bool, shuffle: bool, config: Config):
+    """The (train rows, test rows) of each fold, as the JAX package draws
+    them from ``RandomState(seed)``: an sklearn-style ``folds`` object split
+    on the labels (and the rows' query ids), else whole queries for query
+    data, else folds stratified by label, else contiguous chunks of one
+    permutation (or of the rows in order without ``shuffle``)."""
+    full_data.construct(config)
+    num_data = full_data.num_data()
+    md = full_data._binned.metadata
+    if folds is not None:
+        if not hasattr(folds, "__iter__") and hasattr(folds, "split"):
+            group_info = None
+            if md.query_boundaries is not None:
+                group_info = np.repeat(np.arange(md.num_queries), np.diff(md.query_boundaries))
+            folds = folds.split(X=np.zeros(num_data), y=md.label, groups=group_info)
+        return folds
+    rng = np.random.RandomState(seed)
+    if md.query_boundaries is not None:
+        qb = md.query_boundaries
+        qperm = rng.permutation(md.num_queries) if shuffle else np.arange(md.num_queries)
+        out = []
+        for fq in np.array_split(qperm, nfold):
+            test_idx = np.concatenate([np.arange(qb[q], qb[q + 1]) for q in sorted(fq)]) \
+                if len(fq) else np.array([], np.int64)
+            out.append((np.setdiff1d(np.arange(num_data), test_idx), test_idx))
+        return out
+    if stratified:
+        label = md.label.astype(np.int64)
+        fold_of = np.zeros(num_data, np.int64)
+        for cls in np.unique(label):
+            idx = np.nonzero(label == cls)[0]
+            if shuffle:
+                idx = idx[rng.permutation(len(idx))]
+            fold_of[idx] = np.arange(len(idx)) % nfold
+        return [(np.nonzero(fold_of != k)[0], np.nonzero(fold_of == k)[0]) for k in range(nfold)]
+    perm = rng.permutation(num_data) if shuffle else np.arange(num_data)
+    return [(np.setdiff1d(np.arange(num_data), c), np.sort(c)) for c in np.array_split(perm, nfold)]
+
+
+def cv(
+    params: Dict,
+    train_set: Dataset,
+    num_boost_round: int = 100,
+    folds=None,
+    nfold: int = 5,
+    stratified: bool = True,
+    shuffle: bool = True,
+    metrics=None,
+    fobj=None,
+    feval=None,
+    init_model=None,
+    feature_name="auto",
+    categorical_feature="auto",
+    early_stopping_rounds: Optional[int] = None,
+    fpreproc=None,
+    verbose_eval=None,
+    show_stdv: bool = True,
+    seed: int = 0,
+    callbacks=None,
+    eval_train_metric: bool = False,
+    return_cvbooster: bool = False,
+    device: Optional[str] = None,
+) -> Dict:
+    """Cross-validation, as lightgbm_tpu/engine.py ``cv``: one Booster a
+    fold, trained on ``train_set.subset`` of the fold's training rows with
+    its test rows as the validation set ``valid``, one iteration of every
+    fold at a time (``fobj`` handed to each ``update``); each metric's mean
+    and standard deviation over the folds (``"<metric>-mean"``,
+    ``"<metric>-stdv"``) feed the callbacks (early stopping and
+    ``print_evaluation(show_stdv=)`` on the means) and the returned lists,
+    cut at the best iteration after an early stop. ``stratified`` holds
+    only for the binary and multiclass objectives; ``metrics`` replaces the
+    ``metric`` param. ``init_model``, ``feature_name``,
+    ``categorical_feature``, ``fpreproc`` and ``eval_train_metric`` are
+    taken and not used, as in the JAX package. Each fold runs on
+    ``device`` (CUDA unless "cpu"), with a captured iteration of its own;
+    ``return_cvbooster`` adds the folds' Boosters as ``"cvbooster"`` (a
+    :class:`CVBooster`), as the reference python package does."""
+    params = Config.canonicalize(dict(params) if params else {})
+    if "num_iterations" in params:
+        num_boost_round = int(params.pop("num_iterations"))
+    if "early_stopping_round" in params and early_stopping_rounds is None:
+        early_stopping_rounds = int(params.pop("early_stopping_round"))
+    if metrics is not None:
+        params["metric"] = metrics
+    objective = str(params.get("objective", ""))
+    if objective != "binary" and not objective.startswith("multiclass"):
+        stratified = False
+    config = Config.from_params(params)
+
+    folds = _make_n_folds(train_set, folds, nfold, params, seed, stratified, shuffle, config)
+    results = collections.defaultdict(list)
+    cvbooster = CVBooster()
+    for train_idx, test_idx in folds:
+        booster = Booster(params, train_set.subset(np.sort(train_idx)), device=device)
+        booster.add_valid(train_set.subset(np.sort(test_idx)), "valid")
+        cvbooster._append(booster)
+
+    cbs = set(callbacks or [])
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        cbs.add(callback_mod.early_stopping(early_stopping_rounds, verbose=False))
+    if verbose_eval is True:
+        cbs.add(callback_mod.print_evaluation(show_stdv=show_stdv))
+    elif isinstance(verbose_eval, int) and verbose_eval:
+        cbs.add(callback_mod.print_evaluation(verbose_eval, show_stdv))
+    cbs = sorted(cbs, key=lambda c: getattr(c, "order", 0))
+
+    for i in range(num_boost_round):
+        agg: Dict = collections.defaultdict(list)
+        for booster in cvbooster.boosters:
+            booster.update(fobj=fobj)
+            for dname, ename, v, bigger in booster.eval_valid(feval):
+                agg[("%s %s" % (dname, ename), bigger)].append(v)
+        res_list = []
+        for (key, bigger), vals in agg.items():
+            name = key.split(" ", 1)[1]
+            mean, std = float(np.mean(vals)), float(np.std(vals))
+            results[name + "-mean"].append(mean)
+            results[name + "-stdv"].append(std)
+            res_list.append(("cv_agg", name, mean, bigger, std))
+        try:
+            for cb in cbs:
+                cb(callback_mod.CallbackEnv(None, params, i, 0, num_boost_round, res_list))
+        except callback_mod.EarlyStopException as stop:
+            cvbooster.best_iteration = stop.best_iteration + 1
+            for key in list(results):
+                results[key] = results[key][:cvbooster.best_iteration]
+            break
+    results = dict(results)
+    if return_cvbooster:
+        results["cvbooster"] = cvbooster
+    return results

@@ -388,9 +388,16 @@ _METRICS = {
 }
 
 
-def create_metric(name: str, config: Config) -> Metric:
+def create_metric(name: str, config: Config) -> Optional[Metric]:
+    """The metric named ``name``; an unknown name warns and gives None, which
+    the Booster drops (lightgbm_tpu/metric.py ``create_metric``)."""
     cls = _METRICS.get(name)
     if cls is None:
-        raise NotImplementedError(
-            "metric=%s is not a metric of lightgbm_tpu_torch (nor of the JAX package)" % name)
+        log.warning("Unknown metric type name: %s" % name)
+        return None
     return cls(config)
+
+
+def default_metric_for_objective(objective: str) -> str:
+    """Config::GetMetricType's default: the metric named as the objective."""
+    return objective

@@ -26,10 +26,14 @@ from typing import List
 import numpy as np
 
 from ..utils import log
-from .gbdt import GBDT, K_EPSILON
+from .gbdt import GBDT
 
 
 class DART(GBDT):
+    #: Normalize rescales past trees: the training scores are no plain sum
+    #: of the stored trees, so an init_model of DART takes the f64 path
+    _carry_is_tree_sum = False
+
     def _setup_train(self, train_set) -> None:
         super()._setup_train(train_set)
         self._drop_rng = np.random.RandomState(self.config.drop_seed & 0x7FFFFFFF)
@@ -88,15 +92,7 @@ class DART(GBDT):
         (f32 products)."""
         cfg = self.config
         K = self.num_tree_per_iteration
-        if any(abs(v) > K_EPSILON for v in self._init_fold):
-            # the first trees take their init scores now (the JAX package
-            # adds them when it stores the tree), not at materialisation
-            for k in range(K):
-                if self._tree_arrays[k] is not None and abs(self._init_fold[k]) > K_EPSILON:
-                    ta = self._tree_arrays[k]
-                    self._tree_arrays[k] = ta._replace(
-                        leaf_value=ta.leaf_value + np.float32(self._init_fold[k]))
-            self._init_fold = [0.0] * K
+        self._fold_init_into_trees()
         k = float(len(self.drop_index))
         lr = cfg.learning_rate
         if not cfg.xgboost_dart_mode:

@@ -64,6 +64,15 @@ scores and leaves). A mode runs one iteration at a time
 (``device_chunk_fallback_reason``), as in the JAX package; an
 ``average_output`` model (random forest) predicts the average of its trees.
 
+A custom objective's gradients (``train_one_iter(gradients, hessians)``,
+no objective) reach the captured iteration through a ``[2, K, N]`` device
+buffer that one copy from pinned memory fills before each replay
+(``_upload_gradients``); the graph is captured once. Continued training
+(``init_model``) puts the predictor's trees in front with no bin-space
+copy (``_merge_from``): its init scores already carry them, as the f32
+replay ``warmstart_scores`` gives them, and a validation set attached
+later replays them from its raw rows (``add_valid``).
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -84,7 +93,7 @@ from ..ops.grow import (
     TreeArrays, device_loop_routable, grow_tree, launch_tree, tree_from_packed,
 )
 from ..ops.histogram import HIST_DTYPES
-from ..ops.predict import ensemble_predict_raw
+from ..ops.predict import ensemble_predict_raw, raw_predict_leaf
 from ..ops.split import SplitParams, member_words, num_words
 from ..utils import log
 from .tree import Tree
@@ -196,6 +205,11 @@ def check_dataset_supported(train_set: BinnedDataset) -> None:
 class GBDT:
     """Gradient Boosting Decision Tree trainer/model (gbdt.h:37-501)."""
 
+    #: the training scores are the plain ordered f32 sum of the stored
+    #: trees, so :meth:`warmstart_scores` reproduces them (DART rescales
+    #: past trees: False there; random forest is excluded by ``average_output``)
+    _carry_is_tree_sum = True
+
     def __init__(
         self,
         config: Config,
@@ -289,6 +303,14 @@ class GBDT:
         self._chunk_stopped = torch.zeros(1, dtype=torch.bool, device=dev)
         self._graph = None  # (key, cuda_graph.Graph) of the captured iteration
         self.captures = 0  # graphs captured (a new key captures again)
+        #: an iteration of the device loop ran eagerly: its kernels are
+        #: built and loaded, so the next one may be captured
+        self._warmed = False
+        #: the iteration reads a custom objective's gradients (``_grad_buf``)
+        self._custom_grads = False
+        self._grad_buf = None  # [2, K, N] f32 on the device: gradients, hessians
+        self._grad_host = None  # its pinned staging copy (CUDA)
+        self._grad_sent = None  # CUDA event: the last upload out of the staging copy is done
         self.feature_mask = torch.ones(train_set.num_features, dtype=torch.bool, device=dev)
         # the iteration reads the learning rate from the device: a schedule
         # replays the same graph
@@ -310,11 +332,6 @@ class GBDT:
             self.objective.init(train_set.metadata, self.num_data, dev)
         #: the objective renews each tree's leaf outputs (regression_l1, quantile, mape)
         self._renew = self.objective is not None and self.objective.is_renew_tree_output
-        if type(self) is not GBDT and self.objective is not None and (
-                not self.objective.supports_boosting_modes):
-            raise NotImplementedError(
-                "boosting=%s with objective=%s is not ported to lightgbm_tpu_torch yet"
-                % (cfg.boosting, self.objective.name))
         #: the classes that grow trees (class_need_train); an untrained
         #: class keeps a constant tree
         self._train_classes = [k for k in range(K)
@@ -447,6 +464,11 @@ class GBDT:
         samples and amplifies them here; the bag is drawn before)."""
         return grad, hess
 
+    def _renew_scores(self, k: int) -> torch.Tensor:
+        """The scores class ``k``'s leaf renewal reads its residuals at: the
+        scores before the tree (random forest: its constant scores)."""
+        return self.scores[k]
+
     def _leaf_output(self, leaf: torch.Tensor, k: int, rate) -> torch.Tensor:
         """The finish step's leaf values (the reference's ``_finish_step``)
         of class ``k``'s tree where it split: its leaf values times
@@ -509,7 +531,8 @@ class GBDT:
         through the predict kernel, which reads the tree from the state."""
         cfg = self.config
         s = self._grow_state
-        grad, hess = self._bagging(*self._compute_gradients())
+        grad, hess = self._bagging(*(self._grad_buf if self._custom_grads
+                                     else self._compute_gradients()))
         grew_any = None
         for k in self._train_classes:
             if self._feature_masks is not None:
@@ -521,7 +544,8 @@ class GBDT:
             grew = num_leaves > 1
             if self._renew:  # RenewTreeOutput, before the ring copy reads the leaf values
                 s.leaf_f[:, 0].copy_(self.objective.renew_leaf_outputs(
-                    self.scores[k], grow_step_kernel.leaf_ids(s), self._bag, s.M, s.leaf_f[:, 0]))
+                    self._renew_scores(k), grow_step_kernel.leaf_ids(s), self._bag, s.M,
+                    s.leaf_f[:, 0]))
             value = torch.where(grew & ~self._chunk_stopped,
                                 self._leaf_output(s.leaf_f[:, 0], k, self._rate), 0.0)
             grow_step_kernel.score_update(s, value, self.scores[k])
@@ -542,7 +566,8 @@ class GBDT:
                 self.num_tree_per_iteration, tuple(self._train_classes),
                 id(self._grow_state), id(self._ring), id(self.scores), id(self._bag),
                 id(self._feature_masks), tuple(map(id, self.valid_scores)),
-                tuple(map(id, self._valid_bins)), self.device)
+                tuple(map(id, self._valid_bins)), self._custom_grads, id(self._grad_buf),
+                self.device)
 
     def _captured_iteration(self) -> cuda_graph.Graph:
         key = self._iteration_key()
@@ -553,7 +578,7 @@ class GBDT:
             # the buffers the key names by id stay alive as long as the graph
             self._graph = (key, graph, (self._grow_state, self._ring, self.scores, self._bag,
                                         self._feature_masks, list(self.valid_scores),
-                                        list(self._valid_bins)))
+                                        list(self._valid_bins), self._grad_buf))
         return self._graph[1]
 
     def launch_iterations(self, n: int, eager: bool = False) -> None:
@@ -563,8 +588,9 @@ class GBDT:
         the captured iteration (CUDA with ``iteration_graph``; captured at
         the first call) or ``n`` eager iterations (``eager``, the CPU, or
         ``iteration_graph`` False), each after its bag is drawn on the
-        device when it changes. :meth:`collect_iterations` reads the trees
-        back."""
+        device when it changes. The first iteration this GBDT runs is eager
+        (it builds and loads the kernels a capture must not).
+        :meth:`collect_iterations` reads the trees back."""
         rows = n * len(self._train_classes)
         self._device_buffers(rows)
         self._ring_slot.zero_()
@@ -580,10 +606,11 @@ class GBDT:
                 self._feature_masks[:rows].copy_(torch.from_numpy(masks))
         for i in range(n):
             self._prepare_bag(self.iter_ + i)
-            if not eager and self.iteration_graph:
+            if not eager and self._warmed and self.iteration_graph:
                 self._captured_iteration().replay()
             else:
                 self._device_iteration()
+                self._warmed = True
 
     def collect_iterations(self, n: int) -> List[TreeArrays]:
         """The ``n`` iterations' trees of the last :meth:`launch_iterations`
@@ -649,24 +676,36 @@ class GBDT:
             self.iter_ += 1
         return False
 
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, gradients: Optional[np.ndarray] = None,
+                       hessians: Optional[np.ndarray] = None) -> bool:
         """One boosting iteration; returns True when training should stop
         because no class's tree could split (TrainOneIter, gbdt.cpp:332-413).
         On the device loop the first iteration runs eagerly (it builds and
         loads the kernels, and folds the boost-from-average scores); on CUDA
         every later one is one replay of the captured iteration, and one
-        device-to-host copy reads its trees back."""
+        device-to-host copy reads its trees back.
+
+        ``gradients`` and ``hessians`` (``[N]`` or class-major ``[K·N]``,
+        a custom objective's) replace the objective's, as in the JAX
+        package: no boost from average and no ``_before_train_iter`` then.
+        The device loop reads them from one device buffer that a single
+        copy from pinned memory fills before the iteration (or its replay)
+        is queued (:meth:`_upload_gradients`)."""
         if self._stopped:
             return True
         K = self.num_tree_per_iteration
         first = not self.models
-        init_scores = [self._boost_from_average(k) for k in range(K)]
-        self._before_train_iter()
+        custom = gradients is not None and hessians is not None
+        if custom:
+            init_scores = [0.0] * K
+        else:
+            init_scores = [self._boost_from_average(k) for k in range(K)]
+            self._before_train_iter()
         if not self._train_classes or self.train_set.num_features == 0:
             # nothing to learn: one constant tree a class, then stop (gbdt.cpp:375-400)
             if first:
                 for k in range(K):
-                    need = self.objective.class_need_train(k)
+                    need = self.objective is None or self.objective.class_need_train(k)
                     t = Tree(1)
                     t.leaf_value[0] = init_scores[k] if need else self.objective.boost_from_score(k)
                     self.models.append(t)
@@ -679,12 +718,16 @@ class GBDT:
         if first:
             self._init_fold = init_scores
         if self.grow_loop == "device":
+            if custom:
+                self._upload_gradients(gradients, hessians)
+            self._custom_grads = custom
             self.launch_iterations(1, eager=first)
             trees = self.collect_iterations(1)
         else:
             self._prepare_bag(self.iter_)
             masks = self._sample_feature_masks(1)
-            grad, hess = self._bagging(*self._compute_gradients())
+            grad, hess = self._bagging(*(self._host_gradients(gradients, hessians) if custom
+                                         else self._compute_gradients()))
             trees = []
             for t, k in enumerate(self._train_classes):
                 if masks is not None:
@@ -692,7 +735,7 @@ class GBDT:
                 tree, leaf_id = self._train_tree(grad[k], hess[k])
                 if self._renew:  # RenewTreeOutput at the scores before the tree
                     tree = tree._replace(leaf_value=self.objective.renew_leaf_outputs(
-                        self.scores[k], leaf_id, self._bag, self.config.num_leaves,
+                        self._renew_scores(k), leaf_id, self._bag, self.config.num_leaves,
                         tree.leaf_value.to(self.device)).cpu())
                 tree = self._shrink(tree, k)
                 # shrinkage + score update (gbdt.cpp:375-413): plain f32 adds of
@@ -705,6 +748,37 @@ class GBDT:
             return True  # a stop skips the hook, as the reference returns before it
         self._after_train_iter()
         return False
+
+    def _host_gradients(self, gradients, hessians) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A custom objective's gradients and hessians as [K, N] f32 on the device."""
+        shape = (self.num_tree_per_iteration, self.num_data)
+        return tuple(torch.as_tensor(np.asarray(a, np.float32).reshape(shape), device=self.device)
+                     for a in (gradients, hessians))
+
+    def _upload_gradients(self, gradients, hessians) -> None:
+        """Write a custom objective's gradients and hessians into the [2, K, N]
+        f32 device buffer the device iteration reads: on CUDA one
+        host-to-device copy out of a pinned staging buffer, queued on the
+        current stream before the iteration (the replay follows it on the
+        same stream); the staging buffer is written only after the last copy
+        out of it is done (an event)."""
+        K, N = self.num_tree_per_iteration, self.num_data
+        if self._grad_buf is None:
+            self._grad_buf = torch.empty((2, K, N), dtype=torch.float32, device=self.device)
+            if self.device.type == "cuda":
+                self._grad_host = torch.empty((2, K, N), dtype=torch.float32, pin_memory=True)
+                self._grad_sent = torch.cuda.Event()
+        if self.device.type != "cuda":
+            self._grad_buf.copy_(torch.from_numpy(np.stack([
+                np.asarray(gradients, np.float32).reshape(K, N),
+                np.asarray(hessians, np.float32).reshape(K, N)])))
+            return
+        self._grad_sent.synchronize()
+        host = self._grad_host.numpy()
+        host[0] = np.asarray(gradients, np.float32).reshape(K, N)
+        host[1] = np.asarray(hessians, np.float32).reshape(K, N)
+        self._grad_buf.copy_(self._grad_host, non_blocking=True)
+        self._grad_sent.record(torch.cuda.current_stream(self.device))
 
     # ------------------------------------------------------------------
     # device-resident chunked boosting (the reference's train_chunk)
@@ -751,6 +825,7 @@ class GBDT:
             return 0, True
         if not self.models:
             return 1, self.train_one_iter()
+        self._custom_grads = False
         self.launch_iterations(n)
         return n, self._keep_trees(self.collect_iterations(n))
 
@@ -772,7 +847,8 @@ class GBDT:
         predict_kernel.add_tree_value(bins, nodes, num_leaves, self.feature_meta, value, score,
                                       node_b=node_b)
 
-    def add_valid(self, valid_set: BinnedDataset, metrics: List[Metric], name: str) -> None:
+    def add_valid(self, valid_set: BinnedDataset, metrics: List[Metric], name: str,
+                  raw_data=None) -> None:
         """Attach an eval set binned with the training set's mappers: its
         metrics initialised on its metadata, a [K, Nv] f32 score on the
         device (its init score, else zeros) into which the trees trained so
@@ -780,22 +856,44 @@ class GBDT:
         took them (the reference's ScoreUpdater on AddValidDataset), and an
         [Nv, F] copy of its bins ([Nv, G] in a bundled training set's
         layout: the set must carry the same groups and offsets). The next
-        iteration captures its graph again with the set's buffers."""
-        if self.train_set is None:
-            raise NotImplementedError("add_valid on a model loaded from text is not ported yet")
+        iteration captures its graph again with the set's buffers.
+
+        A model that holds trees with no bin-space copy (loaded from text,
+        or an ``init_model``'s, merged in front) replays every tree from
+        the set's raw rows instead, as the JAX package does: ``raw_data``
+        (the [Nv, F] f64 rows, or a callable giving them) through
+        :meth:`warmstart_scores`, the parent's carry bit for bit, else
+        (random forest, DART) the f64 :meth:`predict_raw` rounded once."""
         tr = self.train_set
-        same_layout = valid_set.is_bundled == tr.is_bundled and (not tr.is_bundled or (
-            valid_set.num_groups == tr.num_groups
-            and np.array_equal(valid_set.group_id, tr.group_id)
-            and np.array_equal(valid_set.bin_offset, tr.bin_offset)))
-        if valid_set.num_features != tr.num_features or not same_layout:
-            raise ValueError("a validation set must be binned with the training set's mappers "
-                             "and bundles (Dataset(..., reference=train_set))")
+        if tr is not None:
+            same_layout = valid_set.is_bundled == tr.is_bundled and (not tr.is_bundled or (
+                valid_set.num_groups == tr.num_groups
+                and np.array_equal(valid_set.group_id, tr.group_id)
+                and np.array_equal(valid_set.bin_offset, tr.bin_offset)))
+            if valid_set.num_features != tr.num_features or not same_layout:
+                raise ValueError("a validation set must be binned with the training set's mappers "
+                                 "and bundles (Dataset(..., reference=train_set))")
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         K = self.num_tree_per_iteration
         bins = torch.from_numpy(np.ascontiguousarray(valid_set.bins.T, dtype=np.uint8)).to(self.device)
         score = self._initial_scores(valid_set.metadata.init_score, valid_set.num_data)
+        if any(ta is None and t is not None and t.num_leaves > 1
+               for ta, t in zip(self._tree_arrays, self.models)):
+            raw = raw_data() if callable(raw_data) else raw_data
+            if raw is None:
+                log.fatal("add_valid on a model with trees loaded from text needs the "
+                          "validation set's raw rows")
+            raw = np.asarray(raw, np.float64)
+            ws = self.warmstart_scores(raw)
+            if ws is None:
+                pred = self.predict_raw(raw)
+                ws = torch.as_tensor(pred.T if pred.ndim == 2 else pred[None],
+                                     dtype=torch.float32, device=self.device)
+            else:
+                ws = torch.as_tensor(ws, device=self.device)
+            self._append_valid(metrics, name, score + ws, bins)
+            return
         for k in range(K):
             if abs(self._init_fold[k]) > K_EPSILON:
                 score[k] += np.float32(self._init_fold[k])
@@ -808,14 +906,18 @@ class GBDT:
         if self._init_readded:
             for k in range(K):
                 score[k] += np.float32(self._init_fold[k])
+        self._append_valid(metrics, name, score, bins)
+
+    def _append_valid(self, metrics: List[Metric], name: str, score: torch.Tensor,
+                      bins: torch.Tensor) -> None:
         self.valid_metrics.append(metrics)
         self.valid_names.append(name)
         self.valid_scores.append(score)
         self._valid_bins.append(bins)
 
     def _score_np(self, score: torch.Tensor) -> np.ndarray:
-        """A [K, n] score as f64 numpy: [n] when K is 1."""
-        s = score.double().cpu().numpy()
+        """A [K, n] f32 score as f64 numpy (one copy down): [n] when K is 1."""
+        s = score.cpu().numpy().astype(np.float64)
         return s[0] if self.num_tree_per_iteration == 1 else s
 
     def _valid_score_np(self, i: int) -> np.ndarray:
@@ -870,6 +972,81 @@ class GBDT:
             self._feature_masks = self._feature_masks_host = None
             self.feature_mask.fill_(True)
             self._masked = False
+
+    def _fold_init_into_trees(self) -> None:
+        """Fold each class's boost-from-average score into its first tree's
+        host arrays now (the JAX package stores it there), no longer at
+        materialisation: DART before it rescales the first trees, and
+        :meth:`shuffle_models` before the first trees move."""
+        K = self.num_tree_per_iteration
+        if not any(abs(v) > K_EPSILON for v in self._init_fold):
+            return
+        for k in range(K):
+            ta = self._tree_arrays[k]
+            if ta is not None and abs(self._init_fold[k]) > K_EPSILON:
+                self._tree_arrays[k] = ta._replace(leaf_value=ta.leaf_value + np.float32(self._init_fold[k]))
+        self._init_fold = [0.0] * K
+
+    # ------------------------------------------------------------------
+    # continued training and the model's tree order
+    # ------------------------------------------------------------------
+    def warmstart_scores(self, X: np.ndarray) -> Optional[np.ndarray]:
+        """Raw scores of the rows ``X`` as ``[K, N]`` f32 numpy, added one
+        tree at a time in f32 in boosting order on the model's device: the
+        adds the training score carry made, so an ``init_model`` run seeded
+        with them continues the parent's carry bit for bit (the JAX
+        package's ``warmstart_scores``). None when the carry is not that
+        sum (random forest's average, DART's rescaled trees): callers take
+        the f64 :meth:`predict_raw` then."""
+        if self.average_output or not self._carry_is_tree_sum:
+            return None
+        self._materialize()
+        K = max(self.num_tree_per_iteration, 1)
+        Xt = torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+        out = torch.zeros((K, Xt.shape[0]), dtype=torch.float32, device=self.device)
+        for i, t in enumerate(self.models):
+            values = torch.as_tensor(t.leaf_value, dtype=torch.float32, device=self.device)
+            out[i % K] += values[raw_predict_leaf(Xt, t)] if t.num_leaves > 1 else values[0]
+        return out.cpu().numpy()
+
+    def _merge_from(self, other: "GBDT") -> None:
+        """Continued training (``init_model``, lightgbm_tpu/models/gbdt.py
+        ``_merge_from``): the predictor's trees go in front (with no
+        bin-space copy; the init scores already carry them), and the run
+        continues the parent's random streams: the bag's iteration index
+        past the merged iterations, the feature_fraction generator past the
+        draws the parent made (one a trained class an iteration)."""
+        other._materialize()
+        self.models = list(other.models) + self.models
+        self._tree_arrays = [None] * len(other.models) + self._tree_arrays
+        self.num_init_iteration = len(other.models) // max(other.num_tree_per_iteration, 1)
+        self.iter_ = self.num_init_iteration
+        if self.config.feature_fraction < 1.0 and self.train_set is not None \
+                and self.train_set.num_features > 0:
+            self._sample_feature_masks(self.num_init_iteration)
+            self._masked = False
+
+    def shuffle_models(self, start_iter: int = 0, end_iter: int = -1) -> None:
+        """Shuffle the order of the iterations in [start, end) (GBDT::ShuffleModels):
+        whole iterations move, by the JAX package's ``RandomState(seed)``
+        permutation."""
+        self._materialize()
+        self._fold_init_into_trees()
+        K = self.num_tree_per_iteration
+        n_iter = len(self.models) // K
+        if end_iter < 0 or end_iter > n_iter:
+            end_iter = n_iter
+        start_iter = max(0, start_iter)
+        if end_iter - start_iter <= 1:
+            return
+        perm = np.arange(start_iter, end_iter)
+        np.random.RandomState(self.config.seed & 0x7FFFFFFF).shuffle(perm)
+        models, arrays = list(self.models), list(self._tree_arrays)
+        for dst, src in enumerate(perm, start=start_iter):
+            for k in range(K):
+                models[dst * K + k] = self.models[src * K + k]
+                arrays[dst * K + k] = self._tree_arrays[src * K + k]
+        self.models, self._tree_arrays = models, arrays
 
     # ------------------------------------------------------------------
     def _materialize(self) -> None:

@@ -50,6 +50,11 @@ class RandomForest(GBDT):
         grad, hess = self.objective.get_gradients(self._rf_scores[0])
         return grad[None], hess[None]
 
+    def _renew_scores(self, k: int) -> torch.Tensor:
+        """The renewal's residuals are taken at the constant scores too
+        (lightgbm_tpu/models/rf.py ``_finish_step``)."""
+        return self._rf_scores[k]
+
     def _leaf_output(self, leaf: torch.Tensor, k: int, rate) -> torch.Tensor:
         """No shrinkage: the leaf values plus the class's constant (f32)."""
         return leaf + np.float32(self._rf_init[k])

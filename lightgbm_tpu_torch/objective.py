@@ -21,8 +21,9 @@ device inside the boosting iteration, from each row's leaf
 device loop's leaves come from its ``leaf_ids`` kernel). ``lambdarank``
 reads its queries' plan (ops/rank.py ``RankPlan``, built at set-up) and
 takes its gradients from csrc/lambdarank.cu on the card (ops/rank_kernel.py;
-the plain bucketed version on the CPU). A custom objective raises
-NotImplementedError naming itself.
+the plain bucketed version on the CPU). ``objective="none"`` (a custom
+objective, ``fobj``) has no ObjectiveFunction: :func:`create_objective`
+gives None and the caller hands the gradients in.
 """
 from __future__ import annotations
 
@@ -122,7 +123,8 @@ def segment_percentile(values: torch.Tensor, leaf: torch.Tensor, sel: Optional[t
     One stable sort by the int64 key (leaf, value), the unselected positions
     after every leaf, orders each leaf's values with ties in row order, as
     the JAX package's two stable sorts do; the weighted branch's cumulative
-    weights are one f32 cumsum across the leaves, in that order."""
+    weights are one cumsum across the leaves, in that order, accumulated in
+    f64 and rounded to f32 (the JAX package's is an f32 left fold)."""
     P, M, dev = values.shape[0], num_leaves, values.device
     lid = leaf.to(torch.int64)
     if sel is not None:
@@ -150,7 +152,11 @@ def segment_percentile(values: torch.Tensor, leaf: torch.Tensor, sel: Optional[t
         out = torch.where(pos >= cnt, asc(torch.zeros_like(cnt)), out)
     else:
         w_sorted = weights[order] * (l_sorted < M)
-        cumw = torch.cumsum(w_sorted, 0)
+        # accumulated in f64, each sum rounded to f32: the CPU's f32 cumsum
+        # bit for bit; on the card the f64 sums of f32 weights are exact
+        # whenever they span under 53 bits (label weights do), so any scan
+        # order gives the same bits, and a replay the eager launch's
+        cumw = torch.cumsum(w_sorted.double(), 0).float()
         base = torch.where(begin > 0, cumw[torch.clamp(begin - 1, min=0)], 0.0)
         total = torch.where(end > 0, cumw[torch.clamp(end - 1, min=0)], 0.0) - base
         threshold = total * float(np.float32(alpha))
@@ -214,12 +220,6 @@ class ObjectiveFunction:
         """True when a tree's leaf outputs are renewed from the residuals
         (``regression_l1``, ``quantile``, ``mape``)."""
         return False
-
-    @property
-    def supports_boosting_modes(self) -> bool:
-        """False where boosting=goss, dart or rf is not ported with this
-        objective (the renewing objectives and ``lambdarank``)."""
-        return not self.is_renew_tree_output
 
     def to_string(self) -> str:
         return self.name
@@ -715,10 +715,6 @@ class LambdarankNDCG(ObjectiveFunction):
         self.label_gain = np.asarray(lg, np.float64)
         self.optimize_pos_at = config.max_position
 
-    @property
-    def supports_boosting_modes(self):
-        return False
-
     def init(self, metadata, num_data, device):
         super().init(metadata, num_data, device)
         if metadata.query_boundaries is None:
@@ -770,17 +766,12 @@ _OBJECTIVES = {
     "lambdarank": LambdarankNDCG,
 }
 
-#: the JAX package's objectives the port refuses, and why
-_REFUSED = {
-    "none": "a custom objective (fobj) is not ported",
-}
-
-
-def create_objective(config: Config) -> ObjectiveFunction:
+def create_objective(config: Config) -> Optional[ObjectiveFunction]:
+    """The objective of ``config``; None for ``none`` (a custom objective:
+    the caller hands the gradients in), as in the JAX package."""
     name = config.objective
-    if name in _REFUSED or name in ("", None):
-        raise NotImplementedError("objective=%s is not ported to lightgbm_tpu_torch yet: %s"
-                                  % (name, _REFUSED.get(name, _REFUSED["none"])))
+    if name in ("none", "", None):
+        return None
     cls = _OBJECTIVES.get(name)
     if cls is None:
         log.fatal("Unknown objective type name: %s" % name)

@@ -95,16 +95,16 @@ def test_wrappers_refuse_other_devices():
 
 
 @pytest.mark.parametrize("params,name", [
-    ({"objective": "none"}, "objective"),
-    ({"objective": "quantile", "boosting": "dart"}, "objective"),
+    ({"tree_learner": "feature"}, "tree_learner"),
+    ({"tree_learner": "voting"}, "tree_learner"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
     ({"cegb_penalty_split": 0.1}, "cegb"),
     ({"histogram_pool_size": 1.0}, "histogram_pool_size"),
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
-    ({"metric": "auc_mu"}, "metric"),
-    ({"metric": "average_precision"}, "metric"),
+    ({"cegb_penalty_feature_lazy": [1.0] * 6}, "cegb"),
+    ({"cegb_penalty_feature_coupled": [0.5] * 6}, "cegb"),
 ])
 def test_unsupported_params_raise(params, name):
     X, y = _data()

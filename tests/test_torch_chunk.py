@@ -143,10 +143,10 @@ def test_engine_steps_by_the_reference_boundaries(monkeypatch, total, chunk):
     steps, kinds, depth = [], [], [0]
 
     def record(kind, fn):
-        def call(self, *args):
+        def call(self, *args, **kwargs):
             depth[0] += 1
             try:
-                out = fn(self, *args)
+                out = fn(self, *args, **kwargs)
             finally:
                 depth[0] -= 1
             if not depth[0]:

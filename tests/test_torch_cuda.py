@@ -2004,3 +2004,134 @@ def test_captured_rank_and_renewal_iterations_equal_eager(monkeypatch, dev, para
     for kind in ("graph", "chunk"):
         assert _trees_text(runs[kind]) == _trees_text(runs["eager"]), kind
         assert runs[kind]._gbdt.train_score().tobytes() == runs["eager"]._gbdt.train_score().tobytes()
+
+
+# ---- the training API's host code over the captured loop: a custom objective,
+# continued training and the boosting modes with ranking and leaf renewal
+
+
+def _rounded_fobj(labels, q=128.0):
+    """A numpy binary log-loss objective with its gradients and hessians
+    rounded to multiples of 1/q (hessians at least 1/q)."""
+    def fobj(preds, _dataset):
+        p = 1.0 / (1.0 + np.exp(-preds))
+        return np.round((p - labels) * q) / q, np.maximum(np.round(p * (1.0 - p) * q), 1.0) / q
+    return fobj
+
+
+def _api_data(n=100_000, seed=5):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 12)
+    y = (X[:, 0] + 0.5 * X[:, 1] * X[:, 2] + 0.5 * rng.randn(n) > 0).astype(np.float64)
+    return X, y
+
+
+API_PARAMS = {"num_leaves": 63, "max_bin": 255, "learning_rate": 0.3, "verbose": -1,
+              "objective": "none", "bagging_fraction": 0.8, "bagging_freq": 1,
+              "feature_fraction": 0.8}
+
+
+def test_fobj_replay_equals_eager_and_the_cpu(dev):
+    """Booster.update(fobj=): the gradients uploaded before each replay of
+    the one captured iteration give the eager launches' and the CPU plain
+    loop's model text and train scores bit for bit (gradients rounded to
+    2^-7: every histogram sum exact); a wrong or stale upload would fork
+    the trees."""
+    import lightgbm_tpu_torch as tlgb
+
+    X, y = _api_data()
+    fobj = _rounded_fobj(y)
+    runs = {}
+    for kind, device, graph in (("graph", "cuda", True), ("eager", "cuda", False),
+                                ("cpu", "cpu", False)):
+        b = tlgb.Booster(dict(API_PARAMS), tlgb.Dataset(X, label=y), device=device)
+        b._gbdt.iteration_graph = graph
+        for _ in range(8):
+            assert not b.update(fobj=fobj)
+        runs[kind] = b
+    g = runs["graph"]._gbdt
+    assert g.captures == 1 and g._custom_grads and g.grow_loop == "device"
+    for kind in ("eager", "cpu"):
+        assert _trees_text(runs["graph"]) == _trees_text(runs[kind]), kind
+        assert runs["graph"]._gbdt.train_score().tobytes() == runs[kind]._gbdt.train_score().tobytes()
+
+
+def test_warmstart_carry_on_the_card(dev, tmp_path):
+    """The per-tree f32 replay of a model trained on the card (from the
+    Booster and from its text) equals its live score carry bit for bit, and
+    a run continued from the file grows the one-shot run's trees (rounded
+    gradients)."""
+    import lightgbm_tpu_torch as tlgb
+
+    X, y = _api_data()
+    fobj = _rounded_fobj(y)
+
+    def train(rounds, init_model=None):
+        return tlgb.train(dict(API_PARAMS), tlgb.Dataset(X, label=y), rounds, fobj=fobj,
+                          init_model=init_model, verbose_eval=False)
+
+    first = train(4)
+    carry = first._gbdt.scores.cpu().numpy()
+    assert np.array_equal(first._gbdt.warmstart_scores(X), carry)
+    path = str(tmp_path / "first.txt")
+    first.save_model(path)
+    loaded = tlgb.Booster(model_file=path)
+    assert np.array_equal(loaded._gbdt.warmstart_scores(X), carry)
+    warm, one = train(4, init_model=path), train(8)
+    assert warm._gbdt.captures == 1
+    assert warm.model_to_string() == one.model_to_string()
+
+
+MODE_OBJECTIVES = {
+    "goss_quantile": {"boosting": "goss", "learning_rate": 0.25, "objective": "quantile",
+                      "alpha": 0.9},
+    "dart_l1": {"boosting": "dart", "skip_drop": 0.0, "drop_rate": 0.3,
+                "objective": "regression_l1"},
+    "rf_mape": {"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1, "objective": "mape"},
+    "goss_lambdarank": {"boosting": "goss", "learning_rate": 0.25, "objective": "lambdarank"},
+}
+
+
+@pytest.mark.parametrize("pair", sorted(MODE_OBJECTIVES))
+def test_mode_objective_replay_equals_eager(monkeypatch, dev, pair):
+    """GOSS with quantile and LambdaRank, DART with L1 and random forest
+    with MAPE: a replay an iteration gives the eager launches' model text
+    and train scores bit for bit, the lambdas, quantile's 0.1 and -0.9 and
+    MAPE's weighted signs rounded to 2^-7 (L1's are exact); MAPE's weighted
+    renewal sums its weights in f64, exact, whatever the scan's order."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as obj_mod
+
+    for cls in (obj_mod.RegressionMAPELoss, obj_mod.RegressionQuantileLoss,
+                obj_mod.LambdarankNDCG):
+        def rounded(self, score, get=cls.get_gradients):
+            g, h = get(self, score)
+            return (torch.round(g * 128.0) / 128.0,
+                    torch.clamp(torch.round(h * 128.0), min=1.0) / 128.0)
+
+        monkeypatch.setattr(cls, "get_gradients", rounded)
+    rng = np.random.RandomState(3)
+    # 100,000 rows in queries of 1 to 250: GOSS's amplification is then
+    # (100,000 - 20,000) / 10,000 = 8 and the amplified gradients stay dyadic
+    sizes = rng.randint(1, 251, 900)
+    sizes = sizes[:int(np.searchsorted(np.cumsum(sizes), 100_000))]
+    sizes = np.append(sizes, 100_000 - sizes.sum())
+    n = int(sizes.sum())
+    X = rng.randn(n, 8)
+    yv = 3.0 * X[:, 0] + X[:, 1] ** 2 + rng.randn(n)
+    rank = MODE_OBJECTIVES[pair]["objective"] == "lambdarank"
+    ds = tlgb.Dataset(X, label=np.clip(np.round(yv - 1.0), 0, 4) if rank else yv + 5.0,
+                      group=sizes if rank else None)
+    base = {"num_leaves": 63, "max_bin": 255, "verbose": -1, **MODE_OBJECTIVES[pair]}
+    runs = {}
+    for graph in (False, True):
+        b = tlgb.Booster(dict(base), ds, device="cuda")
+        b._gbdt.iteration_graph = graph
+        for _ in range(8):
+            assert not b.update()
+        runs[graph] = b
+    g = runs[True]._gbdt
+    assert g.captures == (2 if pair.startswith("goss") else 1)
+    assert g._renew == (not rank)
+    assert _trees_text(runs[True]) == _trees_text(runs[False])
+    assert runs[True]._gbdt.train_score().tobytes() == runs[False]._gbdt.train_score().tobytes()

@@ -224,15 +224,19 @@ def test_metric_matches_jax(name, case, weighted):
 
 @pytest.mark.parametrize("name", ["none"])
 def test_refused_objectives_name_themselves(name):
-    with pytest.raises(NotImplementedError, match="objective=%s" % name):
-        tobj.create_objective(TConfig.from_params({"objective": name, "verbose": -1}))
+    """The name is historical: ``objective="none"`` (a custom objective) is
+    no ObjectiveFunction in either package: both give None."""
+    assert tobj.create_objective(TConfig.from_params({"objective": name, "verbose": -1})) is None
+    assert jobj.create_objective(JConfig.from_params({"objective": name, "verbose": -1})) is None
 
 
 @pytest.mark.parametrize("name", ["ndcg_at_k"])
-def test_refused_metrics_name_themselves(name):
-    """Only a name that neither package knows is refused."""
-    with pytest.raises(NotImplementedError, match="metric=%s" % name):
-        tmetric.create_metric(name, TConfig.from_params({"verbose": -1}))
+def test_refused_metrics_name_themselves(name, capsys):
+    """The name is historical: a name that no metric of either package has
+    warns "Unknown metric type name" and gives None in both packages."""
+    assert tmetric.create_metric(name, TConfig.from_params({"verbose": 0})) is None
+    assert "Unknown metric type name: %s" % name in capsys.readouterr().err
+    assert jmetric.create_metric(name, JConfig.from_params({"verbose": -1})) is None
 
 
 def _queries(n):

@@ -241,8 +241,8 @@ def test_group_api():
     np.testing.assert_array_equal(np.diff(b), sizes)
     ds.set_group(sizes[::-1])  # a constructed Dataset takes the new boundaries
     np.testing.assert_array_equal(np.diff(ds._binned.metadata.query_boundaries), sizes[::-1])
-    with pytest.raises(NotImplementedError, match="label"):
-        ds.set_field("label", rel)
+    ds.set_field("label", rel[::-1])  # a field the port refused before; the binned labels follow
+    np.testing.assert_array_equal(ds.get_field("label"), rel[::-1].astype(np.float32))
     with pytest.raises(LightGBMError, match="Unknown field name"):
         ds.set_field("position", sizes)
     vs = ds.create_valid(X, label=rel, group=sizes)
@@ -251,9 +251,13 @@ def test_group_api():
 
 @pytest.mark.parametrize("boosting", ["goss", "dart", "rf"])
 def test_boosting_modes_refuse_lambdarank_by_name(boosting):
+    """The name is historical: each mode trains with LambdaRank now
+    (tests/test_torch_mode_objectives.py holds the pairs to the JAX package)."""
     X, rel, sizes = _rank_train_data(6, 10)
     params = {"objective": "lambdarank", "boosting": boosting, "verbose": -1}
     if boosting == "rf":
         params.update(bagging_fraction=0.8, bagging_freq=1)
-    with pytest.raises(NotImplementedError, match="boosting=%s with objective=lambdarank" % boosting):
-        tlgb.train(params, tlgb.Dataset(X, label=rel, group=sizes), 2, device="cpu")
+    bst = tlgb.train(params, tlgb.Dataset(X, label=rel, group=sizes), 2, device="cpu")
+    assert bst.num_trees() == 2 and type(bst._gbdt).__name__ == {
+        "goss": "GOSS", "dart": "DART", "rf": "RandomForest"}[boosting]
+    assert np.isfinite(bst.predict(X)).all()

@@ -304,9 +304,13 @@ def test_model_text_both_ways(name):
 
 @pytest.mark.parametrize("boosting", ["goss", "dart", "rf"])
 def test_boosting_modes_refuse_renewal_by_name(boosting):
+    """The name is historical: each mode trains with a renewing objective
+    now (tests/test_torch_mode_objectives.py holds the pairs to the JAX
+    package)."""
     X, y, _ = _data(11, 200)
     params = {"objective": "quantile", "boosting": boosting, "verbose": -1}
     if boosting == "rf":
         params.update(bagging_fraction=0.8, bagging_freq=1)
-    with pytest.raises(NotImplementedError, match="boosting=%s with objective=quantile" % boosting):
-        tlgb.train(params, tlgb.Dataset(X, label=y), 2, device="cpu")
+    bst = tlgb.train(params, tlgb.Dataset(X, label=y), 2, device="cpu")
+    assert bst.num_trees() == 2 and bst._gbdt._renew
+    assert np.isfinite(bst.predict(X)).all()

@@ -428,9 +428,9 @@ def test_chunk_clamped_to_an_early_stopping_callback(higgs, monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,name", [
-    ({"fobj": lambda p, d: (p, p)}, "fobj"),
-    ({"init_model": "model.txt"}, "init_model"),
-    ({"keep_training_booster": True}, "keep_training_booster"),
+    ({"params": {"resume_from": "ck"}}, "resume_from"),
+    ({"params": {"preempt_exit": True}}, "preempt_exit"),
+    ({"params": {"checkpoint_rounds": 5}}, "checkpoint_rounds"),
     ({"checkpoint_path": "ck"}, "checkpoint_path"),
     ({"checkpoint_rounds": 5}, "checkpoint_rounds"),
     ({"resume_from": "ck"}, "resume_from"),
@@ -449,5 +449,9 @@ def test_engine_refuses_what_is_not_ported(higgs, kwargs, name):
 
 
 def test_cv_is_not_ported():
-    with pytest.raises(NotImplementedError, match="cv"):
-        tlgb.cv({}, None)
+    """The name is historical: ``cv`` was refused and now trains a Booster a
+    fold (tests/test_torch_cv.py holds it to the JAX package)."""
+    X, y = make_higgs_like(900, 28, seed=5)
+    res = tlgb.cv(dict(BASE, metric="auc"), tlgb.Dataset(X, label=y), 3, nfold=3, device="cpu")
+    assert sorted(res) == ["auc-mean", "auc-stdv"] and len(res["auc-mean"]) == 3
+    assert 0.5 < res["auc-mean"][-1] <= 1.0
