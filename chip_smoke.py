@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's training path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's training and serving paths on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -272,11 +272,34 @@ Phases (each prints one line; any failure exits non-zero):
     the two-order bound; AUC > 0.7 in both, and the
     f32 runs grow the default route's trees up to a flip whose gain gap
     lies within the f32 error bound of the sums behind the flipped node;
+ 8b. serving: the main path's model at full width, 500 iterations of 255
+    leaves (T = 500, M = 254), and 4g's categorical K = 7 model, packed on
+    the card (``Booster.to_packed``); the three kernels of
+    csrc/packed_predict.cu (``packed_bin_rows``, ``packed_predict_leaves``,
+    ``packed_predict_values``) against their plain versions at 1, 16, 4,096
+    and 10,000 rows, codes, leaves and values bit for bit; the exact path
+    against ``Booster.predict`` bit for bit (raw, converted, ``pred_leaf``)
+    on 100k held-out rows with 2% NaN (10k for the categorical model); then
+    ``python -m lightgbm_tpu_torch.serve``'s ``main`` in this process on
+    127.0.0.1 with ``--device cuda --warmup-rows 4096`` and
+    LIGHTGBM_TPU_RETRACE=fail: 8 clients send 200 requests each of 1 to
+    4,096 rows (log-uniform), alternating the exact path (every answer equal
+    to ``Booster.predict`` bit for bit) and the fused path with raw scores
+    (every answer within 2·T·2^-24·Σ|v| of the f64 sum of its f32 codes'
+    leaves), one hot swap to the same trees cut to 100 iterations under
+    that load (answers of both versions held to their own references),
+    zero retraces after warmup; rows/s of that load and of an exact-only
+    and a fused-only one, p50/p99 latency of 1-row and 1,000-row requests
+    on both paths, then SIGTERM and the server's drain; each kernel timed
+    at 16 and 4,096 rows against its bytes bound, its plain version and,
+    for the bin kernel, one batched ``torch.searchsorted``; printed with the
+    card's name and power limit;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
     4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
-    sweep and the routed
-    trainings, each with the counts set to 0 just before it and read just
+    sweep and the routed trainings, and 8b's server under load (the
+    serving kernels', timed in 8b at 4,096 rows),
+    each with the counts set to 0 just before it and read just
     after; the split loop's kernels timed in phase 4b, leaf_ids and
     score_update in 4c, predict_bins in 4d; the categorical instantiations of
     the folded scan, pick_partition and predict_bins in rows of their own,
@@ -378,6 +401,363 @@ def renewal_bracket(got, residual, leaf_id, weights, num_leaves, alpha, slack):
     return int(apart)
 
 
+SERVE_ROUNDS = 500  # T = 500 trees of 255 leaves (M = 254) at full width
+SERVE_HELD_ROWS = 100_000
+SERVE_SWAP_ROUNDS = 100  # the hot-swapped model: the same trees cut to 100 iterations
+SERVE_CLIENTS = 8
+SERVE_REQUESTS = 200
+SERVE_MAX_ROWS = 4096
+SERVE_SIZES = (1, 16, 4096, 10000)
+
+
+def packed_bounds(N, F, T, M, L, K, bmax, cat_words):
+    """bound_ms of the three serving kernels at N rows: each input read once,
+    each output written once, over the card's memory rate (their f32 work,
+    one add a tree a row in packed_predict_values, is far below the f32
+    rate). Returns {kernel: (ms, "bytes")}."""
+    nodes = T * M * (6 * 4 + 3 * 1)  # six int32 and three bool fields a node
+    per_feature = 3 * 4 * F  # rank0, zero_lo, zero_hi
+    rows = N * F * (4 + 1)  # codes and NaN flags
+    return {
+        "packed_bin_rows": bound(N * F * 4 + F * bmax * 4 + F + N * F * (4 + 1), 0),
+        "packed_predict_leaves": bound(rows + nodes + T * 4 + cat_words * 4 + per_feature
+                                       + T * N * 4, 0),
+        "packed_predict_values": bound(rows + nodes + T * 4 + cat_words * 4 + per_feature
+                                       + T * L * 4 + K * N * 4, N * T),
+    }
+
+
+def serving_phase(lgb, dev, counted, time_ms, train_set, cat_booster, cat_rows, workdir):
+    """The serving path on the card (phase 8b of the module docstring).
+    Returns (the phase's record, each kernel's row of the kernels line)."""
+    import http.client
+    import signal
+    import socket
+    import threading
+
+    import numpy as np
+    import torch
+
+    from lightgbm_tpu_torch.obs import retrace
+    from lightgbm_tpu_torch.ops import packed_kernel
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.serve import __main__ as serve_main
+
+    rec = {}
+    t_part = [time.perf_counter()]
+    part_s = {}
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    # the main path's model at full width: 500 iterations of 255 leaves
+    bst, train_s, _ = counted(lambda: lgb.train(dict(TRAIN_PARAMS), train_set, SERVE_ROUNDS,
+                                                device=dev))
+    assert bst.num_trees() == SERVE_ROUNDS, bst.num_trees()
+    pk = bst.to_packed()
+    assert pk.device.type == dev.type and tuple(pk.packed.feature.shape) == (
+        SERVE_ROUNDS, TRAIN_PARAMS["num_leaves"] - 1), tuple(pk.packed.feature.shape)
+    rec["model"] = dict(trees=pk.num_trees, max_nodes=int(pk.packed.feature.shape[1]),
+                        features=pk.num_features, train_s=train_s,
+                        lattice_max=max(len(b) for b in pk.feat_bounds))
+    # held-out rows of the main path's distribution, 2% NaN
+    Xh, _ = higgs_like_rows(SERVE_HELD_ROWS, FEATURES, seed=9)
+    Xh = Xh.astype(np.float64)
+    Xh[np.random.RandomState(10).rand(*Xh.shape) < 0.02] = np.nan
+    Xc = np.asarray(cat_rows[:SERVE_HELD_ROWS], np.float64).copy()
+    Xc[np.random.RandomState(11).rand(*Xc.shape) < 0.02] = np.nan
+    pkc = cat_booster.to_packed()
+    part_done("train_and_pack")
+
+    # 1. each kernel against its plain version on the card, bit for bit
+    for label, ens, rows in (("main", pk, Xh), ("categorical", pkc, Xc)):
+        P, K = ens.packed, ens.num_tree_per_iteration
+        for n in SERVE_SIZES:
+            Xd = torch.as_tensor(np.resize(rows, (n, rows.shape[1])).astype(np.float32), device=dev)
+            codes, isnan = packed_kernel.packed_bin_rows(Xd, ens.bounds_dev, ens.is_cat_dev)
+            want_c, want_n = predict_plain.packed_bin_rows(Xd, ens.bounds_dev, ens.is_cat_dev)
+            leaves = packed_kernel.packed_predict_leaves(codes, isnan, P)
+            want_l = predict_plain.packed_predict_leaves(codes, isnan, P)
+            vals = packed_kernel.packed_predict_values(codes, isnan, P, K, ens.average_output)
+            want_v = predict_plain.packed_predict_values(codes, isnan, P, K, ens.average_output)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            errs = dict(
+                packed_bin_rows=int(max((codes - want_c).abs().max(), (isnan != want_n).sum())),
+                packed_predict_leaves=int((leaves - want_l).abs().max()),
+                packed_predict_values=float((vals - want_v).abs().max()))
+            assert not any(errs.values()), ("a serving kernel != its plain version", label, n, errs)
+    rec["kernels_vs_plain"] = dict(sizes=list(SERVE_SIZES), models=["main", "categorical"],
+                                   max_abs_err=0.0)
+    part_done("kernels_vs_plain")
+
+    # 2. the exact path on the card against Booster.predict, bit for bit
+    ref = {"value": bst.predict(Xh), "raw": bst.predict(Xh, raw_score=True),
+           "leaf": bst.predict(Xh, pred_leaf=True)}
+    assert np.array_equal(pk.predict(Xh), ref["value"]), "exact path != Booster.predict"
+    assert np.array_equal(pk.predict(Xh, raw_score=True), ref["raw"]), "exact raw != predict"
+    leaves_h = pk.predict(Xh, pred_leaf=True)
+    assert leaves_h.dtype == np.int32 and np.array_equal(leaves_h, ref["leaf"]), "pred_leaf"
+    kc = Xc[:10_000]
+    assert np.array_equal(pkc.predict(kc), cat_booster.predict(kc)), "categorical exact path"
+    assert np.array_equal(pkc.predict(kc, pred_leaf=True), cat_booster.predict(kc, pred_leaf=True))
+    ref_swap = bst.predict(Xh, num_iteration=SERVE_SWAP_ROUNDS)
+    # the fused path's yardstick, for each served model: each row's leaves
+    # from its f32 codes (the kernels', equal to the plain versions above),
+    # their f64 values summed, and 2 T 2^-24 times their absolute sum as the
+    # bound of f32 values summed in f32
+    path1 = os.path.join(workdir, "serve_main.txt")
+    path2 = os.path.join(workdir, "serve_swap.txt")
+    bst.save_model(path1)
+    bst.save_model(path2, num_iteration=SERVE_SWAP_ROUNDS)
+    Xd = torch.as_tensor(Xh.astype(np.float32), device=dev)
+    fused_ref, apart = {}, {}
+    for version, path in ((1, path1), (2, path2)):
+        ens = lgb.Booster(model_file=path, device=dev).to_packed()
+        codes, isnan = packed_kernel.packed_bin_rows(Xd, ens.bounds_dev, ens.is_cat_dev)
+        f32_leaves = packed_kernel.packed_predict_leaves(codes, isnan, ens.packed).long()
+        v64 = torch.as_tensor(ens.leaf_value64, device=dev).gather(1, f32_leaves)  # [T, N]
+        fused_ref[version] = (v64.sum(0).cpu().numpy(),
+                              2.0 * ens.num_trees * 2.0 ** -24 * v64.abs().sum(0).cpu().numpy())
+        # rows whose f32 codes differ from the f64 host codes somewhere
+        apart[version] = int((codes.cpu().numpy() != ens._host_codes(Xh)[0]).any(1).sum())
+        del codes, isnan, f32_leaves, v64
+    rec["exact_vs_predict"] = dict(rows=SERVE_HELD_ROWS, nan_share=0.02, bit_equal=True,
+                                   categorical_rows=10_000, f32_code_rows_apart=apart)
+    del Xd
+    part_done("exact_vs_predict")
+
+    # 3. the server: python -m lightgbm_tpu_torch.serve's main() in this
+    # process (the launch counts are read here), on the card, warmed to
+    # 4096 rows, under 8 clients; a hot swap to the 100-iteration model
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    refs = {1: ref["value"], 2: ref_swap}
+    rng = np.random.RandomState(12)
+    plans = []  # (client, offset, rows, fused, body)
+    for c in range(SERVE_CLIENTS):
+        for i in range(SERVE_REQUESTS):
+            n = int(min(max(np.exp(rng.uniform(0.0, np.log(SERVE_MAX_ROWS))), 1), SERVE_MAX_ROWS))
+            off = int(rng.randint(0, SERVE_HELD_ROWS - n))
+            fused = bool(i % 2)
+            body = json.dumps({"rows": Xh[off:off + n].tolist(), "model": "main",
+                               "fused": fused, "raw_score": fused})
+            plans.append((c, off, n, fused, body))
+
+    def post(body, path="/predict"):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", path, body, {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    def get(path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        try:
+            conn.request("GET", path)
+            r = conn.getresponse()
+            return r.status, r.read().decode("utf-8")
+        finally:
+            conn.close()
+
+    box = {"errors": [], "checked": {"exact": 0, "fused": 0}, "versions": set()}
+
+    def check(plan, status, body):
+        _, off, n, fused, _ = plan
+        if status != 200:
+            box["errors"].append((status, str(body)[:200]))
+            return
+        got = np.asarray(body["predictions"], np.float64)
+        version = body["version"]
+        box["versions"].add(version)
+        if fused:
+            want, tol = fused_ref[version]
+            if not np.all(np.abs(got - want[off:off + n]) <= tol[off:off + n]):
+                box["errors"].append(("fused past its bound", version, off, n))
+            box["checked"]["fused"] += 1
+        else:
+            if got.tobytes() != refs[version][off:off + n].tobytes():
+                box["errors"].append(("exact != Booster.predict", version, off, n))
+            box["checked"]["exact"] += 1
+
+    def load(plans_, clients):
+        """Every plan through ``clients`` threads; (seconds, rows)."""
+        per = [[p for p in plans_ if p[0] % clients == c] for c in range(clients)]
+
+        def client(mine):
+            for p in mine:
+                check(p, *post(p[4]))
+
+        threads = [threading.Thread(target=client, args=(m,), daemon=True) for m in per]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        return time.perf_counter() - t0, sum(p[2] for p in plans_)
+
+    def latency(n, fused, reps):
+        body = json.dumps({"rows": Xh[:n].tolist(), "model": "main", "fused": fused,
+                           "raw_score": fused})
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            status, _ = post(body)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            assert status == 200, status
+        ms.sort()
+        return {"p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(int(0.99 * len(ms)), len(ms) - 1)],
+                "requests": reps}
+
+    def drive():
+        try:
+            deadline = time.perf_counter() + 300
+            while True:
+                if stopped.is_set():
+                    return
+                try:
+                    if get("/healthz")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                assert time.perf_counter() < deadline, "the server did not come up"
+                time.sleep(0.2)
+            box["armed"] = retrace.WATCHDOG.armed
+            swap = {}
+
+            def hot_swap():
+                while sum(box["checked"].values()) < len(plans) // 10 and not stopped.is_set():
+                    time.sleep(0.01)
+                swap["t"] = time.perf_counter()
+                swap["status"], swap["body"] = post(json.dumps({"name": "main", "path": path2}),
+                                                    "/models")
+                swap["s"] = time.perf_counter() - swap["t"]
+
+            swapper = threading.Thread(target=hot_swap, daemon=True)
+            swapper.start()
+            secs, rows = load(plans, SERVE_CLIENTS)
+            swapper.join(120)
+            box["load"] = dict(seconds=secs, rows=rows, requests=len(plans),
+                               rows_per_s=rows / secs, swap_status=swap.get("status"),
+                               swap_s=swap.get("s"))
+            # per-path throughput: 8 clients, 20 requests each, one path
+            for fused in (False, True):
+                sub = [(c, off, n, fused, json.dumps({"rows": Xh[off:off + n].tolist(),
+                                                      "model": "main", "fused": fused,
+                                                      "raw_score": fused}))
+                       for (c, off, n, _, _) in plans[:SERVE_CLIENTS * 20]]
+                s_, r_ = load(sub, SERVE_CLIENTS)
+                box["fused_rows_per_s" if fused else "exact_rows_per_s"] = r_ / s_
+            box["latency"] = {"exact_1": latency(1, False, 100), "fused_1": latency(1, True, 100),
+                              "exact_1000": latency(1000, False, 30),
+                              "fused_1000": latency(1000, True, 30)}
+            box["retraces_after_warmup"] = retrace.retraces_after_warmup()
+            box["metrics_text"] = get("/metrics")[1]
+            box["models"] = json.loads(get("/models")[1])
+        except BaseException as e:  # reported by the main thread
+            box["drive_error"] = repr(e)
+        finally:
+            if not stopped.is_set():
+                os.kill(os.getpid(), signal.SIGTERM)  # the server's graceful drain
+
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    old_mode = os.environ.get("LIGHTGBM_TPU_RETRACE")
+    os.environ["LIGHTGBM_TPU_RETRACE"] = "fail"  # a retrace after warmup fails its request
+    stopped = threading.Event()  # main() has returned or raised
+    driver = threading.Thread(target=drive, daemon=True)
+    safety = threading.Timer(480.0, lambda: os.kill(os.getpid(), signal.SIGTERM))
+    safety.daemon = True
+    try:
+        driver.start()
+        safety.start()
+        rc, serve_s, launches = counted(lambda: serve_main.main([
+            "main=" + path1, "--host", "127.0.0.1", "--port", str(port), "--device", dev.type,
+            "--warmup-rows", str(SERVE_MAX_ROWS)]))
+    finally:
+        stopped.set()
+        safety.cancel()
+        driver.join(60)
+        for s, h in handlers.items():
+            signal.signal(s, h)
+        retrace.disarm()
+        if old_mode is None:
+            os.environ.pop("LIGHTGBM_TPU_RETRACE", None)
+        else:
+            os.environ["LIGHTGBM_TPU_RETRACE"] = old_mode
+    assert rc == 0, rc
+    assert "drive_error" not in box, box.get("drive_error")
+    assert not box["errors"], box["errors"][:5]
+    assert box["armed"], "the watchdog was not armed after warmup"
+    assert box["retraces_after_warmup"] == {}, box["retraces_after_warmup"]
+    assert box["load"]["swap_status"] == 200 and box["versions"] == {1, 2}, (
+        box["load"], box["versions"])
+    assert box["checked"]["exact"] >= SERVE_CLIENTS * SERVE_REQUESTS // 2, box["checked"]
+    assert all(launches.get(k, 0) > 0 for k in packed_kernel.ENTRIES), launches
+    assert "lgbtpu_requests_total" in box["metrics_text"]
+    rec["server"] = dict(
+        clients=SERVE_CLIENTS, requests_each=SERVE_REQUESTS, rows_per_request="1-%d, log-uniform"
+        % SERVE_MAX_ROWS, seconds=serve_s, launches=launches, checked=box["checked"],
+        versions=sorted(box["versions"]), retraces_after_warmup=0, load=box["load"],
+        exact_rows_per_s=box["exact_rows_per_s"], fused_rows_per_s=box["fused_rows_per_s"],
+        latency=box["latency"], models=[m["num_trees"] for m in box["models"]["models"]])
+    part_done("server")
+
+    # 4. each kernel's time at 16 and 4096 rows against its bound
+    F = pk.num_features
+    T, M = pk.packed.feature.shape
+    L = pk.packed.leaf_value.shape[1]
+    rows_t = {}
+    for n in (16, 4096):
+        Xd = torch.as_tensor(Xh[:n].astype(np.float32), device=dev)
+        codes, isnan = packed_kernel.packed_bin_rows(Xd, pk.bounds_dev, pk.is_cat_dev)
+        bounds_n = packed_bounds(n, F, T, M, L, 1, pk.bounds_dev.shape[1],
+                                 pk.packed.cat_words.numel())
+        fns = {
+            "packed_bin_rows": (
+                lambda: packed_kernel.packed_bin_rows(Xd, pk.bounds_dev, pk.is_cat_dev),
+                lambda: predict_plain.packed_bin_rows(Xd, pk.bounds_dev, pk.is_cat_dev),
+                lambda: torch.searchsorted(pk.bounds_dev, Xd.t().contiguous())),
+            "packed_predict_leaves": (
+                lambda: packed_kernel.packed_predict_leaves(codes, isnan, pk.packed),
+                lambda: predict_plain.packed_predict_leaves(codes, isnan, pk.packed), None),
+            "packed_predict_values": (
+                lambda: packed_kernel.packed_predict_values(codes, isnan, pk.packed, 1, False),
+                lambda: predict_plain.packed_predict_values(codes, isnan, pk.packed, 1, False),
+                None),
+        }
+        for name, (kern, plain_fn, lib) in fns.items():
+            b_ms, b_by = bounds_n[name]
+            rows_t.setdefault(name, {})[n] = dict(
+                ms=time_ms(kern), plain_ms=time_ms(plain_fn, reps=3), bound_ms=b_ms,
+                bound_by=b_by, library_ms=None if lib is None else time_ms(lib))
+    rec["kernel_times"] = rows_t
+    part_done("kernel_times")
+    rec["part_seconds"] = part_s
+    replaces = {
+        "packed_bin_rows": "lightgbm_tpu/ops/predict.py:299 (packed_bin_rows; XLA there)",
+        "packed_predict_leaves": "lightgbm_tpu/ops/predict.py:266,204 (packed_predict_leaves, "
+                                 "_packed_tree_leaf; XLA there)",
+        "packed_predict_values": "lightgbm_tpu/ops/predict.py:276 (packed_predict_values; XLA "
+                                 "there)",
+    }
+    kernels = []
+    for name in packed_kernel.ENTRIES:
+        t = rows_t[name]
+        kernels.append(dict(
+            name=name, route="cuda", source="lightgbm_tpu_torch/csrc/packed_predict.cu",
+            replaces=replaces[name], launches=launches.get(name, 0), max_abs_err=0.0,
+            ms=t[4096]["ms"], plain_ms=t[4096]["plain_ms"], bound_ms=t[4096]["bound_ms"],
+            bound_by=t[4096]["bound_by"], library_ms=t[4096]["library_ms"],
+            sizes={"rows": 4096, "at_16_rows": t[16]},
+        ))
+    return rec, kernels
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="also write the results as JSON here")
@@ -411,7 +791,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops import predict as predict_plain
     from lightgbm_tpu_torch.ops import remap as remap_plain
-    from lightgbm_tpu_torch.ops import rank_kernel, remap_kernel
+    from lightgbm_tpu_torch.ops import packed_kernel, rank_kernel, remap_kernel
     from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
         leaf_histogram, leaf_histogram_packed4_rows, leaf_values, operands, segment_histogram,
@@ -480,11 +860,12 @@ def main() -> int:
         "predict_bins_bundled_kernel<1>"}, ptxas
     assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
     assert set(ptxas["lambdarank"]) == {"lambdarank_kernel"}, ptxas
+    assert set(ptxas["packed_predict"]) == {"bin_rows_kernel", "leaves_kernel", "values_kernel"}, ptxas
     # histogram.cu: both entries per (operand type, bin path, grouped form)
     assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
                for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap",
-                         "lambdarank")
+                         "lambdarank", "packed_predict")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
@@ -693,6 +1074,7 @@ def main() -> int:
         split_kernel.launches = split_kernel.step_launches = split_kernel.fold_launches = 0
         partition_kernel.launches = predict_kernel.launches = remap_kernel.launches = 0
         rank_kernel.launches = 0
+        packed_kernel.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -709,6 +1091,7 @@ def main() -> int:
                      ("lambdarank", rank_kernel.launches)):
             if v:
                 got[k] = v
+        got.update((k, v) for k, v in packed_kernel.launches.items() if v)
         for k, v in got.items():
             main_launches[k] = main_launches.get(k, 0) + v
         return out, secs, got
@@ -2081,6 +2464,8 @@ def main() -> int:
         captured_equals_eager_chunk4_and_host=dict(rows=16_000, iterations=9),
         held_calls=cat_held, split_scan_us_per_call=scan_us, kernels=cat_t,
         iterations_per_s=kips, launches_per_turn=kturn_launches, profile=kprof)
+    # phase 8b serves this model from its text, on held-out rows of it
+    cat_model_text, cat_rows = kbst.model_to_string(), Xkv[:20_000].copy()
     del kbst, gk, cat_set, cat_valid, Xk, yk, Xkv, ykv
 
     # ---- 4h. Covertype as a sparse matrix: EFB-bundled -------------------------------
@@ -3469,6 +3854,23 @@ def main() -> int:
     tmp.cleanup()
     say("routed_training", rows=N, iterations=10, runs=routed, launches=routed_launches)
 
+    # ---- 8b. serving: the packed ensemble, its three kernels and the HTTP server ----
+    with tempfile.TemporaryDirectory(prefix="lgbt-serve-") as serve_dir:
+        serve_rec, serve_kernels = serving_phase(
+            lgb, dev, counted, time_ms, train_set, lgb.Booster(model_str=cat_model_text, device=dev),
+            cat_rows, serve_dir)
+    srv_ = serve_rec["server"]
+    print("serving on %s: rows/s under load %.1f (exact %.1f, fused %.1f); latency ms p50/p99 "
+          "1 row exact %.3f/%.3f fused %.3f/%.3f, 1000 rows exact %.3f/%.3f fused %.3f/%.3f"
+          % (card, srv_["load"]["rows_per_s"], srv_["exact_rows_per_s"], srv_["fused_rows_per_s"],
+             *(srv_["latency"][k_][q_] for k_ in ("exact_1", "fused_1", "exact_1000", "fused_1000")
+               for q_ in ("p50_ms", "p99_ms"))), flush=True)
+    for name_, t_ in serve_rec["kernel_times"].items():
+        print("serving kernel %s on %s: us at 16 / 4096 rows %.3f / %.3f, bytes bound %.3f / %.3f"
+              % (name_, card, t_[16]["ms"] * 1e3, t_[4096]["ms"] * 1e3, t_[16]["bound_ms"] * 1e3,
+                 t_[4096]["bound_ms"] * 1e3), flush=True)
+    say("serving", card=card, **serve_rec)
+
     # ---- 9. kernels line and result ---------------------------------------------
     sources = {
         "histogram": ("histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:225"),
@@ -3563,6 +3965,9 @@ def main() -> int:
         ms=rank_t["ms"], plain_ms=rank_t["plain_ms"], bound_ms=rank_t["bound_ms"],
         bound_by=rank_t["bound_by"], library_ms=None,
     ))
+    # the serving kernels, timed in phase 8b at 4096 rows (16 rows beside);
+    # their launches are the server's run under load
+    kernels.extend(serve_kernels)
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

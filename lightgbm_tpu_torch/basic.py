@@ -531,15 +531,25 @@ class Booster:
         """The value of leaf ``leaf_id`` of tree ``tree_id``."""
         return float(self._gbdt.trees()[tree_id].leaf_value[leaf_id])
 
-    def predict(self, data, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
+    def predict(self, data, num_iteration: int = -1, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False, **kwargs) -> np.ndarray:
         """Scores of ``data``: ``[N]``, or ``[N, K]`` for a model of K trees
         an iteration (multiclass), through the objective's output
-        conversion unless ``raw_score``. ``num_iteration`` <= 0 (the
-        default) takes every tree, as the JAX package does; a positive value
-        takes the first ``num_iteration`` iterations, None the first
-        ``best_iteration`` (``train`` sets it: the early-stopping best, else
-        every iteration it trained). A scipy sparse matrix is densified,
-        as the JAX package's ``_to_2d_float`` does."""
+        conversion unless ``raw_score``; with ``pred_leaf`` each row's leaf
+        in each tree, ``[N, T]`` int32 (GBDT.predict_leaf_index).
+        ``num_iteration`` <= 0 (the default) takes every tree, as the JAX
+        package does; a positive value takes the first ``num_iteration``
+        iterations, None the first ``best_iteration`` (``train`` sets it:
+        the early-stopping best, else every iteration it trained). A scipy
+        sparse matrix is densified, as the JAX package's ``_to_2d_float``
+        does. ``pred_contrib`` and ``pred_early_stop`` raise
+        NotImplementedError: they are not ported yet."""
+        if pred_contrib:
+            raise NotImplementedError("Booster.predict(pred_contrib=True) is not ported to "
+                                      "lightgbm_tpu_torch yet")
+        if kwargs.get("pred_early_stop", self.config.pred_early_stop):
+            raise NotImplementedError("Booster.predict(pred_early_stop=True) is not ported to "
+                                      "lightgbm_tpu_torch yet")
         if hasattr(data, "toarray"):
             data = data.toarray()
         X = np.asarray(data, dtype=np.float64)
@@ -552,7 +562,25 @@ class Booster:
             )
         if num_iteration is None:
             num_iteration = self.best_iteration
+        if pred_leaf:
+            return self._gbdt.predict_leaf_index(X, num_iteration)
         return self._gbdt.predict(X, num_iteration, raw_score=raw_score)
+
+    def save_drift_reference(self, model_filename: str):
+        """The JAX package's drift sidecar (``<model>.drift.json``): the drift
+        monitor is not ported."""
+        raise NotImplementedError("Booster.save_drift_reference: the feature-drift monitor "
+                                  "(lightgbm_tpu/serve/drift.py) is not ported to "
+                                  "lightgbm_tpu_torch yet")
+
+    def to_packed(self, num_iteration: int = -1, device=None):
+        """Compile this model into a :class:`~lightgbm_tpu_torch.serve.PackedEnsemble`
+        on ``device`` (default: the Booster's) for batch inference: one
+        traversal launch a request batch instead of a host walk a tree. The
+        exact path of the returned object reproduces ``predict`` bit for bit."""
+        from .serve.packed import pack_booster
+
+        return pack_booster(self, num_iteration=num_iteration, device=device)
 
     def model_to_string(self, num_iteration: int = -1, start_iteration: int = 0) -> str:
         return save_model_to_string(self._gbdt, start_iteration, num_iteration) + "\npandas_categorical:null\n"

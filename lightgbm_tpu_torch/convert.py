@@ -72,6 +72,17 @@ def tree_arrays_from_numpy(arrays: Mapping[str, np.ndarray]) -> TreeArrays:
     return TreeArrays(**{k: torch.as_tensor(np.asarray(arrays[k])) for k in TreeArrays._fields})
 
 
+def packed_trees_from_numpy(packed, device="cpu"):
+    """The port's :class:`~lightgbm_tpu_torch.ops.predict.PackedTrees` on
+    ``device`` from the JAX package's ``PackedTrees`` as numpy arrays (a
+    NamedTuple or mapping of ``np.asarray`` of its fields), each field in the
+    port's dtype — the JAX package's packed model, to drive the port's
+    kernels or to hold ``pack_booster``'s output field by field."""
+    from .serve.packed import packed_trees_to
+
+    return packed_trees_to(packed, device)
+
+
 def booster_from_model_string(text: str, device=None) -> Booster:
     """A port Booster from LightGBM model text, e.g. written by the JAX package."""
     return Booster(model_str=text, device=device)

@@ -1095,6 +1095,18 @@ class GBDT:
             out = [o / max(use // K, 1) for o in out]
         return out[0] if K == 1 else np.stack(out, axis=1)
 
+    def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+        """[N, T] int32: each row's leaf in each of the first trees
+        (``num_iteration`` as in ``predict_raw``), walked on the model's
+        device (lightgbm_tpu/models/gbdt.py ``predict_leaf_index``)."""
+        self._materialize()
+        use = self._used_trees(num_iteration)
+        Xt = torch.as_tensor(np.asarray(X, np.float64), device=self.device)
+        out = np.zeros((Xt.shape[0], use), np.int32)
+        for i in range(use):
+            out[:, i] = raw_predict_leaf(Xt, self.models[i]).cpu().numpy()
+        return out
+
     def predict(self, X: np.ndarray, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
         raw = self.predict_raw(X, num_iteration)
         if raw_score or self.objective is None:

@@ -23,10 +23,21 @@ first (lightgbm_tpu/ops/predict.py:104-109). The validation scores and the
 rollback use it. ``add_tree_value`` is the plain version of the
 hand-written kernel csrc/predict_bins.cu (ops/predict_kernel.py) and the
 path taken for CPU tensors.
+
+Packed space (``PackedTrees``, ``packed_bin_rows``,
+``packed_predict_leaves``, ``packed_predict_values``): the serving path's
+dense rank-space ensemble, lightgbm_tpu/ops/predict.py:160-319. Every
+numerical feature gets a sorted lattice of the thresholds the model uses
+(serve/packed.py ``model_lattice``), rows are converted raw -> rank once,
+and each node decision is an integer compare, so ``rank(x) <= rank(thr)``
+holds exactly when ``x <= thr``. These are the plain versions of the
+hand-written kernels of csrc/packed_predict.cu (ops/packed_kernel.py) and
+the path taken for CPU tensors: ``packed_predict_values`` sums each
+class's trees one f32 add a tree in tree order, as the kernel does.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -231,3 +242,130 @@ def add_tree_value(
     score += value[leaf]
     if leaf_out is not None:
         leaf_out.copy_(leaf)
+
+
+# ---------------------------------------------------------------------------
+# Packed-ensemble inference (serve/)
+# ---------------------------------------------------------------------------
+
+
+class PackedTrees(NamedTuple):
+    """Dense rank-space ensemble: node fields [T, M], leaves [T, L]
+    (lightgbm_tpu/ops/predict.py:175, the same fields and dtypes).
+
+    ``M = max(num_leaves) - 1`` split slots (min 1); padded slots are inert
+    (left = right = -1). ``cat_words`` is one flat uint32 bitset pool shared
+    by every categorical node, which addresses it with (cat_off, cat_n);
+    ``cat_n == 0`` on a categorical node marks the legacy single-category
+    equality decision with the raw category value in ``thr_rank``. The
+    per-feature rank0/zero_lo/zero_hi encode NaN -> 0.0 and the
+    kZeroThreshold window in rank space.
+    """
+
+    feature: torch.Tensor  # [T, M] int32 split feature (original column)
+    thr_rank: torch.Tensor  # [T, M] int32 threshold rank (or legacy cat value)
+    default_left: torch.Tensor  # [T, M] bool
+    missing_type: torch.Tensor  # [T, M] int32
+    left_child: torch.Tensor  # [T, M] int32 (negative = -(leaf+1))
+    right_child: torch.Tensor  # [T, M] int32
+    is_cat: torch.Tensor  # [T, M] bool
+    cat_off: torch.Tensor  # [T, M] int32 word offset into cat_words
+    cat_n: torch.Tensor  # [T, M] int32 word count (0 = legacy equality)
+    leaf_value: torch.Tensor  # [T, L] f32
+    num_leaves: torch.Tensor  # [T] int32
+    cat_words: torch.Tensor  # [W] uint32 flat bitset pool (W >= 1)
+    rank0: torch.Tensor  # [F] int32 rank of 0.0 per feature
+    zero_lo: torch.Tensor  # [F] int32 rank of -kZeroThreshold
+    zero_hi: torch.Tensor  # [F] int32 rank of +kZeroThreshold
+
+
+def packed_predict_leaves(codes: torch.Tensor, isnan: torch.Tensor,
+                          packed: PackedTrees) -> torch.Tensor:
+    """[T, N] int32 leaf indices of every row in every tree, all trees and
+    rows advancing one level a step. ``codes``: [N, F] int32, the threshold
+    rank of a numerical feature and the truncated category of a categorical
+    one; ``isnan``: [N, F] bool. Each decision is lightgbm_tpu/ops/predict.py
+    ``_packed_tree_leaf``'s (:204-254)."""
+    T, M = packed.feature.shape
+    N = codes.shape[0]
+    dev = codes.device
+
+    def node_field(name):
+        return getattr(packed, name).to(torch.int64)
+
+    feature, thr = node_field("feature"), node_field("thr_rank")
+    miss, left, right = node_field("missing_type"), node_field("left_child"), node_field("right_child")
+    cat_off, cat_n = node_field("cat_off"), node_field("cat_n")
+    dl, is_cat = packed.default_left, packed.is_cat
+    words = packed.cat_words.to(torch.int64)
+    rank0, zero_lo, zero_hi = (getattr(packed, k).to(torch.int64) for k in ("rank0", "zero_lo", "zero_hi"))
+    codes_t = codes.t().to(torch.int64)  # [F, N]
+    nan_t = isnan.t()
+    stump = (packed.num_leaves.to(torch.int64) <= 1)[:, None]
+    node = torch.where(stump, -1, 0).expand(T, N).contiguous() if T else \
+        torch.zeros((0, N), dtype=torch.int64, device=dev)
+    while bool((node >= 0).any()):
+        active = node >= 0
+        nsafe = node.clamp(min=0)
+        f = feature.gather(1, nsafe)
+        c = codes_t.gather(0, f)
+        nan = nan_t.gather(0, f)
+        m = miss.gather(1, nsafe)
+        # numerical: NaN -> 0.0 (rank0) unless missing==NaN, then the
+        # kZeroThreshold window / NaN default routing, else the rank compare
+        eff = torch.where(nan & (m != MISSING_NAN), rank0[f], c)
+        in_band = (eff > zero_lo[f]) & (eff <= zero_hi[f])
+        use_default = ((m == MISSING_ZERO) & in_band) | ((m == MISSING_NAN) & nan)
+        num_left = torch.where(use_default, dl.gather(1, nsafe), eff <= thr.gather(1, nsafe))
+        # categorical bitset membership (FindInBitset, common.h:943)
+        iv = torch.where(nan, torch.zeros_like(c), c)
+        w = iv >> 5
+        nw = cat_n.gather(1, nsafe)
+        in_range = (iv >= 0) & (w < nw)
+        widx = cat_off.gather(1, nsafe) + torch.minimum(w.clamp(min=0), (nw - 1).clamp(min=0))
+        word = words[widx.clamp(0, words.numel() - 1)]
+        bit = (word >> (iv & 31)) & 1
+        cat_left = in_range & (bit > 0) & ~(nan & (m == MISSING_NAN))
+        # legacy single-category equality (cat_n == 0): int(fval) == value
+        node_cat = is_cat.gather(1, nsafe)
+        cat_left = torch.where(node_cat & (nw == 0), ~nan & (c == thr.gather(1, nsafe)), cat_left)
+        go_left = torch.where(node_cat, cat_left, num_left)
+        nxt = torch.where(go_left, left.gather(1, nsafe), right.gather(1, nsafe))
+        node = torch.where(active, nxt, node)
+    return (-(node + 1)).to(torch.int32)
+
+
+def packed_predict_values(codes: torch.Tensor, isnan: torch.Tensor, packed: PackedTrees,
+                          num_class: int = 1, average_output: bool = False) -> torch.Tensor:
+    """[K, N] f32 raw scores: tree i's leaf value added into class i % K,
+    one f32 add a tree in tree order (gbdt_prediction.cpp:13 ordering);
+    ``average_output`` divides by the iterations, max(T // K, 1)."""
+    leaves = packed_predict_leaves(codes, isnan, packed).to(torch.int64)  # [T, N]
+    vals = packed.leaf_value.gather(1, leaves)  # [T, N] f32
+    T = vals.shape[0]
+    K = max(int(num_class), 1)
+    out = torch.zeros((K, codes.shape[0]), dtype=torch.float32, device=codes.device)
+    for i in range(T):
+        out[i % K] += vals[i]
+    if average_output:
+        # an IEEE division by a tensor: a CPU-scalar divisor would let CUDA
+        # multiply by its reciprocal, one rounding away from the kernel's quotient
+        out = out / torch.full_like(out, float(max(T // K, 1)))
+    return out
+
+
+def packed_bin_rows(X: torch.Tensor, bounds: torch.Tensor,
+                    is_cat_feat: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw -> code conversion of the fused serving path: (codes [N, F]
+    int32, isnan [N, F] bool) of the f32 rows ``X`` [N, F]. ``bounds``:
+    [F, Bmax] f32 per-feature threshold lattice padded with +inf; a
+    numerical feature's code is its searchsorted (side="left") rank, a
+    categorical feature's (``is_cat_feat``) the truncated integer category.
+    f32: rows within one f32 ulp of a threshold may rank differently from
+    the f64 host path (serve/packed.py ``_host_codes``)."""
+    isnan = torch.isnan(X)
+    Xz = torch.where(isnan, torch.zeros_like(X), X)
+    ranks = torch.searchsorted(bounds, Xz.t().contiguous(), side="left").t().to(torch.int32)
+    cat = torch.trunc(Xz.clamp(-2.0e9, 2.0e9)).to(torch.int32)
+    codes = torch.where(is_cat_feat[None, :], cat, ranks).contiguous()
+    return codes, isnan

@@ -27,7 +27,8 @@ def _data(n=600, f=6, seed=0):
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys; import lightgbm_tpu_torch, chip_smoke; "
+        "import sys; import lightgbm_tpu_torch, lightgbm_tpu_torch.serve, "
+        "lightgbm_tpu_torch.serve.server, lightgbm_tpu_torch.serve.__main__, chip_smoke; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -65,6 +66,27 @@ def test_cuda_asked_for_and_absent_raises(monkeypatch):
         tlgb.train({"objective": "binary", "verbose": -1}, tlgb.Dataset(X, label=y), 1)
     with pytest.raises(RuntimeError, match="cuda"):
         tlgb.Booster({"objective": "binary", "device": "gpu", "verbose": -1}, tlgb.Dataset(X, label=y))
+
+
+def test_server_refuses_cuda_without_a_card(monkeypatch, tmp_path):
+    """The server runs on the device it names and refuses to start without
+    it, rather than serving on the CPU; so does the CLI."""
+    from lightgbm_tpu_torch.serve import __main__ as serve_main
+    from lightgbm_tpu_torch.serve.server import ServeApp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeApp()
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServeApp(device="cuda")
+    X, y = _data()
+    path = str(tmp_path / "m.txt")
+    tlgb.train({"objective": "binary", "verbose": -1}, tlgb.Dataset(X, label=y), 1,
+               device="cpu").save_model(path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_main.main(["m=" + path, "--port", "0"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tlgb.Booster(model_file=path, device="cpu").to_packed(device="cuda")
 
 
 def test_cpu_path_launches_no_kernel():

@@ -7,6 +7,8 @@ Dyadic values (multiples of 1/64, or of 1/1024 where bf16 operands must
 round) make every summation order exact, so the kernels must match the
 plain versions bit for bit.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -2135,3 +2137,131 @@ def test_mode_objective_replay_equals_eager(monkeypatch, dev, pair):
     assert g._renew == (not rank)
     assert _trees_text(runs[True]) == _trees_text(runs[False])
     assert runs[True]._gbdt.train_score().tobytes() == runs[False]._gbdt.train_score().tobytes()
+
+
+# ---------------------------------------------------------------------------
+# the serving path: csrc/packed_predict.cu and the server on the card
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _serving_model(dev, objective="binary", rounds=6, leaves=63, cat=False, seed=0):
+    """A model trained on the card and its rows (one training a case)."""
+    import lightgbm_tpu_torch as tlgb
+
+    rng = np.random.RandomState(seed)
+    X = rng.randn(6000, 8)
+    if cat:
+        X[:, 5] = rng.randint(0, 40, 6000)
+    X[rng.rand(*X.shape) < 0.04] = np.nan
+    sig = np.nan_to_num(X[:, 0]) + (np.nan_to_num(X[:, 5]) % 3 == 0 if cat else 0)
+    if objective == "multiclass":
+        y = (np.digitize(sig, [-0.5, 0.5])).astype(float)
+        params = {"objective": "multiclass", "num_class": 3}
+    elif objective == "rf":  # random forest: average_output
+        y = (sig > 0).astype(float)
+        params = {"objective": "binary", "boosting": "rf", "bagging_fraction": 0.7,
+                  "bagging_freq": 1}
+    else:
+        y = (sig + 0.3 * rng.randn(6000) > 0.2).astype(float)
+        params = {"objective": objective}
+    params.update(num_leaves=leaves, verbose=-1)
+    ds = tlgb.Dataset(X, label=y, categorical_feature=[5] if cat else "auto")
+    return tlgb.train(params, ds, rounds, device=dev), X
+
+
+@pytest.mark.parametrize("case", ["binary", "multiclass_cat", "rf"])
+@pytest.mark.parametrize("n", [1, 16, 4096, 10000])
+def test_packed_kernels_match_plain(dev, case, n):
+    from lightgbm_tpu_torch.ops import packed_kernel
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+
+    if case == "binary":
+        bst, X = _serving_model(dev)
+    elif case == "multiclass_cat":
+        bst, X = _serving_model(dev, "multiclass", cat=True, leaves=31)
+    else:
+        bst, X = _serving_model(dev, "rf", rounds=5, leaves=31)
+    rows = np.resize(X, (n, X.shape[1]))
+    pk = bst.to_packed()
+    P = pk.packed
+    Xd = torch.as_tensor(rows.astype(np.float32), device=dev)
+    packed_kernel.reset_launches()
+    codes, isnan = packed_kernel.packed_bin_rows(Xd, pk.bounds_dev, pk.is_cat_dev)
+    want_c, want_n = predict_plain.packed_bin_rows(Xd, pk.bounds_dev, pk.is_cat_dev)
+    assert torch.equal(codes, want_c) and torch.equal(isnan, want_n)
+    leaves = packed_kernel.packed_predict_leaves(codes, isnan, P)
+    assert torch.equal(leaves, predict_plain.packed_predict_leaves(codes, isnan, P))
+    K = pk.num_tree_per_iteration
+    vals = packed_kernel.packed_predict_values(codes, isnan, P, K, pk.average_output)
+    assert torch.equal(vals, predict_plain.packed_predict_values(codes, isnan, P, K,
+                                                                 pk.average_output))
+    assert packed_kernel.launches == {"packed_bin_rows": 1, "packed_predict_leaves": 1,
+                                      "packed_predict_values": 1}
+    # the exact path on the card equals the port's Booster.predict bit for bit
+    assert np.array_equal(pk.predict(rows), bst.predict(rows))
+    assert np.array_equal(pk.predict(rows, pred_leaf=True), bst.predict(rows, pred_leaf=True))
+
+
+def test_packed_wrappers_raise_on_what_the_kernel_does_not_take(dev):
+    from lightgbm_tpu_torch.ops import packed_kernel
+
+    bst, X = _serving_model(dev, rounds=2, leaves=7)
+    pk = bst.to_packed()
+    codes, isnan = packed_kernel.packed_bin_rows(
+        torch.as_tensor(X[:10].astype(np.float32), device=dev), pk.bounds_dev, pk.is_cat_dev)
+    with pytest.raises(ValueError, match="codes"):
+        packed_kernel.packed_predict_leaves(codes.to(torch.int64), isnan, pk.packed)
+    with pytest.raises(ValueError, match="isnan"):
+        packed_kernel.packed_predict_leaves(codes, isnan[:5], pk.packed)
+    with pytest.raises(ValueError, match="X"):
+        packed_kernel.packed_bin_rows(torch.as_tensor(X[:10], device=dev), pk.bounds_dev,
+                                      pk.is_cat_dev)
+
+
+def test_cuda_server_answers_exact_and_fused(dev, tmp_path):
+    import http.client
+    import json
+    import threading
+
+    from lightgbm_tpu_torch.ops import packed_kernel
+    from lightgbm_tpu_torch.serve.server import ServeApp, make_server
+
+    bst, X = _serving_model(dev, rounds=8)
+    path = str(tmp_path / "m.txt")
+    bst.save_model(path)
+    app = ServeApp(max_delay_ms=1.0, min_bucket_rows=8, warmup_rows=64, device="cuda")
+    srv = None
+    try:
+        app.registry.load("m", path)
+        srv = make_server("127.0.0.1", 0, app)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        rows = X[:37]
+
+        def post(body):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+            try:
+                conn.request("POST", "/predict", json.dumps(body),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                return r.status, json.loads(r.read())
+            finally:
+                conn.close()
+
+        packed_kernel.reset_launches()
+        status, body = post({"rows": np.where(np.isnan(rows), None, rows).tolist()})
+        assert status == 200
+        assert np.array_equal(np.asarray(body["predictions"]), bst.predict(rows))
+        assert packed_kernel.launches["packed_predict_leaves"] == 1
+        status, body = post({"rows": np.where(np.isnan(rows), None, rows).tolist(), "fused": True})
+        assert status == 200
+        assert np.allclose(np.asarray(body["predictions"]), bst.predict(rows), rtol=1e-4, atol=1e-5)
+        assert packed_kernel.launches["packed_bin_rows"] == 1
+        assert packed_kernel.launches["packed_predict_values"] == 1
+        assert app.backend == "cuda"
+    finally:
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
+        app.close()
