@@ -294,11 +294,31 @@ Phases (each prints one line; any failure exits non-zero):
     at 16 and 4,096 rows against its bytes bound, its plain version and,
     for the bin kernel, one batched ``torch.searchsorted``; printed with the
     card's name and power limit;
+ 8c. prediction, on 8b's model and 4g's: ``Booster.predict(pred_contrib=True)``
+    of 10,000 held-out rows with 2% NaN through all 500 trees on the TreeSHAP
+    kernel (csrc/tree_shap.cu, ``tree_shap``), every row's contributions
+    summing to ``predict_raw`` within (T (depth + 2)^2 + F + 1) 2^-53 of
+    their absolute sums, the kernel's ms at that size against its f64
+    operations bound (``shap_operations``, over 34 TFLOP/s); the kernel
+    against its plain version bit for bit at the same 10,000 rows on the
+    first 20 trees (the plain version's ms there; each block loops over
+    several (128 rows, tree) tiles, re-staging a tree each, as in the
+    500-tree call), on 4g's K = 7 categorical model's first 2 iterations
+    and on a chain of 80 levels written as model text
+    (``chain_model_text``); ``pred_early_stop`` on 100,000 rows (every 10
+    iterations, margin 4): each row's value equal bit for bit to its stops
+    replayed from its leaves, the rows never stopped to ``predict``, the
+    rows stopped and both times; ``Booster.refit`` on 100,000 rows, its
+    seconds and held-out AUC before and after; ``save_binary`` of the 1M x
+    28 training Dataset reloaded with the same bins and mappers, 100,000 rows
+    through a CSV file binned as in memory, and 10 iterations on the
+    reloaded file within 2e-3 of phase 4's AUC;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
     4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
-    sweep and the routed trainings, and 8b's server under load (the
-    serving kernels', timed in 8b at 4,096 rows),
+    sweep and the routed trainings, 8b's server under load (the
+    serving kernels', timed in 8b at 4,096 rows) and 8c's ``pred_contrib``
+    (tree_shap, timed in 8c),
     each with the counts set to 0 just before it and read just
     after; the split loop's kernels timed in phase 4b, leaf_ids and
     score_update in 4c, predict_bins in 4d; the categorical instantiations of
@@ -410,6 +430,43 @@ SERVE_MAX_ROWS = 4096
 SERVE_SIZES = (1, 16, 4096, 10000)
 
 
+def chain_model_text(depth, num_features, seed=0):
+    """LightGBM model text of one regression tree that is a chain of ``depth``
+    levels: node i splits on a feature drawn from ``seed`` (so features
+    repeat down the chain), with every missing type and default side, its
+    left child a leaf and its right child node i + 1. Leaf counts of 1 to 3
+    and internal counts their sums."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    feat = rng.randint(0, num_features, depth)
+    thr = np.round(rng.randn(depth), 3)
+    dtype = (rng.randint(0, 3, depth) << 2) | (rng.randint(0, 2, depth) << 1)
+    leaf_value = rng.randn(depth + 1)
+    leaf_count = 1 + np.arange(depth + 1) % 3
+    internal_count = np.cumsum(leaf_count[::-1])[::-1][:depth]
+    left = ["%d" % ~i for i in range(depth)]
+    right = ["%d" % (i + 1) for i in range(depth - 1)] + ["%d" % ~depth]
+
+    def join(vals, fmt):
+        return " ".join(fmt % v for v in vals)
+
+    tree = "\n".join([
+        "num_leaves=%d" % (depth + 1), "num_cat=0", "split_feature=" + join(feat, "%d"),
+        "split_gain=" + join(np.ones(depth), "%g"), "threshold=" + join(thr, "%.17g"),
+        "decision_type=" + join(dtype, "%d"), "left_child=" + " ".join(left),
+        "right_child=" + " ".join(right), "leaf_value=" + join(leaf_value, "%.17g"),
+        "leaf_count=" + join(leaf_count, "%d"), "internal_value=" + join(np.zeros(depth), "%g"),
+        "internal_count=" + join(internal_count, "%d"), "shrinkage=1",
+    ])
+    names = " ".join("Column_%d" % j for j in range(num_features))
+    return "\n".join([
+        "tree", "version=v2", "num_class=1", "num_tree_per_iteration=1", "label_index=0",
+        "max_feature_idx=%d" % (num_features - 1), "objective=regression",
+        "feature_names=" + names, "", "Tree=0", tree, "", "", "end of trees", "",
+    ])
+
+
 def packed_bounds(N, F, T, M, L, K, bmax, cat_words):
     """bound_ms of the three serving kernels at N rows: each input read once,
     each output written once, over the card's memory rate (their f32 work,
@@ -429,7 +486,8 @@ def packed_bounds(N, F, T, M, L, K, bmax, cat_words):
 
 def serving_phase(lgb, dev, counted, time_ms, train_set, cat_booster, cat_rows, workdir):
     """The serving path on the card (phase 8b of the module docstring).
-    Returns (the phase's record, each kernel's row of the kernels line)."""
+    Returns (the phase's record, each kernel's row of the kernels line, the
+    500-iteration model)."""
     import http.client
     import signal
     import socket
@@ -755,7 +813,251 @@ def serving_phase(lgb, dev, counted, time_ms, train_set, cat_booster, cat_rows, 
             bound_by=t[4096]["bound_by"], library_ms=t[4096]["library_ms"],
             sizes={"rows": 4096, "at_16_rows": t[16]},
         ))
-    return rec, kernels
+    return rec, kernels, bst
+
+
+F64_FLOP_PER_S = 34e12  # H100 SXM, f64 outside the tensor cores (NVIDIA data sheet)
+CONTRIB_ROWS = 10_000
+CONTRIB_HELD_TREES = 20  # the kernel against its plain version on the first trees
+CHAIN_DEPTH = 80
+EARLY_STOP_ROWS = 100_000
+EARLY_STOP_FREQ = 10
+EARLY_STOP_MARGIN = 4.0
+REFIT_ROWS = 100_000
+CSV_ROWS = 100_000
+
+
+def shap_operations(trees):
+    """f64 operations of TreeSHAP for one row through ``trees`` (what every
+    row needs: each row walks every leaf's path), counted on the cheaper side
+    of each branch, so the count is a floor: ExtendPath 7 a position below
+    the new one, UnwindPath 3 a position when the node's feature is already
+    on the path, four for the two zero fractions, and at each leaf
+    UnwoundPathSum 3 a position pair and 4 a position for its contribution."""
+    total = 0
+    for t in trees:
+        if t.num_leaves <= 1:
+            continue
+        stack = [(0, [])]  # (node, the features of the path below the root)
+        while stack:
+            node, path = stack.pop()  # ExtendPath at depth len(path) first
+            if node < 0:
+                total += 7 * len(path) + len(path) * (3 * len(path) + 4)
+                continue
+            total += 7 * len(path) + 4
+            f = int(t.split_feature[node])
+            if f in path:
+                total += 3 * len(path)
+                path = [g for g in path if g != f]
+            for child in (int(t.left_child[node]), int(t.right_child[node])):
+                stack.append((child, path + [f]))
+    return total
+
+
+def prediction_phase(lgb, dev, counted, time_ms, bst, train_set, X, y, train_auc, cat_booster,
+                     cat_rows, workdir):
+    """The rest of prediction and the file-based Dataset on the card (phase
+    8c of the module docstring). Returns (the phase's record, the tree_shap
+    row of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lightgbm_tpu_torch.basic import _mappers_json
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.dataset import Metadata
+    from lightgbm_tpu_torch.metric import create_metric
+    from lightgbm_tpu_torch.ops import shap as shap_plain
+    from lightgbm_tpu_torch.ops import shap_kernel
+
+    rec = {}
+    t_part = [time.perf_counter()]
+    part_s = {}
+
+    def part_done(name):
+        now = time.perf_counter()
+        part_s[name] = now - t_part[0]
+        t_part[0] = now
+
+    def once_ms(fn):
+        """(fn's result, its ms between two CUDA events), the L2 flushed first."""
+        torch.cuda.synchronize()
+        time_ms._flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def auc_of(label, score):
+        m = create_metric("auc", Config())
+        m.init(Metadata(len(label), label=label), len(label))
+        return m.eval(score, None)[0][1]
+
+    def held_rows(n, seed):
+        Xn, yn = higgs_like_rows(n, FEATURES, seed=seed)
+        Xn = Xn.astype(np.float64)
+        Xn[np.random.RandomState(seed + 1).rand(*Xn.shape) < 0.02] = np.nan
+        return Xn, yn
+
+    trees = bst._gbdt.trees()
+    T, F = len(trees), bst.num_feature()
+    # raw scores and leaves beside the checks come from the packed exact
+    # path, equal to Booster.predict bit for bit (phase 8b) and far quicker
+    pk = bst.to_packed()
+
+    # 1. pred_contrib at full width: 10,000 held-out rows, all 500 trees
+    Xc, _ = held_rows(CONTRIB_ROWS, 13)
+    contrib, secs, launches = counted(lambda: bst.predict(Xc, pred_contrib=True))
+    assert launches.get("tree_shap", 0) > 0, launches
+    assert contrib.shape == (CONTRIB_ROWS, F + 1) and np.all(np.isfinite(contrib)), contrib.shape
+    raw = pk.predict(Xc, raw_score=True)
+    leaves = pk.predict(Xc, pred_leaf=True)
+    leaf_abs = sum(np.abs(t.leaf_value[leaves[:, i]]) for i, t in enumerate(trees))
+    depth = max(t.max_depth() for t in trees)
+    # each SHAP value carries at most (depth + 2)^2 rounded operations a tree
+    # on values no larger than the leaves', and the two sums F + 1 and T adds
+    sum_err = np.abs(contrib.sum(axis=1) - raw)
+    sum_bound = 2.0 ** -53 * (T * (depth + 2) ** 2 + F + 1) * (np.abs(contrib).sum(axis=1)
+                                                                + leaf_abs)
+    assert np.all(sum_err <= sum_bound), float((sum_err / sum_bound).max())
+    ens = shap_kernel.shap_trees(trees, dev)
+    Xd = torch.as_tensor(Xc, device=dev)
+    _, kernel_ms = once_ms(lambda: shap_kernel.tree_shap(Xd, ens, 1, F))
+    ops = shap_operations(trees) * CONTRIB_ROWS
+    nbytes = (Xc.nbytes + ens.nodes.numel() + ens.leaves.numel() + ens.words.numel() * 4
+              + T * 12 + CONTRIB_ROWS * (F + 1) * 8)
+    t_ops, t_bytes = ops / F64_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    rec["contrib"] = dict(
+        rows=CONTRIB_ROWS, trees=T, max_depth=depth, seconds=secs, launches=launches,
+        kernel_ms=kernel_ms, f64_operations=ops, bytes=nbytes,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes",
+        max_sum_err=float(sum_err.max()), sum_err_over_bound=float((sum_err / sum_bound).max()),
+        slot_bytes=shap_kernel.slot_bytes(depth),
+        plan=shap_kernel.launch_plan(ens, CONTRIB_ROWS, F, 1, dev)._asdict())
+    del Xd
+    part_done("contrib")
+
+    # 2. the kernel against its plain version, bit for bit, at the 10,000
+    # rows of 1: the first 20 trees (their tiles more than the grid, so each
+    # block loops and re-stages trees as in 1), 4g's categorical K = 7 model
+    # (its first 2 iterations) and a chain
+    chain = lgb.Booster(model_str=chain_model_text(CHAIN_DEPTH, F, seed=17), device=dev)
+    Kc = cat_booster.num_model_per_iteration()
+    cat_x = np.asarray(cat_rows[:CONTRIB_ROWS], np.float64).copy()
+    cat_x[np.random.RandomState(18).rand(*cat_x.shape) < 0.02] = np.nan
+    cases = {
+        "first_%d_trees" % CONTRIB_HELD_TREES: (trees[:CONTRIB_HELD_TREES], Xc, 1, F),
+        "categorical": (cat_booster._gbdt.trees()[:2 * Kc], cat_x, Kc, cat_booster.num_feature()),
+        "chain": (chain._gbdt.trees(), Xc, 1, F),
+    }
+    held = {}
+    for name, (ts, rows, K, Fn) in cases.items():
+        Xn = torch.as_tensor(np.ascontiguousarray(rows), device=dev)
+        e = shap_kernel.shap_trees(ts, dev)
+        plan = shap_kernel.launch_plan(e, len(Xn), Fn, K, dev)
+        got, k_ms = once_ms(lambda: shap_kernel.tree_shap(Xn, e, K, Fn))
+        want, p_ms = once_ms(lambda: shap_plain.contrib_plain(Xn, ts, K, Fn))
+        assert torch.equal(got, want), (name, float((got - want).abs().max()))
+        held[name] = dict(trees=len(ts), rows=len(Xn), classes=K, features=Fn,
+                          max_depth=max(t.max_depth() for t in ts), ms=k_ms, plain_ms=p_ms,
+                          categorical_nodes=sum(int(t.num_cat) for t in ts), equal=True,
+                          plan=plan._asdict())
+    first = held["first_%d_trees" % CONTRIB_HELD_TREES]
+    assert first["rows"] == CONTRIB_ROWS and first["plan"]["staged"], first
+    assert first["plan"]["tiles"] > first["plan"]["grid"], ("no block loops", first["plan"])
+    rec["kernel_vs_plain"] = held
+    part_done("kernel_vs_plain")
+
+    # 3. pred_early_stop on 100,000 rows: the stops replayed from each row's
+    # leaves (its running f64 sum in tree order, checked every
+    # EARLY_STOP_FREQ iterations) give every row's value bit for bit
+    Xe, _ = held_rows(EARLY_STOP_ROWS, 21)
+    t0 = time.perf_counter()
+    full = bst.predict(Xe, raw_score=True)
+    predict_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    early = bst.predict(Xe, raw_score=True, pred_early_stop=True,
+                        pred_early_stop_freq=EARLY_STOP_FREQ,
+                        pred_early_stop_margin=EARLY_STOP_MARGIN)
+    early_s = time.perf_counter() - t0
+    leaves = torch.as_tensor(pk.predict(Xe, pred_leaf=True).astype(np.int64), device=dev)
+    running = torch.zeros(EARLY_STOP_ROWS, dtype=torch.float64, device=dev)
+    at_stop = torch.zeros_like(running)
+    active = torch.ones(EARLY_STOP_ROWS, dtype=torch.bool, device=dev)
+    for i, t in enumerate(trees):
+        running += torch.as_tensor(t.leaf_value, device=dev)[leaves[:, i]]
+        if (i + 1) % EARLY_STOP_FREQ == 0:
+            stop = active & (2.0 * running.abs() > EARLY_STOP_MARGIN)
+            at_stop = torch.where(stop, running, at_stop)
+            active &= ~stop
+    active_np = active.cpu().numpy()
+    stopped = int((~active_np).sum())
+    assert 0 < stopped < EARLY_STOP_ROWS, stopped
+    assert np.array_equal(early[active_np], full[active_np]), "a row never stopped != predict"
+    assert np.array_equal(early[~active_np], at_stop.cpu().numpy()[~active_np]), "stopped rows"
+    rec["early_stop"] = dict(rows=EARLY_STOP_ROWS, freq=EARLY_STOP_FREQ, margin=EARLY_STOP_MARGIN,
+                             rows_stopped=stopped, predict_ms=predict_s * 1e3,
+                             early_stop_ms=early_s * 1e3, unstopped_equal_predict=True)
+    del leaves, running, at_stop, active
+    part_done("early_stop")
+
+    # 4. Booster.refit of the model on 100,000 rows; held-out AUC before and after
+    Xr, yr = higgs_like_rows(REFIT_ROWS, FEATURES, seed=23)
+    Xa, ya = higgs_like_rows(REFIT_ROWS, FEATURES, seed=25)
+    t0 = time.perf_counter()
+    refit = bst.refit(Xr, yr, decay_rate=0.9)
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    assert refit.num_trees() == T and refit._gbdt.device == bst._gbdt.device
+    auc_before = auc_of(ya, pk.predict(Xa))
+    auc_after = auc_of(ya, refit.to_packed().predict(Xa))
+    assert auc_after > 0.7 and abs(auc_after - auc_before) < 0.05, (auc_before, auc_after)
+    rec["refit"] = dict(rows=REFIT_ROWS, trees=T, decay_rate=0.9, seconds=refit_s,
+                        held_out_auc_before=auc_before, held_out_auc_after=auc_after)
+    del refit
+    part_done("refit")
+
+    # 5. files: the training Dataset's binary file, a CSV of 100,000 rows,
+    # and 10 iterations on the reloaded binary file
+    bin_path = os.path.join(workdir, "train.bin")
+    t0 = time.perf_counter()
+    train_set.save_binary(bin_path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = lgb.Dataset(bin_path, params=dict(TRAIN_PARAMS)).construct()
+    load_s = time.perf_counter() - t0
+    assert np.array_equal(loaded._binned.bins, train_set._binned.bins), "binary file bins"
+    assert _mappers_json(loaded._binned.mappers) == _mappers_json(train_set._binned.mappers)
+    csv_path = os.path.join(workdir, "rows.csv")
+    t0 = time.perf_counter()
+    np.savetxt(csv_path, np.c_[y[:CSV_ROWS], X[:CSV_ROWS]], fmt="%.17g", delimiter=",")
+    csv_ds = lgb.Dataset(csv_path, params=dict(TRAIN_PARAMS)).construct()
+    csv_s = time.perf_counter() - t0
+    mem = lgb.Dataset(X[:CSV_ROWS], label=y[:CSV_ROWS], params=dict(TRAIN_PARAMS)).construct()
+    assert np.array_equal(csv_ds._binned.bins, mem._binned.bins), "CSV bins"
+    assert np.array_equal(csv_ds._binned.metadata.label, mem._binned.metadata.label)
+    file_bst = lgb.train(dict(TRAIN_PARAMS), loaded, 10, device=dev)
+    (_, _, file_auc, _), = file_bst.eval_train()
+    assert abs(file_auc - train_auc) <= 2e-3, (file_auc, train_auc)
+    rec["files"] = dict(binary_bytes=os.path.getsize(bin_path), save_binary_s=save_s,
+                        load_binary_s=load_s, csv_rows=CSV_ROWS, csv_write_and_load_s=csv_s,
+                        bins_equal=True, mappers_equal=True, auc_10_iterations=file_auc,
+                        in_memory_auc=train_auc)
+    del loaded, csv_ds, mem, file_bst
+    part_done("files")
+    rec["part_seconds"] = part_s
+    kernel = dict(
+        name="tree_shap", route="cuda", source="lightgbm_tpu_torch/csrc/tree_shap.cu",
+        replaces="lightgbm_tpu/models/tree.py:467 (predict_contrib_row; host Python there, "
+                 "no TPU kernel)",
+        launches=launches.get("tree_shap", 0), max_abs_err=0.0, ms=kernel_ms,
+        plain_ms=first["plain_ms"], bound_ms=rec["contrib"]["bound_ms"],
+        bound_by=rec["contrib"]["bound_by"], library_ms=None,
+        sizes={"rows": CONTRIB_ROWS, "trees": T, "plain_at": {
+            "rows": CONTRIB_ROWS, "trees": CONTRIB_HELD_TREES, "kernel_ms": first["ms"]}},
+    )
+    return rec, kernel
 
 
 def main() -> int:
@@ -791,7 +1093,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops import predict as predict_plain
     from lightgbm_tpu_torch.ops import remap as remap_plain
-    from lightgbm_tpu_torch.ops import packed_kernel, rank_kernel, remap_kernel
+    from lightgbm_tpu_torch.ops import packed_kernel, rank_kernel, remap_kernel, shap_kernel
     from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
         leaf_histogram, leaf_histogram_packed4_rows, leaf_values, operands, segment_histogram,
@@ -861,12 +1163,15 @@ def main() -> int:
     assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
     assert set(ptxas["lambdarank"]) == {"lambdarank_kernel"}, ptxas
     assert set(ptxas["packed_predict"]) == {"bin_rows_kernel", "leaves_kernel", "values_kernel"}, ptxas
+    assert set(ptxas["tree_shap"]) == {"tree_shap_kernel", "tree_sum_kernel"}, ptxas
     # histogram.cu: both entries per (operand type, bin path, grouped form)
     assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
                for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap",
                          "lambdarank", "packed_predict")
                for u in ptxas[n].values()), ("split-loop and predict kernels spill", ptxas)
+    # tree_shap's path arrays live in a global scratch by design; its own
+    # spill line is recorded (printed in phase 8c), not held to zero
     say("build", device=torch.cuda.get_device_name(0), nvidia_smi=card,
         seconds=round(time.perf_counter() - t0, 3), per_source=build_s, ptxas=ptxas,
         hist_v1=hist_v1_ptxas)
@@ -1075,6 +1380,7 @@ def main() -> int:
         partition_kernel.launches = predict_kernel.launches = remap_kernel.launches = 0
         rank_kernel.launches = 0
         packed_kernel.reset_launches()
+        shap_kernel.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
@@ -1092,6 +1398,7 @@ def main() -> int:
             if v:
                 got[k] = v
         got.update((k, v) for k, v in packed_kernel.launches.items() if v)
+        got.update((k, v) for k, v in shap_kernel.launches.items() if v)
         for k, v in got.items():
             main_launches[k] = main_launches.get(k, 0) + v
         return out, secs, got
@@ -3855,10 +4162,10 @@ def main() -> int:
     say("routed_training", rows=N, iterations=10, runs=routed, launches=routed_launches)
 
     # ---- 8b. serving: the packed ensemble, its three kernels and the HTTP server ----
+    cat_booster = lgb.Booster(model_str=cat_model_text, device=dev)
     with tempfile.TemporaryDirectory(prefix="lgbt-serve-") as serve_dir:
-        serve_rec, serve_kernels = serving_phase(
-            lgb, dev, counted, time_ms, train_set, lgb.Booster(model_str=cat_model_text, device=dev),
-            cat_rows, serve_dir)
+        serve_rec, serve_kernels, serve_bst = serving_phase(
+            lgb, dev, counted, time_ms, train_set, cat_booster, cat_rows, serve_dir)
     srv_ = serve_rec["server"]
     print("serving on %s: rows/s under load %.1f (exact %.1f, fused %.1f); latency ms p50/p99 "
           "1 row exact %.3f/%.3f fused %.3f/%.3f, 1000 rows exact %.3f/%.3f fused %.3f/%.3f"
@@ -3870,6 +4177,20 @@ def main() -> int:
               % (name_, card, t_[16]["ms"] * 1e3, t_[4096]["ms"] * 1e3, t_[16]["bound_ms"] * 1e3,
                  t_[4096]["bound_ms"] * 1e3), flush=True)
     say("serving", card=card, **serve_rec)
+
+    # ---- 8c. prediction: SHAP on the TreeSHAP kernel, early stopping, refit, files ----
+    with tempfile.TemporaryDirectory(prefix="lgbt-predict-") as predict_dir:
+        predict_rec, shap_row = prediction_phase(
+            lgb, dev, counted, time_ms, serve_bst, train_set, X, y, auc, cat_booster, cat_rows,
+            predict_dir)
+    del serve_bst
+    c_ = predict_rec["contrib"]
+    print("tree_shap on %s: %.3f ms at %d rows x %d trees (f64 bound %.3f ms, %s); plain %.3f ms "
+          "at %d rows x %d trees; ptxas %s; |sum phi - raw| %.3e (%.3e of its bound)"
+          % (card, c_["kernel_ms"], c_["rows"], c_["trees"], c_["bound_ms"], c_["bound_by"],
+             shap_row["plain_ms"], CONTRIB_ROWS, CONTRIB_HELD_TREES, ptxas["tree_shap"],
+             c_["max_sum_err"], c_["sum_err_over_bound"]), flush=True)
+    say("prediction", card=card, **predict_rec)
 
     # ---- 9. kernels line and result ---------------------------------------------
     sources = {
@@ -3968,6 +4289,9 @@ def main() -> int:
     # the serving kernels, timed in phase 8b at 4096 rows (16 rows beside);
     # their launches are the server's run under load
     kernels.extend(serve_kernels)
+    # the TreeSHAP kernel, timed in phase 8c at 10,000 rows on 500 trees (its
+    # plain version at 10,000 rows on 20); its launches are 8c's pred_contrib
+    kernels.append(shap_row)
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

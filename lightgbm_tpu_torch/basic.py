@@ -8,25 +8,36 @@ init-score predictor for continued training, ``set_predictor``) and a
 ``Booster`` that trains (``update``, with a custom objective's gradients
 through ``fobj``; ``update_chunk``), rolls back, predicts, evaluates its
 training and validation metrics, and writes, dumps or loads LightGBM
-model text. A Booster runs on ``device`` ("cuda" unless the caller asks
-for "cpu"; the ``device``/``device_type`` param key sets it too) and
-raises when CUDA is asked for and absent.
+model text. A Dataset also takes a pandas DataFrame (``category`` columns
+as their codes, the category lists kept with the model as
+``pandas_categorical``) or a path: a CSV, TSV or LibSVM file with its
+``.weight``, ``.query`` and ``.init`` sidecars (io.py), or a binary file of
+``save_binary``. A Booster predicts raw scores, leaves, SHAP
+contributions (the TreeSHAP kernel) and with prediction early stopping,
+refits its leaves on new data (``refit``), and runs on ``device`` ("cuda"
+unless the caller asks for "cpu"; the ``device``/``device_type`` param key
+sets it too), raising when CUDA is asked for and absent.
 """
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .config import Config
-from .dataset import BinnedDataset, Metadata, construct_dataset
+from .dataset import (
+    BinnedDataset, Metadata, construct_dataset, is_binary_dataset_file, load_binary_dataset,
+    save_binary_dataset,
+)
 from .metric import Metric, create_metric, default_metric_for_objective
 from .models.gbdt import GBDT
 from .models.model_text import dump_model_to_json, load_model_from_string, save_model_to_string
 from .objective import create_objective, objective_from_model_string
 from .utils import log
 from .utils.log import LightGBMError
+from .utils.vfile import vopen
 
 
 def resolve_device(device=None) -> torch.device:
@@ -46,14 +57,68 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _dense(data) -> np.ndarray:
-    """Raw rows as a 2-D f64 matrix (a scipy matrix densified)."""
+def _data_from_pandas(data, feature_name="auto", categorical_feature="auto",
+                      pandas_categorical=None):
+    """A DataFrame as (f64 matrix, names, categorical columns, category lists),
+    as lightgbm_tpu/basic.py ``_data_from_pandas`` gives it; None when
+    ``data`` is no DataFrame. ``category`` columns become their codes (NaN
+    for missing and unseen values); the category lists are taken from the
+    frame when ``pandas_categorical`` is None (training) and applied again
+    otherwise (prediction, validation), so codes stay aligned."""
+    if not (hasattr(data, "dtypes") and hasattr(data, "columns")):
+        return None
+    df = data
+    names = [str(c) for c in df.columns] if feature_name == "auto" else list(feature_name)
+    cat_cols = [c for c in df.columns if str(df[c].dtype) == "category"]
+    if categorical_feature == "auto":
+        categorical = [str(c) for c in cat_cols]
+    else:
+        categorical = list(categorical_feature)
+    if pandas_categorical is None:  # training
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):  # prediction
+        raise LightGBMError(
+            "train and predict data have a different number of categorical columns"
+        )
+    out = np.empty(df.shape, np.float64)
+    for j, c in enumerate(df.columns):
+        col = df[c]
+        if str(col.dtype) == "category":
+            cats = pandas_categorical[cat_cols.index(c)]
+            codes = col.cat.set_categories(cats).cat.codes.to_numpy().astype(np.float64)
+            codes[codes < 0] = np.nan  # unseen category / NaN -> missing
+            out[:, j] = codes
+        else:
+            try:
+                out[:, j] = col.to_numpy(dtype=np.float64, na_value=np.nan)
+            except (TypeError, ValueError):
+                log.fatal(
+                    "DataFrame.dtypes must be int, float, bool or category; "
+                    "column %r is %s" % (str(c), col.dtype)
+                )
+    return out, names, categorical, pandas_categorical
+
+
+def _dense(data, pandas_categorical=None) -> np.ndarray:
+    """Raw rows as a 2-D f64 matrix: a scipy matrix densified, a DataFrame
+    coded with the category lists ``pandas_categorical``."""
+    from_pandas = _data_from_pandas(data, pandas_categorical=pandas_categorical or [])
+    if from_pandas is not None:
+        return from_pandas[0]
     if hasattr(data, "toarray"):
         data = data.toarray()
     arr = np.asarray(data)
     if arr.ndim == 1:
         arr = arr.reshape(-1, 1)
     return arr.astype(np.float64, copy=False)
+
+
+def _mappers_json(mappers) -> str:
+    """The BinMappers as one JSON text, NaN bounds written as NaN: two lists
+    of them compare equal where their values do (a list compare with ``!=``
+    finds two NaN floats unequal)."""
+    return json.dumps([m.to_dict() for m in mappers], sort_keys=True,
+                      default=lambda o: o.item())
 
 
 class Dataset:
@@ -87,6 +152,7 @@ class Dataset:
         #: the reference's rows this Dataset holds (:meth:`subset`), else None
         self.used_indices: Optional[np.ndarray] = None
         self._predictor: Optional[GBDT] = None  # continued training's init scores
+        self.pandas_categorical = None  # a DataFrame's category lists, column by column
 
     def create_valid(self, data, label=None, weight=None, group=None, init_score=None,
                      params: Optional[Dict] = None) -> "Dataset":
@@ -119,28 +185,95 @@ class Dataset:
             if self._predictor is not None:
                 self._binned.metadata.init_score = self._predictor_raw_scores(self.get_data())
             return self
-        cats = None  # indices, names or a comma-joined string, read as lightgbm_tpu/basic.py reads them
-        if isinstance(self.categorical_feature, (list, tuple)):
-            cats = list(self.categorical_feature)
-        elif self.categorical_feature not in (None, "auto"):
-            cats = self.categorical_feature
+        if isinstance(self.data, str) and self._load_file(config):
+            return self
+        if self.reference is not None and self.pandas_categorical is None:
+            # a validation set codes its frame with the training set's categories
+            self.pandas_categorical = self.reference.construct(config).pandas_categorical
+        from_pandas = _data_from_pandas(self.data, self.feature_name, self.categorical_feature,
+                                        self.pandas_categorical)
+        if from_pandas is not None:
+            data, names, cats, self.pandas_categorical = from_pandas
+        else:
+            data = self.data
+            names = list(self.feature_name) if isinstance(self.feature_name, (list, tuple)) else None
+            cats = None  # indices, names or a comma-joined string, read as lightgbm_tpu/basic.py reads them
+            if isinstance(self.categorical_feature, (list, tuple)):
+                cats = list(self.categorical_feature)
+            elif self.categorical_feature not in (None, "auto"):
+                cats = self.categorical_feature
         ref = None if self.reference is None else self.reference.get_binned(config)
         init_score = self.init_score
         if self._predictor is not None:
-            init_score = self._predictor_raw_scores(self.data)
+            init_score = self._predictor_raw_scores(data)
         self._binned = construct_dataset(
-            self.data,
+            data,
             config,
             label=None if self.label is None else np.asarray(self.label, np.float64),
             weight=None if self.weight is None else np.asarray(self.weight, np.float64),
             group=None if self.group is None else np.asarray(self.group),
             init_score=init_score,
-            feature_names=list(self.feature_name)
-            if isinstance(self.feature_name, (list, tuple)) else None,
+            feature_names=names,
             categorical_feature=cats,
             reference=ref,
         )
         return self
+
+    def _load_file(self, config: Config) -> bool:
+        """Construct from the path ``self.data`` (lightgbm_tpu/basic.py:142-216):
+        a binary file of ``save_binary`` directly (True: nothing is left to
+        do; fatal when its BinMappers differ from its reference's), else the
+        text file through io.py, its label and its ``.weight``, ``.query`` and
+        ``.init`` sidecars taking the place of fields not given (False: the
+        rows go on to binning)."""
+        path = self.data
+        if is_binary_dataset_file(path):
+            self._binned = load_binary_dataset(path)
+            self._apply_metadata_overrides(self._binned.metadata)
+            if self.reference is not None:
+                ours = _mappers_json(self._binned.mappers)
+                if ours != _mappers_json(self.reference.get_binned(config).mappers):
+                    log.fatal(
+                        "Binary dataset file %r was binned with different "
+                        "BinMappers than its reference dataset; re-save it "
+                        "with reference= set, or pass the raw data instead" % (path,)
+                    )
+            return True
+        if config.two_round and self.reference is None:
+            raise NotImplementedError(
+                "Dataset(<file>, two_round=True): the streaming two-round loader "
+                "(lightgbm_tpu/dist_loader.py) is not ported to lightgbm_tpu_torch yet"
+            )
+        from .io import load_sidecar, load_text_file
+
+        X, y, names = load_text_file(path, has_header=config.header,
+                                     label_column=config.label_column)
+        if self.label is None and y is not None:
+            self.label = y
+        if self.weight is None:
+            self.weight = load_sidecar(path, "weight")
+        if self.group is None:
+            g = load_sidecar(path, "query")
+            self.group = None if g is None else g.astype(np.int64)
+        if self.init_score is None:
+            self.init_score = load_sidecar(path, "init")
+        if names and self.feature_name == "auto":
+            self.feature_name = names
+        self.data = X
+        return False
+
+    def _apply_metadata_overrides(self, md: Metadata) -> None:
+        """The label, weight, init score and group given to this Dataset over
+        those its binary file carries (Metadata::Init)."""
+        if self.label is not None:
+            md.label = np.asarray(self.label, np.float32).reshape(-1)
+        if self.weight is not None:
+            md.weight = np.asarray(self.weight, np.float32).reshape(-1)
+        if self.init_score is not None:
+            md.init_score = np.asarray(self.init_score, np.float64)
+        if self.group is not None:
+            md.query_boundaries = Metadata(md.num_data, group=np.asarray(self.group)).query_boundaries
+        md._validate()
 
     def construct_subset(self, config: Config) -> BinnedDataset:
         """The subset's BinnedDataset (Dataset::CopySubset): the reference's
@@ -180,6 +313,8 @@ class Dataset:
             return self._binned.num_data
         if self.used_indices is not None:
             return len(self.used_indices)
+        if isinstance(self.data, str):
+            return self.construct()._binned.num_data
         return self.data.shape[0] if hasattr(self.data, "shape") else len(self.data)
 
     def num_feature(self) -> int:
@@ -187,6 +322,11 @@ class Dataset:
             return self._binned.num_total_features
         if self.used_indices is not None:
             return self.reference.num_feature()
+        if isinstance(self.data, str):
+            return self.construct()._binned.num_total_features
+        shape = getattr(self.data, "shape", None)
+        if shape is not None:
+            return shape[1] if len(shape) == 2 else 1
         return _dense(self.data[:1]).shape[1]
 
     def get_data(self):
@@ -194,7 +334,11 @@ class Dataset:
         ``used_indices`` (None when the reference has none)."""
         if self.reference is not None and self.used_indices is not None:
             ref_data = self.reference.get_data()
-            return None if ref_data is None else ref_data[self.used_indices]
+            if ref_data is None or isinstance(ref_data, str):
+                return None  # a path: the reference keeps no rows until constructed
+            if hasattr(ref_data, "iloc"):  # a DataFrame: rows by position
+                return ref_data.iloc[self.used_indices]
+            return ref_data[self.used_indices]
         return self.data
 
     def get_ref_chain(self, ref_limit: int = 100) -> set:
@@ -211,7 +355,7 @@ class Dataset:
         class-major ``[K·N]`` f64): its per-tree f32 replay
         (``GBDT.warmstart_scores``, the parent run's score carry bit for
         bit), else (random forest, DART) its f64 ``predict_raw``."""
-        X = _dense(data)
+        X = _dense(data, self.pandas_categorical)
         ws = self._predictor.warmstart_scores(X)
         if ws is not None:
             return (ws.reshape(-1) if ws.shape[0] > 1 else ws[0]).astype(np.float64)
@@ -303,6 +447,65 @@ class Dataset:
         self.feature_name = feature_name
         return self
 
+    # -- files and columns (lightgbm_tpu/basic.py:488-575) ---------------------
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned Dataset as a binary file (``save_binary_dataset``)
+        that either package loads back with its bins and mappers."""
+        self.construct()
+        save_binary_dataset(self._binned, filename)
+        return self
+
+    def dump_text(self, filename: str) -> "Dataset":
+        """Write the raw rows as text, ``%.17g`` comma-separated."""
+        if self.used_indices is None:
+            self.construct()
+        data = self.get_data()
+        if data is None or isinstance(data, str):
+            raise LightGBMError(
+                "Cannot dump_text: the Dataset keeps no raw rows "
+                "(freed, or loaded from a binary dataset file)"
+            )
+        arr = _dense(data, self.pandas_categorical)
+        with vopen(filename, "w") as fh:
+            for row in arr:
+                fh.write(",".join("%.17g" % v for v in row) + "\n")
+        return self
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append the columns of ``other`` (constructed, unbundled, with as
+        many rows) to this constructed Dataset: its bins, mappers and names
+        (a name already taken gets ``_1`` appended) and monotone constraints
+        (Dataset::AddFeaturesFrom)."""
+        if self._binned is None or other._binned is None:
+            raise LightGBMError("Both source and target Datasets must be constructed before "
+                                "adding features")
+        a, b = self._binned, other._binned
+        if a.num_data != b.num_data:
+            raise LightGBMError(
+                "Cannot add features from other Dataset with a different number of rows (%d vs %d)"
+                % (b.num_data, a.num_data))
+        if a.is_bundled or b.is_bundled:
+            raise LightGBMError(
+                "Cannot add features to/from an EFB-bundled Dataset (disable "
+                "enable_bundle to use add_features_from)")
+        wide = np.promote_types(a.bins.dtype, b.bins.dtype)
+        off = a.num_total_features
+        a.bins = np.concatenate([a.bins.astype(wide, copy=False), b.bins.astype(wide, copy=False)])
+        a.mappers = list(a.mappers) + list(b.mappers)
+        a.used_feature_idx = list(a.used_feature_idx) + [off + j for j in b.used_feature_idx]
+        a.num_total_features += b.num_total_features
+        seen, merged = set(a.feature_names), []
+        for name in b.feature_names:
+            while name in seen:
+                name = name + "_1"
+            seen.add(name)
+            merged.append(name)
+        a.feature_names = list(a.feature_names) + merged
+        if a.monotone_constraints or b.monotone_constraints:
+            a.monotone_constraints = (list(a.monotone_constraints or [0] * off)
+                                      + list(b.monotone_constraints or [0] * b.num_total_features))
+        return self
+
     def set_categorical_feature(self, categorical_feature) -> "Dataset":
         """Declare the categorical columns; a constructed Dataset bins again
         from its raw rows on next use."""
@@ -341,8 +544,10 @@ class Booster:
         self._valid_slots: List[int] = []  # each tracked Dataset's index in the GBDT's valid lists
         self._attrs: Dict[str, str] = {}
         self._train_data_name = "training"
+        self.pandas_categorical = None  # the training frame's category lists
         if train_set is not None:
             binned = train_set.get_binned(self.config)
+            self.pandas_categorical = train_set.pandas_categorical
             objective = create_objective(self.config)
             cls = _boosting_class(self.config.boosting)
             self._gbdt = cls(self.config, binned, objective, self._make_metrics(), device=self.device)
@@ -355,7 +560,8 @@ class Booster:
             raise LightGBMError("Booster needs train_set, model_file or model_str")
 
     def _load(self, text: str) -> None:
-        self._gbdt = load_model_from_string(_strip_pandas_tail(text), GBDT, self.config)
+        text, self.pandas_categorical = _strip_pandas_tail(text)
+        self._gbdt = load_model_from_string(text, GBDT, self.config)
         self._gbdt.device = self.device
         self._gbdt.objective = objective_from_model_string(
             getattr(self._gbdt, "loaded_objective", None), self.config
@@ -380,7 +586,8 @@ class Booster:
 
         def raw_rows():
             raw = data.get_data()
-            return None if raw is None else _dense(raw)
+            return None if raw is None or isinstance(raw, str) else _dense(
+                raw, self.pandas_categorical)
 
         self._gbdt.add_valid(data.get_binned(self.config), self._make_metrics(), name,
                              raw_data=raw_rows)
@@ -536,25 +743,22 @@ class Booster:
         """Scores of ``data``: ``[N]``, or ``[N, K]`` for a model of K trees
         an iteration (multiclass), through the objective's output
         conversion unless ``raw_score``; with ``pred_leaf`` each row's leaf
-        in each tree, ``[N, T]`` int32 (GBDT.predict_leaf_index).
-        ``num_iteration`` <= 0 (the default) takes every tree, as the JAX
-        package does; a positive value takes the first ``num_iteration``
-        iterations, None the first ``best_iteration`` (``train`` sets it:
-        the early-stopping best, else every iteration it trained). A scipy
-        sparse matrix is densified, as the JAX package's ``_to_2d_float``
-        does. ``pred_contrib`` and ``pred_early_stop`` raise
-        NotImplementedError: they are not ported yet."""
-        if pred_contrib:
-            raise NotImplementedError("Booster.predict(pred_contrib=True) is not ported to "
-                                      "lightgbm_tpu_torch yet")
-        if kwargs.get("pred_early_stop", self.config.pred_early_stop):
-            raise NotImplementedError("Booster.predict(pred_early_stop=True) is not ported to "
-                                      "lightgbm_tpu_torch yet")
-        if hasattr(data, "toarray"):
-            data = data.toarray()
-        X = np.asarray(data, dtype=np.float64)
-        if X.ndim != 2:
+        in each tree, ``[N, T]`` int32 (GBDT.predict_leaf_index); with
+        ``pred_contrib`` the SHAP contributions, ``[N, F + 1]`` or ``[N,
+        K·(F + 1)]`` (GBDT.predict_contrib). ``num_iteration`` <= 0 (the
+        default) takes every tree, as the JAX package does; a positive value
+        takes the first ``num_iteration`` iterations, None the first
+        ``best_iteration`` (``train`` sets it: the early-stopping best, else
+        every iteration it trained). ``pred_early_stop`` (with
+        ``pred_early_stop_freq`` and ``pred_early_stop_margin``, or the
+        params of the same names) stops the rows whose margin passed the
+        threshold, for binary, multiclass, multiclassova and cross_entropy
+        models, as lightgbm_tpu/basic.py ``predict`` dispatches it. A
+        DataFrame is coded with the model's category lists; a scipy sparse
+        matrix is densified, as the JAX package's ``_to_2d_float`` does."""
+        if isinstance(data, np.ndarray) and data.ndim == 1:
             raise LightGBMError("Input numpy.ndarray must be 2 dimensional")
+        X = _dense(data, self.pandas_categorical)
         if X.shape[1] != self.num_feature():
             raise LightGBMError(
                 "The number of features in data (%d) is not the same as it "
@@ -564,7 +768,50 @@ class Booster:
             num_iteration = self.best_iteration
         if pred_leaf:
             return self._gbdt.predict_leaf_index(X, num_iteration)
-        return self._gbdt.predict(X, num_iteration, raw_score=raw_score)
+        if pred_contrib:
+            return self._gbdt.predict_contrib(X, num_iteration)
+        early_stop = None
+        obj_name = self._gbdt.objective.name if self._gbdt.objective is not None else ""
+        if kwargs.get("pred_early_stop", self.config.pred_early_stop) and obj_name in (
+                "binary", "multiclass", "multiclassova", "cross_entropy"):
+            from .prediction_early_stop import create_prediction_early_stop_instance
+
+            early_stop = create_prediction_early_stop_instance(
+                "multiclass" if self._gbdt.num_tree_per_iteration > 1 else "binary",
+                int(kwargs.get("pred_early_stop_freq", self.config.pred_early_stop_freq)),
+                float(kwargs.get("pred_early_stop_margin", self.config.pred_early_stop_margin)),
+            )
+        return self._gbdt.predict(X, num_iteration, raw_score=raw_score, early_stop=early_stop)
+
+    def refit(self, data, label, decay_rate: float = 0.9, **kwargs) -> "Booster":
+        """A new Booster with this model's trees refit on ``data`` and
+        ``label`` (lightgbm_tpu/basic.py ``refit``): each tree keeps its
+        structure and its leaves become ``decay_rate·old + (1 -
+        decay_rate)·new``, the new values from the gradients of this model's
+        objective, whose name and parameters are parsed from its
+        ``to_string()``, with its class count; on this Booster's device."""
+        if self._gbdt.objective is None:
+            raise LightGBMError("Cannot refit due to null objective function.")
+        leaf_preds = self.predict(data, num_iteration=-1, pred_leaf=True, **kwargs)
+        params = dict(self.params)
+        tokens = self._gbdt.objective.to_string().split()
+        params.setdefault("objective", tokens[0])
+        for tok in tokens[1:]:
+            if ":" in tok:
+                k, v = tok.split(":", 1)
+                params.setdefault(k, v)
+            elif tok == "sqrt":
+                params.setdefault("reg_sqrt", True)
+        params.setdefault("num_class", self._gbdt.num_class)
+        new_booster = Booster(params, Dataset(data, label=label, params=params), device=self.device)
+        if new_booster._gbdt.num_tree_per_iteration != self._gbdt.num_tree_per_iteration:
+            raise LightGBMError(
+                "Cannot refit: the new objective trains %d models per iteration "
+                "but the loaded model has %d"
+                % (new_booster._gbdt.num_tree_per_iteration, self._gbdt.num_tree_per_iteration))
+        new_booster._gbdt.merge_models_from(self._gbdt)
+        new_booster._gbdt.refit(np.asarray(leaf_preds), decay_rate)
+        return new_booster
 
     def save_drift_reference(self, model_filename: str):
         """The JAX package's drift sidecar (``<model>.drift.json``): the drift
@@ -583,7 +830,17 @@ class Booster:
         return pack_booster(self, num_iteration=num_iteration, device=device)
 
     def model_to_string(self, num_iteration: int = -1, start_iteration: int = 0) -> str:
-        return save_model_to_string(self._gbdt, start_iteration, num_iteration) + "\npandas_categorical:null\n"
+        """The model text with the ``pandas_categorical:`` JSON line the
+        python package appends (``null`` without a DataFrame)."""
+        try:
+            tail = json.dumps(self.pandas_categorical)
+        except TypeError:
+            raise LightGBMError(
+                "pandas categorical columns must hold JSON-serializable "
+                "categories (str/int/float/bool) to save the model"
+            )
+        return save_model_to_string(self._gbdt, start_iteration, num_iteration) + \
+            "\npandas_categorical:%s\n" % tail
 
     def save_model(self, filename: str, num_iteration: int = -1) -> "Booster":
         with open(filename, "w") as fh:
@@ -618,10 +875,17 @@ def _boosting_class(name: str):
     log.fatal("Unknown boosting type %s" % name)
 
 
-def _strip_pandas_tail(text: str) -> str:
-    """Drop the trailing ``pandas_categorical:`` line the python package appends."""
-    pos = text.rfind("\npandas_categorical:")
+def _strip_pandas_tail(text: str):
+    """(the model text without its trailing ``pandas_categorical:`` line,
+    the category lists that line holds as JSON, or None)."""
+    marker = "\npandas_categorical:"
+    pos = text.rfind(marker)
     if pos < 0:
-        return text
+        return text, None
     end = text.find("\n", pos + 1)
-    return text[:pos] + (text[end:] if end > 0 else "")
+    payload = text[pos + len(marker):end if end > 0 else None]
+    try:
+        categorical = json.loads(payload)
+    except ValueError:
+        raise LightGBMError("Model file has a corrupt pandas_categorical record: %r" % payload[:80])
+    return text[:pos] + (text[end:] if end > 0 else ""), categorical

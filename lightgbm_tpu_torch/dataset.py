@@ -1,5 +1,7 @@
 """Binned dataset construction; the PyTorch port's copy of
-lightgbm_tpu/dataset.py (without the binary-file save/load).
+lightgbm_tpu/dataset.py, with its binary-file save and load (the same magic
+string, npz fields and layout, so a file written by either package loads in
+the other).
 
 Counterpart of the reference Dataset/DatasetLoader/Metadata
 (LightGBM src/io/dataset.cpp, dataset_loader.cpp, metadata.cpp). Instead of
@@ -47,6 +49,7 @@ from .binning import (
 )
 from .config import Config
 from .utils import log
+from .utils.vfile import vopen
 
 
 class Metadata:
@@ -222,6 +225,83 @@ class BinnedDataset:
             # all-numerical workloads trace none of it
             meta["is_categorical"] = is_cat
         return meta
+
+
+BINARY_MAGIC = "lightgbm_tpu.binned.v1"
+
+
+def save_binary_dataset(binned: BinnedDataset, path: str) -> None:
+    """Persist the binned dataset for fast reload (Dataset::SaveBinaryFile,
+    dataset.cpp:615, as an npz): the bins, the used features, the EFB plan
+    of a bundled table (``group_id``, ``bin_offset``, ``max_group_bins``),
+    the metadata fields and a JSON record of the mappers and names."""
+    import json as _json
+
+    md = binned.metadata
+    arrays: Dict[str, np.ndarray] = {
+        "bins": binned.bins,
+        "used_feature_idx": np.asarray(binned.used_feature_idx, np.int64),
+    }
+    if binned.is_bundled:
+        arrays["group_id"] = binned.group_id
+        arrays["bin_offset"] = binned.bin_offset
+        arrays["max_group_bins"] = np.asarray([binned.max_group_bins], np.int64)
+    for name, arr in (("label", md.label), ("weight", md.weight), ("init_score", md.init_score),
+                      ("query_boundaries", md.query_boundaries)):
+        if arr is not None:
+            arrays[name] = arr
+    meta = {
+        "magic": BINARY_MAGIC,
+        "num_total_features": binned.num_total_features,
+        "feature_names": binned.feature_names,
+        "monotone_constraints": list(binned.monotone_constraints),
+        "mappers": [m.to_dict() for m in binned.mappers],
+    }
+    arrays["meta_json"] = np.frombuffer(_json.dumps(meta).encode("utf-8"), dtype=np.uint8)
+    with vopen(path, "wb") as fh:
+        np.savez_compressed(fh, **arrays)
+
+
+def is_binary_dataset_file(path: str) -> bool:
+    """True when ``path`` is a dataset written by ``save_binary`` (a zip with
+    the meta record): the LoadFromBinFile sniff (dataset_loader.cpp:268)."""
+    try:
+        with vopen(path, "rb") as fh:
+            if fh.read(2) != b"PK":
+                return False
+        with vopen(path, "rb") as fh, np.load(fh, allow_pickle=False) as z:
+            return "meta_json" in z.files
+    except Exception:
+        return False
+
+
+def load_binary_dataset(path: str) -> BinnedDataset:
+    """Reload a ``save_binary`` dataset (DatasetLoader::LoadFromBinFile)."""
+    import json as _json
+
+    with vopen(path, "rb") as fh, np.load(fh, allow_pickle=False) as z:
+        meta = _json.loads(bytes(z["meta_json"].tobytes()).decode("utf-8"))
+        if meta.get("magic") != BINARY_MAGIC:
+            log.fatal("File %s is not a lightgbm_tpu binary dataset" % path)
+        bins = z["bins"]
+        md = Metadata(
+            bins.shape[1],
+            label=z["label"] if "label" in z.files else None,
+            weight=z["weight"] if "weight" in z.files else None,
+            init_score=z["init_score"] if "init_score" in z.files else None,
+        )
+        if "query_boundaries" in z.files:
+            md.query_boundaries = z["query_boundaries"].astype(np.int64)
+        used = [int(i) for i in z["used_feature_idx"]]
+        group_id = z["group_id"] if "group_id" in z.files else None
+        bin_offset = z["bin_offset"] if "bin_offset" in z.files else None
+        mgb = int(z["max_group_bins"][0]) if "max_group_bins" in z.files else None
+    return BinnedDataset(
+        bins, [BinMapper.from_dict(d) for d in meta["mappers"]], used,
+        int(meta["num_total_features"]), md, feature_names=meta["feature_names"],
+        monotone_constraints=meta["monotone_constraints"], group_id=group_id,
+        bin_offset=bin_offset, max_group_bins=mgb,
+    )
 
 
 def _sample_rows(num_data: int, sample_cnt: int, seed: int) -> np.ndarray:

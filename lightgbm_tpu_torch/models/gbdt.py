@@ -73,6 +73,13 @@ copy (``_merge_from``): its init scores already carry them, as the f32
 replay ``warmstart_scores`` gives them, and a validation set attached
 later replays them from its raw rows (``add_valid``).
 
+Prediction (``predict_raw``, ``predict_leaf_index``, ``predict_contrib``)
+walks the host trees' arrays on the model's device: raw scores summed in
+f64 in boosting order (with prediction early stopping, the rows past the
+margin stop taking trees), SHAP values from the TreeSHAP kernel
+(ops/shap_kernel.py). ``merge_models_from`` and ``refit`` re-estimate a
+model's leaves on a new training set (``Booster.refit``).
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -88,13 +95,13 @@ from ..dataset import BinnedDataset
 from ..metric import Metric
 from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
-from ..ops import cuda_graph, grow_state, grow_step_kernel, hist_kernel, predict_kernel
+from ..ops import cuda_graph, grow_state, grow_step_kernel, hist_kernel, predict_kernel, shap_kernel
 from ..ops.grow import (
     TreeArrays, device_loop_routable, grow_tree, launch_tree, tree_from_packed,
 )
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw, raw_predict_leaf
-from ..ops.split import SplitParams, member_words, num_words
+from ..ops.split import SplitParams, calculate_leaf_output, member_words, num_words
 from ..utils import log
 from .tree import Tree
 
@@ -1080,20 +1087,43 @@ class GBDT:
             use = min(use, num_iteration * self.num_tree_per_iteration)
         return use
 
-    def predict_raw(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+    def predict_raw(self, X: np.ndarray, num_iteration: int = -1,
+                    early_stop=None) -> np.ndarray:
         """Raw scores, [N] or [N, K] for K trees an iteration (PredictRaw,
         gbdt_prediction.cpp:13-51), each class's trees summed in f64 in
         boosting order on the model's device; an ``average_output`` model
         (random forest) divides the sums by the iterations used, as the JAX
-        package does (lightgbm_tpu/models/gbdt.py ``predict_raw``)."""
+        package does (lightgbm_tpu/models/gbdt.py ``predict_raw``).
+
+        ``early_stop`` (prediction_early_stop.py): every ``round_period``
+        iterations the rows whose margin passed the threshold stop taking
+        trees; the others go on from their running sums, so a row never
+        stopped gets the bits of the full sum."""
         self._materialize()
         use = self._used_trees(num_iteration)
         K = self.num_tree_per_iteration
         Xt = torch.as_tensor(np.asarray(X, np.float64), device=self.device)
-        out = [ensemble_predict_raw(Xt, self.models[k:use:K]).cpu().numpy() for k in range(K)]
+        if early_stop is None or early_stop.round_period >= (use + K - 1) // K:
+            out = torch.stack([ensemble_predict_raw(Xt, self.models[k:use:K]) for k in range(K)])
+        else:
+            out = torch.zeros((K, Xt.shape[0]), dtype=torch.float64, device=self.device)
+            active = torch.arange(Xt.shape[0], device=self.device)
+            Xa, outa, counter = Xt, out.clone(), 0
+            for it in range(-(-use // K)):
+                for k in range(min(K, use - it * K)):
+                    ensemble_predict_raw(Xa, [self.models[it * K + k]], outa[k])
+                counter += 1
+                if counter == early_stop.round_period:
+                    out[:, active] = outa
+                    keep = ~early_stop.callback(outa.t())
+                    active, Xa, outa, counter = active[keep], Xa[keep], outa[:, keep], 0
+                    if active.numel() == 0:
+                        break
+            out[:, active] = outa
+        out = out.cpu().numpy()
         if self.average_output and use > 0:
-            out = [o / max(use // K, 1) for o in out]
-        return out[0] if K == 1 else np.stack(out, axis=1)
+            out = out / max(use // K, 1)
+        return out[0] if K == 1 else out.T
 
     def predict_leaf_index(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
         """[N, T] int32: each row's leaf in each of the first trees
@@ -1107,11 +1137,93 @@ class GBDT:
             out[:, i] = raw_predict_leaf(Xt, self.models[i]).cpu().numpy()
         return out
 
-    def predict(self, X: np.ndarray, num_iteration: int = -1, raw_score: bool = False) -> np.ndarray:
-        raw = self.predict_raw(X, num_iteration)
+    def predict(self, X: np.ndarray, num_iteration: int = -1, raw_score: bool = False,
+                early_stop=None) -> np.ndarray:
+        raw = self.predict_raw(X, num_iteration, early_stop=early_stop)
         if raw_score or self.objective is None:
             return raw
         return self.objective.convert_output(raw)
+
+    def predict_contrib(self, X: np.ndarray, num_iteration: int = -1) -> np.ndarray:
+        """SHAP feature contributions (GBDT::PredictContrib), computed on the
+        model's device by the TreeSHAP kernel (ops/shap_kernel.py; its plain
+        version on the CPU): [N, F + 1], or [N, K·(F + 1)] for K trees an
+        iteration with each class's expected value last in its block; an
+        ``average_output`` model divides by the iterations used. Each row
+        sums to the raw score (lightgbm_tpu/models/gbdt.py ``predict_contrib``)."""
+        self._materialize()
+        use = self._used_trees(num_iteration)
+        K = self.num_tree_per_iteration
+        F = self.max_feature_idx + 1
+        Xt = torch.as_tensor(np.ascontiguousarray(X, np.float64), device=self.device)
+        ens = shap_kernel.shap_trees(self.models[:use], self.device)
+        out = shap_kernel.tree_shap(Xt, ens, K, F).cpu().numpy()
+        if self.average_output and use > 0:
+            out /= max(use // K, 1)
+        if K == 1:
+            return out[0]
+        return out.transpose(1, 0, 2).reshape(Xt.shape[0], K * (F + 1))
+
+    # ------------------------------------------------------------------
+    # refit (Booster.refit): the trees' structure kept, their leaves re-estimated
+    # ------------------------------------------------------------------
+    def merge_models_from(self, other: "GBDT") -> None:
+        """Append copies of ``other``'s trees to this trainer's (GBDT::MergeFrom,
+        lightgbm_tpu/models/gbdt.py ``merge_models_from``); a trainer with no
+        trees yet takes ``other``'s learning rate and ``average_output`` too.
+        The trees carry no bin-space copy: refit rebuilds the scores itself."""
+        import copy
+
+        other._materialize()
+        if not self.models:
+            self.shrinkage_rate = other.shrinkage_rate
+            self.average_output = other.average_output
+        self.models = self.models + [copy.deepcopy(t) for t in other.models]
+        self._tree_arrays = self._tree_arrays + [None] * len(other.models)
+        self.iter_ = len(self.models) // max(self.num_tree_per_iteration, 1)
+
+    def refit(self, leaf_preds: np.ndarray, decay_rate: Optional[float] = None) -> None:
+        """Re-estimate every leaf on this trainer's dataset, keeping each
+        tree's structure (GBDT::RefitTree, gbdt.cpp:262-285; the JAX package's
+        ``refit``). The scores start from zero; iteration by iteration the
+        objective's gradients at the scores so far come from the card, each
+        tree's per-leaf sums of gradients and hessians are taken in f64 on
+        the card (hessians plus K_EPSILON) through ``leaf_preds`` ([N, T],
+        each row's leaf in each tree), the leaf value becomes
+        ``decay·old + (1 - decay)·shrinkage·output`` in f64, and the class's
+        score takes the new values by one f32 add."""
+        cfg = self.config
+        if decay_rate is None:
+            decay_rate = cfg.refit_decay_rate
+        self._materialize()
+        K = self.num_tree_per_iteration
+        N = self.num_data
+        leaf_preds = np.asarray(leaf_preds)
+        if leaf_preds.ndim == 1:
+            leaf_preds = leaf_preds.reshape(N, -1)
+        if leaf_preds.shape[0] != N:
+            raise ValueError("leaf_preds has %d rows, dataset has %d" % (leaf_preds.shape[0], N))
+        if leaf_preds.shape[1] != len(self.models):
+            raise ValueError("leaf_preds has %d trees, model has %d"
+                             % (leaf_preds.shape[1], len(self.models)))
+        dev = self.device
+        lp_all = torch.as_tensor(leaf_preds.astype(np.int64), device=dev)
+        self.scores = torch.zeros((K, N), dtype=torch.float32, device=dev)
+        for it in range(len(self.models) // K):
+            grad, hess = self._compute_gradients()
+            for k in range(K):
+                mi = it * K + k
+                tree = self.models[mi]
+                lp = lp_all[:, mi]
+                sums = torch.zeros((2, tree.num_leaves), dtype=torch.float64, device=dev)
+                sums[0].index_add_(0, lp, grad[k].double())
+                sums[1].index_add_(0, lp, hess[k].double())
+                out = calculate_leaf_output(sums[0], sums[1] + K_EPSILON, split_params(cfg))
+                old = torch.as_tensor(np.asarray(tree.leaf_value, np.float64), device=dev)
+                value = decay_rate * old + (1.0 - decay_rate) * (out * tree.shrinkage)
+                tree.leaf_value = value.cpu().numpy()
+                self._tree_arrays[mi] = None
+                self.scores[k] += value.to(torch.float32)[lp]
 
     def feature_importance(self, importance_type: str = "split", num_iteration: int = -1) -> np.ndarray:
         self._materialize()

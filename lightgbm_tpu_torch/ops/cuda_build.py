@@ -30,6 +30,7 @@ NVCC_FLAGS = (
 SOURCES = (
     "histogram", "split_pair", "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1",
     "partition", "grow_step", "predict_bins", "efb_remap", "lambdarank", "packed_predict",
+    "tree_shap",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -37,7 +37,7 @@ class's trees one f32 add a tree in tree order, as the kernel does.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -102,9 +102,13 @@ def raw_predict_leaf(X: torch.Tensor, tree: Tree) -> torch.Tensor:
     return -(node + 1)
 
 
-def ensemble_predict_raw(X: torch.Tensor, trees: Sequence[Tree]) -> torch.Tensor:
-    """[N] f64 sum of the trees' values, accumulated tree by tree."""
-    out = torch.zeros(X.shape[0], dtype=torch.float64, device=X.device)
+def ensemble_predict_raw(X: torch.Tensor, trees: Sequence[Tree],
+                         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N] f64 sum of the trees' values, accumulated tree by tree onto
+    ``out`` (the running sums of earlier trees, added to in place) or onto
+    zeros."""
+    if out is None:
+        out = torch.zeros(X.shape[0], dtype=torch.float64, device=X.device)
     for t in trees:
         values = torch.as_tensor(t.leaf_value, dtype=torch.float64, device=X.device)
         out += values[raw_predict_leaf(X, t)]

@@ -28,7 +28,9 @@ def _data(n=600, f=6, seed=0):
 def test_import_leaves_jax_out():
     code = (
         "import sys; import lightgbm_tpu_torch, lightgbm_tpu_torch.serve, "
-        "lightgbm_tpu_torch.serve.server, lightgbm_tpu_torch.serve.__main__, chip_smoke; "
+        "lightgbm_tpu_torch.serve.server, lightgbm_tpu_torch.serve.__main__, chip_smoke, "
+        "lightgbm_tpu_torch.io, lightgbm_tpu_torch.prediction_early_stop, "
+        "lightgbm_tpu_torch.models.model_codegen, lightgbm_tpu_torch.ops.shap_kernel; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'lightgbm_tpu' or m.startswith('lightgbm_tpu.')]; "
         "print(bad); sys.exit(1 if bad else 0)"
@@ -133,6 +135,22 @@ def test_unsupported_params_raise(params, name):
     full = {"objective": "binary", "verbose": -1, **params}
     with pytest.raises(NotImplementedError, match=name):
         tlgb.train(full, tlgb.Dataset(X, label=y), 1, device="cpu")
+
+
+def test_two_round_file_loading_raises(tmp_path):
+    """A text file with ``two_round`` (the JAX package's streaming loader,
+    dist_loader.py) raises NotImplementedError naming it, rather than loading
+    the whole file another way."""
+    X, y = _data(n=50)
+    path = tmp_path / "train.csv"
+    path.write_text("".join("%g,%s\n" % (y[i], ",".join("%.17g" % v for v in X[i]))
+                            for i in range(len(y))))
+    with pytest.raises(NotImplementedError, match="two_round"):
+        tlgb.Dataset(str(path), params={"two_round": True}).construct()
+    with pytest.raises(NotImplementedError, match="two_round"):
+        tlgb.train({"objective": "binary", "two_round": True, "verbose": -1},
+                   tlgb.Dataset(str(path)), 1, device="cpu")
+    assert tlgb.Dataset(str(path)).construct().num_data() == 50
 
 
 def test_categorical_data_trains_and_bundled_data_raises():

@@ -2265,3 +2265,127 @@ def test_cuda_server_answers_exact_and_fused(dev, tmp_path):
             srv.shutdown()
             srv.server_close()
         app.close()
+
+
+# ---------------------------------------------------------------------------
+# SHAP contributions: csrc/tree_shap.cu
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _shap_model(dev, case):
+    """(a model, its rows with NaN) of each case, trained on the card; the
+    chain is a hand-written tree of 70 levels; "loaded" is the binary model
+    read back from its text."""
+    import chip_smoke
+    import lightgbm_tpu_torch as tlgb
+
+    F = 674 if case == "wide" else 28
+    rng = np.random.RandomState(len(case))
+    X = rng.randn(3000, F)
+    X[rng.rand(*X.shape) < 0.03] = np.nan
+    if case == "chain":
+        return tlgb.Booster(model_str=chip_smoke.chain_model_text(70, F, seed=5), device=dev), X
+    if case == "loaded":
+        bst, X = _shap_model(dev, "binary")
+        return tlgb.Booster(model_str=bst.model_to_string(), device=dev), X
+    sig = np.nan_to_num(X[:, 0]) + np.nan_to_num(X[:, 1]) * np.nan_to_num(X[:, 2])
+    params = {"objective": "binary", "num_leaves": 31, "verbose": -1}
+    cats = "auto"
+    if case == "multiclass":  # K = 7, with a categorical column
+        X[:, 3] = rng.randint(0, 40, len(X))
+        cats = [3]
+        sig = sig + (X[:, 3] % 4 == 0)
+        params.update(objective="multiclass", num_class=7)
+        y = np.digitize(sig, np.quantile(sig, np.linspace(0, 1, 8)[1:-1])).astype(float)
+    else:
+        y = (sig > 0).astype(float)
+    return tlgb.train(params, tlgb.Dataset(X, label=y, categorical_feature=cats), 3,
+                      device=dev), X
+
+
+@pytest.mark.parametrize("case", ["binary", "wide", "multiclass", "chain", "loaded"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1000])
+def test_tree_shap_kernel_matches_plain(dev, case, n):
+    """The kernel against its plain version bit for bit, on the card and on the
+    CPU (whose values are the JAX package's, tests/test_torch_contrib.py):
+    F = 28 and 674, K = 1 and 7 (categorical nodes), the chain, a loaded model."""
+    from lightgbm_tpu_torch.ops import shap as shap_plain
+    from lightgbm_tpu_torch.ops import shap_kernel
+
+    bst, X = _shap_model(dev, case)
+    trees = bst._gbdt.trees()
+    K, F = bst.num_model_per_iteration(), bst.num_feature()
+    if case == "multiclass":
+        assert K == 7 and any(t.num_cat > 0 for t in trees)
+    rows = np.ascontiguousarray(np.resize(X, (n, F)))
+    Xd = torch.as_tensor(rows, device=dev)
+    shap_kernel.reset_launches()
+    got = shap_kernel.tree_shap(Xd, shap_kernel.shap_trees(trees, dev), K, F)
+    assert shap_kernel.launches["tree_shap"] >= 1
+    assert torch.equal(got, shap_plain.contrib_plain(Xd, trees, K, F))
+    want_cpu = shap_plain.contrib_plain(torch.as_tensor(rows[:8]), trees, K, F)
+    assert torch.equal(got[:, :8].cpu(), want_cpu)
+
+
+@pytest.mark.parametrize("case", ["binary", "multiclass", "chain"])
+@pytest.mark.parametrize("mode", ["few_blocks", "unstaged", "both"])
+def test_tree_shap_kernel_loops_and_reads_unstaged_trees(dev, monkeypatch, case, mode):
+    """The kernel against its plain version bit for bit where each block
+    loops over many (128 rows, tree) tiles, re-staging a tree into shared
+    memory each time and reusing one scratch slot (the scratch cut to three
+    blocks' slots), and where a tree is larger than STAGE_BYTES and is read
+    from global memory (the stage cut to 0 bytes)."""
+    from lightgbm_tpu_torch.ops import shap as shap_plain
+    from lightgbm_tpu_torch.ops import shap_kernel
+
+    bst, X = _shap_model(dev, case)
+    trees = bst._gbdt.trees()
+    K, F = bst.num_model_per_iteration(), bst.num_feature()
+    ens = shap_kernel.shap_trees(trees, dev)
+    if mode in ("few_blocks", "both"):
+        monkeypatch.setattr(shap_kernel, "PATH_BYTES",
+                            3 * shap_kernel.THREADS * shap_kernel.slot_bytes(ens.max_depth))
+    if mode in ("unstaged", "both"):
+        monkeypatch.setattr(shap_kernel, "STAGE_BYTES", 0)
+    Xd = torch.as_tensor(np.ascontiguousarray(X[:, :F]), device=dev)  # 3,000 rows
+    plan = shap_kernel.launch_plan(ens, len(Xd), F, K, dev)
+    assert plan.staged == (mode == "few_blocks")
+    if mode != "unstaged":
+        assert plan.grid == 3 and plan.tiles >= 8 * plan.grid, plan
+    got = shap_kernel.tree_shap(Xd, ens, K, F)
+    assert torch.equal(got, shap_plain.contrib_plain(Xd, trees, K, F))
+
+
+def test_tree_shap_through_predict_and_chunks(dev, monkeypatch):
+    """``Booster.predict(pred_contrib=True)`` on the card launches the kernel
+    and sums to the raw score; partials cut into chunks of one tree give the
+    same bits as one chunk."""
+    from lightgbm_tpu_torch.ops import shap_kernel
+
+    bst, X = _shap_model(dev, "multiclass")
+    shap_kernel.reset_launches()
+    contrib = bst.predict(X[:500], pred_contrib=True)
+    assert shap_kernel.launches["tree_shap"] == 1
+    K, F1 = 7, X.shape[1] + 1
+    assert contrib.shape == (500, K * F1)
+    np.testing.assert_allclose(contrib.reshape(500, K, F1).sum(2), bst.predict(X[:500], raw_score=True),
+                               rtol=1e-9, atol=1e-9)
+    monkeypatch.setattr(shap_kernel, "PARTIAL_BYTES", 500 * F1 * 8)
+    shap_kernel.reset_launches()
+    assert np.array_equal(bst.predict(X[:500], pred_contrib=True), contrib)
+    assert shap_kernel.launches["tree_shap"] == bst.num_trees()
+
+
+def test_tree_shap_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from lightgbm_tpu_torch.ops import shap_kernel
+
+    bst, X = _shap_model(dev, "binary")
+    ens = shap_kernel.shap_trees(bst._gbdt.trees(), dev)
+    Xd = torch.as_tensor(X[:10], device=dev)
+    with pytest.raises(ValueError, match="float64"):
+        shap_kernel.tree_shap(Xd.float(), ens, 1, 28)
+    with pytest.raises(ValueError, match="contiguous"):
+        shap_kernel.tree_shap(torch.as_tensor(X[:10].T.copy(), device=dev).t(), ens, 1, 28)
+    with pytest.raises(ValueError, match="on cuda"):
+        shap_kernel.tree_shap(Xd, shap_kernel.shap_trees(bst._gbdt.trees(), "cpu"), 1, 28)

@@ -224,13 +224,18 @@ def test_input_validation(rng_m):
 
 
 def test_unported_prediction_arguments_raise(rng_m):
+    """``save_drift_reference`` (the drift monitor) still raises; the SHAP
+    contributions and prediction early stopping are ported and give the JAX
+    package's values (tests/test_torch_contrib.py and
+    tests/test_torch_predict_rest.py hold them bit for bit)."""
     X = _data(rng_m, n=200, nan_frac=0)
     y = (X[:, 0] > 0).astype(float)
     bst = _train({"objective": "binary", "num_leaves": 7}, X, y, 2)
-    with pytest.raises(NotImplementedError, match="pred_contrib"):
-        bst.predict(X, pred_contrib=True)
-    with pytest.raises(NotImplementedError, match="pred_early_stop"):
-        bst.predict(X, pred_early_stop=True)
+    jbst = jlgb.Booster(model_str=bst.model_to_string())
+    np.testing.assert_array_equal(bst.predict(X, pred_contrib=True),
+                                  jbst.predict(X, pred_contrib=True))
+    kw = dict(pred_early_stop=True, pred_early_stop_freq=1, pred_early_stop_margin=0.05)
+    np.testing.assert_array_equal(bst.predict(X, **kw), jbst.predict(X, **kw))
     with pytest.raises(NotImplementedError, match="save_drift_reference"):
         bst.save_drift_reference("m.txt")
 
