@@ -9,7 +9,7 @@ Phases (each prints one line; any failure exits non-zero):
     lightgbm_tpu_torch/csrc built with one nvcc each, all started at once,
     and each kernel's registers per thread and spill bytes as ptxas reports
     them (hist_v1's instances on their own, none spilling; histogram.cu's
-    16, its grouped form among them);
+    32, its grouped form and its int16 instantiations among them);
  2. leaf-histogram kernel vs its plain PyTorch version at the root shape
     (1M rows x 28 features, B=255) and at a leaf segment given by ``rows``:
     exact on dyadic values, within the f32 bound of two summation orders on
@@ -313,6 +313,33 @@ Phases (each prints one line; any failure exits non-zero):
     28 training Dataset reloaded with the same bins and mappers, 100,000 rows
     through a CSV file binned as in memory, and 10 iterations on the
     reloaded file within 2e-3 of phase 4's AUC;
+ 8d. wide bins and the histogram pool: ``train`` on the main path's table
+    binned at max_bin 1024 (int16 bins on the card), 255 leaves, 10
+    iterations with a 100k-row held-out set, captured, and the same with
+    ``histogram_pool_size`` 16 MB (48 slots of 28 x 1024 x 3 x 4 bytes):
+    AUC above 0.7, every histogram, scan, pick and predict launch an int16
+    (the scan's: rows1024) or pool instantiation, no launch of a byte one
+    (launches counted from 0); csrc/histogram.cu's
+    int16 instantiations at the root and at phase 2's 100k-row segment on
+    the card's int16 copy at B = 300 and B = 1024, f32 and bf16, exact on
+    dyadic values and within the two-order bound on real ones, timed
+    against the bytes bound and one ``index_add_``; csrc/split_pair.cu's
+    rows1024 instantiations (numerical and categorical) at B = 1024 against the
+    plain version bit for bit; one eager tree of each run on dyadic
+    gradients with every kernel of every 16th step (pick_partition, the
+    segment histogram, the pool's second segment histogram, the folded
+    scan) and the root's scan held to their plain versions (the whole
+    state equal), timed at steps 0 and 128; the pooled run's steps that
+    built both children, counted on its real gradients; a 200k-row table
+    with a categorical column of 1000 categories (5 iterations, a held-out
+    set): a split whose categories pass bin 255, its tree held every 16th
+    step, the first categorical pick and predict_bins over the held-out
+    rows with words past 8 held and timed (predict_bins bounded by the mean
+    depth of the rows' leaves in its tree); pooled = unpooled at 100k rows
+    on gradients rounded to 2^-7 (model text and scores); turns of 10
+    iterations of the main path (255 bins), wide and pooled boosters (a
+    replay an iteration and chunks of 10) and one profiled iteration of
+    each (busy ms, kernels, each kernel's ms an iteration, idle share);
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
     4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
@@ -325,8 +352,9 @@ Phases (each prints one line; any failure exits non-zero):
     the folded scan, pick_partition and predict_bins in rows of their own,
     timed in 4g, their launches 4g's training's; efb_remap and the bundled
     instantiations of pick_partition and predict_bins timed in 4i, the
-    bundled ones' launches 4h's and 4i's trainings'; lambdarank timed in 4k),
-    the seconds of each phase, then the result line.
+    bundled ones' launches 4h's and 4i's trainings'; lambdarank timed in 4k;
+    the int16 and pool instantiations timed in 8d, their launches 8d's
+    trainings'), the seconds of each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -1060,6 +1088,504 @@ def prediction_phase(lgb, dev, counted, time_ms, bst, train_set, X, y, train_auc
     return rec, kernel
 
 
+def plain_pick_partition(st):
+    """pick_partition's plain versions on the state ``st``: the pick, then
+    the partition (ops/grow_step.py ``pick``, ops/partition.py)."""
+    from lightgbm_tpu_torch.ops import grow_step, partition
+    grow_step.pick(st)
+    partition.partition(st)
+
+
+def same_state(a, b, what, skip=()):
+    """Every state tensor of ``a`` equal to ``b``'s (NaN where ``b`` has
+    NaN), but those named in ``skip``."""
+    from lightgbm_tpu_torch.ops.grow_state import GrowState
+    for k in GrowState.STATE:
+        if k in skip:
+            continue
+        x_, y_ = getattr(a, k), getattr(b, k)
+        eq = x_ == y_
+        if x_.is_floating_point():
+            eq |= x_.isnan() & y_.isnan()
+        assert bool(eq.all()), ("kernel != plain", what, k)
+
+
+def restore(dst, src):
+    """Every state tensor of ``dst`` copied from ``src``."""
+    from lightgbm_tpu_torch.ops.grow_state import GrowState
+    for k in GrowState.STATE:
+        getattr(dst, k).copy_(getattr(src, k))
+
+
+def held_and_timed(st, name, kernel, plain, time_ms, check_small=None):
+    """``kernel`` on the state ``st`` against ``plain`` on a copy (the whole
+    state equal; with ``check_small(st, other)``, which checks ``small``
+    itself and returns its max_abs_err, all but ``small``), then both timed
+    from that state, which is left as the kernel made it."""
+    before, other = st.clone(), st.clone()
+    kernel(st)
+    plain(other)
+    same_state(st, other, name, ("small",) if check_small else ())
+    err = check_small(st, other) if check_small else 0.0
+    after, copy = st.clone(), before.clone()
+    t = dict(ms=time_ms(lambda: kernel(st), setup=lambda: restore(st, before)),
+             plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: restore(copy, before)),
+             max_abs_err=err)
+    restore(st, after)
+    return t
+
+
+WIDE_MAX_BIN = 1024  # the widest bins the port trains (int16 on the card)
+WIDE_NARROW_BIN = 300  # inside the TPU kernel's own wide range (257-336)
+WIDE_POOL_MB = 16  # 48 slots of 28 x 1024 x 3 x 4 = 344,064 bytes
+WIDE_POOL_SLOTS = 48
+WIDE_VALID_ROWS = 100_000
+WIDE_CAT_ROWS = 200_000  # the categorical check's table: 11 numerical columns and one of
+WIDE_CAT_CATEGORIES = 1000  # this many categories, so that a split's bits pass word 8
+WIDE_BITWISE_ROWS = 100_000  # pooled = unpooled on gradients rounded to 2^-7
+WIDE_HOLD_EVERY = 16  # the step kernels held to their plain versions every 16th step
+
+
+def wide_bins_phase(lgb, dev, ctx):
+    """Wide bins and the histogram pool on the card (phase 8d of the module
+    docstring). ``ctx`` carries main's ``counted``, ``profiled``,
+    ``time_ms``, ``X``, ``y``, the main path's ``train_set``, the dyadic and
+    real root values ``dyq_vals`` / ``real_vals``, the 100k-row segment
+    ``seg_rows``, ``dyadic_gradients`` (the binary objective rounded to
+    2^-7) and ``card``. Returns (the phase's record, each new kernel's row
+    of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lightgbm_tpu_torch import objective as objective_mod
+    from lightgbm_tpu_torch.bench import train_iterations
+    from lightgbm_tpu_torch.ops import grow as grow_mod
+    from lightgbm_tpu_torch.ops import grow_state as gs
+    from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
+    from lightgbm_tpu_torch.ops import hist_kernel, partition_kernel, predict_kernel, split_kernel
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops.histogram import leaf_histogram, segment_histogram
+    from lightgbm_tpu_torch.ops.split import find_best_split_pair
+    from lightgbm_tpu_torch.ops.split import split_pair_step as split_pair_step_plain
+
+    counted, profiled, time_ms = ctx.counted, ctx.profiled, ctx.time_ms
+    X, y = ctx.X, ctx.y
+    N, F = X.shape
+    wide_params = dict(TRAIN_PARAMS, max_bin=WIDE_MAX_BIN)
+    pool_params = dict(wide_params, histogram_pool_size=WIDE_POOL_MB)
+    rec = {"card": ctx.card}
+
+    # ---- training at max_bin 1024, unpooled and pooled, captured -------------------
+    wide_set = lgb.Dataset(X, label=y)
+    Xv, yv = higgs_like_rows(WIDE_VALID_ROWS, F, seed=11)
+    wide_valid = lgb.Dataset(Xv, label=yv, reference=wide_set)
+    runs = {}
+    for name, params in (("unpooled", wide_params), ("pooled", pool_params)):
+        res = {}
+        bst, secs, got = counted(lambda: lgb.train(dict(params), wide_set, 10,
+                                                   valid_sets=[wide_valid], evals_result=res,
+                                                   verbose_eval=False))
+        g = bst._gbdt
+        assert g.grow_loop == "device" and g.captures == 1, (name, g.grow_loop, g.captures)
+        assert g.bins_dev.dtype == torch.int16 and g.num_bins == WIDE_MAX_BIN, g.num_bins
+        assert (g.hist_pool_slots or 0) == (WIDE_POOL_SLOTS if name == "pooled" else 0)
+        (_, _, auc, _), = bst.eval_train()
+        assert auc > 0.7, (name, auc)
+        # every launch of the loop's kernels and of predict_bins (replays counted) is
+        # an int16 (rows1024) instantiation, and with the pool every folded scan and
+        # pick a pool one: no launch counts under another key of theirs
+        pool = "_pool" if name == "pooled" else ""
+        want = {"histogram_wide", "histogram_segment_wide", "split_pair_step_rows1024",
+                "split_pair_fold_rows1024" + pool, "pick_partition_wide" + pool,
+                "predict_bins_wide", "score_update"}
+        assert all(got.get(k, 0) > 0 for k in want), (name, got)
+        assert set(got) <= want | {"leaf_ids"}, (name, got)
+        runs[name] = dict(booster=bst, seconds=secs, launches=got, auc=auc,
+                          valid_auc=res["valid_0"]["auc"][-1],
+                          leaves=[t.num_leaves for t in g.trees()])
+    g_w, g_p = runs["unpooled"]["booster"]._gbdt, runs["pooled"]["booster"]._gbdt
+    assert g_w.train_set.max_num_bin == WIDE_MAX_BIN
+
+    # ---- histogram.cu's int16 instantiations at the root and a 100k segment -----------
+    bins_nf = g_w.bins_nf  # the card's [N, F] int16 copy
+    hist_checks, hist_t = {}, {}
+    for B in (WIDE_NARROW_BIN, WIDE_MAX_BIN):
+        nf = bins_nf if B == WIDE_MAX_BIN else bins_nf % B
+        hb = nf.t()
+        for dt in ("float32", "bfloat16"):
+            for rows in (None, ctx.seg_rows):
+                where = "root" if rows is None else "segment"
+                got = hist_kernel.histogram(hb, ctx.dyq_vals, B, rows, dt)
+                assert torch.equal(got, leaf_histogram(hb, ctx.dyq_vals, B, rows, dt)), (B, dt, where)
+                got_r = hist_kernel.histogram(hb, ctx.real_vals, B, rows, dt)
+                ratio, err = err_over_bound(got_r, leaf_histogram(hb, ctx.real_vals, B, rows, dt),
+                                            leaf_histogram(hb, ctx.real_vals.abs(), B, rows, dt))
+                assert ratio <= 1.0, ("histogram_wide off on real values", B, dt, where, err, ratio)
+                hist_checks["%d_%s_%s" % (B, dt, where)] = dict(real_max_abs_err=err,
+                                                                 real_err_over_bound=ratio)
+                n = N if rows is None else int(rows.numel())
+                t = dict(ms=time_ms(lambda: hist_kernel.histogram(hb, ctx.real_vals, B, rows, dt)),
+                         max_abs_err=err)
+                t.update(zip(("bound_ms", "bound_by"), bound(
+                    n * F * 2 + n * 12 + (0 if rows is None else n * 4) + F * B * 12, 3 * n * F)))
+                if dt == "float32":
+                    t["plain_ms"] = time_ms(lambda: leaf_histogram(hb, ctx.real_vals, B, rows), reps=3)
+                hist_t["%d_%s_%s" % (B, dt, where)] = t
+    # one index_add_ at B = 1024: the yardstick
+    flat_idx = (bins_nf.t().long() + torch.arange(F, device=dev)[:, None] * WIDE_MAX_BIN).reshape(-1)
+    flat_vals = ctx.real_vals.repeat(F, 1)
+    lib_out = torch.zeros((F * WIDE_MAX_BIN, 3), device=dev)
+
+    def library_root():
+        lib_out.zero_()
+        lib_out.index_add_(0, flat_idx, flat_vals)
+    hist_t["%d_float32_root" % WIDE_MAX_BIN]["library_ms"] = time_ms(library_root)
+    del flat_idx, flat_vals, lib_out
+
+    # ---- split_pair.cu's wide instantiations at B = 1024 -------------------------------
+    B = WIDE_MAX_BIN
+    root_h = hist_kernel.histogram(bins_nf.t(), ctx.dyq_vals, B)
+    seg_h = hist_kernel.histogram(bins_nf.t(), ctx.dyq_vals, B, ctx.seg_rows)
+    hist2 = torch.stack([seg_h, root_h - seg_h]).contiguous()
+    sums = hist2[:, 0].sum(dim=1).contiguous()
+    cons = torch.tensor([[-np.inf, np.inf], [-np.inf, 0.5]], dtype=torch.float32, device=dev)
+    meta = {k: v.clone() for k, v in g_w.feature_meta.items()}
+    meta["missing_type"] = torch.arange(F, dtype=torch.int32, device=dev) % 3
+    meta["monotone"] = torch.zeros(F, dtype=torch.int32, device=dev)
+    meta["monotone"][3] = 1
+    fmask = torch.ones(F, dtype=torch.bool, device=dev)
+    cat_meta = dict(meta, is_categorical=torch.arange(F, device=dev) % 3 == 0)
+    split_t = {}
+    params = g_w.split_params
+    for kind, mt in (("numerical", meta), ("categorical", cat_meta)):
+        for two_way in (True, False):
+            kf, ki, kb = split_kernel.find_best_split_pair(hist2, sums, cons, mt, fmask, params,
+                                                           two_way)
+            pf, pi, pb = find_best_split_pair(hist2, sums, cons, mt, fmask, params, two_way)
+            same_f = (kf == pf) | (torch.isnan(kf) & torch.isnan(pf))
+            assert bool(same_f.all()) and torch.equal(ki, pi) and torch.equal(kb, pb), (
+                "split_pair wide != plain", kind, two_way, kf, pf, ki, pi)
+        t = dict(ms=time_ms(lambda: split_kernel.find_best_split_pair(hist2, sums, cons, mt, fmask,
+                                                                      params)),
+                 plain_ms=time_ms(lambda: find_best_split_pair(hist2, sums, cons, mt, fmask,
+                                                               params), reps=3), max_abs_err=0.0)
+        t.update(zip(("bound_ms", "bound_by"), bound(hist2.numel() * 4 + 2 * 21 * 4 + F * 17,
+                                                     2 * F * B * 60)))
+        split_t[kind] = t
+    del root_h, seg_h, hist2
+
+    # ---- the step kernels held at every 16th step of a tree, timed at steps 0 and 128 ----
+    dy_grad = ctx.dyq_vals[:, 0].contiguous()
+    dy_hess = ctx.dyq_vals[:, 1].contiguous()
+
+    def step_pairs(st, p):
+        pairs = [("pick_partition", partition_kernel.pick_partition, plain_pick_partition),
+                 ("histogram_segment", lambda s_: hist_kernel.histogram_segment(s_, p),
+                  lambda s_: segment_histogram(s_, p))]
+        if st.P:
+            pairs.append(("histogram_segment_large",
+                          lambda s_: hist_kernel.histogram_segment(s_, p, large=True),
+                          lambda s_: segment_histogram(s_, p, large=True)))
+        pairs.append(("split_pair_fold", lambda s_: split_kernel.split_pair_fold(s_, p),
+                      lambda s_: grow_step_plain.split_pair_fold(s_, p)))
+        return pairs
+
+    def held_tree(g, grad, hess, bins, nf, time_steps=(), on_step=None, hold=True):
+        """One eager tree on the state of ``g`` with every kernel of every
+        16th step held to its plain version on a copy (the whole state
+        equal: dyadic gradients; ``hold`` False holds none), the root's scan
+        too; the kernels timed from the state of the steps in
+        ``time_steps``; ``on_step(state, step)`` after each pick."""
+        s = g._grow_state
+        grow_mod.start_tree(s, bins, grad, hess, g.feature_mask, g.feature_meta,
+                            g.config.max_depth, g.split_params, g._two_way, nf)
+        root = ("split_pair_step", lambda s_: split_kernel.split_pair_step(s_, 1),
+                lambda s_: split_pair_step_plain(s_, 1))
+        times, held = {}, 0
+        if 0 in time_steps:
+            times["split_pair_step"] = held_and_timed(s, *root, time_ms)
+        else:
+            check = s.clone()
+            root[2](check)
+            same_state(s, check, "root")
+        for step in range(s.M - 1):
+            p = s.queued_steps % 2
+            s.queued_steps += 1
+            for name, kernel, plain in step_pairs(s, p):
+                if step in time_steps:
+                    times.setdefault(name, {})[step] = held_and_timed(s, name, kernel, plain,
+                                                                      time_ms)
+                    held += 1
+                elif hold and step % WIDE_HOLD_EVERY == 0:
+                    other = s.clone()
+                    kernel(s)
+                    plain(other)
+                    same_state(s, other, (name, step))
+                    held += 1
+                else:
+                    kernel(s)
+                if on_step is not None and name == "pick_partition":
+                    on_step(s, step)
+        return s, times, held
+
+    steps_t, held_n = {}, {}
+    small_rows = []
+
+    def note_small(st, step):
+        if step == 0:
+            small_rows.append(int(st.leaf_count[int(st.ctl[gs.SMALL])]))
+    for name, g in (("unpooled", g_w), ("pooled", g_p)):
+        s, t, held_n[name] = held_tree(g, dy_grad, dy_hess, g.bins_dev, g.bins_nf, (0, 128),
+                                       note_small)
+        assert int(s.ctl[gs.NUM_LEAVES]) > min(128, s.M - 2), int(s.ctl[gs.NUM_LEAVES])
+        steps_t[name] = t
+    steps_t["small_child_rows"] = small_rows[0]
+
+    # the pooled steps that built both children, on the pooled run's real gradients
+    grad_p, hess_p = g_p.objective.get_gradients(g_p.scores[0])
+    misses = []
+
+    def count_miss(st, step):
+        if int(st.ctl[gs.ACTIVE]):
+            misses.append(int(st.pool_ctl[gs.RUN]))
+    held_tree(g_p, grad_p, hess_p, g_p.bins_dev, g_p.bins_nf, (), count_miss, hold=False)
+    pool_rec = dict(slots=g_p.hist_pool_slots, slot_bytes=F * WIDE_MAX_BIN * 12,
+                    steps=len(misses), steps_both_children=sum(misses),
+                    share_both_children=sum(misses) / max(len(misses), 1))
+
+    def predict_bound(st, leaf):
+        """predict_bins' bound for the tree of the state ``st`` over rows
+        that reached ``leaf``: each row's score read and written, and one
+        int16 bin a level of its path (the mean depth of its leaf, from
+        ``leaf_i``), beside the nodes (20 bytes) and membership words the
+        blocks stage."""
+        depth = float(st.leaf_i[leaf.long(), 1].double().mean())
+        k = int(st.ctl[gs.NUM_LEAVES]) - 1
+        staged = k * (20 + 4 * st.W)
+        out = dict(mean_depth=depth, staged_bytes=staged)
+        out.update(zip(("bound_ms", "bound_by"), bound(leaf.numel() * (8 + 2 * depth) + staged, 0)))
+        return out
+
+    # ---- a categorical feature of 1000 categories: bits past word 8 ----------------------
+    rng = np.random.RandomState(5)
+    cat_cols = 11
+    Xc = np.empty((WIDE_CAT_ROWS + WIDE_VALID_ROWS // 2, cat_cols + 1), np.float32)
+    Xc[:, :cat_cols] = rng.randn(len(Xc), cat_cols)
+    Xc[:, cat_cols] = rng.randint(0, WIDE_CAT_CATEGORIES, len(Xc))
+    effect = rng.randn(WIDE_CAT_CATEGORIES)
+    yc = (Xc[:, 0] + effect[Xc[:, cat_cols].astype(int)] + 0.5 * rng.randn(len(Xc)) > 0).astype(np.float32)
+    cat_set = lgb.Dataset(Xc[:WIDE_CAT_ROWS], label=yc[:WIDE_CAT_ROWS], categorical_feature=[cat_cols])
+    cat_valid = lgb.Dataset(Xc[WIDE_CAT_ROWS:], label=yc[WIDE_CAT_ROWS:], reference=cat_set)
+    cat_bst, cat_s, cat_launches = counted(lambda: lgb.train(
+        dict(wide_params, metric="auc"), cat_set, 5, valid_sets=[cat_valid], verbose_eval=False))
+    g_c = cat_bst._gbdt
+    assert g_c.grow_loop == "device" and g_c.bins_dev.dtype == torch.int16
+    assert g_c.num_words == -(-g_c.num_bins // 32) > 8, (g_c.num_bins, g_c.num_words)
+    assert all(cat_launches.get(k, 0) > 0 for k in (
+        "pick_partition_wide", "split_pair_fold_rows1024", "predict_bins_wide")), cat_launches
+    ta = g_c._tree_arrays[0]
+    nl = int(ta.num_leaves)
+    cat_nodes = ta.split_feature[:nl - 1] == cat_cols
+    assert bool(cat_nodes.any()) and bool(ta.cat_member[:nl - 1][cat_nodes][:, 256:].any()), \
+        "no categorical split with a category past bin 255"
+    # its kernels held on a dyadic tree of that table: the first categorical pick timed
+    # (multiples of 2^-10 following the category's bin: every cell exact)
+    rc = np.random.RandomState(6)
+    q = 1024
+    eff_q = torch.as_tensor(np.round(rc.randn(g_c.num_bins) / 8 * q) / q, dtype=torch.float32,
+                            device=dev)
+    gc = torch.tensor(rc.randint(-q, q + 1, WIDE_CAT_ROWS) / q, dtype=torch.float32, device=dev)
+    gc = gc + eff_q[g_c.bins_dev[cat_cols].long()]
+    hc = torch.tensor(rc.randint(1, 65, WIDE_CAT_ROWS) / q, dtype=torch.float32, device=dev)
+    first_cat = []
+
+    def note_cat(st, step):
+        if not first_cat and int(st.ctl[gs.ACTIVE]):
+            node = int(st.ctl[gs.STEP]) - 1
+            if int(st.node_i[node, 0]) == cat_cols:
+                first_cat.append(step)
+    s_c, _, held_n["categorical"] = held_tree(g_c, gc, hc, g_c.bins_dev, g_c.bins_nf, (), note_cat)
+    assert first_cat, "no categorical pick in the held tree"
+    s_c2 = g_c._grow_state
+    grow_mod.start_tree(s_c2, g_c.bins_dev, gc, hc, g_c.feature_mask, g_c.feature_meta,
+                        g_c.config.max_depth, g_c.split_params, g_c._two_way, g_c.bins_nf)
+    for _ in range(first_cat[0]):
+        grow_mod.run_step(s_c2)
+    rows_c = int(s_c2.leaf_count[int(torch.argmax(s_c2.best_f[:, 0]))])
+    cat_pick_t = held_and_timed(s_c2, "categorical pick", partition_kernel.pick_partition,
+                                plain_pick_partition, time_ms)
+    assert int(s_c2.node_i[first_cat[0], 0]) == cat_cols
+    cat_pick_t.update(rows=rows_c, **dict(zip(("bound_ms", "bound_by"), bound(
+        s_c2.M * 4 + 320 + rows_c * 10, 0))))
+    # the rest of that tree, then predict_bins over the held-out rows with its nodes
+    while int(s_c2.ctl[gs.ACTIVE]) and int(s_c2.ctl[gs.STEP]) < s_c2.M - 1:
+        grow_mod.run_step(s_c2)
+    nodes, nl_t = s_c2.node_i[:s_c2.M - 1], s_c2.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    cat_n = nodes[:int(nl_t) - 1, 0] == cat_cols
+    assert bool((s_c2.node_b[:int(nl_t) - 1][cat_n][:, 8:] != 0).any()), "no word past 8 set"
+    vbins = g_c._valid_bins[0]
+    value = torch.randn(s_c2.M, device=dev)
+    got_s, want_s = torch.zeros(vbins.shape[0], device=dev), torch.zeros(vbins.shape[0], device=dev)
+    got_l = torch.empty(vbins.shape[0], dtype=torch.int32, device=dev)
+    want_l = torch.empty_like(got_l)
+    predict_kernel.add_tree_value(vbins, nodes, nl_t, g_c.feature_meta, value, got_s, got_l, s_c2.node_b)
+    predict_plain.add_tree_value(vbins, nodes, nl_t, g_c.feature_meta, value, want_s, want_l, s_c2.node_b)
+    assert torch.equal(got_l, want_l) and torch.equal(got_s, want_s)
+    nv = vbins.shape[0]
+    cat_predict_t = dict(
+        ms=time_ms(lambda: predict_kernel.add_tree_value(vbins, nodes, nl_t, g_c.feature_meta, value,
+                                                         got_s, None, s_c2.node_b)),
+        plain_ms=time_ms(lambda: predict_plain.add_tree_value(vbins, nodes, nl_t, g_c.feature_meta,
+                                                              value, want_s, None, s_c2.node_b), reps=3),
+        max_abs_err=0.0, rows=nv)
+    cat_predict_t.update(predict_bound(s_c2, got_l))
+    # predict_bins over the wide run's held-out rows with its last tree (no categorical node)
+    s_w = g_w._grow_state
+    grow_mod.launch_tree(s_w, g_w.bins_dev, dy_grad, dy_hess, g_w.feature_mask, g_w.feature_meta,
+                         g_w.config.max_depth, g_w.split_params, g_w._two_way, g_w.bins_nf)
+    vb = g_w._valid_bins[0]
+    nodes_w, nl_w = s_w.node_i[:s_w.M - 1], s_w.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    value_w = torch.randn(s_w.M, device=dev)
+    got_s, want_s = torch.zeros(vb.shape[0], device=dev), torch.zeros(vb.shape[0], device=dev)
+    got_l = torch.empty(vb.shape[0], dtype=torch.int32, device=dev)
+    want_l = torch.empty_like(got_l)
+    predict_kernel.add_tree_value(vb, nodes_w, nl_w, g_w.feature_meta, value_w, got_s, got_l)
+    predict_plain.add_tree_value(vb, nodes_w, nl_w, g_w.feature_meta, value_w, want_s, want_l)
+    assert torch.equal(got_l, want_l) and torch.equal(got_s, want_s)
+    predict_t = dict(
+        ms=time_ms(lambda: predict_kernel.add_tree_value(vb, nodes_w, nl_w, g_w.feature_meta,
+                                                         value_w, got_s)),
+        plain_ms=time_ms(lambda: predict_plain.add_tree_value(vb, nodes_w, nl_w, g_w.feature_meta,
+                                                              value_w, want_s), reps=3),
+        max_abs_err=0.0, rows=int(vb.shape[0]))
+    predict_t.update(predict_bound(s_w, got_l))
+
+    # ---- pooled = unpooled at 100k rows on gradients rounded to 2^-7 --------------------
+    get_gradients = objective_mod.BinaryLogloss.get_gradients
+    objective_mod.BinaryLogloss.get_gradients = ctx.dyadic_gradients
+    try:
+        small = lgb.Dataset(X[:WIDE_BITWISE_ROWS], label=y[:WIDE_BITWISE_ROWS])
+        pair = [lgb.train(dict(p_), small, 10) for p_ in (wide_params, pool_params)]
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = get_gradients
+    assert pair[1]._gbdt.hist_pool_slots == WIDE_POOL_SLOTS
+    text = [b_.model_to_string().split("parameters:")[0] for b_ in pair]
+    assert text[0] == text[1], "pooled trees differ from unpooled ones on rounded gradients"
+    assert pair[0]._gbdt.train_score().tobytes() == pair[1]._gbdt.train_score().tobytes()
+    del pair, small
+
+    # ---- iterations/s in turns: the main path (255 bins), wide, wide pooled ------------
+    kinds = {"main": (ctx.train_set, dict(TRAIN_PARAMS)), "wide": (wide_set, wide_params),
+             "pooled": (wide_set, pool_params)}
+    boosters = {}
+    for kind, (ds, params) in kinds.items():
+        for c in (1, 10):
+            b_ = lgb.Booster(dict(params, device_chunk_size=c), ds)
+            assert train_iterations(b_, 10, c) == 10
+            boosters[(kind, c)] = b_
+    order = [(k, c) for c in (1, 10) for k in kinds]
+    order = order + order[::-1]
+    ips = {"%s_%s" % (k, "graph" if c == 1 else "chunk"): [] for k, c in order}
+    per_iter = {}
+    for kind, c in order:
+        ran, secs, got = counted(lambda: train_iterations(boosters[(kind, c)], 10, c))
+        assert ran == 10, (kind, c, ran)
+        ips["%s_%s" % (kind, "graph" if c == 1 else "chunk")].append(10 / secs)
+        per_iter.setdefault(kind, {k_: v_ / 10 for k_, v_ in got.items()})
+    prof = {}
+    for kind in kinds:
+        for c in (1, 10):
+            b_ = boosters[(kind, c)]
+            fn = b_.update if c == 1 else (lambda b2=b_: b2.update_chunk(10))
+            busy, kernels, copies, timeline, named = profiled(fn)
+            key = "%s_%s" % (kind, "graph" if c == 1 else "chunk")
+            prof[key] = dict(
+                device_busy_ms_per_iteration=busy / c, copies=copies,
+                kernels_per_iteration=timeline["kernels"] / c if isinstance(timeline, dict)
+                else "not measured",
+                kernels_ms_per_iteration={k_: [v_[0] / c, v_[1] / c] for k_, v_ in named.items()},
+                device_idle_share=[1 - busy / c * v / 1e3 for v in ips[key]] if busy
+                else "not measured")
+            assert copies["HtoD"] == 0 and copies["DtoH"] == 1, (key, copies)
+    del boosters
+
+    rec.update(
+        trainings={k: {k_: v_ for k_, v_ in r.items() if k_ != "booster"} for k, r in runs.items()},
+        histogram=dict(checks=hist_checks, times=hist_t, dyadic_exact=True),
+        split_pair=split_t, steps=steps_t, held_kernel_calls=held_n, pool=pool_rec,
+        categorical=dict(num_bins=g_c.num_bins, words=g_c.num_words, launches=cat_launches,
+                         first_categorical_pick_step=first_cat[0], pick=cat_pick_t,
+                         predict_bins=cat_predict_t),
+        predict_bins=predict_t, pooled_equals_unpooled_rows=WIDE_BITWISE_ROWS,
+        iterations_per_s=ips, launches_per_iteration=per_iter, profile=prof)
+
+    # ---- the kernels line's rows of the new instantiations --------------------------------
+    src = "lightgbm_tpu_torch/csrc/"
+    hist_rep = "lightgbm_tpu/ops/hist_pallas.py:225 (B <= 336; XLA code past it)"
+    split_rep = "lightgbm_tpu/ops/split_pallas.py:221 (B <= 336; XLA code past it)"
+    main_l = runs["unpooled"]["launches"]
+    pool_l = runs["pooled"]["launches"]
+    root_t = hist_t["%d_float32_root" % WIDE_MAX_BIN]
+
+    def row(name, source, replaces, launches, t, library_ms=None):
+        return dict(name=name, route="cuda", source=src + source, replaces=replaces,
+                    launches=launches, max_abs_err=t["max_abs_err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=library_ms)
+
+    # bounds of the step kernels at step 0 (the root's split): the segment
+    # histogram reads its child's rows (int16 bins, values, row ids) and
+    # writes one [F, B, 3] row; the scans read and write the rows they fold;
+    # the pick reads and writes a row id and reads a bin a row of the root
+    seg = steps_t["unpooled"]["histogram_segment"][0]
+    n_small = int(steps_t["small_child_rows"])
+    cells = F * WIDE_MAX_BIN * 3
+    seg.update(zip(("bound_ms", "bound_by"), bound(n_small * (2 * F + 16) + cells * 4,
+                                                   3 * n_small * F)))
+    fold = steps_t["unpooled"]["split_pair_fold"][0]
+    fold.update(zip(("bound_ms", "bound_by"), bound(5 * cells * 4 + 2 * 21 * 4 + F * 17,
+                                                   cells + 2 * F * WIDE_MAX_BIN * 60)))
+    step_scan = steps_t["unpooled"]["split_pair_step"]
+    step_scan.update(zip(("bound_ms", "bound_by"), bound(cells * 4 + 21 * 4 + F * 17,
+                                                        F * WIDE_MAX_BIN * 60)))
+    pick = steps_t["unpooled"]["pick_partition"][0]
+    pick.update(zip(("bound_ms", "bound_by"), bound(g_w.config.num_leaves * 4 + 320 + N * 10, 0)))
+    ppick = steps_t["pooled"]["pick_partition"][0]
+    ppick.update(zip(("bound_ms", "bound_by"), bound(
+        g_w.config.num_leaves * 4 + 320 + N * 10 + (g_w.config.num_leaves + 2 * WIDE_POOL_SLOTS) * 8, 0)))
+    pfold = steps_t["pooled"]["split_pair_fold"][0]
+    pfold.update(zip(("bound_ms", "bound_by"), bound(6 * cells * 4 + 2 * 21 * 4 + F * 17,
+                                                    cells + 2 * F * WIDE_MAX_BIN * 60)))
+    rows = [
+        row("histogram_wide", "histogram.cu", hist_rep, main_l.get("histogram_wide", 0), root_t,
+            root_t["library_ms"]),
+        row("histogram_segment_wide", "histogram.cu", hist_rep,
+            main_l.get("histogram_segment_wide", 0), seg),
+        row("split_pair_step_rows1024", "split_pair.cu", split_rep,
+            main_l.get("split_pair_step_rows1024", 0), step_scan),
+        row("split_pair_fold_rows1024", "split_pair.cu", split_rep,
+            main_l.get("split_pair_fold_rows1024", 0), fold),
+        row("pick_partition_wide", "partition.cu", "lightgbm_tpu/ops/grow.py:439,1277",
+            main_l.get("pick_partition_wide", 0), pick),
+        row("predict_bins_wide", "predict_bins.cu", "lightgbm_tpu/ops/predict.py:85",
+            main_l.get("predict_bins_wide", 0), predict_t),
+        row("pick_partition_wide_categorical", "partition.cu", "lightgbm_tpu/ops/grow.py:284,1287",
+            cat_launches.get("pick_partition_wide", 0), cat_pick_t),
+        row("predict_bins_wide_categorical", "predict_bins.cu", "lightgbm_tpu/ops/predict.py:113",
+            cat_launches.get("predict_bins_wide", 0), cat_predict_t),
+        row("split_pair_rows1024_categorical", "split_pair.cu",
+            "lightgbm_tpu/ops/split.py:325 (the categorical scan; XLA there)",
+            cat_launches.get("split_pair_fold_rows1024", 0), split_t["categorical"]),
+        row("pick_partition_wide_pool", "partition.cu",
+            "lightgbm_tpu/ops/grow.py:1479-1536 (HistogramPool::Get; XLA there)",
+            pool_l.get("pick_partition_wide_pool", 0), ppick),
+        row("split_pair_fold_rows1024_pool", "split_pair.cu",
+            "lightgbm_tpu/ops/grow.py:1484-1536 (the pooled subtraction; XLA there)",
+            pool_l.get("split_pair_fold_rows1024_pool", 0), pfold),
+    ]
+    return rec, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="also write the results as JSON here")
@@ -1090,10 +1616,9 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import grow_state as gs
     from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
     from lightgbm_tpu_torch.ops import grow_step_kernel, partition_kernel, predict_kernel
-    from lightgbm_tpu_torch.ops import partition as partition_plain
     from lightgbm_tpu_torch.ops import predict as predict_plain
     from lightgbm_tpu_torch.ops import remap as remap_plain
-    from lightgbm_tpu_torch.ops import packed_kernel, rank_kernel, remap_kernel, shap_kernel
+    from lightgbm_tpu_torch.ops import rank_kernel, remap_kernel
     from lightgbm_tpu_torch.models.gbdt import draw_bag
     from lightgbm_tpu_torch.ops.histogram import (
         leaf_histogram, leaf_histogram_packed4_rows, leaf_values, operands, segment_histogram,
@@ -1149,23 +1674,30 @@ def main() -> int:
     # the scan and predict_bins each also in a categorical instantiation; the
     # pick and partition and predict_bins each also for EFB-bundled tables
     # (the pick's second flag, predict_bins' own kernel), beside the remap
+    # (and, since wide bins and the histogram pool, the pick and partition
+    # for int16 bins and with the pool's LRU update, the scan for rows past
+    # 336 bins and by pool slot, predict_bins for int16 bins)
     assert set(ptxas["partition"]) == {
-        "pick_partition_kernel<%d,%d>" % (ca, efb) for ca in (0, 1) for efb in (0, 1)}, ptxas
+        "pick_partition_kernel<%d,%d,%d,%d>" % (ca, efb, wide, pool) for ca in (0, 1)
+        for efb, wide, pool in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1))}, ptxas
     assert set(ptxas["split_pair"]) == {
-        "split_pair_kernel<%d,%d,%d>" % (d, fo, ca)
-        for d, fo in ((0, 0), (1, 0), (1, 1)) for ca in (0, 1)}, ptxas
+        "split_pair_kernel<%d,%d,%d,%d,%d>" % (d, fo, ca, wide, pool)
+        for d, fo, pool in ((0, 0, 0), (1, 0, 0), (1, 1, 0), (1, 1, 1)) for ca in (0, 1)
+        for wide in (0, 1)}, ptxas
     assert set(ptxas["grow_step"]) == {
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
         "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
     assert set(ptxas["predict_bins"]) == {
-        "predict_bins_kernel<0>", "predict_bins_kernel<1>", "predict_bins_bundled_kernel<0>",
+        "predict_bins_kernel<0,0>", "predict_bins_kernel<1,0>", "predict_bins_kernel<0,1>",
+        "predict_bins_kernel<1,1>", "predict_bins_bundled_kernel<0>",
         "predict_bins_bundled_kernel<1>"}, ptxas
     assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
     assert set(ptxas["lambdarank"]) == {"lambdarank_kernel"}, ptxas
     assert set(ptxas["packed_predict"]) == {"bin_rows_kernel", "leaves_kernel", "values_kernel"}, ptxas
     assert set(ptxas["tree_shap"]) == {"tree_shap_kernel", "tree_sum_kernel"}, ptxas
-    # histogram.cu: both entries per (operand type, bin path, grouped form)
-    assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 16, ptxas["histogram"]
+    # histogram.cu: both entries per (operand type, bin path, grouped form,
+    # uint8 or int16 bins)
+    assert len([k for k in ptxas["histogram"] if k.startswith("hist_")]) == 32, ptxas["histogram"]
     assert all(u.get("spill_stores", 0) == 0
                for n in ("partition", "split_pair", "grow_step", "predict_bins", "efb_remap",
                          "lambdarank", "packed_predict")
@@ -1374,31 +1906,13 @@ def main() -> int:
     def counted(fn):
         """Run ``fn`` with every launch count set to 0 just before and read
         just after; add the counts to the main path's."""
-        hist_kernel.reset_launches()
-        grow_step_kernel.reset_launches()
-        split_kernel.launches = split_kernel.step_launches = split_kernel.fold_launches = 0
-        partition_kernel.launches = predict_kernel.launches = remap_kernel.launches = 0
-        rank_kernel.launches = 0
-        packed_kernel.reset_launches()
-        shap_kernel.reset_launches()
+        cuda_graph.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        got = {k: v for k, v in hist_kernel.launches.items() if v}
-        got.update((k, v) for k, v in grow_step_kernel.launches.items() if v)
-        for k, v in (("split_pair", split_kernel.launches),
-                     ("split_pair_step", split_kernel.step_launches),
-                     ("split_pair_fold", split_kernel.fold_launches),
-                     ("pick_partition", partition_kernel.launches),
-                     ("predict_bins", predict_kernel.launches),
-                     ("efb_remap", remap_kernel.launches),
-                     ("lambdarank", rank_kernel.launches)):
-            if v:
-                got[k] = v
-        got.update((k, v) for k, v in packed_kernel.launches.items() if v)
-        got.update((k, v) for k, v in shap_kernel.launches.items() if v)
+        got = {k: v for k, v in cuda_graph.launch_counts().items() if v}
         for k, v in got.items():
             main_launches[k] = main_launches.get(k, 0) + v
         return out, secs, got
@@ -1570,10 +2084,6 @@ def main() -> int:
     s = gs.GrowState(dev, N, F, B, M)
     grow_mod.start_tree(s, *grow_args)
 
-    def plain_pick_partition(st):
-        grow_step_plain.pick(st)
-        partition_plain.partition(st)
-
     # the root's scan (start_tree's, C = 1), then step 0: its segment
     # histogram into small[0] and the folded scan of parity 0
     fold_kernel = (lambda st: split_kernel.split_pair_fold(st, st.queued_steps % 2),
@@ -1599,37 +2109,13 @@ def main() -> int:
         abs_sum = leaf_histogram(st.hist_bins, st.values.abs(), B, small_rows(st), st.hist_dtype)
         return err_over_bound(st.small[parity], want, abs_sum)
 
-    def held_and_timed(st, name, kernel, plain):
-        """``kernel`` on the state ``st`` against ``plain`` on a copy (the
-        whole state equal; the real-valued segment histogram within the
-        two-order bound), then both timed from that state, which is left as
-        the kernel made it."""
-        before = st.clone()
-        other = st.clone()
-        kernel(st)
-        plain(other)
-        err = 0.0
-        for k in gs.GrowState.STATE:
-            a, b = getattr(st, k), getattr(other, k)
-            if name == "histogram_segment" and k == "small":  # real values: two orders
-                ratio, err = small_err(st, b[0])
-                assert ratio <= 1.0, (name, err, ratio)
-                assert torch.equal(a[1], b[1]), (name, "small[1]")
-            else:
-                assert torch.equal(a, b), ("kernel != plain", name, k)
-        after = st.clone()
-
-        def restore(dst, src=before):
-            for k in gs.GrowState.STATE:
-                getattr(dst, k).copy_(getattr(src, k))
-        copy = before.clone()
-        t = dict(
-            ms=time_ms(lambda: kernel(st), setup=lambda: restore(st)),
-            plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: restore(copy)),
-            max_abs_err=err,
-        )
-        restore(st, after)
-        return t
+    def seg_small(st, other):
+        """The real-valued segment histogram (``small[0]``) within the
+        two-order bound of the plain one, ``small[1]`` equal."""
+        ratio, err = small_err(st, other.small[0])
+        assert ratio <= 1.0, ("histogram_segment", err, ratio)
+        assert torch.equal(st.small[1], other.small[1]), ("histogram_segment", "small[1]")
+        return err
 
     def pick_rows(st):
         """Rows of the segment the state's next pick partitions."""
@@ -1638,7 +2124,8 @@ def main() -> int:
 
     root_rows = pick_rows(s)
     for name, kernel, plain in step_kernels:
-        step_t[name] = held_and_timed(s, name, kernel, plain)
+        step_t[name] = held_and_timed(s, name, kernel, plain, time_ms,
+                                      seg_small if name == "histogram_segment" else None)
     # pick_partition at step 128 of the real-gradient tree, and there at the
     # pick of the leaf nearest 1024 rows (its gain raised above the others)
     s128 = gs.GrowState(dev, N, F, B, M)
@@ -1653,7 +2140,7 @@ def main() -> int:
     fold_sizes = {"root": dict(small_child_rows=int(small_rows(s).numel()),
                                **step_t["split_pair_fold"]),
                   "step128": dict(small_child_rows=int(small_rows(sf).numel()),
-                                  **held_and_timed(sf, "split_pair_fold", *fold_kernel))}
+                                  **held_and_timed(sf, "split_pair_fold", *fold_kernel, time_ms))}
     del sf
     s1k = s128.clone()
     nl = int(s1k.ctl[gs.NUM_LEAVES])
@@ -1665,7 +2152,7 @@ def main() -> int:
     for key, st in (("step128", s128), ("rows_1k", s1k)):
         rows = pick_rows(st)
         pick_sizes[key] = dict(rows=rows, **held_and_timed(
-            st, "pick_partition", partition_kernel.pick_partition, plain_pick_partition))
+            st, "pick_partition", partition_kernel.pick_partition, plain_pick_partition, time_ms))
     for key, t in pick_sizes.items():
         t.update(zip(("bound_ms", "bound_by"), bound(M * 4 + 320 + t["rows"] * 9, 0)))
     del s128, s1k
@@ -2696,7 +3183,7 @@ def main() -> int:
     ksf = ks.clone()
     partition_kernel.pick_partition(ksf)
     hist_kernel.histogram_segment(ksf, ksf.queued_steps % 2)
-    kfold_t = held_and_timed(ksf, "split_pair_fold", *fold_kernel)
+    kfold_t = held_and_timed(ksf, "split_pair_fold", *fold_kernel, time_ms)
     kcells = 12 * held_k.num_bins * 3
     ctr_bins = sum(int(held_k.feature_meta["num_bin"][f]) for f in cat_pos
                    if int(held_k.feature_meta["num_bin"][f]) > cat_cfg.max_cat_to_onehot)
@@ -2713,7 +3200,7 @@ def main() -> int:
         assert int(ks.ctl[gs.ACTIVE]), "no categorical split to time"
     kpick_rows = pick_rows(ks)
     kpick_t = held_and_timed(ks, "pick_partition", partition_kernel.pick_partition,
-                             plain_pick_partition)
+                             plain_pick_partition, time_ms)
     kpick_t.update(zip(("bound_ms", "bound_by"), bound(255 * 4 + 320 + 8 * 4 + kpick_rows * 9, 0)),
                    library_ms=None, rows=kpick_rows, step=int(ks.ctl[gs.STEP]) - 1)
     del ks
@@ -2897,13 +3384,13 @@ def main() -> int:
         st.queued_steps += 1
         rows_ = pick_rows(st)
         pick_t = held_and_timed(st, "pick_partition", partition_kernel.pick_partition,
-                                plain_pick_partition)
+                                plain_pick_partition, time_ms)
         pick_t.update(zip(("bound_ms", "bound_by"), bound(
             cfg_.num_leaves * 4 + 24 * F_ + 8 * 4 + rows_ * 9, 0)), library_ms=None, rows=rows_,
             step=int(st.ctl[gs.STEP]) - 1)
         hist_kernel.histogram_segment(st, parity)
         remap_t = held_and_timed(st, "efb_remap", lambda s_: remap_kernel.remap_step(s_, parity),
-                                 lambda s_: remap_plain.remap_step(s_, parity))
+                                 lambda s_: remap_plain.remap_step(s_, parity), time_ms)
         cells_g, cells_f = G_ * Bg_ * 3, F_ * B_ * 3
         remap_t.update(zip(("bound_ms", "bound_by"), bound(
             2 * cells_g * 4 + cells_f * 4 + 16 * F_ + 20, F_ * remap_plain.SLOTS * 3)))
@@ -4192,6 +4679,22 @@ def main() -> int:
              c_["max_sum_err"], c_["sum_err_over_bound"]), flush=True)
     say("prediction", card=card, **predict_rec)
 
+    # ---- 8d. wide bins (max_bin 1024, int16) and the histogram pool ---------------------
+    import types
+
+    wide_rec, wide_rows = wide_bins_phase(lgb, dev, types.SimpleNamespace(
+        counted=counted, profiled=profiled, time_ms=time_ms, X=X, y=y, train_set=train_set,
+        dyq_vals=dyq_vals, real_vals=real_vals, seg_rows=seg_rows,
+        dyadic_gradients=dyadic_gradients, card=card))
+    ips_ = {k: statistics.median(v) for k, v in wide_rec["iterations_per_s"].items()}
+    print("wide bins on %s: it/s (median of 2 turns) %s; busy ms an iteration %s; pooled steps "
+          "that built both children %d of %d (%d slots)"
+          % (card, json.dumps(ips_), json.dumps({k: v["device_busy_ms_per_iteration"]
+                                                 for k, v in wide_rec["profile"].items()}),
+             wide_rec["pool"]["steps_both_children"], wide_rec["pool"]["steps"],
+             wide_rec["pool"]["slots"]), flush=True)
+    say("wide_bins", **wide_rec)
+
     # ---- 9. kernels line and result ---------------------------------------------
     sources = {
         "histogram": ("histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:225"),
@@ -4292,6 +4795,10 @@ def main() -> int:
     # the TreeSHAP kernel, timed in phase 8c at 10,000 rows on 500 trees (its
     # plain version at 10,000 rows on 20); its launches are 8c's pred_contrib
     kernels.append(shap_row)
+    # the int16 and pool instantiations, timed in phase 8d at max_bin 1024;
+    # their launches are 8d's trainings' (the categorical ones its
+    # categorical table's)
+    kernels.extend(wide_rows)
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

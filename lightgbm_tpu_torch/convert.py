@@ -20,7 +20,8 @@ from .ops.grow import TreeArrays
 def binned_from_numpy(
     bins: np.ndarray, feature_meta: Mapping[str, np.ndarray], label=None
 ) -> BinnedDataset:
-    """A port BinnedDataset over a ``[F, N]`` uint8 bin matrix.
+    """A port BinnedDataset over a ``[F, N]`` bin matrix (uint8, or int32
+    past 256 bins a feature, as the datasets store them).
 
     Each feature gets a numerical BinMapper with the meta's num_bin,
     missing_type and default_bin, whose bin upper bounds are the bin
@@ -29,7 +30,8 @@ def binned_from_numpy(
     gets a categorical one whose bins are its categories (bin b holds
     category b). ``feature_meta["monotone"]`` becomes the monotone
     constraints."""
-    bins = np.ascontiguousarray(bins, dtype=np.uint8)
+    wide = int(np.max(feature_meta["num_bin"], initial=0)) > 256
+    bins = np.ascontiguousarray(bins, dtype=np.int32 if wide else np.uint8)
     F, N = bins.shape
     is_cat = feature_meta.get("is_categorical", np.zeros(F, bool))
     mappers = []

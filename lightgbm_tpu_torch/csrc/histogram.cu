@@ -88,10 +88,22 @@
 // bf16 operands (hist_dtype=bfloat16): each of a row's three values is
 // rounded to bf16 (round to nearest even) before its f32 atomic add, the
 // counterpart of the TPU kernel's bf16 matrix operands with f32 accumulation.
+//
+// Wide bins (the kWide instantiations, launched for int16 bins, 256 < B <=
+// 1024). The JAX dataset stores int32 bins past 256 bins a feature; the
+// port's card copy is int16 (half the bytes) and its TPU counterpart is the
+// same radix kernel up to B = 336, XLA code above. The block is the same,
+// reading two bytes a bin (a row's kG bins one 64-bit load on the word
+// path), and its [kG, B, 3] cells live in dynamic shared memory sized by B:
+// 48 KB at B = 1024, so the launcher raises the kernel's dynamic shared
+// limit once, and 4 blocks of 256 threads share an SM there (8 up to B =
+// 512). The byte instantiations keep their static cells and their code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -99,12 +111,17 @@ constexpr int kThreads = 256;
 constexpr int kG = 4;                      // features per block
 constexpr int kRows = 4;                   // rows per thread per step
 constexpr int kStep = kThreads * kRows;    // rows per block per step
-constexpr int kMaxBins = 336;
+constexpr int kMaxBins = 336;         // byte bins: the static cells' width
+constexpr int kMaxWideBins = 1024;    // int16 bins: dynamic cells sized by B
 // the chunking of ops/hist_kernel.py histogram_grid: chunks of a multiple
 // of kStep rows, at most kMaxChunk, aimed at kBlocksPerSm blocks an SM
 constexpr long long kMaxChunk = 65536;
 constexpr int kBlocksPerSm = 4;
 constexpr int kActive = 0, kSmall = 5;  // slots of the loop's control vector (ops/grow_state.py)
+
+// a bin of the byte or the int16 instantiations
+template <bool kWide>
+using Bin = std::conditional_t<kWide, int16_t, uint8_t>;
 
 template <bool kBf16>
 __device__ __forceinline__ float operand(float v) {
@@ -165,14 +182,22 @@ __device__ __forceinline__ void add_grouped(float* __restrict__ cells, int bin, 
 // rows [chunk * rows_per_block, +rows_per_block) of the n rows (rows[i], or
 // i when rows is null). ``owns``: the block is its group's only chunk, so
 // it stores every cell of the group instead of adding into the output.
-// kWord: the kG bins of a row are one aligned 32-bit word (see the header).
-// kGroup: the grouped form for features of few bins (see the header).
-template <bool kBf16, bool kWord, bool kGroup>
+// kWord: the kG bins of a row are one aligned 32-bit word (64-bit: kWide)
+// (see the header). kGroup: the grouped form for features of few bins (see
+// the header). kWide: int16 bins, the cells in dynamic shared memory.
+template <bool kBf16, bool kWord, bool kGroup, bool kWide>
 __device__ __forceinline__ void hist_block(
-    const uint8_t* __restrict__ bins, long long stride_f, long long stride_n,
+    const Bin<kWide>* __restrict__ bins, long long stride_f, long long stride_n,
     const float* __restrict__ values, const int* __restrict__ rows, long long n, int F, int B,
     long long rows_per_block, int group, long long chunk, bool owns, float* __restrict__ out) {
-  __shared__ float cells[kG * kMaxBins * 3];  // [kG, B, 3]
+  float* cells;  // [kG, B, 3]
+  if constexpr (kWide) {
+    extern __shared__ float wide_cells[];
+    cells = wide_cells;
+  } else {
+    __shared__ float byte_cells[kG * kMaxBins * 3];
+    cells = byte_cells;
+  }
   const int f0 = group * kG;
   const int nf = min(kG, F - f0);
   for (int i = threadIdx.x; i < kG * B * 3; i += kThreads) cells[i] = 0.0f;
@@ -180,7 +205,7 @@ __device__ __forceinline__ void hist_block(
 
   const long long begin = chunk * rows_per_block;
   const long long end = min(begin + rows_per_block, n);
-  const uint8_t* bg = bins + (long long)f0 * stride_f;
+  const Bin<kWide>* bg = bins + (long long)f0 * stride_f;
   const int lane = threadIdx.x & 31;
   bool grouped[kG] = {};  // per feature, set at the warp's first step (see kBusyLanes)
   bool first_step = kGroup;
@@ -205,8 +230,14 @@ __device__ __forceinline__ void hist_block(
       const float* vp = values + r[j] * 3;
 #pragma unroll
       for (int k = 0; k < 3; ++k) v[j][k] = ok[j] ? operand<kBf16>(vp[k]) : 0.0f;
-      const uint8_t* bp = bg + r[j] * stride_n;
-      if (kWord) {
+      const Bin<kWide>* bp = bg + r[j] * stride_n;
+      if constexpr (kWord && kWide) {
+        const uint2 w = ok[j] ? *reinterpret_cast<const uint2*>(bp) : make_uint2(0u, 0u);
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          b[j][g] = ok[j] ? (int)(((g < 2 ? w.x : w.y) >> (16 * (g & 1))) & 0xffffu) : B;
+        }
+      } else if (kWord) {
         const unsigned w = ok[j] ? *reinterpret_cast<const unsigned*>(bp) : 0u;
 #pragma unroll
         for (int g = 0; g < kG; ++g) b[j][g] = ok[j] ? (int)((w >> (8 * g)) & 0xffu) : B;
@@ -252,15 +283,16 @@ __device__ __forceinline__ void hist_block(
   }
 }
 
-template <bool kBf16, bool kWord, bool kGroup>
+template <bool kBf16, bool kWord, bool kGroup, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
+hist_kernel(const Bin<kWide>* __restrict__ bins, long long stride_f,
             long long stride_n, const float* __restrict__ values,
             const int* __restrict__ rows, long long n, int F, int B,
             long long rows_per_block, int groups, float* __restrict__ out) {
-  hist_block<kBf16, kWord, kGroup>(bins, stride_f, stride_n, values, rows, n, F, B,
-                                   rows_per_block, blockIdx.x % groups, blockIdx.x / groups,
-                                   gridDim.x == (unsigned)groups, out);
+  hist_block<kBf16, kWord, kGroup, kWide>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                          rows_per_block, blockIdx.x % groups,
+                                          blockIdx.x / groups, gridDim.x == (unsigned)groups,
+                                          out);
 }
 
 // The segment entry of the device-resident split loop: the rows are
@@ -271,9 +303,9 @@ hist_kernel(const uint8_t* __restrict__ bins, long long stride_f,
 // segment's chunks return at once, and so does every block once the loop
 // has stopped (ctl[kActive] == 0). One chunk stores its group's cells
 // outright; more add into ``out``, which the caller keeps zeroed.
-template <bool kBf16, bool kWord, bool kGroup>
+template <bool kBf16, bool kWord, bool kGroup, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-hist_segment_kernel(const uint8_t* __restrict__ bins, long long stride_f,
+hist_segment_kernel(const Bin<kWide>* __restrict__ bins, long long stride_f,
                     long long stride_n, const float* __restrict__ values,
                     const int* __restrict__ order, const int* __restrict__ ctl,
                     const int* __restrict__ leaf_begin, const int* __restrict__ leaf_count,
@@ -288,51 +320,87 @@ hist_segment_kernel(const uint8_t* __restrict__ bins, long long stride_f,
   const long long chunks = (n + rows_per_block - 1) / rows_per_block;
   const long long chunk = blockIdx.x / groups;
   if (chunk >= chunks) return;
-  hist_block<kBf16, kWord, kGroup>(bins, stride_f, stride_n, values, order + leaf_begin[leaf],
-                                   n, F, B, rows_per_block, blockIdx.x % groups, chunk,
-                                   chunks == 1, out);
+  hist_block<kBf16, kWord, kGroup, kWide>(bins, stride_f, stride_n, values,
+                                          order + leaf_begin[leaf], n, F, B, rows_per_block,
+                                          blockIdx.x % groups, chunk, chunks == 1, out);
 }
 
-bool word_bins(const void* bins, long long stride_f, long long stride_n, int F) {
-  return stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 && ((uintptr_t)bins & 3) == 0;
+// kWide: a row's kG int16 bins are one aligned 64-bit word
+bool word_bins(const void* bins, long long stride_f, long long stride_n, int F, bool wide) {
+  const uintptr_t align = wide ? 7 : 3;
+  return stride_f == 1 && stride_n % 4 == 0 && F % kG == 0 && ((uintptr_t)bins & align) == 0;
 }
 
-template <bool kGroup>
+// The flags of every C entry: bit 0 bf16 operands, bit 1 int16 bins (kWide).
+constexpr int kFlagBf16 = 1, kFlagWide = 2;
+
+// Raise a kWide kernel's dynamic shared memory limit to its widest cells
+// (48 KB at B = 1024) once, at its first launch: the first iteration of a
+// captured boosting loop is eager, so no captured launch asks for it.
+cudaError_t allow_wide_cells(const void* kern) {
+  static const void* raised[32];
+  static int count = 0;
+  for (int i = 0; i < count; ++i) {
+    if (raised[i] == kern) return cudaSuccess;
+  }
+  const cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kG * kMaxWideBins * 3 * (int)sizeof(float));
+  if (err == cudaSuccess && count < 32) raised[count++] = kern;
+  return err;
+}
+
+template <bool kGroup, bool kWide>
 int launch_histogram(const void* bins, long long stride_f, long long stride_n,
-                     const void* values, const void* rows, long long n, int F, int B, int bf16,
+                     const void* values, const void* rows, long long n, int F, int B, int flags,
                      long long rows_per_block, void* out, void* stream) {
   if (n <= 0 || F <= 0) return (int)cudaSuccess;
-  if (B < 1 || B > kMaxBins || rows_per_block < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > (kWide ? kMaxWideBins : kMaxBins) || rows_per_block < 1)
+    return (int)cudaErrorInvalidValue;
   const long long groups = (F + kG - 1) / kG;
   const long long chunks = (n + rows_per_block - 1) / rows_per_block;
   if (groups * chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool word = word_bins(bins, stride_f, stride_n, F);
-  decltype(&hist_kernel<false, false, kGroup>) kern =
-      bf16 ? (word ? &hist_kernel<true, true, kGroup> : &hist_kernel<true, false, kGroup>)
-           : (word ? &hist_kernel<false, true, kGroup> : &hist_kernel<false, false, kGroup>);
-  kern<<<(unsigned)(groups * chunks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, stride_f, stride_n, (const float*)values,
+  const bool word = word_bins(bins, stride_f, stride_n, F, kWide);
+  decltype(&hist_kernel<false, false, kGroup, kWide>) kern =
+      (flags & kFlagBf16)
+          ? (word ? &hist_kernel<true, true, kGroup, kWide> : &hist_kernel<true, false, kGroup, kWide>)
+          : (word ? &hist_kernel<false, true, kGroup, kWide>
+                  : &hist_kernel<false, false, kGroup, kWide>);
+  int shared = 0;
+  if (kWide) {
+    const cudaError_t err = allow_wide_cells((const void*)kern);
+    if (err != cudaSuccess) return (int)err;
+    shared = kG * B * 3 * (int)sizeof(float);
+  }
+  kern<<<(unsigned)(groups * chunks), kThreads, shared, (cudaStream_t)stream>>>(
+      (const Bin<kWide>*)bins, stride_f, stride_n, (const float*)values,
       (const int*)rows, n, F, B, rows_per_block, (int)groups, (float*)out);
   return (int)cudaGetLastError();
 }
 
-template <bool kGroup>
+template <bool kGroup, bool kWide>
 int launch_segment(const void* bins, long long stride_f, long long stride_n,
                    const void* values, const void* order, const void* ctl,
-                   const void* leaf_begin, const void* leaf_count, int F, int B, int bf16,
+                   const void* leaf_begin, const void* leaf_count, int F, int B, int flags,
                    int num_sms, int max_chunks, void* out, void* stream) {
   if (F <= 0) return (int)cudaSuccess;
-  if (B < 1 || B > kMaxBins || num_sms < 1 || max_chunks < 1) return (int)cudaErrorInvalidValue;
+  if (B < 1 || B > (kWide ? kMaxWideBins : kMaxBins) || num_sms < 1 || max_chunks < 1)
+    return (int)cudaErrorInvalidValue;
   const long long groups = (F + kG - 1) / kG;
   if (groups * max_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const bool word = word_bins(bins, stride_f, stride_n, F);
-  decltype(&hist_segment_kernel<false, false, kGroup>) kern =
-      bf16 ? (word ? &hist_segment_kernel<true, true, kGroup>
-                   : &hist_segment_kernel<true, false, kGroup>)
-           : (word ? &hist_segment_kernel<false, true, kGroup>
-                   : &hist_segment_kernel<false, false, kGroup>);
-  kern<<<(unsigned)(groups * max_chunks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bins, stride_f, stride_n, (const float*)values, (const int*)order,
+  const bool word = word_bins(bins, stride_f, stride_n, F, kWide);
+  decltype(&hist_segment_kernel<false, false, kGroup, kWide>) kern =
+      (flags & kFlagBf16) ? (word ? &hist_segment_kernel<true, true, kGroup, kWide>
+                                  : &hist_segment_kernel<true, false, kGroup, kWide>)
+                          : (word ? &hist_segment_kernel<false, true, kGroup, kWide>
+                                  : &hist_segment_kernel<false, false, kGroup, kWide>);
+  int shared = 0;
+  if (kWide) {
+    const cudaError_t err = allow_wide_cells((const void*)kern);
+    if (err != cudaSuccess) return (int)err;
+    shared = kG * B * 3 * (int)sizeof(float);
+  }
+  kern<<<(unsigned)(groups * max_chunks), kThreads, shared, (cudaStream_t)stream>>>(
+      (const Bin<kWide>*)bins, stride_f, stride_n, (const float*)values, (const int*)order,
       (const int*)ctl, (const int*)leaf_begin, (const int*)leaf_count, F, B, (int)groups,
       num_sms, (float*)out);
   return (int)cudaGetLastError();
@@ -345,26 +413,33 @@ extern "C" {
 // hist[F, B, 3], zeroed by the caller, receives the histogram of n rows:
 // with one chunk (n <= rows_per_block) each block stores its cells, so the
 // output is assigned, not added to; with more, the chunks add into it.
-// bins[f, r] lives at bins + f * stride_f + r * stride_n; values is [N, 3]
-// f32 row-major; rows (may be null) holds n int32 row indices into both.
-// bf16 != 0 rounds the values to bf16 before they are added. The grid is
-// ceil(F / 4) x ceil(n / rows_per_block) blocks; B <= 336.
+// bins[f, r] lives at bins + f * stride_f + r * stride_n (in bins, not
+// bytes); values is [N, 3] f32 row-major; rows (may be null) holds n int32
+// row indices into both. flags: bit 0 rounds the values to bf16 before
+// they are added, bit 1 reads int16 bins (B <= 1024; else uint8, B <= 336).
+// The grid is ceil(F / 4) x ceil(n / rows_per_block) blocks.
 int lgbt_histogram(const void* bins, long long stride_f, long long stride_n,
                    const void* values, const void* rows, long long n, int F,
-                   int B, int bf16, long long rows_per_block, void* out,
+                   int B, int flags, long long rows_per_block, void* out,
                    void* stream) {
-  return launch_histogram<false>(bins, stride_f, stride_n, values, rows, n, F, B, bf16,
-                                 rows_per_block, out, stream);
+  return (flags & kFlagWide)
+             ? launch_histogram<false, true>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                             flags, rows_per_block, out, stream)
+             : launch_histogram<false, false>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                              flags, rows_per_block, out, stream);
 }
 
 // lgbt_histogram's grouped form, for tables with features of few bins (see
 // the header); the same arguments and output.
 int lgbt_histogram_grouped(const void* bins, long long stride_f, long long stride_n,
                            const void* values, const void* rows, long long n, int F,
-                           int B, int bf16, long long rows_per_block, void* out,
+                           int B, int flags, long long rows_per_block, void* out,
                            void* stream) {
-  return launch_histogram<true>(bins, stride_f, stride_n, values, rows, n, F, B, bf16,
-                                rows_per_block, out, stream);
+  return (flags & kFlagWide)
+             ? launch_histogram<true, true>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                            flags, rows_per_block, out, stream)
+             : launch_histogram<true, false>(bins, stride_f, stride_n, values, rows, n, F, B,
+                                             flags, rows_per_block, out, stream);
 }
 
 // The segment entry (hist_segment_kernel): out [F, B, 3], zeroed by the
@@ -373,22 +448,34 @@ int lgbt_histogram_grouped(const void* bins, long long stride_f, long long strid
 // is 0. The grid is ceil(F / 4) x max_chunks blocks, max_chunks the most
 // chunks a segment of the run can need (ops/hist_kernel.py
 // segment_max_chunks); num_sms sets the chunking as histogram_grid's does.
+// flags as lgbt_histogram's. A histogram pool's step passes a second
+// control vector as ctl to build the larger child (ops/grow_state.py).
 int lgbt_histogram_segment(const void* bins, long long stride_f, long long stride_n,
                            const void* values, const void* order, const void* ctl,
                            const void* leaf_begin, const void* leaf_count, int F, int B,
-                           int bf16, int num_sms, int max_chunks, void* out, void* stream) {
-  return launch_segment<false>(bins, stride_f, stride_n, values, order, ctl, leaf_begin,
-                               leaf_count, F, B, bf16, num_sms, max_chunks, out, stream);
+                           int flags, int num_sms, int max_chunks, void* out, void* stream) {
+  return (flags & kFlagWide)
+             ? launch_segment<false, true>(bins, stride_f, stride_n, values, order, ctl,
+                                           leaf_begin, leaf_count, F, B, flags, num_sms,
+                                           max_chunks, out, stream)
+             : launch_segment<false, false>(bins, stride_f, stride_n, values, order, ctl,
+                                            leaf_begin, leaf_count, F, B, flags, num_sms,
+                                            max_chunks, out, stream);
 }
 
 // lgbt_histogram_segment's grouped form; the same arguments and output.
 int lgbt_histogram_segment_grouped(const void* bins, long long stride_f, long long stride_n,
                                    const void* values, const void* order, const void* ctl,
                                    const void* leaf_begin, const void* leaf_count, int F,
-                                   int B, int bf16, int num_sms, int max_chunks, void* out,
+                                   int B, int flags, int num_sms, int max_chunks, void* out,
                                    void* stream) {
-  return launch_segment<true>(bins, stride_f, stride_n, values, order, ctl, leaf_begin,
-                              leaf_count, F, B, bf16, num_sms, max_chunks, out, stream);
+  return (flags & kFlagWide)
+             ? launch_segment<true, true>(bins, stride_f, stride_n, values, order, ctl,
+                                          leaf_begin, leaf_count, F, B, flags, num_sms,
+                                          max_chunks, out, stream)
+             : launch_segment<true, false>(bins, stride_f, stride_n, values, order, ctl,
+                                           leaf_begin, leaf_count, F, B, flags, num_sms,
+                                           max_chunks, out, stream);
 }
 
 }  // extern "C"

@@ -89,10 +89,30 @@
 // (r >= default_bin) where 0 <= r < num_bin - 1, else default_bin), so a
 // categorical decision looks up the decoded bin. An unbundled table runs
 // the kEfb = false code, unchanged.
+//
+// Wide bins (the kWide instantiations, for int16 bins of up to 1024 bins a
+// feature): the rows' bins are read two bytes each and a categorical split
+// carries up to 32 membership words (kMaxWideWords). The byte
+// instantiations keep their code.
+//
+// A histogram pool (the kPool instantiations, ops/grow_state.py): the
+// thread that wires the tree also keeps the pool's LRU slots, after
+// lightgbm_tpu/ops/grow.py:1479-1536 (HistogramPool::Get): the larger child
+// takes the parent's slot when the parent is resident (a hit) and the
+// subtraction is on, else the least recently used slot; the smaller child
+// the least recently used of the others; their occupants are evicted, any
+// other slot still naming a child is freed, and both slots are stamped
+// with the step. It writes the slots and the hit into the pool's control
+// vector, and the larger child's leaf with "run" = !hit into its first
+// slots, which the step's second segment histogram reads as its control
+// vector: it builds the larger child only on a miss. One thread does it in
+// O(P); no other block of the launch reads the pool.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -104,6 +124,7 @@ constexpr int kCap = 10240;               // rows a block keeps in shared memory
 constexpr int kMetaCap = 1024;            // features whose meta a block keeps in shared memory
 constexpr int kEfbCap = kCap - kMetaCap;  // kEfb: rows staged, beside the plan (48 KB static)
 constexpr int kMaxWords = 11;             // membership words of a split: ceil(336 / 32)
+constexpr int kMaxWideWords = 32;         // kWide: ceil(1024 / 32)
 constexpr int kCatBit = 30;               // the categorical flag in a feature's meta word
 static_assert(kWarps == 32, "a tile's warp counts are scanned by one warp, kItems a lane");
 constexpr unsigned kFull = 0xffffffffu;
@@ -114,6 +135,9 @@ constexpr unsigned long long kBarrierNs = 1000000000ull;  // the longest wait at
 constexpr int kActive = 0, kNumLeaves = 1, kStep = 2, kBest = 3, kNew = 4, kSmall = 5,
               kLarge = 6, kPBegin = 7, kPCount = 8, kLeft = 9;
 constexpr int kMissingZero = 1, kMissingNan = 2;
+// the pool's control vector (ops/grow_state.py): the larger child's
+// histogram runs (kActive) on its leaf (kSmall), then hit and slots
+constexpr int kCtl = 16, kHit = 10, kSSlot = 11, kLSlot = 12, kPSlot = 13;
 // record columns (ops/split.py BEST_F / BEST_I) and row widths of the state
 constexpr int kGain = 0, kLG = 1, kLH = 2, kLC = 3, kRG = 4, kRH = 5, kRC = 6, kLO = 7,
               kRO = 8;
@@ -155,7 +179,14 @@ struct Args {
   Params p;
   const int* gid;               // [F] each feature's group (kEfb)
   const int* off;               // [F] its offset in the group (kEfb)
+  int* pool;                    // kPool: control [kCtl], slot_of [M], slot_leaf [P], slot_age [P]
+  int P;                        // kPool: slots
+  int subtract;                 // kPool: the subtraction is on (a hit needs it)
 };
+
+// a bin of the byte or the int16 (kWide) instantiations
+template <bool kWide>
+using Bin = std::conditional_t<kWide, int16_t, uint8_t>;
 
 // clamp that passes NaN through, like torch.clamp (csrc/split_pair.cu)
 __device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
@@ -295,8 +326,50 @@ __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, 
   la[4] = mono < 0 ? mid : pmax;
 }
 
-template <bool kCat, bool kEfb>
+// kPool: the pool's LRU update of split ``best`` at node ``node`` (the new
+// leaf ``nl``), made by the wiring thread (see the header). Ties go to the
+// lowest slot, as jnp.argmin's do.
+__device__ __forceinline__ void pool_update(const Args& a, int best, int nl, int node,
+                                            bool left_smaller) {
+  int* ctl = a.pool;
+  int* slot_of = a.pool + kCtl;
+  int* slot_leaf = slot_of + a.M;
+  int* slot_age = slot_leaf + a.P;
+  const int small = left_smaller ? best : nl, large = left_smaller ? nl : best;
+  const int pslot = slot_of[best];
+  const bool hit = a.subtract && pslot >= 0;
+  int lru = 0;
+  for (int q = 1; q < a.P; ++q) {
+    if (slot_age[q] < slot_age[lru]) lru = q;
+  }
+  const int lslot = hit ? pslot : lru;
+  int sslot = -1;
+  for (int q = 0; q < a.P; ++q) {
+    if (q != lslot && (sslot < 0 || slot_age[q] < slot_age[sslot])) sslot = q;
+  }
+  const int occ_l = slot_leaf[lslot], occ_s = slot_leaf[sslot];
+  if (occ_l >= 0) slot_of[occ_l] = -1;
+  if (occ_s >= 0) slot_of[occ_s] = -1;
+  slot_of[small] = sslot;
+  slot_of[large] = lslot;
+  for (int q = 0; q < a.P; ++q) {
+    if (slot_leaf[q] == small || slot_leaf[q] == large) slot_leaf[q] = -1;
+  }
+  slot_leaf[sslot] = small;
+  slot_leaf[lslot] = large;
+  slot_age[sslot] = node + 2;  // the root's stamp is 1, a free slot's 0
+  slot_age[lslot] = node + 2;
+  ctl[kActive] = !hit;
+  ctl[kSmall] = large;
+  ctl[kHit] = hit;
+  ctl[kSSlot] = sslot;
+  ctl[kLSlot] = lslot;
+  ctl[kPSlot] = pslot;
+}
+
+template <bool kCat, bool kEfb, bool kWide, bool kPool>
 __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
+  static_assert(!(kEfb && kWide), "a bundled table's groups are bytes");
   __shared__ int stage_s[kEfb ? kEfbCap : kCap];
   __shared__ float red_g[kWarps];
   __shared__ int red_i[kWarps];
@@ -305,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   // missing_type | default_bin << 2 | nan bin << 17 | categorical << kCatBit
   __shared__ int meta_s[kMetaCap];
   __shared__ int sh[sWords];
-  __shared__ int words_s[kCat ? kMaxWords : 1];  // the picked split's membership words
+  __shared__ int words_s[kCat ? (kWide ? kMaxWideWords : kMaxWords) : 1];  // the split's words
   __shared__ int plan_s[kEfb ? kMetaCap : 1];    // group << 8 | offset (kEfb)
   __shared__ int efb_s[kEfb ? 2 : 1];            // the picked feature's group and offset
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -363,7 +436,10 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   __syncthreads();
   if (!sh[sActive]) return;
   if (!sh[sGo]) {
-    if (blockIdx.x == 0 && tid == 0) a.ctl[kActive] = 0;
+    if (blockIdx.x == 0 && tid == 0) {
+      a.ctl[kActive] = 0;
+      if constexpr (kPool) a.pool[kActive] = 0;  // nor the larger child's histogram
+    }
     return;
   }
   const int best = sh[sBest];
@@ -395,7 +471,10 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   const bool wires = b == grid - 1 && tid == 0;
   if (b >= nb) {
     if (tid == 0) publish(a.block_left + b, epoch, 0);
-    if (wires) wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+    if (wires) {
+      wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+      if constexpr (kPool) pool_update(a, best, nl, node, sh[sLeftSmaller] != 0);
+    }
     return;
   }
   const int lo = b * chunk;
@@ -404,7 +483,8 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   // ---- 2. the chunk's rows, decided and staged ----
   const int miss = sh[sMiss], dbin = sh[sDbin], nan_bin = sh[sNanBin];
   const bool cat = kCat && sh[sCat];
-  const uint8_t* col = a.bins + (long long)(kEfb ? efb_s[0] : f) * a.stride_f;
+  const Bin<kWide>* col =
+      reinterpret_cast<const Bin<kWide>*>(a.bins) + (long long)(kEfb ? efb_s[0] : f) * a.stride_f;
   const int eoff = kEfb ? efb_s[1] : 0;
   int* stage = len <= (kEfb ? kEfbCap : kCap) ? stage_s : a.scratch + b0 + lo;
   const int* seg = a.order + b0 + lo;
@@ -495,7 +575,10 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     __syncthreads();  // woff and sTileLeft are rewritten by the next tile
   }
 
-  if (wires) wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+  if (wires) {
+    wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+    if constexpr (kPool) pool_update(a, best, nl, node, sh[sLeftSmaller] != 0);
+  }
   if (b == 0 && tid == 0) {
     // the children's bounds: leaf best keeps [b0, b0 + left), the new leaf
     // nl takes [b0 + left, b0 + count)
@@ -517,15 +600,29 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   }
 }
 
-// The instantiation of a launch: categorical (bit 0 of ``kind``) and
-// bundled (bit 1).
-decltype(&pick_partition_kernel<false, false>) instantiation(int kind) {
-  switch (kind & 3) {
-    case 1: return &pick_partition_kernel<true, false>;
-    case 2: return &pick_partition_kernel<false, true>;
-    case 3: return &pick_partition_kernel<true, true>;
-    default: return &pick_partition_kernel<false, false>;
+// The instantiation of a launch: categorical (bit 0 of ``kind``), bundled
+// (bit 1), int16 bins (bit 2, never bundled) and a histogram pool (bit 3).
+using Kernel = decltype(&pick_partition_kernel<false, false, false, false>);
+
+template <bool kPool>
+Kernel instantiation_of(int kind) {
+  switch (kind & 7) {
+    case 1: return &pick_partition_kernel<true, false, false, kPool>;
+    case 2:
+      if constexpr (kPool) return nullptr;  // a pool of a bundled table is not ported
+      else return &pick_partition_kernel<false, true, false, false>;
+    case 3:
+      if constexpr (kPool) return nullptr;
+      else return &pick_partition_kernel<true, true, false, false>;
+    case 4: return &pick_partition_kernel<false, false, true, kPool>;
+    case 5: return &pick_partition_kernel<true, false, true, kPool>;
+    case 0: return &pick_partition_kernel<false, false, false, kPool>;
+    default: return nullptr;  // bundled int16 bins
   }
+}
+
+Kernel instantiation(int kind) {
+  return (kind & 8) ? instantiation_of<true>(kind) : instantiation_of<false>(kind);
 }
 
 }  // namespace
@@ -533,11 +630,14 @@ decltype(&pick_partition_kernel<false, false>) instantiation(int kind) {
 extern "C" {
 
 // The blocks of lgbt_pick_partition's grid for the instantiation ``kind``
-// (bit 0: categorical, bit 1: bundled): as many as fit on the current
+// (bit 0: categorical, bit 1: bundled, bit 2: int16 bins, bit 3: a
+// histogram pool; an instantiation that does not exist is refused): as many as fit on the current
 // device at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
 // SM count), so that a cooperative launch of them is never refused.
 int lgbt_pick_partition_grid(int* grid, int kind) {
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  *grid = 0;
+  if (instantiation(kind) == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
@@ -566,26 +666,38 @@ int lgbt_pick_partition_grid(int* grid, int kind) {
 // feature f's group at bins + gid[f] * stride_f. grid blocks of 1024
 // threads, at most lgbt_pick_partition_grid's for the instantiation,
 // launched cooperatively; the launch's error is returned. Does nothing
-// once ctl[0] is 0.
+// once ctl[0] is 0. int16 bins (bin_bytes 2, W <= 32) are never
+// bundled. A histogram pool: pool [16 + M + 2 P] int32 (its
+// control vector, slot_of, slot_leaf, slot_age; null without one), P slots,
+// subtract 0 to build both children of every split.
 int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n, void* order,
                         void* scratch, void* ctl, const void* best_f, const void* best_i,
                         void* node_i, void* node_f, void* leaf_f, void* leaf_i, void* laux,
                         const void* missing, const void* default_bin, const void* num_bin,
                         const void* mono, void* leaf_begin, void* leaf_count, void* block_left,
                         void* bar, const void* best_b, void* node_b, const void* is_cat,
-                        const void* gid, const void* off, int M, int F, int W, float l1,
-                        float l2, float max_delta_step, int grid, void* stream) {
-  if (M < 1 || F < 1 || grid < 1) return (int)cudaErrorInvalidValue;
-  if (is_cat != nullptr && (best_b == nullptr || node_b == nullptr || W < 1 || W > kMaxWords))
+                        const void* gid, const void* off, void* pool, int P, int subtract,
+                        int bin_bytes, int M, int F, int W, float l1, float l2,
+                        float max_delta_step, int grid, void* stream) {
+  if (M < 1 || F < 1 || grid < 1 || (bin_bytes != 1 && bin_bytes != 2))
+    return (int)cudaErrorInvalidValue;
+  const bool wide = bin_bytes == 2;
+  if (is_cat != nullptr && (best_b == nullptr || node_b == nullptr || W < 1 ||
+                            W > (wide ? kMaxWideWords : kMaxWords)))
     return (int)cudaErrorInvalidValue;
   if ((gid == nullptr) != (off == nullptr)) return (int)cudaErrorInvalidValue;
+  if (pool != nullptr && (P < 2 || P > M)) return (int)cudaErrorInvalidValue;
+  const int kind = (is_cat != nullptr ? 1 : 0) | (gid != nullptr ? 2 : 0) | (wide ? 4 : 0) |
+                   (pool != nullptr ? 8 : 0);
+  const Kernel kern = instantiation(kind);
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   Args a{(const uint8_t*)bins, stride_f, stride_n, (int*)order, (int*)scratch, (int*)ctl,
          (const float*)best_f, (const int*)best_i, (int*)node_i, (float*)node_f,
          (float*)leaf_f, (int*)leaf_i, (float*)laux, (const int*)missing,
          (const int*)default_bin, (const int*)num_bin, (const int*)mono, (int*)leaf_begin,
          (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, (const int*)best_b,
          (int*)node_b, (const unsigned char*)is_cat, M, F, W, Params{l1, l2, max_delta_step},
-         (const int*)gid, (const int*)off};
+         (const int*)gid, (const int*)off, (int*)pool, P, subtract};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(kThreads);
@@ -596,8 +708,7 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const int kind = (is_cat != nullptr ? 1 : 0) | (gid != nullptr ? 2 : 0);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, instantiation(kind), a);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kern, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -48,12 +48,21 @@
 // registers a thread: at the default bound its decode spilled). An
 // unbundled table runs predict_bins_kernel, unchanged.
 //
+// Wide bins (the kWide instantiation, for int16 bins of up to 1024 bins a
+// feature): a row reads two bytes a level, and a node's rule keeps 10 bits
+// each for the threshold, the default bin and the NaN bin (its missing type
+// moves to the feature word's top bits); a categorical node's words are W
+// = 32 at 1024 bins, 32 KB beside the nodes at 255 leaves. The byte
+// instantiations keep their code.
+//
 // ``value`` is what a row at each leaf adds (the device iteration passes the
 // shrunk leaf values where the tree grew and exact zeros where it did not);
 // ``leaf_out``, when not null, receives each row's leaf.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -63,10 +72,14 @@ constexpr int kStaticSharedBytes = 48 * 1024;
 
 constexpr int kBundledMinBlocks = 4;  // bundled: 64 registers a thread (32 spilled its decode)
 
+// a bin of the byte or the int16 (kWide) instantiations
+template <bool kWide>
+using Bin = std::conditional_t<kWide, int16_t, uint8_t>;
+
 // The traversal of every row, shared by the kernels below.
-template <bool kCat, bool kEfb>
+template <bool kCat, bool kEfb, bool kWide = false>
 __device__ __forceinline__ void predict_rows(
-    const uint8_t* __restrict__ bins, long long N, int F, const int* __restrict__ node_i,
+    const Bin<kWide>* __restrict__ bins, long long N, int F, const int* __restrict__ node_i,
     int max_nodes, const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
     const int* __restrict__ default_bin, const int* __restrict__ num_bin,
     const float* __restrict__ value, float* __restrict__ score, int* __restrict__ leaf_out,
@@ -77,10 +90,19 @@ __device__ __forceinline__ void predict_rows(
   for (int i = threadIdx.x; i < m; i += kThreads) {
     const int* rec = node_i + 5LL * i;
     const int f = rec[0];
-    const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
-                     (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
-                     ((rec[4] != 0) << 26) | (kCat && is_cat[f] ? 1 << 27 : 0);
-    nodes[i] = make_int4(kEfb ? gid[f] | (off[f] << 24) : f, rule, rec[2], rec[3]);
+    if constexpr (kWide) {
+      // x: feature | missing_type << 28; y: threshold, default bin and NaN
+      // bin in 10 bits each, default_left at bit 30, categorical at 31
+      const unsigned rule = (rec[1] & 0x3FFu) | ((default_bin[f] & 0x3FFu) << 10) |
+                            (((num_bin[f] - 1) & 0x3FFu) << 20) | ((rec[4] != 0 ? 1u : 0u) << 30) |
+                            (kCat && is_cat[f] ? 1u << 31 : 0u);
+      nodes[i] = make_int4(f | ((missing_type[f] & 3) << 28), (int)rule, rec[2], rec[3]);
+    } else {
+      const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
+                       (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
+                       ((rec[4] != 0) << 26) | (kCat && is_cat[f] ? 1 << 27 : 0);
+      nodes[i] = make_int4(kEfb ? gid[f] | (off[f] << 24) : f, rule, rec[2], rec[3]);
+    }
   }
   int* words = reinterpret_cast<int*>(nodes + max_nodes);  // [max_nodes, W] (kCat)
   if (kCat) {
@@ -89,10 +111,23 @@ __device__ __forceinline__ void predict_rows(
   __syncthreads();
   for (long long r = blockIdx.x * (long long)kThreads + threadIdx.x; r < N;
        r += (long long)gridDim.x * kThreads) {
-    const uint8_t* row = bins + r * F;
+    const Bin<kWide>* row = bins + r * F;
     int node = m > 0 ? 0 : -1;  // a tree that did not split: every row at leaf 0
     while (node >= 0) {
       const int4 nd = nodes[node];
+      if constexpr (kWide) {
+        const unsigned rule = (unsigned)nd.y;
+        const int col = row[nd.x & 0xFFFFFFF];
+        const int miss = ((unsigned)nd.x >> 28) & 3;
+        bool left = col <= (int)(rule & 0x3FF);
+        if ((miss == kMissingZero && col == (int)((rule >> 10) & 0x3FF)) ||
+            (miss == kMissingNan && col == (int)((rule >> 20) & 0x3FF))) {
+          left = (rule >> 30) & 1;
+        }
+        if (kCat && (rule >> 31)) left = (words[node * W + (col >> 5)] >> (col & 31)) & 1;
+        node = left ? nd.z : nd.w;
+        continue;
+      }
       const int rule = nd.y;
       int col;
       if (kEfb) {
@@ -117,18 +152,19 @@ __device__ __forceinline__ void predict_rows(
   }
 }
 
-// an unbundled table
-template <bool kCat>
+// an unbundled table (kWide: int16 bins)
+template <bool kCat, bool kWide>
 __global__ void __launch_bounds__(kThreads)
-predict_bins_kernel(const uint8_t* __restrict__ bins, long long N, int F,
+predict_bins_kernel(const Bin<kWide>* __restrict__ bins, long long N, int F,
                     const int* __restrict__ node_i, int max_nodes,
                     const int* __restrict__ num_leaves, const int* __restrict__ missing_type,
                     const int* __restrict__ default_bin, const int* __restrict__ num_bin,
                     const float* __restrict__ value, float* __restrict__ score,
                     int* __restrict__ leaf_out, const int* __restrict__ node_b,
                     const unsigned char* __restrict__ is_cat, int W) {
-  predict_rows<kCat, false>(bins, N, F, node_i, max_nodes, num_leaves, missing_type, default_bin,
-                            num_bin, value, score, leaf_out, node_b, is_cat, W, nullptr, nullptr);
+  predict_rows<kCat, false, kWide>(bins, N, F, node_i, max_nodes, num_leaves, missing_type,
+                                   default_bin, num_bin, value, score, leaf_out, node_b, is_cat,
+                                   W, nullptr, nullptr);
 }
 
 // an EFB-bundled table: the decode's registers, at kBundledMinBlocks blocks an SM
@@ -148,40 +184,48 @@ predict_bins_bundled_kernel(const uint8_t* __restrict__ bins, long long N, int F
 }
 
 // the dynamic shared memory each kernel may take (bit 0 categorical, bit 1
-// bundled)
-int configured_shared_bytes[4] = {kStaticSharedBytes, kStaticSharedBytes, kStaticSharedBytes,
-                                  kStaticSharedBytes};
+// bundled, bit 2 int16 bins)
+int configured_shared_bytes[8] = {kStaticSharedBytes, kStaticSharedBytes, kStaticSharedBytes,
+                                  kStaticSharedBytes, kStaticSharedBytes, kStaticSharedBytes,
+                                  kStaticSharedBytes, kStaticSharedBytes};
 
 }  // namespace
 
 extern "C" {
 
-// score[r] += value[leaf(r)] for the N rows of bins [N, F] uint8 through the
-// tree of *num_leaves leaves whose first num_leaves - 1 nodes are rows of
-// node_i [max_nodes, 5] int32; missing_type / default_bin / num_bin [F]
-// int32; leaf_out [N] int32 or null. With categorical features, node_b
-// [max_nodes, W] int32 (each node's membership words) and is_cat [F]
-// bytes; is_cat null without them. An EFB-bundled table: bins [N, F] holds
-// F group columns, and gid / off [features] int32 give each feature's group
-// and offset (both null unbundled). Shared memory: 16 bytes a node, and 4 W
-// bytes a node with categorical features.
+// score[r] += value[leaf(r)] for the N rows of bins [N, F] (uint8, or int16
+// with bin_bytes 2) through the tree of *num_leaves leaves whose first
+// num_leaves - 1 nodes are rows of node_i [max_nodes, 5] int32;
+// missing_type / default_bin / num_bin [F] int32; leaf_out [N] int32 or
+// null. With categorical features, node_b [max_nodes, W] int32 (each node's
+// membership words) and is_cat [F] bytes; is_cat null without them. An
+// EFB-bundled table (uint8 only): bins [N, F] holds F group columns, and gid
+// / off [features] int32 give each feature's group and offset (both null
+// unbundled). Shared memory: 16 bytes a node, and 4 W bytes a node with
+// categorical features.
 int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, int max_nodes,
                       const void* num_leaves, const void* missing_type, const void* default_bin,
                       const void* num_bin, const void* value, void* score, void* leaf_out,
                       const void* node_b, const void* is_cat, int W, const void* gid,
-                      const void* off, int grid, void* stream) {
+                      const void* off, int bin_bytes, int grid, void* stream) {
   if (N < 1 || F < 1 || max_nodes < 0 || grid < 1) return (int)cudaErrorInvalidValue;
   const bool cat = is_cat != nullptr;
   const bool efb = gid != nullptr;
+  const bool wide = bin_bytes == 2;
+  if (bin_bytes != 1 && !wide) return (int)cudaErrorInvalidValue;
   if (cat && (node_b == nullptr || W < 1)) return (int)cudaErrorInvalidValue;
   if (efb != (off != nullptr) || (efb && F >= (1 << 24))) return (int)cudaErrorInvalidValue;
+  if (wide && (efb || F >= (1 << 28))) return (int)cudaErrorInvalidValue;
   const int slots = max_nodes > 1 ? max_nodes : 1;
   const int shared = slots * (int)sizeof(int4) + (cat ? slots * W * (int)sizeof(int) : 0);
-  const int kind = (cat ? 1 : 0) | (efb ? 2 : 0);
-  const void* kern = efb ? (cat ? (const void*)&predict_bins_bundled_kernel<true>
-                                : (const void*)&predict_bins_bundled_kernel<false>)
-                         : (cat ? (const void*)&predict_bins_kernel<true>
-                                : (const void*)&predict_bins_kernel<false>);
+  const int kind = (cat ? 1 : 0) | (efb ? 2 : 0) | (wide ? 4 : 0);
+  const void* kern =
+      efb ? (cat ? (const void*)&predict_bins_bundled_kernel<true>
+                 : (const void*)&predict_bins_bundled_kernel<false>)
+          : wide ? (cat ? (const void*)&predict_bins_kernel<true, true>
+                        : (const void*)&predict_bins_kernel<false, true>)
+                 : (cat ? (const void*)&predict_bins_kernel<true, false>
+                        : (const void*)&predict_bins_kernel<false, false>);
   if (shared > configured_shared_bytes[kind]) {
     // above 48 KB only as dynamic shared memory with the attribute raised;
     // raised once, before any captured launch needs it
@@ -208,12 +252,20 @@ int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, 
     else
       predict_bins_bundled_kernel<false><<<grid, kThreads, shared, st>>>(
           b, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W, g, o);
+  } else if (wide) {
+    const int16_t* b16 = (const int16_t*)bins;
+    if (cat)
+      predict_bins_kernel<true, true><<<grid, kThreads, shared, st>>>(
+          b16, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W);
+    else
+      predict_bins_kernel<false, true><<<grid, kThreads, shared, st>>>(
+          b16, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W);
   } else if (cat) {
-    predict_bins_kernel<true><<<grid, kThreads, shared, st>>>(b, N, F, ni, max_nodes, nl, mt, db,
-                                                             nbn, v, sc, lo, nb, ic, W);
+    predict_bins_kernel<true, false><<<grid, kThreads, shared, st>>>(
+        b, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W);
   } else {
-    predict_bins_kernel<false><<<grid, kThreads, shared, st>>>(b, N, F, ni, max_nodes, nl, mt, db,
-                                                              nbn, v, sc, lo, nb, ic, W);
+    predict_bins_kernel<false, false><<<grid, kThreads, shared, st>>>(
+        b, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W);
   }
   return (int)cudaGetLastError();
 }

@@ -110,23 +110,51 @@
 // feature's: the one-hot of its threshold) beside its record, and the
 // child's last block copies the winner's words into the record's row.
 //
+// Wide bins (the kWide instantiations, launched for 336 < B <= 1024): the
+// same code over rows of up to 1024 bins. The fold's chain grows with B (a
+// chain of B dependent adds a channel), and a categorical block's arrays
+// (CatSmem) come to 35 KB beside the 12.7 KB prefix rows, under the 48 KB
+// of static shared memory with the ranks kept in 16 bits. The TPU kernel
+// stops at B = 336 (its radix histogram's cap); the reference scans wider
+// rows in XLA.
+//
+// A histogram pool (the kPool instantiations of the folded entry: the
+// hist buffer holds P < M slots, ops/grow_state.py): the rows are slots,
+// not leaves. The step's pick_partition left the slots in the pool's
+// control vector: the parent's (kPSlot), the smaller and the larger
+// child's (kSSlot, kLSlot) and whether the parent was resident (kHit). On
+// a hit the larger child's block subtracts as above from the parent's slot,
+// which the larger child takes over; on a miss it reads the larger child's
+// own histogram, built by a second segment launch into ``large``, and
+// clears the other ``large`` scratch for the next step. The root's scan
+// reads slot 0, the root's.
+//
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBatch = 8;  // bins a fold lane loads ahead of its adds
-constexpr int kMaxBins = 336;
-constexpr int kStage = (kMaxBins * 3 + kThreads - 1) / kThreads;  // row floats a thread
-// floats of one channel's prefix row in shared memory: B bins, two batches
-// of padding the fold may touch, and 4 more so that the three rows start 16
-// bytes apart modulo the 128 bytes of the banks (1424 = 11 * 128 + 16)
-constexpr int kRow = kMaxBins + 2 * kBatch + 4;
+// The row sizes of the byte-width (B <= 336) and the wide (B <= 1024)
+// instantiations: kMaxBins, the row floats a thread stages (kStage), and
+// kRow, the floats of one channel's prefix row in shared memory: B bins,
+// two batches of padding the fold may touch, and 4 (20) more so that the
+// three rows start 16 bytes apart modulo the 128 bytes of the banks (1424 =
+// 11 * 128 + 16; 4240 = 33 * 128 + 16)
+template <bool kWide>
+struct Dims {
+  static constexpr int kMaxBins = kWide ? 1024 : 336;
+  static constexpr int kStage = (kMaxBins * 3 + kThreads - 1) / kThreads;
+  static constexpr int kRow = kMaxBins + 2 * kBatch + (kWide ? 20 : 4);
+};
 constexpr int kBig = 1 << 30;
 constexpr unsigned kFull = 0xffffffffu;
 // K_EPSILON = 1e-15 (meta.h:42) as the plain version rounds it into f32
@@ -146,11 +174,15 @@ struct Cat {
   float smooth, l2, min_group;    // cat_smooth, lambda_l2 + cat_l2, min_data_per_group
 };
 
-// A categorical block's shared memory (kCat only).
+// A categorical block's shared memory (kCat only); the wide block keeps
+// its ranks in 16 bits to stay under 48 KB of static shared memory.
+template <bool kWide>
 struct CatSmem {
+  using Rank = std::conditional_t<kWide, int16_t, int>;
+  static constexpr int kMaxBins = Dims<kWide>::kMaxBins;
   float key[kMaxBins];           // the CTR sort key of each bin
-  int rank[kMaxBins];            // each bin's position in sorted order
-  int sorted[kMaxBins];          // the bin at each position
+  Rank rank[kMaxBins];           // each bin's position in sorted order
+  Rank sorted[kMaxBins];         // the bin at each position
   unsigned char valid[kMaxBins];
   float pref[2][3][kMaxBins];    // [direction][channel][position] left folds
   unsigned char emit[2][kMaxBins];
@@ -273,8 +305,12 @@ struct LoopState {
   int max_depth;         // <= 0: no limit
   const float* small;    // kFold: [F, B, 3] the smaller child's histogram (this step's scratch)
   float* zero;           // kFold: [F, B, 3] the other scratch, cleared for the next step
+  const int* pool;       // kPool: the pool's control vector (ops/grow_state.py)
+  const float* large;    // kPool: [F, B, 3] the larger child's histogram on a miss
+  float* large_zero;     // kPool: [F, B, 3] the other one, cleared for the next step
 };
 constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
+constexpr int kHit = 10, kSSlot = 11, kLSlot = 12, kPSlot = 13;  // the pool's control slots
 
 // One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
 // incl. eps, left_c) and feat_i[c, f, :] = (t, default_left) of the
@@ -289,11 +325,13 @@ constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
 // The best categorical split of the block's feature (every thread
 // enters; the row is staged raw in pre): its record in r, published by
 // the caller.
-__device__ __forceinline__ void categorical_scan(const float* pre, CatSmem& cs, CatRec& r,
+template <bool kWide>
+__device__ __forceinline__ void categorical_scan(const float* pre, CatSmem<kWide>& cs, CatRec& r,
                                                  float* red_g, int* red_t, int B, int num_bin,
                                                  int miss, float sg, float sh, float nd,
                                                  float min_c, float max_c, float mgs,
                                                  const Params& p, const Cat& cat) {
+  constexpr int kMaxBins = Dims<kWide>::kMaxBins, kRow = Dims<kWide>::kRow;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float eps = (float)kEpsilon;
   const int used_bin = num_bin - (miss != 0 ? 1 : 0);
@@ -493,7 +531,7 @@ __device__ __forceinline__ void finish_child(const float* feat_f, const int* fea
   count[c] = 0;  // ready for the next call on this stream
 }
 
-template <bool kDev, bool kFold, bool kCat>
+template <bool kDev, bool kFold, bool kCat, bool kWide, bool kPool>
 __global__ void __launch_bounds__(kThreads)
 split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const float* __restrict__ sums, const float* __restrict__ cons,
@@ -502,6 +540,8 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
                   float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
                   Params p, int two_way, LoopState ls, Cat cat) {
+  static_assert(!kPool || (kDev && kFold), "a pool's rows are read by the folded entry");
+  constexpr int kStage = Dims<kWide>::kStage, kRow = Dims<kWide>::kRow;
   __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
   __shared__ float red_g[2][kWarps];
   __shared__ int red_t[2][kWarps];
@@ -528,7 +568,34 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   } else {
     const int small_leaf = ls.ctl[kSmall];
     const float* sp = ls.small + frow;
-    if (leaf != small_leaf) {
+    if (kPool && leaf != small_leaf) {
+      // the larger child's block of a pool: its rows are slots; on a hit
+      // the subtraction from the parent's slot, which it takes over, on a
+      // miss the larger child's own histogram
+      const bool hit = ls.pool[kHit] != 0;
+      const float* hp = hit ? hist + (long long)ls.pool[kPSlot] * F * B * 3 + frow
+                            : ls.large + frow;
+      float* hl = hist + (long long)ls.pool[kLSlot] * F * B * 3 + frow;
+      float* hs = hist + (long long)ls.pool[kSSlot] * F * B * 3 + frow;
+      float* zp = ls.large_zero + frow;
+      float sv[kStage];
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int i = tid + k * kThreads;
+        v[k] = i < B * 3 ? hp[i] : 0.0f;
+        sv[k] = i < B * 3 ? sp[i] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kStage; ++k) {
+        const int i = tid + k * kThreads;
+        if (hit) v[k] = v[k] - sv[k];
+        if (i < B * 3) {
+          hl[i] = v[k];
+          hs[i] = sv[k];
+          zp[i] = 0.0f;
+        }
+      }
+    } else if (leaf != small_leaf) {
       // the larger child's block: the one reader of the parent's row and
       // the one writer of both children's rows of feature f
       const float* hp = hist + (long long)ls.ctl[kBest] * F * B * 3 + frow;
@@ -590,7 +657,7 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   float sh_eff, mgs;
   [[maybe_unused]] CatRec* rec_s = nullptr;
   if constexpr (kCat) {
-    __shared__ CatSmem cs;
+    __shared__ CatSmem<kWide> cs;
     __shared__ CatRec rs;
     rec_s = &rs;
     sh_eff = sh + (float)(2.0 * kEpsilon);
@@ -717,6 +784,17 @@ bool cat_args_ok(const void* is_cat, const void* feat_b, const void* outb, int W
   return is_cat == nullptr || (feat_b != nullptr && outb != nullptr && W == (B + 31) / 32);
 }
 
+// The instantiation of a launch: kDev, kFold and kPool as the entry asks,
+// kCat with categorical features, kWide past the byte-width rows' 336 bins.
+template <bool kDev, bool kFold, bool kPool>
+decltype(&split_pair_kernel<false, false, false, false, false>) instantiation(bool cat, int B) {
+  const bool wide = B > Dims<false>::kMaxBins;
+  return cat ? (wide ? &split_pair_kernel<kDev, kFold, true, true, kPool>
+                     : &split_pair_kernel<kDev, kFold, true, false, kPool>)
+             : (wide ? &split_pair_kernel<kDev, kFold, false, true, kPool>
+                     : &split_pair_kernel<kDev, kFold, false, false, kPool>);
+}
+
 }  // namespace
 
 extern "C" {
@@ -726,7 +804,7 @@ extern "C" {
 // cons [C, 2] (monotone min, max), per-feature int32 num_bin/missing_type/
 // default_bin/monotone [F], fmask [F] bytes. Scratch feat_f [C, F, 4] f32
 // and feat_i [C, F, 2] int32; count int32 [2], 0 between calls; out outf
-// [C, 9], outi [C, 4]. B <= 336.
+// [C, 9], outi [C, 4]. B <= 1024 (the wide instantiations past 336).
 int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, const void* cons,
                     const void* num_bin, const void* missing, const void* default_bin,
                     const void* mono, const void* fmask, void* feat_f, void* feat_i, void* outf,
@@ -735,19 +813,20 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
                     int two_way, const void* is_cat, void* feat_b, void* outb, int W,
                     int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
                     float min_group, void* stream) {
-  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > Dims<true>::kMaxBins)
+    return (int)cudaErrorInvalidValue;
   if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
   const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
                 max_threshold, cat_smooth, cat_l2, min_group};
-  decltype(&split_pair_kernel<false, false, false>) kern =
-      is_cat ? &split_pair_kernel<false, false, true> : &split_pair_kernel<false, false, false>;
+  const LoopState ls{nullptr, nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
+  decltype(&split_pair_kernel<false, false, false, false, false>) kern =
+      instantiation<false, false, false>(is_cat != nullptr, B);
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
       (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
       (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
-      (int*)count, F, B, p, two_way, LoopState{nullptr, nullptr, nullptr, 0, nullptr, nullptr},
-      cat);
+      (int*)count, F, B, p, two_way, ls, cat);
   return (int)cudaGetLastError();
 }
 
@@ -760,9 +839,15 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
 // step's scan), the children's rows are folded in first: hist[ctl[6]] =
 // hist[ctl[3]] - small, hist[ctl[5]] = small, and zero [F, B, 3] is
 // cleared; small and zero are the two scratch buffers, never the same.
-// Nothing runs once ctl[0] is 0. The other arguments are lgbt_split_pair's.
+// With pool non-null as well (a histogram pool: hist holds slots), the rows
+// are the slots of the pool's control vector pool [16] int32 (hit, and the
+// smaller child's, the larger's and the parent's slot at 10-13): hist[lslot]
+// = hit ? hist[pslot] - small : large, hist[sslot] = small, and large_zero
+// [F, B, 3] is cleared too. Nothing runs once ctl[0] is 0. The other
+// arguments are lgbt_split_pair's.
 int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const void* leaf_i,
-                        const void* small, void* zero, int max_depth, const void* num_bin,
+                        const void* small, void* zero, const void* pool, const void* large,
+                        void* large_zero, int max_depth, const void* num_bin,
                         const void* missing, const void* default_bin, const void* mono,
                         const void* fmask, void* feat_f, void* feat_i, void* best_f,
                         void* best_i, void* count, int C, int F, int B, float l1, float l2,
@@ -770,19 +855,25 @@ int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const voi
                         int two_way, const void* is_cat, void* feat_b, void* outb, int W,
                         int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
                         float min_group, void* stream) {
-  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > kMaxBins) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C > 2 || F <= 0 || B <= 0 || B > Dims<true>::kMaxBins)
+    return (int)cudaErrorInvalidValue;
   if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
   const bool fold = small != nullptr;
   if (fold && (C != 2 || zero == nullptr || zero == small)) return (int)cudaErrorInvalidValue;
+  const bool pooled = pool != nullptr;
+  if (pooled && (!fold || large == nullptr || large_zero == nullptr || large == large_zero))
+    return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
   const LoopState ls{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth,
-                     (const float*)small, (float*)zero};
+                     (const float*)small, (float*)zero, (const int*)pool, (const float*)large,
+                     (float*)large_zero};
   const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
                 max_threshold, cat_smooth, cat_l2, min_group};
-  decltype(&split_pair_kernel<true, false, false>) kern =
-      is_cat ? (fold ? &split_pair_kernel<true, true, true> : &split_pair_kernel<true, false, true>)
-             : (fold ? &split_pair_kernel<true, true, false>
-                     : &split_pair_kernel<true, false, false>);
+  const bool c = is_cat != nullptr;
+  decltype(&split_pair_kernel<false, false, false, false, false>) kern =
+      pooled ? instantiation<true, true, true>(c, B)
+             : (fold ? instantiation<true, true, false>(c, B)
+                     : instantiation<true, false, false>(c, B));
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
       (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,

@@ -80,6 +80,12 @@ margin stop taking trees), SHAP values from the TreeSHAP kernel
 (ops/shap_kernel.py). ``merge_models_from`` and ``refit`` re-estimate a
 model's leaves on a new training set (``Booster.refit``).
 
+Wide bins: past 256 bins a feature (up to 1024) the training device's bin
+copies are int16, half the JAX package's int32, and every kernel of the
+device loop runs its int16 instantiation. ``histogram_pool_size`` caps the
+device loop's histograms to LRU slots (ops/grow.py); the host loop takes
+no pool.
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
@@ -174,8 +180,6 @@ def check_supported(config: Config) -> None:
     if (config.cegb_penalty_split != 0.0 or config.cegb_penalty_feature_lazy
             or config.cegb_penalty_feature_coupled):
         refused.append("cegb_penalty_*")
-    if config.histogram_pool_size > 0:
-        refused.append("histogram_pool_size (hist_pool_slots)")
     if config.tree_learner != "serial":
         refused.append("tree_learner=%s" % config.tree_learner)
     if config.tpu_hist_mode != "bucketed":
@@ -205,8 +209,26 @@ def split_params(cfg: Config) -> SplitParams:
 
 
 def check_dataset_supported(train_set: BinnedDataset) -> None:
-    if train_set.max_num_bin > 256:
-        raise NotImplementedError("more than 256 bins per feature is not ported yet")
+    """Raise NotImplementedError for a binned dataset this slice does not
+    train: more than ``hist_kernel.MAX_WIDE_BINS`` (1024) bins a feature
+    (``max_bin``: csrc/histogram.cu's int16 cells), or an
+    EFB bundle of more than 256 bins (a wide feature in a bundled sparse
+    table, ``enable_bundle``: csrc/efb_remap.cu and the bundled kernels
+    read bytes)."""
+    if train_set.max_num_bin > hist_kernel.MAX_WIDE_BINS:
+        raise NotImplementedError(
+            "max_bin: more than %d bins per feature (%d) is not ported to lightgbm_tpu_torch yet"
+            % (hist_kernel.MAX_WIDE_BINS, train_set.max_num_bin))
+    if train_set.is_bundled and train_set.max_group_bins > 256:
+        raise NotImplementedError(
+            "enable_bundle: an EFB bundle of more than 256 bins (%d) is not ported to "
+            "lightgbm_tpu_torch yet" % train_set.max_group_bins)
+
+
+def bin_dtype(num_bins: int) -> np.dtype:
+    """The training device's bin type: bytes up to 256 bins a feature, int16
+    past them (half the bytes of the JAX package's int32 bins)."""
+    return np.dtype(np.uint8 if num_bins <= 256 else np.int16)
 
 
 class GBDT:
@@ -244,7 +266,7 @@ class GBDT:
         self.valid_metrics: List[List[Metric]] = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []  # [K, Nv] f32 each, on the device
-        self._valid_bins: List[torch.Tensor] = []  # [Nv, F] uint8 each, on the device
+        self._valid_bins: List[torch.Tensor] = []  # [Nv, F] each, on the device, as bins_dev
         #: each class's boost-from-average score: in the scores, folded into
         #: the class's first tree's leaf values only when that tree is
         #: materialised
@@ -262,7 +284,7 @@ class GBDT:
         K = self.num_tree_per_iteration
         self.num_data = train_set.num_data
         self.max_feature_idx = train_set.num_total_features - 1
-        bins = np.ascontiguousarray(train_set.bins, dtype=np.uint8)
+        bins = np.ascontiguousarray(train_set.bins, dtype=bin_dtype(train_set.max_num_bin))
         self.bins_dev = torch.from_numpy(bins).to(dev)
         # [N, F] copy: a row's bins are contiguous for the segment gathers
         self.bins_nf = self.bins_dev.t().contiguous()
@@ -299,6 +321,19 @@ class GBDT:
         #: the frozen route, fixed here. Tools that time both loops set it.
         self.grow_loop = "device" if device_loop_routable(
             self.num_data, self.hist_width, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
+        #: the device loop's histogram pool slots (``histogram_pool_size``),
+        #: None for no cap
+        self.hist_pool_slots = self._hist_pool_slots()
+        if self.hist_pool_slots is not None:
+            if self.grow_loop != "device":
+                raise NotImplementedError(
+                    "histogram_pool_size on the host split loop (a run whose histogram route "
+                    "sends a row class to another kernel than cuda) is not ported to "
+                    "lightgbm_tpu_torch yet")
+            if train_set.is_bundled:
+                raise NotImplementedError(
+                    "histogram_pool_size with an EFB-bundled dataset (enable_bundle) is not "
+                    "ported to lightgbm_tpu_torch yet")
         #: on CUDA the device loop replays its iteration as one captured
         #: CUDA graph; tools that time the eager launches set it False
         self.iteration_graph = dev.type == "cuda"
@@ -355,6 +390,19 @@ class GBDT:
         arr = np.asarray(init, np.float64).reshape(-1)
         arr = np.tile(arr, (K, 1)) if len(arr) == n else arr.reshape(K, n)
         return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
+
+    def _hist_pool_slots(self) -> Optional[int]:
+        """histogram_pool_size (MB) -> LRU slots of ``F * B * 3 * 4`` bytes,
+        at least 2, or None when that is no fewer than the leaves (the
+        SerialTreeLearner ctor, serial_tree_learner.cpp:56-69; the JAX
+        package's ``_hist_pool_slots``, which has no forced splits here)."""
+        cfg = self.config
+        if cfg.histogram_pool_size <= 0:
+            return None
+        per_leaf = self.train_set.num_features * self.num_bins * 3 * 4  # f32 sums and count
+        slots = int(cfg.histogram_pool_size * 1024 * 1024 / max(per_leaf, 1))
+        slots = max(2, slots)
+        return slots if slots < cfg.num_leaves else None
 
     def _resolve_hist_route(self) -> Optional[hist_kernel.HistRoute]:
         """Load and freeze the measured histogram routing table of this run:
@@ -503,7 +551,7 @@ class GBDT:
         N, F = self.num_data, self.train_set.num_features
         s = self._grow_state
         shape = (N, F, self.num_bins, cfg.num_leaves, self.num_words, self.num_groups,
-                 self.hist_width)
+                 self.hist_width, self.hist_pool_slots or 0)
         if s is None or not s.fits(self.bins_dev.device, *shape):
             s = self._grow_state = grow_state.GrowState(self.bins_dev.device, *shape)
         if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
@@ -883,7 +931,8 @@ class GBDT:
         for m in metrics:
             m.init(valid_set.metadata, valid_set.num_data)
         K = self.num_tree_per_iteration
-        bins = torch.from_numpy(np.ascontiguousarray(valid_set.bins.T, dtype=np.uint8)).to(self.device)
+        bins = torch.from_numpy(np.ascontiguousarray(
+            valid_set.bins.T, dtype=bin_dtype(valid_set.max_num_bin))).to(self.device)
         score = self._initial_scores(valid_set.metadata.init_score, valid_set.num_data)
         if any(ta is None and t is not None and t.num_leaves > 1
                for ta, t in zip(self._tree_arrays, self.models)):

@@ -3,11 +3,9 @@ launch counts carried into every replay.
 
 The device-resident boosting iteration (models/gbdt.py) queues some 800
 kernels from Python a tree. Captured once into a CUDA graph, a replay
-launches all of them with one host call. The kernel wrappers count their
-launches in Python (``hist_kernel.launches``, ``grow_step_kernel.launches``,
-``split_kernel.launches`` / ``step_launches`` / ``fold_launches``,
-``partition_kernel.launches``, ``predict_kernel.launches``,
-``remap_kernel.launches``, ``rank_kernel.launches``) and a replay
+launches all of them with one host call. Each kernel module counts its
+wrappers' launches in Python, in a dict ``launches`` keyed by
+instantiation (the names of chip_smoke.py's kernels line), and a replay
 calls none of them, so :class:`Graph` records how many
 launches of each wrapper the capture recorded, takes them back off (a
 capture runs nothing), and adds them again at each replay: the counts stay
@@ -26,49 +24,35 @@ from typing import Callable, Dict, Optional
 import torch
 
 from . import (
-    grow_step_kernel, hist_kernel, partition_kernel, predict_kernel, rank_kernel, remap_kernel,
-    split_kernel,
+    grow_step_kernel, hist_kernel, packed_kernel, partition_kernel, predict_kernel, rank_kernel,
+    remap_kernel, shap_kernel, split_kernel,
 )
+
+#: the modules whose wrappers count their launches in a dict ``launches``
+#: keyed by instantiation, each with a ``reset_launches``
+KERNEL_MODULES = (hist_kernel, grow_step_kernel, split_kernel, partition_kernel, predict_kernel,
+                  remap_kernel, rank_kernel, packed_kernel, shap_kernel)
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for mod in KERNEL_MODULES:
+        mod.reset_launches()
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by its name in chip_smoke.py's
-    kernels line (``split_pair``, ``split_pair_step``, ``split_pair_fold``,
-    ``pick_partition``, ``predict_bins``, ``efb_remap``, ``lambdarank`` and the keys of
-    ``hist_kernel.launches`` and ``grow_step_kernel.launches``)."""
-    counts = dict(hist_kernel.launches)
-    counts.update(grow_step_kernel.launches)
-    counts["split_pair"] = split_kernel.launches
-    counts["split_pair_step"] = split_kernel.step_launches
-    counts["split_pair_fold"] = split_kernel.fold_launches
-    counts["pick_partition"] = partition_kernel.launches
-    counts["predict_bins"] = predict_kernel.launches
-    counts["efb_remap"] = remap_kernel.launches
-    counts["lambdarank"] = rank_kernel.launches
+    """Every kernel wrapper's launch count, by instantiation (the keys of
+    the modules' ``launches``)."""
+    counts: Dict[str, int] = {}
+    for mod in KERNEL_MODULES:
+        counts.update(mod.launches)
     return counts
 
 
 def add_launches(delta: Dict[str, int]) -> None:
-    """Add ``delta`` (names of :func:`launch_counts`) to the wrappers' counts."""
+    """Add ``delta`` (keys of :func:`launch_counts`) to the wrappers' counts."""
     for name, n in delta.items():
-        if name == "split_pair":
-            split_kernel.launches += n
-        elif name == "split_pair_step":
-            split_kernel.step_launches += n
-        elif name == "split_pair_fold":
-            split_kernel.fold_launches += n
-        elif name == "pick_partition":
-            partition_kernel.launches += n
-        elif name == "predict_bins":
-            predict_kernel.launches += n
-        elif name == "efb_remap":
-            remap_kernel.launches += n
-        elif name == "lambdarank":
-            rank_kernel.launches += n
-        elif name in grow_step_kernel.launches:
-            grow_step_kernel.launches[name] += n
-        else:
-            hist_kernel.launches[name] += n
+        next(mod for mod in KERNEL_MODULES if name in mod.launches).launches[name] += n
 
 
 class Graph:

@@ -58,6 +58,16 @@ Two split loops grow the same tree, bit for bit:
    (ops/hist_kernel.py ``routed_histogram``); at B <= 16 ``cuda_packed4``
    reads the segment out of the nibble-packed copy made at set-up.
 
+A histogram pool (``hist_pool_slots`` P < M, the reference's
+``histogram_pool_size``, lightgbm_tpu/ops/grow.py:1479-1536) keeps P
+histograms in LRU slots on the device loop: the pick's wiring thread picks
+the children's slots (csrc/partition.cu), a second segment launch builds
+the larger child from its rows when the parent's slot was evicted (and
+returns at once otherwise), and the folded scan reads the rows by slot,
+skipping the subtraction on such a step: four launches a step.
+``use_subtract=False`` builds both children of every split so, with P = M
+slots when there is no cap. The host loop takes no pool.
+
 models/gbdt.py takes the device loop when the run's route sends every row
 class to ``cuda`` (``device_loop_routable``), the host loop otherwise. The
 kernels run on CUDA tensors and their plain versions on CPU tensors, so
@@ -105,7 +115,7 @@ _FEAT, _THR, _NCAT, _DL = range(4)
 
 
 def grow_tree(
-    bins: torch.Tensor,  # [F, N] uint8
+    bins: torch.Tensor,  # [F, N] uint8 (int16 past 256 bins)
     grad: torch.Tensor,  # [N] f32
     hess: torch.Tensor,  # [N] f32
     feature_mask: torch.Tensor,  # [F] bool
@@ -327,19 +337,21 @@ def start_tree(
     hist_dtype: str = "float32",
     bag: Optional[torch.Tensor] = None,
     grouped: bool = False,
+    use_subtract: bool = True,
 ) -> None:
     """Bind a tree's inputs to the state ``s``, reset it, and queue the
     root: its sums and leaf output, its histogram (of a bundled state: over
     the groups, then remapped with those sums), and (M > 1) its split scan.
     Reads nothing back. ``bag`` ([N] f32) and ``grouped`` as in
     :func:`grow_tree`: the segments (``leaf_count``) stay physical, the
-    records' counts are the bag's."""
+    records' counts are the bag's. ``use_subtract`` False (a state with a
+    pool) builds both children of every split from their rows."""
     N = s.N
     hist_bins = bins_nf.t() if bins_nf is not None else bins
     ones = torch.ones(N, dtype=torch.float32, device=s.device) if bag is None else bag
     vals_all = leaf_values(grad, hess, ones)
     s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
-           hist_dtype, grouped)
+           hist_dtype, grouped, use_subtract)
     s.reset()
     root = root_sums(grad, hess, vals_all, bag)
     s.laux[0, :3] = root
@@ -366,11 +378,17 @@ def run_step(s: gs.GrowState) -> None:
     for step k + 1). A bundled state's histogram goes into
     ``s.small_g[k % 2]`` and one more launch remaps it into ``s.small[k %
     2]`` with the smaller child's sums (and clears ``s.small_g`` for step
-    k + 1). Every kernel returns at once when the loop has stopped."""
+    k + 1). A state with a histogram pool launches the segment entry a
+    second time for the larger child, which returns at once unless the
+    pick found its parent evicted (or the subtraction off), and the scan
+    reads the rows by slot. Every kernel returns at once when the loop has
+    stopped."""
     parity = s.queued_steps % 2
     s.queued_steps += 1
     partition_kernel.pick_partition(s)
     hist_kernel.histogram_segment(s, parity)
+    if s.P:
+        hist_kernel.histogram_segment(s, parity, large=True)
     if s.G:
         remap_kernel.remap_step(s, parity)
     split_kernel.split_pair_fold(s, parity)
@@ -384,6 +402,17 @@ def launch_tree(s: gs.GrowState, *args, **kwargs) -> None:
     start_tree(s, *args, **kwargs)
     for _ in range(s.M - 1):
         run_step(s)
+
+
+def pool_slots(hist_pool_slots: Optional[int], num_leaves: int, use_subtract: bool = True) -> int:
+    """The state's pool slots P for the reference's ``hist_pool_slots`` (a
+    pool only when fewer than the leaves) and ``use_subtract``: 0 without a
+    pool, M slots (no eviction) when the subtraction is off."""
+    if hist_pool_slots is not None and hist_pool_slots < num_leaves:
+        if hist_pool_slots < 2:
+            raise ValueError("histogram pool needs at least 2 slots, got %d" % hist_pool_slots)
+        return int(hist_pool_slots)
+    return 0 if use_subtract else num_leaves
 
 
 def leaf_ids(s: gs.GrowState) -> torch.Tensor:
@@ -433,7 +462,7 @@ def read_tree(s: gs.GrowState) -> TreeArrays:
 
 
 def grow_tree_device(
-    bins: torch.Tensor,  # [F, N] uint8
+    bins: torch.Tensor,  # [F, N] uint8 (int16 past 256 bins)
     grad: torch.Tensor,  # [N] f32
     hess: torch.Tensor,  # [N] f32
     feature_mask: torch.Tensor,  # [F] bool
@@ -449,20 +478,26 @@ def grow_tree_device(
     bag: Optional[torch.Tensor] = None,
     grouped: bool = False,
     num_group_bins: Optional[int] = None,
+    hist_pool_slots: Optional[int] = None,
+    use_subtract: bool = True,
 ) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
     """Grow one tree with the device-resident split loop; returns
     (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
     returned state back as ``state`` to reuse its buffers for the next tree
     (a state of another shape is replaced). Takes the arguments of
-    :func:`grow_tree` but no route: every histogram call is ``cuda``."""
+    :func:`grow_tree` but no route: every histogram call is ``cuda``; and
+    those of the reference's ``grow_tree``: ``hist_pool_slots`` (a pool of
+    that many LRU slots when fewer than the leaves) and ``use_subtract``
+    (False: both children of every split from their rows)."""
     R, N = bins.shape
     F = feature_meta["num_bin"].numel()
     G = R if "group_id" in feature_meta else 0
     Bg = (num_group_bins or num_bins) if G else 0
     W = num_words(num_bins, "is_categorical" in feature_meta)
-    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W, G, Bg):
-        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W, G, Bg)
+    P = pool_slots(hist_pool_slots, num_leaves, use_subtract)
+    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W, G, Bg, P):
+        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W, G, Bg, P)
     launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
-                params, two_way, bins_nf, hist_dtype, bag, grouped)
+                params, two_way, bins_nf, hist_dtype, bag, grouped, use_subtract)
     leaf_id = leaf_ids(state)
     return read_tree(state), leaf_id, state

@@ -29,6 +29,20 @@ arrays are float views of it), so the readback is one device-to-host copy.
 With categorical features each node's left-side bin membership rides in it
 too, W = ceil(B / 32) words a node (``node_b``); without them W is 0.
 
+A histogram pool (``histogram_pool_size``, P > 0 slots, P < M; or P = M
+when the subtraction is off) keeps ``hist`` as [P, F, B, 3] slots, not
+leaves, and the LRU bookkeeping of lightgbm_tpu/ops/grow.py:269-272 in one
+int32 buffer, ``pool``: its own control vector ``pool_ctl`` [CTL] (the
+slots the CUDA kernels read: RUN and LEAF for the step's second segment
+histogram, which reads ``pool_ctl`` as its control vector, then HIT,
+SSLOT, LSLOT, PSLOT), ``slot_of`` [M] (each leaf's slot, -1 evicted),
+``slot_leaf`` [P] (each slot's leaf, -1 free) and ``slot_age`` [P] (LRU
+stamps, 0 never used). The pick's wiring thread updates them
+(csrc/partition.cu ``pool_update``); ``large`` [2, F, B, 3] holds the
+larger child's histogram of a step whose parent was evicted, by parity.
+
+The bins are uint8, or int16 at more than 256 bins a feature (up to 1024).
+
 An EFB-bundled table (G > 0 groups of Bg bins, ops/remap.py) keeps the
 histogram pool in feature space; its histograms are built over the
 ``[G, N]`` groups into ``small_g`` and remapped into ``small`` and the
@@ -44,6 +58,13 @@ import torch
 
 ACTIVE, NUM_LEAVES, STEP, BEST, NEW, SMALL, LARGE, PBEGIN, PCOUNT, LEFT = range(10)
 CTL = 16
+#: slots of a pool's control vector ``pool_ctl``: the step's second segment
+#: histogram runs (RUN) on leaf LEAF (the larger child; its control vector's
+#: ACTIVE and SMALL slots), whether the parent's histogram was resident
+#: (HIT), the smaller and the larger child's slots and the parent's
+RUN, LEAF, HIT, SSLOT, LSLOT, PSLOT = ACTIVE, SMALL, 10, 11, 12, 13
+#: the bin types of a state: bytes, and int16 past 256 bins a feature
+BIN_DTYPES = (torch.uint8, torch.int16)
 
 #: threads of a pick_partition block (csrc/partition.cu kThreads); at most
 #: 2048 threads, so 2 such blocks, fit on an SM of sm_90
@@ -78,7 +99,9 @@ class GrowState:
     leaf's best split record), ``laux`` [M, 5] f32 (sum_grad, sum_hess, count,
     monotone min, max), ``leaf_begin`` / ``leaf_count`` [M] int32 (each
     leaf's segment of ``order``), ``order`` [N] int32, ``hist`` [M, F, B, 3]
-    f32 and ``small`` [2, F, B, 3] f32 (the smaller child's histogram of
+    f32 ([P, F, B, 3] with a pool of ``P`` slots, and its bookkeeping in
+    ``pool``, ``large`` [2, F, B, 3]: see the module's docstring) and
+    ``small`` [2, F, B, 3] f32 (the smaller child's histogram of
     step k in ``small[k % 2]``, which step k - 1's scan leaves zeroed).
     Bundled (``G`` groups of ``Bg`` bins, ``G`` > 0): ``small_g`` [2, G,
     Bg, 3] f32, the group-space histograms: step k's segment histogram adds
@@ -94,15 +117,22 @@ class GrowState:
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
-             "hist", "small", "small_g")
+             "hist", "small", "small_g", "pool", "large")
 
     def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int,
-                 W: int = 0, G: int = 0, Bg: int = 0) -> None:
+                 W: int = 0, G: int = 0, Bg: int = 0, P: int = 0) -> None:
         M = num_leaves
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        if P and not 2 <= P <= M:
+            raise ValueError("GrowState: a pool of %d slots for %d leaves (2 <= P <= M)" % (P, M))
+        if P and G:
+            raise NotImplementedError(
+                "histogram_pool_size with an EFB-bundled dataset is not ported to "
+                "lightgbm_tpu_torch yet")
         self.device, self.N, self.F, self.B, self.M, self.W = device, N, F, B, M, W
         self.G, self.Bg = (G, Bg) if G else (0, 0)
+        self.P = P
         i32, f32 = torch.int32, torch.float32
         self.packed = torch.zeros(CTL + 13 * M + W * (M - 1), dtype=i32, device=device)
         (self.ctl, self.node_i, self.leaf_i, self.node_f, self.leaf_f,
@@ -114,8 +144,12 @@ class GrowState:
         self.leaf_begin = torch.zeros(M, dtype=i32, device=device)
         self.leaf_count = torch.zeros(M, dtype=i32, device=device)
         self.order = torch.zeros(N, dtype=i32, device=device)
-        self.hist = torch.zeros((M, F, B, 3), dtype=f32, device=device)
+        self.hist = torch.zeros((P or M, F, B, 3), dtype=f32, device=device)
         self.small = torch.zeros((2, F, B, 3), dtype=f32, device=device)
+        self.pool = torch.zeros(CTL + M + 2 * P if P else 0, dtype=i32, device=device)
+        (self.pool_ctl, self.slot_of, self.slot_leaf,
+         self.slot_age) = self._pool_views(self.pool)
+        self.large = torch.zeros((2 if P else 0, F, B, 3), dtype=f32, device=device)
         self.small_g = torch.zeros((2, self.G, self.Bg, 3), dtype=f32, device=device)
         self.scratch = torch.empty(N, dtype=i32, device=device)
         blocks = 1
@@ -142,6 +176,9 @@ class GrowState:
         self.hist_dtype = "float32"
         #: the histogram entries' grouped form (ops/hist_kernel.py grouped_adds)
         self.grouped = False
+        #: the smaller child's histogram is subtracted from a resident
+        #: parent's (use_subtract; off needs a pool: P = M without a cap)
+        self.subtract = True
         #: launch arguments of each C entry, built once a tree by its wrapper
         self.args: Dict[str, tuple] = {}
         self.stream = None
@@ -149,10 +186,21 @@ class GrowState:
         #: parity of the next one picks its ``small`` buffer
         self.queued_steps = 0
 
+    def _pool_views(self, pool: torch.Tensor):
+        """``pool_ctl``, ``slot_of``, ``slot_leaf`` and ``slot_age`` of a pool
+        buffer (empty views without a pool)."""
+        P = self.P
+        return torch.split(pool, (CTL, self.M, P, P)) if P else (pool,) * 4
+
     def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int, W: int,
-             G: int = 0, Bg: int = 0) -> bool:
-        return (self.device, self.N, self.F, self.B, self.M, self.W, self.G, self.Bg) == (
-            device, N, F, B, num_leaves, W, G, Bg if G else 0)
+             G: int = 0, Bg: int = 0, P: int = 0) -> bool:
+        return (self.device, self.N, self.F, self.B, self.M, self.W, self.G, self.Bg,
+                self.P) == (device, N, F, B, num_leaves, W, G, Bg if G else 0, P)
+
+    def hist_row(self, leaf: int) -> int:
+        """The row of ``hist`` that holds ``leaf``'s histogram (read on the
+        host): the leaf itself, or its pool slot."""
+        return int(self.slot_of[leaf]) if self.P else int(leaf)
 
     @property
     def hist_rows(self) -> int:
@@ -181,10 +229,12 @@ class GrowState:
         max_depth: int,
         hist_dtype: str,
         grouped: bool = False,
+        subtract: bool = True,
     ) -> None:
         """Take this tree's inputs and check them once: ``bins`` [R, N]
-        uint8 contiguous (the partition's columns), ``hist_bins`` an [R, N]
-        uint8 view with any strides (the histograms' rows), R the state's
+        uint8 or int16 contiguous (the partition's columns), ``hist_bins`` an
+        [R, N] view of the same type with any strides (the histograms'
+        rows), R the state's
         :attr:`hist_rows`, ``values`` [N, 3] f32 contiguous, the meta arrays
         int32 [F] and ``feature_mask`` bool [F] contiguous, all on the
         state's device; ``is_categorical`` bool [F] in the meta exactly when
@@ -192,14 +242,22 @@ class GrowState:
         int32 [F]) exactly when it has G > 0. The kernels' launch
         arguments are rebuilt from them on first use and the stream is the
         one current now. ``grouped``: the histograms take their grouped form
-        (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`)."""
+        (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`).
+        ``subtract`` False builds both children of every split from their
+        rows (the reference's ``use_subtract=false``), which needs a pool."""
         dev, N, F, R = self.device, self.N, self.F, self.hist_rows
+        if not subtract and not self.P:
+            raise ValueError("grow_tree_device: use_subtract=False needs a state with pool slots "
+                             "(P = M for no cap)")
         if ("group_id" in feature_meta) != (self.G > 0):
             raise ValueError("grow_tree_device: a state of %d groups and %s EFB plan"
                              % (self.G, "an" if "group_id" in feature_meta else "no"))
         plan = _PLAN_KEYS if self.G else ()
+        if bins.dtype not in BIN_DTYPES or (self.G and bins.dtype != torch.uint8):
+            raise ValueError("grow_tree_device: bins must be uint8 or int16 (uint8 bundled), got %s"
+                             % bins.dtype)
         for name, t, shape, dtype in (
-            ("bins", bins, (R, N), torch.uint8),
+            ("bins", bins, (R, N), bins.dtype),
             ("values", values, (N, 3), torch.float32),
             ("feature_mask", feature_mask, (F,), torch.bool),
             *((k, feature_meta[k], (F,), torch.int32) for k in _META_KEYS + plan),
@@ -217,9 +275,9 @@ class GrowState:
                                    or tuple(is_cat.shape) != (F,) or not is_cat.is_contiguous()):
             raise ValueError("grow_tree_device: is_categorical must be a contiguous bool [%d] "
                              "tensor on %s" % (F, dev))
-        if hist_bins.device != dev or hist_bins.dtype != torch.uint8 or tuple(hist_bins.shape) != (R, N):
-            raise ValueError("grow_tree_device: hist_bins must be an [%d, N] uint8 view on %s"
-                             % (R, dev))
+        if hist_bins.device != dev or hist_bins.dtype != bins.dtype or tuple(hist_bins.shape) != (R, N):
+            raise ValueError("grow_tree_device: hist_bins must be an [%d, N] %s view on %s"
+                             % (R, bins.dtype, dev))
         self.bins, self.hist_bins, self.values = bins, hist_bins, values
         self.feature_meta = {k: feature_meta[k] for k in _META_KEYS + plan}
         self.is_cat = is_cat
@@ -229,6 +287,7 @@ class GrowState:
         self.params, self.two_way, self.max_depth = params, bool(two_way), int(max_depth)
         self.hist_dtype = hist_dtype
         self.grouped = bool(grouped)
+        self.subtract = bool(subtract)
         self.args = {}
         self.stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else None
         self.queued_steps = 0
@@ -253,6 +312,14 @@ class GrowState:
         self.small.zero_()
         if self.G:
             self.small_g.zero_()
+        if self.P:  # the root in slot 0, stamped 1; every other slot free
+            self.pool.fill_(-1)
+            self.pool_ctl.zero_()
+            self.slot_of[:1].zero_()
+            self.slot_leaf[:1].zero_()
+            self.slot_age.zero_()
+            self.slot_age[:1].fill_(1)
+            self.large.zero_()
 
     def clone(self) -> "GrowState":
         """A copy of every tensor of the state with the same bound inputs:
@@ -264,7 +331,9 @@ class GrowState:
          other.node_b) = unpack(other.packed, self.M, self.W)
         for name in ("best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
                      "hist", "small", "small_g", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
-                     "leaf_scratch"):
+                     "leaf_scratch", "pool", "large"):
             setattr(other, name, getattr(self, name).clone())
+        (other.pool_ctl, other.slot_of, other.slot_leaf,
+         other.slot_age) = other._pool_views(other.pool)
         other.args = {}
         return other

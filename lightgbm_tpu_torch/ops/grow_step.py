@@ -76,15 +76,58 @@ def pick(s: gs.GrowState) -> None:
     ctl[gs.BEST], ctl[gs.NEW], ctl[gs.SMALL], ctl[gs.LARGE] = best, new, small, large
     ctl[gs.NUM_LEAVES] = new + 1
     ctl[gs.STEP] = node + 1
+    if s.P:
+        pool_update(s, best, small, large, node)
+
+
+def pool_update(s: gs.GrowState, best: int, small: int, large: int, node: int) -> None:
+    """The histogram pool's LRU update of the split of leaf ``best`` at node
+    ``node`` (lightgbm_tpu/ops/grow.py:1479-1536, HistogramPool::Get): the
+    larger child takes the parent's slot when the parent is resident and
+    the subtraction is on (a hit), else the least recently used slot; the
+    smaller child the least recently used of the others (the lowest slot
+    among equal ages, as ``jnp.argmin``); both slots' occupants evicted,
+    any other slot naming a child freed, both stamped ``node + 2``. The
+    slots and the hit go to ``s.pool_ctl``, and RUN = not hit with LEAF =
+    the larger child for the step's second segment histogram. The plain
+    version of csrc/partition.cu's ``pool_update``."""
+    age = s.slot_age
+    pslot = int(s.slot_of[best])
+    hit = s.subtract and pslot >= 0
+    lslot = pslot if hit else int(torch.argmin(age))
+    others = age.clone()
+    others[lslot] = torch.iinfo(torch.int32).max
+    sslot = int(torch.argmin(others))
+    for occ in (int(s.slot_leaf[lslot]), int(s.slot_leaf[sslot])):
+        if occ >= 0:
+            s.slot_of[occ] = -1
+    s.slot_of[small], s.slot_of[large] = sslot, lslot
+    s.slot_leaf[(s.slot_leaf == small) | (s.slot_leaf == large)] = -1
+    s.slot_leaf[sslot], s.slot_leaf[lslot] = small, large
+    s.slot_age[sslot] = s.slot_age[lslot] = node + 2
+    c = s.pool_ctl
+    c[gs.RUN], c[gs.LEAF], c[gs.HIT] = int(not hit), large, int(hit)
+    c[gs.SSLOT], c[gs.LSLOT], c[gs.PSLOT] = sslot, lslot, pslot
 
 
 def subtract(s: gs.GrowState, parity: int) -> None:
     """``hist[LARGE] = hist[BEST] - small[parity]; hist[SMALL] =
     small[parity]``, then ``small[1 - parity]`` zeroed for the next step
-    (step k's histogram is ``small[k % 2]``). Nothing once ``ctl[ACTIVE]``
-    is 0."""
+    (step k's histogram is ``small[k % 2]``). With a pool the rows are the
+    slots of ``pool_ctl``, and on a miss the larger child's row is its own
+    histogram ``large[parity]`` (``large[1 - parity]`` zeroed too).
+    Nothing once ``ctl[ACTIVE]`` is 0."""
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
+        return
+    if s.P:  # slots: the subtraction on a hit, the larger child's own histogram on a miss
+        c = s.pool_ctl
+        hit = bool(c[gs.HIT])
+        large = s.hist[int(c[gs.PSLOT])] - s.small[parity] if hit else s.large[parity].clone()
+        s.hist[int(c[gs.LSLOT])] = large
+        s.hist[int(c[gs.SSLOT])] = s.small[parity]
+        s.small[1 - parity].zero_()
+        s.large[1 - parity].zero_()
         return
     best, small, large = int(ctl[gs.BEST]), int(ctl[gs.SMALL]), int(ctl[gs.LARGE])
     parent = s.hist[best].clone()

@@ -24,6 +24,9 @@ impl            wrapper, source           JAX kernel it replaces
 ``cuda_packed4`` ``hist_packed4_rows``    ``histogram_pallas_packed4``
                 (``hist_packed4``)
                 csrc/hist_packed4.cu
+(int16 bins)    ``histogram``,            the same at 256 < B <= 1024
+                ``histogram_segment``     (kWide; B <= 336 in the JAX
+                csrc/histogram.cu         kernel, XLA code past it)
 (not routed)    ``hist_v1``               ``histogram_pallas_v1``, the
                 csrc/hist_v1.cu           differential oracle of ``cuda``:
                                           fixed order, no atomics
@@ -79,6 +82,11 @@ from .histogram import (
 # vocabulary, capabilities, packing
 # ---------------------------------------------------------------------------
 
+#: csrc/histogram.cu's caps: uint8 bins (static cells) and int16 bins
+#: (the kWide instantiations, dynamic cells sized by B)
+MAX_BYTE_BINS = 336
+MAX_WIDE_BINS = 1024
+
 IMPLS = ("scatter", "cuda", "cuda_onehot", "cuda_bitplane", "cuda_packed4")
 
 JAX_NAMES = {
@@ -88,10 +96,12 @@ JAX_NAMES = {
 
 # Which bin widths each kernel serves. The bounds are the JAX table's, so a
 # shape is routable to a kernel in one package exactly when it is to its
-# counterpart in the other.
+# counterpart in the other, but for ``cuda`` past 336 bins.
 KERNEL_CAPS = {
-    # shared-memory atomics; the bound is the JAX radix kernel's (B <= 336)
-    "cuda": lambda b: -(-b // 8) * 3 <= 128,
+    # shared-memory atomics: uint8 bins up to the JAX radix kernel's B <= 336,
+    # int16 bins up to 1024, where the JAX package runs XLA code (its
+    # ``pallas`` cap stops at 336), so that a wide run takes the device loop
+    "cuda": lambda b: b <= MAX_WIDE_BINS,
     # two 4-bit bins per byte
     "cuda_packed4": lambda b: b <= 16,
     # one-hot A operand of at most 16 tiles of 16 bins
@@ -166,8 +176,10 @@ def pack_bins(bins_nf: torch.Tensor) -> torch.Tensor:
 
 launches: Dict[str, int] = {}
 
-KERNELS = ("histogram", "histogram_segment", "hist_onehot", "hist_bitplane", "hist_packed4",
-           "hist_v1")
+# ``histogram_wide`` and ``histogram_segment_wide``: csrc/histogram.cu's
+# int16 instantiations, counted apart from the byte ones
+KERNELS = ("histogram", "histogram_segment", "histogram_wide", "histogram_segment_wide",
+           "hist_onehot", "hist_bitplane", "hist_packed4", "hist_v1")
 
 
 def reset_launches() -> None:
@@ -198,19 +210,29 @@ def _check_dtype(hist_dtype: str) -> None:
         raise ValueError("hist_dtype must be one of %s, got %r" % (HIST_DTYPES, hist_dtype))
 
 
-def _check_bins(what: str, bins: torch.Tensor, num_bins: int, max_bins: int) -> None:
+def _check_bins(what: str, bins: torch.Tensor, num_bins: int, max_bins: int,
+                wide: bool = False) -> None:
+    """uint8 bins up to ``max_bins``; with ``wide`` also int16 bins up to
+    :data:`MAX_WIDE_BINS` (csrc/histogram.cu's kWide instantiations)."""
     if bins.device.type != "cuda":
         raise ValueError("%s: unsupported device %s" % (what, bins.device))
-    if bins.dtype != torch.uint8 or bins.dim() != 2:
-        raise ValueError("%s: bins must be a 2-D uint8 tensor" % what)
+    if bins.dim() != 2 or not (bins.dtype == torch.uint8 or (wide and bins.dtype == torch.int16)):
+        raise ValueError("%s: bins must be a 2-D uint8 tensor%s" % (what, " or int16" if wide else ""))
+    if bins.dtype == torch.int16:
+        max_bins = MAX_WIDE_BINS
     if not 1 <= num_bins <= max_bins:
         raise ValueError("%s: num_bins must be in [1, %d], got %d" % (what, max_bins, num_bins))
 
 
-def _rows_n(name: str, bins, values, num_bins, rows, hist_dtype, max_bins) -> int:
+def bin_flags(bins: torch.Tensor, hist_dtype: str) -> int:
+    """csrc/histogram.cu's flags: bit 0 bf16 operands, bit 1 int16 bins."""
+    return int(hist_dtype == "bfloat16") | (2 if bins.dtype == torch.int16 else 0)
+
+
+def _rows_n(name: str, bins, values, num_bins, rows, hist_dtype, max_bins, wide=False) -> int:
     """Validate the arguments of an ``[F, N]`` wrapper; return the row count."""
     _check_dtype(hist_dtype)
-    _check_bins(name, bins, num_bins, max_bins)
+    _check_bins(name, bins, num_bins, max_bins, wide)
     N = bins.shape[1]
     if (
         values.device != bins.device
@@ -222,9 +244,9 @@ def _rows_n(name: str, bins, values, num_bins, rows, hist_dtype, max_bins) -> in
     return N if rows is None else _rows_count(name, rows, bins.device)
 
 
-def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins):
+def _rows_output(name: str, bins, values, num_bins, rows, hist_dtype, max_bins, wide=False):
     """:func:`_rows_n` and the zeroed ``[F, B, 3]`` output."""
-    n = _rows_n(name, bins, values, num_bins, rows, hist_dtype, max_bins)
+    n = _rows_n(name, bins, values, num_bins, rows, hist_dtype, max_bins, wide)
     return n, torch.zeros((bins.shape[0], num_bins, 3), dtype=torch.float32, device=bins.device)
 
 
@@ -258,7 +280,8 @@ def _launch_rows(
 
 # csrc/histogram.cu's block: HIST_GROUP features x a chunk of rows, taken
 # HIST_STEP rows (256 threads x 4 rows) a step, in a static [HIST_GROUP, 336,
-# 3] f32 shared histogram
+# 3] f32 shared histogram (uint8 bins) or a dynamic [HIST_GROUP, B, 3] one
+# (int16 bins)
 HIST_GROUP = 4
 HIST_STEP = 1024
 HIST_MAX_CHUNK = 65536
@@ -310,7 +333,8 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None,
     :func:`histogram_grid`, shared-memory atomics).
 
     ``bins`` is an ``[F, N]`` uint8 view with any strides, so the transposed
-    ``[N, F]`` copy passes as ``bins_nf.t()``. ``rows`` is an optional int32
+    ``[N, F]`` copy passes as ``bins_nf.t()``; or int16 at up to 1024 bins
+    (the kernel's kWide instantiations, counted as ``histogram_wide``). ``rows`` is an optional int32
     vector of row indices (a leaf segment) into both inputs. The other
     ``[F, N]`` wrappers take the same arguments. ``out``, a zeroed
     contiguous ``[F, B, 3]`` f32 tensor on the bins' device, receives the
@@ -321,26 +345,33 @@ def histogram(bins, values, num_bins, rows=None, hist_dtype="float32", out=None,
         got = leaf_histogram(bins, values, num_bins, rows, hist_dtype)
         return got if out is None else out.copy_(got)
     if out is None:
-        n, out = _rows_output("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+        n, out = _rows_output("histogram", bins, values, num_bins, rows, hist_dtype,
+                              MAX_BYTE_BINS, wide=True)
     else:
-        n = _rows_n("histogram", bins, values, num_bins, rows, hist_dtype, 336)
+        n = _rows_n("histogram", bins, values, num_bins, rows, hist_dtype, MAX_BYTE_BINS,
+                    wide=True)
         if (out.device != bins.device or out.dtype != torch.float32 or not out.is_contiguous()
                 or tuple(out.shape) != (bins.shape[0], num_bins, 3)):
             raise ValueError("histogram: out must be a contiguous [F, B, 3] f32 tensor on the bins' device")
     F = bins.shape[0]
     if n == 0 or F == 0:
         return out
-    bf16 = hist_dtype == "bfloat16"
+    flags = bin_flags(bins, hist_dtype)
     code = _entry("histogram", "lgbt_histogram_grouped" if grouped else "lgbt_histogram",
                   _ARGS_HIST)(
         bins.data_ptr(), bins.stride(0), bins.stride(1), values.data_ptr(),
-        rows.data_ptr() if rows is not None else None, n, F, num_bins, int(bf16),
+        rows.data_ptr() if rows is not None else None, n, F, num_bins, flags,
         histogram_grid(n, F, _sm_count(bins.device))[2],
         out.data_ptr(), torch.cuda.current_stream(bins.device).cuda_stream,
     )
     cuda_build.check(code, "histogram kernel")
-    launches["histogram_bf16" if bf16 else "histogram"] += 1
+    launches[_count_key("histogram", flags)] += 1
     return out
+
+
+def _count_key(name: str, flags: int) -> str:
+    """The launch count of a csrc/histogram.cu entry for its :func:`bin_flags`."""
+    return name + ("_wide" if flags & 2 else "") + ("_bf16" if flags & 1 else "")
 
 
 def segment_max_chunks(N: int, F: int, num_sms: int) -> int:
@@ -358,7 +389,7 @@ _ARGS_SEGMENT = (
 )
 
 
-def histogram_segment(s, parity: int = 0) -> None:
+def histogram_segment(s, parity: int = 0, large: bool = False) -> None:
     """The split loop's histogram of the smaller child (csrc/histogram.cu
     ``lgbt_histogram_segment``) on a :class:`~.grow_state.GrowState`: rows
     ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l = ctl[SMALL]``,
@@ -367,33 +398,44 @@ def histogram_segment(s, parity: int = 0) -> None:
     it; a bundled state's group-space ``small_g[parity]`` at its group
     width), in the state's ``hist_dtype``; nothing once ``ctl[ACTIVE]``
     is 0. The grid is fixed once a tree (:func:`segment_max_chunks`); the
-    state's ``grouped`` picks the grouped form. On a CPU state the plain
-    version, ops/histogram.py ``segment_histogram``."""
+    state's ``grouped`` picks the grouped form, its bins' type (uint8 or
+    int16) the byte or the wide instantiation.
+
+    ``large`` (a state with a histogram pool): the same entry reads the
+    pool's control vector ``s.pool_ctl`` instead, so it builds the larger
+    child (leaf ``pool_ctl[LEAF]``) into ``s.large[parity]`` when the
+    step's pick found its parent evicted (``pool_ctl[RUN]``), and returns
+    at once otherwise. On a CPU state the plain version, ops/histogram.py
+    ``segment_histogram``."""
     dev = s.device
+    if large and not s.P:
+        raise ValueError("histogram_segment: the larger child's histogram needs a pool")
     if dev.type == "cpu":
-        segment_histogram(s, parity)
+        segment_histogram(s, parity, large)
         return
     if dev.type != "cuda":
         raise ValueError("histogram_segment: unsupported device %s" % dev)
-    key = "histogram_segment%d" % parity
+    key = "histogram_segment%d%s" % (parity, "_large" if large else "")
     args = s.args.get(key)
     if args is None:
         _check_dtype(s.hist_dtype)
         R, B = s.hist_rows, s.hist_width
-        if not 1 <= B <= 336:
-            raise ValueError("histogram_segment: num_bins must be in [1, 336], got %d" % B)
         b = s.hist_bins
+        cap = MAX_WIDE_BINS if b.dtype == torch.int16 else MAX_BYTE_BINS
+        if not 1 <= B <= cap:
+            raise ValueError("histogram_segment: num_bins must be in [1, %d], got %d" % (cap, B))
         sms = _sm_count(dev)
+        ctl, out = (s.pool_ctl, s.large[parity]) if large else (s.ctl, s.hist_out(parity))
         args = s.args[key] = (
             b.data_ptr(), b.stride(0), b.stride(1), s.values.data_ptr(), s.order.data_ptr(),
-            s.ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), R, B,
-            int(s.hist_dtype == "bfloat16"), sms, segment_max_chunks(s.N, R, sms),
-            s.hist_out(parity).data_ptr(), s.stream,
+            ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), R, B,
+            bin_flags(b, s.hist_dtype), sms, segment_max_chunks(s.N, R, sms),
+            out.data_ptr(), s.stream,
         )
     symbol = "lgbt_histogram_segment_grouped" if s.grouped else "lgbt_histogram_segment"
     code = _entry("histogram", symbol, _ARGS_SEGMENT)(*args)
     cuda_build.check(code, "histogram segment kernel")
-    launches["histogram_segment_bf16" if s.hist_dtype == "bfloat16" else "histogram_segment"] += 1
+    launches[_count_key("histogram_segment", args[10])] += 1
 
 
 def hist_onehot(bins, values, num_bins, rows=None, hist_dtype="float32"):

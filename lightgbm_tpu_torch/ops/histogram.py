@@ -41,7 +41,8 @@ def leaf_histogram(
     rows: Optional[torch.Tensor] = None,
     hist_dtype: str = "float32",
 ) -> torch.Tensor:
-    """``[F, B, K]`` f32 histogram of ``values`` ([N, K]) over ``bins`` ([F, N]).
+    """``[F, B, K]`` f32 histogram of ``values`` ([N, K]) over ``bins`` ([F, N]
+    of any integer type: uint8, int16 or int32).
 
     ``rows`` (int indices) restricts the histogram to those rows of both
     ``bins`` and ``values`` (a leaf segment), in that order."""
@@ -81,20 +82,22 @@ def leaf_histogram_packed4_rows(
     return leaf_histogram(bins, values, 16, None, hist_dtype)[:, :num_bins].contiguous()
 
 
-def segment_histogram(s, parity: int = 0) -> None:
+def segment_histogram(s, parity: int = 0, large: bool = False) -> None:
     """The split loop's histogram of the smaller child on a
     :class:`~.grow_state.GrowState` ``s``: :func:`leaf_histogram` of the
     rows ``order[leaf_begin[l] : + leaf_count[l]]`` of leaf ``l =
     ctl[SMALL]`` into ``s.hist_out(parity)`` (``small[parity]``, or a
     bundled state's group-space ``small_g[parity]``), in ``s.hist_dtype``;
-    nothing once ``ctl[ACTIVE]`` is 0. The plain version of
+    nothing once ``ctl[ACTIVE]`` is 0. ``large``: the same on the pool's
+    control vector ``s.pool_ctl`` into ``s.large[parity]`` (the larger
+    child, when its parent was evicted). The plain version of
     ops/hist_kernel.py ``histogram_segment``."""
-    if not int(s.ctl[gs.ACTIVE]):
+    ctl, out = (s.pool_ctl, s.large[parity]) if large else (s.ctl, s.hist_out(parity))
+    if not int(ctl[gs.ACTIVE]):
         return
-    leaf = int(s.ctl[gs.SMALL])
+    leaf = int(ctl[gs.SMALL])
     b, c = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
-    s.hist_out(parity).copy_(
-        leaf_histogram(s.hist_bins, s.values, s.hist_width, s.order[b:b + c], s.hist_dtype))
+    out.copy_(leaf_histogram(s.hist_bins, s.values, s.hist_width, s.order[b:b + c], s.hist_dtype))
 
 
 def leaf_values(

@@ -6,8 +6,11 @@ segment, in one cooperative launch.
 :class:`~.grow_state.GrowState`: the kernel when the state lies on a CUDA
 device, the plain PyTorch versions (ops/grow_step.py ``pick``, then
 ops/partition.py ``partition``) when it lies on the CPU; any other device
-raises, and so does a launch the card refuses. ``launches`` counts calls
-that launched the kernel.
+raises, and so does a launch the card refuses. ``launches`` counts the
+calls that launched the kernel, by instantiation (:data:`KERNELS`):
+``pick_partition``, with ``_wide`` for int16 bins and ``_pool`` for a
+histogram pool's (the LRU update in the wiring thread); each launch counts
+under one key.
 
 ``block_mirror`` replays the kernel's block decomposition on the host: the
 chunk each block owns, its left count, the scan of the block totals each
@@ -31,7 +34,17 @@ from . import grow_step as plain_step
 from . import partition as plain
 from .split import MISSING_NAN, MISSING_ZERO
 
-launches = 0
+KERNELS = ("pick_partition", "pick_partition_wide", "pick_partition_pool",
+           "pick_partition_wide_pool")
+launches: Dict[str, int] = {}
+
+
+def reset_launches() -> None:
+    """Every launch count of this module to 0."""
+    launches.update(dict.fromkeys(KERNELS, 0))
+
+
+reset_launches()
 
 #: csrc/partition.cu's block shape: threads, rows a thread a tile, rows a
 #: block keeps in shared memory
@@ -43,25 +56,27 @@ CAP = 10240
 EFB_CAP = CAP - 1024
 
 ARGTYPES = (
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 23
-    + [ctypes.c_int] * 3 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 24
+    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
 )
 _grids: Dict[tuple, int] = {}
 
 
 def co_resident_grid(device: torch.device, categorical: bool = False,
-                     bundled: bool = False) -> int:
+                     bundled: bool = False, wide: bool = False, pooled: bool = False) -> int:
     """The blocks of pick_partition's instantiation (numerical or
-    categorical, unbundled or bundled) that fit on the card at once
+    categorical, unbundled or bundled, uint8 or int16 bins, with or without
+    a histogram pool) that fit on the card at once
     (``lgbt_pick_partition_grid``: the occupancy a multiprocessor times the
     multiprocessor count), read once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, bool(categorical), bool(bundled))
+    key = (index, bool(categorical), bool(bundled), bool(wide), bool(pooled))
     if key not in _grids:
         fn = cuda_build.entry("partition", "lgbt_pick_partition_grid",
                               [ctypes.c_void_p, ctypes.c_int])
         out = ctypes.c_int(0)
-        kind = int(bool(categorical)) | (int(bool(bundled)) << 1)
+        kind = (int(bool(categorical)) | (int(bool(bundled)) << 1) | (int(bool(wide)) << 2)
+                | (int(bool(pooled)) << 3))
         with torch.cuda.device(index):
             cuda_build.check(fn(ctypes.addressof(out), kind), "pick_partition occupancy")
         _grids[key] = out.value
@@ -86,8 +101,8 @@ def pick_partition(s: gs.GrowState) -> None:
     if args is None:
         args = s.args["pick_partition"] = launch_args(s)
     cuda_build.check(entry()(*args), "pick_partition kernel")
-    global launches
-    launches += 1
+    launches["pick_partition" + ("_wide" if s.bins.dtype == torch.int16 else "")
+             + ("_pool" if s.P else "")] += 1
 
 
 def entry():
@@ -101,7 +116,8 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
     fits; the card tests take fewer); raises for a grid that does not fit."""
     cat = s.is_cat is not None
     efb = s.G > 0
-    fits = co_resident_grid(s.device, cat, efb)
+    wide = s.bins.dtype == torch.int16
+    fits = co_resident_grid(s.device, cat, efb, wide, s.P > 0)
     blocks = fits if grid is None else int(grid)
     if not 1 <= blocks <= min(s.block_left.numel(), fits):
         raise ValueError("pick_partition: a grid of %d blocks does not fit on the card" % blocks)
@@ -116,6 +132,7 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
         s.best_b.data_ptr() if cat else None, s.node_b.data_ptr() if cat else None,
         s.is_cat.data_ptr() if cat else None,
         m["group_id"].data_ptr() if efb else None, m["bin_offset"].data_ptr() if efb else None,
+        s.pool.data_ptr() if s.P else None, s.P, int(s.subtract), 2 if wide else 1,
         s.M, s.F, s.W,
         p.lambda_l1, p.lambda_l2, p.max_delta_step, blocks, s.stream,
     )

@@ -12,8 +12,8 @@ right), and the trees' values are summed in f64 in boosting order.
 
 Bin space (``make_predict_tree``, ``tree_predict_leaf``,
 ``tree_predict_value``, ``add_tree_value``): the counterpart of
-lightgbm_tpu/ops/predict.py over an ``[N, F]`` row-major uint8 bin matrix
-binned with the training set's mappers: a node's decision is an integer
+lightgbm_tpu/ops/predict.py over an ``[N, F]`` row-major bin matrix (uint8,
+or int16 past 256 bins a feature) binned with the training set's mappers: a node's decision is an integer
 compare plus the missing-bin rules (dense_bin.hpp Split), or at a
 categorical node the lookup of the row's bin in the node's left-side
 membership (CategoricalDecisionInner, tree.h:275). Over an EFB-bundled
@@ -186,9 +186,9 @@ def make_predict_tree(tree, feature_meta: Dict[str, torch.Tensor]) -> PredictTre
 
 
 def tree_predict_leaf(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
-    """Leaf index [N] int64 of every row of the ``[N, F]`` uint8 bin matrix
-    ``bins`` (``[N, G]`` bundled): all rows advance one level a step until
-    each is at a leaf."""
+    """Leaf index [N] int64 of every row of the ``[N, F]`` bin matrix
+    ``bins`` (uint8, or int16 past 256 bins a feature; ``[N, G]`` uint8
+    bundled): all rows advance one level a step until each is at a leaf."""
     N = bins.shape[0]
     node = torch.zeros(N, dtype=torch.int64, device=bins.device)
     if tree.num_leaves <= 1:
@@ -221,7 +221,7 @@ def tree_predict_value(bins: torch.Tensor, tree: PredictTree) -> torch.Tensor:
 
 
 def add_tree_value(
-    bins: torch.Tensor,  # [N, F] uint8
+    bins: torch.Tensor,  # [N, F] uint8 or int16
     node_i: torch.Tensor,  # [>= M-1, 5] int32: feature, threshold, left, right, default_left
     num_leaves: torch.Tensor,  # [1] int32: the tree's leaves
     feature_meta: Dict[str, torch.Tensor],

@@ -4,7 +4,8 @@
 vector: the kernel for CUDA tensors, the plain PyTorch version
 (ops/predict.py ``add_tree_value``) for CPU tensors; any other device, and
 anything the kernel does not take, raises, and so does a failed build or
-launch. ``launches`` counts the calls that launched the kernel.
+launch. ``launches`` counts the calls that launched the kernel, by
+instantiation: ``predict_bins``, and ``predict_bins_wide`` for int16 bins.
 
 The tree is read as the device-resident split loop keeps it
 (ops/grow_state.py): ``node_i`` rows (feature, threshold, left, right,
@@ -24,7 +25,16 @@ import torch
 from . import cuda_build, hist_kernel
 from . import predict as plain
 
-launches = 0
+KERNELS = ("predict_bins", "predict_bins_wide")
+launches: Dict[str, int] = {}
+
+
+def reset_launches() -> None:
+    """Every launch count of this module to 0."""
+    launches.update(dict.fromkeys(KERNELS, 0))
+
+
+reset_launches()
 
 #: the nodes a block stages in shared memory, 16 bytes each, up to 227 KB
 MAX_NODES = 227 * 1024 // 16
@@ -34,7 +44,7 @@ _META_KEYS = ("num_bin", "missing_type", "default_bin")
 _ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
     + [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 )
 
 
@@ -63,12 +73,12 @@ def add_tree_value(
     node_b: Optional[torch.Tensor] = None,
 ) -> None:
     """``score[r] += value[leaf(r)]`` for every row of ``bins`` ([N, F]
-    uint8, or ``[N, G]`` with the meta's EFB plan), through the tree of ``num_leaves[0]`` leaves whose nodes are the
-    first rows of ``node_i`` ([K, 5] int32) and, with ``is_categorical`` in
-    the meta, of ``node_b`` ([K, W] int32 membership words); ``value`` [> K]
-    f32, ``score`` [N] f32 updated in place, ``leaf_out`` optional [N]
-    int32. Reads nothing back on CUDA."""
-    global launches
+    uint8 or int16, or ``[N, G]`` uint8 with the meta's EFB plan), through
+    the tree of ``num_leaves[0]`` leaves whose nodes are the first rows of
+    ``node_i`` ([K, 5] int32) and, with ``is_categorical`` in the meta, of
+    ``node_b`` ([K, W] int32 membership words); ``value`` [> K] f32,
+    ``score`` [N] f32 updated in place, ``leaf_out`` optional [N] int32.
+    Reads nothing back on CUDA."""
     dev = bins.device
     if dev.type == "cpu":
         plain.add_tree_value(bins, node_i, num_leaves, feature_meta, value, score, leaf_out, node_b)
@@ -82,7 +92,8 @@ def add_tree_value(
     efb = "group_id" in feature_meta
     if not efb and C != F:
         raise ValueError("predict_bins: bins has %d columns for %d features" % (C, F))
-    _check("bins", bins, torch.uint8, dev)
+    wide = bins.dtype == torch.int16
+    _check("bins", bins, torch.int16 if wide and not efb else torch.uint8, dev)
     if node_i.dim() != 2 or node_i.shape[1] != 5:
         raise ValueError("predict_bins: node_i must be [K, 5], got %s" % (tuple(node_i.shape),))
     _check("node_i", node_i, torch.int32, dev)
@@ -122,7 +133,7 @@ def add_tree_value(
         None if is_cat is None else node_b.data_ptr(),
         None if is_cat is None else is_cat.data_ptr(), W,
         feature_meta["group_id"].data_ptr() if efb else None,
-        feature_meta["bin_offset"].data_ptr() if efb else None, grid(N, hist_kernel._sm_count(dev)),
-        torch.cuda.current_stream(dev).cuda_stream,
+        feature_meta["bin_offset"].data_ptr() if efb else None, 2 if wide else 1,
+        grid(N, hist_kernel._sm_count(dev)), torch.cuda.current_stream(dev).cuda_stream,
     ), "predict_bins kernel")
-    launches += 1
+    launches["predict_bins_wide" if wide else "predict_bins"] += 1

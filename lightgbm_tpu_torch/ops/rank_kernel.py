@@ -5,19 +5,24 @@
 on a CUDA device, its plain version (ops/rank.py ``lambdas``, the TPU
 program's bucketed pair tensors) when it lies on the CPU; any other device,
 anything the kernel does not take, and a failed build or launch raise.
-``launches`` counts the calls that launched the kernel.
+``launches["lambdarank"]`` counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import cuda_build
 from . import rank as plain
 
-launches = 0
+launches: Dict[str, int] = {"lambdarank": 0}
+
+
+def reset_launches() -> None:
+    launches["lambdarank"] = 0
+
 
 _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 #: rows of a query the kernel keeps in shared memory (csrc/lambdarank.cu
@@ -58,6 +63,5 @@ def lambdarank(score: torch.Tensor, plan: plain.RankPlan, sigmoid: float,
         None if scratch is None else scratch.data_ptr(), float(sigmoid), plan.num_queries,
         torch.cuda.current_stream(dev).cuda_stream,
     ), "lambdarank kernel")
-    global launches
-    launches += 1
+    launches["lambdarank"] += 1
     return grad, hess

@@ -7,8 +7,8 @@ device loop's entries on a bundled :class:`~.grow_state.GrowState`, which
 read the totals and the stop flag from the state in device memory. Each
 launches the kernel for CUDA tensors and runs its plain version
 (ops/remap.py) for CPU tensors; any other device, anything the kernel does
-not take, and a failed build or launch raise. ``launches`` counts the
-calls that launched the kernel.
+not take, and a failed build or launch raise. ``launches["efb_remap"]``
+counts the calls that launched the kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +20,12 @@ import torch
 from . import cuda_build, grow_state as gs
 from . import remap as plain
 
-launches = 0
+launches: Dict[str, int] = {"efb_remap": 0}
+
+
+def reset_launches() -> None:
+    launches["efb_remap"] = 0
+
 
 #: the widest feature row and group row the kernel takes (one thread a sub-bin)
 MAX_BINS = plain.SLOTS
@@ -39,8 +44,7 @@ def _launch(inp: torch.Tensor, out: torch.Tensor, zero_g: Optional[torch.Tensor]
         totals.data_ptr(), None if ctl is None else ctl.data_ptr(),
         *(meta[k].data_ptr() for k in _PLAN_KEYS), row, F, B, G, Bg, stream,
     ), "efb_remap kernel")
-    global launches
-    launches += 1
+    launches["efb_remap"] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev: torch.device, shape) -> None:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import math
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import grow_state as gs
@@ -159,7 +160,10 @@ def leaf_split_gain(sum_grad, sum_hess, p: SplitParams):
 
 def _bin_prefix(contrib: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix over the bin axis (dim -2 of [..., B, 3]) as a
-    sequential f32 left fold."""
+    sequential f32 left fold (on the CPU numpy's ``add.accumulate``, the
+    same fold)."""
+    if contrib.device.type == "cpu" and contrib.dtype == torch.float32:
+        return torch.from_numpy(np.add.accumulate(contrib.numpy(), axis=-2, dtype=np.float32))
     out = torch.empty_like(contrib)
     carry = torch.zeros_like(contrib[..., 0, :])
     for b in range(contrib.shape[-2]):
@@ -299,7 +303,8 @@ def categorical_candidates(hist, sum_grad, sum_hess, num_data, min_c, max_c, mgs
         ok_i = left_ok & right_ok
         emit = torch.zeros_like(ok_i)
         gcnt = torch.zeros((C, F), dtype=hist.dtype, device=dev)
-        for i in range(B):
+        # positions past a feature's used bins emit nothing that counts
+        for i in range(int(used_ctr.max()) if B else 0):
             gcnt = gcnt + h_dir[:, :, i, 2]
             e = ok_i[:, :, i] & (gcnt >= p.min_data_per_group)
             emit[:, :, i] = e
@@ -535,7 +540,8 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
     """The split loop's scan on a :class:`~.grow_state.GrowState` ``s``:
     :func:`find_best_split_pair` of leaf ``ctl[BEST]`` (C = 1, the root) or
     of the children ``ctl[BEST]`` and ``ctl[NEW]`` (C = 2) out of
-    ``s.hist``, their sums and windows from ``s.laux``, each record written
+    ``s.hist`` (a pool's rows by slot), their sums and windows from
+    ``s.laux``, each record written
     to the leaf's row of ``s.best_f`` / ``s.best_i`` with the gain -inf at a
     depth >= ``s.max_depth`` (> 0). Nothing once ``ctl[ACTIVE]`` is 0. The
     plain version of ops/split_kernel.py ``split_pair_step``."""
@@ -546,7 +552,7 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
     aux = s.laux[leaves]
     outf, outi, outb = find_best_split_pair(
         s.hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta,
-        s.feature_mask, s.params, s.two_way, leaves,
+        s.feature_mask, s.params, s.two_way, [s.hist_row(leaf) for leaf in leaves],
     )
     if s.max_depth > 0:
         outf[s.leaf_i[leaves, 1] >= s.max_depth, 0] = K_MIN_SCORE

@@ -2,16 +2,25 @@
 
 ``find_best_split_pair`` takes the kernel for CUDA tensors and the plain
 PyTorch version (ops/split.py) for CPU tensors; any other device, and
-anything the kernel does not take, raises. ``launches`` counts calls that
-launched the kernel. ``split_pair_step`` is the device-resident split
-loop's entry (``lgbt_split_pair_dev``): it reads the leaves, their sums,
-windows and depth from a :class:`~.grow_state.GrowState` in device memory
-and writes the records into its ``best_f`` / ``best_i``; ``step_launches``
-counts it. ``split_pair_fold`` is that entry as a step of the loop runs
-it: the histogram subtraction folded into the scan, the scratch buffers
-alternating by step parity; ``fold_launches`` counts it. ``fold_mirror``
-replays its block decomposition on the host (which block reads and writes
-which rows), so that the CPU tests hold it to the plain version.
+anything the kernel does not take, raises. ``split_pair_step`` is the
+device-resident split loop's entry (``lgbt_split_pair_dev``): it reads the
+leaves, their sums, windows and depth from a
+:class:`~.grow_state.GrowState` in device memory and writes the records
+into its ``best_f`` / ``best_i``. ``split_pair_fold`` is that entry as a
+step of the loop runs it: the histogram subtraction folded into the scan,
+the scratch buffers alternating by step parity. ``fold_mirror`` replays
+its block decomposition on the host (which block reads and writes which
+rows), so that the CPU tests hold it to the plain version.
+
+The kernel's rows are staged in shared memory up to
+``hist_kernel.MAX_BYTE_BINS`` (336) bins; past that, to 1024, its
+``rows1024`` instantiations run (whatever the bins' type: the scan reads
+histograms only). A state with a histogram pool takes the folded entry's
+pool instantiation, which reads the rows by slot. ``launches`` counts the
+calls that launched the kernel, by instantiation (:data:`KERNELS`):
+``split_pair``, ``split_pair_step`` and ``split_pair_fold``, with
+``_rows1024`` past 336 bins and ``_pool`` for the pool's; each launch
+counts under one key.
 
 With categorical features (``is_categorical`` in the meta) the kernel's
 categorical instantiations run: each feature of that kind takes the
@@ -35,13 +44,25 @@ import torch
 
 from . import cuda_build, grow_state as gs, split
 from . import grow_step as plain_step
+from .hist_kernel import MAX_BYTE_BINS, MAX_WIDE_BINS as MAX_BINS
 from .split import SplitParams
 
-launches = 0
-step_launches = 0
-fold_launches = 0
+KERNELS = ("split_pair", "split_pair_rows1024", "split_pair_step", "split_pair_step_rows1024",
+           "split_pair_fold", "split_pair_fold_rows1024", "split_pair_fold_pool",
+           "split_pair_fold_rows1024_pool")
+launches: Dict[str, int] = {}
 
-MAX_BINS = 336  # the kernel's shared prefix row, the cap of csrc/histogram.cu
+
+def reset_launches() -> None:
+    """Every launch count of this module to 0."""
+    launches.update(dict.fromkeys(KERNELS, 0))
+
+
+reset_launches()
+
+
+def _count(name: str, B: int, pooled: bool = False) -> None:
+    launches[name + ("_rows1024" if B > MAX_BYTE_BINS else "") + ("_pool" if pooled else "")] += 1
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
 #: the categorical arguments of both entries: is_cat, feat_b, outb; W,
 #: max_cat_to_onehot; cat_smooth, lambda_l2 + cat_l2; max_cat_threshold;
@@ -93,7 +114,7 @@ def find_best_split_pair(
 
     ``hist`` is [C, F, B, 3], or with ``leaves`` (C leaf indices) the
     grower's [M, F, B, 3], of which the scan reads rows ``leaves``. On CUDA:
-    ``hist`` contiguous f32 with B <= 336 and C 1 or 2, ``sums`` [C, 3] and
+    ``hist`` contiguous f32 with B <= 1024 and C 1 or 2, ``sums`` [C, 3] and
     ``cons`` [C, 2] contiguous f32, the meta arrays contiguous int32 [F],
     ``is_categorical`` (when present) and ``feature_mask`` bool [F], all on
     one device."""
@@ -152,13 +173,12 @@ def find_best_split_pair(
         *_cat_args(is_cat, feat_b, outb, W, p), torch.cuda.current_stream(dev).cuda_stream,
     )
     cuda_build.check(code, "split_pair kernel")
-    global launches
-    launches += 1
+    _count("split_pair", B)
     return outf, outi, outb
 
 
 _ARGTYPES_STEP = (
-    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 6 + [ctypes.c_int] + _CAT_ARGTYPES + [ctypes.c_void_p]
 )
 
@@ -166,15 +186,20 @@ _ARGTYPES_STEP = (
 def _step_args(s: gs.GrowState, C: int, parity: Optional[int]) -> tuple:
     """``lgbt_split_pair_dev``'s arguments for the CUDA state ``s``: the
     plain entry (``parity`` None) or the folded one, which reads
-    ``s.small[parity]`` and clears ``s.small[1 - parity]``."""
+    ``s.small[parity]`` and clears ``s.small[1 - parity]`` (and with a
+    pool reads its slots and ``s.large[parity]``, and clears
+    ``s.large[1 - parity]``)."""
     if s.B > MAX_BINS:
         raise ValueError("split_pair_step: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
     p, m = s.params, s.feature_meta
     small, zero = (0, 0) if parity is None else (
         s.small[parity].data_ptr(), s.small[1 - parity].data_ptr())
+    pool, large, large_zero = (s.pool.data_ptr(), s.large[parity].data_ptr(),
+                               s.large[1 - parity].data_ptr()) \
+        if s.P and parity is not None else (None, None, None)
     return (
         s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(), small, zero,
-        s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
+        pool, large, large_zero, s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
         s.feat_f.data_ptr(), s.feat_i.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(),
         _ticket_counter(s.device).data_ptr(), C, s.F, s.B, p.lambda_l1, p.lambda_l2,
         p.max_delta_step, float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
@@ -213,8 +238,7 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
         split.split_pair_step(s, C)
         return
     _launch_step(s, "split_pair_step%d" % C, C, None)
-    global step_launches
-    step_launches += 1
+    _count("split_pair_step", s.B)
 
 
 def split_pair_fold(s: gs.GrowState, parity: int) -> None:
@@ -222,17 +246,18 @@ def split_pair_fold(s: gs.GrowState, parity: int) -> None:
     launch: ``hist[LARGE] = hist[BEST] - small[parity]``, ``hist[SMALL] =
     small[parity]``, ``small[1 - parity]`` cleared for the next step, then
     :func:`split_pair_step` with C = 2 on those rows; nothing once
-    ``ctl[ACTIVE]`` is 0. The folded kernel on a CUDA state, the plain
-    version (ops/grow_step.py ``split_pair_fold``) on a CPU one; see
-    csrc/split_pair.cu."""
+    ``ctl[ACTIVE]`` is 0. With a pool the rows are the slots the step's
+    pick chose, and on a miss the larger child's row is its own histogram
+    ``large[parity]`` (ops/grow_step.py ``subtract``). The folded kernel on
+    a CUDA state, the plain version (ops/grow_step.py ``split_pair_fold``)
+    on a CPU one; see csrc/split_pair.cu."""
     if parity not in (0, 1):
         raise ValueError("split_pair_fold: parity must be 0 or 1, not %r" % (parity,))
     if not _cuda_state(s, "split_pair_fold"):
         plain_step.split_pair_fold(s, parity)
         return
     _launch_step(s, "split_pair_fold%d" % parity, 2, parity)
-    global fold_launches
-    fold_launches += 1
+    _count("split_pair_fold", s.B, s.P > 0)
 
 
 def fold_mirror(s: gs.GrowState, parity: int, order: str = "large_first") -> Dict:
@@ -250,8 +275,8 @@ def fold_mirror(s: gs.GrowState, parity: int, order: str = "large_first") -> Dic
     cell one block writes is read or written by another block (a race the
     launch's order would decide). Returns the blocks' reads and writes:
     ``{(f, c): (reads, writes)}``, each a set of (buffer, index, f)."""
-    if s.device.type != "cpu":
-        raise ValueError("fold_mirror: a CPU state")
+    if s.device.type != "cpu" or s.P:
+        raise ValueError("fold_mirror: a CPU state without a pool")
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return {}

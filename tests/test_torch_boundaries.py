@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as tlgb
-from lightgbm_tpu_torch.ops import hist_kernel, predict_kernel, split_kernel
+from lightgbm_tpu_torch.ops import cuda_graph, hist_kernel, split_kernel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "lightgbm_tpu_torch")
@@ -92,9 +92,7 @@ def test_server_refuses_cuda_without_a_card(monkeypatch, tmp_path):
 
 
 def test_cpu_path_launches_no_kernel():
-    hist_kernel.reset_launches()
-    split_kernel.launches = 0
-    predict_kernel.launches = 0
+    cuda_graph.reset_launches()
     X, y = _data()
     train_set = tlgb.Dataset(X, label=y)
     b = tlgb.train(
@@ -103,8 +101,7 @@ def test_cpu_path_launches_no_kernel():
         verbose_eval=False, device="cpu",
     )
     assert b.num_trees() == 3
-    assert not any(hist_kernel.launches.values()) and split_kernel.launches == 0
-    assert predict_kernel.launches == 0
+    assert not any(cuda_graph.launch_counts().values())
 
 
 def test_wrappers_refuse_other_devices():
@@ -123,7 +120,8 @@ def test_wrappers_refuse_other_devices():
     ({"tree_learner": "voting"}, "tree_learner"),
     ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
     ({"cegb_penalty_split": 0.1}, "cegb"),
-    ({"histogram_pool_size": 1.0}, "histogram_pool_size"),
+    # a pool on the host split loop (a routed run; the CPU's default route)
+    ({"histogram_pool_size": 0.05}, "histogram_pool_size on the host split loop"),
     ({"tree_learner": "data"}, "tree_learner"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
@@ -156,8 +154,9 @@ def test_two_round_file_loading_raises(tmp_path):
 def test_categorical_data_trains_and_bundled_data_raises():
     """A categorical feature trains (tests/test_torch_categorical.py holds it
     to the JAX package), and so does an EFB-bundled dataset
-    (tests/test_torch_efb.py holds it to the JAX package); more than 256
-    bins a feature still raises."""
+    (tests/test_torch_efb.py holds it to the JAX package); more than 1024
+    bins a feature still raises (up to 1024 trains:
+    tests/test_torch_widebin.py)."""
     X, y = _data()
     X[:, 0] = np.floor(np.abs(X[:, 0]) * 3)
     bst = tlgb.train(
@@ -184,10 +183,49 @@ def test_categorical_data_trains_and_bundled_data_raises():
         assert set(g._tree_arrays[0].split_feature[:int(g._tree_arrays[0].num_leaves) - 1]
                    .tolist()) <= set(range(8))
         np.testing.assert_array_equal(bst.predict(sp.csr_matrix(onehot)), bst.predict(onehot))
-    wide = np.c_[np.arange(len(y)) % 300, X[:, 1:]]
-    with pytest.raises(NotImplementedError, match="256 bins"):
-        tlgb.train({"objective": "binary", "verbose": -1, "max_bin": 300, "min_data_in_bin": 1},
-                   tlgb.Dataset(wide, label=y), 1, device="cpu")
+    X_wide, y_wide = _data(n=2400)
+    wide = np.c_[np.arange(len(y_wide)) % 1100, X_wide[:, 1:]]
+    with pytest.raises(NotImplementedError, match="max_bin: more than 1024 bins"):
+        tlgb.train({"objective": "binary", "verbose": -1, "max_bin": 1100, "min_data_in_bin": 1},
+                   tlgb.Dataset(wide, label=y_wide), 1, device="cpu")
+
+
+def test_wide_bundle_and_routed_pool_raise():
+    """The refusals that stand beside wide bins and the pool, each naming its
+    parameter, none of them training on another path: an EFB bundle wider
+    than 256 bins (a wide feature in a sparse table), and a histogram pool
+    on a run whose route sends a row class to the host split loop."""
+    import scipy.sparse as sp
+
+    rng = np.random.RandomState(2)
+    n = 3000
+    hot = np.zeros((n, 6))
+    hot[np.arange(n), rng.randint(0, 6, n)] = 1.0
+    wide_col = np.where(rng.rand(n) < 0.5, 0.0, np.arange(n) % 400 + 1.0)
+    X = sp.csr_matrix(np.c_[wide_col, hot])
+    y = (hot[:, 0] + (wide_col > 200) > 0.5).astype(np.float64)
+    params = {"objective": "binary", "verbose": -1, "max_bin": 400, "min_data_in_bin": 1}
+    ds = tlgb.Dataset(X, label=y)
+    binned = ds.get_binned(tlgb.config.Config.from_params(params))
+    assert binned.is_bundled and binned.max_group_bins > 256
+    with pytest.raises(NotImplementedError, match="enable_bundle"):
+        tlgb.train(dict(params), tlgb.Dataset(X, label=y), 1, device="cpu")
+    # a pool on a routed run: a frozen route that sends every row class to
+    # cuda but one, which it sends to cuda_onehot (so to the host loop)
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+
+    Xd, yd = _data()
+    classes = sorted({hist_kernel.rows_bucket(r) for r in hist_kernel.bucket_sizes(len(yd))})
+    route = hist_kernel.HistRoute([((255, 3, "float32", r), "cuda_onehot" if i == 0 else "cuda")
+                                   for i, r in enumerate(classes)])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(gbdt_mod.GBDT, "_resolve_hist_route", lambda self: route)
+        with pytest.raises(NotImplementedError, match="histogram_pool_size on the host split loop"):
+            tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31,
+                        "histogram_pool_size": 0.05}, tlgb.Dataset(Xd, label=yd), 1, device="cpu")
+        bst = tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31},
+                         tlgb.Dataset(Xd, label=yd), 1, device="cpu")
+        assert bst._gbdt.grow_loop == "host"
 
 
 def test_ptxas_report_gives_registers_and_spills_per_kernel():

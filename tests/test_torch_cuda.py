@@ -426,9 +426,11 @@ def test_split_kernel_widths(dev, B):
             _same_split(_both(buf, sums, cons, meta, fmask, params, two_way, (3, 1))[0], want)
 
 
-def test_split_kernel_refuses_more_than_336_bins(dev):
-    hist, sums, cons, meta, fmask = _split_inputs(dev, F=3, B=337)
-    with pytest.raises(ValueError, match="336"):
+def test_split_kernel_refuses_more_than_1024_bins(dev):
+    """Past 336 bins the rows1024 instantiations take rows up to 1024 bins
+    (test_split_kernel_wide_widths); past 1024 the kernel refuses."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=3, B=1025)
+    with pytest.raises(ValueError, match="1024"):
         split_kernel.find_best_split_pair(hist, sums, cons, meta, fmask, SPLIT_PARAMS[0])
 
 
@@ -1157,9 +1159,9 @@ def test_predict_bins_kernel_matches_plain(dev, Nv):
         got, want = start.clone(), start.clone()
         got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
         want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
-        before = predict_kernel.launches
+        before = predict_kernel.launches["predict_bins"]
         predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf)
-        assert predict_kernel.launches == before + 1
+        assert predict_kernel.launches["predict_bins"] == before + 1
         predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf)
         assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
         assert torch.equal(got, start + value[want_leaf.long()])
@@ -1537,9 +1539,9 @@ def test_predict_bins_categorical_matches_plain(dev):
         got, want = start.clone(), start.clone()
         got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
         want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
-        before = predict_kernel.launches
+        before = predict_kernel.launches["predict_bins"]
         predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf, s.node_b)
-        assert predict_kernel.launches == before + 1
+        assert predict_kernel.launches["predict_bins"] == before + 1
         predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf, s.node_b)
         assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
     assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
@@ -1649,9 +1651,9 @@ def test_efb_remap_matches_plain(dev, layout, values):
         gh, totals = np.round(gh * 64) / 64, np.round(totals * 64) / 64
     gh = torch.tensor(gh, dtype=torch.float32, device=dev)
     totals = torch.tensor(totals, dtype=torch.float32, device=dev)
-    before = remap_kernel.launches
+    before = remap_kernel.launches["efb_remap"]
     got = remap_kernel.efb_remap(gh, totals, meta, B)
-    assert remap_kernel.launches == before + 1
+    assert remap_kernel.launches["efb_remap"] == before + 1
     want = remap.remap_hist(gh.cpu(), totals.cpu(), {k: v.cpu() for k, v in meta.items()}, B)
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
     # the loop entries on a state: the step's totals from laux[ctl[SMALL]]
@@ -1770,9 +1772,9 @@ def test_predict_bins_bundled_matches_plain(dev, categorical):
         got, want, flat_score = start.clone(), start.clone(), start.clone()
         got_leaf, want_leaf, flat_leaf = (torch.empty(n, dtype=torch.int32, device=dev)
                                           for _ in range(3))
-        before = predict_kernel.launches
+        before = predict_kernel.launches["predict_bins"]
         predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf, node_b)
-        assert predict_kernel.launches == before + 1
+        assert predict_kernel.launches["predict_bins"] == before + 1
         predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf, node_b)
         assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
         predict_kernel.add_tree_value(flat, nodes, nl, plain_meta, value, flat_score, flat_leaf,
@@ -1861,10 +1863,10 @@ def test_lambdarank_kernel_matches_plain(dev, weighted):
     sizes = [1, 2, 7, 8, 9, 20, 33, 64, 130, 1251, 2560, 2561, 5, 1]
     plan, score = _rank_case(dev, sizes, weighted=weighted)
     for s in (score, torch.zeros_like(score)):
-        before = rank_kernel.launches
+        before = rank_kernel.launches["lambdarank"]
         g, h = rank_kernel.lambdarank(s, plan, 1.3)
         g2, h2 = rank_kernel.lambdarank(s, plan, 1.3)
-        assert rank_kernel.launches == before + 2
+        assert rank_kernel.launches["lambdarank"] == before + 2
         assert torch.equal(g, g2) and torch.equal(h, h2)
         pg, ph = rank_plain.lambdas(s, plan, 1.3)
         torch.cuda.synchronize()
@@ -1995,12 +1997,12 @@ def test_captured_rank_and_renewal_iterations_equal_eager(monkeypatch, dev, para
     runs = {}
     for kind, (chunk, graph) in {"eager": (1, False), "graph": (1, True), "chunk": (4, True)}.items():
         b = booster(chunk, graph)
-        before = rank_kernel.launches
+        before = rank_kernel.launches["lambdarank"]
         assert not b.update()
         while b.current_iteration < 9:
             assert not b.update_chunk(chunk)[1]
         if params["objective"] == "lambdarank":
-            assert rank_kernel.launches - before == 9, kind
+            assert rank_kernel.launches["lambdarank"] - before == 9, kind
         runs[kind] = b
     assert runs["graph"]._gbdt.captures == 1 and runs["chunk"]._gbdt.captures == 1
     for kind in ("graph", "chunk"):
@@ -2389,3 +2391,209 @@ def test_tree_shap_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         shap_kernel.tree_shap(torch.as_tensor(X[:10].T.copy(), device=dev).t(), ens, 1, 28)
     with pytest.raises(ValueError, match="on cuda"):
         shap_kernel.tree_shap(Xd, shap_kernel.shap_trees(bst._gbdt.trees(), "cpu"), 1, 28)
+
+
+# ---- wide bins (int16, up to 1024 a feature) and the histogram pool ------------------
+
+def _wide_loop_inputs(dev, N, F=12, B=1024, seed=0, q=1024, categorical=True):
+    """[F, N] int16 bins (feature f below its num_bin: B, and B // 3 for
+    every fourth), the [N, F] copy, dyadic gradients and hessians (multiples
+    of 1/q, exact at these sizes), meta with missing types 0/1/2, and with
+    ``categorical`` feature F - 1 categorical over B - 1 categories, the
+    gradients following its category, so that its splits take bins past
+    word 8 of the membership bitset."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_bin = torch.full((F,), B, dtype=torch.int32, device=dev)
+    num_bin[3::4] = max(B // 3, 2)
+    bins = (torch.rand((F, N), generator=gen, device=dev) * num_bin[:, None]).to(torch.int16)
+    grad = torch.randint(-q, q + 1, (N,), generator=gen, device=dev).float() / q
+    hess = torch.randint(1, 65, (N,), generator=gen, device=dev).float() / q
+    meta = {
+        "num_bin": num_bin,
+        "missing_type": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+        "default_bin": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+        "monotone": torch.zeros(F, dtype=torch.int32, device=dev),
+    }
+    if categorical:
+        nb = B - 1
+        meta["num_bin"][F - 1], meta["missing_type"][F - 1] = nb, 0
+        bins[F - 1] = (torch.rand(N, generator=gen, device=dev) * nb).to(torch.int16)
+        effect = torch.randint(-4, 5, (nb,), generator=gen, device=dev).float() / 8
+        grad = grad + effect[bins[F - 1].long()]
+        meta["is_categorical"] = torch.arange(F, device=dev) == F - 1
+    return bins, bins.t().contiguous(), grad, hess, meta, torch.ones(F, dtype=torch.bool, device=dev)
+
+
+@pytest.mark.parametrize("B", [300, 1024])
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_histogram_wide_matches_plain(dev, B, grouped, dtype):
+    """csrc/histogram.cu's int16 instantiations (the [F, N] rows and the
+    [N, F] copy's 64-bit word path, by rows) against the plain version, bit
+    for bit on values exact in bf16; counted as histogram_wide."""
+    bins, nf, grad, hess, meta, _ = _wide_loop_inputs(dev, 200_001, F=29, B=B, categorical=False)
+    vals = leaf_values(grad, hess, torch.ones_like(grad))
+    rows = torch.sort(torch.randperm(200_001, device=dev)[:60_000]).values.int()
+    key = "histogram_wide" + ("_bf16" if dtype == "bfloat16" else "")
+    for hb, r in ((bins, None), (nf.t(), rows), (nf[:, :28].t(), None)):
+        before = hist_kernel.launches[key]
+        got = hist_kernel.histogram(hb, vals, B, r, dtype, grouped=grouped)
+        assert hist_kernel.launches[key] == before + 1
+        assert torch.equal(got, leaf_histogram(hb, vals, B, r, dtype))
+
+
+def test_histogram_refuses_wide_bytes_and_more_than_1024_bins(dev):
+    vals = torch.zeros((8, 3), device=dev)
+    with pytest.raises(ValueError, match="336"):
+        hist_kernel.histogram(torch.zeros((2, 8), dtype=torch.uint8, device=dev), vals, 337)
+    with pytest.raises(ValueError, match="1024"):
+        hist_kernel.histogram(torch.zeros((2, 8), dtype=torch.int16, device=dev), vals, 1025)
+    with pytest.raises(ValueError, match="uint8"):
+        hist_kernel.hist_onehot(torch.zeros((2, 8), dtype=torch.int16, device=dev), vals, 255)
+
+
+@pytest.mark.parametrize("B", [337, 600, 1024])
+def test_split_kernel_wide_widths(dev, B):
+    """The scan's rows1024 instantiations (336 < B <= 1024), numerical and
+    with categorical features of up to B bins, against the plain version."""
+    hist, sums, cons, meta, fmask = _split_inputs(dev, F=16, B=B, seed=B, N=60_000)
+    before = split_kernel.launches["split_pair_rows1024"]
+    for params in SPLIT_PARAMS:
+        for two_way in (True, False):
+            _same_split(*_both(hist, sums, cons, meta, fmask, params, two_way))
+    meta["is_categorical"] = torch.arange(16, device=dev) % 3 == 0
+    for p in CAT_PARAMS:
+        got, want = _both(hist, sums, cons, meta, fmask, p)
+        _same_split(got, want)
+        assert got[2].shape == (2, -(-B // 32))
+    assert split_kernel.launches["split_pair_rows1024"] == before + 4 + len(CAT_PARAMS)
+
+
+@pytest.mark.parametrize("P", [0, 4])
+def test_wide_loop_kernels_match_plain_at_every_step(dev, P):
+    """A 255-leaf tree at B = 1024 with a categorical feature of 1023
+    categories, one step at a time: after each kernel of a step (the int16
+    pick_partition, the wide segment histogram (and with a pool of P slots
+    the larger child's), the wide folded scan) the whole state equals its
+    plain version's on a copy; categorical splits set bits past word 8."""
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _wide_loop_inputs(dev, N, seed=7)
+    s = gs.GrowState(dev, N, 12, 1024, 255, W=32, P=P)
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    check = s.clone()
+    split_pair_step(check, 1)
+    _same_state(s, check, "root")
+    for step in range(254):
+        p = step % 2
+        pairs = [
+            (partition_kernel.pick_partition, _plain_pick_partition),
+            (lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p)),
+            (lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p)),
+        ]
+        if P:
+            pairs.insert(2, (lambda st: hist_kernel.histogram_segment(st, p, large=True),
+                             lambda st: segment_histogram(st, p, large=True)))
+        for k, (kernel, plain) in enumerate(pairs):
+            other = s.clone()
+            kernel(s)
+            plain(other)
+            _same_state(s, other, (step, k))
+    tree = grow_mod.read_tree(s)
+    nl = int(tree.num_leaves)
+    cat = tree.split_feature[:nl - 1] == 11
+    assert bool(cat.any()) and bool(tree.cat_member[:nl - 1][cat][:, 256:].any())
+    assert bool((tree.threshold_bin[:nl - 1][~cat] > 255).any())
+
+
+@pytest.mark.parametrize("P", [2, 4, 254])
+def test_pooled_device_loop_equals_unpooled_and_host_loop(dev, P):
+    """Dyadic gradients at 1M rows and B = 1024: the device loop with a pool
+    of P slots grows the unpooled tree (a child built from its rows equals
+    the parent minus its sibling on exact sums), which is the host loop's;
+    use_subtract=False too."""
+    bins, nf, grad, hess, meta, mask = _wide_loop_inputs(dev, 1_000_000, seed=P)
+    args = (bins, grad, hess, mask, meta, 255, -1, 1024, LOOP_PARAMS, True)
+    want, want_leaf = grow_tree(*args, bins_nf=nf)
+    for kw in ({}, {"hist_pool_slots": P}, {"hist_pool_slots": P, "use_subtract": False}):
+        got, got_leaf, st = grow_tree_device(*args, bins_nf=nf, **kw)
+        assert st.P == kw.get("hist_pool_slots", 0)
+        for name in TreeArrays._fields:
+            assert torch.equal(getattr(got, name), getattr(want, name)), (name, kw)
+        assert torch.equal(got_leaf, want_leaf), kw
+
+
+def test_predict_bins_wide_matches_plain(dev):
+    """csrc/predict_bins.cu's int16 instantiation against its plain version
+    on a 255-leaf tree at B = 1024 with categorical nodes whose bits lie
+    past word 8 (W = 32: 32 KB of words beside the nodes), on other rows and
+    on the training rows (there the loop's own leaf_ids)."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    N = 100_000
+    bins, nf, grad, hess, meta, mask = _wide_loop_inputs(dev, N, seed=11)
+    s = gs.GrowState(dev, N, 12, 1024, 255, W=32)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    cat = nodes[:, 0] == 11
+    assert int(nl) == 255 and bool((s.node_b[:254][cat][:, 8:] != 0).any())
+    value = torch.randn(255, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    other = (torch.rand((77_777, 12), generator=gen, device=dev) * meta["num_bin"]).to(torch.int16)
+    for rows in (other, nf):
+        n = rows.shape[0]
+        start = torch.randn(n, generator=gen, device=dev)
+        got, want = start.clone(), start.clone()
+        got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        before = predict_kernel.launches["predict_bins_wide"]
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf, s.node_b)
+        assert predict_kernel.launches["predict_bins_wide"] == before + 1
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf, s.node_b)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
+    assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
+
+
+@pytest.mark.parametrize("pool", [0.0, 2.0])
+def test_wide_and_pooled_training_replays_equal_eager(monkeypatch, dev, pool):
+    """max_bin=1024 (and a 2 MB pool: 10 slots at 16 x 1024) through the
+    captured iteration: the replays' model text and scores equal the eager
+    launches' on dyadic gradients; every scan and pick launched, replays
+    counted, was an int16 (and a pool) instantiation."""
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as objective_mod
+
+    get_gradients = objective_mod.BinaryLogloss.get_gradients
+
+    def dyadic(self, score):
+        g_, h_ = get_gradients(self, score)
+        return torch.round(g_ * 128.0) / 128.0, torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0
+
+    monkeypatch.setattr(objective_mod.BinaryLogloss, "get_gradients", dyadic)
+    rng = np.random.RandomState(0)
+    X = rng.randn(60_000, 16)
+    y = (X[:, 0] + X[:, 1] ** 2 + 0.3 * rng.randn(60_000) > 1).astype(float)
+    params = {"objective": "binary", "max_bin": 1024, "min_data_in_bin": 1, "num_leaves": 63,
+              "histogram_pool_size": pool, "verbose": -1}
+    ds = tlgb.Dataset(X, label=y)
+    runs = []
+    for graph in (True, False):
+        bst = tlgb.Booster(dict(params), ds)
+        bst._gbdt.iteration_graph = graph
+        split_kernel.reset_launches()
+        partition_kernel.reset_launches()
+        for _ in range(4):
+            bst.update()
+        g = bst._gbdt
+        fold, pick = "split_pair_fold_rows1024", "pick_partition_wide"
+        if pool:
+            fold, pick = fold + "_pool", pick + "_pool"
+        sk, pk = split_kernel.launches, partition_kernel.launches
+        assert sk[fold] > 0 and sum(sk.values()) == sk[fold] + sk["split_pair_step_rows1024"]
+        assert pk[pick] == sum(pk.values()) > 0
+        assert g.grow_loop == "device" and g.bins_dev.dtype == torch.int16 and g.num_bins > 256
+        assert (g.hist_pool_slots or 0) == (10 if pool else 0)
+        assert g.captures == (1 if graph else 0)
+        runs.append((bst.model_to_string(), g.train_score()))
+    assert runs[0][0] == runs[1][0] and np.array_equal(runs[0][1], runs[1][1])

@@ -25,7 +25,7 @@ from lightgbm_tpu.ops.grow import grow_tree as jax_grow_tree
 from lightgbm_tpu.ops.split import SplitParams as JaxSplitParams
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.ops import grow_state as gs
-from lightgbm_tpu_torch.ops import grow_step_kernel, hist_kernel, partition_kernel, split_kernel
+from lightgbm_tpu_torch.ops import cuda_graph, hist_kernel, partition_kernel, split_kernel
 from lightgbm_tpu_torch.ops.grow import (
     TreeArrays, device_loop_routable, grow_tree, grow_tree_device, launch_tree,
 )
@@ -273,16 +273,12 @@ def test_gbdt_picks_the_loop_on_the_route(monkeypatch):
 
 def test_cpu_device_loop_launches_no_kernel():
     """On CPU tensors every step runs its plain version: no launch counted."""
-    hist_kernel.reset_launches()
-    grow_step_kernel.reset_launches()
-    split_kernel.step_launches = split_kernel.fold_launches = partition_kernel.launches = 0
+    cuda_graph.reset_launches()
     bins, meta, grad, hess = _case(8, N=600)
     args, nf = _torch_args(bins, meta, grad, hess, 7, -1)
     tree, _, _ = grow_tree_device(*args, bins_nf=nf)
     assert int(tree.num_leaves) == 7
-    assert not any(hist_kernel.launches.values()) and not any(grow_step_kernel.launches.values())
-    assert split_kernel.step_launches == split_kernel.fold_launches == 0
-    assert partition_kernel.launches == 0
+    assert not any(cuda_graph.launch_counts().values())
 
 
 def test_bench_prints_one_line_on_the_cpu(capsys):

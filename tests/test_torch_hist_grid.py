@@ -52,15 +52,20 @@ def test_grid_worked_numbers():
 
 @pytest.mark.parametrize("B", [1, 15, 63, 255, 336])
 def test_grid_shared_memory_under_default(B):
-    """The kernel's static [kG, kMaxBins, 3] f32 block histogram, read from
-    csrc/histogram.cu, fits the 48 KB default, so the kernel sets no opt-in
-    attribute; every B the wrapper takes fits in it; the launcher's group
-    and step are the kernel's."""
+    """The byte instantiations' static [kG, kMaxBins, 3] f32 block
+    histogram, read from csrc/histogram.cu, fits the 48 KB default, so they
+    need no opt-in attribute; every B the wrapper takes on uint8 bins fits
+    in it; only the int16 instantiations' dynamic cells (up to 1024 bins)
+    raise the limit, once, in one place; the launcher's group and step are
+    the kernel's."""
     text = (cuda_build.CSRC / "histogram.cu").read_text()
     c = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", text)}
-    assert "__shared__ float cells[kG * kMaxBins * 3];" in text
-    assert "cudaFuncSetAttribute" not in text
+    assert "__shared__ float byte_cells[kG * kMaxBins * 3];" in text
+    assert text.count("cudaFuncSetAttribute") == 1 and "allow_wide_cells" in text
     assert B <= c["kMaxBins"] and c["kG"] * c["kMaxBins"] * 3 * 4 <= 48 * 1024
+    assert c["kMaxBins"] == hist_kernel.MAX_BYTE_BINS
+    assert c["kMaxWideBins"] == hist_kernel.MAX_WIDE_BINS
+    assert c["kG"] * c["kMaxWideBins"] * 3 * 4 <= 227 * 1024
     assert hist_kernel.HIST_GROUP == c["kG"]
     assert hist_kernel.HIST_STEP == c["kThreads"] * c["kRows"]
 

@@ -115,11 +115,11 @@ def test_pick_partition_stops(why):
 def test_pick_partition_on_the_cpu_is_the_plain_version():
     s = _state(33_333, "none", 0)
     other = s.clone()
-    partition_kernel.launches = 0
+    partition_kernel.reset_launches()
     partition_kernel.pick_partition(s)
     _plain(other)
     _same_state(s, other, "cpu")
-    assert partition_kernel.launches == 0
+    assert not any(partition_kernel.launches.values())
 
 
 def test_pick_partition_raises_on_another_device():
