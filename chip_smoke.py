@@ -146,7 +146,8 @@ Phases (each prints one line; any failure exits non-zero):
     timed against their bounds; the scan's entry timed on one pair of
     this table's histograms with its categorical blocks, with the same
     features as numerical blocks of the categorical instantiation, and in
-    the numerical instantiation; the turns and profile of 4e;
+    the numerical instantiation; the turns (of 5 iterations) and profile
+    of 4e;
  4h. sparse input, EFB-bundled: 4f's rows as a scipy CSR matrix with 4f's
     parameters but the default enable_bundle and max_conflict_rate (the 10
     continuous columns alone, Wilderness in a group of 5 bins, Soil in one
@@ -340,6 +341,22 @@ Phases (each prints one line; any failure exits non-zero):
     iterations of the main path (255 bins), wide and pooled boosters (a
     replay an iteration and chunks of 10) and one profiled iteration of
     each (busy ms, kernels, each kernel's ms an iteration, idle share);
+ 8e. forced splits and CEGB on the main path's table
+    (1M x 28, 255 bins, 255 leaves, 10 iterations in one chunk of 10,
+    captured): a three-level forced JSON on features 0-6 whose 7 nodes open
+    every tree; the three CEGB penalties together (AUC above 0.7, fewer
+    distinct features than phase 4's model); at 100k rows on gradients
+    rounded to 2^-7 the captured replays and chunks of 4 equal the eager
+    launches (a forced JSON with an invalid split, which aborts the
+    preamble, and the three penalties; model text, scores and the paid
+    features and rows); on one eager tree at 1M rows (dyadic values,
+    the forced JSON, the three penalties) the forced record, the kExt pick,
+    the lazy pass, the penalised root and folded scans and the all-leaves
+    scan at a first coupled payment held to their plain versions (the whole
+    state and the paid features and rows equal) and timed against their
+    bounds; turns of 10 iterations of the main path and the CEGB booster
+    (chunks of 10) and one profiled chunk of each (busy ms, kernels an
+    iteration);
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
     4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
@@ -354,6 +371,8 @@ Phases (each prints one line; any failure exits non-zero):
     instantiations of pick_partition and predict_bins timed in 4i, the
     bundled ones' launches 4h's and 4i's trainings'; lambdarank timed in 4k;
     the int16 and pool instantiations timed in 8d, their launches 8d's
+    trainings'; forced_record, pick_partition_ext, the penalised scans,
+    split_pair_all and cegb_lazy timed in 8e, their launches 8e's
     trainings'), the seconds of each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
@@ -1240,7 +1259,17 @@ def wide_bins_phase(lgb, dev, ctx):
         lib_out.zero_()
         lib_out.index_add_(0, flat_idx, flat_vals)
     hist_t["%d_float32_root" % WIDE_MAX_BIN]["library_ms"] = time_ms(library_root)
-    del flat_idx, flat_vals, lib_out
+    # and over the 100k-row segment, the segment entry's yardstick
+    seg_long = ctx.seg_rows.long()
+    seg_idx = (bins_nf.index_select(0, seg_long).t().long()
+               + torch.arange(F, device=dev)[:, None] * WIDE_MAX_BIN).reshape(-1)
+    seg_vals = ctx.real_vals.index_select(0, seg_long).repeat(F, 1)
+
+    def library_segment():
+        lib_out.zero_()
+        lib_out.index_add_(0, seg_idx, seg_vals)
+    hist_t["%d_float32_segment" % WIDE_MAX_BIN]["library_ms"] = time_ms(library_segment)
+    del flat_idx, flat_vals, lib_out, seg_idx, seg_vals
 
     # ---- split_pair.cu's wide instantiations at B = 1024 -------------------------------
     B = WIDE_MAX_BIN
@@ -1560,7 +1589,8 @@ def wide_bins_phase(lgb, dev, ctx):
         row("histogram_wide", "histogram.cu", hist_rep, main_l.get("histogram_wide", 0), root_t,
             root_t["library_ms"]),
         row("histogram_segment_wide", "histogram.cu", hist_rep,
-            main_l.get("histogram_segment_wide", 0), seg),
+            main_l.get("histogram_segment_wide", 0), seg,
+            hist_t["%d_float32_segment" % WIDE_MAX_BIN]["library_ms"]),
         row("split_pair_step_rows1024", "split_pair.cu", split_rep,
             main_l.get("split_pair_step_rows1024", 0), step_scan),
         row("split_pair_fold_rows1024", "split_pair.cu", split_rep,
@@ -1582,6 +1612,267 @@ def wide_bins_phase(lgb, dev, ctx):
         row("split_pair_fold_rows1024_pool", "split_pair.cu",
             "lightgbm_tpu/ops/grow.py:1484-1536 (the pooled subtraction; XLA there)",
             pool_l.get("split_pair_fold_rows1024_pool", 0), pfold),
+    ]
+    return rec, rows
+
+
+FORCED_JSON = {  # three levels on features 0-6, BFS: 0 | 1, 2 | 3, 4, 5, 6
+    "feature": 0, "threshold": 0.0,
+    "left": {"feature": 1, "threshold": 0.0,
+             "left": {"feature": 3, "threshold": 0.0}, "right": {"feature": 4, "threshold": 0.0}},
+    "right": {"feature": 2, "threshold": 0.0,
+              "left": {"feature": 5, "threshold": 0.0}, "right": {"feature": 6, "threshold": 0.0}},
+}
+# the left child's forced split puts every row of it on one side: invalid, the
+# preamble aborts there and the right child's is skipped
+FORCED_ABORT_JSON = {"feature": 0, "threshold": 0.0, "left": {"feature": 0, "threshold": 0.5},
+                     "right": {"feature": 2, "threshold": 0.0}}
+CEGB_PARAMS = {"cegb_penalty_split": 1e-4, "cegb_penalty_feature_coupled": [300.0] * FEATURES,
+               "cegb_penalty_feature_lazy": [1e-4] * FEATURES}
+CEGB_EQUAL_ROWS = 100_000
+
+
+def forced_cegb_phase(lgb, dev, ctx):
+    """Forced splits and CEGB on the card (phase 8e of the
+    module docstring). ``ctx`` carries main's ``counted``, ``profiled``,
+    ``time_ms``, ``X``, ``y``, the main path's ``train_set`` and phase 4's
+    ``booster``, ``dyadic_gradients`` (the binary objective rounded to
+    2^-7) and ``card``. Returns (the phase's record, each new kernel's row
+    of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lightgbm_tpu_torch import objective as objective_mod
+    from lightgbm_tpu_torch.bench import train_iterations
+    from lightgbm_tpu_torch.ops import grow as grow_mod
+    from lightgbm_tpu_torch.ops import grow_state as gs
+    from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
+    from lightgbm_tpu_torch.ops import grow_step_kernel, hist_kernel, partition_kernel
+    from lightgbm_tpu_torch.ops import partition as partition_plain
+    from lightgbm_tpu_torch.ops import split as split_plain
+    from lightgbm_tpu_torch.ops import split_kernel
+    from lightgbm_tpu_torch.ops.histogram import segment_histogram
+
+    counted, profiled, time_ms = ctx.counted, ctx.profiled, ctx.time_ms
+    X, y = ctx.X, ctx.y
+    N, F = X.shape
+    rec = {"card": ctx.card}
+    workdir = tempfile.mkdtemp(prefix="lgbt-forced-")
+    forced_path = os.path.join(workdir, "forced.json")
+    abort_path = os.path.join(workdir, "abort.json")
+    with open(forced_path, "w") as fh:
+        json.dump(FORCED_JSON, fh)
+    with open(abort_path, "w") as fh:
+        json.dump(FORCED_ABORT_JSON, fh)
+    chunked = dict(TRAIN_PARAMS, device_chunk_size=10)
+    forced_params = dict(chunked, forcedsplits_filename=forced_path)
+    cegb_params = dict(chunked, **CEGB_PARAMS)
+
+    # ---- the main path's table: forced, CEGB; captured, chunks of 10 -----------------
+    runs = {}
+    for name, params, iters in (("forced", forced_params, 10), ("cegb", cegb_params, 10)):
+        bst, secs, got = counted(lambda: lgb.train(dict(params), ctx.train_set, iters))
+        g = bst._gbdt
+        assert g.grow_loop == "device" and g.captures == 1, (name, g.grow_loop, g.captures)
+        (_, _, auc, _), = bst.eval_train()
+        assert auc > 0.7, (name, auc)
+        runs[name] = dict(booster=bst, seconds=secs, launches=got, auc=auc,
+                          ms_per_tree=secs / iters * 1e3,
+                          leaves=[t.num_leaves for t in g.trees()])
+    g_f, g_c = runs["forced"]["booster"]._gbdt, runs["cegb"]["booster"]._gbdt
+    assert len(g_f._forced_splits) == 7, g_f._forced_splits
+    for ta in g_f._tree_arrays:  # the 7 forced nodes open every tree, in BFS order
+        assert ta.split_feature[:7].tolist() == [0, 1, 2, 3, 4, 5, 6], ta.split_feature[:7]
+        assert ta.threshold_bin[:7].tolist() == [t for _, _, t in g_f._forced_splits]
+    assert runs["forced"]["launches"].get("forced_record", 0) == 70
+    assert runs["forced"]["launches"].get("pick_partition_ext", 0) > 0
+
+    def distinct(bst):
+        return sorted({int(f) for t in bst._gbdt.trees() for f in t.split_feature[:t.num_leaves - 1]})
+    used_free, used_cegb = distinct(ctx.booster), distinct(runs["cegb"]["booster"])
+    assert len(used_cegb) < len(used_free), (used_cegb, used_free)
+    assert set(used_cegb) == set(np.flatnonzero(g_c._cegb.feature_used.cpu().numpy()))
+    for k in ("split_pair_step_cegb", "split_pair_fold_cegb", "split_pair_all", "cegb_lazy",
+              "pick_partition_ext"):
+        assert runs["cegb"]["launches"].get(k, 0) > 0, (k, runs["cegb"]["launches"])
+
+    # ---- 100k rows, gradients rounded to 2^-7: replays and chunks = eager -------------
+    small = lgb.Dataset(X[:CEGB_EQUAL_ROWS], label=y[:CEGB_EQUAL_ROWS])
+    params = dict(TRAIN_PARAMS, forcedsplits_filename=abort_path, **CEGB_PARAMS)
+    objective_mod.BinaryLogloss.get_gradients = ctx.dyadic_gradients
+    try:
+        out = []
+        for graph, chunk in ((True, 1), (False, 1), (True, 4)):
+            b_ = lgb.Booster(dict(params, device_chunk_size=chunk), small)
+            b_._gbdt.iteration_graph = graph
+            assert train_iterations(b_, 8, chunk) == 8
+            g_ = b_._gbdt
+            state = (g_._cegb.feature_used.cpu(), g_._cegb.used_in_data.cpu())
+            out.append((b_.model_to_string().split("parameters:")[0], g_.train_score(), state))
+        for o in out[1:]:
+            assert o[0] == out[0][0] and np.array_equal(o[1], out[0][1])
+            assert all(torch.equal(a, b) for a, b in zip(o[2], out[0][2]))
+        assert int(g_._grow_state.ctl[gs.ABORT]) == 1
+        assert all(t.split_feature[0] == 0 for t in g_.trees())
+        equal = {"forced_cegb": dict(rows=CEGB_EQUAL_ROWS, iterations=8, equal=True)}
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = ctx.get_gradients
+
+    # ---- one eager tree at 1M on dyadic values: each new kernel held and timed -------
+    c = gs.Cegb(split_plain.CegbParams(1.0, CEGB_PARAMS["cegb_penalty_split"], True, True), F, N,
+                np.asarray(CEGB_PARAMS["cegb_penalty_feature_coupled"]),
+                np.asarray(CEGB_PARAMS["cegb_penalty_feature_lazy"]), dev)
+    M, B = g_f.config.num_leaves, g_f.num_bins
+    s = gs.GrowState(dev, N, F, B, M, 0, 0, 0, 0, cegb=True)
+    dy = ctx.dyq_vals
+    grow_mod.start_tree(s, g_f.bins_dev, dy[:, 0].contiguous(), dy[:, 1].contiguous(),
+                        g_f.feature_mask, g_f.feature_meta, -1, g_f.split_params, g_f._two_way,
+                        g_f.bins_nf, forced=g_f._forced_dev, cegb=c)
+
+    def same(a, b, what):
+        same_state(a, b, what)
+        assert torch.equal(a.cegb.feature_used, b.cegb.feature_used), what
+        assert torch.equal(a.cegb.used_in_data, b.cegb.used_in_data), what
+
+    def held(name, kernel, plain, timed=True):
+        """``kernel`` on ``s`` against ``plain`` on a copy (the whole state and
+        the paid features and rows equal), then both timed from that state,
+        which is left as the kernel made it."""
+        before, other = s.clone(), s.clone()
+        kernel(s)
+        plain(other)
+        same(s, other, name)
+        if not timed:
+            return None
+        after, copy = s.clone(), before.clone()
+
+        def back(dst, src):
+            restore(dst, src)
+            dst.cegb.feature_used.copy_(src.cegb.feature_used)
+            dst.cegb.used_in_data.copy_(src.cegb.used_in_data)
+        t = dict(ms=time_ms(lambda: kernel(s), setup=lambda: back(s, before)),
+                 plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: back(copy, before)),
+                 max_abs_err=0.0, library_ms=None)
+        back(s, after)
+        return t
+
+    cells = F * B * 3
+    kt = {}
+    kt["cegb_lazy_root"] = held("cegb_lazy_root", lambda st: grow_step_kernel.cegb_lazy(st, True),
+                                lambda st: grow_step_plain.cegb_lazy(st, True))
+    kt["cegb_lazy_root"].update(zip(("bound_ms", "bound_by"), bound(N * (4 + F) + F * 4, N * F)))
+    kt["split_pair_step_cegb"] = held("split_pair_step_cegb",
+                                      lambda st: split_kernel.split_pair_step(st, 1),
+                                      lambda st: split_plain.split_pair_step(st, 1))
+    kt["split_pair_step_cegb"].update(zip(("bound_ms", "bound_by"), bound(
+        cells * 4 + 21 * 4 + F * 17 + F * 13, F * B * 60)))
+    K = len(g_f._forced_splits)
+    all_t, step = None, 0
+    for step in range(K + M - 1):
+        p, k = step % 2, (step if step < K else None)
+        first = step == 0
+        if k is not None:
+            t = held("forced_record", lambda st: split_kernel.forced_record(st, k),
+                     lambda st: split_plain.forced_record(st, k), timed=first)
+            if first:
+                kt["forced_record"] = t
+                t.update(zip(("bound_ms", "bound_by"), bound(B * 12 + 60 + 64, B * 3)))
+        t = held("pick_partition_ext", lambda st: partition_kernel.pick_partition(st, k is not None),
+                 lambda st: (grow_step_plain.pick(st, k is not None), partition_plain.partition(st)),
+                 timed=first)
+        if first:
+            kt["pick_partition_ext"] = t
+            t.update(zip(("bound_ms", "bound_by"), bound(M * 4 + 320 + N * 10 + 64, 0)))
+        assert int(s.ctl[gs.ACTIVE]), step
+        n_seg = int(s.ctl[gs.PCOUNT])
+        t = held("cegb_lazy", grow_step_kernel.cegb_lazy, grow_step_plain.cegb_lazy, timed=first)
+        if first:
+            kt["cegb_lazy"] = t
+            t.update(zip(("bound_ms", "bound_by"), bound(n_seg * (4 + 4 + F) + 2 * F * 4,
+                                                         n_seg * F)))
+        hist_kernel.histogram_segment(s, p)
+        t = held("split_pair_fold_cegb", lambda st: split_kernel.split_pair_fold(st, p),
+                 lambda st: grow_step_plain.split_pair_fold(st, p), timed=first)
+        if first:
+            kt["split_pair_fold_cegb"] = t
+            t.update(zip(("bound_ms", "bound_by"), bound(5 * cells * 4 + 2 * 21 * 4 + F * 30,
+                                                         cells + 2 * F * B * 60)))
+        nl = int(s.ctl[gs.NUM_LEAVES])
+        # timed at the first payment with at least 8 leaves (else the latest before it)
+        paid_first = int(s.ctl[gs.NEWLY]) and nl > 2
+        t = held("split_pair_all", split_kernel.split_pair_all, split_plain.split_pair_all,
+                 timed=paid_first and (all_t is None or all_t["leaves"] < 8))
+        if t is not None:
+            all_t = t
+            t.update(zip(("bound_ms", "bound_by"), bound(
+                (nl - 2) * (cells * 4 + 21 * 4 + F * 13), (nl - 2) * F * B * 60)), leaves=nl,
+                step=step)
+        if all_t is not None and all_t["leaves"] >= 8 and step >= K + 16 or step >= K + 48:
+            break
+    assert all_t is not None, "no step paid a coupled feature first past the root"
+    kt["split_pair_all"] = all_t
+    assert s.node_i[:K, 0].tolist() == [f for _, f, _ in g_f._forced_splits]
+    del s, c
+
+    # ---- turns: the main path and the CEGB booster, chunks of 10; a profiled chunk ----
+    boosters = {}
+    for kind, params in (("main", chunked), ("cegb", cegb_params)):
+        b_ = lgb.Booster(dict(params), ctx.train_set)
+        assert train_iterations(b_, 10, 10) == 10
+        boosters[kind] = b_
+    ips = {k: [] for k in boosters}
+    per_iter = {}
+    for kind in ("main", "cegb", "cegb", "main"):
+        ran, secs, got = counted(lambda: train_iterations(boosters[kind], 10, 10))
+        assert ran == 10, (kind, ran)
+        ips[kind].append(10 / secs)
+        per_iter.setdefault(kind, {k_: v_ / 10 for k_, v_ in got.items()})
+    prof = {}
+    for kind, b_ in boosters.items():
+        busy, kernels, copies, timeline, named = profiled(lambda b2=b_: b2.update_chunk(10))
+        prof[kind] = dict(
+            device_busy_ms_per_iteration=busy / 10, copies=copies,
+            kernels_per_iteration=timeline["kernels"] / 10 if isinstance(timeline, dict)
+            else "not measured",
+            kernels_ms_per_iteration={k_: [v_[0] / 10, v_[1] / 10] for k_, v_ in named.items()},
+            device_idle_share=[1 - busy / 10 * v / 1e3 for v in ips[kind]] if busy
+            else "not measured")
+    del boosters
+
+    rec.update(
+        trainings={k: {k_: v_ for k_, v_ in r.items() if k_ != "booster"} for k, r in runs.items()},
+        distinct_features=dict(main=used_free, cegb=used_cegb), equal=equal, kernels=kt,
+        iterations_per_s=ips, launches_per_iteration=per_iter, profile=prof)
+
+    # ---- the kernels line's rows -----------------------------------------------------------
+    src = "lightgbm_tpu_torch/csrc/"
+    lf, lc = runs["forced"]["launches"], runs["cegb"]["launches"]
+
+    def row(name, source, replaces, launches, t):
+        return dict(name=name, route="cuda", source=src + source, replaces=replaces,
+                    launches=launches, max_abs_err=t["max_abs_err"], ms=t["ms"],
+                    plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                    library_ms=t["library_ms"])
+    rows = [
+        row("forced_record", "split_pair.cu",
+            "lightgbm_tpu/ops/split.py:519 (gather_info_for_threshold; XLA there)",
+            lf.get("forced_record", 0), kt["forced_record"]),
+        row("pick_partition_ext", "partition.cu",
+            "lightgbm_tpu/ops/grow.py:1600-1637,1392 (the forced preamble, feature_used; XLA there)",
+            lf.get("pick_partition_ext", 0) + lc.get("pick_partition_ext", 0),
+            kt["pick_partition_ext"]),
+        row("split_pair_step_cegb", "split_pair.cu",
+            "lightgbm_tpu/ops/split.py:649 (the penalised argmax; XLA there)",
+            lc.get("split_pair_step_cegb", 0), kt["split_pair_step_cegb"]),
+        row("split_pair_fold_cegb", "split_pair.cu",
+            "lightgbm_tpu/ops/split.py:649 (the penalised argmax; XLA there)",
+            lc.get("split_pair_fold_cegb", 0), kt["split_pair_fold_cegb"]),
+        row("split_pair_all", "split_pair.cu",
+            "lightgbm_tpu/ops/grow.py:1022 (rescan_all; XLA there)",
+            lc.get("split_pair_all", 0), kt["split_pair_all"]),
+        row("cegb_lazy", "grow_step.cu",
+            "lightgbm_tpu/ops/grow.py:1392-1420 (lazy bookkeeping; XLA there)",
+            lc.get("cegb_lazy", 0), kt["cegb_lazy"]),
     ]
     return rec, rows
 
@@ -1677,16 +1968,21 @@ def main() -> int:
     # (and, since wide bins and the histogram pool, the pick and partition
     # for int16 bins and with the pool's LRU update, the scan for rows past
     # 336 bins and by pool slot, predict_bins for int16 bins)
+    # (and, since forced splits and CEGB, the pick and partition's kExt
+    # instantiations, the scan's penalised root and folded entries, the
+    # forced record, and grow_step's lazy pass)
     assert set(ptxas["partition"]) == {
-        "pick_partition_kernel<%d,%d,%d,%d>" % (ca, efb, wide, pool) for ca in (0, 1)
-        for efb, wide, pool in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1))}, ptxas
+        "pick_partition_kernel<%d,%d,%d,%d,%d>" % (ca, efb, wide, pool, ext) for ca in (0, 1)
+        for efb, wide, pool in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1))
+        for ext in (0, 1)}, ptxas
     assert set(ptxas["split_pair"]) == {
-        "split_pair_kernel<%d,%d,%d,%d,%d>" % (d, fo, ca, wide, pool)
-        for d, fo, pool in ((0, 0, 0), (1, 0, 0), (1, 1, 0), (1, 1, 1)) for ca in (0, 1)
-        for wide in (0, 1)}, ptxas
+        "split_pair_kernel<%d,%d,%d,%d,%d,%d>" % (d, fo, ca, wide, pool, pen)
+        for d, fo, pool, pen in ((0, 0, 0, 0), (1, 0, 0, 0), (1, 1, 0, 0), (1, 1, 1, 0),
+                                 (1, 0, 0, 1), (1, 1, 0, 1)) for ca in (0, 1)
+        for wide in (0, 1)} | {"forced_record_kernel"}, ptxas
     assert set(ptxas["grow_step"]) == {
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
-        "add_value_kernel<uint8>", "add_value_kernel<int32>"}, ptxas
+        "add_value_kernel<uint8>", "add_value_kernel<int32>", "cegb_lazy_kernel"}, ptxas
     assert set(ptxas["predict_bins"]) == {
         "predict_bins_kernel<0,0>", "predict_bins_kernel<1,0>", "predict_bins_kernel<0,1>",
         "predict_bins_kernel<1,1>", "predict_bins_bundled_kernel<0>",
@@ -2314,7 +2610,7 @@ def main() -> int:
     named_kernels = ("pick_partition_kernel", "hist_segment_kernel", "hist_kernel",
                      "split_pair_kernel", "leaf_tile_kernel", "add_value_kernel",
                      "subtract_kernel", "predict_bins_kernel", "efb_remap_kernel",
-                     "lambdarank_kernel")
+                     "lambdarank_kernel", "cegb_lazy_kernel", "forced_record_kernel")
 
     def profiled(fn):
         torch.cuda.synchronize()
@@ -2346,8 +2642,8 @@ def main() -> int:
                 named[ev.key[:80]] = [us / 1e3, ev.count]
         return busy, kernels, copies_, timeline, named
 
-    def turns_and_profile(bsts, chunks, order, profile_kinds, on_turn=None):
-        """Turns of 10 iterations of the boosters ``bsts`` (kind -> booster;
+    def turns_and_profile(bsts, chunks, order, profile_kinds, on_turn=None, iters=10):
+        """Turns of ``iters`` iterations of the boosters ``bsts`` (kind -> booster;
         ``chunks``: kind -> its device_chunk_size) in ``order``, each with
         the launch counts from 0 (replays counted by the graph), equal
         between turns and between kinds, ``on_turn(kind)`` after each; then
@@ -2356,9 +2652,10 @@ def main() -> int:
         Returns (iterations/s by kind, a turn's launches by kind, profiles)."""
         ips, per_turn = {k: [] for k in bsts}, {}
         for kind in order:
-            ran, secs, got = counted(lambda: bench_mod.train_iterations(bsts[kind], 10, chunks[kind]))
-            assert ran == 10, (kind, ran)
-            ips[kind].append(10 / secs)
+            ran, secs, got = counted(lambda: bench_mod.train_iterations(bsts[kind], iters,
+                                                                        chunks[kind]))
+            assert ran == iters, (kind, ran)
+            ips[kind].append(iters / secs)
             per_turn.setdefault(kind, got)
             assert got == per_turn[kind], ("launches differ between turns", kind)
             if on_turn is not None:
@@ -2946,11 +3243,11 @@ def main() -> int:
     assert year_eq["graph"]._gbdt.train_score().tobytes() == year_eq["eager"]._gbdt.train_score().tobytes()
     del year_eq, ds_eq
 
-    def objective_turns(train_set_, params_, chunk_):
+    def objective_turns(train_set_, params_, chunk_, iters=10):
         """Three boosters (a replay an iteration, chunks of ``chunk_``, the
         eager launches) warmed up 10 iterations each, then 4c's turns
-        (graph, chunk, eager, eager, chunk, graph) and a profiled replay
-        and chunk (``turns_and_profile``)."""
+        (graph, chunk, eager, eager, chunk, graph) of ``iters`` iterations
+        and a profiled replay and chunk (``turns_and_profile``)."""
         kinds = {"graph": (1, True), "chunk": (chunk_, True), "eager": (1, False)}
         bsts = {}
         for kind, (c, graph_on) in kinds.items():
@@ -2960,7 +3257,7 @@ def main() -> int:
             bsts[kind] = b_
         got = turns_and_profile(bsts, {k: v[0] for k, v in kinds.items()},
                                 ("graph", "chunk", "eager", "eager", "chunk", "graph"),
-                                ("graph", "chunk"))
+                                ("graph", "chunk"), iters=iters)
         for b_ in bsts.values():
             assert b_._gbdt.captures == (0 if not b_._gbdt.iteration_graph else 1)
         return got
@@ -3242,7 +3539,8 @@ def main() -> int:
     kpredict_t.update(zip(("bound_ms", "bound_by"), bound(
         COVER_VALID_ROWS * (8 + kdepth) + 254 * (20 + 32), 0)))
     del held_k, gk_s, kh
-    kips, kturn_launches, kprof = objective_turns(cat_set, cat_params, 10)
+    # turns of 5 iterations (the phase is the smoke's longest; every check kept)
+    kips, kturn_launches, kprof = objective_turns(cat_set, cat_params, 10, iters=5)
     cat_t = {"split_pair_fold_categorical": kfold_t, "pick_partition_categorical": kpick_t,
              "predict_bins_categorical": kpredict_t}
     say("categorical", rows=COVER_ROWS, features=12, categorical_features=COVER_CATEGORICAL,
@@ -4695,6 +4993,20 @@ def main() -> int:
              wide_rec["pool"]["slots"]), flush=True)
     say("wide_bins", **wide_rec)
 
+    # ---- 8e. forced splits and CEGB -------------------------------------------------------
+    fc_rec, fc_rows = forced_cegb_phase(lgb, dev, types.SimpleNamespace(
+        counted=counted, profiled=profiled, time_ms=time_ms, X=X, y=y, train_set=train_set,
+        booster=booster, dyq_vals=dyq_vals, dyadic_gradients=dyadic_gradients,
+        get_gradients=get_gradients, card=card))
+    print("forced/CEGB on %s: it/s %s; busy ms an iteration %s; kernels an iteration %s; "
+          "distinct features %d (CEGB) of %d (main)"
+          % (card, json.dumps(fc_rec["iterations_per_s"]),
+             json.dumps({k: v["device_busy_ms_per_iteration"] for k, v in fc_rec["profile"].items()}),
+             json.dumps({k: v["kernels_per_iteration"] for k, v in fc_rec["profile"].items()}),
+             len(fc_rec["distinct_features"]["cegb"]), len(fc_rec["distinct_features"]["main"])),
+          flush=True)
+    say("forced_cegb", **fc_rec)
+
     # ---- 9. kernels line and result ---------------------------------------------
     sources = {
         "histogram": ("histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:225"),
@@ -4799,6 +5111,9 @@ def main() -> int:
     # their launches are 8d's trainings' (the categorical ones its
     # categorical table's)
     kernels.extend(wide_rows)
+    # forced splits' and CEGB's kernels, timed in phase 8e on one eager tree at
+    # 1M rows; their launches are 8e's forced and CEGB trainings'
+    kernels.extend(fc_rows)
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

@@ -45,6 +45,30 @@
 //    through ``order``, then a pass in row order that adds value[leaf] to
 //    the score: the reads and the writes of the score coalesced. Every row
 //    gets one add, so no atomics.
+//
+// cegb_lazy is the lazy CEGB bookkeeping of a step (lightgbm_tpu/ops/
+// grow.py:1392-1420) and of a tree's root (:1146-1150), one pass over rows:
+// on a step, over the split segment order[pbegin : + pcount) the step's
+// pick_partition left (its left part the leaf ctl[kBest], its right part
+// the new leaf ctl[kNew]): each row in the bag pays the split's feature
+// (used[row, f] = 1, f = node_i[step - 1]), and every feature's count of
+// each child's bagged rows that have not paid for it goes to unused [M, F];
+// at the root, over every row into unused[0], paying nothing. ``used`` is
+// the training's [N, F] bytes (a row's F flags contiguous: one read a row,
+// where the reference's [F, N] layout would scatter F). The bag is the
+// values' third column (0 or 1: bagging and GOSS draw masks), so the counts
+// are the reference's bag-weighted sums, exact integers in f32. The plain
+// version is ops/grow_step.py ``cegb_lazy``.
+//
+// What bounds it: bytes, about (8 + F) a row (the row id, its bag weight,
+// its F flags), scattered by ``order``: 36 MB at the 1M-row root of 28
+// features, 11 us at 3.35 TB/s. A fixed grid strides over the segment
+// (the graph launches it at one shape); each warp counts a feature's
+// unpaid rows of each side with two ballots, one shared-memory add a warp,
+// each block adds its [2, F] counts into an int32 accumulator, and the
+// grid's last block (a ticket) writes them as f32 and clears the
+// accumulator and the ticket for the next launch. Nothing once ctl[kActive]
+// is 0 (a step after the loop stopped).
 
 #include <cuda_runtime.h>
 
@@ -165,9 +189,92 @@ int score_update(const int* ctl, const int* order, const int* leaf_begin, const 
   return (int)cudaGetLastError();
 }
 
+constexpr int kActive = 0, kStep = 2, kBest = 3, kNew = 4, kPBegin = 7, kPCount = 8,
+              kLeft = 9;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kLazyThreads = 256;
+
+__global__ void __launch_bounds__(kLazyThreads)
+cegb_lazy_kernel(const int* __restrict__ ctl, const int* __restrict__ node_i,
+                 const int* __restrict__ order, const float* __restrict__ values,
+                 unsigned char* used, int F, long long N, int root, int* acc, int* ticket,
+                 float* __restrict__ unused) {
+  extern __shared__ int cnt_s[];  // [2, F]: this block's counts of each side
+  __shared__ bool last;
+  if (!root && !ctl[kActive]) return;
+  const int tid = threadIdx.x, lane = tid & 31;
+  long long begin = 0, n = N, left = N;
+  int fs = -1, best = 0, nw = 0;
+  if (!root) {
+    begin = ctl[kPBegin];
+    n = ctl[kPCount];
+    left = ctl[kLeft];
+    fs = node_i[(ctl[kStep] - 1) * 5];
+    best = ctl[kBest];
+    nw = ctl[kNew];
+  }
+  for (int i = tid; i < 2 * F; i += kLazyThreads) cnt_s[i] = 0;
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * kLazyThreads;
+  for (long long base = (long long)blockIdx.x * kLazyThreads; base < n; base += stride) {
+    const long long i = base + tid;  // every thread of a block takes the same trips
+    int row = 0;
+    bool bagged = false;
+    if (i < n) {
+      row = root ? (int)i : order[begin + i];
+      bagged = values[(long long)row * 3 + 2] > 0.0f;
+    }
+    unsigned char* u = used + (long long)row * F;
+    if (bagged && fs >= 0) u[fs] = 1;
+    const bool right = i >= left;
+    for (int ff = 0; ff < F; ++ff) {
+      const bool un = bagged && !u[ff];
+      const unsigned m0 = __ballot_sync(kFull, un && !right);
+      const unsigned m1 = __ballot_sync(kFull, un && right);
+      if (lane == 0) {
+        if (m0) atomicAdd(&cnt_s[ff], __popc(m0));
+        if (m1) atomicAdd(&cnt_s[F + ff], __popc(m1));
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * F; i += kLazyThreads) {
+    if (cnt_s[i]) atomicAdd(acc + i, cnt_s[i]);
+  }
+  __threadfence();  // the block's adds are visible before its ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(ticket, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int i = tid; i < F; i += kLazyThreads) {
+    unused[(long long)best * F + i] = (float)atomicExch(acc + i, 0);
+    const int r = atomicExch(acc + F + i, 0);
+    if (!root) unused[(long long)nw * F + i] = (float)r;
+  }
+  if (tid == 0) *ticket = 0;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The lazy CEGB bookkeeping (see the header): root 1 counts every row into
+// unused[0]; root 0 the step's split segment into its two children, after
+// marking the split's feature paid. ctl [16], node_i [M, 5] int32, order
+// [N] int32, values [N, 3] f32 (the bag in column 2), used [N, F] bytes,
+// acc [2, F] int32 and ticket [1] int32 (zero between launches), unused
+// [M, F] f32; grid blocks of 256 threads.
+int lgbt_cegb_lazy(const void* ctl, const void* node_i, const void* order, const void* values,
+                   void* used, int F, long long N, int root, void* acc, void* ticket,
+                   void* unused, int grid, void* stream) {
+  if (F < 1 || N < 1 || grid < 1 || 2 * F * (int)sizeof(int) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cegb_lazy_kernel<<<grid, kLazyThreads, 2 * F * sizeof(int), (cudaStream_t)stream>>>(
+      (const int*)ctl, (const int*)node_i, (const int*)order, (const float*)values,
+      (unsigned char*)used, F, N, root, (int*)acc, (int*)ticket, (float*)unused);
+  return (int)cudaGetLastError();
+}
 
 // Each row's leaf, leaf_id [N] int64, from the loop's segment layout:
 // order [N] int32, leaf_begin / leaf_count [M] int32 and ctl[kNumLeaves].

@@ -107,6 +107,21 @@
 // slots, which the step's second segment histogram reads as its control
 // vector: it builds the larger child only on a miss. One thread does it in
 // O(P); no other block of the launch reads the pool.
+//
+// Forced splits and CEGB (the kExt instantiations, launched when the run
+// has a forced-split preamble or coupled CEGB penalties; the others keep
+// their code). On a forced step (``forced`` = 1) whose preamble has not
+// aborted (ctl[kAbort] 0; split_pair.cu's forced record sets it), every
+// block takes the leaf ctl[kFLeaf] and the forced record frec_f / frec_i /
+// frec_b in place of the argmax and its record, and does not stop on
+// its gain (lightgbm_tpu/ops/grow.py:1625-1637 applies a valid forced split
+// whatever the other leaves' gains). Once the preamble has aborted, a forced
+// step is a best-gain step: the reference skips the forced splits left and
+// then runs its best-gain loop to M - 1 splits, and the host queues K +
+// M - 1 steps, so the same splits follow. With coupled penalties
+// (feature_used non-null) the wiring thread also marks the split's feature
+// paid (lightgbm_tpu/ops/grow.py:1396-1397) and writes ctl[kNewly] = 1 when
+// it was not yet, which the penalised all-leaves scan reads (split_pair.cu).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,6 +149,7 @@ constexpr unsigned long long kBarrierNs = 1000000000ull;  // the longest wait at
 // slots of the loop's control vector (ops/grow_state.py)
 constexpr int kActive = 0, kNumLeaves = 1, kStep = 2, kBest = 3, kNew = 4, kSmall = 5,
               kLarge = 6, kPBegin = 7, kPCount = 8, kLeft = 9;
+constexpr int kFLeaf = 10, kAbort = 11, kNewly = 12;  // forced splits and CEGB (kExt)
 constexpr int kMissingZero = 1, kMissingNan = 2;
 // the pool's control vector (ops/grow_state.py): the larger child's
 // histogram runs (kActive) on its leaf (kSmall), then hit and slots
@@ -146,6 +162,7 @@ constexpr int kBestF = 9, kBestI = 4, kNodeI = 5, kNodeF = 3, kLeafF = 3, kLeafI
 // the block's broadcast words
 enum { sActive, sStep, sNumLeaves, sBest, sGo, sF, sThr, sDl, sBegin, sCount, sLeftSmaller,
        sMiss, sDbin, sNanBin, sEpoch, sBefore, sTotal, sTileLeft, sCat, sWords };
+constexpr int sForced = sWords;  // kExt: this step takes the forced record
 
 struct Params {
   float l1, l2, max_delta_step;
@@ -182,6 +199,11 @@ struct Args {
   int* pool;                    // kPool: control [kCtl], slot_of [M], slot_leaf [P], slot_age [P]
   int P;                        // kPool: slots
   int subtract;                 // kPool: the subtraction is on (a hit needs it)
+  const float* frec_f;          // kExt: the forced record [9], [4], [W]
+  const int* frec_i;
+  const int* frec_b;
+  int forced;                   // kExt: a step of the forced-split preamble
+  unsigned char* feature_used;  // kExt: [F] coupled CEGB's paid features (null without)
 };
 
 // a bin of the byte or the int16 (kWide) instantiations
@@ -283,12 +305,20 @@ __device__ __forceinline__ int2 grid_wait(const unsigned long long* words, int g
 // last block: when that block holds no rows, right after it arrives at the
 // barrier, while the others still read theirs, else after its scatter. No
 // other block reads these arrays.
-template <bool kCat>
+template <bool kCat, bool kExt = false>
 __device__ __forceinline__ void wire(const Args& a, int best, int nl, int node, int f, int thr,
-                                     int dl, const int* words) {
+                                     int dl, const int* words, bool forced = false) {
   float rec[kBestF], pa[kLaux];
+  const float* src = a.best_f + best * kBestF;
+  if constexpr (kExt) {
+    if (forced) src = a.frec_f;
+    if (a.feature_used != nullptr) {  // coupled CEGB: the split pays its feature
+      a.ctl[kNewly] = a.feature_used[f] ? 0 : 1;
+      a.feature_used[f] = 1;
+    }
+  }
 #pragma unroll
-  for (int c = 0; c < kBestF; ++c) rec[c] = a.best_f[best * kBestF + c];
+  for (int c = 0; c < kBestF; ++c) rec[c] = src[c];
 #pragma unroll
   for (int c = 0; c < kLaux; ++c) pa[c] = a.laux[best * kLaux + c];
   const int parent = a.leaf_i[best * kLeafI], depth = a.leaf_i[best * kLeafI + 1] + 1;
@@ -367,7 +397,7 @@ __device__ __forceinline__ void pool_update(const Args& a, int best, int nl, int
   ctl[kPSlot] = pslot;
 }
 
-template <bool kCat, bool kEfb, bool kWide, bool kPool>
+template <bool kCat, bool kEfb, bool kWide, bool kPool, bool kExt>
 __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   static_assert(!(kEfb && kWide), "a bundled table's groups are bytes");
   __shared__ int stage_s[kEfb ? kEfbCap : kCap];
@@ -377,7 +407,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   __shared__ int woff[kItems * kWarps];
   // missing_type | default_bin << 2 | nan bin << 17 | categorical << kCatBit
   __shared__ int meta_s[kMetaCap];
-  __shared__ int sh[sWords];
+  __shared__ int sh[sWords + (kExt ? 1 : 0)];
   __shared__ int words_s[kCat ? (kWide ? kMaxWideWords : kMaxWords) : 1];  // the split's words
   __shared__ int plan_s[kEfb ? kMetaCap : 1];    // group << 8 | offset (kEfb)
   __shared__ int efb_s[kEfb ? 2 : 1];            // the picked feature's group and offset
@@ -431,6 +461,13 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     if (lane == 0) {
       sh[sBest] = wi;
       sh[sGo] = (wg > 0.0f) && sh[sStep] < M - 1;
+      if constexpr (kExt) {  // a forced step of a preamble that has not aborted
+        sh[sForced] = a.forced && !a.ctl[kAbort];
+        if (sh[sForced]) {
+          sh[sBest] = a.ctl[kFLeaf];
+          sh[sGo] = sh[sStep] < M - 1;
+        }
+      }
     }
   }
   __syncthreads();
@@ -443,7 +480,20 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     return;
   }
   const int best = sh[sBest];
-  if (idx == best) {  // the thread that read the picked leaf (its split's feature >= 0)
+  bool holder = idx == best;  // the thread that read the picked leaf (its split's feature >= 0)
+  [[maybe_unused]] bool forced = false;
+  if constexpr (kExt) {
+    forced = sh[sForced] != 0;
+    if (forced) {  // thread 0 reads the forced record and the leaf's bounds
+      holder = tid == 0;
+      if (holder) {
+        f = a.frec_i[0]; thr = a.frec_i[1]; dl = a.frec_i[3];
+        begin = a.leaf_begin[best]; count = a.leaf_count[best];
+        lsmall = a.frec_f[kLC] <= a.frec_f[kRC];
+      }
+    }
+  }
+  if (holder) {
     sh[sF] = f; sh[sThr] = thr; sh[sDl] = dl; sh[sBegin] = begin; sh[sCount] = count;
     sh[sLeftSmaller] = lsmall;
     const int mv = f < kMetaCap ? meta_s[f]
@@ -458,7 +508,11 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
       efb_s[1] = pv & 0xFF;
     }
   }
-  if (kCat && tid < a.W) words_s[tid] = a.best_b[best * a.W + tid];
+  if constexpr (kExt) {
+    if (kCat && tid < a.W) words_s[tid] = forced ? a.frec_b[tid] : a.best_b[best * a.W + tid];
+  } else {
+    if (kCat && tid < a.W) words_s[tid] = a.best_b[best * a.W + tid];
+  }
   __syncthreads();
   f = sh[sF]; thr = sh[sThr]; dl = sh[sDl];
   const long long b0 = sh[sBegin];
@@ -472,7 +526,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   if (b >= nb) {
     if (tid == 0) publish(a.block_left + b, epoch, 0);
     if (wires) {
-      wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+      wire<kCat, kExt>(a, best, nl, node, f, thr, dl, words_s, forced);
       if constexpr (kPool) pool_update(a, best, nl, node, sh[sLeftSmaller] != 0);
     }
     return;
@@ -576,7 +630,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   }
 
   if (wires) {
-    wire<kCat>(a, best, nl, node, f, thr, dl, words_s);
+    wire<kCat, kExt>(a, best, nl, node, f, thr, dl, words_s, forced);
     if constexpr (kPool) pool_update(a, best, nl, node, sh[sLeftSmaller] != 0);
   }
   if (b == 0 && tid == 0) {
@@ -601,28 +655,32 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
 }
 
 // The instantiation of a launch: categorical (bit 0 of ``kind``), bundled
-// (bit 1), int16 bins (bit 2, never bundled) and a histogram pool (bit 3).
-using Kernel = decltype(&pick_partition_kernel<false, false, false, false>);
+// (bit 1), int16 bins (bit 2, never bundled), a histogram pool (bit 3) and
+// forced splits or coupled CEGB (bit 4).
+using Kernel = decltype(&pick_partition_kernel<false, false, false, false, false>);
 
-template <bool kPool>
+template <bool kPool, bool kExt>
 Kernel instantiation_of(int kind) {
   switch (kind & 7) {
-    case 1: return &pick_partition_kernel<true, false, false, kPool>;
+    case 1: return &pick_partition_kernel<true, false, false, kPool, kExt>;
     case 2:
       if constexpr (kPool) return nullptr;  // a pool of a bundled table is not ported
-      else return &pick_partition_kernel<false, true, false, false>;
+      else return &pick_partition_kernel<false, true, false, false, kExt>;
     case 3:
       if constexpr (kPool) return nullptr;
-      else return &pick_partition_kernel<true, true, false, false>;
-    case 4: return &pick_partition_kernel<false, false, true, kPool>;
-    case 5: return &pick_partition_kernel<true, false, true, kPool>;
-    case 0: return &pick_partition_kernel<false, false, false, kPool>;
+      else return &pick_partition_kernel<true, true, false, false, kExt>;
+    case 4: return &pick_partition_kernel<false, false, true, kPool, kExt>;
+    case 5: return &pick_partition_kernel<true, false, true, kPool, kExt>;
+    case 0: return &pick_partition_kernel<false, false, false, kPool, kExt>;
     default: return nullptr;  // bundled int16 bins
   }
 }
 
 Kernel instantiation(int kind) {
-  return (kind & 8) ? instantiation_of<true>(kind) : instantiation_of<false>(kind);
+  if (kind & 16) {
+    return (kind & 8) ? instantiation_of<true, true>(kind) : instantiation_of<false, true>(kind);
+  }
+  return (kind & 8) ? instantiation_of<true, false>(kind) : instantiation_of<false, false>(kind);
 }
 
 }  // namespace
@@ -631,7 +689,8 @@ extern "C" {
 
 // The blocks of lgbt_pick_partition's grid for the instantiation ``kind``
 // (bit 0: categorical, bit 1: bundled, bit 2: int16 bins, bit 3: a
-// histogram pool; an instantiation that does not exist is refused): as many as fit on the current
+// histogram pool, bit 4: forced splits or coupled CEGB; an instantiation
+// that does not exist is refused): as many as fit on the current
 // device at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor times the
 // SM count), so that a cooperative launch of them is never refused.
 int lgbt_pick_partition_grid(int* grid, int kind) {
@@ -669,7 +728,11 @@ int lgbt_pick_partition_grid(int* grid, int kind) {
 // once ctl[0] is 0. int16 bins (bin_bytes 2, W <= 32) are never
 // bundled. A histogram pool: pool [16 + M + 2 P] int32 (its
 // control vector, slot_of, slot_leaf, slot_age; null without one), P slots,
-// subtract 0 to build both children of every split.
+// subtract 0 to build both children of every split. ext 1 launches the
+// kExt instantiation: a forced step (forced 1) takes the leaf ctl[10] and
+// the record frec_f [9] f32, frec_i [4] int32, frec_b [W] int32 unless
+// ctl[11] is set; feature_used [F] bytes (coupled CEGB, else null) is
+// marked at the split's feature and ctl[12] says whether it was new.
 int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n, void* order,
                         void* scratch, void* ctl, const void* best_f, const void* best_i,
                         void* node_i, void* node_f, void* leaf_f, void* leaf_i, void* laux,
@@ -678,7 +741,9 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
                         void* bar, const void* best_b, void* node_b, const void* is_cat,
                         const void* gid, const void* off, void* pool, int P, int subtract,
                         int bin_bytes, int M, int F, int W, float l1, float l2,
-                        float max_delta_step, int grid, void* stream) {
+                        float max_delta_step, int grid, int ext, const void* frec_f,
+                        const void* frec_i, const void* frec_b, int forced, void* feature_used,
+                        void* stream) {
   if (M < 1 || F < 1 || grid < 1 || (bin_bytes != 1 && bin_bytes != 2))
     return (int)cudaErrorInvalidValue;
   const bool wide = bin_bytes == 2;
@@ -687,8 +752,11 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
     return (int)cudaErrorInvalidValue;
   if ((gid == nullptr) != (off == nullptr)) return (int)cudaErrorInvalidValue;
   if (pool != nullptr && (P < 2 || P > M)) return (int)cudaErrorInvalidValue;
+  if (ext && (frec_f == nullptr || frec_i == nullptr || (is_cat != nullptr && frec_b == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (!ext && (forced || feature_used != nullptr)) return (int)cudaErrorInvalidValue;
   const int kind = (is_cat != nullptr ? 1 : 0) | (gid != nullptr ? 2 : 0) | (wide ? 4 : 0) |
-                   (pool != nullptr ? 8 : 0);
+                   (pool != nullptr ? 8 : 0) | (ext ? 16 : 0);
   const Kernel kern = instantiation(kind);
   if (kern == nullptr) return (int)cudaErrorInvalidValue;
   Args a{(const uint8_t*)bins, stride_f, stride_n, (int*)order, (int*)scratch, (int*)ctl,
@@ -697,7 +765,8 @@ int lgbt_pick_partition(const void* bins, long long stride_f, long long stride_n
          (const int*)default_bin, (const int*)num_bin, (const int*)mono, (int*)leaf_begin,
          (int*)leaf_count, (unsigned long long*)block_left, (unsigned*)bar, (const int*)best_b,
          (int*)node_b, (const unsigned char*)is_cat, M, F, W, Params{l1, l2, max_delta_step},
-         (const int*)gid, (const int*)off, (int*)pool, P, subtract};
+         (const int*)gid, (const int*)off, (int*)pool, P, subtract, (const float*)frec_f,
+         (const int*)frec_i, (const int*)frec_b, forced, (unsigned char*)feature_used};
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
   cfg.blockDim = dim3(kThreads);

@@ -129,6 +129,49 @@
 // clears the other ``large`` scratch for the next step. The root's scan
 // reads slot 0, the root's.
 //
+// CEGB penalties (the kPen instantiations of the root's and the folded
+// entry, lgbt_split_pair_cegb; after lightgbm_tpu/ops/grow.py:1010-1020
+// leaf_penalties and lightgbm_tpu/ops/split.py:649-653): the block of
+// feature f of leaf l computes the feature's penalty itself,
+//   split * count(l) + coupled[f] * !feature_used[f] + lazy[f] * unused[l, f]
+// (split = tradeoff * penalty_split, coupled and lazy already times the
+// tradeoff, f32, in that order of operations), and subtracts it from the
+// feature's best gain before the argmax over features, so the record's gain
+// is the penalised one. The count is laux's, the leaf's bagged rows.
+//
+// The all-leaves entry (the same kPen instantiation of the root's entry,
+// grid (F, M), block (f, l) scanning leaf l): the reference re-ranks every
+// leaf after every split under the new penalties (rescan_all,
+// lightgbm_tpu/ops/grow.py:1022-1047). A leaf's record depends on its
+// histogram, its laux row, its depth, feature_used and its unused row.
+// A split of leaf b on feature f changes only the two children's rows of
+// those (which the folded entry rescans) and, with coupled penalties,
+// feature_used[f]: the split pays f. Lazy counts move only for the
+// children (the rows that paid are the children's), and the split penalty
+// is each leaf's own count. So every other leaf's inputs change only at a
+// first payment of a coupled feature, and feature_used persists across
+// trees: at most F steps of a whole training. The entry therefore returns
+// at once (every block, before any ticket) unless the step's pick wrote
+// ctl[kNewly] = 1, and rescans then every leaf below ctl[kNumLeaves] but
+// the two children; its records then equal rescan_all's. Blocks of leaves
+// >= num_leaves return at once. Its tickets are one a leaf (count [M]) and
+// its per-feature records [M, F, .] scratch of their own.
+//
+// The forced record (forced_record_kernel, lgbt_forced_record; a step of
+// the forced-split preamble, lightgbm_tpu/ops/grow.py:1600-1637): one
+// block computes gather_info_for_threshold (lightgbm_tpu/ops/split.py:
+// 519-600) for the step's (leaf, feature, threshold) from the forced table
+// [K, 3], reading the feature's row of the leaf's histogram (its pool slot
+// under a pool). Its threads stage the row in shared memory, three lanes
+// fold one channel each over the right side's bins in bin order (the plain
+// version's left fold), and thread 0 writes the record (gain, sums, the
+// unconstrained outputs; feature, threshold, num_cat, default_left; the
+// one-hot membership words) where the step's pick reads it, and the leaf
+// into ctl[kFLeaf]. A record whose gain is -inf, or a leaf at max_depth,
+// sets ctl[kAbort] instead: the pick then takes the argmax, and every later
+// forced record returns at once. What bounds it is the fold's chain of
+// num_bin dependent adds (a few microseconds); it moves B * 12 bytes.
+//
 // Built with --fmad=false: a contracted a*b+c rounds once where the plain
 // version rounds twice, which moves gains by an ulp and flips near-ties.
 
@@ -310,6 +353,28 @@ struct LoopState {
   float* large_zero;     // kPool: [F, B, 3] the other one, cleared for the next step
 };
 constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
+constexpr int kNumLeaves = 1, kFLeaf = 10, kAbort = 11, kNewly = 12;
+
+// CEGB (kPen): the penalty vectors and the training's state
+// (ops/grow_state.py Cegb); a null vector is a penalty not given.
+struct Pen {
+  const unsigned char* feature_used;  // [F] (coupled)
+  const float* unused;                // [M, F] bagged rows of each leaf not yet paid (lazy)
+  const float* coupled;               // [F] tradeoff * coupled
+  const float* lazy;                  // [F] tradeoff * lazy
+  float split;                        // tradeoff * penalty_split
+  int all;                            // the all-leaves entry: block (f, l) scans leaf l
+};
+
+// The CEGB penalty of feature f at leaf ``leaf`` of ``count`` bagged rows,
+// in the reference's order of f32 operations.
+__device__ __forceinline__ float cegb_penalty(const Pen& pen, int leaf, int f, int F,
+                                              float count) {
+  float v = pen.split * count;
+  if (pen.coupled != nullptr) v = v + pen.coupled[f] * (pen.feature_used[f] ? 0.0f : 1.0f);
+  if (pen.lazy != nullptr) v = v + pen.lazy[f] * pen.unused[(long long)leaf * F + f];
+  return v;
+}
 constexpr int kHit = 10, kSSlot = 11, kLSlot = 12, kPSlot = 13;  // the pool's control slots
 
 // One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
@@ -531,7 +596,7 @@ __device__ __forceinline__ void finish_child(const float* feat_f, const int* fea
   count[c] = 0;  // ready for the next call on this stream
 }
 
-template <bool kDev, bool kFold, bool kCat, bool kWide, bool kPool>
+template <bool kDev, bool kFold, bool kCat, bool kWide, bool kPool, bool kPen>
 __global__ void __launch_bounds__(kThreads)
 split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const float* __restrict__ sums, const float* __restrict__ cons,
@@ -539,8 +604,9 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const int* __restrict__ default_bin_a, const int* __restrict__ mono_a,
                   const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
                   float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
-                  Params p, int two_way, LoopState ls, Cat cat) {
+                  Params p, int two_way, LoopState ls, Cat cat, Pen pen) {
   static_assert(!kPool || (kDev && kFold), "a pool's rows are read by the folded entry");
+  static_assert(!kPen || (kDev && !kPool), "the penalised entries are the loop's, unpooled");
   constexpr int kStage = Dims<kWide>::kStage, kRow = Dims<kWide>::kRow;
   __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
   __shared__ float red_g[2][kWarps];
@@ -549,7 +615,15 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   if (kDev && !ls.ctl[kActive]) return;
   const int f = blockIdx.x, c = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int leaf = kDev ? ls.ctl[c == 0 ? kBest : kNew] : (c == 0 ? leaf0 : leaf1);
+  int leaf = kDev ? ls.ctl[c == 0 ? kBest : kNew] : (c == 0 ? leaf0 : leaf1);
+  if constexpr (kPen) {
+    if (pen.all) {  // block (f, l): leaf l, unless the step paid no coupled feature
+      leaf = c;
+      if (!ls.ctl[kNewly] || leaf >= ls.ctl[kNumLeaves] || leaf == ls.ctl[kBest] ||
+          leaf == ls.ctl[kNew])
+        return;
+    }
+  }
   // the child's sums and window: [3] and [2] floats
   const float* sc = kDev ? ls.laux + leaf * 5 : sums + c * 3;
   const float* cc = kDev ? ls.laux + leaf * 5 + 3 : cons + c * 2;
@@ -650,6 +724,15 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
     if (i < B * 3) pre[(i - 3 * b) * kRow + b] = excl ? 0.0f : v[k];
   }
   __syncthreads();
+  // kPen: thread 0 reads the feature's penalty once the row is staged (the
+  // row's registers free) and keeps it in shared memory until the record
+  // is published
+  [[maybe_unused]] float* pen_s = nullptr;
+  if constexpr (kPen) {
+    __shared__ float pen_v;
+    pen_s = &pen_v;
+    if (tid == 0) pen_v = cegb_penalty(pen, leaf, f, F, nd);
+  }
 
   // the effective hessian and the gain shift, which the last block reads
   // too: in the numerical instantiations after the fold, where PR 16's
@@ -666,6 +749,9 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
       categorical_scan(pre, cs, rs, red_g[0], red_t[0], B, num_bin, miss, sg, sh, nd, min_c,
                        max_c, mgs, p, cat);
       if (tid == 0 && !use_feature) rs.f.x = -INFINITY;
+      if constexpr (kPen) {
+        if (tid == 0) rs.f.x = rs.f.x - *pen_s;
+      }
       __syncthreads();
       // the block's words: the winner's bins
       if (tid < cat.W) {
@@ -741,6 +827,7 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
         bool dl = !use_pos;
         if (miss == 2 && !multi_bin) dl = false;  // 2-bin NaN features
         if (!use_feature) g = -INFINITY;
+        if constexpr (kPen) g = g - *pen_s;
         const float pg = pre[t], ph = pre[kRow + t], pc = pre[2 * kRow + t];
         float lg, lh, lc;
         if (use_pos) {
@@ -784,15 +871,81 @@ bool cat_args_ok(const void* is_cat, const void* feat_b, const void* outb, int W
   return is_cat == nullptr || (feat_b != nullptr && outb != nullptr && W == (B + 31) / 32);
 }
 
-// The instantiation of a launch: kDev, kFold and kPool as the entry asks,
-// kCat with categorical features, kWide past the byte-width rows' 336 bins.
-template <bool kDev, bool kFold, bool kPool>
-decltype(&split_pair_kernel<false, false, false, false, false>) instantiation(bool cat, int B) {
+// The instantiation of a launch: kDev, kFold, kPool and kPen as the entry
+// asks, kCat with categorical features, kWide past the byte-width rows' 336
+// bins.
+using Kernel = decltype(&split_pair_kernel<false, false, false, false, false, false>);
+template <bool kDev, bool kFold, bool kPool, bool kPen = false>
+Kernel instantiation(bool cat, int B) {
   const bool wide = B > Dims<false>::kMaxBins;
-  return cat ? (wide ? &split_pair_kernel<kDev, kFold, true, true, kPool>
-                     : &split_pair_kernel<kDev, kFold, true, false, kPool>)
-             : (wide ? &split_pair_kernel<kDev, kFold, false, true, kPool>
-                     : &split_pair_kernel<kDev, kFold, false, false, kPool>);
+  return cat ? (wide ? &split_pair_kernel<kDev, kFold, true, true, kPool, kPen>
+                     : &split_pair_kernel<kDev, kFold, true, false, kPool, kPen>)
+             : (wide ? &split_pair_kernel<kDev, kFold, false, true, kPool, kPen>
+                     : &split_pair_kernel<kDev, kFold, false, false, kPool, kPen>);
+}
+
+// One step's forced record (see the header): gather_info_for_threshold of
+// forced[k] = (leaf, feature, threshold) into frec_f [9] / frec_i [4] /
+// frec_b [W] and ctl[kFLeaf], or ctl[kAbort] = 1 for an invalid split.
+__global__ void __launch_bounds__(kThreads)
+forced_record_kernel(const float* __restrict__ hist, int* ctl, const float* __restrict__ laux,
+                     const int* __restrict__ leaf_i, const int* __restrict__ slot_of,
+                     const int* __restrict__ forced, int k, const int* __restrict__ num_bin_a,
+                     const int* __restrict__ missing_a, const int* __restrict__ default_bin_a,
+                     const unsigned char* __restrict__ is_cat, int F, int B, int W,
+                     int max_depth, Params p, float* __restrict__ frec_f,
+                     int* __restrict__ frec_i, int* __restrict__ frec_b) {
+  __shared__ float row[3][Dims<true>::kMaxBins];
+  __shared__ float right[3];
+  if (!ctl[kActive] || ctl[kAbort]) return;
+  const int tid = threadIdx.x;
+  const int leaf = forced[k * 3], f = forced[k * 3 + 1], thr = forced[k * 3 + 2];
+  const int hrow = slot_of != nullptr ? max(slot_of[leaf], 0) : leaf;
+  const float* h = hist + ((long long)hrow * F + f) * B * 3;
+  for (int i = tid; i < B * 3; i += kThreads) row[i % 3][i / 3] = h[i];
+  const int num_bin = num_bin_a[f], miss = missing_a[f], dbin = default_bin_a[f];
+  const bool cat = is_cat != nullptr && is_cat[f];
+  __syncthreads();
+  if (tid < 3) {  // the right side's sums, a left fold in bin order
+    const int hi = min(num_bin - 1 - (miss == 2 ? 1 : 0), B - 1);
+    float acc = 0.0f;
+    for (int b = max(thr, 1); b <= hi; ++b) {
+      if (!(miss == 1 && b == dbin)) acc = acc + row[tid][b];
+    }
+    right[tid] = acc;
+  }
+  __syncthreads();
+  if (tid != 0) return;
+  const float eps = (float)kEpsilon;
+  const float sg = laux[leaf * 5], sh = laux[leaf * 5 + 1], nd = laux[leaf * 5 + 2];
+  const float mgs = gain_given_output(sg, sh, leaf_output(sg, sh, p), p) + p.min_gain;
+  float lg, lh, lc;
+  bool ok_cat = true;
+  if (!cat) {
+    lg = sg - right[0];
+    lh = sh - (right[1] + eps);
+    lc = nd - right[2];
+  } else {
+    const bool in = thr >= 0 && thr < B;
+    lg = in ? row[0][thr] : 0.0f;
+    lh = (in ? row[1][thr] : 0.0f) + eps;
+    lc = in ? row[2][thr] : 0.0f;
+    ok_cat = thr < num_bin - (miss != 0 ? 1 : 0);
+  }
+  const float rg = sg - lg, rh = sh - lh, rc = nd - lc;
+  const float lo = leaf_output(lg, lh, p), ro = leaf_output(rg, rh, p);
+  const float cur = gain_given_output(lg, lh, lo, p) + gain_given_output(rg, rh, ro, p);
+  const bool ok = cur > mgs && ok_cat && !isnan(cur);
+  const bool valid = ok && (max_depth <= 0 || leaf_i[leaf * 2 + 1] < max_depth);
+  if (!valid) {
+    ctl[kAbort] = 1;
+    return;
+  }
+  const float r[9] = {cur - mgs, lg, lh - eps, lc, rg, rh - eps, rc, lo, ro};
+  for (int c = 0; c < 9; ++c) frec_f[c] = r[c];
+  frec_i[0] = f; frec_i[1] = thr; frec_i[2] = cat ? 1 : 0; frec_i[3] = cat ? 0 : 1;
+  for (int w = 0; w < W; ++w) frec_b[w] = (thr >> 5) == w ? (int)(1u << (thr & 31)) : 0;
+  ctl[kFLeaf] = leaf;
 }
 
 }  // namespace
@@ -820,13 +973,12 @@ int lgbt_split_pair(const void* hist, int leaf0, int leaf1, const void* sums, co
   const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
                 max_threshold, cat_smooth, cat_l2, min_group};
   const LoopState ls{nullptr, nullptr, nullptr, 0, nullptr, nullptr, nullptr, nullptr, nullptr};
-  decltype(&split_pair_kernel<false, false, false, false, false>) kern =
-      instantiation<false, false, false>(is_cat != nullptr, B);
+  const Kernel kern = instantiation<false, false, false>(is_cat != nullptr, B);
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, leaf0, leaf1, (const float*)sums, (const float*)cons,
       (const int*)num_bin, (const int*)missing, (const int*)default_bin, (const int*)mono,
       (const unsigned char*)fmask, (float*)feat_f, (int*)feat_i, (float*)outf, (int*)outi,
-      (int*)count, F, B, p, two_way, ls, cat);
+      (int*)count, F, B, p, two_way, ls, cat, Pen{});
   return (int)cudaGetLastError();
 }
 
@@ -870,14 +1022,81 @@ int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const voi
   const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
                 max_threshold, cat_smooth, cat_l2, min_group};
   const bool c = is_cat != nullptr;
-  decltype(&split_pair_kernel<false, false, false, false, false>) kern =
-      pooled ? instantiation<true, true, true>(c, B)
-             : (fold ? instantiation<true, true, false>(c, B)
-                     : instantiation<true, false, false>(c, B));
+  const Kernel kern = pooled ? instantiation<true, true, true>(c, B)
+                             : (fold ? instantiation<true, true, false>(c, B)
+                                     : instantiation<true, false, false>(c, B));
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
       (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,
-      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls, cat);
+      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls, cat, Pen{});
+  return (int)cudaGetLastError();
+}
+
+// The penalised (CEGB) entries of the split loop: lgbt_split_pair_dev's
+// root (C = 1) and folded (small non-null, C = 2) entries, unpooled, with
+// each feature's penalty subtracted before the argmax over features; or,
+// with all = 1, the all-leaves entry (C = M: block (f, l) scans leaf l
+// when ctl[12] is set, l < ctl[1] and l is neither child ctl[3] nor
+// ctl[4]; its tickets count [M], its scratch feat_f [M, F, 4], feat_i [M,
+// F, 2] and feat_b [M, F, W]). feature_used [F] bytes and coupled [F] f32
+// (tradeoff * coupled) with coupled penalties, else null; unused [M, F]
+// and lazy [F] f32 (tradeoff * lazy) with lazy ones, else null; split =
+// tradeoff * penalty_split. The other arguments are lgbt_split_pair_dev's.
+int lgbt_split_pair_cegb(void* hist, const void* ctl, const void* laux, const void* leaf_i,
+                         const void* small, void* zero, int max_depth, const void* num_bin,
+                         const void* missing, const void* default_bin, const void* mono,
+                         const void* fmask, void* feat_f, void* feat_i, void* best_f,
+                         void* best_i, void* count, int C, int F, int B, float l1, float l2,
+                         float max_delta_step, float min_data, float min_hess, float min_gain,
+                         int two_way, const void* is_cat, void* feat_b, void* outb, int W,
+                         int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
+                         float min_group, const void* feature_used, const void* unused,
+                         const void* coupled, const void* lazy, float split, int all,
+                         void* stream) {
+  if (C <= 0 || F <= 0 || B <= 0 || B > Dims<true>::kMaxBins) return (int)cudaErrorInvalidValue;
+  if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
+  const bool fold = small != nullptr;
+  if (all ? fold : (C > 2 || (fold && (C != 2 || zero == nullptr || zero == small))))
+    return (int)cudaErrorInvalidValue;
+  if ((coupled == nullptr) != (feature_used == nullptr) || (lazy == nullptr) != (unused == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
+  const LoopState ls{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth,
+                     (const float*)small, (float*)zero, nullptr, nullptr, nullptr};
+  const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
+                max_threshold, cat_smooth, cat_l2, min_group};
+  const Pen pen{(const unsigned char*)feature_used, (const float*)unused, (const float*)coupled,
+                (const float*)lazy, split, all};
+  const bool c = is_cat != nullptr;
+  const Kernel kern = fold ? instantiation<true, true, false, true>(c, B)
+                           : instantiation<true, false, false, true>(c, B);
+  kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
+      (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
+      (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,
+      (int*)feat_i, (float*)best_f, (int*)best_i, (int*)count, F, B, p, two_way, ls, cat, pen);
+  return (int)cudaGetLastError();
+}
+
+// One step's forced record: forced [K, 3] int32 (leaf, used feature,
+// threshold bin) row k, the leaf's histogram row hist [rows, F, B, 3] (its
+// slot slot_of[leaf] under a pool, slot_of null without one), its sums
+// laux [M, 5] and depth leaf_i [M, 2]; is_cat [F] bytes or null. Writes
+// frec_f [9] f32, frec_i [4] int32, frec_b [W] int32 and ctl[10] (the
+// leaf), or ctl[11] = 1 when the split is invalid (gain -inf, or the leaf
+// at max_depth > 0). Nothing once ctl[0] is 0 or ctl[11] is set.
+int lgbt_forced_record(const void* hist, void* ctl, const void* laux, const void* leaf_i,
+                       const void* slot_of, const void* forced, int k, const void* num_bin,
+                       const void* missing, const void* default_bin, const void* is_cat, int F,
+                       int B, int W, int max_depth, float l1, float l2, float max_delta_step,
+                       float min_gain, void* frec_f, void* frec_i, void* frec_b, void* stream) {
+  if (F <= 0 || B <= 0 || B > Dims<true>::kMaxBins || k < 0 || W < 0)
+    return (int)cudaErrorInvalidValue;
+  const Params p{l1, l2, max_delta_step, 0.0f, 0.0f, min_gain};
+  forced_record_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)hist, (int*)ctl, (const float*)laux, (const int*)leaf_i, (const int*)slot_of,
+      (const int*)forced, k, (const int*)num_bin, (const int*)missing, (const int*)default_bin,
+      (const unsigned char*)is_cat, F, B, W, max_depth, p, (float*)frec_f, (int*)frec_i,
+      (int*)frec_b);
   return (int)cudaGetLastError();
 }
 

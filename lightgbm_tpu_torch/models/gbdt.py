@@ -86,11 +86,23 @@ device loop runs its int16 instantiation. ``histogram_pool_size`` caps the
 device loop's histograms to LRU slots (ops/grow.py); the host loop takes
 no pool.
 
+Forced splits (``forcedsplits_filename``, parsed at set-up into the JAX
+package's BFS table, kept on the device), CEGB (``cegb_*``: one
+ops/grow_state.py ``Cegb`` for the whole training, its paid features and
+rows carried across trees, classes, replays and chunks, left as it is by a
+rollback) run on the device loop, in the captured iteration and its
+chunks (ops/grow.py). So does ``tpu_hist_mode=masked``, the reference's
+in-package oracle, which grows the bucketed mode's trees
+(tests/test_hist_modes.py): the device loop takes it as a name for the
+histograms it builds for ``bucketed``. The host loop takes none of the
+three, and CEGB takes no histogram pool.
+
 Every parameter this slice does not implement raises NotImplementedError
 naming it, instead of training something else.
 """
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -103,12 +115,13 @@ from ..objective import ObjectiveFunction
 from ..obs import tune as tune_mod
 from ..ops import cuda_graph, grow_state, grow_step_kernel, hist_kernel, predict_kernel, shap_kernel
 from ..ops.grow import (
-    TreeArrays, device_loop_routable, grow_tree, launch_tree, tree_from_packed,
+    TreeArrays, device_loop_routable, forced_table, grow_tree, launch_tree, tree_from_packed,
 )
 from ..ops.histogram import HIST_DTYPES
 from ..ops.predict import ensemble_predict_raw, raw_predict_leaf
-from ..ops.split import SplitParams, calculate_leaf_output, member_words, num_words
+from ..ops.split import CegbParams, SplitParams, calculate_leaf_output, member_words, num_words
 from ..utils import log
+from ..utils.vfile import vopen
 from .tree import Tree
 
 K_EPSILON = 1e-15
@@ -175,14 +188,9 @@ def draw_bag(seed: int, iteration: int, n: int, bag_cnt: int, device,
 def check_supported(config: Config) -> None:
     """Raise NotImplementedError for every parameter this slice does not run."""
     refused = []
-    if config.forcedsplits_filename:
-        refused.append("forcedsplits_filename")
-    if (config.cegb_penalty_split != 0.0 or config.cegb_penalty_feature_lazy
-            or config.cegb_penalty_feature_coupled):
-        refused.append("cegb_penalty_*")
     if config.tree_learner != "serial":
         refused.append("tree_learner=%s" % config.tree_learner)
-    if config.tpu_hist_mode != "bucketed":
+    if config.tpu_hist_mode not in ("bucketed", "masked"):
         refused.append("tpu_hist_mode=%s" % config.tpu_hist_mode)
     if config.tpu_hist_dtype not in HIST_DTYPES:
         refused.append("tpu_hist_dtype=%s" % config.tpu_hist_dtype)
@@ -190,6 +198,71 @@ def check_supported(config: Config) -> None:
         raise NotImplementedError(
             "not ported to lightgbm_tpu_torch yet: %s" % ", ".join(refused)
         )
+
+
+def cegb_setup(cfg: Config, train_set: BinnedDataset, device) -> Optional[grow_state.Cegb]:
+    """The training's CEGB state (lightgbm_tpu/models/gbdt.py
+    ``_setup_cegb``): the penalty vectors, each of one entry a column of the
+    raw data (else fatal), taken on the used features; None when no penalty
+    is set."""
+    F = train_set.num_features
+    coupled = list(cfg.cegb_penalty_feature_coupled or [])
+    lazy = list(cfg.cegb_penalty_feature_lazy or [])
+    for name, vec in (("coupled", coupled), ("lazy", lazy)):
+        if vec and len(vec) != train_set.num_total_features:
+            log.fatal(
+                "cegb_penalty_feature_%s has %d entries but the data has %d "
+                "total features" % (name, len(vec), train_set.num_total_features)
+            )
+    params = CegbParams(tradeoff=cfg.cegb_tradeoff, penalty_split=cfg.cegb_penalty_split,
+                        has_coupled=bool(coupled), has_lazy=bool(lazy))
+    if not params.enabled:
+        return None
+    used = train_set.used_feature_idx
+
+    def on_used(vec):
+        return np.array([vec[j] for j in used], np.float32) if vec else None
+
+    return grow_state.Cegb(params, F, train_set.num_data, on_used(coupled), on_used(lazy), device)
+
+
+def parse_forced_splits(cfg: Config, train_set: BinnedDataset) -> tuple:
+    """``forcedsplits_filename``'s JSON as the BFS tuple of (leaf, used
+    feature, threshold bin) of lightgbm_tpu/models/gbdt.py
+    ``_parse_forced_splits`` (ForceSplits, serial_tree_learner.cpp:597): the
+    left child keeps the leaf's index and the right child takes the next
+    one; a node on an unknown or trivial feature warns and ends the whole
+    rest of the BFS."""
+    fname = cfg.forcedsplits_filename
+    if not fname:
+        return ()
+    with vopen(fname) as fh:
+        root = json.load(fh)
+    if not root:
+        return ()
+    feat_to_used = {j: i for i, j in enumerate(train_set.used_feature_idx)}
+    out = []
+    queue = [(root, 0)]
+    next_leaf = 1
+    while queue:
+        node, leaf = queue.pop(0)
+        f_orig = int(node["feature"])
+        thr = float(node["threshold"])
+        if f_orig not in feat_to_used:
+            log.warning(
+                "Forced split on trivial/unknown feature %d aborts the "
+                "remaining forced splits" % f_orig
+            )
+            break
+        f_used = feat_to_used[f_orig]
+        out.append((leaf, f_used, int(train_set.mappers[f_used].value_to_bin(thr))))
+        right_leaf = next_leaf
+        next_leaf += 1
+        if isinstance(node.get("left"), dict):
+            queue.append((node["left"], leaf))
+        if isinstance(node.get("right"), dict):
+            queue.append((node["right"], right_leaf))
+    return tuple(out)
 
 
 def split_params(cfg: Config) -> SplitParams:
@@ -321,9 +394,29 @@ class GBDT:
         #: the frozen route, fixed here. Tools that time both loops set it.
         self.grow_loop = "device" if device_loop_routable(
             self.num_data, self.hist_width, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
+        extras = [name for name, on in (
+            ("forcedsplits_filename", cfg.forcedsplits_filename),
+            ("cegb_penalty_*", cfg.cegb_penalty_split != 0.0 or cfg.cegb_penalty_feature_coupled
+             or cfg.cegb_penalty_feature_lazy),
+            ("tpu_hist_mode=masked", cfg.tpu_hist_mode == "masked")) if on]
+        if extras and self.grow_loop != "device":
+            raise NotImplementedError(
+                "%s on the host split loop (a run whose histogram route sends a row class to "
+                "another kernel than cuda) is not ported to lightgbm_tpu_torch yet"
+                % ", ".join(extras))
+        #: the forced-split preamble (``forcedsplits_filename``): the BFS
+        #: table, and as a [K, 3] int32 tensor on the device (None: none)
+        self._forced_splits = parse_forced_splits(cfg, train_set)
+        self._forced_dev = forced_table(self._forced_splits, dev)
+        #: the training's CEGB state (``cegb_*``; None without a penalty)
+        self._cegb = cegb_setup(cfg, train_set, dev)
         #: the device loop's histogram pool slots (``histogram_pool_size``),
         #: None for no cap
         self.hist_pool_slots = self._hist_pool_slots()
+        if self.hist_pool_slots is not None and self._cegb is not None:
+            raise NotImplementedError(
+                "CEGB (cegb_penalty_*) with histogram_pool_size is not ported to "
+                "lightgbm_tpu_torch yet")
         if self.hist_pool_slots is not None:
             if self.grow_loop != "device":
                 raise NotImplementedError(
@@ -395,13 +488,13 @@ class GBDT:
         """histogram_pool_size (MB) -> LRU slots of ``F * B * 3 * 4`` bytes,
         at least 2, or None when that is no fewer than the leaves (the
         SerialTreeLearner ctor, serial_tree_learner.cpp:56-69; the JAX
-        package's ``_hist_pool_slots``, which has no forced splits here)."""
+        package's ``_hist_pool_slots``), at least the forced preamble's K + 2."""
         cfg = self.config
         if cfg.histogram_pool_size <= 0:
             return None
         per_leaf = self.train_set.num_features * self.num_bins * 3 * 4  # f32 sums and count
         slots = int(cfg.histogram_pool_size * 1024 * 1024 / max(per_leaf, 1))
-        slots = max(2, slots)
+        slots = max(2 + len(self._forced_splits), slots)
         return slots if slots < cfg.num_leaves else None
 
     def _resolve_hist_route(self) -> Optional[hist_kernel.HistRoute]:
@@ -551,7 +644,7 @@ class GBDT:
         N, F = self.num_data, self.train_set.num_features
         s = self._grow_state
         shape = (N, F, self.num_bins, cfg.num_leaves, self.num_words, self.num_groups,
-                 self.hist_width, self.hist_pool_slots or 0)
+                 self.hist_width, self.hist_pool_slots or 0, self._cegb is not None)
         if s is None or not s.fits(self.bins_dev.device, *shape):
             s = self._grow_state = grow_state.GrowState(self.bins_dev.device, *shape)
         if self._ring is None or self._ring.shape[0] < rows or self._ring.shape[1] != s.packed.numel():
@@ -594,7 +687,8 @@ class GBDT:
                 self.feature_mask.copy_(self._feature_masks.index_select(0, self._ring_slot)[0])
             launch_tree(s, self.bins_dev, grad[k], hess[k], self.feature_mask, self.feature_meta,
                         cfg.max_depth, self.split_params, self._two_way, self.bins_nf,
-                        cfg.tpu_hist_dtype, self._bag, self.grouped_adds)
+                        cfg.tpu_hist_dtype, self._bag, self.grouped_adds,
+                        forced=self._forced_dev, cegb=self._cegb)
             num_leaves = s.ctl[grow_state.NUM_LEAVES:grow_state.NUM_LEAVES + 1]
             grew = num_leaves > 1
             if self._renew:  # RenewTreeOutput, before the ring copy reads the leaf values
@@ -622,7 +716,7 @@ class GBDT:
                 id(self._grow_state), id(self._ring), id(self.scores), id(self._bag),
                 id(self._feature_masks), tuple(map(id, self.valid_scores)),
                 tuple(map(id, self._valid_bins)), self._custom_grads, id(self._grad_buf),
-                self.device)
+                id(self._forced_dev), id(self._cegb), self.device)
 
     def _captured_iteration(self) -> cuda_graph.Graph:
         key = self._iteration_key()

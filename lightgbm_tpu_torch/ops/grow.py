@@ -68,6 +68,25 @@ skipping the subtraction on such a step: four launches a step.
 ``use_subtract=False`` builds both children of every split so, with P = M
 slots when there is no cap. The host loop takes no pool.
 
+The device loop also runs the reference's forced splits and CEGB
+(lightgbm_tpu/ops/grow.py:1010-1047, 1392-1420, 1600-1637):
+
+ * forced splits (``forced``, the training's [K, 3] table): K steps queued
+   before the M - 1 best-gain ones, each opening with the forced record
+   (ops/split_kernel.py ``forced_record``), which the step's pick takes in
+   place of the argmax; an invalid one aborts the preamble, whose later
+   steps are best-gain steps (csrc/partition.cu's kExt instantiation);
+ * CEGB (``cegb``, the training's ops/grow_state.py ``Cegb``): the root's
+   and the folded scan subtract each feature's penalty before their argmax,
+   the pick marks a coupled feature paid, a step that paid one first
+   rescans every other leaf (``split_pair_all``), and with lazy penalties a
+   pass over the split segment pays its rows and counts each child's unpaid
+   rows (ops/grow_step_kernel.py ``cegb_lazy``; at the root, every row).
+
+The reference's masked histogram mode (lightgbm_tpu/ops/grow.py:13-20) is
+its in-package oracle and grows the bucketed mode's trees; models/gbdt.py
+takes ``tpu_hist_mode=masked`` as a name for these histograms.
+
 models/gbdt.py takes the device loop when the run's route sends every row
 class to ``cuda`` (``device_loop_routable``), the host loop otherwise. The
 kernels run on CUDA tensors and their plain versions on CPU tensors, so
@@ -338,20 +357,24 @@ def start_tree(
     bag: Optional[torch.Tensor] = None,
     grouped: bool = False,
     use_subtract: bool = True,
+    forced: Optional[torch.Tensor] = None,
+    cegb: Optional[gs.Cegb] = None,
 ) -> None:
     """Bind a tree's inputs to the state ``s``, reset it, and queue the
     root: its sums and leaf output, its histogram (of a bundled state: over
-    the groups, then remapped with those sums), and (M > 1) its split scan.
-    Reads nothing back. ``bag`` ([N] f32) and ``grouped`` as in
-    :func:`grow_tree`: the segments (``leaf_count``) stay physical, the
-    records' counts are the bag's. ``use_subtract`` False (a state with a
-    pool) builds both children of every split from their rows."""
+    the groups, then remapped with those sums), with lazy CEGB its rows'
+    unpaid counts, and (M > 1) its split scan. Reads nothing back. ``bag``
+    ([N] f32) and ``grouped`` as in :func:`grow_tree`: the segments
+    (``leaf_count``) stay physical, the records' counts are the bag's.
+    ``use_subtract`` False (a state with a pool) builds both children of
+    every split from their rows. ``forced`` and ``cegb`` as in
+    :func:`grow_tree_device`."""
     N = s.N
     hist_bins = bins_nf.t() if bins_nf is not None else bins
     ones = torch.ones(N, dtype=torch.float32, device=s.device) if bag is None else bag
     vals_all = leaf_values(grad, hess, ones)
     s.bind(bins, hist_bins, vals_all, feature_meta, feature_mask, params, two_way, max_depth,
-           hist_dtype, grouped, use_subtract)
+           hist_dtype, grouped, use_subtract, forced, cegb)
     s.reset()
     root = root_sums(grad, hess, vals_all, bag)
     s.laux[0, :3] = root
@@ -367,10 +390,12 @@ def start_tree(
                               grouped=grouped)
     if s.M < 2:
         return
+    if cegb is not None and cegb.used_in_data is not None:
+        grow_step_kernel.cegb_lazy(s, root=True)
     split_kernel.split_pair_step(s, 1)
 
 
-def run_step(s: gs.GrowState) -> None:
+def run_step(s: gs.GrowState, forced_step: Optional[int] = None) -> None:
     """Queue the next step of the loop: pick, wiring and partition (one
     launch), the smaller child's histogram into ``s.small[k % 2]`` for the
     k-th step since the root (``s.queued_steps``), and the subtraction with
@@ -382,26 +407,51 @@ def run_step(s: gs.GrowState) -> None:
     second time for the larger child, which returns at once unless the
     pick found its parent evicted (or the subtraction off), and the scan
     reads the rows by slot. Every kernel returns at once when the loop has
-    stopped."""
+    stopped. ``forced_step`` k: step k of the forced-split preamble, which
+    opens with its forced record. Under CEGB the scans are penalised, a
+    lazy pass follows the partition and the all-leaves rescan the scan."""
     parity = s.queued_steps % 2
     s.queued_steps += 1
-    partition_kernel.pick_partition(s)
+    if forced_step is None:
+        partition_kernel.pick_partition(s)
+    else:
+        split_kernel.forced_record(s, forced_step)
+        partition_kernel.pick_partition(s, forced=True)
+    cegb = s.cegb
+    if cegb is not None and cegb.used_in_data is not None:
+        grow_step_kernel.cegb_lazy(s)
     hist_kernel.histogram_segment(s, parity)
     if s.P:
         hist_kernel.histogram_segment(s, parity, large=True)
     if s.G:
         remap_kernel.remap_step(s, parity)
     split_kernel.split_pair_fold(s, parity)
+    if cegb is not None and cegb.params.has_coupled:
+        split_kernel.split_pair_all(s)
 
 
 def launch_tree(s: gs.GrowState, *args, **kwargs) -> None:
     """Queue one tree's split loop on the state ``s``, from the root
     (:func:`start_tree`, which takes these arguments) to its M - 1 steps
-    (:func:`run_step`), reading nothing back. The state then holds the
-    tree."""
+    (:func:`run_step`), reading nothing back; with a forced table of K rows,
+    min(K, M - 1) forced steps before them, so that M - 1 best-gain steps
+    remain after an abort. The state then holds the tree."""
     start_tree(s, *args, **kwargs)
+    K = 0 if s.forced is None else min(int(s.forced.shape[0]), s.M - 1)
+    for k in range(K):
+        run_step(s, k)
     for _ in range(s.M - 1):
         run_step(s)
+
+
+def forced_table(forced_splits, device: torch.device) -> Optional[torch.Tensor]:
+    """The forced-split table, a sequence of (leaf, used feature, threshold
+    bin), as a contiguous [K, 3] int32 tensor on ``device`` (None for no
+    forced split)."""
+    if not forced_splits:
+        return None
+    return torch.tensor([list(map(int, r)) for r in forced_splits], dtype=torch.int32,
+                        device=device).reshape(-1, 3)
 
 
 def pool_slots(hist_pool_slots: Optional[int], num_leaves: int, use_subtract: bool = True) -> int:
@@ -480,6 +530,8 @@ def grow_tree_device(
     num_group_bins: Optional[int] = None,
     hist_pool_slots: Optional[int] = None,
     use_subtract: bool = True,
+    forced_splits=(),  # [(leaf, used feature, threshold bin), ...]
+    cegb: Optional[gs.Cegb] = None,
 ) -> Tuple[TreeArrays, torch.Tensor, gs.GrowState]:
     """Grow one tree with the device-resident split loop; returns
     (TreeArrays, leaf_id [N] int64 on the bins' device, the state). Pass the
@@ -488,16 +540,27 @@ def grow_tree_device(
     :func:`grow_tree` but no route: every histogram call is ``cuda``; and
     those of the reference's ``grow_tree``: ``hist_pool_slots`` (a pool of
     that many LRU slots when fewer than the leaves) and ``use_subtract``
-    (False: both children of every split from their rows)."""
+    (False: both children of every split from their rows); ``forced_splits``
+    (the BFS table of models/gbdt.py ``parse_forced_splits``), ``cegb`` (the
+    training's CEGB state, carried from tree to tree: its paid features and
+    rows are updated in place)."""
     R, N = bins.shape
     F = feature_meta["num_bin"].numel()
     G = R if "group_id" in feature_meta else 0
     Bg = (num_group_bins or num_bins) if G else 0
     W = num_words(num_bins, "is_categorical" in feature_meta)
     P = pool_slots(hist_pool_slots, num_leaves, use_subtract)
-    if state is None or not state.fits(bins.device, N, F, num_bins, num_leaves, W, G, Bg, P):
-        state = gs.GrowState(bins.device, N, F, num_bins, num_leaves, W, G, Bg, P)
+    forced = forced_table(forced_splits, bins.device)
+    if P and forced is not None and P < forced.shape[0] + 2:
+        raise ValueError("histogram pool too small for the forced-splits preamble: "
+                         "need >= %d slots" % (forced.shape[0] + 2))
+    if P and cegb is not None:
+        raise NotImplementedError("CEGB with a histogram pool (histogram_pool_size) is not "
+                                  "ported to lightgbm_tpu_torch yet")
+    shape = (N, F, num_bins, num_leaves, W, G, Bg, P, cegb is not None)
+    if state is None or not state.fits(bins.device, *shape):
+        state = gs.GrowState(bins.device, *shape)
     launch_tree(state, bins, grad, hess, feature_mask, feature_meta, max_depth,
-                params, two_way, bins_nf, hist_dtype, bag, grouped, use_subtract)
+                params, two_way, bins_nf, hist_dtype, bag, grouped, use_subtract, forced, cegb)
     leaf_id = leaf_ids(state)
     return read_tree(state), leaf_id, state

@@ -22,7 +22,23 @@ LARGE      the child whose histogram is the parent's minus SMALL's
 PBEGIN     the split segment's begin, count and left count,
 PCOUNT     written by the step's pick and partition
 LEFT
+FLEAF      the leaf of the step's forced split (its forced record)
+ABORT      1 once a forced split of the preamble was invalid
+NEWLY      1 when the step's split paid a coupled CEGB feature first
 =========  =====================================================
+
+Forced splits (``bind(forced=)``: the training's ``[K, 3]`` int32 table of
+(leaf, used feature, threshold bin), on the device) add the step's forced
+record ``frec_f`` [9] f32, ``frec_i`` [4] int32 and ``frec_b`` [W] int32,
+which csrc/split_pair.cu's forced record writes and csrc/partition.cu's
+pick reads. CEGB (``bind(cegb=)``, a :class:`Cegb` the training keeps: the
+paid features ``feature_used`` [F] and, with lazy penalties, the paid rows
+``used_in_data`` [N, F], both carried across trees and classes) adds a
+state built with ``cegb=True``: ``unused_cnt`` [M, F] f32 (each leaf's
+bagged rows that have not paid for each feature, reset each tree), the
+all-leaves scan's scratch ``feat_f_all`` [M, F, 4], ``feat_i_all`` [M, F,
+2], ``feat_b_all`` [M, F, W] and tickets ``tickets_all`` [M], and the lazy
+pass's ``lazy_acc`` [2, F] int32 and ``lazy_ticket`` [1].
 
 The tree's arrays and ``ctl`` share one int32 buffer, ``packed`` (the f32
 arrays are float views of it), so the readback is one device-to-host copy.
@@ -54,9 +70,11 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 ACTIVE, NUM_LEAVES, STEP, BEST, NEW, SMALL, LARGE, PBEGIN, PCOUNT, LEFT = range(10)
+FLEAF, ABORT, NEWLY = 10, 11, 12
 CTL = 16
 #: slots of a pool's control vector ``pool_ctl``: the step's second segment
 #: histogram runs (RUN) on leaf LEAF (the larger child; its control vector's
@@ -82,6 +100,34 @@ def unpack(packed: torch.Tensor, M: int, W: int):
         packed, (CTL, 5 * M, 2 * M, 3 * M, 3 * M, W * (M - 1)))
     return (ctl, node_i.view(M, 5), leaf_i.view(M, 2), node_f.view(torch.float32).view(M, 3),
             leaf_f.view(torch.float32).view(M, 3), node_b.view(M - 1, W))
+
+
+class Cegb:
+    """A training's CEGB state on ``device`` (lightgbm_tpu/models/gbdt.py
+    ``_setup_cegb``): the switches ``params`` (ops/split.py ``CegbParams``),
+    the penalty vectors times the tradeoff in f32 (``coupled_t``,
+    ``lazy_t`` [F], None when not given), and what has been paid:
+    ``feature_used`` [F] bool and, with lazy penalties, ``used_in_data``
+    [N, F] bool (the reference's [F, N], transposed so that a row's flags
+    are contiguous). One state serves every tree and class of a training; a
+    new training (``init_model`` too) makes a new one."""
+
+    def __init__(self, params, F: int, N: int, coupled: Optional[np.ndarray],
+                 lazy: Optional[np.ndarray], device: torch.device) -> None:
+        self.params = params
+        t = np.float32(params.tradeoff)
+
+        def scaled(v):
+            return None if v is None else torch.from_numpy(
+                (t * np.asarray(v, np.float32)).astype(np.float32)).to(device)
+
+        self.coupled_t = scaled(coupled) if params.has_coupled else None
+        self.lazy_t = scaled(lazy) if params.has_lazy else None
+        #: f32 tradeoff * penalty_split
+        self.split = float(np.float32(params.tradeoff * params.penalty_split))
+        self.feature_used = torch.zeros(F, dtype=torch.bool, device=device)
+        self.used_in_data = (torch.zeros((N, F), dtype=torch.bool, device=device)
+                             if params.has_lazy else None)
 
 
 class GrowState:
@@ -117,10 +163,11 @@ class GrowState:
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
-             "hist", "small", "small_g", "pool", "large")
+             "hist", "small", "small_g", "pool", "large", "frec_f", "frec_i", "frec_b",
+             "unused_cnt")
 
     def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int,
-                 W: int = 0, G: int = 0, Bg: int = 0, P: int = 0) -> None:
+                 W: int = 0, G: int = 0, Bg: int = 0, P: int = 0, cegb: bool = False) -> None:
         M = num_leaves
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -162,6 +209,20 @@ class GrowState:
         self.feat_i = torch.empty((2, F, 2), dtype=i32, device=device)
         self.feat_b = torch.empty((2, F, W), dtype=i32, device=device)
         self.leaf_scratch = torch.empty(N, dtype=torch.uint8 if M <= 256 else i32, device=device)
+        # forced splits: the step's record
+        self.frec_f = torch.zeros(9, dtype=f32, device=device)
+        self.frec_i = torch.zeros(4, dtype=i32, device=device)
+        self.frec_b = torch.zeros(W, dtype=i32, device=device)
+        # CEGB (a state built with cegb=True)
+        self.cegb_on = bool(cegb)
+        Mc, Fc = (M, F) if cegb else (0, 0)
+        self.unused_cnt = torch.zeros((Mc, Fc), dtype=f32, device=device)
+        self.feat_f_all = torch.empty((Mc, Fc, 4), dtype=f32, device=device)
+        self.feat_i_all = torch.empty((Mc, Fc, 2), dtype=i32, device=device)
+        self.feat_b_all = torch.empty((Mc, Fc, W), dtype=i32, device=device)
+        self.tickets_all = torch.zeros(Mc, dtype=i32, device=device)
+        self.lazy_acc = torch.zeros((2 if cegb else 0, Fc), dtype=i32, device=device)
+        self.lazy_ticket = torch.zeros(1 if cegb else 0, dtype=i32, device=device)
         # the inputs of the tree being grown, set by bind()
         self.bins: Optional[torch.Tensor] = None
         self.hist_bins: Optional[torch.Tensor] = None
@@ -185,6 +246,10 @@ class GrowState:
         #: steps queued since the tree's root (ops/grow.py ``run_step``): the
         #: parity of the next one picks its ``small`` buffer
         self.queued_steps = 0
+        #: the training's forced table [K, 3] int32 on the device, or None
+        self.forced: Optional[torch.Tensor] = None
+        #: the training's CEGB state (:class:`Cegb`), or None
+        self.cegb: Optional[Cegb] = None
 
     def _pool_views(self, pool: torch.Tensor):
         """``pool_ctl``, ``slot_of``, ``slot_leaf`` and ``slot_age`` of a pool
@@ -193,9 +258,10 @@ class GrowState:
         return torch.split(pool, (CTL, self.M, P, P)) if P else (pool,) * 4
 
     def fits(self, device: torch.device, N: int, F: int, B: int, num_leaves: int, W: int,
-             G: int = 0, Bg: int = 0, P: int = 0) -> bool:
+             G: int = 0, Bg: int = 0, P: int = 0, cegb: bool = False) -> bool:
         return (self.device, self.N, self.F, self.B, self.M, self.W, self.G, self.Bg,
-                self.P) == (device, N, F, B, num_leaves, W, G, Bg if G else 0, P)
+                self.P, self.cegb_on) == (
+                    device, N, F, B, num_leaves, W, G, Bg if G else 0, P, bool(cegb))
 
     def hist_row(self, leaf: int) -> int:
         """The row of ``hist`` that holds ``leaf``'s histogram (read on the
@@ -230,6 +296,8 @@ class GrowState:
         hist_dtype: str,
         grouped: bool = False,
         subtract: bool = True,
+        forced: Optional[torch.Tensor] = None,
+        cegb: Optional[Cegb] = None,
     ) -> None:
         """Take this tree's inputs and check them once: ``bins`` [R, N]
         uint8 or int16 contiguous (the partition's columns), ``hist_bins`` an
@@ -244,7 +312,10 @@ class GrowState:
         one current now. ``grouped``: the histograms take their grouped form
         (ops/hist_kernel.py :func:`~.hist_kernel.grouped_adds`).
         ``subtract`` False builds both children of every split from their
-        rows (the reference's ``use_subtract=false``), which needs a pool."""
+        rows (the reference's ``use_subtract=false``), which needs a pool.
+        ``forced``: the forced-split table ([K, 3] int32 contiguous on the
+        state's device); ``cegb``: the training's :class:`Cegb`, which needs
+        a state built with ``cegb=True`` and no pool."""
         dev, N, F, R = self.device, self.N, self.F, self.hist_rows
         if not subtract and not self.P:
             raise ValueError("grow_tree_device: use_subtract=False needs a state with pool slots "
@@ -278,6 +349,19 @@ class GrowState:
         if hist_bins.device != dev or hist_bins.dtype != bins.dtype or tuple(hist_bins.shape) != (R, N):
             raise ValueError("grow_tree_device: hist_bins must be an [%d, N] %s view on %s"
                              % (R, bins.dtype, dev))
+        if forced is not None and (forced.device != dev or forced.dtype != torch.int32
+                                   or forced.dim() != 2 or forced.shape[1] != 3
+                                   or not forced.is_contiguous()):
+            raise ValueError("grow_tree_device: forced must be a contiguous int32 [K, 3] tensor "
+                             "on %s" % dev)
+        if cegb is not None:
+            if not self.cegb_on or self.P:
+                raise ValueError("grow_tree_device: CEGB needs a state built with cegb=True and "
+                                 "no pool")
+            if cegb.feature_used.device != dev or cegb.feature_used.shape != (F,) or (
+                    cegb.used_in_data is not None and cegb.used_in_data.shape != (N, F)):
+                raise ValueError("grow_tree_device: a CEGB state of another shape or device")
+        self.forced, self.cegb = forced, cegb
         self.bins, self.hist_bins, self.values = bins, hist_bins, values
         self.feature_meta = {k: feature_meta[k] for k in _META_KEYS + plan}
         self.is_cat = is_cat
@@ -312,6 +396,8 @@ class GrowState:
         self.small.zero_()
         if self.G:
             self.small_g.zero_()
+        if self.cegb_on:
+            self.unused_cnt.zero_()
         if self.P:  # the root in slot 0, stamped 1; every other slot free
             self.pool.fill_(-1)
             self.pool_ctl.zero_()
@@ -331,9 +417,17 @@ class GrowState:
          other.node_b) = unpack(other.packed, self.M, self.W)
         for name in ("best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
                      "hist", "small", "small_g", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
-                     "leaf_scratch", "pool", "large"):
+                     "leaf_scratch", "pool", "large", "frec_f", "frec_i", "frec_b", "unused_cnt",
+                     "feat_f_all", "feat_i_all", "feat_b_all", "tickets_all", "lazy_acc",
+                     "lazy_ticket"):
             setattr(other, name, getattr(self, name).clone())
         (other.pool_ctl, other.slot_of, other.slot_leaf,
          other.slot_age) = other._pool_views(other.pool)
+        if self.cegb is not None:  # the training's state too, so that the copy runs alone
+            other.cegb = Cegb.__new__(Cegb)
+            other.cegb.__dict__.update(self.cegb.__dict__)
+            other.cegb.feature_used = self.cegb.feature_used.clone()
+            if self.cegb.used_in_data is not None:
+                other.cegb.used_in_data = self.cegb.used_in_data.clone()
         other.args = {}
         return other

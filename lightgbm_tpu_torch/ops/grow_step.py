@@ -27,22 +27,36 @@ from .split import calculate_leaf_output, split_pair_step
 _GAIN, _LG, _LH, _LC, _RG, _RH, _RC, _LO, _RO = range(9)
 
 
-def pick(s: gs.GrowState) -> None:
+def pick(s: gs.GrowState, forced: bool = False) -> None:
     """Pick the leaf with the largest best gain (the first among equal
     ones) and wire its split into the tree as node ``ctl[STEP]``; clear
     ``ctl[ACTIVE]`` instead when that gain is not > 0 or M - 1 splits are
-    done. Nothing once ``ctl[ACTIVE]`` is 0."""
+    done. Nothing once ``ctl[ACTIVE]`` is 0. ``forced`` (a step of the
+    forced-split preamble): unless ``ctl[ABORT]`` is set, the leaf
+    ``ctl[FLEAF]`` with the forced record ``frec_*`` instead, whatever the
+    gains. With coupled CEGB the split's feature is marked paid and
+    ``ctl[NEWLY]`` says whether it was new."""
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return
-    best = int(torch.argmax(s.best_f[:, _GAIN]))
     node = int(ctl[gs.STEP])
-    if not bool(s.best_f[best, _GAIN] > 0.0) or node >= s.M - 1:
+    take_forced = forced and not int(ctl[gs.ABORT])
+    if take_forced:
+        best = int(ctl[gs.FLEAF])
+        rec, rec_i, rec_b = s.frec_f.clone(), s.frec_i.clone(), s.frec_b.clone()
+        go = node < s.M - 1
+    else:
+        best = int(torch.argmax(s.best_f[:, _GAIN]))
+        rec, rec_i, rec_b = s.best_f[best].clone(), s.best_i[best].clone(), s.best_b[best].clone()
+        go = bool(s.best_f[best, _GAIN] > 0.0) and node < s.M - 1
+    if not go:
         ctl[gs.ACTIVE] = 0
         return
     new = int(ctl[gs.NUM_LEAVES])
-    rec = s.best_f[best].clone()
-    f, thr, _, dl = (int(v) for v in s.best_i[best])
+    f, thr, _, dl = (int(v) for v in rec_i)
+    if s.cegb is not None and s.cegb.params.has_coupled:
+        ctl[gs.NEWLY] = int(not bool(s.cegb.feature_used[f]))
+        s.cegb.feature_used[f] = True
     parent = int(s.leaf_i[best, 0])
     if parent >= 0:
         for c in (2, 3):
@@ -51,7 +65,7 @@ def pick(s: gs.GrowState) -> None:
     depth = int(s.leaf_i[best, 1]) + 1
     paux = s.laux[best].clone()
     s.node_i[node] = torch.tensor([f, thr, -(best + 1), -(new + 1), dl], dtype=torch.int32)
-    s.node_b[node] = s.best_b[best]
+    s.node_b[node] = rec_b
     s.node_f[node] = torch.stack(
         [rec[_GAIN], calculate_leaf_output(paux[0], paux[1], s.params), paux[2]]
     )
@@ -159,3 +173,30 @@ def score_update(s: gs.GrowState, value: torch.Tensor, score: torch.Tensor) -> N
     """``score += value[leaf_ids(s)]``: each row's score [N] f32 plus the
     value [M] f32 of its leaf, one f32 add a row, in place."""
     score.add_(value[leaf_ids(s)])
+
+
+def cegb_lazy(s: gs.GrowState, root: bool = False) -> None:
+    """The lazy CEGB bookkeeping (lightgbm_tpu/ops/grow.py:1392-1420): on a
+    step, every bagged row of the split segment ``order[PBEGIN : +
+    PCOUNT]`` pays the split's feature (``used_in_data[row, f]``), then
+    each child's (the segment's left part ``BEST``, its right part ``NEW``)
+    count of bagged rows not yet paid for each feature goes to its row of
+    ``unused_cnt``; nothing once ``ctl[ACTIVE]`` is 0. ``root``: every
+    row's count into ``unused_cnt[0]`` (:1146-1150), paying nothing. The
+    plain version of csrc/grow_step.cu's ``cegb_lazy``."""
+    used = s.cegb.used_in_data
+    bag = s.values[:, 2] > 0
+    if root:
+        s.unused_cnt[0] = ((~used) & bag[:, None]).sum(0).to(torch.float32)
+        return
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]):
+        return
+    b0, cnt, left = int(ctl[gs.PBEGIN]), int(ctl[gs.PCOUNT]), int(ctl[gs.LEFT])
+    f = int(s.node_i[int(ctl[gs.STEP]) - 1, 0])
+    rows = s.order[b0:b0 + cnt].long()
+    in_bag = bag[rows]
+    used[rows[in_bag], f] = True
+    unpaid = (~used[rows]) & in_bag[:, None]
+    s.unused_cnt[int(ctl[gs.BEST])] = unpaid[:left].sum(0).to(torch.float32)
+    s.unused_cnt[int(ctl[gs.NEW])] = unpaid[left:].sum(0).to(torch.float32)

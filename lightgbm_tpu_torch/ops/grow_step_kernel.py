@@ -1,8 +1,9 @@
-"""Wrappers of the hand-written CUDA kernels of csrc/grow_step.cu, which run
-once a tree after the split loop.
+"""Wrappers of the hand-written CUDA kernels of csrc/grow_step.cu.
 
-``leaf_ids`` (each row's leaf) and ``score_update`` (each row's score plus
-its leaf's value, what the captured boosting iteration runs) act on a
+``leaf_ids`` (each row's leaf, after the split loop), ``score_update``
+(each row's score plus its leaf's value, what the captured boosting
+iteration runs once a tree) and ``cegb_lazy`` (lazy CEGB's bookkeeping,
+each step and at the root) act on a
 :class:`~.grow_state.GrowState`: the kernels when it lies on a CUDA device,
 the plain PyTorch versions (ops/grow_step.py) when it lies on the CPU; any
 other device raises. ``launches`` counts each wrapper's launches. (The
@@ -25,13 +26,17 @@ import torch
 from . import cuda_build, grow_state as gs
 from . import grow_step as plain
 
-launches: Dict[str, int] = {"leaf_ids": 0, "score_update": 0}
+launches: Dict[str, int] = {"leaf_ids": 0, "score_update": 0, "cegb_lazy": 0}
 
 _ARGTYPES = {
     "lgbt_leaf_ids": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 2,
     "lgbt_score_update": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong]
     + [ctypes.c_void_p] * 3,
+    "lgbt_cegb_lazy": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p],
 }
+#: blocks of a lazy pass a multiprocessor (csrc/grow_step.cu cegb_lazy, a fixed grid)
+LAZY_BLOCKS_PER_SM = 2
 #: positions of ``order`` a block owns (csrc/grow_step.cu kTile)
 TILE = 1024
 
@@ -67,6 +72,33 @@ def leaf_ids(s: gs.GrowState) -> torch.Tensor:
     ), "leaf_ids kernel")
     launches["leaf_ids"] += 1
     return leaf_id
+
+
+def cegb_lazy(s: gs.GrowState, root: bool = False) -> None:
+    """The lazy CEGB bookkeeping of the step just partitioned (its bagged
+    rows pay the split's feature in the training's ``used_in_data``, and the
+    children's unpaid counts go to ``s.unused_cnt``), or of the tree's root
+    (``root``: every row's count into ``unused_cnt[0]``): the kernel of
+    csrc/grow_step.cu on a CUDA state, one fixed grid; the plain version
+    (ops/grow_step.py ``cegb_lazy``) on a CPU one. Needs a state bound with
+    lazy CEGB. Reads nothing back."""
+    c = s.cegb
+    if c is None or c.used_in_data is None:
+        raise ValueError("cegb_lazy: a state bound with lazy CEGB penalties")
+    if not _device(s, "cegb_lazy"):
+        plain.cegb_lazy(s, root)
+        return
+    key = "cegb_lazy_root" if root else "cegb_lazy"
+    args = s.args.get(key)
+    if args is None:
+        sms = torch.cuda.get_device_properties(s.device).multi_processor_count
+        grid = max(1, min(sms * LAZY_BLOCKS_PER_SM, -(-s.N // 256)))
+        args = s.args[key] = (
+            s.ctl.data_ptr(), s.node_i.data_ptr(), s.order.data_ptr(), s.values.data_ptr(),
+            c.used_in_data.data_ptr(), s.F, s.N, int(root), s.lazy_acc.data_ptr(),
+            s.lazy_ticket.data_ptr(), s.unused_cnt.data_ptr(), grid, s.stream)
+    cuda_build.check(_fn("lgbt_cegb_lazy")(*args), "cegb_lazy kernel")
+    launches["cegb_lazy"] += 1
 
 
 def score_update(s: gs.GrowState, value: torch.Tensor, score: torch.Tensor) -> None:

@@ -65,16 +65,19 @@ def stable_partition(order, bins, begin, count, feature, threshold, default_left
 
 def partition(s: gs.GrowState) -> None:
     """The split loop's partition step on the state ``s``: the segment of
-    leaf ``ctl[BEST]`` by its record ``best_i``; the children's (begin,
-    count) and ``ctl[PBEGIN/PCOUNT/LEFT]`` written as csrc/partition.cu
-    writes them. Nothing once ``ctl[ACTIVE]`` is 0."""
+    leaf ``ctl[BEST]`` by the split the pick just wired (node ``ctl[STEP] -
+    1``: its feature, threshold, default_left and membership words, the
+    leaf's best record or a forced one); the children's (begin, count) and
+    ``ctl[PBEGIN/PCOUNT/LEFT]`` written as csrc/partition.cu writes them.
+    Nothing once ``ctl[ACTIVE]`` is 0."""
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return
     leaf, new = int(ctl[gs.BEST]), int(ctl[gs.NEW])
-    f, thr, _, dl = (int(v) for v in s.best_i[leaf])
+    node = int(ctl[gs.STEP]) - 1
+    f, thr, dl = (int(s.node_i[node, c]) for c in (0, 1, 4))
     b0, cnt = int(s.leaf_begin[leaf]), int(s.leaf_count[leaf])
-    left = stable_partition(s.order, s.bins, b0, cnt, f, thr, dl, s.feature_meta, s.best_b[leaf])
+    left = stable_partition(s.order, s.bins, b0, cnt, f, thr, dl, s.feature_meta, s.node_b[node])
     ctl[gs.PBEGIN], ctl[gs.PCOUNT], ctl[gs.LEFT] = b0, cnt, left
     s.leaf_count[leaf] = left
     s.leaf_begin[new] = b0 + left

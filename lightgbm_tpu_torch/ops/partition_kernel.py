@@ -8,9 +8,11 @@ device, the plain PyTorch versions (ops/grow_step.py ``pick``, then
 ops/partition.py ``partition``) when it lies on the CPU; any other device
 raises, and so does a launch the card refuses. ``launches`` counts the
 calls that launched the kernel, by instantiation (:data:`KERNELS`):
-``pick_partition``, with ``_wide`` for int16 bins and ``_pool`` for a
-histogram pool's (the LRU update in the wiring thread); each launch counts
-under one key.
+``pick_partition``, with ``_wide`` for int16 bins, ``_pool`` for a
+histogram pool's (the LRU update in the wiring thread) and ``_ext`` for
+the instantiation of a run with forced splits or coupled CEGB (the forced
+record on a forced step, the paid features); each launch counts under one
+key.
 
 ``block_mirror`` replays the kernel's block decomposition on the host: the
 chunk each block owns, its left count, the scan of the block totals each
@@ -35,7 +37,8 @@ from . import partition as plain
 from .split import MISSING_NAN, MISSING_ZERO
 
 KERNELS = ("pick_partition", "pick_partition_wide", "pick_partition_pool",
-           "pick_partition_wide_pool")
+           "pick_partition_wide_pool", "pick_partition_ext", "pick_partition_wide_ext",
+           "pick_partition_pool_ext", "pick_partition_wide_pool_ext")
 launches: Dict[str, int] = {}
 
 
@@ -57,52 +60,70 @@ EFB_CAP = CAP - 1024
 
 ARGTYPES = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_void_p] * 24
-    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] + [ctypes.c_void_p] * 2
 )
+#: the position of the ``forced`` argument in :func:`launch_args`
+_FORCED_ARG = len(ARGTYPES) - 3
 _grids: Dict[tuple, int] = {}
 
 
 def co_resident_grid(device: torch.device, categorical: bool = False,
-                     bundled: bool = False, wide: bool = False, pooled: bool = False) -> int:
+                     bundled: bool = False, wide: bool = False, pooled: bool = False,
+                     ext: bool = False) -> int:
     """The blocks of pick_partition's instantiation (numerical or
     categorical, unbundled or bundled, uint8 or int16 bins, with or without
     a histogram pool) that fit on the card at once
     (``lgbt_pick_partition_grid``: the occupancy a multiprocessor times the
     multiprocessor count), read once per device."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    key = (index, bool(categorical), bool(bundled), bool(wide), bool(pooled))
+    key = (index, bool(categorical), bool(bundled), bool(wide), bool(pooled), bool(ext))
     if key not in _grids:
         fn = cuda_build.entry("partition", "lgbt_pick_partition_grid",
                               [ctypes.c_void_p, ctypes.c_int])
         out = ctypes.c_int(0)
         kind = (int(bool(categorical)) | (int(bool(bundled)) << 1) | (int(bool(wide)) << 2)
-                | (int(bool(pooled)) << 3))
+                | (int(bool(pooled)) << 3) | (int(bool(ext)) << 4))
         with torch.cuda.device(index):
             cuda_build.check(fn(ctypes.addressof(out), kind), "pick_partition occupancy")
         _grids[key] = out.value
     return _grids[key]
 
 
-def pick_partition(s: gs.GrowState) -> None:
+def extended(s: gs.GrowState) -> bool:
+    """Does the state's run take the kExt instantiation (a forced-split
+    table, or coupled CEGB penalties)?"""
+    return s.forced is not None or (s.cegb is not None and s.cegb.params.has_coupled)
+
+
+def pick_partition(s: gs.GrowState, forced: bool = False) -> None:
     """One step of the split loop: pick the leaf with the largest best gain
     and wire its split into the tree, or clear ``ctl[ACTIVE]``; then stably
     partition its segment and write the children's (begin, count) and
-    ``ctl[PBEGIN/PCOUNT/LEFT]``. Nothing once ``ctl[ACTIVE]`` is 0. On CUDA
-    every block that fits (:func:`co_resident_grid`), launched
+    ``ctl[PBEGIN/PCOUNT/LEFT]``. Nothing once ``ctl[ACTIVE]`` is 0.
+    ``forced``: a step of the forced-split preamble, which takes the forced
+    record unless the preamble has aborted (ops/grow_step.py ``pick``). On
+    CUDA every block that fits (:func:`co_resident_grid`), launched
     cooperatively; see csrc/partition.cu."""
     dev = s.device
+    if forced and s.forced is None:
+        raise ValueError("pick_partition: a forced step needs a state bound with forced splits")
     if dev.type == "cpu":
-        plain_step.pick(s)
+        plain_step.pick(s, forced)
         plain.partition(s)
         return
     if dev.type != "cuda":
         raise ValueError("pick_partition: unsupported device %s" % dev)
-    args = s.args.get("pick_partition")
+    key = "pick_partition_forced" if forced else "pick_partition"
+    args = s.args.get(key)
     if args is None:
-        args = s.args["pick_partition"] = launch_args(s)
+        args = launch_args(s)
+        if forced:
+            args = args[:_FORCED_ARG] + (1,) + args[_FORCED_ARG + 1:]
+        s.args[key] = args
     cuda_build.check(entry()(*args), "pick_partition kernel")
     launches["pick_partition" + ("_wide" if s.bins.dtype == torch.int16 else "")
-             + ("_pool" if s.P else "")] += 1
+             + ("_pool" if s.P else "") + ("_ext" if extended(s) else "")] += 1
 
 
 def entry():
@@ -117,7 +138,9 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
     cat = s.is_cat is not None
     efb = s.G > 0
     wide = s.bins.dtype == torch.int16
-    fits = co_resident_grid(s.device, cat, efb, wide, s.P > 0)
+    ext = extended(s)
+    coupled = s.cegb is not None and s.cegb.params.has_coupled
+    fits = co_resident_grid(s.device, cat, efb, wide, s.P > 0, ext)
     blocks = fits if grid is None else int(grid)
     if not 1 <= blocks <= min(s.block_left.numel(), fits):
         raise ValueError("pick_partition: a grid of %d blocks does not fit on the card" % blocks)
@@ -134,7 +157,10 @@ def launch_args(s: gs.GrowState, grid: Optional[int] = None) -> tuple:
         m["group_id"].data_ptr() if efb else None, m["bin_offset"].data_ptr() if efb else None,
         s.pool.data_ptr() if s.P else None, s.P, int(s.subtract), 2 if wide else 1,
         s.M, s.F, s.W,
-        p.lambda_l1, p.lambda_l2, p.max_delta_step, blocks, s.stream,
+        p.lambda_l1, p.lambda_l2, p.max_delta_step, blocks, int(ext),
+        s.frec_f.data_ptr() if ext else None, s.frec_i.data_ptr() if ext else None,
+        s.frec_b.data_ptr() if ext and cat else None, 0,
+        s.cegb.feature_used.data_ptr() if coupled else None, s.stream,
     )
 
 

@@ -72,6 +72,42 @@ class SplitParams(NamedTuple):
     min_data_per_group: int = 100
 
 
+class CegbParams(NamedTuple):
+    """CEGB (cost-effective gradient boosting) switches (config.h:389-405),
+    lightgbm_tpu/ops/split.py ``CegbParams``: the tradeoff, the split
+    penalty, and whether the coupled and the lazy per-feature penalty
+    vectors are given (the vectors themselves ride in ops/grow_state.py
+    ``Cegb``)."""
+
+    tradeoff: float = 1.0
+    penalty_split: float = 0.0
+    has_coupled: bool = False
+    has_lazy: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        return self.penalty_split != 0.0 or self.has_coupled or self.has_lazy
+
+
+def cegb_penalty(cegb: CegbParams, count: torch.Tensor, feature_used: torch.Tensor,
+                 unused: Optional[torch.Tensor], coupled_t: Optional[torch.Tensor],
+                 lazy_t: Optional[torch.Tensor]) -> torch.Tensor:
+    """[C, F] f32 gain penalties of C leaves (lightgbm_tpu/ops/grow.py:1010-1020,
+    ``leaf_penalties``; serial_tree_learner.cpp:537-543, 568-573): the f32
+    ``tradeoff * penalty_split`` times each leaf's ``count`` [C], plus
+    ``coupled_t[f]`` (``tradeoff * coupled``, f32) where feature f is not
+    yet ``feature_used`` [F], plus ``lazy_t[f]`` (``tradeoff * lazy``) times
+    the leaf's ``unused`` [C, F] count of bagged rows that have not paid for
+    f, in that order of f32 operations."""
+    ps = torch.tensor(np.float32(cegb.tradeoff * cegb.penalty_split), device=count.device)
+    pen = (ps * count.to(torch.float32))[:, None].expand(count.numel(), feature_used.numel())
+    if cegb.has_coupled:
+        pen = pen + coupled_t[None, :] * (~feature_used.to(torch.bool))[None, :].to(torch.float32)
+    if cegb.has_lazy:
+        pen = pen + lazy_t[None, :] * unused
+    return pen
+
+
 class SplitResult(NamedTuple):
     """Unpacked split records ([C] tensors), field names of the JAX package."""
 
@@ -355,10 +391,14 @@ def find_best_split_pair(
     params: SplitParams,
     two_way: bool = True,
     leaves: Optional[Sequence[int]] = None,  # rows of hist to scan, else all
+    penalty: Optional[torch.Tensor] = None,  # [C, F] f32 CEGB gain penalties
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Best split of each of C leaves: ([C, 9] f32, [C, 4] int32, [C, W]
     int32 membership words). With ``leaves``, ``hist`` is the grower's [M,
-    F, B, 3] and the C leaves are its rows ``leaves``."""
+    F, B, 3] and the C leaves are its rows ``leaves``. ``penalty``
+    (:func:`cegb_penalty`) is subtracted from each feature's best gain
+    before the argmax over features, and the record's gain is the
+    penalised one (lightgbm_tpu/ops/split.py:649-653)."""
     p = params
     if leaves is not None:
         hist = hist[list(leaves)]
@@ -443,6 +483,8 @@ def find_best_split_pair(
         t_f = torch.where(is_cat, cat.threshold, t_f)
         dl_f = dl_f & ~is_cat
     g_f = torch.where(feature_mask.to(torch.bool)[None, :], g_f, torch.full_like(g_f, K_MIN_SCORE))
+    if penalty is not None:
+        g_f = g_f - penalty
 
     def at_t(a_pos, a_neg):  # [C, F] value at each feature's threshold/direction
         idx = t_f.long()[..., None]
@@ -519,11 +561,12 @@ def find_best_split(
     feature_meta: Dict[str, torch.Tensor],
     feature_mask: torch.Tensor,
     params: SplitParams,
+    penalty: Optional[torch.Tensor] = None,  # [F] CEGB gain penalty
     two_way: bool = True,
 ) -> SplitResult:
     """Best numerical split of one leaf (lightgbm_tpu/ops/split.py
-    ``find_best_split``): ``find_best_split_pair`` on a single leaf, with
-    scalar fields."""
+    ``find_best_split``, whose argument order this keeps):
+    ``find_best_split_pair`` on a single leaf, with scalar fields."""
     dev = hist.device
 
     def row(*xs):
@@ -532,8 +575,70 @@ def find_best_split(
     outf, outi, outb = find_best_split_pair(
         hist[None], row(sum_grad, sum_hess, num_data), row(min_constraint, max_constraint),
         feature_meta, feature_mask, params, two_way,
+        penalty=None if penalty is None else penalty.reshape(1, -1),
     )
     return SplitResult(*(field[0] for field in unpack(outf, outi, outb)))
+
+
+def gather_info_for_threshold(
+    hist_f: torch.Tensor,  # [B, 3] one feature's histogram
+    sum_grad, sum_hess, num_data,  # the leaf's totals (f32 scalars)
+    threshold: int, num_bin: int, missing_type: int, default_bin: int, is_cat: bool,
+    params: SplitParams,
+) -> SplitResult:
+    """The record of a forced (feature, threshold) split
+    (FeatureHistogram::GatherInfoForThreshold, feature_histogram.hpp:281-420;
+    lightgbm_tpu/ops/split.py ``gather_info_for_threshold``, op for op).
+    Numerical: the right side is bins ``max(threshold, 1) .. num_bin - 1 -
+    use_na``, the default bin skipped under missing=Zero, summed in bin
+    order (a left fold in f32, which csrc/split_pair.cu's forced record
+    follows), ``default_left`` True. Categorical: the left side is the
+    single bin (one-hot), ``default_left`` False. The outputs are
+    unconstrained; the gain is -inf unless the split's gain is above
+    ``min_gain_shift`` (the leaf's unshifted gain plus min_gain_to_split).
+    The feature is left -1 for the caller; ``cat_bitset`` is the bool
+    one-hot of the threshold over the B bins."""
+    p = params
+    B = hist_f.shape[0]
+    f32 = torch.float32
+    dev = hist_f.device
+
+    def t(x):
+        return torch.as_tensor(x, dtype=f32, device=dev)
+
+    sum_grad, sum_hess, num_data = t(sum_grad), t(sum_hess), t(num_data)
+    use_na = missing_type == MISSING_NAN
+    skip_def = missing_type == MISSING_ZERO
+    min_gain_shift = leaf_split_gain(sum_grad, sum_hess, p) + p.min_gain_to_split
+    right = torch.zeros(3, dtype=f32, device=dev)
+    if not is_cat:
+        for b in range(max(threshold, 1), min(num_bin - 1 - int(use_na), B - 1) + 1):
+            if not (skip_def and b == default_bin):
+                right = right + hist_f[b]
+        lg = sum_grad - right[0]
+        lh = sum_hess - (right[1] + K_EPSILON)
+        lc = num_data - right[2]
+        ok_cat = True
+    else:
+        left = hist_f[threshold] if 0 <= threshold < B else torch.zeros(3, dtype=f32, device=dev)
+        lg, lh, lc = left[0], left[1] + K_EPSILON, left[2]
+        ok_cat = threshold < num_bin - (0 if missing_type == MISSING_NONE else 1)
+    rg = sum_grad - lg
+    rh = sum_hess - lh
+    rc = num_data - lc
+    current_gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
+    ok = bool(current_gain > min_gain_shift) and ok_cat and not bool(torch.isnan(current_gain))
+    gain = current_gain - min_gain_shift if ok else t(K_MIN_SCORE)
+    bitset = torch.arange(B, device=dev) == threshold
+    return SplitResult(
+        gain=gain.to(f32), feature=torch.tensor(-1, dtype=torch.int32),
+        threshold=torch.tensor(threshold, dtype=torch.int32),
+        default_left=torch.tensor(not is_cat),
+        left_sum_grad=lg, left_sum_hess=lh - K_EPSILON, left_count=lc,
+        right_sum_grad=rg, right_sum_hess=rh - K_EPSILON, right_count=rc,
+        left_output=calculate_leaf_output(lg, lh, p), right_output=calculate_leaf_output(rg, rh, p),
+        num_cat=torch.tensor(1 if is_cat else 0, dtype=torch.int32), cat_bitset=bitset,
+    )
 
 
 def split_pair_step(s: gs.GrowState, C: int) -> None:
@@ -548,14 +653,77 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return
-    leaves = [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C]
+    _scan_leaves(s, [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C])
+
+
+def _scan_leaves(s: gs.GrowState, leaves) -> None:
+    """The records of ``leaves`` of the state, penalised under CEGB, the
+    gain -inf at a depth >= ``s.max_depth`` (> 0)."""
     aux = s.laux[leaves]
     outf, outi, outb = find_best_split_pair(
         s.hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta,
         s.feature_mask, s.params, s.two_way, [s.hist_row(leaf) for leaf in leaves],
+        penalty=state_penalty(s, leaves),
     )
     if s.max_depth > 0:
         outf[s.leaf_i[leaves, 1] >= s.max_depth, 0] = K_MIN_SCORE
     s.best_f[leaves] = outf
     s.best_i[leaves] = outi
     s.best_b[leaves] = outb
+
+
+def state_penalty(s: gs.GrowState, leaves) -> Optional[torch.Tensor]:
+    """[len(leaves), F] CEGB penalties of ``leaves`` of the state
+    (:func:`cegb_penalty` from its laux counts, the training's paid features
+    and the leaves' unused counts), or None without CEGB."""
+    c = s.cegb
+    if c is None:
+        return None
+    return cegb_penalty(c.params, s.laux[leaves, 2], c.feature_used,
+                        s.unused_cnt[leaves] if c.params.has_lazy else None, c.coupled_t, c.lazy_t)
+
+
+def split_pair_all(s: gs.GrowState) -> None:
+    """CEGB's rescan of every other leaf after a step that paid a coupled
+    feature first (``ctl[NEWLY]``; lightgbm_tpu/ops/grow.py:1022-1047
+    ``rescan_all``): the penalised records of the leaves below
+    ``ctl[NUM_LEAVES]`` but the step's two children (which the folded scan
+    rescanned). Nothing once ``ctl[ACTIVE]`` is 0 or on a step that paid
+    nothing new. The plain version of csrc/split_pair.cu's all-leaves entry."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]) or not int(ctl[gs.NEWLY]):
+        return
+    children = (int(ctl[gs.BEST]), int(ctl[gs.NEW]))
+    leaves = [leaf for leaf in range(int(ctl[gs.NUM_LEAVES])) if leaf not in children]
+    if leaves:
+        _scan_leaves(s, leaves)
+
+
+def forced_record(s: gs.GrowState, k: int) -> None:
+    """Step ``k`` of the forced-split preamble's record
+    (lightgbm_tpu/ops/grow.py:1600-1637): :func:`gather_info_for_threshold`
+    of the table's row k (leaf, feature, threshold) from the leaf's
+    histogram (its slot under a pool) and laux sums, into ``frec_f`` /
+    ``frec_i`` / ``frec_b`` and ``ctl[FLEAF]``; an invalid split (gain -inf,
+    or the leaf at ``max_depth`` > 0) sets ``ctl[ABORT]`` instead. Nothing
+    once ``ctl[ACTIVE]`` is 0 or the preamble has aborted. The plain version
+    of csrc/split_pair.cu's forced record."""
+    ctl = s.ctl
+    if not int(ctl[gs.ACTIVE]) or int(ctl[gs.ABORT]):
+        return
+    leaf, f, thr = (int(v) for v in s.forced[k])
+    row = max(s.hist_row(leaf), 0)
+    m = s.feature_meta
+    cat = s.is_cat is not None and bool(s.is_cat[f])
+    rec = gather_info_for_threshold(
+        s.hist[row, f], s.laux[leaf, 0], s.laux[leaf, 1], s.laux[leaf, 2], thr,
+        int(m["num_bin"][f]), int(m["missing_type"][f]), int(m["default_bin"][f]), cat, s.params)
+    depth_ok = s.max_depth <= 0 or int(s.leaf_i[leaf, 1]) < s.max_depth
+    if not (bool(rec.gain > K_MIN_SCORE) and depth_ok):
+        ctl[gs.ABORT] = 1
+        return
+    s.frec_f.copy_(torch.stack([getattr(rec, n) for n in BEST_F]).to(torch.float32))
+    s.frec_i.copy_(torch.tensor([f, thr, int(rec.num_cat), int(bool(rec.default_left))],
+                                dtype=torch.int32))
+    s.frec_b.copy_(member_words(rec.cat_bitset, s.W))
+    ctl[gs.FLEAF] = leaf

@@ -49,7 +49,9 @@ from .split import SplitParams
 
 KERNELS = ("split_pair", "split_pair_rows1024", "split_pair_step", "split_pair_step_rows1024",
            "split_pair_fold", "split_pair_fold_rows1024", "split_pair_fold_pool",
-           "split_pair_fold_rows1024_pool")
+           "split_pair_fold_rows1024_pool", "split_pair_step_cegb", "split_pair_step_rows1024_cegb",
+           "split_pair_fold_cegb", "split_pair_fold_rows1024_cegb", "split_pair_all",
+           "split_pair_all_rows1024", "forced_record")
 launches: Dict[str, int] = {}
 
 
@@ -61,8 +63,9 @@ def reset_launches() -> None:
 reset_launches()
 
 
-def _count(name: str, B: int, pooled: bool = False) -> None:
-    launches[name + ("_rows1024" if B > MAX_BYTE_BINS else "") + ("_pool" if pooled else "")] += 1
+def _count(name: str, B: int, pooled: bool = False, cegb: bool = False) -> None:
+    launches[name + ("_rows1024" if B > MAX_BYTE_BINS else "") + ("_pool" if pooled else "")
+             + ("_cegb" if cegb else "")] += 1
 _META_KEYS = ("num_bin", "missing_type", "default_bin", "monotone")
 #: the categorical arguments of both entries: is_cat, feat_b, outb; W,
 #: max_cat_to_onehot; cat_smooth, lambda_l2 + cat_l2; max_cat_threshold;
@@ -208,11 +211,49 @@ def _step_args(s: gs.GrowState, C: int, parity: Optional[int]) -> tuple:
     )
 
 
+_ARGTYPES_CEGB = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 6 + [ctypes.c_int] + _CAT_ARGTYPES + [ctypes.c_void_p] * 4
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+)
+
+
+def _cegb_args(s: gs.GrowState, C: int, parity: Optional[int], all_leaves: bool) -> tuple:
+    """``lgbt_split_pair_cegb``'s arguments for the CUDA state ``s``: the
+    root's entry (``parity`` None), the folded one, or the all-leaves one."""
+    if s.B > MAX_BINS:
+        raise ValueError("split_pair_step: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
+    p, m, c = s.params, s.feature_meta, s.cegb
+    small, zero = (0, 0) if parity is None else (
+        s.small[parity].data_ptr(), s.small[1 - parity].data_ptr())
+    feat_f, feat_i, feat_b, count = (s.feat_f_all, s.feat_i_all, s.feat_b_all, s.tickets_all) \
+        if all_leaves else (s.feat_f, s.feat_i, s.feat_b, _ticket_counter(s.device))
+    coupled = c.coupled_t is not None
+    lazy = c.lazy_t is not None
+    return (
+        s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(), small, zero,
+        s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
+        feat_f.data_ptr(), feat_i.data_ptr(), s.best_f.data_ptr(), s.best_i.data_ptr(),
+        count.data_ptr(), C, s.F, s.B, p.lambda_l1, p.lambda_l2, p.max_delta_step,
+        float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf, p.min_gain_to_split, int(s.two_way),
+        *_cat_args(s.is_cat, feat_b, s.best_b, s.W, p),
+        c.feature_used.data_ptr() if coupled else None,
+        s.unused_cnt.data_ptr() if lazy else None,
+        c.coupled_t.data_ptr() if coupled else None, c.lazy_t.data_ptr() if lazy else None,
+        c.split, int(all_leaves), s.stream,
+    )
+
+
 def _launch_step(s: gs.GrowState, key: str, C: int, parity: Optional[int]) -> None:
     args = s.args.get(key)
-    if args is None:
-        args = s.args[key] = _step_args(s, C, parity)
-    fn = cuda_build.entry("split_pair", "lgbt_split_pair_dev", _ARGTYPES_STEP)
+    if s.cegb is not None:  # the penalised instantiations
+        if args is None:
+            args = s.args[key] = _cegb_args(s, C, parity, False)
+        fn = cuda_build.entry("split_pair", "lgbt_split_pair_cegb", _ARGTYPES_CEGB)
+    else:
+        if args is None:
+            args = s.args[key] = _step_args(s, C, parity)
+        fn = cuda_build.entry("split_pair", "lgbt_split_pair_dev", _ARGTYPES_STEP)
     cuda_build.check(fn(*args), key + " kernel")
 
 
@@ -238,7 +279,7 @@ def split_pair_step(s: gs.GrowState, C: int) -> None:
         split.split_pair_step(s, C)
         return
     _launch_step(s, "split_pair_step%d" % C, C, None)
-    _count("split_pair_step", s.B)
+    _count("split_pair_step", s.B, cegb=s.cegb is not None)
 
 
 def split_pair_fold(s: gs.GrowState, parity: int) -> None:
@@ -257,7 +298,63 @@ def split_pair_fold(s: gs.GrowState, parity: int) -> None:
         plain_step.split_pair_fold(s, parity)
         return
     _launch_step(s, "split_pair_fold%d" % parity, 2, parity)
-    _count("split_pair_fold", s.B, s.P > 0)
+    _count("split_pair_fold", s.B, s.P > 0, cegb=s.cegb is not None)
+
+
+def split_pair_all(s: gs.GrowState) -> None:
+    """CEGB's rescan of every leaf but the step's two children after a step
+    that paid a coupled feature first (``ctl[NEWLY]``): csrc/split_pair.cu's
+    all-leaves entry, grid (F, M), on a CUDA state (it returns at once on
+    every other step); the plain version (ops/split.py ``split_pair_all``)
+    on a CPU one. Needs a state bound with CEGB."""
+    if s.cegb is None:
+        raise ValueError("split_pair_all: a state bound with CEGB")
+    if not _cuda_state(s, "split_pair_all"):
+        split.split_pair_all(s)
+        return
+    args = s.args.get("split_pair_all")
+    if args is None:
+        args = s.args["split_pair_all"] = _cegb_args(s, s.M, None, True)
+    fn = cuda_build.entry("split_pair", "lgbt_split_pair_cegb", _ARGTYPES_CEGB)
+    cuda_build.check(fn(*args), "split_pair_all kernel")
+    _count("split_pair_all", s.B)
+
+
+_ARGTYPES_FORCED = (
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 4
+)
+
+
+def forced_record(s: gs.GrowState, k: int) -> None:
+    """The record of step ``k`` of the forced-split preamble (the state's
+    forced table's row k) into ``s.frec_*`` and ``ctl[FLEAF]``, or
+    ``ctl[ABORT]`` set: csrc/split_pair.cu's forced record, one block, on a
+    CUDA state; the plain version (ops/split.py ``forced_record``) on a CPU
+    one. Needs a state bound with a forced table of more than ``k`` rows."""
+    if s.forced is None or not 0 <= k < s.forced.shape[0]:
+        raise ValueError("forced_record: step %d of a forced table of %s rows"
+                         % (k, None if s.forced is None else s.forced.shape[0]))
+    if not _cuda_state(s, "forced_record"):
+        split.forced_record(s, k)
+        return
+    key = "forced_record%d" % k
+    args = s.args.get(key)
+    if args is None:
+        if s.B > MAX_BINS:
+            raise ValueError("forced_record: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
+        p, m = s.params, s.feature_meta
+        args = s.args[key] = (
+            s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(),
+            s.slot_of.data_ptr() if s.P else None, s.forced.data_ptr(), k,
+            m["num_bin"].data_ptr(), m["missing_type"].data_ptr(), m["default_bin"].data_ptr(),
+            s.is_cat.data_ptr() if s.is_cat is not None else None, s.F, s.B, s.W, s.max_depth,
+            p.lambda_l1, p.lambda_l2, p.max_delta_step, p.min_gain_to_split,
+            s.frec_f.data_ptr(), s.frec_i.data_ptr(), s.frec_b.data_ptr(), s.stream,
+        )
+    fn = cuda_build.entry("split_pair", "lgbt_forced_record", _ARGTYPES_FORCED)
+    cuda_build.check(fn(*args), "forced_record kernel")
+    launches["forced_record"] += 1
 
 
 def fold_mirror(s: gs.GrowState, parity: int, order: str = "large_first") -> Dict:

@@ -2597,3 +2597,188 @@ def test_wide_and_pooled_training_replays_equal_eager(monkeypatch, dev, pool):
         assert g.captures == (1 if graph else 0)
         runs.append((bst.model_to_string(), g.train_score()))
     assert runs[0][0] == runs[1][0] and np.array_equal(runs[0][1], runs[1][1])
+
+
+# ---- forced splits and CEGB (csrc/split_pair.cu's penalised,
+# all-leaves and forced-record entries, csrc/partition.cu's kExt pick,
+# csrc/grow_step.cu's cegb_lazy) -------------------------------------------------
+
+def _cegb_same(a, b, what):
+    _same_state(a, b, what)
+    if a.cegb is not None:
+        assert torch.equal(a.cegb.feature_used, b.cegb.feature_used), what
+        if a.cegb.used_in_data is not None:
+            assert torch.equal(a.cegb.used_in_data, b.cegb.used_in_data), what
+
+
+@pytest.mark.parametrize("variant", ["numerical", "categorical", "wide", "pool", "bundled"])
+def test_forced_cegb_kernels_match_plain_at_every_step(dev, variant):
+    """A 63-leaf tree at 100k rows on dyadic gradients, with a forced table
+    of three splits and (but under a pool) all three CEGB penalties, one
+    kernel at a time: the lazy pass and the penalised scan at the root, then
+    at every step the forced record (forced steps), the pick (kExt), the
+    lazy pass, the segment histogram(s), the remap of a bundled table, the
+    penalised folded scan and the all-leaves scan, each against its plain
+    version on a copy of the state: the whole state, the paid features and
+    the paid rows equal. ``bundled``: an EFB table (layout ``mixed``) whose
+    three forced splits are on bundled one-hot and 64-bin features (the
+    bundled kExt pick decodes them)."""
+    from lightgbm_tpu_torch.ops import remap, remap_kernel
+    from lightgbm_tpu_torch.ops import split as split_plain
+    from lightgbm_tpu_torch.ops.split import CegbParams
+
+    N, M = 100_000, 63
+    gen = torch.Generator(device=dev).manual_seed(11)
+    G = Bg = W = 0
+    if variant == "bundled":
+        bins, nf, _, grad, hess, meta, mask, Bg = _efb_inputs(dev, N, EFB_LAYOUTS["mixed"], 3)
+        F, G, B = meta["num_bin"].numel(), bins.shape[0], 255
+        # a one-hot feature of the 255-member bundle (its rare side left), one
+        # of the 31-member bundle on the right child, then the 64-bin feature
+        # on the second split's right child
+        forced_rows = [(0, 1, 0), (1, 256, 0), (2, 287, 30)]
+    else:
+        F = 28
+        B = 1024 if variant == "wide" else 255
+        num_bin = torch.full((F,), B, dtype=torch.int32, device=dev)
+        num_bin[3::4] = 7
+        bins = (torch.rand((F, N), generator=gen, device=dev) * num_bin[:, None]).to(
+            torch.int16 if variant == "wide" else torch.uint8)
+        nf = bins.t().contiguous()
+        grad = torch.randint(-1024, 1025, (N,), generator=gen, device=dev).float() / 1024
+        hess = torch.randint(1, 65, (N,), generator=gen, device=dev).float() / 1024
+        meta = {"num_bin": num_bin,
+                "missing_type": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+                "default_bin": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+                "monotone": torch.zeros(F, dtype=torch.int32, device=dev)}
+        if variant == "categorical":
+            meta["is_categorical"] = torch.arange(F, device=dev) % 4 == 3
+            W = (B + 31) // 32
+        mask = torch.ones(F, dtype=torch.bool, device=dev)
+        forced_rows = [(0, 0, B // 2), (0, 3, 2), (1, 1, B // 3)]
+    bag = (torch.rand(N, generator=gen, device=dev) > 0.2).float()
+    P = 8 if variant == "pool" else 0
+    forced = grow_mod.forced_table(forced_rows, dev)
+    cegb = None if P else gs.Cegb(CegbParams(1.0, 2e-4, True, True), F, N, np.linspace(0.5, 3, F),
+                                  np.full(F, 2e-4), dev)
+    s = gs.GrowState(dev, N, F, B, M, W, G, Bg, P, cegb=cegb is not None)
+    ext_before = sum(v for k, v in partition_kernel.launches.items() if k.endswith("_ext"))
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf, bag=bag,
+                        forced=forced, cegb=cegb)
+
+    def hold(kernel, plain, what):
+        other = s.clone()
+        kernel(s)
+        plain(other)
+        _cegb_same(s, other, what)
+
+    if cegb is not None:
+        hold(lambda st: grow_step_kernel.cegb_lazy(st, root=True),
+             lambda st: grow_step_plain.cegb_lazy(st, root=True), "lazy root")
+        hold(lambda st: split_kernel.split_pair_step(st, 1), lambda st: split_pair_step(st, 1),
+             "penalised root")
+    newly = 0
+    K = forced.shape[0]
+    for step in range(K + M - 1):
+        p, k = step % 2, (step if step < K else None)
+        if k is not None:
+            hold(lambda st: split_kernel.forced_record(st, k),
+                 lambda st: split_plain.forced_record(st, k), (step, "forced_record"))
+        hold(lambda st: partition_kernel.pick_partition(st, k is not None),
+             lambda st: (grow_step_plain.pick(st, k is not None), partition_plain.partition(st)),
+             (step, "pick"))
+        if not int(s.ctl[gs.ACTIVE]):
+            break
+        if cegb is not None:
+            hold(grow_step_kernel.cegb_lazy, grow_step_plain.cegb_lazy, (step, "lazy"))
+        hold(lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p),
+             (step, "segment"))
+        if P:
+            hold(lambda st: hist_kernel.histogram_segment(st, p, large=True),
+                 lambda st: segment_histogram(st, p, large=True), (step, "large"))
+        if G:
+            hold(lambda st: remap_kernel.remap_step(st, p), lambda st: remap.remap_step(st, p),
+                 (step, "remap"))
+        hold(lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p), (step, "fold"))
+        if cegb is not None:
+            newly += int(s.ctl[gs.NEWLY]) and int(s.ctl[gs.NUM_LEAVES]) > 2
+            hold(split_kernel.split_pair_all, split_plain.split_pair_all, (step, "all"))
+    assert int(s.ctl[gs.NUM_LEAVES]) > 20
+    if cegb is not None:
+        assert newly > 0  # the all-leaves scan ran at a first payment
+    assert int(s.ctl[gs.ABORT]) == 0
+    assert s.node_i[:K, 0].tolist() == [f for _, f, _ in forced_rows]
+    if dev.type == "cuda":
+        assert sum(v for k, v in partition_kernel.launches.items()
+                   if k.endswith("_ext")) > ext_before  # a kExt instantiation ran
+
+
+@pytest.mark.parametrize("table", ["dense", "bundled"])
+def test_forced_cegb_replays_equal_eager(monkeypatch, tmp_path, dev, table):
+    """Forced splits with all three CEGB penalties through the captured
+    iteration and in chunks of 4: the model text, scores and CEGB state
+    equal the eager launches' on dyadic gradients. ``dense``: one forced
+    split is invalid, so the preamble aborts after the root. ``bundled``:
+    an EFB-bundled CSR table (two dense columns, 40 one-hot ones), the
+    forced splits under the root on one-hot columns of one bundle."""
+    import json
+
+    import scipy.sparse as sp
+
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as objective_mod
+    from lightgbm_tpu_torch.bench import train_iterations
+
+    get_gradients = objective_mod.BinaryLogloss.get_gradients
+
+    def dyadic(self, score):
+        g_, h_ = get_gradients(self, score)
+        return torch.round(g_ * 128.0) / 128.0, torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0
+
+    monkeypatch.setattr(objective_mod.BinaryLogloss, "get_gradients", dyadic)
+    rng = np.random.RandomState(1)
+    n = 60_000
+    params = {"objective": "binary", "num_leaves": 63, "verbose": -1, "bagging_fraction": 0.8,
+              "bagging_freq": 1}
+    fs = tmp_path / "forced.json"
+    if table == "dense":
+        X = rng.randn(n, 12)
+        y = (X[:, 0] + X[:, 1] ** 2 + 0.3 * rng.randn(n) > 1).astype(float)
+        # the left child's forced split puts every row of it on one side: invalid
+        forced = {"feature": 2, "threshold": 0.0, "left": {"feature": 2, "threshold": 0.5},
+                  "right": {"feature": 4, "threshold": 0.5}}
+    else:
+        hot = np.zeros((n, 40))
+        hot[np.arange(n), rng.randint(0, 40, n)] = 1.0
+        dense = rng.randn(n, 2)
+        X = sp.csr_matrix(np.c_[dense, hot])
+        y = (hot[:, :10].sum(1) + dense[:, 0] + 0.3 * rng.randn(n) > 0.5).astype(float)
+        forced = {"feature": 0, "threshold": 0.0, "left": {"feature": 2, "threshold": 0.5},
+                  "right": {"feature": 3, "threshold": 0.5}}
+        params["max_conflict_rate"] = 0.0
+    F = X.shape[1]
+    fs.write_text(json.dumps(forced))
+    params.update(forcedsplits_filename=str(fs), cegb_penalty_split=2e-4,
+                  cegb_penalty_feature_coupled=[5.0] * F, cegb_penalty_feature_lazy=[2e-4] * F)
+    ds = tlgb.Dataset(X, label=y)
+    runs = []
+    for graph, chunk in ((True, 1), (False, 1), (True, 4)):
+        bst = tlgb.Booster(dict(params, device_chunk_size=chunk), ds)
+        bst._gbdt.iteration_graph = graph
+        assert train_iterations(bst, 8, chunk) == 8
+        g = bst._gbdt
+        assert g.captures == (1 if graph else 0) and g.grow_loop == "device"
+        assert (g.num_groups > 0) == (table == "bundled")
+        state = (g._cegb.feature_used.cpu(), g._cegb.used_in_data.cpu())
+        runs.append((bst.model_to_string().split("parameters:")[0], g.train_score(), state))
+    for r in runs[1:]:
+        assert r[0] == runs[0][0] and np.array_equal(r[1], runs[0][1])
+        assert all(torch.equal(a, b) for a, b in zip(r[2], runs[0][2]))
+    for line in runs[0][0].splitlines():
+        if line.startswith("split_feature="):
+            feats = line.split("=")[1].split()
+            if table == "dense":  # the forced root; the preamble aborted after it
+                assert feats[0] == "2" and feats[1:3] != ["2", "4"], line
+            else:
+                assert feats[:3] == ["0", "2", "3"], line

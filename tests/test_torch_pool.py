@@ -72,7 +72,7 @@ def test_slot_count_is_the_jax_formula(mb, leaves, num_bins):
     cfg = types.SimpleNamespace(histogram_pool_size=mb, num_leaves=leaves)
     jfake = types.SimpleNamespace(config=cfg, num_bins=num_bins, _forced_splits=[],
                                   feature_meta={"num_bin": np.zeros(F)})
-    tfake = types.SimpleNamespace(config=cfg, num_bins=num_bins,
+    tfake = types.SimpleNamespace(config=cfg, num_bins=num_bins, _forced_splits=[],
                                   train_set=types.SimpleNamespace(num_features=F))
     want = JaxGBDT._hist_pool_slots(jfake)
     got = tlgb.basic._boosting_class("gbdt")._hist_pool_slots(tfake)
