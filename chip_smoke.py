@@ -125,7 +125,7 @@ Phases (each prints one line; any failure exits non-zero):
     chunk 4 equal to single iterations; 4e's held eager run, one iteration
     of 7 trees on the whole table, the histograms in their grouped form
     (the table's 2-bin features) and each class's score update into its
-    own row of the scores; the turns and profile of 4e;
+    own row of the scores; the turns (of 5 iterations) and profile of 4e;
  4g. categorical features on Covertype in its published form
     (``covertype_compact_rows``: 4f's rows, 581,012 x 12, Wilderness_Area
     with 4 values and Soil_Type with 40 as two categorical columns): 4f's
@@ -164,7 +164,8 @@ Phases (each prints one line; any failure exits non-zero):
     folded scan every 16th step; the bundled pick, the remap and the bundled
     predict_bins at step 16 and over the held-out set against their plain
     versions and timed against their bounds (the remap beside one
-    index_select of the group rows); the turns and profile of 4e;
+    index_select of the group rows); the turns (of 5 iterations) and
+    profile of 4e;
  4i. a wide one-hot table shaped like the Flight Delay set
     (``bench.flight_like_rows``: 1,000,000 x 674 CSR, one-hot Month,
     DayofMonth, DayOfWeek, UniqueCarrier, 300 Origins and 300 Dests, then
@@ -357,6 +358,26 @@ Phases (each prints one line; any failure exits non-zero):
     bounds; turns of 10 iterations of the main path and the CEGB booster
     (chunks of 10) and one profiled chunk of each (busy ms, kernels an
     iteration);
+ 8f. EFB groups past 256 bins, the pool with EFB and CEGB with the pool,
+    each trained through the captured loop at full width: 4h's sparse
+    Covertype rows at max_bin 1024 (K = 7, 5 iterations, a 100k-row
+    held-out set; a group wider than 256 bins, int16 groups on the card),
+    4i's Flight-shaped Dataset with ``histogram_pool_size`` 64 MB (the
+    slots printed, fewer than the 255 leaves; 5 iterations) and 8e's CEGB
+    configuration with a 4 MB pool (48 slots; 10 iterations in a chunk):
+    each new instantiation launched; at 100k rows on gradients rounded to
+    2^-7 the replays equal the eager launches (binary Covertype rows at
+    max_bin 1024, Flight-shaped rows pooled, CEGB pooled); one eager tree
+    of each on dyadic values with every new instantiation (the int16
+    bundled pick, the wide remap, the pooled bundled pick, the larger
+    child's remap, the pooled penalised all-leaves scan, with the pooled
+    fold before it) held to its plain version at every step (the whole
+    state equal) and timed
+    against its bound (the pooled all-leaves scan at three steps: an
+    ordinary one, which scans the children alone; the payment with the
+    most resident leaves, the kernels line's time; and the step with the
+    most resident leaves, with a payment set by hand), the int16 bundled
+    predict_bins over the held-out rows through the Covertype tree;
  9. one JSON line of every kernel's numbers (launches summed over the
     main-path runs: phase 4, 4c's and 4d's turns and 4d's training, 4e's,
     4f's, 4g's, 4h's, 4i's, 4j's, 4k's, 4l's and 4m's trainings and turns, the
@@ -373,7 +394,9 @@ Phases (each prints one line; any failure exits non-zero):
     the int16 and pool instantiations timed in 8d, their launches 8d's
     trainings'; forced_record, pick_partition_ext, the penalised scans,
     split_pair_all and cegb_lazy timed in 8e, their launches 8e's
-    trainings'), the seconds of each phase, then the result line.
+    trainings'; the int16 bundled, pooled bundled and pooled CEGB
+    instantiations timed in 8f, their launches 8f's trainings'), the seconds
+    of each phase, then the result line.
 
 Exits non-zero without a result when CUDA is not available or the package
 is missing. Imports no JAX and nothing of the JAX package.
@@ -1526,7 +1549,12 @@ def wide_bins_phase(lgb, dev, ctx):
         for c in (1, 10):
             b_ = boosters[(kind, c)]
             fn = b_.update if c == 1 else (lambda b2=b_: b2.update_chunk(10))
-            busy, kernels, copies, timeline, named = profiled(fn)
+            for retake in range(3):
+                busy, kernels, copies, timeline, named = profiled(fn)
+                # the profiler loses events at these shapes (PERF.md §5): a trace
+                # without the replay's one readback lost it, and is taken again
+                if copies["DtoH"]:
+                    break
             key = "%s_%s" % (kind, "graph" if c == 1 else "chunk")
             prof[key] = dict(
                 device_busy_ms_per_iteration=busy / c, copies=copies,
@@ -1534,8 +1562,8 @@ def wide_bins_phase(lgb, dev, ctx):
                 else "not measured",
                 kernels_ms_per_iteration={k_: [v_[0] / c, v_[1] / c] for k_, v_ in named.items()},
                 device_idle_share=[1 - busy / c * v / 1e3 for v in ips[key]] if busy
-                else "not measured")
-            assert copies["HtoD"] == 0 and copies["DtoH"] == 1, (key, copies)
+                else "not measured", traces_retaken=retake)
+            assert copies["HtoD"] == 0 and copies["DtoH"] == 1, (key, copies, retake)
     del boosters
 
     rec.update(
@@ -1877,6 +1905,384 @@ def forced_cegb_phase(lgb, dev, ctx):
     return rec, rows
 
 
+EFB_WIDE_MAX_BIN = 1024  # sparse Covertype binned wide: its continuous columns pass 256 bins
+EFB_WIDE_ITERATIONS = 5
+FLIGHT_POOL_MB = 64  # about 31 slots of 674 x 255 x 3 x 4 = 2,062,440 bytes, against 255 leaves
+CEGB_POOL_MB = 4  # 48 slots of 28 x 255 x 3 x 4 = 85,680 bytes
+EFB_POOL_EQUAL_ROWS = 100_000  # replays = eager on gradients rounded to 2^-7
+EAGER_CEGB = {"split": 1e-7, "coupled": 3.0, "lazy": 1e-7}  # 8f's held CEGB tree's penalties
+
+
+def bundled_wide_pooled_phase(lgb, dev, ctx):
+    """EFB groups past 256 bins, the pool with EFB and CEGB with the pool on
+    the card (phase 8f of the module docstring). ``ctx`` carries main's
+    ``counted``, ``time_ms``, ``X``, ``y``, the main path's ``train_set``,
+    4h's Covertype CSR rows (``cover``: X, y, held-out X, y), 4i's Flight
+    Dataset (``flight_set``), ``dyq_vals``, ``dyadic_gradients``,
+    ``get_gradients`` and ``card``. Returns (the phase's record, each new
+    instantiation's row of the kernels line)."""
+    import numpy as np
+    import torch
+
+    from lightgbm_tpu_torch import objective as objective_mod
+    from lightgbm_tpu_torch.bench import (
+        COVER_PARAMS, FLIGHT_PARAMS, flight_like_rows, train_iterations,
+    )
+    from lightgbm_tpu_torch.ops import grow as grow_mod
+    from lightgbm_tpu_torch.ops import grow_state as gs
+    from lightgbm_tpu_torch.ops import grow_step as grow_step_plain
+    from lightgbm_tpu_torch.ops import grow_step_kernel, hist_kernel, partition_kernel
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel, remap_kernel
+    from lightgbm_tpu_torch.ops import remap as remap_plain
+    from lightgbm_tpu_torch.ops import split as split_plain
+    from lightgbm_tpu_torch.ops import split_kernel
+
+    counted, time_ms = ctx.counted, ctx.time_ms
+    rec = {"card": ctx.card}
+    cX, cy, cXv, cyv = ctx.cover
+    cover_params = dict({k: v for k, v in COVER_PARAMS.items() if k != "enable_bundle"},
+                        max_bin=EFB_WIDE_MAX_BIN)
+    flight_params = dict(FLIGHT_PARAMS, histogram_pool_size=FLIGHT_POOL_MB)
+    cegb_params = dict(TRAIN_PARAMS, device_chunk_size=10, histogram_pool_size=CEGB_POOL_MB,
+                       **CEGB_PARAMS)
+
+    # ---- three trainings through the captured loop, at full width ------------------------
+    t0 = time.perf_counter()
+    c_set = lgb.Dataset(cX, label=cy)
+    c_valid = lgb.Dataset(cXv, label=cyv, reference=c_set)
+    c_evals = {}
+    cbst, c_s, c_l = counted(lambda: lgb.train(
+        dict(cover_params), c_set, EFB_WIDE_ITERATIONS, valid_sets=[c_valid],
+        evals_result=c_evals, verbose_eval=False))
+    c_total_s = time.perf_counter() - t0
+    gc_ = cbst._gbdt
+    assert gc_.grow_loop == "device" and gc_.captures == 1 and gc_.num_groups > 0, gc_.captures
+    assert gc_.hist_width > 256 and gc_.bins_dev.dtype == torch.int16, gc_.hist_width
+    assert cbst.num_trees() == 7 * EFB_WIDE_ITERATIONS
+    for k in ("pick_partition_wide_efb", "efb_remap_wide", "predict_bins_wide_efb"):
+        assert c_l.get(k, 0) > 0, (k, c_l)
+    c_err = c_evals["valid_0"]["multi_error"]
+    prior = np.bincount(cy.astype(np.int64), minlength=7) / len(cy)
+    assert min(c_err) < prior.max(), (c_err, prior)
+
+    fbst, f_s, f_l = counted(lambda: lgb.train(dict(flight_params), ctx.flight_set,
+                                               EFB_WIDE_ITERATIONS))
+    gf_ = fbst._gbdt
+    slots = gf_.hist_pool_slots
+    print("pooled Flight: %s slots of %d bytes for %d leaves (%d features, %d groups)"
+          % (slots, gf_.train_set.num_features * gf_.num_bins * 12, gf_.config.num_leaves,
+             gf_.train_set.num_features, gf_.num_groups), flush=True)
+    assert gf_.grow_loop == "device" and gf_.captures == 1 and slots is not None and slots < 255
+    for k in ("pick_partition_pool_efb", "efb_remap_large", "split_pair_fold_pool"):
+        assert f_l.get(k, 0) > 0, (k, f_l)
+    (_, _, f_auc, _), = [r for r in fbst.eval_train() if r[1] == "auc"]
+    assert f_auc > 0.7, f_auc
+
+    pbst, p_s, p_l = counted(lambda: lgb.train(dict(cegb_params), ctx.train_set, 10))
+    gp_ = pbst._gbdt
+    assert gp_.grow_loop == "device" and gp_.captures == 1 and gp_.hist_pool_slots == 48, (
+        gp_.hist_pool_slots)
+    for k in ("split_pair_fold_pool", "split_pair_all_pool", "pick_partition_pool_ext",
+              "cegb_lazy"):
+        assert p_l.get(k, 0) > 0, (k, p_l)
+    (_, _, p_auc, _), = pbst.eval_train()
+    assert p_auc > 0.7, p_auc
+    rec["trainings"] = {
+        "sparse_covertype_wide": dict(rows=len(cy), max_bin=EFB_WIDE_MAX_BIN,
+                                      groups=gc_.num_groups, max_group_bins=gc_.hist_width,
+                                      seconds_with_binning=c_total_s, train_s=c_s,
+                                      valid_multi_error=c_err, launches=c_l),
+        "flight_pooled": dict(pool_mb=FLIGHT_POOL_MB, slots=slots, train_s=f_s, auc=f_auc,
+                              launches=f_l, unpooled_hist_bytes=gf_.train_set.num_features
+                              * gf_.num_bins * 12 * gf_.config.num_leaves),
+        "cegb_pooled": dict(pool_mb=CEGB_POOL_MB, slots=gp_.hist_pool_slots, train_s=p_s,
+                            auc=p_auc, launches=p_l),
+    }
+
+    # ---- 100k rows, gradients rounded to 2^-7: replays = eager ------------------------------
+    objective_mod.BinaryLogloss.get_gradients = ctx.dyadic_gradients
+    try:
+        n = EFB_POOL_EQUAL_ROWS
+        equal = {}
+        sX, sy = flight_like_rows(n, seed=43)
+        small_sets = {  # binary labels, so that the rounded gradients apply
+            "sparse_covertype_wide": (lgb.Dataset(cX[:n], label=(cy[:n] == 1).astype(np.float64)),
+                                      dict(TRAIN_PARAMS, max_bin=EFB_WIDE_MAX_BIN)),
+            "flight_pooled": (lgb.Dataset(sX, label=sy), dict(FLIGHT_PARAMS, histogram_pool_size=8)),
+            "cegb_pooled": (lgb.Dataset(ctx.X[:n], label=ctx.y[:n]),
+                            dict(TRAIN_PARAMS, histogram_pool_size=CEGB_POOL_MB, **CEGB_PARAMS)),
+        }
+        for name, (ds, params) in small_sets.items():
+            out = []
+            for graph in (True, False):
+                b_ = lgb.Booster(dict(params), ds)
+                b_._gbdt.iteration_graph = graph
+                assert train_iterations(b_, 4, 1) == 4
+                out.append((b_.model_to_string().split("parameters:")[0], b_._gbdt.train_score()))
+            assert out[0][0] == out[1][0] and np.array_equal(out[0][1], out[1][1]), name
+            assert b_._gbdt.num_groups > 0 or name == "cegb_pooled", name
+            assert (b_._gbdt.hist_pool_slots is not None) == (name != "sparse_covertype_wide"), name
+            equal[name] = dict(rows=n, iterations=4, equal=True, groups=b_._gbdt.num_groups,
+                               hist_width=b_._gbdt.hist_width, slots=b_._gbdt.hist_pool_slots)
+    finally:
+        objective_mod.BinaryLogloss.get_gradients = ctx.get_gradients
+    rec["replays_equal_eager"] = equal
+
+    # ---- one eager tree each, dyadic values: every new instantiation held every step ----
+    def held(s, name, kernel, plain, timed):
+        """``kernel`` on ``s`` against ``plain`` on a copy (the whole state and
+        any CEGB state equal), then, when ``timed``, both timed from that
+        state, which is left as the kernel made it."""
+        before, other = s.clone(), s.clone()
+        kernel(s)
+        plain(other)
+        same_state(s, other, name)
+        if s.cegb is not None:
+            assert torch.equal(s.cegb.feature_used, other.cegb.feature_used), name
+            assert torch.equal(s.cegb.used_in_data, other.cegb.used_in_data), name
+        if not timed:
+            return None
+        after = s.clone()
+        t = timing(s, before, kernel, plain)
+        back(s, after)
+        return t
+
+    def back(dst, src):
+        restore(dst, src)
+        if dst.cegb is not None:
+            dst.cegb.feature_used.copy_(src.cegb.feature_used)
+            dst.cegb.used_in_data.copy_(src.cegb.used_in_data)
+
+    def timing(s, before, kernel, plain):
+        """``kernel`` on ``s`` and ``plain`` on a copy timed, each run from
+        the state ``before``; ``s`` is left as a run made it."""
+        copy = before.clone()
+        return dict(ms=time_ms(lambda: kernel(s), setup=lambda: back(s, before)),
+                    plain_ms=time_ms(lambda: plain(copy), reps=3, setup=lambda: back(copy, before)),
+                    max_abs_err=0.0, library_ms=None, step=int(before.ctl[gs.STEP]) - 1)
+
+    def tree_of(g, P, cegb=None):
+        """A state of the training ``g``'s shape (``P`` pool slots) with its
+        root queued on the dyadic values."""
+        N_ = g.num_data
+        s = gs.GrowState(dev, N_, g.train_set.num_features, g.num_bins, g.config.num_leaves,
+                         g.num_words, g.num_groups, g.hist_width, P, cegb=cegb is not None)
+        dy = ctx.dyq_vals[:N_]
+        grow_mod.start_tree(s, g.bins_dev, dy[:, 0].contiguous(), dy[:, 1].contiguous(),
+                            g.feature_mask, g.feature_meta, -1, g.split_params, g._two_way,
+                            g.bins_nf, "float32", None, g.grouped_adds, cegb=cegb)
+        return s
+
+    kt, checked = {}, {}
+
+    def grow(s, holds):
+        """Every step of the state's tree, kernel by kernel; ``holds`` names
+        the kernels held at every step, each timed at the first step its
+        ``when(state)`` accepts (the pick's name in ``holds`` starts with
+        ``pick``; any other pick runs unheld)."""
+        for step in range(s.M - 1):
+            p = step % 2
+            pick = [k for k in holds if k.startswith("pick")]
+            if pick:
+                kernel, plain, when = holds[pick[0]]
+                t = held(s, pick[0], kernel(p), plain(p), pick[0] not in kt and when(s))
+                if t is not None:
+                    kt[pick[0]] = t
+                checked[pick[0]] = checked.get(pick[0], 0) + 1
+            else:
+                partition_kernel.pick_partition(s)
+            if not int(s.ctl[gs.ACTIVE]):
+                break
+            rows_ = int(s.ctl[gs.PCOUNT])
+            if s.cegb is not None and s.cegb.used_in_data is not None:
+                grow_step_kernel.cegb_lazy(s)
+            hist_kernel.histogram_segment(s, p)
+            if s.P:
+                hist_kernel.histogram_segment(s, p, large=True)
+            stages = [("efb_remap" + ("_wide" if s.B > 256 else ""), lambda q: (
+                lambda st: remap_kernel.remap_step(st, q)), None)] if s.G else []
+            if s.G and s.P:
+                stages.append(("efb_remap_large", lambda q: (
+                    lambda st: remap_kernel.remap_large(st, q)), None))
+            stages.append(("split_pair_fold" + ("_pool" if s.P else "")
+                           + ("_cegb" if s.cegb is not None and not s.pooled_rescan else ""),
+                           lambda q: (lambda st: split_kernel.split_pair_fold(st, q)), None))
+            if s.rescans_all:
+                stages.append(("split_pair_all" + ("_pool" if s.P else ""),
+                               lambda q: split_kernel.split_pair_all, None))
+            for name, kernel, _ in stages:
+                if name in holds:
+                    _, plain, when = holds[name]
+                    t = held(s, name, kernel(p), plain(p), name not in kt and when(s))
+                    if t is not None:
+                        kt[name] = t
+                        t["rows"] = rows_
+                        if s.P:
+                            t["resident"] = resident_others(s)
+                    checked[name] = checked.get(name, 0) + 1
+                else:
+                    kernel(p)(s)
+
+    def resident_others(s):
+        """The leaves resident in the pool, but the step's two children."""
+        nl = int(s.ctl[gs.NUM_LEAVES])
+        return int(((s.slot_leaf >= 0) & (s.slot_leaf < nl) & (s.slot_age > 0)).sum()) - 2
+
+    def first(s):
+        return True
+
+    # sparse Covertype at max_bin 1024: the int16 bundled pick and the wide remap
+    s = tree_of(gc_, 0)
+    grow(s, {
+        "pick_partition_wide_efb": (lambda p: partition_kernel.pick_partition,
+                                    lambda p: plain_pick_partition, first),
+        "efb_remap_wide": (lambda p: (lambda st: remap_kernel.remap_step(st, p)),
+                           lambda p: (lambda st: remap_plain.remap_step(st, p)), first),
+    })
+    Fc, Gc, Bgc, Bc = s.F, s.G, s.Bg, s.B
+    # the int16 bundled predict over the held-out rows, through this tree
+    vb = gc_._valid_bins[0]
+    pv_args = (vb, s.node_i[:s.M - 1], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1], gc_.feature_meta,
+               s.leaf_f[:, 0].contiguous())
+    nv = vb.shape[0]
+    pk_, pp_ = torch.zeros(nv, device=dev), torch.zeros(nv, device=dev)
+    leaf_k = torch.empty(nv, dtype=torch.int32, device=dev)
+    leaf_p = torch.empty(nv, dtype=torch.int32, device=dev)
+    predict_kernel.add_tree_value(*pv_args, pk_, leaf_k)
+    predict_plain.add_tree_value(*pv_args, pp_, leaf_p)
+    assert torch.equal(pk_, pp_) and torch.equal(leaf_k, leaf_p), "predict_bins_wide_efb != plain"
+    depth = float(s.leaf_i[leaf_k.long(), 1].double().mean())
+    staged = (int(s.ctl[gs.NUM_LEAVES]) - 1) * 20
+    kt["predict_bins_wide_efb"] = dict(
+        ms=time_ms(lambda: predict_kernel.add_tree_value(*pv_args, pk_)),
+        plain_ms=time_ms(lambda: predict_plain.add_tree_value(*pv_args, pp_), reps=3),
+        max_abs_err=0.0, library_ms=None, rows=nv, mean_depth=depth, staged_bytes=staged)
+    kt["predict_bins_wide_efb"].update(zip(("bound_ms", "bound_by"),
+                                           bound(nv * (8 + 2 * depth) + staged, 0)))
+    checked["predict_bins_wide_efb"] = 1
+    root_rows = gc_.num_data
+    kt["pick_partition_wide_efb"].update(zip(("bound_ms", "bound_by"), bound(
+        s.M * 4 + 24 * Fc + 32 + root_rows * 10, 0)))
+    kt["efb_remap_wide"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * Gc * Bgc * 12 + Fc * Bc * 12 + 16 * Fc + 20, Fc * remap_plain.WIDE_SLOTS * 3)))
+    c_leaves = int(s.ctl[gs.NUM_LEAVES])
+    assert c_leaves > 2, c_leaves
+    del s
+
+    # Flight-shaped, pooled: the pooled bundled pick and the larger child's remap
+    s = tree_of(gf_, slots)
+    grow(s, {
+        "pick_partition_pool_efb": (lambda p: partition_kernel.pick_partition,
+                                    lambda p: plain_pick_partition, first),
+        "efb_remap_large": (lambda p: (lambda st: remap_kernel.remap_large(st, p)),
+                            lambda p: (lambda st: remap_plain.remap_large(st, p)),
+                            lambda st: int(st.pool_ctl[gs.RUN]) == 1),
+    })
+    Ff, Gf, Bgf, Bf = s.F, s.G, s.Bg, s.B
+    assert "efb_remap_large" in kt, "no step of the pooled Flight tree missed the pool"
+    kt["pick_partition_pool_efb"].update(zip(("bound_ms", "bound_by"), bound(
+        s.M * 4 + 24 * Ff + 32 + gf_.num_data * 9 + 4 * (s.M + 2 * s.P), 0)))
+    kt["efb_remap_large"].update(zip(("bound_ms", "bound_by"), bound(
+        2 * Gf * Bgf * 12 + Ff * Bf * 12 + 16 * Ff + 20 + 64, Ff * remap_plain.SLOTS * 3)))
+    f_leaves = int(s.ctl[gs.NUM_LEAVES])
+    assert f_leaves > s.P, (f_leaves, s.P)  # the tree grew past the pool's slots
+    del s
+
+    # the main path with CEGB under a pool: the pooled fold and the pooled all-leaves scan;
+    # the tree's dyadic values are random, so its gains are noise of order 10, and the
+    # training's penalties (a split and a lazy one of 1e-4 a row: 100 at the root's 1M
+    # rows; a coupled one of 300) would stop it at the root: smaller ones pay features
+    # all through the tree, evictions included
+    Fp_ = gp_.train_set.num_features
+    c = gs.Cegb(split_plain.CegbParams(1.0, EAGER_CEGB["split"], True, True), Fp_, gp_.num_data,
+                np.full(Fp_, EAGER_CEGB["coupled"]), np.full(Fp_, EAGER_CEGB["lazy"]), dev)
+    s = tree_of(gp_, gp_.hist_pool_slots, c)  # the root's lazy pass and penalised scan queued
+    patches, saved = [], {}
+
+    def plain_all(st):
+        patches.append(split_plain.split_pair_all(st))
+
+    def save_all_states(st):
+        """Keep copies of the state before the pooled all-leaves launch of
+        the first ordinary step past the root (the children alone), of the
+        first payment with the most other resident leaves, and of the first
+        step with the most resident leaves of all (``full_pool``, timed
+        with ctl[NEWLY] set by hand: the launch's most work). Nothing is
+        timed during the tree."""
+        if int(st.ctl[gs.NUM_LEAVES]) <= 2:
+            return False
+        others = resident_others(st)
+        kind = "payment" if int(st.ctl[gs.NEWLY]) else "children"
+        if kind not in saved or (kind == "payment" and others > saved[kind][0]):
+            saved[kind] = (others, st.clone())
+        if others > saved.get("full_pool", (-1,))[0]:
+            saved["full_pool"] = (others, st.clone())
+            saved["full_pool"][1].ctl[gs.NEWLY] = 1
+        return False
+
+    grow(s, {
+        "split_pair_fold_pool": (lambda p: (lambda st: split_kernel.split_pair_fold(st, p)),
+                                 lambda p: (lambda st: grow_step_plain.split_pair_fold(st, p)),
+                                 lambda st: False),
+        "split_pair_all_pool": (lambda p: split_kernel.split_pair_all, lambda p: plain_all,
+                                save_all_states),
+    })
+    Fp, Bp = s.F, s.B
+    cells = Fp * Bp * 3
+    p_leaves = int(s.ctl[gs.NUM_LEAVES])
+    assert p_leaves > s.P, (p_leaves, s.P)  # the tree grew past the pool's slots
+    assert set(saved) == {"children", "payment", "full_pool"}, sorted(saved)
+    all_pool = {}
+    for kind, (others, st) in saved.items():
+        t = timing(st, st.clone(), split_kernel.split_pair_all, split_plain.split_pair_all)
+        scanned = others + 2 if kind != "children" else 2  # and the step's children
+        t.update(resident=others, scanned_leaves=scanned, leaves=int(st.ctl[gs.NUM_LEAVES]))
+        t.update(zip(("bound_ms", "bound_by"), bound(
+            scanned * (cells * 4 + 21 * 4 + Fp * 13) + 4 * (s.M + 2 * s.P),
+            scanned * Fp * Bp * 60)))
+        all_pool[kind] = t
+    print("split_pair_all_pool: " + ", ".join(
+        "%s %.4f ms (%d leaves scanned, bound %.4f)" % (k, v["ms"], v["scanned_leaves"],
+                                                          v["bound_ms"])
+        for k, v in sorted(all_pool.items())), flush=True)
+    kt["split_pair_all_pool"] = all_pool["payment"]
+    rec["split_pair_all_pool"] = all_pool
+    del s, c, saved
+    rec.update(eager_trees=dict(leaves=dict(sparse_covertype_wide=c_leaves, flight_pooled=f_leaves,
+                                            cegb_pooled=p_leaves),
+                                held_every_step=checked, patched_records=sum(patches)),
+               kernels=kt)
+
+    # ---- the kernels line's rows -----------------------------------------------------------
+    src = "lightgbm_tpu_torch/csrc/"
+    rows = []
+    for name, source, replaces, launches in (
+        ("pick_partition_wide_efb", "partition.cu",
+         "lightgbm_tpu/ops/grow.py:490,1298 (decode_col of int32 groups; XLA there)",
+         c_l["pick_partition_wide_efb"]),
+        ("efb_remap_wide", "efb_remap.cu", "lightgbm_tpu/ops/grow.py:806 (remap_hist; XLA there)",
+         c_l["efb_remap_wide"]),
+        ("predict_bins_wide_efb", "predict_bins.cu", "lightgbm_tpu/ops/predict.py:104",
+         c_l["predict_bins_wide_efb"]),
+        ("pick_partition_pool_efb", "partition.cu",
+         "lightgbm_tpu/ops/grow.py:1479-1536 (HistogramPool::Get; XLA there)",
+         f_l["pick_partition_pool_efb"]),
+        ("efb_remap_large", "efb_remap.cu",
+         "lightgbm_tpu/ops/grow.py:1455-1476 (the larger child's remap_hist; XLA there)",
+         f_l["efb_remap_large"]),
+        ("split_pair_all_pool", "split_pair.cu",
+         "lightgbm_tpu/ops/grow.py:1049 (rescan_resident; XLA there)",
+         p_l["split_pair_all_pool"]),
+    ):
+        t = kt[name]
+        rows.append(dict(name=name, route="cuda", source=src + source, replaces=replaces,
+                         launches=launches, max_abs_err=t["max_abs_err"], ms=t["ms"],
+                         plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                         library_ms=t["library_ms"]))
+    return rec, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default="", help="also write the results as JSON here")
@@ -1970,24 +2376,27 @@ def main() -> int:
     # 336 bins and by pool slot, predict_bins for int16 bins)
     # (and, since forced splits and CEGB, the pick and partition's kExt
     # instantiations, the scan's penalised root and folded entries, the
-    # forced record, and grow_step's lazy pass)
+    # forced record, and grow_step's lazy pass; since EFB groups past 256
+    # bins, the pool with EFB and CEGB with the pool, every bundled pick
+    # with int16 groups and with a pool, the scan's penalised pooled
+    # all-leaves entry, the bundled predict of int16 groups, and the remap's
+    # wide and larger-child instantiations)
     assert set(ptxas["partition"]) == {
         "pick_partition_kernel<%d,%d,%d,%d,%d>" % (ca, efb, wide, pool, ext) for ca in (0, 1)
-        for efb, wide, pool in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 1, 1))
-        for ext in (0, 1)}, ptxas
+        for efb in (0, 1) for wide in (0, 1) for pool in (0, 1) for ext in (0, 1)}, ptxas
     assert set(ptxas["split_pair"]) == {
         "split_pair_kernel<%d,%d,%d,%d,%d,%d>" % (d, fo, ca, wide, pool, pen)
         for d, fo, pool, pen in ((0, 0, 0, 0), (1, 0, 0, 0), (1, 1, 0, 0), (1, 1, 1, 0),
-                                 (1, 0, 0, 1), (1, 1, 0, 1)) for ca in (0, 1)
-        for wide in (0, 1)} | {"forced_record_kernel"}, ptxas
+                                 (1, 0, 0, 1), (1, 1, 0, 1), (1, 0, 1, 1))
+        for ca in (0, 1) for wide in (0, 1)} | {"forced_record_kernel"}, ptxas
     assert set(ptxas["grow_step"]) == {
         "leaf_tile_kernel<int64>", "leaf_tile_kernel<uint8>", "leaf_tile_kernel<int32>",
         "add_value_kernel<uint8>", "add_value_kernel<int32>", "cegb_lazy_kernel"}, ptxas
     assert set(ptxas["predict_bins"]) == {
-        "predict_bins_kernel<0,0>", "predict_bins_kernel<1,0>", "predict_bins_kernel<0,1>",
-        "predict_bins_kernel<1,1>", "predict_bins_bundled_kernel<0>",
-        "predict_bins_bundled_kernel<1>"}, ptxas
-    assert set(ptxas["efb_remap"]) == {"efb_remap_kernel"}, ptxas
+        "%s<%d,%d>" % (k, ca, wide) for k in ("predict_bins_kernel", "predict_bins_bundled_kernel")
+        for ca in (0, 1) for wide in (0, 1)}, ptxas
+    assert set(ptxas["efb_remap"]) == {
+        "efb_remap_kernel<%d,%d>" % (wide, large) for wide in (0, 1) for large in (0, 1)}, ptxas
     assert set(ptxas["lambdarank"]) == {"lambdarank_kernel"}, ptxas
     assert set(ptxas["packed_predict"]) == {"bin_rows_kernel", "leaves_kernel", "values_kernel"}, ptxas
     assert set(ptxas["tree_shap"]) == {"tree_shap_kernel", "tree_sum_kernel"}, ptxas
@@ -3357,7 +3766,9 @@ def main() -> int:
     assert held_g.grouped_adds and cover_held["grouped_calls"] > 0, cover_held
     assert cover_held["score_rows"] == K, cover_held
     del held_g
-    cover_ips, cover_turn_launches, cover_prof = objective_turns(cover_set, COVER_PARAMS, 10)
+    # turns of 5 iterations, as 4g's (the smoke's time is near its limit on a slow host)
+    cover_ips, cover_turn_launches, cover_prof = objective_turns(cover_set, COVER_PARAMS, 10,
+                                                                 iters=5)
     say("multiclass", rows=COVER_ROWS, features=54, valid_rows=COVER_VALID_ROWS, num_class=K,
         params=COVER_PARAMS, bin_widths=widths, binning_s=cover_bin_s, train_s=cover_train_s,
         train_iterations_per_s_with_eval=cbst.current_iteration / cover_train_s,
@@ -3742,7 +4153,7 @@ def main() -> int:
     assert h_held["remap_dense"]["checked"] > 0, h_held
     h_kernels = bundled_kernels(gh_, held_h, COVER_VALID_ROWS)
     del held_h
-    hips, hturn_launches, hprof = objective_turns(h_set, efb_params, 10)
+    hips, hturn_launches, hprof = objective_turns(h_set, efb_params, 10, iters=5)  # as 4f's
     say("sparse_covertype", rows=COVER_ROWS, columns=54, groups=h_binned.num_groups,
         max_group_bins=h_binned.max_group_bins, group_widths=h_widths,
         valid_rows=COVER_VALID_ROWS, num_class=K, params=efb_params, binning_s=h_bin_s,
@@ -3755,7 +4166,9 @@ def main() -> int:
         held_calls=h_held, kernels=h_kernels, iterations_per_s=hips,
         launches_per_turn=hturn_launches, profile=hprof)
     bundled_launches = dict(h_launches)
-    del hbst, gh_, h_set, h_valid, hX, hXv, hXd, hXvd, hy, hyv
+    # phase 8f bins these rows again at max_bin 1024 (the CSR rows and 100k held-out ones)
+    cover_rows = (hX, hy, hXv[:COVER_VALID_ROWS], hyv[:COVER_VALID_ROWS])
+    del hbst, gh_, h_set, h_valid, hXv, hXd, hXvd, hy, hyv, hX
 
     # ---- 4i. a wide one-hot table, Flight-Delay-shaped: F >> G ------------------------
     # bench.flight_like_rows: 1,000,000 x 674 CSR (one-hot Month, DayofMonth,
@@ -3806,6 +4219,7 @@ def main() -> int:
         launches_per_turn=fturn_launches, profile=fprof)
     for k_, v_ in f_launches.items():
         bundled_launches[k_] = bundled_launches.get(k_, 0) + v_
+    flight_set = f_set  # phase 8f trains it again under a pool, on the same bins
     del fbst, gf, f_set, f_valid, fX, fy, fXv, fyv
 
     # ---- 4j. boosting modes: GOSS, DART and random forest -------------------------------
@@ -5007,6 +5421,22 @@ def main() -> int:
           flush=True)
     say("forced_cegb", **fc_rec)
 
+    # ---- 8f. EFB groups past 256 bins, the pool with EFB, CEGB with the pool ------------
+    ew_rec, ew_rows = bundled_wide_pooled_phase(lgb, dev, types.SimpleNamespace(
+        counted=counted, time_ms=time_ms, X=X, y=y, train_set=train_set, cover=cover_rows,
+        flight_set=flight_set, dyq_vals=dyq_vals, dyadic_gradients=dyadic_gradients,
+        get_gradients=get_gradients, card=card))
+    del cover_rows, flight_set
+    print("bundled wide/pooled on %s: sparse Covertype at max_bin %d, %d groups of up to %d bins; "
+          "Flight pooled %s slots; CEGB pooled %s slots; held every step %s; records patched %d"
+          % (card, EFB_WIDE_MAX_BIN, ew_rec["trainings"]["sparse_covertype_wide"]["groups"],
+             ew_rec["trainings"]["sparse_covertype_wide"]["max_group_bins"],
+             ew_rec["trainings"]["flight_pooled"]["slots"],
+             ew_rec["trainings"]["cegb_pooled"]["slots"],
+             json.dumps(ew_rec["eager_trees"]["held_every_step"]),
+             ew_rec["eager_trees"]["patched_records"]), flush=True)
+    say("bundled_wide_pooled", **ew_rec)
+
     # ---- 9. kernels line and result ---------------------------------------------
     sources = {
         "histogram": ("histogram.cu", "lightgbm_tpu/ops/hist_pallas.py:225"),
@@ -5114,6 +5544,10 @@ def main() -> int:
     # forced splits' and CEGB's kernels, timed in phase 8e on one eager tree at
     # 1M rows; their launches are 8e's forced and CEGB trainings'
     kernels.extend(fc_rows)
+    # the int16 bundled, pooled bundled and pooled CEGB instantiations, timed
+    # in phase 8f on one eager tree of each training; their launches are 8f's
+    # trainings'
+    kernels.extend(ew_rows)
     unlaunched = [k["name"] for k in kernels if k["launches"] <= 0]
     assert not unlaunched, ("kernels the main path never launched", unlaunched, main_launches)
     print(json.dumps({"phase_seconds": phase_s, "total_s": sum(phase_s.values())}))

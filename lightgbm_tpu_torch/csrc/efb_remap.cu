@@ -15,7 +15,7 @@
 // where none): at half-width h = 128, 64, ..., 1 slot i takes
 // slot[i] + slot[i + h].
 //
-// Grid: one block a feature, one thread a sub-bin (B <= 256). The block
+// Grid: one block a feature, one thread a sub-bin (B <= 256; kWide below). The block
 // reads its group row's sub-bins (one gather a thread, 3 floats), writes
 // them into the feature's row, sums them in shared memory in the tree
 // order above, and its default-bin thread writes totals - sum. Totals come
@@ -34,12 +34,36 @@
 // us on 3.35 TB/s, below one launch. A block does one gather and one
 // 8-level tree in shared memory; every block is independent, so the F
 // blocks run in one wave.
+//
+// Wide rows (the kWide instantiation, 256 < B <= 1024: a bundled table's
+// int16 groups, a feature of more than 256 bins in its own group): the same
+// order over a pairwise tree of 1024 slots, 256 threads of 4 slots each.
+// Thread s gathers sub-bins s, s + 256, s + 512 and s + 768 and adds the
+// tree's first two levels in registers, (v[s] + v[s + 512]) + (v[s + 256]
+// + v[s + 768]): at h = 512 slot i takes slot[i] + slot[i + 512], at h =
+// 256 slot s takes slot[s] + slot[s + 256]. The 8 levels left run in shared
+// memory as above. The plain version sums over 1024 slots past 256 bins
+// (ops/remap.py ``slots``). A row of 256 bins or fewer summed over 1024
+// slots would equal the 256-slot tree (its top slots are zeros), but the
+// byte instantiation keeps its code.
+//
+// The larger child of a pooled step (the kLarge instantiations, a state
+// with a histogram pool, ops/grow_state.py): when the step's pick found the
+// parent evicted, a second segment histogram built the larger child over
+// the groups, and this launch remaps it with the larger child's sums. It
+// reads the pool's control vector ``run`` as that launch does: run[0] set
+// on a miss, run[5] the larger child's leaf, whose laux row holds the
+// split record's sums. It clears its own group scratch for the next step
+// first, on a hit too (the segment histogram adds into it), then returns at
+// once on a hit. Once the loop has stopped (ctl[0] 0) it returns before
+// anything.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;  // one thread a sub-bin; the tree's slots
+constexpr int kMaxBins = 1024;  // kWide: 4 sub-bins a thread
 constexpr int kActive = 0, kSmall = 5;  // slots of the loop's control vector (ops/grow_state.py)
 constexpr int kLaux = 5;                // floats a row of the loop's laux
 
@@ -53,10 +77,56 @@ struct Args {
   const int* off;       // [F] its offset in the group
   const int* dbin;      // [F] default_bin
   const int* nbin;      // [F] num_bin
-  int row;              // the totals' row, or -1: ctl[kSmall]
+  int row;              // the totals' row, or -1: ctl[kSmall] (kLarge: run[kSmall])
   int F, B, G, Bg;
+  const int* run;       // kLarge: the pool's control vector (run[kActive], run[kSmall])
 };
 
+// kWide: feature f's row over 1024 slots, 4 a thread, written to out
+__device__ __forceinline__ void remap_wide(const Args& a, float (*red)[kThreads], int f, int s,
+                                           int g, int off, int d, int nb, const float* t) {
+  float v[4][3];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = s + j * kThreads;
+    v[j][0] = v[j][1] = v[j][2] = 0.0f;
+    if (b < nb && b != d) {
+      const float* src = a.in + ((long long)g * a.Bg + off + b - (b > d)) * 3;
+      v[j][0] = src[0];
+      v[j][1] = src[1];
+      v[j][2] = src[2];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) red[c][s] = (v[0][c] + v[2][c]) + (v[1][c] + v[3][c]);
+  __syncthreads();
+#pragma unroll
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (s < h) {
+      red[0][s] = red[0][s] + red[0][s + h];
+      red[1][s] = red[1][s] + red[1][s + h];
+      red[2][s] = red[2][s] + red[2][s + h];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int b = s + j * kThreads;
+    if (b >= a.B) break;
+    float* o = a.out + ((long long)f * a.B + b) * 3;
+    if (b == d) {
+      o[0] = t[0] - red[0][0];
+      o[1] = t[1] - red[1][0];
+      o[2] = t[2] - red[2][0];
+    } else {
+      o[0] = v[j][0];
+      o[1] = v[j][1];
+      o[2] = v[j][2];
+    }
+  }
+}
+
+template <bool kWide, bool kLarge>
 __global__ void __launch_bounds__(kThreads) efb_remap_kernel(Args a) {
   if (a.ctl != nullptr && a.ctl[kActive] == 0) return;
   __shared__ float red[3][kThreads];
@@ -65,7 +135,15 @@ __global__ void __launch_bounds__(kThreads) efb_remap_kernel(Args a) {
     float* z = a.zero_g + (long long)f * a.Bg * 3;
     for (int i = s; i < a.Bg * 3; i += kThreads) z[i] = 0.0f;
   }
+  if constexpr (kLarge) {
+    if (a.run[kActive] == 0) return;  // a hit: the larger child is the parent's minus the smaller
+  }
   const int g = a.gid[f], off = a.off[f], d = a.dbin[f], nb = a.nbin[f];
+  if constexpr (kWide) {
+    const int trow = a.row < 0 ? (kLarge ? a.run : a.ctl)[kSmall] : a.row;
+    remap_wide(a, red, f, s, g, off, d, nb, a.totals + (long long)trow * kLaux);
+    return;
+  }
   float v0 = 0.0f, v1 = 0.0f, v2 = 0.0f;
   if (s < nb && s != d) {
     const float* src = a.in + ((long long)g * a.Bg + off + s - (s > d)) * 3;
@@ -89,7 +167,8 @@ __global__ void __launch_bounds__(kThreads) efb_remap_kernel(Args a) {
   if (s >= a.B) return;
   float* o = a.out + ((long long)f * a.B + s) * 3;
   if (s == d) {
-    const float* t = a.totals + (long long)(a.row < 0 ? a.ctl[kSmall] : a.row) * kLaux;
+    const float* t =
+        a.totals + (long long)(a.row < 0 ? (kLarge ? a.run : a.ctl)[kSmall] : a.row) * kLaux;
     o[0] = t[0] - red[0][0];
     o[1] = t[1] - red[1][0];
     o[2] = t[2] - red[2][0];
@@ -107,16 +186,32 @@ extern "C" {
 // out [F, B, 3] f32 = the remap of in [G, Bg, 3] f32 through the plan gid /
 // off / dbin / nbin [F] int32, with the totals at totals + 5 * row (row -1:
 // ctl[5], the loop's smaller child) ; zero_g [G, Bg, 3] cleared when not
-// null; nothing when ctl is not null and ctl[0] is 0. B and Bg at most 256.
+// null; nothing when ctl is not null and ctl[0] is 0. B and Bg at most 1024
+// (the kWide instantiation past B = 256). run non-null (a pooled step's
+// larger child, row -1): the pool's control vector; zero_g is cleared
+// whenever ctl[0] is set, the remap runs only when run[0] is set, with the
+// totals of laux row run[5].
 int lgbt_efb_remap(const void* in, void* out, void* zero_g, const void* totals, const void* ctl,
                    const void* gid, const void* off, const void* dbin, const void* nbin, int row,
-                   int F, int B, int G, int Bg, void* stream) {
-  if (F < 1 || G < 1 || B < 1 || B > kThreads || Bg < 1 || Bg > kThreads ||
-      (row < 0 && ctl == nullptr))
+                   int F, int B, int G, int Bg, const void* run, void* stream) {
+  if (F < 1 || G < 1 || B < 1 || B > kMaxBins || Bg < 1 || Bg > kMaxBins ||
+      (row < 0 && ctl == nullptr) || (run != nullptr && (ctl == nullptr || row >= 0)))
     return (int)cudaErrorInvalidValue;
   Args a{(const float*)in, (float*)out, (float*)zero_g, (const float*)totals, (const int*)ctl,
-         (const int*)gid, (const int*)off, (const int*)dbin, (const int*)nbin, row, F, B, G, Bg};
-  efb_remap_kernel<<<F, kThreads, 0, (cudaStream_t)stream>>>(a);
+         (const int*)gid, (const int*)off, (const int*)dbin, (const int*)nbin, row, F, B, G, Bg,
+         (const int*)run};
+  const bool wide = B > kThreads;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (run != nullptr) {
+    if (wide)
+      efb_remap_kernel<true, true><<<F, kThreads, 0, st>>>(a);
+    else
+      efb_remap_kernel<false, true><<<F, kThreads, 0, st>>>(a);
+  } else if (wide) {
+    efb_remap_kernel<true, false><<<F, kThreads, 0, st>>>(a);
+  } else {
+    efb_remap_kernel<false, false><<<F, kThreads, 0, st>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 

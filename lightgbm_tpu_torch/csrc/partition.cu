@@ -93,7 +93,11 @@
 // Wide bins (the kWide instantiations, for int16 bins of up to 1024 bins a
 // feature): the rows' bins are read two bytes each and a categorical split
 // carries up to 32 membership words (kMaxWideWords). The byte
-// instantiations keep their code.
+// instantiations keep their code. A bundled table's groups are int16 when a
+// group holds more than 256 bins (a feature of more than 256 bins in its own
+// group, up to 1024: the kEfb and kWide instantiations): the group row is
+// read two bytes a row and decoded as the byte one is, the plan's offset in
+// 11 bits (kEfb alone: 8).
 //
 // A histogram pool (the kPool instantiations, ops/grow_state.py): the
 // thread that wires the tree also keeps the pool's LRU slots, after
@@ -399,7 +403,7 @@ __device__ __forceinline__ void pool_update(const Args& a, int best, int nl, int
 
 template <bool kCat, bool kEfb, bool kWide, bool kPool, bool kExt>
 __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
-  static_assert(!(kEfb && kWide), "a bundled table's groups are bytes");
+  constexpr int kOffBits = kWide ? 11 : 8;  // kEfb: the offset's bits in a plan word
   __shared__ int stage_s[kEfb ? kEfbCap : kCap];
   __shared__ float red_g[kWarps];
   __shared__ int red_i[kWarps];
@@ -409,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   __shared__ int meta_s[kMetaCap];
   __shared__ int sh[sWords + (kExt ? 1 : 0)];
   __shared__ int words_s[kCat ? (kWide ? kMaxWideWords : kMaxWords) : 1];  // the split's words
-  __shared__ int plan_s[kEfb ? kMetaCap : 1];    // group << 8 | offset (kEfb)
+  __shared__ int plan_s[kEfb ? kMetaCap : 1];    // group << kOffBits | offset (kEfb)
   __shared__ int efb_s[kEfb ? 2 : 1];            // the picked feature's group and offset
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int M = a.M;
@@ -431,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
   for (int k = tid; k < min(a.F, kMetaCap); k += kThreads) {
     meta_s[k] = a.missing[k] | (a.default_bin[k] << 2) | ((a.num_bin[k] - 1) << 17) |
                 (kCat && a.is_cat[k] ? 1 << kCatBit : 0);
-    if (kEfb) plan_s[k] = (a.gid[k] << 8) | a.off[k];
+    if (kEfb) plan_s[k] = (a.gid[k] << kOffBits) | a.off[k];
   }
   if (tid == 0) {
     sh[sActive] = a.ctl[kActive];
@@ -503,9 +507,9 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
     sh[sNanBin] = kCat ? (mv >> 17) & 0x1FFF : mv >> 17;
     if (kCat) sh[sCat] = (mv >> kCatBit) & 1;
     if (kEfb) {
-      const int pv = f < kMetaCap ? plan_s[f] : (a.gid[f] << 8) | a.off[f];
-      efb_s[0] = pv >> 8;
-      efb_s[1] = pv & 0xFF;
+      const int pv = f < kMetaCap ? plan_s[f] : (a.gid[f] << kOffBits) | a.off[f];
+      efb_s[0] = pv >> kOffBits;
+      efb_s[1] = pv & ((1 << kOffBits) - 1);
     }
   }
   if constexpr (kExt) {
@@ -655,24 +659,21 @@ __global__ void __launch_bounds__(kThreads, 1) pick_partition_kernel(Args a) {
 }
 
 // The instantiation of a launch: categorical (bit 0 of ``kind``), bundled
-// (bit 1), int16 bins (bit 2, never bundled), a histogram pool (bit 3) and
-// forced splits or coupled CEGB (bit 4).
+// (bit 1), int16 bins (bit 2), a histogram pool (bit 3) and forced splits or
+// coupled CEGB (bit 4).
 using Kernel = decltype(&pick_partition_kernel<false, false, false, false, false>);
 
 template <bool kPool, bool kExt>
 Kernel instantiation_of(int kind) {
   switch (kind & 7) {
     case 1: return &pick_partition_kernel<true, false, false, kPool, kExt>;
-    case 2:
-      if constexpr (kPool) return nullptr;  // a pool of a bundled table is not ported
-      else return &pick_partition_kernel<false, true, false, false, kExt>;
-    case 3:
-      if constexpr (kPool) return nullptr;
-      else return &pick_partition_kernel<true, true, false, false, kExt>;
+    case 2: return &pick_partition_kernel<false, true, false, kPool, kExt>;
+    case 3: return &pick_partition_kernel<true, true, false, kPool, kExt>;
     case 4: return &pick_partition_kernel<false, false, true, kPool, kExt>;
     case 5: return &pick_partition_kernel<true, false, true, kPool, kExt>;
-    case 0: return &pick_partition_kernel<false, false, false, kPool, kExt>;
-    default: return nullptr;  // bundled int16 bins
+    case 6: return &pick_partition_kernel<false, true, true, kPool, kExt>;
+    case 7: return &pick_partition_kernel<true, true, true, kPool, kExt>;
+    default: return &pick_partition_kernel<false, false, false, kPool, kExt>;
   }
 }
 
@@ -725,8 +726,8 @@ int lgbt_pick_partition_grid(int* grid, int kind) {
 // feature f's group at bins + gid[f] * stride_f. grid blocks of 1024
 // threads, at most lgbt_pick_partition_grid's for the instantiation,
 // launched cooperatively; the launch's error is returned. Does nothing
-// once ctl[0] is 0. int16 bins (bin_bytes 2, W <= 32) are never
-// bundled. A histogram pool: pool [16 + M + 2 P] int32 (its
+// once ctl[0] is 0. int16 bins: bin_bytes 2, W <= 32 (a bundled table's
+// groups too). A histogram pool: pool [16 + M + 2 P] int32 (its
 // control vector, slot_of, slot_leaf, slot_age; null without one), P slots,
 // subtract 0 to build both children of every split. ext 1 launches the
 // kExt instantiation: a forced step (forced 1) takes the leaf ctl[10] and

@@ -53,7 +53,11 @@
 // each for the threshold, the default bin and the NaN bin (its missing type
 // moves to the feature word's top bits); a categorical node's words are W
 // = 32 at 1024 bins, 32 KB beside the nodes at 255 leaves. The byte
-// instantiations keep their code.
+// instantiations keep their code. A bundled table with int16 groups (a
+// group of more than 256 bins, predict_bins_bundled_kernel<kCat, true>):
+// the node's first word packs its column in 18 bits, its offset in 10 and
+// its missing type in 2 (G < 2^18), its rule as the wide one's, and the
+// two-byte group bin is decoded as the byte one is.
 //
 // ``value`` is what a row at each leaf adds (the device iteration passes the
 // shrunk leaf values where the tree grew and exact zeros where it did not);
@@ -96,7 +100,12 @@ __device__ __forceinline__ void predict_rows(
       const unsigned rule = (rec[1] & 0x3FFu) | ((default_bin[f] & 0x3FFu) << 10) |
                             (((num_bin[f] - 1) & 0x3FFu) << 20) | ((rec[4] != 0 ? 1u : 0u) << 30) |
                             (kCat && is_cat[f] ? 1u << 31 : 0u);
-      nodes[i] = make_int4(f | ((missing_type[f] & 3) << 28), (int)rule, rec[2], rec[3]);
+      if constexpr (kEfb) {  // column | offset << 18 | missing_type << 28
+        nodes[i] = make_int4(gid[f] | ((off[f] & 0x3FF) << 18) | ((missing_type[f] & 3) << 28),
+                             (int)rule, rec[2], rec[3]);
+      } else {
+        nodes[i] = make_int4(f | ((missing_type[f] & 3) << 28), (int)rule, rec[2], rec[3]);
+      }
     } else {
       const int rule = (rec[1] & 0xFF) | ((default_bin[f] & 0xFF) << 8) |
                        (((num_bin[f] - 1) & 0xFF) << 16) | ((missing_type[f] & 3) << 24) |
@@ -117,7 +126,14 @@ __device__ __forceinline__ void predict_rows(
       const int4 nd = nodes[node];
       if constexpr (kWide) {
         const unsigned rule = (unsigned)nd.y;
-        const int col = row[nd.x & 0xFFFFFFF];
+        int col;
+        if constexpr (kEfb) {  // the group bin as the node feature's sub-bin
+          const int sub = (int)row[nd.x & 0x3FFFF] - (int)(((unsigned)nd.x >> 18) & 0x3FFu);
+          const int dbin = (rule >> 10) & 0x3FF;
+          col = (sub >= 0 && sub < (int)((rule >> 20) & 0x3FF)) ? sub + (sub >= dbin) : dbin;
+        } else {
+          col = row[nd.x & 0xFFFFFFF];
+        }
         const int miss = ((unsigned)nd.x >> 28) & 3;
         bool left = col <= (int)(rule & 0x3FF);
         if ((miss == kMissingZero && col == (int)((rule >> 10) & 0x3FF)) ||
@@ -168,9 +184,10 @@ predict_bins_kernel(const Bin<kWide>* __restrict__ bins, long long N, int F,
 }
 
 // an EFB-bundled table: the decode's registers, at kBundledMinBlocks blocks an SM
-template <bool kCat>
+// (kWide: int16 groups)
+template <bool kCat, bool kWide = false>
 __global__ void __launch_bounds__(kThreads, kBundledMinBlocks)
-predict_bins_bundled_kernel(const uint8_t* __restrict__ bins, long long N, int F,
+predict_bins_bundled_kernel(const Bin<kWide>* __restrict__ bins, long long N, int F,
                             const int* __restrict__ node_i, int max_nodes,
                             const int* __restrict__ num_leaves,
                             const int* __restrict__ missing_type,
@@ -179,8 +196,9 @@ predict_bins_bundled_kernel(const uint8_t* __restrict__ bins, long long N, int F
                             int* __restrict__ leaf_out, const int* __restrict__ node_b,
                             const unsigned char* __restrict__ is_cat, int W,
                             const int* __restrict__ gid, const int* __restrict__ off) {
-  predict_rows<kCat, true>(bins, N, F, node_i, max_nodes, num_leaves, missing_type, default_bin,
-                           num_bin, value, score, leaf_out, node_b, is_cat, W, gid, off);
+  predict_rows<kCat, true, kWide>(bins, N, F, node_i, max_nodes, num_leaves, missing_type,
+                                  default_bin, num_bin, value, score, leaf_out, node_b, is_cat, W,
+                                  gid, off);
 }
 
 // the dynamic shared memory each kernel may take (bit 0 categorical, bit 1
@@ -199,7 +217,7 @@ extern "C" {
 // missing_type / default_bin / num_bin [F] int32; leaf_out [N] int32 or
 // null. With categorical features, node_b [max_nodes, W] int32 (each node's
 // membership words) and is_cat [F] bytes; is_cat null without them. An
-// EFB-bundled table (uint8 only): bins [N, F] holds F group columns, and gid
+// EFB-bundled table (int16 groups: G < 2^18): bins [N, F] holds F group columns, and gid
 // / off [features] int32 give each feature's group and offset (both null
 // unbundled). Shared memory: 16 bytes a node, and 4 W bytes a node with
 // categorical features.
@@ -215,13 +233,15 @@ int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, 
   if (bin_bytes != 1 && !wide) return (int)cudaErrorInvalidValue;
   if (cat && (node_b == nullptr || W < 1)) return (int)cudaErrorInvalidValue;
   if (efb != (off != nullptr) || (efb && F >= (1 << 24))) return (int)cudaErrorInvalidValue;
-  if (wide && (efb || F >= (1 << 28))) return (int)cudaErrorInvalidValue;
+  if (wide && F >= (efb ? (1 << 18) : (1 << 28))) return (int)cudaErrorInvalidValue;
   const int slots = max_nodes > 1 ? max_nodes : 1;
   const int shared = slots * (int)sizeof(int4) + (cat ? slots * W * (int)sizeof(int) : 0);
   const int kind = (cat ? 1 : 0) | (efb ? 2 : 0) | (wide ? 4 : 0);
   const void* kern =
-      efb ? (cat ? (const void*)&predict_bins_bundled_kernel<true>
-                 : (const void*)&predict_bins_bundled_kernel<false>)
+      efb ? (wide ? (cat ? (const void*)&predict_bins_bundled_kernel<true, true>
+                         : (const void*)&predict_bins_bundled_kernel<false, true>)
+                  : (cat ? (const void*)&predict_bins_bundled_kernel<true>
+                         : (const void*)&predict_bins_bundled_kernel<false>))
           : wide ? (cat ? (const void*)&predict_bins_kernel<true, true>
                         : (const void*)&predict_bins_kernel<false, true>)
                  : (cat ? (const void*)&predict_bins_kernel<true, false>
@@ -244,7 +264,16 @@ int lgbt_predict_bins(const void* bins, long long N, int F, const void* node_i, 
   const int* nb = (const int*)node_b;
   const unsigned char* ic = (const unsigned char*)is_cat;
   cudaStream_t st = (cudaStream_t)stream;
-  if (efb) {
+  if (efb && wide) {
+    const int *g = (const int*)gid, *o = (const int*)off;
+    const int16_t* b16 = (const int16_t*)bins;
+    if (cat)
+      predict_bins_bundled_kernel<true, true><<<grid, kThreads, shared, st>>>(
+          b16, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W, g, o);
+    else
+      predict_bins_bundled_kernel<false, true><<<grid, kThreads, shared, st>>>(
+          b16, N, F, ni, max_nodes, nl, mt, db, nbn, v, sc, lo, nb, ic, W, g, o);
+  } else if (efb) {
     const int *g = (const int*)gid, *o = (const int*)off;
     if (cat)
       predict_bins_bundled_kernel<true><<<grid, kThreads, shared, st>>>(

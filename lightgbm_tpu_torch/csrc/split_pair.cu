@@ -157,6 +157,29 @@
 // >= num_leaves return at once. Its tickets are one a leaf (count [M]) and
 // its per-feature records [M, F, .] scratch of their own.
 //
+// CEGB under a histogram pool (the pooled all-leaves entry: kPen and kPool
+// without kFold). A pooled step's folded scan is the pool's, unpenalised:
+// it folds the children's rows into their slots and writes records that
+// this entry then replaces. The entry follows the reference's pooled
+// rescan (rescan_resident, lightgbm_tpu/ops/grow.py:1049-1108): a leaf
+// evicted from the pool has no histogram to rescan, so the reference
+// rescans the resident slots only, and patches each other leaf's cached
+// record: its gain takes back the coupled penalty of the feature the step
+// paid, when that record's feature is the paid one (Split,
+// serial_tree_learner.cpp:757-775). The grid is (F, P), block (f, p)
+// scanning slot p's row for its leaf slot_leaf[p] (a stamped slot, below
+// ctl[kNumLeaves]) under the penalties: the step's two children at every
+// step, whatever the penalties (with a split or lazy penalty alone the
+// launch scans them and nothing else), any other resident leaf only when
+// the step's pick wrote ctl[kNewly] (coupled penalties only; a resident
+// leaf's record changes only then). At such a
+// step block (0, 0) first patches the evicted leaves (slot_of -1, a record
+// on the step's feature node_i[ctl[kStep] - 1] with a gain above -inf:
+// gain + coupled[f], one f32 add): they are rows no other block of the
+// launch writes. Its tickets and scratch are the unpooled entry's, by
+// slot. (A penalised pooled folded scan, which would save the children's
+// second scan, spilled registers in its categorical instantiation.)
+//
 // The forced record (forced_record_kernel, lgbt_forced_record; a step of
 // the forced-split preamble, lightgbm_tpu/ops/grow.py:1600-1637): one
 // block computes gather_info_for_threshold (lightgbm_tpu/ops/split.py:
@@ -353,7 +376,7 @@ struct LoopState {
   float* large_zero;     // kPool: [F, B, 3] the other one, cleared for the next step
 };
 constexpr int kActive = 0, kBest = 3, kNew = 4, kSmall = 5;  // control slots
-constexpr int kNumLeaves = 1, kFLeaf = 10, kAbort = 11, kNewly = 12;
+constexpr int kNumLeaves = 1, kStep = 2, kFLeaf = 10, kAbort = 11, kNewly = 12;
 
 // CEGB (kPen): the penalty vectors and the training's state
 // (ops/grow_state.py Cegb); a null vector is a penalty not given.
@@ -364,6 +387,10 @@ struct Pen {
   const float* lazy;                  // [F] tradeoff * lazy
   float split;                        // tradeoff * penalty_split
   int all;                            // the all-leaves entry: block (f, l) scans leaf l
+  const int* slot_of;                 // kPool all-leaves: [M] each leaf's slot, -1 evicted
+  const int* slot_leaf;               // [P] each slot's leaf, -1 free
+  const int* slot_age;                // [P] each slot's stamp, 0 never used
+  const int* node_i;                  // [M, 5] the tree's nodes (the step's split feature)
 };
 
 // The CEGB penalty of feature f at leaf ``leaf`` of ``count`` bagged rows,
@@ -376,6 +403,20 @@ __device__ __forceinline__ float cegb_penalty(const Pen& pen, int leaf, int f, i
   return v;
 }
 constexpr int kHit = 10, kSSlot = 11, kLSlot = 12, kPSlot = 13;  // the pool's control slots
+
+// The pooled all-leaves entry's patch of the evicted leaves' cached records
+// (see the header), by one block: a gain on the step's paid feature takes
+// back its coupled penalty.
+__device__ __forceinline__ void patch_evicted(const Pen& pen, const int* ctl, float* outf,
+                                              const int* outi) {
+  const int nl = ctl[kNumLeaves];
+  const int fs = pen.node_i[(ctl[kStep] - 1) * 5];
+  const float add = pen.coupled[fs];
+  for (int l = threadIdx.x; l < nl; l += kThreads) {
+    if (pen.slot_of[l] < 0 && outi[l * 4] == fs && outf[l * 9] > -INFINITY)
+      outf[l * 9] = outf[l * 9] + add;
+  }
+}
 
 // One block per (feature, child). feat_f[c, f, :] = (gain, left_g, left_h
 // incl. eps, left_c) and feat_i[c, f, :] = (t, default_left) of the
@@ -605,8 +646,9 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
                   const unsigned char* __restrict__ fmask, float* feat_f, int* feat_i,
                   float* __restrict__ outf, int* __restrict__ outi, int* count, int F, int B,
                   Params p, int two_way, LoopState ls, Cat cat, Pen pen) {
-  static_assert(!kPool || (kDev && kFold), "a pool's rows are read by the folded entry");
-  static_assert(!kPen || (kDev && !kPool), "the penalised entries are the loop's, unpooled");
+  static_assert(!kPool || (kDev && kFold != kPen),
+                "a pool's rows are read by the folded and the pooled all-leaves entries");
+  static_assert(!kPen || kDev, "the penalised entries are the loop's");
   constexpr int kStage = Dims<kWide>::kStage, kRow = Dims<kWide>::kRow;
   __shared__ __align__(16) float pre[3 * kRow];  // [3, B] inclusive prefix, channel-major
   __shared__ float red_g[2][kWarps];
@@ -618,10 +660,19 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   int leaf = kDev ? ls.ctl[c == 0 ? kBest : kNew] : (c == 0 ? leaf0 : leaf1);
   if constexpr (kPen) {
     if (pen.all) {  // block (f, l): leaf l, unless the step paid no coupled feature
-      leaf = c;
-      if (!ls.ctl[kNewly] || leaf >= ls.ctl[kNumLeaves] || leaf == ls.ctl[kBest] ||
-          leaf == ls.ctl[kNew])
-        return;
+      if constexpr (kPool) {  // block (f, p): slot p's leaf; block (0, 0) patches
+        const bool newly = pen.coupled != nullptr && ls.ctl[kNewly] != 0;
+        if (newly && f == 0 && c == 0) patch_evicted(pen, ls.ctl, outf, outi);
+        leaf = pen.slot_leaf[c];
+        const bool child = leaf == ls.ctl[kBest] || leaf == ls.ctl[kNew];
+        if (leaf < 0 || pen.slot_age[c] <= 0 || leaf >= ls.ctl[kNumLeaves] || !(child || newly))
+          return;
+      } else {
+        leaf = c;
+        if (!ls.ctl[kNewly] || leaf >= ls.ctl[kNumLeaves] || leaf == ls.ctl[kBest] ||
+            leaf == ls.ctl[kNew])
+          return;
+      }
     }
   }
   // the child's sums and window: [3] and [2] floats
@@ -632,8 +683,8 @@ split_pair_kernel(float* hist, int leaf0, int leaf1,
   // every read of device memory the block needs, issued together: none
   // waits on another
   float v[kStage];
-  if (!kFold) {
-    const float* h = hist + (long long)leaf * F * B * 3 + frow;
+  if (!kFold) {  // the pooled all-leaves entry reads its slot's row
+    const float* h = hist + (long long)(kPool ? c : leaf) * F * B * 3 + frow;
 #pragma unroll
     for (int k = 0; k < kStage; ++k) {
       const int i = tid + k * kThreads;
@@ -1033,15 +1084,22 @@ int lgbt_split_pair_dev(void* hist, const void* ctl, const void* laux, const voi
 }
 
 // The penalised (CEGB) entries of the split loop: lgbt_split_pair_dev's
-// root (C = 1) and folded (small non-null, C = 2) entries, unpooled, with
-// each feature's penalty subtracted before the argmax over features; or,
-// with all = 1, the all-leaves entry (C = M: block (f, l) scans leaf l
+// root (C = 1) and folded (small non-null, C = 2) entries, with each
+// feature's penalty subtracted before the argmax over features; or, with
+// all = 1, the all-leaves entry (C = M: block (f, l) scans leaf l
 // when ctl[12] is set, l < ctl[1] and l is neither child ctl[3] nor
 // ctl[4]; its tickets count [M], its scratch feat_f [M, F, 4], feat_i [M,
 // F, 2] and feat_b [M, F, W]). feature_used [F] bytes and coupled [F] f32
 // (tradeoff * coupled) with coupled penalties, else null; unused [M, F]
 // and lazy [F] f32 (tradeoff * lazy) with lazy ones, else null; split =
-// tradeoff * penalty_split. The other arguments are lgbt_split_pair_dev's.
+// tradeoff * penalty_split. A histogram pool (pool non-null: its buffer
+// [16 + M + 2 P] int32, the control vector, slot_of, slot_leaf, slot_age;
+// all = 1 only): the pooled all-leaves entry (C = P: block (f, p) scans
+// slot p's leaf from its row, the children every step, with or without
+// coupled penalties, and with them the evicted leaves' records are
+// patched, reading the step's feature from node_i [M, 5]); a pooled
+// step's folded scan is lgbt_split_pair_dev's. The other
+// arguments are lgbt_split_pair_dev's.
 int lgbt_split_pair_cegb(void* hist, const void* ctl, const void* laux, const void* leaf_i,
                          const void* small, void* zero, int max_depth, const void* num_bin,
                          const void* missing, const void* default_bin, const void* mono,
@@ -1052,7 +1110,7 @@ int lgbt_split_pair_cegb(void* hist, const void* ctl, const void* laux, const vo
                          int max_onehot, float cat_smooth, float cat_l2, int max_threshold,
                          float min_group, const void* feature_used, const void* unused,
                          const void* coupled, const void* lazy, float split, int all,
-                         void* stream) {
+                         const void* pool, int M, int P, const void* node_i, void* stream) {
   if (C <= 0 || F <= 0 || B <= 0 || B > Dims<true>::kMaxBins) return (int)cudaErrorInvalidValue;
   if (!cat_args_ok(is_cat, feat_b, outb, W, B)) return (int)cudaErrorInvalidValue;
   const bool fold = small != nullptr;
@@ -1060,16 +1118,23 @@ int lgbt_split_pair_cegb(void* hist, const void* ctl, const void* laux, const vo
     return (int)cudaErrorInvalidValue;
   if ((coupled == nullptr) != (feature_used == nullptr) || (lazy == nullptr) != (unused == nullptr))
     return (int)cudaErrorInvalidValue;
+  const bool pooled = pool != nullptr;
+  if (pooled && (P < 2 || P > M || !all || C != P || node_i == nullptr))
+    return (int)cudaErrorInvalidValue;
   const Params p{l1, l2, max_delta_step, min_data, min_hess, min_gain};
+  const int* pv = (const int*)pool;
   const LoopState ls{(const int*)ctl, (const float*)laux, (const int*)leaf_i, max_depth,
-                     (const float*)small, (float*)zero, nullptr, nullptr, nullptr};
+                     (const float*)small, (float*)zero, pv, nullptr, nullptr};
   const Cat cat{(const unsigned char*)is_cat, (int*)feat_b, (int*)outb, W, max_onehot,
                 max_threshold, cat_smooth, cat_l2, min_group};
   const Pen pen{(const unsigned char*)feature_used, (const float*)unused, (const float*)coupled,
-                (const float*)lazy, split, all};
+                (const float*)lazy, split, all,
+                pooled ? pv + 16 : nullptr, pooled ? pv + 16 + M : nullptr,
+                pooled ? pv + 16 + M + P : nullptr, (const int*)node_i};
   const bool c = is_cat != nullptr;
-  const Kernel kern = fold ? instantiation<true, true, false, true>(c, B)
-                           : instantiation<true, false, false, true>(c, B);
+  const Kernel kern = pooled ? instantiation<true, false, true, true>(c, B)
+                             : (fold ? instantiation<true, true, false, true>(c, B)
+                                     : instantiation<true, false, false, true>(c, B));
   kern<<<dim3(F, C), kThreads, 0, (cudaStream_t)stream>>>(
       (float*)hist, 0, 0, nullptr, nullptr, (const int*)num_bin, (const int*)missing,
       (const int*)default_bin, (const int*)mono, (const unsigned char*)fmask, (float*)feat_f,

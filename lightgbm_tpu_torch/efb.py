@@ -23,9 +23,12 @@ default-bin histogram row is recovered as leaf_total - sum(non-default rows)
 (exact without conflicts; conflicts are bounded by max_conflict_rate, the
 standard EFB approximation).
 
-Group width is capped at 256 bins so bundled columns stay uint8 and the
-Pallas histogram kernel's radix layout applies unchanged (the same cap the
-reference uses for its GPU bin packing, dataset.cpp:92).
+Group width is capped at 256 bins so bundled columns stay uint8 (the same
+cap the reference uses for its GPU bin packing, dataset.cpp:92). A feature
+of more than 256 bins takes a group of its own, as wide as its bins: the
+host table keeps such groups as int32, as the JAX package does, and the
+training device as int16, up to 1024 bins (models/gbdt.py
+``device_bin_dtype``).
 """
 from __future__ import annotations
 

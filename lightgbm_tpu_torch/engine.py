@@ -19,13 +19,14 @@ arguments (and their params).
 from __future__ import annotations
 
 import collections
+import os
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from . import callback as callback_mod
 from .basic import Booster, Dataset
-from .config import Config
+from .config import Config, coerce_bool
 
 #: the JAX package's resilience arguments, refused here as arguments and as params
 _UNPORTED = ("checkpoint_path", "checkpoint_rounds", "resume_from", "checkpoint_keep",
@@ -34,6 +35,34 @@ _UNPORTED = ("checkpoint_path", "checkpoint_rounds", "resume_from", "checkpoint_
 
 def _refuse(name: str) -> None:
     raise NotImplementedError("train(%s=...) is not ported to lightgbm_tpu_torch yet" % name)
+
+
+#: the flex controller's knobs, which carry no behaviour without ``flex_plan``
+_FLEX_KNOBS = ("flex_dead_after_s", "flex_world", "flex_min_world", "flex_max_restarts",
+               "flex_backoff_base_s", "flex_backoff_max_s", "flex_force_cpu", "flex_seed",
+               "flex_max_launches", "flex_journal")
+#: the JAX package's flight recorder and model stats switches (lightgbm_tpu/obs/flight.py,
+#: lightgbm_tpu/obs/modelstats.py)
+ENV_FLIGHT = "LIGHTGBM_TPU_FLIGHT"
+ENV_MODELSTATS = "LIGHTGBM_TPU_MODELSTATS"
+
+
+def _pop_observability(params: Dict) -> None:
+    """Pop the flex knobs, ``flight_record`` and ``model_stats`` out of
+    ``params`` as lightgbm_tpu/engine.py:88-113 does, so that the model's
+    parameters footer stays the JAX package's; refuse by name what would
+    record or publish anything (the flight recorder and the model stats are
+    not ported yet)."""
+    for name in _FLEX_KNOBS:
+        params.pop(name, None)
+    flight = str(params.pop("flight_record", "") or "") or os.environ.get(ENV_FLIGHT, "")
+    if flight:
+        raise NotImplementedError("flight_record (or %s) is not ported to lightgbm_tpu_torch yet"
+                                  % ENV_FLIGHT)
+    stats = coerce_bool(params.pop("model_stats", False))
+    if stats or os.environ.get(ENV_MODELSTATS, "") not in ("", "0"):
+        raise NotImplementedError("model_stats (or %s) is not ported to lightgbm_tpu_torch yet"
+                                  % ENV_MODELSTATS)
 
 
 def train(
@@ -84,8 +113,9 @@ def train(
                  resume_from=resume_from, checkpoint_keep=checkpoint_keep,
                  preempt_exit=preempt_exit, flex_plan=flex_plan)
     for name in _UNPORTED:
-        if given[name] or params.get(name):
+        if given[name] or params.pop(name, None):
             _refuse(name)
+    _pop_observability(params)
     if fobj is not None:
         params["objective"] = "none"
     predictor = None

@@ -284,24 +284,31 @@ def split_params(cfg: Config) -> SplitParams:
 def check_dataset_supported(train_set: BinnedDataset) -> None:
     """Raise NotImplementedError for a binned dataset this slice does not
     train: more than ``hist_kernel.MAX_WIDE_BINS`` (1024) bins a feature
-    (``max_bin``: csrc/histogram.cu's int16 cells), or an
-    EFB bundle of more than 256 bins (a wide feature in a bundled sparse
-    table, ``enable_bundle``: csrc/efb_remap.cu and the bundled kernels
-    read bytes)."""
+    (``max_bin``: csrc/histogram.cu's int16 cells), or an EFB group of
+    more than that many (``enable_bundle``)."""
     if train_set.max_num_bin > hist_kernel.MAX_WIDE_BINS:
         raise NotImplementedError(
             "max_bin: more than %d bins per feature (%d) is not ported to lightgbm_tpu_torch yet"
             % (hist_kernel.MAX_WIDE_BINS, train_set.max_num_bin))
-    if train_set.is_bundled and train_set.max_group_bins > 256:
+    if train_set.is_bundled and train_set.max_group_bins > hist_kernel.MAX_WIDE_BINS:
         raise NotImplementedError(
-            "enable_bundle: an EFB bundle of more than 256 bins (%d) is not ported to "
-            "lightgbm_tpu_torch yet" % train_set.max_group_bins)
+            "enable_bundle: an EFB bundle of more than %d bins (%d) is not ported to "
+            "lightgbm_tpu_torch yet" % (hist_kernel.MAX_WIDE_BINS, train_set.max_group_bins))
 
 
 def bin_dtype(num_bins: int) -> np.dtype:
     """The training device's bin type: bytes up to 256 bins a feature, int16
     past them (half the bytes of the JAX package's int32 bins)."""
     return np.dtype(np.uint8 if num_bins <= 256 else np.int16)
+
+
+def device_bin_dtype(binned: BinnedDataset) -> np.dtype:
+    """:func:`bin_dtype` of a binned table's rows as the device holds them:
+    a bundled table's from its group width (``max_group_bins``, which may
+    pass every member's bins), an unbundled one's from its widest feature.
+    The host table keeps the JAX package's types (int32 groups past 256
+    bins)."""
+    return bin_dtype(binned.max_group_bins)
 
 
 class GBDT:
@@ -357,7 +364,7 @@ class GBDT:
         K = self.num_tree_per_iteration
         self.num_data = train_set.num_data
         self.max_feature_idx = train_set.num_total_features - 1
-        bins = np.ascontiguousarray(train_set.bins, dtype=bin_dtype(train_set.max_num_bin))
+        bins = np.ascontiguousarray(train_set.bins, dtype=device_bin_dtype(train_set))
         self.bins_dev = torch.from_numpy(bins).to(dev)
         # [N, F] copy: a row's bins are contiguous for the segment gathers
         self.bins_nf = self.bins_dev.t().contiguous()
@@ -390,20 +397,17 @@ class GBDT:
         # (N * F / 2 bytes), made once here rather than on every call
         self.bins_p4 = hist_kernel.pack_bins(self.bins_nf) if self.hist_width <= 16 else None
         self.hist_route = self._resolve_hist_route()
-        #: "device" (launch_tree) or "host" (grow_tree); a dispatch on
-        #: the frozen route, fixed here. Tools that time both loops set it.
-        self.grow_loop = "device" if device_loop_routable(
-            self.num_data, self.hist_width, cfg.tpu_hist_dtype, self.hist_route, dev) else "host"
         extras = [name for name, on in (
             ("forcedsplits_filename", cfg.forcedsplits_filename),
             ("cegb_penalty_*", cfg.cegb_penalty_split != 0.0 or cfg.cegb_penalty_feature_coupled
              or cfg.cegb_penalty_feature_lazy),
             ("tpu_hist_mode=masked", cfg.tpu_hist_mode == "masked")) if on]
-        if extras and self.grow_loop != "device":
-            raise NotImplementedError(
-                "%s on the host split loop (a run whose histogram route sends a row class to "
-                "another kernel than cuda) is not ported to lightgbm_tpu_torch yet"
-                % ", ".join(extras))
+        #: "device" (launch_tree) or "host" (grow_tree); a dispatch on
+        #: the frozen route, fixed here. Tools that time both loops set it.
+        self.grow_loop = "device" if device_loop_routable(
+            self.num_data, self.hist_width, cfg.tpu_hist_dtype, self.hist_route, dev,
+            needs_device=bool(extras) or self._hist_pool_slots(0) is not None) else "host"
+        self._refuse_on_host(extras)
         #: the forced-split preamble (``forcedsplits_filename``): the BFS
         #: table, and as a [K, 3] int32 tensor on the device (None: none)
         self._forced_splits = parse_forced_splits(cfg, train_set)
@@ -413,20 +417,7 @@ class GBDT:
         #: the device loop's histogram pool slots (``histogram_pool_size``),
         #: None for no cap
         self.hist_pool_slots = self._hist_pool_slots()
-        if self.hist_pool_slots is not None and self._cegb is not None:
-            raise NotImplementedError(
-                "CEGB (cegb_penalty_*) with histogram_pool_size is not ported to "
-                "lightgbm_tpu_torch yet")
-        if self.hist_pool_slots is not None:
-            if self.grow_loop != "device":
-                raise NotImplementedError(
-                    "histogram_pool_size on the host split loop (a run whose histogram route "
-                    "sends a row class to another kernel than cuda) is not ported to "
-                    "lightgbm_tpu_torch yet")
-            if train_set.is_bundled:
-                raise NotImplementedError(
-                    "histogram_pool_size with an EFB-bundled dataset (enable_bundle) is not "
-                    "ported to lightgbm_tpu_torch yet")
+        self._refuse_on_host(["histogram_pool_size"] if self.hist_pool_slots is not None else [])
         #: on CUDA the device loop replays its iteration as one captured
         #: CUDA graph; tools that time the eager launches set it False
         self.iteration_graph = dev.type == "cuda"
@@ -484,17 +475,29 @@ class GBDT:
         arr = np.tile(arr, (K, 1)) if len(arr) == n else arr.reshape(K, n)
         return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
 
-    def _hist_pool_slots(self) -> Optional[int]:
+    def _refuse_on_host(self, names: List[str]) -> None:
+        """Raise NotImplementedError naming ``names``, what only the device
+        loop grows, when the run takes the host loop."""
+        if names and self.grow_loop != "device":
+            raise NotImplementedError(
+                "%s on the host split loop (a run whose histogram route sends a row class to "
+                "another kernel than cuda) is not ported to lightgbm_tpu_torch yet"
+                % ", ".join(names))
+
+    def _hist_pool_slots(self, num_forced: Optional[int] = None) -> Optional[int]:
         """histogram_pool_size (MB) -> LRU slots of ``F * B * 3 * 4`` bytes,
         at least 2, or None when that is no fewer than the leaves (the
         SerialTreeLearner ctor, serial_tree_learner.cpp:56-69; the JAX
-        package's ``_hist_pool_slots``), at least the forced preamble's K + 2."""
+        package's ``_hist_pool_slots``), at least the forced preamble's K + 2
+        (``num_forced`` K, default the run's forced splits)."""
         cfg = self.config
         if cfg.histogram_pool_size <= 0:
             return None
+        if num_forced is None:
+            num_forced = len(self._forced_splits)
         per_leaf = self.train_set.num_features * self.num_bins * 3 * 4  # f32 sums and count
         slots = int(cfg.histogram_pool_size * 1024 * 1024 / max(per_leaf, 1))
-        slots = max(2 + len(self._forced_splits), slots)
+        slots = max(2 + num_forced, slots)
         return slots if slots < cfg.num_leaves else None
 
     def _resolve_hist_route(self) -> Optional[hist_kernel.HistRoute]:
@@ -1026,7 +1029,7 @@ class GBDT:
             m.init(valid_set.metadata, valid_set.num_data)
         K = self.num_tree_per_iteration
         bins = torch.from_numpy(np.ascontiguousarray(
-            valid_set.bins.T, dtype=bin_dtype(valid_set.max_num_bin))).to(self.device)
+            valid_set.bins.T, dtype=device_bin_dtype(valid_set))).to(self.device)
         score = self._initial_scores(valid_set.metadata.init_score, valid_set.num_data)
         if any(ta is None and t is not None and t.num_leaves > 1
                for ta, t in zip(self._tree_arrays, self.models)):

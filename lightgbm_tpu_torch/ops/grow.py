@@ -64,9 +64,11 @@ histograms in LRU slots on the device loop: the pick's wiring thread picks
 the children's slots (csrc/partition.cu), a second segment launch builds
 the larger child from its rows when the parent's slot was evicted (and
 returns at once otherwise), and the folded scan reads the rows by slot,
-skipping the subtraction on such a step: four launches a step.
-``use_subtract=False`` builds both children of every split so, with P = M
-slots when there is no cap. The host loop takes no pool.
+skipping the subtraction on such a step: four launches a step. A bundled
+table's larger child is built over the groups and remapped with its own
+sums (lightgbm_tpu/ops/grow.py:1455-1476). ``use_subtract=False`` builds
+both children of every split so, with P = M slots when there is no cap.
+The host loop takes no pool.
 
 The device loop also runs the reference's forced splits and CEGB
 (lightgbm_tpu/ops/grow.py:1010-1047, 1392-1420, 1600-1637):
@@ -79,7 +81,9 @@ The device loop also runs the reference's forced splits and CEGB
  * CEGB (``cegb``, the training's ops/grow_state.py ``Cegb``): the root's
    and the folded scan subtract each feature's penalty before their argmax,
    the pick marks a coupled feature paid, a step that paid one first
-   rescans every other leaf (``split_pair_all``), and with lazy penalties a
+   rescans every other leaf (``split_pair_all``; under a pool at every
+   step, the children and the resident leaves: ``GrowState.rescans_all``),
+   and with lazy penalties a
    pass over the split segment pays its rows and counts each child's unpaid
    rows (ops/grow_step_kernel.py ``cegb_lazy``; at the root, every row).
 
@@ -326,15 +330,21 @@ def root_sums(grad: torch.Tensor, hess: torch.Tensor, vals_all: torch.Tensor,
 
 def device_loop_routable(
     N: int, num_bins: int, hist_dtype: str, route: Optional[hist_kernel.HistRoute],
-    device: torch.device,
+    device: torch.device, needs_device: bool = False,
 ) -> bool:
     """Does every histogram call of a run on ``device`` go to ``cuda``
     (csrc/histogram.cu), the one kernel the device loop launches? True when
     the router (:func:`~.hist_kernel.resolve_impl`) names ``cuda`` for every
     row class of the N-row lattice at (``num_bins``, K = 3, ``hist_dtype``)
     under the run's frozen ``route`` and the env override: always on CUDA
-    without a table, and on the CPU only when ``cuda`` is forced (its plain
-    version then runs)."""
+    without a table, and on the CPU when ``cuda`` is forced (its plain
+    version then runs). ``needs_device``: the run has what only the device
+    loop grows (forced splits, CEGB, ``tpu_hist_mode=masked``, a pool), so
+    on the CPU with neither a table nor an override it takes the device
+    loop on the plain versions; the CPU's other runs keep the host loop."""
+    if (needs_device and device.type == "cpu" and route is None
+            and hist_kernel.env_impl() is None):
+        return True
     return all(
         hist_kernel.resolve_impl("auto", rows, num_bins, 3, hist_dtype, route, device.type)[0]
         == "cuda"
@@ -406,10 +416,14 @@ def run_step(s: gs.GrowState, forced_step: Optional[int] = None) -> None:
     k + 1). A state with a histogram pool launches the segment entry a
     second time for the larger child, which returns at once unless the
     pick found its parent evicted (or the subtraction off), and the scan
-    reads the rows by slot. Every kernel returns at once when the loop has
-    stopped. ``forced_step`` k: step k of the forced-split preamble, which
-    opens with its forced record. Under CEGB the scans are penalised, a
-    lazy pass follows the partition and the all-leaves rescan the scan."""
+    reads the rows by slot; a bundled one also remaps that histogram with
+    the larger child's sums (a launch that returns at once on a hit): six
+    launches a pooled bundled step. Every kernel returns at once when the
+    loop has stopped. ``forced_step`` k: step k of the forced-split
+    preamble, which opens with its forced record. Under CEGB the scans are
+    penalised (a pooled step's fold is not: ``GrowState.pooled_rescan``), a
+    lazy pass follows the partition and the all-leaves rescan the scan
+    (``GrowState.rescans_all``)."""
     parity = s.queued_steps % 2
     s.queued_steps += 1
     if forced_step is None:
@@ -425,8 +439,10 @@ def run_step(s: gs.GrowState, forced_step: Optional[int] = None) -> None:
         hist_kernel.histogram_segment(s, parity, large=True)
     if s.G:
         remap_kernel.remap_step(s, parity)
+        if s.P:
+            remap_kernel.remap_large(s, parity)
     split_kernel.split_pair_fold(s, parity)
-    if cegb is not None and cegb.params.has_coupled:
+    if s.rescans_all:
         split_kernel.split_pair_all(s)
 
 
@@ -554,9 +570,6 @@ def grow_tree_device(
     if P and forced is not None and P < forced.shape[0] + 2:
         raise ValueError("histogram pool too small for the forced-splits preamble: "
                          "need >= %d slots" % (forced.shape[0] + 2))
-    if P and cegb is not None:
-        raise NotImplementedError("CEGB with a histogram pool (histogram_pool_size) is not "
-                                  "ported to lightgbm_tpu_torch yet")
     shape = (N, F, num_bins, num_leaves, W, G, Bg, P, cegb is not None)
     if state is None or not state.fits(bins.device, *shape):
         state = gs.GrowState(bins.device, *shape)

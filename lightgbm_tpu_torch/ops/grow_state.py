@@ -60,10 +60,12 @@ larger child's histogram of a step whose parent was evicted, by parity.
 The bins are uint8, or int16 at more than 256 bins a feature (up to 1024).
 
 An EFB-bundled table (G > 0 groups of Bg bins, ops/remap.py) keeps the
-histogram pool in feature space; its histograms are built over the
-``[G, N]`` groups into ``small_g`` and remapped into ``small`` and the
-root's ``hist[0]`` (ops/remap_kernel.py). An unbundled state has G = 0 and
-no group buffer.
+histograms and the pool in feature space; its histograms are built over
+the ``[G, N]`` groups (uint8, or int16 past 256 bins a group) into
+``small_g`` and remapped into ``small`` and the root's ``hist[0]``
+(ops/remap_kernel.py); with a pool, the larger child of a step whose
+parent was evicted is built into ``large_g`` [2, G, Bg, 3] and remapped
+into ``large``. An unbundled state has G = 0 and no group buffer.
 """
 from __future__ import annotations
 
@@ -163,7 +165,7 @@ class GrowState:
 
     #: the tensors that hold the loop's result (not the kernels' scratch)
     STATE = ("packed", "best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
-             "hist", "small", "small_g", "pool", "large", "frec_f", "frec_i", "frec_b",
+             "hist", "small", "small_g", "pool", "large", "large_g", "frec_f", "frec_i", "frec_b",
              "unused_cnt")
 
     def __init__(self, device: torch.device, N: int, F: int, B: int, num_leaves: int,
@@ -173,10 +175,6 @@ class GrowState:
             device = torch.device("cuda", torch.cuda.current_device())
         if P and not 2 <= P <= M:
             raise ValueError("GrowState: a pool of %d slots for %d leaves (2 <= P <= M)" % (P, M))
-        if P and G:
-            raise NotImplementedError(
-                "histogram_pool_size with an EFB-bundled dataset is not ported to "
-                "lightgbm_tpu_torch yet")
         self.device, self.N, self.F, self.B, self.M, self.W = device, N, F, B, M, W
         self.G, self.Bg = (G, Bg) if G else (0, 0)
         self.P = P
@@ -198,6 +196,8 @@ class GrowState:
          self.slot_age) = self._pool_views(self.pool)
         self.large = torch.zeros((2 if P else 0, F, B, 3), dtype=f32, device=device)
         self.small_g = torch.zeros((2, self.G, self.Bg, 3), dtype=f32, device=device)
+        self.large_g = torch.zeros((2 if P and G else 0, self.G, self.Bg, 3), dtype=f32,
+                                   device=device)
         self.scratch = torch.empty(N, dtype=i32, device=device)
         blocks = 1
         if device.type == "cuda":
@@ -269,6 +269,24 @@ class GrowState:
         return int(self.slot_of[leaf]) if self.P else int(leaf)
 
     @property
+    def pooled_rescan(self) -> bool:
+        """Does the pooled all-leaves rescan own the step's penalised records?
+        Under CEGB with a pool: a pooled step's folded scan is the pool's
+        unpenalised one (a penalised pooled fold spilled registers in its
+        categorical instantiation), and ops/split_kernel.py
+        ``split_pair_all`` rescans the step's children under the penalties
+        at every step (and the other resident leaves after a first coupled
+        payment)."""
+        return self.cegb is not None and self.P > 0
+
+    @property
+    def rescans_all(self) -> bool:
+        """Does each step end with the all-leaves launch? Under a pool's
+        CEGB (:attr:`pooled_rescan`), or with coupled penalties (the
+        rescan after a first payment)."""
+        return self.pooled_rescan or (self.cegb is not None and self.cegb.params.has_coupled)
+
+    @property
     def hist_rows(self) -> int:
         """Rows of the bin matrix the histograms read: G bundled, else F."""
         return self.G or self.F
@@ -278,9 +296,13 @@ class GrowState:
         """Bins of a histogram row as built: Bg bundled, else B."""
         return self.Bg or self.B
 
-    def hist_out(self, parity: int) -> torch.Tensor:
+    def hist_out(self, parity: int, large: bool = False) -> torch.Tensor:
         """The buffer step ``parity``'s segment histogram adds into:
-        ``small_g[parity]`` bundled, else ``small[parity]``."""
+        ``small_g[parity]`` bundled, else ``small[parity]``; ``large``, a
+        pool's larger child: ``large_g[parity]`` bundled, else
+        ``large[parity]``."""
+        if large:
+            return self.large_g[parity] if self.G else self.large[parity]
         return self.small_g[parity] if self.G else self.small[parity]
 
     def bind(
@@ -315,7 +337,7 @@ class GrowState:
         rows (the reference's ``use_subtract=false``), which needs a pool.
         ``forced``: the forced-split table ([K, 3] int32 contiguous on the
         state's device); ``cegb``: the training's :class:`Cegb`, which needs
-        a state built with ``cegb=True`` and no pool."""
+        a state built with ``cegb=True``."""
         dev, N, F, R = self.device, self.N, self.F, self.hist_rows
         if not subtract and not self.P:
             raise ValueError("grow_tree_device: use_subtract=False needs a state with pool slots "
@@ -324,9 +346,8 @@ class GrowState:
             raise ValueError("grow_tree_device: a state of %d groups and %s EFB plan"
                              % (self.G, "an" if "group_id" in feature_meta else "no"))
         plan = _PLAN_KEYS if self.G else ()
-        if bins.dtype not in BIN_DTYPES or (self.G and bins.dtype != torch.uint8):
-            raise ValueError("grow_tree_device: bins must be uint8 or int16 (uint8 bundled), got %s"
-                             % bins.dtype)
+        if bins.dtype not in BIN_DTYPES:
+            raise ValueError("grow_tree_device: bins must be uint8 or int16, got %s" % bins.dtype)
         for name, t, shape, dtype in (
             ("bins", bins, (R, N), bins.dtype),
             ("values", values, (N, 3), torch.float32),
@@ -355,9 +376,8 @@ class GrowState:
             raise ValueError("grow_tree_device: forced must be a contiguous int32 [K, 3] tensor "
                              "on %s" % dev)
         if cegb is not None:
-            if not self.cegb_on or self.P:
-                raise ValueError("grow_tree_device: CEGB needs a state built with cegb=True and "
-                                 "no pool")
+            if not self.cegb_on:
+                raise ValueError("grow_tree_device: CEGB needs a state built with cegb=True")
             if cegb.feature_used.device != dev or cegb.feature_used.shape != (F,) or (
                     cegb.used_in_data is not None and cegb.used_in_data.shape != (N, F)):
                 raise ValueError("grow_tree_device: a CEGB state of another shape or device")
@@ -406,6 +426,7 @@ class GrowState:
             self.slot_age.zero_()
             self.slot_age[:1].fill_(1)
             self.large.zero_()
+            self.large_g.zero_()
 
     def clone(self) -> "GrowState":
         """A copy of every tensor of the state with the same bound inputs:
@@ -417,7 +438,7 @@ class GrowState:
          other.node_b) = unpack(other.packed, self.M, self.W)
         for name in ("best_f", "best_i", "best_b", "laux", "leaf_begin", "leaf_count", "order",
                      "hist", "small", "small_g", "scratch", "block_left", "bar", "feat_f", "feat_i", "feat_b",
-                     "leaf_scratch", "pool", "large", "frec_f", "frec_i", "frec_b", "unused_cnt",
+                     "leaf_scratch", "pool", "large", "large_g", "frec_f", "frec_i", "frec_b", "unused_cnt",
                      "feat_f_all", "feat_i_all", "feat_b_all", "tickets_all", "lazy_acc",
                      "lazy_ticket"):
             setattr(other, name, getattr(self, name).clone())

@@ -153,9 +153,10 @@ def subtract(s: gs.GrowState, parity: int) -> None:
 def split_pair_fold(s: gs.GrowState, parity: int) -> None:
     """A step's subtraction (:func:`subtract`) and both children's split
     scan (ops/split.py ``split_pair_step``, C = 2): the plain version of the
-    folded scan, ops/split_kernel.py ``split_pair_fold``."""
+    folded scan, ops/split_kernel.py ``split_pair_fold``. A pooled step's
+    scan is not penalised under CEGB (``GrowState.pooled_rescan``)."""
     subtract(s, parity)
-    split_pair_step(s, 2)
+    split_pair_step(s, 2, penalised=not s.pooled_rescan)
 
 
 def leaf_ids(s: gs.GrowState) -> torch.Tensor:

@@ -114,6 +114,11 @@ KERNEL_CAPS = {
 _ENV_IMPL = env_choice("LIGHTGBM_TPU_HIST_IMPL", IMPLS)
 
 
+def env_impl() -> Optional[str]:
+    """The impl ``LIGHTGBM_TPU_HIST_IMPL`` forces (frozen at import), or None."""
+    return _ENV_IMPL or None
+
+
 def impl_supported(
     impl: str, num_bins: int, backend: str, ignore_backend: bool = False
 ) -> bool:
@@ -403,7 +408,8 @@ def histogram_segment(s, parity: int = 0, large: bool = False) -> None:
 
     ``large`` (a state with a histogram pool): the same entry reads the
     pool's control vector ``s.pool_ctl`` instead, so it builds the larger
-    child (leaf ``pool_ctl[LEAF]``) into ``s.large[parity]`` when the
+    child (leaf ``pool_ctl[LEAF]``) into ``s.large[parity]`` (a bundled
+    state's group-space ``s.large_g[parity]``) when the
     step's pick found its parent evicted (``pool_ctl[RUN]``), and returns
     at once otherwise. On a CPU state the plain version, ops/histogram.py
     ``segment_histogram``."""
@@ -425,7 +431,7 @@ def histogram_segment(s, parity: int = 0, large: bool = False) -> None:
         if not 1 <= B <= cap:
             raise ValueError("histogram_segment: num_bins must be in [1, %d], got %d" % (cap, B))
         sms = _sm_count(dev)
-        ctl, out = (s.pool_ctl, s.large[parity]) if large else (s.ctl, s.hist_out(parity))
+        ctl, out = (s.pool_ctl if large else s.ctl), s.hist_out(parity, large)
         args = s.args[key] = (
             b.data_ptr(), b.stride(0), b.stride(1), s.values.data_ptr(), s.order.data_ptr(),
             ctl.data_ptr(), s.leaf_begin.data_ptr(), s.leaf_count.data_ptr(), R, B,

@@ -89,10 +89,10 @@ def segment_histogram(s, parity: int = 0, large: bool = False) -> None:
     ctl[SMALL]`` into ``s.hist_out(parity)`` (``small[parity]``, or a
     bundled state's group-space ``small_g[parity]``), in ``s.hist_dtype``;
     nothing once ``ctl[ACTIVE]`` is 0. ``large``: the same on the pool's
-    control vector ``s.pool_ctl`` into ``s.large[parity]`` (the larger
-    child, when its parent was evicted). The plain version of
+    control vector ``s.pool_ctl`` into ``s.large[parity]`` (bundled:
+    ``large_g[parity]``; the larger child, when its parent was evicted). The plain version of
     ops/hist_kernel.py ``histogram_segment``."""
-    ctl, out = (s.pool_ctl, s.large[parity]) if large else (s.ctl, s.hist_out(parity))
+    ctl, out = (s.pool_ctl if large else s.ctl), s.hist_out(parity, large)
     if not int(ctl[gs.ACTIVE]):
         return
     leaf = int(ctl[gs.SMALL])

@@ -11,8 +11,9 @@ calls that launched the kernel, by instantiation (:data:`KERNELS`):
 ``pick_partition``, with ``_wide`` for int16 bins, ``_pool`` for a
 histogram pool's (the LRU update in the wiring thread) and ``_ext`` for
 the instantiation of a run with forced splits or coupled CEGB (the forced
-record on a forced step, the paid features); each launch counts under one
-key.
+record on a forced step, the paid features), then ``_efb`` for a bundled
+table's int16 groups or pool (the byte unpooled bundled instantiation
+counts as the unbundled one); each launch counts under one key.
 
 ``block_mirror`` replays the kernel's block decomposition on the host: the
 chunk each block owns, its left count, the scan of the block totals each
@@ -36,9 +37,14 @@ from . import grow_step as plain_step
 from . import partition as plain
 from .split import MISSING_NAN, MISSING_ZERO
 
-KERNELS = ("pick_partition", "pick_partition_wide", "pick_partition_pool",
-           "pick_partition_wide_pool", "pick_partition_ext", "pick_partition_wide_ext",
-           "pick_partition_pool_ext", "pick_partition_wide_pool_ext")
+#: the launch keys. A bundled pick counts under an ``_efb`` key only with
+#: int16 groups (``_wide``) or a pool (``_pool``): the byte, unpooled
+#: bundled pick counts under ``pick_partition`` (and ``_ext``), the name it
+#: had before those instantiations, which the older kernels-line rows and
+#: phases read.
+KERNELS = tuple("pick_partition" + wide + pool + ext + efb
+                for efb in ("", "_efb") for wide in ("", "_wide") for pool in ("", "_pool")
+                for ext in ("", "_ext") if not (efb and not wide and not pool))
 launches: Dict[str, int] = {}
 
 
@@ -122,8 +128,9 @@ def pick_partition(s: gs.GrowState, forced: bool = False) -> None:
             args = args[:_FORCED_ARG] + (1,) + args[_FORCED_ARG + 1:]
         s.args[key] = args
     cuda_build.check(entry()(*args), "pick_partition kernel")
-    launches["pick_partition" + ("_wide" if s.bins.dtype == torch.int16 else "")
-             + ("_pool" if s.P else "") + ("_ext" if extended(s) else "")] += 1
+    wide = s.bins.dtype == torch.int16
+    launches["pick_partition" + ("_wide" if wide else "") + ("_pool" if s.P else "")
+             + ("_ext" if extended(s) else "") + ("_efb" if s.G and (wide or s.P) else "")] += 1
 
 
 def entry():

@@ -5,7 +5,8 @@ vector: the kernel for CUDA tensors, the plain PyTorch version
 (ops/predict.py ``add_tree_value``) for CPU tensors; any other device, and
 anything the kernel does not take, raises, and so does a failed build or
 launch. ``launches`` counts the calls that launched the kernel, by
-instantiation: ``predict_bins``, and ``predict_bins_wide`` for int16 bins.
+instantiation: ``predict_bins``, and ``predict_bins_wide`` for int16 bins
+(``predict_bins_wide_efb`` for int16 groups of a bundled table).
 
 The tree is read as the device-resident split loop keeps it
 (ops/grow_state.py): ``node_i`` rows (feature, threshold, left, right,
@@ -25,7 +26,7 @@ import torch
 from . import cuda_build, hist_kernel
 from . import predict as plain
 
-KERNELS = ("predict_bins", "predict_bins_wide")
+KERNELS = ("predict_bins", "predict_bins_wide", "predict_bins_wide_efb")
 launches: Dict[str, int] = {}
 
 
@@ -73,7 +74,7 @@ def add_tree_value(
     node_b: Optional[torch.Tensor] = None,
 ) -> None:
     """``score[r] += value[leaf(r)]`` for every row of ``bins`` ([N, F]
-    uint8 or int16, or ``[N, G]`` uint8 with the meta's EFB plan), through
+    uint8 or int16, or ``[N, G]`` with the meta's EFB plan), through
     the tree of ``num_leaves[0]`` leaves whose nodes are the first rows of
     ``node_i`` ([K, 5] int32) and, with ``is_categorical`` in the meta, of
     ``node_b`` ([K, W] int32 membership words); ``value`` [> K] f32,
@@ -93,7 +94,7 @@ def add_tree_value(
     if not efb and C != F:
         raise ValueError("predict_bins: bins has %d columns for %d features" % (C, F))
     wide = bins.dtype == torch.int16
-    _check("bins", bins, torch.int16 if wide and not efb else torch.uint8, dev)
+    _check("bins", bins, torch.int16 if wide else torch.uint8, dev)
     if node_i.dim() != 2 or node_i.shape[1] != 5:
         raise ValueError("predict_bins: node_i must be [K, 5], got %s" % (tuple(node_i.shape),))
     _check("node_i", node_i, torch.int32, dev)
@@ -136,4 +137,4 @@ def add_tree_value(
         feature_meta["bin_offset"].data_ptr() if efb else None, 2 if wide else 1,
         grid(N, hist_kernel._sm_count(dev)), torch.cuda.current_stream(dev).cuda_stream,
     ), "predict_bins kernel")
-    launches["predict_bins_wide" if wide else "predict_bins"] += 1
+    launches["predict_bins" + ("_wide" if wide else "") + ("_efb" if wide and efb else "")] += 1

@@ -13,8 +13,9 @@ switch, as in the JAX package.
 ``remap_hist`` is the plain version of csrc/efb_remap.cu
 (ops/remap_kernel.py) and the path taken for CPU tensors: the default
 bin's row sums the feature's other rows in the kernel's order (a pairwise
-tree over 256 slots), so the two agree bit for bit. ``remap_step`` and
-``remap_root`` are its loop entries on a :class:`~.grow_state.GrowState`.
+tree over 256 slots, 1024 past 256 bins), so the two agree bit for bit. ``remap_step`` and
+``remap_root`` are its loop entries on a :class:`~.grow_state.GrowState`,
+and ``remap_large`` the larger child's of a pooled step.
 """
 from __future__ import annotations
 
@@ -24,19 +25,28 @@ import torch
 
 from . import grow_state as gs
 
-#: slots of the default row's pairwise sum (csrc/efb_remap.cu kThreads)
+#: slots of the default row's pairwise sum (csrc/efb_remap.cu kThreads),
+#: and of a wide row's (its kWide instantiation, 4 slots a thread)
 SLOTS = 256
+WIDE_SLOTS = 1024
 
 
-def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over dim 1 of ``x`` [F, S, 3] (S <= SLOTS), in the kernel's
-    order: zero-padded to SLOTS, then at h = SLOTS/2, ..., 1 slot i takes
-    slot[i] + slot[i + h]."""
+def slots(num_bins: int) -> int:
+    """The tree's slots of a feature row of ``num_bins`` bins: :data:`SLOTS`
+    up to 256 bins, :data:`WIDE_SLOTS` past them (csrc/efb_remap.cu's
+    kWide instantiation)."""
+    return SLOTS if num_bins <= SLOTS else WIDE_SLOTS
+
+
+def pairwise_sum(x: torch.Tensor, width: int = SLOTS) -> torch.Tensor:
+    """Sum over dim 1 of ``x`` [F, S, 3] (S <= ``width``), in the kernel's
+    order: zero-padded to ``width`` slots, then at h = width/2, ..., 1 slot
+    i takes slot[i] + slot[i + h]."""
     F, S, C = x.shape
-    if S > SLOTS:
-        raise ValueError("pairwise_sum: at most %d slots, got %d" % (SLOTS, S))
-    x = torch.cat([x, x.new_zeros((F, SLOTS - S, C))], 1)
-    h = SLOTS // 2
+    if S > width:
+        raise ValueError("pairwise_sum: at most %d slots, got %d" % (width, S))
+    x = torch.cat([x, x.new_zeros((F, width - S, C))], 1)
+    h = width // 2
     while h:
         x = x[:, :h] + x[:, h:2 * h]
         h //= 2
@@ -50,7 +60,7 @@ def remap_hist(group_hist: torch.Tensor, totals: torch.Tensor,
     ``totals`` [3]: sub-bin s != default of feature f reads group bin
     ``off(f) + s - (s > default)``, bins at or above ``num_bin(f)`` are 0,
     and the default bin's row is ``totals`` minus the other rows'
-    :func:`pairwise_sum`."""
+    :func:`pairwise_sum` over :func:`slots` of ``num_bins``."""
     dev = group_hist.device
     gid = feature_meta["group_id"].to(dev).long()
     off = feature_meta["bin_offset"].to(dev).long()
@@ -62,7 +72,7 @@ def remap_hist(group_hist: torch.Tensor, totals: torch.Tensor,
     gidx = torch.where(valid, off[:, None] + s - (s > dbin[:, None]).long(), 0)
     fh = group_hist[gid[:, None], gidx]
     fh = torch.where(valid[:, :, None], fh, torch.zeros((), dtype=fh.dtype, device=dev))
-    rest = totals.to(device=dev, dtype=torch.float32)[None, :] - pairwise_sum(fh)
+    rest = totals.to(device=dev, dtype=torch.float32)[None, :] - pairwise_sum(fh, slots(num_bins))
     fh[torch.arange(F, device=dev), dbin] = rest
     return fh
 
@@ -97,3 +107,19 @@ def remap_root(s: gs.GrowState) -> None:
         return
     s.hist[0].copy_(remap_hist(s.small_g[1], s.laux[0, :3], s.feature_meta, s.B))
     s.small_g[0].zero_()
+
+
+def remap_large(s: gs.GrowState, parity: int) -> None:
+    """A pooled step's larger child on a bundled state: ``large_g[1 -
+    parity]`` zeroed for the next step, then, when the pick found the
+    parent evicted (``pool_ctl[RUN]``), ``large[parity]`` the remap of
+    ``large_g[parity]`` with the totals of ``laux[pool_ctl[LEAF]]`` (the
+    larger child's record sums; lightgbm_tpu/ops/grow.py:1455-1476).
+    Nothing once ``ctl[ACTIVE]`` is 0."""
+    if not int(s.ctl[gs.ACTIVE]):
+        return
+    s.large_g[1 - parity].zero_()
+    if not int(s.pool_ctl[gs.RUN]):
+        return
+    totals = s.laux[int(s.pool_ctl[gs.LEAF]), :3]
+    s.large[parity].copy_(remap_hist(s.large_g[parity], totals, s.feature_meta, s.B))

@@ -4,11 +4,13 @@ EFB-bundled datasets (csrc/efb_remap.cu).
 ``efb_remap`` remaps one ``[G, Bg, 3]`` group histogram with host-given
 totals (the host split loop); ``remap_root`` and ``remap_step`` are the
 device loop's entries on a bundled :class:`~.grow_state.GrowState`, which
-read the totals and the stop flag from the state in device memory. Each
-launches the kernel for CUDA tensors and runs its plain version
-(ops/remap.py) for CPU tensors; any other device, anything the kernel does
-not take, and a failed build or launch raise. ``launches["efb_remap"]``
-counts the calls that launched the kernel.
+read the totals and the stop flag from the state in device memory, and
+``remap_large`` the larger child's of a pooled step. Each launches the
+kernel for CUDA tensors and runs its plain version (ops/remap.py) for CPU
+tensors; any other device, anything the kernel does not take, and a failed
+build or launch raise. ``launches`` counts the calls that launched the
+kernel, by instantiation: ``efb_remap``, with ``_wide`` past 256 bins (the
+1024-slot tree) and ``_large`` for a pooled step's larger child.
 """
 from __future__ import annotations
 
@@ -20,31 +22,37 @@ import torch
 from . import cuda_build, grow_state as gs
 from . import remap as plain
 
-launches: Dict[str, int] = {"efb_remap": 0}
+KERNELS = ("efb_remap", "efb_remap_wide", "efb_remap_large", "efb_remap_wide_large")
+launches: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
-    launches["efb_remap"] = 0
+    """Every launch count of this module to 0."""
+    launches.update(dict.fromkeys(KERNELS, 0))
 
 
-#: the widest feature row and group row the kernel takes (one thread a sub-bin)
-MAX_BINS = plain.SLOTS
+reset_launches()
+
+#: the widest feature row and group row the kernel takes (4 sub-bins a thread past 256)
+MAX_BINS = plain.WIDE_SLOTS
 _PLAN_KEYS = ("group_id", "bin_offset", "default_bin", "num_bin")
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
 
 
 def _launch(inp: torch.Tensor, out: torch.Tensor, zero_g: Optional[torch.Tensor],
             totals: torch.Tensor, ctl: Optional[torch.Tensor], meta: Dict[str, torch.Tensor],
-            row: int, stream) -> None:
+            row: int, stream, run: Optional[torch.Tensor] = None) -> None:
     G, Bg, _ = inp.shape
     F, B, _ = out.shape
     fn = cuda_build.entry("efb_remap", "lgbt_efb_remap", _ARGTYPES)
     cuda_build.check(fn(
         inp.data_ptr(), out.data_ptr(), None if zero_g is None else zero_g.data_ptr(),
         totals.data_ptr(), None if ctl is None else ctl.data_ptr(),
-        *(meta[k].data_ptr() for k in _PLAN_KEYS), row, F, B, G, Bg, stream,
+        *(meta[k].data_ptr() for k in _PLAN_KEYS), row, F, B, G, Bg,
+        None if run is None else run.data_ptr(), stream,
     ), "efb_remap kernel")
-    launches["efb_remap"] += 1
+    launches["efb_remap" + ("_wide" if B > plain.SLOTS else "")
+             + ("" if run is None else "_large")] += 1
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, dev: torch.device, shape) -> None:
@@ -114,3 +122,18 @@ def remap_step(s: gs.GrowState, parity: int) -> None:
         return
     _launch(s.small_g[parity], s.small[parity], s.small_g[1 - parity], s.laux, s.ctl,
             s.feature_meta, -1, s.stream)
+
+
+def remap_large(s: gs.GrowState, parity: int) -> None:
+    """A pooled step's larger child: ``large_g[1 - parity]`` cleared, then
+    on a miss (``pool_ctl[RUN]``) ``large[parity]`` = the remap of
+    ``large_g[parity]`` with the totals of ``laux[pool_ctl[LEAF]]``; the
+    launch returns at once on a hit, and before anything once
+    ``ctl[ACTIVE]`` is 0 (ops/remap.py ``remap_large``)."""
+    if not s.P:
+        raise ValueError("remap_large: the larger child's remap needs a pool")
+    if not _state_kernel(s, "remap_large"):
+        plain.remap_large(s, parity)
+        return
+    _launch(s.large_g[parity], s.large[parity], s.large_g[1 - parity], s.laux, s.ctl,
+            s.feature_meta, -1, s.stream, run=s.pool_ctl)

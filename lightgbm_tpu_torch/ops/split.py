@@ -641,29 +641,30 @@ def gather_info_for_threshold(
     )
 
 
-def split_pair_step(s: gs.GrowState, C: int) -> None:
+def split_pair_step(s: gs.GrowState, C: int, penalised: bool = True) -> None:
     """The split loop's scan on a :class:`~.grow_state.GrowState` ``s``:
     :func:`find_best_split_pair` of leaf ``ctl[BEST]`` (C = 1, the root) or
     of the children ``ctl[BEST]`` and ``ctl[NEW]`` (C = 2) out of
     ``s.hist`` (a pool's rows by slot), their sums and windows from
     ``s.laux``, each record written
     to the leaf's row of ``s.best_f`` / ``s.best_i`` with the gain -inf at a
-    depth >= ``s.max_depth`` (> 0). Nothing once ``ctl[ACTIVE]`` is 0. The
-    plain version of ops/split_kernel.py ``split_pair_step``."""
+    depth >= ``s.max_depth`` (> 0); under CEGB penalised unless
+    ``penalised`` is False. Nothing once ``ctl[ACTIVE]`` is 0. The plain
+    version of ops/split_kernel.py ``split_pair_step``."""
     ctl = s.ctl
     if not int(ctl[gs.ACTIVE]):
         return
-    _scan_leaves(s, [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C])
+    _scan_leaves(s, [int(ctl[gs.BEST]), int(ctl[gs.NEW])][:C], penalised)
 
 
-def _scan_leaves(s: gs.GrowState, leaves) -> None:
-    """The records of ``leaves`` of the state, penalised under CEGB, the
-    gain -inf at a depth >= ``s.max_depth`` (> 0)."""
+def _scan_leaves(s: gs.GrowState, leaves, penalised: bool = True) -> None:
+    """The records of ``leaves`` of the state, penalised under CEGB (unless
+    ``penalised`` is False), the gain -inf at a depth >= ``s.max_depth`` (> 0)."""
     aux = s.laux[leaves]
     outf, outi, outb = find_best_split_pair(
         s.hist, aux[:, :3].contiguous(), aux[:, 3:].contiguous(), s.feature_meta,
         s.feature_mask, s.params, s.two_way, [s.hist_row(leaf) for leaf in leaves],
-        penalty=state_penalty(s, leaves),
+        penalty=state_penalty(s, leaves) if penalised else None,
     )
     if s.max_depth > 0:
         outf[s.leaf_i[leaves, 1] >= s.max_depth, 0] = K_MIN_SCORE
@@ -683,20 +684,48 @@ def state_penalty(s: gs.GrowState, leaves) -> Optional[torch.Tensor]:
                         s.unused_cnt[leaves] if c.params.has_lazy else None, c.coupled_t, c.lazy_t)
 
 
-def split_pair_all(s: gs.GrowState) -> None:
+def split_pair_all(s: gs.GrowState) -> int:
     """CEGB's rescan of every other leaf after a step that paid a coupled
     feature first (``ctl[NEWLY]``; lightgbm_tpu/ops/grow.py:1022-1047
     ``rescan_all``): the penalised records of the leaves below
     ``ctl[NUM_LEAVES]`` but the step's two children (which the folded scan
     rescanned). Nothing once ``ctl[ACTIVE]`` is 0 or on a step that paid
-    nothing new. The plain version of csrc/split_pair.cu's all-leaves entry."""
+    nothing new. The plain version of csrc/split_pair.cu's all-leaves entry.
+
+    Under a histogram pool (``rescan_resident``, :1049-1108) only the
+    leaves that hold a slot (``slot_leaf``, stamped) are rescanned, from
+    their slot's row: the step's two children at every step (a pooled
+    step's folded scan is not penalised, ops/grow_step.py
+    ``split_pair_fold``; so with or without coupled penalties), the
+    others after a first payment. Then every
+    other leaf keeps its cached record, whose gain takes the step's
+    feature's coupled penalty back (``coupled_t[f]`` added, f32) when that
+    record's feature is the step's split feature ``f`` and its gain is
+    above -inf. Returns the records so patched (0 without a pool): a
+    resident leaf's cached record equals its rescan except at a first
+    payment, so the reference's rescan of every step and this one give
+    the same records."""
     ctl = s.ctl
-    if not int(ctl[gs.ACTIVE]) or not int(ctl[gs.NEWLY]):
-        return
+    if not int(ctl[gs.ACTIVE]):
+        return 0
+    newly = bool(int(ctl[gs.NEWLY]))
     children = (int(ctl[gs.BEST]), int(ctl[gs.NEW]))
-    leaves = [leaf for leaf in range(int(ctl[gs.NUM_LEAVES])) if leaf not in children]
-    if leaves:
-        _scan_leaves(s, leaves)
+    nl = int(ctl[gs.NUM_LEAVES])
+    if not s.P:
+        leaves = [leaf for leaf in range(nl) if leaf not in children]
+        if newly and leaves:
+            _scan_leaves(s, leaves)
+        return 0
+    resident = [int(leaf) for q, leaf in enumerate(s.slot_leaf.tolist())
+                if 0 <= leaf < nl and int(s.slot_age[q]) > 0 and (newly or leaf in children)]
+    if resident:
+        _scan_leaves(s, resident)
+    if not newly:
+        return 0
+    f = int(s.node_i[int(ctl[gs.STEP]) - 1, 0])
+    evicted = (s.slot_of[:nl] < 0) & (s.best_i[:nl, 0] == f) & (s.best_f[:nl, 0] > K_MIN_SCORE)
+    s.best_f[:nl, 0][evicted] += s.cegb.coupled_t[f]
+    return int(evicted.sum())
 
 
 def forced_record(s: gs.GrowState, k: int) -> None:

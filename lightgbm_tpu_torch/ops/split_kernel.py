@@ -18,9 +18,10 @@ The kernel's rows are staged in shared memory up to
 histograms only). A state with a histogram pool takes the folded entry's
 pool instantiation, which reads the rows by slot. ``launches`` counts the
 calls that launched the kernel, by instantiation (:data:`KERNELS`):
-``split_pair``, ``split_pair_step`` and ``split_pair_fold``, with
-``_rows1024`` past 336 bins and ``_pool`` for the pool's; each launch
-counts under one key.
+``split_pair``, ``split_pair_step``, ``split_pair_fold`` and CEGB's
+``split_pair_all``, with ``_rows1024`` past 336 bins, ``_pool`` for the
+pool's and ``_cegb`` for the penalised ones; each launch counts under one
+key.
 
 With categorical features (``is_categorical`` in the meta) the kernel's
 categorical instantiations run: each feature of that kind takes the
@@ -51,7 +52,8 @@ KERNELS = ("split_pair", "split_pair_rows1024", "split_pair_step", "split_pair_s
            "split_pair_fold", "split_pair_fold_rows1024", "split_pair_fold_pool",
            "split_pair_fold_rows1024_pool", "split_pair_step_cegb", "split_pair_step_rows1024_cegb",
            "split_pair_fold_cegb", "split_pair_fold_rows1024_cegb", "split_pair_all",
-           "split_pair_all_rows1024", "forced_record")
+           "split_pair_all_rows1024", "split_pair_all_pool", "split_pair_all_rows1024_pool",
+           "forced_record")
 launches: Dict[str, int] = {}
 
 
@@ -214,13 +216,16 @@ def _step_args(s: gs.GrowState, C: int, parity: Optional[int]) -> tuple:
 _ARGTYPES_CEGB = (
     [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
     + [ctypes.c_float] * 6 + [ctypes.c_int] + _CAT_ARGTYPES + [ctypes.c_void_p] * 4
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 2
 )
 
 
 def _cegb_args(s: gs.GrowState, C: int, parity: Optional[int], all_leaves: bool) -> tuple:
     """``lgbt_split_pair_cegb``'s arguments for the CUDA state ``s``: the
-    root's entry (``parity`` None), the folded one, or the all-leaves one."""
+    root's entry (``parity`` None), the folded one, or the all-leaves one
+    (a pooled state's reads its slots; its root's reads slot 0, the
+    root's, as the unpooled entry does)."""
     if s.B > MAX_BINS:
         raise ValueError("split_pair_step: the kernel takes B <= %d, not %d" % (MAX_BINS, s.B))
     p, m, c = s.params, s.feature_meta, s.cegb
@@ -230,6 +235,7 @@ def _cegb_args(s: gs.GrowState, C: int, parity: Optional[int], all_leaves: bool)
         if all_leaves else (s.feat_f, s.feat_i, s.feat_b, _ticket_counter(s.device))
     coupled = c.coupled_t is not None
     lazy = c.lazy_t is not None
+    pooled = s.P and all_leaves
     return (
         s.hist.data_ptr(), s.ctl.data_ptr(), s.laux.data_ptr(), s.leaf_i.data_ptr(), small, zero,
         s.max_depth, *(m[k].data_ptr() for k in _META_KEYS), s.feature_mask.data_ptr(),
@@ -240,13 +246,20 @@ def _cegb_args(s: gs.GrowState, C: int, parity: Optional[int], all_leaves: bool)
         c.feature_used.data_ptr() if coupled else None,
         s.unused_cnt.data_ptr() if lazy else None,
         c.coupled_t.data_ptr() if coupled else None, c.lazy_t.data_ptr() if lazy else None,
-        c.split, int(all_leaves), s.stream,
+        c.split, int(all_leaves), s.pool.data_ptr() if pooled else None, s.M, s.P,
+        s.node_i.data_ptr(), s.stream,
     )
+
+
+def _penalised(s: gs.GrowState, parity: Optional[int]) -> bool:
+    """Does this scan of the state take the penalised instantiations? Under
+    CEGB, but for a pooled step's folded scan (``GrowState.pooled_rescan``)."""
+    return s.cegb is not None and not (parity is not None and s.pooled_rescan)
 
 
 def _launch_step(s: gs.GrowState, key: str, C: int, parity: Optional[int]) -> None:
     args = s.args.get(key)
-    if s.cegb is not None:  # the penalised instantiations
+    if _penalised(s, parity):
         if args is None:
             args = s.args[key] = _cegb_args(s, C, parity, False)
         fn = cuda_build.entry("split_pair", "lgbt_split_pair_cegb", _ARGTYPES_CEGB)
@@ -298,15 +311,20 @@ def split_pair_fold(s: gs.GrowState, parity: int) -> None:
         plain_step.split_pair_fold(s, parity)
         return
     _launch_step(s, "split_pair_fold%d" % parity, 2, parity)
-    _count("split_pair_fold", s.B, s.P > 0, cegb=s.cegb is not None)
+    _count("split_pair_fold", s.B, s.P > 0, cegb=_penalised(s, parity))
 
 
 def split_pair_all(s: gs.GrowState) -> None:
     """CEGB's rescan of every leaf but the step's two children after a step
     that paid a coupled feature first (``ctl[NEWLY]``): csrc/split_pair.cu's
     all-leaves entry, grid (F, M), on a CUDA state (it returns at once on
-    every other step); the plain version (ops/split.py ``split_pair_all``)
-    on a CPU one. Needs a state bound with CEGB."""
+    every other step); under a pool its pooled entry, grid (F, P): the
+    step's children every step, with or without coupled penalties (the
+    pooled fold's records are not penalised) and, after a first payment,
+    the other resident leaves from their slots, the evicted ones' records
+    patched. The plain version
+    (ops/split.py ``split_pair_all``) on a CPU state. Needs a state bound
+    with CEGB."""
     if s.cegb is None:
         raise ValueError("split_pair_all: a state bound with CEGB")
     if not _cuda_state(s, "split_pair_all"):
@@ -314,10 +332,10 @@ def split_pair_all(s: gs.GrowState) -> None:
         return
     args = s.args.get("split_pair_all")
     if args is None:
-        args = s.args["split_pair_all"] = _cegb_args(s, s.M, None, True)
+        args = s.args["split_pair_all"] = _cegb_args(s, s.P or s.M, None, True)
     fn = cuda_build.entry("split_pair", "lgbt_split_pair_cegb", _ARGTYPES_CEGB)
     cuda_build.check(fn(*args), "split_pair_all kernel")
-    _count("split_pair_all", s.B)
+    _count("split_pair_all", s.B, s.P > 0)
 
 
 _ARGTYPES_FORCED = (

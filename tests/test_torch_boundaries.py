@@ -115,22 +115,38 @@ def test_wrappers_refuse_other_devices():
         )
 
 
+def routed_to_the_host_loop(monkeypatch, n):
+    """Freeze every run's histogram route to a table that sends every row
+    class of an ``n``-row lattice at 255 bins to ``cuda`` but one, which it
+    sends to ``cuda_onehot``: such a run takes the host split loop."""
+    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+
+    classes = sorted({hist_kernel.rows_bucket(r) for r in hist_kernel.bucket_sizes(n)})
+    route = hist_kernel.HistRoute([((255, 3, "float32", r), "cuda_onehot" if i == 0 else "cuda")
+                                   for i, r in enumerate(classes)])
+    monkeypatch.setattr(gbdt_mod.GBDT, "_resolve_hist_route", lambda self: route)
+
+
 @pytest.mark.parametrize("params,name", [
     ({"tree_learner": "feature"}, "tree_learner"),
     ({"tree_learner": "voting"}, "tree_learner"),
-    ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename"),
-    ({"cegb_penalty_split": 0.1}, "cegb"),
-    # a pool on the host split loop (a routed run; the CPU's default route)
+    ({"forcedsplits_filename": "f.json"}, "forcedsplits_filename on the host split loop"),
+    ({"cegb_penalty_split": 0.1}, "cegb_penalty_.* on the host split loop"),
     ({"histogram_pool_size": 0.05}, "histogram_pool_size on the host split loop"),
     ({"tree_learner": "data"}, "tree_learner"),
-    ({"tpu_hist_mode": "masked"}, "tpu_hist_mode"),
+    ({"tpu_hist_mode": "masked"}, "tpu_hist_mode=masked on the host split loop"),
     ({"tpu_hist_dtype": "float16"}, "tpu_hist_dtype"),
-    ({"cegb_penalty_feature_lazy": [1.0] * 6}, "cegb"),
-    ({"cegb_penalty_feature_coupled": [0.5] * 6}, "cegb"),
+    ({"cegb_penalty_feature_lazy": [1.0] * 6}, "cegb_penalty_.* on the host split loop"),
+    ({"cegb_penalty_feature_coupled": [0.5] * 6}, "cegb_penalty_.* on the host split loop"),
 ])
-def test_unsupported_params_raise(params, name):
+def test_unsupported_params_raise(monkeypatch, params, name):
+    """What the port does not run raises NotImplementedError naming it. Forced
+    splits, CEGB, a pool and ``masked`` train on the CPU's default run
+    (tests/test_torch_cpu_default.py); they raise on a routed run, which
+    takes the host split loop, before the forced-splits file is read."""
     X, y = _data()
-    full = {"objective": "binary", "verbose": -1, **params}
+    routed_to_the_host_loop(monkeypatch, len(y))
+    full = {"objective": "binary", "verbose": -1, "num_leaves": 31, **params}
     with pytest.raises(NotImplementedError, match=name):
         tlgb.train(full, tlgb.Dataset(X, label=y), 1, device="cpu")
 
@@ -190,12 +206,20 @@ def test_categorical_data_trains_and_bundled_data_raises():
                    tlgb.Dataset(wide, label=y_wide), 1, device="cpu")
 
 
-def test_wide_bundle_and_routed_pool_raise():
-    """The refusals that stand beside wide bins and the pool, each naming its
-    parameter, none of them training on another path: an EFB bundle wider
-    than 256 bins (a wide feature in a sparse table), and a histogram pool
-    on a run whose route sends a row class to the host split loop."""
+def test_wide_bundle_and_routed_pool_raise(monkeypatch):
+    """Beside wide bins and the pool: an EFB bundle wider than 256 bins (a
+    wide feature in a sparse table, int16 groups on the device) trains,
+    its trees and model text equal to the JAX package's on dyadic
+    gradients (tests/test_torch_efb_wide.py holds its kernels' plain
+    versions); a histogram pool on a run whose route sends a row class to
+    the host split loop raises, naming its parameter."""
     import scipy.sparse as sp
+
+    import lightgbm_tpu as jlgb
+    import lightgbm_tpu.objective as jobj
+    import lightgbm_tpu_torch.objective as tobj
+    from test_torch_categorical import _exact_gains, _gains_apart
+    from test_torch_widebin import _jax_dyadic, _torch_dyadic
 
     rng = np.random.RandomState(2)
     n = 3000
@@ -203,29 +227,39 @@ def test_wide_bundle_and_routed_pool_raise():
     hot[np.arange(n), rng.randint(0, 6, n)] = 1.0
     wide_col = np.where(rng.rand(n) < 0.5, 0.0, np.arange(n) % 400 + 1.0)
     X = sp.csr_matrix(np.c_[wide_col, hot])
-    y = (hot[:, 0] + (wide_col > 200) > 0.5).astype(np.float64)
-    params = {"objective": "binary", "verbose": -1, "max_bin": 400, "min_data_in_bin": 1}
+    # a noisy label: with a label that is a rule of the features the later
+    # gains are f32 rounding, where XLA's fused multiply-adds part the trees
+    y = (hot[:, 0] + (wide_col > 200) + 0.7 * rng.randn(n) > 0.5).astype(np.float64)
+    params = {"objective": "binary", "verbose": -1, "max_bin": 400, "min_data_in_bin": 1,
+              "num_leaves": 15}
     ds = tlgb.Dataset(X, label=y)
     binned = ds.get_binned(tlgb.config.Config.from_params(params))
     assert binned.is_bundled and binned.max_group_bins > 256
-    with pytest.raises(NotImplementedError, match="enable_bundle"):
-        tlgb.train(dict(params), tlgb.Dataset(X, label=y), 1, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jobj.BinaryLogloss, "get_gradients", _jax_dyadic)
+        mp.setattr(tobj.BinaryLogloss, "get_gradients", _torch_dyadic)
+        tb = tlgb.train(dict(params), tlgb.Dataset(X, label=y), 3, device="cpu")
+        jb = jlgb.train(dict(params), jlgb.Dataset(X, label=y), 3)
+        exact = _exact_gains(tb, params)
+    g = tb._gbdt
+    assert g.num_groups > 0 and g.hist_width > 256 and g.bins_dev.dtype == torch.int16
+    (jt, jg), (tt, tg) = (_gains_apart(b.model_to_string()) for b in (jb, tb))
+    assert tt == jt
+    # the gains within 8 ulps of the exact gain's terms (tests/test_torch_categorical.py)
+    want = np.concatenate([e for e, _ in exact])
+    bound = np.concatenate([b for _, b in exact])
+    for gains in (tg, jg):
+        assert (np.abs(gains - want) <= bound).all()
     # a pool on a routed run: a frozen route that sends every row class to
     # cuda but one, which it sends to cuda_onehot (so to the host loop)
-    from lightgbm_tpu_torch.models import gbdt as gbdt_mod
-
     Xd, yd = _data()
-    classes = sorted({hist_kernel.rows_bucket(r) for r in hist_kernel.bucket_sizes(len(yd))})
-    route = hist_kernel.HistRoute([((255, 3, "float32", r), "cuda_onehot" if i == 0 else "cuda")
-                                   for i, r in enumerate(classes)])
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(gbdt_mod.GBDT, "_resolve_hist_route", lambda self: route)
-        with pytest.raises(NotImplementedError, match="histogram_pool_size on the host split loop"):
-            tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31,
-                        "histogram_pool_size": 0.05}, tlgb.Dataset(Xd, label=yd), 1, device="cpu")
-        bst = tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31},
-                         tlgb.Dataset(Xd, label=yd), 1, device="cpu")
-        assert bst._gbdt.grow_loop == "host"
+    routed_to_the_host_loop(monkeypatch, len(yd))
+    with pytest.raises(NotImplementedError, match="histogram_pool_size on the host split loop"):
+        tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31,
+                    "histogram_pool_size": 0.05}, tlgb.Dataset(Xd, label=yd), 1, device="cpu")
+    bst = tlgb.train({"objective": "binary", "verbose": -1, "num_leaves": 31},
+                     tlgb.Dataset(Xd, label=yd), 1, device="cpu")
+    assert bst._gbdt.grow_loop == "host"
 
 
 def test_ptxas_report_gives_registers_and_spills_per_kernel():

@@ -20,7 +20,8 @@ versions (``LIGHTGBM_TPU_HIST_IMPL=cuda``).
    scores and state; a rollback leaves the state as it is; a continued
    training (``init_model``) starts a fresh one.
  * What stays out raises NotImplementedError naming it: the three
-   parameters on the host split loop, and CEGB with a histogram pool.
+   parameters, and CEGB with a histogram pool, on the host split loop (a
+   routed run).
 """
 import json
 
@@ -30,6 +31,7 @@ import pytest
 import lightgbm_tpu_torch as tlgb
 from torch_forced_cegb_helpers import BASE, device_loop, efb_table, one_torch_thread  # noqa: F401
 from torch_forced_cegb_helpers import cegb_state, same_models, same_state, train_both
+from test_torch_boundaries import routed_to_the_host_loop
 
 
 
@@ -163,15 +165,25 @@ def test_chunks_equal_single_iterations_and_rollback_keeps_state(device_loop, tm
     ({"cegb_penalty_split": 0.5}, "cegb_penalty_"),
     ({"tpu_hist_mode": "masked"}, "tpu_hist_mode=masked")])
 def test_host_loop_refuses_by_name(tmp_path, monkeypatch, extra, name):
+    """On a routed run (the host split loop); the CPU's default run trains
+    them on the device loop (tests/test_torch_cpu_default.py)."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "forced.json").write_text(json.dumps({"feature": 0, "threshold": 0.0}))
     X, y = _data(n=300)
+    routed_to_the_host_loop(monkeypatch, len(y))
     with pytest.raises(NotImplementedError, match=name + ".*host split loop"):
         tlgb.train(dict(BASE, **extra), tlgb.Dataset(X, label=y), 1, device="cpu")
 
 
-def test_cegb_with_a_pool_refuses_by_name(device_loop):
+def test_cegb_with_a_pool_refuses_by_name(monkeypatch):
+    """CEGB with a pool trains on the device loop (tests/test_torch_cegb_pool.py
+    holds it to the JAX package's pooled trees); a routed run refuses both
+    by name."""
     X, y = _data(n=300)
-    with pytest.raises(NotImplementedError, match="CEGB.*histogram_pool_size"):
+    routed_to_the_host_loop(monkeypatch, len(y))
+    with pytest.raises(NotImplementedError, match="cegb_penalty_.*host split loop"):
         tlgb.train(dict(BASE, cegb_penalty_split=0.5, histogram_pool_size=0.01),
                    tlgb.Dataset(X, label=y), 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="histogram_pool_size on the host split loop"):
+        tlgb.train(dict(BASE, histogram_pool_size=0.01), tlgb.Dataset(X, label=y), 1,
+                   device="cpu")

@@ -1558,6 +1558,7 @@ def test_predict_bins_categorical_matches_plain(dev):
 EFB_LAYOUTS = {
     "one_group": [[2] * 60 + [40, 60, 90]],
     "mixed": [[255], [2] * 255, [2] * 30 + [20], [64], [2, 2, 2, 2, 5]],
+    "wide": [[700], [2] * 255, [2] * 30 + [20], [64], [2, 2, 2, 2, 5]],
 }
 
 
@@ -1594,7 +1595,8 @@ def _efb_inputs(dev, N, layout, seed=0, categorical=False, q=1024):
     missing[nbin == 64] = 2
     dbin[nbin == 64] = 0
     missing[np.nonzero(nbin == 5)[0][:1]] = 1
-    group_bins = np.zeros((G, N), np.uint8)
+    wide = max(widths) > 256  # int16 groups, as the training device holds them
+    group_bins = np.zeros((G, N), np.int16 if wide else np.uint8)
     signal = np.zeros(N)
     first = 0
     for g, members in enumerate(layout):
@@ -1620,7 +1622,7 @@ def _efb_inputs(dev, N, layout, seed=0, categorical=False, q=1024):
         is_cat[np.nonzero(nbin == 20)[0]] = True
         meta["is_categorical"] = t(is_cat)
     dense = torch.stack([remap.decode_col(bins[int(gid[f])], int(off[f]), int(dbin[f]),
-                                          int(nbin[f])) for f in range(F)]).to(torch.uint8)
+                                          int(nbin[f])) for f in range(F)]).to(bins.dtype)
     grad = torch.from_numpy((np.round((rng.randn(N) * 0.5 + 0.25 * np.tanh(signal)) * q) / q)
                             .astype(np.float32)).to(dev)
     hess = torch.from_numpy((rng.randint(1, 65, N) / q).astype(np.float32)).to(dev)
@@ -1634,7 +1636,8 @@ def test_efb_remap_matches_plain(dev, layout, values):
     """csrc/efb_remap.cu against ops/remap.py ``remap_hist``: equal bit for
     bit on dyadic and real values (the default row sums in one order in
     both), with G = 1, a feature alone in its group and a group at 256
-    bins; its loop entries, and a stopped loop writes nothing."""
+    bins, and a group of 700 bins (the 1024-slot tree); its loop entries,
+    and a stopped loop writes nothing."""
     from lightgbm_tpu_torch.ops import remap, remap_kernel
 
     gid, off, nbin, widths = _efb_plan(EFB_LAYOUTS[layout])
@@ -1651,9 +1654,10 @@ def test_efb_remap_matches_plain(dev, layout, values):
         gh, totals = np.round(gh * 64) / 64, np.round(totals * 64) / 64
     gh = torch.tensor(gh, dtype=torch.float32, device=dev)
     totals = torch.tensor(totals, dtype=torch.float32, device=dev)
-    before = remap_kernel.launches["efb_remap"]
+    key = "efb_remap_wide" if B > 256 else "efb_remap"
+    before = remap_kernel.launches[key]
     got = remap_kernel.efb_remap(gh, totals, meta, B)
-    assert remap_kernel.launches["efb_remap"] == before + 1
+    assert remap_kernel.launches[key] == before + 1
     want = remap.remap_hist(gh.cpu(), totals.cpu(), {k: v.cpu() for k, v in meta.items()}, B)
     assert got.cpu().numpy().tobytes() == want.numpy().tobytes()
     # the loop entries on a state: the step's totals from laux[ctl[SMALL]]
@@ -2782,3 +2786,295 @@ def test_forced_cegb_replays_equal_eager(monkeypatch, tmp_path, dev, table):
                 assert feats[0] == "2" and feats[1:3] != ["2", "4"], line
             else:
                 assert feats[:3] == ["0", "2", "3"], line
+
+
+# ---- EFB groups past 256 bins, the pool with EFB, CEGB with the pool (csrc/efb_remap.cu's
+# wide and larger-child instantiations, csrc/partition.cu's int16 and pooled bundled picks,
+# csrc/predict_bins.cu's int16 bundled kernel, csrc/split_pair.cu's pooled kPen all-leaves entry) ----
+
+@pytest.mark.parametrize("layout", ["mixed", "wide"])
+def test_efb_remap_large_returns_at_once_on_a_hit(dev, layout):
+    """The larger child's remap of a pooled bundled step: on a miss
+    (``pool_ctl[RUN]``) ``large[p]`` is the remap of ``large_g[p]`` with
+    ``laux[pool_ctl[LEAF]]``'s sums, equal to the plain version bit for
+    bit; on a hit it writes nothing but the cleared ``large_g[1 - p]``; a
+    stopped loop writes nothing."""
+    from lightgbm_tpu_torch.ops import remap, remap_kernel
+
+    gid, off, nbin, widths = _efb_plan(EFB_LAYOUTS[layout])
+    F, G, Bg, B = len(gid), len(widths), max(widths), int(nbin.max())
+    rng = np.random.RandomState(3)
+    meta = {k: torch.from_numpy(v).to(dev) for k, v in (
+        ("group_id", gid), ("bin_offset", off), ("num_bin", nbin),
+        ("default_bin", np.array([rng.randint(0, nb) for nb in nbin], np.int32)))}
+    s = gs.GrowState(dev, 1000, F, B, 15, 0, G, Bg, P=4)
+    s.feature_meta = dict(meta)
+    s.stream = torch.cuda.current_stream(dev).cuda_stream
+    s.large_g[0].copy_(torch.tensor(rng.randn(G, Bg, 3), dtype=torch.float32))
+    s.laux[6, :3] = torch.tensor(rng.randn(3) * 40, dtype=torch.float32)
+    s.ctl[gs.ACTIVE] = 1
+    s.pool_ctl[gs.RUN], s.pool_ctl[gs.LEAF] = 1, 6
+    key = "efb_remap" + ("_wide" if B > 256 else "") + "_large"
+    for run in (1, 0):
+        s.pool_ctl[gs.RUN] = run
+        s.large_g[1].fill_(7.0)
+        s.large[0].fill_(-1.0)
+        other = s.clone()
+        before = remap_kernel.launches[key]
+        remap_kernel.remap_large(s, 0)
+        assert remap_kernel.launches[key] == before + 1
+        remap.remap_large(other, 0)
+        _same_state(s, other, ("run", run))
+        assert not bool(s.large_g[1].any())
+        assert bool((s.large[0] == -1.0).all()) != bool(run)
+    s.ctl[gs.ACTIVE] = 0
+    s.large_g[1].fill_(7.0)
+    remap_kernel.remap_large(s, 0)
+    assert bool((s.large_g[1] == 7.0).all())
+
+
+def _dense_cegb_inputs(dev, N, F=28, B=255, seed=11):
+    """A dense [F, N] table of B bins (every fourth feature 7 bins) with
+    dyadic gradients and hessians (multiples of 2^-10), its meta and mask."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    num_bin = torch.full((F,), B, dtype=torch.int32, device=dev)
+    num_bin[3::4] = 7
+    bins = (torch.rand((F, N), generator=gen, device=dev) * num_bin[:, None]).to(torch.uint8)
+    grad = torch.randint(-1024, 1025, (N,), generator=gen, device=dev).float() / 1024
+    hess = torch.randint(1, 65, (N,), generator=gen, device=dev).float() / 1024
+    meta = {"num_bin": num_bin,
+            "missing_type": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+            "default_bin": torch.arange(F, dtype=torch.int32, device=dev) % 3,
+            "monotone": torch.zeros(F, dtype=torch.int32, device=dev)}
+    return bins, bins.t().contiguous(), grad, hess, meta, torch.ones(F, dtype=torch.bool,
+                                                                      device=dev)
+
+
+#: (EFB layout or None for the dense table, pool slots, CEGB penalties:
+#: None, "all" three, "split" only or "lazy" only)
+BUNDLED_POOLED = {
+    "wide_bundled": ("wide", 0, None),
+    "pooled_bundled": ("mixed", 6, None),
+    "wide_pooled_bundled": ("wide", 6, None),
+    "wide_pooled_bundled_cegb": ("wide", 6, "all"),
+    "pooled_cegb": (None, 8, "all"),
+    "pooled_cegb_split": (None, 8, "split"),
+    "pooled_cegb_lazy": (None, 8, "lazy"),
+}
+
+
+@pytest.mark.parametrize("variant", sorted(BUNDLED_POOLED))
+def test_bundled_wide_pooled_kernels_match_plain_at_every_step(dev, variant):
+    """A 63-leaf tree at 100k rows on dyadic gradients, one kernel at a
+    time: at the root the lazy pass and the penalised scan (CEGB), then at
+    every step the pick (int16 groups, a pooled bundled table, kExt under
+    coupled CEGB), the lazy pass, both segment histograms, the remaps of
+    both children (the wide instantiation past 256 bins; the larger child's
+    on a pooled step, which returns at once on a hit), the folded scan (by
+    slot; penalised without a pool) and the pooled all-leaves scan (the
+    children every step, after a first payment the other resident leaves,
+    from their slots, the evicted ones' records patched; with a split or a
+    lazy penalty alone, the children only), each against its plain
+    version on a copy: the whole state and the paid features and rows
+    equal. The new instantiations ran."""
+    from lightgbm_tpu_torch.ops import remap, remap_kernel
+    from lightgbm_tpu_torch.ops import split as split_plain
+    from lightgbm_tpu_torch.ops.split import CegbParams
+
+    layout, P, penalties = BUNDLED_POOLED[variant]
+    N, M = 100_000, 63
+    if layout is None:
+        bins, nf, grad, hess, meta, mask = _dense_cegb_inputs(dev, N)
+        F, G, Bg, B = 28, 0, 0, 255
+    else:
+        bins, nf, _, grad, hess, meta, mask, Bg = _efb_inputs(dev, N, EFB_LAYOUTS[layout], 5)
+        F, G, B = meta["num_bin"].numel(), bins.shape[0], int(meta["num_bin"].max())
+    bag = (torch.rand(N, generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+           > 0.2).float()
+    cegb = None
+    if penalties is not None:
+        coupled = np.full(F, 6.0) if penalties == "all" else None
+        lazy = np.full(F, 2e-4) if penalties in ("all", "lazy") else None
+        split = 2e-4 if penalties in ("all", "split") else 0.0
+        cegb = gs.Cegb(CegbParams(1.0, split, coupled is not None, lazy is not None), F, N,
+                       coupled, lazy, dev)
+    s = gs.GrowState(dev, N, F, B, M, 0, G, Bg, P, cegb=cegb is not None)
+    cuda_graph.reset_launches()
+    grow_mod.start_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf, bag=bag,
+                        cegb=cegb)
+
+    def hold(kernel, plain, what):
+        other = s.clone()
+        kernel(s)
+        out = plain(other)
+        _cegb_same(s, other, what)
+        return out
+
+    lazy_pass = cegb is not None and cegb.used_in_data is not None
+    if lazy_pass:
+        hold(lambda st: grow_step_kernel.cegb_lazy(st, root=True),
+             lambda st: grow_step_plain.cegb_lazy(st, root=True), "lazy root")
+    if cegb is not None:
+        hold(lambda st: split_kernel.split_pair_step(st, 1), lambda st: split_pair_step(st, 1),
+             "penalised root")
+    patched = misses = rescans = 0
+    for step in range(M - 1):
+        p = step % 2
+        hold(partition_kernel.pick_partition, _plain_pick_partition, (step, "pick"))
+        if not int(s.ctl[gs.ACTIVE]):
+            break
+        if lazy_pass:
+            hold(grow_step_kernel.cegb_lazy, grow_step_plain.cegb_lazy, (step, "lazy"))
+        hold(lambda st: hist_kernel.histogram_segment(st, p), lambda st: segment_histogram(st, p),
+             (step, "segment"))
+        if P:
+            misses += int(s.pool_ctl[gs.RUN])
+            hold(lambda st: hist_kernel.histogram_segment(st, p, large=True),
+                 lambda st: segment_histogram(st, p, large=True), (step, "large"))
+        if G:
+            hold(lambda st: remap_kernel.remap_step(st, p), lambda st: remap.remap_step(st, p),
+                 (step, "remap"))
+            if P:
+                hold(lambda st: remap_kernel.remap_large(st, p),
+                     lambda st: remap.remap_large(st, p), (step, "remap_large"))
+        hold(lambda st: split_kernel.split_pair_fold(st, p),
+             lambda st: grow_step_plain.split_pair_fold(st, p), (step, "fold"))
+        if s.rescans_all:
+            rescans += 1
+            patched += hold(split_kernel.split_pair_all, split_plain.split_pair_all, (step, "all"))
+    assert int(s.ctl[gs.NUM_LEAVES]) > 20
+    got = cuda_graph.launch_counts()
+    wide = B > 256
+    pick = ("pick_partition" + ("_wide" if wide else "") + ("_pool" if P else "")
+            + ("_ext" if penalties == "all" else "") + ("_efb" if G and (wide or P) else ""))
+    assert got[pick] > 0, got
+    if G:
+        assert got["efb_remap" + ("_wide" if wide else "")] > 0, got
+        if P:
+            assert misses and got["efb_remap" + ("_wide" if wide else "") + "_large"] > 0, got
+    if cegb is not None and P:
+        rows = "_rows1024" if B > hist_kernel.MAX_BYTE_BINS else ""
+        assert got["split_pair_fold%s_pool" % rows] > 0, got
+        assert got["split_pair_all%s_pool" % rows] == rescans == int(s.ctl[gs.NUM_LEAVES]) - 1, got
+        if penalties == "all":
+            assert patched > 0  # an evicted leaf's record on a newly paid feature
+        else:
+            assert patched == 0  # no coupled penalty, no payment to patch
+
+
+def test_predict_bins_wide_bundled_matches_plain(dev):
+    """csrc/predict_bins.cu's int16 bundled instantiation against the plain
+    traversal on a 255-leaf tree of the ``wide`` layout (a group of 700
+    bins): the same leaf and f32 score bit for bit on other rows ([N, G]
+    int16) and on the training rows (there the loop's own leaf_ids), and
+    the unbundled int16 instantiation on the decoded [N, F] rows takes the
+    same leaves."""
+    from lightgbm_tpu_torch.ops import predict as predict_plain
+    from lightgbm_tpu_torch.ops import predict_kernel
+
+    N = 100_000
+    layout = EFB_LAYOUTS["wide"]
+    bins, nf, dense, grad, hess, meta, mask, Bg = _efb_inputs(dev, N, layout, 4)
+    F, G = meta["num_bin"].numel(), bins.shape[0]
+    assert bins.dtype == torch.int16 and Bg == 700
+    s = gs.GrowState(dev, N, F, 700, 255, 0, G, Bg)
+    grow_mod.launch_tree(s, bins, grad, hess, mask, meta, -1, LOOP_PARAMS, True, nf)
+    nodes, nl = s.node_i[:254], s.ctl[gs.NUM_LEAVES:gs.NUM_LEAVES + 1]
+    assert int(nl) == 255 and bool((nodes[:int(nl) - 1, 0] == 0).any())  # the 700-bin feature
+    value = torch.randn(255, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    o_bins, o_nf, o_dense = _efb_inputs(dev, 77_777, layout, 6)[:3]
+    plain_meta = {k: v for k, v in meta.items() if k not in ("group_id", "bin_offset")}
+    for rows, flat in ((o_nf, o_dense.t().contiguous()), (nf, dense.t().contiguous())):
+        n = rows.shape[0]
+        start = torch.randn(n, generator=gen, device=dev)
+        got, want = start.clone(), start.clone()
+        got_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        want_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        flat_leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        before = predict_kernel.launches["predict_bins_wide_efb"]
+        predict_kernel.add_tree_value(rows, nodes, nl, meta, value, got, got_leaf)
+        assert predict_kernel.launches["predict_bins_wide_efb"] == before + 1
+        predict_plain.add_tree_value(rows, nodes, nl, meta, value, want, want_leaf)
+        assert torch.equal(got_leaf, want_leaf) and torch.equal(got, want)
+        predict_kernel.add_tree_value(flat, nodes, nl, plain_meta, value, start.clone(), flat_leaf)
+        assert torch.equal(flat_leaf, got_leaf)
+    assert torch.equal(got_leaf.long(), grow_step_kernel.leaf_ids(s))
+
+
+@pytest.mark.parametrize("case", ["wide_bundled", "pooled_bundled", "pooled_cegb"])
+def test_bundled_wide_pooled_trainings_replay_equal_eager(monkeypatch, dev, case):
+    """Through the captured iteration and in chunks of 4: the model text,
+    scores (and CEGB state) equal the eager launches' on dyadic gradients.
+    ``wide_bundled``: a CSR table whose 1,000-value column takes a group of
+    more than 256 bins at max_bin 1024 (int16 groups), with a bundled
+    validation set; ``pooled_bundled``: one-hot CSR columns under a pool of
+    4 slots; ``pooled_cegb``: a dense table with the three CEGB penalties
+    under a pool of 6 slots. The new instantiations ran."""
+    import scipy.sparse as sp
+
+    import lightgbm_tpu_torch as tlgb
+    from lightgbm_tpu_torch import objective as objective_mod
+    from lightgbm_tpu_torch.bench import train_iterations
+
+    get_gradients = objective_mod.BinaryLogloss.get_gradients
+
+    def dyadic(self, score):
+        g_, h_ = get_gradients(self, score)
+        return torch.round(g_ * 128.0) / 128.0, torch.clamp(torch.round(h_ * 128.0), min=1.0) / 128.0
+
+    monkeypatch.setattr(objective_mod.BinaryLogloss, "get_gradients", dyadic)
+    rng = np.random.RandomState(4)
+    n = 60_000
+    params = {"objective": "binary", "num_leaves": 63, "verbose": -1}
+    hot = np.zeros((n + 10_000, 40))
+    hot[np.arange(len(hot)), rng.randint(0, 40, len(hot))] = 1.0
+    dense = rng.randn(len(hot), 2)
+    wide_col = np.where(rng.rand(len(hot)) < 0.5, 0.0, rng.randint(0, 1000, len(hot)) + 1.0)
+    if case == "pooled_cegb":
+        X = rng.randn(len(hot), 12)
+        y = (X[:, 0] + X[:, 1] ** 2 + 0.3 * rng.randn(len(hot)) > 1).astype(float)
+        F = X.shape[1]
+        params.update(cegb_penalty_split=2e-4, cegb_penalty_feature_coupled=[5.0] * F,
+                      cegb_penalty_feature_lazy=[2e-4] * F,
+                      histogram_pool_size=6.5 * F * 255 * 12 / 2 ** 20)
+    else:
+        X = sp.csr_matrix(np.c_[wide_col if case == "wide_bundled" else dense[:, 0], dense[:, 1],
+                                hot])
+        y = (hot[:, :10].sum(1) + dense[:, 0] + (wide_col > 500) + 0.3 * rng.randn(len(hot))
+             > 1).astype(float)
+        params["max_conflict_rate"] = 0.0
+        if case == "wide_bundled":
+            params.update(max_bin=1024, min_data_in_bin=1)
+        else:
+            params["histogram_pool_size"] = 4.5 * 42 * 255 * 12 / 2 ** 20
+    ds = tlgb.Dataset(X[:n], label=y[:n])
+    valid = tlgb.Dataset(X[n:], label=y[n:], reference=ds)
+    runs = []
+    for graph, chunk in ((True, 1), (False, 1), (True, 4)):
+        bst = tlgb.Booster(dict(params, device_chunk_size=chunk), ds)
+        bst.add_valid(valid, "valid")
+        bst._gbdt.iteration_graph = graph
+        cuda_graph.reset_launches()
+        assert train_iterations(bst, 8, chunk) == 8
+        got = cuda_graph.launch_counts()
+        g = bst._gbdt
+        assert g.captures == (1 if graph else 0) and g.grow_loop == "device"
+        if case == "wide_bundled":
+            assert g.num_groups > 0 and g.hist_width > 256 and g.bins_dev.dtype == torch.int16
+            assert got["pick_partition_wide_efb"] > 0 and got["efb_remap_wide"] > 0, got
+            assert got["predict_bins_wide_efb"] > 0, got
+        elif case == "pooled_bundled":
+            assert g.num_groups > 0 and g.hist_pool_slots == 4
+            assert got["pick_partition_pool_efb"] > 0 and got["efb_remap_large"] > 0, got
+        else:
+            assert g.hist_pool_slots == 6
+            assert got["split_pair_fold_pool"] > 0 and got["split_pair_all_pool"] > 0, got
+        state = ((g._cegb.feature_used.cpu(), g._cegb.used_in_data.cpu()) if g._cegb is not None
+                 else ())
+        runs.append((bst.model_to_string().split("parameters:")[0], g.train_score(),
+                     g.valid_scores[0].cpu(), state))
+    for r in runs[1:]:
+        assert r[0] == runs[0][0] and np.array_equal(r[1], runs[0][1])
+        assert torch.equal(r[2], runs[0][2])
+        assert all(torch.equal(a, b) for a, b in zip(r[3], runs[0][3]))
